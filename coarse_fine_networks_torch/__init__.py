@@ -1,0 +1,11 @@
+"""coarse_fine_networks_torch: the PyTorch / CUDA port of Coarse-Fine
+Networks for NVIDIA Hopper, beside the JAX package it is held against.
+
+Public tensors are channels-last ``(B, T, H, W, C)`` like the JAX package's;
+module names follow the reference's torch ``state_dict``.  Plain tensor code
+is PyTorch; the bottleneck entry is a hand-written CUDA kernel
+(:mod:`.ops.dw_mm_act`).  Entry points run on ``device="cuda"`` unless the
+caller asks for the CPU.
+"""
+
+__version__ = "0.1.0"

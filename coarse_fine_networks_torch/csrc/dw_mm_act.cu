@@ -1,0 +1,275 @@
+// Fused X3D bottleneck entry for Hopper (sm_90a):
+//
+//     y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )        stride 1 or (1,2,2)
+//
+// x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16;
+// W1 (C_in,C_mid) and the depthwise taps (27,C_mid) have x's dtype; sc/bi are
+// the f32 eval batch-norm apply vectors of bn1.
+//
+// Replaces the `mm` modes of two TPU Pallas kernels of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+//   * dw_mm_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1), and
+//   * dw_mm_act_s2 <- _fwd_s2_direct_pcall -> _fwd_s2_direct_kernel
+//     (stride (1,2,2), only the kept quarter of positions is computed),
+// both with the in-tile product _mm_act_tile. Semantics kept from them:
+//   * the activation a is computed from the f32 product and rounded to x's
+//     dtype before the stencil (the TPU tile is stored in x.dtype);
+//   * positions outside the tensor are zero AFTER the activation (SAME
+//     padding), never relu(bi) (_rezero_frame);
+//   * the 27-tap sum accumulates in f32 and is written in x's dtype.
+// The fold4 lane layout is TPU mechanics and is not carried over.
+//
+// What bounds it on this card: bytes. One read of x and one write of y per
+// call is the floor; the product costs C_in MACs and the stencil 27 MACs per
+// output element, far below the ~295 operations per byte where the H100's
+// bf16 tensor cores would become the limit.
+//
+// What the design does about it: the expanded C_mid tensor (2.25x the bytes
+// of x) never goes to device memory. A block owns one (frame segment, output
+// tile, 32-channel chunk); it walks its frames in order and keeps the three
+// activated frames the stencil needs in a shared-memory ring, so each input
+// frame's product is computed once per tile (plus the spatial halo) rather
+// than three times. x is staged 32 input channels at a time with 16-byte
+// loads along C; each lane owns one output channel, so shared-memory reads
+// of the ring and W1 are conflict-free and stores of y are coalesced along C.
+// The product runs on the FP32 cores; moving it to wgmma and overlapping the
+// staging with TMA is later work.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int CC = 32;     // output channels per block, one per lane
+constexpr int KC = 32;     // input channels staged per pass
+constexpr int WARPS = 8;   // 256 threads
+constexpr int TT = 8;      // output frames per block
+
+template <int S> struct Tile;
+template <> struct Tile<1> { static constexpr int OH = 8, OW = 8; };
+template <> struct Tile<2> { static constexpr int OH = 4, OW = 8; };
+
+template <int S> struct Geom {
+  static constexpr int OH = Tile<S>::OH, OW = Tile<S>::OW;
+  static constexpr int HR = S * (OH - 1) + 3;          // halo rows
+  static constexpr int WR = S * (OW - 1) + 3;          // halo cols
+  static constexpr int P = HR * WR;                    // halo positions
+  static constexpr int NPA = (P + WARPS - 1) / WARPS;  // positions per warp
+  static constexpr int NO = OH * OW / WARPS;           // outputs per warp
+  static constexpr size_t SMEM =
+      sizeof(float) * (3 * P * CC + P * KC + KC * CC);
+};
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// 16 bytes of x -> floats
+__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
+  const float* f = reinterpret_cast<const float*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = f[j];
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* out,
+                                       __nv_bfloat16) {
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(WARPS * 32)
+dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                 const T* __restrict__ wdw, const float* __restrict__ sc,
+                 const float* __restrict__ bi, T* __restrict__ y, int B,
+                 int Tn, int H, int W, int Cin, int Cmid, int Ho, int Wo,
+                 int n_tx, int n_tseg) {
+  using G = Geom<S>;
+  constexpr int P = G::P, WR = G::WR;
+  constexpr int VE = 16 / sizeof(T);
+
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                 // [3][P][CC] activated frames
+  float* xs = ring + 3 * P * CC;      // [P][KC]   staged input chunk
+  float* ws = xs + P * KC;            // [KC][CC]  staged W1 chunk
+
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * 32 + lane;
+  const int oy0 = (blockIdx.x / n_tx) * G::OH;
+  const int ox0 = (blockIdx.x % n_tx) * G::OW;
+  const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;  // halo origin
+  const int c0 = blockIdx.y * CC;
+  const int b = blockIdx.z / n_tseg;
+  const int t0 = (blockIdx.z % n_tseg) * TT;
+  const int t1 = min(t0 + TT, Tn);
+  const int c = c0 + lane;
+  const bool cval = c < Cmid;
+
+  const float scv = cval ? sc[c] : 0.f;
+  const float biv = cval ? bi[c] : 0.f;
+  float wt[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
+
+  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) over the halo, zero outside
+  // the tensor (frame, rows, cols) and for channels >= Cmid
+  auto activate = [&](int ti) {
+    float* slot = ring + ((ti % 3 + 3) % 3) * P * CC;
+    if (ti < 0 || ti >= Tn) {  // uniform across the block
+      for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
+      return;
+    }
+    float acc[G::NPA];
+#pragma unroll
+    for (int j = 0; j < G::NPA; ++j) acc[j] = 0.f;
+    const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cin;
+    for (int k0 = 0; k0 < Cin; k0 += KC) {
+      const int kc = min(KC, Cin - k0);  // a multiple of 8
+      __syncthreads();                   // earlier readers of xs/ws are done
+      const int nv = kc / VE;
+      for (int i = tid; i < P * nv; i += WARPS * 32) {
+        const int p = i / nv, v = i % nv;
+        const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+        float vals[VE];
+        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+          const uint4 u = *reinterpret_cast<const uint4*>(
+              xf + ((size_t)gy * W + gx) * Cin + k0 + v * VE);
+          unpack(u, vals, T());
+        } else {
+#pragma unroll
+          for (int j = 0; j < VE; ++j) vals[j] = 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < VE; ++j) xs[p * KC + v * VE + j] = vals[j];
+      }
+      for (int i = tid; i < kc * CC; i += WARPS * 32) {
+        const int k = i / CC, cc = c0 + i % CC;
+        ws[i] = cc < Cmid ? to_f(w1[(size_t)(k0 + k) * Cmid + cc]) : 0.f;
+      }
+      __syncthreads();
+      for (int k = 0; k < kc; k += 4) {
+        const float wa = ws[k * CC + lane], wb = ws[(k + 1) * CC + lane];
+        const float wc = ws[(k + 2) * CC + lane], wd = ws[(k + 3) * CC + lane];
+#pragma unroll
+        for (int j = 0; j < G::NPA; ++j) {
+          const int p = warp + j * WARPS;
+          if (p < P) {
+            const float4 xv = *reinterpret_cast<const float4*>(xs + p * KC + k);
+            acc[j] = fmaf(xv.x, wa, acc[j]);
+            acc[j] = fmaf(xv.y, wb, acc[j]);
+            acc[j] = fmaf(xv.z, wc, acc[j]);
+            acc[j] = fmaf(xv.w, wd, acc[j]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G::NPA; ++j) {
+      const int p = warp + j * WARPS;
+      if (p < P) {
+        const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+        const bool in = cval && gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const float a = fmaxf(fmaf(acc[j], scv, biv), 0.f);
+        slot[p * CC + lane] = in ? to_f(from_f<T>(a)) : 0.f;
+      }
+    }
+  };
+
+  activate(t0 - 1);
+  activate(t0);
+  for (int t = t0; t < t1; ++t) {
+    activate(t + 1);
+    __syncthreads();  // the three frames of the stencil are in the ring
+    const float* fm = ring + (((t - 1) % 3 + 3) % 3) * P * CC;
+    const float* f0 = ring + (t % 3) * P * CC;
+    const float* fp = ring + ((t + 1) % 3) * P * CC;
+#pragma unroll
+    for (int j = 0; j < G::NO; ++j) {
+      const int o = warp + j * WARPS;
+      const int oy = o / G::OW, ox = o % G::OW;
+      float acc = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt) {
+        const float* f = dt == 0 ? fm : (dt == 1 ? f0 : fp);
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) {
+            const int p = (S * oy + dy) * WR + S * ox + dx;
+            acc = fmaf(wt[(dt * 3 + dy) * 3 + dx], f[p * CC + lane], acc);
+          }
+        }
+      }
+      const int gy = oy0 + oy, gx = ox0 + ox;
+      if (cval && gy < Ho && gx < Wo)
+        y[(((size_t)(b * Tn + t) * Ho + gy) * Wo + gx) * Cmid + c] =
+            from_f<T>(acc);
+    }
+    __syncthreads();  // the next activate overwrites frame t-1's slot
+  }
+}
+
+template <typename T, int S>
+int launch(const void* x, const void* w1, const void* wdw, const void* sc,
+           const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
+           int Cmid, cudaStream_t stream) {
+  using G = Geom<S>;
+  // The shared-memory limit is a per-device attribute: set it on every
+  // launch, so the kernel runs on whichever card is current.
+  const cudaError_t e = cudaFuncSetAttribute(
+      dw_mm_act_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)G::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  const int n_ty = (Ho + G::OH - 1) / G::OH, n_tx = (Wo + G::OW - 1) / G::OW;
+  const int n_tseg = (Tn + TT - 1) / TT;
+  const dim3 grid(n_ty * n_tx, (Cmid + CC - 1) / CC, B * n_tseg);
+  dw_mm_act_kernel<T, S><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(wdw), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<T*>(y), B, Tn, H, W, Cin,
+      Cmid, Ho, Wo, n_tx, n_tseg);
+  return (int)cudaGetLastError();
+}
+
+template <int S>
+int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
+             const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
+             int Cmid, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin,
+                                    Cmid, s);
+  return launch<float, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid, s);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns cudaGetLastError()
+// after the launch: 0 means the kernel was launched.
+extern "C" int dw_mm_act_s1(const void* x, const void* w1, const void* wdw,
+                            const void* sc, const void* bi, void* y, int B,
+                            int T, int H, int W, int Cin, int Cmid,
+                            int is_bf16, void* stream) {
+  return dispatch<1>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
+                     stream);
+}
+
+extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
+                            const void* sc, const void* bi, void* y, int B,
+                            int T, int H, int W, int Cin, int Cmid,
+                            int is_bf16, void* stream) {
+  return dispatch<2>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
+                     stream);
+}

@@ -1,0 +1,31 @@
+"""Models of the port: the shared X3D trunk, the fine global tower, the
+coarse stream with Grid Pool / Unpool and fusion, and the joint pipeline."""
+
+from .coarse import CoarseNet, GridPool, MixingLayer, RewightLayer
+from .fine import FineNet
+from .layers import (SqueezeExcite, SubBatchNorm, aggregate_sub_bn_stats,
+                     init_parameters, round_width, swish)
+from .pipeline import CoarseFinePipeline
+from .x3d import (Bottleneck, X3DHead, X3DStage, X3DStem, get_blocks,
+                  get_inplanes)
+
+__all__ = [
+    "Bottleneck",
+    "CoarseFinePipeline",
+    "CoarseNet",
+    "FineNet",
+    "GridPool",
+    "MixingLayer",
+    "RewightLayer",
+    "SqueezeExcite",
+    "SubBatchNorm",
+    "X3DHead",
+    "X3DStage",
+    "X3DStem",
+    "aggregate_sub_bn_stats",
+    "get_blocks",
+    "get_inplanes",
+    "init_parameters",
+    "round_width",
+    "swish",
+]

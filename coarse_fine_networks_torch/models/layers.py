@@ -1,0 +1,169 @@
+"""Shared building blocks of the X3D trunks, channels-last
+``(B, T, H, W, C)`` (counterpart of
+``coarse_fine_networks_tpu/models/layers.py``).
+
+Only evaluation is ported so far: a module in training mode raises
+``NotImplementedError``.  Parameter and buffer names are the reference's
+torch names, so a reference ``state_dict`` loads as it is.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def round_width(width: int, multiplier: float = 0.0625, min_width: int = 8,
+                divisor: int = 8) -> int:
+    """SE squeeze-width rule."""
+    if not multiplier:
+        return int(width)
+    width *= multiplier
+    min_width = min_width or divisor
+    width_out = max(min_width, int(width + divisor / 2) // divisor * divisor)
+    if width_out < 0.9 * width:
+        width_out += divisor
+    return int(width_out)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def pointwise(x: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor | None = None) -> torch.Tensor:
+    """A 1×1×1 conv (weight ``(O, I, 1, 1, 1)``) or a kernel-1 Conv1d
+    (``(O, I, 1)``) on the channel axis of a channels-last tensor, in x's
+    dtype."""
+    w = weight.reshape(weight.shape[0], weight.shape[1]).to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    return nn.functional.linear(x, w, b)
+
+
+def conv3d(x: torch.Tensor, conv: nn.Conv3d) -> torch.Tensor:
+    """Run ``conv`` on a channels-last ``(B, T, H, W, C)`` tensor in x's
+    dtype; the result is channels-last and contiguous."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    y = nn.functional.conv3d(x.permute(0, 4, 1, 2, 3), conv.weight.to(x.dtype),
+                             bias, conv.stride, conv.padding, conv.dilation,
+                             conv.groups)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+class _RunningStats(nn.Module):
+    """Holder of one set of running statistics (the reference's affine-free
+    ``BatchNorm3d``), so the buffers carry the reference's names."""
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+
+class SubBatchNorm(nn.Module):
+    """SlowFast-style split batch norm, eval only.
+
+    ``bn`` holds the eval statistics, ``split_bn`` the per-split running
+    statistics that training keeps (``num_splits·C`` each);
+    :func:`aggregate_sub_bn_stats` merges the latter into the former.  The
+    affine ``weight``/``bias`` are shared by all splits."""
+
+    def __init__(self, num_features: int, num_splits: int = 1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.num_features = num_features
+        self.num_splits = num_splits
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.bn = _RunningStats(num_features)
+        self.split_bn = _RunningStats(num_features * num_splits)
+
+    def scale_bias(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """f32 ``(sc, bi)`` with ``bn(x) == x·sc + bi``:
+        ``sc = weight·rsqrt(var + eps)``, ``bi = bias − mean·sc``."""
+        sc = self.weight.float() * torch.rsqrt(self.bn.running_var + self.eps)
+        bi = self.bias.float() - self.bn.running_mean * sc
+        return sc, bi
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("SubBatchNorm: training is not ported")
+        xf = x.float()
+        xn = (xf - self.bn.running_mean) * torch.rsqrt(
+            self.bn.running_var + self.eps)
+        return (xn * self.weight + self.bias).to(x.dtype)
+
+
+def aggregate_sub_bn_stats(module: nn.Module) -> nn.Module:
+    """Set every :class:`SubBatchNorm`'s eval statistics from its split
+    statistics, in place: the mean over splits, and the mean split variance
+    plus the between-split variance.  Serving applies this to a checkpoint
+    whose training kept only the split statistics."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, SubBatchNorm):
+                c = m.num_features
+                sm = m.split_bn.running_mean.reshape(-1, c)
+                sv = m.split_bn.running_var.reshape(-1, c)
+                n = sm.shape[0]
+                mean = torch.sum(sm, dim=0) / n
+                var = (torch.sum(sv, dim=0) / n
+                       + torch.sum((sm - mean[None, :]) ** 2, dim=0) / n)
+                m.bn.running_mean.copy_(mean)
+                m.bn.running_var.copy_(var)
+    return module
+
+
+def squeeze_excite(x: torch.Tensor, fc1: nn.Conv3d,
+                   fc2: nn.Conv3d) -> torch.Tensor:
+    """SE gate over ``(B, T, H, W, C)``: global mean → fc1 → relu → fc2 →
+    sigmoid → scale."""
+    s = torch.mean(x, dim=(1, 2, 3), keepdim=True)
+    s = torch.relu(pointwise(s, fc1.weight, fc1.bias))
+    s = pointwise(s, fc2.weight, fc2.bias)
+    return x * torch.sigmoid(s)
+
+
+class SqueezeExcite(nn.Module):
+    """SE block: ``fc1`` squeezes ``planes`` to ``round_width(planes)``,
+    ``fc2`` expands back.  In the bottleneck the two convs sit on the block
+    itself (the reference's names ``layerN.M.fc1``); this module is the
+    stand-alone form."""
+
+    def __init__(self, planes: int, width: int | None = None):
+        super().__init__()
+        width = round_width(planes) if width is None else width
+        self.fc1 = nn.Conv3d(planes, width, 1, bias=True)
+        self.fc2 = nn.Conv3d(width, planes, 1, bias=True)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return squeeze_excite(x, self.fc1, self.fc2)
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every weight from ``generator``: Kaiming-normal (fan-out, ReLU
+    gain, the reference's init) for 3-D convs, LeCun-normal for linear and
+    kernel-1 Conv1d layers (flax's ``Dense`` default in the JAX package);
+    biases zero; batch-norm affine and statistics at identity."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv1d, nn.Linear, nn.Conv3d)):
+                w = m.weight
+                if isinstance(m, nn.Conv3d):
+                    std = math.sqrt(2.0 / (w.shape[0] * math.prod(w.shape[2:])))
+                else:
+                    std = math.sqrt(1.0 / w.shape[1])
+                w.copy_(torch.randn(w.shape, generator=generator,
+                                    device=generator.device) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, SubBatchNorm):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                for stats in (m.bn, m.split_bn):
+                    stats.running_mean.zero_()
+                    stats.running_var.fill_(1.0)
+    return module

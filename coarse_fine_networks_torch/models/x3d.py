@@ -1,0 +1,162 @@
+"""X3D trunk building blocks, channels-last ``(B, T, H, W, C)``.
+
+Counterpart of ``coarse_fine_networks_tpu/models/x3d.py`` and
+``models/x3d_fold.py``.  The fold4 layout and the space-to-depth stem of the
+JAX package are TPU mechanics and are not ported: ``conv1_s`` is a plain
+strided conv, and every bottleneck (not only layer1's) enters through the
+fused kernel :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d`, which in eval is
+exactly the plain bottleneck's conv1 → bn1 → relu → conv2.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d
+from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
+                     squeeze_excite, swish)
+
+
+def get_inplanes(version: str) -> list[tuple[int, int]]:
+    """(mid, out) channel widths per stage."""
+    planes = {
+        "S": [(54, 24), (108, 48), (216, 96), (432, 192)],
+        "M": [(54, 24), (108, 48), (216, 96), (432, 192)],
+        "XL": [(72, 32), (162, 72), (306, 136), (630, 280)],
+    }
+    return planes[version]
+
+
+def get_blocks(version: str) -> list[int]:
+    """Bottlenecks per stage."""
+    blocks = {"S": [3, 5, 11, 7], "M": [3, 5, 11, 7], "XL": [5, 10, 25, 15]}
+    return blocks[version]
+
+
+class Bottleneck(nn.Module):
+    """X3D bottleneck: 1×1×1 expand → depthwise 3³ at stride (1,s,s) → SE
+    (even blocks) → swish → 1×1×1 project → residual + ReLU.
+
+    In eval, bn1's statistics fold into f32 ``(sc, bi)`` and the entry
+    conv1 → bn1 → relu → conv2 runs as one kernel."""
+
+    def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
+                 stride: int = 1, use_se: bool = False,
+                 has_downsample: bool = False):
+        super().__init__()
+        s = stride
+        self.stride = stride
+        self.conv1 = nn.Conv3d(in_planes, mid_planes, 1, bias=False)
+        self.bn1 = SubBatchNorm(mid_planes)
+        self.conv2 = nn.Conv3d(mid_planes, mid_planes, 3, stride=(1, s, s),
+                               padding=1, groups=mid_planes, bias=False)
+        self.bn2 = SubBatchNorm(mid_planes)
+        self.use_se = use_se
+        if use_se:
+            width = round_width(mid_planes)
+            self.fc1 = nn.Conv3d(mid_planes, width, 1, bias=True)
+            self.fc2 = nn.Conv3d(width, mid_planes, 1, bias=True)
+        self.conv3 = nn.Conv3d(mid_planes, out_planes, 1, bias=False)
+        self.bn3 = SubBatchNorm(out_planes)
+        self.downsample = None
+        if has_downsample:
+            self.downsample = nn.Sequential(
+                nn.Conv3d(in_planes, out_planes, 1, stride=(1, s, s),
+                          bias=False),
+                SubBatchNorm(out_planes))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError("Bottleneck: training is not ported")
+        c_mid = self.conv1.out_channels
+        sc, bi = self.bn1.scale_bias()
+        w1 = self.conv1.weight.reshape(c_mid, -1).t().to(x.dtype).contiguous()
+        w_dw = (self.conv2.weight.reshape(c_mid, 27).t()
+                .reshape(3, 3, 3, c_mid).to(x.dtype).contiguous())
+        out = dw_mm_bnrelu_conv3d(x, w1, w_dw, sc, bi, self.stride)
+        out = self.bn2(out)
+        if self.use_se:
+            out = squeeze_excite(out, self.fc1, self.fc2)
+        out = swish(out)
+        out = self.bn3(pointwise(out, self.conv3.weight))
+        residual = x
+        if self.downsample is not None:
+            s = self.stride
+            residual = pointwise(x[:, :, ::s, ::s], self.downsample[0].weight)
+            residual = self.downsample[1](residual)
+        return torch.relu(out + residual)
+
+
+class X3DStage(nn.Sequential):
+    """A residual stage: block 0 strides and carries the downsample; SE on
+    even-indexed blocks.  Blocks are named ``0, 1, ...`` (``layerN.M``)."""
+
+    def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
+                 num_blocks: int, stride: int = 2):
+        super().__init__(*[
+            Bottleneck(in_planes if i == 0 else out_planes, mid_planes,
+                       out_planes, stride=stride if i == 0 else 1,
+                       use_se=(i % 2 == 0), has_downsample=(i == 0))
+            for i in range(num_blocks)])
+
+
+class X3DStem(nn.Module):
+    """Stem: spatial ``conv1_s`` (1×3×3, stride (1,2,2)) → depthwise temporal
+    ``conv1_t`` (5×1×1) → ``bn1`` → relu.
+
+    The towers keep these three modules at their own top level, under the
+    reference's names, and run :meth:`forward` on themselves."""
+
+    def __init__(self, planes: int, in_channels: int = 3):
+        super().__init__()
+        self.conv1_s = nn.Conv3d(in_channels, planes, (1, 3, 3),
+                                 stride=(1, 2, 2), padding=(0, 1, 1),
+                                 bias=False)
+        self.conv1_t = nn.Conv3d(planes, planes, (5, 1, 1), padding=(2, 0, 0),
+                                 groups=planes, bias=False)
+        self.bn1 = SubBatchNorm(planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv3d(conv3d(x, self.conv1_s), self.conv1_t)
+        return torch.relu(self.bn1(x))
+
+
+class X3DHead(nn.Module):
+    """``conv5`` (1×1×1) → ``bn5`` → relu.  Kept at the towers' top level
+    like :class:`X3DStem`."""
+
+    def __init__(self, in_planes: int, out_planes: int):
+        super().__init__()
+        self.conv5 = nn.Conv3d(in_planes, out_planes, 1, bias=False)
+        self.bn5 = SubBatchNorm(out_planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.bn5(pointwise(x, self.conv5.weight)))
+
+
+class X3DTrunk(nn.Module):
+    """Stem, four stages and head with the reference's top-level names
+    (``conv1_s``, ``conv1_t``, ``bn1``, ``layer1``–``layer4``, ``conv5``,
+    ``bn5``), shared by :class:`..fine.FineNet` and
+    :class:`..coarse.CoarseNet`."""
+
+    def __init__(self, version: str = "M"):
+        super().__init__()
+        planes, blocks = get_inplanes(version), get_blocks(version)
+        stem = X3DStem(planes[0][1])
+        self.conv1_s, self.conv1_t, self.bn1 = (stem.conv1_s, stem.conv1_t,
+                                                stem.bn1)
+        in_planes = planes[0][1]
+        for i, ((mid, out), n) in enumerate(zip(planes, blocks)):
+            self.add_module(f"layer{i + 1}",
+                            X3DStage(in_planes, mid, out, n, stride=2))
+            in_planes = out
+        head = X3DHead(planes[3][1], planes[3][0])
+        self.conv5, self.bn5 = head.conv5, head.bn5
+
+    def stem(self, x: torch.Tensor) -> torch.Tensor:
+        return X3DStem.forward(self, x)
+
+    def head(self, x: torch.Tensor) -> torch.Tensor:
+        return X3DHead.forward(self, x)

@@ -1,0 +1,28 @@
+"""Numeric ops of the port: plain PyTorch functions on channels-last
+tensors, and the hand-written bottleneck-entry kernel
+(:mod:`.dw_mm_act`)."""
+
+from .dw_mm_act import dw_mm_bnrelu_conv3d, dw_mm_bnrelu_conv3d_plain
+from .gaussian import gaussian_alignment
+from .grid_pool import cdf_knots
+from .pools import (adaptive_avg_pool_spatial, adaptive_max_pool_spatial,
+                    spatial_replicate)
+from .resample import (hat_matrix, interp1d, inverse_cdf, linear_resize,
+                       temporal_resample)
+from .reweight import reweight_aggregate
+
+__all__ = [
+    "adaptive_avg_pool_spatial",
+    "adaptive_max_pool_spatial",
+    "cdf_knots",
+    "dw_mm_bnrelu_conv3d",
+    "dw_mm_bnrelu_conv3d_plain",
+    "gaussian_alignment",
+    "hat_matrix",
+    "interp1d",
+    "inverse_cdf",
+    "linear_resize",
+    "reweight_aggregate",
+    "spatial_replicate",
+    "temporal_resample",
+]

@@ -5,27 +5,41 @@ Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
-   versions, and the build of the hand-written kernels from ``csrc/``;
-2. kernels: each fused bottleneck-entry kernel against its plain PyTorch
-   version on the card, at the 16 entry shapes the serve phase gives it
-   (batch 3 at 224²; the fine tower at T_f=128, the coarse tower at T=64
-   in layer1 and T=17 after Grid Pool, which leaves a short last frame
-   segment), in f32 (TF32 off) and bf16, with timings of the kernel, the
-   plain version and the unfused PyTorch sequence (no single PyTorch call
-   computes this function);
-3. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
+   versions, and the build of the hand-written kernels from ``csrc/`` (one
+   ``nvcc`` per source, started together);
+2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
+   against its plain PyTorch version on the card, at the 16 entry shapes
+   the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
+   the coarse tower at T=64 in layer1 and T=17 after Grid Pool, which
+   leaves a short last frame segment); then each train kernel (the forward
+   ``dw_act_s1/s2``, dx ``dw_act_dx_s1/s2`` and weight gradient
+   ``dw_act_wgrad_s1/s2``) at the 8 coarse entry shapes the train step
+   gives it (batch 8; T=64 in layer1, T=17 after Grid Pool); all in f32
+   (TF32 off) and bf16, with timings of the kernel, the plain version, the
+   unfused PyTorch sequence and the nearest single PyTorch call;
+3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
+   autograd through the plain composition, f32, one shape per stride;
+4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
    weights) behind ``CachingVideoServer`` on the card, at full width:
    three cold requests (two at T=64/T_f=128, one at T=50/T_f=100 that pads
    into the same bucket) and their cache-hit repeats without fine pixels;
-   the kernels' launch counters are read for this run;
-4. profile: the device-time breakdown of one cold batch under
+   the kernels' launch counters are read for this run (no train kernel);
+5. profile: the device-time breakdown of one cold batch under
    ``torch.profiler`` (kernel time by name, the card's busy share);
-5. card_vs_cpu: one small f32 request through the port on the card and on
+6. card_vs_cpu: one small f32 request through the port on the card and on
    the CPU (probabilities, feature banks and the coarse logits);
-6. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+7. train: the coarse train step at full width (X3D-M, 157 classes, B=8,
+   T=64, 224², bf16 activations, f32 parameters, fine banks at T_f=128,
+   label length 640, lr 0.02, fusion ×10, dropout 0.5), 2 warm-up steps
+   and 10 timed ones, its launch counters read for the timed steps (22
+   stride-1 and 4 stride-2 launches of each train kernel per step, no eval
+   kernel), then a ``torch.profiler`` breakdown of one step;
+8. train_card_vs_cpu: one small f32 train step on the card and on the CPU
+   from the same weights (loss and every parameter's gradient);
+9. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises and the script exits non-zero before the last line.
@@ -70,11 +84,28 @@ TOWERS = {
     "fine": ({"layer1": 128, "layer2": 128, "layer3": 128, "layer4": 128}, 1),
     "coarse": ({"layer1": 64, "layer2": 17, "layer3": 17, "layer4": 17}, 2),
 }
+_DW_FOLD = "coarse_fine_networks_tpu/ops/pallas/dw_fold.py"
 REPLACES = {
-    "dw_mm_act_s1": "coarse_fine_networks_tpu/ops/pallas/dw_fold.py:532",
-    "dw_mm_act_s2": "coarse_fine_networks_tpu/ops/pallas/dw_fold.py:1078",
+    "dw_mm_act_s1": f"{_DW_FOLD}:532",     # _dw_fold4_pcall, mm mode
+    "dw_mm_act_s2": f"{_DW_FOLD}:1078",    # _fwd_s2_direct_pcall, mm mode
+    "dw_act_s1": f"{_DW_FOLD}:532",        # _dw_fold4_pcall, act mode
+    "dw_act_s2": f"{_DW_FOLD}:1078",       # _fwd_s2_direct_pcall, act mode
+    "dw_act_dx_s1": f"{_DW_FOLD}:615",     # _dx_act_pcall
+    "dw_act_dx_s2": f"{_DW_FOLD}:660",     # _dx_s2_act_pcall
+    "dw_act_wgrad_s1": f"{_DW_FOLD}:705",  # _dw_fold4_wgrad_pcall, act mode
+    "dw_act_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, act mode
 }
-SOURCE = "coarse_fine_networks_torch/csrc/dw_mm_act.cu"
+_CSRC = "coarse_fine_networks_torch/csrc/"
+SOURCES = {k: _CSRC + ("dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
+                       else "dw_mm_act.cu") for k in REPLACES}
+MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
+# the train step: batch, frames per stage (layers 2-4 run on the T/4+1
+# frames Grid Pool keeps), fine banks, label length
+TRAIN = dict(b=8, t=64, hw=224, tf=128, tl=640, n_classes=157, lr=0.02,
+             fusion_lr_mult=10.0, warmup=2, steps=10)
+TRAIN_FRAMES = {"layer1": 64, "layer2": 17, "layer3": 17, "layer4": 17}
+BANKS = (("layer1", 24), ("layer2", 48), ("layer3", 96), ("layer4", 192),
+         ("conv5", 432))
 
 
 class CheckFailed(RuntimeError):
@@ -117,13 +148,15 @@ def entry_cases():
                    h_s1, h_s1, cin_s1, c_mid, 1, (n - 1) * calls)
 
 
-def phase_device(dw_mm_act) -> str:
+def phase_device() -> str:
+    from coarse_fine_networks_torch.ops import _build, dw_act
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    dw_mm_act.build()
+    _build.build_all(dw_act.LIBRARIES)
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -134,10 +167,7 @@ def phase_device(dw_mm_act) -> str:
 
 def phase_kernels(dw_mm_act) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
-    per_kernel = {k: {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0,
-                      "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-                      "max_abs_err": 0.0, "max_abs_err_f32": 0.0,
-                      "launches": 0} for k in REPLACES}
+    per_kernel = {k: _agg() for k in MM_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         for name, label, b, t, h, w, c_in, c_mid, s, n in entry_cases():
             def rnd(*shape, scale=1.0):
@@ -211,12 +241,350 @@ def phase_kernels(dw_mm_act) -> dict:
     return per_kernel
 
 
+def _agg() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "nearest_ms": 0.0,
+            "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+            "max_abs_err": 0.0, "max_abs_err_f32": 0.0, "launches": 0}
+
+
+def _bound(nbytes: float, ops: float, dtype) -> dict:
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    ops_ms = ops / PEAK_OPS[dtype] * 1e3
+    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def train_entry_cases():
+    """(label, B, T, H, C, stride, launches per train step) of the 8 coarse
+    entry shapes the train step gives the act-mode kernels (x is conv1's
+    output, C = C_mid)."""
+    for layer, h_s2, _, h_s1, _, c_mid, n in ENTRY_SHAPES:
+        t = TRAIN_FRAMES[layer]
+        yield f"{layer}.0", TRAIN["b"], t, h_s2, c_mid, 2, 1
+        yield f"{layer}.1-{n - 1}", TRAIN["b"], t, h_s1, c_mid, 1, n - 1
+
+
+def _rel_err(got, ref) -> tuple[float, float]:
+    err = (got.float() - ref.float()).abs().max().item()
+    return err, ref.float().abs().max().item()
+
+
+def phase_train_kernels(dw_act) -> dict:
+    """The six train kernels against their plain versions, and timed, at
+    the train step's coarse entry shapes."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    per_kernel = {f"dw_act{p}_s{s}": _agg() for p in ("", "_dx", "_wgrad")
+                  for s in (1, 2)}
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, t, h, c, s, n in train_entry_cases():
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") * scale
+            ho = (h - 1) // s + 1
+            x = rnd(b, t, h, h, c).to(dtype)
+            w = rnd(3, 3, 3, c, scale=27 ** -0.5).to(dtype)
+            g = rnd(b, t, ho, ho, c).to(dtype)
+            sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bi = rnd(c)  # about half negative: the zero frame matters
+            w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+            ncdhw = (0, 4, 1, 2, 3)
+            a = torch.relu(x.float() * sc + bi).to(dtype)
+            conv = dict(stride=(1, s, s), padding=1, groups=c)
+            bw = ([1, s, s], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c)
+
+            def conv_bwd(mask, a=a):
+                return torch.ops.aten.convolution_backward(
+                    g.permute(ncdhw), a.permute(ncdhw), w_conv, None, *bw,
+                    mask)
+
+            def unfused_fwd():
+                act = torch.relu(x.float() * sc + bi).to(dtype)
+                return F.conv3d(act.permute(ncdhw), w_conv, **conv)
+
+            def unfused_dx():
+                da = conv_bwd([True, False, False])[0]
+                da = da.permute(0, 2, 3, 4, 1).float()
+                xf = x.float()
+                dam = torch.where(xf * sc + bi > 0, da, 0.0)
+                return ((dam * sc).to(dtype), torch.sum(dam * xf, (0, 1, 2, 3)),
+                        torch.sum(dam, (0, 1, 2, 3)))
+
+            def unfused_wgrad():
+                act = torch.relu(x.float() * sc + bi).to(dtype)
+                return conv_bwd([False, True, False], act)[1]
+
+            n_x, n_g = x.numel(), g.numel()
+            esz = x.element_size()
+            vec = 2 * c * 4
+            cases = {
+                f"dw_act_s{s}": (
+                    lambda: dw_act.dw_bnrelu_conv3d(x, w, sc, bi, s),
+                    lambda: dw_act.dw_bnrelu_conv3d_plain(x, w, sc, bi, s),
+                    unfused_fwd, lambda: F.conv3d(a.permute(ncdhw), w_conv,
+                                                  **conv),
+                    "F.conv3d(groups=C) on the activated input",
+                    (n_x + n_g + w.numel()) * esz + vec,
+                    2 * 27 * n_g + 3 * n_x),
+                f"dw_act_dx_s{s}": (
+                    lambda: dw_act.dw_act_dx(g, x, w, sc, bi, s),
+                    lambda: dw_act.dw_act_dx_plain(g, x, w, sc, bi, s),
+                    unfused_dx, lambda: conv_bwd([True, False, False]),
+                    "aten.convolution_backward, input gradient only",
+                    (2 * n_x + n_g + w.numel()) * esz + vec + 2 * c * 4,
+                    2 * 27 * n_g + 6 * n_x),
+                f"dw_act_wgrad_s{s}": (
+                    lambda: dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                    lambda: dw_act.dw_act_wgrad_plain(x, g, sc, bi, s),
+                    unfused_wgrad, lambda: conv_bwd([False, True, False]),
+                    "aten.convolution_backward, weight gradient only",
+                    (n_x + n_g) * esz + vec + 27 * c * 4,
+                    2 * 27 * n_g + 3 * n_x),
+            }
+            for name, (kern, plain, unfused, nearest, near_what, nbytes,
+                       ops) in cases.items():
+                got, ref = kern(), plain()
+                torch.cuda.synchronize()
+                got = got if isinstance(got, tuple) else (got,)
+                ref = ref if isinstance(ref, tuple) else (ref,)
+                errs = [_rel_err(a_, b_) for a_, b_ in zip(got, ref)]
+                check(all(a_.shape == b_.shape for a_, b_ in zip(got, ref)),
+                      f"{name} {label} {dtype}: shapes differ")
+                err = max(e for e, _ in errs)
+                tol_ok = all(e <= TOL[dtype] * max(m, 1.0) for e, m in errs)
+                ms = cuda_ms(kern, 20)
+                plain_ms = cuda_ms(plain, 3, 1)
+                unfused_ms = cuda_ms(unfused, 10)
+                nearest_ms = cuda_ms(nearest, 10)
+                row = {"phase": "kernels", "kernel": name, "entry":
+                       f"coarse.{label}", "dtype": str(dtype)[6:],
+                       "x": [b, t, h, h, c], "stride": s,
+                       "train_launches_per_step": n, "max_abs_err": err,
+                       "max_abs_err_by_output": [e for e, _ in errs],
+                       "ref_absmax_by_output": [m for _, m in errs],
+                       "ms": ms, "plain_ms": plain_ms,
+                       "unfused_ms": unfused_ms, "nearest_ms": nearest_ms,
+                       "nearest_call": near_what, "library_ms": None,
+                       **_bound(nbytes, ops, dtype)}
+                emit(row)
+                check(tol_ok, f"{name} {label} {dtype}: errors {errs}")
+                agg = per_kernel[name]
+                if dtype == torch.bfloat16:
+                    # the trained dtype: each shape weighted by its launches
+                    # in one train step, so the sums are one step's work
+                    for key in ("ms", "plain_ms", "unfused_ms", "nearest_ms",
+                                "bytes_ms", "ops_ms", "bound_ms"):
+                        agg[key] += n * row[key]
+                    agg["launches"] += n
+                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                else:
+                    agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
+            del x, g, a
+        torch.cuda.empty_cache()
+    return per_kernel
+
+
+def phase_autograd(dw_act) -> None:
+    """The train entry's autograd Function against autograd through the
+    plain composition relu(x·sc + bi) → grouped F.conv3d, f32 (TF32 off), at
+    layer2's train shapes (stride 2 and stride 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for s, h in ((2, 56), (1, 28)):
+        b, t, c = TRAIN["b"], TRAIN_FRAMES["layer2"], 108
+        ho = (h - 1) // s + 1
+        x = torch.randn((b, t, h, h, c), generator=gen, device="cuda")
+        w = torch.randn((3, 3, 3, c), generator=gen, device="cuda") / 5
+        sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bi = torch.randn(c, generator=gen, device="cuda")
+        g = torch.randn((b, t, ho, ho, c), generator=gen, device="cuda")
+        leaves = [v.clone().requires_grad_() for v in (x, w, sc, bi)]
+        y = dw_act.dw_bnrelu_conv3d_train(*leaves, s)
+        y.backward(g)
+        ref_leaves = [v.clone().requires_grad_() for v in (x, w, sc, bi)]
+        xr, wr, scr, bir = ref_leaves
+        a = torch.relu(xr * scr + bir)
+        yr = F.conv3d(a.permute(0, 4, 1, 2, 3),
+                      wr.permute(3, 0, 1, 2).unsqueeze(1), stride=(1, s, s),
+                      padding=1, groups=c).permute(0, 2, 3, 4, 1)
+        yr.backward(g)
+        torch.cuda.synchronize()
+        errs = {"y": _rel_err(y, yr)}
+        for name, got, ref in zip(("dx", "dw", "dsc", "dbi"), leaves,
+                                  ref_leaves):
+            errs[name] = _rel_err(got.grad, ref.grad)
+        rel = {k: e / max(m, 1e-30) for k, (e, m) in errs.items()}
+        emit({"phase": "autograd", "stride": s, "x": [b, t, h, h, c],
+              "dtype": "float32", "max_rel_err": rel, "rel_tol": 1e-4})
+        # f32 both sides; dw, dsc and dbi are sums over 8·17·28²..56²
+        # positions taken in other orders
+        check(max(rel.values()) <= 1e-4, f"autograd stride {s}: {rel}")
+
+
+def _train_batch(device, gen, b, t, hw, tf, tl, n_classes, dtype):
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+    return {
+        "clips": rand(b, t, hw, hw, 3).to(dtype),
+        "feats": {k: rand(b, tf, 7, 7, c) for k, c in BANKS},
+        "feat_mask": torch.ones((b, tf), device=device),
+        "meta": torch.tensor([[0, t, 2 * t, 1]] * b, dtype=torch.int32,
+                             device=device),
+        "labels": (rand(b, tl, n_classes) > 0.9).float(),
+        "masks": torch.ones((b, tl), device=device),
+    }
+
+
+def phase_train(dw_act, dw_mm_act) -> dict:
+    """The coarse train step at full width on the card; returns the train
+    kernels' launches in the timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    c = TRAIN
+    t0 = time.perf_counter()
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5),
+                            torch.Generator().manual_seed(0)).cuda()
+    batch = _train_batch("cuda", torch.Generator(device="cuda").manual_seed(1),
+                         c["b"], c["t"], c["hw"], c["tf"], c["tl"],
+                         c["n_classes"], torch.bfloat16)
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(2)
+    build_s = time.perf_counter() - t0
+
+    losses = []
+    for _ in range(c["warmup"]):
+        state, m = step(state, batch, c["lr"], drop)
+        losses.append(m["loss"].item())
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dw_act.reset_launches()
+    dw_mm_act.reset_launches()
+    step_ms = []
+    for _ in range(c["steps"]):
+        t1 = time.perf_counter()
+        state, m = step(state, batch, c["lr"], drop)
+        loss = m["loss"].item()  # waits for the step
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        losses.append(loss)
+    launches = dict(dw_act.LAUNCHES)
+    mm_launches = dict(dw_mm_act.LAUNCHES)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = model.state_dict()
+
+    params = dict(model.named_parameters())
+    moved = [k for k in params if not torch.equal(after[k], before[k])]
+    nonfinite = [k for k, v in after.items()
+                 if v.is_floating_point() and not torch.isfinite(v).all()]
+    split = [k for k in after if "split_bn" in k]
+    stuck = [k for k in split if torch.equal(after[k], before[k])]
+    n = c["steps"]
+    want = {k: n * (22 if k.endswith("_s1") else 4) for k in launches}
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        state, m = step(state, batch, c["lr"], drop)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    ours = ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
+            "wgrad_kernel")
+    by_ours = {o: sum(e.self_device_time_total for e in kernels
+                      if o in e.key) / 1e3 for o in ours}
+    ours_ms = sum(by_ours.values())
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    mean_ms = sum(step_ms) / len(step_ms)
+    emit({"phase": "train", "model": "X3D-M", "n_classes": c["n_classes"],
+          "dtype": "bfloat16 activations, float32 parameters",
+          "B": c["b"], "T": c["t"], "input_hw": c["hw"], "T_f": c["tf"],
+          "label_len": c["tl"], "lr": c["lr"],
+          "fusion_lr_mult": c["fusion_lr_mult"], "dropout": 0.5,
+          "losses": losses, "step_ms": step_ms, "mean_step_ms": mean_ms,
+          "clips_per_s": c["b"] / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+          "launches": launches, "eval_kernel_launches": mm_launches,
+          "params_moved": f"{len(moved)}/{len(params)}",
+          "split_stats_unchanged": stuck, "model_build_s": build_s})
+    emit({"phase": "train_profile", "what": "one train step, B8 T64 224² "
+                                            "bf16",
+          "wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
+          "device_busy_share": device_ms / wall_ms if wall_ms else None,
+          "new_kernels_ms": by_ours, "new_kernels_share":
+          ours_ms / device_ms if device_ms else None,
+          "kernel_launches": sum(e.count for e in kernels),
+          "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                  for e in top]})
+    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
+    check(not nonfinite, f"non-finite parameters or stats: {nonfinite[:5]}")
+    check(len(moved) == len(params),
+          f"parameters that did not move: "
+          f"{[k for k in params if k not in moved][:5]}")
+    check(split and not stuck, f"split statistics unchanged: {stuck[:5]}")
+    check(launches == want, f"train launches {launches} != {want}")
+    check(not any(mm_launches.values()),
+          f"the train step launched eval kernels: {mm_launches}")
+    return launches
+
+
+def phase_train_card_vs_cpu() -> None:
+    """One small f32 train step (X3D-M, 157 classes, B=2, T=8, 64²,
+    T_f=16, label length 32, dropout 0) on the card and on the CPU from the
+    same weights: the loss, and every parameter's gradient."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    cpu = init_parameters(CoarseNet("M", 157, dropout_rate=0.0),
+                          torch.Generator().manual_seed(7))
+    gpu = CoarseNet("M", 157, dropout_rate=0.0).cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    batch = _train_batch("cpu", torch.Generator().manual_seed(8), 2, 8, 64,
+                         16, 32, 157, torch.float32)
+    out = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        step = make_train_step(model, align_corners=False,
+                               fusion_lr_mult=10.0)
+        _, m = step(TrainState.create(model), batch, 0.02)
+        out[name] = (m["loss"].item(),
+                     {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters()})
+    (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
+    rel = {k: ((g[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
+           .item() for k, v in g_ref.items()}
+    num = sum(float(((g[k] - v).double() ** 2).sum()) for k, v in g_ref.items())
+    den = sum(float((v.double() ** 2).sum()) for v in g_ref.values())
+    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
+    emit({"phase": "train_card_vs_cpu", "dtype": "float32", "input_hw": 64,
+          "B": 2, "T": 8, "loss_cpu": loss_ref, "loss_card": loss,
+          "loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
+          "grad_global_rel_l2": (num / den) ** 0.5,
+          "grad_median_rel_max_err": float(np.median(list(rel.values()))),
+          "grad_worst_rel_max_err": worst})
+    # the forward loss: f32 sums in other orders.  The gradients: a relu
+    # input within f32 rounding of 0 can take the other branch on the
+    # other device, and batch norm over 24 elements at layer4 amplifies it;
+    # the JAX package's own two trunk layouts differ by 4e-2 (relative L2
+    # per stage) at this size on the CPU, so the bound is on the whole
+    # gradient, at that level
+    check(abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
+          f"train loss card {loss} vs CPU {loss_ref}")
+    check((num / den) ** 0.5 <= 5e-2,
+          f"train gradients card vs CPU: relative L2 {(num / den) ** 0.5}")
+
+
 def _clip(rng: torch.Generator, t: int, hw: int):
     return torch.rand((t, hw, hw, 3), generator=rng).numpy()
 
 
-def phase_serve(dw_mm_act, want: dict) -> dict:
-    """``want``: the launches of each kernel the counted run must make."""
+def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
+    """``want``: the launches of each kernel the counted run must make; the
+    train kernels must make none."""
     from coarse_fine_networks_torch.models import CoarseFinePipeline
     from coarse_fine_networks_torch.serve import (CachingVideoServer,
                                                   FeatureCache)
@@ -257,6 +625,7 @@ def phase_serve(dw_mm_act, want: dict) -> dict:
         torch.cuda.reset_peak_memory_stats()
 
         dw_mm_act.reset_launches()
+        dw_act.reset_launches()
         lat, cold, hit = {}, {}, {}
         t1 = time.perf_counter()
         futs = {v: server.submit(clips[v], fine[v], video_id=v)
@@ -270,6 +639,7 @@ def phase_serve(dw_mm_act, want: dict) -> dict:
             hit[v] = f.result(timeout=600)
             lat["hit_" + v] = (time.perf_counter() - t1) * 1e3
         launches = dict(dw_mm_act.LAUNCHES)
+        train_launches = dict(dw_act.LAUNCHES)
     finally:
         server.stop()
 
@@ -289,12 +659,15 @@ def phase_serve(dw_mm_act, want: dict) -> dict:
     # per extract or fuse call: 26 bottlenecks, 4 of them stride 2; the cold
     # batch runs extract + fuse, the hit batch fuse only
     check(launches == want, f"launches {launches} != {want}")
+    check(not any(train_launches.values()),
+          f"serving launched train kernels: {train_launches}")
     emit({"phase": "serve", "model": "X3D-M", "n_classes": 157,
           "dtype": "bfloat16", "input_hw": 224,
           "videos": {v: {"T": t, "T_f": tf} for v, (t, tf) in videos.items()},
           "batch_sizes": server.batch_sizes, "latency_ms": lat,
           "extract_ms": times["extract"], "fuse_ms": times["fuse"],
-          "launches": launches, "hit_max_abs_diff": hit_err,
+          "launches": launches, "train_kernel_launches": train_launches,
+          "hit_max_abs_diff": hit_err,
           "prob_range": [float(min(c.min() for c in cold.values())),
                          float(max(c.max() for c in cold.values()))],
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -402,22 +775,28 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from coarse_fine_networks_torch.ops import dw_mm_act
+    from coarse_fine_networks_torch.ops import dw_act, dw_mm_act
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = phase_device(dw_mm_act)
+    smi = phase_device()
     per_kernel = phase_kernels(dw_mm_act)
+    per_kernel.update(phase_train_kernels(dw_act))
+    phase_autograd(dw_act)
     launches, pipe = phase_serve(
-        dw_mm_act, {k: agg["launches"] for k, agg in per_kernel.items()})
+        dw_mm_act, dw_act, {k: per_kernel[k]["launches"] for k in MM_KERNELS})
     phase_profile(pipe)
     del pipe
     phase_card_vs_cpu()
+    launches.update(phase_train(dw_act, dw_mm_act))
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu()
 
     kernels = []
     for name, agg in per_kernel.items():
+        train = name not in MM_KERNELS
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": agg["max_abs_err"],
             "max_abs_err_f32": agg["max_abs_err_f32"],
@@ -426,10 +805,16 @@ def main() -> int:
             "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                          else "operations"),
             "library_ms": None, "unfused_ms": agg["unfused_ms"],
-            "timed_at": "bf16 at the serve phase's entry shapes (B=3, 224²; "
-                        "fine T_f=128; coarse T=64, then T=17 after Grid "
-                        "Pool), each time weighted by its launches in the "
-                        "counted serve run and summed"})
+            **({"nearest_call_ms": agg["nearest_ms"]} if train else {}),
+            "timed_at": (
+                "bf16 at the train step's 8 coarse entry shapes (B=8, 224²; "
+                "T=64 in layer1, then T=17 after Grid Pool), each time "
+                "weighted by its launches in one train step and summed; "
+                "launches: the 10 timed train steps" if train else
+                "bf16 at the serve phase's entry shapes (B=3, 224²; "
+                "fine T_f=128; coarse T=64, then T=17 after Grid Pool), "
+                "each time weighted by its launches in the counted serve "
+                "run and summed")})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

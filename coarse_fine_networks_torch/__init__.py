@@ -3,8 +3,10 @@ Networks for NVIDIA Hopper, beside the JAX package it is held against.
 
 Public tensors are channels-last ``(B, T, H, W, C)`` like the JAX package's;
 module names follow the reference's torch ``state_dict``.  Plain tensor code
-is PyTorch; the bottleneck entry is a hand-written CUDA kernel
-(:mod:`.ops.dw_mm_act`).  Entry points run on ``device="cuda"`` unless the
+is PyTorch; the bottleneck entry is hand-written CUDA, in eval
+(:mod:`.ops.dw_mm_act`) and in training with its backward
+(:mod:`.ops.dw_act`).  Joint serving is :mod:`.serve`, the coarse stream's
+train step :mod:`.train`.  Entry points run on ``device="cuda"`` unless the
 caller asks for the CPU.
 """
 

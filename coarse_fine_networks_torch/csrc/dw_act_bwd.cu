@@ -1,0 +1,453 @@
+// Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a):
+//
+//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )
+//
+// x (B,T,H,W,C) is the conv1 output, channels-last, f32 or bf16; the
+// depthwise taps w (27,C) have x's dtype; sc/bi are bn1's f32 per-channel
+// apply vectors from the batch statistics. g is dL/dy (y's shape and dtype).
+//
+// Four kernels, each replacing a TPU Pallas kernel of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (the backward of
+// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on):
+//   * dw_act_dx_s1    <- _dx_act_pcall -> _fwd_kernel(actmask)
+//   * dw_act_dx_s2    <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
+//   * dw_act_wgrad_s1 <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
+//   * dw_act_wgrad_s2 <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
+//
+// dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
+//              stride 2 the half-resolution gather
+//              da[t,r,c] = sum w[dt,dy,dx] g[t-dt+1, (r-dy+1)/2, (c-dx+1)/2]
+//              over the terms whose divisions are integral (dw_fold.py:825);
+//        dam = da * 1[x*sc + bi > 0], the mask compared in f32 with x*sc and
+//              + bi each rounded (no fused multiply-add), as PyTorch's two
+//              elementwise ops round them: kernel, plain version and the
+//              forward's activation take the same relu branch even for
+//              inputs within one rounding of 0 (at 3.5e8 elements a few
+//              dozen are, and a flipped mask is an O(1) error in dx);
+//        out: dx = dam*sc in x's dtype, and per block the f32 partial sums
+//             (sum dam*x, sum dam) per channel -> (dsc, dbi).
+// wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
+//        rounded, zero-padded activation as the forward, summed in f32; per
+//        block an f32 partial (27, C).
+//
+// Reductions: no atomics. Each block writes its partial sums to its own row
+// of a (rows, k, C) buffer after a fixed-order sum over its warps; the
+// wrapper sums the rows with one torch.sum, so runs repeat bit for bit.
+//
+// What bounds them on this card: bytes. dx reads g and x and writes dx
+// (27 MACs per element); wgrad reads x and g (27 MACs per element). Both sit
+// far below the ~295 operations per byte where the H100's tensor cores
+// would become the limit, and the stencil's MACs run on the FP32 cores.
+//
+// What the design does about it: the layout of dw_mm_act.cu. A block owns
+// (frame segment, spatial tile, 32-channel chunk), walks its frames in
+// order, and keeps the three frames its stencil reads (g for dx, the
+// activated x for wgrad) in a shared-memory ring, so each frame is read once
+// per tile plus a halo. Each lane owns one channel: ring reads are
+// conflict-free, loads and stores of channels-last tensors are contiguous
+// along C. Loads are per element because C = 54, 108, ... is no multiple of
+// 8. The activation, the mask and both reductions are fused in, so neither
+// a nor da ever goes to device memory.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace cfn;
+
+constexpr int TT_DX = 8;  // frames per block, dx
+constexpr int TT_WG = 16; // frames per block, wgrad (fewer partial rows)
+
+// ---- geometry ---------------------------------------------------------------
+// dx at stride 1 and both wgrads use StencilGeom<S> (common.cuh), the
+// forward's tiles, over the stencil's output resolution.
+template <int S> using SGeom = StencilGeom<S>;
+
+// Stride-2 dx: an OH x OW tile of full-resolution dx; g rows (r-dy+1)/2 for
+// r in [r0, r0+OH) span OH/2 + 1 half-resolution rows from r0/2 (cols alike).
+struct GGeom {
+  static constexpr int OH = 8, OW = 8;
+  static constexpr int HR = OH / 2 + 1, WR = OW / 2 + 1;
+  static constexpr int P = HR * WR;
+  static constexpr int NPA = (P + WARPS - 1) / WARPS;
+  static constexpr int NO = OH * OW / WARPS;
+};
+
+// Loads one frame of a (B,T,h,w,C) tensor over a halo of HR x WR positions
+// at (iy0, ix0) into a ring slot, zero outside the tensor and for channels
+// >= C. With ACT the value is relu(v*sc + bi) rounded to T (the forward's
+// activation; zero padding stays zero).
+template <typename T, bool ACT, int P, int WR, int NPA>
+__device__ __forceinline__ void load_frame(float* slot, const T* src, int b,
+                                           int ti, int Tn, int h, int w,
+                                           int C, int iy0, int ix0, int c,
+                                           bool cval, float scv, float biv) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const bool tin = ti >= 0 && ti < Tn;  // uniform across the block
+  const T* f = src + (size_t)(b * Tn + (tin ? ti : 0)) * h * w * C;
+#pragma unroll
+  for (int j = 0; j < NPA; ++j) {
+    const int p = warp + j * WARPS;
+    if (p < P) {
+      const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+      float v = 0.f;
+      if (tin && cval && gy >= 0 && gy < h && gx >= 0 && gx < w) {
+        v = to_f(f[((size_t)gy * w + gx) * C + c]);
+        if (ACT) v = act<T>(v, scv, biv);
+      }
+      slot[p * CC + lane] = v;
+    }
+  }
+}
+
+// The dx epilogue at one position: mask, scale, store, accumulate (dsc, dbi).
+template <typename T>
+__device__ __forceinline__ void dx_epilogue(float acc, const T* x, T* dx,
+                                            size_t idx, float scv, float biv,
+                                            float& r0, float& r1) {
+  const float xv = to_f(x[idx]);
+  const float dam = bn_apply(xv, scv, biv) > 0.f ? acc : 0.f;
+  dx[idx] = from_f<T>(dam * scv);
+  r0 = fmaf(dam, xv, r0);
+  r1 += dam;
+}
+
+// Fixed-order sum of K per-thread values over the block's warps; warp 0
+// writes row `row` of a (rows, K, C) partial buffer. `red` is shared memory
+// of WARPS*K*CC floats, free for use (the caller synchronised).
+template <int K>
+__device__ __forceinline__ void block_partials(float* red, const float* v,
+                                               float* part, size_t row, int C,
+                                               int c, bool cval) {
+  const int lane = threadIdx.x, warp = threadIdx.y;
+#pragma unroll
+  for (int k = 0; k < K; ++k) red[(warp * K + k) * CC + lane] = v[k];
+  __syncthreads();
+  for (int k = warp; k < K; k += WARPS) {
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < WARPS; ++q) s += red[(q * K + k) * CC + lane];
+    if (cval) part[(row * K + k) * C + c] = s;
+  }
+}
+
+// ---- dx, stride 1 ------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
+             const T* __restrict__ wdw, const float* __restrict__ sc,
+             const float* __restrict__ bi, T* __restrict__ dx,
+             float* __restrict__ part, int Tn, int H, int W, int C, int n_tx,
+             int n_tseg) {
+  using G = SGeom<1>;
+  extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int oy0 = (blockIdx.x / n_tx) * G::OH;
+  const int ox0 = (blockIdx.x % n_tx) * G::OW;
+  const int c = blockIdx.y * CC + lane;
+  const bool cval = c < C;
+  const int b = blockIdx.z / n_tseg;
+  const int t0 = (blockIdx.z % n_tseg) * TT_DX;
+  const int t1 = min(t0 + TT_DX, Tn);
+  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
+  // the flipped taps: dx is the correlation of g with w[2-dt, 2-dy, 2-dx]
+  float wt[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[(26 - k) * C + c]) : 0.f;
+
+  auto load = [&](int ti) {
+    load_frame<T, false, G::P, G::WR, G::NPA>(
+        ring + slot_of(ti) * G::P * CC, g, b, ti, Tn, H, W, C, oy0 - 1,
+        ox0 - 1, c, cval, 0.f, 0.f);
+  };
+  float r[2] = {0.f, 0.f};
+  load(t0 - 1);
+  load(t0);
+  for (int t = t0; t < t1; ++t) {
+    load(t + 1);
+    __syncthreads();
+    const float* fr[3] = {ring + slot_of(t - 1) * G::P * CC,
+                          ring + slot_of(t) * G::P * CC,
+                          ring + slot_of(t + 1) * G::P * CC};
+#pragma unroll
+    for (int j = 0; j < G::NO; ++j) {
+      const int o = warp + j * WARPS;
+      const int oy = o / G::OW, ox = o % G::OW;
+      float acc = 0.f;
+#pragma unroll
+      for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dxx = 0; dxx < 3; ++dxx)
+            acc = fmaf(wt[(dt * 3 + dy) * 3 + dxx],
+                       fr[dt][((oy + dy) * G::WR + ox + dxx) * CC + lane], acc);
+      const int gy = oy0 + oy, gx = ox0 + ox;
+      if (cval && gy < H && gx < W)
+        dx_epilogue(acc, x, dx, (((size_t)(b * Tn + t) * H + gy) * W + gx) * C
+                    + c, scv, biv, r[0], r[1]);
+    }
+    __syncthreads();  // the next load overwrites frame t-1's slot
+  }
+  block_partials<2>(ring, r, part,
+                    (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
+}
+
+// ---- dx, stride (1,2,2) --------------------------------------------------------
+// g is (B,T,Ho,Wo,C), x and dx (B,T,H,W,C), Ho = (H-1)/2 + 1.
+template <typename T>
+__global__ void __launch_bounds__(WARPS * 32)
+dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
+             const T* __restrict__ wdw, const float* __restrict__ sc,
+             const float* __restrict__ bi, T* __restrict__ dx,
+             float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo,
+             int C, int n_tx, int n_tseg) {
+  using G = GGeom;
+  extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int r0 = (blockIdx.x / n_tx) * G::OH;  // even
+  const int q0 = (blockIdx.x % n_tx) * G::OW;  // even
+  const int c = blockIdx.y * CC + lane;
+  const bool cval = c < C;
+  const int b = blockIdx.z / n_tseg;
+  const int t0 = (blockIdx.z % n_tseg) * TT_DX;
+  const int t1 = min(t0 + TT_DX, Tn);
+  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
+  float wt[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * C + c]) : 0.f;
+
+  auto load = [&](int ti) {
+    load_frame<T, false, G::P, G::WR, G::NPA>(
+        ring + slot_of(ti) * G::P * CC, g, b, ti, Tn, Ho, Wo, C, r0 / 2,
+        q0 / 2, c, cval, 0.f, 0.f);
+  };
+  float r[2] = {0.f, 0.f};
+  load(t0 - 1);
+  load(t0);
+  for (int t = t0; t < t1; ++t) {
+    load(t + 1);
+    __syncthreads();
+    // tap dt reads g frame t - dt + 1
+    const float* fr[3] = {ring + slot_of(t + 1) * G::P * CC,
+                          ring + slot_of(t) * G::P * CC,
+                          ring + slot_of(t - 1) * G::P * CC};
+#pragma unroll
+    for (int j = 0; j < G::NO; ++j) {
+      const int o = warp + j * WARPS;
+      const int oy = o / G::OW, ox = o % G::OW;  // parity of r, of col
+      float acc = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        if ((oy - dy + 1) & 1) continue;  // uniform across the warp
+        const int hy = (oy - dy + 1) / 2;
+#pragma unroll
+        for (int dxx = 0; dxx < 3; ++dxx) {
+          if ((ox - dxx + 1) & 1) continue;
+          const int p = hy * G::WR + (ox - dxx + 1) / 2;
+#pragma unroll
+          for (int dt = 0; dt < 3; ++dt)
+            acc = fmaf(wt[(dt * 3 + dy) * 3 + dxx], fr[dt][p * CC + lane],
+                       acc);
+        }
+      }
+      const int gy = r0 + oy, gx = q0 + ox;
+      if (cval && gy < H && gx < W)
+        dx_epilogue(acc, x, dx, (((size_t)(b * Tn + t) * H + gy) * W + gx) * C
+                    + c, scv, biv, r[0], r[1]);
+    }
+    __syncthreads();
+  }
+  block_partials<2>(ring, r, part,
+                    (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
+}
+
+// ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
+// x (B,T,H,W,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1. The tile is over g.
+template <typename T, int S>
+__global__ void __launch_bounds__(WARPS * 32)
+wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+             const float* __restrict__ sc, const float* __restrict__ bi,
+             float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo,
+             int C, int n_tx, int n_tseg) {
+  using G = SGeom<S>;
+  extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int oy0 = (blockIdx.x / n_tx) * G::OH;
+  const int ox0 = (blockIdx.x % n_tx) * G::OW;
+  const int c = blockIdx.y * CC + lane;
+  const bool cval = c < C;
+  const int b = blockIdx.z / n_tseg;
+  const int t0 = (blockIdx.z % n_tseg) * TT_WG;
+  const int t1 = min(t0 + TT_WG, Tn);
+  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
+
+  auto load = [&](int ti) {
+    load_frame<T, true, G::P, G::WR, G::NPA>(
+        ring + slot_of(ti) * G::P * CC, x, b, ti, Tn, H, W, C, S * oy0 - 1,
+        S * ox0 - 1, c, cval, scv, biv);
+  };
+  float acc[27];
+#pragma unroll
+  for (int k = 0; k < 27; ++k) acc[k] = 0.f;
+  load(t0 - 1);
+  load(t0);
+  for (int t = t0; t < t1; ++t) {
+    load(t + 1);
+    __syncthreads();
+    const float* fr[3] = {ring + slot_of(t - 1) * G::P * CC,
+                          ring + slot_of(t) * G::P * CC,
+                          ring + slot_of(t + 1) * G::P * CC};
+#pragma unroll
+    for (int j = 0; j < G::NO; ++j) {
+      const int o = warp + j * WARPS;
+      const int oy = o / G::OW, ox = o % G::OW;
+      const int gy = oy0 + oy, gx = ox0 + ox;
+      if (gy < Ho && gx < Wo && cval) {  // warp-uniform position
+        const float gv = to_f(
+            g[(((size_t)(b * Tn + t) * Ho + gy) * Wo + gx) * C + c]);
+#pragma unroll
+        for (int dt = 0; dt < 3; ++dt)
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dxx = 0; dxx < 3; ++dxx)
+              acc[(dt * 3 + dy) * 3 + dxx] = fmaf(
+                  gv, fr[dt][((S * oy + dy) * G::WR + S * ox + dxx) * CC + lane],
+                  acc[(dt * 3 + dy) * 3 + dxx]);
+      }
+    }
+    __syncthreads();
+  }
+  block_partials<27>(ring, acc, part,
+                     (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
+}
+
+// ---- launchers ----------------------------------------------------------------
+template <int K, int P>
+constexpr size_t ring_bytes() {
+  // the ring, reused at the end for the warps' partial sums
+  return sizeof(float) * (3 * P * CC > WARPS * K * CC ? 3 * P * CC
+                                                       : WARPS * K * CC);
+}
+
+template <typename T>
+int launch_dx_s1(const void* g, const void* x, const void* w, const void* sc,
+                 const void* bi, void* dx, void* part, int B, int Tn, int H,
+                 int W, int C, cudaStream_t st) {
+  using G = SGeom<1>;
+  constexpr size_t smem = ring_bytes<2, G::P>();
+  if (int e = set_smem(dx_s1_kernel<T>, smem)) return e;
+  const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
+  const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
+  dx_s1_kernel<T><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)g, (const T*)x, (const T*)w, (const float*)sc,
+      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, C, n_tx, n_tseg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dx_s2(const void* g, const void* x, const void* w, const void* sc,
+                 const void* bi, void* dx, void* part, int B, int Tn, int H,
+                 int W, int C, cudaStream_t st) {
+  using G = GGeom;
+  constexpr size_t smem = ring_bytes<2, G::P>();
+  if (int e = set_smem(dx_s2_kernel<T>, smem)) return e;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
+  const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
+  dx_s2_kernel<T><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)g, (const T*)x, (const T*)w, (const float*)sc,
+      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Ho, Wo, C, n_tx,
+      n_tseg);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int S>
+int launch_wgrad(const void* x, const void* g, const void* sc, const void* bi,
+                 void* part, int B, int Tn, int H, int W, int C,
+                 cudaStream_t st) {
+  using G = SGeom<S>;
+  constexpr size_t smem = ring_bytes<27, G::P>();
+  if (int e = set_smem(wgrad_kernel<T, S>, smem)) return e;
+  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
+  const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT_WG);
+  const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
+  wgrad_kernel<T, S><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)x, (const T*)g, (const float*)sc, (const float*)bi,
+      (float*)part, Tn, H, W, Ho, Wo, C, n_tx, n_tseg);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns cudaGetLastError()
+// after the launch: 0 means the kernel was launched. The partial buffers
+// have the row counts of dw_act_partial_rows.
+
+// Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
+// wgrad_s1, wgrad_s2.
+extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
+                                   int C) {
+  (void)C;
+  switch (kind) {
+    case 0:
+      return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
+             cdiv(T, TT_DX);
+    case 1:
+      return cdiv(H, GGeom::OH) * cdiv(W, GGeom::OW) * B * cdiv(T, TT_DX);
+    case 2:
+      return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
+             cdiv(T, TT_WG);
+    case 3: {
+      const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+      return cdiv(Ho, SGeom<2>::OH) * cdiv(Wo, SGeom<2>::OW) * B *
+             cdiv(T, TT_WG);
+    }
+  }
+  return -1;
+}
+
+extern "C" int dw_act_dx_s1(const void* g, const void* x, const void* w,
+                            const void* sc, const void* bi, void* dx,
+                            void* part, int B, int T, int H, int W, int C,
+                            int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dx_s1<__nv_bfloat16>(g, x, w, sc, bi, dx, part, B, T, H, W,
+                                       C, st);
+  return launch_dx_s1<float>(g, x, w, sc, bi, dx, part, B, T, H, W, C, st);
+}
+
+extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
+                            const void* sc, const void* bi, void* dx,
+                            void* part, int B, int T, int H, int W, int C,
+                            int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dx_s2<__nv_bfloat16>(g, x, w, sc, bi, dx, part, B, T, H, W,
+                                       C, st);
+  return launch_dx_s2<float>(g, x, w, sc, bi, dx, part, B, T, H, W, C, st);
+}
+
+extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
+                               const void* bi, void* part, int B, int T,
+                               int H, int W, int C, int is_bf16,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 1>(x, g, sc, bi, part, B, T, H, W, C,
+                                          st);
+  return launch_wgrad<float, 1>(x, g, sc, bi, part, B, T, H, W, C, st);
+}
+
+extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
+                               const void* bi, void* part, int B, int T,
+                               int H, int W, int C, int is_bf16,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 2>(x, g, sc, bi, part, B, T, H, W, C,
+                                          st);
+  return launch_wgrad<float, 2>(x, g, sc, bi, part, B, T, H, W, C, st);
+}

@@ -1,19 +1,25 @@
-// Fused X3D bottleneck entry for Hopper (sm_90a):
+// Fused X3D bottleneck entry for Hopper (sm_90a), two modes:
 //
-//     y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )        stride 1 or (1,2,2)
+//   mm  (eval):  y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
+//   act (train): y = dwconv3x3x3( relu( x * sc + bi ) )
 //
-// x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16;
-// W1 (C_in,C_mid) and the depthwise taps (27,C_mid) have x's dtype; sc/bi are
-// the f32 eval batch-norm apply vectors of bn1.
+// both at stride 1 or (1,2,2). x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
+// channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
+// (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
+// vectors of bn1 (running statistics in eval, batch statistics in train). In
+// act mode x is the conv1 output itself (C_in == C_mid).
 //
-// Replaces the `mm` modes of two TPU Pallas kernels of
+// Replaces two modes of two TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
-//   * dw_mm_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1), and
-//   * dw_mm_act_s2 <- _fwd_s2_direct_pcall -> _fwd_s2_direct_kernel
-//     (stride (1,2,2), only the kept quarter of positions is computed),
-// both with the in-tile product _mm_act_tile. Semantics kept from them:
-//   * the activation a is computed from the f32 product and rounded to x's
-//     dtype before the stencil (the TPU tile is stored in x.dtype);
+//   * dw_mm_act_s1 / dw_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1,
+//     modes mm and act), and
+//   * dw_mm_act_s2 / dw_act_s2 <- _fwd_s2_direct_pcall ->
+//     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
+//     positions is computed; modes mm and act),
+// with the tile prologues _mm_act_tile (mm) and _act_tile (act). Semantics
+// kept from them:
+//   * the activation a is computed in f32 and rounded to x's dtype before
+//     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
 //     padding), never relu(bi) (_rezero_frame);
 //   * the 27-tap sum accumulates in f32 and is written in x's dtype.
@@ -24,56 +30,34 @@
 // output element, far below the ~295 operations per byte where the H100's
 // bf16 tensor cores would become the limit.
 //
-// What the design does about it: the expanded C_mid tensor (2.25x the bytes
-// of x) never goes to device memory. A block owns one (frame segment, output
-// tile, 32-channel chunk); it walks its frames in order and keeps the three
-// activated frames the stencil needs in a shared-memory ring, so each input
-// frame's product is computed once per tile (plus the spatial halo) rather
-// than three times. x is staged 32 input channels at a time with 16-byte
-// loads along C; each lane owns one output channel, so shared-memory reads
-// of the ring and W1 are conflict-free and stores of y are coalesced along C.
-// The product runs on the FP32 cores; moving it to wgmma and overlapping the
-// staging with TMA is later work.
+// What the design does about it: the activated tensor never goes to device
+// memory (in mm mode not even the C_mid product, 2.25x the bytes of x). A
+// block owns one (frame segment, output tile, 32-channel chunk); it walks its
+// frames in order and keeps the three activated frames the stencil needs in
+// a shared-memory ring, so each input frame is activated once per tile (plus
+// the spatial halo) rather than three times. In mm mode x is staged 32 input
+// channels at a time with 16-byte loads along C; in act mode each lane loads
+// its own channel (C_mid = 54, 108, ... is no multiple of 8, so 16-byte
+// loads would straddle positions). Each lane owns one output channel, so
+// shared-memory reads of the ring are conflict-free and stores of y are
+// coalesced along C. The product runs on the FP32 cores; moving it to wgmma
+// and overlapping the staging with TMA is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int CC = 32;     // output channels per block, one per lane
+using namespace cfn;
+
 constexpr int KC = 32;     // input channels staged per pass
-constexpr int WARPS = 8;   // 256 threads
 constexpr int TT = 8;      // output frames per block
 
-template <int S> struct Tile;
-template <> struct Tile<1> { static constexpr int OH = 8, OW = 8; };
-template <> struct Tile<2> { static constexpr int OH = 4, OW = 8; };
-
-template <int S> struct Geom {
-  static constexpr int OH = Tile<S>::OH, OW = Tile<S>::OW;
-  static constexpr int HR = S * (OH - 1) + 3;          // halo rows
-  static constexpr int WR = S * (OW - 1) + 3;          // halo cols
-  static constexpr int P = HR * WR;                    // halo positions
-  static constexpr int NPA = (P + WARPS - 1) / WARPS;  // positions per warp
-  static constexpr int NO = OH * OW / WARPS;           // outputs per warp
+template <int S, bool ACT> struct Geom : StencilGeom<S> {
+  using SG = StencilGeom<S>;
+  // act mode stages nothing besides the ring
   static constexpr size_t SMEM =
-      sizeof(float) * (3 * P * CC + P * KC + KC * CC);
+      sizeof(float) * (3 * SG::P * CC + (ACT ? 0 : SG::P * KC + KC * CC));
 };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
 
 // 16 bytes of x -> floats
 __device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
@@ -88,14 +72,14 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out,
   for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
 }
 
-template <typename T, int S>
+template <typename T, int S, bool ACT>
 __global__ void __launch_bounds__(WARPS * 32)
 dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ wdw, const float* __restrict__ sc,
                  const float* __restrict__ bi, T* __restrict__ y, int B,
                  int Tn, int H, int W, int Cin, int Cmid, int Ho, int Wo,
                  int n_tx, int n_tseg) {
-  using G = Geom<S>;
+  using G = Geom<S, ACT>;
   constexpr int P = G::P, WR = G::WR;
   constexpr int VE = 16 / sizeof(T);
 
@@ -122,12 +106,30 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
 
-  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) over the halo, zero outside
-  // the tensor (frame, rows, cols) and for channels >= Cmid
+  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm) or relu(x[b, ti] * sc
+  // + bi) (act) over the halo, zero outside the tensor (frame, rows, cols)
+  // and for channels >= Cmid
   auto activate = [&](int ti) {
-    float* slot = ring + ((ti % 3 + 3) % 3) * P * CC;
+    float* slot = ring + slot_of(ti) * P * CC;
     if (ti < 0 || ti >= Tn) {  // uniform across the block
       for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
+      return;
+    }
+    if constexpr (ACT) {
+      const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cmid;
+#pragma unroll
+      for (int j = 0; j < G::NPA; ++j) {
+        const int p = warp + j * WARPS;
+        if (p < P) {
+          const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+          float a = 0.f;
+          if (cval && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            // the relu branch the backward's mask takes (dw_act_bwd.cu)
+            a = act<T>(to_f(xf[((size_t)gy * W + gx) * Cmid + c]), scv, biv);
+          }
+          slot[p * CC + lane] = a;
+        }
+      }
       return;
     }
     float acc[G::NPA];
@@ -191,9 +193,9 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   for (int t = t0; t < t1; ++t) {
     activate(t + 1);
     __syncthreads();  // the three frames of the stencil are in the ring
-    const float* fm = ring + (((t - 1) % 3 + 3) % 3) * P * CC;
-    const float* f0 = ring + (t % 3) * P * CC;
-    const float* fp = ring + ((t + 1) % 3) * P * CC;
+    const float* fm = ring + slot_of(t - 1) * P * CC;
+    const float* f0 = ring + slot_of(t) * P * CC;
+    const float* fp = ring + slot_of(t + 1) * P * CC;
 #pragma unroll
     for (int j = 0; j < G::NO; ++j) {
       const int o = warp + j * WARPS;
@@ -220,22 +222,16 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T, int S>
+template <typename T, int S, bool ACT>
 int launch(const void* x, const void* w1, const void* wdw, const void* sc,
            const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
            int Cmid, cudaStream_t stream) {
-  using G = Geom<S>;
-  // The shared-memory limit is a per-device attribute: set it on every
-  // launch, so the kernel runs on whichever card is current.
-  const cudaError_t e = cudaFuncSetAttribute(
-      dw_mm_act_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)G::SMEM);
-  if (e != cudaSuccess) return (int)e;
+  using G = Geom<S, ACT>;
+  if (int e = set_smem(dw_mm_act_kernel<T, S, ACT>, G::SMEM)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const int n_ty = (Ho + G::OH - 1) / G::OH, n_tx = (Wo + G::OW - 1) / G::OW;
-  const int n_tseg = (Tn + TT - 1) / TT;
-  const dim3 grid(n_ty * n_tx, (Cmid + CC - 1) / CC, B * n_tseg);
-  dw_mm_act_kernel<T, S><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
+  const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT);
+  const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(Cmid, CC), B * n_tseg);
+  dw_mm_act_kernel<T, S, ACT><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(wdw), static_cast<const float*>(sc),
       static_cast<const float*>(bi), static_cast<T*>(y), B, Tn, H, W, Cin,
@@ -243,15 +239,16 @@ int launch(const void* x, const void* w1, const void* wdw, const void* sc,
   return (int)cudaGetLastError();
 }
 
-template <int S>
+template <int S, bool ACT>
 int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
              const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
              int Cmid, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin,
-                                    Cmid, s);
-  return launch<float, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid, s);
+    return launch<__nv_bfloat16, S, ACT>(x, w1, wdw, sc, bi, y, B, Tn, H, W,
+                                         Cin, Cmid, s);
+  return launch<float, S, ACT>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid,
+                               s);
 }
 
 }  // namespace
@@ -262,14 +259,29 @@ extern "C" int dw_mm_act_s1(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
                             int T, int H, int W, int Cin, int Cmid,
                             int is_bf16, void* stream) {
-  return dispatch<1>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
-                     stream);
+  return dispatch<1, false>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
+                            is_bf16, stream);
 }
 
 extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
                             int T, int H, int W, int Cin, int Cmid,
                             int is_bf16, void* stream) {
-  return dispatch<2>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
-                     stream);
+  return dispatch<2, false>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
+                            is_bf16, stream);
+}
+
+// act mode: x is (B,T,H,W,C), the conv1 output; no W1.
+extern "C" int dw_act_s1(const void* x, const void* wdw, const void* sc,
+                         const void* bi, void* y, int B, int T, int H, int W,
+                         int C, int is_bf16, void* stream) {
+  return dispatch<1, true>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
+                           is_bf16, stream);
+}
+
+extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
+                         const void* bi, void* y, int B, int T, int H, int W,
+                         int C, int is_bf16, void* stream) {
+  return dispatch<2, true>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
+                           is_bf16, stream);
 }

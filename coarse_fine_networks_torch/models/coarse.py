@@ -1,12 +1,16 @@
 """Coarse-stream X3D with Grid Pool / Unpool and multi-stage fusion
 (counterpart of ``coarse_fine_networks_tpu/models/coarse.py``).
 
-Ported at the serving configuration: ``t_pool='grid'``, learned mixing,
-``is_mixing=True``.  The fusion branch runs at the fine features' canonical
-7×7 and its final scale/bias maps are replicated to each stage's resolution,
-which is exact because every op in the reference's
-replicate → 1×1 conv → pool chain is pointwise or replication-compatible.
-Logits are time-major ``(B, T, n_classes)``.
+Ported at the configuration the serving and the coarse driver use:
+``t_pool='grid'``, learned mixing, ``is_mixing=True``.  The fusion branch
+runs at the fine features' canonical 7×7 and its final scale/bias maps are
+replicated to each stage's resolution, which is exact because every op in
+the reference's replicate → 1×1 conv → pool chain is pointwise or
+replication-compatible.  Logits are time-major ``(B, T, n_classes)``.
+
+In training, dropout (rate ``dropout_rate``) follows the relu of ``rw6``'s
+``fc1``/``fc3`` and of the head's ``fc1``, where the JAX package puts it;
+its mask is drawn from the ``generator`` passed to :meth:`CoarseNet.forward`.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from ..ops.grid_pool import cdf_knots
 from ..ops.pools import adaptive_max_pool_spatial, spatial_replicate
 from ..ops.resample import inverse_cdf, linear_resize, temporal_resample
 from ..ops.reweight import reweight_aggregate
-from .layers import SubBatchNorm, conv3d, pointwise
+from .layers import SubBatchNorm, conv3d, dropout, pointwise
 from .x3d import X3DTrunk, get_inplanes
 
 DEFAULT_FEAT_DEPTH = {
@@ -71,11 +75,14 @@ class RewightLayer(nn.Module):
     """Attention-filtered, Gaussian-aligned aggregation of one fine feature
     bank into per-stage ``(bias, scale)`` maps ``(B, T_c, 7, 7, channels)``
     (1×1 with ``pool=True``, the logit-level ``rw6``).  The heads are the
-    reference's kernel-1 ``Conv1d``s, applied over channels."""
+    reference's kernel-1 ``Conv1d``s, applied over channels; with ``pool``
+    their hidden activations take dropout in training."""
 
-    def __init__(self, channels: int, depth: int, pool: bool = False):
+    def __init__(self, channels: int, depth: int, pool: bool = False,
+                 dropout_rate: float = 0.5):
         super().__init__()
         self.pool = pool
+        self.dropout_rate = dropout_rate
         self.at1 = nn.Conv1d(depth, depth, 1)
         self.at2 = nn.Conv1d(depth, 1, 1)
         self.fc1 = nn.Conv1d(depth, depth, 1)
@@ -84,17 +91,21 @@ class RewightLayer(nn.Module):
         self.fc4 = nn.Conv1d(depth, channels, 1)
 
     def forward(self, feat: torch.Tensor, mask: torch.Tensor,
-                align: torch.Tensor, is_mixing: bool):
+                align: torch.Tensor, is_mixing: bool,
+                generator: torch.Generator | None = None):
         if feat.shape[1] != mask.shape[1]:
             raise ValueError(f"fine-feature length {feat.shape[1]} != mask "
                              f"{mask.shape[1]}")
         gate = torch.sigmoid(_dense(torch.relu(_dense(feat, self.at1)),
                                     self.at2))[..., 0]
         x = reweight_aggregate(feat, gate, align.to(feat.dtype), mask)
+        rate = self.dropout_rate if self.pool and self.training else 0.0
         if self.pool:
             x = torch.mean(x, dim=(2, 3), keepdim=True)
-        bias = _dense(torch.relu(_dense(x, self.fc1)), self.fc2)
-        scale = _dense(torch.relu(_dense(x, self.fc3)), self.fc4)
+        bias = _dense(dropout(torch.relu(_dense(x, self.fc1)), rate,
+                              generator), self.fc2)
+        scale = _dense(dropout(torch.relu(_dense(x, self.fc3)), rate,
+                               generator), self.fc4)
         if not is_mixing:
             scale = torch.sigmoid(scale)
         return bias, scale
@@ -129,14 +140,17 @@ class CoarseNet(X3DTrunk):
     feature banks + Grid Unpool."""
 
     def __init__(self, version: str = "M", n_classes: int = 157,
-                 feat_depth: dict[str, int] | None = None):
+                 feat_depth: dict[str, int] | None = None,
+                 dropout_rate: float = 0.5):
         super().__init__(version)
+        self.dropout_rate = dropout_rate
         planes = get_inplanes(version)
         fd = dict(DEFAULT_FEAT_DEPTH if feat_depth is None else feat_depth)
         self.pool_1 = GridPool(planes[0][1])
         for i, key in enumerate(("layer1", "layer2", "layer3", "layer4")):
             self.add_module(f"rw{i + 2}", RewightLayer(planes[i][1], fd[key]))
-        self.rw6 = RewightLayer(n_classes, fd["conv5"], pool=True)
+        self.rw6 = RewightLayer(n_classes, fd["conv5"], pool=True,
+                                dropout_rate=dropout_rate)
         n_mix = sum(p[1] for p in planes)
         for i in range(4):
             self.add_module(f"mix{i + 2}", MixingLayer(planes[i][1], n_mix))
@@ -144,10 +158,12 @@ class CoarseNet(X3DTrunk):
         self.fc2 = nn.Linear(2048, n_classes)
 
     def forward(self, x: torch.Tensor, feats: dict[str, torch.Tensor],
-                feat_mask: torch.Tensor, meta: torch.Tensor) -> torch.Tensor:
+                feat_mask: torch.Tensor, meta: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         """``x (B, T, H, W, 3)``, feature banks ``(B, T_f, 7, 7, C_k)``,
         ``feat_mask (B, T_f)``, ``meta (B, 4)`` → f32 logits
-        ``(B, T, n_classes)``."""
+        ``(B, T, n_classes)``.  ``generator`` draws the dropout masks in
+        training (on x's device; needed when ``dropout_rate > 0``)."""
         t_in = x.shape[1]
         x = self.layer1(self.stem(x))
         x, knots = self.pool_1(x)
@@ -168,8 +184,10 @@ class CoarseNet(X3DTrunk):
 
         x = torch.mean(self.head(x), dim=(2, 3))
         x = torch.relu(pointwise(x, self.fc1.weight))
+        x = dropout(x, self.dropout_rate if self.training else 0.0, generator)
         logits = nn.functional.linear(x, self.fc2.weight.to(x.dtype),
                                       self.fc2.bias.to(x.dtype))
-        rb, rs = self.rw6(feats["conv5"].to(x.dtype), feat_mask, align, False)
+        rb, rs = self.rw6(feats["conv5"].to(x.dtype), feat_mask, align, False,
+                          generator)
         logits = (logits * rs[:, :, 0, 0, :] + rb[:, :, 0, 0, :]).float()
         return grid_unpool_logits(logits, knots)

@@ -2,9 +2,8 @@
 ``(B, T, H, W, C)`` (counterpart of
 ``coarse_fine_networks_tpu/models/layers.py``).
 
-Only evaluation is ported so far: a module in training mode raises
-``NotImplementedError``.  Parameter and buffer names are the reference's
-torch names, so a reference ``state_dict`` loads as it is.
+Parameter and buffer names are the reference's torch names, so a
+reference ``state_dict`` loads as it is.
 """
 
 from __future__ import annotations
@@ -13,6 +12,8 @@ import math
 
 import torch
 from torch import nn
+
+BN_MOMENTUM = 0.1  # the running-statistics update rate of SubBatchNorm
 
 
 def round_width(width: int, multiplier: float = 0.0625, min_width: int = 8,
@@ -30,6 +31,21 @@ def round_width(width: int, multiplier: float = 0.0625, min_width: int = 8,
 
 def swish(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (flax's ``nn.Dropout``): each element is kept with
+    probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
+    drawn from ``generator``.  ``rate == 0`` is the identity."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs an explicit torch.Generator")
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def pointwise(x: torch.Tensor, weight: torch.Tensor,
@@ -63,12 +79,19 @@ class _RunningStats(nn.Module):
 
 
 class SubBatchNorm(nn.Module):
-    """SlowFast-style split batch norm, eval only.
+    """SlowFast-style split batch norm.
 
     ``bn`` holds the eval statistics, ``split_bn`` the per-split running
     statistics that training keeps (``num_splits·C`` each);
     :func:`aggregate_sub_bn_stats` merges the latter into the former.  The
-    affine ``weight``/``bias`` are shared by all splits."""
+    affine ``weight``/``bias`` are shared by all splits.
+
+    In training each of ``num_splits`` sub-batches (sample ``i`` belongs to
+    split ``i % num_splits``) is normalised with its own statistics over all
+    axes but batch and channel, in f32, with the one-pass variance
+    ``E[x²] − E[x]²`` clamped at 0, and the momentum update goes to
+    ``split_bn`` only (the JAX package's ``SubBatchNorm``); ``bn`` changes
+    only through :func:`aggregate_sub_bn_stats`."""
 
     def __init__(self, num_features: int, num_splits: int = 1,
                  eps: float = 1e-5):
@@ -88,12 +111,55 @@ class SubBatchNorm(nn.Module):
         bi = self.bias.float() - self.bn.running_mean * sc
         return sc, bi
 
+    def _batch_stats(self, xg: torch.Tensor):
+        """Per-split f32 ``(mean, var)`` of ``xg (N/S, S, ..., C)`` over all
+        axes but the split and the channel, and the running-stat update."""
+        axes = (0,) + tuple(range(2, xg.dim() - 1))
+        mean = torch.mean(xg, dim=axes)
+        mean2 = torch.mean(torch.square(xg), dim=axes)
+        # the one-pass form can cancel below 0 in f32 when |mean| >> std;
+        # torch.maximum splits the gradient at a tie as JAX's maximum does
+        var = torch.maximum(mean2 - torch.square(mean), mean.new_zeros(()))
+        count = xg.numel() // (xg.shape[1] * xg.shape[-1])
+        with torch.no_grad():
+            m = BN_MOMENTUM
+            unbiased = var * (count / max(count - 1, 1))
+            sp = self.split_bn
+            sp.running_mean.copy_((1 - m) * sp.running_mean
+                                  + m * mean.reshape(-1))
+            sp.running_var.copy_((1 - m) * sp.running_var
+                                 + m * unbiased.reshape(-1))
+        return mean, var
+
+    def _split(self, x: torch.Tensor) -> torch.Tensor:
+        n, s = x.shape[0], self.num_splits
+        if n % s:
+            raise ValueError(f"batch {n} not divisible by num_splits {s}")
+        return x.float().reshape((n // s, s) + tuple(x.shape[1:]))
+
+    def train_scale_bias(self, x: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Training, ``num_splits == 1``: f32 ``(sc, bi)`` from the batch
+        statistics of ``x``, with ``bn(x) == x·sc + bi``, inside autograd;
+        updates the split statistics as :meth:`forward` does.  Consumed by
+        the fused bottleneck entry instead of a normalised tensor."""
+        if self.num_splits != 1:
+            raise ValueError("train_scale_bias needs num_splits == 1")
+        mean, var = self._batch_stats(self._split(x))
+        sc = torch.rsqrt(var[0] + self.eps) * self.weight
+        return sc, self.bias - mean[0] * sc
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError("SubBatchNorm: training is not ported")
-        xf = x.float()
-        xn = (xf - self.bn.running_mean) * torch.rsqrt(
-            self.bn.running_var + self.eps)
+            xg = self._split(x)
+            mean, var = self._batch_stats(xg)
+            shape = (1, self.num_splits) + (1,) * (x.dim() - 2) + (-1,)
+            xn = (xg - mean.reshape(shape)) * torch.rsqrt(
+                var.reshape(shape) + self.eps)
+            xn = xn.reshape(x.shape)
+        else:
+            xn = (x.float() - self.bn.running_mean) * torch.rsqrt(
+                self.bn.running_var + self.eps)
         return (xn * self.weight + self.bias).to(x.dtype)
 
 

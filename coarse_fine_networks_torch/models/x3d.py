@@ -3,9 +3,12 @@
 Counterpart of ``coarse_fine_networks_tpu/models/x3d.py`` and
 ``models/x3d_fold.py``.  The fold4 layout and the space-to-depth stem of the
 JAX package are TPU mechanics and are not ported: ``conv1_s`` is a plain
-strided conv, and every bottleneck (not only layer1's) enters through the
-fused kernel :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d`, which in eval is
-exactly the plain bottleneck's conv1 → bn1 → relu → conv2.
+strided conv, and every bottleneck (not only layer1's) enters through a
+fused kernel: in eval :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d` (conv1 →
+bn1 → relu → conv2), in training conv1 as a product and then
+:func:`..ops.dw_act.dw_bnrelu_conv3d_train` (bn1 apply from the batch
+statistics → relu → conv2, with a kernel backward), the JAX package's
+``FoldedBottleneck`` route at ``bn_splits == 1``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..ops.dw_act import dw_bnrelu_conv3d_train
 from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d
 from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
                      squeeze_excite, swish)
@@ -38,8 +42,12 @@ class Bottleneck(nn.Module):
     """X3D bottleneck: 1×1×1 expand → depthwise 3³ at stride (1,s,s) → SE
     (even blocks) → swish → 1×1×1 project → residual + ReLU.
 
-    In eval, bn1's statistics fold into f32 ``(sc, bi)`` and the entry
-    conv1 → bn1 → relu → conv2 runs as one kernel."""
+    bn1 folds into f32 ``(sc, bi)``: in eval from its running statistics,
+    and the entry conv1 → bn1 → relu → conv2 runs as one kernel; in
+    training from the batch statistics of conv1's output, inside autograd,
+    and bn1 → relu → conv2 runs as one kernel with a kernel backward.
+    Training with split batch norm (``bn1.num_splits > 1``) is not
+    ported."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  stride: int = 1, use_se: bool = False,
@@ -67,14 +75,23 @@ class Bottleneck(nn.Module):
                 SubBatchNorm(out_planes))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("Bottleneck: training is not ported")
         c_mid = self.conv1.out_channels
-        sc, bi = self.bn1.scale_bias()
-        w1 = self.conv1.weight.reshape(c_mid, -1).t().to(x.dtype).contiguous()
         w_dw = (self.conv2.weight.reshape(c_mid, 27).t()
                 .reshape(3, 3, 3, c_mid).to(x.dtype).contiguous())
-        out = dw_mm_bnrelu_conv3d(x, w1, w_dw, sc, bi, self.stride)
+        if self.training:
+            if self.bn1.num_splits != 1:
+                raise NotImplementedError(
+                    "Bottleneck: training with bn_splits > 1 is not ported "
+                    "(it needs the plain modes of K1/K4 and K8, the plain "
+                    "stride-2 dx kernel)")
+            out = pointwise(x, self.conv1.weight)
+            sc, bi = self.bn1.train_scale_bias(out)
+            out = dw_bnrelu_conv3d_train(out, w_dw, sc, bi, self.stride)
+        else:
+            sc, bi = self.bn1.scale_bias()
+            w1 = (self.conv1.weight.reshape(c_mid, -1).t().to(x.dtype)
+                  .contiguous())
+            out = dw_mm_bnrelu_conv3d(x, w1, w_dw, sc, bi, self.stride)
         out = self.bn2(out)
         if self.use_se:
             out = squeeze_excite(out, self.fc1, self.fc2)

@@ -1,7 +1,9 @@
 """Numeric ops of the port: plain PyTorch functions on channels-last
-tensors, and the hand-written bottleneck-entry kernel
-(:mod:`.dw_mm_act`)."""
+tensors, and the hand-written bottleneck-entry kernels (:mod:`.dw_mm_act`
+for eval, :mod:`.dw_act` for training)."""
 
+from .dw_act import (dw_act_dx, dw_act_wgrad, dw_bnrelu_conv3d,
+                     dw_bnrelu_conv3d_train)
 from .dw_mm_act import dw_mm_bnrelu_conv3d, dw_mm_bnrelu_conv3d_plain
 from .gaussian import gaussian_alignment
 from .grid_pool import cdf_knots
@@ -15,6 +17,10 @@ __all__ = [
     "adaptive_avg_pool_spatial",
     "adaptive_max_pool_spatial",
     "cdf_knots",
+    "dw_act_dx",
+    "dw_act_wgrad",
+    "dw_bnrelu_conv3d",
+    "dw_bnrelu_conv3d_train",
     "dw_mm_bnrelu_conv3d",
     "dw_mm_bnrelu_conv3d_plain",
     "gaussian_alignment",

@@ -1,0 +1,92 @@
+"""Build and load the port's hand-written CUDA sources.
+
+Each source in ``csrc/`` becomes one shared library with a plain C
+interface, compiled by ``nvcc`` for ``sm_90a`` at first use into ``_build/``
+(gitignored) and bound with ``ctypes``.  The library is named by a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source or header is rebuilt; it is written to a temporary name and renamed,
+so a concurrent process never loads a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+class CudaLibrary:
+    """One ``csrc/`` source and the C functions it exports.
+
+    ``functions`` maps each exported name to its ``ctypes`` argument types;
+    every function returns an ``int`` (``cudaGetLastError()`` after its
+    launch)."""
+
+    def __init__(self, source: str, functions: dict[str, list]):
+        self.source = CSRC / source
+        self.functions = functions
+        self._lib: ctypes.CDLL | None = None
+        self._lock = threading.Lock()
+
+    def build(self) -> ctypes.CDLL:
+        """Compile the source (once per source version) and load it."""
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            tag = hashlib.sha256(self.source.read_bytes())
+            for header in sorted(CSRC.glob("*.cuh")):
+                tag.update(header.read_bytes())
+            tag.update(" ".join(NVCC_FLAGS).encode())
+            out = BUILD_DIR / f"{self.source.stem}_{tag.hexdigest()[:16]}.so"
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(
+                        f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                        f"{proc.stdout}\n{proc.stderr}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(str(out))
+            for name, argtypes in self.functions.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+            return lib
+
+    def call(self, name: str, *args) -> None:
+        """Launch ``name`` on the current stream's device; raise if the
+        launch was refused."""
+        err = getattr(self.build(), name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def build_all(libraries) -> None:
+    """Build several libraries at once, one ``nvcc`` each."""
+    with ThreadPoolExecutor(max_workers=len(libraries)) as pool:
+        for fut in [pool.submit(lib.build) for lib in libraries]:
+            fut.result()

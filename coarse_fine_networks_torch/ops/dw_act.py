@@ -1,0 +1,266 @@
+"""Train-mode X3D bottleneck entry: ``dwconv3³(relu(x·sc + bi))`` and its
+backward.
+
+In training every :class:`..models.x3d.Bottleneck` runs conv1 as a product,
+takes bn1's ``(sc, bi)`` from the batch statistics inside autograd, and
+enters the depthwise conv2 through :class:`DwBnReluConv3d`: the bn1 apply,
+the ReLU and the stencil in one forward kernel, and in the backward one dx
+kernel (the relu mask, ``dx = dam·sc`` and the ``(dsc, dbi)`` sums fused in)
+and one weight-gradient kernel.  Neither the activation nor its gradient
+reaches device memory.  It is the counterpart of the JAX package's
+``dw_fold4_act`` (``coarse_fine_networks_tpu/ops/pallas/dw_fold.py``), whose
+forward is the ``act`` mode of the Pallas kernels K1/K4 and whose backward
+is K3/K5 and the ``act`` mode of K6/K10.
+
+Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
+
+* ``dw_act_s1``/``dw_act_s2``: :func:`dw_bnrelu_conv3d`, in
+  ``csrc/dw_mm_act.cu`` (the act mode of the eval kernel);
+* ``dw_act_dx_s1``/``dw_act_dx_s2``: :func:`dw_act_dx`, in
+  ``csrc/dw_act_bwd.cu``;
+* ``dw_act_wgrad_s1``/``dw_act_wgrad_s2``: :func:`dw_act_wgrad`, in
+  ``csrc/dw_act_bwd.cu``.
+
+Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
+kernel on a CUDA tensor, or raises.  All tensors are channels-last
+``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ._build import CudaLibrary, I, P
+from .dw_mm_act import LIBRARY as FWD_LIBRARY
+from .dw_mm_act import _out_hw, stencil_f32
+
+BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
+    "dw_act_partial_rows": [I] * 6,
+    "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
+    "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
+    "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
+    "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
+})
+LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
+
+# Kernel launches since the last reset, by kernel name.  Incremented only
+# where a kernel is launched (never by a plain version).
+LAUNCHES = {f"dw_act{part}_s{s}": 0 for part in ("", "_dx", "_wgrad")
+            for s in (1, 2)}
+# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu
+_ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
+              "dw_act_wgrad_s2": 3}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(x, w_dw, sc, bi, stride, g=None):
+    if stride not in (1, 2):
+        raise ValueError(f"stride must be 1 or 2 (i.e. (1,2,2)), got {stride}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"x must be (B, T, H, W, C), got {tuple(x.shape)}")
+    b, t, h, w, c = x.shape
+    tensors = [("x", x), ("sc", sc), ("bi", bi)]
+    if w_dw is not None:
+        if tuple(w_dw.shape) != (3, 3, 3, c):
+            raise ValueError(
+                f"w_dw must be (3, 3, 3, {c}), got {tuple(w_dw.shape)}")
+        if w_dw.dtype != x.dtype:
+            raise TypeError(f"w_dw must have x's dtype {x.dtype}, got "
+                            f"{w_dw.dtype}")
+        tensors.append(("w_dw", w_dw))
+    for name, v in (("sc", sc), ("bi", bi)):
+        if tuple(v.shape) != (c,) or v.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 ({c},), got "
+                             f"{v.dtype} {tuple(v.shape)}")
+    if g is not None:
+        want = (b, t) + _out_hw(h, w, stride) + (c,)
+        if tuple(g.shape) != want or g.dtype != x.dtype:
+            raise ValueError(f"g must be {x.dtype} {want}, got {g.dtype} "
+                             f"{tuple(g.shape)}")
+        tensors.append(("g", g))
+    for name, v in tensors:
+        if v.device != x.device:
+            raise ValueError(f"{name} is on {v.device}, x on {x.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+
+
+def _activate(x, sc, bi):
+    """``relu(x·sc + bi)`` in f32, rounded to x's dtype (the forward's
+    activation)."""
+    return torch.relu(x.float() * sc + bi).to(x.dtype)
+
+
+def _launch(lib, name, x, *args):
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
+    LAUNCHES[name] += 1
+
+
+def _partials(name, x, k):
+    b, t, h, w, c = x.shape
+    rows = BWD_LIBRARY.build().dw_act_partial_rows(_ROWS_KIND[name], b, t, h,
+                                                   w, c)
+    return torch.empty((rows, k, c), dtype=torch.float32, device=x.device)
+
+
+# ---- forward: the act mode of K1 (stride 1) and K4 (stride 2) ---------------
+
+def dw_bnrelu_conv3d_plain(x: torch.Tensor, w_dw: torch.Tensor,
+                           sc: torch.Tensor, bi: torch.Tensor,
+                           stride: int) -> torch.Tensor:
+    """``a = relu(x·sc + bi)`` in f32, rounded to x's dtype, zero-padded
+    by one on T, H and W (zero after the activation); the 27-tap depthwise
+    sum in f32 at stride ``(1, s, s)``, written in x's dtype."""
+    return stencil_f32(_activate(x, sc, bi), w_dw, stride).to(x.dtype)
+
+
+def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
+                     bi: torch.Tensor, stride: int) -> torch.Tensor:
+    """Fused ``dwconv3³(relu(x·sc + bi))`` at stride ``(1, s, s)``.
+
+    Args:
+      x: ``(B, T, H, W, C)`` float32 or bfloat16, contiguous: conv1's output.
+      w_dw: ``(3, 3, 3, C)`` depthwise taps in x's dtype.
+      sc, bi: ``(C,)`` float32 bn1 apply vectors.
+      stride: 1, or 2 for stride (1, 2, 2).
+
+    Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` in x's dtype.  A CPU tensor takes
+    :func:`dw_bnrelu_conv3d_plain`; a CUDA tensor launches ``dw_act_s1`` or
+    ``dw_act_s2``, or raises."""
+    _check(x, w_dw, sc, bi, stride)
+    if x.device.type == "cpu":
+        return dw_bnrelu_conv3d_plain(x, w_dw, sc, bi, stride)
+    b, t, h, w, c = x.shape
+    y = torch.empty((b, t) + _out_hw(h, w, stride) + (c,), dtype=x.dtype,
+                    device=x.device)
+    if y.numel():
+        _launch(FWD_LIBRARY, f"dw_act_s{stride}", x, x.data_ptr(),
+                w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
+                b, t, h, w, c)
+    return y
+
+
+# ---- dx: K3 (stride 1) and K5 (stride 2) -------------------------------------
+
+def dw_act_dx_plain(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
+                    sc: torch.Tensor, bi: torch.Tensor, stride: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``da = ∂y/∂a·g`` (the correlation of g with the flipped taps; at
+    stride 2 of g placed at the even positions of a zero full-resolution
+    tensor), ``dam = da ⊙ 1[x·sc + bi > 0]`` with the mask compared in f32.
+    Returns ``dx = dam·sc`` in x's dtype and the f32 ``(2, C)`` sums
+    ``(Σ dam·x, Σ dam)``."""
+    gf = g.float()
+    if stride == 2:
+        up = torch.zeros(x.shape, dtype=torch.float32, device=g.device)
+        up[:, :, ::2, ::2] = gf
+        gf = up
+    da = stencil_f32(gf, torch.flip(w_dw, (0, 1, 2)), 1)
+    xf = x.float()
+    dam = torch.where(xf * sc + bi > 0, da, torch.zeros_like(da))
+    red = torch.stack([torch.sum(dam * xf, dim=(0, 1, 2, 3)),
+                       torch.sum(dam, dim=(0, 1, 2, 3))])
+    return (dam * sc).to(x.dtype), red
+
+
+def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
+              sc: torch.Tensor, bi: torch.Tensor, stride: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """dx of :func:`dw_bnrelu_conv3d` with the relu mask, the bn1 scale and
+    the ``(dsc, dbi)`` sums fused in (see :func:`dw_act_dx_plain`).
+
+    ``g`` is dL/dy (y's shape, x's dtype).  A CPU tensor takes the plain
+    version; a CUDA tensor launches ``dw_act_dx_s1`` or ``dw_act_dx_s2``
+    (per-block partial sums, added with one ``torch.sum``), or raises."""
+    _check(x, w_dw, sc, bi, stride, g)
+    if x.device.type == "cpu":
+        return dw_act_dx_plain(g, x, w_dw, sc, bi, stride)
+    dx = torch.empty_like(x)
+    if not x.numel():
+        return dx, torch.zeros((2, x.shape[-1]), device=x.device)
+    name = f"dw_act_dx_s{stride}"
+    part = _partials(name, x, 2)
+    _launch(BWD_LIBRARY, name, x, g.data_ptr(), x.data_ptr(), w_dw.data_ptr(),
+            sc.data_ptr(), bi.data_ptr(), dx.data_ptr(), part.data_ptr(),
+            *x.shape)
+    return dx, torch.sum(part, dim=0)
+
+
+# ---- wgrad: the act mode of K6 (stride 1) and K10 (stride 2) -----------------
+
+def dw_act_wgrad_plain(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
+                       bi: torch.Tensor, stride: int) -> torch.Tensor:
+    """``dk[tap, c] = Σ_pos a_pad[s·pos + tap]·g[pos]`` with the forward's
+    rounded, zero-padded activation, in f32: ``(27, C)``."""
+    b, t, h, w, c = x.shape
+    ho, wo = _out_hw(h, w, stride)
+    a = torch.nn.functional.pad(_activate(x, sc, bi).float(),
+                                (0, 0, 1, 1, 1, 1, 1, 1))
+    gf = g.float()
+    dk = []
+    for dt in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                tap = a[:, dt:dt + t, dy:dy + stride * (ho - 1) + 1:stride,
+                        dx:dx + stride * (wo - 1) + 1:stride]
+                dk.append(torch.sum(tap * gf, dim=(0, 1, 2, 3)))
+    return torch.stack(dk)
+
+
+def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
+                 bi: torch.Tensor, stride: int) -> torch.Tensor:
+    """Weight gradient of :func:`dw_bnrelu_conv3d` (see
+    :func:`dw_act_wgrad_plain`), ``(27, C)`` f32.  A CPU tensor takes the
+    plain version; a CUDA tensor launches ``dw_act_wgrad_s1`` or
+    ``dw_act_wgrad_s2`` (per-block partial sums, added with one
+    ``torch.sum``), or raises."""
+    _check(x, None, sc, bi, stride, g)
+    if x.device.type == "cpu":
+        return dw_act_wgrad_plain(x, g, sc, bi, stride)
+    if not g.numel():
+        return torch.zeros((27, x.shape[-1]), device=x.device)
+    name = f"dw_act_wgrad_s{stride}"
+    part = _partials(name, x, 27)
+    _launch(BWD_LIBRARY, name, x, x.data_ptr(), g.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), part.data_ptr(), *x.shape)
+    return torch.sum(part, dim=0)
+
+
+# ---- autograd -----------------------------------------------------------------
+
+class DwBnReluConv3d(torch.autograd.Function):
+    """``dwconv3³(relu(x·sc + bi))`` with the kernels' backward:
+    ``(dx, dw, dsc, dbi)`` from :func:`dw_act_dx` and :func:`dw_act_wgrad`
+    (the JAX package's ``_dw_act_bwd``).  ``sc``/``bi`` come from bn1's
+    batch statistics inside autograd, so the gradient through the mean and
+    variance, and into bn1's weight and bias, is PyTorch's."""
+
+    @staticmethod
+    def forward(ctx, x, w_dw, sc, bi, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, w_dw, sc, bi)
+        return dw_bnrelu_conv3d(x, w_dw, sc, bi, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_dw, sc, bi = ctx.saved_tensors
+        g = g.contiguous()
+        dx, red = dw_act_dx(g, x, w_dw, sc, bi, ctx.stride)
+        dk = dw_act_wgrad(x, g, sc, bi, ctx.stride)
+        dk = dk.reshape(3, 3, 3, -1).to(w_dw.dtype)
+        return dx, dk, red[0], red[1], None
+
+
+# ``dw_bnrelu_conv3d_train(x, w_dw, sc, bi, stride)``: :func:`dw_bnrelu_conv3d`
+# inside autograd
+dw_bnrelu_conv3d_train = DwBnReluConv3d.apply

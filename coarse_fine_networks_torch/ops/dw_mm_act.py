@@ -10,82 +10,35 @@ the same function as two Pallas kernels on the TPU.
 
 On a CUDA tensor the wrapper launches the hand-written kernel of
 ``csrc/dw_mm_act.cu`` (built with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` and bound with ``ctypes``); on a CPU tensor it runs
-:func:`dw_mm_bnrelu_conv3d_plain`, which defines the semantics.
+``_build/`` and bound with ``ctypes``, :mod:`._build`); on a CPU tensor it
+runs :func:`dw_mm_bnrelu_conv3d_plain`, which defines the semantics.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
-
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dw_mm_act.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
+
+# The source also holds the act-mode entries of :mod:`.dw_act`.
+LIBRARY = CudaLibrary("dw_mm_act.cu", {
+    "dw_mm_act_s1": [P] * 6 + [I] * 7 + [P],
+    "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
+    "dw_act_s1": [P] * 5 + [I] * 6 + [P],
+    "dw_act_s2": [P] * 5 + [I] * 6 + [P],
+})
+SOURCE = LIBRARY.source
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by the plain version).
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0}
 _KERNEL = {1: "dw_mm_act_s1", 2: "dw_mm_act_s2"}
 
-_lib: ctypes.CDLL | None = None
-_lib_lock = threading.Lock()
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
-
-
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/dw_mm_act.cu`` (once per source version) and load it.
-
-    The library is named by a hash of the source and flags, so an edited
-    source is rebuilt; it is written to a temporary name and renamed, so a
-    concurrent process never loads a half-written file."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = SOURCE.read_bytes()
-        tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        out = BUILD_DIR / f"dw_mm_act_{tag[:16]}.so"
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(str(out))
-        for name in _KERNEL.values():
-            fn = getattr(lib, name)
-            fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
 
 
 def _out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
@@ -132,14 +85,21 @@ def dw_mm_bnrelu_conv3d_plain(x: torch.Tensor, w1: torch.Tensor,
     activation); then the 27-tap depthwise sum in f32 at stride
     ``(1, stride, stride)``, written in x's dtype.  Output
     ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C_mid)``."""
-    b, t, h, w, _ = x.shape
-    ho, wo = _out_hw(h, w, stride)
     z = torch.matmul(x.float(), w1.float())
-    a = torch.relu(z * sc + bi).to(x.dtype).float()
-    a = F.pad(a, (0, 0, 1, 1, 1, 1, 1, 1))
+    a = torch.relu(z * sc + bi).to(x.dtype)
+    return stencil_f32(a, w_dw, stride).to(x.dtype)
+
+
+def stencil_f32(a: torch.Tensor, w_dw: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """The 27-tap depthwise correlation of ``a (B, T, H, W, C)`` with taps
+    ``w_dw (3, 3, 3, C)`` at stride ``(1, stride, stride)``, zero-padded by
+    one on T, H and W, summed in f32: ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` f32."""
+    b, t, h, w, c = a.shape
+    ho, wo = _out_hw(h, w, stride)
+    a = F.pad(a.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     wf = w_dw.float()
-    y = torch.zeros((b, t, ho, wo, w1.shape[1]), dtype=torch.float32,
-                    device=x.device)
+    y = torch.zeros((b, t, ho, wo, c), dtype=torch.float32, device=a.device)
     for dt in range(3):
         for dy in range(3):
             for dx in range(3):
@@ -147,7 +107,7 @@ def dw_mm_bnrelu_conv3d_plain(x: torch.Tensor, w1: torch.Tensor,
                         dy:dy + stride * (ho - 1) + 1:stride,
                         dx:dx + stride * (wo - 1) + 1:stride]
                       * wf[dt, dy, dx])
-    return y.to(x.dtype)
+    return y
 
 
 def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
@@ -180,13 +140,10 @@ def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
     if y.numel() == 0:
         return y
     name = _KERNEL[stride]
-    fn = getattr(build(), name)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
-                 bi.data_ptr(), y.data_ptr(), b, t, h, w, c_in, c_mid,
-                 int(x.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LIBRARY.call(name, x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(),
+                     sc.data_ptr(), bi.data_ptr(), y.data_ptr(), b, t, h, w,
+                     c_in, c_mid, int(x.dtype == torch.bfloat16), stream)
     LAUNCHES[name] += 1
     return y

@@ -17,10 +17,16 @@ _F32_EPS = float(torch.finfo(torch.float32).eps)
 
 def hat_matrix(positions: torch.Tensor, length: int) -> torch.Tensor:
     """``(..., K)`` positions in source-index units → ``(..., T, K)`` linear
-    interpolation weights with zero padding outside ``[0, T-1]``."""
+    interpolation weights with zero padding outside ``[0, T-1]``.
+
+    The gradient with respect to the positions follows JAX's conventions
+    where the hat has a kink, as the learned Grid Pool knots can sit there:
+    ``|r|`` has slope +1 at ``r = 0`` and ``max(d, 0)`` splits its gradient
+    in half at ``d = 0``."""
     t = torch.arange(length, dtype=positions.dtype, device=positions.device)
-    d = 1.0 - torch.abs(positions[..., None, :] - t[:, None])
-    return torch.clamp(d, min=0.0)
+    r = positions[..., None, :] - t[:, None]
+    d = 1.0 - torch.where(r >= 0, r, -r)
+    return torch.maximum(d, d.new_zeros(()))
 
 
 def temporal_resample(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -41,7 +47,7 @@ def _resize_positions(in_len: int, out_len: int, align_corners: bool,
             return torch.zeros((1,), dtype=dtype, device=device)
         return j * ((in_len - 1) / (out_len - 1))
     pos = (j + 0.5) * (in_len / out_len) - 0.5
-    return torch.clamp(pos, 0.0, float(in_len - 1))
+    return torch.clamp(pos, 0.0, float(in_len - 1))  # constants: no gradient
 
 
 def linear_resize(x: torch.Tensor, out_len: int,

@@ -53,8 +53,12 @@ def test_bottleneck(c_in, stride, use_se, down):
 
 
 def test_bottleneck_train_mode_is_not_ported():
+    """Training with split batch norm (``num_splits > 1``) is not ported: it
+    needs the plain modes of K1/K4 and K8."""
+    block = Bottleneck(8, 16, 8).train()
+    block.bn1 = SubBatchNorm(16, num_splits=2)
     with pytest.raises(NotImplementedError):
-        Bottleneck(8, 16, 8).train()(torch.zeros(1, 1, 4, 4, 8))
+        block(torch.zeros(2, 1, 4, 4, 8))
 
 
 @pytest.mark.parametrize("stride,h", [(1, 8), (2, 16), (2, 14)])

@@ -14,12 +14,14 @@ Phases, each printing JSON lines:
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
    the coarse tower at T=64 in layer1 and T=17 after Grid Pool, which
-   leaves a short last frame segment); then each train kernel (the forward
-   ``dw_act_s1/s2``, dx ``dw_act_dx_s1/s2`` and weight gradient
-   ``dw_act_wgrad_s1/s2``) at the 8 coarse entry shapes the train step
-   gives it (batch 8; T=64 in layer1, T=17 after Grid Pool); all in f32
-   (TF32 off) and bf16, with timings of the kernel, the plain version, the
-   unfused PyTorch sequence and the nearest single PyTorch call;
+   leaves a short last frame segment) and the 8 the fine eval step gives
+   it (B8 T64 224²); then each train kernel (the forward ``dw_act_s1/s2``,
+   dx ``dw_act_dx_s1/s2`` and weight gradient ``dw_act_wgrad_s1/s2``) at
+   the 8 coarse entry shapes the train step gives it (batch 8; T=64 in
+   layer1, T=17 after Grid Pool) and the 8 the fine stream's long-cycle
+   phase D gives it (B8 T64 224²); all in f32 (TF32 off) and bf16, with
+   timings of the kernel, the plain version, the unfused PyTorch sequence
+   and the nearest single PyTorch call;
 3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
    autograd through the plain composition, f32, one shape per stride;
 4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
@@ -38,8 +40,30 @@ Phases, each printing JSON lines:
    stride-1 and 4 stride-2 launches of each train kernel per step, no eval
    kernel), then a ``torch.profiler`` breakdown of one step;
 8. train_card_vs_cpu: one small f32 train step on the card and on the CPU
-   from the same weights (loss and every parameter's gradient);
-9. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+   from the same weights (the loss; the gradients per stage and per
+   tensor);
+9. fine kernels: each kernel of the split-batch-norm route (the forward
+   ``dw_conv_s1/s2``, which at stride 1 is also the dx, the stride-2 dx
+   ``dw_conv_dx_s2`` and the weight gradient ``dw_conv_wgrad_s1/s2``)
+   against its plain version at the fine tower's entry shapes in phases
+   A-C of the multigrid long cycle, f32 (TF32 off) and bf16, timed beside
+   the plain version and the one PyTorch call that computes the same
+   function (``F.conv3d(groups=C)``, ``aten.convolution_backward``);
+10. fine_autograd: the split route's Function against autograd through
+   ``F.conv3d(groups=C)``, f32, one shape per stride;
+11. fine_train: fine-stream training under the X3D multigrid long cycle at
+   full width (X3D-M, 157 classes, bf16 activations, f32 parameters, the
+   fine driver's ``LongCycleSchedule(320, 224, 8)``: phases A-D at B64 T16
+   112², B32 T32 144², B16 T32 224², B8 T64 224² with 8, 4, 2 and 1
+   batch-norm splits), seeded uint8 clips and multi-hot labels through
+   ``model_batch``, 2 warm-up and 5 timed steps per phase with exact
+   launch counts (A-C: the split route's kernels only; D: the act-mode
+   entry's only), a ``torch.profiler`` breakdown of one phase-B and one
+   phase-D step, then the split statistics aggregated and one eval step
+   (the eval kernels only);
+12. fine_card_vs_cpu: one small f32 fine train step at two splits on the
+   card and on the CPU from the same weights, held as in phase 8;
+13. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` last.
 
 Any failed check raises and the script exits non-zero before the last line.
@@ -67,6 +91,25 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain, as a fraction of max|plain|: f32 sums in another order;
 # bf16 output rounding (and the odd flip of a bf16-rounded activation)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# a small f32 train step, card against CPU: a relu input within a rounding
+# of 0 can take the other branch, and batch norm over a few dozen elements
+# carries that into every gradient upstream.  The JAX package's own two
+# trunk layouts, the same math in another order, differ on these
+# configurations by up to 4.85e-2 (fine) and 4.3e-2 (coarse) relative L2
+# per stage, and by up to 0.44 and 0.42 per tensor (largest difference over
+# the tensor's largest magnitude; tests/_torch_port_layout_spread.py).  A
+# fault of wiring or of a kernel moves a tensor by O(1)
+GRAD_STAGE_TOL = 5e-2
+GRAD_TENSOR_TOL = 0.5
+# gradients that are zero up to rounding (a bias taken out again by a
+# training-mode batch norm), as a fraction of the largest gradient: at most
+# 2.5e-8 on the card and on the CPU; held on both devices instead of the per-tensor bound
+ZERO_GRAD = 1e-6
+COARSE_ZERO_GRADS = (
+    "pool_1.conv1.bias", "pool_1.conv2.bias",  # before Grid Pool's bn1, bn2
+    # the fusion's additive maps, added before a stage's first conv and bn
+    *(f"rw{i}.fc2.bias" for i in range(2, 6)),
+    *(f"mix{i}.conv_at.bias" for i in range(2, 6)))
 # bottleneck entries per stage at 224²: (stage, H_in and C_in of block 0
 # (stride 2), H_in and C_in after it, C_mid, bottlenecks in the stage)
 ENTRY_SHAPES = [
@@ -94,6 +137,11 @@ REPLACES = {
     "dw_act_dx_s2": f"{_DW_FOLD}:660",     # _dx_s2_act_pcall
     "dw_act_wgrad_s1": f"{_DW_FOLD}:705",  # _dw_fold4_wgrad_pcall, act mode
     "dw_act_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, act mode
+    "dw_conv_s1": f"{_DW_FOLD}:532",       # _dw_fold4_pcall, plain mode
+    "dw_conv_s2": f"{_DW_FOLD}:1078",      # _fwd_s2_direct_pcall, plain mode
+    "dw_conv_dx_s2": f"{_DW_FOLD}:1208",   # _dx_s2_pcall (K8)
+    "dw_conv_wgrad_s1": f"{_DW_FOLD}:705",  # _dw_fold4_wgrad_pcall, plain
+    "dw_conv_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, plain mode
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
@@ -106,6 +154,18 @@ TRAIN = dict(b=8, t=64, hw=224, tf=128, tl=640, n_classes=157, lr=0.02,
 TRAIN_FRAMES = {"layer1": 64, "layer2": 17, "layer3": 17, "layer4": 17}
 BANKS = (("layer1", 24), ("layer2", 48), ("layer3", 96), ("layer4", 192),
          ("conv5", 432))
+# fine-stream training: the fine driver's long cycle (frames, crop, batch of
+# phase D; the schedule scales them per phase), clip length 2·frames/10,
+# label window 2·frames
+FINE = dict(base=(320, 224, 8), n_classes=157, lr=0.01, dropout=0.5,
+            warmup=2, steps=5)
+FINE_KERNELS = ("dw_conv_s1", "dw_conv_s2", "dw_conv_dx_s2",
+                "dw_conv_wgrad_s1", "dw_conv_wgrad_s2")
+ACT_KERNELS = tuple(f"dw_act{p}_s{s}" for p in ("", "_dx", "_wgrad")
+                    for s in (1, 2))
+# (stage, C_mid, bottlenecks in the stage)
+STAGES = (("layer1", 54, 3), ("layer2", 108, 5), ("layer3", 216, 11),
+          ("layer4", 432, 7))
 
 
 class CheckFailed(RuntimeError):
@@ -136,16 +196,25 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 def entry_cases():
-    """(kernel, label, B, T, H, W, C_in, C_mid, stride, launches) of the 16
-    entry shapes the serve phase gives the kernels (8 per tower, at its
-    batch); ``launches`` is how often the counted serve run launches each."""
-    for tower, (frames, calls) in TOWERS.items():
+    """(kernel, label, B, T, H, W, C_in, C_mid, stride, launches, counted) of
+    the entry shapes the eval kernels get: the 16 of the serve phase (8 per
+    tower, at its batch; ``launches`` is how often the counted serve run
+    launches each, and these rows make up the kernel's line) and the 8 of
+    the fine eval step (long-cycle phase D's B8 T64 224², every stage at
+    T=64; ``launches`` per eval step)."""
+    _, b_d, t_d, crop_d, _, _ = fine_phase("D")
+    check(crop_d == 224, f"phase D crop {crop_d}: ENTRY_SHAPES are at 224²")
+    towers = [(tower, SERVE_B, frames, calls, True)
+              for tower, (frames, calls) in TOWERS.items()]
+    towers.append(("fine_eval.D", b_d, dict.fromkeys(TRAIN_FRAMES, t_d), 1,
+                   False))
+    for tower, b, frames, calls, counted in towers:
         for layer, h_s2, cin_s2, h_s1, cin_s1, c_mid, n in ENTRY_SHAPES:
             t = frames[layer]
-            yield ("dw_mm_act_s2", f"{tower}.{layer}.0", SERVE_B, t, h_s2,
-                   h_s2, cin_s2, c_mid, 2, calls)
-            yield ("dw_mm_act_s1", f"{tower}.{layer}.1-{n - 1}", SERVE_B, t,
-                   h_s1, h_s1, cin_s1, c_mid, 1, (n - 1) * calls)
+            yield ("dw_mm_act_s2", f"{tower}.{layer}.0", b, t, h_s2, h_s2,
+                   cin_s2, c_mid, 2, calls, counted)
+            yield ("dw_mm_act_s1", f"{tower}.{layer}.1-{n - 1}", b, t, h_s1,
+                   h_s1, cin_s1, c_mid, 1, (n - 1) * calls, counted)
 
 
 def phase_device() -> str:
@@ -169,7 +238,8 @@ def phase_kernels(dw_mm_act) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {k: _agg() for k in MM_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
-        for name, label, b, t, h, w, c_in, c_mid, s, n in entry_cases():
+        for (name, label, b, t, h, w, c_in, c_mid, s, n,
+             counted) in entry_cases():
             def rnd(*shape, scale=1.0):
                 return torch.randn(shape, generator=gen, device="cuda") * scale
             x = rnd(b, t, h, w, c_in).to(dtype)
@@ -211,7 +281,8 @@ def phase_kernels(dw_mm_act) -> dict:
             row = {"phase": "kernels", "kernel": name, "entry": label,
                    "dtype": str(dtype).replace("torch.", ""),
                    "x": [b, t, h, w, c_in], "c_mid": c_mid, "stride": s,
-                   "serve_launches": n, "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
+                   "path_launches": n, "in_kernel_line": counted,
+                   "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "tol_abs": tol, "ms": ms, "plain_ms": plain_ms,
                    "unfused_ms": unfused_ms,
                    "bound_ms": max(bytes_ms, ops_ms),
@@ -225,14 +296,15 @@ def phase_kernels(dw_mm_act) -> dict:
                               f"> {tol}")
             agg = per_kernel[name]
             if dtype == torch.bfloat16:
-                # the served dtype: each shape weighted by its launches in
-                # the counted serve run, so the sums are that run's work
+                # the served dtype: each serve shape weighted by its
+                # launches in the counted serve run, so the sums are that
+                # run's work
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("unfused_ms", unfused_ms),
                                ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
                                ("bound_ms", row["bound_ms"])):
-                    agg[key] += n * v
-                agg["launches"] += n
+                    agg[key] += n * v * counted
+                agg["launches"] += n * counted
                 agg["max_abs_err"] = max(agg["max_abs_err"], err)
             else:
                 agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
@@ -256,13 +328,19 @@ def _bound(nbytes: float, ops: float, dtype) -> dict:
 
 
 def train_entry_cases():
-    """(label, B, T, H, C, stride, launches per train step) of the 8 coarse
-    entry shapes the train step gives the act-mode kernels (x is conv1's
-    output, C = C_mid)."""
+    """(label, B, T, H, C, stride, launches per step, counted) of the entry
+    shapes the act-mode kernels get (x is conv1's output, C = C_mid): the 8
+    of the coarse train step (T=64 in layer1, T=17 after Grid Pool; these
+    rows make up the kernel's line) and the 8 of the fine stream in
+    long-cycle phase D (B8 T64 224², every stage at T=64)."""
     for layer, h_s2, _, h_s1, _, c_mid, n in ENTRY_SHAPES:
         t = TRAIN_FRAMES[layer]
-        yield f"{layer}.0", TRAIN["b"], t, h_s2, c_mid, 2, 1
-        yield f"{layer}.1-{n - 1}", TRAIN["b"], t, h_s1, c_mid, 1, n - 1
+        yield f"coarse.{layer}.0", TRAIN["b"], t, h_s2, c_mid, 2, 1, True
+        yield (f"coarse.{layer}.1-{n - 1}", TRAIN["b"], t, h_s1, c_mid, 1,
+               n - 1, True)
+    _, b, t, crop, _, _ = fine_phase("D")
+    for label, h, c, s, blocks in fine_entry_cases(crop):
+        yield f"fine.D.{label}", b, t, h, c, s, blocks, False
 
 
 def _rel_err(got, ref) -> tuple[float, float]:
@@ -272,12 +350,13 @@ def _rel_err(got, ref) -> tuple[float, float]:
 
 def phase_train_kernels(dw_act) -> dict:
     """The six train kernels against their plain versions, and timed, at
-    the train step's coarse entry shapes."""
+    the coarse train step's entry shapes and at the fine stream's in
+    long-cycle phase D."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     per_kernel = {f"dw_act{p}_s{s}": _agg() for p in ("", "_dx", "_wgrad")
                   for s in (1, 2)}
     for dtype in (torch.float32, torch.bfloat16):
-        for label, b, t, h, c, s, n in train_entry_cases():
+        for label, b, t, h, c, s, n, counted in train_entry_cases():
             def rnd(*shape, scale=1.0):
                 return torch.randn(shape, generator=gen, device="cuda") * scale
             ho = (h - 1) // s + 1
@@ -355,10 +434,10 @@ def phase_train_kernels(dw_act) -> dict:
                 plain_ms = cuda_ms(plain, 3, 1)
                 unfused_ms = cuda_ms(unfused, 10)
                 nearest_ms = cuda_ms(nearest, 10)
-                row = {"phase": "kernels", "kernel": name, "entry":
-                       f"coarse.{label}", "dtype": str(dtype)[6:],
-                       "x": [b, t, h, h, c], "stride": s,
-                       "train_launches_per_step": n, "max_abs_err": err,
+                row = {"phase": "kernels", "kernel": name, "entry": label,
+                       "dtype": str(dtype)[6:], "x": [b, t, h, h, c],
+                       "stride": s, "launches_per_step": n,
+                       "in_kernel_line": counted, "max_abs_err": err,
                        "max_abs_err_by_output": [e for e, _ in errs],
                        "ref_absmax_by_output": [m for _, m in errs],
                        "ms": ms, "plain_ms": plain_ms,
@@ -369,12 +448,13 @@ def phase_train_kernels(dw_act) -> dict:
                 check(tol_ok, f"{name} {label} {dtype}: errors {errs}")
                 agg = per_kernel[name]
                 if dtype == torch.bfloat16:
-                    # the trained dtype: each shape weighted by its launches
-                    # in one train step, so the sums are one step's work
+                    # the trained dtype: each coarse shape weighted by its
+                    # launches in one train step, so the sums are one
+                    # coarse step's work
                     for key in ("ms", "plain_ms", "unfused_ms", "nearest_ms",
                                 "bytes_ms", "ops_ms", "bound_ms"):
-                        agg[key] += n * row[key]
-                    agg["launches"] += n
+                        agg[key] += n * row[key] * counted
+                    agg["launches"] += n * counted
                     agg["max_abs_err"] = max(agg["max_abs_err"], err)
                 else:
                     agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
@@ -436,8 +516,6 @@ def _train_batch(device, gen, b, t, hw, tf, tl, n_classes, dtype):
 def phase_train(dw_act, dw_mm_act) -> dict:
     """The coarse train step at full width on the card; returns the train
     kernels' launches in the timed steps."""
-    from torch.profiler import ProfilerActivity, profile
-
     from coarse_fine_networks_torch.models import CoarseNet, init_parameters
     from coarse_fine_networks_torch.train import TrainState, make_train_step
 
@@ -485,22 +563,10 @@ def phase_train(dw_act, dw_mm_act) -> dict:
     n = c["steps"]
     want = {k: n * (22 if k.endswith("_s1") else 4) for k in launches}
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        state, m = step(state, batch, c["lr"], drop)
-        m["loss"].item()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours = ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
-            "wgrad_kernel")
-    by_ours = {o: sum(e.self_device_time_total for e in kernels
-                      if o in e.key) / 1e3 for o in ours}
-    ours_ms = sum(by_ours.values())
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    def one_step():
+        step(state, batch, c["lr"], drop)[1]["loss"].item()
+    profiled = _profile_step(one_step, ("dw_mm_act_kernel", "dx_s1_kernel",
+                                        "dx_s2_kernel", "wgrad_kernel"))
     mean_ms = sum(step_ms) / len(step_ms)
     emit({"phase": "train", "model": "X3D-M", "n_classes": c["n_classes"],
           "dtype": "bfloat16 activations, float32 parameters",
@@ -513,14 +579,7 @@ def phase_train(dw_act, dw_mm_act) -> dict:
           "params_moved": f"{len(moved)}/{len(params)}",
           "split_stats_unchanged": stuck, "model_build_s": build_s})
     emit({"phase": "train_profile", "what": "one train step, B8 T64 224² "
-                                            "bf16",
-          "wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms if wall_ms else None,
-          "new_kernels_ms": by_ours, "new_kernels_share":
-          ours_ms / device_ms if device_ms else None,
-          "kernel_launches": sum(e.count for e in kernels),
-          "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
-                  for e in top]})
+                                            "bf16", **profiled})
     check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
     check(not nonfinite, f"non-finite parameters or stats: {nonfinite[:5]}")
     check(len(moved) == len(params),
@@ -531,6 +590,56 @@ def phase_train(dw_act, dw_mm_act) -> dict:
     check(not any(mm_launches.values()),
           f"the train step launched eval kernels: {mm_launches}")
     return launches
+
+
+def _stage(name: str) -> str:
+    top = name.split(".")[0]
+    if top.startswith(("rw", "mix")):
+        return "fusion"
+    if top.startswith(("layer", "pool_")):
+        return top
+    return "stem" if top in ("conv1_s", "conv1_t", "bn1") else "head"
+
+
+def _compare_grads(row: dict, g_ref: dict, g: dict, zero: tuple) -> None:
+    """Every parameter's gradient on the card ``g`` against the CPU's
+    ``g_ref`` (f32 both): the relative L2 distance per stage, and per tensor
+    the largest difference over the tensor's largest magnitude.  ``zero``
+    names the tensors whose gradient is zero up to rounding (a bias that a
+    training-mode batch norm takes out again): each is held below
+    ``ZERO_GRAD`` of the largest gradient on both devices instead.  Emits
+    ``row`` with the readings, then raises past ``GRAD_STAGE_TOL`` or
+    ``GRAD_TENSOR_TOL``."""
+    phase = row["phase"]
+    top = max(v.abs().max().item() for v in g_ref.values())
+    check(set(zero) <= set(g_ref), f"{phase}: unknown tensors "
+                                   f"{set(zero) - set(g_ref)}")
+    zeros = {k: [g_ref[k].abs().max().item() / top,
+                 g[k].abs().max().item() / top] for k in zero}
+    acc, rel = {}, {}
+    for k, v in g_ref.items():
+        d = (g[k] - v).double()
+        e = acc.setdefault(_stage(k), [0.0, 0.0])
+        e[0] += float((d ** 2).sum())
+        e[1] += float((v.double() ** 2).sum())
+        if k not in zeros:
+            rel[k] = (d.abs().max() / v.abs().max().clamp(min=1e-30)).item()
+    stage = {s: (x / n) ** 0.5 for s, (x, n) in sorted(acc.items())}
+    row.update({
+        "grad_stage_rel_l2": stage,
+        "grad_median_rel_max_err": float(np.median(list(rel.values()))),
+        "grad_worst_rel_max_err": sorted(rel.items(),
+                                         key=lambda kv: -kv[1])[:6],
+        "zero_grads_over_largest_cpu_card": zeros,
+        "stage_tol": GRAD_STAGE_TOL, "tensor_tol": GRAD_TENSOR_TOL,
+        "zero_tol": ZERO_GRAD})
+    emit(row)
+    bad = {k: v for k, v in zeros.items() if max(v) > ZERO_GRAD}
+    check(not bad, f"{phase}: gradients that should vanish do not: {bad}")
+    check(max(stage.values()) <= GRAD_STAGE_TOL,
+          f"{phase}: gradients card vs CPU per stage {stage}")
+    over = {k: e for k, e in rel.items() if e > GRAD_TENSOR_TOL}
+    check(not over, f"{phase}: gradients card vs CPU per tensor {over}")
 
 
 def phase_train_card_vs_cpu() -> None:
@@ -555,27 +664,387 @@ def phase_train_card_vs_cpu() -> None:
                      {k: p.grad.detach().cpu() for k, p in
                       model.named_parameters()})
     (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
-    rel = {k: ((g[k] - v).abs().max() / v.abs().max().clamp(min=1e-30))
-           .item() for k, v in g_ref.items()}
-    num = sum(float(((g[k] - v).double() ** 2).sum()) for k, v in g_ref.items())
-    den = sum(float((v.double() ** 2).sum()) for v in g_ref.values())
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:6]
-    emit({"phase": "train_card_vs_cpu", "dtype": "float32", "input_hw": 64,
-          "B": 2, "T": 8, "loss_cpu": loss_ref, "loss_card": loss,
-          "loss_rel_err": abs(loss - loss_ref) / abs(loss_ref),
-          "grad_global_rel_l2": (num / den) ** 0.5,
-          "grad_median_rel_max_err": float(np.median(list(rel.values()))),
-          "grad_worst_rel_max_err": worst})
-    # the forward loss: f32 sums in other orders.  The gradients: a relu
-    # input within f32 rounding of 0 can take the other branch on the
-    # other device, and batch norm over 24 elements at layer4 amplifies it;
-    # the JAX package's own two trunk layouts differ by 4e-2 (relative L2
-    # per stage) at this size on the CPU, so the bound is on the whole
-    # gradient, at that level
+    row = {"phase": "train_card_vs_cpu", "dtype": "float32", "input_hw": 64,
+           "B": 2, "T": 8, "loss_cpu": loss_ref, "loss_card": loss,
+           "loss_rel_err": abs(loss - loss_ref) / abs(loss_ref)}
+    _compare_grads(row, g_ref, g, COARSE_ZERO_GRADS)
+    # the forward loss: f32 sums in other orders
     check(abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
           f"train loss card {loss} vs CPU {loss_ref}")
-    check((num / den) ** 0.5 <= 5e-2,
-          f"train gradients card vs CPU: relative L2 {(num / den) ** 0.5}")
+
+
+def fine_phases():
+    """(name, B, T, crop, label window, splits) of the four long-cycle
+    phases of the fine driver's schedule."""
+    from coarse_fine_networks_torch.train import LongCycleSchedule
+
+    sched = LongCycleSchedule(*FINE["base"])
+    for epoch, name in enumerate("ABCD"):
+        frames, crop, b = sched.shapes(epoch)
+        yield (name, b, 2 * frames // 10, crop, 2 * frames,
+               sched.phase(epoch).bn_split_scale)
+
+
+def fine_phase(name):
+    return next(p for p in fine_phases() if p[0] == name)
+
+
+def fine_entry_cases(crop):
+    """(label, H, C, stride, blocks) of the 8 fine-tower bottleneck entries
+    at one phase's crop: the stem halves the crop, each stage's block 0
+    halves it again (odd sizes round up); ``blocks`` run at that shape."""
+    h = (crop - 1) // 2 + 1
+    for layer, c_mid, n in STAGES:
+        yield f"{layer}.0", h, c_mid, 2, 1
+        h = (h - 1) // 2 + 1
+        yield f"{layer}.1-{n - 1}", h, c_mid, 1, n - 1
+
+
+def phase_fine_kernels(dw_conv) -> dict:
+    """The five kernels of the split-batch-norm route against their plain
+    versions, and timed beside the PyTorch call that computes the same
+    function, at the fine entry shapes of long-cycle phases A-C."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    per_kernel = {k: _agg() for k in FINE_KERNELS}
+    ncdhw = (0, 4, 1, 2, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for phase, b, t, crop, _, splits in fine_phases():
+            if splits == 1:
+                continue  # phase D takes the act-mode entry
+            for label, h, c, s, blocks in fine_entry_cases(crop):
+                ho = (h - 1) // s + 1
+                x = torch.randn((b, t, h, h, c), generator=gen,
+                                device="cuda").relu().to(dtype)
+                w = (torch.randn((3, 3, 3, c), generator=gen, device="cuda")
+                     / 27 ** 0.5).to(dtype)
+                g = torch.randn((b, t, ho, ho, c), generator=gen,
+                                device="cuda").to(dtype)
+                w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+                # channels-last tensors seen as NCDHW: channels_last_3d
+                xc, gc = x.permute(ncdhw), g.permute(ncdhw)
+                bw = ([1, s, s], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c)
+
+                def conv_bwd(mask):
+                    return torch.ops.aten.convolution_backward(
+                        gc, xc, w_conv, None, *bw, mask)
+
+                n_x, n_g, esz = x.numel(), g.numel(), x.element_size()
+                # launches per step: the stride-1 forward kernel is also
+                # each block's dx
+                cases = {f"dw_conv_s{s}": (
+                    lambda: dw_conv.dw_conv3d(x, w, s),
+                    lambda: dw_conv.dw_conv3d_plain(x, w, s),
+                    lambda: F.conv3d(xc, w_conv, stride=(1, s, s),
+                                     padding=1, groups=c),
+                    "F.conv3d(groups=C), channels_last_3d",
+                    (n_x + n_g + w.numel()) * esz, 2 * 27 * n_g,
+                    blocks * (2 if s == 1 else 1))}
+                if s == 2:
+                    cases["dw_conv_dx_s2"] = (
+                        lambda: dw_conv.dw_conv_dx_s2(g, w, (h, h)),
+                        lambda: dw_conv.dw_conv_dx_s2_plain(g, w, (h, h)),
+                        lambda: conv_bwd([True, False, False])[0],
+                        "aten.convolution_backward, input gradient only",
+                        (n_x + n_g + w.numel()) * esz, 2 * 27 * n_g, blocks)
+                cases[f"dw_conv_wgrad_s{s}"] = (
+                    lambda: dw_conv.dw_conv_wgrad(x, g, s),
+                    lambda: dw_conv.dw_conv_wgrad_plain(x, g, s),
+                    lambda: conv_bwd([False, True, False])[1],
+                    "aten.convolution_backward, weight gradient only",
+                    (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, blocks)
+                for name, (kern, plain, library, lib_what, nbytes, ops,
+                           n) in cases.items():
+                    got, ref = kern(), plain()
+                    torch.cuda.synchronize()
+                    check(got.shape == ref.shape and got.dtype == ref.dtype,
+                          f"{name} {phase}.{label} {dtype}: shape/dtype "
+                          f"{got.shape} {got.dtype}")
+                    err, scale = _rel_err(got, ref)
+                    ms = cuda_ms(kern, 20)
+                    plain_ms = cuda_ms(plain, 2, 1)
+                    library_ms = cuda_ms(library, 10)
+                    row = {"phase": "fine_kernels", "kernel": name,
+                           "entry": f"fine.{phase}.{label}",
+                           "dtype": str(dtype)[6:], "x": [b, t, h, h, c],
+                           "stride": s, "launches_per_step": n,
+                           "max_abs_err": err, "ref_absmax": scale,
+                           "ms": ms, "plain_ms": plain_ms,
+                           "library_ms": library_ms,
+                           "library_call": lib_what,
+                           **_bound(nbytes, ops, dtype)}
+                    emit(row)
+                    check(err <= TOL[dtype] * max(scale, 1.0),
+                          f"{name} {phase}.{label} {dtype}: max abs err "
+                          f"{err} (max |plain| {scale})")
+                    agg = per_kernel[name]
+                    if dtype == torch.bfloat16:
+                        # the trained dtype: each shape weighted by its
+                        # launches in one step of each of phases A-C
+                        for key in ("ms", "plain_ms", "library_ms",
+                                    "bytes_ms", "ops_ms", "bound_ms"):
+                            agg[key] = agg.get(key, 0.0) + n * row[key]
+                        agg["launches"] += n
+                        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                    else:
+                        agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"],
+                                                     err)
+                del x, g, xc, gc
+            torch.cuda.empty_cache()
+    return per_kernel
+
+
+def phase_fine_autograd(dw_conv) -> None:
+    """The split route's Function (forward, dx, dw) against autograd through
+    ``F.conv3d(groups=C)``, f32 (TF32 off), at phase B's odd stride-2 entry
+    (layer4.0, 9×9 → 5×5) and its layer2 stride-1 entry (18×18)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for s, h, c in ((2, 9, 432), (1, 18, 108)):
+        b, t = 32, 32
+        x = torch.randn((b, t, h, h, c), generator=gen, device="cuda").relu()
+        w = torch.randn((3, 3, 3, c), generator=gen, device="cuda") / 5
+        ho = (h - 1) // s + 1
+        g = torch.randn((b, t, ho, ho, c), generator=gen, device="cuda")
+        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = dw_conv.dw_conv3d_train(xa, wa, s)
+        y.backward(g)
+        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+        yr = F.conv3d(xr.permute(0, 4, 1, 2, 3),
+                      wr.permute(3, 0, 1, 2).unsqueeze(1), stride=(1, s, s),
+                      padding=1, groups=c).permute(0, 2, 3, 4, 1)
+        yr.backward(g)
+        torch.cuda.synchronize()
+        errs = {"y": _rel_err(y, yr), "dx": _rel_err(xa.grad, xr.grad),
+                "dw": _rel_err(wa.grad, wr.grad)}
+        rel = {k: e / max(m, 1e-30) for k, (e, m) in errs.items()}
+        emit({"phase": "fine_autograd", "stride": s, "x": [b, t, h, h, c],
+              "dtype": "float32", "max_rel_err": rel, "rel_tol": 1e-4})
+        # f32 both sides; dw sums over 32·32·5²..18² positions in other
+        # orders
+        check(max(rel.values()) <= 1e-4, f"fine autograd stride {s}: {rel}")
+
+
+def _fine_host_batch(gen, b, t, hw, tl, n_classes):
+    """A seeded host-format batch, made on the card: uint8 clips
+    ``(B, 1, T, H, W, 3)``, per-clip flips, a clip mask whose last sample
+    pads its last quarter, multi-hot labels and their mask."""
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device="cuda")
+    clip_mask = torch.ones((b, t), device="cuda")
+    clip_mask[-1, 3 * t // 4:] = 0
+    masks = torch.ones((b, tl), device="cuda")
+    masks[-1, 3 * tl // 4:] = 0
+    return {"clips": torch.randint(0, 256, (b, 1, t, hw, hw, 3),
+                                   generator=gen, device="cuda",
+                                   dtype=torch.uint8),
+            "flip": rand(b) > 0.5, "clip_mask": clip_mask,
+            "labels": (rand(b, tl, n_classes) > 0.9).float(),
+            "masks": masks}
+
+
+def _launches(*mods) -> dict:
+    out = {}
+    for m in mods:
+        out.update(m.LAUNCHES)
+    return out
+
+
+def _profile_step(fn, ours) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    by_ours = {o: sum(e.self_device_time_total for e in kernels
+                      if o in e.key) / 1e3 for o in ours}
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    return {"wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
+            "device_busy_share": device_ms / wall_ms if wall_ms else None,
+            "port_kernels_ms": by_ours,
+            "port_kernels_share": (sum(by_ours.values()) / device_ms
+                                   if device_ms else None),
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                    for e in top]}
+
+
+def phase_fine_train(dw_conv, dw_act, dw_mm_act) -> dict:
+    """Fine-stream training through the four long-cycle phases at full
+    width on the card, then the eval step; returns the split route's kernel
+    launches in the timed steps of phases A-C."""
+    from coarse_fine_networks_torch.models import (FineNet, SubBatchNorm,
+                                                   init_parameters)
+    from coarse_fine_networks_torch.train import (LongCycleSchedule,
+                                                  TrainState, bn_aggregated,
+                                                  make_eval_step,
+                                                  make_train_step,
+                                                  model_batch)
+
+    c = FINE
+    t0 = time.perf_counter()
+    model = init_parameters(
+        FineNet("M", c["n_classes"], dropout_rate=c["dropout"],
+                global_tower=False),
+        torch.Generator().manual_seed(10)).cuda()
+    sched = LongCycleSchedule(*c["base"])
+    step = make_train_step(model, align_corners=True)
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(11)
+    data = torch.Generator(device="cuda").manual_seed(12)
+    bns = [m for m in model.modules() if isinstance(m, SubBatchNorm)]
+    mods = (dw_conv, dw_act, dw_mm_act)
+    split_launches = {k: 0 for k in FINE_KERNELS}
+    emit({"phase": "fine_train_setup", "model": "X3D-M",
+          "n_classes": c["n_classes"], "params": sum(
+              p.numel() for p in model.parameters()),
+          "model_build_s": time.perf_counter() - t0})
+    for epoch, (name, b, t, crop, tl, _) in enumerate(fine_phases()):
+        splits = sched.transition(epoch, model)
+        check(all(m.num_splits == splits and m.split_bn.running_mean.numel()
+                  == splits * m.num_features for m in bns),
+              f"phase {name}: split buffers not rebuilt to {splits}")
+        batch = model_batch(_fine_host_batch(data, b, t, crop, tl,
+                                             c["n_classes"]),
+                            dtype=torch.bfloat16, device="cuda")
+        losses = []
+        for _ in range(c["warmup"]):
+            state, m = step(state, batch, c["lr"], drop)
+            losses.append(m["loss"].item())
+        before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods:
+            mod.reset_launches()
+        step_ms = []
+        for _ in range(c["steps"]):
+            t1 = time.perf_counter()
+            state, m = step(state, batch, c["lr"], drop)
+            loss = m["loss"].item()  # waits for the step
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss)
+        launches = _launches(*mods)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after = model.state_dict()
+        params = dict(model.named_parameters())
+        moved = [k for k in params if not torch.equal(after[k], before[k])]
+        nonfinite = [k for k, v in after.items()
+                     if v.is_floating_point() and not torch.isfinite(v).all()]
+        stuck = [k for k in after if "split_bn" in k
+                 and torch.equal(after[k], before[k])]
+        n = c["steps"]
+        if splits > 1:
+            per_step = {"dw_conv_s1": 44, "dw_conv_s2": 4, "dw_conv_dx_s2": 4,
+                        "dw_conv_wgrad_s1": 22, "dw_conv_wgrad_s2": 4}
+        else:
+            per_step = {k: 22 if k.endswith("_s1") else 4
+                        for k in ACT_KERNELS}
+        want = {k: n * per_step.get(k, 0) for k in launches}
+        mean_ms = sum(step_ms) / len(step_ms)
+        emit({"phase": "fine_train", "long_cycle_phase": name, "B": b,
+              "T": t, "input_hw": crop, "label_len": tl, "bn_splits": splits,
+              "dtype": "bfloat16 activations, float32 parameters",
+              "lr": c["lr"], "dropout": c["dropout"], "losses": losses,
+              "step_ms": step_ms, "mean_step_ms": mean_ms,
+              "clips_per_s": b / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+              "launches": {k: v for k, v in launches.items() if v},
+              "params_moved": f"{len(moved)}/{len(params)}"})
+        check(all(np.isfinite(losses)),
+              f"phase {name}: losses not finite: {losses}")
+        check(not nonfinite, f"phase {name}: non-finite parameters or "
+                             f"statistics: {nonfinite[:5]}")
+        check(len(moved) == len(params), f"phase {name}: parameters that "
+              f"did not move: {[k for k in params if k not in moved][:5]}")
+        check(not stuck, f"phase {name}: split statistics unchanged: "
+                         f"{stuck[:5]}")
+        check(launches == want, f"phase {name}: launches {launches} != "
+                                f"{want}")
+        if splits > 1:
+            for k in FINE_KERNELS:
+                split_launches[k] += launches[k]
+        if name in "BD":
+            ours = (("dw_mm_act_kernel", "dx_s2_kernel", "wgrad_kernel")
+                    if splits > 1 else
+                    ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
+                     "wgrad_kernel"))
+
+            def one_step():
+                step(state, batch, c["lr"], drop)[1]["loss"].item()
+            emit({"phase": "fine_train_profile",
+                  "what": f"one phase-{name} train step, B{b} T{t} "
+                          f"{crop}² bf16, {splits} splits",
+                  **_profile_step(one_step, ours)})
+        del batch
+        torch.cuda.empty_cache()
+
+    # the eval step on a phase-D batch with the aggregated statistics
+    bn_aggregated(state)
+    batch = model_batch(_fine_host_batch(data, b, t, crop, tl,
+                                         c["n_classes"]),
+                        dtype=torch.bfloat16, device="cuda")
+    for mod in mods:
+        mod.reset_launches()
+    t1 = time.perf_counter()
+    ev = make_eval_step(model, align_corners=True)(state, batch)
+    loss = ev["loss"].item()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    launches = _launches(*mods)
+    want = {k: (22 if k == "dw_mm_act_s1" else 4 if k == "dw_mm_act_s2"
+                else 0) for k in launches}
+    probs = ev["probs"]
+    emit({"phase": "fine_eval", "B": b, "T": t, "input_hw": crop,
+          "label_len": tl, "loss": loss, "eval_ms": eval_ms,
+          "probs_shape": list(probs.shape),
+          "launches": {k: v for k, v in launches.items() if v}})
+    check(tuple(probs.shape) == (b, tl, c["n_classes"]),
+          f"eval probs shape {tuple(probs.shape)}")
+    check(bool(torch.isfinite(probs).all()) and np.isfinite(loss),
+          "eval probabilities or loss not finite")
+    check(launches == want, f"eval launches {launches} != {want}")
+    return split_launches
+
+
+def phase_fine_card_vs_cpu() -> None:
+    """One small f32 fine train step with two batch-norm splits (X3D-M, 157
+    classes, B=4, T=8, 64², label length 32, dropout 0) on the card and on
+    the CPU from the same weights: the loss and every parameter's
+    gradient."""
+    from coarse_fine_networks_torch.models import (FineNet, init_parameters,
+                                                   set_bn_splits)
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    def build():
+        return set_bn_splits(FineNet("M", 157, dropout_rate=0.0,
+                                     global_tower=False), 2)
+    cpu = init_parameters(build(), torch.Generator().manual_seed(13))
+    gpu = build().cuda()
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(14)
+    batch = {"clips": torch.rand((4, 8, 64, 64, 3), generator=gen),
+             "labels": (torch.rand((4, 32, 157), generator=gen) > 0.9)
+             .float(),
+             "masks": torch.ones((4, 32))}
+    out = {}
+    for name, model in (("cpu", cpu), ("card", gpu)):
+        step = make_train_step(model, align_corners=True)
+        _, m = step(TrainState.create(model), batch, 0.01)
+        out[name] = (m["loss"].item(),
+                     {k: p.grad.detach().cpu() for k, p in
+                      model.named_parameters()})
+    (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
+    row = {"phase": "fine_card_vs_cpu", "dtype": "float32", "input_hw": 64,
+           "B": 4, "T": 8, "bn_splits": 2, "loss_cpu": loss_ref,
+           "loss_card": loss, "loss_rel_err": abs(loss - loss_ref) /
+           abs(loss_ref)}
+    _compare_grads(row, g_ref, g, ())
+    # the loss: f32 sums in other orders
+    check(abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
+          f"fine train loss card {loss} vs CPU {loss_ref}")
 
 
 def _clip(rng: torch.Generator, t: int, hw: int):
@@ -678,8 +1147,6 @@ def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
 def phase_profile(pipe) -> None:
     """Device-time breakdown of one cold batch (extract + fuse, 3 videos at
     T=64/T_f=128, 224²) called directly, under ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
-
     gen = torch.Generator(device="cuda").manual_seed(4)
     fine = torch.rand((3, 128, 224, 224, 3), generator=gen, device="cuda")
     clips = torch.rand((3, 64, 224, 224, 3), generator=gen, device="cuda")
@@ -694,27 +1161,9 @@ def phase_profile(pipe) -> None:
 
     batch()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        batch()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    ours_ms = sum(e.self_device_time_total for e in kernels
-                  if "dw_mm_act" in e.key) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     emit({"phase": "profile", "what": "one cold batch, extract + fuse, "
                                       "3 videos T=64/T_f=128 224² bf16",
-          "wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
-          "device_busy_share": device_ms / wall_ms if wall_ms else None,
-          "dw_mm_act_ms": ours_ms,
-          "dw_mm_act_share": ours_ms / device_ms if device_ms else None,
-          "kernel_launches": sum(e.count for e in kernels),
-          "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count]
-                  for e in top]})
+          **_profile_step(batch, ("dw_mm_act",))})
 
 
 def phase_card_vs_cpu() -> None:
@@ -775,14 +1224,16 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from coarse_fine_networks_torch.ops import dw_act, dw_mm_act
+    from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_mm_act
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     per_kernel = phase_kernels(dw_mm_act)
     per_kernel.update(phase_train_kernels(dw_act))
+    per_kernel.update(phase_fine_kernels(dw_conv))
     phase_autograd(dw_act)
+    phase_fine_autograd(dw_conv)
     launches, pipe = phase_serve(
         dw_mm_act, dw_act, {k: per_kernel[k]["launches"] for k in MM_KERNELS})
     phase_profile(pipe)
@@ -791,10 +1242,29 @@ def main() -> int:
     launches.update(phase_train(dw_act, dw_mm_act))
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu()
+    launches.update(phase_fine_train(dw_conv, dw_act, dw_mm_act))
+    torch.cuda.empty_cache()
+    phase_fine_card_vs_cpu()
 
+    timed_at = {
+        "serve": "bf16 at the serve phase's entry shapes (B=3, 224²; fine "
+                 "T_f=128; coarse T=64, then T=17 after Grid Pool), each "
+                 "time weighted by its launches in the counted serve run "
+                 "and summed",
+        "train": "bf16 at the train step's 8 coarse entry shapes (B=8, "
+                 "224²; T=64 in layer1, then T=17 after Grid Pool), each "
+                 "time weighted by its launches in one train step and "
+                 "summed; launches: the 10 timed train steps",
+        "fine": "bf16 at the fine tower's 8 entry shapes in each of "
+                "long-cycle phases A-C (B64 T16 112², B32 T32 144², B16 T32 "
+                "224²), each time weighted by its launches in one step of "
+                "each phase and summed over the three; launches: the 5 "
+                "timed steps of each of phases A-C",
+    }
     kernels = []
     for name, agg in per_kernel.items():
-        train = name not in MM_KERNELS
+        path = ("serve" if name in MM_KERNELS else
+                "fine" if name in FINE_KERNELS else "train")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -804,17 +1274,11 @@ def main() -> int:
             "bound_ms": agg["bound_ms"],
             "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                          else "operations"),
-            "library_ms": None, "unfused_ms": agg["unfused_ms"],
-            **({"nearest_call_ms": agg["nearest_ms"]} if train else {}),
-            "timed_at": (
-                "bf16 at the train step's 8 coarse entry shapes (B=8, 224²; "
-                "T=64 in layer1, then T=17 after Grid Pool), each time "
-                "weighted by its launches in one train step and summed; "
-                "launches: the 10 timed train steps" if train else
-                "bf16 at the serve phase's entry shapes (B=3, 224²; "
-                "fine T_f=128; coarse T=64, then T=17 after Grid Pool), "
-                "each time weighted by its launches in the counted serve "
-                "run and summed")})
+            "library_ms": agg.get("library_ms"),
+            **({"unfused_ms": agg["unfused_ms"]} if path != "fine" else {}),
+            **({"nearest_call_ms": agg["nearest_ms"]} if path == "train"
+               else {}),
+            "timed_at": timed_at[path]})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

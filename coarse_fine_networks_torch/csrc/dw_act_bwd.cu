@@ -1,18 +1,26 @@
 // Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a):
 //
-//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )
+//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )   (act mode)
+//     y = dwconv3x3x3_(1,s,s)( x )                               (plain mode)
 //
-// x (B,T,H,W,C) is the conv1 output, channels-last, f32 or bf16; the
-// depthwise taps w (27,C) have x's dtype; sc/bi are bn1's f32 per-channel
-// apply vectors from the batch statistics. g is dL/dy (y's shape and dtype).
+// x (B,T,H,W,C) is the conv1 output (plain mode: already normalised per
+// split and activated), channels-last, f32 or bf16; the depthwise taps w
+// (27,C) have x's dtype; sc/bi are bn1's f32 per-channel apply vectors from
+// the batch statistics. g is dL/dy (y's shape and dtype).
 //
-// Four kernels, each replacing a TPU Pallas kernel of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (the backward of
-// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on):
-//   * dw_act_dx_s1    <- _dx_act_pcall -> _fwd_kernel(actmask)
-//   * dw_act_dx_s2    <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
-//   * dw_act_wgrad_s1 <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
-//   * dw_act_wgrad_s2 <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
+// Seven kernel entries, each replacing a TPU Pallas kernel of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
+// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; plain mode: the
+// backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd):
+//   * dw_act_dx_s1      <- _dx_act_pcall -> _fwd_kernel(actmask)
+//   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
+//   * dw_conv_dx_s2     <- _dx_s2_pcall -> _dx_s2_kernel (plain; K8)
+//   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
+//   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
+//   * dw_conv_wgrad_s1  <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (plain)
+//   * dw_conv_wgrad_s2  <- _wgrad_s2_pcall -> _wgrad_s2_kernel (plain)
+// (the plain stride-1 dx is the forward's dw_conv_s1 on the flipped taps,
+// in dw_mm_act.cu, as in the JAX package).
 //
 // dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
 //              stride 2 the half-resolution gather
@@ -26,9 +34,10 @@
 //              dozen are, and a flipped mask is an O(1) error in dx);
 //        out: dx = dam*sc in x's dtype, and per block the f32 partial sums
 //             (sum dam*x, sum dam) per channel -> (dsc, dbi).
+//        plain mode (stride 2 only): dx = da in g's dtype, nothing else.
 // wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
-//        rounded, zero-padded activation as the forward, summed in f32; per
-//        block an f32 partial (27, C).
+//        rounded, zero-padded activation as the forward (plain mode: x
+//        itself), summed in f32; per block an f32 partial (27, C).
 //
 // Reductions: no atomics. Each block writes its partial sums to its own row
 // of a (rows, k, C) buffer after a fixed-order sum over its warps; the
@@ -194,8 +203,10 @@ dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // ---- dx, stride (1,2,2) --------------------------------------------------------
-// g is (B,T,Ho,Wo,C), x and dx (B,T,H,W,C), Ho = (H-1)/2 + 1.
-template <typename T>
+// g is (B,T,Ho,Wo,C), x and dx (B,T,H,W,C), Ho = (H-1)/2 + 1. With MASK
+// (act mode) the epilogue masks, scales and reduces; without it (plain mode,
+// x, sc, bi and part unused) dx = da.
+template <typename T, bool MASK>
 __global__ void __launch_bounds__(WARPS * 32)
 dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
              const T* __restrict__ wdw, const float* __restrict__ sc,
@@ -212,7 +223,8 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_DX;
   const int t1 = min(t0 + TT_DX, Tn);
-  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
+  const float scv = (MASK && cval) ? sc[c] : 0.f;
+  const float biv = (MASK && cval) ? bi[c] : 0.f;
   float wt[27];
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * C + c]) : 0.f;
@@ -252,19 +264,26 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
         }
       }
       const int gy = r0 + oy, gx = q0 + ox;
-      if (cval && gy < H && gx < W)
-        dx_epilogue(acc, x, dx, (((size_t)(b * Tn + t) * H + gy) * W + gx) * C
-                    + c, scv, biv, r[0], r[1]);
+      if (cval && gy < H && gx < W) {
+        const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
+        if (MASK)
+          dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
+        else
+          dx[idx] = from_f<T>(acc);
+      }
     }
     __syncthreads();
   }
-  block_partials<2>(ring, r, part,
-                    (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
+  if (MASK)
+    block_partials<2>(ring, r, part,
+                      (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
 }
 
 // ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
 // x (B,T,H,W,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1. The tile is over g.
-template <typename T, int S>
+// ACT: the stencil reads relu(x*sc + bi) (act mode); else x (plain mode,
+// sc and bi unused).
+template <typename T, int S, bool ACT>
 __global__ void __launch_bounds__(WARPS * 32)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
              const float* __restrict__ sc, const float* __restrict__ bi,
@@ -280,10 +299,11 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_WG;
   const int t1 = min(t0 + TT_WG, Tn);
-  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
+  const float scv = (ACT && cval) ? sc[c] : 0.f;
+  const float biv = (ACT && cval) ? bi[c] : 0.f;
 
   auto load = [&](int ti) {
-    load_frame<T, true, G::P, G::WR, G::NPA>(
+    load_frame<T, ACT, G::P, G::WR, G::NPA>(
         ring + slot_of(ti) * G::P * CC, x, b, ti, Tn, H, W, C, S * oy0 - 1,
         S * ox0 - 1, c, cval, scv, biv);
   };
@@ -346,34 +366,34 @@ int launch_dx_s1(const void* g, const void* x, const void* w, const void* sc,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool MASK>
 int launch_dx_s2(const void* g, const void* x, const void* w, const void* sc,
                  const void* bi, void* dx, void* part, int B, int Tn, int H,
                  int W, int C, cudaStream_t st) {
   using G = GGeom;
   constexpr size_t smem = ring_bytes<2, G::P>();
-  if (int e = set_smem(dx_s2_kernel<T>, smem)) return e;
+  if (int e = set_smem(dx_s2_kernel<T, MASK>, smem)) return e;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
   const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  dx_s2_kernel<T><<<grid, dim3(32, WARPS), smem, st>>>(
+  dx_s2_kernel<T, MASK><<<grid, dim3(32, WARPS), smem, st>>>(
       (const T*)g, (const T*)x, (const T*)w, (const float*)sc,
       (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Ho, Wo, C, n_tx,
       n_tseg);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int S>
+template <typename T, int S, bool ACT>
 int launch_wgrad(const void* x, const void* g, const void* sc, const void* bi,
                  void* part, int B, int Tn, int H, int W, int C,
                  cudaStream_t st) {
   using G = SGeom<S>;
   constexpr size_t smem = ring_bytes<27, G::P>();
-  if (int e = set_smem(wgrad_kernel<T, S>, smem)) return e;
+  if (int e = set_smem(wgrad_kernel<T, S, ACT>, smem)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT_WG);
   const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  wgrad_kernel<T, S><<<grid, dim3(32, WARPS), smem, st>>>(
+  wgrad_kernel<T, S, ACT><<<grid, dim3(32, WARPS), smem, st>>>(
       (const T*)x, (const T*)g, (const float*)sc, (const float*)bi,
       (float*)part, Tn, H, W, Ho, Wo, C, n_tx, n_tseg);
   return (int)cudaGetLastError();
@@ -386,7 +406,8 @@ int launch_wgrad(const void* x, const void* g, const void* sc, const void* bi,
 // have the row counts of dw_act_partial_rows.
 
 // Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
-// wgrad_s1, wgrad_s2.
+// wgrad_s1, wgrad_s2 (the plain-mode weight gradients have the act mode's
+// rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
@@ -425,9 +446,10 @@ extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
                             int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16>(g, x, w, sc, bi, dx, part, B, T, H, W,
-                                       C, st);
-  return launch_dx_s2<float>(g, x, w, sc, bi, dx, part, B, T, H, W, C, st);
+    return launch_dx_s2<__nv_bfloat16, true>(g, x, w, sc, bi, dx, part, B, T,
+                                             H, W, C, st);
+  return launch_dx_s2<float, true>(g, x, w, sc, bi, dx, part, B, T, H, W, C,
+                                   st);
 }
 
 extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
@@ -436,9 +458,9 @@ extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1>(x, g, sc, bi, part, B, T, H, W, C,
-                                          st);
-  return launch_wgrad<float, 1>(x, g, sc, bi, part, B, T, H, W, C, st);
+    return launch_wgrad<__nv_bfloat16, 1, true>(x, g, sc, bi, part, B, T, H,
+                                                W, C, st);
+  return launch_wgrad<float, 1, true>(x, g, sc, bi, part, B, T, H, W, C, st);
 }
 
 extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
@@ -447,7 +469,41 @@ extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2>(x, g, sc, bi, part, B, T, H, W, C,
-                                          st);
-  return launch_wgrad<float, 2>(x, g, sc, bi, part, B, T, H, W, C, st);
+    return launch_wgrad<__nv_bfloat16, 2, true>(x, g, sc, bi, part, B, T, H,
+                                                W, C, st);
+  return launch_wgrad<float, 2, true>(x, g, sc, bi, part, B, T, H, W, C, st);
+}
+
+// plain mode: x is the stencil's input itself; no sc, bi.
+extern "C" int dw_conv_dx_s2(const void* g, const void* w, void* dx, int B,
+                             int T, int H, int W, int C, int is_bf16,
+                             void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dx_s2<__nv_bfloat16, false>(g, nullptr, w, nullptr, nullptr,
+                                              dx, nullptr, B, T, H, W, C, st);
+  return launch_dx_s2<float, false>(g, nullptr, w, nullptr, nullptr, dx,
+                                    nullptr, B, T, H, W, C, st);
+}
+
+extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part,
+                                int B, int T, int H, int W, int C,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 1, false>(x, g, nullptr, nullptr,
+                                                 part, B, T, H, W, C, st);
+  return launch_wgrad<float, 1, false>(x, g, nullptr, nullptr, part, B, T, H,
+                                       W, C, st);
+}
+
+extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
+                                int B, int T, int H, int W, int C,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 2, false>(x, g, nullptr, nullptr,
+                                                 part, B, T, H, W, C, st);
+  return launch_wgrad<float, 2, false>(x, g, nullptr, nullptr, part, B, T, H,
+                                       W, C, st);
 }

@@ -1,23 +1,26 @@
-// Fused X3D bottleneck entry for Hopper (sm_90a), two modes:
+// X3D bottleneck entry for Hopper (sm_90a), three modes:
 //
-//   mm  (eval):  y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
-//   act (train): y = dwconv3x3x3( relu( x * sc + bi ) )
+//   mm    (eval):            y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
+//   act   (train):           y = dwconv3x3x3( relu( x * sc + bi ) )
+//   plain (train, split bn): y = dwconv3x3x3( x )
 //
-// both at stride 1 or (1,2,2). x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
+// all at stride 1 or (1,2,2). x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
 // channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
 // vectors of bn1 (running statistics in eval, batch statistics in train). In
-// act mode x is the conv1 output itself (C_in == C_mid).
+// act and plain mode x is the conv1 output (plain: already normalised per
+// split and activated) and C_in == C_mid.
 //
-// Replaces two modes of two TPU Pallas kernels of
+// Replaces three modes of two TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
-//   * dw_mm_act_s1 / dw_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1,
-//     modes mm and act), and
-//   * dw_mm_act_s2 / dw_act_s2 <- _fwd_s2_direct_pcall ->
+//   * dw_mm_act_s1 / dw_act_s1 / dw_conv_s1 <- _dw_fold4_pcall ->
+//     _fwd_kernel (stride 1, modes mm, act and plain), and
+//   * dw_mm_act_s2 / dw_act_s2 / dw_conv_s2 <- _fwd_s2_direct_pcall ->
 //     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
-//     positions is computed; modes mm and act),
-// with the tile prologues _mm_act_tile (mm) and _act_tile (act). Semantics
-// kept from them:
+//     positions is computed; modes mm, act and plain),
+// with the tile prologues _mm_act_tile (mm) and _act_tile (act); plain mode
+// has none. dw_conv_s1 on g with the flipped taps is also the stride-1 dx of
+// plain mode (the JAX package's _dw_fold4_bwd). Semantics kept from them:
 //   * the activation a is computed in f32 and rounded to x's dtype before
 //     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
@@ -38,7 +41,8 @@
 // the spatial halo) rather than three times. In mm mode x is staged 32 input
 // channels at a time with 16-byte loads along C; in act mode each lane loads
 // its own channel (C_mid = 54, 108, ... is no multiple of 8, so 16-byte
-// loads would straddle positions). Each lane owns one output channel, so
+// loads would straddle positions); plain mode loads as act mode does, with
+// no prologue. Each lane owns one output channel, so
 // shared-memory reads of the ring are conflict-free and stores of y are
 // coalesced along C. The product runs on the FP32 cores; moving it to wgmma
 // and overlapping the staging with TMA is later work.
@@ -52,11 +56,14 @@ using namespace cfn;
 constexpr int KC = 32;     // input channels staged per pass
 constexpr int TT = 8;      // output frames per block
 
-template <int S, bool ACT> struct Geom : StencilGeom<S> {
+enum Mode { MM, ACT, PLAIN };
+
+template <int S, int MODE> struct Geom : StencilGeom<S> {
   using SG = StencilGeom<S>;
-  // act mode stages nothing besides the ring
+  // act and plain mode stage nothing besides the ring
   static constexpr size_t SMEM =
-      sizeof(float) * (3 * SG::P * CC + (ACT ? 0 : SG::P * KC + KC * CC));
+      sizeof(float) *
+      (3 * SG::P * CC + (MODE != MM ? 0 : SG::P * KC + KC * CC));
 };
 
 // 16 bytes of x -> floats
@@ -72,14 +79,14 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out,
   for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
 }
 
-template <typename T, int S, bool ACT>
+template <typename T, int S, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ wdw, const float* __restrict__ sc,
                  const float* __restrict__ bi, T* __restrict__ y, int B,
                  int Tn, int H, int W, int Cin, int Cmid, int Ho, int Wo,
                  int n_tx, int n_tseg) {
-  using G = Geom<S, ACT>;
+  using G = Geom<S, MODE>;
   constexpr int P = G::P, WR = G::WR;
   constexpr int VE = 16 / sizeof(T);
 
@@ -100,22 +107,22 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int c = c0 + lane;
   const bool cval = c < Cmid;
 
-  const float scv = cval ? sc[c] : 0.f;
-  const float biv = cval ? bi[c] : 0.f;
+  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
+  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
   float wt[27];
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
 
-  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm) or relu(x[b, ti] * sc
-  // + bi) (act) over the halo, zero outside the tensor (frame, rows, cols)
-  // and for channels >= Cmid
+  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm), relu(x[b, ti] * sc
+  // + bi) (act) or x[b, ti] (plain) over the halo, zero outside the tensor
+  // (frame, rows, cols) and for channels >= Cmid
   auto activate = [&](int ti) {
     float* slot = ring + slot_of(ti) * P * CC;
     if (ti < 0 || ti >= Tn) {  // uniform across the block
       for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
       return;
     }
-    if constexpr (ACT) {
+    if constexpr (MODE != MM) {
       const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cmid;
 #pragma unroll
       for (int j = 0; j < G::NPA; ++j) {
@@ -124,8 +131,9 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
           const int gy = iy0 + p / WR, gx = ix0 + p % WR;
           float a = 0.f;
           if (cval && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+            a = to_f(xf[((size_t)gy * W + gx) * Cmid + c]);
             // the relu branch the backward's mask takes (dw_act_bwd.cu)
-            a = act<T>(to_f(xf[((size_t)gy * W + gx) * Cmid + c]), scv, biv);
+            if (MODE == ACT) a = act<T>(a, scv, biv);
           }
           slot[p * CC + lane] = a;
         }
@@ -222,16 +230,16 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T, int S, bool ACT>
+template <typename T, int S, int MODE>
 int launch(const void* x, const void* w1, const void* wdw, const void* sc,
            const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
            int Cmid, cudaStream_t stream) {
-  using G = Geom<S, ACT>;
-  if (int e = set_smem(dw_mm_act_kernel<T, S, ACT>, G::SMEM)) return e;
+  using G = Geom<S, MODE>;
+  if (int e = set_smem(dw_mm_act_kernel<T, S, MODE>, G::SMEM)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT);
   const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(Cmid, CC), B * n_tseg);
-  dw_mm_act_kernel<T, S, ACT><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
+  dw_mm_act_kernel<T, S, MODE><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(wdw), static_cast<const float*>(sc),
       static_cast<const float*>(bi), static_cast<T*>(y), B, Tn, H, W, Cin,
@@ -239,16 +247,16 @@ int launch(const void* x, const void* w1, const void* wdw, const void* sc,
   return (int)cudaGetLastError();
 }
 
-template <int S, bool ACT>
+template <int S, int MODE>
 int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
              const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
              int Cmid, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, S, ACT>(x, w1, wdw, sc, bi, y, B, Tn, H, W,
-                                         Cin, Cmid, s);
-  return launch<float, S, ACT>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid,
-                               s);
+    return launch<__nv_bfloat16, S, MODE>(x, w1, wdw, sc, bi, y, B, Tn, H, W,
+                                          Cin, Cmid, s);
+  return launch<float, S, MODE>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid,
+                                s);
 }
 
 }  // namespace
@@ -259,29 +267,44 @@ extern "C" int dw_mm_act_s1(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
                             int T, int H, int W, int Cin, int Cmid,
                             int is_bf16, void* stream) {
-  return dispatch<1, false>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
-                            is_bf16, stream);
+  return dispatch<1, MM>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
+                         is_bf16, stream);
 }
 
 extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
                             int T, int H, int W, int Cin, int Cmid,
                             int is_bf16, void* stream) {
-  return dispatch<2, false>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
-                            is_bf16, stream);
+  return dispatch<2, MM>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
+                         is_bf16, stream);
 }
 
 // act mode: x is (B,T,H,W,C), the conv1 output; no W1.
 extern "C" int dw_act_s1(const void* x, const void* wdw, const void* sc,
                          const void* bi, void* y, int B, int T, int H, int W,
                          int C, int is_bf16, void* stream) {
-  return dispatch<1, true>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
-                           is_bf16, stream);
+  return dispatch<1, ACT>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
+                          is_bf16, stream);
 }
 
 extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
                          const void* bi, void* y, int B, int T, int H, int W,
                          int C, int is_bf16, void* stream) {
-  return dispatch<2, true>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
-                           is_bf16, stream);
+  return dispatch<2, ACT>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
+                          is_bf16, stream);
+}
+
+// plain mode: x is (B,T,H,W,C), already activated; no W1, sc or bi.
+extern "C" int dw_conv_s1(const void* x, const void* wdw, void* y, int B,
+                          int T, int H, int W, int C, int is_bf16,
+                          void* stream) {
+  return dispatch<1, PLAIN>(x, nullptr, wdw, nullptr, nullptr, y, B, T, H, W,
+                            C, C, is_bf16, stream);
+}
+
+extern "C" int dw_conv_s2(const void* x, const void* wdw, void* y, int B,
+                          int T, int H, int W, int C, int is_bf16,
+                          void* stream) {
+  return dispatch<2, PLAIN>(x, nullptr, wdw, nullptr, nullptr, y, B, T, H, W,
+                            C, C, is_bf16, stream);
 }

@@ -1,11 +1,13 @@
-"""Models of the port: the shared X3D trunk, the fine global tower, the
-coarse stream with Grid Pool / Unpool and fusion, and the joint pipeline."""
+"""Models of the port: the shared X3D trunk, the fine stream (global tower
+and training head), the coarse stream with Grid Pool / Unpool and fusion,
+the joint pipeline, and model surgery."""
 
 from .coarse import CoarseNet, GridPool, MixingLayer, RewightLayer
 from .fine import FineNet
 from .layers import (SqueezeExcite, SubBatchNorm, aggregate_sub_bn_stats,
                      init_parameters, round_width, swish)
 from .pipeline import CoarseFinePipeline
+from .surgery import replace_logits, set_bn_splits, update_bn_splits
 from .x3d import (Bottleneck, X3DHead, X3DStage, X3DStem, get_blocks,
                   get_inplanes)
 
@@ -26,6 +28,9 @@ __all__ = [
     "get_blocks",
     "get_inplanes",
     "init_parameters",
+    "replace_logits",
     "round_width",
+    "set_bn_splits",
     "swish",
+    "update_bn_splits",
 ]

@@ -1,16 +1,18 @@
-"""Fine-stream X3D global tower (counterpart of
-``coarse_fine_networks_tpu/models/fine.py`` with ``global_tower=True``).
-
-The per-frame logits, ``extract_feat`` and ``t_downsample`` modes of the JAX
-``FineNet`` belong to fine-stream training and are not ported yet.
+"""Fine-stream X3D network (counterpart of
+``coarse_fine_networks_tpu/models/fine.py``): the global tower the serving
+pipeline extracts feature banks with, and the per-frame (``task='loc'``) or
+per-clip (``task='class'``) logits and pooled features that fine-stream
+training and ``extract_feat`` use.  ``t_downsample`` is not ported.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from ..ops.pools import adaptive_avg_pool_spatial
-from .x3d import X3DTrunk
+from .layers import dropout, pointwise
+from .x3d import X3DTrunk, get_inplanes
 
 # Spatial size of the global-tower feature taps.
 TOWER_HW = 7
@@ -18,15 +20,59 @@ FEAT_KEYS = ("layer1", "layer2", "layer3", "layer4", "conv5")
 
 
 class FineNet(X3DTrunk):
-    """X3D fine stream as a global tower: ``(B, T_f, H, W, 3)`` → the five
-    feature banks ``{layer1..layer4, conv5}``, each average-pooled to
-    ``(B, T_f, 7, 7, C)`` — the cache the coarse stream fuses."""
+    """X3D fine stream, ``(B, T_f, H, W, 3)`` in, in one of three modes:
 
-    def forward(self, x: torch.Tensor) -> dict[str, torch.Tensor]:
+    * ``global_tower=True`` (the default, the serving pipeline's tower): the
+      five feature banks ``{layer1..layer4, conv5}``, each average-pooled
+      to ``(B, T_f, 7, 7, C)`` — the cache the coarse stream fuses;
+    * ``extract_feat=True``: the head's output averaged over H and W
+      (``task='loc'``, ``(B, T_f, 1, 1, C)``) or over T, H and W
+      (``task='class'``, ``(B, 1, 1, 1, C)``);
+    * otherwise f32 logits ``(B, T_f, n_classes)`` (``(B, 1, n_classes)``
+      for ``task='class'``): the pooled features → ``fc1`` (1×1×1 conv to
+      2048, no bias) → relu → dropout (in training, rate ``dropout_rate``,
+      the mask drawn from the ``generator`` passed to :meth:`forward`) →
+      ``fc2`` in the compute dtype.
+
+    ``fc1``/``fc2`` exist only when the model returns logits, so a global
+    tower's ``state_dict`` is the JAX pipeline's fine tower's."""
+
+    def __init__(self, version: str = "M", n_classes: int = 157,
+                 task: str = "loc", dropout_rate: float = 0.5,
+                 extract_feat: bool = False, global_tower: bool = True):
+        super().__init__(version)
+        if task not in ("loc", "class"):
+            raise ValueError(f"task must be 'loc' or 'class', got {task!r}")
+        self.task = task
+        self.dropout_rate = dropout_rate
+        self.extract_feat = extract_feat
+        self.global_tower = global_tower
+        if not (global_tower or extract_feat):
+            self.fc1 = nn.Conv3d(get_inplanes(version)[3][0], 2048, 1,
+                                 bias=False)
+            self.fc2 = nn.Linear(2048, n_classes)
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """``generator`` draws the dropout mask in training (on x's device;
+        needed when ``dropout_rate > 0``)."""
         x = self.stem(x)
         feats = {}
         for i in range(4):
             x = getattr(self, f"layer{i + 1}")(x)
-            feats[f"layer{i + 1}"] = adaptive_avg_pool_spatial(x, TOWER_HW)
-        feats["conv5"] = adaptive_avg_pool_spatial(self.head(x), TOWER_HW)
-        return feats
+            if self.global_tower:
+                feats[f"layer{i + 1}"] = adaptive_avg_pool_spatial(x, TOWER_HW)
+        x = self.head(x)
+        if self.global_tower:
+            feats["conv5"] = adaptive_avg_pool_spatial(x, TOWER_HW)
+            return feats
+        axes = (1, 2, 3) if self.task == "class" else (2, 3)
+        x = torch.mean(x, dim=axes, keepdim=True)
+        if self.extract_feat:
+            return x
+        x = torch.relu(pointwise(x, self.fc1.weight))
+        x = x.reshape(x.shape[0], x.shape[1], -1)
+        x = dropout(x, self.dropout_rate if self.training else 0.0, generator)
+        logits = nn.functional.linear(x, self.fc2.weight.to(x.dtype),
+                                      self.fc2.bias.to(x.dtype))
+        return logits.float()

@@ -3,12 +3,18 @@
 Counterpart of ``coarse_fine_networks_tpu/models/x3d.py`` and
 ``models/x3d_fold.py``.  The fold4 layout and the space-to-depth stem of the
 JAX package are TPU mechanics and are not ported: ``conv1_s`` is a plain
-strided conv, and every bottleneck (not only layer1's) enters through a
-fused kernel: in eval :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d` (conv1 →
-bn1 → relu → conv2), in training conv1 as a product and then
-:func:`..ops.dw_act.dw_bnrelu_conv3d_train` (bn1 apply from the batch
-statistics → relu → conv2, with a kernel backward), the JAX package's
-``FoldedBottleneck`` route at ``bn_splits == 1``.
+strided conv, and every bottleneck (not only layer1's) enters conv2 through
+a hand-written kernel, by the routes of the JAX package's
+``FoldedBottleneck``:
+
+* eval: :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d` (conv1 → bn1 → relu →
+  conv2 in one kernel);
+* training, ``bn1.num_splits == 1``: conv1 as a product, then
+  :func:`..ops.dw_act.dw_bnrelu_conv3d_train` (bn1 apply from the batch
+  statistics → relu → conv2, with a kernel backward);
+* training with split batch norm (``bn1.num_splits > 1``, the multigrid
+  long cycle): conv1 as a product → bn1 per split → relu in PyTorch, then
+  :func:`..ops.dw_conv.dw_conv3d_train` (conv2, with a kernel backward).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import torch
 from torch import nn
 
 from ..ops.dw_act import dw_bnrelu_conv3d_train
+from ..ops.dw_conv import dw_conv3d_train
 from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d
 from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
                      squeeze_excite, swish)
@@ -45,9 +52,11 @@ class Bottleneck(nn.Module):
     bn1 folds into f32 ``(sc, bi)``: in eval from its running statistics,
     and the entry conv1 → bn1 → relu → conv2 runs as one kernel; in
     training from the batch statistics of conv1's output, inside autograd,
-    and bn1 → relu → conv2 runs as one kernel with a kernel backward.
-    Training with split batch norm (``bn1.num_splits > 1``) is not
-    ported."""
+    and bn1 → relu → conv2 runs as one kernel with a kernel backward.  With
+    split batch norm (``bn1.num_splits > 1``) each split has its own
+    statistics, so training applies bn1 and the relu in PyTorch (the result
+    in x's dtype, as the JAX package rounds it) and only conv2 runs as a
+    kernel, with a kernel backward."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  stride: int = 1, use_se: bool = False,
@@ -79,14 +88,13 @@ class Bottleneck(nn.Module):
         w_dw = (self.conv2.weight.reshape(c_mid, 27).t()
                 .reshape(3, 3, 3, c_mid).to(x.dtype).contiguous())
         if self.training:
-            if self.bn1.num_splits != 1:
-                raise NotImplementedError(
-                    "Bottleneck: training with bn_splits > 1 is not ported "
-                    "(it needs the plain modes of K1/K4 and K8, the plain "
-                    "stride-2 dx kernel)")
             out = pointwise(x, self.conv1.weight)
-            sc, bi = self.bn1.train_scale_bias(out)
-            out = dw_bnrelu_conv3d_train(out, w_dw, sc, bi, self.stride)
+            if self.bn1.num_splits == 1:
+                sc, bi = self.bn1.train_scale_bias(out)
+                out = dw_bnrelu_conv3d_train(out, w_dw, sc, bi, self.stride)
+            else:
+                out = torch.relu(self.bn1(out))
+                out = dw_conv3d_train(out, w_dw, self.stride)
         else:
             sc, bi = self.bn1.scale_bias()
             w1 = (self.conv1.weight.reshape(c_mid, -1).t().to(x.dtype)

@@ -1,9 +1,12 @@
 """Numeric ops of the port: plain PyTorch functions on channels-last
 tensors, and the hand-written bottleneck-entry kernels (:mod:`.dw_mm_act`
-for eval, :mod:`.dw_act` for training)."""
+for eval, :mod:`.dw_act` for training, :mod:`.dw_conv` for training with
+split batch norm)."""
 
 from .dw_act import (dw_act_dx, dw_act_wgrad, dw_bnrelu_conv3d,
                      dw_bnrelu_conv3d_train)
+from .dw_conv import (dw_conv3d, dw_conv3d_train, dw_conv_dx_s2,
+                      dw_conv_wgrad)
 from .dw_mm_act import dw_mm_bnrelu_conv3d, dw_mm_bnrelu_conv3d_plain
 from .gaussian import gaussian_alignment
 from .grid_pool import cdf_knots
@@ -21,6 +24,10 @@ __all__ = [
     "dw_act_wgrad",
     "dw_bnrelu_conv3d",
     "dw_bnrelu_conv3d_train",
+    "dw_conv3d",
+    "dw_conv3d_train",
+    "dw_conv_dx_s2",
+    "dw_conv_wgrad",
     "dw_mm_bnrelu_conv3d",
     "dw_mm_bnrelu_conv3d_plain",
     "gaussian_alignment",

@@ -32,14 +32,18 @@ import torch
 
 from ._build import CudaLibrary, I, P
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
-from .dw_mm_act import _out_hw, stencil_f32
+from .dw_mm_act import _out_hw, stencil_f32, wgrad_f32
 
+# The source also holds the plain-mode entries of :mod:`.dw_conv`.
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
     "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
     "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
     "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
+    "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
+    "dw_conv_wgrad_s1": [P] * 3 + [I] * 6 + [P],
+    "dw_conv_wgrad_s2": [P] * 3 + [I] * 6 + [P],
 })
 LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
 
@@ -47,9 +51,11 @@ LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
 # where a kernel is launched (never by a plain version).
 LAUNCHES = {f"dw_act{part}_s{s}": 0 for part in ("", "_dx", "_wgrad")
             for s in (1, 2)}
-# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu
+# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
+# plain-mode weight gradients of :mod:`.dw_conv` have the act mode's rows)
 _ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
-              "dw_act_wgrad_s2": 3}
+              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s1": 2,
+              "dw_conv_wgrad_s2": 3}
 
 
 def reset_launches() -> None:
@@ -58,6 +64,10 @@ def reset_launches() -> None:
 
 
 def _check(x, w_dw, sc, bi, stride, g=None):
+    """Raise on what the kernels do not take: x ``(B, T, H, W, C)`` f32 or
+    bf16, taps ``(3, 3, 3, C)`` and ``g`` (y's shape) in x's dtype, f32
+    ``(C,)`` ``sc``/``bi``, all contiguous on x's device, a CPU or CUDA
+    device.  ``w_dw``, ``sc``/``bi`` and ``g`` are checked where given."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2 (i.e. (1,2,2)), got {stride}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -65,7 +75,7 @@ def _check(x, w_dw, sc, bi, stride, g=None):
     if x.dim() != 5:
         raise ValueError(f"x must be (B, T, H, W, C), got {tuple(x.shape)}")
     b, t, h, w, c = x.shape
-    tensors = [("x", x), ("sc", sc), ("bi", bi)]
+    tensors = [("x", x)]
     if w_dw is not None:
         if tuple(w_dw.shape) != (3, 3, 3, c):
             raise ValueError(
@@ -74,10 +84,12 @@ def _check(x, w_dw, sc, bi, stride, g=None):
             raise TypeError(f"w_dw must have x's dtype {x.dtype}, got "
                             f"{w_dw.dtype}")
         tensors.append(("w_dw", w_dw))
-    for name, v in (("sc", sc), ("bi", bi)):
-        if tuple(v.shape) != (c,) or v.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 ({c},), got "
-                             f"{v.dtype} {tuple(v.shape)}")
+    if sc is not None:
+        for name, v in (("sc", sc), ("bi", bi)):
+            if tuple(v.shape) != (c,) or v.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 ({c},), got "
+                                 f"{v.dtype} {tuple(v.shape)}")
+            tensors.append((name, v))
     if g is not None:
         want = (b, t) + _out_hw(h, w, stride) + (c,)
         if tuple(g.shape) != want or g.dtype != x.dtype:
@@ -99,11 +111,13 @@ def _activate(x, sc, bi):
     return torch.relu(x.float() * sc + bi).to(x.dtype)
 
 
-def _launch(lib, name, x, *args):
+def _launch(counts, lib, name, x, *args):
+    """Launch ``name`` on x's device and current stream, in x's dtype, and
+    count it in ``counts`` (the calling module's ``LAUNCHES``)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
-    LAUNCHES[name] += 1
+    counts[name] += 1
 
 
 def _partials(name, x, k):
@@ -144,8 +158,8 @@ def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
     y = torch.empty((b, t) + _out_hw(h, w, stride) + (c,), dtype=x.dtype,
                     device=x.device)
     if y.numel():
-        _launch(FWD_LIBRARY, f"dw_act_s{stride}", x, x.data_ptr(),
-                w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
+        _launch(LAUNCHES, FWD_LIBRARY, f"dw_act_s{stride}", x,
+                x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
                 b, t, h, w, c)
     return y
 
@@ -190,9 +204,9 @@ def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
         return dx, torch.zeros((2, x.shape[-1]), device=x.device)
     name = f"dw_act_dx_s{stride}"
     part = _partials(name, x, 2)
-    _launch(BWD_LIBRARY, name, x, g.data_ptr(), x.data_ptr(), w_dw.data_ptr(),
-            sc.data_ptr(), bi.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            *x.shape)
+    _launch(LAUNCHES, BWD_LIBRARY, name, x, g.data_ptr(), x.data_ptr(),
+            w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), dx.data_ptr(),
+            part.data_ptr(), *x.shape)
     return dx, torch.sum(part, dim=0)
 
 
@@ -202,19 +216,7 @@ def dw_act_wgrad_plain(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
                        bi: torch.Tensor, stride: int) -> torch.Tensor:
     """``dk[tap, c] = Σ_pos a_pad[s·pos + tap]·g[pos]`` with the forward's
     rounded, zero-padded activation, in f32: ``(27, C)``."""
-    b, t, h, w, c = x.shape
-    ho, wo = _out_hw(h, w, stride)
-    a = torch.nn.functional.pad(_activate(x, sc, bi).float(),
-                                (0, 0, 1, 1, 1, 1, 1, 1))
-    gf = g.float()
-    dk = []
-    for dt in range(3):
-        for dy in range(3):
-            for dx in range(3):
-                tap = a[:, dt:dt + t, dy:dy + stride * (ho - 1) + 1:stride,
-                        dx:dx + stride * (wo - 1) + 1:stride]
-                dk.append(torch.sum(tap * gf, dim=(0, 1, 2, 3)))
-    return torch.stack(dk)
+    return wgrad_f32(_activate(x, sc, bi), g, stride)
 
 
 def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
@@ -231,8 +233,8 @@ def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
         return torch.zeros((27, x.shape[-1]), device=x.device)
     name = f"dw_act_wgrad_s{stride}"
     part = _partials(name, x, 27)
-    _launch(BWD_LIBRARY, name, x, x.data_ptr(), g.data_ptr(), sc.data_ptr(),
-            bi.data_ptr(), part.data_ptr(), *x.shape)
+    _launch(LAUNCHES, BWD_LIBRARY, name, x, x.data_ptr(), g.data_ptr(),
+            sc.data_ptr(), bi.data_ptr(), part.data_ptr(), *x.shape)
     return torch.sum(part, dim=0)
 
 

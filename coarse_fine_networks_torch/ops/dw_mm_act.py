@@ -21,12 +21,15 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The source also holds the act-mode entries of :mod:`.dw_act`.
+# The source also holds the act-mode entries of :mod:`.dw_act` and the
+# plain-mode entries of :mod:`.dw_conv`.
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
     "dw_act_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
+    "dw_conv_s1": [P] * 3 + [I] * 6 + [P],
+    "dw_conv_s2": [P] * 3 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
 
@@ -108,6 +111,25 @@ def stencil_f32(a: torch.Tensor, w_dw: torch.Tensor,
                         dx:dx + stride * (wo - 1) + 1:stride]
                       * wf[dt, dy, dx])
     return y
+
+
+def wgrad_f32(a: torch.Tensor, g: torch.Tensor, stride: int) -> torch.Tensor:
+    """The weight gradient of :func:`stencil_f32`: ``dk[tap, c] =
+    Σ_pos a_pad[s·pos + tap]·g[pos]`` over ``a (B, T, H, W, C)`` zero-padded
+    by one on T, H and W and ``g`` of the output's shape, in f32:
+    ``(27, C)``."""
+    t = a.shape[1]
+    ho, wo = g.shape[2], g.shape[3]
+    a = F.pad(a.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    gf = g.float()
+    dk = []
+    for dt in range(3):
+        for dy in range(3):
+            for dx in range(3):
+                tap = a[:, dt:dt + t, dy:dy + stride * (ho - 1) + 1:stride,
+                        dx:dx + stride * (wo - 1) + 1:stride]
+                dk.append(torch.sum(tap * gf, dim=(0, 1, 2, 3)))
+    return torch.stack(dk)
 
 
 def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,

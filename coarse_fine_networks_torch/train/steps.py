@@ -1,15 +1,17 @@
-"""Train and eval steps of the coarse stream (counterpart of
+"""Train and eval steps of both streams (counterpart of
 ``coarse_fine_networks_tpu/train/steps.py``).
 
 One train step: forward in training mode, logits resized to the label
 length, masked sigmoid probabilities, the detection loss, backward (the
 bottleneck entries through their CUDA kernels on the card), an optional
 global-norm gradient clip and one SGD update.  The batch is the JAX
-package's dict: ``clips (B, T, H, W, 3)`` in the compute dtype, ``feats``
-(five ``(B, T_f, 7, 7, C)`` banks), ``feat_mask (B, T_f)``, ``meta (B, 4)``,
-``labels (B, T_l, C)`` and ``masks (B, T_l)``; with ``accum_steps > 1``
-every entry carries a leading micro-batch axis.  The state is updated in
-place and returned.
+package's dict: ``clips (B, T, H, W, 3)`` in the compute dtype,
+``labels (B, T_l, C)`` and ``masks (B, T_l)``, and for the coarse stream
+``feats`` (five ``(B, T_f, 7, 7, C)`` banks), ``feat_mask (B, T_f)`` and
+``meta (B, 4)``; a batch without ``feats`` drives a model that takes the
+clips alone (the fine stream).  With ``accum_steps > 1`` every entry
+carries a leading micro-batch axis.  The state is updated in place and
+returned.
 """
 
 from __future__ import annotations
@@ -34,8 +36,7 @@ def _to(v, device):
 def _logits(model: nn.Module, batch: Dict[str, Any],
             generator: Optional[torch.Generator]) -> torch.Tensor:
     if "feats" not in batch:
-        raise ValueError("the port's steps drive the coarse stream: the "
-                         "batch needs feats, feat_mask and meta")
+        return model(batch["clips"], generator=generator)
     return model(batch["clips"], batch["feats"], batch["feat_mask"],
                  batch["meta"], generator=generator)
 

@@ -65,6 +65,26 @@ def t(a):
     return torch.from_numpy(np.array(a))
 
 
+def close(got, ref, tol, name=""):
+    """``got`` (a tensor or array) equals ``ref`` in shape, and within
+    ``tol`` absolute and relative."""
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    assert got.shape == np.shape(ref), (name, got.shape, np.shape(ref))
+    np.testing.assert_allclose(got, np.asarray(ref), rtol=tol, atol=tol,
+                               err_msg=name)
+
+
+def apply_train(jm, v, *args):
+    """JAX train-mode apply of module ``jm`` with variables ``v``: output,
+    new batch_stats, and a VJP over (params, *args)."""
+    def f(params, *a):
+        return jm.apply({"params": params, "batch_stats": v["batch_stats"]},
+                        *a, True, mutable=["batch_stats"])
+    y, vjp, upd = jax.vjp(f, v["params"], *(jax.numpy.asarray(a)
+                                            for a in args), has_aux=True)
+    return y, upd["batch_stats"], vjp
+
+
 # ---- the coarse train step at X3D-M width, cut to B=2, T=8, 64² -----------
 
 COARSE = dict(b=2, t=8, hw=64, tf=16, tl=32, n_classes=7, lr=0.02,
@@ -107,5 +127,110 @@ def coarse_models(trunk_layout, dw_impl, seed=0):
     v = jax_variables(jm, b["clips"], b["feats"], b["feat_mask"], b["meta"],
                       seed=seed, train=False)
     pm = CoarseNet("M", c["n_classes"], dropout_rate=0.0)
+    pm.load_state_dict(state_dict_from_jax(v), strict=True)
+    return jm, v, pm
+
+
+# ---- one training bottleneck against the JAX package's two layouts ---------
+
+def bottleneck_train_parity(c_in, stride, use_se, down, fold, splits=1,
+                            batch=2, tol=1e-4, grad_rel=None):
+    """A port ``Bottleneck(c_in, 54, 24, ...)`` in training mode, with
+    ``splits`` batch-norm splits, against the JAX plain ``Bottleneck`` or
+    (``fold``) ``FoldedBottleneck`` with the Pallas kernels under the
+    interpreter, from the same variables: the output, the gradient of the
+    input and of every parameter, and the new split statistics, within
+    ``tol`` absolute and relative; with ``grad_rel`` each parameter's
+    gradient within ``grad_rel`` of its largest magnitude instead."""
+    from coarse_fine_networks_tpu.models import x3d as jx3d
+    from coarse_fine_networks_tpu.models import x3d_fold as jxf
+    from coarse_fine_networks_tpu.ops.fold import from_fold4, to_fold4
+    from coarse_fine_networks_torch.models import Bottleneck, set_bn_splits
+
+    jnp = jax.numpy
+    rng = np.random.RandomState(c_in + stride)
+    x = rng.randn(batch, 3, 16, 16, c_in).astype(np.float32)
+    ho = 16 // stride
+    g = rng.randn(batch, 3, ho, ho, 24).astype(np.float32)
+    plain = jx3d.Bottleneck(54, 24, stride=stride, use_se=use_se,
+                            has_downsample=down, bn_splits=splits)
+    v = jax_variables(plain, jnp.asarray(x), train=False)
+    if fold:
+        jm = jxf.FoldedBottleneck(c_in, 54, 24, stride=stride, use_se=use_se,
+                                  has_downsample=down, bn_splits=splits,
+                                  dw_impl="interpret")
+        y, stats, vjp = apply_train(jm, v, to_fold4(jnp.asarray(x)))
+        y = from_fold4(y, 24)
+        gp, gx = vjp(to_fold4(jnp.asarray(g)))
+        gx = from_fold4(gx, c_in)
+    else:
+        y, stats, vjp = apply_train(plain, v, x)
+        gp, gx = vjp(jnp.asarray(g))
+
+    prefix, strip = ("layer1", "block0"), "layer1.0."
+    pm = set_bn_splits(Bottleneck(c_in, 54, 24, stride, use_se, down), splits)
+    pm = load_port(pm, v, prefix, strip).train()
+    xt = t(x).requires_grad_()
+    yt = pm(xt)
+    yt.backward(t(g))
+    close(yt, y, tol, "y")
+    close(xt.grad, gx, tol, "dx")
+    jg = state_dict_from_jax(nest({"params": gp}, prefix))
+    names = dict(pm.named_parameters())
+    assert {k[len(strip):] for k in jg} == set(names)
+    for k, ref in jg.items():
+        got = names[k[len(strip):]].grad
+        if grad_rel is None:
+            close(got, ref.numpy(), tol, k)
+        else:
+            assert got.shape == ref.shape, k
+            err = float((got - ref).abs().max() / ref.abs().max())
+            assert err <= grad_rel, (k, err)
+    new = state_dict_from_jax(nest({"params": v["params"],
+                                    "batch_stats": stats}, prefix))
+    split = [k for k in new if "split_bn" in k]
+    assert split
+    for k in split:
+        assert new[k].shape[0] == splits * pm.state_dict()[
+            k[len(strip):].replace("split_bn", "bn")].shape[0]
+        close(pm.state_dict()[k[len(strip):]], new[k].numpy(), tol, k)
+    return pm
+
+
+# ---- the fine train step at X3D-M width, cut to B=4, T=8, 64² --------------
+
+FINE = dict(b=4, t=8, hw=64, tl=32, n_classes=7, lr=0.01, splits=2)
+
+
+def fine_batch(seed):
+    """A numpy train batch of the fine stream in the JAX package's dict
+    layout (the last sample has masked label frames)."""
+    c = FINE
+    rng = np.random.RandomState(seed)
+    b, tl = c["b"], c["tl"]
+    masks = np.ones((b, tl), np.float32)
+    masks[-1, 26:] = 0
+    return {
+        "clips": rng.rand(b, c["t"], c["hw"], c["hw"], 3).astype(np.float32),
+        "labels": (rng.rand(b, tl, c["n_classes"]) > 0.9).astype(np.float32),
+        "masks": masks,
+    }
+
+
+def fine_models(trunk_layout, dw_impl, bn_splits=FINE["splits"], seed=0):
+    """The JAX ``FineNet`` (``task='loc'``, dropout 0, ``bn_splits``) with
+    variables filled from a numpy seed, and the port's ``FineNet`` at
+    ``bn_splits`` loaded with the same weights."""
+    from coarse_fine_networks_tpu.models.fine import FineNet as JFine
+    from coarse_fine_networks_torch.models import FineNet, set_bn_splits
+
+    c = FINE
+    jm = JFine(version="M", n_classes=c["n_classes"], dropout_rate=0.0,
+               bn_splits=bn_splits, trunk_layout=trunk_layout,
+               dw_impl=dw_impl)
+    v = jax_variables(jm, jax.numpy.asarray(fine_batch(0)["clips"]),
+                      seed=seed, train=False)
+    pm = set_bn_splits(FineNet("M", c["n_classes"], dropout_rate=0.0,
+                               global_tower=False), bn_splits)
     pm.load_state_dict(state_dict_from_jax(v), strict=True)
     return jm, v, pm

@@ -22,9 +22,9 @@ from coarse_fine_networks_torch.ckpt import state_dict_from_jax
 from coarse_fine_networks_torch.models import (
     Bottleneck, CoarseFinePipeline, CoarseNet, FineNet, GridPool,
     MixingLayer, RewightLayer, SqueezeExcite, SubBatchNorm, X3DStage,
-    X3DStem, aggregate_sub_bn_stats)
+    X3DStem, aggregate_sub_bn_stats, set_bn_splits)
 
-from _torch_port_util import jax_variables, load_port, t
+from _torch_port_util import jax_variables, load_port, nest, t
 
 torch.set_num_threads(2)
 
@@ -53,12 +53,25 @@ def test_bottleneck(c_in, stride, use_se, down):
 
 
 def test_bottleneck_train_mode_is_not_ported():
-    """Training with split batch norm (``num_splits > 1``) is not ported: it
-    needs the plain modes of K1/K4 and K8."""
-    block = Bottleneck(8, 16, 8).train()
-    block.bn1 = SubBatchNorm(16, num_splits=2)
-    with pytest.raises(NotImplementedError):
-        block(torch.zeros(2, 1, 4, 4, 8))
+    """Training with split batch norm (``num_splits > 1``), the route this
+    test showed unported before the plain depthwise kernels came: a small
+    block with every batch norm at two splits, in training mode, against
+    the JAX plain ``Bottleneck(bn_splits=2)``: the output and the new split
+    statistics, 1e-4."""
+    x = _x((4, 2, 4, 4, 8), seed=11)
+    jm = jx3d.Bottleneck(16, 8, bn_splits=2)
+    v = jax_variables(jm, jnp.asarray(x), train=False)
+    y, upd = jm.apply(v, jnp.asarray(x), True, mutable=["batch_stats"])
+    block = set_bn_splits(Bottleneck(8, 16, 8), 2)
+    block = load_port(block, v, ("layer1", "block0"), "layer1.0.").train()
+    _close(block(t(x)), y, 1e-4)
+    new = state_dict_from_jax(nest({"params": v["params"], **upd},
+                                   ("layer1", "block0")))
+    for k, ref in new.items():
+        if "split_bn" in k:
+            assert ref.shape == (32 if "bn3" not in k else 16,)
+            _close(block.state_dict()[k[len("layer1.0."):]], ref.numpy(),
+                   1e-4)
 
 
 @pytest.mark.parametrize("stride,h", [(1, 8), (2, 16), (2, 14)])

@@ -134,7 +134,8 @@ def test_port_imports_nothing_of_jax():
 
     root = pathlib.Path(__file__).resolve().parent.parent
     code = ("import sys, coarse_fine_networks_torch.models, "
-            "coarse_fine_networks_torch.serve, coarse_fine_networks_torch.ckpt;"
+            "coarse_fine_networks_torch.serve, coarse_fine_networks_torch.ckpt,"
+            " coarse_fine_networks_torch.train, coarse_fine_networks_torch.data;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'coarse_fine_networks_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

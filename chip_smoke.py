@@ -63,8 +63,27 @@ Phases, each printing JSON lines:
    (the eval kernels only);
 12. fine_card_vs_cpu: one small f32 fine train step at two splits on the
    card and on the CPU from the same weights, held as in phase 8;
-13. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
+13. mm_train_kernels: the four kernels of the matmul-fused train composite
+   (the masked dx ``dw_mm_dx_mask_s1/s2`` and the weight gradient
+   ``dw_mm_wgrad_s1/s2``) against their plain versions at the coarse train
+   step's 8 entry shapes and long-cycle phase D's 8, f32 (TF32 off) and
+   bf16, timed beside the plain version, the unfused PyTorch sequence and
+   the cuDNN call inside it; then the composite's Gram xᵀx of each coarse
+   entry, f32 output from bf16 x, timed against reading x as f32;
+14. mm_autograd: the composite's ``(y, mean, var)`` and five gradients, then
+   the eval entry's five gradients, against autograd through the plain
+   composition, f32, one shape per stride (the stride-2 one at 7×7);
+15. train_mm: phase 7's full-width coarse train step with
+   ``CFN_MM_BN_TRAIN=1`` set for this phase only (every bottleneck through
+   the composite), 2 warm-up and 10 timed steps with exact launch counts
+   (22 stride-1 and 4 stride-2 launches of each ``mm``-route kernel per
+   step, no act-route launch) and a profile of one step, beside phase 7;
+16. train_mm_card_vs_cpu: phase 8 with the composite;
+17. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
    ``{"ok": true, "device": {...}}`` last.
+
+``CFN_MM_BN_TRAIN`` is cleared at the start, so every other phase runs the
+route it names.
 
 Any failed check raises and the script exits non-zero before the last line.
 It needs no network and writes nothing outside the checkout (the kernel
@@ -73,7 +92,9 @@ build goes to ``coarse_fine_networks_torch/_build/``).
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -142,6 +163,10 @@ REPLACES = {
     "dw_conv_dx_s2": f"{_DW_FOLD}:1208",   # _dx_s2_pcall (K8)
     "dw_conv_wgrad_s1": f"{_DW_FOLD}:705",  # _dw_fold4_wgrad_pcall, plain
     "dw_conv_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, plain mode
+    "dw_mm_dx_mask_s1": f"{_DW_FOLD}:576",  # _dx_mask_pcall (K2)
+    "dw_mm_dx_mask_s2": f"{_DW_FOLD}:1239",  # _dx_s2_mask_pcall (K9)
+    "dw_mm_wgrad_s1": f"{_DW_FOLD}:705",   # _dw_fold4_wgrad_pcall, mm mode
+    "dw_mm_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, mm mode
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
@@ -163,6 +188,10 @@ FINE_KERNELS = ("dw_conv_s1", "dw_conv_s2", "dw_conv_dx_s2",
                 "dw_conv_wgrad_s1", "dw_conv_wgrad_s2")
 ACT_KERNELS = tuple(f"dw_act{p}_s{s}" for p in ("", "_dx", "_wgrad")
                     for s in (1, 2))
+# the backward kernels of the matmul-fused train composite (its forward is
+# MM_KERNELS)
+MM_TRAIN_KERNELS = ("dw_mm_dx_mask_s1", "dw_mm_dx_mask_s2", "dw_mm_wgrad_s1",
+                    "dw_mm_wgrad_s2")
 # (stage, C_mid, bottlenecks in the stage)
 STAGES = (("layer1", 54, 3), ("layer2", 108, 5), ("layer3", 216, 11),
           ("layer4", 432, 7))
@@ -348,6 +377,51 @@ def _rel_err(got, ref) -> tuple[float, float]:
     return err, ref.float().abs().max().item()
 
 
+def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel):
+    """Each of ``cases`` (name -> kernel, plain version, unfused PyTorch
+    sequence, the nearest single PyTorch call, what that call is, bytes,
+    operations) held against its plain version and timed beside the other
+    three; one row per case, ``meta`` naming the entry.  A bf16 case at a
+    ``counted`` shape adds its times, weighted by ``n`` launches per train
+    step, to ``per_kernel``, so the sums are one step's work."""
+    for name, (kern, plain, unfused, nearest, near_what, nbytes,
+               ops) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        ref = ref if isinstance(ref, tuple) else (ref,)
+        errs = [_rel_err(a_, b_) for a_, b_ in zip(got, ref)]
+        check(all(a_.shape == b_.shape for a_, b_ in zip(got, ref)),
+              f"{name} {meta['entry']} {dtype}: shapes differ")
+        err = max(e for e, _ in errs)
+        tol_ok = all(e <= TOL[dtype] * max(m, 1.0) for e, m in errs)
+        ms = cuda_ms(kern, 20)
+        plain_ms = cuda_ms(plain, 3, 1)
+        unfused_ms = cuda_ms(unfused, 10)
+        nearest_ms = cuda_ms(nearest, 10)
+        row = {"phase": phase, "kernel": name, **meta,
+               "dtype": str(dtype)[6:], "launches_per_step": n,
+               "in_kernel_line": counted, "max_abs_err": err,
+               "max_abs_err_by_output": [e for e, _ in errs],
+               "ref_absmax_by_output": [m for _, m in errs],
+               "ms": ms, "plain_ms": plain_ms,
+               "unfused_ms": unfused_ms, "nearest_ms": nearest_ms,
+               "nearest_call": near_what, "library_ms": None,
+               **_bound(nbytes, ops, dtype)}
+        emit(row)
+        check(tol_ok, f"{name} {meta['entry']} {dtype}: errors {errs}")
+        agg = per_kernel[name]
+        if dtype == torch.bfloat16:
+            # the trained dtype
+            for key in ("ms", "plain_ms", "unfused_ms", "nearest_ms",
+                        "bytes_ms", "ops_ms", "bound_ms"):
+                agg[key] += n * row[key] * counted
+            agg["launches"] += n * counted
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        else:
+            agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
+
+
 def phase_train_kernels(dw_act) -> dict:
     """The six train kernels against their plain versions, and timed, at
     the coarse train step's entry shapes and at the fine stream's in
@@ -419,45 +493,10 @@ def phase_train_kernels(dw_act) -> dict:
                     (n_x + n_g) * esz + vec + 27 * c * 4,
                     2 * 27 * n_g + 3 * n_x),
             }
-            for name, (kern, plain, unfused, nearest, near_what, nbytes,
-                       ops) in cases.items():
-                got, ref = kern(), plain()
-                torch.cuda.synchronize()
-                got = got if isinstance(got, tuple) else (got,)
-                ref = ref if isinstance(ref, tuple) else (ref,)
-                errs = [_rel_err(a_, b_) for a_, b_ in zip(got, ref)]
-                check(all(a_.shape == b_.shape for a_, b_ in zip(got, ref)),
-                      f"{name} {label} {dtype}: shapes differ")
-                err = max(e for e, _ in errs)
-                tol_ok = all(e <= TOL[dtype] * max(m, 1.0) for e, m in errs)
-                ms = cuda_ms(kern, 20)
-                plain_ms = cuda_ms(plain, 3, 1)
-                unfused_ms = cuda_ms(unfused, 10)
-                nearest_ms = cuda_ms(nearest, 10)
-                row = {"phase": "kernels", "kernel": name, "entry": label,
-                       "dtype": str(dtype)[6:], "x": [b, t, h, h, c],
-                       "stride": s, "launches_per_step": n,
-                       "in_kernel_line": counted, "max_abs_err": err,
-                       "max_abs_err_by_output": [e for e, _ in errs],
-                       "ref_absmax_by_output": [m for _, m in errs],
-                       "ms": ms, "plain_ms": plain_ms,
-                       "unfused_ms": unfused_ms, "nearest_ms": nearest_ms,
-                       "nearest_call": near_what, "library_ms": None,
-                       **_bound(nbytes, ops, dtype)}
-                emit(row)
-                check(tol_ok, f"{name} {label} {dtype}: errors {errs}")
-                agg = per_kernel[name]
-                if dtype == torch.bfloat16:
-                    # the trained dtype: each coarse shape weighted by its
-                    # launches in one train step, so the sums are one
-                    # coarse step's work
-                    for key in ("ms", "plain_ms", "unfused_ms", "nearest_ms",
-                                "bytes_ms", "ops_ms", "bound_ms"):
-                        agg[key] += n * row[key] * counted
-                    agg["launches"] += n * counted
-                    agg["max_abs_err"] = max(agg["max_abs_err"], err)
-                else:
-                    agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
+            _hold_and_time("kernels", cases, {"entry": label,
+                                              "x": [b, t, h, h, c],
+                                              "stride": s},
+                           dtype, n, counted, per_kernel)
             del x, g, a
         torch.cuda.empty_cache()
     return per_kernel
@@ -499,6 +538,204 @@ def phase_autograd(dw_act) -> None:
         check(max(rel.values()) <= 1e-4, f"autograd stride {s}: {rel}")
 
 
+def mm_entry_cases():
+    """(label, B, T, H, C_in, C_mid, stride, launches per step, counted) of
+    the entry shapes the composite's kernels get (x is conv1's input): the 8
+    of the coarse train step (T=64 in layer1, T=17 after Grid Pool; these
+    rows make up the kernels' line) and the 8 of the fine stream in
+    long-cycle phase D (B8 T64 224², every stage at T=64)."""
+    _, b_d, t_d, crop_d, _, _ = fine_phase("D")
+    check(crop_d == 224, f"phase D crop {crop_d}: ENTRY_SHAPES are at 224²")
+    for tag, b, frames, counted in (
+            ("coarse", TRAIN["b"], TRAIN_FRAMES, True),
+            ("fine.D", b_d, dict.fromkeys(TRAIN_FRAMES, t_d), False)):
+        for layer, h_s2, cin_s2, h_s1, cin_s1, c_mid, n in ENTRY_SHAPES:
+            t = frames[layer]
+            yield (f"{tag}.{layer}.0", b, t, h_s2, cin_s2, c_mid, 2, 1,
+                   counted)
+            yield (f"{tag}.{layer}.1-{n - 1}", b, t, h_s1, cin_s1, c_mid, 1,
+                   n - 1, counted)
+
+
+def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train) -> dict:
+    """The composite's four backward kernels against their plain versions,
+    and timed, at the coarse train step's entry shapes and at the fine
+    stream's in long-cycle phase D; about half the ``bi`` are negative."""
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    per_kernel = {k: _agg() for k in MM_TRAIN_KERNELS}
+    gram = {"ms": 0.0, "f32_cast_ms": 0.0, "max_rel_err": 0.0,
+            "f32_cast_max_rel_err": 0.0}
+    ncdhw = (0, 4, 1, 2, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for label, b, t, h, c_in, c, s, n, counted in mm_entry_cases():
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") * scale
+            ho = (h - 1) // s + 1
+            x = rnd(b, t, h, h, c_in).to(dtype)
+            w1 = rnd(c_in, c, scale=c_in ** -0.5).to(dtype)
+            w = rnd(3, 3, 3, c, scale=27 ** -0.5).to(dtype)
+            g = rnd(b, t, ho, ho, c).to(dtype)
+            sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bi = rnd(c)
+            w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+            bw = ([1, s, s], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c)
+            a = torch.relu(torch.matmul(x, w1).float() * sc + bi).to(dtype)
+
+            def conv_bwd(inp, mask):
+                return torch.ops.aten.convolution_backward(
+                    g.permute(ncdhw), inp.permute(ncdhw), w_conv, None, *bw,
+                    mask)
+
+            def unfused_dx():
+                z = torch.matmul(x, w1)
+                keep = z.float() * sc + bi > 0
+                da = conv_bwd(z, [True, False, False])[0]
+                return torch.where(keep, da.permute(0, 2, 3, 4, 1), 0.0)
+
+            def unfused_wgrad():
+                act = torch.relu(torch.matmul(x, w1).float() * sc
+                                 + bi).to(dtype)
+                return conv_bwd(act, [False, True, False])[1]
+
+            n_x, n_g, n_a = x.numel(), g.numel(), a.numel()
+            esz = x.element_size()
+            # conv1's product (2·C_in·C_mid per position), the apply and the
+            # mask or relu, and the 27 taps
+            ops = 2 * c_in * n_a + 3 * n_a + 2 * 27 * n_g
+            d_args = (g, x, w1, w, sc, bi, s)
+            w_args = (x, w1, g, sc, bi, s)
+            cases = {
+                f"dw_mm_dx_mask_s{s}": (
+                    lambda: dw_mm_bn_train.dw_mm_dx_mask(*d_args),
+                    lambda: dw_mm_bn_train.dw_mm_dx_mask_plain(*d_args),
+                    unfused_dx, lambda: conv_bwd(a, [True, False, False]),
+                    "aten.convolution_backward, input gradient only",
+                    (n_x + n_g + n_a + w1.numel() + w.numel()) * esz
+                    + 2 * c * 4, ops),
+                f"dw_mm_wgrad_s{s}": (
+                    lambda: dw_mm_act.dw_mm_wgrad(*w_args),
+                    lambda: dw_mm_act.dw_mm_wgrad_plain(*w_args),
+                    unfused_wgrad, lambda: conv_bwd(a, [False, True, False]),
+                    "aten.convolution_backward, weight gradient only",
+                    (n_x + n_g + w1.numel()) * esz + 2 * c * 4 + 27 * c * 4,
+                    ops),
+            }
+            _hold_and_time("mm_train_kernels", cases,
+                           {"entry": label, "x": [b, t, h, h, c_in],
+                            "c_mid": c, "stride": s},
+                           dtype, n, counted, per_kernel)
+            if dtype == torch.bfloat16 and counted:
+                # the composite's Gram xᵀx with f32 output from bf16 x
+                # (mm_f32), against reading x as f32 (a copy of x), both
+                # held against the Gram in f64
+                x2 = x.reshape(-1, c_in)
+                exact = torch.mm(x2.t().double(), x2.double())
+                for key, got in (
+                        ("max_rel_err", dw_mm_act.mm_f32(x2.t(), x2)),
+                        ("f32_cast_max_rel_err",
+                         torch.mm(x2.t().float(), x2.float()))):
+                    err, top = _rel_err(got, exact)
+                    gram[key] = max(gram[key], err / top)
+                del exact
+                gram["ms"] += n * cuda_ms(
+                    lambda: dw_mm_act.mm_f32(x2.t(), x2), 10)
+                gram["f32_cast_ms"] += n * cuda_ms(
+                    lambda: torch.mm(x2.t().float(), x2.float()), 10)
+            del x, g, a
+        torch.cuda.empty_cache()
+    emit({"phase": "mm_train_gram", "what": "the Gram of every coarse entry "
+          "of one train step, bf16 x, f32 output, summed", **gram})
+    # f32 sums of bf16 products (each exact in f32) over up to 6.4e6
+    # positions, whose rounding grows with the length of the sum (the two
+    # f32 ways differed by 2.3e-4 of the largest entry on this card): 1e-3
+    # stays 4x under one bf16 rounding of x itself (2^-8)
+    check(gram["max_rel_err"] <= 1e-3, f"Gram: {gram}")
+    return per_kernel
+
+
+def phase_mm_autograd(dw_mm_act, dw_mm_bn_train) -> None:
+    """The composite ``DwMmBnTrain`` (``(y, mean, var)`` and the gradients
+    of x, w1, the taps, gamma and beta) and the eval entry's
+    ``DwMmBnReluConv3d`` (y and the gradients of x, w1, the taps, sc and
+    bi) against autograd through the plain composition: product → batch
+    statistics → apply → relu → grouped F.conv3d, f32 (TF32 off), at
+    layer4.0's stride-2 entry (14² → 7², C_in 96, C_mid 432), layer2's
+    stride-1 one (28², C_in 48, C_mid 108) and layer4's 7² at stride 2
+    (7² → 4², where K9 takes the ragged edge of an odd size), B2 T4.  The
+    composite's relu input differs from the composition's by a rounding
+    (statistics from the Gram, the product summed in another order), so an
+    input within that of 0 takes the other branch, an O(1) local error in
+    dx: these sizes (at most 0.68M activations each) keep the expected count
+    of such inputs well below one, and the seed fixes it."""
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    eps = 1e-5
+    for s, h, c_in, c in ((2, 14, 96, 432), (1, 28, 48, 108),
+                          (2, 7, 96, 432)):
+        b, t = 2, 4
+        ho = (h - 1) // s + 1
+
+        def rnd(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device="cuda") * scale
+        x, w1 = rnd(b, t, h, h, c_in), rnd(c_in, c, scale=c_in ** -0.5)
+        w = rnd(3, 3, 3, c, scale=0.2)
+        gamma = torch.rand(c, generator=gen, device="cuda") + 0.5
+        beta, bi = rnd(c, scale=0.3), rnd(c)
+        sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+        g = rnd(b, t, ho, ho, c)
+
+        def conv(a, w):
+            return F.conv3d(a.permute(0, 4, 1, 2, 3),
+                            w.permute(3, 0, 1, 2).unsqueeze(1),
+                            stride=(1, s, s), padding=1,
+                            groups=c).permute(0, 2, 3, 4, 1)
+
+        def composite(x, w1, w, gamma, beta):
+            return dw_mm_bn_train.mm_bn_train(x, w1, w, gamma, beta, s, eps)
+
+        def composite_ref(x, w1, w, gamma, beta):
+            z = x @ w1
+            mean = z.mean((0, 1, 2, 3))
+            var = (z * z).mean((0, 1, 2, 3)) - mean * mean
+            a = torch.relu((z - mean) * torch.rsqrt(var + eps) * gamma
+                           + beta)
+            return conv(a, w), mean, var
+
+        def entry(x, w1, w, sc, bi):
+            return (dw_mm_act.dw_mm_bnrelu_conv3d_train(x, w1, w, sc, bi, s),)
+
+        def entry_ref(x, w1, w, sc, bi):
+            return (conv(torch.relu(x @ w1 * sc + bi), w),)
+
+        for fn_name, fn, ref_fn, inputs, names in (
+                ("DwMmBnTrain", composite, composite_ref,
+                 (x, w1, w, gamma, beta),
+                 ("y", "mean", "var", "dx", "dw1", "dw", "dgamma",
+                  "dbeta")),
+                ("DwMmBnReluConv3d", entry, entry_ref, (x, w1, w, sc, bi),
+                 ("y", "dx", "dw1", "dw", "dsc", "dbi"))):
+            leaves = [v.clone().requires_grad_() for v in inputs]
+            out = fn(*leaves)
+            out[0].backward(g)
+            ref_leaves = [v.clone().requires_grad_() for v in inputs]
+            ref = ref_fn(*ref_leaves)
+            ref[0].backward(g)
+            torch.cuda.synchronize()
+            pairs = list(zip(out, ref)) + [(a_.grad, b_.grad) for a_, b_ in
+                                           zip(leaves, ref_leaves)]
+            rel = {}
+            for name, (got, want) in zip(names, pairs):
+                check(got.shape == want.shape, f"mm_autograd {name} shape")
+                e, m = _rel_err(got.detach(), want.detach())
+                rel[name] = e / max(m, 1e-30)
+            emit({"phase": "mm_autograd", "function": fn_name,
+                  "stride": s, "x": [b, t, h, h, c_in], "c_mid": c,
+                  "dtype": "float32", "max_rel_err": rel, "rel_tol": 1e-4})
+            # f32 both sides: sums over 2·4·7²..28² positions in other
+            # orders, the statistics from the Gram
+            check(max(rel.values()) <= 1e-4,
+                  f"mm_autograd {fn_name} stride {s}: {rel}")
+
+
 def _train_batch(device, gen, b, t, hw, tf, tl, n_classes, dtype):
     def rand(*shape):
         return torch.rand(shape, generator=gen, device=device)
@@ -513,13 +750,30 @@ def _train_batch(device, gen, b, t, hw, tf, tl, n_classes, dtype):
     }
 
 
-def phase_train(dw_act, dw_mm_act) -> dict:
-    """The coarse train step at full width on the card; returns the train
-    kernels' launches in the timed steps."""
+@contextlib.contextmanager
+def composite_route(on: bool):
+    """``CFN_MM_BN_TRAIN=1`` inside when ``on`` (every training bottleneck
+    takes the matmul-fused composite), cleared after."""
+    if on:
+        os.environ["CFN_MM_BN_TRAIN"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("CFN_MM_BN_TRAIN", None)
+
+
+def phase_train(mods, route: str = "act", ref: dict | None = None):
+    """The coarse train step at full width on the card by ``route``: "act"
+    (the default dispatch) or "mm" (the composite, ``CFN_MM_BN_TRAIN=1``).
+    ``mods`` are the kernel modules whose counters are read; ``ref`` is the
+    act route's row, printed beside the mm route's.  Returns the route's
+    backward (act: every) kernel launches in the timed steps, and the
+    row."""
     from coarse_fine_networks_torch.models import CoarseNet, init_parameters
     from coarse_fine_networks_torch.train import TrainState, make_train_step
 
     c = TRAIN
+    ours = ACT_KERNELS if route == "act" else MM_KERNELS + MM_TRAIN_KERNELS
     t0 = time.perf_counter()
     model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5),
                             torch.Generator().manual_seed(0)).cuda()
@@ -532,27 +786,34 @@ def phase_train(dw_act, dw_mm_act) -> dict:
     drop = torch.Generator(device="cuda").manual_seed(2)
     build_s = time.perf_counter() - t0
 
-    losses = []
-    for _ in range(c["warmup"]):
-        state, m = step(state, batch, c["lr"], drop)
-        losses.append(m["loss"].item())
-    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    dw_act.reset_launches()
-    dw_mm_act.reset_launches()
-    step_ms = []
-    for _ in range(c["steps"]):
-        t1 = time.perf_counter()
-        state, m = step(state, batch, c["lr"], drop)
-        loss = m["loss"].item()  # waits for the step
+    with composite_route(route == "mm"):
+        losses = []
+        for _ in range(c["warmup"]):
+            state, m = step(state, batch, c["lr"], drop)
+            losses.append(m["loss"].item())
+        before = {k: v.detach().clone()
+                  for k, v in model.state_dict().items()}
         torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t1) * 1e3)
-        losses.append(loss)
-    launches = dict(dw_act.LAUNCHES)
-    mm_launches = dict(dw_mm_act.LAUNCHES)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    after = model.state_dict()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods:
+            mod.reset_launches()
+        step_ms = []
+        for _ in range(c["steps"]):
+            t1 = time.perf_counter()
+            state, m = step(state, batch, c["lr"], drop)
+            loss = m["loss"].item()  # waits for the step
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            losses.append(loss)
+        launches = _launches(*mods)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        after = model.state_dict()
+
+        def one_step():
+            step(state, batch, c["lr"], drop)[1]["loss"].item()
+        profiled = _profile_step(one_step, ("dw_mm_act_kernel",
+                                            "dx_s1_kernel", "dx_s2_kernel",
+                                            "wgrad_kernel"))
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -561,35 +822,40 @@ def phase_train(dw_act, dw_mm_act) -> dict:
     split = [k for k in after if "split_bn" in k]
     stuck = [k for k in split if torch.equal(after[k], before[k])]
     n = c["steps"]
-    want = {k: n * (22 if k.endswith("_s1") else 4) for k in launches}
-
-    def one_step():
-        step(state, batch, c["lr"], drop)[1]["loss"].item()
-    profiled = _profile_step(one_step, ("dw_mm_act_kernel", "dx_s1_kernel",
-                                        "dx_s2_kernel", "wgrad_kernel"))
+    want = {k: n * (22 if k.endswith("_s1") else 4) * (k in ours)
+            for k in launches}
     mean_ms = sum(step_ms) / len(step_ms)
-    emit({"phase": "train", "model": "X3D-M", "n_classes": c["n_classes"],
-          "dtype": "bfloat16 activations, float32 parameters",
-          "B": c["b"], "T": c["t"], "input_hw": c["hw"], "T_f": c["tf"],
-          "label_len": c["tl"], "lr": c["lr"],
-          "fusion_lr_mult": c["fusion_lr_mult"], "dropout": 0.5,
-          "losses": losses, "step_ms": step_ms, "mean_step_ms": mean_ms,
-          "clips_per_s": c["b"] / mean_ms * 1e3, "peak_mem_gb": peak_gb,
-          "launches": launches, "eval_kernel_launches": mm_launches,
-          "params_moved": f"{len(moved)}/{len(params)}",
-          "split_stats_unchanged": stuck, "model_build_s": build_s})
-    emit({"phase": "train_profile", "what": "one train step, B8 T64 224² "
-                                            "bf16", **profiled})
-    check(all(np.isfinite(losses)), f"train losses not finite: {losses}")
-    check(not nonfinite, f"non-finite parameters or stats: {nonfinite[:5]}")
+    phase = "train" if route == "act" else "train_mm"
+    row = {"phase": phase, "route": route, "model": "X3D-M",
+           "n_classes": c["n_classes"],
+           "dtype": "bfloat16 activations, float32 parameters",
+           "B": c["b"], "T": c["t"], "input_hw": c["hw"], "T_f": c["tf"],
+           "label_len": c["tl"], "lr": c["lr"],
+           "fusion_lr_mult": c["fusion_lr_mult"], "dropout": 0.5,
+           "losses": losses, "step_ms": step_ms, "mean_step_ms": mean_ms,
+           "clips_per_s": c["b"] / mean_ms * 1e3, "peak_mem_gb": peak_gb,
+           "launches": {k: v for k, v in launches.items() if v},
+           "params_moved": f"{len(moved)}/{len(params)}",
+           "split_stats_unchanged": stuck, "model_build_s": build_s}
+    if ref is not None:
+        row["act_route"] = {k: ref[k] for k in ("mean_step_ms",
+                                                "clips_per_s",
+                                                "peak_mem_gb")}
+    emit(row)
+    emit({"phase": f"{phase}_profile",
+          "what": f"one train step, B8 T64 224² bf16, {route} route",
+          **profiled})
+    check(all(np.isfinite(losses)), f"{phase} losses not finite: {losses}")
+    check(not nonfinite, f"{phase}: non-finite parameters or stats: "
+                         f"{nonfinite[:5]}")
     check(len(moved) == len(params),
-          f"parameters that did not move: "
+          f"{phase}: parameters that did not move: "
           f"{[k for k in params if k not in moved][:5]}")
-    check(split and not stuck, f"split statistics unchanged: {stuck[:5]}")
-    check(launches == want, f"train launches {launches} != {want}")
-    check(not any(mm_launches.values()),
-          f"the train step launched eval kernels: {mm_launches}")
-    return launches
+    check(split and not stuck, f"{phase}: split statistics unchanged: "
+                               f"{stuck[:5]}")
+    check(launches == want, f"{phase} launches {launches} != {want}")
+    counted = ACT_KERNELS if route == "act" else MM_TRAIN_KERNELS
+    return {k: launches[k] for k in counted}, row
 
 
 def _stage(name: str) -> str:
@@ -642,10 +908,11 @@ def _compare_grads(row: dict, g_ref: dict, g: dict, zero: tuple) -> None:
     check(not over, f"{phase}: gradients card vs CPU per tensor {over}")
 
 
-def phase_train_card_vs_cpu() -> None:
+def phase_train_card_vs_cpu(route: str = "act") -> None:
     """One small f32 train step (X3D-M, 157 classes, B=2, T=8, 64²,
     T_f=16, label length 32, dropout 0) on the card and on the CPU from the
-    same weights: the loss, and every parameter's gradient."""
+    same weights, by ``route`` (as :func:`phase_train`): the loss, and
+    every parameter's gradient."""
     from coarse_fine_networks_torch.models import CoarseNet, init_parameters
     from coarse_fine_networks_torch.train import TrainState, make_train_step
 
@@ -656,21 +923,24 @@ def phase_train_card_vs_cpu() -> None:
     batch = _train_batch("cpu", torch.Generator().manual_seed(8), 2, 8, 64,
                          16, 32, 157, torch.float32)
     out = {}
-    for name, model in (("cpu", cpu), ("card", gpu)):
-        step = make_train_step(model, align_corners=False,
-                               fusion_lr_mult=10.0)
-        _, m = step(TrainState.create(model), batch, 0.02)
-        out[name] = (m["loss"].item(),
-                     {k: p.grad.detach().cpu() for k, p in
-                      model.named_parameters()})
+    with composite_route(route == "mm"):
+        for name, model in (("cpu", cpu), ("card", gpu)):
+            step = make_train_step(model, align_corners=False,
+                                   fusion_lr_mult=10.0)
+            _, m = step(TrainState.create(model), batch, 0.02)
+            out[name] = (m["loss"].item(),
+                         {k: p.grad.detach().cpu() for k, p in
+                          model.named_parameters()})
     (loss_ref, g_ref), (loss, g) = out["cpu"], out["card"]
-    row = {"phase": "train_card_vs_cpu", "dtype": "float32", "input_hw": 64,
-           "B": 2, "T": 8, "loss_cpu": loss_ref, "loss_card": loss,
-           "loss_rel_err": abs(loss - loss_ref) / abs(loss_ref)}
+    phase = "train_card_vs_cpu" if route == "act" else "train_mm_card_vs_cpu"
+    row = {"phase": phase, "route": route, "dtype": "float32",
+           "input_hw": 64, "B": 2, "T": 8, "loss_cpu": loss_ref,
+           "loss_card": loss, "loss_rel_err": abs(loss - loss_ref) /
+           abs(loss_ref)}
     _compare_grads(row, g_ref, g, COARSE_ZERO_GRADS)
     # the forward loss: f32 sums in other orders
     check(abs(loss - loss_ref) <= 1e-4 * abs(loss_ref),
-          f"train loss card {loss} vs CPU {loss_ref}")
+          f"{phase}: loss card {loss} vs CPU {loss_ref}")
 
 
 def fine_phases():
@@ -873,10 +1143,11 @@ def _profile_step(fn, ours) -> dict:
                     for e in top]}
 
 
-def phase_fine_train(dw_conv, dw_act, dw_mm_act) -> dict:
+def phase_fine_train(mods) -> dict:
     """Fine-stream training through the four long-cycle phases at full
-    width on the card, then the eval step; returns the split route's kernel
-    launches in the timed steps of phases A-C."""
+    width on the card, then the eval step; ``mods`` are the kernel modules
+    whose counters are read.  Returns the split route's kernel launches in
+    the timed steps of phases A-C."""
     from coarse_fine_networks_torch.models import (FineNet, SubBatchNorm,
                                                    init_parameters)
     from coarse_fine_networks_torch.train import (LongCycleSchedule,
@@ -897,7 +1168,6 @@ def phase_fine_train(dw_conv, dw_act, dw_mm_act) -> dict:
     drop = torch.Generator(device="cuda").manual_seed(11)
     data = torch.Generator(device="cuda").manual_seed(12)
     bns = [m for m in model.modules() if isinstance(m, SubBatchNorm)]
-    mods = (dw_conv, dw_act, dw_mm_act)
     split_launches = {k: 0 for k in FINE_KERNELS}
     emit({"phase": "fine_train_setup", "model": "X3D-M",
           "n_classes": c["n_classes"], "params": sum(
@@ -1224,8 +1494,11 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_mm_act
+    from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
+                                                dw_mm_bn_train)
 
+    os.environ.pop("CFN_MM_BN_TRAIN", None)  # train_mm sets it for itself
+    mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
@@ -1235,16 +1508,24 @@ def main() -> int:
     phase_autograd(dw_act)
     phase_fine_autograd(dw_conv)
     launches, pipe = phase_serve(
-        dw_mm_act, dw_act, {k: per_kernel[k]["launches"] for k in MM_KERNELS})
+        dw_mm_act, dw_act, {k: per_kernel[k]["launches"] if k in MM_KERNELS
+                            else 0 for k in dw_mm_act.LAUNCHES})
     phase_profile(pipe)
     del pipe
     phase_card_vs_cpu()
-    launches.update(phase_train(dw_act, dw_mm_act))
+    act_launches, train_row = phase_train(mods)
+    launches.update(act_launches)
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu()
-    launches.update(phase_fine_train(dw_conv, dw_act, dw_mm_act))
+    launches.update(phase_fine_train(mods))
     torch.cuda.empty_cache()
     phase_fine_card_vs_cpu()
+    per_kernel.update(phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train))
+    phase_mm_autograd(dw_mm_act, dw_mm_bn_train)
+    mm_launches, _ = phase_train(mods, "mm", train_row)
+    launches.update(mm_launches)
+    torch.cuda.empty_cache()
+    phase_train_card_vs_cpu("mm")
 
     timed_at = {
         "serve": "bf16 at the serve phase's entry shapes (B=3, 224²; fine "
@@ -1255,6 +1536,8 @@ def main() -> int:
                  "224²; T=64 in layer1, then T=17 after Grid Pool), each "
                  "time weighted by its launches in one train step and "
                  "summed; launches: the 10 timed train steps",
+        "mm_train": "bf16 at the train step's 8 coarse entry shapes, as "
+                    "train; launches: the 10 timed steps of train_mm",
         "fine": "bf16 at the fine tower's 8 entry shapes in each of "
                 "long-cycle phases A-C (B64 T16 112², B32 T32 144², B16 T32 "
                 "224²), each time weighted by its launches in one step of "
@@ -1264,7 +1547,8 @@ def main() -> int:
     kernels = []
     for name, agg in per_kernel.items():
         path = ("serve" if name in MM_KERNELS else
-                "fine" if name in FINE_KERNELS else "train")
+                "fine" if name in FINE_KERNELS else
+                "mm_train" if name in MM_TRAIN_KERNELS else "train")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1276,9 +1560,10 @@ def main() -> int:
                          else "operations"),
             "library_ms": agg.get("library_ms"),
             **({"unfused_ms": agg["unfused_ms"]} if path != "fine" else {}),
-            **({"nearest_call_ms": agg["nearest_ms"]} if path == "train"
-               else {}),
+            **({"nearest_call_ms": agg["nearest_ms"]}
+               if path in ("train", "mm_train") else {}),
             "timed_at": timed_at[path]})
+    check(len(kernels) == 17, f"{len(kernels)} kernel entries, not 17")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

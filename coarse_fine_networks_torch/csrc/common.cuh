@@ -45,6 +45,104 @@ __device__ __forceinline__ float act(float v, float sc, float bi) {
   return to_f(from_f<T>(fmaxf(bn_apply(v, sc, bi), 0.f)));
 }
 
+constexpr int KC = 32;  // input channels of conv1's product staged per pass
+
+// 16 bytes of x -> floats
+__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
+  const float* f = reinterpret_cast<const float*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) out[j] = f[j];
+}
+__device__ __forceinline__ void unpack(const uint4& u, float* out,
+                                       __nv_bfloat16) {
+  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
+}
+
+// The mm entry's prologue: conv1's product z = x[pos] @ W1[:, c] and bn1's
+// apply, shared by the forward (dw_mm_act.cu), the masked dx and the mm
+// weight gradient (dw_act_bwd.cu), so that all three sum the product in one
+// order and take one relu branch, element for element.
+//
+// The positions are p = warp + j*WARPS < NP (j < NPA), at row iy0 + p / WR
+// and column ix0 + p % WR of the frame xf (H, W, Cin channels-last); the
+// channel is c = c0 + lane. out[j] is
+//   MASK:  1 if z*sc + bi > 0 (the relu' mask), else 0;
+//   else:  act<T>(z, sc, bi) (the activation as the stencil reads it);
+// and 0 outside the frame and for c >= Cmid (zero padding after the
+// activation). z sums in f32 over k = 0..Cin-1 in order with fmaf; x is
+// staged KC input channels at a time with 16-byte loads (Cin % 8 == 0, x
+// 16-byte aligned) into xs [NP][KC], W1 into ws [KC][CC]. Every thread of
+// the block calls it: it synchronises.
+template <typename T, bool MASK, int NP, int WR, int NPA>
+__device__ __forceinline__ void mm_prologue(
+    float (&out)[NPA], float* xs, float* ws, const T* __restrict__ xf,
+    const T* __restrict__ w1, int H, int W, int Cin, int Cmid, int c0,
+    int iy0, int ix0, float scv, float biv) {
+  constexpr int VE = 16 / sizeof(T);
+  const int lane = threadIdx.x, warp = threadIdx.y;
+  const int tid = warp * 32 + lane;
+  float acc[NPA];
+#pragma unroll
+  for (int j = 0; j < NPA; ++j) acc[j] = 0.f;
+  for (int k0 = 0; k0 < Cin; k0 += KC) {
+    const int kc = min(KC, Cin - k0);  // a multiple of 8
+    __syncthreads();                   // earlier readers of xs/ws are done
+    const int nv = kc / VE;
+    for (int i = tid; i < NP * nv; i += WARPS * 32) {
+      const int p = i / nv, v = i % nv;
+      const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+      float vals[VE];
+      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+        const uint4 u = *reinterpret_cast<const uint4*>(
+            xf + ((size_t)gy * W + gx) * Cin + k0 + v * VE);
+        unpack(u, vals, T());
+      } else {
+#pragma unroll
+        for (int j = 0; j < VE; ++j) vals[j] = 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < VE; ++j) xs[p * KC + v * VE + j] = vals[j];
+    }
+    for (int i = tid; i < kc * CC; i += WARPS * 32) {
+      const int k = i / CC, cc = c0 + i % CC;
+      ws[i] = cc < Cmid ? to_f(w1[(size_t)(k0 + k) * Cmid + cc]) : 0.f;
+    }
+    __syncthreads();
+    for (int k = 0; k < kc; k += 4) {
+      const float wa = ws[k * CC + lane], wb = ws[(k + 1) * CC + lane];
+      const float wc = ws[(k + 2) * CC + lane], wd = ws[(k + 3) * CC + lane];
+#pragma unroll
+      for (int j = 0; j < NPA; ++j) {
+        const int p = warp + j * WARPS;
+        if (p < NP) {
+          const float4 xv = *reinterpret_cast<const float4*>(xs + p * KC + k);
+          acc[j] = fmaf(xv.x, wa, acc[j]);
+          acc[j] = fmaf(xv.y, wb, acc[j]);
+          acc[j] = fmaf(xv.z, wc, acc[j]);
+          acc[j] = fmaf(xv.w, wd, acc[j]);
+        }
+      }
+    }
+  }
+  const bool cval = c0 + lane < Cmid;
+#pragma unroll
+  for (int j = 0; j < NPA; ++j) {
+    const int p = warp + j * WARPS;
+    const int gy = iy0 + p / WR, gx = ix0 + p % WR;
+    const bool in = cval && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    float v = 0.f;
+    if (in) {
+      if (MASK)
+        v = bn_apply(acc[j], scv, biv) > 0.f ? 1.f : 0.f;
+      else
+        v = act<T>(acc[j], scv, biv);
+    }
+    out[j] = v;
+  }
+}
+
 // Stencil tiles: an OH x OW tile of outputs at stride (1,S,S), with a halo
 // of S*(O-1)+3 input rows/cols around it (origin S*o0 - 1). Each warp takes
 // every WARPS-th halo position (NPA of them) and every WARPS-th output (NO).

@@ -1,24 +1,32 @@
 // Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a):
 //
-//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )   (act mode)
-//     y = dwconv3x3x3_(1,s,s)( x )                               (plain mode)
+//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )          (act)
+//     y = dwconv3x3x3_(1,s,s)( x )                                     (plain)
+//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
 //
 // x (B,T,H,W,C) is the conv1 output (plain mode: already normalised per
-// split and activated), channels-last, f32 or bf16; the depthwise taps w
-// (27,C) have x's dtype; sc/bi are bn1's f32 per-channel apply vectors from
-// the batch statistics. g is dL/dy (y's shape and dtype).
+// split and activated; mm mode: conv1's input (B,T,H,W,Cin), W1 (Cin,C)),
+// channels-last, f32 or bf16; the depthwise taps w (27,C) have x's dtype;
+// sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
+// is dL/dy (y's shape and dtype).
 //
-// Seven kernel entries, each replacing a TPU Pallas kernel of
+// Eleven kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
 // dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; plain mode: the
-// backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd):
+// backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd;
+// mm mode: the backward of the train composite dw_fold4_mm_bn_train,
+// _mm_bn_train_bwd, and of the eval entry dw_fold4_mm_act, _dw_mm_bwd):
 //   * dw_act_dx_s1      <- _dx_act_pcall -> _fwd_kernel(actmask)
 //   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
 //   * dw_conv_dx_s2     <- _dx_s2_pcall -> _dx_s2_kernel (plain; K8)
+//   * dw_mm_dx_mask_s1  <- _dx_mask_pcall -> _fwd_kernel(dxmask) (K2)
+//   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
 //   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
 //   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
 //   * dw_conv_wgrad_s1  <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (plain)
 //   * dw_conv_wgrad_s2  <- _wgrad_s2_pcall -> _wgrad_s2_kernel (plain)
+//   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
+//   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
 // (the plain stride-1 dx is the forward's dw_conv_s1 on the flipped taps,
 // in dw_mm_act.cu, as in the JAX package).
 //
@@ -35,9 +43,14 @@
 //        out: dx = dam*sc in x's dtype, and per block the f32 partial sums
 //             (sum dam*x, sum dam) per channel -> (dsc, dbi).
 //        plain mode (stride 2 only): dx = da in g's dtype, nothing else.
+//        mm mode: dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype, nothing
+//             else; the mask recomputes conv1's product per output position
+//             with the forward's prologue (mm_prologue, common.cuh), the
+//             same sum in the same order and the same rounded apply.
 // wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
 //        rounded, zero-padded activation as the forward (plain mode: x
-//        itself), summed in f32; per block an f32 partial (27, C).
+//        itself; mm mode: the forward's prologue over the halo), summed in
+//        f32; per block an f32 partial (27, C).
 //
 // Reductions: no atomics. Each block writes its partial sums to its own row
 // of a (rows, k, C) buffer after a fixed-order sum over its warps; the
@@ -46,7 +59,10 @@
 // What bounds them on this card: bytes. dx reads g and x and writes dx
 // (27 MACs per element); wgrad reads x and g (27 MACs per element). Both sit
 // far below the ~295 operations per byte where the H100's tensor cores
-// would become the limit, and the stencil's MACs run on the FP32 cores.
+// would become the limit, and the stencil's MACs run on the FP32 cores. The
+// mm modes add conv1's product, Cin MACs per (position, channel): at most
+// 2*192 operations per 2 bytes of C_mid output, still below that line, but
+// on the FP32 cores here (moving it to wgmma is later work).
 //
 // What the design does about it: the layout of dw_mm_act.cu. A block owns
 // (frame segment, spatial tile, 32-channel chunk), walks its frames in
@@ -55,8 +71,9 @@
 // per tile plus a halo. Each lane owns one channel: ring reads are
 // conflict-free, loads and stores of channels-last tensors are contiguous
 // along C. Loads are per element because C = 54, 108, ... is no multiple of
-// 8. The activation, the mask and both reductions are fused in, so neither
-// a nor da ever goes to device memory.
+// 8 (mm mode stages x with 16-byte loads, Cin % 8 == 0). The activation,
+// the mask and both reductions are fused in, so neither a nor da (nor, in
+// mm mode, conv1's C-wide product) ever goes to device memory.
 
 #include "common.cuh"
 
@@ -66,6 +83,9 @@ using namespace cfn;
 
 constexpr int TT_DX = 8;  // frames per block, dx
 constexpr int TT_WG = 16; // frames per block, wgrad (fewer partial rows)
+
+// act: the prologue relu(x*sc + bi); plain: none; mm: relu((x@W1)*sc + bi)
+enum Mode { ACT, PLAIN, MM };
 
 // ---- geometry ---------------------------------------------------------------
 // dx at stride 1 and both wgrads use StencilGeom<S> (common.cuh), the
@@ -121,6 +141,13 @@ __device__ __forceinline__ void dx_epilogue(float acc, const T* x, T* dx,
   r1 += dam;
 }
 
+// The ring of three frames of P positions, reused at the end for the warps'
+// partial sums (K per lane and warp), in floats.
+template <int K, int P>
+__host__ __device__ constexpr int ring_floats() {
+  return 3 * P * CC > WARPS * K * CC ? 3 * P * CC : WARPS * K * CC;
+}
+
 // Fixed-order sum of K per-thread values over the block's warps; warp 0
 // writes row `row` of a (rows, K, C) partial buffer. `red` is shared memory
 // of WARPS*K*CC floats, free for use (the caller synchronised).
@@ -141,19 +168,25 @@ __device__ __forceinline__ void block_partials(float* red, const float* v,
 }
 
 // ---- dx, stride 1 ------------------------------------------------------------
-template <typename T>
+// ACT: x (B,T,H,W,C), the epilogue masks, scales and reduces; MM: x
+// (B,T,H,W,Cin), w1 (Cin,C), dx = dam in g's dtype, part unused.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
-             const T* __restrict__ wdw, const float* __restrict__ sc,
-             const float* __restrict__ bi, T* __restrict__ dx,
-             float* __restrict__ part, int Tn, int H, int W, int C, int n_tx,
-             int n_tseg) {
+             const T* __restrict__ w1, const T* __restrict__ wdw,
+             const float* __restrict__ sc, const float* __restrict__ bi,
+             T* __restrict__ dx, float* __restrict__ part, int Tn, int H,
+             int W, int Cin, int C, int n_tx, int n_tseg) {
   using G = SGeom<1>;
+  constexpr int NP = G::OH * G::OW;  // the mask's positions: the outputs
   extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  float* xs = ring + ring_floats<2, G::P>();     // mm: [NP][KC]
+  float* ws = xs + NP * KC;                      // mm: [KC][CC]
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int oy0 = (blockIdx.x / n_tx) * G::OH;
   const int ox0 = (blockIdx.x % n_tx) * G::OW;
-  const int c = blockIdx.y * CC + lane;
+  const int c0 = blockIdx.y * CC;
+  const int c = c0 + lane;
   const bool cval = c < C;
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_DX;
@@ -174,6 +207,12 @@ dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
   load(t0);
   for (int t = t0; t < t1; ++t) {
     load(t + 1);
+    // output j of this warp is mask position j: both are warp + j*WARPS
+    float keep[G::NO];
+    if constexpr (MODE == MM)
+      mm_prologue<T, true, NP, G::OW, G::NO>(
+          keep, xs, ws, x + (size_t)(b * Tn + t) * H * W * Cin, w1, H, W,
+          Cin, C, c0, oy0, ox0, scv, biv);
     __syncthreads();
     const float* fr[3] = {ring + slot_of(t - 1) * G::P * CC,
                           ring + slot_of(t) * G::P * CC,
@@ -192,39 +231,49 @@ dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
             acc = fmaf(wt[(dt * 3 + dy) * 3 + dxx],
                        fr[dt][((oy + dy) * G::WR + ox + dxx) * CC + lane], acc);
       const int gy = oy0 + oy, gx = ox0 + ox;
-      if (cval && gy < H && gx < W)
-        dx_epilogue(acc, x, dx, (((size_t)(b * Tn + t) * H + gy) * W + gx) * C
-                    + c, scv, biv, r[0], r[1]);
+      if (cval && gy < H && gx < W) {
+        const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
+        if constexpr (MODE == MM)
+          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
+        else
+          dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
+      }
     }
     __syncthreads();  // the next load overwrites frame t-1's slot
   }
-  block_partials<2>(ring, r, part,
-                    (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
+  if constexpr (MODE == ACT)
+    block_partials<2>(ring, r, part,
+                      (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
 }
 
 // ---- dx, stride (1,2,2) --------------------------------------------------------
-// g is (B,T,Ho,Wo,C), x and dx (B,T,H,W,C), Ho = (H-1)/2 + 1. With MASK
-// (act mode) the epilogue masks, scales and reduces; without it (plain mode,
-// x, sc, bi and part unused) dx = da.
-template <typename T, bool MASK>
+// g is (B,T,Ho,Wo,C), dx (B,T,H,W,C), Ho = (H-1)/2 + 1. ACT (x (B,T,H,W,C)):
+// the epilogue masks, scales and reduces; PLAIN (x, w1, sc, bi and part
+// unused): dx = da; MM (x (B,T,H,W,Cin), w1 (Cin,C), part unused): dx = dam
+// in g's dtype.
+template <typename T, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
-             const T* __restrict__ wdw, const float* __restrict__ sc,
-             const float* __restrict__ bi, T* __restrict__ dx,
-             float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo,
-             int C, int n_tx, int n_tseg) {
+             const T* __restrict__ w1, const T* __restrict__ wdw,
+             const float* __restrict__ sc, const float* __restrict__ bi,
+             T* __restrict__ dx, float* __restrict__ part, int Tn, int H,
+             int W, int Ho, int Wo, int Cin, int C, int n_tx, int n_tseg) {
   using G = GGeom;
+  constexpr int NP = G::OH * G::OW;  // the mask's positions: the outputs
   extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  float* xs = ring + ring_floats<2, G::P>();     // mm: [NP][KC]
+  float* ws = xs + NP * KC;                      // mm: [KC][CC]
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int r0 = (blockIdx.x / n_tx) * G::OH;  // even
   const int q0 = (blockIdx.x % n_tx) * G::OW;  // even
-  const int c = blockIdx.y * CC + lane;
+  const int c0 = blockIdx.y * CC;
+  const int c = c0 + lane;
   const bool cval = c < C;
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_DX;
   const int t1 = min(t0 + TT_DX, Tn);
-  const float scv = (MASK && cval) ? sc[c] : 0.f;
-  const float biv = (MASK && cval) ? bi[c] : 0.f;
+  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
+  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
   float wt[27];
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * C + c]) : 0.f;
@@ -239,6 +288,13 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
   load(t0);
   for (int t = t0; t < t1; ++t) {
     load(t + 1);
+    // output j of this warp is mask position j: both are warp + j*WARPS;
+    // positions past H or W (the ragged edge of odd sizes) are masked off
+    float keep[G::NO];
+    if constexpr (MODE == MM)
+      mm_prologue<T, true, NP, G::OW, G::NO>(
+          keep, xs, ws, x + (size_t)(b * Tn + t) * H * W * Cin, w1, H, W,
+          Cin, C, c0, r0, q0, scv, biv);
     __syncthreads();
     // tap dt reads g frame t - dt + 1
     const float* fr[3] = {ring + slot_of(t + 1) * G::P * CC,
@@ -266,46 +322,71 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
       const int gy = r0 + oy, gx = q0 + ox;
       if (cval && gy < H && gx < W) {
         const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
-        if (MASK)
+        if constexpr (MODE == ACT)
           dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
+        else if constexpr (MODE == MM)
+          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
         else
           dx[idx] = from_f<T>(acc);
       }
     }
     __syncthreads();
   }
-  if (MASK)
+  if constexpr (MODE == ACT)
     block_partials<2>(ring, r, part,
                       (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
 }
 
 // ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
-// x (B,T,H,W,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1. The tile is over g.
-// ACT: the stencil reads relu(x*sc + bi) (act mode); else x (plain mode,
-// sc and bi unused).
-template <typename T, int S, bool ACT>
+// x (B,T,H,W,C) (mm: (B,T,H,W,Cin) with w1 (Cin,C)); g (B,T,Ho,Wo,C), Ho =
+// (H-1)/S + 1. The tile is over g. The stencil reads relu(x*sc + bi) (ACT),
+// x (PLAIN; w1, sc and bi unused) or relu((x@W1)*sc + bi) (MM).
+template <typename T, int S, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
-wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-             const float* __restrict__ sc, const float* __restrict__ bi,
-             float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo,
-             int C, int n_tx, int n_tseg) {
+wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+             const T* __restrict__ g, const float* __restrict__ sc,
+             const float* __restrict__ bi, float* __restrict__ part, int Tn,
+             int H, int W, int Ho, int Wo, int Cin, int C, int n_tx,
+             int n_tseg) {
   using G = SGeom<S>;
   extern __shared__ __align__(16) float ring[];  // [3][P][CC]
+  float* xs = ring + ring_floats<27, G::P>();    // mm: [P][KC]
+  float* ws = xs + G::P * KC;                    // mm: [KC][CC]
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int oy0 = (blockIdx.x / n_tx) * G::OH;
   const int ox0 = (blockIdx.x % n_tx) * G::OW;
-  const int c = blockIdx.y * CC + lane;
+  const int c0 = blockIdx.y * CC;
+  const int c = c0 + lane;
   const bool cval = c < C;
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_WG;
   const int t1 = min(t0 + TT_WG, Tn);
-  const float scv = (ACT && cval) ? sc[c] : 0.f;
-  const float biv = (ACT && cval) ? bi[c] : 0.f;
+  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
+  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
 
   auto load = [&](int ti) {
-    load_frame<T, ACT, G::P, G::WR, G::NPA>(
-        ring + slot_of(ti) * G::P * CC, x, b, ti, Tn, H, W, C, S * oy0 - 1,
-        S * ox0 - 1, c, cval, scv, biv);
+    float* slot = ring + slot_of(ti) * G::P * CC;
+    if constexpr (MODE == MM) {
+      if (ti < 0 || ti >= Tn) {  // uniform across the block
+        for (int i = warp * 32 + lane; i < G::P * CC; i += WARPS * 32)
+          slot[i] = 0.f;
+        return;
+      }
+      // the forward's prologue over the halo
+      float a[G::NPA];
+      mm_prologue<T, false, G::P, G::WR, G::NPA>(
+          a, xs, ws, x + (size_t)(b * Tn + ti) * H * W * Cin, w1, H, W, Cin,
+          C, c0, S * oy0 - 1, S * ox0 - 1, scv, biv);
+#pragma unroll
+      for (int j = 0; j < G::NPA; ++j) {
+        const int p = warp + j * WARPS;
+        if (p < G::P) slot[p * CC + lane] = a[j];
+      }
+    } else {
+      load_frame<T, MODE == ACT, G::P, G::WR, G::NPA>(
+          slot, x, b, ti, Tn, H, W, C, S * oy0 - 1, S * ox0 - 1, c, cval,
+          scv, biv);
+    }
   };
   float acc[27];
 #pragma unroll
@@ -344,58 +425,61 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // ---- launchers ----------------------------------------------------------------
-template <int K, int P>
-constexpr size_t ring_bytes() {
-  // the ring, reused at the end for the warps' partial sums
-  return sizeof(float) * (3 * P * CC > WARPS * K * CC ? 3 * P * CC
-                                                       : WARPS * K * CC);
+// Dynamic shared memory: the ring (reused at the end for the warps' partial
+// sums, K per lane and warp), then in mm mode the staged x chunk of NP
+// positions and the staged W1 chunk.
+template <int MODE>
+constexpr size_t smem_bytes(size_t ring, int np) {
+  return sizeof(float) * (ring + (MODE == MM ? np * KC + KC * CC : 0));
 }
 
-template <typename T>
-int launch_dx_s1(const void* g, const void* x, const void* w, const void* sc,
-                 const void* bi, void* dx, void* part, int B, int Tn, int H,
-                 int W, int C, cudaStream_t st) {
+template <typename T, int MODE>
+int launch_dx_s1(const void* g, const void* x, const void* w1, const void* w,
+                 const void* sc, const void* bi, void* dx, void* part, int B,
+                 int Tn, int H, int W, int Cin, int C, cudaStream_t st) {
   using G = SGeom<1>;
-  constexpr size_t smem = ring_bytes<2, G::P>();
-  if (int e = set_smem(dx_s1_kernel<T>, smem)) return e;
+  constexpr size_t smem =
+      smem_bytes<MODE>(ring_floats<2, G::P>(), G::OH * G::OW);
+  if (int e = set_smem(dx_s1_kernel<T, MODE>, smem)) return e;
   const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
   const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  dx_s1_kernel<T><<<grid, dim3(32, WARPS), smem, st>>>(
-      (const T*)g, (const T*)x, (const T*)w, (const float*)sc,
-      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, C, n_tx, n_tseg);
+  dx_s1_kernel<T, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)g, (const T*)x, (const T*)w1, (const T*)w, (const float*)sc,
+      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Cin, C, n_tx, n_tseg);
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool MASK>
-int launch_dx_s2(const void* g, const void* x, const void* w, const void* sc,
-                 const void* bi, void* dx, void* part, int B, int Tn, int H,
-                 int W, int C, cudaStream_t st) {
+template <typename T, int MODE>
+int launch_dx_s2(const void* g, const void* x, const void* w1, const void* w,
+                 const void* sc, const void* bi, void* dx, void* part, int B,
+                 int Tn, int H, int W, int Cin, int C, cudaStream_t st) {
   using G = GGeom;
-  constexpr size_t smem = ring_bytes<2, G::P>();
-  if (int e = set_smem(dx_s2_kernel<T, MASK>, smem)) return e;
+  constexpr size_t smem =
+      smem_bytes<MODE>(ring_floats<2, G::P>(), G::OH * G::OW);
+  if (int e = set_smem(dx_s2_kernel<T, MODE>, smem)) return e;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
   const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  dx_s2_kernel<T, MASK><<<grid, dim3(32, WARPS), smem, st>>>(
-      (const T*)g, (const T*)x, (const T*)w, (const float*)sc,
-      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Ho, Wo, C, n_tx,
+  dx_s2_kernel<T, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)g, (const T*)x, (const T*)w1, (const T*)w, (const float*)sc,
+      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Ho, Wo, Cin, C, n_tx,
       n_tseg);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int S, bool ACT>
-int launch_wgrad(const void* x, const void* g, const void* sc, const void* bi,
-                 void* part, int B, int Tn, int H, int W, int C,
-                 cudaStream_t st) {
+template <typename T, int S, int MODE>
+int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
+                 const void* bi, void* part, int B, int Tn, int H, int W,
+                 int Cin, int C, cudaStream_t st) {
   using G = SGeom<S>;
-  constexpr size_t smem = ring_bytes<27, G::P>();
-  if (int e = set_smem(wgrad_kernel<T, S, ACT>, smem)) return e;
+  constexpr size_t smem = smem_bytes<MODE>(ring_floats<27, G::P>(), G::P);
+  if (int e = set_smem(wgrad_kernel<T, S, MODE>, smem)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT_WG);
   const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  wgrad_kernel<T, S, ACT><<<grid, dim3(32, WARPS), smem, st>>>(
-      (const T*)x, (const T*)g, (const float*)sc, (const float*)bi,
-      (float*)part, Tn, H, W, Ho, Wo, C, n_tx, n_tseg);
+  wgrad_kernel<T, S, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
+      (const T*)x, (const T*)w1, (const T*)g, (const float*)sc,
+      (const float*)bi, (float*)part, Tn, H, W, Ho, Wo, Cin, C, n_tx, n_tseg);
   return (int)cudaGetLastError();
 }
 
@@ -406,8 +490,8 @@ int launch_wgrad(const void* x, const void* g, const void* sc, const void* bi,
 // have the row counts of dw_act_partial_rows.
 
 // Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
-// wgrad_s1, wgrad_s2 (the plain-mode weight gradients have the act mode's
-// rows).
+// wgrad_s1, wgrad_s2 (the plain- and mm-mode weight gradients have the act
+// mode's rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
@@ -435,9 +519,10 @@ extern "C" int dw_act_dx_s1(const void* g, const void* x, const void* w,
                             int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx_s1<__nv_bfloat16>(g, x, w, sc, bi, dx, part, B, T, H, W,
-                                       C, st);
-  return launch_dx_s1<float>(g, x, w, sc, bi, dx, part, B, T, H, W, C, st);
+    return launch_dx_s1<__nv_bfloat16, ACT>(g, x, nullptr, w, sc, bi, dx, part,
+                                            B, T, H, W, C, C, st);
+  return launch_dx_s1<float, ACT>(g, x, nullptr, w, sc, bi, dx, part, B, T, H,
+                                  W, C, C, st);
 }
 
 extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
@@ -446,32 +531,32 @@ extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
                             int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16, true>(g, x, w, sc, bi, dx, part, B, T,
-                                             H, W, C, st);
-  return launch_dx_s2<float, true>(g, x, w, sc, bi, dx, part, B, T, H, W, C,
-                                   st);
+    return launch_dx_s2<__nv_bfloat16, ACT>(g, x, nullptr, w, sc, bi, dx, part,
+                                            B, T, H, W, C, C, st);
+  return launch_dx_s2<float, ACT>(g, x, nullptr, w, sc, bi, dx, part, B, T, H,
+                                  W, C, C, st);
 }
 
 extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
-                               const void* bi, void* part, int B, int T,
-                               int H, int W, int C, int is_bf16,
-                               void* stream) {
+                               const void* bi, void* part, int B, int T, int H,
+                               int W, int C, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1, true>(x, g, sc, bi, part, B, T, H,
-                                                W, C, st);
-  return launch_wgrad<float, 1, true>(x, g, sc, bi, part, B, T, H, W, C, st);
+    return launch_wgrad<__nv_bfloat16, 1, ACT>(x, nullptr, g, sc, bi, part, B,
+                                               T, H, W, C, C, st);
+  return launch_wgrad<float, 1, ACT>(x, nullptr, g, sc, bi, part, B, T, H, W, C,
+                                     C, st);
 }
 
 extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
-                               const void* bi, void* part, int B, int T,
-                               int H, int W, int C, int is_bf16,
-                               void* stream) {
+                               const void* bi, void* part, int B, int T, int H,
+                               int W, int C, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2, true>(x, g, sc, bi, part, B, T, H,
-                                                W, C, st);
-  return launch_wgrad<float, 2, true>(x, g, sc, bi, part, B, T, H, W, C, st);
+    return launch_wgrad<__nv_bfloat16, 2, ACT>(x, nullptr, g, sc, bi, part, B,
+                                               T, H, W, C, C, st);
+  return launch_wgrad<float, 2, ACT>(x, nullptr, g, sc, bi, part, B, T, H, W, C,
+                                     C, st);
 }
 
 // plain mode: x is the stencil's input itself; no sc, bi.
@@ -480,30 +565,83 @@ extern "C" int dw_conv_dx_s2(const void* g, const void* w, void* dx, int B,
                              void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16, false>(g, nullptr, w, nullptr, nullptr,
-                                              dx, nullptr, B, T, H, W, C, st);
-  return launch_dx_s2<float, false>(g, nullptr, w, nullptr, nullptr, dx,
-                                    nullptr, B, T, H, W, C, st);
+    return launch_dx_s2<__nv_bfloat16, PLAIN>(g, nullptr, nullptr, w, nullptr,
+                                              nullptr, dx, nullptr, B, T, H, W,
+                                              C, C, st);
+  return launch_dx_s2<float, PLAIN>(g, nullptr, nullptr, w, nullptr, nullptr,
+                                    dx, nullptr, B, T, H, W, C, C, st);
 }
 
-extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part,
-                                int B, int T, int H, int W, int C,
-                                int is_bf16, void* stream) {
+extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part, int B,
+                                int T, int H, int W, int C, int is_bf16,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1, false>(x, g, nullptr, nullptr,
-                                                 part, B, T, H, W, C, st);
-  return launch_wgrad<float, 1, false>(x, g, nullptr, nullptr, part, B, T, H,
-                                       W, C, st);
+    return launch_wgrad<__nv_bfloat16, 1, PLAIN>(x, nullptr, g, nullptr,
+                                                 nullptr, part, B, T, H, W, C,
+                                                 C, st);
+  return launch_wgrad<float, 1, PLAIN>(x, nullptr, g, nullptr, nullptr, part, B,
+                                       T, H, W, C, C, st);
 }
 
-extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
-                                int B, int T, int H, int W, int C,
-                                int is_bf16, void* stream) {
+extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part, int B,
+                                int T, int H, int W, int C, int is_bf16,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2, false>(x, g, nullptr, nullptr,
-                                                 part, B, T, H, W, C, st);
-  return launch_wgrad<float, 2, false>(x, g, nullptr, nullptr, part, B, T, H,
-                                       W, C, st);
+    return launch_wgrad<__nv_bfloat16, 2, PLAIN>(x, nullptr, g, nullptr,
+                                                 nullptr, part, B, T, H, W, C,
+                                                 C, st);
+  return launch_wgrad<float, 2, PLAIN>(x, nullptr, g, nullptr, nullptr, part, B,
+                                       T, H, W, C, C, st);
+}
+
+// mm mode: x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and
+// dam have C channels: dam = da * relu'((x@W1)*sc + bi) in g's dtype.
+extern "C" int dw_mm_dx_mask_s1(const void* g, const void* x, const void* w1,
+                                const void* w, const void* sc, const void* bi,
+                                void* dam, int B, int T, int H, int W, int Cin,
+                                int C, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dx_s1<__nv_bfloat16, MM>(g, x, w1, w, sc, bi, dam, nullptr, B,
+                                           T, H, W, Cin, C, st);
+  return launch_dx_s1<float, MM>(g, x, w1, w, sc, bi, dam, nullptr, B, T, H, W,
+                                 Cin, C, st);
+}
+
+extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
+                                const void* w, const void* sc, const void* bi,
+                                void* dam, int B, int T, int H, int W, int Cin,
+                                int C, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_dx_s2<__nv_bfloat16, MM>(g, x, w1, w, sc, bi, dam, nullptr, B,
+                                           T, H, W, Cin, C, st);
+  return launch_dx_s2<float, MM>(g, x, w1, w, sc, bi, dam, nullptr, B, T, H, W,
+                                 Cin, C, st);
+}
+
+extern "C" int dw_mm_wgrad_s1(const void* x, const void* w1, const void* g,
+                              const void* sc, const void* bi, void* part, int B,
+                              int T, int H, int W, int Cin, int C, int is_bf16,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 1, MM>(x, w1, g, sc, bi, part, B, T, H,
+                                              W, Cin, C, st);
+  return launch_wgrad<float, 1, MM>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
+                                    st);
+}
+
+extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
+                              const void* sc, const void* bi, void* part, int B,
+                              int T, int H, int W, int Cin, int C, int is_bf16,
+                              void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, 2, MM>(x, w1, g, sc, bi, part, B, T, H,
+                                              W, Cin, C, st);
+  return launch_wgrad<float, 2, MM>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
+                                    st);
 }

@@ -39,7 +39,8 @@
 // frames in order and keeps the three activated frames the stencil needs in
 // a shared-memory ring, so each input frame is activated once per tile (plus
 // the spatial halo) rather than three times. In mm mode x is staged 32 input
-// channels at a time with 16-byte loads along C; in act mode each lane loads
+// channels at a time with 16-byte loads along C, by the prologue the
+// backward shares (mm_prologue, common.cuh); in act mode each lane loads
 // its own channel (C_mid = 54, 108, ... is no multiple of 8, so 16-byte
 // loads would straddle positions); plain mode loads as act mode does, with
 // no prologue. Each lane owns one output channel, so
@@ -53,7 +54,6 @@ namespace {
 
 using namespace cfn;
 
-constexpr int KC = 32;     // input channels staged per pass
 constexpr int TT = 8;      // output frames per block
 
 enum Mode { MM, ACT, PLAIN };
@@ -66,19 +66,6 @@ template <int S, int MODE> struct Geom : StencilGeom<S> {
       (3 * SG::P * CC + (MODE != MM ? 0 : SG::P * KC + KC * CC));
 };
 
-// 16 bytes of x -> floats
-__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
-  const float* f = reinterpret_cast<const float*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[j] = f[j];
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
-}
-
 template <typename T, int S, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -88,7 +75,6 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  int n_tx, int n_tseg) {
   using G = Geom<S, MODE>;
   constexpr int P = G::P, WR = G::WR;
-  constexpr int VE = 16 / sizeof(T);
 
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                 // [3][P][CC] activated frames
@@ -140,59 +126,15 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
       }
       return;
     }
-    float acc[G::NPA];
-#pragma unroll
-    for (int j = 0; j < G::NPA; ++j) acc[j] = 0.f;
-    const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cin;
-    for (int k0 = 0; k0 < Cin; k0 += KC) {
-      const int kc = min(KC, Cin - k0);  // a multiple of 8
-      __syncthreads();                   // earlier readers of xs/ws are done
-      const int nv = kc / VE;
-      for (int i = tid; i < P * nv; i += WARPS * 32) {
-        const int p = i / nv, v = i % nv;
-        const int gy = iy0 + p / WR, gx = ix0 + p % WR;
-        float vals[VE];
-        if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-          const uint4 u = *reinterpret_cast<const uint4*>(
-              xf + ((size_t)gy * W + gx) * Cin + k0 + v * VE);
-          unpack(u, vals, T());
-        } else {
-#pragma unroll
-          for (int j = 0; j < VE; ++j) vals[j] = 0.f;
-        }
-#pragma unroll
-        for (int j = 0; j < VE; ++j) xs[p * KC + v * VE + j] = vals[j];
-      }
-      for (int i = tid; i < kc * CC; i += WARPS * 32) {
-        const int k = i / CC, cc = c0 + i % CC;
-        ws[i] = cc < Cmid ? to_f(w1[(size_t)(k0 + k) * Cmid + cc]) : 0.f;
-      }
-      __syncthreads();
-      for (int k = 0; k < kc; k += 4) {
-        const float wa = ws[k * CC + lane], wb = ws[(k + 1) * CC + lane];
-        const float wc = ws[(k + 2) * CC + lane], wd = ws[(k + 3) * CC + lane];
-#pragma unroll
-        for (int j = 0; j < G::NPA; ++j) {
-          const int p = warp + j * WARPS;
-          if (p < P) {
-            const float4 xv = *reinterpret_cast<const float4*>(xs + p * KC + k);
-            acc[j] = fmaf(xv.x, wa, acc[j]);
-            acc[j] = fmaf(xv.y, wb, acc[j]);
-            acc[j] = fmaf(xv.z, wc, acc[j]);
-            acc[j] = fmaf(xv.w, wd, acc[j]);
-          }
-        }
-      }
-    }
+    // the prologue the backward's mask and weight gradient share
+    float a[G::NPA];
+    mm_prologue<T, false, P, WR, G::NPA>(
+        a, xs, ws, x + (size_t)(b * Tn + ti) * H * W * Cin, w1, H, W, Cin,
+        Cmid, c0, iy0, ix0, scv, biv);
 #pragma unroll
     for (int j = 0; j < G::NPA; ++j) {
       const int p = warp + j * WARPS;
-      if (p < P) {
-        const int gy = iy0 + p / WR, gx = ix0 + p % WR;
-        const bool in = cval && gy >= 0 && gy < H && gx >= 0 && gx < W;
-        const float a = fmaxf(fmaf(acc[j], scv, biv), 0.f);
-        slot[p * CC + lane] = in ? to_f(from_f<T>(a)) : 0.f;
-      }
+      if (p < P) slot[p * CC + lane] = a[j];
     }
   };
 

@@ -13,6 +13,8 @@ import math
 import torch
 from torch import nn
 
+from ..ops.dw_mm_bn_train import mm_bn_train
+
 BN_MOMENTUM = 0.1  # the running-statistics update rate of SubBatchNorm
 
 
@@ -120,7 +122,15 @@ class SubBatchNorm(nn.Module):
         # the one-pass form can cancel below 0 in f32 when |mean| >> std;
         # torch.maximum splits the gradient at a tie as JAX's maximum does
         var = torch.maximum(mean2 - torch.square(mean), mean.new_zeros(()))
-        count = xg.numel() // (xg.shape[1] * xg.shape[-1])
+        self._update_split_stats(mean, var,
+                                 xg.numel() // (xg.shape[1] * xg.shape[-1]))
+        return mean, var
+
+    def _update_split_stats(self, mean: torch.Tensor, var: torch.Tensor,
+                            count: int) -> None:
+        """The momentum update of ``split_bn`` from per-split batch
+        statistics over ``count`` elements each, with the unbiased
+        variance."""
         with torch.no_grad():
             m = BN_MOMENTUM
             unbiased = var * (count / max(count - 1, 1))
@@ -129,7 +139,6 @@ class SubBatchNorm(nn.Module):
                                   + m * mean.reshape(-1))
             sp.running_var.copy_((1 - m) * sp.running_var
                                  + m * unbiased.reshape(-1))
-        return mean, var
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         n, s = x.shape[0], self.num_splits
@@ -148,6 +157,22 @@ class SubBatchNorm(nn.Module):
         mean, var = self._batch_stats(self._split(x))
         sc = torch.rsqrt(var[0] + self.eps) * self.weight
         return sc, self.bias - mean[0] * sc
+
+    def train_mm_entry(self, x: torch.Tensor, w1: torch.Tensor,
+                       w_dw: torch.Tensor, stride: int) -> torch.Tensor:
+        """Training, ``num_splits == 1``: the bottleneck entry
+        ``dwconv3³(relu(bn(x @ w1)))`` with this norm's batch statistics of
+        ``x @ w1`` and its affine, as one composite with a closed-form
+        backward (:func:`..ops.dw_mm_bn_train.mm_bn_train`; the JAX
+        package's ``FoldedSubBatchNorm`` in ``dw_fuse`` mode).  Returns the
+        conv output and updates the split statistics from the composite's
+        mean and variance over ``B·T·H·W`` positions."""
+        if self.num_splits != 1:
+            raise ValueError("train_mm_entry needs num_splits == 1")
+        y, mean, var = mm_bn_train(x, w1, w_dw, self.weight, self.bias,
+                                   stride, self.eps)
+        self._update_split_stats(mean, var, x.numel() // x.shape[-1])
+        return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:

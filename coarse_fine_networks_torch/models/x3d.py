@@ -7,11 +7,19 @@ strided conv, and every bottleneck (not only layer1's) enters conv2 through
 a hand-written kernel, by the routes of the JAX package's
 ``FoldedBottleneck``:
 
-* eval: :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d` (conv1 → bn1 → relu →
-  conv2 in one kernel);
+* eval: :func:`..ops.dw_mm_act.dw_mm_bnrelu_conv3d_train` (conv1 → bn1 →
+  relu → conv2 in one kernel, with the JAX package's backward of it);
 * training, ``bn1.num_splits == 1``: conv1 as a product, then
   :func:`..ops.dw_act.dw_bnrelu_conv3d_train` (bn1 apply from the batch
   statistics → relu → conv2, with a kernel backward);
+* training, ``bn1.num_splits == 1`` with ``CFN_MM_BN_TRAIN`` set
+  (:func:`..ops.dw_mm_bn_train.resolve_mm_train`: ``1``, or ``s1`` for the
+  stride-1 blocks): :meth:`.layers.SubBatchNorm.train_mm_entry`, conv1 →
+  bn1's batch statistics → relu → conv2 as one composite
+  (:func:`..ops.dw_mm_bn_train.mm_bn_train`: the eval entry's kernel
+  forward, statistics from the Gram of x, the kernel backward with the
+  batch-norm gradient in closed form), so conv1's output is never
+  materialised;
 * training with split batch norm (``bn1.num_splits > 1``, the multigrid
   long cycle): conv1 as a product → bn1 per split → relu in PyTorch, then
   :func:`..ops.dw_conv.dw_conv3d_train` (conv2, with a kernel backward).
@@ -24,7 +32,8 @@ from torch import nn
 
 from ..ops.dw_act import dw_bnrelu_conv3d_train
 from ..ops.dw_conv import dw_conv3d_train
-from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d
+from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d_train
+from ..ops.dw_mm_bn_train import resolve_mm_train
 from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
                      squeeze_excite, swish)
 
@@ -50,13 +59,16 @@ class Bottleneck(nn.Module):
     (even blocks) → swish → 1×1×1 project → residual + ReLU.
 
     bn1 folds into f32 ``(sc, bi)``: in eval from its running statistics,
-    and the entry conv1 → bn1 → relu → conv2 runs as one kernel; in
-    training from the batch statistics of conv1's output, inside autograd,
-    and bn1 → relu → conv2 runs as one kernel with a kernel backward.  With
-    split batch norm (``bn1.num_splits > 1``) each split has its own
-    statistics, so training applies bn1 and the relu in PyTorch (the result
-    in x's dtype, as the JAX package rounds it) and only conv2 runs as a
-    kernel, with a kernel backward."""
+    and the entry conv1 → bn1 → relu → conv2 runs as one kernel with a
+    backward; in training from the batch statistics of conv1's output,
+    inside autograd, and bn1 → relu → conv2 runs as one kernel with a kernel
+    backward, or, with ``CFN_MM_BN_TRAIN`` set for this stride, the whole
+    entry runs as the eval kernel with the statistics taken from x's Gram
+    and a closed-form backward.  With split batch norm
+    (``bn1.num_splits > 1``) each split has its own statistics, so training
+    applies bn1 and the relu in PyTorch (the result in x's dtype, as the JAX
+    package rounds it) and only conv2 runs as a kernel, with a kernel
+    backward."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  stride: int = 1, use_se: bool = False,
@@ -83,23 +95,31 @@ class Bottleneck(nn.Module):
                           bias=False),
                 SubBatchNorm(out_planes))
 
+    def _w1(self, dtype: torch.dtype) -> torch.Tensor:
+        """conv1's weight as the ``(C_in, C_mid)`` matrix of the fused
+        entries."""
+        return (self.conv1.weight.reshape(self.conv1.out_channels, -1).t()
+                .to(dtype).contiguous())
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c_mid = self.conv1.out_channels
         w_dw = (self.conv2.weight.reshape(c_mid, 27).t()
                 .reshape(3, 3, 3, c_mid).to(x.dtype).contiguous())
-        if self.training:
-            out = pointwise(x, self.conv1.weight)
-            if self.bn1.num_splits == 1:
-                sc, bi = self.bn1.train_scale_bias(out)
-                out = dw_bnrelu_conv3d_train(out, w_dw, sc, bi, self.stride)
-            else:
-                out = torch.relu(self.bn1(out))
-                out = dw_conv3d_train(out, w_dw, self.stride)
-        else:
+        one_split = self.bn1.num_splits == 1
+        if not self.training:
             sc, bi = self.bn1.scale_bias()
-            w1 = (self.conv1.weight.reshape(c_mid, -1).t().to(x.dtype)
-                  .contiguous())
-            out = dw_mm_bnrelu_conv3d(x, w1, w_dw, sc, bi, self.stride)
+            out = dw_mm_bnrelu_conv3d_train(x, self._w1(x.dtype), w_dw, sc,
+                                            bi, self.stride)
+        elif one_split and resolve_mm_train(self.stride):
+            out = self.bn1.train_mm_entry(x, self._w1(x.dtype), w_dw,
+                                          self.stride)
+        elif one_split:
+            out = pointwise(x, self.conv1.weight)
+            sc, bi = self.bn1.train_scale_bias(out)
+            out = dw_bnrelu_conv3d_train(out, w_dw, sc, bi, self.stride)
+        else:
+            out = torch.relu(self.bn1(pointwise(x, self.conv1.weight)))
+            out = dw_conv3d_train(out, w_dw, self.stride)
         out = self.bn2(out)
         if self.use_se:
             out = squeeze_excite(out, self.fc1, self.fc2)

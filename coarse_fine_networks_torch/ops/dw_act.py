@@ -30,32 +30,14 @@ from __future__ import annotations
 
 import torch
 
-from ._build import CudaLibrary, I, P
+from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw, _partials
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
-from .dw_mm_act import _out_hw, stencil_f32, wgrad_f32
-
-# The source also holds the plain-mode entries of :mod:`.dw_conv`.
-BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
-    "dw_act_partial_rows": [I] * 6,
-    "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
-    "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
-    "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
-    "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
-    "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
-    "dw_conv_wgrad_s1": [P] * 3 + [I] * 6 + [P],
-    "dw_conv_wgrad_s2": [P] * 3 + [I] * 6 + [P],
-})
-LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
+from .dw_mm_act import LIBRARIES, stencil_f32, wgrad_f32  # noqa: F401
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by a plain version).
 LAUNCHES = {f"dw_act{part}_s{s}": 0 for part in ("", "_dx", "_wgrad")
             for s in (1, 2)}
-# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# plain-mode weight gradients of :mod:`.dw_conv` have the act mode's rows)
-_ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
-              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s1": 2,
-              "dw_conv_wgrad_s2": 3}
 
 
 def reset_launches() -> None:
@@ -109,22 +91,6 @@ def _activate(x, sc, bi):
     """``relu(x·sc + bi)`` in f32, rounded to x's dtype (the forward's
     activation)."""
     return torch.relu(x.float() * sc + bi).to(x.dtype)
-
-
-def _launch(counts, lib, name, x, *args):
-    """Launch ``name`` on x's device and current stream, in x's dtype, and
-    count it in ``counts`` (the calling module's ``LAUNCHES``)."""
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
-    counts[name] += 1
-
-
-def _partials(name, x, k):
-    b, t, h, w, c = x.shape
-    rows = BWD_LIBRARY.build().dw_act_partial_rows(_ROWS_KIND[name], b, t, h,
-                                                   w, c)
-    return torch.empty((rows, k, c), dtype=torch.float32, device=x.device)
 
 
 # ---- forward: the act mode of K1 (stride 1) and K4 (stride 2) ---------------

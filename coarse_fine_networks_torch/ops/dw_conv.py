@@ -30,11 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from .dw_act import BWD_LIBRARY, _check, _launch, _partials
+from .dw_act import _check
+from .dw_mm_act import BWD_LIBRARY, LIBRARIES, _launch, _out_hw, _partials
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
-from .dw_mm_act import _out_hw, stencil_f32, wgrad_f32
-
-LIBRARIES = (FWD_LIBRARY, BWD_LIBRARY)
+from .dw_mm_act import stencil_f32, wgrad_f32
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by a plain version).

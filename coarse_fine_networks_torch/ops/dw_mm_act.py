@@ -1,17 +1,26 @@
-"""Fused X3D bottleneck entry: ``dwconv3³(relu((x @ W1)·sc + bi))``.
+"""Fused X3D bottleneck entry: ``dwconv3³(relu((x @ W1)·sc + bi))``, and
+its backward.
 
 Every eval-mode :class:`..models.x3d.Bottleneck` enters through
-:func:`dw_mm_bnrelu_conv3d`: conv1 (a 1×1×1 conv, i.e. a product over
+:class:`DwMmBnReluConv3d`: conv1 (a 1×1×1 conv, i.e. a product over
 channels), the bn1 apply, the ReLU and the depthwise 3×3×3 conv2 in one
-kernel, so the expanded ``C_mid`` tensor never reaches device memory.  It is
-the counterpart of the JAX package's ``fold_dw_mm_bnrelu_conv3d``
-(``coarse_fine_networks_tpu/ops/pallas/dw_fold.py``), whose ``mm`` modes ran
-the same function as two Pallas kernels on the TPU.
+kernel (:func:`dw_mm_bnrelu_conv3d`), so the expanded ``C_mid`` tensor never
+reaches device memory.  It is the counterpart of the JAX package's
+``dw_fold4_mm_act`` (``coarse_fine_networks_tpu/ops/pallas/dw_fold.py``),
+whose forward is the ``mm`` mode of the Pallas kernels K1/K4 and whose
+backward (``_dw_mm_bwd``) is K1 plain on the flipped taps or K8, and the
+``mm`` modes of K6/K10.
 
-On a CUDA tensor the wrapper launches the hand-written kernel of
-``csrc/dw_mm_act.cu`` (built with ``nvcc`` for ``sm_90a`` at first use into
-``_build/`` and bound with ``ctypes``, :mod:`._build`); on a CPU tensor it
-runs :func:`dw_mm_bnrelu_conv3d_plain`, which defines the semantics.
+Kernels (CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use into
+``_build/`` and bound with ``ctypes``, :mod:`._build`):
+
+* ``dw_mm_act_s1``/``dw_mm_act_s2``: :func:`dw_mm_bnrelu_conv3d`, in
+  ``csrc/dw_mm_act.cu``;
+* ``dw_mm_wgrad_s1``/``dw_mm_wgrad_s2``: :func:`dw_mm_wgrad`, in
+  ``csrc/dw_act_bwd.cu``.
+
+Each wrapper runs its ``*_plain`` version on a CPU tensor, which defines the
+semantics, and launches its kernel on a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
@@ -21,8 +30,8 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The source also holds the act-mode entries of :mod:`.dw_act` and the
-# plain-mode entries of :mod:`.dw_conv`.
+# The forward source also holds the act-mode entries of :mod:`.dw_act` and
+# the plain-mode entries of :mod:`.dw_conv`.
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
@@ -32,11 +41,34 @@ LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_conv_s2": [P] * 3 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
+# The backward source: this module's weight gradient and the backward
+# entries of :mod:`.dw_act`, :mod:`.dw_conv` and :mod:`.dw_mm_bn_train`.
+BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
+    "dw_act_partial_rows": [I] * 6,
+    "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
+    "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
+    "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
+    "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
+    "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
+    "dw_conv_wgrad_s1": [P] * 3 + [I] * 6 + [P],
+    "dw_conv_wgrad_s2": [P] * 3 + [I] * 6 + [P],
+    "dw_mm_dx_mask_s1": [P] * 7 + [I] * 7 + [P],
+    "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
+    "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
+    "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
+})
+LIBRARIES = (LIBRARY, BWD_LIBRARY)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by the plain version).
-LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0}
-_KERNEL = {1: "dw_mm_act_s1", 2: "dw_mm_act_s2"}
+LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
+            "dw_mm_wgrad_s2": 0}
+# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
+# plain- and mm-mode weight gradients have the act mode's rows)
+_ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
+              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s1": 2,
+              "dw_conv_wgrad_s2": 3, "dw_mm_wgrad_s1": 2,
+              "dw_mm_wgrad_s2": 3}
 
 
 def reset_launches() -> None:
@@ -44,38 +76,90 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def _launch(counts, lib, name, x, *args):
+    """Launch ``name`` on x's device and current stream, in x's dtype, and
+    count it in ``counts`` (the calling module's ``LAUNCHES``)."""
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
+    counts[name] += 1
+
+
+def _partials(name, x, k, c=None):
+    """The f32 ``(rows, k, C)`` per-block partial-sum buffer of backward
+    entry ``name`` over x ``(B, T, H, W, ·)``; C is x's channels unless
+    given."""
+    b, t, h, w, cx = x.shape
+    c = cx if c is None else c
+    rows = BWD_LIBRARY.build().dw_act_partial_rows(_ROWS_KIND[name], b, t, h,
+                                                   w, c)
+    return torch.empty((rows, k, c), dtype=torch.float32, device=x.device)
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` of two 2-D tensors of one dtype, accumulated and returned
+    in f32 (the JAX package's ``preferred_element_type=F32``): a bf16
+    product on the card runs on the tensor cores with ``torch.mm``'s
+    ``out_dtype`` (no f32 copy of its inputs); otherwise both are read as
+    f32, which is the same function."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
 def _out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
     return (h - 1) // stride + 1, (w - 1) // stride + 1
 
 
-def _check(x, w1, w_dw, sc, bi, stride):
+def _check(x, w1, w_dw, sc, bi, stride, g=None):
+    """Raise on what the mm entries do not take: x ``(B, T, H, W, C_in)``
+    f32 or bf16, ``w1 (C_in, C_mid)``, taps ``(3, 3, 3, C_mid)`` (where
+    given) and ``g`` (y's shape, where given) in x's dtype, f32 ``(C_mid,)``
+    ``sc``/``bi``, all contiguous on x's device."""
     if stride not in (1, 2):
         raise ValueError(f"stride must be 1 or 2 (i.e. (1,2,2)), got {stride}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if x.dim() != 5:
         raise ValueError(f"x must be (B, T, H, W, C_in), got {tuple(x.shape)}")
-    c_in = x.shape[-1]
+    b, t, h, w, c_in = x.shape
     if w1.dim() != 2 or w1.shape[0] != c_in:
         raise ValueError(f"w1 must be ({c_in}, C_mid), got {tuple(w1.shape)}")
     c_mid = w1.shape[1]
-    if tuple(w_dw.shape) != (3, 3, 3, c_mid):
-        raise ValueError(
-            f"w_dw must be (3, 3, 3, {c_mid}), got {tuple(w_dw.shape)}")
+    tensors = [("x", x), ("w1", w1), ("sc", sc), ("bi", bi)]
+    if w_dw is not None:
+        if tuple(w_dw.shape) != (3, 3, 3, c_mid):
+            raise ValueError(
+                f"w_dw must be (3, 3, 3, {c_mid}), got {tuple(w_dw.shape)}")
+        tensors.append(("w_dw", w_dw))
+    if g is not None:
+        want = (b, t) + _out_hw(h, w, stride) + (c_mid,)
+        if tuple(g.shape) != want:
+            raise ValueError(f"g must be {want}, got {tuple(g.shape)}")
+        tensors.append(("g", g))
     for name, v in (("sc", sc), ("bi", bi)):
         if tuple(v.shape) != (c_mid,) or v.dtype != torch.float32:
             raise ValueError(f"{name} must be float32 ({c_mid},), got "
                              f"{v.dtype} {tuple(v.shape)}")
-    for name, v in (("w1", w1), ("w_dw", w_dw)):
-        if v.dtype != x.dtype:
+    for name, v in tensors:
+        if name not in ("x", "sc", "bi") and v.dtype != x.dtype:
             raise TypeError(f"{name} must have x's dtype {x.dtype}, got "
                             f"{v.dtype}")
-    for name, v in (("x", x), ("w1", w1), ("w_dw", w_dw), ("sc", sc),
-                    ("bi", bi)):
         if v.device != x.device:
             raise ValueError(f"{name} is on {v.device}, x on {x.device}")
         if not v.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_kernel_input(x):
+    """Raise on a device with no kernel, and on what the prologue's 16-byte
+    loads of x do not take."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    if x.shape[-1] % 8:
+        raise ValueError(f"the kernel needs C_in % 8 == 0, got {x.shape[-1]}")
+    if x.data_ptr() % 16:
+        raise ValueError("the kernel needs x 16-byte aligned")
 
 
 def dw_mm_bnrelu_conv3d_plain(x: torch.Tensor, w1: torch.Tensor,
@@ -88,9 +172,19 @@ def dw_mm_bnrelu_conv3d_plain(x: torch.Tensor, w1: torch.Tensor,
     activation); then the 27-tap depthwise sum in f32 at stride
     ``(1, stride, stride)``, written in x's dtype.  Output
     ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C_mid)``."""
-    z = torch.matmul(x.float(), w1.float())
-    a = torch.relu(z * sc + bi).to(x.dtype)
-    return stencil_f32(a, w_dw, stride).to(x.dtype)
+    return stencil_f32(_mm_activate(x, w1, sc, bi), w_dw, stride).to(x.dtype)
+
+
+def _mm_product(x, w1):
+    """conv1's product ``x @ w1`` in f32, ``(B, T, H, W, C_mid)``, as the
+    plain versions compute it."""
+    return torch.matmul(x.float(), w1.float())
+
+
+def _mm_activate(x, w1, sc, bi):
+    """``relu((x @ w1)·sc + bi)`` in f32, rounded to x's dtype (the
+    forward's activation)."""
+    return torch.relu(_mm_product(x, w1) * sc + bi).to(x.dtype)
 
 
 def stencil_f32(a: torch.Tensor, w_dw: torch.Tensor,
@@ -149,23 +243,99 @@ def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
     _check(x, w1, w_dw, sc, bi, stride)
     if x.device.type == "cpu":
         return dw_mm_bnrelu_conv3d_plain(x, w1, w_dw, sc, bi, stride)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
+    _check_kernel_input(x)
     b, t, h, w, c_in = x.shape
     c_mid = w1.shape[1]
-    if c_in % 8:
-        raise ValueError(f"the kernel needs C_in % 8 == 0, got {c_in}")
-    if x.data_ptr() % 16:
-        raise ValueError("the kernel needs x 16-byte aligned")
     ho, wo = _out_hw(h, w, stride)
     y = torch.empty((b, t, ho, wo, c_mid), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    name = _KERNEL[stride]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        LIBRARY.call(name, x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(),
-                     sc.data_ptr(), bi.data_ptr(), y.data_ptr(), b, t, h, w,
-                     c_in, c_mid, int(x.dtype == torch.bfloat16), stream)
-    LAUNCHES[name] += 1
+    _launch(LAUNCHES, LIBRARY, f"dw_mm_act_s{stride}", x, x.data_ptr(),
+            w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            y.data_ptr(), b, t, h, w, c_in, c_mid)
     return y
+
+
+# ---- wgrad: the mm modes of K6 (stride 1) and K10 (stride 2) -----------------
+
+def dw_mm_wgrad_plain(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
+                      sc: torch.Tensor, bi: torch.Tensor,
+                      stride: int) -> torch.Tensor:
+    """``dk[tap, c] = Σ_pos a_pad[s·pos + tap]·g[pos]`` with the forward's
+    activation ``a = relu((x @ w1)·sc + bi)`` (f32, rounded to x's dtype,
+    zero-padded after the activation), in f32: ``(27, C_mid)``."""
+    return wgrad_f32(_mm_activate(x, w1, sc, bi), g, stride)
+
+
+def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
+                sc: torch.Tensor, bi: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """Weight gradient of :func:`dw_mm_bnrelu_conv3d`'s taps (see
+    :func:`dw_mm_wgrad_plain`), ``(27, C_mid)`` f32; ``g`` is dL/dy (y's
+    shape, x's dtype).  A CPU tensor takes the plain version; a CUDA tensor
+    launches ``dw_mm_wgrad_s1`` or ``dw_mm_wgrad_s2`` (per-block partial
+    sums, added with one ``torch.sum``), or raises."""
+    _check(x, w1, None, sc, bi, stride, g)
+    if x.device.type == "cpu":
+        return dw_mm_wgrad_plain(x, w1, g, sc, bi, stride)
+    _check_kernel_input(x)
+    if not g.numel():
+        return torch.zeros((27, w1.shape[1]), device=x.device)
+    b, t, h, w, c_in = x.shape
+    c_mid = w1.shape[1]
+    name = f"dw_mm_wgrad_s{stride}"
+    part = _partials(name, x, 27, c_mid)
+    _launch(LAUNCHES, BWD_LIBRARY, name, x, x.data_ptr(), w1.data_ptr(),
+            g.data_ptr(), sc.data_ptr(), bi.data_ptr(), part.data_ptr(),
+            b, t, h, w, c_in, c_mid)
+    return torch.sum(part, dim=0)
+
+
+# ---- autograd: the eval entry's backward -------------------------------------
+
+class DwMmBnReluConv3d(torch.autograd.Function):
+    """:func:`dw_mm_bnrelu_conv3d` with the JAX package's backward
+    (``_dw_mm_bwd``): ``da`` from :func:`..dw_conv.dw_conv3d` on the flipped
+    taps (stride 1) or :func:`..dw_conv.dw_conv_dx_s2` (K8, stride 2), the
+    taps' gradient from :func:`dw_mm_wgrad`, and ``(dx, dw1, dsc, dbi)``
+    from the relu mask of the recomputed product with the products in
+    PyTorch; ``dsc`` by the contraction identity ``Σ_pos dam·(x@W1) =
+    ⟨W1, xᵀ·dam⟩``, which never re-reads the product.  ``sc``/``bi`` are
+    bn1's apply vectors from its running statistics, so the gradient reaches
+    bn1's weight and bias (and its running statistics get none)."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w_dw, sc, bi, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, w1, w_dw, sc, bi)
+        return dw_mm_bnrelu_conv3d(x, w1, w_dw, sc, bi, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        # .dw_conv builds on this module's libraries: imported here
+        from .dw_conv import dw_conv3d, dw_conv_dx_s2
+
+        x, w1, w_dw, sc, bi = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.stride == 1:
+            da = dw_conv3d(g, torch.flip(w_dw, (0, 1, 2)).contiguous(), 1)
+        else:
+            da = dw_conv_dx_s2(g, w_dw, x.shape[2:4])
+        dk = dw_mm_wgrad(x, w1, g, sc, bi, ctx.stride)
+        c_in, c_mid = w1.shape
+        x2 = x.reshape(-1, c_in)
+        z_pos = mm_f32(x2, w1) * sc + bi > 0
+        dam = torch.where(z_pos, da.reshape(-1, c_mid), 0.0)
+        w_sc = (w1.float() * sc).to(x.dtype)
+        dx = mm_f32(dam, w_sc.t()).to(x.dtype).reshape(x.shape)
+        gmat = mm_f32(x2.t(), dam)
+        dw1 = (gmat * sc).to(w1.dtype)
+        dsc = torch.sum(w1.float() * gmat, dim=0)
+        dbi = torch.sum(dam, dim=0, dtype=torch.float32)
+        return (dx, dw1, dk.reshape(3, 3, 3, -1).to(w_dw.dtype), dsc, dbi,
+                None)
+
+
+# ``dw_mm_bnrelu_conv3d_train(x, w1, w_dw, sc, bi, stride)``:
+# :func:`dw_mm_bnrelu_conv3d` inside autograd
+dw_mm_bnrelu_conv3d_train = DwMmBnReluConv3d.apply

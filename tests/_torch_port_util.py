@@ -131,6 +131,62 @@ def coarse_models(trunk_layout, dw_impl, seed=0):
     return jm, v, pm
 
 
+def coarse_step_spread(jm, v, pm, batch):
+    """One coarse train step of the JAX model ``jm`` (variables ``v``) and of
+    the port's ``pm`` from the same weights on the numpy ``batch``: the two
+    losses, each new split statistic's largest difference over the JAX
+    tensor's largest magnitude, each parameter update's (``p1 − p0``) the
+    same, and the updates' relative L2 distance per stage.  Checks that the
+    eval statistics did not move."""
+    from coarse_fine_networks_tpu.train import TrainState as JTrainState
+    from coarse_fine_networks_tpu.train import make_train_step as jmake_step
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    jnp = jax.numpy
+    c = COARSE
+    p0 = {k: x.clone() for k, x in pm.state_dict().items()}
+    jstep = jmake_step(jm, align_corners=False,
+                       fusion_lr_mult=c["fusion_lr_mult"], donate=False)
+    js, jmet = jstep(JTrainState.create(v), jax.tree.map(jnp.asarray, batch),
+                     jnp.float32(c["lr"]), jax.random.PRNGKey(0))
+    step = make_train_step(pm, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    state, met = step(TrainState.create(pm), jax.tree.map(t, batch),
+                      c["lr"])
+    assert state.step == 1
+    ref = state_dict_from_jax({"params": js.params,
+                               "batch_stats": js.batch_stats})
+    got = pm.state_dict()
+    params = dict(pm.named_parameters())
+    assert set(ref) == set(got)
+    stats_err, update_err, stage = {}, {}, {}
+    for k, r in ref.items():
+        if k in params:
+            d = (got[k] - p0[k]).double(), (r - p0[k]).double()
+            update_err[k] = float((d[0] - d[1]).abs().max()
+                                  / d[1].abs().max())
+            acc = stage.setdefault(coarse_stage(k), [0.0, 0.0])
+            acc[0] += float(torch.sum((d[0] - d[1]) ** 2))
+            acc[1] += float(torch.sum(d[1] ** 2))
+        elif "split_bn" in k:
+            stats_err[k] = ((got[k] - r).abs().max() / r.abs().max()).item()
+        else:  # bn.running_* change only through aggregation
+            assert torch.equal(got[k], p0[k]), k
+    rel = {g: (e / n) ** 0.5 for g, (e, n) in stage.items()}
+    return met["loss"].item(), float(jmet["loss"]), stats_err, update_err, rel
+
+
+def coarse_stage(name):
+    """The stage of a coarse parameter: stem, layer1-4, pool_1, fusion or
+    head."""
+    top = name.split(".")[0]
+    if top.startswith(("rw", "mix")):
+        return "fusion"
+    if top.startswith(("layer", "pool_")):
+        return top
+    return "stem" if top in ("conv1_s", "conv1_t", "bn1") else "head"
+
+
 # ---- one training bottleneck against the JAX package's two layouts ---------
 
 def bottleneck_train_parity(c_in, stride, use_se, down, fold, splits=1,

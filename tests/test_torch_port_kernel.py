@@ -105,7 +105,8 @@ def test_wrapper_cpu_takes_plain_and_counts_nothing():
         got = dw_mm_bnrelu_conv3d(t(x), t(w1), t(k), t(sc), t(bi), s)
         ref = dw_mm_bnrelu_conv3d_plain(t(x), t(w1), t(k), t(sc), t(bi), s)
         assert torch.equal(got, ref)
-    assert dw_mm_act.LAUNCHES == {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0}
+    assert dw_mm_act.LAUNCHES == {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0,
+                                  "dw_mm_wgrad_s1": 0, "dw_mm_wgrad_s2": 0}
 
 
 def test_wrapper_bf16_rounds_activation():
@@ -146,6 +147,7 @@ def test_wrapper_rejects(bad):
 
 def test_kernel_source_ships_both_entries():
     src = dw_mm_act.SOURCE.read_text()
-    for name in dw_mm_act.LAUNCHES:
-        assert f'extern "C" int {name}(' in src
+    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
+    for name in dw_mm_act.LAUNCHES:  # the weight gradient is a backward
+        assert f'extern "C" int {name}(' in (bwd if "wgrad" in name else src)
     assert "sm_90a" in " ".join(dw_mm_act.NVCC_FLAGS)

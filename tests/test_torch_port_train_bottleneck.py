@@ -1,8 +1,10 @@
 """The port's X3D bottleneck in training mode against the JAX package, on
 the CPU in f32, with the same variables (filled from a numpy seed, carried
 by ``ckpt.from_jax``): against the plain-layout ``Bottleneck`` and against
-``FoldedBottleneck`` with the Pallas kernels (the ``act`` modes of K1/K4,
-K3/K5 and the ``act`` modes of K6/K10) under the interpreter."""
+``FoldedBottleneck`` with the Pallas kernels under the interpreter, whose
+training entry with ``dw_impl='interpret'`` is the matmul-fused composite
+``dw_fold4_mm_bn_train`` (the ``mm`` modes of K1/K4, K2/K9 and the ``mm``
+modes of K6/K10): the port's act route against the JAX composite."""
 
 import pytest
 import torch

@@ -26,7 +26,7 @@ from coarse_fine_networks_tpu.ops.fold import (fold_pad, from_fold4, pad_vec,
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
     FOLD, _dw_fold4_wgrad_raw, _dx_act_raw, _dx_s2_act_raw,
     _prep_lane_weights, _wgrad_s2_raw, dw_fold4_act, fold_dw_bnrelu_conv3d)
-from coarse_fine_networks_torch.ops import dw_act
+from coarse_fine_networks_torch.ops import dw_act, dw_mm_act, dw_mm_bn_train
 from coarse_fine_networks_torch.ops.dw_act import (
     dw_act_dx, dw_act_dx_plain, dw_act_wgrad, dw_act_wgrad_plain,
     dw_bnrelu_conv3d, dw_bnrelu_conv3d_plain, dw_bnrelu_conv3d_train)
@@ -235,11 +235,14 @@ def test_wrappers_reject(bad):
 
 
 def test_kernel_sources_ship_every_entry():
-    fwd = dw_act.FWD_LIBRARY.source.read_text()
-    bwd = dw_act.BWD_LIBRARY.source.read_text()
-    for name in dw_act.LAUNCHES:
-        src = bwd if ("_dx" in name or "_wgrad" in name) else fwd
-        assert f'extern "C" int {name}(' in src
+    # the act route's entries, and the mm route's of the train composite,
+    # each bound and in its source
+    for name in (*dw_act.LAUNCHES, *dw_mm_act.LAUNCHES,
+                 *dw_mm_bn_train.LAUNCHES):
+        lib = (dw_act.BWD_LIBRARY if ("_dx" in name or "_wgrad" in name)
+               else dw_act.FWD_LIBRARY)
+        assert name in lib.functions
+        assert f'extern "C" int {name}(' in lib.source.read_text()
     for lib in dw_act.LIBRARIES:  # every bound name is exported
         src = lib.source.read_text()
         for name in lib.functions:

@@ -4,10 +4,14 @@ the kernels.
 X3D-M at full width, cut to 7 classes, B=2, T=8, 64², T_f=16, label length
 32, lr 0.02, fusion learning rate ×10, dropout 0.  The JAX side is
 ``make_train_step`` on ``CoarseNet(trunk_layout="fold4",
-dw_impl="interpret")``: the stem and layer1 run the Pallas kernels (the
-``act`` modes of K1/K4, K3/K5 and the ``act`` modes of K6/K10) under the
-interpreter; the port's step runs every bottleneck through the plain
-versions of its kernels on the CPU.  Both start from the same weights (via
+dw_impl="interpret")``: the stem and layer1 run the Pallas kernels under
+the interpreter, and layer1's training entry is the matmul-fused composite
+``dw_fold4_mm_bn_train`` (``resolve_mm_train_impl`` returns ``'interpret'``
+for ``dw_impl='interpret'`` whatever ``CFN_MM_BN_TRAIN`` says): the ``mm``
+modes of K1/K4, K2/K9 and the ``mm`` modes of K6/K10.  The port's step runs
+every bottleneck through its act route (the plain versions of its act-mode
+kernels on the CPU), so layer1 is held against the other route of the same
+function.  Both start from the same weights (via
 ``state_dict_from_jax``) and the same numpy batch.
 
 Tolerances:

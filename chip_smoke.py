@@ -9,7 +9,7 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` per source, started together);
+   ``nvcc`` for each of the three sources, started together);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -79,8 +79,29 @@ Phases, each printing JSON lines:
    (22 stride-1 and 4 stride-2 launches of each ``mm``-route kernel per
    step, no act-route launch) and a profile of one step, beside phase 7;
 16. train_mm_card_vs_cpu: phase 8 with the composite;
-17. a ``{"kernels": [...]}`` line, then the card's ``nvidia-smi`` line, then
-   ``{"ok": true, "device": {...}}`` last.
+17. stencil_kernels: the plain-layout depthwise conv's kernels against their
+   plain versions, f32 (TF32 off) and bf16, timed beside the plain version
+   and the one PyTorch call that computes the same function
+   (``F.conv3d(groups=C)`` on channels-last, ``aten.convolution_backward``):
+   K11 (``dw_stencil_s1``) and the taps' gradient (``dw_stencil_wgrad``) at
+   the stem's ``conv1_t`` (5×1×1, C=24) on every path (serve, the coarse
+   train step, long-cycle phases A-D), K11 at 3×3×3 on layer1's stride-1
+   entry (also against ``dw_conv_s1``) and every tap shape at ragged sizes;
+   K7 (``dw_stencil_s2``) at the train step's four stride-2 entries (also
+   against ``dw_conv_s2``);
+18. stencil_autograd: ``depthwise_conv3d``'s y, dx and taps' gradient at
+   both strides against autograd through ``F.conv3d(groups=C)``, f32, and
+   the stem's gradients (reaching ``conv1_s``) against autograd through the
+   grouped conv;
+19. a ``{"kernels": [...]}`` line (20 entries), then the card's
+   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` last.
+
+The stem's ``conv1_t`` runs through ``dw_stencil_s1`` on every path: the
+serve, train, train_mm and fine_train phases hold its launches exactly (a
+cold serve batch 2, a hit 1; per train step on either coarse route and per
+long-cycle step 2 ``dw_stencil_s1`` and 1 ``dw_stencil_wgrad``; the fine
+eval step 1; ``dw_stencil_s2`` never), and every profile fails on a grouped
+depthwise convolution left to PyTorch.
 
 ``CFN_MM_BN_TRAIN`` is cleared at the start, so every other phase runs the
 route it names.
@@ -94,6 +115,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -149,6 +171,7 @@ TOWERS = {
     "coarse": ({"layer1": 64, "layer2": 17, "layer3": 17, "layer4": 17}, 2),
 }
 _DW_FOLD = "coarse_fine_networks_tpu/ops/pallas/dw_fold.py"
+_DW_CONV = "coarse_fine_networks_tpu/ops/pallas/dw_conv.py"
 REPLACES = {
     "dw_mm_act_s1": f"{_DW_FOLD}:532",     # _dw_fold4_pcall, mm mode
     "dw_mm_act_s2": f"{_DW_FOLD}:1078",    # _fwd_s2_direct_pcall, mm mode
@@ -167,9 +190,13 @@ REPLACES = {
     "dw_mm_dx_mask_s2": f"{_DW_FOLD}:1239",  # _dx_s2_mask_pcall (K9)
     "dw_mm_wgrad_s1": f"{_DW_FOLD}:705",   # _dw_fold4_wgrad_pcall, mm mode
     "dw_mm_wgrad_s2": f"{_DW_FOLD}:1279",  # _wgrad_s2_pcall, mm mode
+    "dw_stencil_s1": f"{_DW_CONV}:158",    # _dw_pallas_raw (K11)
+    "dw_stencil_s2": f"{_DW_FOLD}:786",    # _dw_fold4_s2_raw (K7)
+    "dw_stencil_wgrad": f"{_DW_CONV}:262",  # _dw_bwd's per-tap reduce
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
-SOURCES = {k: _CSRC + ("dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
+SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
+                       else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
 MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
 # the train step: batch, frames per stage (layers 2-4 run on the T/4+1
@@ -195,6 +222,12 @@ MM_TRAIN_KERNELS = ("dw_mm_dx_mask_s1", "dw_mm_dx_mask_s2", "dw_mm_wgrad_s1",
 # (stage, C_mid, bottlenecks in the stage)
 STAGES = (("layer1", 54, 3), ("layer2", 108, 5), ("layer3", 216, 11),
           ("layer4", 432, 7))
+# the stem's conv1_t: channels and taps; the kernels of the plain-layout
+# depthwise conv, and their launches per train step on every route and
+# long-cycle phase (the forward and the dx, the taps' gradient)
+STEM_C, STEM_K = 24, (5, 1, 1)
+STENCIL_KERNELS = ("dw_stencil_s1", "dw_stencil_s2", "dw_stencil_wgrad")
+STEM_TRAIN = {"dw_stencil_s1": 2, "dw_stencil_s2": 0, "dw_stencil_wgrad": 1}
 
 
 class CheckFailed(RuntimeError):
@@ -247,14 +280,14 @@ def entry_cases():
 
 
 def phase_device() -> str:
-    from coarse_fine_networks_torch.ops import _build, dw_act
+    from coarse_fine_networks_torch.ops import _build, dw_act, dw_stencil
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(dw_act.LIBRARIES)
+    _build.build_all(dw_act.LIBRARIES + (dw_stencil.LIBRARY,))
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -813,7 +846,9 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ("dw_mm_act_kernel",
                                             "dx_s1_kernel", "dx_s2_kernel",
-                                            "wgrad_kernel"))
+                                            "wgrad_kernel",
+                                            "stencil_fwd_kernel",
+                                            "stencil_dk_kernel"))
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -824,6 +859,7 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
     n = c["steps"]
     want = {k: n * (22 if k.endswith("_s1") else 4) * (k in ours)
             for k in launches}
+    want.update({k: n * v for k, v in STEM_TRAIN.items()})
     mean_ms = sum(step_ms) / len(step_ms)
     phase = "train" if route == "act" else "train_mm"
     row = {"phase": phase, "route": route, "model": "X3D-M",
@@ -854,7 +890,8 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
     check(split and not stuck, f"{phase}: split statistics unchanged: "
                                f"{stuck[:5]}")
     check(launches == want, f"{phase} launches {launches} != {want}")
-    counted = ACT_KERNELS if route == "act" else MM_TRAIN_KERNELS
+    counted = (ACT_KERNELS + STENCIL_KERNELS if route == "act" else
+               MM_TRAIN_KERNELS)
     return {k: launches[k] for k in counted}, row
 
 
@@ -970,6 +1007,47 @@ def fine_entry_cases(crop):
         yield f"{layer}.1-{n - 1}", h, c_mid, 1, n - 1
 
 
+def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
+                       lib_what, nbytes, ops, n, counted, agg,
+                       also=()) -> None:
+    """Kernel ``kern`` held against its plain version, and against each of
+    ``also`` (``(name, fn)``: another kernel of the same function), then
+    timed beside the plain version and ``library``, the one PyTorch call
+    that computes the same function; one row, ``meta`` naming the shape.  A
+    bf16 row at a ``counted`` shape adds its times, weighted by ``n`` (its
+    launches on the path), to ``agg``."""
+    got, ref = kern(), plain()
+    more = {k: fn() for k, fn in also}
+    torch.cuda.synchronize()
+    what = f"{name} {meta['entry']} {dtype}"
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{what}: shape/dtype {got.shape} {got.dtype}")
+    err, scale = _rel_err(got, ref)
+    also_err = {k: _rel_err(got, v)[0] for k, v in more.items()}
+    del got, ref, more
+    row = {"phase": phase, "kernel": name, **meta, "dtype": str(dtype)[6:],
+           "path_launches": n, "max_abs_err": err, "ref_absmax": scale,
+           **({"max_abs_err_vs": also_err} if also else {}),
+           "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 2, 1),
+           "library_ms": cuda_ms(library, 10), "library_call": lib_what,
+           **_bound(nbytes, ops, dtype)}
+    emit(row)
+    tol = TOL[dtype] * max(scale, 1.0)
+    check(err <= tol, f"{what}: max abs err {err} (max |plain| {scale})")
+    check(all(e <= tol for e in also_err.values()),
+          f"{what}: against the other kernels {also_err} > {tol}")
+    if dtype == torch.bfloat16:
+        # the trained and served dtype
+        if counted:
+            for key in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                        "bound_ms"):
+                agg[key] = agg.get(key, 0.0) + n * row[key]
+            agg["launches"] += n
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+    else:
+        agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
+
+
 def phase_fine_kernels(dw_conv) -> dict:
     """The five kernels of the split-batch-norm route against their plain
     versions, and timed beside the PyTorch call that computes the same
@@ -1022,45 +1100,44 @@ def phase_fine_kernels(dw_conv) -> dict:
                     lambda: conv_bwd([False, True, False])[1],
                     "aten.convolution_backward, weight gradient only",
                     (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, blocks)
-                for name, (kern, plain, library, lib_what, nbytes, ops,
-                           n) in cases.items():
-                    got, ref = kern(), plain()
-                    torch.cuda.synchronize()
-                    check(got.shape == ref.shape and got.dtype == ref.dtype,
-                          f"{name} {phase}.{label} {dtype}: shape/dtype "
-                          f"{got.shape} {got.dtype}")
-                    err, scale = _rel_err(got, ref)
-                    ms = cuda_ms(kern, 20)
-                    plain_ms = cuda_ms(plain, 2, 1)
-                    library_ms = cuda_ms(library, 10)
-                    row = {"phase": "fine_kernels", "kernel": name,
-                           "entry": f"fine.{phase}.{label}",
-                           "dtype": str(dtype)[6:], "x": [b, t, h, h, c],
-                           "stride": s, "launches_per_step": n,
-                           "max_abs_err": err, "ref_absmax": scale,
-                           "ms": ms, "plain_ms": plain_ms,
-                           "library_ms": library_ms,
-                           "library_call": lib_what,
-                           **_bound(nbytes, ops, dtype)}
-                    emit(row)
-                    check(err <= TOL[dtype] * max(scale, 1.0),
-                          f"{name} {phase}.{label} {dtype}: max abs err "
-                          f"{err} (max |plain| {scale})")
-                    agg = per_kernel[name]
-                    if dtype == torch.bfloat16:
-                        # the trained dtype: each shape weighted by its
-                        # launches in one step of each of phases A-C
-                        for key in ("ms", "plain_ms", "library_ms",
-                                    "bytes_ms", "ops_ms", "bound_ms"):
-                            agg[key] = agg.get(key, 0.0) + n * row[key]
-                        agg["launches"] += n
-                        agg["max_abs_err"] = max(agg["max_abs_err"], err)
-                    else:
-                        agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"],
-                                                     err)
+                # each shape weighted by its launches in one step of each
+                # of phases A-C
+                for name, case in cases.items():
+                    _hold_time_library(
+                        "fine_kernels", name, {"entry": f"fine.{phase}.{label}",
+                                               "x": [b, t, h, h, c],
+                                               "stride": s},
+                        dtype, *case, True, per_kernel[name])
                 del x, g, xc, gc
             torch.cuda.empty_cache()
     return per_kernel
+
+
+def _depthwise_vs_autograd(phase, fn, x, w, strides, gen) -> None:
+    """``fn(x, w)`` (y, dx and the taps' gradient, against a cotangent drawn
+    from ``gen``) against autograd through ``F.conv3d(groups=C)``, f32
+    (TF32 off); one row, each tensor held at 1e-4 of its largest value: f32
+    both sides, the taps' gradient a sum over up to 8·16·56² positions in
+    another order."""
+    xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y = fn(xa, wa)
+    g = torch.randn(y.shape, generator=gen, device="cuda")
+    y.backward(g)
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    yr = F.conv3d(xr.permute(0, 4, 1, 2, 3),
+                  wr.permute(3, 0, 1, 2).unsqueeze(1), stride=strides,
+                  padding=[k // 2 for k in w.shape[:3]],
+                  groups=x.shape[-1]).permute(0, 2, 3, 4, 1)
+    yr.backward(g)
+    torch.cuda.synchronize()
+    errs = {"y": _rel_err(y, yr), "dx": _rel_err(xa.grad, xr.grad),
+            "dw": _rel_err(wa.grad, wr.grad)}
+    rel = {k: e / max(m, 1e-30) for k, (e, m) in errs.items()}
+    emit({"phase": phase, "taps": list(w.shape[:3]), "strides": list(strides),
+          "x": list(x.shape), "dtype": "float32", "max_rel_err": rel,
+          "rel_tol": 1e-4})
+    check(max(rel.values()) <= 1e-4,
+          f"{phase} {tuple(w.shape[:3])} {strides}: {rel}")
 
 
 def phase_fine_autograd(dw_conv) -> None:
@@ -1069,28 +1146,163 @@ def phase_fine_autograd(dw_conv) -> None:
     (layer4.0, 9×9 → 5×5) and its layer2 stride-1 entry (18×18)."""
     gen = torch.Generator(device="cuda").manual_seed(21)
     for s, h, c in ((2, 9, 432), (1, 18, 108)):
-        b, t = 32, 32
-        x = torch.randn((b, t, h, h, c), generator=gen, device="cuda").relu()
+        x = torch.randn((32, 32, h, h, c), generator=gen, device="cuda").relu()
         w = torch.randn((3, 3, 3, c), generator=gen, device="cuda") / 5
-        ho = (h - 1) // s + 1
-        g = torch.randn((b, t, ho, ho, c), generator=gen, device="cuda")
-        xa, wa = x.clone().requires_grad_(), w.clone().requires_grad_()
-        y = dw_conv.dw_conv3d_train(xa, wa, s)
+        _depthwise_vs_autograd(
+            "fine_autograd", lambda a, k: dw_conv.dw_conv3d_train(a, k, s), x,
+            w, (1, s, s), gen)
+
+
+def stem_cases():
+    """(label, B, T, H, launches of ``dw_stencil_s1``, of
+    ``dw_stencil_wgrad``, counted) of the stem's ``conv1_t`` input
+    (``conv1_s``'s output: C=24, half the crop) on every path: the serve
+    phase's two towers (launches in its counted run: the fine tower's cold
+    extract; the coarse tower's cold and hit fuse), the coarse train step
+    (per step: the forward and the dx, the taps' gradient; these rows make
+    up the two kernels' line) and the four long-cycle phases (per step)."""
+    h = (TRAIN["hw"] - 1) // 2 + 1
+    yield "serve.fine", SERVE_B, TOWERS["fine"][0]["layer1"], h, 1, 0, False
+    yield ("serve.coarse", SERVE_B, TOWERS["coarse"][0]["layer1"], h, 2, 0,
+           False)
+    yield "train.coarse", TRAIN["b"], TRAIN["t"], h, 2, 1, True
+    for name, b, t, crop, _, _ in fine_phases():
+        yield f"fine.{name}", b, t, (crop - 1) // 2 + 1, 2, 1, False
+
+
+def stencil_cases():
+    """(label, x shape, taps, strides, launches of the forward, of the
+    taps' gradient, counted, the other kernel of the same function) of
+    :func:`phase_stencil_kernels`.  K7 has no caller: each of its four
+    entry shapes counts once in its line."""
+    for label, b, t, h, n_fwd, n_wg, counted in stem_cases():
+        yield (label, (b, t, h, h, STEM_C), STEM_K, (1, 1, 1), n_fwd, n_wg,
+               counted, None)
+    _, _, _, h1, _, c1, _ = ENTRY_SHAPES[0]
+    yield ("train.coarse.layer1.1-2", (TRAIN["b"], TRAIN_FRAMES["layer1"], h1,
+                                       h1, c1), (3, 3, 3), (1, 1, 1), 0, 0,
+           False, "dw_conv_s1")
+    for ks in (STEM_K, (3, 1, 1), (3, 3, 3), (1, 3, 3)):
+        for hw in ((7, 7), (5, 9)):
+            yield (f"ragged.{hw[0]}x{hw[1]}", (2, 17) + hw + (STEM_C,), ks,
+                   (1, 1, 1), 0, 0, False, None)
+    for layer, h_s2, _, _, _, c_mid, _ in ENTRY_SHAPES:
+        yield (f"train.coarse.{layer}.0", (TRAIN["b"], TRAIN_FRAMES[layer],
+                                           h_s2, h_s2, c_mid), (3, 3, 3),
+               (1, 2, 2), 1, 0, True, "dw_conv_s2")
+    for hw in ((7, 7), (5, 9)):
+        yield (f"ragged.{hw[0]}x{hw[1]}", (2, 17) + hw + (STEM_C,), (3, 3, 3),
+               (1, 2, 2), 0, 0, False, "dw_conv_s2")
+
+
+def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
+    """K11 (``dw_stencil_s1``), K7 (``dw_stencil_s2``) and the taps'
+    gradient (``dw_stencil_wgrad``) against their plain versions at the
+    shapes of :func:`stencil_cases`, f32 (TF32 off) and bf16, timed beside
+    the plain version and the one PyTorch call that computes the same
+    function; the 3×3×3 stencils also against ``dw_conv_s1``/``dw_conv_s2``
+    (the same functions)."""
+    gen = torch.Generator(device="cuda").manual_seed(40)
+    per_kernel = {k: _agg() for k in STENCIL_KERNELS}
+    ncdhw = (0, 4, 1, 2, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for (label, shape, ks, strides, n_fwd, n_wg, counted,
+             other) in stencil_cases():
+            c, taps = shape[-1], ks[0] * ks[1] * ks[2]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(ks + (c,), generator=gen, device="cuda")
+                 / taps ** 0.5).to(dtype)
+            w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+            pad = [k // 2 for k in ks]
+            y_shape = dw_stencil._out_shape(x, strides)
+            n_x, n_y, esz = x.numel(), math.prod(y_shape), x.element_size()
+            meta = {"entry": label, "x": list(shape), "taps": list(ks),
+                    "strides": list(strides)}
+            s = strides[2]
+            name = f"dw_stencil_s{s}"
+            also = (() if other is None else
+                    ((other, lambda: dw_conv.dw_conv3d(x, w, s)),))
+            _hold_time_library(
+                "stencil_kernels", name, meta, dtype,
+                lambda: dw_stencil.dw_stencil3d(x, w, strides),
+                lambda: dw_stencil.dw_stencil3d_plain(x, w, strides),
+                lambda: F.conv3d(x.permute(ncdhw), w_conv, stride=strides,
+                                 padding=pad, groups=c),
+                "F.conv3d(groups=C), channels_last_3d",
+                (n_x + n_y + w.numel()) * esz, 2 * taps * n_y, n_fwd, counted,
+                per_kernel[name], also)
+            if s == 1:
+                g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                bw = ([1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], c)
+                _hold_time_library(
+                    "stencil_kernels", "dw_stencil_wgrad", meta, dtype,
+                    lambda: dw_stencil.dw_stencil_wgrad(x, g, ks),
+                    lambda: dw_stencil.dw_stencil_wgrad_plain(x, g, ks),
+                    lambda: torch.ops.aten.convolution_backward(
+                        g.permute(ncdhw), x.permute(ncdhw), w_conv, None,
+                        *bw, [False, True, False])[1],
+                    "aten.convolution_backward, weight gradient only",
+                    2 * n_x * esz + taps * c * 4, 2 * taps * n_x, n_wg,
+                    counted, per_kernel["dw_stencil_wgrad"])
+                del g
+            del x
+        torch.cuda.empty_cache()
+    return per_kernel
+
+
+def phase_stencil_autograd(dw_stencil) -> None:
+    """``depthwise_conv3d`` (y, dx and the taps' gradient) against autograd
+    through ``F.conv3d(groups=C)``, f32 (TF32 off): 5×1×1 at long-cycle
+    phase A's stem shape cut to B8, 3×3×3 at stride 1 on a layer1 shape,
+    and at stride (1, 2, 2) at layer4.0 (14² → 7²) and at the ragged 7² →
+    4²; then the stem's gradients (the input, ``conv1_s``, ``conv1_t``,
+    ``bn1``) against autograd through the grouped conv, the route
+    ``conv1_t`` took before."""
+    from coarse_fine_networks_torch.models import X3DStem, init_parameters
+    from coarse_fine_networks_torch.models.layers import conv3d
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    for ks, strides, shape in (
+            (STEM_K, (1, 1, 1), (8, 16, 56, 56, STEM_C)),
+            ((3, 3, 3), (1, 1, 1), (2, 8, 28, 28, 54)),
+            ((3, 3, 3), (1, 2, 2), (2, 8, 14, 14, 432)),
+            ((3, 3, 3), (1, 2, 2), (2, 8, 7, 7, 432))):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        w = torch.randn(ks + shape[-1:], generator=gen, device="cuda") / 5
+        _depthwise_vs_autograd(
+            "stencil_autograd",
+            lambda a, k: dw_stencil.depthwise_conv3d(a, k, strides), x, w,
+            strides, gen)
+
+    stem = init_parameters(X3DStem(STEM_C),
+                           torch.Generator().manual_seed(42)).cuda().train()
+    x = torch.rand((2, 16, 64, 64, 3), generator=gen, device="cuda")
+    g = torch.randn((2, 16, 32, 32, STEM_C), generator=gen, device="cuda")
+
+    def grads(fn):
+        stem.zero_grad(set_to_none=True)
+        xa = x.clone().requires_grad_()
+        y = fn(xa)
         y.backward(g)
-        xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
-        yr = F.conv3d(xr.permute(0, 4, 1, 2, 3),
-                      wr.permute(3, 0, 1, 2).unsqueeze(1), stride=(1, s, s),
-                      padding=1, groups=c).permute(0, 2, 3, 4, 1)
-        yr.backward(g)
-        torch.cuda.synchronize()
-        errs = {"y": _rel_err(y, yr), "dx": _rel_err(xa.grad, xr.grad),
-                "dw": _rel_err(wa.grad, wr.grad)}
-        rel = {k: e / max(m, 1e-30) for k, (e, m) in errs.items()}
-        emit({"phase": "fine_autograd", "stride": s, "x": [b, t, h, h, c],
-              "dtype": "float32", "max_rel_err": rel, "rel_tol": 1e-4})
-        # f32 both sides; dw sums over 32·32·5²..18² positions in other
-        # orders
-        check(max(rel.values()) <= 1e-4, f"fine autograd stride {s}: {rel}")
+        return {"y": y.detach(), "x": xa.grad,
+                **{k: p.grad for k, p in stem.named_parameters()}}
+
+    dw_stencil.reset_launches()
+    got = grads(stem)
+    launches = dict(dw_stencil.LAUNCHES)
+    ref = grads(lambda a: torch.relu(stem.bn1(conv3d(conv3d(a, stem.conv1_s),
+                                                     stem.conv1_t))))
+    torch.cuda.synchronize()
+    missing = [k for k, v in got.items() if v is None or not v.abs().max()]
+    rel = {k: _rel_err(got[k], v)[0] / max(v.abs().max().item(), 1e-30)
+           for k, v in ref.items() if k not in missing}
+    emit({"phase": "stencil_autograd", "what": "X3DStem(24) in training, "
+          "B2 T16 64² f32, against the grouped F.conv3d route",
+          "launches": launches, "max_rel_err": rel, "rel_tol": 1e-4})
+    check(not missing, f"stem gradients missing or zero: {missing}")
+    check(launches == {"dw_stencil_s1": 2, "dw_stencil_s2": 0,
+                       "dw_stencil_wgrad": 1}, f"stem launches {launches}")
+    check(max(rel.values()) <= 1e-4, f"stem gradients: {rel}")
 
 
 def _fine_host_batch(gen, b, t, hw, tl, n_classes):
@@ -1118,7 +1330,23 @@ def _launches(*mods) -> dict:
     return out
 
 
+def _depthwise_conv(e) -> bool:
+    """Whether profiler event ``e`` is a PyTorch convolution (forward or
+    backward) with a depthwise weight ``(C, 1, kt, kh, kw)``, C > 1."""
+    i = {"aten::convolution": 1, "aten::convolution_backward": 2}.get(e.name)
+    if i is None or len(e.input_shapes) <= i:
+        return False
+    w = e.input_shapes[i]
+    return len(w) == 5 and w[1] == 1 and w[0] > 1
+
+
 def _profile_step(fn, ours) -> dict:
+    """``fn`` under ``torch.profiler``: kernel time by name, the port's
+    kernels' share, the card's busy share.  Then ``fn`` once more with the
+    host ops' input shapes recorded (kept out of the timed run, whose host
+    time they would inflate): raises if a grouped depthwise convolution ran
+    in PyTorch (every depthwise conv of the port's paths runs through its
+    kernels, the stem's ``conv1_t`` included)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1133,12 +1361,21 @@ def _profile_step(fn, ours) -> dict:
     by_ours = {o: sum(e.self_device_time_total for e in kernels
                       if o in e.key) / 1e3 for o in ours}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
+    with profile(activities=[ProfilerActivity.CPU],
+                 record_shapes=True) as shapes:
+        fn()
+        torch.cuda.synchronize()
+    depthwise = [[e.name, e.input_shapes] for e in shapes.events()
+                 if _depthwise_conv(e)]
+    check(not depthwise, f"profile: grouped depthwise convolutions in "
+                         f"PyTorch: {depthwise[:3]}")
     return {"wall_ms_profiled": wall_ms, "device_kernel_ms": device_ms,
             "device_busy_share": device_ms / wall_ms if wall_ms else None,
             "port_kernels_ms": by_ours,
             "port_kernels_share": (sum(by_ours.values()) / device_ms
                                    if device_ms else None),
             "kernel_launches": sum(e.count for e in kernels),
+            "depthwise_conv_ops": len(depthwise),
             "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                     for e in top]}
 
@@ -1214,6 +1451,7 @@ def phase_fine_train(mods) -> dict:
         else:
             per_step = {k: 22 if k.endswith("_s1") else 4
                         for k in ACT_KERNELS}
+        per_step.update(STEM_TRAIN)
         want = {k: n * per_step.get(k, 0) for k in launches}
         mean_ms = sum(step_ms) / len(step_ms)
         emit({"phase": "fine_train", "long_cycle_phase": name, "B": b,
@@ -1241,7 +1479,8 @@ def phase_fine_train(mods) -> dict:
             ours = (("dw_mm_act_kernel", "dx_s2_kernel", "wgrad_kernel")
                     if splits > 1 else
                     ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
-                     "wgrad_kernel"))
+                     "wgrad_kernel")) + ("stencil_fwd_kernel",
+                                         "stencil_dk_kernel")
 
             def one_step():
                 step(state, batch, c["lr"], drop)[1]["loss"].item()
@@ -1265,7 +1504,7 @@ def phase_fine_train(mods) -> dict:
     eval_ms = (time.perf_counter() - t1) * 1e3
     launches = _launches(*mods)
     want = {k: (22 if k == "dw_mm_act_s1" else 4 if k == "dw_mm_act_s2"
-                else 0) for k in launches}
+                else 1 if k == "dw_stencil_s1" else 0) for k in launches}
     probs = ev["probs"]
     emit({"phase": "fine_eval", "B": b, "T": t, "input_hw": crop,
           "label_len": tl, "loss": loss, "eval_ms": eval_ms,
@@ -1321,9 +1560,11 @@ def _clip(rng: torch.Generator, t: int, hw: int):
     return torch.rand((t, hw, hw, 3), generator=rng).numpy()
 
 
-def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
-    """``want``: the launches of each kernel the counted run must make; the
-    train kernels must make none."""
+def phase_serve(dw_mm_act, dw_act, dw_stencil, want: dict) -> dict:
+    """``want``: the launches of each eval kernel the counted run must make;
+    the train kernels must make none, and the stem's ``dw_stencil_s1`` two
+    in the cold batch (the fine and the coarse tower) and one in the hit
+    batch (the coarse tower)."""
     from coarse_fine_networks_torch.models import CoarseFinePipeline
     from coarse_fine_networks_torch.serve import (CachingVideoServer,
                                                   FeatureCache)
@@ -1365,6 +1606,7 @@ def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
 
         dw_mm_act.reset_launches()
         dw_act.reset_launches()
+        dw_stencil.reset_launches()
         lat, cold, hit = {}, {}, {}
         t1 = time.perf_counter()
         futs = {v: server.submit(clips[v], fine[v], video_id=v)
@@ -1372,6 +1614,7 @@ def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
         for v, f in futs.items():
             cold[v] = f.result(timeout=600)
             lat["cold_" + v] = (time.perf_counter() - t1) * 1e3
+        stem = {"cold_batch": dict(dw_stencil.LAUNCHES)}
         t1 = time.perf_counter()
         futs = {v: server.submit(clips[v], video_id=v) for v in videos}
         for v, f in futs.items():
@@ -1379,6 +1622,8 @@ def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
             lat["hit_" + v] = (time.perf_counter() - t1) * 1e3
         launches = dict(dw_mm_act.LAUNCHES)
         train_launches = dict(dw_act.LAUNCHES)
+        stem["hit_batch"] = {k: v - stem["cold_batch"][k]
+                             for k, v in dw_stencil.LAUNCHES.items()}
     finally:
         server.stop()
 
@@ -1400,12 +1645,18 @@ def phase_serve(dw_mm_act, dw_act, want: dict) -> dict:
     check(launches == want, f"launches {launches} != {want}")
     check(not any(train_launches.values()),
           f"serving launched train kernels: {train_launches}")
+    check(stem == {"cold_batch": {"dw_stencil_s1": 2, "dw_stencil_s2": 0,
+                                  "dw_stencil_wgrad": 0},
+                   "hit_batch": {"dw_stencil_s1": 1, "dw_stencil_s2": 0,
+                                 "dw_stencil_wgrad": 0}},
+          f"stem launches {stem}")
     emit({"phase": "serve", "model": "X3D-M", "n_classes": 157,
           "dtype": "bfloat16", "input_hw": 224,
           "videos": {v: {"T": t, "T_f": tf} for v, (t, tf) in videos.items()},
           "batch_sizes": server.batch_sizes, "latency_ms": lat,
           "extract_ms": times["extract"], "fuse_ms": times["fuse"],
           "launches": launches, "train_kernel_launches": train_launches,
+          "stem_launches": stem,
           "hit_max_abs_diff": hit_err,
           "prob_range": [float(min(c.min() for c in cold.values())),
                          float(max(c.max() for c in cold.values()))],
@@ -1433,7 +1684,7 @@ def phase_profile(pipe) -> None:
     torch.cuda.synchronize()
     emit({"phase": "profile", "what": "one cold batch, extract + fuse, "
                                       "3 videos T=64/T_f=128 224² bf16",
-          **_profile_step(batch, ("dw_mm_act",))})
+          **_profile_step(batch, ("dw_mm_act", "stencil_fwd_kernel"))})
 
 
 def phase_card_vs_cpu() -> None:
@@ -1495,21 +1746,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
-                                                dw_mm_bn_train)
+                                                dw_mm_bn_train, dw_stencil)
 
     os.environ.pop("CFN_MM_BN_TRAIN", None)  # train_mm sets it for itself
-    mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train)
+    mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train, dw_stencil)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
     per_kernel = phase_kernels(dw_mm_act)
     per_kernel.update(phase_train_kernels(dw_act))
     per_kernel.update(phase_fine_kernels(dw_conv))
+    per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
     phase_autograd(dw_act)
     phase_fine_autograd(dw_conv)
+    phase_stencil_autograd(dw_stencil)
     launches, pipe = phase_serve(
-        dw_mm_act, dw_act, {k: per_kernel[k]["launches"] if k in MM_KERNELS
-                            else 0 for k in dw_mm_act.LAUNCHES})
+        dw_mm_act, dw_act, dw_stencil,
+        {k: per_kernel[k]["launches"] if k in MM_KERNELS else 0
+         for k in dw_mm_act.LAUNCHES})
     phase_profile(pipe)
     del pipe
     phase_card_vs_cpu()
@@ -1543,12 +1797,24 @@ def main() -> int:
                 "224²), each time weighted by its launches in one step of "
                 "each phase and summed over the three; launches: the 5 "
                 "timed steps of each of phases A-C",
+        "stem": "bf16 at conv1_t's shape in the coarse train step (B8 T64 "
+                "112², C=24, 5×1×1), weighted by its launches per step "
+                "(dw_stencil_s1 2: the forward and the dx; dw_stencil_wgrad "
+                "1); launches: the 10 timed steps of train (the serve, "
+                "train_mm and fine_train phases hold theirs exactly too)",
+        "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
+              "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
+              "C432), one call each, summed; launches: 0 in the 10 timed "
+              "steps of train, as on every path (the JAX package has no "
+              "caller of K7)",
     }
     kernels = []
     for name, agg in per_kernel.items():
         path = ("serve" if name in MM_KERNELS else
                 "fine" if name in FINE_KERNELS else
-                "mm_train" if name in MM_TRAIN_KERNELS else "train")
+                "mm_train" if name in MM_TRAIN_KERNELS else
+                "k7" if name == "dw_stencil_s2" else
+                "stem" if name in STENCIL_KERNELS else "train")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": launches[name],
@@ -1559,11 +1825,15 @@ def main() -> int:
             "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
                          else "operations"),
             "library_ms": agg.get("library_ms"),
-            **({"unfused_ms": agg["unfused_ms"]} if path != "fine" else {}),
+            **({"unfused_ms": agg["unfused_ms"]}
+               if path in ("serve", "train", "mm_train") else {}),
             **({"nearest_call_ms": agg["nearest_ms"]}
                if path in ("train", "mm_train") else {}),
             "timed_at": timed_at[path]})
-    check(len(kernels) == 17, f"{len(kernels)} kernel entries, not 17")
+    check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
+    idle = [k["name"] for k in kernels
+            if not k["launches"] and k["name"] != "dw_stencil_s2"]
+    check(not idle, f"kernels of a path launched no time: {idle}")
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

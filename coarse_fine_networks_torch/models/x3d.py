@@ -23,6 +23,11 @@ a hand-written kernel, by the routes of the JAX package's
 * training with split batch norm (``bn1.num_splits > 1``, the multigrid
   long cycle): conv1 as a product → bn1 per split → relu in PyTorch, then
   :func:`..ops.dw_conv.dw_conv3d_train` (conv2, with a kernel backward).
+
+The stem's depthwise temporal ``conv1_t`` (5×1×1) runs through
+:func:`..ops.dw_stencil.depthwise_conv3d` in eval and in training (the
+port of K11, with a kernel backward); ``conv1_s`` stays a plain conv, as in
+the JAX package.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from ..ops.dw_act import dw_bnrelu_conv3d_train
 from ..ops.dw_conv import dw_conv3d_train
 from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d_train
 from ..ops.dw_mm_bn_train import resolve_mm_train
+from ..ops.dw_stencil import depthwise_conv3d
 from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
                      squeeze_excite, swish)
 
@@ -150,8 +156,12 @@ class X3DStem(nn.Module):
     """Stem: spatial ``conv1_s`` (1×3×3, stride (1,2,2)) → depthwise temporal
     ``conv1_t`` (5×1×1) → ``bn1`` → relu.
 
-    The towers keep these three modules at their own top level, under the
-    reference's names, and run :meth:`forward` on themselves."""
+    ``conv1_t`` runs through :func:`..ops.dw_stencil.depthwise_conv3d` (the
+    kernel K11 and its backward on the card) with its weight ``(C, 1, 5, 1,
+    1)`` as taps ``(5, 1, 1, C)`` in x's dtype; the parameters keep the
+    reference's names and shapes.  The towers keep these three modules at
+    their own top level, under the reference's names, and run
+    :meth:`forward` on themselves."""
 
     def __init__(self, planes: int, in_channels: int = 3):
         super().__init__()
@@ -163,7 +173,11 @@ class X3DStem(nn.Module):
         self.bn1 = SubBatchNorm(planes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv3d(conv3d(x, self.conv1_s), self.conv1_t)
+        x = conv3d(x, self.conv1_s)
+        w = self.conv1_t.weight
+        taps = (w.reshape(w.shape[0], -1).t().reshape(*w.shape[2:], -1)
+                .to(x.dtype).contiguous())
+        x = depthwise_conv3d(x, taps)
         return torch.relu(self.bn1(x))
 
 

@@ -1,0 +1,296 @@
+"""The port's plain-layout depthwise conv (``ops/dw_stencil.py``): the plain
+versions of K11 (``dw_stencil_s1``), K7 (``dw_stencil_s2``) and the taps'
+gradient (``dw_stencil_wgrad``), the autograd Function and dispatcher built
+on them, and the stem that runs ``conv1_t`` through them.
+
+The plain versions are held against the JAX Pallas kernels themselves, run
+on the CPU in interpret mode as ``tests/test_dw_conv.py`` and
+``tests/test_dw_fold.py`` run them: K11 (``_dw_pallas``, untiled and tiled),
+its custom VJP, and K7 (``_dw_fold4_s2_raw`` through ``to_fold4``); the
+dispatcher at stride (1, 2, 2) and the stem against XLA's conv
+(``impl="lax"``) and ``jax.grad``.  The CUDA kernels only run on the card:
+``chip_smoke.py`` holds them against these plain versions there.
+
+All f32.  Tolerances: the JAX tests' own for K11 and its VJP (1e-4 relative
+and 1e-5 absolute on y and dx, 1e-3 on the taps' gradient, a sum over up to
+2·6·8·12 positions); K7 1e-5 of the largest value (27 taps summed in
+another order); the dispatcher and the stem 1e-4."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import coarse_fine_networks_tpu.ops.pallas.dw_conv as dwc
+from coarse_fine_networks_tpu.models import x3d as jx3d
+from coarse_fine_networks_tpu.ops.fold import fold_pad, from_fold4, to_fold4
+from coarse_fine_networks_tpu.ops.pallas.dw_fold import (_dw_fold4_s2_raw,
+                                                          _prep_lane_weights)
+from coarse_fine_networks_torch.ckpt import state_dict_from_jax
+from coarse_fine_networks_torch.models import X3DStem
+from coarse_fine_networks_torch.ops import dw_stencil
+from coarse_fine_networks_torch.ops.dw_stencil import (
+    DwStencil3d, depthwise_conv3d, dw_stencil3d, dw_stencil3d_plain,
+    dw_stencil_wgrad, dw_stencil_wgrad_plain)
+
+from _torch_port_util import apply_train, jax_variables, load_port, nest, t
+
+torch.set_num_threads(2)
+
+K11 = dict(rtol=1e-4, atol=1e-5)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _rand(shape, seed):
+    return np.random.RandomState(seed).rand(*shape).astype(np.float32)
+
+
+def _taps(w):
+    """JAX taps ``(KT, KH, KW, 1, C)`` → the port's ``(KT, KH, KW, C)``."""
+    return t(np.asarray(w)[..., 0, :])
+
+
+@pytest.mark.parametrize("ks", [(5, 1, 1), (3, 3, 3), (3, 1, 1)])
+def test_k11_plain_matches_pallas(ks):
+    """K11's plain version against ``_dw_pallas`` in interpret mode."""
+    rng = np.random.RandomState(1)
+    x = jnp.asarray(rng.rand(2, 8, 8, 12, 6), jnp.float32)
+    w = jnp.asarray(rng.rand(*ks, 1, 6), jnp.float32)
+    ref = dwc._dw_pallas(x, w, True)
+    got = dw_stencil3d_plain(t(x), _taps(w))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **K11)
+
+
+@pytest.mark.parametrize("ks", [(5, 1, 1), (3, 3, 3)])
+def test_k11_plain_matches_pallas_tiled(ks, monkeypatch):
+    """The same against the Pallas kernel over 4×4 (T, H) tiles with
+    materialised halos, as ``test_pallas_tiled_matches_lax`` runs it."""
+    monkeypatch.setattr(dwc, "_pick_tiles", lambda *a: (4, 4))
+    rng = np.random.RandomState(2)
+    x = jnp.asarray(rng.rand(2, 12, 8, 12, 6), jnp.float32)
+    w = jnp.asarray(rng.rand(*ks, 1, 6), jnp.float32)
+    ref = dwc._dw_pallas(x, w, True)
+    np.testing.assert_allclose(dw_stencil3d_plain(t(x), _taps(w)).numpy(),
+                               np.asarray(ref), **K11)
+
+
+@pytest.mark.parametrize("ks", [(5, 1, 1), (3, 3, 3), (1, 3, 3)])
+def test_function_matches_pallas_vjp(ks):
+    """``DwStencil3d``'s dx (K11 on the flipped taps) and taps' gradient
+    against ``jax.grad`` of ``_dw_pallas`` (its custom VJP ``_dw_bwd``)."""
+    rng = np.random.RandomState(3)
+    x = jnp.asarray(rng.rand(2, 6, 8, 12, 6), jnp.float32)
+    w = jnp.asarray(rng.rand(*ks, 1, 6), jnp.float32)
+    g = jnp.asarray(rng.rand(2, 6, 8, 12, 6), jnp.float32)
+    gx, gw = jax.grad(lambda a, b: jnp.sum(dwc._dw_pallas(a, b, True) * g),
+                      argnums=(0, 1))(x, w)
+    xt, wt = t(x).requires_grad_(), _taps(w).requires_grad_()
+    y = DwStencil3d.apply(xt, wt, (1, 1, 1))
+    y.backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **K11)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw)[..., 0, :],
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 16, 16, 24), (2, 3, 8, 16, 54)])
+def test_k7_plain_matches_pallas(shape):
+    """K7's plain version against ``_dw_fold4_s2_raw`` (the stride-1
+    stencil over row pairs with the 2×2 subsample fused into the write) in
+    interpret mode, through the fold4 layout: 1e-5 of the largest value."""
+    rng = np.random.RandomState(4)
+    c = shape[-1]
+    x = rng.randn(*shape).astype(np.float32)
+    w = (rng.randn(3, 3, 3, 1, c) / np.sqrt(27)).astype(np.float32)
+    lane_w = _prep_lane_weights(jnp.asarray(w), c, fold_pad(c))
+    ref = np.asarray(from_fold4(_dw_fold4_s2_raw(to_fold4(jnp.asarray(x)),
+                                                 lane_w, True), c))
+    got = dw_stencil3d_plain(t(x), t(w[..., 0, :]), (1, 2, 2)).numpy()
+    assert got.shape == ref.shape == shape[:2] + (shape[2] // 2,
+                                                  shape[3] // 2, c)
+    np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("hw", [(8, 8), (7, 7), (5, 9)])
+def test_dispatcher_stride2_matches_lax(hw):
+    """Stride (1, 2, 2) through K7 forward and the K8 / K10-plain backward:
+    y and both gradients against ``depthwise_conv3d(impl="lax")`` and
+    ``jax.grad``, including odd sizes."""
+    rng = np.random.RandomState(5)
+    x = rng.randn(2, 3, *hw, 20).astype(np.float32)
+    w = (rng.randn(3, 3, 3, 1, 20) / 5).astype(np.float32)
+    ho, wo = (hw[0] - 1) // 2 + 1, (hw[1] - 1) // 2 + 1
+    g = rng.randn(2, 3, ho, wo, 20).astype(np.float32)
+
+    def loss(a, b):
+        y = dwc.depthwise_conv3d(a, b, (1, 2, 2), impl="lax")
+        return jnp.sum(y * g), y
+    (_, y), (gx, gw) = jax.value_and_grad(loss, argnums=(0, 1), has_aux=True)(
+        jnp.asarray(x), jnp.asarray(w))
+    xt, wt = t(x).requires_grad_(), t(w[..., 0, :]).requires_grad_()
+    yt = depthwise_conv3d(xt, wt, (1, 2, 2))
+    assert yt.shape == y.shape
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(y), **TOL)
+    yt.backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **TOL)
+    np.testing.assert_allclose(wt.grad.numpy(), np.asarray(gw)[..., 0, :],
+                               **TOL)
+
+
+@pytest.mark.parametrize("strides,ks", [
+    ((2, 2, 2), (3, 3, 3)), ((1, 2, 2), (5, 1, 1)), ((1, 1, 1), (4, 1, 1)),
+    ((1, 1, 1), (3, 1, 3)), ((1, 1, 1), (9, 1, 1)), ((1, 1, 1), (1, 5, 5))])
+def test_dispatcher_raises_off_its_routes(strides, ks):
+    """No route for (2, 2, 2) (the JAX package's ``impl="pallas"`` returns
+    a stride-1 result there; the port raises), nor for even, unequal or
+    larger taps than the kernels take."""
+    x = t(_rand((1, 4, 4, 4, 3), 6))
+    w = t(_rand(ks + (3,), 7))
+    with pytest.raises(ValueError):
+        depthwise_conv3d(x, w, strides)
+    with pytest.raises(ValueError):
+        dw_stencil3d(x, w, strides)
+
+
+def test_stem_matches_jax_train_forward_and_grads():
+    """The port's ``X3DStem`` in training (conv1_t through
+    ``depthwise_conv3d``) against JAX ``X3DStem(s2d=False, dw_impl="lax")``
+    from the same weights: y, the new split statistics, and the gradients
+    of every parameter and of the input, 1e-4."""
+    rng = np.random.RandomState(8)
+    x = rng.rand(2, 6, 16, 16, 3).astype(np.float32)
+    jm = jx3d.X3DStem(24, s2d=False, dw_impl="lax")
+    v = jax_variables(jm, jnp.asarray(x), train=False)
+    y, stats, vjp = apply_train(jm, v, x)
+    g = rng.randn(*y.shape).astype(np.float32)
+    gp, gx = vjp(jnp.asarray(g))
+    pm = load_port(X3DStem(24), v, ("stem",)).train()
+    xt = t(x).requires_grad_()
+    yt = pm(xt)
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(y), **TOL)
+    yt.backward(t(g))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(gx), **TOL)
+    ref = state_dict_from_jax(nest({"params": gp}, ("stem",)))
+    params = dict(pm.named_parameters())
+    assert set(ref) == set(params)
+    for k, p in params.items():
+        np.testing.assert_allclose(p.grad.numpy(), ref[k].numpy(), **TOL,
+                                   err_msg=k)
+    new = state_dict_from_jax(nest({"params": v["params"],
+                                    "batch_stats": stats}, ("stem",)))
+    for k in ("bn1.split_bn.running_mean", "bn1.split_bn.running_var"):
+        np.testing.assert_allclose(pm.state_dict()[k].numpy(),
+                                   new[k].numpy(), **TOL, err_msg=k)
+
+
+def test_stem_grads_reach_conv1_s_and_conv1_t(monkeypatch):
+    """The stem has a backward on the card: with the kernel wrapper
+    replaced by one that returns a tensor outside autograd, as a launch on
+    the card does, the gradients still reach ``conv1_s`` and ``conv1_t``
+    (through ``DwStencil3d``) and equal those of autograd through the
+    plain version."""
+    torch.manual_seed(0)
+    stem = X3DStem(24).train()
+    x = torch.randn(2, 6, 16, 16, 3)
+    g = torch.randn(2, 6, 8, 8, 24)
+    tracked = ("conv1_s.weight", "conv1_t.weight", "bn1.weight", "bn1.bias")
+
+    def grads():
+        stem.zero_grad(set_to_none=True)
+        stem(x).backward(g)
+        params = dict(stem.named_parameters())
+        return {k: params[k].grad for k in tracked}
+
+    monkeypatch.setattr("coarse_fine_networks_torch.models.x3d."
+                        "depthwise_conv3d",
+                        lambda a, w: dw_stencil3d_plain(a, w))  # autograd
+    ref = grads()
+    monkeypatch.undo()
+    # what the wrapper returns on a CPU tensor, now outside autograd
+    monkeypatch.setattr("coarse_fine_networks_torch.ops.dw_stencil."
+                        "dw_stencil3d_plain",
+                        lambda *a: dw_stencil3d_plain(*a).detach())
+    got = grads()
+    for k in tracked:
+        assert got[k] is not None and float(got[k].abs().max()) > 0, k
+        np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(), **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("ks", [(5, 1, 1), (3, 3, 3), (7, 3, 3)])
+def test_wgrad_plain_against_autograd(ks):
+    """``dw_stencil_wgrad_plain`` against autograd through the plain
+    forward in float64, up to the kernels' largest tap count (63)."""
+    x = _rand((2, 5, 6, 7, 10), 9)
+    g = _rand((2, 5, 6, 7, 10), 10)
+    w = torch.tensor(_rand(ks + (10,), 11), dtype=torch.float64,
+                     requires_grad=True)
+    y = dw_stencil3d_plain(torch.tensor(x, dtype=torch.float64), w)
+    y.backward(torch.tensor(g, dtype=torch.float64))
+    got = dw_stencil_wgrad_plain(t(x), t(g), ks)
+    assert got.shape == (int(np.prod(ks)), 10)
+    np.testing.assert_allclose(got.numpy(), w.grad.reshape(-1, 10).numpy(),
+                               **TOL)
+
+
+def test_wrappers_cpu_take_plain_and_count_nothing():
+    x, g = t(_rand((1, 5, 4, 6, 8), 12)), t(_rand((1, 5, 4, 6, 8), 13))
+    w1, w3 = t(_rand((5, 1, 1, 8), 14)), t(_rand((3, 3, 3, 8), 15))
+    dw_stencil.reset_launches()
+    assert torch.equal(dw_stencil3d(x, w1), dw_stencil3d_plain(x, w1))
+    assert torch.equal(dw_stencil3d(x, w3, (1, 2, 2)),
+                       dw_stencil3d_plain(x, w3, (1, 2, 2)))
+    assert torch.equal(dw_stencil_wgrad(x, g, (5, 1, 1)),
+                       dw_stencil_wgrad_plain(x, g, (5, 1, 1)))
+    assert set(dw_stencil.LAUNCHES) == {"dw_stencil_s1", "dw_stencil_s2",
+                                        "dw_stencil_wgrad"}
+    assert not any(dw_stencil.LAUNCHES.values())
+
+
+def test_bf16_keeps_dtypes():
+    """bf16: y and dx in bf16, the taps' gradient f32 from the wrapper and
+    in the taps' dtype from the Function."""
+    x = t(_rand((1, 4, 5, 5, 8), 16)).bfloat16()
+    w = t(_rand((5, 1, 1, 8), 17)).bfloat16()
+    assert dw_stencil3d(x, w).dtype == torch.bfloat16
+    assert dw_stencil_wgrad(x, x, (5, 1, 1)).dtype == torch.float32
+    xr, wr = x.clone().requires_grad_(), w.clone().requires_grad_()
+    depthwise_conv3d(xr, wr).backward(torch.ones_like(x))
+    assert xr.grad.dtype == wr.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("bad", ["dtype", "w_dtype", "w_channels", "g",
+                                 "noncontig", "device"])
+def test_wrappers_reject(bad):
+    x, g = t(_rand((1, 3, 4, 4, 8), 18)), t(_rand((1, 3, 4, 4, 8), 19))
+    w = t(_rand((5, 1, 1, 8), 20))
+    if bad == "dtype":
+        x, g, w = x.double(), g.double(), w.double()
+    elif bad == "w_dtype":
+        w = w.bfloat16()
+    elif bad == "w_channels":
+        w = w[..., :4].contiguous()
+    elif bad == "g":
+        g = g[:, :, :2].contiguous()
+    elif bad == "noncontig":
+        x, g = x.transpose(2, 3), g.transpose(2, 3)
+    else:  # no kernel and no plain version off the CPU and the card
+        x, g, w = (a.to("meta") for a in (x, g, w))
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "g":
+            dw_stencil_wgrad(x, g, (5, 1, 1))
+        else:
+            dw_stencil3d(x, w)
+    if bad not in ("w_dtype", "w_channels"):
+        with pytest.raises((ValueError, TypeError)):
+            dw_stencil_wgrad(x, g, (5, 1, 1))
+
+
+def test_kernel_source_ships_every_entry():
+    src = dw_stencil.LIBRARY.source.read_text()
+    for name in list(dw_stencil.LAUNCHES) + ["dw_stencil_partial_rows"]:
+        assert f'extern "C" int {name}(' in src
+        assert name in dw_stencil.LIBRARY.functions

@@ -9,7 +9,9 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the three sources, started together);
+   ``nvcc`` for each of the four sources, started together, beside an
+   ``-Xptxas -v`` compile of ``dw_plain_s1.cu`` whose registers, spills
+   and shared memory per kernel make a ``ptxas`` row);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -48,7 +50,10 @@ Phases, each printing JSON lines:
    against its plain version at the fine tower's entry shapes in phases
    A-C of the multigrid long cycle, f32 (TF32 off) and bf16, timed beside
    the plain version and the one PyTorch call that computes the same
-   function (``F.conv3d(groups=C)``, ``aten.convolution_backward``);
+   function (``F.conv3d(groups=C)``, ``aten.convolution_backward``); the
+   stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), the
+   stride-1 weight gradient against itself run again (equal to 0), and
+   each stride-1 row with its work split, blocks per SM and waves;
 10. fine_autograd: the split route's Function against autograd through
    ``F.conv3d(groups=C)``, f32, one shape per stride;
 11. fine_train: fine-stream training under the X3D multigrid long cycle at
@@ -58,8 +63,8 @@ Phases, each printing JSON lines:
    batch-norm splits), seeded uint8 clips and multi-hot labels through
    ``model_batch``, 2 warm-up and 5 timed steps per phase with exact
    launch counts (A-C: the split route's kernels only; D: the act-mode
-   entry's only), a ``torch.profiler`` breakdown of one phase-B and one
-   phase-D step, then the split statistics aggregated and one eval step
+   entry's only), a ``torch.profiler`` breakdown of one step of each
+   phase, then the split statistics aggregated and one eval step
    (the eval kernels only);
 12. fine_card_vs_cpu: one small f32 fine train step at two splits on the
    card and on the CPU from the same weights, held as in phase 8;
@@ -101,7 +106,10 @@ serve, train, train_mm and fine_train phases hold its launches exactly (a
 cold serve batch 2, a hit 1; per train step on either coarse route and per
 long-cycle step 2 ``dw_stencil_s1`` and 1 ``dw_stencil_wgrad``; the fine
 eval step 1; ``dw_stencil_s2`` never), and every profile fails on a grouped
-depthwise convolution left to PyTorch.
+depthwise convolution left to PyTorch.  Every profile (serve, train,
+train_mm, fine_train) also holds each port kernel's profiled launches, by
+kernel function, against the wrappers' counters for the profiled call
+itself, in the timed run and in the shape-recording run.
 
 ``CFN_MM_BN_TRAIN`` is cleared at the start, so every other phase runs the
 route it names.
@@ -117,6 +125,7 @@ import contextlib
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -196,8 +205,24 @@ REPLACES = {
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
+                       else "dw_plain_s1.cu" if k in ("dw_conv_s1",
+                                                      "dw_conv_wgrad_s1")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
+# the kernel function (as the profiler names it) behind each counted
+# wrapper entry
+KERNEL_FUNCS = {
+    "dw_mm_act_kernel": ("dw_mm_act_s1", "dw_mm_act_s2", "dw_act_s1",
+                         "dw_act_s2", "dw_conv_s2"),
+    "dx_s1_kernel": ("dw_act_dx_s1", "dw_mm_dx_mask_s1"),
+    "dx_s2_kernel": ("dw_act_dx_s2", "dw_conv_dx_s2", "dw_mm_dx_mask_s2"),
+    "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_conv_wgrad_s2",
+                     "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
+    "plain_fwd_kernel": ("dw_conv_s1",),
+    "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
+    "stencil_fwd_kernel": ("dw_stencil_s1", "dw_stencil_s2"),
+    "stencil_dk_kernel": ("dw_stencil_wgrad",),
+}
 MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
 # the train step: batch, frames per stage (layers 2-4 run on the T/4+1
 # frames Grid Pool keeps), fine banks, label length
@@ -279,20 +304,65 @@ def entry_cases():
                    h_s1, cin_s1, c_mid, 1, (n - 1) * calls, counted)
 
 
+def _ptxas(source: Path) -> dict:
+    """``nvcc -Xptxas -v`` of one source compiled to a cubin (into the
+    build directory): registers, spill bytes and static shared memory of
+    each kernel, by mangled name."""
+    from coarse_fine_networks_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _build.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    proc = subprocess.run(
+        [_build._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+         str(_build.BUILD_DIR / f"{source.stem}.cubin"), str(source)],
+        capture_output=True, text=True, check=True)
+    out, name = {}, None
+    for line in (proc.stdout + proc.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            stack = re.search(r"(\d+) bytes stack frame", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld),
+                             stack_frame=int(stack.group(1)) if stack else 0)
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def phase_device() -> str:
-    from coarse_fine_networks_torch.ops import _build, dw_act, dw_stencil
+    from concurrent.futures import ThreadPoolExecutor
+
+    from coarse_fine_networks_torch.ops import _build, dw_conv, dw_stencil
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    _build.build_all(dw_act.LIBRARIES + (dw_stencil.LIBRARY,))
+    # the four sources (one nvcc each) and dw_plain_s1.cu's ptxas report,
+    # all started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        ptxas = pool.submit(_ptxas, dw_conv.LIBRARY.source)
+        _build.build_all(dw_conv.LIBRARIES + (dw_stencil.LIBRARY,))
+        ptxas = ptxas.result()
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
+          "sources": [lib.source.name for lib in
+                      dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)],
           "build_s": round(time.perf_counter() - t0, 3)})
+    emit({"phase": "ptxas", "source": SOURCES["dw_conv_s1"],
+          "kernels": ptxas})
+    check(len(ptxas) == 12 and all("registers" in v for v in ptxas.values()),
+          f"ptxas report of {SOURCES['dw_conv_s1']}: {ptxas}")
     return smi
 
 
@@ -848,7 +918,7 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
                                             "dx_s1_kernel", "dx_s2_kernel",
                                             "wgrad_kernel",
                                             "stencil_fwd_kernel",
-                                            "stencil_dk_kernel"))
+                                            "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -1009,9 +1079,10 @@ def fine_entry_cases(crop):
 
 def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
                        lib_what, nbytes, ops, n, counted, agg,
-                       also=()) -> None:
+                       also=(), also_exact=False) -> None:
     """Kernel ``kern`` held against its plain version, and against each of
-    ``also`` (``(name, fn)``: another kernel of the same function), then
+    ``also`` (``(name, fn)``: another kernel of the same function, or the
+    same kernel again; with ``also_exact`` the difference must be 0), then
     timed beside the plain version and ``library``, the one PyTorch call
     that computes the same function; one row, ``meta`` naming the shape.  A
     bf16 row at a ``counted`` shape adds its times, weighted by ``n`` (its
@@ -1034,8 +1105,9 @@ def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
     emit(row)
     tol = TOL[dtype] * max(scale, 1.0)
     check(err <= tol, f"{what}: max abs err {err} (max |plain| {scale})")
-    check(all(e <= tol for e in also_err.values()),
-          f"{what}: against the other kernels {also_err} > {tol}")
+    also_tol = 0.0 if also_exact else tol
+    check(all(e <= also_tol for e in also_err.values()),
+          f"{what}: against the other kernels {also_err} > {also_tol}")
     if dtype == torch.bfloat16:
         # the trained and served dtype
         if counted:
@@ -1048,10 +1120,34 @@ def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
         agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
 
 
-def phase_fine_kernels(dw_conv) -> dict:
+def _plan_row(dw_conv, shape, dtype) -> dict:
+    """The stride-1 kernels' work split at x ``shape`` and what the card
+    makes of it: blocks per SM (the occupancy API) and waves, forward and
+    weight gradient."""
+    p = dw_conv.plan_s1(*shape)
+    lib = dw_conv.LIBRARY.build()
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    row = {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
+           "rows": p.rows, "threads": p.threads}
+    for wg, blocks in ((0, p.items * p.n_pg), (1, p.rows * p.n_pg)):
+        key = "wgrad" if wg else "fwd"
+        occ = lib.dw_plain_s1_occupancy(wg, p.r, p.wb, p.pg, bf16)
+        check(occ > 0, f"plan {shape} {dtype}: {key} does not fit ({occ})")
+        row[key] = {"blocks": blocks, "smem": p.smem(esz, wg),
+                    "blocks_per_sm": occ,
+                    "waves": blocks / (occ * torch.cuda.get_device_properties(
+                        0).multi_processor_count)}
+    return row
+
+
+def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
     """The five kernels of the split-batch-norm route against their plain
     versions, and timed beside the PyTorch call that computes the same
-    function, at the fine entry shapes of long-cycle phases A-C."""
+    function, at the fine entry shapes of long-cycle phases A-C.  The
+    stride-1 forward is also held against K11 (``dw_stencil_s1``, the same
+    function at 3×3×3, summed in the same order): the difference must be 0;
+    the stride-1 weight gradient is launched twice and must repeat bit for
+    bit."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     per_kernel = {k: _agg() for k in FINE_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
@@ -1100,14 +1196,23 @@ def phase_fine_kernels(dw_conv) -> dict:
                     lambda: conv_bwd([False, True, False])[1],
                     "aten.convolution_backward, weight gradient only",
                     (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, blocks)
+                also = {
+                    "dw_conv_s1": (("dw_stencil_s1",
+                                    lambda: dw_stencil.dw_stencil3d(x, w)),),
+                    "dw_conv_wgrad_s1": (("dw_conv_wgrad_s1 again",
+                                          lambda: dw_conv.dw_conv_wgrad(
+                                              x, g, 1)),)}
+                meta = {"entry": f"fine.{phase}.{label}",
+                        "x": [b, t, h, h, c], "stride": s}
+                if s == 1:
+                    meta["plan"] = _plan_row(dw_conv, (b, t, h, h, c), dtype)
                 # each shape weighted by its launches in one step of each
                 # of phases A-C
                 for name, case in cases.items():
                     _hold_time_library(
-                        "fine_kernels", name, {"entry": f"fine.{phase}.{label}",
-                                               "x": [b, t, h, h, c],
-                                               "stride": s},
-                        dtype, *case, True, per_kernel[name])
+                        "fine_kernels", name, meta, dtype, *case, True,
+                        per_kernel[name], also.get(name, ()),
+                        also_exact=name in also)
                 del x, g, xc, gc
             torch.cuda.empty_cache()
     return per_kernel
@@ -1340,31 +1445,101 @@ def _depthwise_conv(e) -> bool:
     return len(w) == 5 and w[1] == 1 and w[0] > 1
 
 
-def _profile_step(fn, ours) -> dict:
-    """``fn`` under ``torch.profiler``: kernel time by name, the port's
-    kernels' share, the card's busy share.  Then ``fn`` once more with the
-    host ops' input shapes recorded (kept out of the timed run, whose host
-    time they would inflate): raises if a grouped depthwise convolution ran
-    in PyTorch (every depthwise conv of the port's paths runs through its
-    kernels, the stem's ``conv1_t`` included)."""
-    from torch.profiler import ProfilerActivity, profile
+def _kernel_func(key: str) -> str:
+    """The kernel function a profiler key names: ``void (anonymous
+    namespace)::wgrad_kernel<float, 1, 0>(...)`` → ``wgrad_kernel``."""
+    m = re.search(r"(\w+)<", key)
+    return m.group(1) if m else key
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t1) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+
+def _profiled_counts(kernels, counters) -> tuple[dict, dict]:
+    """Each port kernel function's launches in a profile (``e.count`` of
+    its instantiations) and the wrappers' counters for the same call."""
+    got = {}
+    for e in kernels:
+        f = _kernel_func(e.key)
+        if f in KERNEL_FUNCS:
+            got[f] = got.get(f, 0) + e.count
+    want = {f: sum(counters.get(n, 0) for n in names)
+            for f, names in KERNEL_FUNCS.items()}
+    return {f: got.get(f, 0) for f in KERNEL_FUNCS}, want
+
+
+def _device_kernels(events) -> list:
+    """The device records of profiler ``events``, without the
+    ``ProfilerStep#`` span the profiler's schedule adds on the device."""
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.key.startswith("ProfilerStep")]
+
+
+def _trace_note(prof) -> dict:
+    """Where a profile's port kernels sit among its device records, in
+    time order: the record count, the first few kernels, and the indices of
+    each port kernel function's records."""
+    names = [_kernel_func(e.name) for e in sorted(
+        _device_kernels(prof.events()), key=lambda e: e.time_range.start)]
+    return {"records": len(names), "first": names[:6],
+            "at": {f: [i for i, n in enumerate(names) if n == f]
+                   for f in ("stencil_fwd_kernel", "stencil_dk_kernel")}}
+
+
+def _profile_step(fn, ours, mods) -> dict:
+    """``fn`` under ``torch.profiler``: kernel time by name, the port's
+    kernels' share (``ours``: kernel functions), the card's busy share.
+    Then ``fn`` once more with the host ops' input shapes recorded (kept out
+    of the timed run, whose host time they would inflate): raises if a
+    grouped depthwise convolution ran in PyTorch (every depthwise conv of
+    the port's paths runs through its kernels, the stem's ``conv1_t``
+    included).  In both runs each port kernel's profiled launches are read
+    beside the counters of ``mods``, reset just before the run.  The timed
+    run records any launch its trace lacks (``profiler_dropped``); the
+    shape-recording run must match the counters exactly, in one of up to
+    three profiled steps.  A trace that starts with the step loses the
+    step's first kernel records: traces of the composite step held
+    7,894-7,895 records against 7,902, began at the stem's batch norm and
+    lacked the stem's forward K11, which the counters (they count only
+    launches that returned success) held.  So each profiled step follows a
+    warm-up step that the profiler traces and discards (its ``schedule``),
+    and ``profiler_notes`` locates the records of any short trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def counted(record_shapes):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     record_shapes=record_shapes,
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            fn()  # the warm-up step
+            torch.cuda.synchronize()
+            prof.step()
+            for m in mods:
+                m.reset_launches()
+            t1 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            prof.step()
+        return prof, wall_ms, _launches(*mods)
+
+    prof, wall_ms, counters = counted(False)
+    kernels = _device_kernels(prof.key_averages())
+    profiled, want = _profiled_counts(kernels, counters)
+    dropped = {f: want[f] - n for f, n in profiled.items() if n != want[f]}
+    notes = {"timed": _trace_note(prof)} if dropped else {}
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     by_ours = {o: sum(e.self_device_time_total for e in kernels
-                      if o in e.key) / 1e3 for o in ours}
+                      if _kernel_func(e.key) == o) / 1e3 for o in ours}
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    with profile(activities=[ProfilerActivity.CPU],
-                 record_shapes=True) as shapes:
-        fn()
-        torch.cuda.synchronize()
+    for attempt in range(3):
+        shapes, _, counters = counted(True)
+        got, want = _profiled_counts(_device_kernels(shapes.key_averages()),
+                                     counters)
+        if got == want:
+            break
+        notes[f"shapes_{attempt}"] = {"got": got, **_trace_note(shapes)}
+    check(got == want, f"shape-recording runs: profiled port-kernel "
+                       f"launches {got} != the counters' {want} three times "
+                       f"(timed run short {dropped}; {notes})")
     depthwise = [[e.name, e.input_shapes] for e in shapes.events()
                  if _depthwise_conv(e)]
     check(not depthwise, f"profile: grouped depthwise convolutions in "
@@ -1375,6 +1550,8 @@ def _profile_step(fn, ours) -> dict:
             "port_kernels_share": (sum(by_ours.values()) / device_ms
                                    if device_ms else None),
             "kernel_launches": sum(e.count for e in kernels),
+            "port_kernel_launches": {f: n for f, n in got.items() if n},
+            "profiler_dropped": dropped, "profiler_notes": notes,
             "depthwise_conv_ops": len(depthwise),
             "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                     for e in top]}
@@ -1475,19 +1652,20 @@ def phase_fine_train(mods) -> dict:
         if splits > 1:
             for k in FINE_KERNELS:
                 split_launches[k] += launches[k]
-        if name in "BD":
-            ours = (("dw_mm_act_kernel", "dx_s2_kernel", "wgrad_kernel")
-                    if splits > 1 else
-                    ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
-                     "wgrad_kernel")) + ("stencil_fwd_kernel",
-                                         "stencil_dk_kernel")
+        # every phase: its device kernel time per step
+        ours = (("plain_fwd_kernel", "plain_wgrad_kernel",
+                 "dw_mm_act_kernel", "dx_s2_kernel", "wgrad_kernel")
+                if splits > 1 else
+                ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
+                 "wgrad_kernel")) + ("stencil_fwd_kernel",
+                                     "stencil_dk_kernel")
 
-            def one_step():
-                step(state, batch, c["lr"], drop)[1]["loss"].item()
-            emit({"phase": "fine_train_profile",
-                  "what": f"one phase-{name} train step, B{b} T{t} "
-                          f"{crop}² bf16, {splits} splits",
-                  **_profile_step(one_step, ours)})
+        def one_step():
+            step(state, batch, c["lr"], drop)[1]["loss"].item()
+        emit({"phase": "fine_train_profile",
+              "what": f"one phase-{name} train step, B{b} T{t} "
+                      f"{crop}² bf16, {splits} splits",
+              **_profile_step(one_step, ours, mods)})
         del batch
         torch.cuda.empty_cache()
 
@@ -1665,7 +1843,7 @@ def phase_serve(dw_mm_act, dw_act, dw_stencil, want: dict) -> dict:
     return launches, pipe
 
 
-def phase_profile(pipe) -> None:
+def phase_profile(pipe, mods) -> None:
     """Device-time breakdown of one cold batch (extract + fuse, 3 videos at
     T=64/T_f=128, 224²) called directly, under ``torch.profiler``."""
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -1684,7 +1862,8 @@ def phase_profile(pipe) -> None:
     torch.cuda.synchronize()
     emit({"phase": "profile", "what": "one cold batch, extract + fuse, "
                                       "3 videos T=64/T_f=128 224² bf16",
-          **_profile_step(batch, ("dw_mm_act", "stencil_fwd_kernel"))})
+          **_profile_step(batch, ("dw_mm_act_kernel", "stencil_fwd_kernel"),
+                          mods)})
 
 
 def phase_card_vs_cpu() -> None:
@@ -1755,7 +1934,7 @@ def main() -> int:
     smi = phase_device()
     per_kernel = phase_kernels(dw_mm_act)
     per_kernel.update(phase_train_kernels(dw_act))
-    per_kernel.update(phase_fine_kernels(dw_conv))
+    per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
     per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
     phase_autograd(dw_act)
     phase_fine_autograd(dw_conv)
@@ -1764,7 +1943,7 @@ def main() -> int:
         dw_mm_act, dw_act, dw_stencil,
         {k: per_kernel[k]["launches"] if k in MM_KERNELS else 0
          for k in dw_mm_act.LAUNCHES})
-    phase_profile(pipe)
+    phase_profile(pipe, mods)
     del pipe
     phase_card_vs_cpu()
     act_launches, train_row = phase_train(mods)

@@ -10,7 +10,7 @@
 // sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
 // is dL/dy (y's shape and dtype).
 //
-// Eleven kernel entries, each replacing a TPU Pallas kernel of
+// Ten kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
 // dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; plain mode: the
 // backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd;
@@ -23,12 +23,11 @@
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
 //   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
 //   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
-//   * dw_conv_wgrad_s1  <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (plain)
 //   * dw_conv_wgrad_s2  <- _wgrad_s2_pcall -> _wgrad_s2_kernel (plain)
 //   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
-// (the plain stride-1 dx is the forward's dw_conv_s1 on the flipped taps,
-// in dw_mm_act.cu, as in the JAX package).
+// (the plain mode at stride 1, its dx and weight gradient, is in
+// dw_plain_s1.cu).
 //
 // dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
 //              stride 2 the half-resolution gather
@@ -490,8 +489,8 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // have the row counts of dw_act_partial_rows.
 
 // Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
-// wgrad_s1, wgrad_s2 (the plain- and mm-mode weight gradients have the act
-// mode's rows).
+// wgrad_s1, wgrad_s2 (the mm-mode weight gradients and the plain one at
+// stride 2 have the act mode's rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
@@ -570,18 +569,6 @@ extern "C" int dw_conv_dx_s2(const void* g, const void* w, void* dx, int B,
                                               C, C, st);
   return launch_dx_s2<float, PLAIN>(g, nullptr, nullptr, w, nullptr, nullptr,
                                     dx, nullptr, B, T, H, W, C, C, st);
-}
-
-extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part, int B,
-                                int T, int H, int W, int C, int is_bf16,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1, PLAIN>(x, nullptr, g, nullptr,
-                                                 nullptr, part, B, T, H, W, C,
-                                                 C, st);
-  return launch_wgrad<float, 1, PLAIN>(x, nullptr, g, nullptr, nullptr, part, B,
-                                       T, H, W, C, C, st);
 }
 
 extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part, int B,

@@ -4,8 +4,9 @@
 //   act   (train):           y = dwconv3x3x3( relu( x * sc + bi ) )
 //   plain (train, split bn): y = dwconv3x3x3( x )
 //
-// all at stride 1 or (1,2,2). x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
-// channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
+// mm and act at stride 1 or (1,2,2), plain at stride (1,2,2) only (its
+// stride-1 entry, dw_conv_s1, has a layout of its own in dw_plain_s1.cu).
+// x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
 // vectors of bn1 (running statistics in eval, batch statistics in train). In
 // act and plain mode x is the conv1 output (plain: already normalised per
@@ -13,14 +14,13 @@
 //
 // Replaces three modes of two TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
-//   * dw_mm_act_s1 / dw_act_s1 / dw_conv_s1 <- _dw_fold4_pcall ->
-//     _fwd_kernel (stride 1, modes mm, act and plain), and
+//   * dw_mm_act_s1 / dw_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1,
+//     modes mm and act), and
 //   * dw_mm_act_s2 / dw_act_s2 / dw_conv_s2 <- _fwd_s2_direct_pcall ->
 //     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
 //     positions is computed; modes mm, act and plain),
 // with the tile prologues _mm_act_tile (mm) and _act_tile (act); plain mode
-// has none. dw_conv_s1 on g with the flipped taps is also the stride-1 dx of
-// plain mode (the JAX package's _dw_fold4_bwd). Semantics kept from them:
+// has none. Semantics kept from them:
 //   * the activation a is computed in f32 and rounded to x's dtype before
 //     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
@@ -237,13 +237,6 @@ extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
 }
 
 // plain mode: x is (B,T,H,W,C), already activated; no W1, sc or bi.
-extern "C" int dw_conv_s1(const void* x, const void* wdw, void* y, int B,
-                          int T, int H, int W, int C, int is_bf16,
-                          void* stream) {
-  return dispatch<1, PLAIN>(x, nullptr, wdw, nullptr, nullptr, y, B, T, H, W,
-                            C, C, is_bf16, stream);
-}
-
 extern "C" int dw_conv_s2(const void* x, const void* wdw, void* y, int B,
                           int T, int H, int W, int C, int is_bf16,
                           void* stream) {

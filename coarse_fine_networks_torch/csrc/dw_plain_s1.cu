@@ -1,0 +1,603 @@
+// The plain depthwise 3x3x3 conv at stride 1 of the split-batch-norm
+// training route, and its weight gradient, for Hopper (sm_90a):
+//
+//   dw_conv_s1        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
+//                                   x[t+dt-1, h+dy-1, w+dx-1, c]
+//                     (SAME zero padding; on g with the flipped taps it is
+//                     also the stride-1 dx, as in the JAX package)
+//   dw_conv_wgrad_s1  dk[dt,dy,dx,c] = sum_{t,h,w} x_pad[t+dt, h+dy, w+dx, c]
+//                                      * g[t,h,w,c]
+//                     per block an f32 partial row (27, C)
+//
+// x, y and g are channels-last (B,T,H,W,C), f32 or bf16; the taps k (27,C)
+// have x's dtype. Every sum is in f32; y is written in x's dtype.
+//
+// Replaces the plain mode of two TPU Pallas kernels of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+//   * dw_conv_s1       <- _dw_fold4_pcall (:532) -> _fwd_kernel (:379),
+//                         plain mode (K1 plain), also the stride-1 dx of
+//                         _dw_fold4_bwd;
+//   * dw_conv_wgrad_s1 <- _dw_fold4_wgrad_pcall (:705) -> _wgrad_kernel
+//                         (:478), plain mode (K6 plain).
+// The fold4 lane layout is TPU mechanics and is not carried over.
+//
+// What bounds them on this card: bytes. The forward reads x once and
+// writes y once; the weight gradient reads x and g once. Each does 27 MACs
+// per element, far below the ~295 operations per byte where the tensor
+// cores would matter; at bf16 the 27 f32 FMAs per element cost about 0.7x
+// the time of the bytes, so the instructions around them must stay few.
+//
+// What the design does about it:
+//   * A block owns R output rows x WB full-width columns (all W where W <=
+//     256) x a group of PG channel pairs, for one sample and a segment of
+//     TT frames. Its spatial halo is (R+2)/R rows and no columns (a column
+//     halo only where W is split), its temporal halo 2 frames per TT.
+//   * Input rows are staged into a shared-memory ring of NSTAGE frames in
+//     x's own dtype by asynchronous copies (cp.async, one commit group per
+//     frame), so frame t+2 loads while frame t is computed. Each thread
+//     copies the channel pair it computes (4 bytes in bf16, 8 in f32; a
+//     warp's copies are contiguous runs of a row), with offsets fixed for
+//     the tile: a frame costs it R+2 copies (R+2 more at the two halo
+//     columns) and no index arithmetic. At odd C (no path shape has one) a
+//     pair is not aligned, and the same kernel stages it with plain loads.
+//   * Each thread owns one channel pair (one 4-byte bf16x2 or 8-byte float2
+//     shared-memory read) at one column over the R rows, and walks the
+//     frames with a register ring of the 3 output frames an input frame
+//     feeds (K11's ring, dw_stencil.cu). A staged value read once serves up
+//     to 3 rows x 3 frames of outputs: (R+2)*3 reads per frame for 2R
+//     output elements, against 27 f32 reads per output element before.
+//   * Rows and columns of a tile that lie outside the frame are zeroed in
+//     the ring once per tile and never copied, so they read as the zero
+//     padding; with R a template argument (2..4) the stencil loop is fully
+//     unrolled and has no branch.
+//   * The forward adds each output's taps in the order dt, dy, dx with one
+//     fmaf each, as K11 does: at 3x3x3 it equals dw_stencil_s1 bit for bit
+//     (a tap on the zero padding adds fmaf(k, 0, acc) = acc, as in K11).
+//   * The weight gradient keeps its 27 x 2 sums in registers over its whole
+//     walk. Its grid is persistent: each block walks IPB consecutive work
+//     items (sample, frame segment, row strip, column tile) of its channel
+//     group, then sums its threads' columns in a fixed order and writes one
+//     partial row; the wrapper adds the rows with one torch.sum, so runs
+//     repeat bit for bit and nothing uses atomics.
+// The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
+// count) is computed by the wrapper (ops/dw_conv.py:plan_s1) and checked
+// here; a plan the kernels do not take returns cudaErrorInvalidValue.
+
+#include "common.cuh"
+
+namespace {
+
+using namespace cfn;
+
+constexpr int NT_MAX = 256;  // threads per block at most (WB * PG)
+constexpr int RMIN = 2;      // output rows per strip: a template argument
+constexpr int RMAX = 4;      // in [RMIN, RMAX]
+constexpr int NSTAGE = 3;    // frames in the shared-memory ring
+
+// A channel pair in the tensor's dtype, as read from shared memory
+__device__ __forceinline__ float2 load_pair(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_pair(T* p, float a, float b, bool pair,
+                                          bool second) {
+  if (pair) {  // both channels exist and the address is pair-aligned
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float2*>(p) = make_float2(a, b);
+    } else {
+      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+    }
+  } else {
+    p[0] = from_f<T>(a);
+    if (second) p[1] = from_f<T>(b);
+  }
+}
+
+// One channel pair from global to shared memory: a cp.async of 4 (bf16) or
+// 8 (f32) bytes where C is even and x pair-aligned (every shape of the
+// path), else (odd C) plain loads of the one or two channels that exist.
+template <typename T>
+__device__ __forceinline__ void copy_pair(T* d, const T* s, bool pairs,
+                                          bool second) {
+  if (pairs) {
+    const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa),
+                 "l"(s), "n"(2 * sizeof(T)));
+  } else {
+    d[0] = s[0];
+    if (second) d[1] = s[1];
+  }
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The block's tile: rows [h0, h0+R), columns [w0, w0+WB), channel pairs
+// [p0, p0+PG) of sample b, frames [t0, t1).
+struct Tile {
+  int b, t0, t1, h0, w0, p0;
+};
+
+struct Plan {
+  int R, WB, PG, TT;
+  int n_strip, n_wt, n_pg, n_tseg;
+  int pairs;  // channel pairs are staged by cp.async (C even, aligned)
+
+  // work items of one channel group, in the order (b, frame segment, row
+  // strip, column tile)
+  __device__ __forceinline__ Tile tile(int item, int pg, int Tn) const {
+    Tile tl;
+    tl.w0 = (item % n_wt) * WB;
+    item /= n_wt;
+    tl.h0 = (item % n_strip) * R;
+    item /= n_strip;
+    tl.t0 = (item % n_tseg) * TT;
+    tl.t1 = min(tl.t0 + TT, Tn);
+    tl.b = item / n_tseg;
+    tl.p0 = pg * PG;
+    return tl;
+  }
+};
+
+// One thread's share of staging a tile: its channel pair c at staged
+// columns wl and, for wl < 2, WB + wl (input columns w0 - 1 + that), every
+// row (x, with its column halo), or at staged column wl + 1 only (g). Slot
+// and source offsets within a row are fixed for the tile, so a frame costs
+// the thread (rows) x (1 or 2) copies and no index arithmetic.
+struct Stager {
+  int src0, src1, dst0, dst1, PG2, C;
+  bool u0, u1, uc, pairs, second;
+
+  __device__ __forceinline__ Stager(const Tile& tl, int wl, int pi, int WB,
+                                    int PG2_, int W, int C_, bool pairs_)
+      : PG2(PG2_), C(C_), pairs(pairs_) {
+    const int c = 2 * (tl.p0 + pi);
+    const int g0 = tl.w0 - 1 + wl, g1 = tl.w0 - 1 + WB + wl;
+    u0 = wl < WB && g0 >= 0 && g0 < W && c < C;
+    u1 = wl < 2 && g1 < W && c < C;
+    uc = wl < WB && g0 + 1 < W && c < C;
+    src0 = g0 * C + c;
+    src1 = g1 * C + c;
+    dst0 = wl * PG2 + 2 * pi;
+    dst1 = (WB + wl) * PG2 + 2 * pi;
+    second = c + 1 < C;
+  }
+
+  // rows [hs, hs + nr) of frame f (H, W, C), clipped to the frame, into
+  // dst laid out [nr][WB + 2][2PG]: every staged column (halo) or only the
+  // thread's own (column wl + 1)
+  template <typename T>
+  __device__ __forceinline__ void rows(T* dst, const T* f, int hs, int nr,
+                                       int H, int W, int rowlen,
+                                       bool halo) const {
+    const int lo = max(hs, 0), hi = min(hs + nr, H);
+    for (int h = lo; h < hi; ++h) {
+      const T* src = f + (size_t)h * W * C;
+      T* d = dst + (h - hs) * rowlen;
+      if (halo) {
+        if (u0) copy_pair(d + dst0, src + src0, pairs, second);
+        if (u1) copy_pair(d + dst1, src + src1, pairs, second);
+      } else if (uc) {
+        copy_pair(d + dst0 + PG2, src + src0 + C, pairs, second);
+      }
+    }
+  }
+};
+
+// Zeroes the block's ring (bytes, a multiple of 16) and synchronises: the
+// rows and columns of a tile that lie outside the frame are never copied, so
+// they read as the zero padding for the whole tile.
+__device__ __forceinline__ void zero_ring(unsigned char* ring, int bytes) {
+  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
+    *reinterpret_cast<uint4*>(ring + i) = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+}
+
+// Elements of one staged frame of `rows` rows, padded to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ int stage_elems(int rows, int WB, int PG) {
+  return (rows * (WB + 2) * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 /
+         (int)sizeof(T);
+}
+
+// The stencil of one staged input frame at the thread's column and channel
+// pair: for staged row rr (input row h0 - 1 + rr) and output row r with dy =
+// rr - r in [0, 2], the 3 taps dx of each dt meet the 3 neighbours. FN(j, r,
+// dy, dx, v) does one multiply-add; everything is unrolled, so the loop has
+// no branch and the shared-memory reads of a row can run ahead.
+template <typename T, int R, typename FN>
+__device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
+                                              int PG2, FN fn) {
+#pragma unroll
+  for (int rr = 0; rr < R + 2; ++rr) {
+    const T* row = tile + rr * rowlen;
+    const float2 v[3] = {load_pair(row), load_pair(row + PG2),
+                         load_pair(row + 2 * PG2)};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int dy = rr - r;
+      if (dy < 0 || dy > 2) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+    }
+  }
+}
+
+// ---- forward ----------------------------------------------------------------
+// Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
+// with c = 2*(p0 + pi). acc[j][r] holds output frame ti - 1 + j of row
+// h0 + r while input frame ti is read: frame ti adds tap dt = 2 - j to it.
+// After frame ti, acc[0] (output ti - 1) is complete, is written, and the
+// ring shifts. Staged row rr is input row h0 - 1 + rr; staged column j is
+// input column w0 - 1 + j.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                 T* __restrict__ y, int Tn, int H, int W, int C, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 2) * PG2;
+  const int stage = stage_elems<T>(R + 2, WB, PG);
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int w = tl.w0 + wl;
+  const int c = 2 * (tl.p0 + pi);
+  // threads past the block's columns read nothing (the last warp's tail)
+  const bool in = wl < WB;
+  const bool live = in && w < W && c < C;  // owns outputs
+  const bool second = c + 1 < C;
+
+  float k0[27], k1[27];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) {
+    k0[i] = live ? to_f(k[i * C + c]) : 0.f;
+    k1[i] = live && second ? to_f(k[i * C + c + 1]) : 0.f;
+  }
+
+  const size_t frame = (size_t)H * W * C;
+  const T* xb = x + (size_t)tl.b * Tn * frame;
+  const Stager sg(tl, wl, pi, WB, PG2, W, C, pl.pairs);
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
+  auto load = [&](int i) {
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
+      sg.rows(ring + (i % NSTAGE) * stage, xb + (size_t)ti * frame,
+              tl.h0 - 1, R + 2, H, W, rowlen, true);
+    cp_commit();
+  };
+
+  float acc[3][R][2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
+
+  zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
+  for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+  for (int i = 0; i < nf; ++i) {
+    cp_wait<NSTAGE - 2>();  // this thread's copies of frame i have landed
+    __syncthreads();        // and everyone's; frame i-1 is read by no one
+    load(i + NSTAGE - 1);   // into frame i-1's slot
+    const int ti = f0 + i;
+    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+      stencil_frame<T, R>(
+          ring + (i % NSTAGE) * stage + wl * PG2 + 2 * pi, rowlen, PG2,
+          [&](int j, int r, int dy, int dx, float2 v) {
+            const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+            acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+            acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+          });
+    const int to = ti - 1;  // complete now
+    if (to >= tl.t0 && live) {
+      T* yo = y + (((size_t)tl.b * Tn + to) * H + tl.h0) * W * C +
+              (size_t)w * C + c;
+      const bool pair = second && !(C & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < H)
+          store_pair(yo + (size_t)r * W * C, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[2][r][0];
+      acc[1][r][1] = acc[2][r][1];
+      acc[2][r][0] = acc[2][r][1] = 0.f;
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---- weight gradient ------------------------------------------------------------
+// Thread (wl, pi) as in the forward. Slot i of the ring holds x frame
+// f0 + i (rows h0-1 .. h0+R, columns w0-1 .. w0+WB) and g frame f0 + i + 1
+// (rows h0 .. h0+R-1 at columns w0 .. w0+WB-1, slots 1 .. WB). While x
+// frame ti is read, gr[j][r] holds g frame ti - 1 + j of row h0 + r (zero
+// outside [t0, t1) and the frame): x frame ti pairs with it through tap
+// dt = 2 - j. acc[tap] sums x * g over the thread's whole walk.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   float* __restrict__ part, int Tn, int H, int W, int C,
+                   Plan pl, int n_items, int ipb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 2) * PG2;
+  const int xstage = stage_elems<T>(R + 2, WB, PG);
+  const int stage = xstage + stage_elems<T>(R, WB, PG);
+
+  const int pg = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const bool in = wl < WB;
+  const size_t frame = (size_t)H * W * C;
+  const int at = (wl + 1) * PG2 + 2 * pi;  // the thread's column in a slot
+
+  float acc[27][2];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const int row = blockIdx.x;
+  const int it1 = min((row + 1) * ipb, n_items);
+  for (int item = row * ipb; item < it1; ++item) {
+    const Tile tl = pl.tile(item, pg, Tn);
+    const T* xb = x + (size_t)tl.b * Tn * frame;
+    const T* gb = g + (size_t)tl.b * Tn * frame;
+    const Stager sg(tl, wl, pi, WB, PG2, W, C, pl.pairs);
+    const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    auto load = [&](int i) {
+      if (i < nf) {  // uniform across the block
+        T* slot = ring + (i % NSTAGE) * stage;
+        const int ti = f0 + i, tg = ti + 1;
+        if (ti >= 0 && ti < Tn)
+          sg.rows(slot, xb + (size_t)ti * frame, tl.h0 - 1, R + 2, H, W,
+                  rowlen, true);
+        if (tg >= tl.t0 && tg < tl.t1)
+          sg.rows(slot + xstage, gb + (size_t)tg * frame, tl.h0, R, H, W,
+                  rowlen, false);
+      }
+      cp_commit();
+    };
+
+    float gr[3][R][2];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
+
+    zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
+    for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+    for (int i = 0; i < nf; ++i) {
+      cp_wait<NSTAGE - 2>();
+      __syncthreads();
+      load(i + NSTAGE - 1);
+      const int ti = f0 + i, tg = ti + 1;
+      const T* slot = ring + (i % NSTAGE) * stage;
+      const bool gin = in && tg >= tl.t0 && tg < tl.t1;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        gr[0][r][0] = gr[1][r][0];
+        gr[0][r][1] = gr[1][r][1];
+        gr[1][r][0] = gr[2][r][0];
+        gr[1][r][1] = gr[2][r][1];
+        const float2 v = gin ? load_pair(slot + xstage + r * rowlen + at)
+                             : make_float2(0.f, 0.f);
+        gr[2][r][0] = v.x;
+        gr[2][r][1] = v.y;
+      }
+      if (ti >= 0 && ti < Tn && in)
+        stencil_frame<T, R>(
+            slot + at - PG2, rowlen, PG2,
+            [&](int j, int r, int dy, int dx, float2 v) {
+              const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+              acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
+              acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+            });
+    }
+    cp_wait<0>();
+    __syncthreads();  // the next item zeroes and refills every slot
+  }
+
+  // fixed-order sum over the block's columns: red[tap][wl][2PG], then slot
+  // (tap, channel) adds its WB columns in order and writes row blockIdx.x
+  float* red = reinterpret_cast<float*>(smem_raw);
+  if (in) {
+#pragma unroll
+    for (int i = 0; i < 27; ++i) {
+      red[(i * WB + wl) * PG2 + 2 * pi] = acc[i][0];
+      red[(i * WB + wl) * PG2 + 2 * pi + 1] = acc[i][1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 27 * PG2; i += blockDim.x) {
+    const int tap = i / PG2, s = i % PG2;
+    const int ch = 2 * pg * PG + s;
+    if (ch >= C) continue;
+    float sum = 0.f;
+    for (int q = 0; q < WB; ++q) sum += red[(tap * WB + q) * PG2 + s];
+    part[((size_t)row * 27 + tap) * C + ch] = sum;
+  }
+}
+
+// ---- launchers -----------------------------------------------------------------
+
+// The plan's derived counts, or false where the kernels do not take it.
+template <typename T>
+bool make_plan(Plan& p, uintptr_t ptrs, int B, int Tn, int H, int W, int C,
+               int R, int WB, int PG, int TT) {
+  if (B < 1 || Tn < 1 || H < 1 || W < 1 || C < 1) return false;
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || TT < 1) return false;
+  // the halo columns WB and WB+1 are staged by the threads of columns 0
+  // and 1, so a block has two columns unless the frame has one
+  if (WB * PG > NT_MAX || WB > W || (WB < 2 && W > 1)) return false;
+  const int esz = (int)sizeof(T), P2 = (C + 1) / 2;
+  if (PG > P2) return false;
+  p.R = R;
+  p.WB = WB;
+  p.PG = PG;
+  p.TT = TT;
+  p.n_strip = cdiv(H, R);
+  p.n_wt = cdiv(W, WB);
+  p.n_pg = cdiv(P2, PG);
+  p.n_tseg = cdiv(Tn, TT);
+  // pairs by cp.async where every pair is aligned to its size
+  p.pairs = C % 2 == 0 && ptrs % (2 * esz) == 0;
+  return true;
+}
+
+int threads_of(const Plan& p) { return (p.WB * p.PG + 31) / 32 * 32; }
+
+// Dynamic shared memory of the forward (the ring) and of the weight
+// gradient (the ring of x and g frames, or the column sums if larger).
+template <typename T>
+size_t fwd_smem(int R, int WB, int PG) {
+  return sizeof(T) * NSTAGE * stage_elems<T>(R + 2, WB, PG);
+}
+template <typename T>
+size_t wgrad_smem(int R, int WB, int PG) {
+  const size_t ring =
+      sizeof(T) * NSTAGE * (stage_elems<T>(R + 2, WB, PG) +
+                            stage_elems<T>(R, WB, PG));
+  const size_t red = sizeof(float) * 27 * WB * 2 * PG;
+  return ring > red ? ring : red;
+}
+
+// The kernel instantiation for R output rows (RMIN..RMAX), or null.
+template <typename T>
+decltype(&plain_fwd_kernel<T, RMAX>) fwd_kernel(int R) {
+  switch (R) {
+    case 2: return plain_fwd_kernel<T, 2>;
+    case 3: return plain_fwd_kernel<T, 3>;
+    case 4: return plain_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&plain_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_wgrad_kernel<T, 2>;
+    case 3: return plain_wgrad_kernel<T, 3>;
+    case 4: return plain_wgrad_kernel<T, 4>;
+  }
+  return nullptr;
+}
+
+template <typename T>
+int launch_fwd(const void* x, const void* k, void* y, int B, int Tn, int H,
+               int W, int C, int R, int WB, int PG, int TT, cudaStream_t st) {
+  Plan p;
+  if (!make_plan<T>(p, (uintptr_t)x, B, Tn, H, W, C, R, WB, PG, TT))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = fwd_kernel<T>(R);
+  const size_t smem = fwd_smem<T>(R, WB, PG);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<T*>(y),
+      Tn, H, W, C, p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
+                 int H, int W, int C, int R, int WB, int PG, int TT, int ipb,
+                 int rows, cudaStream_t st) {
+  Plan p;
+  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, Tn, H, W, C, R, WB, PG,
+                    TT) ||
+      ipb < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_tseg * p.n_strip * p.n_wt;
+  // every block has an item, and the blocks cover them all
+  if (rows < 1 || (long long)rows * ipb < items ||
+      (long long)(rows - 1) * ipb >= items)
+    return (int)cudaErrorInvalidValue;
+  const auto kern = wgrad_kernel_of<T>(R);
+  const size_t smem = wgrad_smem<T>(R, WB, PG);
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<float*>(part), Tn, H, W, C, p, (int)items, ipb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int occupancy(int wgrad, int R, int WB, int PG) {
+  if (R < RMIN || R > RMAX || WB * PG > NT_MAX) return -1;
+  const int threads = (WB * PG + 31) / 32 * 32;
+  int n = -1;
+  cudaError_t e;
+  if (wgrad) {
+    const auto kern = wgrad_kernel_of<T>(R);
+    const size_t smem = wgrad_smem<T>(R, WB, PG);
+    e = (cudaError_t)set_smem(kern, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                        smem);
+  } else {
+    const auto kern = fwd_kernel<T>(R);
+    const size_t smem = fwd_smem<T>(R, WB, PG);
+    e = (cudaError_t)set_smem(kern, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                        smem);
+  }
+  return e == cudaSuccess ? n : -1;
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes). Each returns cudaGetLastError()
+// after the launch: 0 means the kernel was launched. (R, WB, PG, TT) is the
+// wrapper's split: R output rows, WB columns and PG channel pairs per block,
+// TT frames per segment.
+extern "C" int dw_conv_s1(const void* x, const void* k, void* y, int B, int T,
+                          int H, int W, int C, int R, int WB, int PG, int TT,
+                          int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
+                                     st);
+  return launch_fwd<float>(x, k, y, B, T, H, W, C, R, WB, PG, TT, st);
+}
+
+// part is (rows, 27, C) f32; block row r walks items [r*IPB, (r+1)*IPB).
+extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part,
+                                int B, int T, int H, int W, int C, int R,
+                                int WB, int PG, int TT, int ipb, int rows,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16>(x, g, part, B, T, H, W, C, R, WB, PG,
+                                       TT, ipb, rows, st);
+  return launch_wgrad<float>(x, g, part, B, T, H, W, C, R, WB, PG, TT, ipb,
+                             rows, st);
+}
+
+// Blocks per SM the two kernels reach at a plan (R, WB, PG), with its
+// threads and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or -1 where the kernels do not take it.
+extern "C" int dw_plain_s1_occupancy(int wgrad, int R, int WB, int PG,
+                                     int is_bf16) {
+  return is_bf16 ? occupancy<__nv_bfloat16>(wgrad, R, WB, PG)
+                 : occupancy<float>(wgrad, R, WB, PG);
+}

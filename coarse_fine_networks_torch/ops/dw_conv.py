@@ -13,12 +13,18 @@ flipped taps (stride-1 dx), K8 (stride-2 dx) and the plain mode of K6/K10.
 
 Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 
-* ``dw_conv_s1``/``dw_conv_s2``: :func:`dw_conv3d`, in ``csrc/dw_mm_act.cu``
-  (the plain mode of the bottleneck-entry kernel); ``dw_conv_s1`` on ``g``
-  with the flipped taps is also the stride-1 dx;
+* ``dw_conv_s1``: :func:`dw_conv3d` at stride 1, in ``csrc/dw_plain_s1.cu``
+  (full-width row strips staged by ``cp.async``, a channel pair per thread,
+  a register ring along T); on ``g`` with the flipped taps it is also the
+  stride-1 dx;
+* ``dw_conv_wgrad_s1``: :func:`dw_conv_wgrad` at stride 1, in the same
+  source (the same staging and threads, a persistent grid); both take the
+  work split of :func:`plan_s1`;
+* ``dw_conv_s2``: :func:`dw_conv3d` at stride 2, in ``csrc/dw_mm_act.cu``
+  (the plain mode of the bottleneck-entry kernel);
 * ``dw_conv_dx_s2``: :func:`dw_conv_dx_s2`, in ``csrc/dw_act_bwd.cu`` (the
   act-mode stride-2 dx without the mask, the scale and the sums);
-* ``dw_conv_wgrad_s1``/``dw_conv_wgrad_s2``: :func:`dw_conv_wgrad`, in
+* ``dw_conv_wgrad_s2``: :func:`dw_conv_wgrad` at stride 2, in
   ``csrc/dw_act_bwd.cu``.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
@@ -28,12 +34,26 @@ kernel on a CUDA tensor, or raises.  All tensors are channels-last
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
+from ._build import CudaLibrary, I, P
 from .dw_act import _check
-from .dw_mm_act import BWD_LIBRARY, LIBRARIES, _launch, _out_hw, _partials
+from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw, _partials
+from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
 from .dw_mm_act import stencil_f32, wgrad_f32
+
+# The stride-1 kernels; the stride-2 ones are in the bottleneck entry's
+# sources (FWD_LIBRARY, BWD_LIBRARY).
+LIBRARY = CudaLibrary("dw_plain_s1.cu", {
+    "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
+    "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
+    "dw_plain_s1_occupancy": [I] * 5,
+})
+# every source this module's kernels are in
+LIBRARIES = ENTRY_LIBRARIES + (LIBRARY,)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by a plain version).
@@ -44,6 +64,117 @@ LAUNCHES = {"dw_conv_s1": 0, "dw_conv_s2": 0, "dw_conv_dx_s2": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ---- the stride-1 kernels' work split ------------------------------------------
+
+NT_MAX = 256  # threads per block at most (csrc/dw_plain_s1.cu)
+RMIN, RMAX = 2, 4  # output rows per strip (a template argument there)
+TT_MIN = 8    # frames per segment at least, where the forward splits T
+NSTAGE = 3    # frames in the kernels' shared-memory ring
+SMS = 132     # the H100's SMs
+# the forward aims at two waves at two blocks per SM; the weight gradient's
+# persistent grid at two blocks per SM
+FWD_BLOCKS, WG_BLOCKS = 4 * SMS, 2 * SMS
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class PlanS1(NamedTuple):
+    """How ``dw_conv_s1`` and ``dw_conv_wgrad_s1`` split ``(B, T, H, W,
+    C)``: a block owns ``r`` output rows × ``wb`` columns × ``pg`` channel
+    pairs of one sample over ``tt`` frames; the forward has one block per
+    tile, the weight gradient ``rows`` blocks per channel group, each
+    walking ``ipb`` consecutive items (its row of the partial buffer)."""
+    b: int
+    t: int
+    h: int
+    w: int
+    c: int
+    r: int
+    wb: int
+    pg: int
+    tt: int
+    ipb: int
+    rows: int
+
+    @property
+    def n_strip(self) -> int:
+        return _cdiv(self.h, self.r)
+
+    @property
+    def n_wt(self) -> int:
+        return _cdiv(self.w, self.wb)
+
+    @property
+    def n_pg(self) -> int:
+        return _cdiv(_cdiv(self.c, 2), self.pg)
+
+    @property
+    def n_tseg(self) -> int:
+        return _cdiv(self.t, self.tt)
+
+    @property
+    def items(self) -> int:
+        """Work items of one channel group."""
+        return self.b * self.n_tseg * self.n_strip * self.n_wt
+
+    @property
+    def threads(self) -> int:
+        return _cdiv(self.wb * self.pg, 32) * 32
+
+    def tile(self, item: int, pg: int):
+        """``(b, (t0, t1), (h0, h1), (w0, w1), (c0, c1))`` of an item and a
+        channel group, clipped to the tensor: ``Plan::tile`` of the
+        source."""
+        w0 = item % self.n_wt * self.wb
+        item //= self.n_wt
+        h0 = item % self.n_strip * self.r
+        item //= self.n_strip
+        t0 = item % self.n_tseg * self.tt
+        b = item // self.n_tseg
+        c0 = 2 * pg * self.pg
+        return (b, (t0, min(t0 + self.tt, self.t)),
+                (h0, min(h0 + self.r, self.h)),
+                (w0, min(w0 + self.wb, self.w)),
+                (c0, min(c0 + 2 * self.pg, self.c)))
+
+    def smem(self, esz: int, wgrad: bool) -> int:
+        """Dynamic shared memory per block, in bytes, as the source's
+        launchers size it."""
+        def stage(rows):
+            return _cdiv(rows * (self.wb + 2) * 2 * self.pg * esz, 16) * 16
+        if not wgrad:
+            return NSTAGE * stage(self.r + 2)
+        ring = NSTAGE * (stage(self.r + 2) + stage(self.r))
+        return max(ring, 4 * 27 * self.wb * 2 * self.pg)
+
+
+def plan_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of the stride-1 kernels for x ``(B, T, H, W, C)``.
+
+    Columns: all W in one block where W ≤ 256 (so at least two where W
+    is: the kernels stage the halo columns with the threads of columns 0
+    and 1).  Channel pairs: as many as fill 256 threads with the block's
+    columns, in equal groups.  Rows: strips of 2 to 4, of equal height
+    (rows past H read the zero padding).  Frames: the whole clip, halved
+    (down to 8) until the forward has two waves of blocks.  The weight
+    gradient walks the same items, ``ipb`` per block, on about two blocks
+    per SM."""
+    p2 = _cdiv(c, 2)
+    wb = _cdiv(w, _cdiv(w, NT_MAX))
+    pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
+    r = max(RMIN, _cdiv(h, _cdiv(h, RMAX)))
+    plan = PlanS1(b, t, h, w, c, r, wb, pg, t, 1, 1)
+    tt = t
+    while tt > TT_MIN and (plan._replace(tt=tt).items * plan.n_pg
+                           < FWD_BLOCKS):
+        tt = max(TT_MIN, _cdiv(tt, 2))
+    plan = plan._replace(tt=tt)
+    ipb = _cdiv(plan.items, max(1, min(plan.items, WG_BLOCKS // plan.n_pg)))
+    return plan._replace(ipb=ipb, rows=_cdiv(plan.items, ipb))
 
 
 # ---- forward: the plain mode of K1 (stride 1) and K4 (stride 2) -------------
@@ -73,9 +204,16 @@ def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor,
     b, t, h, w, c = x.shape
     y = torch.empty((b, t) + _out_hw(h, w, stride) + (c,), dtype=x.dtype,
                     device=x.device)
-    if y.numel():
-        _launch(LAUNCHES, FWD_LIBRARY, f"dw_conv_s{stride}", x,
-                x.data_ptr(), w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c)
+    if not y.numel():
+        return y
+    if stride == 1:
+        p = plan_s1(b, t, h, w, c)
+        _launch(LAUNCHES, LIBRARY, "dw_conv_s1", x, x.data_ptr(),
+                w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c, p.r, p.wb,
+                p.pg, p.tt)
+    else:
+        _launch(LAUNCHES, FWD_LIBRARY, "dw_conv_s2", x, x.data_ptr(),
+                w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c)
     return y
 
 
@@ -135,10 +273,17 @@ def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
         return dw_conv_wgrad_plain(x, g, stride)
     if not g.numel():
         return torch.zeros((27, x.shape[-1]), device=x.device)
-    name = f"dw_conv_wgrad_s{stride}"
-    part = _partials(name, x, 27)
-    _launch(LAUNCHES, BWD_LIBRARY, name, x, x.data_ptr(), g.data_ptr(),
-            part.data_ptr(), *x.shape)
+    if stride == 1:
+        p = plan_s1(*x.shape)
+        part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, LIBRARY, "dw_conv_wgrad_s1", x, x.data_ptr(),
+                g.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg,
+                p.tt, p.ipb, p.rows)
+    else:
+        part = _partials("dw_conv_wgrad_s2", x, 27)
+        _launch(LAUNCHES, BWD_LIBRARY, "dw_conv_wgrad_s2", x, x.data_ptr(),
+                g.data_ptr(), part.data_ptr(), *x.shape)
     return torch.sum(part, dim=0)
 
 

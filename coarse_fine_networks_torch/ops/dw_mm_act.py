@@ -31,13 +31,12 @@ import torch.nn.functional as F
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
 # The forward source also holds the act-mode entries of :mod:`.dw_act` and
-# the plain-mode entries of :mod:`.dw_conv`.
+# the stride-2 plain-mode entry of :mod:`.dw_conv`.
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
     "dw_act_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
-    "dw_conv_s1": [P] * 3 + [I] * 6 + [P],
     "dw_conv_s2": [P] * 3 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
@@ -50,7 +49,6 @@ BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
     "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
-    "dw_conv_wgrad_s1": [P] * 3 + [I] * 6 + [P],
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 6 + [P],
     "dw_mm_dx_mask_s1": [P] * 7 + [I] * 7 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
@@ -66,9 +64,8 @@ LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
 # plain- and mm-mode weight gradients have the act mode's rows)
 _ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
-              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s1": 2,
-              "dw_conv_wgrad_s2": 3, "dw_mm_wgrad_s1": 2,
-              "dw_mm_wgrad_s2": 3}
+              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s2": 3,
+              "dw_mm_wgrad_s1": 2, "dw_mm_wgrad_s2": 3}
 
 
 def reset_launches() -> None:

@@ -220,6 +220,43 @@ def test_stem_grads_reach_conv1_s_and_conv1_t(monkeypatch):
                                    err_msg=k)
 
 
+def test_composite_route_step_reaches_conv1_s(monkeypatch):
+    """One coarse train step with every bottleneck through the matmul-fused
+    composite (``CFN_MM_BN_TRAIN=1``), the stencil wrapper returning tensors
+    outside autograd as a launch on the card does: the stem's ``conv1_t``
+    runs its forward and its dx through the stencil (two calls) and its
+    taps' gradient once, and ``conv1_s.weight`` gets a nonzero gradient."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+    from _torch_port_util import COARSE, coarse_batch
+
+    calls = {"fwd": 0, "wgrad": 0}
+    plain, wgrad_plain = dw_stencil3d_plain, dw_stencil_wgrad_plain
+
+    def fwd(*a):
+        calls["fwd"] += 1
+        return plain(*a).detach()
+
+    def wgrad(*a):
+        calls["wgrad"] += 1
+        return wgrad_plain(*a)
+
+    monkeypatch.setenv("CFN_MM_BN_TRAIN", "1")
+    monkeypatch.setattr(dw_stencil, "dw_stencil3d_plain", fwd)
+    monkeypatch.setattr(dw_stencil, "dw_stencil_wgrad_plain", wgrad)
+    c = COARSE
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.0),
+                            torch.Generator().manual_seed(0))
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    _, m = step(TrainState.create(model), jax.tree.map(t, coarse_batch(0)),
+                c["lr"])
+    assert np.isfinite(m["loss"].item())
+    assert calls == {"fwd": 2, "wgrad": 1}
+    grad = model.conv1_s.weight.grad
+    assert grad is not None and float(grad.abs().max()) > 0
+
+
 @pytest.mark.parametrize("ks", [(5, 1, 1), (3, 3, 3), (7, 3, 3)])
 def test_wgrad_plain_against_autograd(ks):
     """``dw_stencil_wgrad_plain`` against autograd through the plain

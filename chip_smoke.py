@@ -9,9 +9,12 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the four sources, started together, beside an
-   ``-Xptxas -v`` compile of ``dw_plain_s1.cu`` whose registers, spills
-   and shared memory per kernel make a ``ptxas`` row);
+   ``nvcc`` for each of the five sources, started together, beside
+   ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu`` and
+   ``dw_mm_act.cu`` whose registers, spills and static shared memory for
+   each row-strip kernel (K1/K6 plain, K10 plain, K1 ``mm``) make three
+   ``ptxas`` rows; their dynamic shared memory and blocks per SM are in
+   the kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -23,7 +26,13 @@ Phases, each printing JSON lines:
    layer1, T=17 after Grid Pool) and the 8 the fine stream's long-cycle
    phase D gives it (B8 T64 224²); all in f32 (TF32 off) and bf16, with
    timings of the kernel, the plain version, the unfused PyTorch sequence
-   and the nearest single PyTorch call;
+   and the nearest single PyTorch call (each ``dw_mm_act_s1`` row with its
+   work split, ``plan_mm_s1``, blocks per SM and waves);
+2b. relu_branch: the forward and the masked dx take one relu branch: with
+   only the centre tap set to 1 the forward's ``y > 0`` must equal the
+   mask ``dam != 0`` of ``g = 1`` element for element (K1 ``mm`` against
+   K2, K4 ``mm`` against K9) at every entry shape of the eval kernels and
+   of the train composite, f32 and bf16;
 3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
    autograd through the plain composition, f32, one shape per stride;
 4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
@@ -51,9 +60,10 @@ Phases, each printing JSON lines:
    A-C of the multigrid long cycle, f32 (TF32 off) and bf16, timed beside
    the plain version and the one PyTorch call that computes the same
    function (``F.conv3d(groups=C)``, ``aten.convolution_backward``); the
-   stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), the
-   stride-1 weight gradient against itself run again (equal to 0), and
-   each stride-1 row with its work split, blocks per SM and waves;
+   stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), both
+   weight gradients against themselves run again (equal to 0), and each
+   row with its work split (``plan_s1``, ``plan_s2``), blocks per SM and
+   waves;
 10. fine_autograd: the split route's Function against autograd through
    ``F.conv3d(groups=C)``, f32, one shape per stride;
 11. fine_train: fine-stream training under the X3D multigrid long cycle at
@@ -207,19 +217,22 @@ _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1")
+                       else "dw_plain_s2.cu" if k == "dw_conv_wgrad_s2"
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
 KERNEL_FUNCS = {
-    "dw_mm_act_kernel": ("dw_mm_act_s1", "dw_mm_act_s2", "dw_act_s1",
-                         "dw_act_s2", "dw_conv_s2"),
+    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s1", "dw_act_s2",
+                         "dw_conv_s2"),
+    "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
     "dx_s1_kernel": ("dw_act_dx_s1", "dw_mm_dx_mask_s1"),
     "dx_s2_kernel": ("dw_act_dx_s2", "dw_conv_dx_s2", "dw_mm_dx_mask_s2"),
-    "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_conv_wgrad_s2",
-                     "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
+    "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
+                     "dw_mm_wgrad_s2"),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
+    "plain_s2_wgrad_kernel": ("dw_conv_wgrad_s2",),
     "stencil_fwd_kernel": ("dw_stencil_s1", "dw_stencil_s2"),
     "stencil_dk_kernel": ("dw_stencil_wgrad",),
 }
@@ -336,6 +349,13 @@ def _ptxas(source: Path) -> dict:
     return out
 
 
+# the ptxas rows: each source's kernel functions of the row-strip layout
+# (three row counts: 2-4) in f32 and bf16
+PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel"),
+         "dw_conv_wgrad_s2": ("plain_s2_wgrad_kernel",),
+         "dw_mm_act_s1": ("mm_fwd_s1_kernel",)}
+
+
 def phase_device() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
@@ -346,27 +366,30 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    # the four sources (one nvcc each) and dw_plain_s1.cu's ptxas report,
-    # all started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        ptxas = pool.submit(_ptxas, dw_conv.LIBRARY.source)
-        _build.build_all(dw_conv.LIBRARIES + (dw_stencil.LIBRARY,))
-        ptxas = ptxas.result()
+    # the five sources (one nvcc each) and the ptxas reports of the three
+    # with row-strip kernels, all started together
+    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
+    with ThreadPoolExecutor(max_workers=len(PTXAS)) as pool:
+        ptxas = {k: pool.submit(_ptxas, REPO / SOURCES[k]) for k in PTXAS}
+        _build.build_all(libs)
+        ptxas = {k: f.result() for k, f in ptxas.items()}
     emit({"phase": "device", "nvidia_smi": smi,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda,
-          "sources": [lib.source.name for lib in
-                      dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)],
+          "sources": [lib.source.name for lib in libs],
           "build_s": round(time.perf_counter() - t0, 3)})
-    emit({"phase": "ptxas", "source": SOURCES["dw_conv_s1"],
-          "kernels": ptxas})
-    check(len(ptxas) == 12 and all("registers" in v for v in ptxas.values()),
-          f"ptxas report of {SOURCES['dw_conv_s1']}: {ptxas}")
+    for key, funcs in PTXAS.items():
+        rows = {n: v for n, v in ptxas[key].items()
+                if any(f in n for f in funcs)}  # mangled names
+        emit({"phase": "ptxas", "source": SOURCES[key], "kernels": rows})
+        check(len(rows) == 6 * len(funcs)
+              and all("registers" in v for v in rows.values()),
+              f"ptxas report of {SOURCES[key]}: {ptxas[key]}")
     return smi
 
 
-def phase_kernels(dw_mm_act) -> dict:
+def phase_kernels(dw_mm_act, dw_conv) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {k: _agg() for k in MM_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
@@ -413,6 +436,9 @@ def phase_kernels(dw_mm_act) -> dict:
             row = {"phase": "kernels", "kernel": name, "entry": label,
                    "dtype": str(dtype).replace("torch.", ""),
                    "x": [b, t, h, w, c_in], "c_mid": c_mid, "stride": s,
+                   **({"plan": _plan_row_mm(dw_conv, dw_mm_act,
+                                            (b, t, h, w, c_in), c_mid, dtype)}
+                      if s == 1 else {}),
                    "path_launches": n, "in_kernel_line": counted,
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "tol_abs": tol, "ms": ms, "plain_ms": plain_ms,
@@ -443,6 +469,50 @@ def phase_kernels(dw_mm_act) -> dict:
             del x, got, ref
         torch.cuda.empty_cache()
     return per_kernel
+
+
+def phase_relu_branch(dw_mm_act, dw_mm_bn_train) -> None:
+    """The forward and the masked dx take one relu branch, element for
+    element.  With only the centre tap set to 1 the forward's y is the
+    activation itself (the other 26 taps add fmaf(0, a, acc) = acc), so
+    ``y > 0`` is its relu branch; with ``g = 1`` the masked dx ``dam`` is
+    the mask itself wherever g reaches (every position at stride 1, the
+    even rows and columns at stride 2).  K1 mm (``dw_mm_act_s1``, conv1's
+    product on mma in the kernel) against K2 (``dw_mm_dx_mask_s1``, the
+    product through ``mm_prologue``), and K4 mm against K9, at every entry
+    shape of the eval kernels and of the train composite, f32 and bf16:
+    they must agree exactly."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    shapes = [(label, b, t, h, c_in, c_mid, s) for
+              (_, label, b, t, h, _, c_in, c_mid, s, _, _) in entry_cases()]
+    shapes += [(f"train.{label}", b, t, h, c_in, c_mid, s) for
+               (label, b, t, h, c_in, c_mid, s, _, _) in mm_entry_cases()]
+    for dtype in (torch.float32, torch.bfloat16):
+        flips = {}
+        for label, b, t, h, c_in, c_mid, s in shapes:
+            x = torch.randn((b, t, h, h, c_in), generator=gen,
+                            device="cuda").to(dtype)
+            w1 = (torch.randn((c_in, c_mid), generator=gen, device="cuda")
+                  * c_in ** -0.5).to(dtype)
+            sc = torch.rand(c_mid, generator=gen, device="cuda") + 0.5
+            bi = torch.randn(c_mid, generator=gen, device="cuda")
+            taps = torch.zeros((3, 3, 3, c_mid), dtype=dtype, device="cuda")
+            taps[1, 1, 1] = 1
+            y = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, s)
+            dam = dw_mm_bn_train.dw_mm_dx_mask(torch.ones_like(y), x, w1,
+                                               taps, sc, bi, s)
+            keep = dam[:, :, ::s, ::s] != 0
+            pos = y > 0
+            torch.cuda.synchronize()
+            flips[label] = int((keep != pos).sum().item())
+            del x, y, dam, keep, pos
+        torch.cuda.empty_cache()
+        emit({"phase": "relu_branch", "dtype": str(dtype)[6:],
+              "pairs": "dw_mm_act_s1 vs dw_mm_dx_mask_s1, dw_mm_act_s2 vs "
+                       "dw_mm_dx_mask_s2", "shapes": len(shapes),
+              "mismatches": flips})
+        check(not any(flips.values()),
+              f"relu branch {dtype}: forward and mask differ: {flips}")
 
 
 def _agg() -> dict:
@@ -915,6 +985,7 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ("dw_mm_act_kernel",
+                                            "mm_fwd_s1_kernel",
                                             "dx_s1_kernel", "dx_s2_kernel",
                                             "wgrad_kernel",
                                             "stencil_fwd_kernel",
@@ -1134,10 +1205,45 @@ def _plan_row(dw_conv, shape, dtype) -> dict:
         occ = lib.dw_plain_s1_occupancy(wg, p.r, p.wb, p.pg, bf16)
         check(occ > 0, f"plan {shape} {dtype}: {key} does not fit ({occ})")
         row[key] = {"blocks": blocks, "smem": p.smem(esz, wg),
-                    "blocks_per_sm": occ,
-                    "waves": blocks / (occ * torch.cuda.get_device_properties(
-                        0).multi_processor_count)}
+                    "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
     return row
+
+
+def _waves(blocks: int, per_sm: int) -> float:
+    return blocks / (per_sm * torch.cuda.get_device_properties(
+        0).multi_processor_count)
+
+
+def _plan_row_s2(dw_conv, shape, dtype) -> dict:
+    """K10 plain's work split at x ``shape`` (over the output's rows and
+    columns): its persistent grid, shared memory, blocks per SM and
+    waves."""
+    p = dw_conv.plan_s2(*shape)
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(p.r, p.wb, p.pg,
+                                                           bf16)
+    check(occ > 0, f"plan_s2 {shape} {dtype}: does not fit ({occ})")
+    blocks = p.rows * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
+            "rows": p.rows, "threads": p.threads, "blocks": blocks,
+            "smem": dw_conv.smem_s2(p, esz), "blocks_per_sm": occ,
+            "waves": _waves(blocks, occ)}
+
+
+def _plan_row_mm(dw_conv, dw_mm_act, shape, c_mid, dtype) -> dict:
+    """K1 mm's work split at x ``shape`` (C_in last) and ``c_mid``: its
+    blocks, shared memory, blocks per SM and waves."""
+    b, t, h, w, c_in = shape
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    p = dw_conv.plan_mm_s1(b, t, h, w, c_in, c_mid, esz)
+    occ = dw_mm_act.LIBRARY.build().dw_mm_act_s1_occupancy(p.r, p.wb, p.pg,
+                                                           c_in, w, bf16)
+    check(occ > 0, f"plan_mm_s1 {shape} {dtype}: does not fit ({occ})")
+    blocks = p.items * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
+            "threads": p.threads, "blocks": blocks,
+            "smem": dw_conv.smem_mm_s1(p, c_in, esz), "blocks_per_sm": occ,
+            "waves": _waves(blocks, occ)}
 
 
 def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
@@ -1146,8 +1252,8 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
     function, at the fine entry shapes of long-cycle phases A-C.  The
     stride-1 forward is also held against K11 (``dw_stencil_s1``, the same
     function at 3×3×3, summed in the same order): the difference must be 0;
-    the stride-1 weight gradient is launched twice and must repeat bit for
-    bit."""
+    the weight gradients (stride 1 and 2) are launched twice and must
+    repeat bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     per_kernel = {k: _agg() for k in FINE_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
@@ -1199,13 +1305,16 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
                 also = {
                     "dw_conv_s1": (("dw_stencil_s1",
                                     lambda: dw_stencil.dw_stencil3d(x, w)),),
-                    "dw_conv_wgrad_s1": (("dw_conv_wgrad_s1 again",
-                                          lambda: dw_conv.dw_conv_wgrad(
-                                              x, g, 1)),)}
+                    f"dw_conv_wgrad_s{s}": ((f"dw_conv_wgrad_s{s} again",
+                                             lambda: dw_conv.dw_conv_wgrad(
+                                                 x, g, s)),)}
                 meta = {"entry": f"fine.{phase}.{label}",
                         "x": [b, t, h, h, c], "stride": s}
                 if s == 1:
                     meta["plan"] = _plan_row(dw_conv, (b, t, h, h, c), dtype)
+                else:
+                    meta["plan_s2"] = _plan_row_s2(dw_conv, (b, t, h, h, c),
+                                                   dtype)
                 # each shape weighted by its launches in one step of each
                 # of phases A-C
                 for name, case in cases.items():
@@ -1654,7 +1763,7 @@ def phase_fine_train(mods) -> dict:
                 split_launches[k] += launches[k]
         # every phase: its device kernel time per step
         ours = (("plain_fwd_kernel", "plain_wgrad_kernel",
-                 "dw_mm_act_kernel", "dx_s2_kernel", "wgrad_kernel")
+                 "plain_s2_wgrad_kernel", "dw_mm_act_kernel", "dx_s2_kernel")
                 if splits > 1 else
                 ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
                  "wgrad_kernel")) + ("stencil_fwd_kernel",
@@ -1862,7 +1971,8 @@ def phase_profile(pipe, mods) -> None:
     torch.cuda.synchronize()
     emit({"phase": "profile", "what": "one cold batch, extract + fuse, "
                                       "3 videos T=64/T_f=128 224² bf16",
-          **_profile_step(batch, ("dw_mm_act_kernel", "stencil_fwd_kernel"),
+          **_profile_step(batch, ("dw_mm_act_kernel", "mm_fwd_s1_kernel",
+                                  "stencil_fwd_kernel"),
                           mods)})
 
 
@@ -1932,7 +2042,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
-    per_kernel = phase_kernels(dw_mm_act)
+    per_kernel = phase_kernels(dw_mm_act, dw_conv)
+    phase_relu_branch(dw_mm_act, dw_mm_bn_train)
     per_kernel.update(phase_train_kernels(dw_act))
     per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
     per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))

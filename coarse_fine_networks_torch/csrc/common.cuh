@@ -60,6 +60,96 @@ __device__ __forceinline__ void unpack(const uint4& u, float* out,
   for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
 }
 
+// ---- conv1's product in bf16 on the tensor cores ---------------------------
+// ldmatrix of four (x4) or two (x2) 8x8 b16 matrices from shared memory, and
+// mma.sync.m16n8k16 with bf16 inputs and f32 accumulation.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// conv1's product in bf16 on the tensor cores (the stride-1 forward,
+// dw_mm_act.cu): one 16 x 8 tile of z = x @ W1 (16 positions x 8
+// channels), with s = |x| @ |W1| beside it: acc += a . bt^T and sacc += |a|
+// . |bt|^T in nk k-steps of 16, ascending, two mma.m16n8k16 each (|.|
+// clears the fragments' sign bits). a holds the tile's 16 positions (row
+// stride lda elements), bt its 8 channels' W1 columns (W1 transposed, row
+// stride ldb); both in shared memory, rows 16-byte aligned, zero past C_in.
+// The thread's elements are acc[0..1] at row lane/4, columns 2*(lane%4) and
+// +1, and acc[2..3] at row lane/4 + 8.
+__device__ __forceinline__ void mm_ksteps_bf16(float (&acc)[4],
+                                               float (&sacc)[4],
+                                               const __nv_bfloat16* a,
+                                               int lda,
+                                               const __nv_bfloat16* bt,
+                                               int ldb, int nk) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* ap = a + (lane & 15) * lda + (lane >> 4) * 8;
+  const __nv_bfloat16* bp = bt + (lane & 7) * ldb + ((lane >> 3) & 1) * 8;
+  for (int s = 0; s < nk; ++s) {
+    uint32_t fa[4], fb[2];
+    ldsm_x4(fa, ap + 16 * s);
+    ldsm_x2(fb, bp + 16 * s);
+    mma_bf16(acc, fa, fb);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) fa[i] &= 0x7fff7fffu;
+    fb[0] &= 0x7fff7fffu;
+    fb[1] &= 0x7fff7fffu;
+    mma_bf16(sacc, fa, fb);
+  }
+}
+
+// z = x . w over k = 0 .. Cin-1, summed in f32 with fmaf in order from 0:
+// the arithmetic of mm_prologue below (and of the f32 stride-1 forward),
+// for x and w contiguous along k, 16-byte aligned, with Cin % 8 == 0 (read
+// 16 bytes at a time). It runs only within mm_band of a relu input's 0, a
+// few elements in ten thousand or fewer.
+template <typename T>
+__device__ __forceinline__ float mm_z_fmaf(const T* x, const T* w,
+                                           int Cin) {
+  constexpr int VE = 16 / sizeof(T);
+  float z = 0.f;
+  for (int k = 0; k < Cin; k += VE) {
+    float xv[VE], wv[VE];
+    unpack(*reinterpret_cast<const uint4*>(x + k), xv, T());
+    unpack(*reinterpret_cast<const uint4*>(w + k), wv, T());
+#pragma unroll
+    for (int j = 0; j < VE; ++j) z = fmaf(xv[j], wv[j], z);
+  }
+  return z;
+}
+
+// The tensor cores add an mma's products (and the accumulator) aligned to
+// the largest and drop the bits below, at most 17 units of 2^-23 of s = |x|
+// . |W1| per k-step; mm_prologue's f32 sum in order is within Cin units of
+// 2^-24 of s of the exact sum. So where a relu input v = bn_apply(z, sc, bi)
+// from the tensor cores' z has |v| >= mm_band(nk, Cin) |sc| s (twice both
+// bounds), it has the sign mm_prologue's z gives it. Where it has not, the
+// stride-1 forward sums z again with mm_z_fmaf, so it takes mm_prologue's
+// relu branch element for element: the masked dx and the mm weight
+// gradient recompute the product there, and a flipped mask is an O(1) error
+// in dx. (Where s = 0 every product is 0 and both sums are 0.)
+__device__ __forceinline__ float mm_band(int nk, int Cin) {
+  return 0x1p-18f * nk + 0x1p-23f * Cin;
+}
+
 // The mm entry's prologue: conv1's product z = x[pos] @ W1[:, c] and bn1's
 // apply, shared by the forward (dw_mm_act.cu), the masked dx and the mm
 // weight gradient (dw_act_bwd.cu), so that all three sum the product in one

@@ -10,7 +10,7 @@
 // sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
 // is dL/dy (y's shape and dtype).
 //
-// Ten kernel entries, each replacing a TPU Pallas kernel of
+// Nine kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
 // dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; plain mode: the
 // backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd;
@@ -23,11 +23,10 @@
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
 //   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
 //   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
-//   * dw_conv_wgrad_s2  <- _wgrad_s2_pcall -> _wgrad_s2_kernel (plain)
 //   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
 // (the plain mode at stride 1, its dx and weight gradient, is in
-// dw_plain_s1.cu).
+// dw_plain_s1.cu; the plain weight gradient at stride 2 in dw_plain_s2.cu).
 //
 // dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
 //              stride 2 the half-resolution gather
@@ -47,9 +46,9 @@
 //             with the forward's prologue (mm_prologue, common.cuh), the
 //             same sum in the same order and the same rounded apply.
 // wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
-//        rounded, zero-padded activation as the forward (plain mode: x
-//        itself; mm mode: the forward's prologue over the halo), summed in
-//        f32; per block an f32 partial (27, C).
+//        rounded, zero-padded activation as the forward (mm mode: the
+//        forward's prologue over the halo), summed in f32; per block an f32
+//        partial (27, C).
 //
 // Reductions: no atomics. Each block writes its partial sums to its own row
 // of a (rows, k, C) buffer after a fixed-order sum over its warps; the
@@ -339,7 +338,7 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
 // ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
 // x (B,T,H,W,C) (mm: (B,T,H,W,Cin) with w1 (Cin,C)); g (B,T,Ho,Wo,C), Ho =
 // (H-1)/S + 1. The tile is over g. The stencil reads relu(x*sc + bi) (ACT),
-// x (PLAIN; w1, sc and bi unused) or relu((x@W1)*sc + bi) (MM).
+// or relu((x@W1)*sc + bi) (MM).
 template <typename T, int S, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -489,8 +488,8 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // have the row counts of dw_act_partial_rows.
 
 // Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
-// wgrad_s1, wgrad_s2 (the mm-mode weight gradients and the plain one at
-// stride 2 have the act mode's rows).
+// wgrad_s1, wgrad_s2 (the mm-mode weight gradients have the act mode's
+// rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
@@ -569,18 +568,6 @@ extern "C" int dw_conv_dx_s2(const void* g, const void* w, void* dx, int B,
                                               C, C, st);
   return launch_dx_s2<float, PLAIN>(g, nullptr, nullptr, w, nullptr, nullptr,
                                     dx, nullptr, B, T, H, W, C, C, st);
-}
-
-extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part, int B,
-                                int T, int H, int W, int C, int is_bf16,
-                                void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2, PLAIN>(x, nullptr, g, nullptr,
-                                                 nullptr, part, B, T, H, W, C,
-                                                 C, st);
-  return launch_wgrad<float, 2, PLAIN>(x, nullptr, g, nullptr, nullptr, part, B,
-                                       T, H, W, C, C, st);
 }
 
 // mm mode: x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and

@@ -5,7 +5,8 @@
 //   plain (train, split bn): y = dwconv3x3x3( x )
 //
 // mm and act at stride 1 or (1,2,2), plain at stride (1,2,2) only (its
-// stride-1 entry, dw_conv_s1, has a layout of its own in dw_plain_s1.cu).
+// stride-1 entry, dw_conv_s1, has a layout of its own in dw_plain_s1.cu, as
+// has the mm mode at stride 1 here, mm_fwd_s1_kernel).
 // x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
 // vectors of bn1 (running statistics in eval, batch statistics in train). In
@@ -45,10 +46,17 @@
 // loads would straddle positions); plain mode loads as act mode does, with
 // no prologue. Each lane owns one output channel, so
 // shared-memory reads of the ring are conflict-free and stores of y are
-// coalesced along C. The product runs on the FP32 cores; moving it to wgmma
-// and overlapping the staging with TMA is later work.
+// coalesced along C. The product runs on the FP32 cores.
+//
+// The mm mode at stride 1 (dw_mm_act_s1, K1 mm) has a kernel of its own,
+// mm_fwd_s1_kernel below: dw_plain_s1.cu's row strips (a halo of (R+2)/R
+// rows and no columns, not the 8x8 tile's 1.56-2x), W1's column group staged
+// once per block, x staged whole by cp.async three frames deep, and conv1's
+// product on the bf16 tensor cores (mma.m16n8k16, common.cuh) with its relu
+// branch settled against mm_prologue's sum (mm_band). Moving the
+// product to wgmma and the staging to TMA is later work.
 
-#include "common.cuh"
+#include "strip.cuh"
 
 namespace {
 
@@ -201,16 +209,380 @@ int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
                                 s);
 }
 
+// ---- the mm forward at stride 1 (K1 mm): row strips, conv1 on mma ----------
+// A block owns one tile of strip.cuh's layout (ops/dw_conv.py:plan_s1 over
+// C_mid): R output rows x WB columns x PG channel pairs of one sample over
+// TT frames. Per input frame it stages the R+2 rows of x (all C_in, the
+// columns [cs0, cs1) its outputs and their halo read) by cp.async into a
+// ring of XSTAGE frames, computes conv1's product there (bf16: 16 x 8 tiles
+// on the tensor cores, mm_ksteps_bf16, each relu input within mm_band of 0
+// summed again in order by mm_z_fmaf; f32: fmaf over k in order, as
+// mm_prologue), applies bn1 and the relu, rounds to T and writes the
+// activated frame into one of two slots [R+2][WB+2][2PG] (the layout
+// dw_plain_s1.cu's forward stages x in); the stencil then walks the slot as
+// that forward does (a channel pair per thread, a register ring of the 3
+// output frames).
+// In one step, between two barriers, the block copies x frame i+2, computes
+// the product of frame i and the stencil of frame i-1. Rows and columns
+// outside the frame are never written and stay the zero the slots are
+// cleared to (SAME padding after the activation).
+constexpr int XSTAGE = 3;  // x frames in the staging ring
+
+struct MmLayout {
+  int ld;      // staged x row stride, elements: bf16 C_in rounded up to 16,
+               // + 8 (an odd multiple of 16 bytes: ldmatrix without bank
+               // conflicts); f32 C_in
+  int ng;      // W1 columns staged: 2PG, rounded up to 8 in bf16
+  int rows;    // staged positions: (R+2) x min(WB+2, W), rounded up to 16
+  int aslot;   // bytes of one activated slot
+  int xslot;   // bytes of one staged x frame
+  int xs_off, wt_off, vec_off, tab_off, total;  // byte offsets and size
+};
+
+template <typename T>
+__host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
+                                                       int Cin, int W) {
+  const bool bf = sizeof(T) == 2;
+  MmLayout L;
+  L.rows = ((R + 2) * min(WB + 2, W) + 15) / 16 * 16;
+  L.ld = bf ? (Cin + 15) / 16 * 16 + 8 : Cin;
+  L.ng = bf ? (2 * PG + 7) / 8 * 8 : 2 * PG;
+  L.aslot = stage_elems<T>(R + 2, WB, PG) * (int)sizeof(T);
+  L.xslot = L.rows * L.ld * (int)sizeof(T);
+  L.xs_off = 2 * L.aslot;
+  L.wt_off = L.xs_off + XSTAGE * L.xslot;
+  const int wt = bf ? L.ng * L.ld * 2 : Cin * 2 * PG * 4;
+  L.vec_off = L.wt_off + (wt + 15) / 16 * 16;
+  // bn1's sc and bi, and mm_band's bound per unit of s, per channel
+  L.tab_off = L.vec_off + 3 * ((L.ng * 4 + 15) / 16 * 16);
+  L.total = L.tab_off + L.rows * 4;
+  return L;
+}
+
+// Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
+// with c = 2*(p0 + pi), as in dw_plain_s1.cu's forward.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                 const T* __restrict__ k, const float* __restrict__ sc,
+                 const float* __restrict__ bi, T* __restrict__ y, int Tn,
+                 int H, int W, int Cin, int Cmid, Plan pl) {
+  constexpr bool BF = sizeof(T) == 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 2) * PG2;
+  const MmLayout L = mm_layout<T>(R, WB, PG, Cin, W);
+  T* act_s = reinterpret_cast<T*>(smem_raw);  // [2][R+2][WB+2][2PG]
+  T* xs = reinterpret_cast<T*>(smem_raw + L.xs_off);
+  T* wt = reinterpret_cast<T*>(smem_raw + L.wt_off);
+  float* scs = reinterpret_cast<float*>(smem_raw + L.vec_off);
+  float* bis = scs + (L.ng + 3) / 4 * 4;
+  float* kbs = bis + (L.ng + 3) / 4 * 4;
+  int* tab = reinterpret_cast<int*>(smem_raw + L.tab_off);
+  const int aslot = L.aslot / (int)sizeof(T), xslot = L.xslot / (int)sizeof(T);
+  const int ld = L.ld;
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
+  const int wl = tid / PG, pi = tid % PG;
+  const int w = tl.w0 + wl;
+  const int c0 = 2 * tl.p0, c = c0 + 2 * pi;
+  const bool in = wl < WB;
+  const bool live = in && w < W && c < Cmid;  // owns outputs
+  const bool second = c + 1 < Cmid;
+
+  float k0[27], k1[27];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) {
+    k0[i] = live ? to_f(k[i * Cmid + c]) : 0.f;
+    k1[i] = live && second ? to_f(k[i * Cmid + c + 1]) : 0.f;
+  }
+
+  // staged positions p = rr * ncs + col: staged row rr (input row h0-1+rr;
+  // rows [rlo, rhi) lie in the frame) at input column cs0 + col
+  const int cs0 = max(tl.w0 - 1, 0), cs1 = min(tl.w0 + WB + 1, W);
+  const int ncs = cs1 - cs0, M = (R + 2) * ncs;
+  const int rlo = max(0, 1 - tl.h0), rhi = min(R + 2, H + 1 - tl.h0);
+
+  zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
+  // W1's columns c0 .. c0 + ng (zero past C_mid and past the group, and in
+  // bf16 past C_in), bn1's apply vectors, and each staged position's place
+  // in a slot (-1: outside the frame or past M), once per block
+  {
+    // bf16: wt[n][k] (W1 transposed), f32: wt[k][n]; eight loads in flight
+    // per thread
+    const int kn = BF ? ld - 8 : Cin;  // k rows staged
+    const int total = kn * L.ng;
+    for (int i0 = tid; i0 < total; i0 += 8 * nthreads) {
+      T v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * nthreads, kk = i / L.ng, n = i % L.ng;
+        v[u] = i < total && kk < Cin && n < PG2 && c0 + n < Cmid
+                   ? w1[(size_t)kk * Cmid + c0 + n]
+                   : from_f<T>(0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * nthreads, kk = i / L.ng, n = i % L.ng;
+        if (i < total) wt[BF ? n * ld + kk : kk * PG2 + n] = v[u];
+      }
+    }
+  }
+  {
+    // mm_band's bound per unit of s: band |sc| (0 past C_mid: never near)
+    const float band = mm_band((ld - 8) / 16, Cin);
+    for (int i = tid; i < L.ng; i += nthreads) {
+      const bool cv = i < PG2 && c0 + i < Cmid;
+      scs[i] = cv ? sc[c0 + i] : 0.f;
+      bis[i] = cv ? bi[c0 + i] : 0.f;
+      kbs[i] = cv ? band * fabsf(sc[c0 + i]) : 0.f;
+    }
+  }
+  for (int p = tid; p < L.rows; p += nthreads) {
+    const int rr = p / ncs;
+    tab[p] = p < M && rr >= rlo && rr < rhi
+                 ? (rr * (WB + 2) + p - rr * ncs + cs0 - tl.w0 + 1) * PG2
+                 : -1;
+  }
+
+  const size_t frame = (size_t)H * W * Cin;
+  // x rows of the strip, from staged row 0 (input row h0 - 1) and column
+  // cs0, of sample b
+  const T* xb = x + (size_t)tl.b * Tn * frame +
+                ((long long)(tl.h0 - 1) * W + cs0) * Cin;
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
+  constexpr int VE = 16 / sizeof(T);
+  const int n16 = Cin / VE, nch = ncs * n16;  // 16-byte chunks of a row
+  // the thread's chunk of every staged row (where a row has no more chunks
+  // than the block has threads: every shape of the path)
+  const int my_src = (tid / n16) * Cin + (tid % n16) * VE;
+  const int my_dst = (tid / n16) * ld + (tid % n16) * VE;
+  // x frame f0 + i (its rows in the frame) into ring slot i % XSTAGE
+  auto stage_x = [&](int i) {
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn) {  // uniform across the block
+      const T* f = xb + (size_t)ti * frame;
+      T* d = xs + (i % XSTAGE) * xslot;
+      if (nch <= nthreads) {
+        if (tid < nch)
+          for (int rr = rlo; rr < rhi; ++rr)
+            cp_async16(d + rr * ncs * ld + my_dst,
+                       f + (size_t)rr * W * Cin + my_src);
+      } else {
+        for (int q = tid; q < (rhi - rlo) * nch; q += nthreads) {
+          const int v = q % n16, r2 = q / n16;
+          const int col = r2 % ncs, rr = rlo + r2 / ncs;
+          cp_async16(d + (rr * ncs + col) * ld + v * VE,
+                     f + ((size_t)rr * W + col) * Cin + v * VE);
+        }
+      }
+    }
+    cp_commit();
+  };
+  // relu(v) rounded to T (act<T> of a relu input v already applied)
+  auto relu_t = [](float v) { return to_f(from_f<T>(fmaxf(v, 0.f))); };
+  // conv1's product of x frame f0 + i (ring slot i % XSTAGE), bn1, relu ->
+  // activated slot i % 2
+  auto product = [&](int i) {
+    const T* xf = xs + (i % XSTAGE) * xslot;
+    T* sl = act_s + (i & 1) * aslot;
+    if constexpr (BF) {
+      // 16 x 8 tiles of (position, channel), every nwarps-th to a warp. A
+      // relu input within mm_band of 0 sets a bit of the lane's mask (bit
+      // 4*(tile's turn % 16) + 2*half + channel); every 16 turns, and after
+      // the last, the lane sums its marked elements again in order
+      // (mm_z_fmaf) and writes them anew: no branch in the tiles' loop
+      const int ntl = L.ng / 8, tiles = (M + 15) / 16 * ntl;
+      const int nk = (ld - 8) / 16;
+      const int g = lane >> 2, c2 = 2 * (lane & 3);
+      unsigned long long marks = 0;
+      int turn = 0;
+      for (int q = warp; q < tiles; q += nwarps, ++turn) {
+        const int m = q / ntl, n = q % ntl;
+        float acc[4] = {0.f, 0.f, 0.f, 0.f}, sacc[4] = {0.f, 0.f, 0.f, 0.f};
+        mm_ksteps_bf16(acc, sacc, xf + m * 16 * ld, ld, wt + n * 8 * ld, ld,
+                       nk);
+        const int ch = n * 8 + c2;
+        const bool chok = ch < PG2;
+        const float sc0 = scs[ch], sc1 = scs[ch + 1];
+        const float bi0 = bis[ch], bi1 = bis[ch + 1];
+        const float kb0 = kbs[ch], kb1 = kbs[ch + 1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int at = tab[m * 16 + g + 8 * h];
+          const float v0 = bn_apply(acc[2 * h], sc0, bi0);
+          const float v1 = bn_apply(acc[2 * h + 1], sc1, bi1);
+          if (at >= 0 && chok)  // relu, rounded to bf16
+            *reinterpret_cast<__nv_bfloat162*>(sl + at + ch) =
+                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+          const int bit = 4 * (turn & 15) + 2 * h;
+          marks |= (unsigned long long)(at >= 0 &&
+                                        fabsf(v0) < kb0 * sacc[2 * h])
+                   << bit;
+          marks |= (unsigned long long)(at >= 0 &&
+                                        fabsf(v1) < kb1 * sacc[2 * h + 1])
+                   << (bit + 1);
+        }
+        if ((turn & 15) == 15 || q + nwarps >= tiles) {  // uniform
+          for (; marks; marks &= marks - 1) {  // rare
+            const int b = __ffsll(marks) - 1;
+            const int qq = q - (turn & 15) * nwarps + (b >> 2) * nwarps;
+            const int p = qq / ntl * 16 + g + 8 * ((b >> 1) & 1);
+            const int cc = qq % ntl * 8 + c2 + (b & 1);
+            const float z = mm_z_fmaf(xf + p * ld, wt + cc * ld, Cin);
+            sl[tab[p] + cc] =
+                __float2bfloat16_rn(fmaxf(bn_apply(z, scs[cc], bis[cc]), 0.f));
+          }
+        }
+      }
+    } else {
+      // as mm_z_fmaf: fmaf over k = 0 .. C_in-1 in order
+      for (int q = tid; q < M * PG; q += nthreads) {
+        const int p = q / PG, ch = 2 * (q % PG);
+        const int at = tab[p];
+        if (at < 0) continue;
+        const T* xp = xf + p * ld;
+        float z0 = 0.f, z1 = 0.f;
+        for (int kk = 0; kk < Cin; ++kk) {
+          const float xv = to_f(xp[kk]);
+          z0 = fmaf(xv, to_f(wt[kk * PG2 + ch]), z0);
+          z1 = fmaf(xv, to_f(wt[kk * PG2 + ch + 1]), z1);
+        }
+        *reinterpret_cast<float2*>(sl + at + ch) =
+            make_float2(relu_t(bn_apply(z0, scs[ch], bis[ch])),
+                        relu_t(bn_apply(z1, scs[ch + 1], bis[ch + 1])));
+      }
+    }
+  };
+
+  float acc[3][R][2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
+
+  for (int i = 0; i < XSTAGE - 1; ++i) stage_x(i);
+  for (int i = 0; i <= nf; ++i) {
+    cp_wait<XSTAGE - 2>();  // this thread's copies of x frame i have landed
+    __syncthreads();  // and everyone's; slot i-1 is written; slot i, and x
+                      // ring slot i-1, are read by no one
+    stage_x(i + XSTAGE - 1);
+    if (i < nf && f0 + i >= 0 && f0 + i < Tn) product(i);
+    if (i == 0) continue;
+    const int ti = f0 + i - 1;  // the frame the stencil reads now
+    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+      stencil_frame<T, R>(
+          act_s + ((i - 1) & 1) * aslot + wl * PG2 + 2 * pi, rowlen, PG2,
+          [&](int j, int r, int dy, int dx, float2 v) {
+            const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+            acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+            acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+          });
+    const int to = ti - 1;  // complete now
+    if (to >= tl.t0 && live) {
+      T* yo = y + (((size_t)tl.b * Tn + to) * H + tl.h0) * W * Cmid +
+              (size_t)w * Cmid + c;
+      const bool pair = second && !(Cmid & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < H)
+          store_pair(yo + (size_t)r * W * Cmid, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[2][r][0];
+      acc[1][r][1] = acc[2][r][1];
+      acc[2][r][0] = acc[2][r][1] = 0.f;
+    }
+  }
+  cp_wait<0>();
+}
+
+template <typename T>
+decltype(&mm_fwd_s1_kernel<T, RMAX>) mm_kernel_of(int R) {
+  switch (R) {
+    case 2: return mm_fwd_s1_kernel<T, 2>;
+    case 3: return mm_fwd_s1_kernel<T, 3>;
+    case 4: return mm_fwd_s1_kernel<T, 4>;
+  }
+  return nullptr;
+}
+
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
+
+template <typename T>
+int launch_mm_s1(const void* x, const void* w1, const void* k, const void* sc,
+                 const void* bi, void* y, int B, int Tn, int H, int W,
+                 int Cin, int Cmid, int R, int WB, int PG, int TT,
+                 cudaStream_t st) {
+  Plan p;
+  if (!make_plan<T>(p, (uintptr_t)x, B, Tn, H, W, Cmid, R, WB, PG, TT) ||
+      Cin < 8 || Cin % 8 || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  const auto kern = mm_kernel_of<T>(R);
+  const int smem = mm_layout<T>(R, WB, PG, Cin, W).total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(k), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<T*>(y), Tn, H, W, Cin, Cmid,
+      p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mm_occupancy(int R, int WB, int PG, int Cin, int W) {
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || WB * PG > NT_MAX ||
+      Cin < 8 || W < 1)
+    return -1;
+  const auto kern = mm_kernel_of<T>(R);
+  const int smem = mm_layout<T>(R, WB, PG, Cin, W).total;
+  if (smem > SMEM_MAX) return -1;
+  int n = -1;
+  cudaError_t e = (cudaError_t)set_smem(kern, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, kern, (WB * PG + 31) / 32 * 32, smem);
+  return e == cudaSuccess ? n : -1;
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns cudaGetLastError()
 // after the launch: 0 means the kernel was launched.
+// (R, WB, PG, TT) is the wrapper's split over C_mid (ops/dw_conv.py:
+// plan_s1): R output rows, WB columns and PG channel pairs per block, TT
+// frames per segment.
 extern "C" int dw_mm_act_s1(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
-                            int T, int H, int W, int Cin, int Cmid,
-                            int is_bf16, void* stream) {
-  return dispatch<1, MM>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
-                         is_bf16, stream);
+                            int T, int H, int W, int Cin, int Cmid, int R,
+                            int WB, int PG, int TT, int is_bf16,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mm_s1<__nv_bfloat16>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin,
+                                       Cmid, R, WB, PG, TT, st);
+  return launch_mm_s1<float>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, R,
+                             WB, PG, TT, st);
+}
+
+// Blocks per SM mm_fwd_s1_kernel reaches at a plan (R, WB, PG), C_in and
+// the frame's width W, with its threads and shared memory, or -1 where it
+// does not take them.
+extern "C" int dw_mm_act_s1_occupancy(int R, int WB, int PG, int Cin, int W,
+                                      int is_bf16) {
+  return is_bf16 ? mm_occupancy<__nv_bfloat16>(R, WB, PG, Cin, W)
+                 : mm_occupancy<float>(R, WB, PG, Cin, W);
 }
 
 extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,

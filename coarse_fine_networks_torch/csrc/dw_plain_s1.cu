@@ -63,89 +63,11 @@
 // count) is computed by the wrapper (ops/dw_conv.py:plan_s1) and checked
 // here; a plan the kernels do not take returns cudaErrorInvalidValue.
 
-#include "common.cuh"
+#include "strip.cuh"
 
 namespace {
 
 using namespace cfn;
-
-constexpr int NT_MAX = 256;  // threads per block at most (WB * PG)
-constexpr int RMIN = 2;      // output rows per strip: a template argument
-constexpr int RMAX = 4;      // in [RMIN, RMAX]
-constexpr int NSTAGE = 3;    // frames in the shared-memory ring
-
-// A channel pair in the tensor's dtype, as read from shared memory
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float a, float b, bool pair,
-                                          bool second) {
-  if (pair) {  // both channels exist and the address is pair-aligned
-    if constexpr (sizeof(T) == 4) {
-      *reinterpret_cast<float2*>(p) = make_float2(a, b);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-    }
-  } else {
-    p[0] = from_f<T>(a);
-    if (second) p[1] = from_f<T>(b);
-  }
-}
-
-// One channel pair from global to shared memory: a cp.async of 4 (bf16) or
-// 8 (f32) bytes where C is even and x pair-aligned (every shape of the
-// path), else (odd C) plain loads of the one or two channels that exist.
-template <typename T>
-__device__ __forceinline__ void copy_pair(T* d, const T* s, bool pairs,
-                                          bool second) {
-  if (pairs) {
-    const unsigned sa = (unsigned)__cvta_generic_to_shared(d);
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(sa),
-                 "l"(s), "n"(2 * sizeof(T)));
-  } else {
-    d[0] = s[0];
-    if (second) d[1] = s[1];
-  }
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The block's tile: rows [h0, h0+R), columns [w0, w0+WB), channel pairs
-// [p0, p0+PG) of sample b, frames [t0, t1).
-struct Tile {
-  int b, t0, t1, h0, w0, p0;
-};
-
-struct Plan {
-  int R, WB, PG, TT;
-  int n_strip, n_wt, n_pg, n_tseg;
-  int pairs;  // channel pairs are staged by cp.async (C even, aligned)
-
-  // work items of one channel group, in the order (b, frame segment, row
-  // strip, column tile)
-  __device__ __forceinline__ Tile tile(int item, int pg, int Tn) const {
-    Tile tl;
-    tl.w0 = (item % n_wt) * WB;
-    item /= n_wt;
-    tl.h0 = (item % n_strip) * R;
-    item /= n_strip;
-    tl.t0 = (item % n_tseg) * TT;
-    tl.t1 = min(tl.t0 + TT, Tn);
-    tl.b = item / n_tseg;
-    tl.p0 = pg * PG;
-    return tl;
-  }
-};
 
 // One thread's share of staging a tile: its channel pair c at staged
 // columns wl and, for wl < 2, WB + wl (input columns w0 - 1 + that), every
@@ -191,47 +113,6 @@ struct Stager {
     }
   }
 };
-
-// Zeroes the block's ring (bytes, a multiple of 16) and synchronises: the
-// rows and columns of a tile that lie outside the frame are never copied, so
-// they read as the zero padding for the whole tile.
-__device__ __forceinline__ void zero_ring(unsigned char* ring, int bytes) {
-  for (int i = threadIdx.x * 16; i < bytes; i += blockDim.x * 16)
-    *reinterpret_cast<uint4*>(ring + i) = make_uint4(0, 0, 0, 0);
-  __syncthreads();
-}
-
-// Elements of one staged frame of `rows` rows, padded to 16 bytes.
-template <typename T>
-__host__ __device__ __forceinline__ int stage_elems(int rows, int WB, int PG) {
-  return (rows * (WB + 2) * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 /
-         (int)sizeof(T);
-}
-
-// The stencil of one staged input frame at the thread's column and channel
-// pair: for staged row rr (input row h0 - 1 + rr) and output row r with dy =
-// rr - r in [0, 2], the 3 taps dx of each dt meet the 3 neighbours. FN(j, r,
-// dy, dx, v) does one multiply-add; everything is unrolled, so the loop has
-// no branch and the shared-memory reads of a row can run ahead.
-template <typename T, int R, typename FN>
-__device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
-                                              int PG2, FN fn) {
-#pragma unroll
-  for (int rr = 0; rr < R + 2; ++rr) {
-    const T* row = tile + rr * rowlen;
-    const float2 v[3] = {load_pair(row), load_pair(row + PG2),
-                         load_pair(row + 2 * PG2)};
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const int dy = rr - r;
-      if (dy < 0 || dy > 2) continue;
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
-    }
-  }
-}
 
 // ---- forward ----------------------------------------------------------------
 // Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
@@ -438,32 +319,6 @@ plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 }
 
 // ---- launchers -----------------------------------------------------------------
-
-// The plan's derived counts, or false where the kernels do not take it.
-template <typename T>
-bool make_plan(Plan& p, uintptr_t ptrs, int B, int Tn, int H, int W, int C,
-               int R, int WB, int PG, int TT) {
-  if (B < 1 || Tn < 1 || H < 1 || W < 1 || C < 1) return false;
-  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || TT < 1) return false;
-  // the halo columns WB and WB+1 are staged by the threads of columns 0
-  // and 1, so a block has two columns unless the frame has one
-  if (WB * PG > NT_MAX || WB > W || (WB < 2 && W > 1)) return false;
-  const int esz = (int)sizeof(T), P2 = (C + 1) / 2;
-  if (PG > P2) return false;
-  p.R = R;
-  p.WB = WB;
-  p.PG = PG;
-  p.TT = TT;
-  p.n_strip = cdiv(H, R);
-  p.n_wt = cdiv(W, WB);
-  p.n_pg = cdiv(P2, PG);
-  p.n_tseg = cdiv(Tn, TT);
-  // pairs by cp.async where every pair is aligned to its size
-  p.pairs = C % 2 == 0 && ptrs % (2 * esz) == 0;
-  return true;
-}
-
-int threads_of(const Plan& p) { return (p.WB * p.PG + 31) / 32 * 32; }
 
 // Dynamic shared memory of the forward (the ring) and of the weight
 // gradient (the ring of x and g frames, or the column sums if larger).

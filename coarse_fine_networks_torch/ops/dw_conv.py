@@ -25,7 +25,9 @@ Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 * ``dw_conv_dx_s2``: :func:`dw_conv_dx_s2`, in ``csrc/dw_act_bwd.cu`` (the
   act-mode stride-2 dx without the mask, the scale and the sums);
 * ``dw_conv_wgrad_s2``: :func:`dw_conv_wgrad` at stride 2, in
-  ``csrc/dw_act_bwd.cu``.
+  ``csrc/dw_plain_s2.cu`` (the stride-1 weight gradient's staging and
+  threads over the output's row strips, rows stored de-interleaved), with
+  the work split of :func:`plan_s2`.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  All tensors are channels-last
@@ -34,26 +36,31 @@ kernel on a CUDA tensor, or raises.  All tensors are channels-last
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
 
 from ._build import CudaLibrary, I, P
 from .dw_act import _check
-from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw, _partials
+from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw
 from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
 from .dw_mm_act import stencil_f32, wgrad_f32
 
-# The stride-1 kernels; the stride-2 ones are in the bottleneck entry's
-# sources (FWD_LIBRARY, BWD_LIBRARY).
+# The stride-1 kernels, and the stride-2 weight gradient; the other stride-2
+# ones are in the bottleneck entry's sources (FWD_LIBRARY, BWD_LIBRARY).
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
     "dw_plain_s1_occupancy": [I] * 5,
 })
+LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
+    "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
+    "dw_plain_s2_occupancy": [I] * 4,
+})
 # every source this module's kernels are in
-LIBRARIES = ENTRY_LIBRARIES + (LIBRARY,)
+LIBRARIES = ENTRY_LIBRARIES + (LIBRARY, LIBRARY_S2)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by a plain version).
@@ -152,6 +159,7 @@ class PlanS1(NamedTuple):
         return max(ring, 4 * 27 * self.wb * 2 * self.pg)
 
 
+@lru_cache(maxsize=None)
 def plan_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     """The work split of the stride-1 kernels for x ``(B, T, H, W, C)``.
 
@@ -172,9 +180,111 @@ def plan_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     while tt > TT_MIN and (plan._replace(tt=tt).items * plan.n_pg
                            < FWD_BLOCKS):
         tt = max(TT_MIN, _cdiv(tt, 2))
-    plan = plan._replace(tt=tt)
+    return _persistent(plan._replace(tt=tt))
+
+
+def _persistent(plan: PlanS1) -> PlanS1:
+    """``plan`` with a weight gradient's persistent grid: ``ipb`` items per
+    block, on about two blocks per SM."""
     ipb = _cdiv(plan.items, max(1, min(plan.items, WG_BLOCKS // plan.n_pg)))
     return plan._replace(ipb=ipb, rows=_cdiv(plan.items, ipb))
+
+
+# ---- the stride-2 weight gradient's work split --------------------------------
+
+@lru_cache(maxsize=None)
+def plan_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_wgrad_s2`` for x ``(B, T, H, W, C)``:
+    :func:`plan_s1`'s rules over the output ``(⌈H/2⌉, ⌈W/2⌉)`` (its
+    ``h``/``w`` and tiles are output rows and columns), channel pairs cut
+    into more groups where a block's f32 shared memory (:func:`smem_s2`)
+    would pass the card's limit, and frames split (down to 8) only until
+    the persistent grid has about two blocks per SM.  Each item stages the 2R+1 input rows and 2WB+1 input columns its
+    output tile reads."""
+    ho, wo = _out_hw(h, w, 2)
+    p2 = _cdiv(c, 2)
+    wb = _cdiv(wo, _cdiv(wo, NT_MAX))
+    pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
+    r = max(RMIN, _cdiv(ho, _cdiv(ho, RMAX)))
+    plan = PlanS1(b, t, ho, wo, c, r, wb, pg, t, 1, 1)
+    while smem_s2(plan, 4) > SMEM_MAX and plan.pg > 1:  # narrow, wide C
+        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))
+    tt = t
+    while tt > TT_MIN and (plan._replace(tt=tt).items * plan.n_pg
+                           < WG_BLOCKS):
+        tt = max(TT_MIN, _cdiv(tt, 2))
+    return _persistent(plan._replace(tt=tt))
+
+
+def smem_s2(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_wgrad_s2``, in bytes, as
+    its launcher sizes it: the ring of x frames (2R+1 de-interleaved rows)
+    and g frames (R rows), or the column sums if larger."""
+    def pad(n):
+        return _cdiv(n * esz, 16) * 16
+    row = 2 * (plan.wb + 1) * 2 * plan.pg
+    ring = NSTAGE * (pad((2 * plan.r + 1) * row)
+                     + pad(plan.r * plan.wb * 2 * plan.pg))
+    return max(ring, 4 * 27 * plan.wb * 2 * plan.pg)
+
+
+# ---- the stride-1 mm forward's work split (K1 mm, csrc/dw_mm_act.cu) ----------
+
+SMEM_MAX = 232448  # a block's shared memory on the H100
+XSTAGE = 3  # x frames in dw_mm_act_s1's staging ring
+
+
+MM_SETUP_FRAMES = 2  # a block's set-up (W1's columns, the taps), in frames
+
+
+@lru_cache(maxsize=None)
+def plan_mm_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+               esz: int) -> PlanS1:
+    """The work split of ``dw_mm_act_s1`` for x ``(B, T, H, W, C_in)`` of
+    ``esz``-byte elements and ``C_mid`` output channels: :func:`plan_s1`'s
+    rows, columns and channel pairs over the output ``(B, T, H, W,
+    C_mid)``, the pairs cut into more groups where a block's shared memory
+    (:func:`smem_mm_s1`, W1's columns are ``C_in`` deep) would pass the
+    card's limit; and its own frames per segment.  A segment of ``tt``
+    frames stages and multiplies ``tt + 2`` input frames, and the blocks
+    run in rounds of two per SM, so ``tt`` (equal segments, down to 1
+    frame) minimises rounds × (``tt`` + 2 + ``MM_SETUP_FRAMES``); ties go
+    to the longer segment."""
+    base = plan_s1(b, t, h, w, c_mid)
+    p2 = _cdiv(c_mid, 2)
+    n_pg = base.n_pg
+    while smem_mm_s1(base, c_in, esz) > SMEM_MAX and base.pg > 1:
+        n_pg += 1
+        base = base._replace(pg=_cdiv(p2, n_pg))
+    best = None
+    for n in range(1, t + 1):
+        tt = _cdiv(t, n)
+        blocks = base._replace(tt=tt).items * base.n_pg
+        cost = _cdiv(blocks, 2 * SMS) * (tt + 2 + MM_SETUP_FRAMES)
+        if best is None or cost < best[0]:
+            best = (cost, tt)
+    return base._replace(tt=best[1], ipb=1, rows=1)
+
+
+def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_mm_act_s1``, in bytes, as its
+    launcher sizes it (``mm_layout``): two activated slots
+    ``[R+2][WB+2][2PG]``; a ring of three staged x frames of ``(R+2) ·
+    min(WB+2, W)`` positions (rounded up to 16) × C_in (bf16: rounded up to
+    16, + 8); W1's columns (bf16: ``2PG`` rounded up to 8, × that stride);
+    three vectors over them (bn1's apply, the relu-branch bound); a table of
+    the positions' places."""
+    def pad(n):
+        return _cdiv(n, 16) * 16
+    bf = esz == 2
+    pg2 = 2 * plan.pg
+    rows = _cdiv((plan.r + 2) * min(plan.wb + 2, plan.w), 16) * 16
+    ld = _cdiv(c_in, 16) * 16 + 8 if bf else c_in
+    ng = _cdiv(pg2, 8) * 8 if bf else pg2
+    aslot = pad((plan.r + 2) * (plan.wb + 2) * pg2 * esz)
+    wt = ng * ld * 2 if bf else c_in * pg2 * 4
+    return (2 * aslot + XSTAGE * rows * ld * esz + pad(wt) + 3 * pad(ng * 4)
+            + 4 * rows)
 
 
 # ---- forward: the plain mode of K1 (stride 1) and K4 (stride 2) -------------
@@ -281,9 +391,12 @@ def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
                 g.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg,
                 p.tt, p.ipb, p.rows)
     else:
-        part = _partials("dw_conv_wgrad_s2", x, 27)
-        _launch(LAUNCHES, BWD_LIBRARY, "dw_conv_wgrad_s2", x, x.data_ptr(),
-                g.data_ptr(), part.data_ptr(), *x.shape)
+        p = plan_s2(*x.shape)
+        part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, LIBRARY_S2, "dw_conv_wgrad_s2", x, x.data_ptr(),
+                g.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg,
+                p.tt, p.ipb, p.rows)
     return torch.sum(part, dim=0)
 
 

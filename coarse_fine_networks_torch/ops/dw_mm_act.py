@@ -15,7 +15,9 @@ Kernels (CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use into
 ``_build/`` and bound with ``ctypes``, :mod:`._build`):
 
 * ``dw_mm_act_s1``/``dw_mm_act_s2``: :func:`dw_mm_bnrelu_conv3d`, in
-  ``csrc/dw_mm_act.cu``;
+  ``csrc/dw_mm_act.cu``; at stride 1 ``mm_fwd_s1_kernel`` (row strips with
+  the work split of :func:`..dw_conv.plan_mm_s1`, conv1's product on the
+  bf16 tensor cores), at stride 2 the mm mode of the entry kernel;
 * ``dw_mm_wgrad_s1``/``dw_mm_wgrad_s2``: :func:`dw_mm_wgrad`, in
   ``csrc/dw_act_bwd.cu``.
 
@@ -33,7 +35,8 @@ from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 # The forward source also holds the act-mode entries of :mod:`.dw_act` and
 # the stride-2 plain-mode entry of :mod:`.dw_conv`.
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
-    "dw_mm_act_s1": [P] * 6 + [I] * 7 + [P],
+    "dw_mm_act_s1": [P] * 6 + [I] * 11 + [P],
+    "dw_mm_act_s1_occupancy": [I] * 6,
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
     "dw_act_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
@@ -41,7 +44,8 @@ LIBRARY = CudaLibrary("dw_mm_act.cu", {
 })
 SOURCE = LIBRARY.source
 # The backward source: this module's weight gradient and the backward
-# entries of :mod:`.dw_act`, :mod:`.dw_conv` and :mod:`.dw_mm_bn_train`.
+# entries of :mod:`.dw_act`, :mod:`.dw_mm_bn_train` and :mod:`.dw_conv`'s
+# stride-2 dx.
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
     "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
@@ -49,7 +53,6 @@ BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
     "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
-    "dw_conv_wgrad_s2": [P] * 3 + [I] * 6 + [P],
     "dw_mm_dx_mask_s1": [P] * 7 + [I] * 7 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
@@ -62,10 +65,9 @@ LIBRARIES = (LIBRARY, BWD_LIBRARY)
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# plain- and mm-mode weight gradients have the act mode's rows)
+# mm-mode weight gradients have the act mode's rows)
 _ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
-              "dw_act_wgrad_s2": 3, "dw_conv_wgrad_s2": 3,
-              "dw_mm_wgrad_s1": 2, "dw_mm_wgrad_s2": 3}
+              "dw_act_wgrad_s2": 3, "dw_mm_wgrad_s1": 2, "dw_mm_wgrad_s2": 3}
 
 
 def reset_launches() -> None:
@@ -247,9 +249,15 @@ def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
     y = torch.empty((b, t, ho, wo, c_mid), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    _launch(LAUNCHES, LIBRARY, f"dw_mm_act_s{stride}", x, x.data_ptr(),
-            w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-            y.data_ptr(), b, t, h, w, c_in, c_mid)
+    args = (x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), y.data_ptr(), b, t, h, w, c_in, c_mid)
+    if stride == 1:
+        # .dw_conv builds on this module's libraries: imported here
+        from .dw_conv import plan_mm_s1
+
+        p = plan_mm_s1(b, t, h, w, c_in, c_mid, x.element_size())
+        args += (p.r, p.wb, p.pg, p.tt)
+    _launch(LAUNCHES, LIBRARY, f"dw_mm_act_s{stride}", x, *args)
     return y
 
 

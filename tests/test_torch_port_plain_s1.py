@@ -146,7 +146,8 @@ def test_bindings_match_the_c_declarations(lib):
 
 
 def test_stride1_entries_left_the_entry_sources():
-    """The plain mode at stride 1 lives in ``dw_plain_s1.cu`` only; the
+    """The plain mode at stride 1 lives in ``dw_plain_s1.cu`` only, the
+    plain weight gradient at stride 2 in ``dw_plain_s2.cu`` only; the other
     stride-2 plain entries stay in the bottleneck entry's sources."""
     fwd = dw_conv.FWD_LIBRARY.source.read_text()
     bwd = dw_conv.BWD_LIBRARY.source.read_text()
@@ -156,5 +157,9 @@ def test_stride1_entries_left_the_entry_sources():
         assert f'extern "C" int {name}(' not in fwd + bwd
         assert name in dw_conv.LIBRARY.functions
     assert 'extern "C" int dw_conv_s2(' in fwd
-    assert 'extern "C" int dw_conv_wgrad_s2(' in bwd
+    assert 'extern "C" int dw_conv_dx_s2(' in bwd
+    assert 'extern "C" int dw_conv_wgrad_s2(' not in fwd + bwd + new
+    assert ('extern "C" int dw_conv_wgrad_s2('
+            in dw_conv.LIBRARY_S2.source.read_text())
     assert dw_conv.LIBRARY in dw_conv.LIBRARIES
+    assert dw_conv.LIBRARY_S2 in dw_conv.LIBRARIES

@@ -12,9 +12,9 @@ Phases, each printing JSON lines:
    ``nvcc`` for each of the five sources, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu`` and
    ``dw_mm_act.cu`` whose registers, spills and static shared memory for
-   each row-strip kernel (K1/K6 plain, K10 plain, K1 ``mm``) make three
-   ``ptxas`` rows; their dynamic shared memory and blocks per SM are in
-   the kernel rows' ``plan``);
+   each row-strip kernel (K1/K6 plain; K4 plain, K8 and K10 plain; K1
+   ``mm``) make three ``ptxas`` rows; their dynamic shared memory and
+   blocks per SM are in the kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -60,10 +60,13 @@ Phases, each printing JSON lines:
    A-C of the multigrid long cycle, f32 (TF32 off) and bf16, timed beside
    the plain version and the one PyTorch call that computes the same
    function (``F.conv3d(groups=C)``, ``aten.convolution_backward``); the
-   stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), both
-   weight gradients against themselves run again (equal to 0), and each
-   row with its work split (``plan_s1``, ``plan_s2``), blocks per SM and
-   waves;
+   stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), the
+   stride-2 forward against K7 (``dw_stencil_s2``, equal to 0), the
+   stride-2 dx against K11 on g at the even positions of a zero tensor of
+   x's shape with the flipped taps (equal to 0), both weight gradients
+   against themselves run again (equal to 0), and each row with its work
+   split (``plan_s1``, ``plan_s2_fwd``, ``plan_s2_dx``, ``plan_s2``),
+   blocks per SM and waves;
 10. fine_autograd: the split route's Function against autograd through
    ``F.conv3d(groups=C)``, f32, one shape per stride;
 11. fine_train: fine-stream training under the X3D multigrid long cycle at
@@ -103,7 +106,8 @@ Phases, each printing JSON lines:
    train step, long-cycle phases A-D), K11 at 3×3×3 on layer1's stride-1
    entry (also against ``dw_conv_s1``) and every tap shape at ragged sizes;
    K7 (``dw_stencil_s2``) at the train step's four stride-2 entries (also
-   against ``dw_conv_s2``);
+   against ``dw_conv_s2``); each of these 3×3×3 stencils equals the other
+   kernel of its function with a difference of 0;
 18. stencil_autograd: ``depthwise_conv3d``'s y, dx and taps' gradient at
    both strides against autograd through ``F.conv3d(groups=C)``, f32, and
    the stem's gradients (reaching ``conv1_s``) against autograd through the
@@ -217,21 +221,22 @@ _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1")
-                       else "dw_plain_s2.cu" if k == "dw_conv_wgrad_s2"
+                       else "dw_plain_s2.cu" if k.startswith("dw_conv_")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
 KERNEL_FUNCS = {
-    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s1", "dw_act_s2",
-                         "dw_conv_s2"),
+    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s1", "dw_act_s2"),
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
     "dx_s1_kernel": ("dw_act_dx_s1", "dw_mm_dx_mask_s1"),
-    "dx_s2_kernel": ("dw_act_dx_s2", "dw_conv_dx_s2", "dw_mm_dx_mask_s2"),
+    "dx_s2_kernel": ("dw_act_dx_s2", "dw_mm_dx_mask_s2"),
     "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
                      "dw_mm_wgrad_s2"),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
+    "plain_s2_fwd_kernel": ("dw_conv_s2",),
+    "plain_s2_dx_kernel": ("dw_conv_dx_s2",),
     "plain_s2_wgrad_kernel": ("dw_conv_wgrad_s2",),
     "stencil_fwd_kernel": ("dw_stencil_s1", "dw_stencil_s2"),
     "stencil_dk_kernel": ("dw_stencil_wgrad",),
@@ -352,7 +357,8 @@ def _ptxas(source: Path) -> dict:
 # the ptxas rows: each source's kernel functions of the row-strip layout
 # (three row counts: 2-4) in f32 and bf16
 PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel"),
-         "dw_conv_wgrad_s2": ("plain_s2_wgrad_kernel",),
+         "dw_conv_s2": ("plain_s2_fwd_kernel", "plain_s2_dx_kernel",
+                        "plain_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",)}
 
 
@@ -1214,20 +1220,25 @@ def _waves(blocks: int, per_sm: int) -> float:
         0).multi_processor_count)
 
 
-def _plan_row_s2(dw_conv, shape, dtype) -> dict:
-    """K10 plain's work split at x ``shape`` (over the output's rows and
-    columns): its persistent grid, shared memory, blocks per SM and
-    waves."""
-    p = dw_conv.plan_s2(*shape)
+def _plan_row_s2(dw_conv, name, shape, dtype) -> dict:
+    """The work split of stride-2 kernel ``name`` at x ``shape`` (over the
+    output's rows and columns; the dx's over g's): its blocks (K4 plain and
+    K8: one per tile; K10 plain: its persistent grid), shared memory,
+    blocks per SM and waves."""
+    kind, plan, smem = {
+        "dw_conv_s2": (0, dw_conv.plan_s2_fwd, dw_conv.smem_s2_fwd),
+        "dw_conv_dx_s2": (1, dw_conv.plan_s2_dx, dw_conv.smem_s2_dx),
+        "dw_conv_wgrad_s2": (2, dw_conv.plan_s2, dw_conv.smem_s2)}[name]
+    p = plan(*shape)
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
-    occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(p.r, p.wb, p.pg,
-                                                           bf16)
-    check(occ > 0, f"plan_s2 {shape} {dtype}: does not fit ({occ})")
-    blocks = p.rows * p.n_pg
-    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
-            "rows": p.rows, "threads": p.threads, "blocks": blocks,
-            "smem": dw_conv.smem_s2(p, esz), "blocks_per_sm": occ,
-            "waves": _waves(blocks, occ)}
+    occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(kind, p.r, p.wb,
+                                                           p.pg, bf16)
+    check(occ > 0, f"{name} plan {shape} {dtype}: does not fit ({occ})")
+    blocks = (p.rows if kind == 2 else p.items) * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
+            **({"ipb": p.ipb, "rows": p.rows} if kind == 2 else {}),
+            "threads": p.threads, "blocks": blocks, "smem": smem(p, esz),
+            "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
 
 
 def _plan_row_mm(dw_conv, dw_mm_act, shape, c_mid, dtype) -> dict:
@@ -1251,9 +1262,12 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
     versions, and timed beside the PyTorch call that computes the same
     function, at the fine entry shapes of long-cycle phases A-C.  The
     stride-1 forward is also held against K11 (``dw_stencil_s1``, the same
-    function at 3×3×3, summed in the same order): the difference must be 0;
-    the weight gradients (stride 1 and 2) are launched twice and must
-    repeat bit for bit."""
+    function at 3×3×3, summed in the same order), the stride-2 forward
+    against K7 (``dw_stencil_s2``, likewise) and the stride-2 dx against
+    K11 on g at the even positions of a zero tensor of x's shape with the
+    flipped taps (its nonzero terms in the same order): each difference
+    must be 0; the weight gradients (stride 1 and 2) are launched twice and
+    must repeat bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(20)
     per_kernel = {k: _agg() for k in FINE_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
@@ -1308,21 +1322,33 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
                     f"dw_conv_wgrad_s{s}": ((f"dw_conv_wgrad_s{s} again",
                                              lambda: dw_conv.dw_conv_wgrad(
                                                  x, g, s)),)}
+                if s == 2:
+                    # g at the even positions of a zero tensor of x's shape
+                    up = torch.zeros_like(x)
+                    up[:, :, ::2, ::2] = g
+                    w_flip = torch.flip(w, (0, 1, 2)).contiguous()
+                    also["dw_conv_s2"] = (("dw_stencil_s2",
+                                           lambda: dw_stencil.dw_stencil3d(
+                                               x, w, (1, 2, 2))),)
+                    also["dw_conv_dx_s2"] = ((
+                        "dw_stencil_s1 on up(g), flip(w)",
+                        lambda: dw_stencil.dw_stencil3d(up, w_flip)),)
                 meta = {"entry": f"fine.{phase}.{label}",
                         "x": [b, t, h, h, c], "stride": s}
-                if s == 1:
-                    meta["plan"] = _plan_row(dw_conv, (b, t, h, h, c), dtype)
-                else:
-                    meta["plan_s2"] = _plan_row_s2(dw_conv, (b, t, h, h, c),
-                                                   dtype)
+                plans = (dict.fromkeys(cases, _plan_row(
+                    dw_conv, (b, t, h, h, c), dtype)) if s == 1 else
+                         {name: _plan_row_s2(dw_conv, name, (b, t, h, h, c),
+                                             dtype) for name in cases})
                 # each shape weighted by its launches in one step of each
                 # of phases A-C
                 for name, case in cases.items():
                     _hold_time_library(
-                        "fine_kernels", name, meta, dtype, *case, True,
-                        per_kernel[name], also.get(name, ()),
-                        also_exact=name in also)
+                        "fine_kernels", name, {**meta, "plan": plans[name]},
+                        dtype, *case, True, per_kernel[name],
+                        also.get(name, ()), also_exact=name in also)
                 del x, g, xc, gc
+                if s == 2:
+                    del up
             torch.cuda.empty_cache()
     return per_kernel
 
@@ -1415,7 +1441,8 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
     shapes of :func:`stencil_cases`, f32 (TF32 off) and bf16, timed beside
     the plain version and the one PyTorch call that computes the same
     function; the 3×3×3 stencils also against ``dw_conv_s1``/``dw_conv_s2``
-    (the same functions)."""
+    (the same functions, summed in the same order: the difference must be
+    0)."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     per_kernel = {k: _agg() for k in STENCIL_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
@@ -1444,7 +1471,7 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                                  padding=pad, groups=c),
                 "F.conv3d(groups=C), channels_last_3d",
                 (n_x + n_y + w.numel()) * esz, 2 * taps * n_y, n_fwd, counted,
-                per_kernel[name], also)
+                per_kernel[name], also, also_exact=True)
             if s == 1:
                 g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 bw = ([1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], c)
@@ -1763,7 +1790,8 @@ def phase_fine_train(mods) -> dict:
                 split_launches[k] += launches[k]
         # every phase: its device kernel time per step
         ours = (("plain_fwd_kernel", "plain_wgrad_kernel",
-                 "plain_s2_wgrad_kernel", "dw_mm_act_kernel", "dx_s2_kernel")
+                 "plain_s2_fwd_kernel", "plain_s2_dx_kernel",
+                 "plain_s2_wgrad_kernel")
                 if splits > 1 else
                 ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
                  "wgrad_kernel")) + ("stencil_fwd_kernel",

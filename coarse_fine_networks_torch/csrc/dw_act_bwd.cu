@@ -1,32 +1,29 @@
 // Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a):
 //
 //     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )          (act)
-//     y = dwconv3x3x3_(1,s,s)( x )                                     (plain)
 //     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
 //
-// x (B,T,H,W,C) is the conv1 output (plain mode: already normalised per
-// split and activated; mm mode: conv1's input (B,T,H,W,Cin), W1 (Cin,C)),
+// x (B,T,H,W,C) is the conv1 output (mm mode: conv1's input (B,T,H,W,Cin),
+// W1 (Cin,C)),
 // channels-last, f32 or bf16; the depthwise taps w (27,C) have x's dtype;
 // sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
 // is dL/dy (y's shape and dtype).
 //
-// Nine kernel entries, each replacing a TPU Pallas kernel of
+// Eight kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
-// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; plain mode: the
-// backward of dw_fold4 and dw_fold4_stride2, _dw_fold4_bwd and _dw_s2_bwd;
-// mm mode: the backward of the train composite dw_fold4_mm_bn_train,
+// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; mm mode: the
+// backward of the train composite dw_fold4_mm_bn_train,
 // _mm_bn_train_bwd, and of the eval entry dw_fold4_mm_act, _dw_mm_bwd):
 //   * dw_act_dx_s1      <- _dx_act_pcall -> _fwd_kernel(actmask)
 //   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
-//   * dw_conv_dx_s2     <- _dx_s2_pcall -> _dx_s2_kernel (plain; K8)
 //   * dw_mm_dx_mask_s1  <- _dx_mask_pcall -> _fwd_kernel(dxmask) (K2)
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
 //   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
 //   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
 //   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
-// (the plain mode at stride 1, its dx and weight gradient, is in
-// dw_plain_s1.cu; the plain weight gradient at stride 2 in dw_plain_s2.cu).
+// (the plain mode, the backward of dw_fold4 and dw_fold4_stride2, is in
+// dw_plain_s1.cu and dw_plain_s2.cu).
 //
 // dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
 //              stride 2 the half-resolution gather
@@ -40,7 +37,6 @@
 //              dozen are, and a flipped mask is an O(1) error in dx);
 //        out: dx = dam*sc in x's dtype, and per block the f32 partial sums
 //             (sum dam*x, sum dam) per channel -> (dsc, dbi).
-//        plain mode (stride 2 only): dx = da in g's dtype, nothing else.
 //        mm mode: dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype, nothing
 //             else; the mask recomputes conv1's product per output position
 //             with the forward's prologue (mm_prologue, common.cuh), the
@@ -82,8 +78,8 @@ using namespace cfn;
 constexpr int TT_DX = 8;  // frames per block, dx
 constexpr int TT_WG = 16; // frames per block, wgrad (fewer partial rows)
 
-// act: the prologue relu(x*sc + bi); plain: none; mm: relu((x@W1)*sc + bi)
-enum Mode { ACT, PLAIN, MM };
+// act: the prologue relu(x*sc + bi); mm: relu((x@W1)*sc + bi)
+enum Mode { ACT, MM };
 
 // ---- geometry ---------------------------------------------------------------
 // dx at stride 1 and both wgrads use StencilGeom<S> (common.cuh), the
@@ -246,9 +242,8 @@ dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
 
 // ---- dx, stride (1,2,2) --------------------------------------------------------
 // g is (B,T,Ho,Wo,C), dx (B,T,H,W,C), Ho = (H-1)/2 + 1. ACT (x (B,T,H,W,C)):
-// the epilogue masks, scales and reduces; PLAIN (x, w1, sc, bi and part
-// unused): dx = da; MM (x (B,T,H,W,Cin), w1 (Cin,C), part unused): dx = dam
-// in g's dtype.
+// the epilogue masks, scales and reduces; MM (x (B,T,H,W,Cin), w1 (Cin,C),
+// part unused): dx = dam in g's dtype.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(WARPS * 32)
 dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
@@ -270,8 +265,8 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_DX;
   const int t1 = min(t0 + TT_DX, Tn);
-  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
-  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
+  const float scv = cval ? sc[c] : 0.f;
+  const float biv = cval ? bi[c] : 0.f;
   float wt[27];
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * C + c]) : 0.f;
@@ -322,10 +317,8 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
         const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
         if constexpr (MODE == ACT)
           dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
-        else if constexpr (MODE == MM)
-          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
         else
-          dx[idx] = from_f<T>(acc);
+          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
       }
     }
     __syncthreads();
@@ -359,8 +352,8 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int b = blockIdx.z / n_tseg;
   const int t0 = (blockIdx.z % n_tseg) * TT_WG;
   const int t1 = min(t0 + TT_WG, Tn);
-  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
-  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
+  const float scv = cval ? sc[c] : 0.f;
+  const float biv = cval ? bi[c] : 0.f;
 
   auto load = [&](int ti) {
     float* slot = ring + slot_of(ti) * G::P * CC;
@@ -555,19 +548,6 @@ extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
                                                T, H, W, C, C, st);
   return launch_wgrad<float, 2, ACT>(x, nullptr, g, sc, bi, part, B, T, H, W, C,
                                      C, st);
-}
-
-// plain mode: x is the stencil's input itself; no sc, bi.
-extern "C" int dw_conv_dx_s2(const void* g, const void* w, void* dx, int B,
-                             int T, int H, int W, int C, int is_bf16,
-                             void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16, PLAIN>(g, nullptr, nullptr, w, nullptr,
-                                              nullptr, dx, nullptr, B, T, H, W,
-                                              C, C, st);
-  return launch_dx_s2<float, PLAIN>(g, nullptr, nullptr, w, nullptr, nullptr,
-                                    dx, nullptr, B, T, H, W, C, C, st);
 }
 
 // mm mode: x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and

@@ -1,27 +1,25 @@
-// X3D bottleneck entry for Hopper (sm_90a), three modes:
+// X3D bottleneck entry for Hopper (sm_90a), two modes:
 //
 //   mm    (eval):            y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
 //   act   (train):           y = dwconv3x3x3( relu( x * sc + bi ) )
-//   plain (train, split bn): y = dwconv3x3x3( x )
 //
-// mm and act at stride 1 or (1,2,2), plain at stride (1,2,2) only (its
-// stride-1 entry, dw_conv_s1, has a layout of its own in dw_plain_s1.cu, as
-// has the mm mode at stride 1 here, mm_fwd_s1_kernel).
+// at stride 1 or (1,2,2); the mm mode at stride 1 has a layout of its own
+// here, mm_fwd_s1_kernel. (The plain mode of the split-batch-norm route,
+// y = dwconv3x3x3( x ), is in dw_plain_s1.cu and dw_plain_s2.cu.)
 // x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
 // vectors of bn1 (running statistics in eval, batch statistics in train). In
-// act and plain mode x is the conv1 output (plain: already normalised per
-// split and activated) and C_in == C_mid.
+// act mode x is the conv1 output and C_in == C_mid.
 //
-// Replaces three modes of two TPU Pallas kernels of
+// Replaces two modes of two TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_mm_act_s1 / dw_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1,
 //     modes mm and act), and
-//   * dw_mm_act_s2 / dw_act_s2 / dw_conv_s2 <- _fwd_s2_direct_pcall ->
+//   * dw_mm_act_s2 / dw_act_s2 <- _fwd_s2_direct_pcall ->
 //     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
-//     positions is computed; modes mm, act and plain),
-// with the tile prologues _mm_act_tile (mm) and _act_tile (act); plain mode
-// has none. Semantics kept from them:
+//     positions is computed; modes mm and act),
+// with the tile prologues _mm_act_tile (mm) and _act_tile (act). Semantics
+// kept from them:
 //   * the activation a is computed in f32 and rounded to x's dtype before
 //     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
@@ -43,8 +41,7 @@
 // channels at a time with 16-byte loads along C, by the prologue the
 // backward shares (mm_prologue, common.cuh); in act mode each lane loads
 // its own channel (C_mid = 54, 108, ... is no multiple of 8, so 16-byte
-// loads would straddle positions); plain mode loads as act mode does, with
-// no prologue. Each lane owns one output channel, so
+// loads would straddle positions). Each lane owns one output channel, so
 // shared-memory reads of the ring are conflict-free and stores of y are
 // coalesced along C. The product runs on the FP32 cores.
 //
@@ -64,11 +61,11 @@ using namespace cfn;
 
 constexpr int TT = 8;      // output frames per block
 
-enum Mode { MM, ACT, PLAIN };
+enum Mode { MM, ACT };
 
 template <int S, int MODE> struct Geom : StencilGeom<S> {
   using SG = StencilGeom<S>;
-  // act and plain mode stage nothing besides the ring
+  // act mode stages nothing besides the ring
   static constexpr size_t SMEM =
       sizeof(float) *
       (3 * SG::P * CC + (MODE != MM ? 0 : SG::P * KC + KC * CC));
@@ -101,22 +98,22 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int c = c0 + lane;
   const bool cval = c < Cmid;
 
-  const float scv = (MODE != PLAIN && cval) ? sc[c] : 0.f;
-  const float biv = (MODE != PLAIN && cval) ? bi[c] : 0.f;
+  const float scv = cval ? sc[c] : 0.f;
+  const float biv = cval ? bi[c] : 0.f;
   float wt[27];
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
 
-  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm), relu(x[b, ti] * sc
-  // + bi) (act) or x[b, ti] (plain) over the halo, zero outside the tensor
-  // (frame, rows, cols) and for channels >= Cmid
+  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm) or relu(x[b, ti] * sc
+  // + bi) (act) over the halo, zero outside the tensor (frame, rows, cols)
+  // and for channels >= Cmid
   auto activate = [&](int ti) {
     float* slot = ring + slot_of(ti) * P * CC;
     if (ti < 0 || ti >= Tn) {  // uniform across the block
       for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
       return;
     }
-    if constexpr (MODE != MM) {
+    if constexpr (MODE == ACT) {
       const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cmid;
 #pragma unroll
       for (int j = 0; j < G::NPA; ++j) {
@@ -127,7 +124,7 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
           if (cval && gy >= 0 && gy < H && gx >= 0 && gx < W) {
             a = to_f(xf[((size_t)gy * W + gx) * Cmid + c]);
             // the relu branch the backward's mask takes (dw_act_bwd.cu)
-            if (MODE == ACT) a = act<T>(a, scv, biv);
+            a = act<T>(a, scv, biv);
           }
           slot[p * CC + lane] = a;
         }
@@ -606,12 +603,4 @@ extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
                          int C, int is_bf16, void* stream) {
   return dispatch<2, ACT>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
                           is_bf16, stream);
-}
-
-// plain mode: x is (B,T,H,W,C), already activated; no W1, sc or bi.
-extern "C" int dw_conv_s2(const void* x, const void* wdw, void* y, int B,
-                          int T, int H, int W, int C, int is_bf16,
-                          void* stream) {
-  return dispatch<2, PLAIN>(x, nullptr, wdw, nullptr, nullptr, y, B, T, H, W,
-                            C, C, is_bf16, stream);
 }

@@ -1,67 +1,117 @@
 // The plain depthwise 3x3x3 conv at stride (1,2,2) of the split-batch-norm
-// training route: its weight gradient, for Hopper (sm_90a):
+// training route, for Hopper (sm_90a): its forward, its dx and its weight
+// gradient:
 //
+//   dw_conv_s2        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
+//                                   x[t+dt-1, 2h+dy-1, 2w+dx-1, c]
+//                     (SAME zero padding)
+//   dw_conv_dx_s2     dx[t,r,q,c] = sum k[dt,dy,dx,c] *
+//                                   g[t-dt+1, (r-dy+1)/2, (q-dx+1)/2, c]
+//                     over the terms whose divisions are integral
 //   dw_conv_wgrad_s2  dk[dt,dy,dx,c] = sum_{t,h,w} x_pad[t+dt, 2h+dy, 2w+dx, c]
 //                                      * g[t,h,w,c]
 //                     per block an f32 partial row (27, C)
 //
-// x is channels-last (B,T,H,W,C), g (B,T,Ho,Wo,C) with Ho = (H-1)/2 + 1,
-// f32 or bf16; x_pad is x zero-padded by one on T, H and W. Every sum is in
-// f32.
+// x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
+// (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
+// x_pad is x zero-padded by one on T, H and W. Every sum is in f32; y and dx
+// are written in the input's dtype.
 //
-// Replaces the plain mode of the TPU Pallas kernel K10 of
+// Replaces the plain mode of three TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+//   * dw_conv_s2       <- _fwd_s2_direct_pcall (:1078) ->
+//                         _fwd_s2_direct_kernel (:1035), plain mode
+//                         (K4 plain);
+//   * dw_conv_dx_s2    <- _dx_s2_pcall (:1208) -> _dx_s2_kernel (:888),
+//                         plain mode (K8);
 //   * dw_conv_wgrad_s2 <- _wgrad_s2_pcall (:1279) -> _wgrad_s2_kernel
-//                         (:1122), plain mode.
-// The fold4 lane layout and its even/odd de-interleave are TPU mechanics
-// and are not carried over.
+//                         (:1122), plain mode (K10 plain).
+// The fold4 lane layout, its even/odd de-interleave and the sublane-pair
+// bitcasts are TPU mechanics and are not carried over.
 //
-// What bounds it on this card: bytes. It reads x once (4x the elements of
-// g) and g once, and does 27 MACs per element of g, far below the ~295
+// What bounds them on this card: bytes. The forward reads x once and
+// writes y (a quarter of x) once; the dx reads g and writes dx (4x the
+// elements of g); the weight gradient reads x and g once. Each does 27 MACs
+// per element of y or g (the dx 6.75 per element of dx), far below the ~295
 // operations per byte where the tensor cores would matter.
 //
-// What the design does about it (the layout of dw_plain_s1.cu's weight
-// gradient, strip.cuh, over the output's rows and columns):
-//   * A block owns R output rows x WB output columns (all Wo where Wo <=
-//     256) x a group of PG channel pairs of one sample over TT frames. Its
-//     input is the 2R+1 rows 2h0-1 .. 2h0+2R-1 at the 2WB+1 columns
-//     2w0-1 .. 2w0+2WB-1: a halo of (2R+1)/2R rows and one column per
-//     tile.
-//   * Input rows are staged at full resolution into a shared-memory ring of
-//     NSTAGE frames in x's dtype by cp.async, one commit group per frame
-//     (the frame's g rows with it), so frame t+2 loads while frame t is
-//     read. A staged row is stored de-interleaved: its even columns (input
-//     columns 2(w0+e)-1, e = 0..WB) then its odd ones (2(w0+e)). The thread
-//     of output column w0+wl reads even e = wl, odd e = wl and even e =
-//     wl+1, so the words a warp reads are consecutive at every PG (no bank
-//     conflict at C = 54, 108, 216 or 432, where a plain row would give a
-//     stride of 2PG words between neighbouring columns). Each thread copies
-//     the pair it reads (even and odd column wl; the threads of column 0
-//     also the last even column), so a frame costs it 2-3 copies per row and
-//     no index arithmetic.
-//   * A thread owns one channel pair at one output column. A staged row read
-//     once (3 pair reads) serves the one or two output rows it meets (dy =
-//     rr - 2r), over the 3 frames of a register ring of g along T: (2R+1)*3
-//     shared-memory reads per frame for 27 x 2 x R multiply-adds. g is read
-//     once per output, coalesced along channels, and kept in that ring.
-//   * The 27 x 2 sums stay in registers over the block's whole walk. The
+// What the design does about it (the row strips of strip.cuh, over the
+// output's rows and columns for the forward and the weight gradient and
+// over g's for the dx):
+//   * A block owns R rows (2..4, a template argument) x WB columns x a
+//     group of PG channel pairs of one sample over TT frames. A thread owns
+//     one channel pair at one column, so every shared-memory read of a warp
+//     is consecutive words and every global access of a warp is runs of
+//     2PG channels along C. The forward and the weight gradient take the
+//     columns first (all of a row up to 256), the dx the channel pairs
+//     first (groups of at most 32 pairs, then columns to fill the block):
+//     its stores are 4/5 of its bytes, and runs of 2PG = 54-62 channels at
+//     the path's widths, whole pixels where C <= 64, fill whole 32-byte
+//     sectors, where the columns-first split's runs of 8-18 channels at
+//     C = 54 left them part written.
+//   * The forward and the weight gradient read the 2R+1 input rows
+//     2h0-1 .. 2h0+2R-1 at the 2WB+1 columns 2w0-1 .. 2w0+2WB-1: a halo of
+//     (2R+1)/2R rows and one column per tile. They are staged at full
+//     resolution into a shared-memory ring of NSTAGE frames in x's dtype
+//     by cp.async, one commit group per frame (the weight gradient's g rows
+//     with it), so frame t+2 loads while frame t is read. A staged row is
+//     stored de-interleaved: its even columns (input columns 2(w0+e)-1,
+//     e = 0..WB) then its odd ones (2(w0+e)). The thread of output column
+//     w0+wl reads even e = wl, odd e = wl and even e = wl+1, so the words a
+//     warp reads are consecutive at every PG (no bank conflict at C = 54,
+//     108, 216 or 432, where a plain row would give a stride of 2PG words
+//     between neighbouring columns). Each thread copies the pair it reads
+//     (even and odd column wl; the threads of column 0 also the last even
+//     column), so a frame costs it 2-3 copies per row and no index
+//     arithmetic.
+//   * The forward (K4 plain) keeps a register ring of the 3 output frames
+//     an input frame feeds, as dw_plain_s1.cu's forward does: a staged row
+//     read once (3 pair reads) serves the one or two output rows it meets
+//     (dy = rr - 2r) in all three frames, 3 x R x 2 accumulators beside the
+//     54 tap registers. Each output's taps are added in the order dt, dy,
+//     dx with one fmaf each, as K7 (dw_stencil.cu) adds them: it equals
+//     dw_stencil_s2 bit for bit. The grid is one block per tile.
+//   * The dx (K8) is a gather from half-resolution g: the 2x2 quad of dx
+//     rows 2i, 2i+1 and columns 2j, 2j+1 reads only the 2x2 g window (i..
+//     i+1, j..j+1) of 3 frames (the even row through dy = 1, the odd row
+//     through dy = 2 on g row i and dy = 0 on row i+1; columns alike), 27
+//     MACs per quad with no branch and no wasted tap. A block stages its R+1
+//     g rows at WB+1 columns (the halo column by the threads of column 0)
+//     into a shared-memory ring of GSTAGE = 5 frames, so the two frames
+//     after the three being read are in flight. A register ring of dx
+//     frames (24R floats beside the 54 taps) would not fit in 128
+//     registers, so a thread reads the 3 g frames of each dx frame from the
+//     ring (6(R+1) pair reads), sums one dx frame (8R floats) and writes it
+//     once: a warp's two stores of a row (columns 2j and 2j+1) together
+//     cover 2PG channels of each of its dx columns, one contiguous run where
+//     the group holds every pair. Each element's terms are added with one
+//     fmaf each in g's frame, row, then column order, the order in which
+//     K11 (dw_stencil_s1) adds them on g put at the even positions of a zero
+//     full-resolution tensor with the flipped taps: it equals that bit for
+//     bit.
+//   * The weight gradient (K10 plain) keeps a register ring of g along T
+//     and its 27 x 2 sums in registers over the block's whole walk. Its
 //     grid is persistent: each block walks IPB consecutive work items
 //     (sample, frame segment, row strip, column tile) of its channel group,
 //     then sums its threads' columns in a fixed order and writes one partial
 //     row; the wrapper adds the rows with one torch.sum, so runs repeat bit
 //     for bit and nothing uses atomics.
 //   * Rows and columns outside the frame are never copied and read as the
-//     zero the ring is cleared to once per item; with R a template argument
-//     (2..4) the loop over staged rows is fully unrolled and has no branch.
-// The split (R, WB, PG, TT, IPB and the row count) is computed by the
-// wrapper (ops/dw_conv.py:plan_s2) and checked here; a plan the kernel does
-// not take returns cudaErrorInvalidValue.
+//     zero the ring is cleared to once per tile; frames outside the clip add
+//     nothing. With R a template argument the loops over staged rows are
+//     fully unrolled and have no branch.
+// The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
+// count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
+// plan_s2_dx, plan_s2) and checked here; a plan the kernels do not take
+// returns cudaErrorInvalidValue.
 
 #include "strip.cuh"
 
 namespace {
 
 using namespace cfn;
+
+constexpr int GSTAGE = 5;  // g frames in the dx kernel's ring
 
 // One thread's share of staging a tile of output columns [w0, w0+WB): its
 // channel pair c at the de-interleaved staged columns even wl (input column
@@ -120,7 +170,42 @@ struct S2Stager {
   }
 };
 
-// Elements of one staged x frame (2R+1 rows) and one g frame (R rows),
+// One thread's share of staging the dx kernel's g tile: its channel pair c
+// at g column w0+wl and, for wl == 0, at the halo column w0+WB, on every
+// row, into [rows][WB + 1][2PG].
+struct GStager {
+  int src, srcX, dst, dstX, C;
+  bool u, uX, pairs, second;
+
+  __device__ __forceinline__ GStager(const Tile& tl, int wl, int pi, int WB,
+                                     int PG2, int Wo, int C_, bool pairs_)
+      : C(C_), pairs(pairs_) {
+    const int c = 2 * (tl.p0 + pi);
+    u = wl < WB && c < C && tl.w0 + wl < Wo;
+    uX = wl == 0 && c < C && tl.w0 + WB < Wo;
+    src = (tl.w0 + wl) * C + c;
+    srcX = (tl.w0 + WB) * C + c;
+    dst = wl * PG2 + 2 * pi;
+    dstX = WB * PG2 + 2 * pi;
+    second = c + 1 < C;
+  }
+
+  // g rows [h0, h0 + nr) of frame f (Ho, Wo, C), clipped to the frame
+  template <typename T>
+  __device__ __forceinline__ void rows(T* out, const T* f, int h0, int nr,
+                                       int Ho, int Wo, int rowlen) const {
+    const int hi = min(h0 + nr, Ho);
+    for (int h = h0; h < hi; ++h) {
+      const T* s = f + (size_t)h * Wo * C;
+      T* d = out + (h - h0) * rowlen;
+      if (u) copy_pair(d + dst, s + src, pairs, second);
+      if (uX) copy_pair(d + dstX, s + srcX, pairs, second);
+    }
+  }
+};
+
+// Elements of one staged x frame (2R+1 rows), of one g frame of the weight
+// gradient (R rows) and of one g frame of the dx (R+1 rows, WB+1 columns),
 // each padded to 16 bytes.
 template <typename T>
 __host__ __device__ __forceinline__ int xstage_elems(int R, int WB, int PG) {
@@ -131,9 +216,257 @@ template <typename T>
 __host__ __device__ __forceinline__ int gstage_elems(int R, int WB, int PG) {
   return (R * WB * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 / (int)sizeof(T);
 }
+template <typename T>
+__host__ __device__ __forceinline__ int dxstage_elems(int R, int WB, int PG) {
+  return ((R + 1) * (WB + 1) * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 /
+         (int)sizeof(T);
+}
 
+// The stride-2 stencil of one staged x frame at the thread's column and
+// channel pair: staged row rr (input row 2h0 - 1 + rr) meets output row r
+// through dy = rr - 2r in [0, 2]; its even column wl, odd column wl and even
+// column wl + 1 (atE, atO, atE + PG2) are the taps dx = 0, 1, 2. FN(j, r,
+// dy, dx, v) does one multiply-add; everything is unrolled, so the loop has
+// no branch and the shared-memory reads of a row can run ahead.
+template <typename T, int R, typename FN>
+__device__ __forceinline__ void s2_frame(const T* slot, int rowlen, int atE,
+                                         int atO, int PG2, FN fn) {
+#pragma unroll
+  for (int rr = 0; rr < 2 * R + 1; ++rr) {
+    const T* sr = slot + rr * rowlen;
+    const float2 v[3] = {load_pair(sr + atE), load_pair(sr + atO),
+                         load_pair(sr + atE + PG2)};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int dy = rr - 2 * r;
+      if (dy < 0 || dy > 2) continue;
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+    }
+  }
+}
+
+// The taps of the thread's channel pair (zero where it owns no output)
+template <typename T>
+__device__ __forceinline__ void load_taps(float (&k0)[27], float (&k1)[27],
+                                          const T* k, int c, int C,
+                                          bool live) {
+#pragma unroll
+  for (int i = 0; i < 27; ++i) {
+    k0[i] = live ? to_f(k[i * C + c]) : 0.f;
+    k1[i] = live && c + 1 < C ? to_f(k[i * C + c + 1]) : 0.f;
+  }
+}
+
+// ---- forward (K4 plain) ---------------------------------------------------------
 // Thread (wl, pi) = (tid / PG, tid % PG): output column w0 + wl, channels
 // c, c+1 with c = 2*(p0 + pi). Slot i of the ring holds x frame f0 + i
+// (staged rows rr = 0..2R: input row 2h0 - 1 + rr). acc[j][r] holds output
+// frame ti - 1 + j of row h0 + r while input frame ti is read: frame ti adds
+// tap dt = 2 - j to it. After frame ti, acc[0] (output ti - 1) is complete,
+// is written, and the ring shifts.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
+                    int C, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2;
+  const int stage = xstage_elems<T>(R, WB, PG);
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int w = tl.w0 + wl;
+  const int c = 2 * (tl.p0 + pi);
+  // threads past the block's columns read nothing (the last warp's tail)
+  const bool in = wl < WB;
+  const bool live = in && w < Wo && c < C;  // owns outputs
+  const bool second = c + 1 < C;
+  // the thread's even column wl, odd column wl and even column wl + 1
+  const int atE = wl * PG2 + 2 * pi, atO = (WB + 1) * PG2 + atE;
+
+  float k0[27], k1[27];
+  load_taps(k0, k1, k, c, C, live);
+
+  const size_t frame = (size_t)H * W * C;
+  const T* xb = x + (size_t)tl.b * Tn * frame;
+  const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
+  auto load = [&](int i) {
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
+      sg.x_rows(ring + (i % NSTAGE) * stage, xb + (size_t)ti * frame,
+                2 * tl.h0 - 1, 2 * R + 1, H, W, rowlen);
+    cp_commit();
+  };
+
+  float acc[3][R][2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
+
+  zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
+  for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+  for (int i = 0; i < nf; ++i) {
+    cp_wait<NSTAGE - 2>();  // this thread's copies of frame i have landed
+    __syncthreads();        // and everyone's; frame i-1 is read by no one
+    load(i + NSTAGE - 1);   // into frame i-1's slot
+    const int ti = f0 + i;
+    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+      s2_frame<T, R>(ring + (i % NSTAGE) * stage, rowlen, atE, atO, PG2,
+                     [&](int j, int r, int dy, int dx, float2 v) {
+                       const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+                       acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+                       acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+                     });
+    const int to = ti - 1;  // complete now
+    if (to >= tl.t0 && live) {
+      T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
+              (size_t)w * C + c;
+      const bool pair = second && !(C & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < Ho)
+          store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[2][r][0];
+      acc[1][r][1] = acc[2][r][1];
+      acc[2][r][0] = acc[2][r][1] = 0.f;
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---- dx (K8) ----------------------------------------------------------------------
+// The tile is over g: thread (wl, pi) owns g column j = w0 + wl and channels
+// c, c+1, and writes dx columns 2j and 2j+1 of dx rows 2(h0+r) and
+// 2(h0+r)+1, r < R. Slot i % GSTAGE of the ring holds g frame f0 + i (rows
+// h0 .. h0+R, columns w0 .. w0+WB). dx frame o reads g frames o-1, o, o+1
+// (taps dt = 2, 1, 0) in slots i .. i+2, i = o - t0.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
+                   int C, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 1) * PG2;
+  const int stage = dxstage_elems<T>(R, WB, PG);
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int j = tl.w0 + wl;
+  const int c = 2 * (tl.p0 + pi);
+  const bool in = wl < WB;
+  const bool live = in && j < Wo && c < C;
+  const bool second = c + 1 < C;
+  const int at = wl * PG2 + 2 * pi;  // g column j; j + 1 is at + PG2
+
+  float k0[27], k1[27];
+  load_taps(k0, k1, k, c, C, live);
+
+  const size_t gframe = (size_t)Ho * Wo * C;
+  const T* gb = g + (size_t)tl.b * Tn * gframe;
+  const GStager sg(tl, wl, pi, WB, PG2, Wo, C, pl.pairs);
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // g frames
+  auto load = [&](int i) {
+    const int tg = f0 + i;
+    if (i < nf && tg >= 0 && tg < Tn)  // uniform across the block
+      sg.rows(ring + (i % GSTAGE) * stage, gb + (size_t)tg * gframe, tl.h0,
+              R + 1, Ho, Wo, rowlen);
+    cp_commit();
+  };
+  // q[px][ch] of one dx row += the terms of g row values a (column j) and
+  // b (column j+1) through taps (dt, dy): the even column 2j through dx =
+  // 1; the odd column 2j+1 through dx = 2 on a, then dx = 0 on b
+  auto add = [&](float (&q)[2][2], int dt, int dy, float2 a, float2 b) {
+    const int t0 = (dt * 3 + dy) * 3;
+    q[0][0] = fmaf(k0[t0 + 1], a.x, q[0][0]);
+    q[0][1] = fmaf(k1[t0 + 1], a.y, q[0][1]);
+    q[1][0] = fmaf(k0[t0 + 2], a.x, q[1][0]);
+    q[1][1] = fmaf(k1[t0 + 2], a.y, q[1][1]);
+    q[1][0] = fmaf(k0[t0], b.x, q[1][0]);
+    q[1][1] = fmaf(k1[t0], b.y, q[1][1]);
+  };
+
+  zero_ring(smem_raw, GSTAGE * stage * (int)sizeof(T));
+  for (int i = 0; i < GSTAGE - 1; ++i) load(i);
+  for (int o = tl.t0; o < tl.t1; ++o) {
+    const int i = o - tl.t0;
+    cp_wait<GSTAGE - 4>();  // this thread's copies of frame i + 2 landed
+    __syncthreads();        // and everyone's; slot i-1 is read by no one
+    load(i + GSTAGE - 1);   // into slot i-1
+    // acc[r][py][px][ch]: dx row 2(h0+r)+py, column 2j+px
+    float acc[R][2][2][2];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int py = 0; py < 2; ++py)
+#pragma unroll
+        for (int px = 0; px < 2; ++px)
+          acc[r][py][px][0] = acc[r][py][px][1] = 0.f;
+    if (in) {
+#pragma unroll
+      for (int f = 0; f < 3; ++f) {  // g frames ascending: dt = 2 - f
+        const int tg = o - 1 + f;
+        if (tg < 0 || tg >= Tn) continue;  // outside the clip: adds nothing
+        const T* sl = ring + ((i + f) % GSTAGE) * stage + at;
+#pragma unroll
+        for (int rr = 0; rr <= R; ++rr) {  // g row h0 + rr, ascending
+          const float2 a = load_pair(sl + rr * rowlen);
+          const float2 b = load_pair(sl + rr * rowlen + PG2);
+          // the odd row of quad rr-1 through dy = 0 (its second g row),
+          // the even row of quad rr through dy = 1, its odd row through
+          // dy = 2 (its first g row)
+          if (rr > 0) add(acc[rr - 1][1], 2 - f, 0, a, b);
+          if (rr < R) {
+            add(acc[rr][0], 2 - f, 1, a, b);
+            add(acc[rr][1], 2 - f, 2, a, b);
+          }
+        }
+      }
+    }
+    if (live) {
+      T* d = dx + ((size_t)tl.b * Tn + o) * H * W * C + c;
+      const bool pair = second && !(C & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int py = 0; py < 2; ++py) {
+          const int row = 2 * (tl.h0 + r) + py;
+          if (row >= H) continue;
+#pragma unroll
+          for (int px = 0; px < 2; ++px) {
+            const int col = 2 * j + px;
+            if (col < W)
+              store_pair(d + ((size_t)row * W + col) * C, acc[r][py][px][0],
+                         acc[r][py][px][1], pair, second);
+          }
+        }
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---- weight gradient (K10 plain) ------------------------------------------------
+// Thread (wl, pi) as in the forward. Slot i of the ring holds x frame f0 + i
 // (staged rows rr = 0..2R: input row 2h0 - 1 + rr) and g frame f0 + i + 1
 // (rows h0 .. h0+R-1). While x frame ti is read, gr[j][r] holds g frame
 // ti - 1 + j of output row h0 + r (zero outside [t0, t1) and the frame):
@@ -156,7 +489,6 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int wl = tid / PG, pi = tid % PG;
   const bool in = wl < WB;
   const size_t xframe = (size_t)H * W * C, gframe = (size_t)Ho * Wo * C;
-  // the thread's even column wl, odd column wl and even column wl + 1
   const int atE = wl * PG2 + 2 * pi, atO = (WB + 1) * PG2 + atE;
 
   float acc[27][2];
@@ -211,27 +543,13 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
         gr[2][r][0] = v.x;
         gr[2][r][1] = v.y;
       }
-      if (ti >= 0 && ti < Tn && in) {  // frames outside the clip add nothing
-#pragma unroll
-        for (int rr = 0; rr < 2 * R + 1; ++rr) {
-          const T* sr = slot + rr * rowlen;
-          const float2 v[3] = {load_pair(sr + atE), load_pair(sr + atO),
-                               load_pair(sr + atE + PG2)};
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const int dy = rr - 2 * r;
-            if (dy < 0 || dy > 2) continue;
-#pragma unroll
-            for (int j = 0; j < 3; ++j)
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx) {
-                const int tap = ((2 - j) * 3 + dy) * 3 + dx;
-                acc[tap][0] = fmaf(v[dx].x, gr[j][r][0], acc[tap][0]);
-                acc[tap][1] = fmaf(v[dx].y, gr[j][r][1], acc[tap][1]);
-              }
-          }
-        }
-      }
+      if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+        s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
+                       [&](int j, int r, int dy, int dx, float2 v) {
+                         const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+                         acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
+                         acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+                       });
     }
     cp_wait<0>();
     __syncthreads();  // the next item zeroes and refills every slot
@@ -260,8 +578,17 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 // ---- launchers -----------------------------------------------------------------
 
-// Dynamic shared memory: the ring of x and g frames, or the column sums if
-// larger.
+// Dynamic shared memory: the forward's ring of x frames; the dx's ring of g
+// frames; the weight gradient's ring of x and g frames, or its column sums
+// if larger.
+template <typename T>
+size_t fwd_smem(int R, int WB, int PG) {
+  return sizeof(T) * NSTAGE * xstage_elems<T>(R, WB, PG);
+}
+template <typename T>
+size_t dx_smem(int R, int WB, int PG) {
+  return sizeof(T) * GSTAGE * dxstage_elems<T>(R, WB, PG);
+}
 template <typename T>
 size_t wgrad_smem(int R, int WB, int PG) {
   const size_t ring = sizeof(T) * NSTAGE *
@@ -270,15 +597,55 @@ size_t wgrad_smem(int R, int WB, int PG) {
   return ring > red ? ring : red;
 }
 
-// The kernel instantiation for R output rows (RMIN..RMAX), or null.
+// The kernel instantiations for R rows (RMIN..RMAX), or null.
 template <typename T>
-decltype(&plain_s2_wgrad_kernel<T, RMAX>) kernel_of(int R) {
+decltype(&plain_s2_fwd_kernel<T, RMAX>) fwd_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_s2_fwd_kernel<T, 2>;
+    case 3: return plain_s2_fwd_kernel<T, 3>;
+    case 4: return plain_s2_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&plain_s2_dx_kernel<T, RMAX>) dx_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_s2_dx_kernel<T, 2>;
+    case 3: return plain_s2_dx_kernel<T, 3>;
+    case 4: return plain_s2_dx_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&plain_s2_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
   switch (R) {
     case 2: return plain_s2_wgrad_kernel<T, 2>;
     case 3: return plain_s2_wgrad_kernel<T, 3>;
     case 4: return plain_s2_wgrad_kernel<T, 4>;
   }
   return nullptr;
+}
+
+// The forward (dx: false) over y, or the dx (true) over g, of x (dx: dx)
+// (B, T, H, W, C): one block per tile.
+template <typename T, bool DX>
+int launch_tiles(const void* in, const void* k, void* out, int B, int Tn,
+                 int H, int W, int C, int R, int WB, int PG, int TT,
+                 cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over the output's (the forward) or g's (the dx) rows, columns
+  if (!make_plan<T>(p, (uintptr_t)in, B, Tn, Ho, Wo, C, R, WB, PG, TT))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = DX ? dx_kernel_of<T>(R) : fwd_kernel_of<T>(R);
+  const size_t smem = DX ? dx_smem<T>(R, WB, PG) : fwd_smem<T>(R, WB, PG);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(in), static_cast<const T*>(k), static_cast<T*>(out),
+      Tn, H, W, Ho, Wo, C, p);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -297,7 +664,7 @@ int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
   if (rows < 1 || (long long)rows * ipb < items ||
       (long long)(rows - 1) * ipb >= items)
     return (int)cudaErrorInvalidValue;
-  const auto kern = kernel_of<T>(R);
+  const auto kern = wgrad_kernel_of<T>(R);
   const size_t smem = wgrad_smem<T>(R, WB, PG);
   if (int e = set_smem(kern, smem)) return e;
   kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
@@ -306,28 +673,68 @@ int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int occupancy(int R, int WB, int PG) {
-  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || WB * PG > NT_MAX) return -1;
-  const auto kern = kernel_of<T>(R);
-  const size_t smem = wgrad_smem<T>(R, WB, PG);
+template <typename K>
+int blocks_per_sm(K kern, size_t smem, int threads) {
   int n = -1;
   cudaError_t e = (cudaError_t)set_smem(kern, smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, kern, (WB * PG + 31) / 32 * 32, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                      smem);
   return e == cudaSuccess ? n : -1;
+}
+
+template <typename T>
+int occupancy(int kind, int R, int WB, int PG) {
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || WB * PG > NT_MAX) return -1;
+  const int threads = (WB * PG + 31) / 32 * 32;
+  switch (kind) {
+    case 0:
+      return blocks_per_sm(fwd_kernel_of<T>(R), fwd_smem<T>(R, WB, PG),
+                           threads);
+    case 1:
+      return blocks_per_sm(dx_kernel_of<T>(R), dx_smem<T>(R, WB, PG),
+                           threads);
+    case 2:
+      return blocks_per_sm(wgrad_kernel_of<T>(R), wgrad_smem<T>(R, WB, PG),
+                           threads);
+  }
+  return -1;
 }
 
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Each returns cudaGetLastError()
-// after the launch: 0 means the kernel was launched.
-//
+// after the launch: 0 means the kernel was launched. (R, WB, PG, TT) is the
+// wrapper's split: R rows, WB columns and PG channel pairs per block or
+// item, TT frames per segment, over the output's rows and columns (the
+// forward, the weight gradient) or over g's (the dx).
+
+// x is (B,T,H,W,C), y (B,T,(H-1)/2+1,(W-1)/2+1,C).
+extern "C" int dw_conv_s2(const void* x, const void* k, void* y, int B, int T,
+                          int H, int W, int C, int R, int WB, int PG, int TT,
+                          int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_tiles<__nv_bfloat16, false>(x, k, y, B, T, H, W, C, R, WB,
+                                              PG, TT, st);
+  return launch_tiles<float, false>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
+                                    st);
+}
+
+// g is (B,T,(H-1)/2+1,(W-1)/2+1,C), dx (B,T,H,W,C).
+extern "C" int dw_conv_dx_s2(const void* g, const void* k, void* dx, int B,
+                             int T, int H, int W, int C, int R, int WB,
+                             int PG, int TT, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_tiles<__nv_bfloat16, true>(g, k, dx, B, T, H, W, C, R, WB,
+                                             PG, TT, st);
+  return launch_tiles<float, true>(g, k, dx, B, T, H, W, C, R, WB, PG, TT,
+                                   st);
+}
+
 // x is (B,T,H,W,C), g (B,T,(H-1)/2+1,(W-1)/2+1,C); part is (rows, 27, C)
-// f32; block row r walks items [r*IPB, (r+1)*IPB). (R, WB, PG, TT) is the
-// wrapper's split over the output: R rows, WB columns and PG channel pairs
-// per item, TT frames per segment.
+// f32; block row r walks items [r*IPB, (r+1)*IPB).
 extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
                                 int B, int T, int H, int W, int C, int R,
                                 int WB, int PG, int TT, int ipb, int rows,
@@ -340,10 +747,12 @@ extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
                              rows, st);
 }
 
-// Blocks per SM the kernel reaches at a plan (R, WB, PG), with its threads
-// and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
-// where it does not take the plan.
-extern "C" int dw_plain_s2_occupancy(int R, int WB, int PG, int is_bf16) {
-  return is_bf16 ? occupancy<__nv_bfloat16>(R, WB, PG)
-                 : occupancy<float>(R, WB, PG);
+// Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
+// where it does not take the plan; kind 0 is the forward, 1 the dx, 2 the
+// weight gradient.
+extern "C" int dw_plain_s2_occupancy(int kind, int R, int WB, int PG,
+                                     int is_bf16) {
+  return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)
+                 : occupancy<float>(kind, R, WB, PG);
 }

@@ -1,10 +1,10 @@
 // The row-strip layout shared by the stride-1 plain kernels
-// (dw_plain_s1.cu), the stride-2 plain weight gradient (dw_plain_s2.cu) and
-// the stride-1 mm forward (dw_mm_act.cu, mm_fwd_s1_kernel): a block owns R
-// rows x WB columns x PG channel pairs of one sample over TT frames; rows
-// are staged into shared memory by cp.async in the tensor's dtype; a thread
-// owns one channel pair at one column. The split is computed by the
-// wrappers (ops/dw_conv.py: plan_s1, plan_s2, plan_mm_s1).
+// (dw_plain_s1.cu), the stride-2 plain kernels (dw_plain_s2.cu) and the
+// stride-1 mm forward (dw_mm_act.cu, mm_fwd_s1_kernel): a block owns R rows
+// x WB columns x PG channel pairs of one sample over TT frames; rows are
+// staged into shared memory by cp.async in the tensor's dtype; a thread owns
+// one channel pair at one column. The split is computed by the wrappers
+// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_s2, plan_mm_s1).
 
 #pragma once
 

@@ -11,7 +11,10 @@ one weight-gradient kernel.  It is the counterpart of the JAX package's
 plain mode of the Pallas kernels K1/K4 and whose backward is K1 again on the
 flipped taps (stride-1 dx), K8 (stride-2 dx) and the plain mode of K6/K10.
 
-Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
+Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`), all bound by bytes
+(27 MACs per output element, far below the ~295 operations per byte where
+the tensor cores would matter), so each reads its input once with a small
+halo and writes its output once:
 
 * ``dw_conv_s1``: :func:`dw_conv3d` at stride 1, in ``csrc/dw_plain_s1.cu``
   (full-width row strips staged by ``cp.async``, a channel pair per thread,
@@ -20,14 +23,25 @@ Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 * ``dw_conv_wgrad_s1``: :func:`dw_conv_wgrad` at stride 1, in the same
   source (the same staging and threads, a persistent grid); both take the
   work split of :func:`plan_s1`;
-* ``dw_conv_s2``: :func:`dw_conv3d` at stride 2, in ``csrc/dw_mm_act.cu``
-  (the plain mode of the bottleneck-entry kernel);
-* ``dw_conv_dx_s2``: :func:`dw_conv_dx_s2`, in ``csrc/dw_act_bwd.cu`` (the
-  act-mode stride-2 dx without the mask, the scale and the sums);
-* ``dw_conv_wgrad_s2``: :func:`dw_conv_wgrad` at stride 2, in
-  ``csrc/dw_plain_s2.cu`` (the stride-1 weight gradient's staging and
-  threads over the output's row strips, rows stored de-interleaved), with
-  the work split of :func:`plan_s2`.
+* ``dw_conv_s2`` (K4 plain; replaces the plain mode of
+  ``dw_fold.py:_fwd_s2_direct_pcall`` :1078): :func:`dw_conv3d` at stride
+  2, in ``csrc/dw_plain_s2.cu``: the 2R+1 input rows of an output strip
+  staged by ``cp.async`` with each row stored de-interleaved (even columns,
+  then odd), so a warp's stride-2 reads are consecutive words, and a
+  register ring of output frames along T; it adds the taps in K7's order
+  and equals ``dw_stencil_s2`` bit for bit; split by :func:`plan_s2_fwd`;
+* ``dw_conv_dx_s2`` (K8; replaces ``dw_fold.py:_dx_s2_pcall`` :1208):
+  :func:`dw_conv_dx_s2`, in the same source: a gather from the staged
+  half-resolution g, each thread the 2×2 quads of dx over its g column (27
+  MACs a quad, no branch), one dx frame summed from a 5-frame g ring in
+  shared memory and written once; it adds the terms in the order K11 adds
+  them on the zero-upsampled g with the flipped taps and equals that bit
+  for bit; split by :func:`plan_s2_dx` over g, channel pairs first, so
+  that its stores, 4/5 of its bytes, fill whole sectors;
+* ``dw_conv_wgrad_s2`` (K10 plain): :func:`dw_conv_wgrad` at stride 2, in
+  the same source (the stride-1 weight gradient's staging and threads over
+  the output's row strips, the forward's de-interleaved rows), with the
+  work split of :func:`plan_s2`.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  All tensors are channels-last
@@ -43,23 +57,23 @@ import torch
 
 from ._build import CudaLibrary, I, P
 from .dw_act import _check
-from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw
 from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
-from .dw_mm_act import LIBRARY as FWD_LIBRARY
-from .dw_mm_act import stencil_f32, wgrad_f32
+from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 
-# The stride-1 kernels, and the stride-2 weight gradient; the other stride-2
-# ones are in the bottleneck entry's sources (FWD_LIBRARY, BWD_LIBRARY).
+# The split route's kernels: at stride 1, and at stride (1, 2, 2)
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
     "dw_plain_s1_occupancy": [I] * 5,
 })
 LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
+    "dw_conv_s2": [P] * 3 + [I] * 10 + [P],
+    "dw_conv_dx_s2": [P] * 3 + [I] * 10 + [P],
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
-    "dw_plain_s2_occupancy": [I] * 4,
+    "dw_plain_s2_occupancy": [I] * 5,
 })
-# every source this module's kernels are in
+# every source of the bottleneck's depthwise kernels: the entry's (eval
+# and train) and the split route's
 LIBRARIES = ENTRY_LIBRARIES + (LIBRARY, LIBRARY_S2)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
@@ -73,13 +87,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-# ---- the stride-1 kernels' work split ------------------------------------------
+# ---- the row-strip kernels' work splits (csrc/strip.cuh) -----------------------
 
-NT_MAX = 256  # threads per block at most (csrc/dw_plain_s1.cu)
+NT_MAX = 256  # threads per block at most (csrc/strip.cuh)
 RMIN, RMAX = 2, 4  # output rows per strip (a template argument there)
 TT_MIN = 8    # frames per segment at least, where the forward splits T
 NSTAGE = 3    # frames in the kernels' shared-memory ring
 SMS = 132     # the H100's SMs
+SMEM_MAX = 232448  # a block's shared memory on the H100
 # the forward aims at two waves at two blocks per SM; the weight gradient's
 # persistent grid at two blocks per SM
 FWD_BLOCKS, WG_BLOCKS = 4 * SMS, 2 * SMS
@@ -90,11 +105,12 @@ def _cdiv(a: int, b: int) -> int:
 
 
 class PlanS1(NamedTuple):
-    """How ``dw_conv_s1`` and ``dw_conv_wgrad_s1`` split ``(B, T, H, W,
-    C)``: a block owns ``r`` output rows × ``wb`` columns × ``pg`` channel
-    pairs of one sample over ``tt`` frames; the forward has one block per
-    tile, the weight gradient ``rows`` blocks per channel group, each
-    walking ``ipb`` consecutive items (its row of the partial buffer)."""
+    """How a row-strip kernel splits ``(B, T, H, W, C)`` (``h``, ``w``: the
+    rows and columns it tiles): a block owns ``r`` rows × ``wb`` columns ×
+    ``pg`` channel pairs of one sample over ``tt`` frames; a forward or dx
+    has one block per tile, a weight gradient ``rows`` blocks per channel
+    group, each walking ``ipb`` consecutive items (its row of the partial
+    buffer)."""
     b: int
     t: int
     h: int
@@ -159,28 +175,48 @@ class PlanS1(NamedTuple):
         return max(ring, 4 * 27 * self.wb * 2 * self.pg)
 
 
-@lru_cache(maxsize=None)
-def plan_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of the stride-1 kernels for x ``(B, T, H, W, C)``.
-
-    Columns: all W in one block where W ≤ 256 (so at least two where W
-    is: the kernels stage the halo columns with the threads of columns 0
-    and 1).  Channel pairs: as many as fill 256 threads with the block's
-    columns, in equal groups.  Rows: strips of 2 to 4, of equal height
-    (rows past H read the zero padding).  Frames: the whole clip, halved
-    (down to 8) until the forward has two waves of blocks.  The weight
-    gradient walks the same items, ``ipb`` per block, on about two blocks
-    per SM."""
+def _strips(b: int, t: int, h: int, w: int, c: int, smem=None,
+            pg_max: int | None = None) -> PlanS1:
+    """Rows, columns and channel pairs of a row-strip split of ``(B, T, h,
+    w, C)``, over the whole clip.  Columns first: all ``w`` in one block
+    where ``w`` ≤ 256 (so at least two where ``w`` is: the stride-1 kernels
+    stage the halo columns with the threads of columns 0 and 1), then as
+    many channel pairs as fill 256 threads, in equal groups.  With
+    ``pg_max``, channel pairs first: equal groups of at most ``pg_max``
+    pairs, then as many columns as fill 256 threads, in equal tiles.  The
+    pairs are cut into more groups while ``smem(plan, 4)``, the block's f32
+    shared memory, would pass the card's limit.  Rows: strips of 2 to 4, of
+    equal height (rows past ``h`` read the zero padding)."""
     p2 = _cdiv(c, 2)
-    wb = _cdiv(w, _cdiv(w, NT_MAX))
-    pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
+    if pg_max is None:
+        wb = _cdiv(w, _cdiv(w, NT_MAX))
+        pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
+    else:
+        pg = _cdiv(p2, _cdiv(p2, pg_max))
+        wb = _cdiv(w, _cdiv(w, NT_MAX // pg))
     r = max(RMIN, _cdiv(h, _cdiv(h, RMAX)))
     plan = PlanS1(b, t, h, w, c, r, wb, pg, t, 1, 1)
-    tt = t
-    while tt > TT_MIN and (plan._replace(tt=tt).items * plan.n_pg
-                           < FWD_BLOCKS):
+    while smem is not None and smem(plan, 4) > SMEM_MAX and plan.pg > 1:
+        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))  # narrow, wide C
+    return plan
+
+
+def _split_frames(plan: PlanS1, blocks: int) -> PlanS1:
+    """``plan`` with the clip halved into segments (down to 8 frames)
+    until it has ``blocks`` tiles."""
+    tt = plan.t
+    while tt > TT_MIN and plan._replace(tt=tt).items * plan.n_pg < blocks:
         tt = max(TT_MIN, _cdiv(tt, 2))
-    return _persistent(plan._replace(tt=tt))
+    return plan._replace(tt=tt)
+
+
+@lru_cache(maxsize=None)
+def plan_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of the stride-1 kernels for x ``(B, T, H, W, C)``:
+    :func:`_strips` over ``(H, W)``, frames split until the forward has two
+    waves of blocks.  The weight gradient walks the same items, ``ipb`` per
+    block, on about two blocks per SM."""
+    return _persistent(_split_frames(_strips(b, t, h, w, c), FWD_BLOCKS))
 
 
 def _persistent(plan: PlanS1) -> PlanS1:
@@ -190,47 +226,81 @@ def _persistent(plan: PlanS1) -> PlanS1:
     return plan._replace(ipb=ipb, rows=_cdiv(plan.items, ipb))
 
 
-# ---- the stride-2 weight gradient's work split --------------------------------
+# ---- the stride-2 kernels' work splits -----------------------------------------
+
+GSTAGE = 5  # g frames in the stride-2 dx kernel's shared-memory ring
+DX_PG = 32  # channel pairs per group at most in the stride-2 dx
+
+
+@lru_cache(maxsize=None)
+def plan_s2_fwd(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_s2`` (K4 plain) for x ``(B, T, H, W,
+    C)``: :func:`_strips` over the output ``(⌈H/2⌉, ⌈W/2⌉)`` (its ``h``/``w``
+    and tiles are output rows and columns) with the f32 shared memory of
+    :func:`smem_s2_fwd`, frames split until there are two waves of blocks
+    at two per SM.  A block stages the 2R+1 input rows and 2WB+1 input
+    columns its output tile reads."""
+    ho, wo = _out_hw(h, w, 2)
+    return _split_frames(_strips(b, t, ho, wo, c, smem_s2_fwd), FWD_BLOCKS)
+
+
+@lru_cache(maxsize=None)
+def plan_s2_dx(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_dx_s2`` (K8) for dx ``(B, T, H, W, C)``:
+    :func:`_strips` over g ``(⌈H/2⌉, ⌈W/2⌉)`` (its ``h``/``w`` and tiles
+    are g's rows and columns; g row i, column j owns dx rows 2i, 2i+1 and
+    columns 2j, 2j+1 inside ``(H, W)``), channel pairs first in groups of
+    at most ``DX_PG`` (a warp's dx stores are then runs of 54-62 channels
+    at the path's widths, whole pixels where C ≤ 64), with the f32 shared
+    memory of :func:`smem_s2_dx`, frames split as :func:`plan_s2_fwd`
+    splits them.  A block stages R+1 g rows at WB+1 g columns."""
+    ho, wo = _out_hw(h, w, 2)
+    return _split_frames(_strips(b, t, ho, wo, c, smem_s2_dx, DX_PG),
+                         FWD_BLOCKS)
+
 
 @lru_cache(maxsize=None)
 def plan_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of ``dw_conv_wgrad_s2`` for x ``(B, T, H, W, C)``:
-    :func:`plan_s1`'s rules over the output ``(⌈H/2⌉, ⌈W/2⌉)`` (its
-    ``h``/``w`` and tiles are output rows and columns), channel pairs cut
-    into more groups where a block's f32 shared memory (:func:`smem_s2`)
-    would pass the card's limit, and frames split (down to 8) only until
-    the persistent grid has about two blocks per SM.  Each item stages the 2R+1 input rows and 2WB+1 input columns its
-    output tile reads."""
+    """The work split of ``dw_conv_wgrad_s2`` (K10 plain) for x ``(B, T, H,
+    W, C)``: :func:`_strips` over the output ``(⌈H/2⌉, ⌈W/2⌉)`` with the f32
+    shared memory of :func:`smem_s2`, and frames split only until the
+    persistent grid has about two blocks per SM.  Each item stages the 2R+1
+    input rows and 2WB+1 input columns its output tile reads."""
     ho, wo = _out_hw(h, w, 2)
-    p2 = _cdiv(c, 2)
-    wb = _cdiv(wo, _cdiv(wo, NT_MAX))
-    pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
-    r = max(RMIN, _cdiv(ho, _cdiv(ho, RMAX)))
-    plan = PlanS1(b, t, ho, wo, c, r, wb, pg, t, 1, 1)
-    while smem_s2(plan, 4) > SMEM_MAX and plan.pg > 1:  # narrow, wide C
-        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))
-    tt = t
-    while tt > TT_MIN and (plan._replace(tt=tt).items * plan.n_pg
-                           < WG_BLOCKS):
-        tt = max(TT_MIN, _cdiv(tt, 2))
-    return _persistent(plan._replace(tt=tt))
+    return _persistent(_split_frames(_strips(b, t, ho, wo, c, smem_s2),
+                                     WG_BLOCKS))
+
+
+def _pad16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def smem_s2_fwd(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_s2``, in bytes, as its
+    launcher sizes it: the ring of x frames (2R+1 rows of 2(WB+1)
+    de-interleaved columns)."""
+    row = 2 * (plan.wb + 1) * 2 * plan.pg
+    return NSTAGE * _pad16((2 * plan.r + 1) * row * esz)
+
+
+def smem_s2_dx(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_dx_s2``, in bytes, as
+    its launcher sizes it: the ring of g frames (R+1 rows of WB+1
+    columns)."""
+    return GSTAGE * _pad16((plan.r + 1) * (plan.wb + 1) * 2 * plan.pg * esz)
 
 
 def smem_s2(plan: PlanS1, esz: int) -> int:
     """Dynamic shared memory per block of ``dw_conv_wgrad_s2``, in bytes, as
     its launcher sizes it: the ring of x frames (2R+1 de-interleaved rows)
     and g frames (R rows), or the column sums if larger."""
-    def pad(n):
-        return _cdiv(n * esz, 16) * 16
-    row = 2 * (plan.wb + 1) * 2 * plan.pg
-    ring = NSTAGE * (pad((2 * plan.r + 1) * row)
-                     + pad(plan.r * plan.wb * 2 * plan.pg))
+    ring = smem_s2_fwd(plan, esz) + NSTAGE * _pad16(
+        plan.r * plan.wb * 2 * plan.pg * esz)
     return max(ring, 4 * 27 * plan.wb * 2 * plan.pg)
 
 
 # ---- the stride-1 mm forward's work split (K1 mm, csrc/dw_mm_act.cu) ----------
 
-SMEM_MAX = 232448  # a block's shared memory on the H100
 XSTAGE = 3  # x frames in dw_mm_act_s1's staging ring
 
 
@@ -316,14 +386,12 @@ def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor,
                     device=x.device)
     if not y.numel():
         return y
-    if stride == 1:
-        p = plan_s1(b, t, h, w, c)
-        _launch(LAUNCHES, LIBRARY, "dw_conv_s1", x, x.data_ptr(),
-                w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c, p.r, p.wb,
-                p.pg, p.tt)
-    else:
-        _launch(LAUNCHES, FWD_LIBRARY, "dw_conv_s2", x, x.data_ptr(),
-                w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c)
+    lib, plan = (LIBRARY, plan_s1) if stride == 1 else (LIBRARY_S2,
+                                                         plan_s2_fwd)
+    p = plan(b, t, h, w, c)
+    _launch(LAUNCHES, lib, f"dw_conv_s{stride}", x, x.data_ptr(),
+            w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c, p.r, p.wb, p.pg,
+            p.tt)
     return y
 
 
@@ -358,8 +426,9 @@ def dw_conv_dx_s2(g: torch.Tensor, w_dw: torch.Tensor,
         return dw_conv_dx_s2_plain(g, w_dw, hw)
     dx = torch.empty(shape, dtype=g.dtype, device=g.device)
     if dx.numel():
-        _launch(LAUNCHES, BWD_LIBRARY, "dw_conv_dx_s2", g, g.data_ptr(),
-                w_dw.data_ptr(), dx.data_ptr(), *shape)
+        p = plan_s2_dx(*shape)
+        _launch(LAUNCHES, LIBRARY_S2, "dw_conv_dx_s2", g, g.data_ptr(),
+                w_dw.data_ptr(), dx.data_ptr(), *shape, p.r, p.wb, p.pg, p.tt)
     return dx
 
 

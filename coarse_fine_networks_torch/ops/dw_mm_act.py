@@ -32,27 +32,23 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The forward source also holds the act-mode entries of :mod:`.dw_act` and
-# the stride-2 plain-mode entry of :mod:`.dw_conv`.
+# The forward source also holds the act-mode entries of :mod:`.dw_act`.
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 11 + [P],
     "dw_mm_act_s1_occupancy": [I] * 6,
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
     "dw_act_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
-    "dw_conv_s2": [P] * 3 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
 # The backward source: this module's weight gradient and the backward
-# entries of :mod:`.dw_act`, :mod:`.dw_mm_bn_train` and :mod:`.dw_conv`'s
-# stride-2 dx.
+# entries of :mod:`.dw_act` and :mod:`.dw_mm_bn_train`.
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
     "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
     "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
     "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
-    "dw_conv_dx_s2": [P] * 3 + [I] * 6 + [P],
     "dw_mm_dx_mask_s1": [P] * 7 + [I] * 7 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],

@@ -219,13 +219,9 @@ def test_wrappers_reject(bad):
 
 
 def test_kernel_sources_ship_every_entry():
-    """The stride-1 entries in ``dw_plain_s1.cu``, the stride-2 weight
-    gradient in ``dw_plain_s2.cu``, the other stride-2 ones in the
-    bottleneck entry's forward and backward sources."""
+    """The stride-1 entries in ``dw_plain_s1.cu``, the three stride-2 ones
+    in ``dw_plain_s2.cu``."""
     for name in dw_conv.LAUNCHES:
-        lib = (dw_conv.LIBRARY if name.endswith("_s1") else
-               dw_conv.LIBRARY_S2 if name == "dw_conv_wgrad_s2" else
-               dw_conv.BWD_LIBRARY if "_dx" in name
-               else dw_conv.FWD_LIBRARY)
+        lib = dw_conv.LIBRARY if name.endswith("_s1") else dw_conv.LIBRARY_S2
         assert f'extern "C" int {name}(' in lib.source.read_text()
         assert name in lib.functions

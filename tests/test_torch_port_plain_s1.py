@@ -28,7 +28,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-from coarse_fine_networks_torch.ops import dw_conv, dw_stencil
+from coarse_fine_networks_torch.ops import dw_conv, dw_mm_act, dw_stencil
 from coarse_fine_networks_torch.ops.dw_conv import (
     FWD_BLOCKS, NT_MAX, RMAX, RMIN, TT_MIN, WG_BLOCKS, dw_conv3d, dw_conv3d_plain,
     dw_conv3d_train, dw_conv_wgrad, dw_conv_wgrad_plain, plan_s1)
@@ -147,19 +147,24 @@ def test_bindings_match_the_c_declarations(lib):
 
 def test_stride1_entries_left_the_entry_sources():
     """The plain mode at stride 1 lives in ``dw_plain_s1.cu`` only, the
-    plain weight gradient at stride 2 in ``dw_plain_s2.cu`` only; the other
-    stride-2 plain entries stay in the bottleneck entry's sources."""
-    fwd = dw_conv.FWD_LIBRARY.source.read_text()
-    bwd = dw_conv.BWD_LIBRARY.source.read_text()
+    three stride-2 plain entries (K4 plain, K8, K10 plain) in
+    ``dw_plain_s2.cu`` only: none is left in the bottleneck entry's sources,
+    and neither is their ``PLAIN`` mode."""
+    fwd = dw_mm_act.LIBRARY.source.read_text()
+    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     new = dw_conv.LIBRARY.source.read_text()
-    for name in ("dw_conv_s1", "dw_conv_wgrad_s1"):
-        assert f'extern "C" int {name}(' in new
-        assert f'extern "C" int {name}(' not in fwd + bwd
-        assert name in dw_conv.LIBRARY.functions
-    assert 'extern "C" int dw_conv_s2(' in fwd
-    assert 'extern "C" int dw_conv_dx_s2(' in bwd
-    assert 'extern "C" int dw_conv_wgrad_s2(' not in fwd + bwd + new
-    assert ('extern "C" int dw_conv_wgrad_s2('
-            in dw_conv.LIBRARY_S2.source.read_text())
+    s2 = dw_conv.LIBRARY_S2.source.read_text()
+    for lib, src, names in (
+            (dw_conv.LIBRARY, new, ("dw_conv_s1", "dw_conv_wgrad_s1")),
+            (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_conv_dx_s2",
+                                      "dw_conv_wgrad_s2"))):
+        others = fwd + bwd + (s2 if lib is dw_conv.LIBRARY else new)
+        for name in names:
+            assert f'extern "C" int {name}(' in src
+            assert f'extern "C" int {name}(' not in others
+            assert name in lib.functions
+            assert name not in dw_mm_act.LIBRARY.functions
+            assert name not in dw_mm_act.BWD_LIBRARY.functions
+    assert "PLAIN" not in fwd + bwd
     assert dw_conv.LIBRARY in dw_conv.LIBRARIES
     assert dw_conv.LIBRARY_S2 in dw_conv.LIBRARIES

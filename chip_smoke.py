@@ -9,12 +9,13 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the five sources, started together, beside
-   ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu`` and
-   ``dw_mm_act.cu`` whose registers, spills and static shared memory for
-   each row-strip kernel (K1/K6 plain; K4 plain, K8 and K10 plain; K1
-   ``mm``) make three ``ptxas`` rows; their dynamic shared memory and
-   blocks per SM are in the kernel rows' ``plan``);
+   ``nvcc`` for each of the six sources, started together, beside
+   ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
+   ``dw_mm_act.cu`` and ``dw_dx_s1.cu`` whose registers, spills and static
+   shared memory for each row-strip kernel (K1/K6 plain; K4 plain, K8 and
+   K10 plain; K1 ``mm``; K3 and K2) make four ``ptxas`` rows; their
+   dynamic shared memory and blocks per SM are in the kernel rows'
+   ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -27,12 +28,19 @@ Phases, each printing JSON lines:
    phase D gives it (B8 T64 224²); all in f32 (TF32 off) and bf16, with
    timings of the kernel, the plain version, the unfused PyTorch sequence
    and the nearest single PyTorch call (each ``dw_mm_act_s1`` row with its
-   work split, ``plan_mm_s1``, blocks per SM and waves);
+   work split, ``plan_mm_s1``, blocks per SM and waves); the stride-1 dx
+   ``dw_act_dx_s1`` (K3) also against the exact oracle, its dx equal with
+   a difference of 0 to ``dw_conv_s1`` of g with the flipped taps in f32,
+   masked and scaled as the plain version does, and its dx and sums
+   repeating bit for bit, each row with its work split
+   (``plan_act_dx_s1``), blocks per SM and waves;
 2b. relu_branch: the forward and the masked dx take one relu branch: with
    only the centre tap set to 1 the forward's ``y > 0`` must equal the
    mask ``dam != 0`` of ``g = 1`` element for element (K1 ``mm`` against
    K2, K4 ``mm`` against K9) at every entry shape of the eval kernels and
-   of the train composite, f32 and bf16;
+   of the train composite, f32 and bf16; K1 ``mm``'s branch also against
+   conv1's product in f64 outside ``mm_band`` and a torch model of the
+   in-order f32 ``fmaf`` sum inside it, at every stride-1 shape;
 3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
    autograd through the plain composition, f32, one shape per stride;
 4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
@@ -86,8 +94,14 @@ Phases, each printing JSON lines:
    ``dw_mm_wgrad_s1/s2``) against their plain versions at the coarse train
    step's 8 entry shapes and long-cycle phase D's 8, f32 (TF32 off) and
    bf16, timed beside the plain version, the unfused PyTorch sequence and
-   the cuDNN call inside it; then the composite's Gram xᵀx of each coarse
-   entry, f32 output from bf16 x, timed against reading x as f32;
+   the cuDNN call inside it; the stride-1 masked dx (K2) also against the
+   exact oracle: ``dw_conv_s1`` of g with the flipped taps in f32 where K1
+   ``mm`` (``dw_mm_act_s1``, centre tap 1) takes the positive relu branch
+   at the same x, W1, sc and bi, else 0, in g's dtype, with a difference
+   of 0, each row with its work split (``plan_mm_dx_s1``), blocks per SM
+   and waves; then the
+   composite's Gram xᵀx of each coarse entry, f32 output from bf16 x,
+   timed against reading x as f32;
 14. mm_autograd: the composite's ``(y, mean, var)`` and five gradients, then
    the eval entry's five gradients, against autograd through the plain
    composition, f32, one shape per stride (the stride-2 one at 7×7);
@@ -222,6 +236,8 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1")
                        else "dw_plain_s2.cu" if k.startswith("dw_conv_")
+                       else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
+                                                    "dw_mm_dx_mask_s1")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
@@ -229,7 +245,8 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
 KERNEL_FUNCS = {
     "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s1", "dw_act_s2"),
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
-    "dx_s1_kernel": ("dw_act_dx_s1", "dw_mm_dx_mask_s1"),
+    "act_dx_s1_kernel": ("dw_act_dx_s1",),
+    "mm_dx_s1_kernel": ("dw_mm_dx_mask_s1",),
     "dx_s2_kernel": ("dw_act_dx_s2", "dw_mm_dx_mask_s2"),
     "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
                      "dw_mm_wgrad_s2"),
@@ -359,7 +376,8 @@ def _ptxas(source: Path) -> dict:
 PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel"),
          "dw_conv_s2": ("plain_s2_fwd_kernel", "plain_s2_dx_kernel",
                         "plain_s2_wgrad_kernel"),
-         "dw_mm_act_s1": ("mm_fwd_s1_kernel",)}
+         "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
+         "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
 
 
 def phase_device() -> str:
@@ -372,7 +390,7 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    # the five sources (one nvcc each) and the ptxas reports of the three
+    # the six sources (one nvcc each) and the ptxas reports of the four
     # with row-strip kernels, all started together
     libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
     with ThreadPoolExecutor(max_workers=len(PTXAS)) as pool:
@@ -477,24 +495,73 @@ def phase_kernels(dw_mm_act, dw_conv) -> dict:
     return per_kernel
 
 
+def _fmaf_f32(a: torch.Tensor, b: torch.Tensor,
+              c: torch.Tensor) -> torch.Tensor:
+    """``fmaf(a, b, c)`` of f32 (or bf16) operands, rounded once to f32,
+    modelled in f64: a·b is exact there, a·b + c is taken to odd (the f64
+    sum, moved one unit toward the exact one where TwoSum leaves an error
+    and the sum's last bit is even) and then rounded to f32, which is the
+    single rounding of the exact value."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    nudge = torch.nextafter(s, torch.where(e > 0, torch.inf, -torch.inf))
+    return torch.where((e != 0) & even, nudge, s).float()
+
+
+def _relu_witness(y, x, w1, sc, bi) -> dict:
+    """K1 mm's relu branch (``y > 0`` of ``dw_mm_act_s1`` at centre tap 1)
+    against one computed outside the kernels: conv1's product ``x @ W1``
+    and ``s = |x| @ |W1|`` in f64 on the card, bn1's apply in f64.  Where
+    ``|v|`` is at least ``mm_band(nk, C_in) |sc| s`` (``csrc/common.cuh``,
+    nk = ⌈C_in / 16⌉) the branch must be v's sign; inside that band it must
+    be the sign of a torch model of ``mm_z_fmaf``'s sum (``fmaf`` over k in
+    order from 0 in f32, :func:`_fmaf_f32`) through bn1's apply rounded
+    as ``bn_apply`` (``z·sc`` and ``+ bi`` each to f32), the arithmetic of
+    ``mm_prologue``, which K6 mm and K9 recompute.  Returns the mismatches
+    and the number of elements in the band."""
+    c_in, c_mid = w1.shape
+    xd, wd = x.reshape(-1, c_in).double(), w1.double()
+    v = torch.matmul(xd, wd) * sc.double() + bi.double()
+    band = ((2.0 ** -18 * -(-c_in // 16) + 2.0 ** -23 * c_in)
+            * sc.double().abs())
+    inside = v.abs() < torch.matmul(xd.abs(), wd.abs()) * band
+    want = v > 0
+    del v, xd
+    pos, ch = inside.nonzero(as_tuple=True)
+    xs, ws = x.reshape(-1, c_in)[pos], w1.t()[ch]
+    z = torch.zeros(pos.numel(), device=x.device)
+    for k in range(c_in):
+        z = _fmaf_f32(xs[:, k], ws[:, k], z)
+    want[pos, ch] = (z * sc[ch]) + bi[ch] > 0
+    got = (y > 0).reshape(-1, c_mid)
+    return {"mismatches": int((got != want).sum().item()),
+            "in_band": int(pos.numel())}
+
+
 def phase_relu_branch(dw_mm_act, dw_mm_bn_train) -> None:
     """The forward and the masked dx take one relu branch, element for
     element.  With only the centre tap set to 1 the forward's y is the
     activation itself (the other 26 taps add fmaf(0, a, acc) = acc), so
     ``y > 0`` is its relu branch; with ``g = 1`` the masked dx ``dam`` is
     the mask itself wherever g reaches (every position at stride 1, the
-    even rows and columns at stride 2).  K1 mm (``dw_mm_act_s1``, conv1's
-    product on mma in the kernel) against K2 (``dw_mm_dx_mask_s1``, the
-    product through ``mm_prologue``), and K4 mm against K9, at every entry
-    shape of the eval kernels and of the train composite, f32 and bf16:
-    they must agree exactly."""
+    even rows and columns at stride 2).  K1 mm (``dw_mm_act_s1``) against
+    K2 (``dw_mm_dx_mask_s1``), both conv1's product through
+    ``mm_strip_product``, and K4 mm against K9 (the product through
+    ``mm_prologue``), at every entry shape of the eval kernels and of the
+    train composite, f32 and bf16: they must agree exactly.  Since K1 mm
+    and K2 share their product, K1 mm's branch is also held against
+    :func:`_relu_witness` at every stride-1 shape: no mismatch."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     shapes = [(label, b, t, h, c_in, c_mid, s) for
               (_, label, b, t, h, _, c_in, c_mid, s, _, _) in entry_cases()]
     shapes += [(f"train.{label}", b, t, h, c_in, c_mid, s) for
                (label, b, t, h, c_in, c_mid, s, _, _) in mm_entry_cases()]
     for dtype in (torch.float32, torch.bfloat16):
-        flips = {}
+        flips, witness = {}, {}
         for label, b, t, h, c_in, c_mid, s in shapes:
             x = torch.randn((b, t, h, h, c_in), generator=gen,
                             device="cuda").to(dtype)
@@ -511,14 +578,23 @@ def phase_relu_branch(dw_mm_act, dw_mm_bn_train) -> None:
             pos = y > 0
             torch.cuda.synchronize()
             flips[label] = int((keep != pos).sum().item())
-            del x, y, dam, keep, pos
-        torch.cuda.empty_cache()
+            del dam, keep, pos
+            if s == 1:
+                witness[label] = _relu_witness(y, x, w1, sc, bi)
+            del x, y
+            torch.cuda.empty_cache()
         emit({"phase": "relu_branch", "dtype": str(dtype)[6:],
               "pairs": "dw_mm_act_s1 vs dw_mm_dx_mask_s1, dw_mm_act_s2 vs "
                        "dw_mm_dx_mask_s2", "shapes": len(shapes),
-              "mismatches": flips})
+              "mismatches": flips,
+              "witness": "dw_mm_act_s1 vs f64 x @ W1 outside mm_band, "
+                         "an in-order fmaf model inside",
+              "witness_shapes": len(witness), "witness_by_shape": witness})
         check(not any(flips.values()),
               f"relu branch {dtype}: forward and mask differ: {flips}")
+        bad = {k: v for k, v in witness.items() if v["mismatches"]}
+        check(not bad, f"relu branch {dtype}: dw_mm_act_s1 differs from "
+                       f"the f64 witness: {bad}")
 
 
 def _agg() -> dict:
@@ -556,13 +632,15 @@ def _rel_err(got, ref) -> tuple[float, float]:
     return err, ref.float().abs().max().item()
 
 
-def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel):
+def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
+                   extra=None):
     """Each of ``cases`` (name -> kernel, plain version, unfused PyTorch
     sequence, the nearest single PyTorch call, what that call is, bytes,
     operations) held against its plain version and timed beside the other
-    three; one row per case, ``meta`` naming the entry.  A bf16 case at a
-    ``counted`` shape adds its times, weighted by ``n`` launches per train
-    step, to ``per_kernel``, so the sums are one step's work."""
+    three; one row per case, ``meta`` naming the entry, with ``extra[name]``
+    (fields of that case's row) where given.  A bf16 case at a ``counted``
+    shape adds its times, weighted by ``n`` launches per train step, to
+    ``per_kernel``, so the sums are one step's work."""
     for name, (kern, plain, unfused, nearest, near_what, nbytes,
                ops) in cases.items():
         got, ref = kern(), plain()
@@ -586,7 +664,7 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel):
                "ms": ms, "plain_ms": plain_ms,
                "unfused_ms": unfused_ms, "nearest_ms": nearest_ms,
                "nearest_call": near_what, "library_ms": None,
-               **_bound(nbytes, ops, dtype)}
+               **_bound(nbytes, ops, dtype), **(extra or {}).get(name, {})}
         emit(row)
         check(tol_ok, f"{name} {meta['entry']} {dtype}: errors {errs}")
         agg = per_kernel[name]
@@ -601,10 +679,57 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel):
             agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
 
 
-def phase_train_kernels(dw_act) -> dict:
+def _dx_s1_oracle(dw_conv, g, w):
+    """K3's and K2's da: ``dw_conv_s1`` of g with the flipped taps, run in
+    f32 (the new kernels sum each output's taps in its order)."""
+    w_flip = torch.flip(w, (0, 1, 2)).float().contiguous()
+    return dw_conv.dw_conv3d(g.float(), w_flip, 1)
+
+
+def _plan_row_dx(dw_conv, dw_mm_act, p, mm, c_in, dtype) -> dict:
+    """The stride-1 dx's work split ``p`` (act: ``mm`` false, C_in = C) and
+    what the card makes of it: blocks, shared memory, blocks per SM (the
+    occupancy API) and waves."""
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    occ = dw_mm_act.DX_S1_LIBRARY.build().dw_dx_s1_occupancy(
+        int(mm), p.r, p.wb, p.pg, p.tt, c_in, p.w, bf16)
+    check(occ > 0, f"dx plan {p} {dtype}: does not fit ({occ})")
+    blocks = p.items * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
+            "threads": p.threads, "blocks": blocks,
+            "smem": dw_conv.smem_dx_s1(p, c_in, esz, mm),
+            "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
+
+
+def _act_dx_exact(dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi,
+                  dtype) -> dict:
+    """K3 (``dw_act_dx_s1``) against its exact oracle: dx equals
+    ``where(x·sc + bi > 0, da, 0)·sc`` in x's dtype, da from
+    :func:`_dx_s1_oracle`, with a difference of 0; its dx and its sums
+    repeat bit for bit in a second run.  Returns the row's fields: the
+    difference and the plan."""
+    da = _dx_s1_oracle(dw_conv, g, w)
+    ref = (torch.where(x.float() * sc + bi > 0, da, 0) * sc).to(x.dtype)
+    del da
+    dx1, red1 = dw_act.dw_act_dx(g, x, w, sc, bi, 1)
+    dx2, red2 = dw_act.dw_act_dx(g, x, w, sc, bi, 1)
+    torch.cuda.synchronize()
+    diff = (dx1.float() - ref.float()).abs().max().item()
+    repeats = torch.equal(dx1, dx2) and torch.equal(red1, red2)
+    what = f"dw_act_dx_s1 {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: dx differs from the exact oracle by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row_dx(dw_conv, dw_mm_act,
+                                 dw_conv.plan_act_dx_s1(*x.shape), False,
+                                 x.shape[-1], dtype)}
+
+
+def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
     """The six train kernels against their plain versions, and timed, at
     the coarse train step's entry shapes and at the fine stream's in
-    long-cycle phase D."""
+    long-cycle phase D; K3 also against its exact oracle
+    (:func:`_act_dx_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     per_kernel = {f"dw_act{p}_s{s}": _agg() for p in ("", "_dx", "_wgrad")
                   for s in (1, 2)}
@@ -672,10 +797,13 @@ def phase_train_kernels(dw_act) -> dict:
                     (n_x + n_g) * esz + vec + 27 * c * 4,
                     2 * 27 * n_g + 3 * n_x),
             }
+            extra = ({"dw_act_dx_s1": _act_dx_exact(
+                dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi, dtype)}
+                if s == 1 else None)
             _hold_and_time("kernels", cases, {"entry": label,
                                               "x": [b, t, h, h, c],
                                               "stride": s},
-                           dtype, n, counted, per_kernel)
+                           dtype, n, counted, per_kernel, extra)
             del x, g, a
         torch.cuda.empty_cache()
     return per_kernel
@@ -736,10 +864,36 @@ def mm_entry_cases():
                    n - 1, counted)
 
 
-def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train) -> dict:
+def _mm_dx_exact(dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
+                 dtype) -> dict:
+    """K2 (``dw_mm_dx_mask_s1``) against its exact oracle: dam equals
+    ``where(keep, da, 0)`` in g's dtype, da from :func:`_dx_s1_oracle` and
+    keep K1 mm's relu branch at the same x, W1, sc and bi (``y > 0`` of
+    ``dw_mm_act_s1`` with only the centre tap, 1: y is the activation), with
+    a difference of 0.  Returns the row's fields: the difference and the
+    plan."""
+    taps = torch.zeros_like(w)
+    taps[1, 1, 1] = 1
+    keep = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1) > 0
+    ref = torch.where(keep, _dx_s1_oracle(dw_conv, g, w), 0.0).to(g.dtype)
+    del keep
+    dam = dw_mm_bn_train.dw_mm_dx_mask(g, x, w1, w, sc, bi, 1)
+    torch.cuda.synchronize()
+    diff = (dam.float() - ref.float()).abs().max().item()
+    check(diff == 0, f"dw_mm_dx_mask_s1 {tuple(x.shape)} {dtype}: dam "
+                     f"differs from the exact oracle by {diff}")
+    b, t, h, wd, c_in = x.shape
+    c, esz = w1.shape[1], x.element_size()
+    return {"exact_max_abs_diff": diff,
+            "plan": _plan_row_dx(dw_conv, dw_mm_act, dw_conv.plan_mm_dx_s1(
+                b, t, h, wd, c_in, c, esz), True, c_in, dtype)}
+
+
+def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
     """The composite's four backward kernels against their plain versions,
     and timed, at the coarse train step's entry shapes and at the fine
-    stream's in long-cycle phase D; about half the ``bi`` are negative."""
+    stream's in long-cycle phase D; about half the ``bi`` are negative.  K2
+    also against its exact oracle (:func:`_mm_dx_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(30)
     per_kernel = {k: _agg() for k in MM_TRAIN_KERNELS}
     gram = {"ms": 0.0, "f32_cast_ms": 0.0, "max_rel_err": 0.0,
@@ -799,10 +953,13 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train) -> dict:
                     (n_x + n_g + w1.numel()) * esz + 2 * c * 4 + 27 * c * 4,
                     ops),
             }
+            extra = ({"dw_mm_dx_mask_s1": _mm_dx_exact(
+                dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
+                dtype)} if s == 1 else None)
             _hold_and_time("mm_train_kernels", cases,
                            {"entry": label, "x": [b, t, h, h, c_in],
                             "c_mid": c, "stride": s},
-                           dtype, n, counted, per_kernel)
+                           dtype, n, counted, per_kernel, extra)
             if dtype == torch.bfloat16 and counted:
                 # the composite's Gram xᵀx with f32 output from bf16 x
                 # (mm_f32), against reading x as f32 (a copy of x), both
@@ -992,7 +1149,8 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ("dw_mm_act_kernel",
                                             "mm_fwd_s1_kernel",
-                                            "dx_s1_kernel", "dx_s2_kernel",
+                                            "act_dx_s1_kernel",
+                                            "mm_dx_s1_kernel", "dx_s2_kernel",
                                             "wgrad_kernel",
                                             "stencil_fwd_kernel",
                                             "stencil_dk_kernel"), mods)
@@ -1793,7 +1951,7 @@ def phase_fine_train(mods) -> dict:
                  "plain_s2_fwd_kernel", "plain_s2_dx_kernel",
                  "plain_s2_wgrad_kernel")
                 if splits > 1 else
-                ("dw_mm_act_kernel", "dx_s1_kernel", "dx_s2_kernel",
+                ("dw_mm_act_kernel", "act_dx_s1_kernel", "dx_s2_kernel",
                  "wgrad_kernel")) + ("stencil_fwd_kernel",
                                      "stencil_dk_kernel")
 
@@ -2072,7 +2230,7 @@ def main() -> int:
     smi = phase_device()
     per_kernel = phase_kernels(dw_mm_act, dw_conv)
     phase_relu_branch(dw_mm_act, dw_mm_bn_train)
-    per_kernel.update(phase_train_kernels(dw_act))
+    per_kernel.update(phase_train_kernels(dw_act, dw_conv, dw_mm_act))
     per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
     per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
     phase_autograd(dw_act)
@@ -2092,7 +2250,8 @@ def main() -> int:
     launches.update(phase_fine_train(mods))
     torch.cuda.empty_cache()
     phase_fine_card_vs_cpu()
-    per_kernel.update(phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train))
+    per_kernel.update(phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train,
+                                             dw_conv))
     phase_mm_autograd(dw_mm_act, dw_mm_bn_train)
     mm_launches, _ = phase_train(mods, "mm", train_row)
     launches.update(mm_launches)

@@ -1,6 +1,7 @@
 // Pieces shared by the bottleneck-entry kernels (dw_mm_act.cu) and their
-// backward (dw_act_bwd.cu): the block shape, the dtype converters, the
-// stencil tile geometry, the batch-norm apply and the activation.
+// backward (dw_act_bwd.cu, dw_dx_s1.cu): the block shape, the dtype
+// converters, the stencil tile geometry, the batch-norm apply and the
+// activation.
 //
 // The activation is defined once here because the forward's relu branch and
 // the backward's relu' mask must agree element for element: a flipped mask
@@ -85,8 +86,8 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// conv1's product in bf16 on the tensor cores (the stride-1 forward,
-// dw_mm_act.cu): one 16 x 8 tile of z = x @ W1 (16 positions x 8
+// conv1's product in bf16 on the tensor cores (mm_strip_product,
+// mm_strip.cuh: the stride-1 forward and masked dx): one 16 x 8 tile of z = x @ W1 (16 positions x 8
 // channels), with s = |x| @ |W1| beside it: acc += a . bt^T and sacc += |a|
 // . |bt|^T in nk k-steps of 16, ascending, two mma.m16n8k16 each (|.|
 // clears the fragments' sign bits). a holds the tile's 16 positions (row
@@ -141,19 +142,20 @@ __device__ __forceinline__ float mm_z_fmaf(const T* x, const T* w,
 // . |W1| per k-step; mm_prologue's f32 sum in order is within Cin units of
 // 2^-24 of s of the exact sum. So where a relu input v = bn_apply(z, sc, bi)
 // from the tensor cores' z has |v| >= mm_band(nk, Cin) |sc| s (twice both
-// bounds), it has the sign mm_prologue's z gives it. Where it has not, the
-// stride-1 forward sums z again with mm_z_fmaf, so it takes mm_prologue's
-// relu branch element for element: the masked dx and the mm weight
-// gradient recompute the product there, and a flipped mask is an O(1) error
-// in dx. (Where s = 0 every product is 0 and both sums are 0.)
+// bounds), it has the sign mm_prologue's z gives it. Where it has not,
+// mm_strip_product (the stride-1 forward and masked dx) sums z again with
+// mm_z_fmaf, so it takes mm_prologue's relu branch element for element: the
+// stride-2 masked dx and the mm weight gradients recompute the product with
+// mm_prologue, and a flipped mask is an O(1) error in dx. (Where s = 0 every product is 0 and both sums are 0.)
 __device__ __forceinline__ float mm_band(int nk, int Cin) {
   return 0x1p-18f * nk + 0x1p-23f * Cin;
 }
 
 // The mm entry's prologue: conv1's product z = x[pos] @ W1[:, c] and bn1's
-// apply, shared by the forward (dw_mm_act.cu), the masked dx and the mm
-// weight gradient (dw_act_bwd.cu), so that all three sum the product in one
-// order and take one relu branch, element for element.
+// apply, shared by the stride-2 forward (dw_mm_act.cu), the stride-2 masked
+// dx and the mm weight gradients (dw_act_bwd.cu), so that all of them (and
+// mm_strip_product, which settles every relu input near 0 by this sum) sum
+// the product in one order and take one relu branch, element for element.
 //
 // The positions are p = warp + j*WARPS < NP (j < NPA), at row iy0 + p / WR
 // and column ix0 + p % WR of the frame xf (H, W, Cin channels-last); the

@@ -9,24 +9,22 @@
 // sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
 // is dL/dy (y's shape and dtype).
 //
-// Eight kernel entries, each replacing a TPU Pallas kernel of
+// Six kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
 // dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; mm mode: the
 // backward of the train composite dw_fold4_mm_bn_train,
 // _mm_bn_train_bwd, and of the eval entry dw_fold4_mm_act, _dw_mm_bwd):
-//   * dw_act_dx_s1      <- _dx_act_pcall -> _fwd_kernel(actmask)
-//   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask)
-//   * dw_mm_dx_mask_s1  <- _dx_mask_pcall -> _fwd_kernel(dxmask) (K2)
+//   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask) (K5)
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
 //   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
 //   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
 //   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
 // (the plain mode, the backward of dw_fold4 and dw_fold4_stride2, is in
-// dw_plain_s1.cu and dw_plain_s2.cu).
+// dw_plain_s1.cu and dw_plain_s2.cu; the stride-1 dx of both modes, K3 and
+// K2, in dw_dx_s1.cu).
 //
-// dx:    da  = dL/da: at stride 1 the stencil of g with the flipped taps; at
-//              stride 2 the half-resolution gather
+// dx:    da  = dL/da: at stride 2 the half-resolution gather
 //              da[t,r,c] = sum w[dt,dy,dx] g[t-dt+1, (r-dy+1)/2, (c-dx+1)/2]
 //              over the terms whose divisions are integral (dw_fold.py:825);
 //        dam = da * 1[x*sc + bi > 0], the mask compared in f32 with x*sc and
@@ -58,10 +56,10 @@
 // 2*192 operations per 2 bytes of C_mid output, still below that line, but
 // on the FP32 cores here (moving it to wgmma is later work).
 //
-// What the design does about it: the layout of dw_mm_act.cu. A block owns
-// (frame segment, spatial tile, 32-channel chunk), walks its frames in
-// order, and keeps the three frames its stencil reads (g for dx, the
-// activated x for wgrad) in a shared-memory ring, so each frame is read once
+// What the design does about it: the layout of dw_mm_act.cu's stride-2
+// entry. A block owns (frame segment, spatial tile, 32-channel chunk),
+// walks its frames in order, and keeps the three frames its stencil reads
+// (g for dx, the activated x for wgrad) in a shared-memory ring, so each frame is read once
 // per tile plus a halo. Each lane owns one channel: ring reads are
 // conflict-free, loads and stores of channels-last tensors are contiguous
 // along C. Loads are per element because C = 54, 108, ... is no multiple of
@@ -159,85 +157,6 @@ __device__ __forceinline__ void block_partials(float* red, const float* v,
     for (int q = 0; q < WARPS; ++q) s += red[(q * K + k) * CC + lane];
     if (cval) part[(row * K + k) * C + c] = s;
   }
-}
-
-// ---- dx, stride 1 ------------------------------------------------------------
-// ACT: x (B,T,H,W,C), the epilogue masks, scales and reduces; MM: x
-// (B,T,H,W,Cin), w1 (Cin,C), dx = dam in g's dtype, part unused.
-template <typename T, int MODE>
-__global__ void __launch_bounds__(WARPS * 32)
-dx_s1_kernel(const T* __restrict__ g, const T* __restrict__ x,
-             const T* __restrict__ w1, const T* __restrict__ wdw,
-             const float* __restrict__ sc, const float* __restrict__ bi,
-             T* __restrict__ dx, float* __restrict__ part, int Tn, int H,
-             int W, int Cin, int C, int n_tx, int n_tseg) {
-  using G = SGeom<1>;
-  constexpr int NP = G::OH * G::OW;  // the mask's positions: the outputs
-  extern __shared__ __align__(16) float ring[];  // [3][P][CC]
-  float* xs = ring + ring_floats<2, G::P>();     // mm: [NP][KC]
-  float* ws = xs + NP * KC;                      // mm: [KC][CC]
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int oy0 = (blockIdx.x / n_tx) * G::OH;
-  const int ox0 = (blockIdx.x % n_tx) * G::OW;
-  const int c0 = blockIdx.y * CC;
-  const int c = c0 + lane;
-  const bool cval = c < C;
-  const int b = blockIdx.z / n_tseg;
-  const int t0 = (blockIdx.z % n_tseg) * TT_DX;
-  const int t1 = min(t0 + TT_DX, Tn);
-  const float scv = cval ? sc[c] : 0.f, biv = cval ? bi[c] : 0.f;
-  // the flipped taps: dx is the correlation of g with w[2-dt, 2-dy, 2-dx]
-  float wt[27];
-#pragma unroll
-  for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[(26 - k) * C + c]) : 0.f;
-
-  auto load = [&](int ti) {
-    load_frame<T, false, G::P, G::WR, G::NPA>(
-        ring + slot_of(ti) * G::P * CC, g, b, ti, Tn, H, W, C, oy0 - 1,
-        ox0 - 1, c, cval, 0.f, 0.f);
-  };
-  float r[2] = {0.f, 0.f};
-  load(t0 - 1);
-  load(t0);
-  for (int t = t0; t < t1; ++t) {
-    load(t + 1);
-    // output j of this warp is mask position j: both are warp + j*WARPS
-    float keep[G::NO];
-    if constexpr (MODE == MM)
-      mm_prologue<T, true, NP, G::OW, G::NO>(
-          keep, xs, ws, x + (size_t)(b * Tn + t) * H * W * Cin, w1, H, W,
-          Cin, C, c0, oy0, ox0, scv, biv);
-    __syncthreads();
-    const float* fr[3] = {ring + slot_of(t - 1) * G::P * CC,
-                          ring + slot_of(t) * G::P * CC,
-                          ring + slot_of(t + 1) * G::P * CC};
-#pragma unroll
-    for (int j = 0; j < G::NO; ++j) {
-      const int o = warp + j * WARPS;
-      const int oy = o / G::OW, ox = o % G::OW;
-      float acc = 0.f;
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt)
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dxx = 0; dxx < 3; ++dxx)
-            acc = fmaf(wt[(dt * 3 + dy) * 3 + dxx],
-                       fr[dt][((oy + dy) * G::WR + ox + dxx) * CC + lane], acc);
-      const int gy = oy0 + oy, gx = ox0 + ox;
-      if (cval && gy < H && gx < W) {
-        const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
-        if constexpr (MODE == MM)
-          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
-        else
-          dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
-      }
-    }
-    __syncthreads();  // the next load overwrites frame t-1's slot
-  }
-  if constexpr (MODE == ACT)
-    block_partials<2>(ring, r, part,
-                      (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
 }
 
 // ---- dx, stride (1,2,2) --------------------------------------------------------
@@ -425,22 +344,6 @@ constexpr size_t smem_bytes(size_t ring, int np) {
 }
 
 template <typename T, int MODE>
-int launch_dx_s1(const void* g, const void* x, const void* w1, const void* w,
-                 const void* sc, const void* bi, void* dx, void* part, int B,
-                 int Tn, int H, int W, int Cin, int C, cudaStream_t st) {
-  using G = SGeom<1>;
-  constexpr size_t smem =
-      smem_bytes<MODE>(ring_floats<2, G::P>(), G::OH * G::OW);
-  if (int e = set_smem(dx_s1_kernel<T, MODE>, smem)) return e;
-  const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
-  const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  dx_s1_kernel<T, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
-      (const T*)g, (const T*)x, (const T*)w1, (const T*)w, (const float*)sc,
-      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Cin, C, n_tx, n_tseg);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int MODE>
 int launch_dx_s2(const void* g, const void* x, const void* w1, const void* w,
                  const void* sc, const void* bi, void* dx, void* part, int B,
                  int Tn, int H, int W, int Cin, int C, cudaStream_t st) {
@@ -480,7 +383,7 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // after the launch: 0 means the kernel was launched. The partial buffers
 // have the row counts of dw_act_partial_rows.
 
-// Rows of the partial-sum buffer of each entry, in the order dx_s1, dx_s2,
+// Rows of the partial-sum buffer of each entry, in the order dx_s2,
 // wgrad_s1, wgrad_s2 (the mm-mode weight gradients have the act mode's
 // rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
@@ -488,32 +391,17 @@ extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
   (void)C;
   switch (kind) {
     case 0:
-      return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
-             cdiv(T, TT_DX);
-    case 1:
       return cdiv(H, GGeom::OH) * cdiv(W, GGeom::OW) * B * cdiv(T, TT_DX);
-    case 2:
+    case 1:
       return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
              cdiv(T, TT_WG);
-    case 3: {
+    case 2: {
       const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
       return cdiv(Ho, SGeom<2>::OH) * cdiv(Wo, SGeom<2>::OW) * B *
              cdiv(T, TT_WG);
     }
   }
   return -1;
-}
-
-extern "C" int dw_act_dx_s1(const void* g, const void* x, const void* w,
-                            const void* sc, const void* bi, void* dx,
-                            void* part, int B, int T, int H, int W, int C,
-                            int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dx_s1<__nv_bfloat16, ACT>(g, x, nullptr, w, sc, bi, dx, part,
-                                            B, T, H, W, C, C, st);
-  return launch_dx_s1<float, ACT>(g, x, nullptr, w, sc, bi, dx, part, B, T, H,
-                                  W, C, C, st);
 }
 
 extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
@@ -552,18 +440,6 @@ extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
 
 // mm mode: x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and
 // dam have C channels: dam = da * relu'((x@W1)*sc + bi) in g's dtype.
-extern "C" int dw_mm_dx_mask_s1(const void* g, const void* x, const void* w1,
-                                const void* w, const void* sc, const void* bi,
-                                void* dam, int B, int T, int H, int W, int Cin,
-                                int C, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dx_s1<__nv_bfloat16, MM>(g, x, w1, w, sc, bi, dam, nullptr, B,
-                                           T, H, W, Cin, C, st);
-  return launch_dx_s1<float, MM>(g, x, w1, w, sc, bi, dam, nullptr, B, T, H, W,
-                                 Cin, C, st);
-}
-
 extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
                                 const void* w, const void* sc, const void* bi,
                                 void* dam, int B, int T, int H, int W, int Cin,

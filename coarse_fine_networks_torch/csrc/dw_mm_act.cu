@@ -53,7 +53,7 @@
 // branch settled against mm_prologue's sum (mm_band). Moving the
 // product to wgmma and the staging to TMA is later work.
 
-#include "strip.cuh"
+#include "mm_strip.cuh"
 
 namespace {
 
@@ -211,10 +211,11 @@ int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
 // C_mid): R output rows x WB columns x PG channel pairs of one sample over
 // TT frames. Per input frame it stages the R+2 rows of x (all C_in, the
 // columns [cs0, cs1) its outputs and their halo read) by cp.async into a
-// ring of XSTAGE frames, computes conv1's product there (bf16: 16 x 8 tiles
-// on the tensor cores, mm_ksteps_bf16, each relu input within mm_band of 0
-// summed again in order by mm_z_fmaf; f32: fmaf over k in order, as
-// mm_prologue), applies bn1 and the relu, rounds to T and writes the
+// ring of XSTAGE frames, computes conv1's product there (mm_strip_product,
+// mm_strip.cuh, which the stride-1 masked dx shares: bf16 16 x 8 tiles on
+// the tensor cores, each relu input within mm_band of 0 summed again in
+// order by mm_z_fmaf; f32 fmaf over k in order, as mm_prologue), applies
+// bn1 and the relu, rounds to T and writes the
 // activated frame into one of two slots [R+2][WB+2][2PG] (the layout
 // dw_plain_s1.cu's forward stages x in); the stencil then walks the slot as
 // that forward does (a channel pair per thread, a register ring of the 3
@@ -283,7 +284,6 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int pg = blk % pl.n_pg;
   const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = nthreads >> 5;
   const int wl = tid / PG, pi = tid % PG;
   const int w = tl.w0 + wl;
   const int c0 = 2 * tl.p0, c = c0 + 2 * pi;
@@ -308,37 +308,9 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   // W1's columns c0 .. c0 + ng (zero past C_mid and past the group, and in
   // bf16 past C_in), bn1's apply vectors, and each staged position's place
   // in a slot (-1: outside the frame or past M), once per block
-  {
-    // bf16: wt[n][k] (W1 transposed), f32: wt[k][n]; eight loads in flight
-    // per thread
-    const int kn = BF ? ld - 8 : Cin;  // k rows staged
-    const int total = kn * L.ng;
-    for (int i0 = tid; i0 < total; i0 += 8 * nthreads) {
-      T v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * nthreads, kk = i / L.ng, n = i % L.ng;
-        v[u] = i < total && kk < Cin && n < PG2 && c0 + n < Cmid
-                   ? w1[(size_t)kk * Cmid + c0 + n]
-                   : from_f<T>(0.f);
-      }
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int i = i0 + u * nthreads, kk = i / L.ng, n = i % L.ng;
-        if (i < total) wt[BF ? n * ld + kk : kk * PG2 + n] = v[u];
-      }
-    }
-  }
-  {
-    // mm_band's bound per unit of s: band |sc| (0 past C_mid: never near)
-    const float band = mm_band((ld - 8) / 16, Cin);
-    for (int i = tid; i < L.ng; i += nthreads) {
-      const bool cv = i < PG2 && c0 + i < Cmid;
-      scs[i] = cv ? sc[c0 + i] : 0.f;
-      bis[i] = cv ? bi[c0 + i] : 0.f;
-      kbs[i] = cv ? band * fabsf(sc[c0 + i]) : 0.f;
-    }
-  }
+  mm_stage_vecs(scs, bis, kbs, sc, bi, Cmid, c0, PG2, L.ng,
+                mm_band((ld - 8) / 16, Cin));
+  mm_stage_w1<T>(wt, w1, Cin, Cmid, c0, PG2, L.ng, ld);
   for (int p = tid; p < L.rows; p += nthreads) {
     const int rr = p / ncs;
     tab[p] = p < M && rr >= rlo && rr < rhi
@@ -380,80 +352,25 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     }
     cp_commit();
   };
-  // relu(v) rounded to T (act<T> of a relu input v already applied)
-  auto relu_t = [](float v) { return to_f(from_f<T>(fmaxf(v, 0.f))); };
-  // conv1's product of x frame f0 + i (ring slot i % XSTAGE), bn1, relu ->
-  // activated slot i % 2
+  // conv1's product of x frame f0 + i (ring slot i % XSTAGE), bn1, relu
+  // rounded to T -> activated slot i % 2
   auto product = [&](int i) {
-    const T* xf = xs + (i % XSTAGE) * xslot;
     T* sl = act_s + (i & 1) * aslot;
-    if constexpr (BF) {
-      // 16 x 8 tiles of (position, channel), every nwarps-th to a warp. A
-      // relu input within mm_band of 0 sets a bit of the lane's mask (bit
-      // 4*(tile's turn % 16) + 2*half + channel); every 16 turns, and after
-      // the last, the lane sums its marked elements again in order
-      // (mm_z_fmaf) and writes them anew: no branch in the tiles' loop
-      const int ntl = L.ng / 8, tiles = (M + 15) / 16 * ntl;
-      const int nk = (ld - 8) / 16;
-      const int g = lane >> 2, c2 = 2 * (lane & 3);
-      unsigned long long marks = 0;
-      int turn = 0;
-      for (int q = warp; q < tiles; q += nwarps, ++turn) {
-        const int m = q / ntl, n = q % ntl;
-        float acc[4] = {0.f, 0.f, 0.f, 0.f}, sacc[4] = {0.f, 0.f, 0.f, 0.f};
-        mm_ksteps_bf16(acc, sacc, xf + m * 16 * ld, ld, wt + n * 8 * ld, ld,
-                       nk);
-        const int ch = n * 8 + c2;
-        const bool chok = ch < PG2;
-        const float sc0 = scs[ch], sc1 = scs[ch + 1];
-        const float bi0 = bis[ch], bi1 = bis[ch + 1];
-        const float kb0 = kbs[ch], kb1 = kbs[ch + 1];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int at = tab[m * 16 + g + 8 * h];
-          const float v0 = bn_apply(acc[2 * h], sc0, bi0);
-          const float v1 = bn_apply(acc[2 * h + 1], sc1, bi1);
-          if (at >= 0 && chok)  // relu, rounded to bf16
+    mm_strip_product<T>(
+        xs + (i % XSTAGE) * xslot, wt, ld, L.ng, PG, M, Cin, scs, bis, kbs,
+        tab,
+        [&](int at, int ch, float v0, float v1) {
+          if constexpr (BF) {
             *reinterpret_cast<__nv_bfloat162*>(sl + at + ch) =
                 __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          const int bit = 4 * (turn & 15) + 2 * h;
-          marks |= (unsigned long long)(at >= 0 &&
-                                        fabsf(v0) < kb0 * sacc[2 * h])
-                   << bit;
-          marks |= (unsigned long long)(at >= 0 &&
-                                        fabsf(v1) < kb1 * sacc[2 * h + 1])
-                   << (bit + 1);
-        }
-        if ((turn & 15) == 15 || q + nwarps >= tiles) {  // uniform
-          for (; marks; marks &= marks - 1) {  // rare
-            const int b = __ffsll(marks) - 1;
-            const int qq = q - (turn & 15) * nwarps + (b >> 2) * nwarps;
-            const int p = qq / ntl * 16 + g + 8 * ((b >> 1) & 1);
-            const int cc = qq % ntl * 8 + c2 + (b & 1);
-            const float z = mm_z_fmaf(xf + p * ld, wt + cc * ld, Cin);
-            sl[tab[p] + cc] =
-                __float2bfloat16_rn(fmaxf(bn_apply(z, scs[cc], bis[cc]), 0.f));
+          } else {
+            *reinterpret_cast<float2*>(sl + at + ch) =
+                make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
           }
-        }
-      }
-    } else {
-      // as mm_z_fmaf: fmaf over k = 0 .. C_in-1 in order
-      for (int q = tid; q < M * PG; q += nthreads) {
-        const int p = q / PG, ch = 2 * (q % PG);
-        const int at = tab[p];
-        if (at < 0) continue;
-        const T* xp = xf + p * ld;
-        float z0 = 0.f, z1 = 0.f;
-        for (int kk = 0; kk < Cin; ++kk) {
-          const float xv = to_f(xp[kk]);
-          z0 = fmaf(xv, to_f(wt[kk * PG2 + ch]), z0);
-          z1 = fmaf(xv, to_f(wt[kk * PG2 + ch + 1]), z1);
-        }
-        *reinterpret_cast<float2*>(sl + at + ch) =
-            make_float2(relu_t(bn_apply(z0, scs[ch], bis[ch])),
-                        relu_t(bn_apply(z1, scs[ch + 1], bis[ch + 1])));
-      }
-    }
+        },
+        [&](int at, int cc, float v) {
+          sl[at + cc] = from_f<T>(fmaxf(v, 0.f));
+        });
   };
 
   float acc[3][R][2];
@@ -511,8 +428,6 @@ decltype(&mm_fwd_s1_kernel<T, RMAX>) mm_kernel_of(int R) {
   }
   return nullptr;
 }
-
-constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
 
 template <typename T>
 int launch_mm_s1(const void* x, const void* w1, const void* k, const void* sc,

@@ -69,51 +69,6 @@ namespace {
 
 using namespace cfn;
 
-// One thread's share of staging a tile: its channel pair c at staged
-// columns wl and, for wl < 2, WB + wl (input columns w0 - 1 + that), every
-// row (x, with its column halo), or at staged column wl + 1 only (g). Slot
-// and source offsets within a row are fixed for the tile, so a frame costs
-// the thread (rows) x (1 or 2) copies and no index arithmetic.
-struct Stager {
-  int src0, src1, dst0, dst1, PG2, C;
-  bool u0, u1, uc, pairs, second;
-
-  __device__ __forceinline__ Stager(const Tile& tl, int wl, int pi, int WB,
-                                    int PG2_, int W, int C_, bool pairs_)
-      : PG2(PG2_), C(C_), pairs(pairs_) {
-    const int c = 2 * (tl.p0 + pi);
-    const int g0 = tl.w0 - 1 + wl, g1 = tl.w0 - 1 + WB + wl;
-    u0 = wl < WB && g0 >= 0 && g0 < W && c < C;
-    u1 = wl < 2 && g1 < W && c < C;
-    uc = wl < WB && g0 + 1 < W && c < C;
-    src0 = g0 * C + c;
-    src1 = g1 * C + c;
-    dst0 = wl * PG2 + 2 * pi;
-    dst1 = (WB + wl) * PG2 + 2 * pi;
-    second = c + 1 < C;
-  }
-
-  // rows [hs, hs + nr) of frame f (H, W, C), clipped to the frame, into
-  // dst laid out [nr][WB + 2][2PG]: every staged column (halo) or only the
-  // thread's own (column wl + 1)
-  template <typename T>
-  __device__ __forceinline__ void rows(T* dst, const T* f, int hs, int nr,
-                                       int H, int W, int rowlen,
-                                       bool halo) const {
-    const int lo = max(hs, 0), hi = min(hs + nr, H);
-    for (int h = lo; h < hi; ++h) {
-      const T* src = f + (size_t)h * W * C;
-      T* d = dst + (h - hs) * rowlen;
-      if (halo) {
-        if (u0) copy_pair(d + dst0, src + src0, pairs, second);
-        if (u1) copy_pair(d + dst1, src + src1, pairs, second);
-      } else if (uc) {
-        copy_pair(d + dst0 + PG2, src + src0 + C, pairs, second);
-      }
-    }
-  }
-};
-
 // ---- forward ----------------------------------------------------------------
 // Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
 // with c = 2*(p0 + pi). acc[j][r] holds output frame ti - 1 + j of row

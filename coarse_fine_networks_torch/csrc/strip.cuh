@@ -1,10 +1,12 @@
 // The row-strip layout shared by the stride-1 plain kernels
-// (dw_plain_s1.cu), the stride-2 plain kernels (dw_plain_s2.cu) and the
-// stride-1 mm forward (dw_mm_act.cu, mm_fwd_s1_kernel): a block owns R rows
+// (dw_plain_s1.cu), the stride-2 plain kernels (dw_plain_s2.cu), the
+// stride-1 mm forward (dw_mm_act.cu, mm_fwd_s1_kernel) and the stride-1
+// masked dx (dw_dx_s1.cu): a block owns R rows
 // x WB columns x PG channel pairs of one sample over TT frames; rows are
 // staged into shared memory by cp.async in the tensor's dtype; a thread owns
 // one channel pair at one column. The split is computed by the wrappers
-// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_s2, plan_mm_s1).
+// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_s2, plan_mm_s1,
+// plan_act_dx_s1, plan_mm_dx_s1).
 
 #pragma once
 
@@ -16,6 +18,7 @@ constexpr int NT_MAX = 256;  // threads per block at most (WB * PG)
 constexpr int RMIN = 2;      // output rows per strip: a template argument
 constexpr int RMAX = 4;      // in [RMIN, RMAX]
 constexpr int NSTAGE = 3;    // frames in the shared-memory ring
+constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
 
 // A channel pair in the tensor's dtype, as read from shared memory
 __device__ __forceinline__ float2 load_pair(const float* p) {
@@ -136,6 +139,53 @@ __device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
     }
   }
 }
+
+// One thread's share of staging a stride-1 tile (dw_plain_s1.cu,
+// dw_dx_s1.cu): its channel pair c at staged columns wl and, for wl < 2,
+// WB + wl (input columns w0 - 1 + that), every row (the stencil's input,
+// with its column halo), or at staged column wl + 1 only (a tensor read at
+// the thread's own column). Slot and source offsets within a row are fixed
+// for the tile, so a frame costs the thread (rows) x (1 or 2) copies and no
+// index arithmetic.
+struct Stager {
+  int src0, src1, dst0, dst1, PG2, C;
+  bool u0, u1, uc, pairs, second;
+
+  __device__ __forceinline__ Stager(const Tile& tl, int wl, int pi, int WB,
+                                    int PG2_, int W, int C_, bool pairs_)
+      : PG2(PG2_), C(C_), pairs(pairs_) {
+    const int c = 2 * (tl.p0 + pi);
+    const int g0 = tl.w0 - 1 + wl, g1 = tl.w0 - 1 + WB + wl;
+    u0 = wl < WB && g0 >= 0 && g0 < W && c < C;
+    u1 = wl < 2 && g1 < W && c < C;
+    uc = wl < WB && g0 + 1 < W && c < C;
+    src0 = g0 * C + c;
+    src1 = g1 * C + c;
+    dst0 = wl * PG2 + 2 * pi;
+    dst1 = (WB + wl) * PG2 + 2 * pi;
+    second = c + 1 < C;
+  }
+
+  // rows [hs, hs + nr) of frame f (H, W, C), clipped to the frame, into
+  // dst laid out [nr][WB + 2][2PG]: every staged column (halo) or only the
+  // thread's own (column wl + 1)
+  template <typename T>
+  __device__ __forceinline__ void rows(T* dst, const T* f, int hs, int nr,
+                                       int H, int W, int rowlen,
+                                       bool halo) const {
+    const int lo = max(hs, 0), hi = min(hs + nr, H);
+    for (int h = lo; h < hi; ++h) {
+      const T* src = f + (size_t)h * W * C;
+      T* d = dst + (h - hs) * rowlen;
+      if (halo) {
+        if (u0) copy_pair(d + dst0, src + src0, pairs, second);
+        if (u1) copy_pair(d + dst1, src + src1, pairs, second);
+      } else if (uc) {
+        copy_pair(d + dst0 + PG2, src + src0 + C, pairs, second);
+      }
+    }
+  }
+};
 
 // The plan's derived counts, or false where the kernels do not take it.
 template <typename T>

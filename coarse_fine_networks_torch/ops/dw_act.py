@@ -17,6 +17,8 @@ Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 * ``dw_act_s1``/``dw_act_s2``: :func:`dw_bnrelu_conv3d`, in
   ``csrc/dw_mm_act.cu`` (the act mode of the eval kernel);
 * ``dw_act_dx_s1``/``dw_act_dx_s2``: :func:`dw_act_dx`, in
+  ``csrc/dw_dx_s1.cu`` (K3: ``dw_plain_s1.cu``'s row strips on g with the
+  flipped taps, x staged beside g) and
   ``csrc/dw_act_bwd.cu``;
 * ``dw_act_wgrad_s1``/``dw_act_wgrad_s2``: :func:`dw_act_wgrad`, in
   ``csrc/dw_act_bwd.cu``.
@@ -30,7 +32,8 @@ from __future__ import annotations
 
 import torch
 
-from .dw_mm_act import BWD_LIBRARY, _launch, _out_hw, _partials
+from .dw_mm_act import (BWD_LIBRARY, DX_S1_LIBRARY, _launch, _out_hw,
+                        _partials)
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
 from .dw_mm_act import LIBRARIES, stencil_f32, wgrad_f32  # noqa: F401
 
@@ -160,8 +163,9 @@ def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
     the ``(dsc, dbi)`` sums fused in (see :func:`dw_act_dx_plain`).
 
     ``g`` is dL/dy (y's shape, x's dtype).  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``dw_act_dx_s1`` or ``dw_act_dx_s2``
-    (per-block partial sums, added with one ``torch.sum``), or raises."""
+    version; a CUDA tensor launches ``dw_act_dx_s1`` (with the work split
+    of :func:`..dw_conv.plan_act_dx_s1`) or ``dw_act_dx_s2`` (per-block
+    partial sums, added with one ``torch.sum``), or raises."""
     _check(x, w_dw, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_act_dx_plain(g, x, w_dw, sc, bi, stride)
@@ -169,10 +173,21 @@ def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
     if not x.numel():
         return dx, torch.zeros((2, x.shape[-1]), device=x.device)
     name = f"dw_act_dx_s{stride}"
-    part = _partials(name, x, 2)
-    _launch(LAUNCHES, BWD_LIBRARY, name, x, g.data_ptr(), x.data_ptr(),
-            w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), dx.data_ptr(),
-            part.data_ptr(), *x.shape)
+    args = (g.data_ptr(), x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), dx.data_ptr())
+    if stride == 1:
+        # .dw_conv builds on this module's libraries: imported here
+        from .dw_conv import plan_act_dx_s1
+
+        p = plan_act_dx_s1(*x.shape)
+        part = torch.empty((p.rows, 2, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, DX_S1_LIBRARY, name, x, *args, part.data_ptr(),
+                *x.shape, p.r, p.wb, p.pg, p.tt, p.rows)
+    else:
+        part = _partials(name, x, 2)
+        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args, part.data_ptr(),
+                *x.shape)
     return dx, torch.sum(part, dim=0)
 
 

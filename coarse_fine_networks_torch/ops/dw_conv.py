@@ -43,6 +43,11 @@ halo and writes its output once:
   the output's row strips, the forward's de-interleaved rows), with the
   work split of :func:`plan_s2`.
 
+The module also computes the row-strip work splits of the other modules'
+row-strip kernels: :func:`plan_mm_s1` (K1 ``mm``, :mod:`.dw_mm_act`) and
+:func:`plan_act_dx_s1` / :func:`plan_mm_dx_s1` (the stride-1 dx K3 of
+:mod:`.dw_act` and K2 of :mod:`.dw_mm_bn_train`, ``csrc/dw_dx_s1.cu``).
+
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  All tensors are channels-last
 ``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``.
@@ -176,24 +181,25 @@ class PlanS1(NamedTuple):
 
 
 def _strips(b: int, t: int, h: int, w: int, c: int, smem=None,
-            pg_max: int | None = None) -> PlanS1:
+            pg_max: int | None = None, nt: int = NT_MAX) -> PlanS1:
     """Rows, columns and channel pairs of a row-strip split of ``(B, T, h,
     w, C)``, over the whole clip.  Columns first: all ``w`` in one block
-    where ``w`` ≤ 256 (so at least two where ``w`` is: the stride-1 kernels
-    stage the halo columns with the threads of columns 0 and 1), then as
-    many channel pairs as fill 256 threads, in equal groups.  With
-    ``pg_max``, channel pairs first: equal groups of at most ``pg_max``
-    pairs, then as many columns as fill 256 threads, in equal tiles.  The
+    where ``w`` ≤ ``nt`` (256 threads unless given; so at least two where
+    ``w`` is: the stride-1 kernels stage the halo columns with the threads
+    of columns 0 and 1), then as many channel pairs as fill ``nt`` threads,
+    in equal groups.  With ``pg_max``, channel pairs first: equal groups of
+    at most ``pg_max`` pairs, then as many columns as fill ``nt`` threads,
+    in equal tiles.  The
     pairs are cut into more groups while ``smem(plan, 4)``, the block's f32
     shared memory, would pass the card's limit.  Rows: strips of 2 to 4, of
     equal height (rows past ``h`` read the zero padding)."""
     p2 = _cdiv(c, 2)
     if pg_max is None:
-        wb = _cdiv(w, _cdiv(w, NT_MAX))
-        pg = _cdiv(p2, _cdiv(p2, max(1, NT_MAX // wb)))
+        wb = _cdiv(w, _cdiv(w, nt))
+        pg = _cdiv(p2, _cdiv(p2, max(1, nt // wb)))
     else:
         pg = _cdiv(p2, _cdiv(p2, pg_max))
-        wb = _cdiv(w, _cdiv(w, NT_MAX // pg))
+        wb = _cdiv(w, _cdiv(w, nt // pg))
     r = max(RMIN, _cdiv(h, _cdiv(h, RMAX)))
     plan = PlanS1(b, t, h, w, c, r, wb, pg, t, 1, 1)
     while smem is not None and smem(plan, 4) > SMEM_MAX and plan.pg > 1:
@@ -355,6 +361,78 @@ def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
     wt = ng * ld * 2 if bf else c_in * pg2 * 4
     return (2 * aslot + XSTAGE * rows * ld * esz + pad(wt) + 3 * pad(ng * 4)
             + 4 * rows)
+
+
+# ---- the stride-1 dx's work splits (K3 and K2, csrc/dw_dx_s1.cu) -------------
+
+NT_DX = 192  # threads per block at most in the stride-1 dx (168 registers)
+TT_MM = 32   # frames per segment at most in K2 (a mask slot each)
+
+
+def smem_dx_s1(plan: PlanS1, c_in: int, esz: int, mm: bool) -> int:
+    """Dynamic shared memory per block of ``dw_act_dx_s1`` (``mm`` false)
+    or ``dw_mm_dx_mask_s1``, in bytes, as their launcher sizes it
+    (``dx_layout``).  act: a ring of three slots, each a g frame ``[R+2]
+    [WB+2][2PG]`` and an x frame ``[R][WB+2][2PG]`` (reused for the column
+    sums).  mm: a ring of three g frames, or of three x frames of ``R ·
+    min(WB, W)`` positions rounded up to 16 × C_in (in bf16 rounded up to
+    16, + 8) if larger; W1's columns (bf16: ``2PG`` rounded up to 8, × that
+    stride); three vectors over them; a table of the positions' places; a
+    mask slot ``[R][WB][2PG]`` of bytes for each of the ``tt`` frames."""
+    pg2 = 2 * plan.pg
+    gstage = _pad16((plan.r + 2) * (plan.wb + 2) * pg2 * esz)
+    if not mm:
+        ring = NSTAGE * (gstage + _pad16(plan.r * (plan.wb + 2) * pg2 * esz))
+        return max(ring, 4 * 2 * plan.wb * pg2)
+    bf = esz == 2
+    rows = _pad16(plan.r * min(plan.wb, plan.w))
+    ld = _pad16(c_in) + 8 if bf else c_in
+    ng = _cdiv(pg2, 8) * 8 if bf else pg2
+    wt = ng * ld * 2 if bf else c_in * pg2 * 4
+    return (NSTAGE * max(gstage, rows * ld * esz) + _pad16(wt)
+            + 3 * _pad16(ng * 4) + _pad16(rows * 4)
+            + plan.tt * _pad16(plan.r * plan.wb * pg2))
+
+
+def _dx_s1_split(b: int, t: int, h: int, w: int, c: int, smem,
+                 tt_max: int) -> PlanS1:
+    """The split of the stride-1 dx of ``(B, T, h, w, C)``: :func:`_strips`
+    with channel pairs first in groups of at most ``DX_PG`` (so a warp's
+    loads and stores are runs of whole pixels at the path's widths) and at
+    most ``NT_DX`` threads, segments of at most ``tt_max`` frames, the
+    pairs cut into more groups while ``smem(plan)``, the block's shared
+    memory, would pass the card's limit; frames split further until there
+    are two waves of blocks at two per SM.  One block per item and channel
+    group, so ``rows`` (= items) is the partial buffer's row count."""
+    plan = _strips(b, t, h, w, c, pg_max=DX_PG, nt=NT_DX)
+    plan = plan._replace(tt=min(t, tt_max))
+    p2 = _cdiv(c, 2)
+    while smem(plan) > SMEM_MAX and plan.pg > 1:
+        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))
+    plan = _split_frames(plan, FWD_BLOCKS)
+    plan = plan._replace(tt=min(plan.tt, tt_max))
+    return plan._replace(ipb=1, rows=plan.items)
+
+
+@lru_cache(maxsize=None)
+def plan_act_dx_s1(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_act_dx_s1`` (K3) for x ``(B, T, H, W, C)``:
+    :func:`_dx_s1_split` with the act kernel's shared memory (f32, the
+    larger), any segment length.  Its partial-sum buffer has ``rows``
+    rows."""
+    return _dx_s1_split(b, t, h, w, c,
+                        lambda p: smem_dx_s1(p, c, 4, False), t)
+
+
+@lru_cache(maxsize=None)
+def plan_mm_dx_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                  esz: int) -> PlanS1:
+    """The work split of ``dw_mm_dx_mask_s1`` (K2) for x ``(B, T, H, W,
+    C_in)`` of ``esz``-byte elements and ``C_mid`` channels of g:
+    :func:`_dx_s1_split` over ``(B, T, H, W, C_mid)`` with the mm kernel's
+    shared memory at ``esz`` and segments of at most ``TT_MM`` frames."""
+    return _dx_s1_split(b, t, h, w, c_mid,
+                        lambda p: smem_dx_s1(p, c_in, esz, True), TT_MM)
 
 
 # ---- forward: the plain mode of K1 (stride 1) and K4 (stride 2) -------------

@@ -41,20 +41,26 @@ LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's weight gradient and the backward
-# entries of :mod:`.dw_act` and :mod:`.dw_mm_bn_train`.
+# The backward source: this module's weight gradient and the stride-2
+# backward entries of :mod:`.dw_act` and :mod:`.dw_mm_bn_train`.
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
-    "dw_act_dx_s1": [P] * 7 + [I] * 6 + [P],
     "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
     "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
-    "dw_mm_dx_mask_s1": [P] * 7 + [I] * 7 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
 })
-LIBRARIES = (LIBRARY, BWD_LIBRARY)
+# The stride-1 dx of both train entries (K3 of :mod:`.dw_act`, K2 of
+# :mod:`.dw_mm_bn_train`), on the row-strip layout with the work splits of
+# :func:`..dw_conv.plan_act_dx_s1` and :func:`..dw_conv.plan_mm_dx_s1`.
+DX_S1_LIBRARY = CudaLibrary("dw_dx_s1.cu", {
+    "dw_act_dx_s1": [P] * 7 + [I] * 11 + [P],
+    "dw_mm_dx_mask_s1": [P] * 7 + [I] * 11 + [P],
+    "dw_dx_s1_occupancy": [I] * 8,
+})
+LIBRARIES = (LIBRARY, BWD_LIBRARY, DX_S1_LIBRARY)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by the plain version).
@@ -62,8 +68,8 @@ LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
 # mm-mode weight gradients have the act mode's rows)
-_ROWS_KIND = {"dw_act_dx_s1": 0, "dw_act_dx_s2": 1, "dw_act_wgrad_s1": 2,
-              "dw_act_wgrad_s2": 3, "dw_mm_wgrad_s1": 2, "dw_mm_wgrad_s2": 3}
+_ROWS_KIND = {"dw_act_dx_s2": 0, "dw_act_wgrad_s1": 1,
+              "dw_act_wgrad_s2": 2, "dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
 
 
 def reset_launches() -> None:

@@ -16,9 +16,11 @@ counterpart of the JAX package's ``dw_fold4_mm_bn_train`` and
 (``coarse_fine_networks_tpu/ops/pallas/dw_fold.py``), whose backward is the
 Pallas kernels K2/K9 and the ``mm`` modes of K6/K10.
 
-Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`), in
-``csrc/dw_act_bwd.cu``: ``dw_mm_dx_mask_s1`` (K2) and ``dw_mm_dx_mask_s2``
-(K9), :func:`dw_mm_dx_mask`.  The wrapper runs its ``*_plain`` version on a
+Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`), :func:`dw_mm_dx_mask`:
+``dw_mm_dx_mask_s1`` (K2) in ``csrc/dw_dx_s1.cu`` (``dw_plain_s1.cu``'s
+row strips on g with the flipped taps, the mask from conv1's product on the
+tensor cores by the stride-1 mm forward's code) and ``dw_mm_dx_mask_s2``
+(K9) in ``csrc/dw_act_bwd.cu``.  The wrapper runs its ``*_plain`` version on a
 CPU tensor and launches its kernel on a CUDA tensor, or raises.  All tensors
 are channels-last ``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``.
 """
@@ -29,9 +31,9 @@ import os
 
 import torch
 
-from .dw_mm_act import (BWD_LIBRARY, _check, _check_kernel_input, _launch,
-                        _mm_product, dw_mm_bnrelu_conv3d, dw_mm_wgrad, mm_f32,
-                        stencil_f32)
+from .dw_mm_act import (BWD_LIBRARY, DX_S1_LIBRARY, _check,
+                        _check_kernel_input, _launch, _mm_product,
+                        dw_mm_bnrelu_conv3d, dw_mm_wgrad, mm_f32, stencil_f32)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by the plain version).
@@ -80,8 +82,9 @@ def dw_mm_dx_mask(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     """The masked dx of :func:`.dw_mm_act.dw_mm_bnrelu_conv3d` (see
     :func:`dw_mm_dx_mask_plain`): ``g`` is dL/dy (y's shape, x's dtype), x
     conv1's input.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``dw_mm_dx_mask_s1`` or ``dw_mm_dx_mask_s2``, whose mask shares
-    the forward kernel's product and rounding, or raises."""
+    launches ``dw_mm_dx_mask_s1`` (with the work split of
+    :func:`..dw_conv.plan_mm_dx_s1`) or ``dw_mm_dx_mask_s2``, whose masks
+    take the forward kernels' relu branch, or raises."""
     _check(x, w1, w_dw, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_mm_dx_mask_plain(g, x, w1, w_dw, sc, bi, stride)
@@ -89,11 +92,21 @@ def dw_mm_dx_mask(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     b, t, h, w, c_in = x.shape
     c_mid = w1.shape[1]
     dam = torch.empty((b, t, h, w, c_mid), dtype=g.dtype, device=g.device)
-    if dam.numel():
-        _launch(LAUNCHES, BWD_LIBRARY, f"dw_mm_dx_mask_s{stride}", x,
-                g.data_ptr(), x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(),
-                sc.data_ptr(), bi.data_ptr(), dam.data_ptr(), b, t, h, w,
-                c_in, c_mid)
+    if not dam.numel():
+        return dam
+    name = f"dw_mm_dx_mask_s{stride}"
+    args = (g.data_ptr(), x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(),
+            sc.data_ptr(), bi.data_ptr(), dam.data_ptr(), b, t, h, w, c_in,
+            c_mid)
+    if stride == 1:
+        # .dw_conv builds on this package's libraries: imported here
+        from .dw_conv import plan_mm_dx_s1
+
+        p = plan_mm_dx_s1(b, t, h, w, c_in, c_mid, x.element_size())
+        _launch(LAUNCHES, DX_S1_LIBRARY, name, x, *args, p.r, p.wb, p.pg,
+                p.tt)
+    else:
+        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args)
     return dam
 
 

@@ -148,23 +148,33 @@ def test_bindings_match_the_c_declarations(lib):
 def test_stride1_entries_left_the_entry_sources():
     """The plain mode at stride 1 lives in ``dw_plain_s1.cu`` only, the
     three stride-2 plain entries (K4 plain, K8, K10 plain) in
-    ``dw_plain_s2.cu`` only: none is left in the bottleneck entry's sources,
-    and neither is their ``PLAIN`` mode."""
+    ``dw_plain_s2.cu`` only, and the stride-1 dx of the train entries (K3,
+    K2) in ``dw_dx_s1.cu`` only: none is left in the bottleneck entry's
+    sources, and neither is their ``PLAIN`` mode or the old stride-1 dx
+    kernel."""
     fwd = dw_mm_act.LIBRARY.source.read_text()
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     new = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
+    dx1 = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     for lib, src, names in (
             (dw_conv.LIBRARY, new, ("dw_conv_s1", "dw_conv_wgrad_s1")),
             (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_conv_dx_s2",
-                                      "dw_conv_wgrad_s2"))):
-        others = fwd + bwd + (s2 if lib is dw_conv.LIBRARY else new)
+                                      "dw_conv_wgrad_s2")),
+            (dw_mm_act.DX_S1_LIBRARY, dx1, ("dw_act_dx_s1",
+                                            "dw_mm_dx_mask_s1"))):
+        others = "".join(other for other in (fwd, bwd, new, s2, dx1)
+                         if other is not src)
         for name in names:
             assert f'extern "C" int {name}(' in src
             assert f'extern "C" int {name}(' not in others
             assert name in lib.functions
-            assert name not in dw_mm_act.LIBRARY.functions
-            assert name not in dw_mm_act.BWD_LIBRARY.functions
+            for other in (dw_mm_act.LIBRARY, dw_mm_act.BWD_LIBRARY,
+                          dw_conv.LIBRARY, dw_conv.LIBRARY_S2,
+                          dw_mm_act.DX_S1_LIBRARY):
+                if other is not lib:
+                    assert name not in other.functions
     assert "PLAIN" not in fwd + bwd
-    assert dw_conv.LIBRARY in dw_conv.LIBRARIES
-    assert dw_conv.LIBRARY_S2 in dw_conv.LIBRARIES
+    assert "dx_s1_kernel(" not in bwd
+    for lib in (dw_conv.LIBRARY, dw_conv.LIBRARY_S2, dw_mm_act.DX_S1_LIBRARY):
+        assert lib in dw_conv.LIBRARIES

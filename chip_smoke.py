@@ -12,10 +12,10 @@ Phases, each printing JSON lines:
    ``nvcc`` for each of the six sources, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
    ``dw_mm_act.cu`` and ``dw_dx_s1.cu`` whose registers, spills and static
-   shared memory for each row-strip kernel (K1/K6 plain; K4 plain, K8 and
-   K10 plain; K1 ``mm``; K3 and K2) make four ``ptxas`` rows; their
-   dynamic shared memory and blocks per SM are in the kernel rows'
-   ``plan``);
+   shared memory for each row-strip kernel (K1/K6 plain and K6 ``act``; K4
+   plain, K8, K5 and K10 plain; K1 ``mm``; K3 and K2) make four ``ptxas``
+   rows; their dynamic shared memory and blocks per SM are in the kernel
+   rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -31,9 +31,15 @@ Phases, each printing JSON lines:
    work split, ``plan_mm_s1``, blocks per SM and waves); the stride-1 dx
    ``dw_act_dx_s1`` (K3) also against the exact oracle, its dx equal with
    a difference of 0 to ``dw_conv_s1`` of g with the flipped taps in f32,
-   masked and scaled as the plain version does, and its dx and sums
-   repeating bit for bit, each row with its work split
-   (``plan_act_dx_s1``), blocks per SM and waves;
+   masked and scaled as the plain version does, the stride-2 dx
+   ``dw_act_dx_s2`` (K5) likewise to ``dw_conv_dx_s2`` (K8) run in f32,
+   masked and scaled, both with dx and sums repeating bit for bit, and the
+   stride-1 weight gradient ``dw_act_wgrad_s1`` (K6 ``act``) to
+   ``dw_conv_wgrad_s1`` (K6 plain) on the activated x, repeating bit for
+   bit; each of these rows with its work split (``plan_act_dx_s1``,
+   ``plan_act_dx_s2``, ``plan_s1``), blocks per SM and waves, and each
+   train kernel's line entry with its time and bound summed over one step
+   of long-cycle phase D beside the coarse step's;
 2b. relu_branch: the forward and the masked dx take one relu branch: with
    only the centre tap set to 1 the forward's ``y > 0`` must equal the
    mask ``dam != 0`` of ``g = 1`` element for element (K1 ``mm`` against
@@ -234,8 +240,10 @@ REPLACES = {
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
-                                                      "dw_conv_wgrad_s1")
-                       else "dw_plain_s2.cu" if k.startswith("dw_conv_")
+                                                      "dw_conv_wgrad_s1",
+                                                      "dw_act_wgrad_s1")
+                       else "dw_plain_s2.cu" if (k.startswith("dw_conv_")
+                                                 or k == "dw_act_dx_s2")
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
@@ -247,9 +255,10 @@ KERNEL_FUNCS = {
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
     "act_dx_s1_kernel": ("dw_act_dx_s1",),
     "mm_dx_s1_kernel": ("dw_mm_dx_mask_s1",),
-    "dx_s2_kernel": ("dw_act_dx_s2", "dw_mm_dx_mask_s2"),
-    "wgrad_kernel": ("dw_act_wgrad_s1", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
-                     "dw_mm_wgrad_s2"),
+    "act_s2_dx_kernel": ("dw_act_dx_s2",),
+    "dx_s2_kernel": ("dw_mm_dx_mask_s2",),
+    "act_wgrad_s1_kernel": ("dw_act_wgrad_s1",),
+    "wgrad_kernel": ("dw_act_wgrad_s2", "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
     "plain_s2_fwd_kernel": ("dw_conv_s2",),
@@ -258,6 +267,10 @@ KERNEL_FUNCS = {
     "stencil_fwd_kernel": ("dw_stencil_s1", "dw_stencil_s2"),
     "stencil_dk_kernel": ("dw_stencil_wgrad",),
 }
+# the act route's kernel functions, as the train and phase-D profiles sum
+# them
+ACT_FUNCS = ("dw_mm_act_kernel", "act_dx_s1_kernel", "act_s2_dx_kernel",
+             "act_wgrad_s1_kernel", "wgrad_kernel")
 MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
 # the train step: batch, frames per stage (layers 2-4 run on the T/4+1
 # frames Grid Pool keeps), fine banks, label length
@@ -373,9 +386,10 @@ def _ptxas(source: Path) -> dict:
 
 # the ptxas rows: each source's kernel functions of the row-strip layout
 # (three row counts: 2-4) in f32 and bf16
-PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel"),
+PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel",
+                        "act_wgrad_s1_kernel"),
          "dw_conv_s2": ("plain_s2_fwd_kernel", "plain_s2_dx_kernel",
-                        "plain_s2_wgrad_kernel"),
+                        "act_s2_dx_kernel", "plain_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
 
@@ -600,7 +614,8 @@ def phase_relu_branch(dw_mm_act, dw_mm_bn_train) -> None:
 def _agg() -> dict:
     return {"ms": 0.0, "plain_ms": 0.0, "unfused_ms": 0.0, "nearest_ms": 0.0,
             "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
-            "max_abs_err": 0.0, "max_abs_err_f32": 0.0, "launches": 0}
+            "max_abs_err": 0.0, "max_abs_err_f32": 0.0, "launches": 0,
+            "phase_d_ms": 0.0, "phase_d_bound_ms": 0.0}
 
 
 def _bound(nbytes: float, ops: float, dtype) -> dict:
@@ -640,7 +655,10 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
     three; one row per case, ``meta`` naming the entry, with ``extra[name]``
     (fields of that case's row) where given.  A bf16 case at a ``counted``
     shape adds its times, weighted by ``n`` launches per train step, to
-    ``per_kernel``, so the sums are one step's work."""
+    ``per_kernel``, so the sums are one step's work; a bf16 case at another
+    shape (long-cycle phase D's) adds its time and bound, weighted by its
+    launches in one phase-D step, to ``phase_d_ms`` and
+    ``phase_d_bound_ms``."""
     for name, (kern, plain, unfused, nearest, near_what, nbytes,
                ops) in cases.items():
         got, ref = kern(), plain()
@@ -674,6 +692,8 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
                         "bytes_ms", "ops_ms", "bound_ms"):
                 agg[key] += n * row[key] * counted
             agg["launches"] += n * counted
+            agg["phase_d_ms"] += n * row["ms"] * (not counted)
+            agg["phase_d_bound_ms"] += n * row["bound_ms"] * (not counted)
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
         else:
             agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
@@ -725,11 +745,55 @@ def _act_dx_exact(dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi,
                                  x.shape[-1], dtype)}
 
 
+def _act_dx_s2_exact(dw_act, dw_conv, g, x, w, sc, bi, dtype) -> dict:
+    """K5 (``dw_act_dx_s2``) against its exact oracle: dx equals
+    ``where(x·sc + bi > 0, da, 0)·sc`` in x's dtype, da K8
+    (``dw_conv_dx_s2``) run in f32 on g and the taps, with a difference of
+    0; its dx and its sums repeat bit for bit in a second run.  Returns the
+    row's fields: the difference and the plan (``plan_act_dx_s2``)."""
+    da = dw_conv.dw_conv_dx_s2(g.float(), w.float(), x.shape[2:4])
+    ref = (torch.where(x.float() * sc + bi > 0, da, 0) * sc).to(x.dtype)
+    del da
+    dx1, red1 = dw_act.dw_act_dx(g, x, w, sc, bi, 2)
+    dx2, red2 = dw_act.dw_act_dx(g, x, w, sc, bi, 2)
+    torch.cuda.synchronize()
+    diff = (dx1.float() - ref.float()).abs().max().item()
+    repeats = torch.equal(dx1, dx2) and torch.equal(red1, red2)
+    what = f"dw_act_dx_s2 {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: dx differs from the exact oracle by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row_s2(dw_conv, "dw_act_dx_s2", tuple(x.shape),
+                                 dtype)}
+
+
+def _act_wgrad_exact(dw_act, dw_conv, x, g, sc, bi, dtype) -> dict:
+    """K6 act (``dw_act_wgrad_s1``) against its exact oracle: dk equals K6
+    plain (``dw_conv_wgrad_s1``: the same plan, ``plan_s1``, and the same
+    ``torch.sum`` of the rows) on the activated x, ``relu(x·sc + bi)``
+    rounded to x's dtype, with a difference of 0; it repeats bit for bit.
+    Returns the row's fields: the difference and the plan."""
+    ref = dw_conv.dw_conv_wgrad(dw_act._activate(x, sc, bi), g, 1)
+    dk1 = dw_act.dw_act_wgrad(x, g, sc, bi, 1)
+    dk2 = dw_act.dw_act_wgrad(x, g, sc, bi, 1)
+    torch.cuda.synchronize()
+    diff = (dk1 - ref).abs().max().item()
+    repeats = torch.equal(dk1, dk2)
+    what = f"dw_act_wgrad_s1 {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: dk differs from K6 plain on the activated x "
+                     f"by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row(dw_conv, tuple(x.shape), dtype,
+                              ("act_wgrad",))}
+
+
 def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
     """The six train kernels against their plain versions, and timed, at
     the coarse train step's entry shapes and at the fine stream's in
-    long-cycle phase D; K3 also against its exact oracle
-    (:func:`_act_dx_exact`)."""
+    long-cycle phase D; K3, K5 and K6 act also against their exact oracles
+    (:func:`_act_dx_exact`, :func:`_act_dx_s2_exact`,
+    :func:`_act_wgrad_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     per_kernel = {f"dw_act{p}_s{s}": _agg() for p in ("", "_dx", "_wgrad")
                   for s in (1, 2)}
@@ -797,9 +861,14 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
                     (n_x + n_g) * esz + vec + 27 * c * 4,
                     2 * 27 * n_g + 3 * n_x),
             }
-            extra = ({"dw_act_dx_s1": _act_dx_exact(
-                dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi, dtype)}
-                if s == 1 else None)
+            if s == 1:
+                extra = {"dw_act_dx_s1": _act_dx_exact(
+                    dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi, dtype),
+                    "dw_act_wgrad_s1": _act_wgrad_exact(
+                        dw_act, dw_conv, x, g, sc, bi, dtype)}
+            else:
+                extra = {"dw_act_dx_s2": _act_dx_s2_exact(
+                    dw_act, dw_conv, g, x, w, sc, bi, dtype)}
             _hold_and_time("kernels", cases, {"entry": label,
                                               "x": [b, t, h, h, c],
                                               "stride": s},
@@ -1147,13 +1216,9 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
 
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
-        profiled = _profile_step(one_step, ("dw_mm_act_kernel",
-                                            "mm_fwd_s1_kernel",
-                                            "act_dx_s1_kernel",
-                                            "mm_dx_s1_kernel", "dx_s2_kernel",
-                                            "wgrad_kernel",
-                                            "stencil_fwd_kernel",
-                                            "stencil_dk_kernel"), mods)
+        profiled = _profile_step(one_step, ACT_FUNCS + (
+            "mm_fwd_s1_kernel", "mm_dx_s1_kernel", "dx_s2_kernel",
+            "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -1355,20 +1420,22 @@ def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
         agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
 
 
-def _plan_row(dw_conv, shape, dtype) -> dict:
-    """The stride-1 kernels' work split at x ``shape`` and what the card
-    makes of it: blocks per SM (the occupancy API) and waves, forward and
-    weight gradient."""
+def _plan_row(dw_conv, shape, dtype, keys=("fwd", "wgrad")) -> dict:
+    """The stride-1 kernels' work split (``plan_s1``) at x ``shape`` and
+    what the card makes of it for each of ``keys``: blocks per SM (the
+    occupancy API) and waves of the forward (K1 plain), the weight gradient
+    (K6 plain) or the act weight gradient (K6 act, ``act_wgrad``)."""
     p = dw_conv.plan_s1(*shape)
     lib = dw_conv.LIBRARY.build()
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
     row = {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
            "rows": p.rows, "threads": p.threads}
-    for wg, blocks in ((0, p.items * p.n_pg), (1, p.rows * p.n_pg)):
-        key = "wgrad" if wg else "fwd"
-        occ = lib.dw_plain_s1_occupancy(wg, p.r, p.wb, p.pg, bf16)
+    for key in keys:
+        kind = ("fwd", "wgrad", "act_wgrad").index(key)
+        blocks = (p.rows if kind else p.items) * p.n_pg
+        occ = lib.dw_plain_s1_occupancy(kind, p.r, p.wb, p.pg, bf16)
         check(occ > 0, f"plan {shape} {dtype}: {key} does not fit ({occ})")
-        row[key] = {"blocks": blocks, "smem": p.smem(esz, wg),
+        row[key] = {"blocks": blocks, "smem": p.smem(esz, kind > 0),
                     "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
     return row
 
@@ -1380,13 +1447,15 @@ def _waves(blocks: int, per_sm: int) -> float:
 
 def _plan_row_s2(dw_conv, name, shape, dtype) -> dict:
     """The work split of stride-2 kernel ``name`` at x ``shape`` (over the
-    output's rows and columns; the dx's over g's): its blocks (K4 plain and
-    K8: one per tile; K10 plain: its persistent grid), shared memory,
+    output's rows and columns; the dx's over g's): its blocks (K4 plain, K8
+    and K5: one per tile; K10 plain: its persistent grid), shared memory,
     blocks per SM and waves."""
     kind, plan, smem = {
         "dw_conv_s2": (0, dw_conv.plan_s2_fwd, dw_conv.smem_s2_fwd),
         "dw_conv_dx_s2": (1, dw_conv.plan_s2_dx, dw_conv.smem_s2_dx),
-        "dw_conv_wgrad_s2": (2, dw_conv.plan_s2, dw_conv.smem_s2)}[name]
+        "dw_conv_wgrad_s2": (2, dw_conv.plan_s2, dw_conv.smem_s2),
+        "dw_act_dx_s2": (3, dw_conv.plan_act_dx_s2,
+                         dw_conv.smem_act_dx_s2)}[name]
     p = plan(*shape)
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
     occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(kind, p.r, p.wb,
@@ -1950,10 +2019,8 @@ def phase_fine_train(mods) -> dict:
         ours = (("plain_fwd_kernel", "plain_wgrad_kernel",
                  "plain_s2_fwd_kernel", "plain_s2_dx_kernel",
                  "plain_s2_wgrad_kernel")
-                if splits > 1 else
-                ("dw_mm_act_kernel", "act_dx_s1_kernel", "dx_s2_kernel",
-                 "wgrad_kernel")) + ("stencil_fwd_kernel",
-                                     "stencil_dk_kernel")
+                if splits > 1 else ACT_FUNCS) + ("stencil_fwd_kernel",
+                                                 "stencil_dk_kernel")
 
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
@@ -2304,7 +2371,9 @@ def main() -> int:
             "library_ms": agg.get("library_ms"),
             **({"unfused_ms": agg["unfused_ms"]}
                if path in ("serve", "train", "mm_train") else {}),
-            **({"nearest_call_ms": agg["nearest_ms"]}
+            **({"nearest_call_ms": agg["nearest_ms"],
+                "phase_d_ms": agg["phase_d_ms"],
+                "phase_d_bound_ms": agg["phase_d_bound_ms"]}
                if path in ("train", "mm_train") else {}),
             "timed_at": timed_at[path]})
     check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")

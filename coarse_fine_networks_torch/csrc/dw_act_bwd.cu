@@ -1,54 +1,53 @@
-// Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a):
+// Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a): the
+// entries not yet on the row-strip layout.
 //
 //     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )          (act)
 //     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
 //
 // x (B,T,H,W,C) is the conv1 output (mm mode: conv1's input (B,T,H,W,Cin),
-// W1 (Cin,C)),
-// channels-last, f32 or bf16; the depthwise taps w (27,C) have x's dtype;
-// sc/bi are bn1's f32 per-channel apply vectors from the batch statistics. g
-// is dL/dy (y's shape and dtype).
+// W1 (Cin,C)), channels-last, f32 or bf16; the depthwise taps w (27,C) have
+// x's dtype; sc/bi are bn1's f32 per-channel apply vectors from the batch
+// statistics. g is dL/dy (y's shape and dtype).
 //
-// Six kernel entries, each replacing a TPU Pallas kernel of
+// Four kernel entries, each replacing a TPU Pallas kernel of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
-// dw_fold4_act, _dw_act_bwd, with CFN_ACT_DX_KERNEL on; mm mode: the
-// backward of the train composite dw_fold4_mm_bn_train,
-// _mm_bn_train_bwd, and of the eval entry dw_fold4_mm_act, _dw_mm_bwd):
-//   * dw_act_dx_s2      <- _dx_s2_act_pcall -> _dx_s2_kernel(actmask) (K5)
+// dw_fold4_act, _dw_act_bwd; mm mode: the backward of the train composite
+// dw_fold4_mm_bn_train, _mm_bn_train_bwd, and of the eval entry
+// dw_fold4_mm_act, _dw_mm_bwd):
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
-//   * dw_act_wgrad_s1   <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (act mode)
-//   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode)
-//   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode)
-//   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode)
+//   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode,
+//                          K10 act)
+//   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode,
+//                          K6 mm)
+//   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode,
+//                          K10 mm)
 // (the plain mode, the backward of dw_fold4 and dw_fold4_stride2, is in
-// dw_plain_s1.cu and dw_plain_s2.cu; the stride-1 dx of both modes, K3 and
-// K2, in dw_dx_s1.cu).
+// dw_plain_s1.cu and dw_plain_s2.cu, and so are the act mode's stride-2 dx
+// K5 and stride-1 weight gradient K6 act; the stride-1 dx of both modes, K3
+// and K2, is in dw_dx_s1.cu).
 //
 // dx:    da  = dL/da: at stride 2 the half-resolution gather
 //              da[t,r,c] = sum w[dt,dy,dx] g[t-dt+1, (r-dy+1)/2, (c-dx+1)/2]
 //              over the terms whose divisions are integral (dw_fold.py:825);
-//        dam = da * 1[x*sc + bi > 0], the mask compared in f32 with x*sc and
-//              + bi each rounded (no fused multiply-add), as PyTorch's two
-//              elementwise ops round them: kernel, plain version and the
-//              forward's activation take the same relu branch even for
-//              inputs within one rounding of 0 (at 3.5e8 elements a few
-//              dozen are, and a flipped mask is an O(1) error in dx);
-//        out: dx = dam*sc in x's dtype, and per block the f32 partial sums
-//             (sum dam*x, sum dam) per channel -> (dsc, dbi).
-//        mm mode: dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype, nothing
-//             else; the mask recomputes conv1's product per output position
-//             with the forward's prologue (mm_prologue, common.cuh), the
-//             same sum in the same order and the same rounded apply.
+//        dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype: the mask
+//              recomputes conv1's product per output position with the
+//              forward's prologue (mm_prologue, common.cuh), the same sum in
+//              the same order and the same apply, x*sc and + bi each rounded
+//              (no fused multiply-add), as PyTorch's two elementwise ops
+//              round them: mask and forward take the same relu branch even
+//              for inputs within one rounding of 0 (a flipped mask is an
+//              O(1) error in dx).
 // wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
 //        rounded, zero-padded activation as the forward (mm mode: the
 //        forward's prologue over the halo), summed in f32; per block an f32
 //        partial (27, C).
 //
-// Reductions: no atomics. Each block writes its partial sums to its own row
-// of a (rows, k, C) buffer after a fixed-order sum over its warps; the
-// wrapper sums the rows with one torch.sum, so runs repeat bit for bit.
+// Reductions: no atomics. Each weight-gradient block writes its partial
+// sums to its own row of a (rows, 27, C) buffer after a fixed-order sum over
+// its warps; the wrapper sums the rows with one torch.sum, so runs repeat
+// bit for bit.
 //
-// What bounds them on this card: bytes. dx reads g and x and writes dx
+// What bounds them on this card: bytes. dx reads g and x and writes dam
 // (27 MACs per element); wgrad reads x and g (27 MACs per element). Both sit
 // far below the ~295 operations per byte where the H100's tensor cores
 // would become the limit, and the stencil's MACs run on the FP32 cores. The
@@ -59,13 +58,13 @@
 // What the design does about it: the layout of dw_mm_act.cu's stride-2
 // entry. A block owns (frame segment, spatial tile, 32-channel chunk),
 // walks its frames in order, and keeps the three frames its stencil reads
-// (g for dx, the activated x for wgrad) in a shared-memory ring, so each frame is read once
-// per tile plus a halo. Each lane owns one channel: ring reads are
-// conflict-free, loads and stores of channels-last tensors are contiguous
-// along C. Loads are per element because C = 54, 108, ... is no multiple of
-// 8 (mm mode stages x with 16-byte loads, Cin % 8 == 0). The activation,
-// the mask and both reductions are fused in, so neither a nor da (nor, in
-// mm mode, conv1's C-wide product) ever goes to device memory.
+// (g for dx, the activated x for wgrad) in a shared-memory ring, so each
+// frame is read once per tile plus a halo. Each lane owns one channel: ring
+// reads are conflict-free, loads and stores of channels-last tensors are
+// contiguous along C. Loads are per element because C = 54, 108, ... is no
+// multiple of 8 (mm mode stages x with 16-byte loads, Cin % 8 == 0). The
+// activation, the mask and the reduction are fused in, so neither a nor da
+// (nor, in mm mode, conv1's C-wide product) ever goes to device memory.
 
 #include "common.cuh"
 
@@ -73,15 +72,15 @@ namespace {
 
 using namespace cfn;
 
-constexpr int TT_DX = 8;  // frames per block, dx
-constexpr int TT_WG = 16; // frames per block, wgrad (fewer partial rows)
+constexpr int TT_DX = 8;   // frames per block, dx
+constexpr int TT_WG = 16;  // frames per block, wgrad (fewer partial rows)
 
 // act: the prologue relu(x*sc + bi); mm: relu((x@W1)*sc + bi)
 enum Mode { ACT, MM };
 
 // ---- geometry ---------------------------------------------------------------
-// dx at stride 1 and both wgrads use StencilGeom<S> (common.cuh), the
-// forward's tiles, over the stencil's output resolution.
+// The weight gradients use StencilGeom<S> (common.cuh), the forward's
+// tiles, over the stencil's output resolution.
 template <int S> using SGeom = StencilGeom<S>;
 
 // Stride-2 dx: an OH x OW tile of full-resolution dx; g rows (r-dy+1)/2 for
@@ -121,20 +120,8 @@ __device__ __forceinline__ void load_frame(float* slot, const T* src, int b,
   }
 }
 
-// The dx epilogue at one position: mask, scale, store, accumulate (dsc, dbi).
-template <typename T>
-__device__ __forceinline__ void dx_epilogue(float acc, const T* x, T* dx,
-                                            size_t idx, float scv, float biv,
-                                            float& r0, float& r1) {
-  const float xv = to_f(x[idx]);
-  const float dam = bn_apply(xv, scv, biv) > 0.f ? acc : 0.f;
-  dx[idx] = from_f<T>(dam * scv);
-  r0 = fmaf(dam, xv, r0);
-  r1 += dam;
-}
-
-// The ring of three frames of P positions, reused at the end for the warps'
-// partial sums (K per lane and warp), in floats.
+// The weight gradient's ring of three frames of P positions, reused at the
+// end for the warps' partial sums (K per lane and warp), in floats.
 template <int K, int P>
 __host__ __device__ constexpr int ring_floats() {
   return 3 * P * CC > WARPS * K * CC ? 3 * P * CC : WARPS * K * CC;
@@ -159,22 +146,21 @@ __device__ __forceinline__ void block_partials(float* red, const float* v,
   }
 }
 
-// ---- dx, stride (1,2,2) --------------------------------------------------------
-// g is (B,T,Ho,Wo,C), dx (B,T,H,W,C), Ho = (H-1)/2 + 1. ACT (x (B,T,H,W,C)):
-// the epilogue masks, scales and reduces; MM (x (B,T,H,W,Cin), w1 (Cin,C),
-// part unused): dx = dam in g's dtype.
-template <typename T, int MODE>
+// ---- masked dx, stride (1,2,2) (mm mode) ----------------------------------------
+// g is (B,T,Ho,Wo,C), dam (B,T,H,W,C), Ho = (H-1)/2 + 1; x (B,T,H,W,Cin) and
+// w1 (Cin,C): dam = da where the recomputed relu input is > 0, in g's dtype.
+template <typename T>
 __global__ void __launch_bounds__(WARPS * 32)
 dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
              const T* __restrict__ w1, const T* __restrict__ wdw,
              const float* __restrict__ sc, const float* __restrict__ bi,
-             T* __restrict__ dx, float* __restrict__ part, int Tn, int H,
-             int W, int Ho, int Wo, int Cin, int C, int n_tx, int n_tseg) {
+             T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
+             int Cin, int C, int n_tx, int n_tseg) {
   using G = GGeom;
   constexpr int NP = G::OH * G::OW;  // the mask's positions: the outputs
   extern __shared__ __align__(16) float ring[];  // [3][P][CC]
-  float* xs = ring + ring_floats<2, G::P>();     // mm: [NP][KC]
-  float* ws = xs + NP * KC;                      // mm: [KC][CC]
+  float* xs = ring + 3 * G::P * CC;              // [NP][KC]
+  float* ws = xs + NP * KC;                      // [KC][CC]
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int r0 = (blockIdx.x / n_tx) * G::OH;  // even
   const int q0 = (blockIdx.x % n_tx) * G::OW;  // even
@@ -195,7 +181,6 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
         ring + slot_of(ti) * G::P * CC, g, b, ti, Tn, Ho, Wo, C, r0 / 2,
         q0 / 2, c, cval, 0.f, 0.f);
   };
-  float r[2] = {0.f, 0.f};
   load(t0 - 1);
   load(t0);
   for (int t = t0; t < t1; ++t) {
@@ -203,10 +188,9 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
     // output j of this warp is mask position j: both are warp + j*WARPS;
     // positions past H or W (the ragged edge of odd sizes) are masked off
     float keep[G::NO];
-    if constexpr (MODE == MM)
-      mm_prologue<T, true, NP, G::OW, G::NO>(
-          keep, xs, ws, x + (size_t)(b * Tn + t) * H * W * Cin, w1, H, W,
-          Cin, C, c0, r0, q0, scv, biv);
+    mm_prologue<T, true, NP, G::OW, G::NO>(
+        keep, xs, ws, x + (size_t)(b * Tn + t) * H * W * Cin, w1, H, W, Cin,
+        C, c0, r0, q0, scv, biv);
     __syncthreads();
     // tap dt reads g frame t - dt + 1
     const float* fr[3] = {ring + slot_of(t + 1) * G::P * CC,
@@ -234,17 +218,11 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
       const int gy = r0 + oy, gx = q0 + ox;
       if (cval && gy < H && gx < W) {
         const size_t idx = (((size_t)(b * Tn + t) * H + gy) * W + gx) * C + c;
-        if constexpr (MODE == ACT)
-          dx_epilogue(acc, x, dx, idx, scv, biv, r[0], r[1]);
-        else
-          dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
+        dx[idx] = from_f<T>(keep[j] != 0.f ? acc : 0.f);
       }
     }
     __syncthreads();
   }
-  if constexpr (MODE == ACT)
-    block_partials<2>(ring, r, part,
-                      (size_t)blockIdx.z * gridDim.x + blockIdx.x, C, c, cval);
 }
 
 // ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
@@ -343,21 +321,19 @@ constexpr size_t smem_bytes(size_t ring, int np) {
   return sizeof(float) * (ring + (MODE == MM ? np * KC + KC * CC : 0));
 }
 
-template <typename T, int MODE>
+template <typename T>
 int launch_dx_s2(const void* g, const void* x, const void* w1, const void* w,
-                 const void* sc, const void* bi, void* dx, void* part, int B,
-                 int Tn, int H, int W, int Cin, int C, cudaStream_t st) {
+                 const void* sc, const void* bi, void* dx, int B, int Tn,
+                 int H, int W, int Cin, int C, cudaStream_t st) {
   using G = GGeom;
-  constexpr size_t smem =
-      smem_bytes<MODE>(ring_floats<2, G::P>(), G::OH * G::OW);
-  if (int e = set_smem(dx_s2_kernel<T, MODE>, smem)) return e;
+  constexpr size_t smem = smem_bytes<MM>(3 * G::P * CC, G::OH * G::OW);
+  if (int e = set_smem(dx_s2_kernel<T>, smem)) return e;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
   const dim3 grid(cdiv(H, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  dx_s2_kernel<T, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
+  dx_s2_kernel<T><<<grid, dim3(32, WARPS), smem, st>>>(
       (const T*)g, (const T*)x, (const T*)w1, (const T*)w, (const float*)sc,
-      (const float*)bi, (T*)dx, (float*)part, Tn, H, W, Ho, Wo, Cin, C, n_tx,
-      n_tseg);
+      (const float*)bi, (T*)dx, Tn, H, W, Ho, Wo, Cin, C, n_tx, n_tseg);
   return (int)cudaGetLastError();
 }
 
@@ -383,15 +359,12 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // after the launch: 0 means the kernel was launched. The partial buffers
 // have the row counts of dw_act_partial_rows.
 
-// Rows of the partial-sum buffer of each entry, in the order dx_s2,
-// wgrad_s1, wgrad_s2 (the mm-mode weight gradients have the act mode's
-// rows).
+// Rows of the partial-sum buffer of each weight gradient: kind 1 at stride
+// 1, kind 2 at stride (1,2,2) (the mm mode has the act mode's rows).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
   switch (kind) {
-    case 0:
-      return cdiv(H, GGeom::OH) * cdiv(W, GGeom::OW) * B * cdiv(T, TT_DX);
     case 1:
       return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
              cdiv(T, TT_WG);
@@ -402,29 +375,6 @@ extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
     }
   }
   return -1;
-}
-
-extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
-                            const void* sc, const void* bi, void* dx,
-                            void* part, int B, int T, int H, int W, int C,
-                            int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16, ACT>(g, x, nullptr, w, sc, bi, dx, part,
-                                            B, T, H, W, C, C, st);
-  return launch_dx_s2<float, ACT>(g, x, nullptr, w, sc, bi, dx, part, B, T, H,
-                                  W, C, C, st);
-}
-
-extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
-                               const void* bi, void* part, int B, int T, int H,
-                               int W, int C, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1, ACT>(x, nullptr, g, sc, bi, part, B,
-                                               T, H, W, C, C, st);
-  return launch_wgrad<float, 1, ACT>(x, nullptr, g, sc, bi, part, B, T, H, W, C,
-                                     C, st);
 }
 
 extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
@@ -446,10 +396,10 @@ extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
                                 int C, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_dx_s2<__nv_bfloat16, MM>(g, x, w1, w, sc, bi, dam, nullptr, B,
-                                           T, H, W, Cin, C, st);
-  return launch_dx_s2<float, MM>(g, x, w1, w, sc, bi, dam, nullptr, B, T, H, W,
-                                 Cin, C, st);
+    return launch_dx_s2<__nv_bfloat16>(g, x, w1, w, sc, bi, dam, B, T, H, W,
+                                       Cin, C, st);
+  return launch_dx_s2<float>(g, x, w1, w, sc, bi, dam, B, T, H, W, Cin, C,
+                             st);
 }
 
 extern "C" int dw_mm_wgrad_s1(const void* x, const void* w1, const void* g,

@@ -70,8 +70,6 @@ namespace {
 
 using namespace cfn;
 
-constexpr int NT_DX = 192;  // threads per block at most (WB * PG)
-
 // act: x is conv1's output, the epilogue masks, scales and reduces; mm: x
 // is conv1's input, the mask is recomputed from conv1's product
 enum Mode { ACT, MM };

@@ -1,5 +1,6 @@
 // The plain depthwise 3x3x3 conv at stride 1 of the split-batch-norm
-// training route, and its weight gradient, for Hopper (sm_90a):
+// training route, its weight gradient, and the weight gradient of the act
+// training entry, for Hopper (sm_90a):
 //
 //   dw_conv_s1        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
 //                                   x[t+dt-1, h+dy-1, w+dx-1, c]
@@ -8,17 +9,23 @@
 //   dw_conv_wgrad_s1  dk[dt,dy,dx,c] = sum_{t,h,w} x_pad[t+dt, h+dy, w+dx, c]
 //                                      * g[t,h,w,c]
 //                     per block an f32 partial row (27, C)
+//   dw_act_wgrad_s1   the same sum over a_pad, a = relu(x*sc + bi) rounded
+//                     to x's dtype (x*sc and + bi rounded apart, as the
+//                     forward's act<T>), zero-padded after the activation;
+//                     sc/bi are bn1's f32 per-channel apply vectors
 //
 // x, y and g are channels-last (B,T,H,W,C), f32 or bf16; the taps k (27,C)
 // have x's dtype. Every sum is in f32; y is written in x's dtype.
 //
-// Replaces the plain mode of two TPU Pallas kernels of
+// Replaces the plain and act modes of two TPU Pallas kernels of
 // coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_conv_s1       <- _dw_fold4_pcall (:532) -> _fwd_kernel (:379),
 //                         plain mode (K1 plain), also the stride-1 dx of
 //                         _dw_fold4_bwd;
 //   * dw_conv_wgrad_s1 <- _dw_fold4_wgrad_pcall (:705) -> _wgrad_kernel
-//                         (:478), plain mode (K6 plain).
+//                         (:478), plain mode (K6 plain);
+//   * dw_act_wgrad_s1  <- the same, act mode (K6 act): the backward of
+//                         dw_fold4_act, _dw_act_bwd.
 // The fold4 lane layout is TPU mechanics and is not carried over.
 //
 // What bounds them on this card: bytes. The forward reads x once and
@@ -59,9 +66,17 @@
 //     group, then sums its threads' columns in a fixed order and writes one
 //     partial row; the wrapper adds the rows with one torch.sum, so runs
 //     repeat bit for bit and nothing uses atomics.
-// The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
-// count) is computed by the wrapper (ops/dw_conv.py:plan_s1) and checked
-// here; a plan the kernels do not take returns cudaErrorInvalidValue.
+//   * The act weight gradient is the same kernel body with a template flag
+//     (act_wgrad_s1_kernel beside plain_wgrad_kernel): each x pair is
+//     activated as it is read, and the x part of the ring is cleared to NaN,
+//     which the activation maps to 0, so the padding is the zero of a, not
+//     relu(bi), with no mask of rows and columns. Its sums equal K6 plain's
+//     on the activated x bit for bit; it costs (R+2)*3 pair activations per
+//     frame and thread, and the pair's sc and bi in registers.
+// The split (R, WB, PG, TT and, for the weight gradients, IPB and the row
+// count) is computed by the wrappers (ops/dw_conv.py:plan_s1, for all three)
+// and checked here; a plan the kernels do not take returns
+// cudaErrorInvalidValue.
 
 #include "strip.cuh"
 
@@ -168,11 +183,20 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 // frame ti is read, gr[j][r] holds g frame ti - 1 + j of row h0 + r (zero
 // outside [t0, t1) and the frame): x frame ti pairs with it through tap
 // dt = 2 - j. acc[tap] sums x * g over the thread's whole walk.
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                   float* __restrict__ part, int Tn, int H, int W, int C,
-                   Plan pl, int n_items, int ipb) {
+//
+// ACT (the act entry's weight gradient, K6 act): the stencil reads a =
+// relu(x*sc + bi) rounded to T, applied to each x pair as it is read (the
+// pair's sc and bi in registers). The x part of the ring is cleared to NaN,
+// not zero: rows and columns outside the frame are never copied, and act()
+// maps NaN to 0 (fmaxf returns its non-NaN operand), the zero padding of a,
+// where a zero x would read as relu(bi). Nothing else changes, so the sums
+// are K6 plain's on the activated x, in its order.
+template <typename T, int R, bool ACT>
+__device__ __forceinline__ void wgrad_body(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ sc, const float* __restrict__ bi,
+    float* __restrict__ part, int Tn, int H, int W, int C, const Plan& pl,
+    int n_items, int ipb) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -190,6 +214,19 @@ plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float acc[27][2];
 #pragma unroll
   for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+  // ACT: bn1's apply of the thread's pair (zero past C: act(0) = 0)
+  float2 scp = make_float2(0.f, 0.f), bip = make_float2(0.f, 0.f);
+  if constexpr (ACT) {
+    const int c = 2 * (pg * PG + pi);
+    if (c < C) {
+      scp.x = sc[c];
+      bip.x = bi[c];
+    }
+    if (c + 1 < C) {
+      scp.y = sc[c + 1];
+      bip.y = bi[c + 1];
+    }
+  }
 
   const int row = blockIdx.x;
   const int it1 = min((row + 1) * ipb, n_items);
@@ -219,7 +256,22 @@ plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
       for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
 
-    zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
+    if constexpr (ACT) {
+      // each slot's x frame NaN, its g frame zero (16-byte words)
+      const uint4 nan4 = sizeof(T) == 4
+                             ? make_uint4(0x7fc00000u, 0x7fc00000u,
+                                          0x7fc00000u, 0x7fc00000u)
+                             : make_uint4(0x7fc07fc0u, 0x7fc07fc0u,
+                                          0x7fc07fc0u, 0x7fc07fc0u);
+      const int xw = xstage * (int)sizeof(T) / 16;
+      const int sw = stage * (int)sizeof(T) / 16;
+      for (int q = tid; q < NSTAGE * sw; q += blockDim.x)
+        reinterpret_cast<uint4*>(smem_raw)[q] =
+            q % sw < xw ? nan4 : make_uint4(0, 0, 0, 0);
+      __syncthreads();
+    } else {
+      zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
+    }
     for (int i = 0; i < NSTAGE - 1; ++i) load(i);
     for (int i = 0; i < nf; ++i) {
       cp_wait<NSTAGE - 2>();
@@ -246,6 +298,13 @@ plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
               const int tap = ((2 - j) * 3 + dy) * 3 + dx;
               acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
               acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+            },
+            [&](float2 v) {  // ACT: a as the forward computes it
+              if constexpr (ACT)
+                return make_float2(act<T>(v.x, scp.x, bip.x),
+                                   act<T>(v.y, scp.y, bip.y));
+              else
+                return v;
             });
     }
     cp_wait<0>();
@@ -271,6 +330,25 @@ plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     for (int q = 0; q < WB; ++q) sum += red[(tap * WB + q) * PG2 + s];
     part[((size_t)row * 27 + tap) * C + ch] = sum;
   }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                   float* __restrict__ part, int Tn, int H, int W, int C,
+                   Plan pl, int n_items, int ipb) {
+  wgrad_body<T, R, false>(x, g, nullptr, nullptr, part, Tn, H, W, C, pl,
+                          n_items, ipb);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+act_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ sc,
+                    const float* __restrict__ bi, float* __restrict__ part,
+                    int Tn, int H, int W, int C, Plan pl, int n_items,
+                    int ipb) {
+  wgrad_body<T, R, true>(x, g, sc, bi, part, Tn, H, W, C, pl, n_items, ipb);
 }
 
 // ---- launchers -----------------------------------------------------------------
@@ -309,6 +387,15 @@ decltype(&plain_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
   }
   return nullptr;
 }
+template <typename T>
+decltype(&act_wgrad_s1_kernel<T, RMAX>) act_wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return act_wgrad_s1_kernel<T, 2>;
+    case 3: return act_wgrad_s1_kernel<T, 3>;
+    case 4: return act_wgrad_s1_kernel<T, 4>;
+  }
+  return nullptr;
+}
 
 template <typename T>
 int launch_fwd(const void* x, const void* k, void* y, int B, int Tn, int H,
@@ -327,10 +414,13 @@ int launch_fwd(const void* x, const void* k, void* y, int B, int Tn, int H,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
-                 int H, int W, int C, int R, int WB, int PG, int TT, int ipb,
-                 int rows, cudaStream_t st) {
+// The weight gradient of x (plain) or of relu(x*sc + bi) (ACT; sc and bi
+// unused otherwise).
+template <typename T, bool ACT>
+int launch_wgrad(const void* x, const void* g, const void* sc,
+                 const void* bi, void* part, int B, int Tn, int H, int W,
+                 int C, int R, int WB, int PG, int TT, int ipb, int rows,
+                 cudaStream_t st) {
   Plan p;
   if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, Tn, H, W, C, R, WB, PG,
                     TT) ||
@@ -341,37 +431,40 @@ int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
   if (rows < 1 || (long long)rows * ipb < items ||
       (long long)(rows - 1) * ipb >= items)
     return (int)cudaErrorInvalidValue;
-  const auto kern = wgrad_kernel_of<T>(R);
   const size_t smem = wgrad_smem<T>(R, WB, PG);
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<float*>(part), Tn, H, W, C, p, (int)items, ipb);
+  const dim3 grid(rows, p.n_pg);
+  if constexpr (ACT) {
+    const auto kern = act_wgrad_kernel_of<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<grid, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<const float*>(sc), static_cast<const float*>(bi),
+        static_cast<float*>(part), Tn, H, W, C, p, (int)items, ipb);
+  } else {
+    const auto kern = wgrad_kernel_of<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<grid, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<float*>(part), Tn, H, W, C, p, (int)items, ipb);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int occupancy(int wgrad, int R, int WB, int PG) {
+int occupancy(int kind, int R, int WB, int PG) {
   if (R < RMIN || R > RMAX || WB * PG > NT_MAX) return -1;
   const int threads = (WB * PG + 31) / 32 * 32;
-  int n = -1;
-  cudaError_t e;
-  if (wgrad) {
-    const auto kern = wgrad_kernel_of<T>(R);
-    const size_t smem = wgrad_smem<T>(R, WB, PG);
-    e = (cudaError_t)set_smem(kern, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
-                                                        smem);
-  } else {
-    const auto kern = fwd_kernel<T>(R);
-    const size_t smem = fwd_smem<T>(R, WB, PG);
-    e = (cudaError_t)set_smem(kern, smem);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
-                                                        smem);
+  switch (kind) {
+    case 0:
+      return blocks_per_sm(fwd_kernel<T>(R), fwd_smem<T>(R, WB, PG), threads);
+    case 1:
+      return blocks_per_sm(wgrad_kernel_of<T>(R), wgrad_smem<T>(R, WB, PG),
+                           threads);
+    case 2:
+      return blocks_per_sm(act_wgrad_kernel_of<T>(R),
+                           wgrad_smem<T>(R, WB, PG), threads);
   }
-  return e == cudaSuccess ? n : -1;
+  return -1;
 }
 
 }  // namespace
@@ -397,17 +490,35 @@ extern "C" int dw_conv_wgrad_s1(const void* x, const void* g, void* part,
                                 int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16>(x, g, part, B, T, H, W, C, R, WB, PG,
-                                       TT, ipb, rows, st);
-  return launch_wgrad<float>(x, g, part, B, T, H, W, C, R, WB, PG, TT, ipb,
-                             rows, st);
+    return launch_wgrad<__nv_bfloat16, false>(x, g, nullptr, nullptr, part,
+                                              B, T, H, W, C, R, WB, PG, TT,
+                                              ipb, rows, st);
+  return launch_wgrad<float, false>(x, g, nullptr, nullptr, part, B, T, H, W,
+                                    C, R, WB, PG, TT, ipb, rows, st);
 }
 
-// Blocks per SM the two kernels reach at a plan (R, WB, PG), with its
-// threads and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-// or -1 where the kernels do not take it.
-extern "C" int dw_plain_s1_occupancy(int wgrad, int R, int WB, int PG,
+// The act entry's weight gradient (K6 act): dk of a = relu(x*sc + bi)
+// rounded to x's dtype, zero-padded; sc and bi are f32 (C,). The split and
+// part are dw_conv_wgrad_s1's.
+extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
+                               const void* bi, void* part, int B, int T,
+                               int H, int W, int C, int R, int WB, int PG,
+                               int TT, int ipb, int rows, int is_bf16,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, true>(x, g, sc, bi, part, B, T, H, W,
+                                             C, R, WB, PG, TT, ipb, rows, st);
+  return launch_wgrad<float, true>(x, g, sc, bi, part, B, T, H, W, C, R, WB,
+                                   PG, TT, ipb, rows, st);
+}
+
+// Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads
+// and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
+// where it does not take the plan; kind 0 is the forward, 1 the weight
+// gradient, 2 the act weight gradient.
+extern "C" int dw_plain_s1_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
-  return is_bf16 ? occupancy<__nv_bfloat16>(wgrad, R, WB, PG)
-                 : occupancy<float>(wgrad, R, WB, PG);
+  return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)
+                 : occupancy<float>(kind, R, WB, PG);
 }

@@ -11,19 +11,27 @@
 //   dw_conv_wgrad_s2  dk[dt,dy,dx,c] = sum_{t,h,w} x_pad[t+dt, 2h+dy, 2w+dx, c]
 //                                      * g[t,h,w,c]
 //                     per block an f32 partial row (27, C)
+//   dw_act_dx_s2      the act training entry's dx: da as dw_conv_dx_s2's,
+//                     dam = da * 1[x*sc + bi > 0] (x*sc and + bi rounded
+//                     apart, as the forward's activation), dx = dam*sc in
+//                     x's dtype, and per block the f32 partial sums
+//                     (sum dam*x, sum dam) per channel -> (dsc, dbi)
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
 // x_pad is x zero-padded by one on T, H and W. Every sum is in f32; y and dx
 // are written in the input's dtype.
 //
-// Replaces the plain mode of three TPU Pallas kernels of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+// Replaces the plain mode of three TPU Pallas kernels, and the act mode of
+// one, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_conv_s2       <- _fwd_s2_direct_pcall (:1078) ->
 //                         _fwd_s2_direct_kernel (:1035), plain mode
 //                         (K4 plain);
 //   * dw_conv_dx_s2    <- _dx_s2_pcall (:1208) -> _dx_s2_kernel (:888),
 //                         plain mode (K8);
+//   * dw_act_dx_s2     <- _dx_s2_act_pcall (:660) -> _dx_s2_kernel (:888),
+//                         act mode (K5): the backward of dw_fold4_act,
+//                         _dw_act_bwd;
 //   * dw_conv_wgrad_s2 <- _wgrad_s2_pcall (:1279) -> _wgrad_s2_kernel
 //                         (:1122), plain mode (K10 plain).
 // The fold4 lane layout, its even/odd de-interleave and the sublane-pair
@@ -31,7 +39,8 @@
 //
 // What bounds them on this card: bytes. The forward reads x once and
 // writes y (a quarter of x) once; the dx reads g and writes dx (4x the
-// elements of g); the weight gradient reads x and g once. Each does 27 MACs
+// elements of g); the act dx also reads x and writes 2C sums per block; the
+// weight gradient reads x and g once. Each does 27 MACs
 // per element of y or g (the dx 6.75 per element of dx), far below the ~295
 // operations per byte where the tensor cores would matter.
 //
@@ -89,6 +98,19 @@
 //     K11 (dw_stencil_s1) adds them on g put at the even positions of a zero
 //     full-resolution tensor with the flipped taps: it equals that bit for
 //     bit.
+//   * The act dx (K5) is the same body with a template flag
+//     (act_s2_dx_kernel beside plain_s2_dx_kernel), so da equals K8's f32
+//     dx bit for bit, plus K3's epilogue (dw_dx_s1.cu): each thread stages
+//     by cp.async the x pairs of its own quads (2R rows x 2 columns) into a
+//     ring of XSTAGE = 3 frames, x frame o in the commit group of g frame
+//     o + 1, the last one dx frame o waits for, so x arrives with no barrier
+//     and no load on the step's path; masks (bn_apply, rounded apart),
+//     stores dx = dam*sc as a
+//     pair, and keeps (sum dam*x, sum dam) in registers over its walk; the
+//     block sums its threads' columns in a fixed order into its row of a
+//     partial buffer, added by the wrapper's one torch.sum (no atomics).
+//     At most NT_DX = 192 threads a block (plan_act_dx_s2), so a thread may
+//     hold 168 registers: K8's 114-125 plus the epilogue's state.
 //   * The weight gradient (K10 plain) keeps a register ring of g along T
 //     and its 27 x 2 sums in registers over the block's whole walk. Its
 //     grid is persistent: each block walks IPB consecutive work items
@@ -102,8 +124,8 @@
 //     fully unrolled and have no branch.
 // The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
 // count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
-// plan_s2_dx, plan_s2) and checked here; a plan the kernels do not take
-// returns cudaErrorInvalidValue.
+// plan_s2_dx, plan_act_dx_s2, plan_s2) and checked here; a plan the
+// kernels do not take returns cudaErrorInvalidValue.
 
 #include "strip.cuh"
 
@@ -111,7 +133,8 @@ namespace {
 
 using namespace cfn;
 
-constexpr int GSTAGE = 5;  // g frames in the dx kernel's ring
+constexpr int GSTAGE = 5;  // g frames in the dx kernels' ring
+constexpr int XSTAGE = 3;  // x frames in the act dx kernel's ring
 
 // One thread's share of staging a tile of output columns [w0, w0+WB): its
 // channel pair c at the de-interleaved staged columns even wl (input column
@@ -204,6 +227,42 @@ struct GStager {
   }
 };
 
+// One thread's share of staging the act dx's x: the pairs its own dx quads
+// read in the epilogue (dx columns 2j and 2j+1 of the 2R rows 2h0 ..
+// 2h0+2R-1), clipped to the frame, into [2R][2][WB][2PG] (row, column
+// parity, g column, pair). No other thread reads them.
+struct QuadStager {
+  int src0, src1, dst, C;
+  bool u0, u1, pairs, second;
+
+  __device__ __forceinline__ QuadStager(const Tile& tl, int wl, int pi,
+                                        int PG2, int W, int C_, bool pairs_)
+      : C(C_), pairs(pairs_) {
+    const int c = 2 * (tl.p0 + pi);
+    const int q = 2 * (tl.w0 + wl);  // dx column 2j
+    u0 = c < C && q < W;
+    u1 = c < C && q + 1 < W;
+    src0 = q * C + c;
+    src1 = src0 + C;
+    dst = wl * PG2 + 2 * pi;
+    second = c + 1 < C;
+  }
+
+  // rows [r0, r0 + nr) of frame f (H, W, C), clipped to the frame; a row
+  // of the slot is 2 * WB * PG2 elements, column parity 1 at + WB * PG2
+  template <typename T>
+  __device__ __forceinline__ void rows(T* slot, const T* f, int r0, int nr,
+                                       int H, int W, int half) const {
+    const int hi = min(r0 + nr, H);
+    for (int h = r0; h < hi; ++h) {
+      const T* s = f + (size_t)h * W * C;
+      T* d = slot + (h - r0) * 2 * half + dst;
+      if (u0) copy_pair(d, s + src0, pairs, second);
+      if (u1) copy_pair(d + half, s + src1, pairs, second);
+    }
+  }
+};
+
 // Elements of one staged x frame (2R+1 rows), of one g frame of the weight
 // gradient (R rows) and of one g frame of the dx (R+1 rows, WB+1 columns),
 // each padded to 16 bytes.
@@ -219,6 +278,13 @@ __host__ __device__ __forceinline__ int gstage_elems(int R, int WB, int PG) {
 template <typename T>
 __host__ __device__ __forceinline__ int dxstage_elems(int R, int WB, int PG) {
   return ((R + 1) * (WB + 1) * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 /
+         (int)sizeof(T);
+}
+// ... and of one x frame of the act dx (2R rows of 2WB own columns)
+template <typename T>
+__host__ __device__ __forceinline__ int quadstage_elems(int R, int WB,
+                                                        int PG) {
+  return (2 * R * 2 * WB * 2 * PG * (int)sizeof(T) + 15) / 16 * 16 /
          (int)sizeof(T);
 }
 
@@ -350,26 +416,41 @@ plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
   cp_wait<0>();
 }
 
-// ---- dx (K8) ----------------------------------------------------------------------
+// ---- dx (K8) and act dx (K5) ------------------------------------------------------
 // The tile is over g: thread (wl, pi) owns g column j = w0 + wl and channels
 // c, c+1, and writes dx columns 2j and 2j+1 of dx rows 2(h0+r) and
 // 2(h0+r)+1, r < R. Slot i % GSTAGE of the ring holds g frame f0 + i (rows
 // h0 .. h0+R, columns w0 .. w0+WB). dx frame o reads g frames o-1, o, o+1
 // (taps dt = 2, 1, 0) in slots i .. i+2, i = o - t0.
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
-                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
-                   int C, Plan pl) {
+//
+// ACT (the act entry's dx, K5): da is the sum above, then dam = da where
+// x*sc + bi > 0 (bn_apply), else 0; dx = dam*sc in x's dtype, and the
+// thread keeps (sum dam*x, sum dam) of its pair over the block's walk. x
+// frame o travels in commit group i + 2 with g frame o + 1 (x slot
+// (i + 2) % XSTAGE), each thread staging only the pairs of its own quads
+// (QuadStager): it has landed when step i's wait returns, and no barrier
+// is needed for it. At the end the block sums its threads' columns in a
+// fixed order into row `item` of the (items, 2, C) partial buffer.
+template <typename T, int R, bool ACT>
+__device__ __forceinline__ void dx_s2_body(
+    const T* __restrict__ g, const T* __restrict__ k,
+    const T* __restrict__ x, const float* __restrict__ sc,
+    const float* __restrict__ bi, T* __restrict__ dx,
+    float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
+    const Plan& pl) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
   const int PG2 = 2 * PG, rowlen = (WB + 1) * PG2;
   const int stage = dxstage_elems<T>(R, WB, PG);
+  // ACT: the x ring after the g ring
+  const int xstage = ACT ? quadstage_elems<T>(R, WB, PG) : 0;
+  T* xring = ring + GSTAGE * stage;
 
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
-  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int item = blk / pl.n_pg;
+  const Tile tl = pl.tile(item, pg, Tn);
   const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int j = tl.w0 + wl;
@@ -381,16 +462,39 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 
   float k0[27], k1[27];
   load_taps(k0, k1, k, c, C, live);
+  // ACT: bn1's apply of the pair, and (sum dam*x, sum dam) per channel
+  float sc0 = 0.f, bi0 = 0.f, sc1 = 0.f, bi1 = 0.f;
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+  if constexpr (ACT) {
+    if (live) {
+      sc0 = sc[c];
+      bi0 = bi[c];
+      if (second) {
+        sc1 = sc[c + 1];
+        bi1 = bi[c + 1];
+      }
+    }
+  }
 
   const size_t gframe = (size_t)Ho * Wo * C;
   const T* gb = g + (size_t)tl.b * Tn * gframe;
   const GStager sg(tl, wl, pi, WB, PG2, Wo, C, pl.pairs);
+  const size_t xframe = (size_t)H * W * C;
+  const T* xb = ACT ? x + (size_t)tl.b * Tn * xframe : nullptr;
+  const QuadStager sx(tl, wl, pi, PG2, W, C, pl.pairs);
+  const int half = WB * PG2;  // an x slot's column-parity stride
   const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // g frames
   auto load = [&](int i) {
     const int tg = f0 + i;
     if (i < nf && tg >= 0 && tg < Tn)  // uniform across the block
       sg.rows(ring + (i % GSTAGE) * stage, gb + (size_t)tg * gframe, tl.h0,
               R + 1, Ho, Wo, rowlen);
+    if constexpr (ACT) {
+      const int tx = tg - 1;  // the dx frame this group's step completes
+      if (tx >= tl.t0 && tx < tl.t1 && live)
+        sx.rows(xring + (i % XSTAGE) * xstage, xb + (size_t)tx * xframe,
+                2 * tl.h0, 2 * R, H, W, half);
+    }
     cp_commit();
   };
   // q[px][ch] of one dx row += the terms of g row values a (column j) and
@@ -406,7 +510,7 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
     q[1][1] = fmaf(k1[t0], b.y, q[1][1]);
   };
 
-  zero_ring(smem_raw, GSTAGE * stage * (int)sizeof(T));
+  zero_ring(smem_raw, (GSTAGE * stage + XSTAGE * xstage) * (int)sizeof(T));
   for (int i = 0; i < GSTAGE - 1; ++i) load(i);
   for (int o = tl.t0; o < tl.t1; ++o) {
     const int i = o - tl.t0;
@@ -446,6 +550,8 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
     if (live) {
       T* d = dx + ((size_t)tl.b * Tn + o) * H * W * C + c;
       const bool pair = second && !(C & 1);
+      // ACT: x frame o at the thread's quads
+      const T* xq = xring + ((i + 2) % XSTAGE) * xstage + sx.dst;
 #pragma unroll
       for (int r = 0; r < R; ++r)
 #pragma unroll
@@ -455,14 +561,73 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 #pragma unroll
           for (int px = 0; px < 2; ++px) {
             const int col = 2 * j + px;
-            if (col < W)
-              store_pair(d + ((size_t)row * W + col) * C, acc[r][py][px][0],
-                         acc[r][py][px][1], pair, second);
+            if (col >= W) continue;
+            T* dp = d + ((size_t)row * W + col) * C;
+            if constexpr (ACT) {
+              const float2 xv =
+                  load_pair(xq + (2 * r + py) * 2 * half + px * half);
+              const float d0 = bn_apply(xv.x, sc0, bi0) > 0.f
+                                   ? acc[r][py][px][0] : 0.f;
+              const float d1 = bn_apply(xv.y, sc1, bi1) > 0.f
+                                   ? acc[r][py][px][1] : 0.f;
+              store_pair(dp, d0 * sc0, d1 * sc1, pair, second);
+              sum[0][0] = fmaf(d0, xv.x, sum[0][0]);
+              sum[1][0] += d0;
+              sum[0][1] = fmaf(d1, xv.y, sum[0][1]);
+              sum[1][1] += d1;
+            } else {
+              store_pair(dp, acc[r][py][px][0], acc[r][py][px][1], pair,
+                         second);
+            }
           }
         }
     }
   }
   cp_wait<0>();
+
+  if constexpr (ACT) {
+    // fixed-order sum over the block's columns: red[q][wl][2PG], then slot
+    // (q, channel) adds its WB columns in order and writes row `item`
+    __syncthreads();  // the ring is read by no one
+    float* red = reinterpret_cast<float*>(smem_raw);
+    if (in) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        red[(q * WB + wl) * PG2 + 2 * pi] = sum[q][0];
+        red[(q * WB + wl) * PG2 + 2 * pi + 1] = sum[q][1];
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < 2 * PG2; e += blockDim.x) {
+      const int q = e / PG2, s = e % PG2;
+      const int ch = 2 * tl.p0 + s;
+      if (ch >= C) continue;
+      float v = 0.f;
+      for (int u = 0; u < WB; ++u) v += red[(q * WB + u) * PG2 + s];
+      part[((size_t)item * 2 + q) * C + ch] = v;
+    }
+  }
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
+                   int C, Plan pl) {
+  dx_s2_body<T, R, false>(g, k, nullptr, nullptr, nullptr, dx, nullptr, Tn,
+                          H, W, Ho, Wo, C, pl);
+}
+
+// At most NT_DX threads: the act epilogue's state (bn1's pair, the sums, x
+// pairs) beside K8's 54 taps and 8R sums needs more than 128 registers.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_DX, 2)
+act_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                 const T* __restrict__ x, const float* __restrict__ sc,
+                 const float* __restrict__ bi, T* __restrict__ dx,
+                 float* __restrict__ part, int Tn, int H, int W, int Ho,
+                 int Wo, int C, Plan pl) {
+  dx_s2_body<T, R, true>(g, k, x, sc, bi, dx, part, Tn, H, W, Ho, Wo, C, pl);
 }
 
 // ---- weight gradient (K10 plain) ------------------------------------------------
@@ -589,6 +754,14 @@ template <typename T>
 size_t dx_smem(int R, int WB, int PG) {
   return sizeof(T) * GSTAGE * dxstage_elems<T>(R, WB, PG);
 }
+// the act dx: the g ring, then the x ring; reused for the column sums
+template <typename T>
+size_t act_dx_smem(int R, int WB, int PG) {
+  const size_t ring = dx_smem<T>(R, WB, PG) +
+                      sizeof(T) * XSTAGE * quadstage_elems<T>(R, WB, PG);
+  const size_t red = sizeof(float) * 2 * WB * 2 * PG;
+  return ring > red ? ring : red;
+}
 template <typename T>
 size_t wgrad_smem(int R, int WB, int PG) {
   const size_t ring = sizeof(T) * NSTAGE *
@@ -613,6 +786,15 @@ decltype(&plain_s2_dx_kernel<T, RMAX>) dx_kernel_of(int R) {
     case 2: return plain_s2_dx_kernel<T, 2>;
     case 3: return plain_s2_dx_kernel<T, 3>;
     case 4: return plain_s2_dx_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&act_s2_dx_kernel<T, RMAX>) act_dx_kernel_of(int R) {
+  switch (R) {
+    case 2: return act_s2_dx_kernel<T, 2>;
+    case 3: return act_s2_dx_kernel<T, 3>;
+    case 4: return act_s2_dx_kernel<T, 4>;
   }
   return nullptr;
 }
@@ -648,6 +830,35 @@ int launch_tiles(const void* in, const void* k, void* out, int B, int Tn,
   return (int)cudaGetLastError();
 }
 
+// The act dx over g (B, T, Ho, Wo, C) of x (B, T, H, W, C): one block per
+// tile, at most NT_DX threads, and one partial row per work item.
+template <typename T>
+int launch_act_dx(const void* g, const void* x, const void* k,
+                  const void* sc, const void* bi, void* dx, void* part, int B,
+                  int Tn, int H, int W, int C, int R, int WB, int PG, int TT,
+                  int rows, cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over g's rows and columns; g and x are staged a pair at a time
+  if (!make_plan<T>(p, (uintptr_t)g | (uintptr_t)x, B, Tn, Ho, Wo, C, R, WB,
+                    PG, TT) ||
+      WB * PG > NT_DX)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_tseg * p.n_strip * p.n_wt;
+  if (items * p.n_pg > 0x7fffffff || rows != items)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = act_dx_smem<T>(R, WB, PG);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = act_dx_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<(unsigned)(items * p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(k),
+      static_cast<const T*>(x), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<T*>(dx),
+      static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
                  int H, int W, int C, int R, int WB, int PG, int TT, int ipb,
@@ -673,19 +884,11 @@ int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
   return (int)cudaGetLastError();
 }
 
-template <typename K>
-int blocks_per_sm(K kern, size_t smem, int threads) {
-  int n = -1;
-  cudaError_t e = (cudaError_t)set_smem(kern, smem);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
-                                                      smem);
-  return e == cudaSuccess ? n : -1;
-}
-
 template <typename T>
 int occupancy(int kind, int R, int WB, int PG) {
-  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || WB * PG > NT_MAX) return -1;
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 ||
+      WB * PG > (kind == 3 ? NT_DX : NT_MAX))
+    return -1;
   const int threads = (WB * PG + 31) / 32 * 32;
   switch (kind) {
     case 0:
@@ -696,6 +899,9 @@ int occupancy(int kind, int R, int WB, int PG) {
                            threads);
     case 2:
       return blocks_per_sm(wgrad_kernel_of<T>(R), wgrad_smem<T>(R, WB, PG),
+                           threads);
+    case 3:
+      return blocks_per_sm(act_dx_kernel_of<T>(R), act_dx_smem<T>(R, WB, PG),
                            threads);
   }
   return -1;
@@ -733,6 +939,23 @@ extern "C" int dw_conv_dx_s2(const void* g, const void* k, void* dx, int B,
                                    st);
 }
 
+// The act entry's dx (K5): g is (B,T,(H-1)/2+1,(W-1)/2+1,C), x and dx
+// (B,T,H,W,C), sc and bi f32 (C,); dx = dam*sc with dam = da where
+// x*sc + bi > 0, and part (rows, 2, C) f32 the (sum dam*x, sum dam) of each
+// work item (rows = the items of a channel group; WB * PG at most 192).
+extern "C" int dw_act_dx_s2(const void* g, const void* x, const void* w,
+                            const void* sc, const void* bi, void* dx,
+                            void* part, int B, int T, int H, int W, int C,
+                            int R, int WB, int PG, int TT, int rows,
+                            int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_act_dx<__nv_bfloat16>(g, x, w, sc, bi, dx, part, B, T, H,
+                                        W, C, R, WB, PG, TT, rows, st);
+  return launch_act_dx<float>(g, x, w, sc, bi, dx, part, B, T, H, W, C, R,
+                              WB, PG, TT, rows, st);
+}
+
 // x is (B,T,H,W,C), g (B,T,(H-1)/2+1,(W-1)/2+1,C); part is (rows, 27, C)
 // f32; block row r walks items [r*IPB, (r+1)*IPB).
 extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
@@ -750,7 +973,7 @@ extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and
 // shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
 // where it does not take the plan; kind 0 is the forward, 1 the dx, 2 the
-// weight gradient.
+// weight gradient, 3 the act dx.
 extern "C" int dw_plain_s2_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
   return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)

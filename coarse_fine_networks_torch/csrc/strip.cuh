@@ -1,12 +1,12 @@
-// The row-strip layout shared by the stride-1 plain kernels
-// (dw_plain_s1.cu), the stride-2 plain kernels (dw_plain_s2.cu), the
-// stride-1 mm forward (dw_mm_act.cu, mm_fwd_s1_kernel) and the stride-1
-// masked dx (dw_dx_s1.cu): a block owns R rows
-// x WB columns x PG channel pairs of one sample over TT frames; rows are
-// staged into shared memory by cp.async in the tensor's dtype; a thread owns
-// one channel pair at one column. The split is computed by the wrappers
-// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_s2, plan_mm_s1,
-// plan_act_dx_s1, plan_mm_dx_s1).
+// The row-strip layout shared by the stride-1 plain kernels and the act
+// weight gradient (dw_plain_s1.cu), the stride-2 plain kernels and the act
+// dx (dw_plain_s2.cu), the stride-1 mm forward (dw_mm_act.cu,
+// mm_fwd_s1_kernel) and the stride-1 masked dx (dw_dx_s1.cu): a block owns
+// R rows x WB columns x PG channel pairs of one sample over TT frames; rows
+// are staged into shared memory by cp.async in the tensor's dtype; a thread
+// owns one channel pair at one column. The split is computed by the wrappers
+// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_act_dx_s2,
+// plan_s2, plan_mm_s1, plan_act_dx_s1, plan_mm_dx_s1).
 
 #pragma once
 
@@ -15,6 +15,10 @@
 namespace cfn {
 
 constexpr int NT_MAX = 256;  // threads per block at most (WB * PG)
+// threads per block at most in the masked dx kernels (dw_dx_s1.cu, the act
+// dx of dw_plain_s2.cu): at two blocks per SM a sub-partition holds 3
+// warps, so a thread may hold 168 registers
+constexpr int NT_DX = 192;
 constexpr int RMIN = 2;      // output rows per strip: a template argument
 constexpr int RMAX = 4;      // in [RMIN, RMAX]
 constexpr int NSTAGE = 3;    // frames in the shared-memory ring
@@ -115,19 +119,25 @@ __host__ __device__ __forceinline__ int stage_elems(int rows, int WB, int PG) {
          (int)sizeof(T);
 }
 
+// A staged pair as read (the default of stencil_frame's transform)
+struct AsRead {
+  __device__ __forceinline__ float2 operator()(float2 v) const { return v; }
+};
+
 // The stencil of one staged input frame at the thread's column and channel
 // pair: for staged row rr (input row h0 - 1 + rr) and output row r with dy =
 // rr - r in [0, 2], the 3 taps dx of each dt meet the 3 neighbours. FN(j, r,
-// dy, dx, v) does one multiply-add; everything is unrolled, so the loop has
-// no branch and the shared-memory reads of a row can run ahead.
-template <typename T, int R, typename FN>
+// dy, dx, v) does one multiply-add on each pair v as TR maps it once read;
+// everything is unrolled, so the loop has no branch and the shared-memory
+// reads of a row can run ahead.
+template <typename T, int R, typename FN, typename TR = AsRead>
 __device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
-                                              int PG2, FN fn) {
+                                              int PG2, FN fn, TR tr = TR()) {
 #pragma unroll
   for (int rr = 0; rr < R + 2; ++rr) {
     const T* row = tile + rr * rowlen;
-    const float2 v[3] = {load_pair(row), load_pair(row + PG2),
-                         load_pair(row + 2 * PG2)};
+    const float2 v[3] = {tr(load_pair(row)), tr(load_pair(row + PG2)),
+                         tr(load_pair(row + 2 * PG2))};
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int dy = rr - r;
@@ -185,6 +195,7 @@ struct Stager {
       }
     }
   }
+
 };
 
 // The plan's derived counts, or false where the kernels do not take it.
@@ -212,6 +223,18 @@ bool make_plan(Plan& p, uintptr_t ptrs, int B, int Tn, int H, int W, int C,
 }
 
 inline int threads_of(const Plan& p) { return (p.WB * p.PG + 31) / 32 * 32; }
+
+// Blocks per SM a kernel reaches with its threads and dynamic shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1 on an error.
+template <typename K>
+int blocks_per_sm(K kern, size_t smem, int threads) {
+  int n = -1;
+  cudaError_t e = (cudaError_t)set_smem(kern, smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern, threads,
+                                                      smem);
+  return e == cudaSuccess ? n : -1;
+}
 
 
 }  // namespace cfn

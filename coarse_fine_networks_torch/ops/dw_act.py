@@ -18,9 +18,12 @@ Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
   ``csrc/dw_mm_act.cu`` (the act mode of the eval kernel);
 * ``dw_act_dx_s1``/``dw_act_dx_s2``: :func:`dw_act_dx`, in
   ``csrc/dw_dx_s1.cu`` (K3: ``dw_plain_s1.cu``'s row strips on g with the
-  flipped taps, x staged beside g) and
-  ``csrc/dw_act_bwd.cu``;
+  flipped taps, x staged beside g) and ``csrc/dw_plain_s2.cu`` (K5: the act
+  mode of K8's gather, x of each thread's quads staged beside g, with the
+  work split of :func:`..dw_conv.plan_act_dx_s2`);
 * ``dw_act_wgrad_s1``/``dw_act_wgrad_s2``: :func:`dw_act_wgrad`, in
+  ``csrc/dw_plain_s1.cu`` (K6 act: the act mode of K6 plain, x activated
+  in place where it is staged, with :func:`..dw_conv.plan_s1`) and
   ``csrc/dw_act_bwd.cu``.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
@@ -163,31 +166,28 @@ def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
     the ``(dsc, dbi)`` sums fused in (see :func:`dw_act_dx_plain`).
 
     ``g`` is dL/dy (y's shape, x's dtype).  A CPU tensor takes the plain
-    version; a CUDA tensor launches ``dw_act_dx_s1`` (with the work split
-    of :func:`..dw_conv.plan_act_dx_s1`) or ``dw_act_dx_s2`` (per-block
-    partial sums, added with one ``torch.sum``), or raises."""
+    version; a CUDA tensor launches ``dw_act_dx_s1`` or ``dw_act_dx_s2``
+    (with the work split of :func:`..dw_conv.plan_act_dx_s1` or
+    :func:`..dw_conv.plan_act_dx_s2`; per-block partial sums, added with
+    one ``torch.sum``), or raises."""
     _check(x, w_dw, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_act_dx_plain(g, x, w_dw, sc, bi, stride)
     dx = torch.empty_like(x)
     if not x.numel():
         return dx, torch.zeros((2, x.shape[-1]), device=x.device)
-    name = f"dw_act_dx_s{stride}"
-    args = (g.data_ptr(), x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
-            bi.data_ptr(), dx.data_ptr())
-    if stride == 1:
-        # .dw_conv builds on this module's libraries: imported here
-        from .dw_conv import plan_act_dx_s1
+    # .dw_conv builds on this module's libraries: imported here
+    from . import dw_conv
 
-        p = plan_act_dx_s1(*x.shape)
-        part = torch.empty((p.rows, 2, x.shape[-1]), dtype=torch.float32,
-                           device=x.device)
-        _launch(LAUNCHES, DX_S1_LIBRARY, name, x, *args, part.data_ptr(),
-                *x.shape, p.r, p.wb, p.pg, p.tt, p.rows)
-    else:
-        part = _partials(name, x, 2)
-        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args, part.data_ptr(),
-                *x.shape)
+    lib, plan = ((DX_S1_LIBRARY, dw_conv.plan_act_dx_s1) if stride == 1 else
+                 (dw_conv.LIBRARY_S2, dw_conv.plan_act_dx_s2))
+    p = plan(*x.shape)
+    part = torch.empty((p.rows, 2, x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+    _launch(LAUNCHES, lib, f"dw_act_dx_s{stride}", x, g.data_ptr(),
+            x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            dx.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg, p.tt,
+            p.rows)
     return dx, torch.sum(part, dim=0)
 
 
@@ -204,7 +204,8 @@ def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
                  bi: torch.Tensor, stride: int) -> torch.Tensor:
     """Weight gradient of :func:`dw_bnrelu_conv3d` (see
     :func:`dw_act_wgrad_plain`), ``(27, C)`` f32.  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``dw_act_wgrad_s1`` or
+    plain version; a CUDA tensor launches ``dw_act_wgrad_s1`` (with the
+    work split of :func:`..dw_conv.plan_s1`, K6 plain's) or
     ``dw_act_wgrad_s2`` (per-block partial sums, added with one
     ``torch.sum``), or raises."""
     _check(x, None, sc, bi, stride, g)
@@ -213,9 +214,20 @@ def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
     if not g.numel():
         return torch.zeros((27, x.shape[-1]), device=x.device)
     name = f"dw_act_wgrad_s{stride}"
-    part = _partials(name, x, 27)
-    _launch(LAUNCHES, BWD_LIBRARY, name, x, x.data_ptr(), g.data_ptr(),
-            sc.data_ptr(), bi.data_ptr(), part.data_ptr(), *x.shape)
+    args = (x.data_ptr(), g.data_ptr(), sc.data_ptr(), bi.data_ptr())
+    if stride == 1:
+        # .dw_conv builds on this module's libraries: imported here
+        from . import dw_conv
+
+        p = dw_conv.plan_s1(*x.shape)
+        part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, dw_conv.LIBRARY, name, x, *args, part.data_ptr(),
+                *x.shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
+    else:
+        part = _partials(name, x, 27)
+        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args, part.data_ptr(),
+                *x.shape)
     return torch.sum(part, dim=0)
 
 

@@ -43,6 +43,12 @@ halo and writes its output once:
   the output's row strips, the forward's de-interleaved rows), with the
   work split of :func:`plan_s2`.
 
+The two plain sources also hold the act mode of one kernel each, entries
+of :mod:`.dw_act` bound here: ``dw_act_wgrad_s1`` (K6 act, K6 plain's body
+on x activated in place, with :func:`plan_s1`) and ``dw_act_dx_s2`` (K5,
+K8's body with the relu mask, ``dx = dam·sc`` and the ``(dsc, dbi)`` sums,
+with :func:`plan_act_dx_s2`).
+
 The module also computes the row-strip work splits of the other modules'
 row-strip kernels: :func:`plan_mm_s1` (K1 ``mm``, :mod:`.dw_mm_act`) and
 :func:`plan_act_dx_s1` / :func:`plan_mm_dx_s1` (the stride-1 dx K3 of
@@ -65,15 +71,19 @@ from .dw_act import _check
 from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
 from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 
-# The split route's kernels: at stride 1, and at stride (1, 2, 2)
+# The split route's kernels: at stride 1, and at stride (1, 2, 2); each
+# source also holds the act mode of one of them, an entry of :mod:`.dw_act`
+# (the weight gradient K6 act, the dx K5)
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
+    "dw_act_wgrad_s1": [P] * 5 + [I] * 12 + [P],
     "dw_plain_s1_occupancy": [I] * 5,
 })
 LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_conv_s2": [P] * 3 + [I] * 10 + [P],
     "dw_conv_dx_s2": [P] * 3 + [I] * 10 + [P],
+    "dw_act_dx_s2": [P] * 7 + [I] * 11 + [P],
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
     "dw_plain_s2_occupancy": [I] * 5,
 })
@@ -234,8 +244,10 @@ def _persistent(plan: PlanS1) -> PlanS1:
 
 # ---- the stride-2 kernels' work splits -----------------------------------------
 
-GSTAGE = 5  # g frames in the stride-2 dx kernel's shared-memory ring
+GSTAGE = 5  # g frames in the stride-2 dx kernels' shared-memory ring
+XSTAGE = 3  # x frames in the stride-2 act dx kernel's ring
 DX_PG = 32  # channel pairs per group at most in the stride-2 dx
+NT_DX = 192  # threads per block at most in the masked dx (168 registers)
 
 
 @lru_cache(maxsize=None)
@@ -263,6 +275,21 @@ def plan_s2_dx(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     ho, wo = _out_hw(h, w, 2)
     return _split_frames(_strips(b, t, ho, wo, c, smem_s2_dx, DX_PG),
                          FWD_BLOCKS)
+
+
+@lru_cache(maxsize=None)
+def plan_act_dx_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_act_dx_s2`` (K5, K8's body with K3's
+    epilogue) for x ``(B, T, H, W, C)``: :func:`plan_s2_dx`'s rule over g
+    ``(⌈H/2⌉, ⌈W/2⌉)`` (channel pairs first in groups of at most ``DX_PG``)
+    with at most ``NT_DX`` threads (the epilogue's registers) and the f32
+    shared memory of :func:`smem_act_dx_s2`, frames split as
+    :func:`plan_s2_fwd` splits them.  One block per item and channel group,
+    so ``rows`` (= items) is its partial buffer's row count."""
+    ho, wo = _out_hw(h, w, 2)
+    plan = _split_frames(_strips(b, t, ho, wo, c, smem_act_dx_s2, DX_PG,
+                                 NT_DX), FWD_BLOCKS)
+    return plan._replace(ipb=1, rows=plan.items)
 
 
 @lru_cache(maxsize=None)
@@ -294,6 +321,15 @@ def smem_s2_dx(plan: PlanS1, esz: int) -> int:
     its launcher sizes it: the ring of g frames (R+1 rows of WB+1
     columns)."""
     return GSTAGE * _pad16((plan.r + 1) * (plan.wb + 1) * 2 * plan.pg * esz)
+
+
+def smem_act_dx_s2(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_act_dx_s2``, in bytes, as
+    its launcher sizes it: :func:`smem_s2_dx`'s ring of g frames, then a
+    ring of ``XSTAGE`` x frames (2R rows × 2WB own columns), or the column
+    sums if larger."""
+    xs = XSTAGE * _pad16(2 * plan.r * 2 * plan.wb * 2 * plan.pg * esz)
+    return max(smem_s2_dx(plan, esz) + xs, 4 * 2 * plan.wb * 2 * plan.pg)
 
 
 def smem_s2(plan: PlanS1, esz: int) -> int:
@@ -365,7 +401,6 @@ def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
 
 # ---- the stride-1 dx's work splits (K3 and K2, csrc/dw_dx_s1.cu) -------------
 
-NT_DX = 192  # threads per block at most in the stride-1 dx (168 registers)
 TT_MM = 32   # frames per segment at most in K2 (a mask slot each)
 
 

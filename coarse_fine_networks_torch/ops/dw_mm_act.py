@@ -41,12 +41,12 @@ LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's weight gradient and the stride-2
-# backward entries of :mod:`.dw_act` and :mod:`.dw_mm_bn_train`.
+# The backward source: this module's weight gradients, the stride-2 weight
+# gradient of :mod:`.dw_act` and the stride-2 masked dx of
+# :mod:`.dw_mm_bn_train` (the act entry's stride-2 dx and stride-1 weight
+# gradient are in the plain sources, :mod:`.dw_conv`'s libraries).
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
-    "dw_act_dx_s2": [P] * 7 + [I] * 6 + [P],
-    "dw_act_wgrad_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
@@ -67,9 +67,8 @@ LIBRARIES = (LIBRARY, BWD_LIBRARY, DX_S1_LIBRARY)
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# mm-mode weight gradients have the act mode's rows)
-_ROWS_KIND = {"dw_act_dx_s2": 0, "dw_act_wgrad_s1": 1,
-              "dw_act_wgrad_s2": 2, "dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
+# weight gradients at stride 1 and 2; the mm mode has the act mode's rows)
+_ROWS_KIND = {"dw_act_wgrad_s2": 2, "dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
 
 
 def reset_launches() -> None:

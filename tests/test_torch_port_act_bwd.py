@@ -1,0 +1,383 @@
+"""The two backward kernels of the act train entry on the row-strip layout:
+``dw_act_dx_s2`` (K5, the act mode of K8 in ``csrc/dw_plain_s2.cu``) and
+``dw_act_wgrad_s1`` (K6 act, the act mode of K6 plain in
+``csrc/dw_plain_s1.cu``): the work split K5's wrapper computes, the order
+of K5's sums, the premises of the card's exact oracles, the bindings and
+the sources.  The kernels themselves run only on the card, where
+``chip_smoke.py`` holds K5's dx against K8 (``dw_conv_dx_s2``) run in f32,
+masked and scaled, and K6 act against K6 plain (``dw_conv_wgrad_s1``) on
+the activated x, each with a difference of 0.
+
+* ``plan_act_dx_s2`` covers every position of g, whose quads of dx rows and
+  columns partition dx, and every channel exactly once, one block per tile
+  and channel group, with channel pairs first (at most ``DX_PG``), at most
+  ``NT_DX`` threads and the card's shared memory in f32 and bf16, at the 8
+  stride-2 entry shapes of the coarse train step and of long-cycle phase D
+  and at ragged ones; its partial buffer has one row per item.  K6 act
+  takes ``plan_s1``, K6 plain's split.
+* A torch model of K5 (K8's per-quad order with fused adds, masked by
+  ``x·sc + bi > 0`` rounded apart, scaled, with the sums) against
+  ``dw_act_dx_plain`` and the JAX Pallas kernel K5 (``_dx_s2_act_raw``)
+  interpreted, at 1e-5 (f32 sums of up to 27 terms, and of the sums over
+  every position, in other orders); the same model without the mask is K8's
+  order, which equals K11 on the zero-upsampled g exactly
+  (``test_torch_port_plain_s2_fwd_dx.py``).
+* ``dw_act_wgrad_plain`` equals ``dw_conv_wgrad_plain`` on the activated x
+  exactly (the card's oracle), in f32 and bf16; with every ``bi > 0`` (so a
+  padding of relu(bi) would show) it matches the JAX Pallas kernel K6 in act
+  mode (``_dw_fold4_wgrad_raw``) interpreted at 1e-4; and the kernel's ring
+  padding, NaN activated by ``fmax(·, 0)``, is the zero padding of a, for
+  any sign of sc and bi.
+* The wrappers take the plain versions on the CPU and count no launch; the
+  bindings match the C declarations; the constants the plans mirror are the
+  sources'; neither kernel is left in ``dw_act_bwd.cu``.
+"""
+
+import ctypes
+import re
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import jax.numpy as jnp
+
+from coarse_fine_networks_tpu.ops.fold import (FOLD, fold_pad, from_fold4,
+                                               pad_vec, to_fold4)
+from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
+    _dw_fold4_wgrad_raw, _dx_s2_act_raw, _prep_lane_weights)
+from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_mm_act
+from coarse_fine_networks_torch.ops.dw_act import (_activate, dw_act_dx,
+                                                   dw_act_dx_plain,
+                                                   dw_act_wgrad,
+                                                   dw_act_wgrad_plain)
+from coarse_fine_networks_torch.ops.dw_conv import (
+    DX_PG, FWD_BLOCKS, NT_DX, RMAX, RMIN, SMEM_MAX, TT_MIN,
+    dw_conv_wgrad_plain, plan_act_dx_s2, smem_act_dx_s2)
+
+from _torch_port_util import t
+from test_torch_port_plain_s2_fwd_dx import _k8_model
+
+torch.set_num_threads(2)
+
+
+def _out(h):
+    return (h - 1) // 2 + 1
+
+
+# ---- K5's work split ---------------------------------------------------------------
+
+# (label, B, T, H, W, C) of x at K5's entries: the coarse train step's
+# stride-2 blocks (T=64 in layer1, T=17 after Grid Pool) and long-cycle
+# phase D's (B8 T64 224², every stage at T=64), then ragged ones
+PATH = [("coarse.layer1.0", 8, 64, 112, 112, 54),
+        ("coarse.layer2.0", 8, 17, 56, 56, 108),
+        ("coarse.layer3.0", 8, 17, 28, 28, 216),
+        ("coarse.layer4.0", 8, 17, 14, 14, 432),
+        ("D.layer1.0", 8, 64, 112, 112, 54),
+        ("D.layer2.0", 8, 64, 56, 56, 108),
+        ("D.layer3.0", 8, 64, 28, 28, 216),
+        ("D.layer4.0", 8, 64, 14, 14, 432)]
+RAGGED = [("7x7.c13", 2, 5, 7, 7, 13), ("9x5.c12", 1, 3, 9, 5, 12),
+          ("one_pixel", 3, 1, 1, 1, 1), ("wide", 1, 3, 4, 600, 6),
+          ("odd_c", 2, 9, 9, 9, 7), ("long_clip", 1, 80, 6, 6, 10),
+          ("wide_c", 1, 2, 2, 2, 1024)]
+SHAPES = PATH + RAGGED
+
+
+def _partitions(spans, n):
+    """The distinct intervals ``spans`` cover ``[0, n)`` once each."""
+    got = sorted(set(spans))
+    assert got[0][0] == 0 and got[-1][1] == n
+    assert all(a[1] == b[0] and a[0] < a[1] for a, b in zip(got, got[1:]))
+    return len(got)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+def test_plan_covers_every_dx_once(shape):
+    """One block per (item, channel group) over g: each block's tile,
+    clipped to g, is a product of one interval per axis; the intervals of
+    each axis partition it and every combination occurs once, so every g
+    position and channel is owned exactly once, and g row i (column j) owns
+    dx rows 2i, 2i+1 (columns 2j, 2j+1) inside (H, W), which partition dx.
+    The split is within the kernel's limits and the card's shared memory in
+    f32 and bf16, takes channel pairs first, and has one partial row per
+    item."""
+    _, b, tt, h, w, c = shape
+    p = plan_act_dx_s2(b, tt, h, w, c)
+    ho, wo, p2 = _out(h), _out(w), -(-c // 2)
+    assert (p.b, p.t, p.h, p.w, p.c) == (b, tt, ho, wo, c)
+    assert RMIN <= p.r <= RMAX and p.wb * p.pg <= NT_DX
+    assert p.threads <= NT_DX
+    assert p.pg <= min(p2, DX_PG) and p.wb <= wo and (p.wb >= 2 or wo == 1)
+    assert p.ipb == 1 and p.rows == p.items
+    for esz in (2, 4):
+        assert smem_act_dx_s2(p, esz) <= SMEM_MAX
+    # frames: the whole clip unless that gives under two waves of two
+    # blocks per SM, never split below TT_MIN
+    assert p.tt == tt or (p.tt >= min(TT_MIN, tt) and
+                          p._replace(tt=2 * p.tt).items * p.n_pg
+                          < FWD_BLOCKS)
+    tiles = [p.tile(item, g) for item in range(p.items)
+             for g in range(p.n_pg)]
+    assert len(set(tiles)) == len(tiles) == p.items * p.n_pg
+    counts = [_partitions([tile[1 + a] for tile in tiles], n)
+              for a, n in enumerate((tt, ho, wo, c))]
+    assert len({tile[0] for tile in tiles}) == b
+    assert len(tiles) == b * int(np.prod(counts))
+    for n, size, full in ((p.r, p.h, h), (p.wb, p.w, w)):
+        got = [i for s0 in range(0, size, n)
+               for i in range(2 * s0, min(2 * min(s0 + n, size), full))]
+        assert got == list(range(full))
+
+
+def test_split_of_the_first_path_entry():
+    """Layer1's stride-2 entry (x B8 T64 112² C54, g 56²): all 27 channel
+    pairs in one group, 7 g columns (189 threads, 6 warps: K8 takes 8 and
+    224), strips of 4 g rows, the whole clip per block: 896 blocks, and
+    a bf16 block's g ring and x ring in 57,888 bytes."""
+    p = plan_act_dx_s2(8, 64, 112, 112, 54)
+    assert (p.r, p.wb, p.pg, p.n_pg, p.n_wt, p.tt) == (4, 7, 27, 1, 8, 64)
+    assert p.items * p.n_pg == 896 and p.threads == 192
+    assert smem_act_dx_s2(p, 2) == 57888
+    q = dw_conv.plan_s2_dx(8, 64, 112, 112, 54)
+    assert (q.wb, q.threads) == (8, 224)
+
+
+# ---- K5's order ---------------------------------------------------------------------
+
+def _k5_model(g, x, w, sc, bi):
+    """K5 in the kernel's order: da K8's f32 gather with fused adds, dam =
+    da where x·sc + bi > 0 (the product and the sum rounded to f32 apart),
+    dx = dam·sc in x's dtype, and the f32 sums (Σ dam·x, Σ dam)."""
+    da = _k8_model(g.float(), w.float(), tuple(x.shape[2:4]), fused=True)
+    xf = x.float()
+    dam = torch.where(xf * sc + bi > 0, da, torch.zeros_like(da))
+    red = torch.stack([torch.sum(dam * xf, dim=(0, 1, 2, 3)),
+                       torch.sum(dam, dim=(0, 1, 2, 3))])
+    return (dam * sc).to(x.dtype), red
+
+
+def _inputs(shape, seed, dtype=torch.float32, bi_positive=False):
+    """x, taps, sc, bi and g at stride 2 (or 1 with ``bi_positive``); half
+    the channels get a negative bi unless ``bi_positive``."""
+    rng = np.random.RandomState(seed)
+    b, tt, h, w, c = shape
+    x = rng.randn(*shape).astype(np.float32)
+    k = (rng.randn(3, 3, 3, c) / np.sqrt(27)).astype(np.float32)
+    sc = (rng.rand(c) + 0.5).astype(np.float32)
+    bi = rng.randn(c).astype(np.float32)
+    if bi_positive:
+        bi = np.abs(bi) + 0.25
+    else:
+        bi[: c // 2] = -np.abs(bi[: c // 2]) - 0.5
+    s = 1 if bi_positive else 2
+    g = rng.randn(b, tt, (h - 1) // s + 1, (w - 1) // s + 1,
+                  c).astype(np.float32)
+    return (t(x).to(dtype), t(k).to(dtype), t(sc), t(bi), t(g).to(dtype))
+
+
+ODD = [(2, 5, 7, 7, 13), (1, 3, 9, 5, 12), (1, 4, 8, 7, 54)]
+
+
+@pytest.mark.parametrize("shape", ODD, ids=["x".join(map(str, s))
+                                            for s in ODD])
+def test_k5_order_matches_the_plain_version(shape):
+    """The model against ``dw_act_dx_plain`` at odd H and W: dx and the
+    sums at 1e-5 of their largest magnitude (f32 sums in other orders; the
+    relu test is the same rounded apply on both sides)."""
+    x, k, sc, bi, g = _inputs(shape, seed=sum(shape))
+    dx, red = _k5_model(g, x, k, sc, bi)
+    ref_dx, ref_red = dw_act_dx_plain(g, x, k, sc, bi, 2)
+    assert dx.shape == ref_dx.shape == shape
+    np.testing.assert_allclose(dx.numpy(), ref_dx.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(red.numpy(), ref_red.numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref_red.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_order_is_k8s_masked_and_scaled(dtype):
+    """The card's oracle: K5's dx is K8's f32 dx (here its order model on
+    g and the taps read as f32) where x·sc + bi > 0, times sc, rounded to
+    x's dtype once; the plain version's mask and rounding are the same, so
+    in bf16 the two agree to one bf16 rounding of K8's order."""
+    x, k, sc, bi, g = _inputs((1, 4, 8, 7, 54), seed=9, dtype=dtype)
+    dx, _ = _k5_model(g, x, k, sc, bi)
+    da = _k8_model(g.float(), k.float(), (8, 7), fused=True)
+    want = (torch.where(x.float() * sc + bi > 0, da, 0) * sc).to(dtype)
+    assert dx.dtype == dtype and torch.equal(dx, want)
+    ref_dx, _ = dw_act_dx_plain(g, x, k, sc, bi, 2)
+    eps = 1e-5 if dtype == torch.float32 else 2 ** -8
+    np.testing.assert_allclose(dx.float().numpy(), ref_dx.float().numpy(),
+                               rtol=eps, atol=eps)
+
+
+def _phase_sum(v, c):
+    """(…, 4P) per-lane sums → (…, C) per-channel sums."""
+    v = np.asarray(v)
+    return v.reshape(v.shape[:-1] + (FOLD, v.shape[-1] // FOLD)).sum(-2)[
+        ..., :c]
+
+
+@pytest.mark.parametrize("shape", [(1, 3, 8, 8, 12), (2, 2, 16, 8, 54)],
+                         ids=["1x3x8x8x12", "2x2x16x8x54"])
+def test_k5_order_matches_pallas_interpret(shape):
+    """The model against the JAX Pallas kernel K5 itself
+    (``_dx_s2_act_raw``: K8's gather with the mask, the scale and the
+    per-batch partial sums), interpreted, at 1e-5 (f32 sums in another
+    order); it takes even g sizes only."""
+    x, k, sc, bi, g = _inputs(shape, seed=sum(shape) + 3)
+    c = shape[-1]
+    p = fold_pad(c)
+    dx, red = _dx_s2_act_raw(
+        to_fold4(jnp.asarray(g.numpy()), p),
+        _prep_lane_weights(jnp.asarray(k.numpy()).reshape(3, 3, 3, 1, c), c,
+                           p), True,
+        sc=pad_vec(jnp.asarray(sc.numpy()), c, p),
+        bi=pad_vec(jnp.asarray(bi.numpy()), c, p),
+        x2=to_fold4(jnp.asarray(x.numpy()), p))
+    got_dx, got_red = _k5_model(g, x, k, sc, bi)
+    np.testing.assert_allclose(got_dx.numpy(), np.asarray(from_fold4(dx, c)),
+                               rtol=1e-5, atol=1e-5)
+    want_red = _phase_sum(np.asarray(red).sum(0), c)
+    np.testing.assert_allclose(got_red.numpy(), want_red, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(want_red).max()))
+
+
+# ---- K6 act ---------------------------------------------------------------------------
+
+WG_SHAPES = [(2, 4, 9, 7, 13), (1, 5, 8, 8, 54), (1, 3, 1, 1, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", WG_SHAPES, ids=["x".join(map(str, s))
+                                                  for s in WG_SHAPES])
+def test_act_wgrad_is_plain_wgrad_of_the_activation(shape, dtype):
+    """The premise of the card's oracle: the act weight gradient is K6
+    plain's on ``relu(x·sc + bi)`` rounded to x's dtype, exactly."""
+    x, _, sc, bi, _ = _inputs(shape, seed=sum(shape) + 5, dtype=dtype)
+    g = t(np.random.RandomState(1).randn(*shape).astype(np.float32)).to(
+        dtype)
+    got = dw_act_wgrad_plain(x, g, sc, bi, 1)
+    want = dw_conv_wgrad_plain(_activate(x, sc, bi), g, 1)
+    assert got.dtype == torch.float32 and torch.equal(got, want)
+
+
+def test_act_wgrad_pads_the_activation_with_zero():
+    """With every bi > 0, relu(bi) > 0 in every channel, so a padding of
+    the activated x other than 0 moves every edge tap: the plain version
+    matches the JAX Pallas kernel K6 in act mode (``_dw_fold4_wgrad_raw``)
+    interpreted at 1e-4 (f32 sums of 2·4·16·16 positions in another
+    order), and the weight gradient of a padded with relu(bi) (the
+    activation applied after the zero padding of x) does not."""
+    shape = (2, 4, 16, 16, 12)
+    x, _, sc, bi, g = _inputs(shape, seed=77, bi_positive=True)
+    c = shape[-1]
+    dk = _dw_fold4_wgrad_raw(to_fold4(jnp.asarray(x.numpy())),
+                             to_fold4(jnp.asarray(g.numpy())), True,
+                             sc=pad_vec(jnp.asarray(sc.numpy()), c,
+                                        fold_pad(c)),
+                             bi=pad_vec(jnp.asarray(bi.numpy()), c,
+                                        fold_pad(c)))
+    got = dw_act_wgrad_plain(x, g, sc, bi, 1)
+    ref = _phase_sum(dk, c)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+    # the activation of a zero-padded x: relu(bi) on the padding
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    ap = torch.relu(xp * sc + bi)
+    wrong = torch.stack([
+        torch.einsum("bthwc,bthwc->c",
+                     ap[:, dt:dt + 4, dy:dy + 16, dx:dx + 16], g)
+        for dt in range(3) for dy in range(3) for dx in range(3)])
+    assert not np.allclose(wrong.numpy(), ref, rtol=1e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_nan_ring_padding_activates_to_zero(dtype):
+    """K6 act clears its ring's x frames to NaN, never copies the rows and
+    columns outside the frame, and activates each pair as read with
+    ``fmaxf(x·sc + bi, 0)``, which returns its non-NaN operand: a torch
+    model of that (``torch.fmax``) gives the zero padding of the activated
+    x, for sc and bi of either sign, and the in-frame values of
+    ``_activate`` exactly."""
+    rng = np.random.RandomState(4)
+    x = t(rng.randn(1, 3, 5, 6, 8).astype(np.float32)).to(dtype)
+    sc = t(rng.randn(8).astype(np.float32))  # either sign
+    bi = t(rng.randn(8).astype(np.float32))
+    ring = F.pad(x.float(), (0, 0, 1, 1, 1, 1), value=float("nan")).to(dtype)
+    assert torch.isnan(ring[:, :, 0]).all()
+    a = torch.fmax(ring.float() * sc + bi, torch.zeros(())).to(dtype)
+    want = F.pad(_activate(x, sc, bi).float(), (0, 0, 1, 1, 1, 1)).to(dtype)
+    assert torch.equal(a, want)
+
+
+# ---- the wrappers, the bindings, the sources ---------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wrappers_cpu_take_plain_and_count_nothing(dtype):
+    """On a CPU tensor both wrappers return their plain version and launch
+    nothing."""
+    dw_act.reset_launches()
+    x, k, sc, bi, g2 = _inputs((1, 3, 7, 6, 10), seed=8, dtype=dtype)
+    g1 = t(np.random.RandomState(2).randn(1, 3, 7, 6, 10).astype(
+        np.float32)).to(dtype)
+    for got, ref in zip(dw_act_dx(g2, x, k, sc, bi, 2),
+                        dw_act_dx_plain(g2, x, k, sc, bi, 2)):
+        assert torch.equal(got, ref)
+    assert torch.equal(dw_act_wgrad(x, g1, sc, bi, 1),
+                       dw_act_wgrad_plain(x, g1, sc, bi, 1))
+    assert not any(dw_act.LAUNCHES.values())
+
+
+BOUND = [(dw_conv.LIBRARY, "dw_act_wgrad_s1"),
+         (dw_conv.LIBRARY, "dw_plain_s1_occupancy"),
+         (dw_conv.LIBRARY_S2, "dw_act_dx_s2"),
+         (dw_conv.LIBRARY_S2, "dw_plain_s2_occupancy")] + [
+    (dw_mm_act.BWD_LIBRARY, n) for n in dw_mm_act.BWD_LIBRARY.functions]
+
+
+@pytest.mark.parametrize("lib,name", BOUND, ids=[n for _, n in BOUND])
+def test_bindings_match_the_c_declarations(lib, name):
+    """A pointer for each ``void*``, an int for each ``int``, in order."""
+    m = re.search(r'extern "C" int %s\(([^)]*)\)' % name,
+                  lib.source.read_text())
+    assert m, name
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int
+            for p in m.group(1).split(",")]
+    assert lib.functions[name] == want
+
+
+@pytest.mark.parametrize("name,value", [("NT_DX", NT_DX),
+                                        ("GSTAGE", dw_conv.GSTAGE),
+                                        ("XSTAGE", dw_conv.XSTAGE),
+                                        ("SMEM_MAX", SMEM_MAX)])
+def test_constants_match_the_source(name, value):
+    """The limits ``plan_act_dx_s2`` keeps and the ring depths
+    ``smem_act_dx_s2`` counts are the launcher's."""
+    src = dw_conv.LIBRARY_S2.source
+    text = src.read_text() + (src.parent / "strip.cuh").read_text()
+    m = re.search(r"constexpr int %s = (\d+);" % name, text)
+    assert m and int(m.group(1)) == value
+
+
+def test_kernels_left_the_entry_backward_source():
+    """``dw_act_bwd.cu`` keeps K9, K6 mm, K10 act and K10 mm only: no ACT
+    mode of its stride-2 dx kernel, no dx epilogue, no stride-1 act weight
+    gradient; K5 and K6 act are the act instantiations of the plain
+    sources' kernels, launched by the wrappers with their plans."""
+    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
+    for gone in ("dx_epilogue", "dx_s2_kernel<T, MODE>",
+                 "launch_wgrad<__nv_bfloat16, 1, ACT>",
+                 'extern "C" int dw_act_dx_s2(',
+                 'extern "C" int dw_act_wgrad_s1('):
+        assert gone not in bwd
+    for kept in ("dw_mm_dx_mask_s2", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
+                 "dw_mm_wgrad_s2"):
+        assert f'extern "C" int {kept}(' in bwd
+    s1 = dw_conv.LIBRARY.source.read_text()
+    s2 = dw_conv.LIBRARY_S2.source.read_text()
+    assert "wgrad_body<T, R, true>" in s1 and "wgrad_body<T, R, false>" in s1
+    assert "dx_s2_body<T, R, true>" in s2 and "dx_s2_body<T, R, false>" in s2
+    assert "rows != items" in s2

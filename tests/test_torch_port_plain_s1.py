@@ -146,8 +146,9 @@ def test_bindings_match_the_c_declarations(lib):
 
 
 def test_stride1_entries_left_the_entry_sources():
-    """The plain mode at stride 1 lives in ``dw_plain_s1.cu`` only, the
-    three stride-2 plain entries (K4 plain, K8, K10 plain) in
+    """The plain mode at stride 1 and the act weight gradient at stride 1
+    (K6 act) live in ``dw_plain_s1.cu`` only, the three stride-2 plain
+    entries (K4 plain, K8, K10 plain) and the act dx at stride 2 (K5) in
     ``dw_plain_s2.cu`` only, and the stride-1 dx of the train entries (K3,
     K2) in ``dw_dx_s1.cu`` only: none is left in the bottleneck entry's
     sources, and neither is their ``PLAIN`` mode or the old stride-1 dx
@@ -158,9 +159,10 @@ def test_stride1_entries_left_the_entry_sources():
     s2 = dw_conv.LIBRARY_S2.source.read_text()
     dx1 = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     for lib, src, names in (
-            (dw_conv.LIBRARY, new, ("dw_conv_s1", "dw_conv_wgrad_s1")),
+            (dw_conv.LIBRARY, new, ("dw_conv_s1", "dw_conv_wgrad_s1",
+                                    "dw_act_wgrad_s1")),
             (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_conv_dx_s2",
-                                      "dw_conv_wgrad_s2")),
+                                      "dw_act_dx_s2", "dw_conv_wgrad_s2")),
             (dw_mm_act.DX_S1_LIBRARY, dx1, ("dw_act_dx_s1",
                                             "dw_mm_dx_mask_s1"))):
         others = "".join(other for other in (fwd, bwd, new, s2, dx1)

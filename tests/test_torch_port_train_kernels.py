@@ -26,7 +26,8 @@ from coarse_fine_networks_tpu.ops.fold import (fold_pad, from_fold4, pad_vec,
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
     FOLD, _dw_fold4_wgrad_raw, _dx_act_raw, _dx_s2_act_raw,
     _prep_lane_weights, _wgrad_s2_raw, dw_fold4_act, fold_dw_bnrelu_conv3d)
-from coarse_fine_networks_torch.ops import dw_act, dw_mm_act, dw_mm_bn_train
+from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
+                                            dw_mm_bn_train)
 from coarse_fine_networks_torch.ops.dw_act import (
     dw_act_dx, dw_act_dx_plain, dw_act_wgrad, dw_act_wgrad_plain,
     dw_bnrelu_conv3d, dw_bnrelu_conv3d_plain, dw_bnrelu_conv3d_train)
@@ -237,11 +238,14 @@ def test_wrappers_reject(bad):
 def test_kernel_sources_ship_every_entry():
     # the act route's entries, and the mm route's of the train composite,
     # each bound and in its source: the stride-1 dx (K3, K2) in
-    # dw_dx_s1.cu, the rest of the backward in dw_act_bwd.cu
+    # dw_dx_s1.cu, K6 act in dw_plain_s1.cu, K5 in dw_plain_s2.cu, the rest
+    # of the backward in dw_act_bwd.cu
     for name in (*dw_act.LAUNCHES, *dw_mm_act.LAUNCHES,
                  *dw_mm_bn_train.LAUNCHES):
         lib = (dw_mm_act.DX_S1_LIBRARY if name in ("dw_act_dx_s1",
                                                    "dw_mm_dx_mask_s1")
+               else dw_conv.LIBRARY if name == "dw_act_wgrad_s1"
+               else dw_conv.LIBRARY_S2 if name == "dw_act_dx_s2"
                else dw_act.BWD_LIBRARY if ("_dx" in name or "_wgrad" in name)
                else dw_act.FWD_LIBRARY)
         assert name in lib.functions

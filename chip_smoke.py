@@ -241,9 +241,11 @@ _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1",
+                                                      "dw_act_s1",
                                                       "dw_act_wgrad_s1")
                        else "dw_plain_s2.cu" if (k.startswith("dw_conv_")
-                                                 or k == "dw_act_dx_s2")
+                                                 or k in ("dw_act_dx_s2",
+                                                          "dw_act_wgrad_s2"))
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
@@ -251,14 +253,16 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
 KERNEL_FUNCS = {
-    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s1", "dw_act_s2"),
+    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s2"),
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
+    "act_fwd_s1_kernel": ("dw_act_s1",),
     "act_dx_s1_kernel": ("dw_act_dx_s1",),
     "mm_dx_s1_kernel": ("dw_mm_dx_mask_s1",),
     "act_s2_dx_kernel": ("dw_act_dx_s2",),
     "dx_s2_kernel": ("dw_mm_dx_mask_s2",),
     "act_wgrad_s1_kernel": ("dw_act_wgrad_s1",),
-    "wgrad_kernel": ("dw_act_wgrad_s2", "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
+    "act_s2_wgrad_kernel": ("dw_act_wgrad_s2",),
+    "wgrad_kernel": ("dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
     "plain_s2_fwd_kernel": ("dw_conv_s2",),
@@ -269,8 +273,8 @@ KERNEL_FUNCS = {
 }
 # the act route's kernel functions, as the train and phase-D profiles sum
 # them
-ACT_FUNCS = ("dw_mm_act_kernel", "act_dx_s1_kernel", "act_s2_dx_kernel",
-             "act_wgrad_s1_kernel", "wgrad_kernel")
+ACT_FUNCS = ("act_fwd_s1_kernel", "dw_mm_act_kernel", "act_dx_s1_kernel",
+             "act_s2_dx_kernel", "act_wgrad_s1_kernel", "act_s2_wgrad_kernel")
 MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
 # the train step: batch, frames per stage (layers 2-4 run on the T/4+1
 # frames Grid Pool keeps), fine banks, label length
@@ -386,12 +390,16 @@ def _ptxas(source: Path) -> dict:
 
 # the ptxas rows: each source's kernel functions of the row-strip layout
 # (three row counts: 2-4) in f32 and bf16
-PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "plain_wgrad_kernel",
-                        "act_wgrad_s1_kernel"),
+PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
+                        "plain_wgrad_kernel", "act_wgrad_s1_kernel"),
          "dw_conv_s2": ("plain_s2_fwd_kernel", "plain_s2_dx_kernel",
-                        "act_s2_dx_kernel", "plain_s2_wgrad_kernel"),
+                        "act_s2_dx_kernel", "plain_s2_wgrad_kernel",
+                        "act_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
+# the act modes of the row-strip bodies: no instantiation may spill
+NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel",
+            "act_s2_wgrad_kernel")
 
 
 def phase_device() -> str:
@@ -424,6 +432,10 @@ def phase_device() -> str:
         check(len(rows) == 6 * len(funcs)
               and all("registers" in v for v in rows.values()),
               f"ptxas report of {SOURCES[key]}: {ptxas[key]}")
+        spilled = {n: v for n, v in rows.items()
+                   if any(f in n for f in NO_SPILL)
+                   and (v.get("spill_stores") or v.get("spill_loads"))}
+        check(not spilled, f"act kernels spill: {spilled}")
     return smi
 
 
@@ -788,12 +800,54 @@ def _act_wgrad_exact(dw_act, dw_conv, x, g, sc, bi, dtype) -> dict:
                               ("act_wgrad",))}
 
 
+def _act_fwd_exact(dw_act, dw_conv, x, w, sc, bi, dtype) -> dict:
+    """K1 act (``dw_act_s1``) against its exact oracle: y equals K1 plain
+    (``dw_conv_s1``, the same plan, ``plan_s1``, and the same order of
+    taps) on the activated x, ``relu(x·sc + bi)`` rounded to x's dtype,
+    with a difference of 0; it repeats bit for bit.  Returns the row's
+    fields: the difference and the plan."""
+    ref = dw_conv.dw_conv3d(dw_act._activate(x, sc, bi), w, 1)
+    y1 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, 1)
+    y2 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, 1)
+    torch.cuda.synchronize()
+    diff = (y1.float() - ref.float()).abs().max().item()
+    repeats = torch.equal(y1, y2)
+    what = f"dw_act_s1 {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: y differs from K1 plain on the activated x "
+                     f"by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row(dw_conv, tuple(x.shape), dtype, ("act_fwd",))}
+
+
+def _act_wgrad_s2_exact(dw_act, dw_conv, x, g, sc, bi, dtype) -> dict:
+    """K10 act (``dw_act_wgrad_s2``) against its exact oracle: dk equals
+    K10 plain (``dw_conv_wgrad_s2``: the same plan, ``plan_s2``, and the
+    same ``torch.sum`` of the rows) on the activated x, with a difference of
+    0; it repeats bit for bit.  Returns the row's fields: the difference and
+    the plan."""
+    ref = dw_conv.dw_conv_wgrad(dw_act._activate(x, sc, bi), g, 2)
+    dk1 = dw_act.dw_act_wgrad(x, g, sc, bi, 2)
+    dk2 = dw_act.dw_act_wgrad(x, g, sc, bi, 2)
+    torch.cuda.synchronize()
+    diff = (dk1 - ref).abs().max().item()
+    repeats = torch.equal(dk1, dk2)
+    what = f"dw_act_wgrad_s2 {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: dk differs from K10 plain on the activated "
+                     f"x by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row_s2(dw_conv, "dw_act_wgrad_s2", tuple(x.shape),
+                                 dtype)}
+
+
 def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
     """The six train kernels against their plain versions, and timed, at
     the coarse train step's entry shapes and at the fine stream's in
-    long-cycle phase D; K3, K5 and K6 act also against their exact oracles
-    (:func:`_act_dx_exact`, :func:`_act_dx_s2_exact`,
-    :func:`_act_wgrad_exact`)."""
+    long-cycle phase D; K1 act, K3, K5, K6 act and K10 act also against
+    their exact oracles (:func:`_act_fwd_exact`, :func:`_act_dx_exact`,
+    :func:`_act_dx_s2_exact`, :func:`_act_wgrad_exact`,
+    :func:`_act_wgrad_s2_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     per_kernel = {f"dw_act{p}_s{s}": _agg() for p in ("", "_dx", "_wgrad")
                   for s in (1, 2)}
@@ -862,13 +916,17 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
                     2 * 27 * n_g + 3 * n_x),
             }
             if s == 1:
-                extra = {"dw_act_dx_s1": _act_dx_exact(
+                extra = {"dw_act_s1": _act_fwd_exact(
+                    dw_act, dw_conv, x, w, sc, bi, dtype),
+                    "dw_act_dx_s1": _act_dx_exact(
                     dw_act, dw_conv, dw_mm_act, g, x, w, sc, bi, dtype),
                     "dw_act_wgrad_s1": _act_wgrad_exact(
                         dw_act, dw_conv, x, g, sc, bi, dtype)}
             else:
                 extra = {"dw_act_dx_s2": _act_dx_s2_exact(
-                    dw_act, dw_conv, g, x, w, sc, bi, dtype)}
+                    dw_act, dw_conv, g, x, w, sc, bi, dtype),
+                    "dw_act_wgrad_s2": _act_wgrad_s2_exact(
+                        dw_act, dw_conv, x, g, sc, bi, dtype)}
             _hold_and_time("kernels", cases, {"entry": label,
                                               "x": [b, t, h, h, c],
                                               "stride": s},
@@ -876,6 +934,159 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
             del x, g, a
         torch.cuda.empty_cache()
     return per_kernel
+
+
+def _nan_compare(got, ref, dtype, exact=False) -> dict:
+    """``got`` against ``ref`` where either may hold NaN: the positions
+    whose NaN-ness differs, and the largest difference of the elements
+    finite in both (0 where ``exact``, else within ``TOL`` of ``ref``'s
+    largest finite magnitude)."""
+    gn, rn = torch.isnan(got), torch.isnan(ref)
+    fin = ~(gn | rn)
+    a, b = got.float()[fin], ref.float()[fin]
+    err = (a - b).abs().max().item() if a.numel() else 0.0
+    scale = b.abs().max().item() if b.numel() else 0.0
+    bound = 0.0 if exact else TOL[dtype] * max(scale, 1.0)
+    out = {"nan_mismatches": int((gn != rn).sum().item()),
+           "nans": int(rn.sum().item()), "max_abs_err": err}
+    out["ok"] = out["nan_mismatches"] == 0 and err <= bound
+    return out
+
+
+def _with_nans(x, sc, c_x):
+    """Copies of x with one NaN at channel ``c_x`` of sample 0's middle
+    frame, row and column (inside the frame and away from its edges), and
+    of sc with channel ``c_x + 1`` NaN."""
+    x, sc = x.clone(), sc.clone()
+    _, t, h, w, _ = x.shape
+    x[0, t // 2, h // 2, w // 2, c_x] = float("nan")
+    sc[c_x + 1] = float("nan")
+    return x, sc
+
+
+def phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train) -> None:
+    """A NaN relu input stays NaN (fault 3.3): at every act-route entry
+    shape (:func:`train_entry_cases`) and every entry shape of the
+    composite (:func:`mm_entry_cases`), f32 and bf16, x holds one NaN and
+    sc one NaN channel (:func:`_with_nans`; in the composite x is conv1's
+    input, so the NaN reaches every channel of its position).  Each relu
+    kernel (K1/K4 act, K6/K10 act, K1/K4 mm, K6/K10 mm) must put NaN
+    exactly where its eager twin does, and each masked dx (K3, K5, K2, K9:
+    the mask is false at NaN) likewise in dx and the sums; the elements
+    finite in both keep the twin's tolerance, and K1, K6 and K10 act equal
+    their plain kernels on the activated x exactly, NaN for NaN.  The NaN
+    lies away from the frame's edges: there a row-strip weight gradient
+    also multiplies it by the zero g of a position past the output (the
+    clip's first or last frame, a ragged strip), where the twins sum only
+    the output's positions."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    for dtype in (torch.float32, torch.bfloat16):
+        bad, rows = {}, 0
+        for label, b, t, h, c, s, _, _ in train_entry_cases():
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") * scale
+            ho = (h - 1) // s + 1
+            x, sc = _with_nans(rnd(b, t, h, h, c).to(dtype),
+                               torch.rand(c, generator=gen, device="cuda")
+                               + 0.5, 0)
+            w = rnd(3, 3, 3, c, scale=27 ** -0.5).to(dtype)
+            g = rnd(b, t, ho, ho, c).to(dtype)
+            bi = rnd(c)
+            a = dw_act._activate(x, sc, bi)
+            cmp = {
+                f"dw_act_s{s}": _nan_compare(
+                    dw_act.dw_bnrelu_conv3d(x, w, sc, bi, s),
+                    dw_act.dw_bnrelu_conv3d_plain(x, w, sc, bi, s), dtype),
+                f"dw_act_wgrad_s{s}": _nan_compare(
+                    dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                    dw_act.dw_act_wgrad_plain(x, g, sc, bi, s), dtype),
+                f"dw_act_wgrad_s{s} exact": _nan_compare(
+                    dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                    dw_conv.dw_conv_wgrad(a, g, s), dtype, exact=True)}
+            if s == 1:
+                cmp["dw_act_s1 exact"] = _nan_compare(
+                    dw_act.dw_bnrelu_conv3d(x, w, sc, bi, 1),
+                    dw_conv.dw_conv3d(a, w, 1), dtype, exact=True)
+            for part, got, ref in zip(
+                    ("dx", "sums"), dw_act.dw_act_dx(g, x, w, sc, bi, s),
+                    dw_act.dw_act_dx_plain(g, x, w, sc, bi, s)):
+                cmp[f"dw_act_dx_s{s} {part}"] = _nan_compare(got, ref, dtype)
+            torch.cuda.synchronize()
+            for k, v in cmp.items():
+                rows += 1
+                if not v["ok"]:
+                    bad[f"{label} {k}"] = v
+            emit({"phase": "nan", "entry": label, "dtype": str(dtype)[6:],
+                  "x": [b, t, h, h, c], "stride": s, "by_kernel": cmp})
+            del x, g, a
+        for label, b, t, h, c_in, c, s, _, _ in mm_entry_cases():
+            def rnd(*shape, scale=1.0):
+                return torch.randn(shape, generator=gen, device="cuda") * scale
+            ho = (h - 1) // s + 1
+            x, sc = _with_nans(rnd(b, t, h, h, c_in).to(dtype),
+                               torch.rand(c, generator=gen, device="cuda")
+                               + 0.5, 0)
+            w1 = rnd(c_in, c, scale=c_in ** -0.5).to(dtype)
+            w = rnd(3, 3, 3, c, scale=27 ** -0.5).to(dtype)
+            g = rnd(b, t, ho, ho, c).to(dtype)
+            bi = rnd(c)
+            cmp = {
+                f"dw_mm_act_s{s}": _nan_compare(
+                    dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, w, sc, bi, s),
+                    dw_mm_act.dw_mm_bnrelu_conv3d_plain(x, w1, w, sc, bi, s),
+                    dtype),
+                f"dw_mm_wgrad_s{s}": _nan_compare(
+                    dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, s),
+                    dw_mm_act.dw_mm_wgrad_plain(x, w1, g, sc, bi, s), dtype),
+                f"dw_mm_dx_mask_s{s}": _nan_compare(
+                    dw_mm_bn_train.dw_mm_dx_mask(g, x, w1, w, sc, bi, s),
+                    dw_mm_bn_train.dw_mm_dx_mask_plain(g, x, w1, w, sc, bi,
+                                                       s), dtype)}
+            torch.cuda.synchronize()
+            for k, v in cmp.items():
+                rows += 1
+                if not v["ok"]:
+                    bad[f"mm.{label} {k}"] = v
+            emit({"phase": "nan", "entry": f"mm.{label}",
+                  "dtype": str(dtype)[6:], "x": [b, t, h, h, c_in],
+                  "c_mid": c, "stride": s, "by_kernel": cmp})
+            del x, g
+        torch.cuda.empty_cache()
+        emit({"phase": "nan_summary", "dtype": str(dtype)[6:],
+              "comparisons": rows, "failed": len(bad)})
+        check(not bad, f"nan {dtype}: {bad}")
+    _nan_on_the_first_frame(dw_act, dw_conv, gen)
+
+
+def _nan_on_the_first_frame(dw_act, dw_conv, gen) -> None:
+    """Recorded, not held (ROADMAP fault 3.4): with x's NaN on the clip's
+    first frame, the twins leave the taps dt = 2 of its channel finite (no
+    output frame -1 exists), where the row-strip weight gradients (K6 and
+    K10, plain and act) multiply the NaN by the zero g of frame -1.  The
+    NaN mismatches of each against its twin, at layer2's coarse entries in
+    f32."""
+    out = {}
+    for label, b, t, h, c, s, _, _ in train_entry_cases():
+        if not label.startswith("coarse.layer2"):
+            continue
+        ho = (h - 1) // s + 1
+        x = torch.randn((b, t, h, h, c), generator=gen, device="cuda")
+        x[0, 0, h // 2, h // 2, 0] = float("nan")
+        g = torch.randn((b, t, ho, ho, c), generator=gen, device="cuda")
+        sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+        bi = torch.randn(c, generator=gen, device="cuda")
+        a = dw_act._activate(x, sc, bi)
+        for name, got, ref in (
+                (f"dw_act_wgrad_s{s}", dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                 dw_act.dw_act_wgrad_plain(x, g, sc, bi, s)),
+                (f"dw_conv_wgrad_s{s}", dw_conv.dw_conv_wgrad(a, g, s),
+                 dw_conv.dw_conv_wgrad_plain(a, g, s))):
+            cmp = _nan_compare(got, ref, torch.float32)
+            out[name] = {"nan_mismatches": cmp["nan_mismatches"],
+                         "twin_nans": cmp["nans"],
+                         "kernel_nans": int(torch.isnan(got).sum().item())}
+    emit({"phase": "nan_first_frame", "dtype": "float32",
+          "held": False, "by_kernel": out})
 
 
 def phase_autograd(dw_act) -> None:
@@ -1218,7 +1429,7 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ACT_FUNCS + (
             "mm_fwd_s1_kernel", "mm_dx_s1_kernel", "dx_s2_kernel",
-            "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
+            "wgrad_kernel", "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -1424,18 +1635,20 @@ def _plan_row(dw_conv, shape, dtype, keys=("fwd", "wgrad")) -> dict:
     """The stride-1 kernels' work split (``plan_s1``) at x ``shape`` and
     what the card makes of it for each of ``keys``: blocks per SM (the
     occupancy API) and waves of the forward (K1 plain), the weight gradient
-    (K6 plain) or the act weight gradient (K6 act, ``act_wgrad``)."""
+    (K6 plain), the act weight gradient (K6 act, ``act_wgrad``) or the act
+    forward (K1 act, ``act_fwd``)."""
     p = dw_conv.plan_s1(*shape)
     lib = dw_conv.LIBRARY.build()
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
     row = {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
            "rows": p.rows, "threads": p.threads}
     for key in keys:
-        kind = ("fwd", "wgrad", "act_wgrad").index(key)
-        blocks = (p.rows if kind else p.items) * p.n_pg
+        kind = ("fwd", "wgrad", "act_wgrad", "act_fwd").index(key)
+        wgrad, act = kind in (1, 2), kind >= 2
+        blocks = (p.rows if wgrad else p.items) * p.n_pg
         occ = lib.dw_plain_s1_occupancy(kind, p.r, p.wb, p.pg, bf16)
         check(occ > 0, f"plan {shape} {dtype}: {key} does not fit ({occ})")
-        row[key] = {"blocks": blocks, "smem": p.smem(esz, kind > 0),
+        row[key] = {"blocks": blocks, "smem": p.smem(esz, wgrad, act),
                     "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
     return row
 
@@ -1448,22 +1661,26 @@ def _waves(blocks: int, per_sm: int) -> float:
 def _plan_row_s2(dw_conv, name, shape, dtype) -> dict:
     """The work split of stride-2 kernel ``name`` at x ``shape`` (over the
     output's rows and columns; the dx's over g's): its blocks (K4 plain, K8
-    and K5: one per tile; K10 plain: its persistent grid), shared memory,
-    blocks per SM and waves."""
+    and K5: one per tile; K10 plain and act: their persistent grid), shared
+    memory, blocks per SM and waves."""
     kind, plan, smem = {
         "dw_conv_s2": (0, dw_conv.plan_s2_fwd, dw_conv.smem_s2_fwd),
         "dw_conv_dx_s2": (1, dw_conv.plan_s2_dx, dw_conv.smem_s2_dx),
         "dw_conv_wgrad_s2": (2, dw_conv.plan_s2, dw_conv.smem_s2),
         "dw_act_dx_s2": (3, dw_conv.plan_act_dx_s2,
-                         dw_conv.smem_act_dx_s2)}[name]
+                         dw_conv.smem_act_dx_s2),
+        "dw_act_wgrad_s2": (4, dw_conv.plan_s2,
+                            lambda p, esz: dw_conv.smem_s2(p, esz, True)),
+    }[name]
     p = plan(*shape)
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
     occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(kind, p.r, p.wb,
                                                            p.pg, bf16)
     check(occ > 0, f"{name} plan {shape} {dtype}: does not fit ({occ})")
-    blocks = (p.rows if kind == 2 else p.items) * p.n_pg
+    wgrad = kind in (2, 4)
+    blocks = (p.rows if wgrad else p.items) * p.n_pg
     return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
-            **({"ipb": p.ipb, "rows": p.rows} if kind == 2 else {}),
+            **({"ipb": p.ipb, "rows": p.rows} if wgrad else {}),
             "threads": p.threads, "blocks": blocks, "smem": smem(p, esz),
             "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
 
@@ -2298,6 +2515,7 @@ def main() -> int:
     per_kernel = phase_kernels(dw_mm_act, dw_conv)
     phase_relu_branch(dw_mm_act, dw_mm_bn_train)
     per_kernel.update(phase_train_kernels(dw_act, dw_conv, dw_mm_act))
+    phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train)
     per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
     per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
     phase_autograd(dw_act)

@@ -39,11 +39,17 @@ __device__ __forceinline__ float bn_apply(float v, float sc, float bi) {
   return __fadd_rn(__fmul_rn(v, sc), bi);
 }
 
+// The relu of every kernel: one compare that keeps a NaN input, as
+// torch.relu and the JAX package's jnp.maximum(v, 0) keep it (fmaxf would
+// return 0: it returns its non-NaN operand). It gives -0 for -0, as
+// torch.relu does; no sum's value depends on the sign of a zero term.
+__device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
+
 // The train entry's activation a = relu(x*sc + bi), rounded to x's dtype T
 // (the stencil reads a as stored in T) and returned as f32
 template <typename T>
 __device__ __forceinline__ float act(float v, float sc, float bi) {
-  return to_f(from_f<T>(fmaxf(bn_apply(v, sc, bi), 0.f)));
+  return to_f(from_f<T>(relu(bn_apply(v, sc, bi))));
 }
 
 constexpr int KC = 32;  // input channels of conv1's product staged per pass

@@ -1,30 +1,27 @@
-// Backward of the train-mode X3D bottleneck entry for Hopper (sm_90a): the
-// entries not yet on the row-strip layout.
+// Backward of the matmul-fused X3D bottleneck entry for Hopper (sm_90a):
+// the entries not yet on the row-strip layout.
 //
-//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( x * sc + bi )          (act)
 //     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
 //
-// x (B,T,H,W,C) is the conv1 output (mm mode: conv1's input (B,T,H,W,Cin),
-// W1 (Cin,C)), channels-last, f32 or bf16; the depthwise taps w (27,C) have
-// x's dtype; sc/bi are bn1's f32 per-channel apply vectors from the batch
-// statistics. g is dL/dy (y's shape and dtype).
+// x (B,T,H,W,Cin) is conv1's input and W1 (Cin,C) its weight, channels-
+// last, f32 or bf16; the depthwise taps w (27,C) have x's dtype; sc/bi are
+// bn1's f32 per-channel apply vectors (from the batch statistics in the
+// train composite, the running ones in the eval entry). g is dL/dy (y's
+// shape and dtype).
 //
-// Four kernel entries, each replacing a TPU Pallas kernel of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (act mode: the backward of
-// dw_fold4_act, _dw_act_bwd; mm mode: the backward of the train composite
-// dw_fold4_mm_bn_train, _mm_bn_train_bwd, and of the eval entry
-// dw_fold4_mm_act, _dw_mm_bwd):
+// Three kernel entries, each replacing a TPU Pallas kernel of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (mm mode: the backward of
+// the train composite dw_fold4_mm_bn_train, _mm_bn_train_bwd, and of the
+// eval entry dw_fold4_mm_act, _dw_mm_bwd):
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
-//   * dw_act_wgrad_s2   <- _wgrad_s2_pcall -> _wgrad_s2_kernel (act mode,
-//                          K10 act)
 //   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode,
 //                          K6 mm)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode,
 //                          K10 mm)
 // (the plain mode, the backward of dw_fold4 and dw_fold4_stride2, is in
-// dw_plain_s1.cu and dw_plain_s2.cu, and so are the act mode's stride-2 dx
-// K5 and stride-1 weight gradient K6 act; the stride-1 dx of both modes, K3
-// and K2, is in dw_dx_s1.cu).
+// dw_plain_s1.cu and dw_plain_s2.cu, and so is the whole backward of the act
+// mode, _dw_act_bwd: K5, K6 act and K10 act; the stride-1 dx of both modes,
+// K3 and K2, is in dw_dx_s1.cu).
 //
 // dx:    da  = dL/da: at stride 2 the half-resolution gather
 //              da[t,r,c] = sum w[dt,dy,dx] g[t-dt+1, (r-dy+1)/2, (c-dx+1)/2]
@@ -38,9 +35,9 @@
 //              for inputs within one rounding of 0 (a flipped mask is an
 //              O(1) error in dx).
 // wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
-//        rounded, zero-padded activation as the forward (mm mode: the
-//        forward's prologue over the halo), summed in f32; per block an f32
-//        partial (27, C).
+//        rounded, zero-padded activation as the forward (the forward's
+//        prologue over the halo), summed in f32; per block an f32 partial
+//        (27, C).
 //
 // Reductions: no atomics. Each weight-gradient block writes its partial
 // sums to its own row of a (rows, 27, C) buffer after a fixed-order sum over
@@ -50,10 +47,10 @@
 // What bounds them on this card: bytes. dx reads g and x and writes dam
 // (27 MACs per element); wgrad reads x and g (27 MACs per element). Both sit
 // far below the ~295 operations per byte where the H100's tensor cores
-// would become the limit, and the stencil's MACs run on the FP32 cores. The
-// mm modes add conv1's product, Cin MACs per (position, channel): at most
-// 2*192 operations per 2 bytes of C_mid output, still below that line, but
-// on the FP32 cores here (moving it to wgmma is later work).
+// would become the limit, and the stencil's MACs run on the FP32 cores.
+// conv1's product adds Cin MACs per (position, channel): at most 2*192
+// operations per 2 bytes of C_mid output, still below that line, but on
+// the FP32 cores here (moving it to wgmma is later work).
 //
 // What the design does about it: the layout of dw_mm_act.cu's stride-2
 // entry. A block owns (frame segment, spatial tile, 32-channel chunk),
@@ -61,10 +58,10 @@
 // (g for dx, the activated x for wgrad) in a shared-memory ring, so each
 // frame is read once per tile plus a halo. Each lane owns one channel: ring
 // reads are conflict-free, loads and stores of channels-last tensors are
-// contiguous along C. Loads are per element because C = 54, 108, ... is no
-// multiple of 8 (mm mode stages x with 16-byte loads, Cin % 8 == 0). The
+// contiguous along C. g is loaded per element because C = 54, 108, ... is
+// no multiple of 8 (x is staged with 16-byte loads, Cin % 8 == 0). The
 // activation, the mask and the reduction are fused in, so neither a nor da
-// (nor, in mm mode, conv1's C-wide product) ever goes to device memory.
+// nor conv1's C-wide product ever goes to device memory.
 
 #include "common.cuh"
 
@@ -74,9 +71,6 @@ using namespace cfn;
 
 constexpr int TT_DX = 8;   // frames per block, dx
 constexpr int TT_WG = 16;  // frames per block, wgrad (fewer partial rows)
-
-// act: the prologue relu(x*sc + bi); mm: relu((x@W1)*sc + bi)
-enum Mode { ACT, MM };
 
 // ---- geometry ---------------------------------------------------------------
 // The weight gradients use StencilGeom<S> (common.cuh), the forward's
@@ -95,13 +89,12 @@ struct GGeom {
 
 // Loads one frame of a (B,T,h,w,C) tensor over a halo of HR x WR positions
 // at (iy0, ix0) into a ring slot, zero outside the tensor and for channels
-// >= C. With ACT the value is relu(v*sc + bi) rounded to T (the forward's
-// activation; zero padding stays zero).
-template <typename T, bool ACT, int P, int WR, int NPA>
+// >= C.
+template <typename T, int P, int WR, int NPA>
 __device__ __forceinline__ void load_frame(float* slot, const T* src, int b,
                                            int ti, int Tn, int h, int w,
                                            int C, int iy0, int ix0, int c,
-                                           bool cval, float scv, float biv) {
+                                           bool cval) {
   const int lane = threadIdx.x, warp = threadIdx.y;
   const bool tin = ti >= 0 && ti < Tn;  // uniform across the block
   const T* f = src + (size_t)(b * Tn + (tin ? ti : 0)) * h * w * C;
@@ -111,10 +104,8 @@ __device__ __forceinline__ void load_frame(float* slot, const T* src, int b,
     if (p < P) {
       const int gy = iy0 + p / WR, gx = ix0 + p % WR;
       float v = 0.f;
-      if (tin && cval && gy >= 0 && gy < h && gx >= 0 && gx < w) {
+      if (tin && cval && gy >= 0 && gy < h && gx >= 0 && gx < w)
         v = to_f(f[((size_t)gy * w + gx) * C + c]);
-        if (ACT) v = act<T>(v, scv, biv);
-      }
       slot[p * CC + lane] = v;
     }
   }
@@ -177,9 +168,9 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * C + c]) : 0.f;
 
   auto load = [&](int ti) {
-    load_frame<T, false, G::P, G::WR, G::NPA>(
-        ring + slot_of(ti) * G::P * CC, g, b, ti, Tn, Ho, Wo, C, r0 / 2,
-        q0 / 2, c, cval, 0.f, 0.f);
+    load_frame<T, G::P, G::WR, G::NPA>(ring + slot_of(ti) * G::P * CC, g, b,
+                                       ti, Tn, Ho, Wo, C, r0 / 2, q0 / 2, c,
+                                       cval);
   };
   load(t0 - 1);
   load(t0);
@@ -226,10 +217,9 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
 }
 
 // ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
-// x (B,T,H,W,C) (mm: (B,T,H,W,Cin) with w1 (Cin,C)); g (B,T,Ho,Wo,C), Ho =
-// (H-1)/S + 1. The tile is over g. The stencil reads relu(x*sc + bi) (ACT),
-// or relu((x@W1)*sc + bi) (MM).
-template <typename T, int S, int MODE>
+// x (B,T,H,W,Cin) with w1 (Cin,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1. The
+// tile is over g. The stencil reads relu((x@W1)*sc + bi).
+template <typename T, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
              const T* __restrict__ g, const float* __restrict__ sc,
@@ -238,8 +228,8 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
              int n_tseg) {
   using G = SGeom<S>;
   extern __shared__ __align__(16) float ring[];  // [3][P][CC]
-  float* xs = ring + ring_floats<27, G::P>();    // mm: [P][KC]
-  float* ws = xs + G::P * KC;                    // mm: [KC][CC]
+  float* xs = ring + ring_floats<27, G::P>();    // [P][KC]
+  float* ws = xs + G::P * KC;                    // [KC][CC]
   const int lane = threadIdx.x, warp = threadIdx.y;
   const int oy0 = (blockIdx.x / n_tx) * G::OH;
   const int ox0 = (blockIdx.x % n_tx) * G::OW;
@@ -254,26 +244,20 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
   auto load = [&](int ti) {
     float* slot = ring + slot_of(ti) * G::P * CC;
-    if constexpr (MODE == MM) {
-      if (ti < 0 || ti >= Tn) {  // uniform across the block
-        for (int i = warp * 32 + lane; i < G::P * CC; i += WARPS * 32)
-          slot[i] = 0.f;
-        return;
-      }
-      // the forward's prologue over the halo
-      float a[G::NPA];
-      mm_prologue<T, false, G::P, G::WR, G::NPA>(
-          a, xs, ws, x + (size_t)(b * Tn + ti) * H * W * Cin, w1, H, W, Cin,
-          C, c0, S * oy0 - 1, S * ox0 - 1, scv, biv);
+    if (ti < 0 || ti >= Tn) {  // uniform across the block
+      for (int i = warp * 32 + lane; i < G::P * CC; i += WARPS * 32)
+        slot[i] = 0.f;
+      return;
+    }
+    // the forward's prologue over the halo
+    float a[G::NPA];
+    mm_prologue<T, false, G::P, G::WR, G::NPA>(
+        a, xs, ws, x + (size_t)(b * Tn + ti) * H * W * Cin, w1, H, W, Cin, C,
+        c0, S * oy0 - 1, S * ox0 - 1, scv, biv);
 #pragma unroll
-      for (int j = 0; j < G::NPA; ++j) {
-        const int p = warp + j * WARPS;
-        if (p < G::P) slot[p * CC + lane] = a[j];
-      }
-    } else {
-      load_frame<T, MODE == ACT, G::P, G::WR, G::NPA>(
-          slot, x, b, ti, Tn, H, W, C, S * oy0 - 1, S * ox0 - 1, c, cval,
-          scv, biv);
+    for (int j = 0; j < G::NPA; ++j) {
+      const int p = warp + j * WARPS;
+      if (p < G::P) slot[p * CC + lane] = a[j];
     }
   };
   float acc[27];
@@ -314,11 +298,10 @@ wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
 // ---- launchers ----------------------------------------------------------------
 // Dynamic shared memory: the ring (reused at the end for the warps' partial
-// sums, K per lane and warp), then in mm mode the staged x chunk of NP
-// positions and the staged W1 chunk.
-template <int MODE>
+// sums, K per lane and warp), then the staged x chunk of NP positions and
+// the staged W1 chunk.
 constexpr size_t smem_bytes(size_t ring, int np) {
-  return sizeof(float) * (ring + (MODE == MM ? np * KC + KC * CC : 0));
+  return sizeof(float) * (ring + np * KC + KC * CC);
 }
 
 template <typename T>
@@ -326,7 +309,7 @@ int launch_dx_s2(const void* g, const void* x, const void* w1, const void* w,
                  const void* sc, const void* bi, void* dx, int B, int Tn,
                  int H, int W, int Cin, int C, cudaStream_t st) {
   using G = GGeom;
-  constexpr size_t smem = smem_bytes<MM>(3 * G::P * CC, G::OH * G::OW);
+  constexpr size_t smem = smem_bytes(3 * G::P * CC, G::OH * G::OW);
   if (int e = set_smem(dx_s2_kernel<T>, smem)) return e;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   const int n_tx = cdiv(W, G::OW), n_tseg = cdiv(Tn, TT_DX);
@@ -337,17 +320,17 @@ int launch_dx_s2(const void* g, const void* x, const void* w1, const void* w,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int S, int MODE>
+template <typename T, int S>
 int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
                  const void* bi, void* part, int B, int Tn, int H, int W,
                  int Cin, int C, cudaStream_t st) {
   using G = SGeom<S>;
-  constexpr size_t smem = smem_bytes<MODE>(ring_floats<27, G::P>(), G::P);
-  if (int e = set_smem(wgrad_kernel<T, S, MODE>, smem)) return e;
+  constexpr size_t smem = smem_bytes(ring_floats<27, G::P>(), G::P);
+  if (int e = set_smem(wgrad_kernel<T, S>, smem)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT_WG);
   const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(C, CC), B * n_tseg);
-  wgrad_kernel<T, S, MODE><<<grid, dim3(32, WARPS), smem, st>>>(
+  wgrad_kernel<T, S><<<grid, dim3(32, WARPS), smem, st>>>(
       (const T*)x, (const T*)w1, (const T*)g, (const float*)sc,
       (const float*)bi, (float*)part, Tn, H, W, Ho, Wo, Cin, C, n_tx, n_tseg);
   return (int)cudaGetLastError();
@@ -360,7 +343,7 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // have the row counts of dw_act_partial_rows.
 
 // Rows of the partial-sum buffer of each weight gradient: kind 1 at stride
-// 1, kind 2 at stride (1,2,2) (the mm mode has the act mode's rows).
+// 1, kind 2 at stride (1,2,2).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
@@ -377,18 +360,7 @@ extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
   return -1;
 }
 
-extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
-                               const void* bi, void* part, int B, int T, int H,
-                               int W, int C, int is_bf16, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2, ACT>(x, nullptr, g, sc, bi, part, B,
-                                               T, H, W, C, C, st);
-  return launch_wgrad<float, 2, ACT>(x, nullptr, g, sc, bi, part, B, T, H, W, C,
-                                     C, st);
-}
-
-// mm mode: x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and
+// x is conv1's input (B,T,H,W,Cin), w1 (Cin,C) its weight; g and
 // dam have C channels: dam = da * relu'((x@W1)*sc + bi) in g's dtype.
 extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
                                 const void* w, const void* sc, const void* bi,
@@ -408,10 +380,10 @@ extern "C" int dw_mm_wgrad_s1(const void* x, const void* w1, const void* g,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1, MM>(x, w1, g, sc, bi, part, B, T, H,
-                                              W, Cin, C, st);
-  return launch_wgrad<float, 1, MM>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
-                                    st);
+    return launch_wgrad<__nv_bfloat16, 1>(x, w1, g, sc, bi, part, B, T, H,
+                                          W, Cin, C, st);
+  return launch_wgrad<float, 1>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
+                                st);
 }
 
 extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
@@ -420,8 +392,8 @@ extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 2, MM>(x, w1, g, sc, bi, part, B, T, H,
-                                              W, Cin, C, st);
-  return launch_wgrad<float, 2, MM>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
-                                    st);
+    return launch_wgrad<__nv_bfloat16, 2>(x, w1, g, sc, bi, part, B, T, H,
+                                          W, Cin, C, st);
+  return launch_wgrad<float, 2>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
+                                st);
 }

@@ -3,18 +3,19 @@
 //   mm    (eval):            y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
 //   act   (train):           y = dwconv3x3x3( relu( x * sc + bi ) )
 //
-// at stride 1 or (1,2,2); the mm mode at stride 1 has a layout of its own
-// here, mm_fwd_s1_kernel. (The plain mode of the split-batch-norm route,
-// y = dwconv3x3x3( x ), is in dw_plain_s1.cu and dw_plain_s2.cu.)
+// the mm mode at stride 1 and (1,2,2), the act mode at stride (1,2,2); the
+// mm mode at stride 1 has a layout of its own here, mm_fwd_s1_kernel. (The
+// act mode at stride 1, K1 act, and the plain mode of the split-batch-norm
+// route, y = dwconv3x3x3( x ), are in dw_plain_s1.cu and dw_plain_s2.cu.)
 // x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
 // vectors of bn1 (running statistics in eval, batch statistics in train). In
 // act mode x is the conv1 output and C_in == C_mid.
 //
-// Replaces two modes of two TPU Pallas kernels of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
-//   * dw_mm_act_s1 / dw_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1,
-//     modes mm and act), and
+// Replaces the mm mode of two TPU Pallas kernels of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py, and the act mode of one:
+//   * dw_mm_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1, mode mm),
+//     and
 //   * dw_mm_act_s2 / dw_act_s2 <- _fwd_s2_direct_pcall ->
 //     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
 //     positions is computed; modes mm and act),
@@ -362,14 +363,14 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
         [&](int at, int ch, float v0, float v1) {
           if constexpr (BF) {
             *reinterpret_cast<__nv_bfloat162*>(sl + at + ch) =
-                __floats2bfloat162_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+                __floats2bfloat162_rn(relu(v0), relu(v1));
           } else {
             *reinterpret_cast<float2*>(sl + at + ch) =
-                make_float2(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
+                make_float2(relu(v0), relu(v1));
           }
         },
         [&](int at, int cc, float v) {
-          sl[at + cc] = from_f<T>(fmaxf(v, 0.f));
+          sl[at + cc] = from_f<T>(relu(v));
         });
   };
 
@@ -505,14 +506,7 @@ extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
                          is_bf16, stream);
 }
 
-// act mode: x is (B,T,H,W,C), the conv1 output; no W1.
-extern "C" int dw_act_s1(const void* x, const void* wdw, const void* sc,
-                         const void* bi, void* y, int B, int T, int H, int W,
-                         int C, int is_bf16, void* stream) {
-  return dispatch<1, ACT>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
-                          is_bf16, stream);
-}
-
+// act mode (K4 act): x is (B,T,H,W,C), the conv1 output; no W1.
 extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
                          const void* bi, void* y, int B, int T, int H, int W,
                          int C, int is_bf16, void* stream) {

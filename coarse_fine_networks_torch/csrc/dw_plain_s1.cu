@@ -1,5 +1,5 @@
 // The plain depthwise 3x3x3 conv at stride 1 of the split-batch-norm
-// training route, its weight gradient, and the weight gradient of the act
+// training route and its weight gradient, and the same two of the act
 // training entry, for Hopper (sm_90a):
 //
 //   dw_conv_s1        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
@@ -9,10 +9,11 @@
 //   dw_conv_wgrad_s1  dk[dt,dy,dx,c] = sum_{t,h,w} x_pad[t+dt, h+dy, w+dx, c]
 //                                      * g[t,h,w,c]
 //                     per block an f32 partial row (27, C)
-//   dw_act_wgrad_s1   the same sum over a_pad, a = relu(x*sc + bi) rounded
-//                     to x's dtype (x*sc and + bi rounded apart, as the
-//                     forward's act<T>), zero-padded after the activation;
-//                     sc/bi are bn1's f32 per-channel apply vectors
+//   dw_act_s1         dw_conv_s1 of a = relu(x*sc + bi) rounded to x's
+//                     dtype (x*sc and + bi rounded apart, as act<T>), zero-
+//                     padded after the activation; sc/bi are bn1's f32
+//                     per-channel apply vectors
+//   dw_act_wgrad_s1   dw_conv_wgrad_s1's sum over a_pad, a as above
 //
 // x, y and g are channels-last (B,T,H,W,C), f32 or bf16; the taps k (27,C)
 // have x's dtype. Every sum is in f32; y is written in x's dtype.
@@ -22,6 +23,8 @@
 //   * dw_conv_s1       <- _dw_fold4_pcall (:532) -> _fwd_kernel (:379),
 //                         plain mode (K1 plain), also the stride-1 dx of
 //                         _dw_fold4_bwd;
+//   * dw_act_s1        <- the same, act mode with the prologue _act_tile
+//                         (:261) (K1 act): the forward of dw_fold4_act;
 //   * dw_conv_wgrad_s1 <- _dw_fold4_wgrad_pcall (:705) -> _wgrad_kernel
 //                         (:478), plain mode (K6 plain);
 //   * dw_act_wgrad_s1  <- the same, act mode (K6 act): the backward of
@@ -66,15 +69,18 @@
 //     group, then sums its threads' columns in a fixed order and writes one
 //     partial row; the wrapper adds the rows with one torch.sum, so runs
 //     repeat bit for bit and nothing uses atomics.
-//   * The act weight gradient is the same kernel body with a template flag
-//     (act_wgrad_s1_kernel beside plain_wgrad_kernel): each x pair is
-//     activated as it is read, and the x part of the ring is cleared to NaN,
-//     which the activation maps to 0, so the padding is the zero of a, not
-//     relu(bi), with no mask of rows and columns. Its sums equal K6 plain's
-//     on the activated x bit for bit; it costs (R+2)*3 pair activations per
-//     frame and thread, and the pair's sc and bi in registers.
+//   * The act modes are the same kernel bodies with a template flag
+//     (act_fwd_s1_kernel beside plain_fwd_kernel, act_wgrad_s1_kernel
+//     beside plain_wgrad_kernel). The ring holds one frame more
+//     (NSTAGE_ACT), and each thread activates in place the x pairs it
+//     copied of the next frame while the block reads this one (act_own,
+//     strip.cuh): a pair is activated once, not once per reader (the
+//     forward's pairs have three), and off the barrier's path. Rows and
+//     columns outside the frame are never copied, so they stay the zero
+//     of a, not relu(bi), with no mask. The stencil is the plain one, so y
+//     and the sums equal K1 and K6 plain's on the activated x bit for bit.
 // The split (R, WB, PG, TT and, for the weight gradients, IPB and the row
-// count) is computed by the wrappers (ops/dw_conv.py:plan_s1, for all three)
+// count) is computed by the wrappers (ops/dw_conv.py:plan_s1, for all four)
 // and checked here; a plan the kernels do not take returns
 // cudaErrorInvalidValue.
 
@@ -84,17 +90,26 @@ namespace {
 
 using namespace cfn;
 
-// ---- forward ----------------------------------------------------------------
+// ---- forward (K1 plain; K1 act) ---------------------------------------------------
 // Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
 // with c = 2*(p0 + pi). acc[j][r] holds output frame ti - 1 + j of row
 // h0 + r while input frame ti is read: frame ti adds tap dt = 2 - j to it.
 // After frame ti, acc[0] (output ti - 1) is complete, is written, and the
 // ring shifts. Staged row rr is input row h0 - 1 + rr; staged column j is
 // input column w0 - 1 + j.
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                 T* __restrict__ y, int Tn, int H, int W, int C, Plan pl) {
+//
+// ACT (the act entry's forward, K1 act): the stencil reads a = relu(x*sc +
+// bi) rounded to T, activated in place a frame ahead in a ring of
+// NSTAGE_ACT frames (act_own, strip.cuh); the stencil and its order are
+// K1 plain's, so y is K1 plain's on the activated x bit for bit.
+template <typename T, int R, bool ACT>
+__device__ __forceinline__ void fwd_body(const T* __restrict__ x,
+                                         const T* __restrict__ k,
+                                         const float* __restrict__ sc,
+                                         const float* __restrict__ bi,
+                                         T* __restrict__ y, int Tn, int H,
+                                         int W, int C, const Plan& pl) {
+  constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -119,6 +134,8 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
     k0[i] = live ? to_f(k[i * C + c]) : 0.f;
     k1[i] = live && second ? to_f(k[i * C + c + 1]) : 0.f;
   }
+  float2 scp, bip;  // ACT: bn1's apply of the thread's pair
+  if constexpr (ACT) pair_vecs(scp, bip, sc, bi, c, C);
 
   const size_t frame = (size_t)H * W * C;
   const T* xb = x + (size_t)tl.b * Tn * frame;
@@ -127,9 +144,15 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
   auto load = [&](int i) {
     const int ti = f0 + i;
     if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
-      sg.rows(ring + (i % NSTAGE) * stage, xb + (size_t)ti * frame,
-              tl.h0 - 1, R + 2, H, W, rowlen, true);
+      sg.rows(ring + (i % NS) * stage, xb + (size_t)ti * frame, tl.h0 - 1,
+              R + 2, H, W, rowlen, true);
     cp_commit();
+  };
+  auto own = [&](int i) {  // ACT: the thread's copies of frame i, in place
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn)
+      sg.act_rows<R + 2>(ring + (i % NS) * stage, tl.h0 - 1, H, rowlen, scp,
+                         bip);
   };
 
   float acc[3][R][2];
@@ -138,16 +161,21 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
 
-  zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
-  for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+  zero_ring(smem_raw, NS * stage * (int)sizeof(T));
+  for (int i = 0; i < NS - 1; ++i) load(i);
+  if constexpr (ACT) act_own(own, 0);
   for (int i = 0; i < nf; ++i) {
-    cp_wait<NSTAGE - 2>();  // this thread's copies of frame i have landed
-    __syncthreads();        // and everyone's; frame i-1 is read by no one
-    load(i + NSTAGE - 1);   // into frame i-1's slot
+    // this thread's copies of frame i have landed (ACT: and everyone's are
+    // activated); after the barrier everyone's, and frame i-1 is read by
+    // no one
+    if constexpr (!ACT) cp_wait<NS - 2>();
+    __syncthreads();
+    load(i + NS - 1);  // into frame i-1's slot
+    if constexpr (ACT) act_own(own, i + 1);
     const int ti = f0 + i;
     if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
       stencil_frame<T, R>(
-          ring + (i % NSTAGE) * stage + wl * PG2 + 2 * pi, rowlen, PG2,
+          ring + (i % NS) * stage + wl * PG2 + 2 * pi, rowlen, PG2,
           [&](int j, int r, int dy, int dx, float2 v) {
             const int tap = ((2 - j) * 3 + dy) * 3 + dx;
             acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
@@ -176,6 +204,21 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
   cp_wait<0>();
 }
 
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                 T* __restrict__ y, int Tn, int H, int W, int C, Plan pl) {
+  fwd_body<T, R, false>(x, k, nullptr, nullptr, y, Tn, H, W, C, pl);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+act_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                  const float* __restrict__ sc, const float* __restrict__ bi,
+                  T* __restrict__ y, int Tn, int H, int W, int C, Plan pl) {
+  fwd_body<T, R, true>(x, k, sc, bi, y, Tn, H, W, C, pl);
+}
+
 // ---- weight gradient ------------------------------------------------------------
 // Thread (wl, pi) as in the forward. Slot i of the ring holds x frame
 // f0 + i (rows h0-1 .. h0+R, columns w0-1 .. w0+WB) and g frame f0 + i + 1
@@ -185,18 +228,18 @@ plain_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 // dt = 2 - j. acc[tap] sums x * g over the thread's whole walk.
 //
 // ACT (the act entry's weight gradient, K6 act): the stencil reads a =
-// relu(x*sc + bi) rounded to T, applied to each x pair as it is read (the
-// pair's sc and bi in registers). The x part of the ring is cleared to NaN,
-// not zero: rows and columns outside the frame are never copied, and act()
-// maps NaN to 0 (fmaxf returns its non-NaN operand), the zero padding of a,
-// where a zero x would read as relu(bi). Nothing else changes, so the sums
-// are K6 plain's on the activated x, in its order.
+// relu(x*sc + bi) rounded to T, the x part of each slot activated in place
+// a frame ahead in a ring of NSTAGE_ACT frames (act_own, strip.cuh); rows
+// and columns outside the frame are never copied and stay the zero padding
+// of a. Nothing else changes, so the sums are K6 plain's on the activated
+// x, in its order.
 template <typename T, int R, bool ACT>
 __device__ __forceinline__ void wgrad_body(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ sc, const float* __restrict__ bi,
     float* __restrict__ part, int Tn, int H, int W, int C, const Plan& pl,
     int n_items, int ipb) {
+  constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -214,19 +257,8 @@ __device__ __forceinline__ void wgrad_body(
   float acc[27][2];
 #pragma unroll
   for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
-  // ACT: bn1's apply of the thread's pair (zero past C: act(0) = 0)
-  float2 scp = make_float2(0.f, 0.f), bip = make_float2(0.f, 0.f);
-  if constexpr (ACT) {
-    const int c = 2 * (pg * PG + pi);
-    if (c < C) {
-      scp.x = sc[c];
-      bip.x = bi[c];
-    }
-    if (c + 1 < C) {
-      scp.y = sc[c + 1];
-      bip.y = bi[c + 1];
-    }
-  }
+  float2 scp, bip;  // ACT: bn1's apply of the thread's pair
+  if constexpr (ACT) pair_vecs(scp, bip, sc, bi, 2 * (pg * PG + pi), C);
 
   const int row = blockIdx.x;
   const int it1 = min((row + 1) * ipb, n_items);
@@ -238,7 +270,7 @@ __device__ __forceinline__ void wgrad_body(
     const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
     auto load = [&](int i) {
       if (i < nf) {  // uniform across the block
-        T* slot = ring + (i % NSTAGE) * stage;
+        T* slot = ring + (i % NS) * stage;
         const int ti = f0 + i, tg = ti + 1;
         if (ti >= 0 && ti < Tn)
           sg.rows(slot, xb + (size_t)ti * frame, tl.h0 - 1, R + 2, H, W,
@@ -249,6 +281,12 @@ __device__ __forceinline__ void wgrad_body(
       }
       cp_commit();
     };
+    auto own = [&](int i) {  // ACT: the thread's x copies of frame i
+      const int ti = f0 + i;
+      if (i < nf && ti >= 0 && ti < Tn)
+        sg.act_rows<R + 2>(ring + (i % NS) * stage, tl.h0 - 1, H, rowlen,
+                           scp, bip);
+    };
 
     float gr[3][R][2];
 #pragma unroll
@@ -256,29 +294,16 @@ __device__ __forceinline__ void wgrad_body(
 #pragma unroll
       for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
 
-    if constexpr (ACT) {
-      // each slot's x frame NaN, its g frame zero (16-byte words)
-      const uint4 nan4 = sizeof(T) == 4
-                             ? make_uint4(0x7fc00000u, 0x7fc00000u,
-                                          0x7fc00000u, 0x7fc00000u)
-                             : make_uint4(0x7fc07fc0u, 0x7fc07fc0u,
-                                          0x7fc07fc0u, 0x7fc07fc0u);
-      const int xw = xstage * (int)sizeof(T) / 16;
-      const int sw = stage * (int)sizeof(T) / 16;
-      for (int q = tid; q < NSTAGE * sw; q += blockDim.x)
-        reinterpret_cast<uint4*>(smem_raw)[q] =
-            q % sw < xw ? nan4 : make_uint4(0, 0, 0, 0);
-      __syncthreads();
-    } else {
-      zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
-    }
-    for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+    zero_ring(smem_raw, NS * stage * (int)sizeof(T));
+    for (int i = 0; i < NS - 1; ++i) load(i);
+    if constexpr (ACT) act_own(own, 0);
     for (int i = 0; i < nf; ++i) {
-      cp_wait<NSTAGE - 2>();
+      if constexpr (!ACT) cp_wait<NS - 2>();
       __syncthreads();
-      load(i + NSTAGE - 1);
+      load(i + NS - 1);
+      if constexpr (ACT) act_own(own, i + 1);
       const int ti = f0 + i, tg = ti + 1;
-      const T* slot = ring + (i % NSTAGE) * stage;
+      const T* slot = ring + (i % NS) * stage;
       const bool gin = in && tg >= tl.t0 && tg < tl.t1;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -298,13 +323,6 @@ __device__ __forceinline__ void wgrad_body(
               const int tap = ((2 - j) * 3 + dy) * 3 + dx;
               acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
               acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
-            },
-            [&](float2 v) {  // ACT: a as the forward computes it
-              if constexpr (ACT)
-                return make_float2(act<T>(v.x, scp.x, bip.x),
-                                   act<T>(v.y, scp.y, bip.y));
-              else
-                return v;
             });
     }
     cp_wait<0>();
@@ -354,27 +372,38 @@ act_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ g,
 // ---- launchers -----------------------------------------------------------------
 
 // Dynamic shared memory of the forward (the ring) and of the weight
-// gradient (the ring of x and g frames, or the column sums if larger).
+// gradient (the ring of x and g frames, or the column sums if larger); the
+// act modes' rings hold NSTAGE_ACT frames.
 template <typename T>
-size_t fwd_smem(int R, int WB, int PG) {
-  return sizeof(T) * NSTAGE * stage_elems<T>(R + 2, WB, PG);
+size_t fwd_smem(int R, int WB, int PG, bool act) {
+  return sizeof(T) * (act ? NSTAGE_ACT : NSTAGE) *
+         stage_elems<T>(R + 2, WB, PG);
 }
 template <typename T>
-size_t wgrad_smem(int R, int WB, int PG) {
+size_t wgrad_smem(int R, int WB, int PG, bool act) {
   const size_t ring =
-      sizeof(T) * NSTAGE * (stage_elems<T>(R + 2, WB, PG) +
-                            stage_elems<T>(R, WB, PG));
+      sizeof(T) * (act ? NSTAGE_ACT : NSTAGE) *
+      (stage_elems<T>(R + 2, WB, PG) + stage_elems<T>(R, WB, PG));
   const size_t red = sizeof(float) * 27 * WB * 2 * PG;
   return ring > red ? ring : red;
 }
 
-// The kernel instantiation for R output rows (RMIN..RMAX), or null.
+// The kernel instantiations for R output rows (RMIN..RMAX), or null.
 template <typename T>
 decltype(&plain_fwd_kernel<T, RMAX>) fwd_kernel(int R) {
   switch (R) {
     case 2: return plain_fwd_kernel<T, 2>;
     case 3: return plain_fwd_kernel<T, 3>;
     case 4: return plain_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&act_fwd_s1_kernel<T, RMAX>) act_fwd_kernel_of(int R) {
+  switch (R) {
+    case 2: return act_fwd_s1_kernel<T, 2>;
+    case 3: return act_fwd_s1_kernel<T, 3>;
+    case 4: return act_fwd_s1_kernel<T, 4>;
   }
   return nullptr;
 }
@@ -397,20 +426,33 @@ decltype(&act_wgrad_s1_kernel<T, RMAX>) act_wgrad_kernel_of(int R) {
   return nullptr;
 }
 
-template <typename T>
-int launch_fwd(const void* x, const void* k, void* y, int B, int Tn, int H,
-               int W, int C, int R, int WB, int PG, int TT, cudaStream_t st) {
+// The forward of x (plain) or of relu(x*sc + bi) (ACT; sc and bi unused
+// otherwise): one block per tile.
+template <typename T, bool ACT>
+int launch_fwd(const void* x, const void* k, const void* sc, const void* bi,
+               void* y, int B, int Tn, int H, int W, int C, int R, int WB,
+               int PG, int TT, cudaStream_t st) {
   Plan p;
   if (!make_plan<T>(p, (uintptr_t)x, B, Tn, H, W, C, R, WB, PG, TT))
     return (int)cudaErrorInvalidValue;
-  const auto kern = fwd_kernel<T>(R);
-  const size_t smem = fwd_smem<T>(R, WB, PG);
-  if (int e = set_smem(kern, smem)) return e;
+  const size_t smem = fwd_smem<T>(R, WB, PG, ACT);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const long long blocks =
       (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
-  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<T*>(y),
-      Tn, H, W, C, p);
+  if constexpr (ACT) {
+    const auto kern = act_fwd_kernel_of<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(k),
+        static_cast<const float*>(sc), static_cast<const float*>(bi),
+        static_cast<T*>(y), Tn, H, W, C, p);
+  } else {
+    const auto kern = fwd_kernel<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(k),
+        static_cast<T*>(y), Tn, H, W, C, p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -431,7 +473,8 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
   if (rows < 1 || (long long)rows * ipb < items ||
       (long long)(rows - 1) * ipb >= items)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = wgrad_smem<T>(R, WB, PG);
+  const size_t smem = wgrad_smem<T>(R, WB, PG, ACT);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
   const dim3 grid(rows, p.n_pg);
   if constexpr (ACT) {
     const auto kern = act_wgrad_kernel_of<T>(R);
@@ -456,13 +499,17 @@ int occupancy(int kind, int R, int WB, int PG) {
   const int threads = (WB * PG + 31) / 32 * 32;
   switch (kind) {
     case 0:
-      return blocks_per_sm(fwd_kernel<T>(R), fwd_smem<T>(R, WB, PG), threads);
-    case 1:
-      return blocks_per_sm(wgrad_kernel_of<T>(R), wgrad_smem<T>(R, WB, PG),
+      return blocks_per_sm(fwd_kernel<T>(R), fwd_smem<T>(R, WB, PG, false),
                            threads);
+    case 1:
+      return blocks_per_sm(wgrad_kernel_of<T>(R),
+                           wgrad_smem<T>(R, WB, PG, false), threads);
     case 2:
       return blocks_per_sm(act_wgrad_kernel_of<T>(R),
-                           wgrad_smem<T>(R, WB, PG), threads);
+                           wgrad_smem<T>(R, WB, PG, true), threads);
+    case 3:
+      return blocks_per_sm(act_fwd_kernel_of<T>(R),
+                           fwd_smem<T>(R, WB, PG, true), threads);
   }
   return -1;
 }
@@ -478,9 +525,24 @@ extern "C" int dw_conv_s1(const void* x, const void* k, void* y, int B, int T,
                           int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_fwd<__nv_bfloat16>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
-                                     st);
-  return launch_fwd<float>(x, k, y, B, T, H, W, C, R, WB, PG, TT, st);
+    return launch_fwd<__nv_bfloat16, false>(x, k, nullptr, nullptr, y, B, T,
+                                            H, W, C, R, WB, PG, TT, st);
+  return launch_fwd<float, false>(x, k, nullptr, nullptr, y, B, T, H, W, C, R,
+                                  WB, PG, TT, st);
+}
+
+// The act entry's forward (K1 act): y of a = relu(x*sc + bi) rounded to x's
+// dtype, zero-padded; sc and bi are f32 (C,). The split is dw_conv_s1's.
+extern "C" int dw_act_s1(const void* x, const void* k, const void* sc,
+                         const void* bi, void* y, int B, int T, int H, int W,
+                         int C, int R, int WB, int PG, int TT, int is_bf16,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16, true>(x, k, sc, bi, y, B, T, H, W, C, R,
+                                           WB, PG, TT, st);
+  return launch_fwd<float, true>(x, k, sc, bi, y, B, T, H, W, C, R, WB, PG,
+                                 TT, st);
 }
 
 // part is (rows, 27, C) f32; block row r walks items [r*IPB, (r+1)*IPB).
@@ -516,7 +578,7 @@ extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads
 // and shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
 // where it does not take the plan; kind 0 is the forward, 1 the weight
-// gradient, 2 the act weight gradient.
+// gradient, 2 the act weight gradient, 3 the act forward.
 extern "C" int dw_plain_s1_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
   return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)

@@ -1,6 +1,6 @@
 // The plain depthwise 3x3x3 conv at stride (1,2,2) of the split-batch-norm
 // training route, for Hopper (sm_90a): its forward, its dx and its weight
-// gradient:
+// gradient; and the dx and the weight gradient of the act training entry:
 //
 //   dw_conv_s2        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
 //                                   x[t+dt-1, 2h+dy-1, 2w+dx-1, c]
@@ -16,6 +16,9 @@
 //                     apart, as the forward's activation), dx = dam*sc in
 //                     x's dtype, and per block the f32 partial sums
 //                     (sum dam*x, sum dam) per channel -> (dsc, dbi)
+//   dw_act_wgrad_s2   dw_conv_wgrad_s2's sum over a_pad, a = relu(x*sc +
+//                     bi) rounded to x's dtype (x*sc and + bi rounded
+//                     apart, as act<T>), zero-padded after the activation
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
@@ -23,7 +26,7 @@
 // are written in the input's dtype.
 //
 // Replaces the plain mode of three TPU Pallas kernels, and the act mode of
-// one, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+// two, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_conv_s2       <- _fwd_s2_direct_pcall (:1078) ->
 //                         _fwd_s2_direct_kernel (:1035), plain mode
 //                         (K4 plain);
@@ -33,7 +36,9 @@
 //                         act mode (K5): the backward of dw_fold4_act,
 //                         _dw_act_bwd;
 //   * dw_conv_wgrad_s2 <- _wgrad_s2_pcall (:1279) -> _wgrad_s2_kernel
-//                         (:1122), plain mode (K10 plain).
+//                         (:1122), plain mode (K10 plain);
+//   * dw_act_wgrad_s2  <- the same, act mode (K10 act): the backward of
+//                         dw_fold4_act, _dw_act_bwd.
 // The fold4 lane layout, its even/odd de-interleave and the sublane-pair
 // bitcasts are TPU mechanics and are not carried over.
 //
@@ -118,13 +123,23 @@
 //     then sums its threads' columns in a fixed order and writes one partial
 //     row; the wrapper adds the rows with one torch.sum, so runs repeat bit
 //     for bit and nothing uses atomics.
+//   * The act weight gradient (K10 act) is the same body with a template
+//     flag (act_s2_wgrad_kernel beside plain_s2_wgrad_kernel): the ring
+//     holds one frame more (NSTAGE_ACT), and each thread activates in place
+//     the x pairs it copied of the next frame (its even, odd and halo
+//     columns) while the block reads this one (act_own, strip.cuh): once
+//     per pair, where an activation as read would take 1.5 per pair, and
+//     off the barrier's path. Rows and columns outside the frame are never
+//     copied and stay the zero of a, not relu(bi). Its sums equal K10
+//     plain's on the activated x bit for bit, with the same plan.
 //   * Rows and columns outside the frame are never copied and read as the
 //     zero the ring is cleared to once per tile; frames outside the clip add
 //     nothing. With R a template argument the loops over staged rows are
 //     fully unrolled and have no branch.
 // The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
 // count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
-// plan_s2_dx, plan_act_dx_s2, plan_s2) and checked here; a plan the
+// plan_s2_dx, plan_act_dx_s2, plan_s2 for both weight gradients) and
+// checked here; a plan the
 // kernels do not take returns cudaErrorInvalidValue.
 
 #include "strip.cuh"
@@ -178,6 +193,17 @@ struct S2Stager {
       if (uO) copy_pair(d + dstO, src + srcO, pairs, second);
       if (uX) copy_pair(d + dstX, src + srcX, pairs, second);
     }
+  }
+
+  // The act weight gradient: activates in place the pairs x_rows(dst, .,
+  // hs, NR, H, ., rowlen) copied, column by column (act_column, strip.cuh)
+  template <int NR, bool ROLLED, typename T>
+  __device__ __forceinline__ void act_x_rows(T* dst, int hs, int H,
+                                             int rowlen, float2 sc,
+                                             float2 bi) const {
+    if (uE) act_column<NR, ROLLED>(dst + dstE, hs, H, rowlen, sc, bi);
+    if (uO) act_column<NR, ROLLED>(dst + dstO, hs, H, rowlen, sc, bi);
+    if (uX) act_column<NR, ROLLED>(dst + dstX, hs, H, rowlen, sc, bi);
   }
 
   // g rows [h0, h0 + nr) of frame f (Ho, Wo, C), clipped, into dst laid out
@@ -630,18 +656,27 @@ act_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
   dx_s2_body<T, R, true>(g, k, x, sc, bi, dx, part, Tn, H, W, Ho, Wo, C, pl);
 }
 
-// ---- weight gradient (K10 plain) ------------------------------------------------
+// ---- weight gradient (K10 plain; K10 act) -------------------------------------
 // Thread (wl, pi) as in the forward. Slot i of the ring holds x frame f0 + i
 // (staged rows rr = 0..2R: input row 2h0 - 1 + rr) and g frame f0 + i + 1
 // (rows h0 .. h0+R-1). While x frame ti is read, gr[j][r] holds g frame
 // ti - 1 + j of output row h0 + r (zero outside [t0, t1) and the frame):
 // x frame ti pairs with it through tap dt = 2 - j, and staged row rr with
 // output row r through dy = rr - 2r.
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                      float* __restrict__ part, int Tn, int H, int W, int Ho,
-                      int Wo, int C, Plan pl, int n_items, int ipb) {
+//
+// ACT (the act entry's weight gradient, K10 act): the stencil reads a =
+// relu(x*sc + bi) rounded to T, the x part of each slot activated in place
+// a frame ahead in a ring of NSTAGE_ACT frames (act_own, strip.cuh); rows
+// and columns outside the frame are never copied and stay the zero padding
+// of a. Nothing else changes, so the sums are K10 plain's on the activated
+// x, in its order.
+template <typename T, int R, bool ACT>
+__device__ __forceinline__ void s2_wgrad_body(
+    const T* __restrict__ x, const T* __restrict__ g,
+    const float* __restrict__ sc, const float* __restrict__ bi,
+    float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
+    const Plan& pl, int n_items, int ipb) {
+  constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -659,6 +694,8 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   float acc[27][2];
 #pragma unroll
   for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+  float2 scp, bip;  // ACT: bn1's apply of the thread's pair
+  if constexpr (ACT) pair_vecs(scp, bip, sc, bi, 2 * (pg * PG + pi), C);
 
   const int row = blockIdx.x;
   const int it1 = min((row + 1) * ipb, n_items);
@@ -670,7 +707,7 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
     const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
     auto load = [&](int i) {
       if (i < nf) {  // uniform across the block
-        T* slot = ring + (i % NSTAGE) * stage;
+        T* slot = ring + (i % NS) * stage;
         const int ti = f0 + i, tg = ti + 1;
         if (ti >= 0 && ti < Tn)
           sg.x_rows(slot, xb + (size_t)ti * xframe, 2 * tl.h0 - 1, 2 * R + 1,
@@ -681,6 +718,13 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
       }
       cp_commit();
     };
+    auto own = [&](int i) {  // ACT: the thread's x copies of frame i
+      const int ti = f0 + i;
+      if (i < nf && ti >= 0 && ti < Tn)
+        // the f32 R = 3 build spills with the groups unrolled
+        sg.act_x_rows<2 * R + 1, sizeof(T) == 4 && R == 3>(
+            ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
+    };
 
     float gr[3][R][2];
 #pragma unroll
@@ -688,14 +732,19 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
       for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
 
-    zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
-    for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+    zero_ring(smem_raw, NS * stage * (int)sizeof(T));
+    for (int i = 0; i < NS - 1; ++i) load(i);
+    if constexpr (ACT) act_own(own, 0);
     for (int i = 0; i < nf; ++i) {
-      cp_wait<NSTAGE - 2>();  // this thread's copies of frame i have landed
-      __syncthreads();        // and everyone's; slot i-1 is read by no one
-      load(i + NSTAGE - 1);   // into slot i-1
+      // this thread's copies of frame i have landed (ACT: and everyone's
+      // are activated); after the barrier everyone's, and slot i-1 is read
+      // by no one
+      if constexpr (!ACT) cp_wait<NS - 2>();
+      __syncthreads();
+      load(i + NS - 1);  // into slot i-1
+      if constexpr (ACT) act_own(own, i + 1);
       const int ti = f0 + i, tg = ti + 1;
-      const T* slot = ring + (i % NSTAGE) * stage;
+      const T* slot = ring + (i % NS) * stage;
       const bool gin = in && tg >= tl.t0 && tg < tl.t1;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -741,6 +790,26 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      float* __restrict__ part, int Tn, int H, int W, int Ho,
+                      int Wo, int C, Plan pl, int n_items, int ipb) {
+  s2_wgrad_body<T, R, false>(x, g, nullptr, nullptr, part, Tn, H, W, Ho, Wo,
+                             C, pl, n_items, ipb);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+act_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                    const float* __restrict__ sc,
+                    const float* __restrict__ bi, float* __restrict__ part,
+                    int Tn, int H, int W, int Ho, int Wo, int C, Plan pl,
+                    int n_items, int ipb) {
+  s2_wgrad_body<T, R, true>(x, g, sc, bi, part, Tn, H, W, Ho, Wo, C, pl,
+                            n_items, ipb);
+}
+
 // ---- launchers -----------------------------------------------------------------
 
 // Dynamic shared memory: the forward's ring of x frames; the dx's ring of g
@@ -762,9 +831,10 @@ size_t act_dx_smem(int R, int WB, int PG) {
   const size_t red = sizeof(float) * 2 * WB * 2 * PG;
   return ring > red ? ring : red;
 }
+// (the act mode's ring holds NSTAGE_ACT frames)
 template <typename T>
-size_t wgrad_smem(int R, int WB, int PG) {
-  const size_t ring = sizeof(T) * NSTAGE *
+size_t wgrad_smem(int R, int WB, int PG, bool act) {
+  const size_t ring = sizeof(T) * (act ? NSTAGE_ACT : NSTAGE) *
                       (xstage_elems<T>(R, WB, PG) + gstage_elems<T>(R, WB, PG));
   const size_t red = sizeof(float) * 27 * WB * 2 * PG;
   return ring > red ? ring : red;
@@ -804,6 +874,15 @@ decltype(&plain_s2_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
     case 2: return plain_s2_wgrad_kernel<T, 2>;
     case 3: return plain_s2_wgrad_kernel<T, 3>;
     case 4: return plain_s2_wgrad_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&act_s2_wgrad_kernel<T, RMAX>) act_wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return act_s2_wgrad_kernel<T, 2>;
+    case 3: return act_s2_wgrad_kernel<T, 3>;
+    case 4: return act_s2_wgrad_kernel<T, 4>;
   }
   return nullptr;
 }
@@ -859,10 +938,13 @@ int launch_act_dx(const void* g, const void* x, const void* k,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
-                 int H, int W, int C, int R, int WB, int PG, int TT, int ipb,
-                 int rows, cudaStream_t st) {
+// The weight gradient of x (plain) or of relu(x*sc + bi) (ACT; sc and bi
+// unused otherwise).
+template <typename T, bool ACT>
+int launch_wgrad(const void* x, const void* g, const void* sc,
+                 const void* bi, void* part, int B, int Tn, int H, int W,
+                 int C, int R, int WB, int PG, int TT, int ipb, int rows,
+                 cudaStream_t st) {
   if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
   Plan p;  // over the output's rows and columns
@@ -875,12 +957,23 @@ int launch_wgrad(const void* x, const void* g, void* part, int B, int Tn,
   if (rows < 1 || (long long)rows * ipb < items ||
       (long long)(rows - 1) * ipb >= items)
     return (int)cudaErrorInvalidValue;
-  const auto kern = wgrad_kernel_of<T>(R);
-  const size_t smem = wgrad_smem<T>(R, WB, PG);
-  if (int e = set_smem(kern, smem)) return e;
-  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g),
-      static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
+  const size_t smem = wgrad_smem<T>(R, WB, PG, ACT);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid(rows, p.n_pg);
+  if constexpr (ACT) {
+    const auto kern = act_wgrad_kernel_of<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<grid, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<const float*>(sc), static_cast<const float*>(bi),
+        static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
+  } else {
+    const auto kern = wgrad_kernel_of<T>(R);
+    if (int e = set_smem(kern, smem)) return e;
+    kern<<<grid, threads_of(p), smem, st>>>(
+        static_cast<const T*>(x), static_cast<const T*>(g),
+        static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -898,11 +991,14 @@ int occupancy(int kind, int R, int WB, int PG) {
       return blocks_per_sm(dx_kernel_of<T>(R), dx_smem<T>(R, WB, PG),
                            threads);
     case 2:
-      return blocks_per_sm(wgrad_kernel_of<T>(R), wgrad_smem<T>(R, WB, PG),
-                           threads);
+      return blocks_per_sm(wgrad_kernel_of<T>(R),
+                           wgrad_smem<T>(R, WB, PG, false), threads);
     case 3:
       return blocks_per_sm(act_dx_kernel_of<T>(R), act_dx_smem<T>(R, WB, PG),
                            threads);
+    case 4:
+      return blocks_per_sm(act_wgrad_kernel_of<T>(R),
+                           wgrad_smem<T>(R, WB, PG, true), threads);
   }
   return -1;
 }
@@ -964,16 +1060,33 @@ extern "C" int dw_conv_wgrad_s2(const void* x, const void* g, void* part,
                                 int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16>(x, g, part, B, T, H, W, C, R, WB, PG,
-                                       TT, ipb, rows, st);
-  return launch_wgrad<float>(x, g, part, B, T, H, W, C, R, WB, PG, TT, ipb,
-                             rows, st);
+    return launch_wgrad<__nv_bfloat16, false>(x, g, nullptr, nullptr, part,
+                                              B, T, H, W, C, R, WB, PG, TT,
+                                              ipb, rows, st);
+  return launch_wgrad<float, false>(x, g, nullptr, nullptr, part, B, T, H, W,
+                                    C, R, WB, PG, TT, ipb, rows, st);
+}
+
+// The act entry's weight gradient (K10 act): dk of a = relu(x*sc + bi)
+// rounded to x's dtype, zero-padded; sc and bi are f32 (C,). The split and
+// part are dw_conv_wgrad_s2's.
+extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
+                               const void* bi, void* part, int B, int T,
+                               int H, int W, int C, int R, int WB, int PG,
+                               int TT, int ipb, int rows, int is_bf16,
+                               void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, true>(x, g, sc, bi, part, B, T, H, W,
+                                             C, R, WB, PG, TT, ipb, rows, st);
+  return launch_wgrad<float, true>(x, g, sc, bi, part, B, T, H, W, C, R, WB,
+                                   PG, TT, ipb, rows, st);
 }
 
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and
 // shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
 // where it does not take the plan; kind 0 is the forward, 1 the dx, 2 the
-// weight gradient, 3 the act dx.
+// weight gradient, 3 the act dx, 4 the act weight gradient.
 extern "C" int dw_plain_s2_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
   return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)

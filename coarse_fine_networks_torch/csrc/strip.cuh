@@ -22,6 +22,9 @@ constexpr int NT_DX = 192;
 constexpr int RMIN = 2;      // output rows per strip: a template argument
 constexpr int RMAX = 4;      // in [RMIN, RMAX]
 constexpr int NSTAGE = 3;    // frames in the shared-memory ring
+// frames in the act kernels' ring: one more, since a frame is activated in
+// place one step before it is read (act_own below)
+constexpr int NSTAGE_ACT = NSTAGE + 1;
 constexpr int SMEM_MAX = 232448;  // a block's shared memory on sm_90
 
 // A channel pair in the tensor's dtype, as read from shared memory
@@ -103,6 +106,95 @@ struct Plan {
   }
 };
 
+// The act kernels' activation of a staged pair v, stored in place at p: a
+// = relu(x*sc + bi) rounded to T, the value act() returns, as the stencil
+// reads it.
+template <typename T>
+__device__ __forceinline__ void act_store(T* p, float2 v, float2 sc,
+                                          float2 bi) {
+  const float a0 = relu(bn_apply(v.x, sc.x, bi.x));
+  const float a1 = relu(bn_apply(v.y, sc.y, bi.y));
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float2*>(p) = make_float2(a0, a1);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a0, a1);
+  }
+}
+
+// Staged rows an act kernel activates at a time (act_column): their loads
+// are issued together, ahead of their stores (a store may alias a later
+// load, so the compiler keeps them in order), and no row waits for the
+// last row's store. Three rows at a time, or rows in a runtime loop, made
+// the act kernels slower on the card (PERF.md).
+constexpr int ACT_ROWS = 2;
+
+// Activates in place ACT_ROWS staged pairs p + rr * rowlen of one column,
+// rr = r0 .. r0 + ACT_ROWS - 1 below NR, whose input rows hs + rr lie in
+// [0, H).
+template <int NR, typename T>
+__device__ __forceinline__ void act_group(T* p, int r0, int hs, int H,
+                                          int rowlen, float2 sc, float2 bi) {
+  float2 v[ACT_ROWS];
+#pragma unroll
+  for (int q = 0; q < ACT_ROWS; ++q)
+    if (r0 + q < NR && (unsigned)(hs + r0 + q) < (unsigned)H)
+      v[q] = load_pair(p + (r0 + q) * rowlen);
+#pragma unroll
+  for (int q = 0; q < ACT_ROWS; ++q)
+    if (r0 + q < NR && (unsigned)(hs + r0 + q) < (unsigned)H)
+      act_store(p + (r0 + q) * rowlen, v[q], sc, bi);
+}
+
+// Activates in place one staged column's pairs of the NR staged rows whose
+// input rows lie in the frame, ACT_ROWS at a time; ROLLED keeps the groups
+// in a runtime loop (for an instantiation that would spill unrolled).
+template <int NR, bool ROLLED = false, typename T>
+__device__ __forceinline__ void act_column(T* p, int hs, int H, int rowlen,
+                                           float2 sc, float2 bi) {
+  if constexpr (ROLLED) {
+#pragma unroll 1
+    for (int r0 = 0; r0 < NR; r0 += ACT_ROWS)
+      act_group<NR>(p, r0, hs, H, rowlen, sc, bi);
+  } else {
+#pragma unroll
+    for (int r0 = 0; r0 < NR; r0 += ACT_ROWS)
+      act_group<NR>(p, r0, hs, H, rowlen, sc, bi);
+  }
+}
+
+// bn1's apply vectors of channel pair c (zero past C: relu(0*0 + 0) = 0)
+__device__ __forceinline__ void pair_vecs(float2& scp, float2& bip,
+                                          const float* __restrict__ sc,
+                                          const float* __restrict__ bi,
+                                          int c, int C) {
+  scp = make_float2(c < C ? sc[c] : 0.f, c + 1 < C ? sc[c + 1] : 0.f);
+  bip = make_float2(c < C ? bi[c] : 0.f, c + 1 < C ? bi[c + 1] : 0.f);
+}
+
+// The act kernels' pipeline (act_fwd_s1_kernel, act_wgrad_s1_kernel,
+// act_s2_wgrad_kernel): a ring of NSTAGE_ACT frames in which each thread
+// activates in place the pairs it copied of frame i + 1 (own(i + 1)) while
+// the block reads frame i, between the same two barriers: the activation's
+// loads and stores overlap other warps' stencils, and barrier i + 1 makes
+// it visible before anyone reads it. Rows and columns outside the frame are
+// never copied, so they are never activated and stay the zero the ring is
+// cleared to: the padding is the zero of a, not relu(bi), for every sc and
+// bi, with no mask. A pair is activated once, where an activation as read
+// would take it three times at stride 1 and 1.5 times at stride 2.
+//
+// Commit group i holds the copies of frame i; load(i) commits one, empty
+// past the last frame. Before the frame loop: load(0 .. NSTAGE_ACT - 2),
+// then act_own(own, 0). Step i: the barrier, load(i + NSTAGE_ACT - 1) into
+// frame i - 1's slot (read by no one since the barrier), act_own(own, i +
+// 1) (another slot), then frame i's stencil. Slots i - 1, i and i + 1 are
+// three of the four; frame i + 1's copies were committed two steps before
+// its activation.
+template <typename OWN>
+__device__ __forceinline__ void act_own(OWN own, int i) {
+  cp_wait<NSTAGE_ACT - 2>();  // groups 0 .. i have landed
+  own(i);
+}
+
 // Zeroes the block's ring (bytes, a multiple of 16) and synchronises: the
 // rows and columns of a tile that lie outside the frame are never copied, so
 // they read as the zero padding for the whole tile.
@@ -119,25 +211,19 @@ __host__ __device__ __forceinline__ int stage_elems(int rows, int WB, int PG) {
          (int)sizeof(T);
 }
 
-// A staged pair as read (the default of stencil_frame's transform)
-struct AsRead {
-  __device__ __forceinline__ float2 operator()(float2 v) const { return v; }
-};
-
 // The stencil of one staged input frame at the thread's column and channel
 // pair: for staged row rr (input row h0 - 1 + rr) and output row r with dy =
 // rr - r in [0, 2], the 3 taps dx of each dt meet the 3 neighbours. FN(j, r,
-// dy, dx, v) does one multiply-add on each pair v as TR maps it once read;
-// everything is unrolled, so the loop has no branch and the shared-memory
-// reads of a row can run ahead.
-template <typename T, int R, typename FN, typename TR = AsRead>
+// dy, dx, v) does one multiply-add; everything is unrolled, so the loop has
+// no branch and the shared-memory reads of a row can run ahead.
+template <typename T, int R, typename FN>
 __device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
-                                              int PG2, FN fn, TR tr = TR()) {
+                                              int PG2, FN fn) {
 #pragma unroll
   for (int rr = 0; rr < R + 2; ++rr) {
     const T* row = tile + rr * rowlen;
-    const float2 v[3] = {tr(load_pair(row)), tr(load_pair(row + PG2)),
-                         tr(load_pair(row + 2 * PG2))};
+    const float2 v[3] = {load_pair(row), load_pair(row + PG2),
+                         load_pair(row + 2 * PG2)};
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const int dy = rr - r;
@@ -196,6 +282,15 @@ struct Stager {
     }
   }
 
+  // The act kernels: activates in place the pairs rows(dst, ., hs, NR, H,
+  // ., rowlen, true) copied: column by column, ACT_ROWS rows at a time
+  template <int NR, typename T>
+  __device__ __forceinline__ void act_rows(T* dst, int hs, int H,
+                                           int rowlen, float2 sc,
+                                           float2 bi) const {
+    if (u0) act_column<NR>(dst + dst0, hs, H, rowlen, sc, bi);
+    if (u1) act_column<NR>(dst + dst1, hs, H, rowlen, sc, bi);
+  }
 };
 
 // The plan's derived counts, or false where the kernels do not take it.

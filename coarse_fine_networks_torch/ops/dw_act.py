@@ -15,16 +15,19 @@ is K3/K5 and the ``act`` mode of K6/K10.
 Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 
 * ``dw_act_s1``/``dw_act_s2``: :func:`dw_bnrelu_conv3d`, in
-  ``csrc/dw_mm_act.cu`` (the act mode of the eval kernel);
+  ``csrc/dw_plain_s1.cu`` (K1 act: the act mode of K1 plain, each staged x
+  pair activated in place a frame ahead, with :func:`..dw_conv.plan_s1`)
+  and ``csrc/dw_mm_act.cu`` (K4 act: the act mode of the eval kernel);
 * ``dw_act_dx_s1``/``dw_act_dx_s2``: :func:`dw_act_dx`, in
   ``csrc/dw_dx_s1.cu`` (K3: ``dw_plain_s1.cu``'s row strips on g with the
   flipped taps, x staged beside g) and ``csrc/dw_plain_s2.cu`` (K5: the act
   mode of K8's gather, x of each thread's quads staged beside g, with the
   work split of :func:`..dw_conv.plan_act_dx_s2`);
 * ``dw_act_wgrad_s1``/``dw_act_wgrad_s2``: :func:`dw_act_wgrad`, in
-  ``csrc/dw_plain_s1.cu`` (K6 act: the act mode of K6 plain, x activated
-  in place where it is staged, with :func:`..dw_conv.plan_s1`) and
-  ``csrc/dw_act_bwd.cu``.
+  ``csrc/dw_plain_s1.cu`` (K6 act: the act mode of K6 plain, with
+  :func:`..dw_conv.plan_s1`) and ``csrc/dw_plain_s2.cu`` (K10 act: the act
+  mode of K10 plain, with :func:`..dw_conv.plan_s2`), x activated in place
+  where it is staged, as in K1 act.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  All tensors are channels-last
@@ -35,8 +38,7 @@ from __future__ import annotations
 
 import torch
 
-from .dw_mm_act import (BWD_LIBRARY, DX_S1_LIBRARY, _launch, _out_hw,
-                        _partials)
+from .dw_mm_act import DX_S1_LIBRARY, _launch, _out_hw
 from .dw_mm_act import LIBRARY as FWD_LIBRARY
 from .dw_mm_act import LIBRARIES, stencil_f32, wgrad_f32  # noqa: F401
 
@@ -121,7 +123,8 @@ def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
       stride: 1, or 2 for stride (1, 2, 2).
 
     Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` in x's dtype.  A CPU tensor takes
-    :func:`dw_bnrelu_conv3d_plain`; a CUDA tensor launches ``dw_act_s1`` or
+    :func:`dw_bnrelu_conv3d_plain`; a CUDA tensor launches ``dw_act_s1``
+    (with the work split of :func:`..dw_conv.plan_s1`, K1 plain's) or
     ``dw_act_s2``, or raises."""
     _check(x, w_dw, sc, bi, stride)
     if x.device.type == "cpu":
@@ -129,10 +132,19 @@ def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
     b, t, h, w, c = x.shape
     y = torch.empty((b, t) + _out_hw(h, w, stride) + (c,), dtype=x.dtype,
                     device=x.device)
-    if y.numel():
-        _launch(LAUNCHES, FWD_LIBRARY, f"dw_act_s{stride}", x,
-                x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(),
-                b, t, h, w, c)
+    if not y.numel():
+        return y
+    args = (x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            y.data_ptr(), b, t, h, w, c)
+    if stride == 1:
+        # .dw_conv builds on this module's libraries: imported here
+        from . import dw_conv
+
+        p = dw_conv.plan_s1(b, t, h, w, c)
+        _launch(LAUNCHES, dw_conv.LIBRARY, "dw_act_s1", x, *args, p.r, p.wb,
+                p.pg, p.tt)
+    else:
+        _launch(LAUNCHES, FWD_LIBRARY, "dw_act_s2", x, *args)
     return y
 
 
@@ -204,30 +216,26 @@ def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
                  bi: torch.Tensor, stride: int) -> torch.Tensor:
     """Weight gradient of :func:`dw_bnrelu_conv3d` (see
     :func:`dw_act_wgrad_plain`), ``(27, C)`` f32.  A CPU tensor takes the
-    plain version; a CUDA tensor launches ``dw_act_wgrad_s1`` (with the
-    work split of :func:`..dw_conv.plan_s1`, K6 plain's) or
-    ``dw_act_wgrad_s2`` (per-block partial sums, added with one
-    ``torch.sum``), or raises."""
+    plain version; a CUDA tensor launches ``dw_act_wgrad_s1`` or
+    ``dw_act_wgrad_s2`` (with the work split of :func:`..dw_conv.plan_s1`
+    or :func:`..dw_conv.plan_s2`, K6 or K10 plain's; per-block partial
+    sums, added with one ``torch.sum``), or raises."""
     _check(x, None, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_act_wgrad_plain(x, g, sc, bi, stride)
     if not g.numel():
         return torch.zeros((27, x.shape[-1]), device=x.device)
-    name = f"dw_act_wgrad_s{stride}"
-    args = (x.data_ptr(), g.data_ptr(), sc.data_ptr(), bi.data_ptr())
-    if stride == 1:
-        # .dw_conv builds on this module's libraries: imported here
-        from . import dw_conv
+    # .dw_conv builds on this module's libraries: imported here
+    from . import dw_conv
 
-        p = dw_conv.plan_s1(*x.shape)
-        part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
-                           device=x.device)
-        _launch(LAUNCHES, dw_conv.LIBRARY, name, x, *args, part.data_ptr(),
-                *x.shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
-    else:
-        part = _partials(name, x, 27)
-        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args, part.data_ptr(),
-                *x.shape)
+    lib, plan = ((dw_conv.LIBRARY, dw_conv.plan_s1) if stride == 1 else
+                 (dw_conv.LIBRARY_S2, dw_conv.plan_s2))
+    p = plan(*x.shape)
+    part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
+                       device=x.device)
+    _launch(LAUNCHES, lib, f"dw_act_wgrad_s{stride}", x, x.data_ptr(),
+            g.data_ptr(), sc.data_ptr(), bi.data_ptr(), part.data_ptr(),
+            *x.shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
     return torch.sum(part, dim=0)
 
 

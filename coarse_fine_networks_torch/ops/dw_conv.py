@@ -43,11 +43,13 @@ halo and writes its output once:
   the output's row strips, the forward's de-interleaved rows), with the
   work split of :func:`plan_s2`.
 
-The two plain sources also hold the act mode of one kernel each, entries
-of :mod:`.dw_act` bound here: ``dw_act_wgrad_s1`` (K6 act, K6 plain's body
-on x activated in place, with :func:`plan_s1`) and ``dw_act_dx_s2`` (K5,
-K8's body with the relu mask, ``dx = dam·sc`` and the ``(dsc, dbi)`` sums,
-with :func:`plan_act_dx_s2`).
+The two plain sources also hold the act modes of two kernels each, entries
+of :mod:`.dw_act` bound here: ``dw_act_s1`` (K1 act) and
+``dw_act_wgrad_s1`` (K6 act), K1 and K6 plain's bodies on x activated in
+place a frame ahead of the stencil, with :func:`plan_s1`;
+``dw_act_wgrad_s2`` (K10 act), K10 plain's body likewise, with
+:func:`plan_s2`; and ``dw_act_dx_s2`` (K5, K8's body with the relu mask,
+``dx = dam·sc`` and the ``(dsc, dbi)`` sums, with :func:`plan_act_dx_s2`).
 
 The module also computes the row-strip work splits of the other modules'
 row-strip kernels: :func:`plan_mm_s1` (K1 ``mm``, :mod:`.dw_mm_act`) and
@@ -72,10 +74,12 @@ from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
 from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 
 # The split route's kernels: at stride 1, and at stride (1, 2, 2); each
-# source also holds the act mode of one of them, an entry of :mod:`.dw_act`
-# (the weight gradient K6 act, the dx K5)
+# source also holds the act modes of two of them, entries of :mod:`.dw_act`
+# (the forward K1 act and the weight gradient K6 act; the dx K5 and the
+# weight gradient K10 act)
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
+    "dw_act_s1": [P] * 5 + [I] * 10 + [P],
     "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
     "dw_act_wgrad_s1": [P] * 5 + [I] * 12 + [P],
     "dw_plain_s1_occupancy": [I] * 5,
@@ -85,6 +89,7 @@ LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_conv_dx_s2": [P] * 3 + [I] * 10 + [P],
     "dw_act_dx_s2": [P] * 7 + [I] * 11 + [P],
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
+    "dw_act_wgrad_s2": [P] * 5 + [I] * 12 + [P],
     "dw_plain_s2_occupancy": [I] * 5,
 })
 # every source of the bottleneck's depthwise kernels: the entry's (eval
@@ -108,6 +113,7 @@ NT_MAX = 256  # threads per block at most (csrc/strip.cuh)
 RMIN, RMAX = 2, 4  # output rows per strip (a template argument there)
 TT_MIN = 8    # frames per segment at least, where the forward splits T
 NSTAGE = 3    # frames in the kernels' shared-memory ring
+NSTAGE_ACT = 4  # ... in the act modes' ring (a frame activated ahead)
 SMS = 132     # the H100's SMs
 SMEM_MAX = 232448  # a block's shared memory on the H100
 # the forward aims at two waves at two blocks per SM; the weight gradient's
@@ -179,14 +185,16 @@ class PlanS1(NamedTuple):
                 (w0, min(w0 + self.wb, self.w)),
                 (c0, min(c0 + 2 * self.pg, self.c)))
 
-    def smem(self, esz: int, wgrad: bool) -> int:
-        """Dynamic shared memory per block, in bytes, as the source's
-        launchers size it."""
+    def smem(self, esz: int, wgrad: bool, act: bool = False) -> int:
+        """Dynamic shared memory per block of a stride-1 kernel (the
+        forward or the weight gradient, plain or act), in bytes, as the
+        source's launchers size it."""
         def stage(rows):
             return _cdiv(rows * (self.wb + 2) * 2 * self.pg * esz, 16) * 16
+        ns = NSTAGE_ACT if act else NSTAGE
         if not wgrad:
-            return NSTAGE * stage(self.r + 2)
-        ring = NSTAGE * (stage(self.r + 2) + stage(self.r))
+            return ns * stage(self.r + 2)
+        ring = ns * (stage(self.r + 2) + stage(self.r))
         return max(ring, 4 * 27 * self.wb * 2 * self.pg)
 
 
@@ -294,14 +302,17 @@ def plan_act_dx_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
 
 @lru_cache(maxsize=None)
 def plan_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of ``dw_conv_wgrad_s2`` (K10 plain) for x ``(B, T, H,
-    W, C)``: :func:`_strips` over the output ``(⌈H/2⌉, ⌈W/2⌉)`` with the f32
-    shared memory of :func:`smem_s2`, and frames split only until the
-    persistent grid has about two blocks per SM.  Each item stages the 2R+1
-    input rows and 2WB+1 input columns its output tile reads."""
+    """The work split of both stride-2 weight gradients,
+    ``dw_conv_wgrad_s2`` (K10 plain) and ``dw_act_wgrad_s2`` (K10 act), for
+    x ``(B, T, H, W, C)``: :func:`_strips` over the output ``(⌈H/2⌉,
+    ⌈W/2⌉)`` with the f32 shared memory of the act mode's larger ring
+    (:func:`smem_s2`), and frames split only until the persistent grid has
+    about two blocks per SM.  Each item stages the 2R+1 input rows and 2WB+1
+    input columns its output tile reads."""
     ho, wo = _out_hw(h, w, 2)
-    return _persistent(_split_frames(_strips(b, t, ho, wo, c, smem_s2),
-                                     WG_BLOCKS))
+    return _persistent(_split_frames(
+        _strips(b, t, ho, wo, c, lambda p, esz: smem_s2(p, esz, True)),
+        WG_BLOCKS))
 
 
 def _pad16(n: int) -> int:
@@ -332,12 +343,15 @@ def smem_act_dx_s2(plan: PlanS1, esz: int) -> int:
     return max(smem_s2_dx(plan, esz) + xs, 4 * 2 * plan.wb * 2 * plan.pg)
 
 
-def smem_s2(plan: PlanS1, esz: int) -> int:
-    """Dynamic shared memory per block of ``dw_conv_wgrad_s2``, in bytes, as
-    its launcher sizes it: the ring of x frames (2R+1 de-interleaved rows)
-    and g frames (R rows), or the column sums if larger."""
-    ring = smem_s2_fwd(plan, esz) + NSTAGE * _pad16(
-        plan.r * plan.wb * 2 * plan.pg * esz)
+def smem_s2(plan: PlanS1, esz: int, act: bool = False) -> int:
+    """Dynamic shared memory per block of ``dw_conv_wgrad_s2`` (``act``:
+    ``dw_act_wgrad_s2``), in bytes, as its launcher sizes it: the ring of x
+    frames (2R+1 de-interleaved rows) and g frames (R rows), ``NSTAGE``
+    deep (``act``: ``NSTAGE_ACT``), or the column sums if larger."""
+    ns = NSTAGE_ACT if act else NSTAGE
+    row = 2 * (plan.wb + 1) * 2 * plan.pg
+    ring = ns * (_pad16((2 * plan.r + 1) * row * esz)
+                 + _pad16(plan.r * plan.wb * 2 * plan.pg * esz))
     return max(ring, 4 * 27 * plan.wb * 2 * plan.pg)
 
 

@@ -32,22 +32,20 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The forward source also holds the act-mode entries of :mod:`.dw_act`.
+# The forward source also holds the stride-2 act-mode entry of
+# :mod:`.dw_act` (its stride-1 one is in :mod:`.dw_conv`'s ``LIBRARY``).
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 11 + [P],
     "dw_mm_act_s1_occupancy": [I] * 6,
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
-    "dw_act_s1": [P] * 5 + [I] * 6 + [P],
     "dw_act_s2": [P] * 5 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's weight gradients, the stride-2 weight
-# gradient of :mod:`.dw_act` and the stride-2 masked dx of
-# :mod:`.dw_mm_bn_train` (the act entry's stride-2 dx and stride-1 weight
-# gradient are in the plain sources, :mod:`.dw_conv`'s libraries).
+# The backward source: this module's weight gradients and the stride-2
+# masked dx of :mod:`.dw_mm_bn_train` (the act entry's whole backward is in
+# the plain sources, :mod:`.dw_conv`'s libraries, and ``dw_dx_s1.cu``).
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
-    "dw_act_wgrad_s2": [P] * 5 + [I] * 6 + [P],
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
@@ -67,8 +65,8 @@ LIBRARIES = (LIBRARY, BWD_LIBRARY, DX_S1_LIBRARY)
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# weight gradients at stride 1 and 2; the mm mode has the act mode's rows)
-_ROWS_KIND = {"dw_act_wgrad_s2": 2, "dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
+# weight gradients at stride 1 and 2)
+_ROWS_KIND = {"dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
 
 
 def reset_launches() -> None:

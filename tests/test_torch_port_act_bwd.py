@@ -25,12 +25,13 @@ the activated x, each with a difference of 0.
 * ``dw_act_wgrad_plain`` equals ``dw_conv_wgrad_plain`` on the activated x
   exactly (the card's oracle), in f32 and bf16; with every ``bi > 0`` (so a
   padding of relu(bi) would show) it matches the JAX Pallas kernel K6 in act
-  mode (``_dw_fold4_wgrad_raw``) interpreted at 1e-4; and the kernel's ring
-  padding, NaN activated by ``fmax(·, 0)``, is the zero padding of a, for
-  any sign of sc and bi.
+  mode (``_dw_fold4_wgrad_raw``) interpreted at 1e-4; and a torch model of
+  the act kernels' ring (:func:`act_ring_reads`: zeroed, in-frame pairs
+  copied and activated in place a frame ahead) gives the stencil the zero
+  padding of a for sc of either sign or 0, with an in-frame NaN kept.
 * The wrappers take the plain versions on the CPU and count no launch; the
   bindings match the C declarations; the constants the plans mirror are the
-  sources'; neither kernel is left in ``dw_act_bwd.cu``.
+  sources'; no act kernel is left in ``dw_act_bwd.cu``.
 """
 
 import ctypes
@@ -294,23 +295,124 @@ def test_act_wgrad_pads_the_activation_with_zero():
     assert not np.allclose(wrong.numpy(), ref, rtol=1e-2, atol=1e-2)
 
 
+def _ring_schedule():
+    """``NSTAGE_ACT`` and ``act_own``'s ``cp_wait`` depth as
+    ``csrc/strip.cuh`` writes them, once each asserted to be the order of
+    the act kernels' frame loops (``dw_plain_s1.cu``, ``dw_plain_s2.cu``):
+    ``act_own(own, 0)`` before the loop; in step i the barrier, then
+    ``load(i + NS - 1)``, then ``act_own(own, i + 1)``."""
+    csrc = dw_conv.LIBRARY.source.parent
+    src = (csrc / "strip.cuh").read_text()
+    ns = int(re.search(r"constexpr int NSTAGE_ACT = NSTAGE \+ (\d+);",
+                       src).group(1)) + dw_conv.NSTAGE
+    body = src[src.index("void act_own("):]
+    depth = ns - int(re.search(r"cp_wait<NSTAGE_ACT - (\d+)>", body).group(1))
+    loops = 0
+    for f in ("dw_plain_s1.cu", "dw_plain_s2.cu"):
+        text = (csrc / f).read_text()
+        for m in re.finditer(r"act_own\(own, 0\);\s*for \(int i = 0; i < nf; "
+                             r"\+\+i\) \{(.*?)_frame<T, R>", text, re.S):
+            step = re.sub(r"//[^\n]*", "", m.group(1))
+            at = [step.index(k) for k in ("__syncthreads();",
+                                          "load(i + NS - 1);",
+                                          "act_own(own, i + 1);")]
+            assert at == sorted(at), f
+            loops += 1
+    assert loops == 3  # K1 act, K6 act, K10 act
+    return ns, depth, depth
+
+
+def act_ring_reads(x, sc, bi, rows, cols, t0, t1):
+    """A torch model of the act kernels' ring (``csrc/strip.cuh``'s
+    ``act_own`` and the kernels' frame loop, :func:`_ring_schedule`) for one tile of
+    one sample ``x (T, H, W, C)``: the tile stages input rows ``rows`` and
+    columns ``cols`` (which may run past the frame) of input frames t0-1 ..
+    t1 into a zeroed ring of ``NSTAGE_ACT`` slots; a copy lands at any time
+    between its commit (``load``) and the ``cp_wait`` that covers it; each
+    frame's copies are activated in place (``own``) once landed.  Between
+    barriers i and i + 1 the block commits frame i + NSTAGE_ACT - 1,
+    activates frame i + 1 and reads frame i's slot.  Asserts that no copy
+    in flight, activation or read of one interval meets another's slot, and
+    returns the slots as the stencil reads them, one per frame in the clip,
+    in x's dtype."""
+    ns, w_pro, w_ahead = _ring_schedule()
+    T, H, W, C = x.shape
+    rin = [r for r, h in enumerate(rows) if 0 <= h < H]
+    cin = [q for q, w in enumerate(cols) if 0 <= w < W]
+    frame = lambda ti: x[ti][[rows[r] for r in rin]][:, [cols[q] for q in cin]]
+    ring = torch.zeros((ns, len(rows), len(cols), C), dtype=x.dtype)
+    f0, nf = t0 - 1, t1 - t0 + 2
+    clip = lambda i: i < nf and 0 <= f0 + i < T
+    pending, landed, reads = [], set(), []
+
+    def wait(n):  # all but the newest n groups have landed
+        while len(pending) > n:
+            i = pending.pop(0)
+            if clip(i):
+                ring[i % ns][np.ix_(rin, cin)] = frame(f0 + i)
+                landed.add(i)
+
+    def own(i):
+        if not clip(i):
+            return
+        assert i in landed
+        v = ring[i % ns][np.ix_(rin, cin)]
+        ring[i % ns][np.ix_(rin, cin)] = torch.relu(
+            v.float() * sc + bi).to(x.dtype)
+
+    pending.extend(range(ns - 1))  # load(0 .. ns - 2)
+    wait(w_pro)
+    own(0)
+    for i in range(nf):
+        # the barrier; then this interval's copy, activation and read
+        pending.append(i + ns - 1)
+        wait(w_ahead)
+        own(i + 1)
+        if clip(i):
+            slots = [j % ns for j in pending if clip(j)]
+            assert i % ns not in slots and (i + 1) % ns not in slots
+            assert (i + 1) % ns != i % ns
+            reads.append(ring[i % ns].clone())
+    return reads
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_nan_ring_padding_activates_to_zero(dtype):
-    """K6 act clears its ring's x frames to NaN, never copies the rows and
-    columns outside the frame, and activates each pair as read with
-    ``fmaxf(x·sc + bi, 0)``, which returns its non-NaN operand: a torch
-    model of that (``torch.fmax``) gives the zero padding of the activated
-    x, for sc and bi of either sign, and the in-frame values of
-    ``_activate`` exactly."""
+    """The act kernels' padding no longer rests on a NaN ring (which only a
+    relu that drops NaN, ``fmaxf``, mapped to 0): the ring is zeroed, only
+    positions inside the frame are copied and activated in place a frame
+    ahead, so what the stencil reads of every frame (the torch model
+    :func:`act_ring_reads` of the kernels' schedule) is the activated x
+    zero-padded after the activation, for sc of either sign or 0 and every
+    bi > 0 (a padding of relu(bi) would show), exactly; a NaN x inside the
+    frame stays NaN, as ``torch.relu`` and the JAX package's
+    ``jnp.maximum`` keep it.  Tiles at the frame's corner, inside it and
+    past its far edge; the clip's first and last segments."""
     rng = np.random.RandomState(4)
-    x = t(rng.randn(1, 3, 5, 6, 8).astype(np.float32)).to(dtype)
+    x = t(rng.randn(1, 5, 6, 7, 8).astype(np.float32)).to(dtype)[0]
+    x[2, 3, 4, 5] = float("nan")
     sc = t(rng.randn(8).astype(np.float32))  # either sign
-    bi = t(rng.randn(8).astype(np.float32))
-    ring = F.pad(x.float(), (0, 0, 1, 1, 1, 1), value=float("nan")).to(dtype)
-    assert torch.isnan(ring[:, :, 0]).all()
-    a = torch.fmax(ring.float() * sc + bi, torch.zeros(())).to(dtype)
-    want = F.pad(_activate(x, sc, bi).float(), (0, 0, 1, 1, 1, 1)).to(dtype)
-    assert torch.equal(a, want)
+    sc[3] = 0.0
+    bi = t(np.abs(rng.randn(8)).astype(np.float32) + 0.25)
+    want = F.pad(_activate(x[None], sc, bi)[0].float(),
+                 (0, 0, 1, 1, 1, 1, 1, 1)).to(dtype)  # (T+2, H+2, W+2, C)
+    assert torch.isnan(want[3, 4, 5, 5]) and torch.isnan(want).sum() == 1
+    for h0, r, w0, wb in ((0, 2, 0, 3), (2, 3, 2, 4), (4, 4, 5, 3)):
+        rows = list(range(h0 - 1, h0 + r + 1))
+        cols = list(range(w0 - 1, w0 + wb + 1))
+        for t0, t1 in ((0, 3), (3, 5)):
+            reads = act_ring_reads(x, sc, bi, rows, cols, t0, t1)
+            ti = [f for f in range(t0 - 1, t1 + 1) if 0 <= f < 5]
+            assert len(reads) == len(ti)
+            for f, got in zip(ti, reads):
+                ref = torch.zeros_like(got)
+                hs = [q for q, h in enumerate(rows) if -1 <= h <= 6]
+                ws = [q for q, w in enumerate(cols) if -1 <= w <= 7]
+                ref[np.ix_(hs, ws)] = want[f + 1][
+                    [rows[q] + 1 for q in hs]][:, [cols[q] + 1 for q in ws]]
+                assert torch.equal(torch.isnan(got), torch.isnan(ref))
+                fin = ~torch.isnan(ref)
+                assert torch.equal(got[fin], ref[fin])
 
 
 # ---- the wrappers, the bindings, the sources ---------------------------------------------
@@ -363,21 +465,26 @@ def test_constants_match_the_source(name, value):
 
 
 def test_kernels_left_the_entry_backward_source():
-    """``dw_act_bwd.cu`` keeps K9, K6 mm, K10 act and K10 mm only: no ACT
-    mode of its stride-2 dx kernel, no dx epilogue, no stride-1 act weight
-    gradient; K5 and K6 act are the act instantiations of the plain
-    sources' kernels, launched by the wrappers with their plans."""
+    """``dw_act_bwd.cu`` keeps K9, K6 mm and K10 mm only: no ACT mode of
+    its stride-2 dx or weight-gradient kernels, no dx epilogue, no act
+    weight gradient at either stride; K5, K6 act and K10 act are the act
+    instantiations of the plain sources' kernels, launched by the wrappers
+    with their plans."""
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    for gone in ("dx_epilogue", "dx_s2_kernel<T, MODE>",
+    for gone in ("dx_epilogue", "dx_s2_kernel<T, MODE>", "MODE == ACT",
                  "launch_wgrad<__nv_bfloat16, 1, ACT>",
+                 "launch_wgrad<__nv_bfloat16, 2, ACT>",
                  'extern "C" int dw_act_dx_s2(',
-                 'extern "C" int dw_act_wgrad_s1('):
+                 'extern "C" int dw_act_wgrad_s1(',
+                 'extern "C" int dw_act_wgrad_s2('):
         assert gone not in bwd
-    for kept in ("dw_mm_dx_mask_s2", "dw_act_wgrad_s2", "dw_mm_wgrad_s1",
-                 "dw_mm_wgrad_s2"):
+    for kept in ("dw_mm_dx_mask_s2", "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"):
         assert f'extern "C" int {kept}(' in bwd
+    assert "dw_act_wgrad_s2" not in dw_mm_act.BWD_LIBRARY.functions
     s1 = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
     assert "wgrad_body<T, R, true>" in s1 and "wgrad_body<T, R, false>" in s1
     assert "dx_s2_body<T, R, true>" in s2 and "dx_s2_body<T, R, false>" in s2
+    assert ("s2_wgrad_body<T, R, true>" in s2
+            and "s2_wgrad_body<T, R, false>" in s2)
     assert "rows != items" in s2

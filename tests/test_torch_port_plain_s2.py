@@ -76,12 +76,14 @@ def test_plan_covers_every_output_once(shape):
     p2 = -(-c // 2)
     assert RMIN <= p.r <= RMAX and p.wb * p.pg <= NT_MAX
     assert p.threads <= NT_MAX and p.pg <= p2
-    # plan_s1's rule for the pairs, unless its f32 shared memory would not
-    # fit: then the fewest groups that do
+    # plan_s1's rule for the pairs, unless the f32 shared memory of either
+    # weight gradient (the act mode's ring is the larger) would not fit:
+    # then the fewest groups that do
     rule = -(-p2 // -(-p2 // max(1, NT_MAX // p.wb)))
     assert p.pg <= rule
     if p.pg < rule:
-        assert smem_s2(p._replace(pg=-(-p2 // (p.n_pg - 1))), 4) > SMEM_MAX
+        assert smem_s2(p._replace(pg=-(-p2 // (p.n_pg - 1))), 4,
+                       True) > SMEM_MAX
     assert p.wb <= wo and (p.wb >= 2 or wo == 1)
     assert p.items == b * p.n_tseg * p.n_strip * p.n_wt
     assert p.rows * p.ipb >= p.items > (p.rows - 1) * p.ipb
@@ -93,7 +95,7 @@ def test_plan_covers_every_output_once(shape):
                           p._replace(tt=2 * p.tt).items * p.n_pg
                           < WG_BLOCKS)
     for esz in (2, 4):
-        assert smem_s2(p, esz) <= SMEM_MAX
+        assert smem_s2(p, esz) <= smem_s2(p, esz, True) <= SMEM_MAX
     count = np.zeros((b, tt, ho, wo, 2 * p.n_pg * p.pg), np.uint8)
     for row in range(p.rows):
         for item in range(row * p.ipb, min((row + 1) * p.ipb, p.items)):

@@ -1,0 +1,75 @@
+#!/usr/bin/env python3
+"""Time the port's depthwise kernels of two checkouts on one card, in turns.
+
+    python3 chip_compare.py PARENT [CHANGE]
+
+PARENT and CHANGE (default: this checkout) are checkout directories, each
+holding its own ``chip_smoke.py`` and ``coarse_fine_networks_torch``.  Runs
+go parent, change, change, parent, each in a process of its own that
+imports its checkout's ``chip_smoke.py``, builds that checkout's kernels
+into its own build directory, and times the train kernels
+(``phase_train_kernels``: the act route's at the coarse step's and
+long-cycle phase D's entry shapes) and the split route's
+(``phase_fine_kernels``: long-cycle phases A-C), each held against its
+plain version there as ``chip_smoke.py`` holds it.  Each run prints one JSON
+line: every kernel's bf16 time weighted by its launches on its path, as
+``chip_smoke.py``'s ``kernels`` line sums it (``ms``; the act route's also
+over one phase-D step, ``phase_d_ms``).  The card's ``nvidia-smi`` name and
+power limit come last.  Needs a CUDA card; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+
+def run(tree: str, label: str) -> None:
+    sys.path.insert(0, str(Path(tree).resolve()))
+    import torch
+
+    import chip_smoke as cs
+    from coarse_fine_networks_torch.ops import (_build, dw_act, dw_conv,
+                                                dw_mm_act, dw_stencil)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build_all(dw_conv.LIBRARIES + (dw_stencil.LIBRARY,))
+    with contextlib.redirect_stdout(io.StringIO()):
+        per = cs.phase_train_kernels(dw_act, dw_conv, dw_mm_act)
+        per.update(cs.phase_fine_kernels(dw_conv, dw_stencil))
+    print(json.dumps({"tree": label, "kernels": {
+        k: {"ms": v["ms"], "phase_d_ms": v.get("phase_d_ms", 0.0)}
+        for k, v in per.items()}}), flush=True)
+
+
+def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--run":
+        run(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) not in (2, 3):
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_compare: no CUDA device", file=sys.stderr)
+        return 2
+    trees = {"parent": sys.argv[1],
+             "change": sys.argv[2] if len(sys.argv) == 3 else "."}
+    for label in ("parent", "change", "change", "parent"):
+        subprocess.run([sys.executable, __file__, "--run", trees[label],
+                        label], check=True)
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

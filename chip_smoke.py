@@ -12,10 +12,11 @@ Phases, each printing JSON lines:
    ``nvcc`` for each of the six sources, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
    ``dw_mm_act.cu`` and ``dw_dx_s1.cu`` whose registers, spills and static
-   shared memory for each row-strip kernel (K1/K6 plain and K6 ``act``; K4
-   plain, K8, K5 and K10 plain; K1 ``mm``; K3 and K2) make four ``ptxas``
-   rows; their dynamic shared memory and blocks per SM are in the kernel
-   rows' ``plan``);
+   shared memory for each row-strip kernel (K1/K6 plain and ``act``, K6
+   ``mm``; K4 plain and ``act``, K8, K5, K10 plain and ``act``; K1 ``mm``;
+   K3 and K2) make four ``ptxas`` rows, no act or mm instantiation
+   spilling; their dynamic shared memory and blocks per SM are in the
+   kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -34,12 +35,14 @@ Phases, each printing JSON lines:
    masked and scaled as the plain version does, the stride-2 dx
    ``dw_act_dx_s2`` (K5) likewise to ``dw_conv_dx_s2`` (K8) run in f32,
    masked and scaled, both with dx and sums repeating bit for bit, and the
-   stride-1 weight gradient ``dw_act_wgrad_s1`` (K6 ``act``) to
-   ``dw_conv_wgrad_s1`` (K6 plain) on the activated x, repeating bit for
-   bit; each of these rows with its work split (``plan_act_dx_s1``,
-   ``plan_act_dx_s2``, ``plan_s1``), blocks per SM and waves, and each
-   train kernel's line entry with its time and bound summed over one step
-   of long-cycle phase D beside the coarse step's;
+   weight gradients ``dw_act_wgrad_s1/s2`` (K6 and K10 ``act``) to
+   ``dw_conv_wgrad_s1/s2`` (K6 and K10 plain) on the activated x, and the
+   forwards ``dw_act_s1/s2`` (K1 and K4 ``act``) to ``dw_conv_s1/s2`` (K1
+   and K4 plain) on the activated x, each repeating bit for bit; each of
+   these rows with its work split (``plan_act_dx_s1``, ``plan_act_dx_s2``,
+   ``plan_s1``, ``plan_s2``, ``plan_act_s2_fwd``), blocks per SM and
+   waves, and each train kernel's line entry with its time and bound
+   summed over one step of long-cycle phase D beside the coarse step's;
 2b. relu_branch: the forward and the masked dx take one relu branch: with
    only the centre tap set to 1 the forward's ``y > 0`` must equal the
    mask ``dam != 0`` of ``g = 1`` element for element (K1 ``mm`` against
@@ -47,6 +50,14 @@ Phases, each printing JSON lines:
    of the train composite, f32 and bf16; K1 ``mm``'s branch also against
    conv1's product in f64 outside ``mm_band`` and a torch model of the
    in-order f32 ``fmaf`` sum inside it, at every stride-1 shape;
+2c. nan: with a NaN in x (inside the frame) and in one channel of sc,
+   every relu kernel and masked dx of both train routes against its twin
+   at every entry shape, f32 and bf16 (the same NaN positions, the finite
+   elements within ``TOL``); then edges: with x's NaN on the first frame,
+   the last frame, the last row of a ragged strip or the last column, the
+   row-strip weight gradients (K6 and K10 plain, ``act`` and ``mm``, K10
+   ``mm`` beside them) against their twins likewise, at the coarse step's
+   layer3 and layer4 entries (fault 3.4);
 3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
    autograd through the plain composition, f32, one shape per stride;
 4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
@@ -104,8 +115,11 @@ Phases, each printing JSON lines:
    exact oracle: ``dw_conv_s1`` of g with the flipped taps in f32 where K1
    ``mm`` (``dw_mm_act_s1``, centre tap 1) takes the positive relu branch
    at the same x, W1, sc and bi, else 0, in g's dtype, with a difference
-   of 0, each row with its work split (``plan_mm_dx_s1``), blocks per SM
-   and waves; then the
+   of 0, and the stride-1 weight gradient (K6 ``mm``) against K6 plain
+   launched with its plan on K1 ``mm``'s activation (centre tap 1) with a
+   difference of 0, repeating bit for bit, each row with its work split
+   (``plan_mm_dx_s1``, ``plan_mm_wgrad_s1``), blocks per SM and waves;
+   then the
    composite's Gram xᵀx of each coarse entry, f32 output from bf16 x,
    timed against reading x as f32;
 14. mm_autograd: the composite's ``(y, mean, var)`` and five gradients, then
@@ -242,9 +256,11 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1",
                                                       "dw_act_s1",
-                                                      "dw_act_wgrad_s1")
+                                                      "dw_act_wgrad_s1",
+                                                      "dw_mm_wgrad_s1")
                        else "dw_plain_s2.cu" if (k.startswith("dw_conv_")
-                                                 or k in ("dw_act_dx_s2",
+                                                 or k in ("dw_act_s2",
+                                                          "dw_act_dx_s2",
                                                           "dw_act_wgrad_s2"))
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
@@ -253,16 +269,18 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
 KERNEL_FUNCS = {
-    "dw_mm_act_kernel": ("dw_mm_act_s2", "dw_act_s2"),
+    "dw_mm_act_kernel": ("dw_mm_act_s2",),
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
     "act_fwd_s1_kernel": ("dw_act_s1",),
+    "act_s2_fwd_kernel": ("dw_act_s2",),
     "act_dx_s1_kernel": ("dw_act_dx_s1",),
     "mm_dx_s1_kernel": ("dw_mm_dx_mask_s1",),
     "act_s2_dx_kernel": ("dw_act_dx_s2",),
     "dx_s2_kernel": ("dw_mm_dx_mask_s2",),
     "act_wgrad_s1_kernel": ("dw_act_wgrad_s1",),
     "act_s2_wgrad_kernel": ("dw_act_wgrad_s2",),
-    "wgrad_kernel": ("dw_mm_wgrad_s1", "dw_mm_wgrad_s2"),
+    "mm_wgrad_s1_kernel": ("dw_mm_wgrad_s1",),
+    "wgrad_kernel": ("dw_mm_wgrad_s2",),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
     "plain_s2_fwd_kernel": ("dw_conv_s2",),
@@ -273,7 +291,7 @@ KERNEL_FUNCS = {
 }
 # the act route's kernel functions, as the train and phase-D profiles sum
 # them
-ACT_FUNCS = ("act_fwd_s1_kernel", "dw_mm_act_kernel", "act_dx_s1_kernel",
+ACT_FUNCS = ("act_fwd_s1_kernel", "act_s2_fwd_kernel", "act_dx_s1_kernel",
              "act_s2_dx_kernel", "act_wgrad_s1_kernel", "act_s2_wgrad_kernel")
 MM_KERNELS = ("dw_mm_act_s1", "dw_mm_act_s2")
 # the train step: batch, frames per stage (layers 2-4 run on the T/4+1
@@ -391,15 +409,16 @@ def _ptxas(source: Path) -> dict:
 # the ptxas rows: each source's kernel functions of the row-strip layout
 # (three row counts: 2-4) in f32 and bf16
 PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
-                        "plain_wgrad_kernel", "act_wgrad_s1_kernel"),
-         "dw_conv_s2": ("plain_s2_fwd_kernel", "plain_s2_dx_kernel",
-                        "act_s2_dx_kernel", "plain_s2_wgrad_kernel",
-                        "act_s2_wgrad_kernel"),
+                        "plain_wgrad_kernel", "act_wgrad_s1_kernel",
+                        "mm_wgrad_s1_kernel"),
+         "dw_conv_s2": ("plain_s2_fwd_kernel", "act_s2_fwd_kernel",
+                        "plain_s2_dx_kernel", "act_s2_dx_kernel",
+                        "plain_s2_wgrad_kernel", "act_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
-# the act modes of the row-strip bodies: no instantiation may spill
-NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel",
-            "act_s2_wgrad_kernel")
+# the act and mm modes of the row-strip bodies: no instantiation may spill
+NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
+            "act_s2_fwd_kernel", "act_s2_wgrad_kernel")
 
 
 def phase_device() -> str:
@@ -800,24 +819,28 @@ def _act_wgrad_exact(dw_act, dw_conv, x, g, sc, bi, dtype) -> dict:
                               ("act_wgrad",))}
 
 
-def _act_fwd_exact(dw_act, dw_conv, x, w, sc, bi, dtype) -> dict:
-    """K1 act (``dw_act_s1``) against its exact oracle: y equals K1 plain
-    (``dw_conv_s1``, the same plan, ``plan_s1``, and the same order of
-    taps) on the activated x, ``relu(x·sc + bi)`` rounded to x's dtype,
-    with a difference of 0; it repeats bit for bit.  Returns the row's
-    fields: the difference and the plan."""
-    ref = dw_conv.dw_conv3d(dw_act._activate(x, sc, bi), w, 1)
-    y1 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, 1)
-    y2 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, 1)
+def _act_fwd_exact(dw_act, dw_conv, x, w, sc, bi, dtype, s=1) -> dict:
+    """K1 act (``dw_act_s1``) or K4 act (``dw_act_s2``, ``s`` 2) against
+    its exact oracle: y equals K1 plain (``dw_conv_s1``) or K4 plain
+    (``dw_conv_s2``), each output's taps in the same order, on the
+    activated x, ``relu(x·sc + bi)`` rounded to x's dtype, with a
+    difference of 0; it repeats bit for bit.  Returns the row's fields: the
+    difference and the plan (``plan_s1``; ``plan_act_s2_fwd``)."""
+    ref = dw_conv.dw_conv3d(dw_act._activate(x, sc, bi), w, s)
+    y1 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, s)
+    y2 = dw_act.dw_bnrelu_conv3d(x, w, sc, bi, s)
     torch.cuda.synchronize()
     diff = (y1.float() - ref.float()).abs().max().item()
     repeats = torch.equal(y1, y2)
-    what = f"dw_act_s1 {tuple(x.shape)} {dtype}"
-    check(diff == 0, f"{what}: y differs from K1 plain on the activated x "
-                     f"by {diff}")
+    what = f"dw_act_s{s} {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: y differs from K{1 if s == 1 else 4} plain "
+                     f"on the activated x by {diff}")
     check(repeats, f"{what}: two runs differ")
     return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
-            "plan": _plan_row(dw_conv, tuple(x.shape), dtype, ("act_fwd",))}
+            "plan": (_plan_row(dw_conv, tuple(x.shape), dtype, ("act_fwd",))
+                     if s == 1 else
+                     _plan_row_s2(dw_conv, "dw_act_s2", tuple(x.shape),
+                                  dtype))}
 
 
 def _act_wgrad_s2_exact(dw_act, dw_conv, x, g, sc, bi, dtype) -> dict:
@@ -923,7 +946,9 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
                     "dw_act_wgrad_s1": _act_wgrad_exact(
                         dw_act, dw_conv, x, g, sc, bi, dtype)}
             else:
-                extra = {"dw_act_dx_s2": _act_dx_s2_exact(
+                extra = {"dw_act_s2": _act_fwd_exact(
+                    dw_act, dw_conv, x, w, sc, bi, dtype, 2),
+                    "dw_act_dx_s2": _act_dx_s2_exact(
                     dw_act, dw_conv, g, x, w, sc, bi, dtype),
                     "dw_act_wgrad_s2": _act_wgrad_s2_exact(
                         dw_act, dw_conv, x, g, sc, bi, dtype)}
@@ -975,10 +1000,8 @@ def phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train) -> None:
     the mask is false at NaN) likewise in dx and the sums; the elements
     finite in both keep the twin's tolerance, and K1, K6 and K10 act equal
     their plain kernels on the activated x exactly, NaN for NaN.  The NaN
-    lies away from the frame's edges: there a row-strip weight gradient
-    also multiplies it by the zero g of a position past the output (the
-    clip's first or last frame, a ragged strip), where the twins sum only
-    the output's positions."""
+    lies away from the frame's edges; :func:`phase_edges` puts it on
+    them."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     for dtype in (torch.float32, torch.bfloat16):
         bad, rows = {}, 0
@@ -1055,38 +1078,97 @@ def phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train) -> None:
         emit({"phase": "nan_summary", "dtype": str(dtype)[6:],
               "comparisons": rows, "failed": len(bad)})
         check(not bad, f"nan {dtype}: {bad}")
-    _nan_on_the_first_frame(dw_act, dw_conv, gen)
+    phase_edges(dw_act, dw_conv, dw_mm_act, gen)
 
 
-def _nan_on_the_first_frame(dw_act, dw_conv, gen) -> None:
-    """Recorded, not held (ROADMAP fault 3.4): with x's NaN on the clip's
-    first frame, the twins leave the taps dt = 2 of its channel finite (no
-    output frame -1 exists), where the row-strip weight gradients (K6 and
-    K10, plain and act) multiply the NaN by the zero g of frame -1.  The
-    NaN mismatches of each against its twin, at layer2's coarse entries in
-    f32."""
-    out = {}
-    for label, b, t, h, c, s, _, _ in train_entry_cases():
-        if not label.startswith("coarse.layer2"):
-            continue
-        ho = (h - 1) // s + 1
-        x = torch.randn((b, t, h, h, c), generator=gen, device="cuda")
-        x[0, 0, h // 2, h // 2, 0] = float("nan")
-        g = torch.randn((b, t, ho, ho, c), generator=gen, device="cuda")
-        sc = torch.rand(c, generator=gen, device="cuda") + 0.5
-        bi = torch.randn(c, generator=gen, device="cuda")
-        a = dw_act._activate(x, sc, bi)
-        for name, got, ref in (
-                (f"dw_act_wgrad_s{s}", dw_act.dw_act_wgrad(x, g, sc, bi, s),
-                 dw_act.dw_act_wgrad_plain(x, g, sc, bi, s)),
-                (f"dw_conv_wgrad_s{s}", dw_conv.dw_conv_wgrad(a, g, s),
-                 dw_conv.dw_conv_wgrad_plain(a, g, s))):
-            cmp = _nan_compare(got, ref, torch.float32)
-            out[name] = {"nan_mismatches": cmp["nan_mismatches"],
-                         "twin_nans": cmp["nans"],
-                         "kernel_nans": int(torch.isnan(got).sum().item())}
-    emit({"phase": "nan_first_frame", "dtype": "float32",
-          "held": False, "by_kernel": out})
+# where phase_edges puts x's NaN in a (B, T, H, W, C) clip: (t, h, w) of
+# sample 0
+EDGES = {"first_frame": lambda t, h, w: (0, h // 2, w // 2),
+         "last_frame": lambda t, h, w: (t - 1, h // 2, w // 2),
+         "last_row": lambda t, h, w: (t // 2, h - 1, w // 2),
+         "last_column": lambda t, h, w: (t // 2, h // 2, w - 1)}
+
+
+def phase_edges(dw_act, dw_conv, dw_mm_act, gen) -> None:
+    """Fault 3.4, held: with x's NaN (channel 0) on the clip's first frame,
+    its last frame, the last row of a ragged strip or the last column
+    (``EDGES``), the row-strip weight gradients put NaN exactly where their
+    twins do, which sum only the output's positions: K6 and K10 plain on x,
+    K6 and K10 act (also against K6 and K10 plain on the activated x,
+    exactly) and K6 mm on conv1's input x (the NaN reaches every channel of
+    its position), beside K10 mm, at the coarse step's layer3 and layer4
+    entries, whose strips are ragged (H or Ho = 7 and 14 at R = 4) and
+    whose T = 17 frames split into segments, f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        bad, rows = {}, 0
+        for label, b, t, h, c, s, _, _ in train_entry_cases():
+            if not label.startswith(("coarse.layer3", "coarse.layer4")):
+                continue
+            ho = (h - 1) // s + 1
+            x0 = torch.randn((b, t, h, h, c), generator=gen, device="cuda")
+            g = torch.randn((b, t, ho, ho, c), generator=gen,
+                            device="cuda").to(dtype)
+            sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bi = torch.randn(c, generator=gen, device="cuda")
+            cmp = {}
+            for where, at in EDGES.items():
+                x = x0.clone()
+                x[(0,) + at(t, h, h) + (0,)] = float("nan")
+                x = x.to(dtype)
+                a = dw_act._activate(x, sc, bi)
+                cmp[where] = {
+                    f"dw_conv_wgrad_s{s}": _nan_compare(
+                        dw_conv.dw_conv_wgrad(x, g, s),
+                        dw_conv.dw_conv_wgrad_plain(x, g, s), dtype),
+                    f"dw_act_wgrad_s{s}": _nan_compare(
+                        dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                        dw_act.dw_act_wgrad_plain(x, g, sc, bi, s), dtype),
+                    f"dw_act_wgrad_s{s} exact": _nan_compare(
+                        dw_act.dw_act_wgrad(x, g, sc, bi, s),
+                        dw_conv.dw_conv_wgrad(a, g, s), dtype, exact=True)}
+            torch.cuda.synchronize()
+            for where, v in cmp.items():
+                for k, r in v.items():
+                    rows += 1
+                    if not r["ok"]:
+                        bad[f"{label} {where} {k}"] = r
+            emit({"phase": "edges", "entry": label, "dtype": str(dtype)[6:],
+                  "x": [b, t, h, h, c], "stride": s, "by_position": cmp})
+            del x0, g
+        for label, b, t, h, c_in, c, s, _, _ in mm_entry_cases():
+            if not label.startswith(("coarse.layer3", "coarse.layer4")):
+                continue
+            ho = (h - 1) // s + 1
+            x0 = torch.randn((b, t, h, h, c_in), generator=gen,
+                             device="cuda")
+            w1 = (torch.randn((c_in, c), generator=gen, device="cuda")
+                  * c_in ** -0.5).to(dtype)
+            g = torch.randn((b, t, ho, ho, c), generator=gen,
+                            device="cuda").to(dtype)
+            sc = torch.rand(c, generator=gen, device="cuda") + 0.5
+            bi = torch.randn(c, generator=gen, device="cuda")
+            cmp = {}
+            for where, at in EDGES.items():
+                x = x0.clone()
+                x[(0,) + at(t, h, h) + (0,)] = float("nan")
+                x = x.to(dtype)
+                cmp[where] = {f"dw_mm_wgrad_s{s}": _nan_compare(
+                    dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, s),
+                    dw_mm_act.dw_mm_wgrad_plain(x, w1, g, sc, bi, s), dtype)}
+            torch.cuda.synchronize()
+            for where, v in cmp.items():
+                for k, r in v.items():
+                    rows += 1
+                    if not r["ok"]:
+                        bad[f"mm.{label} {where} {k}"] = r
+            emit({"phase": "edges", "entry": f"mm.{label}",
+                  "dtype": str(dtype)[6:], "x": [b, t, h, h, c_in],
+                  "c_mid": c, "stride": s, "by_position": cmp})
+            del x0, g
+        torch.cuda.empty_cache()
+        emit({"phase": "edges_summary", "dtype": str(dtype)[6:],
+              "comparisons": rows, "failed": len(bad)})
+        check(not bad, f"edges {dtype}: {bad}")
 
 
 def phase_autograd(dw_act) -> None:
@@ -1169,11 +1251,62 @@ def _mm_dx_exact(dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
                 b, t, h, wd, c_in, c, esz), True, c_in, dtype)}
 
 
+def _plan_row_mm_wgrad(dw_conv, p, c_in, dtype) -> dict:
+    """K6 mm's work split ``p`` (``plan_mm_wgrad_s1``) and what the card
+    makes of it: blocks of its persistent grid, shared memory, blocks per SM
+    and waves."""
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    occ = dw_conv.LIBRARY.build().dw_mm_wgrad_s1_occupancy(p.r, p.wb, p.pg,
+                                                           c_in, p.w, bf16)
+    check(occ > 0, f"plan_mm_wgrad_s1 {p} {dtype}: does not fit ({occ})")
+    blocks = p.rows * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
+            "rows": p.rows, "threads": p.threads, "blocks": blocks,
+            "smem": dw_conv.smem_mm_wgrad_s1(p, c_in, esz),
+            "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
+
+
+def _mm_wgrad_exact(dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype) -> dict:
+    """K6 mm (``dw_mm_wgrad_s1``) against its exact oracle: dk equals K6
+    plain (``dw_conv_wgrad_s1``) launched with K6 mm's plan on the
+    activation K1 mm computes (``dw_mm_act_s1`` with only the centre tap,
+    1: y is the activation, the one ``mm_strip_product`` gives both), with
+    a difference of 0 (the two walk each channel's items in one order); it
+    repeats bit for bit.  Returns the row's fields: the difference, whether
+    the plan is ``plan_s1``'s (K6 mm's has at most ``NT_DX`` threads, so
+    its channel groups are narrower), the plan."""
+    b, t, h, w, c_in = x.shape
+    c = w1.shape[1]
+    taps = torch.zeros((3, 3, 3, c), dtype=x.dtype, device=x.device)
+    taps[1, 1, 1] = 1
+    a = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1)
+    p = dw_conv.plan_mm_wgrad_s1(b, t, h, w, c_in, c, x.element_size())
+    part = torch.empty((p.rows, 27, c), dtype=torch.float32, device=x.device)
+    dw_mm_act._launch(dw_conv.LAUNCHES, dw_conv.LIBRARY, "dw_conv_wgrad_s1",
+                      a, a.data_ptr(), g.data_ptr(), part.data_ptr(),
+                      *a.shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
+    ref = torch.sum(part, dim=0)
+    dk1 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, 1)
+    dk2 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, 1)
+    torch.cuda.synchronize()
+    diff = (dk1 - ref).abs().max().item()
+    repeats = torch.equal(dk1, dk2)
+    what = f"dw_mm_wgrad_s1 {tuple(x.shape)} C_mid {c} {dtype}"
+    check(diff == 0, f"{what}: dk differs from K6 plain on K1 mm's "
+                     f"activation by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    base = dw_conv.plan_s1(b, t, h, w, c)
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan_is_plan_s1": p == base,
+            "plan": _plan_row_mm_wgrad(dw_conv, p, c_in, dtype)}
+
+
 def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
     """The composite's four backward kernels against their plain versions,
     and timed, at the coarse train step's entry shapes and at the fine
     stream's in long-cycle phase D; about half the ``bi`` are negative.  K2
-    also against its exact oracle (:func:`_mm_dx_exact`)."""
+    and K6 mm also against their exact oracles (:func:`_mm_dx_exact`,
+    :func:`_mm_wgrad_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(30)
     per_kernel = {k: _agg() for k in MM_TRAIN_KERNELS}
     gram = {"ms": 0.0, "f32_cast_ms": 0.0, "max_rel_err": 0.0,
@@ -1235,7 +1368,9 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
             }
             extra = ({"dw_mm_dx_mask_s1": _mm_dx_exact(
                 dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
-                dtype)} if s == 1 else None)
+                dtype), "dw_mm_wgrad_s1": _mm_wgrad_exact(
+                dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype)}
+                     if s == 1 else None)
             _hold_and_time("mm_train_kernels", cases,
                            {"entry": label, "x": [b, t, h, h, c_in],
                             "c_mid": c, "stride": s},
@@ -1428,8 +1563,9 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ACT_FUNCS + (
-            "mm_fwd_s1_kernel", "mm_dx_s1_kernel", "dx_s2_kernel",
-            "wgrad_kernel", "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
+            "mm_fwd_s1_kernel", "dw_mm_act_kernel", "mm_dx_s1_kernel",
+            "dx_s2_kernel", "mm_wgrad_s1_kernel", "wgrad_kernel",
+            "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
     moved = [k for k in params if not torch.equal(after[k], before[k])]
@@ -1660,11 +1796,13 @@ def _waves(blocks: int, per_sm: int) -> float:
 
 def _plan_row_s2(dw_conv, name, shape, dtype) -> dict:
     """The work split of stride-2 kernel ``name`` at x ``shape`` (over the
-    output's rows and columns; the dx's over g's): its blocks (K4 plain, K8
-    and K5: one per tile; K10 plain and act: their persistent grid), shared
-    memory, blocks per SM and waves."""
+    output's rows and columns; the dx's over g's): its blocks (K4 plain and
+    act, K8 and K5: one per tile; K10 plain and act: their persistent
+    grid), shared memory, blocks per SM and waves."""
     kind, plan, smem = {
         "dw_conv_s2": (0, dw_conv.plan_s2_fwd, dw_conv.smem_s2_fwd),
+        "dw_act_s2": (5, dw_conv.plan_act_s2_fwd,
+                      lambda p, esz: dw_conv.smem_s2_fwd(p, esz, True)),
         "dw_conv_dx_s2": (1, dw_conv.plan_s2_dx, dw_conv.smem_s2_dx),
         "dw_conv_wgrad_s2": (2, dw_conv.plan_s2, dw_conv.smem_s2),
         "dw_act_dx_s2": (3, dw_conv.plan_act_dx_s2,

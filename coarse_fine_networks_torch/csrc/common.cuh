@@ -244,8 +244,8 @@ __device__ __forceinline__ void mm_prologue(
 // Stencil tiles: an OH x OW tile of outputs at stride (1,S,S), with a halo
 // of S*(O-1)+3 input rows/cols around it (origin S*o0 - 1). Each warp takes
 // every WARPS-th halo position (NPA of them) and every WARPS-th output (NO).
+// (stride (1,2,2) only: the tile kernels left are K4 mm, K9 and K10 mm)
 template <int S> struct StencilTile;
-template <> struct StencilTile<1> { static constexpr int OH = 8, OW = 8; };
 template <> struct StencilTile<2> { static constexpr int OH = 4, OW = 8; };
 
 template <int S> struct StencilGeom {

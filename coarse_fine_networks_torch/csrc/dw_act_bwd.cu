@@ -1,7 +1,7 @@
 // Backward of the matmul-fused X3D bottleneck entry for Hopper (sm_90a):
 // the entries not yet on the row-strip layout.
 //
-//     y = dwconv3x3x3_(1,s,s)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
+//     y = dwconv3x3x3_(1,2,2)( a ),   a = relu( (x @ W1) * sc + bi )   (mm)
 //
 // x (B,T,H,W,Cin) is conv1's input and W1 (Cin,C) its weight, channels-
 // last, f32 or bf16; the depthwise taps w (27,C) have x's dtype; sc/bi are
@@ -9,21 +9,20 @@
 // train composite, the running ones in the eval entry). g is dL/dy (y's
 // shape and dtype).
 //
-// Three kernel entries, each replacing a TPU Pallas kernel of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py (mm mode: the backward of
-// the train composite dw_fold4_mm_bn_train, _mm_bn_train_bwd, and of the
-// eval entry dw_fold4_mm_act, _dw_mm_bwd):
+// Two kernel entries, both at stride (1,2,2), each replacing a TPU Pallas
+// kernel of coarse_fine_networks_tpu/ops/pallas/dw_fold.py (mm mode: the
+// backward of the train composite dw_fold4_mm_bn_train, _mm_bn_train_bwd,
+// and of the eval entry dw_fold4_mm_act, _dw_mm_bwd):
 //   * dw_mm_dx_mask_s2  <- _dx_s2_mask_pcall -> _dx_s2_kernel(mask) (K9)
-//   * dw_mm_wgrad_s1    <- _dw_fold4_wgrad_pcall -> _wgrad_kernel (mm mode,
-//                          K6 mm)
 //   * dw_mm_wgrad_s2    <- _wgrad_s2_pcall -> _wgrad_s2_kernel (mm mode,
 //                          K10 mm)
 // (the plain mode, the backward of dw_fold4 and dw_fold4_stride2, is in
 // dw_plain_s1.cu and dw_plain_s2.cu, and so is the whole backward of the act
-// mode, _dw_act_bwd: K5, K6 act and K10 act; the stride-1 dx of both modes,
-// K3 and K2, is in dw_dx_s1.cu).
+// mode, _dw_act_bwd: K5, K6 act and K10 act, and the stride-1 weight
+// gradient of the mm mode, K6 mm; the stride-1 dx of both modes, K3 and
+// K2, is in dw_dx_s1.cu).
 //
-// dx:    da  = dL/da: at stride 2 the half-resolution gather
+// dx:    da  = dL/da: the half-resolution gather
 //              da[t,r,c] = sum w[dt,dy,dx] g[t-dt+1, (r-dy+1)/2, (c-dx+1)/2]
 //              over the terms whose divisions are integral (dw_fold.py:825);
 //        dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype: the mask
@@ -34,7 +33,7 @@
 //              round them: mask and forward take the same relu branch even
 //              for inputs within one rounding of 0 (a flipped mask is an
 //              O(1) error in dx).
-// wgrad: dk[tap,c] = sum_pos a_pad[s*pos + tap] * g[pos], with the same
+// wgrad: dk[tap,c] = sum_pos a_pad[2*pos + tap] * g[pos], with the same
 //        rounded, zero-padded activation as the forward (the forward's
 //        prologue over the halo), summed in f32; per block an f32 partial
 //        (27, C).
@@ -216,9 +215,10 @@ dx_s2_kernel(const T* __restrict__ g, const T* __restrict__ x,
   }
 }
 
-// ---- wgrad, stride 1 or (1,2,2) ----------------------------------------------
-// x (B,T,H,W,Cin) with w1 (Cin,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1. The
-// tile is over g. The stencil reads relu((x@W1)*sc + bi).
+// ---- wgrad, stride (1,2,2) -----------------------------------------------------
+// x (B,T,H,W,Cin) with w1 (Cin,C); g (B,T,Ho,Wo,C), Ho = (H-1)/S + 1 (S =
+// 2: the stride-1 one, K6 mm, is dw_plain_s1.cu's). The tile is over g. The
+// stencil reads relu((x@W1)*sc + bi).
 template <typename T, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
@@ -342,15 +342,12 @@ int launch_wgrad(const void* x, const void* w1, const void* g, const void* sc,
 // after the launch: 0 means the kernel was launched. The partial buffers
 // have the row counts of dw_act_partial_rows.
 
-// Rows of the partial-sum buffer of each weight gradient: kind 1 at stride
-// 1, kind 2 at stride (1,2,2).
+// Rows of the partial-sum buffer of the weight gradient (kind 2: K10 mm,
+// at stride (1,2,2)).
 extern "C" int dw_act_partial_rows(int kind, int B, int T, int H, int W,
                                    int C) {
   (void)C;
   switch (kind) {
-    case 1:
-      return cdiv(H, SGeom<1>::OH) * cdiv(W, SGeom<1>::OW) * B *
-             cdiv(T, TT_WG);
     case 2: {
       const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
       return cdiv(Ho, SGeom<2>::OH) * cdiv(Wo, SGeom<2>::OW) * B *
@@ -372,18 +369,6 @@ extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
                                        Cin, C, st);
   return launch_dx_s2<float>(g, x, w1, w, sc, bi, dam, B, T, H, W, Cin, C,
                              st);
-}
-
-extern "C" int dw_mm_wgrad_s1(const void* x, const void* w1, const void* g,
-                              const void* sc, const void* bi, void* part, int B,
-                              int T, int H, int W, int Cin, int C, int is_bf16,
-                              void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, 1>(x, w1, g, sc, bi, part, B, T, H,
-                                          W, Cin, C, st);
-  return launch_wgrad<float, 1>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
-                                st);
 }
 
 extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,

@@ -1,26 +1,25 @@
-// X3D bottleneck entry for Hopper (sm_90a), two modes:
+// The eval bottleneck entry for Hopper (sm_90a), the mm mode of the
+// bottleneck entry:
 //
-//   mm    (eval):            y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
-//   act   (train):           y = dwconv3x3x3( relu( x * sc + bi ) )
+//   y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
 //
-// the mm mode at stride 1 and (1,2,2), the act mode at stride (1,2,2); the
-// mm mode at stride 1 has a layout of its own here, mm_fwd_s1_kernel. (The
-// act mode at stride 1, K1 act, and the plain mode of the split-batch-norm
-// route, y = dwconv3x3x3( x ), are in dw_plain_s1.cu and dw_plain_s2.cu.)
-// x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
+// at stride 1 (dw_mm_act_s1, K1 mm, mm_fwd_s1_kernel) and (1,2,2)
+// (dw_mm_act_s2, K4 mm, dw_mm_act_kernel). (The act mode of both strides,
+// y = dwconv3x3x3( relu( x * sc + bi ) ), and the plain mode of the
+// split-batch-norm route, y = dwconv3x3x3( x ), are in dw_plain_s1.cu and
+// dw_plain_s2.cu.) x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
+// channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
-// vectors of bn1 (running statistics in eval, batch statistics in train). In
-// act mode x is the conv1 output and C_in == C_mid.
+// vectors of bn1 (running statistics in eval, batch statistics in the
+// train composite).
 //
 // Replaces the mm mode of two TPU Pallas kernels of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py, and the act mode of one:
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_mm_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1, mode mm),
 //     and
-//   * dw_mm_act_s2 / dw_act_s2 <- _fwd_s2_direct_pcall ->
-//     _fwd_s2_direct_kernel (stride (1,2,2), only the kept quarter of
-//     positions is computed; modes mm and act),
-// with the tile prologues _mm_act_tile (mm) and _act_tile (act). Semantics
-// kept from them:
+//   * dw_mm_act_s2 <- _fwd_s2_direct_pcall -> _fwd_s2_direct_kernel
+//     (stride (1,2,2), only the kept quarter of positions is computed),
+// with the tile prologue _mm_act_tile. Semantics kept from them:
 //   * the activation a is computed in f32 and rounded to x's dtype before
 //     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
@@ -34,25 +33,25 @@
 // bf16 tensor cores would become the limit.
 //
 // What the design does about it: the activated tensor never goes to device
-// memory (in mm mode not even the C_mid product, 2.25x the bytes of x). A
-// block owns one (frame segment, output tile, 32-channel chunk); it walks its
-// frames in order and keeps the three activated frames the stencil needs in
-// a shared-memory ring, so each input frame is activated once per tile (plus
-// the spatial halo) rather than three times. In mm mode x is staged 32 input
-// channels at a time with 16-byte loads along C, by the prologue the
-// backward shares (mm_prologue, common.cuh); in act mode each lane loads
-// its own channel (C_mid = 54, 108, ... is no multiple of 8, so 16-byte
-// loads would straddle positions). Each lane owns one output channel, so
-// shared-memory reads of the ring are conflict-free and stores of y are
-// coalesced along C. The product runs on the FP32 cores.
-//
-// The mm mode at stride 1 (dw_mm_act_s1, K1 mm) has a kernel of its own,
-// mm_fwd_s1_kernel below: dw_plain_s1.cu's row strips (a halo of (R+2)/R
-// rows and no columns, not the 8x8 tile's 1.56-2x), W1's column group staged
-// once per block, x staged whole by cp.async three frames deep, and conv1's
-// product on the bf16 tensor cores (mma.m16n8k16, common.cuh) with its relu
-// branch settled against mm_prologue's sum (mm_band). Moving the
-// product to wgmma and the staging to TMA is later work.
+// memory (not even the C_mid product, 2.25x the bytes of x).
+//   * K4 mm (the tile kernel): a block owns one (frame segment, output tile,
+//     32-channel chunk); it walks its frames in order and keeps the three
+//     activated frames the stencil needs in a shared-memory ring, so each
+//     input frame is activated once per tile (plus the spatial halo) rather
+//     than three times. x is staged 32 input channels at a time with
+//     16-byte loads along C by the prologue the backward shares
+//     (mm_prologue, common.cuh). Each lane owns one output channel, so
+//     shared-memory reads of the ring are conflict-free and stores of y are
+//     coalesced along C. The product runs on the FP32 cores.
+//   * K1 mm (mm_fwd_s1_kernel below): dw_plain_s1.cu's row strips (a halo
+//     of (R+2)/R rows and no columns, not the 8x8 tile's 1.56-2x), W1's
+//     column group staged once per block, x staged whole by cp.async three
+//     frames deep, and conv1's product on the bf16 tensor cores
+//     (mma.m16n8k16, common.cuh) with its relu branch settled against
+//     mm_prologue's sum (mm_band); the staging and the product are
+//     mm_strip.cuh's, shared with K2 (dw_dx_s1.cu) and K6 mm
+//     (dw_plain_s1.cu). Moving the product to wgmma and the staging to TMA
+//     is later work.
 
 #include "mm_strip.cuh"
 
@@ -62,24 +61,20 @@ using namespace cfn;
 
 constexpr int TT = 8;      // output frames per block
 
-enum Mode { MM, ACT };
-
-template <int S, int MODE> struct Geom : StencilGeom<S> {
+template <int S> struct Geom : StencilGeom<S> {
   using SG = StencilGeom<S>;
-  // act mode stages nothing besides the ring
   static constexpr size_t SMEM =
-      sizeof(float) *
-      (3 * SG::P * CC + (MODE != MM ? 0 : SG::P * KC + KC * CC));
+      sizeof(float) * (3 * SG::P * CC + SG::P * KC + KC * CC);
 };
 
-template <typename T, int S, int MODE>
+template <typename T, int S>
 __global__ void __launch_bounds__(WARPS * 32)
 dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ wdw, const float* __restrict__ sc,
                  const float* __restrict__ bi, T* __restrict__ y, int B,
                  int Tn, int H, int W, int Cin, int Cmid, int Ho, int Wo,
                  int n_tx, int n_tseg) {
-  using G = Geom<S, MODE>;
+  using G = Geom<S>;
   constexpr int P = G::P, WR = G::WR;
 
   extern __shared__ __align__(16) float smem[];
@@ -105,31 +100,12 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
   for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
 
-  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) (mm) or relu(x[b, ti] * sc
-  // + bi) (act) over the halo, zero outside the tensor (frame, rows, cols)
-  // and for channels >= Cmid
+  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) over the halo, zero
+  // outside the tensor (frame, rows, cols) and for channels >= Cmid
   auto activate = [&](int ti) {
     float* slot = ring + slot_of(ti) * P * CC;
     if (ti < 0 || ti >= Tn) {  // uniform across the block
       for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
-      return;
-    }
-    if constexpr (MODE == ACT) {
-      const T* xf = x + (size_t)(b * Tn + ti) * H * W * Cmid;
-#pragma unroll
-      for (int j = 0; j < G::NPA; ++j) {
-        const int p = warp + j * WARPS;
-        if (p < P) {
-          const int gy = iy0 + p / WR, gx = ix0 + p % WR;
-          float a = 0.f;
-          if (cval && gy >= 0 && gy < H && gx >= 0 && gx < W) {
-            a = to_f(xf[((size_t)gy * W + gx) * Cmid + c]);
-            // the relu branch the backward's mask takes (dw_act_bwd.cu)
-            a = act<T>(a, scv, biv);
-          }
-          slot[p * CC + lane] = a;
-        }
-      }
       return;
     }
     // the prologue the backward's mask and weight gradient share
@@ -178,16 +154,16 @@ dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   }
 }
 
-template <typename T, int S, int MODE>
+template <typename T, int S>
 int launch(const void* x, const void* w1, const void* wdw, const void* sc,
            const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
            int Cmid, cudaStream_t stream) {
-  using G = Geom<S, MODE>;
-  if (int e = set_smem(dw_mm_act_kernel<T, S, MODE>, G::SMEM)) return e;
+  using G = Geom<S>;
+  if (int e = set_smem(dw_mm_act_kernel<T, S>, G::SMEM)) return e;
   const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
   const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT);
   const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(Cmid, CC), B * n_tseg);
-  dw_mm_act_kernel<T, S, MODE><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
+  dw_mm_act_kernel<T, S><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1),
       static_cast<const T*>(wdw), static_cast<const float*>(sc),
       static_cast<const float*>(bi), static_cast<T*>(y), B, Tn, H, W, Cin,
@@ -195,16 +171,15 @@ int launch(const void* x, const void* w1, const void* wdw, const void* sc,
   return (int)cudaGetLastError();
 }
 
-template <int S, int MODE>
+template <int S>
 int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
              const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
              int Cmid, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16, S, MODE>(x, w1, wdw, sc, bi, y, B, Tn, H, W,
-                                          Cin, Cmid, s);
-  return launch<float, S, MODE>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid,
-                                s);
+    return launch<__nv_bfloat16, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin,
+                                    Cmid, s);
+  return launch<float, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid, s);
 }
 
 // ---- the mm forward at stride 1 (K1 mm): row strips, conv1 on mma ----------
@@ -212,7 +187,7 @@ int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
 // C_mid): R output rows x WB columns x PG channel pairs of one sample over
 // TT frames. Per input frame it stages the R+2 rows of x (all C_in, the
 // columns [cs0, cs1) its outputs and their halo read) by cp.async into a
-// ring of XSTAGE frames, computes conv1's product there (mm_strip_product,
+// ring of XSTAGE_MM frames, computes conv1's product there (mm_activate,
 // mm_strip.cuh, which the stride-1 masked dx shares: bf16 16 x 8 tiles on
 // the tensor cores, each relu input within mm_band of 0 summed again in
 // order by mm_z_fmaf; f32 fmaf over k in order, as mm_prologue), applies
@@ -225,39 +200,6 @@ int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
 // the product of frame i and the stencil of frame i-1. Rows and columns
 // outside the frame are never written and stay the zero the slots are
 // cleared to (SAME padding after the activation).
-constexpr int XSTAGE = 3;  // x frames in the staging ring
-
-struct MmLayout {
-  int ld;      // staged x row stride, elements: bf16 C_in rounded up to 16,
-               // + 8 (an odd multiple of 16 bytes: ldmatrix without bank
-               // conflicts); f32 C_in
-  int ng;      // W1 columns staged: 2PG, rounded up to 8 in bf16
-  int rows;    // staged positions: (R+2) x min(WB+2, W), rounded up to 16
-  int aslot;   // bytes of one activated slot
-  int xslot;   // bytes of one staged x frame
-  int xs_off, wt_off, vec_off, tab_off, total;  // byte offsets and size
-};
-
-template <typename T>
-__host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
-                                                       int Cin, int W) {
-  const bool bf = sizeof(T) == 2;
-  MmLayout L;
-  L.rows = ((R + 2) * min(WB + 2, W) + 15) / 16 * 16;
-  L.ld = bf ? (Cin + 15) / 16 * 16 + 8 : Cin;
-  L.ng = bf ? (2 * PG + 7) / 8 * 8 : 2 * PG;
-  L.aslot = stage_elems<T>(R + 2, WB, PG) * (int)sizeof(T);
-  L.xslot = L.rows * L.ld * (int)sizeof(T);
-  L.xs_off = 2 * L.aslot;
-  L.wt_off = L.xs_off + XSTAGE * L.xslot;
-  const int wt = bf ? L.ng * L.ld * 2 : Cin * 2 * PG * 4;
-  L.vec_off = L.wt_off + (wt + 15) / 16 * 16;
-  // bn1's sc and bi, and mm_band's bound per unit of s, per channel
-  L.tab_off = L.vec_off + 3 * ((L.ng * 4 + 15) / 16 * 16);
-  L.total = L.tab_off + L.rows * 4;
-  return L;
-}
-
 // Thread (wl, pi) = (tid / PG, tid % PG): column w0 + wl, channels c, c+1
 // with c = 2*(p0 + pi), as in dw_plain_s1.cu's forward.
 template <typename T, int R>
@@ -266,7 +208,6 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                  const T* __restrict__ k, const float* __restrict__ sc,
                  const float* __restrict__ bi, T* __restrict__ y, int Tn,
                  int H, int W, int Cin, int Cmid, Plan pl) {
-  constexpr bool BF = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int WB = pl.WB, PG = pl.PG;
   const int PG2 = 2 * PG, rowlen = (WB + 2) * PG2;
@@ -284,7 +225,7 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
   const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int w = tl.w0 + wl;
   const int c0 = 2 * tl.p0, c = c0 + 2 * pi;
@@ -299,79 +240,31 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     k1[i] = live && second ? to_f(k[i * Cmid + c + 1]) : 0.f;
   }
 
-  // staged positions p = rr * ncs + col: staged row rr (input row h0-1+rr;
-  // rows [rlo, rhi) lie in the frame) at input column cs0 + col
-  const int cs0 = max(tl.w0 - 1, 0), cs1 = min(tl.w0 + WB + 1, W);
-  const int ncs = cs1 - cs0, M = (R + 2) * ncs;
-  const int rlo = max(0, 1 - tl.h0), rhi = min(R + 2, H + 1 - tl.h0);
+  // the tile's staged positions of x (mm_strip.cuh)
+  const MmTile mt(tl, R, WB, H, W, Cin, ld, 16 / (int)sizeof(T));
 
   zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
   // W1's columns c0 .. c0 + ng (zero past C_mid and past the group, and in
   // bf16 past C_in), bn1's apply vectors, and each staged position's place
-  // in a slot (-1: outside the frame or past M), once per block
+  // in a slot, once per block
   mm_stage_vecs(scs, bis, kbs, sc, bi, Cmid, c0, PG2, L.ng,
                 mm_band((ld - 8) / 16, Cin));
   mm_stage_w1<T>(wt, w1, Cin, Cmid, c0, PG2, L.ng, ld);
-  for (int p = tid; p < L.rows; p += nthreads) {
-    const int rr = p / ncs;
-    tab[p] = p < M && rr >= rlo && rr < rhi
-                 ? (rr * (WB + 2) + p - rr * ncs + cs0 - tl.w0 + 1) * PG2
-                 : -1;
-  }
+  mt.table(tab, L.rows, WB, PG2, tl.w0);
 
   const size_t frame = (size_t)H * W * Cin;
   // x rows of the strip, from staged row 0 (input row h0 - 1) and column
   // cs0, of sample b
   const T* xb = x + (size_t)tl.b * Tn * frame +
-                ((long long)(tl.h0 - 1) * W + cs0) * Cin;
+                ((long long)(tl.h0 - 1) * W + mt.cs0) * Cin;
   const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
-  constexpr int VE = 16 / sizeof(T);
-  const int n16 = Cin / VE, nch = ncs * n16;  // 16-byte chunks of a row
-  // the thread's chunk of every staged row (where a row has no more chunks
-  // than the block has threads: every shape of the path)
-  const int my_src = (tid / n16) * Cin + (tid % n16) * VE;
-  const int my_dst = (tid / n16) * ld + (tid % n16) * VE;
-  // x frame f0 + i (its rows in the frame) into ring slot i % XSTAGE
+  // x frame f0 + i (its rows in the frame) into ring slot i % XSTAGE_MM
   auto stage_x = [&](int i) {
     const int ti = f0 + i;
-    if (i < nf && ti >= 0 && ti < Tn) {  // uniform across the block
-      const T* f = xb + (size_t)ti * frame;
-      T* d = xs + (i % XSTAGE) * xslot;
-      if (nch <= nthreads) {
-        if (tid < nch)
-          for (int rr = rlo; rr < rhi; ++rr)
-            cp_async16(d + rr * ncs * ld + my_dst,
-                       f + (size_t)rr * W * Cin + my_src);
-      } else {
-        for (int q = tid; q < (rhi - rlo) * nch; q += nthreads) {
-          const int v = q % n16, r2 = q / n16;
-          const int col = r2 % ncs, rr = rlo + r2 / ncs;
-          cp_async16(d + (rr * ncs + col) * ld + v * VE,
-                     f + ((size_t)rr * W + col) * Cin + v * VE);
-        }
-      }
-    }
+    if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
+      mt.stage(xs + (i % XSTAGE_MM) * xslot, xb + (size_t)ti * frame, W, Cin,
+               ld);
     cp_commit();
-  };
-  // conv1's product of x frame f0 + i (ring slot i % XSTAGE), bn1, relu
-  // rounded to T -> activated slot i % 2
-  auto product = [&](int i) {
-    T* sl = act_s + (i & 1) * aslot;
-    mm_strip_product<T>(
-        xs + (i % XSTAGE) * xslot, wt, ld, L.ng, PG, M, Cin, scs, bis, kbs,
-        tab,
-        [&](int at, int ch, float v0, float v1) {
-          if constexpr (BF) {
-            *reinterpret_cast<__nv_bfloat162*>(sl + at + ch) =
-                __floats2bfloat162_rn(relu(v0), relu(v1));
-          } else {
-            *reinterpret_cast<float2*>(sl + at + ch) =
-                make_float2(relu(v0), relu(v1));
-          }
-        },
-        [&](int at, int cc, float v) {
-          sl[at + cc] = from_f<T>(relu(v));
-        });
   };
 
   float acc[3][R][2];
@@ -380,13 +273,17 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
 
-  for (int i = 0; i < XSTAGE - 1; ++i) stage_x(i);
+  for (int i = 0; i < XSTAGE_MM - 1; ++i) stage_x(i);
   for (int i = 0; i <= nf; ++i) {
-    cp_wait<XSTAGE - 2>();  // this thread's copies of x frame i have landed
+    cp_wait<XSTAGE_MM - 2>();  // this thread's copies of x frame i landed
     __syncthreads();  // and everyone's; slot i-1 is written; slot i, and x
                       // ring slot i-1, are read by no one
-    stage_x(i + XSTAGE - 1);
-    if (i < nf && f0 + i >= 0 && f0 + i < Tn) product(i);
+    stage_x(i + XSTAGE_MM - 1);
+    // conv1's product of x frame f0 + i, bn1, relu rounded to T ->
+    // activated slot i % 2
+    if (i < nf && f0 + i >= 0 && f0 + i < Tn)
+      mm_activate<T>(act_s + (i & 1) * aslot, xs + (i % XSTAGE_MM) * xslot,
+                     wt, L, PG, mt.M, Cin, scs, bis, kbs, tab);
     if (i == 0) continue;
     const int ti = f0 + i - 1;  // the frame the stencil reads now
     if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
@@ -502,14 +399,6 @@ extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
                             const void* sc, const void* bi, void* y, int B,
                             int T, int H, int W, int Cin, int Cmid,
                             int is_bf16, void* stream) {
-  return dispatch<2, MM>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid,
-                         is_bf16, stream);
-}
-
-// act mode (K4 act): x is (B,T,H,W,C), the conv1 output; no W1.
-extern "C" int dw_act_s2(const void* x, const void* wdw, const void* sc,
-                         const void* bi, void* y, int B, int T, int H, int W,
-                         int C, int is_bf16, void* stream) {
-  return dispatch<2, ACT>(x, nullptr, wdw, sc, bi, y, B, T, H, W, C, C,
-                          is_bf16, stream);
+  return dispatch<2>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
+                      stream);
 }

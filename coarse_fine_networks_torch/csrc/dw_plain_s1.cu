@@ -1,6 +1,7 @@
 // The plain depthwise 3x3x3 conv at stride 1 of the split-batch-norm
-// training route and its weight gradient, and the same two of the act
-// training entry, for Hopper (sm_90a):
+// training route and its weight gradient, the same two of the act
+// training entry, and the weight gradient of the mm entry, for Hopper
+// (sm_90a):
 //
 //   dw_conv_s1        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
 //                                   x[t+dt-1, h+dy-1, w+dx-1, c]
@@ -14,6 +15,10 @@
 //                     padded after the activation; sc/bi are bn1's f32
 //                     per-channel apply vectors
 //   dw_act_wgrad_s1   dw_conv_wgrad_s1's sum over a_pad, a as above
+//   dw_mm_wgrad_s1    dw_conv_wgrad_s1's sum over a_pad, a = relu((x @ W1)
+//                     *sc + bi) rounded to x's dtype: x (B,T,H,W,C_in) is
+//                     conv1's input, W1 (C_in,C) its weight (the train
+//                     composite's and the eval entry's backward)
 //
 // x, y and g are channels-last (B,T,H,W,C), f32 or bf16; the taps k (27,C)
 // have x's dtype. Every sum is in f32; y is written in x's dtype.
@@ -28,7 +33,9 @@
 //   * dw_conv_wgrad_s1 <- _dw_fold4_wgrad_pcall (:705) -> _wgrad_kernel
 //                         (:478), plain mode (K6 plain);
 //   * dw_act_wgrad_s1  <- the same, act mode (K6 act): the backward of
-//                         dw_fold4_act, _dw_act_bwd.
+//                         dw_fold4_act, _dw_act_bwd;
+//   * dw_mm_wgrad_s1   <- the same, mm mode (K6 mm): the backward of
+//                         dw_fold4_mm_bn_train and dw_fold4_mm_act.
 // The fold4 lane layout is TPU mechanics and is not carried over.
 //
 // What bounds them on this card: bytes. The forward reads x once and
@@ -68,7 +75,14 @@
 //     items (sample, frame segment, row strip, column tile) of its channel
 //     group, then sums its threads' columns in a fixed order and writes one
 //     partial row; the wrapper adds the rows with one torch.sum, so runs
-//     repeat bit for bit and nothing uses atomics.
+//     repeat bit for bit and nothing uses atomics. It adds x * g only where
+//     the register ring of g holds an element of the item (wgrad_slots,
+//     strip.cuh): not for a g frame outside the item's segment (on its
+//     first two and last two x frames), an output row past H (a ragged last
+//     strip) or a column past W. There the ring holds a zero, and x * 0
+//     would carry a NaN of x into a tap no output position reaches; the
+//     rule only selects between two unrolled variants per frame, and moves
+//     no finite sum (fmaf(x, 0, acc) == acc).
 //   * The act modes are the same kernel bodies with a template flag
 //     (act_fwd_s1_kernel beside plain_fwd_kernel, act_wgrad_s1_kernel
 //     beside plain_wgrad_kernel). The ring holds one frame more
@@ -79,12 +93,19 @@
 //     columns outside the frame are never copied, so they stay the zero
 //     of a, not relu(bi), with no mask. The stencil is the plain one, so y
 //     and the sums equal K1 and K6 plain's on the activated x bit for bit.
+//   * K6 mm (mm_wgrad_s1_kernel) is K1 mm's front end on that back end:
+//     x staged whole (all C_in) by cp.async, conv1's product on mma into
+//     an activated slot (mm_strip.cuh, shared with K1 mm and K2, so its
+//     relu branch is theirs element for element), g staged beside it, and
+//     the weight gradient's register ring, rule and sums; see the kernel.
+//     At most NT_DX = 192 threads a block, so a thread may hold 168
+//     registers (the product's beside the 54 sums and the ring of g).
 // The split (R, WB, PG, TT and, for the weight gradients, IPB and the row
-// count) is computed by the wrappers (ops/dw_conv.py:plan_s1, for all four)
-// and checked here; a plan the kernels do not take returns
-// cudaErrorInvalidValue.
+// count) is computed by the wrappers (ops/dw_conv.py: plan_s1 for the
+// plain and act kernels, plan_mm_wgrad_s1 for K6 mm) and checked here; a
+// plan the kernels do not take returns cudaErrorInvalidValue.
 
-#include "strip.cuh"
+#include "mm_strip.cuh"
 
 namespace {
 
@@ -220,12 +241,35 @@ act_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ k,
 }
 
 // ---- weight gradient ------------------------------------------------------------
+// acc[tap] += x * g over one staged x frame (stencil_frame at the thread's
+// column) with the register ring gr of g: every slot and row where all
+// exist, else only the ring slots and rows the rule admits
+// (stencil_frame_masked; ROWS_ONCE where the build has registers to spare),
+// so no x meets the zero of a g element outside the item (strip.cuh).
+template <typename T, int R, bool ROWS_ONCE>
+__device__ __forceinline__ void wgrad_frame(const T* tile, int rowlen, int PG2,
+                                            unsigned slots, int nr,
+                                            const float (&gr)[3][R][2],
+                                            float (&acc)[27][2]) {
+  auto fma = [&](int j, int r, int dy, int dx, float2 v) {
+    const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+    acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
+    acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+  };
+  if (slots == 7u && nr == R)
+    stencil_frame<T, R>(tile, rowlen, PG2, fma);
+  else
+    stencil_frame_masked<T, R, ROWS_ONCE>(tile, rowlen, PG2, fma, slots,
+                                          nr);
+}
+
 // Thread (wl, pi) as in the forward. Slot i of the ring holds x frame
 // f0 + i (rows h0-1 .. h0+R, columns w0-1 .. w0+WB) and g frame f0 + i + 1
 // (rows h0 .. h0+R-1 at columns w0 .. w0+WB-1, slots 1 .. WB). While x
 // frame ti is read, gr[j][r] holds g frame ti - 1 + j of row h0 + r (zero
 // outside [t0, t1) and the frame): x frame ti pairs with it through tap
-// dt = 2 - j. acc[tap] sums x * g over the thread's whole walk.
+// dt = 2 - j, where wgrad_slots admits the pair. acc[tap] sums x * g over
+// the thread's whole walk.
 //
 // ACT (the act entry's weight gradient, K6 act): the stencil reads a =
 // relu(x*sc + bi) rounded to T, the x part of each slot activated in place
@@ -268,6 +312,9 @@ __device__ __forceinline__ void wgrad_body(
     const T* gb = g + (size_t)tl.b * Tn * frame;
     const Stager sg(tl, wl, pi, WB, PG2, W, C, pl.pairs);
     const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    // output rows of the strip, and whether the thread's column exists
+    const int nr = min(R, H - tl.h0);
+    const bool live = in && tl.w0 + wl < W;
     auto load = [&](int i) {
       if (i < nf) {  // uniform across the block
         T* slot = ring + (i % NS) * stage;
@@ -284,8 +331,10 @@ __device__ __forceinline__ void wgrad_body(
     auto own = [&](int i) {  // ACT: the thread's x copies of frame i
       const int ti = f0 + i;
       if (i < nf && ti >= 0 && ti < Tn)
-        sg.act_rows<R + 2>(ring + (i % NS) * stage, tl.h0 - 1, H, rowlen,
-                           scp, bip);
+        // the f32 builds keep their groups rolled: unrolled, the R = 4
+        // build spills beside the rule's variant (wgrad_frame)
+        sg.act_rows<R + 2, sizeof(T) == 4>(ring + (i % NS) * stage,
+                                           tl.h0 - 1, H, rowlen, scp, bip);
     };
 
     float gr[3][R][2];
@@ -304,7 +353,7 @@ __device__ __forceinline__ void wgrad_body(
       if constexpr (ACT) act_own(own, i + 1);
       const int ti = f0 + i, tg = ti + 1;
       const T* slot = ring + (i % NS) * stage;
-      const bool gin = in && tg >= tl.t0 && tg < tl.t1;
+      const bool gin = live && tg >= tl.t0 && tg < tl.t1;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         gr[0][r][0] = gr[1][r][0];
@@ -316,38 +365,15 @@ __device__ __forceinline__ void wgrad_body(
         gr[2][r][0] = v.x;
         gr[2][r][1] = v.y;
       }
-      if (ti >= 0 && ti < Tn && in)
-        stencil_frame<T, R>(
-            slot + at - PG2, rowlen, PG2,
-            [&](int j, int r, int dy, int dx, float2 v) {
-              const int tap = ((2 - j) * 3 + dy) * 3 + dx;
-              acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
-              acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
-            });
+      if (ti >= 0 && ti < Tn && live)
+        wgrad_frame<T, R, !ACT>(slot + at - PG2, rowlen, PG2,
+                                wgrad_slots(i, nf), nr, gr, acc);
     }
     cp_wait<0>();
     __syncthreads();  // the next item zeroes and refills every slot
   }
 
-  // fixed-order sum over the block's columns: red[tap][wl][2PG], then slot
-  // (tap, channel) adds its WB columns in order and writes row blockIdx.x
-  float* red = reinterpret_cast<float*>(smem_raw);
-  if (in) {
-#pragma unroll
-    for (int i = 0; i < 27; ++i) {
-      red[(i * WB + wl) * PG2 + 2 * pi] = acc[i][0];
-      red[(i * WB + wl) * PG2 + 2 * pi + 1] = acc[i][1];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < 27 * PG2; i += blockDim.x) {
-    const int tap = i / PG2, s = i % PG2;
-    const int ch = 2 * pg * PG + s;
-    if (ch >= C) continue;
-    float sum = 0.f;
-    for (int q = 0; q < WB; ++q) sum += red[(tap * WB + q) * PG2 + s];
-    part[((size_t)row * 27 + tap) * C + ch] = sum;
-  }
+  wgrad_partials(acc, part, smem_raw, WB, PG, C);
 }
 
 template <typename T, int R>
@@ -367,6 +393,139 @@ act_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     int Tn, int H, int W, int C, Plan pl, int n_items,
                     int ipb) {
   wgrad_body<T, R, true>(x, g, sc, bi, part, Tn, H, W, C, pl, n_items, ipb);
+}
+
+// ---- mm weight gradient (K6 mm) ---------------------------------------------------
+// dk of a = relu((x @ W1)*sc + bi), rounded to T and zero-padded after the
+// activation: K1 mm's front end (dw_mm_act.cu, mm_fwd_s1_kernel; the shared
+// pieces are mm_strip.cuh's) on K6 plain's back end (wgrad_body above).
+// Per block, once: W1's column group and bn1's vectors. Per item (the
+// persistent walk of wgrad_body): x frame f0 + i staged whole (all C_in)
+// by cp.async into ring slot i % XSTAGE_MM, in one commit group with g
+// frame f0 + i (rows h0 .. h0+R-1 at the thread's own column, as K6
+// plain stages them). Step i (i = 0 .. nf, between two barriers, K1 mm's
+// schedule): stage frame i + 2; conv1's product of x frame f0 + i into
+// activated slot i % 2 (mm_activate: its relu branch is K1 mm's and K2's,
+// element for element); the register ring takes g frame f0 + i; the
+// stencil reads activated frame f0 + i - 1 (slot (i - 1) % 2) with the
+// ring, under wgrad_slots, so the ring's slot j holds g frame
+// f0 + i - 2 + j as in wgrad_body. Rows and columns outside the frame are
+// never written and stay the zero each item clears the activated slots
+// to. The sums, their column sum and the partial row are wgrad_body's.
+// At most NT_DX threads: the product's registers beside the 27 x 2 sums and
+// the ring of g need more than 128.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_DX, 2)
+mm_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                   const T* __restrict__ g, const float* __restrict__ sc,
+                   const float* __restrict__ bi, float* __restrict__ part,
+                   int Tn, int H, int W, int Cin, int Cmid, Plan pl,
+                   int n_items, int ipb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 2) * PG2;
+  const MmLayout L = mm_layout<T>(R, WB, PG, Cin, W);
+  T* act_s = reinterpret_cast<T*>(smem_raw);  // [2][R+2][WB+2][2PG]
+  T* xs = reinterpret_cast<T*>(smem_raw + L.xs_off);
+  T* wt = reinterpret_cast<T*>(smem_raw + L.wt_off);
+  float* scs = reinterpret_cast<float*>(smem_raw + L.vec_off);
+  float* bis = scs + (L.ng + 3) / 4 * 4;
+  float* kbs = bis + (L.ng + 3) / 4 * 4;
+  int* tab = reinterpret_cast<int*>(smem_raw + L.tab_off);
+  T* gring = reinterpret_cast<T*>(smem_raw + L.total);  // after the table
+  const int aslot = L.aslot / (int)sizeof(T), xslot = L.xslot / (int)sizeof(T);
+  const int gslot = stage_elems<T>(R, WB, PG);  // g rows [R][WB+2][2PG]
+  const int ld = L.ld;
+
+  const int pg = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int c0 = 2 * pg * PG;
+  const bool in = wl < WB;
+  const int at = (wl + 1) * PG2 + 2 * pi;  // the thread's column in a slot
+
+  zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
+  mm_stage_vecs(scs, bis, kbs, sc, bi, Cmid, c0, PG2, L.ng,
+                mm_band((ld - 8) / 16, Cin));
+  mm_stage_w1<T>(wt, w1, Cin, Cmid, c0, PG2, L.ng, ld);
+
+  float acc[27][2];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const size_t xframe = (size_t)H * W * Cin, gframe = (size_t)H * W * Cmid;
+  const int row = blockIdx.x;
+  const int it1 = min((row + 1) * ipb, n_items);
+  for (int item = row * ipb; item < it1; ++item) {
+    const Tile tl = pl.tile(item, pg, Tn);
+    const MmTile mt(tl, R, WB, H, W, Cin, ld, 16 / (int)sizeof(T));
+    const Stager sg(tl, wl, pi, WB, PG2, W, Cmid, pl.pairs);
+    const T* xb = x + (size_t)tl.b * Tn * xframe +
+                  ((long long)(tl.h0 - 1) * W + mt.cs0) * Cin;
+    const T* gb = g + (size_t)tl.b * Tn * gframe;
+    const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    const int nr = min(R, H - tl.h0);
+    const bool live = in && tl.w0 + wl < W;
+    // x frame f0 + i and g frame f0 + i (where they exist) into ring slot
+    // i % XSTAGE_MM, one commit group
+    auto stage = [&](int i) {
+      if (i < nf) {  // uniform across the block
+        const int ti = f0 + i;
+        if (ti >= 0 && ti < Tn)
+          mt.stage(xs + (i % XSTAGE_MM) * xslot, xb + (size_t)ti * xframe, W,
+                   Cin, ld);
+        if (ti >= tl.t0 && ti < tl.t1)
+          sg.rows(gring + (i % XSTAGE_MM) * gslot, gb + (size_t)ti * gframe,
+                  tl.h0, R, H, W, rowlen, false);
+      }
+      cp_commit();
+    };
+
+    // the slots' padding is this tile's (the previous item's readers are
+    // done: the barrier closing its walk)
+    zero_ring(smem_raw, L.xs_off);
+    mt.table(tab, L.rows, WB, PG2, tl.w0);
+    float gr[3][R][2];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
+
+    for (int i = 0; i < XSTAGE_MM - 1; ++i) stage(i);
+    for (int i = 0; i <= nf; ++i) {
+      cp_wait<XSTAGE_MM - 2>();  // this thread's copies of frame i landed
+      __syncthreads();  // and everyone's; activated slot i-1 is written;
+                        // slot i, and ring slot i-1, are read by no one
+      stage(i + XSTAGE_MM - 1);
+      const int tx = f0 + i;
+      if (i < nf && tx >= 0 && tx < Tn)
+        mm_activate<T>(act_s + (i & 1) * aslot, xs + (i % XSTAGE_MM) * xslot,
+                       wt, L, PG, mt.M, Cin, scs, bis, kbs, tab);
+      // g frame f0 + i (the thread's own copies) into the register ring
+      const bool gin = live && i < nf && tx >= tl.t0 && tx < tl.t1;
+      const T* gs = gring + (i % XSTAGE_MM) * gslot + at;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        gr[0][r][0] = gr[1][r][0];
+        gr[0][r][1] = gr[1][r][1];
+        gr[1][r][0] = gr[2][r][0];
+        gr[1][r][1] = gr[2][r][1];
+        const float2 v =
+            gin ? load_pair(gs + r * rowlen) : make_float2(0.f, 0.f);
+        gr[2][r][0] = v.x;
+        gr[2][r][1] = v.y;
+      }
+      if (i == 0) continue;
+      const int ti = tx - 1;  // the activated frame the stencil reads
+      if (ti >= 0 && ti < Tn && live)
+        wgrad_frame<T, R, true>(act_s + ((i - 1) & 1) * aslot + at - PG2,
+                                rowlen, PG2, wgrad_slots(i - 1, nf), nr, gr,
+                                acc);
+    }
+    cp_wait<0>();
+    __syncthreads();  // the next item clears the slots and the table
+  }
+  wgrad_partials(acc, part, smem_raw, WB, PG, Cmid);
 }
 
 // ---- launchers -----------------------------------------------------------------
@@ -493,6 +652,66 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
   return (int)cudaGetLastError();
 }
 
+// K6 mm's shared memory: K1 mm's layout (mm_layout), then a ring of
+// XSTAGE_MM g frames; or the column sums if larger.
+template <typename T>
+size_t mm_wgrad_smem(int R, int WB, int PG, int Cin, int W) {
+  const size_t ring = mm_layout<T>(R, WB, PG, Cin, W).total +
+                      sizeof(T) * XSTAGE_MM * stage_elems<T>(R, WB, PG);
+  const size_t red = sizeof(float) * 27 * WB * 2 * PG;
+  return ring > red ? ring : red;
+}
+
+template <typename T>
+decltype(&mm_wgrad_s1_kernel<T, RMAX>) mm_wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return mm_wgrad_s1_kernel<T, 2>;
+    case 3: return mm_wgrad_s1_kernel<T, 3>;
+    case 4: return mm_wgrad_s1_kernel<T, 4>;
+  }
+  return nullptr;
+}
+
+// The weight gradient of relu((x @ W1)*sc + bi) (K6 mm): x (B, T, H, W,
+// C_in) with C_in % 8 == 0 and 16-byte aligned; the split is over g (B, T,
+// H, W, C_mid).
+template <typename T>
+int launch_mm_wgrad(const void* x, const void* w1, const void* g,
+                    const void* sc, const void* bi, void* part, int B, int Tn,
+                    int H, int W, int Cin, int Cmid, int R, int WB, int PG,
+                    int TT, int ipb, int rows, cudaStream_t st) {
+  Plan p;
+  if (!make_plan<T>(p, (uintptr_t)g, B, Tn, H, W, Cmid, R, WB, PG, TT) ||
+      WB * PG > NT_DX || ipb < 1 || Cin < 8 || Cin % 8 || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_tseg * p.n_strip * p.n_wt;
+  // every block has an item, and the blocks cover them all
+  if (rows < 1 || (long long)rows * ipb < items ||
+      (long long)(rows - 1) * ipb >= items)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = mm_wgrad_smem<T>(R, WB, PG, Cin, W);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = mm_wgrad_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(g), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<float*>(part), Tn, H, W,
+      Cin, Cmid, p, (int)items, ipb);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int mm_wgrad_occupancy(int R, int WB, int PG, int Cin, int W) {
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || WB * PG > NT_DX ||
+      Cin < 8 || W < 1)
+    return -1;
+  const size_t smem = mm_wgrad_smem<T>(R, WB, PG, Cin, W);
+  if (smem > SMEM_MAX) return -1;
+  return blocks_per_sm(mm_wgrad_kernel_of<T>(R), smem,
+                       (WB * PG + 31) / 32 * 32);
+}
+
 template <typename T>
 int occupancy(int kind, int R, int WB, int PG) {
   if (R < RMIN || R > RMAX || WB * PG > NT_MAX) return -1;
@@ -573,6 +792,34 @@ extern "C" int dw_act_wgrad_s1(const void* x, const void* g, const void* sc,
                                              C, R, WB, PG, TT, ipb, rows, st);
   return launch_wgrad<float, true>(x, g, sc, bi, part, B, T, H, W, C, R, WB,
                                    PG, TT, ipb, rows, st);
+}
+
+// The mm entry's weight gradient (K6 mm): dk of a = relu((x @ W1)*sc + bi)
+// rounded to x's dtype, zero-padded; x (B,T,H,W,C_in) is conv1's input, W1
+// (C_in,C_mid) its weight, g (B,T,H,W,C_mid); sc and bi are f32 (C_mid,).
+// The split is over g (ops/dw_conv.py: plan_mm_wgrad_s1); part is (rows,
+// 27, C_mid) f32.
+extern "C" int dw_mm_wgrad_s1(const void* x, const void* w1, const void* g,
+                              const void* sc, const void* bi, void* part,
+                              int B, int T, int H, int W, int Cin, int Cmid,
+                              int R, int WB, int PG, int TT, int ipb,
+                              int rows, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mm_wgrad<__nv_bfloat16>(x, w1, g, sc, bi, part, B, T, H, W,
+                                          Cin, Cmid, R, WB, PG, TT, ipb, rows,
+                                          st);
+  return launch_mm_wgrad<float>(x, w1, g, sc, bi, part, B, T, H, W, Cin, Cmid,
+                                R, WB, PG, TT, ipb, rows, st);
+}
+
+// Blocks per SM mm_wgrad_s1_kernel reaches at a plan (R, WB, PG), C_in and
+// the frame's width W, with its threads and shared memory, or -1 where it
+// does not take them.
+extern "C" int dw_mm_wgrad_s1_occupancy(int R, int WB, int PG, int Cin, int W,
+                                        int is_bf16) {
+  return is_bf16 ? mm_wgrad_occupancy<__nv_bfloat16>(R, WB, PG, Cin, W)
+                 : mm_wgrad_occupancy<float>(R, WB, PG, Cin, W);
 }
 
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads

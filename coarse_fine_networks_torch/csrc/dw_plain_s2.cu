@@ -16,9 +16,10 @@
 //                     apart, as the forward's activation), dx = dam*sc in
 //                     x's dtype, and per block the f32 partial sums
 //                     (sum dam*x, sum dam) per channel -> (dsc, dbi)
-//   dw_act_wgrad_s2   dw_conv_wgrad_s2's sum over a_pad, a = relu(x*sc +
-//                     bi) rounded to x's dtype (x*sc and + bi rounded
-//                     apart, as act<T>), zero-padded after the activation
+//   dw_act_s2         dw_conv_s2 of a = relu(x*sc + bi) rounded to x's
+//                     dtype (x*sc and + bi rounded apart, as act<T>), zero-
+//                     padded after the activation
+//   dw_act_wgrad_s2   dw_conv_wgrad_s2's sum over a_pad, a as above
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
@@ -26,10 +27,12 @@
 // are written in the input's dtype.
 //
 // Replaces the plain mode of three TPU Pallas kernels, and the act mode of
-// two, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+// all three, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_conv_s2       <- _fwd_s2_direct_pcall (:1078) ->
 //                         _fwd_s2_direct_kernel (:1035), plain mode
 //                         (K4 plain);
+//   * dw_act_s2        <- the same, act mode with the prologue _act_tile
+//                         (:261) (K4 act): the forward of dw_fold4_act;
 //   * dw_conv_dx_s2    <- _dx_s2_pcall (:1208) -> _dx_s2_kernel (:888),
 //                         plain mode (K8);
 //   * dw_act_dx_s2     <- _dx_s2_act_pcall (:660) -> _dx_s2_kernel (:888),
@@ -85,6 +88,10 @@
 //     54 tap registers. Each output's taps are added in the order dt, dy,
 //     dx with one fmaf each, as K7 (dw_stencil.cu) adds them: it equals
 //     dw_stencil_s2 bit for bit. The grid is one block per tile.
+//   * The act forward (K4 act) is the same body with a template flag
+//     (act_s2_fwd_kernel beside plain_s2_fwd_kernel), activating in place
+//     as K10 act below does, with a plan of its own ring (plan_act_s2_fwd):
+//     y equals K4 plain's on the activated x bit for bit.
 //   * The dx (K8) is a gather from half-resolution g: the 2x2 quad of dx
 //     rows 2i, 2i+1 and columns 2j, 2j+1 reads only the 2x2 g window (i..
 //     i+1, j..j+1) of 3 frames (the even row through dy = 1, the odd row
@@ -122,7 +129,10 @@
 //     (sample, frame segment, row strip, column tile) of its channel group,
 //     then sums its threads' columns in a fixed order and writes one partial
 //     row; the wrapper adds the rows with one torch.sum, so runs repeat bit
-//     for bit and nothing uses atomics.
+//     for bit and nothing uses atomics. It adds x * g only where the ring
+//     holds a g element of the item (wgrad_slots, strip.cuh): not for a g
+//     frame outside the item's segment, an output row past Ho or a column
+//     past Wo, where x * 0 would carry a NaN of x into a tap.
 //   * The act weight gradient (K10 act) is the same body with a template
 //     flag (act_s2_wgrad_kernel beside plain_s2_wgrad_kernel): the ring
 //     holds one frame more (NSTAGE_ACT), and each thread activates in place
@@ -138,9 +148,9 @@
 //     fully unrolled and have no branch.
 // The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
 // count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
-// plan_s2_dx, plan_act_dx_s2, plan_s2 for both weight gradients) and
-// checked here; a plan the
-// kernels do not take returns cudaErrorInvalidValue.
+// plan_act_s2_fwd, plan_s2_dx, plan_act_dx_s2, plan_s2 for both weight
+// gradients) and checked here; a plan the kernels do not take returns
+// cudaErrorInvalidValue.
 
 #include "strip.cuh"
 
@@ -340,6 +350,48 @@ __device__ __forceinline__ void s2_frame(const T* slot, int rowlen, int atE,
   }
 }
 
+// s2_frame under the weight gradient's rule (strip.cuh): the ring slots j of
+// bit j of slots, the output rows r < nr, each tap's products in s2_frame's
+// order, as stencil_frame_masked (ROWS_ONCE likewise).
+template <typename T, int R, bool ROWS_ONCE, typename FN>
+__device__ __forceinline__ void s2_frame_masked(const T* slot, int rowlen,
+                                                int atE, int atO, int PG2,
+                                                FN fn, unsigned slots,
+                                                int nr) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (!((slots >> j) & 1u)) continue;
+    if constexpr (ROWS_ONCE) {
+#pragma unroll
+      for (int rr = 0; rr < 2 * R + 1; ++rr) {
+        const T* sr = slot + rr * rowlen;
+        const float2 v[3] = {load_pair(sr + atE), load_pair(sr + atO),
+                             load_pair(sr + atE + PG2)};
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int dy = rr - 2 * r;
+          if (dy < 0 || dy > 2 || r >= nr) continue;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= nr) break;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const T* sr = slot + (2 * r + dy) * rowlen;
+          const float2 v[3] = {load_pair(sr + atE), load_pair(sr + atO),
+                               load_pair(sr + atE + PG2)};
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+        }
+      }
+    }
+  }
+}
+
 // The taps of the thread's channel pair (zero where it owns no output)
 template <typename T>
 __device__ __forceinline__ void load_taps(float (&k0)[27], float (&k1)[27],
@@ -352,18 +404,29 @@ __device__ __forceinline__ void load_taps(float (&k0)[27], float (&k1)[27],
   }
 }
 
-// ---- forward (K4 plain) ---------------------------------------------------------
+// ---- forward (K4 plain; K4 act) ---------------------------------------------
 // Thread (wl, pi) = (tid / PG, tid % PG): output column w0 + wl, channels
 // c, c+1 with c = 2*(p0 + pi). Slot i of the ring holds x frame f0 + i
 // (staged rows rr = 0..2R: input row 2h0 - 1 + rr). acc[j][r] holds output
 // frame ti - 1 + j of row h0 + r while input frame ti is read: frame ti adds
 // tap dt = 2 - j to it. After frame ti, acc[0] (output ti - 1) is complete,
 // is written, and the ring shifts.
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
-                    int C, Plan pl) {
+//
+// ACT (the act entry's forward, K4 act): the stencil reads a = relu(x*sc +
+// bi) rounded to T, activated in place a frame ahead in a ring of
+// NSTAGE_ACT frames (act_own, strip.cuh: each thread its even, odd and halo
+// columns' pairs, as K10 act); rows and columns outside the frame are never
+// copied and stay the zero padding of a. The stencil and its order are K4
+// plain's, so y is K4 plain's on the activated x bit for bit.
+template <typename T, int R, bool ACT>
+__device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
+                                            const T* __restrict__ k,
+                                            const float* __restrict__ sc,
+                                            const float* __restrict__ bi,
+                                            T* __restrict__ y, int Tn, int H,
+                                            int W, int Ho, int Wo, int C,
+                                            const Plan& pl) {
+  constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -386,6 +449,8 @@ plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 
   float k0[27], k1[27];
   load_taps(k0, k1, k, c, C, live);
+  float2 scp, bip;  // ACT: bn1's apply of the thread's pair
+  if constexpr (ACT) pair_vecs(scp, bip, sc, bi, c, C);
 
   const size_t frame = (size_t)H * W * C;
   const T* xb = x + (size_t)tl.b * Tn * frame;
@@ -394,9 +459,16 @@ plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
   auto load = [&](int i) {
     const int ti = f0 + i;
     if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
-      sg.x_rows(ring + (i % NSTAGE) * stage, xb + (size_t)ti * frame,
+      sg.x_rows(ring + (i % NS) * stage, xb + (size_t)ti * frame,
                 2 * tl.h0 - 1, 2 * R + 1, H, W, rowlen);
     cp_commit();
+  };
+  auto own = [&](int i) {  // ACT: the thread's copies of frame i, in place
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn)
+      // as K10 act: the f32 R = 3 build keeps its groups rolled
+      sg.act_x_rows<2 * R + 1, sizeof(T) == 4 && R == 3>(
+          ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
   };
 
   float acc[3][R][2];
@@ -405,15 +477,20 @@ plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
 
-  zero_ring(smem_raw, NSTAGE * stage * (int)sizeof(T));
-  for (int i = 0; i < NSTAGE - 1; ++i) load(i);
+  zero_ring(smem_raw, NS * stage * (int)sizeof(T));
+  for (int i = 0; i < NS - 1; ++i) load(i);
+  if constexpr (ACT) act_own(own, 0);
   for (int i = 0; i < nf; ++i) {
-    cp_wait<NSTAGE - 2>();  // this thread's copies of frame i have landed
-    __syncthreads();        // and everyone's; frame i-1 is read by no one
-    load(i + NSTAGE - 1);   // into frame i-1's slot
+    // this thread's copies of frame i have landed (ACT: and everyone's are
+    // activated); after the barrier everyone's, and frame i-1 is read by
+    // no one
+    if constexpr (!ACT) cp_wait<NS - 2>();
+    __syncthreads();
+    load(i + NS - 1);  // into frame i-1's slot
+    if constexpr (ACT) act_own(own, i + 1);
     const int ti = f0 + i;
     if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
-      s2_frame<T, R>(ring + (i % NSTAGE) * stage, rowlen, atE, atO, PG2,
+      s2_frame<T, R>(ring + (i % NS) * stage, rowlen, atE, atO, PG2,
                      [&](int j, int r, int dy, int dx, float2 v) {
                        const int tap = ((2 - j) * 3 + dy) * 3 + dx;
                        acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
@@ -440,6 +517,24 @@ plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
     }
   }
   cp_wait<0>();
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
+                    int C, Plan pl) {
+  s2_fwd_body<T, R, false>(x, k, nullptr, nullptr, y, Tn, H, W, Ho, Wo, C,
+                           pl);
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+act_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                  const float* __restrict__ sc, const float* __restrict__ bi,
+                  T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
+                  int C, Plan pl) {
+  s2_fwd_body<T, R, true>(x, k, sc, bi, y, Tn, H, W, Ho, Wo, C, pl);
 }
 
 // ---- dx (K8) and act dx (K5) ------------------------------------------------------
@@ -662,7 +757,7 @@ act_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 // (rows h0 .. h0+R-1). While x frame ti is read, gr[j][r] holds g frame
 // ti - 1 + j of output row h0 + r (zero outside [t0, t1) and the frame):
 // x frame ti pairs with it through tap dt = 2 - j, and staged row rr with
-// output row r through dy = rr - 2r.
+// output row r through dy = rr - 2r, where wgrad_slots admits the pair.
 //
 // ACT (the act entry's weight gradient, K10 act): the stencil reads a =
 // relu(x*sc + bi) rounded to T, the x part of each slot activated in place
@@ -705,6 +800,9 @@ __device__ __forceinline__ void s2_wgrad_body(
     const T* gb = g + (size_t)tl.b * Tn * gframe;
     const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
     const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    // output rows of the strip, and whether the thread's column exists
+    const int nr = min(R, Ho - tl.h0);
+    const bool live = in && tl.w0 + wl < Wo;
     auto load = [&](int i) {
       if (i < nf) {  // uniform across the block
         T* slot = ring + (i % NS) * stage;
@@ -721,8 +819,9 @@ __device__ __forceinline__ void s2_wgrad_body(
     auto own = [&](int i) {  // ACT: the thread's x copies of frame i
       const int ti = f0 + i;
       if (i < nf && ti >= 0 && ti < Tn)
-        // the f32 R = 3 build spills with the groups unrolled
-        sg.act_x_rows<2 * R + 1, sizeof(T) == 4 && R == 3>(
+        // the f32 builds keep their groups rolled: unrolled, the R = 3 and
+        // R = 4 builds spill beside the rule's variant (s2_frame_masked)
+        sg.act_x_rows<2 * R + 1, sizeof(T) == 4>(
             ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
     };
 
@@ -745,7 +844,7 @@ __device__ __forceinline__ void s2_wgrad_body(
       if constexpr (ACT) act_own(own, i + 1);
       const int ti = f0 + i, tg = ti + 1;
       const T* slot = ring + (i % NS) * stage;
-      const bool gin = in && tg >= tl.t0 && tg < tl.t1;
+      const bool gin = live && tg >= tl.t0 && tg < tl.t1;
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         gr[0][r][0] = gr[1][r][0];
@@ -757,37 +856,25 @@ __device__ __forceinline__ void s2_wgrad_body(
         gr[2][r][0] = v.x;
         gr[2][r][1] = v.y;
       }
-      if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
-        s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
-                       [&](int j, int r, int dy, int dx, float2 v) {
-                         const int tap = ((2 - j) * 3 + dy) * 3 + dx;
-                         acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
-                         acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
-                       });
+      if (ti >= 0 && ti < Tn && live) {  // frames outside the clip add
+        auto fma = [&](int j, int r, int dy, int dx, float2 v) {  // nothing
+          const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+          acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
+          acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+        };
+        const unsigned slots = wgrad_slots(i, nf);
+        if (slots == 7u && nr == R)
+          s2_frame<T, R>(slot, rowlen, atE, atO, PG2, fma);
+        else
+          s2_frame_masked<T, R, !ACT>(slot, rowlen, atE, atO, PG2, fma,
+                                      slots, nr);
+      }
     }
     cp_wait<0>();
     __syncthreads();  // the next item zeroes and refills every slot
   }
 
-  // fixed-order sum over the block's columns: red[tap][wl][2PG], then slot
-  // (tap, channel) adds its WB columns in order and writes row blockIdx.x
-  float* red = reinterpret_cast<float*>(smem_raw);
-  if (in) {
-#pragma unroll
-    for (int i = 0; i < 27; ++i) {
-      red[(i * WB + wl) * PG2 + 2 * pi] = acc[i][0];
-      red[(i * WB + wl) * PG2 + 2 * pi + 1] = acc[i][1];
-    }
-  }
-  __syncthreads();
-  for (int i = tid; i < 27 * PG2; i += blockDim.x) {
-    const int tap = i / PG2, s = i % PG2;
-    const int ch = 2 * pg * PG + s;
-    if (ch >= C) continue;
-    float sum = 0.f;
-    for (int q = 0; q < WB; ++q) sum += red[(tap * WB + q) * PG2 + s];
-    part[((size_t)row * 27 + tap) * C + ch] = sum;
-  }
+  wgrad_partials(acc, part, smem_raw, WB, PG, C);
 }
 
 template <typename T, int R>
@@ -812,12 +899,14 @@ act_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
 
 // ---- launchers -----------------------------------------------------------------
 
-// Dynamic shared memory: the forward's ring of x frames; the dx's ring of g
+// Dynamic shared memory: the forward's ring of x frames (the act mode's
+// NSTAGE_ACT deep); the dx's ring of g
 // frames; the weight gradient's ring of x and g frames, or its column sums
 // if larger.
 template <typename T>
-size_t fwd_smem(int R, int WB, int PG) {
-  return sizeof(T) * NSTAGE * xstage_elems<T>(R, WB, PG);
+size_t fwd_smem(int R, int WB, int PG, bool act = false) {
+  return sizeof(T) * (act ? NSTAGE_ACT : NSTAGE) *
+         xstage_elems<T>(R, WB, PG);
 }
 template <typename T>
 size_t dx_smem(int R, int WB, int PG) {
@@ -847,6 +936,15 @@ decltype(&plain_s2_fwd_kernel<T, RMAX>) fwd_kernel_of(int R) {
     case 2: return plain_s2_fwd_kernel<T, 2>;
     case 3: return plain_s2_fwd_kernel<T, 3>;
     case 4: return plain_s2_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&act_s2_fwd_kernel<T, RMAX>) act_fwd_kernel_of(int R) {
+  switch (R) {
+    case 2: return act_s2_fwd_kernel<T, 2>;
+    case 3: return act_s2_fwd_kernel<T, 3>;
+    case 4: return act_s2_fwd_kernel<T, 4>;
   }
   return nullptr;
 }
@@ -906,6 +1004,30 @@ int launch_tiles(const void* in, const void* k, void* out, int B, int Tn,
   kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
       static_cast<const T*>(in), static_cast<const T*>(k), static_cast<T*>(out),
       Tn, H, W, Ho, Wo, C, p);
+  return (int)cudaGetLastError();
+}
+
+// The act forward over y of x (B, T, H, W, C): relu(x*sc + bi) rounded to
+// T, zero-padded, then the forward; one block per tile.
+template <typename T>
+int launch_act_fwd(const void* x, const void* k, const void* sc,
+                   const void* bi, void* y, int B, int Tn, int H, int W, int C,
+                   int R, int WB, int PG, int TT, cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over the output's rows and columns
+  if (!make_plan<T>(p, (uintptr_t)x, B, Tn, Ho, Wo, C, R, WB, PG, TT))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = fwd_smem<T>(R, WB, PG, true);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = act_fwd_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(k),
+      static_cast<const float*>(sc), static_cast<const float*>(bi),
+      static_cast<T*>(y), Tn, H, W, Ho, Wo, C, p);
   return (int)cudaGetLastError();
 }
 
@@ -999,6 +1121,9 @@ int occupancy(int kind, int R, int WB, int PG) {
     case 4:
       return blocks_per_sm(act_wgrad_kernel_of<T>(R),
                            wgrad_smem<T>(R, WB, PG, true), threads);
+    case 5:
+      return blocks_per_sm(act_fwd_kernel_of<T>(R),
+                           fwd_smem<T>(R, WB, PG, true), threads);
   }
   return -1;
 }
@@ -1021,6 +1146,21 @@ extern "C" int dw_conv_s2(const void* x, const void* k, void* y, int B, int T,
                                               PG, TT, st);
   return launch_tiles<float, false>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
                                     st);
+}
+
+// The act entry's forward (K4 act): y of a = relu(x*sc + bi) rounded to x's
+// dtype, zero-padded; sc and bi are f32 (C,). The split is over y's rows
+// and columns, as dw_conv_s2's (ops/dw_conv.py: plan_act_s2_fwd).
+extern "C" int dw_act_s2(const void* x, const void* k, const void* sc,
+                         const void* bi, void* y, int B, int T, int H, int W,
+                         int C, int R, int WB, int PG, int TT, int is_bf16,
+                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_act_fwd<__nv_bfloat16>(x, k, sc, bi, y, B, T, H, W, C, R,
+                                         WB, PG, TT, st);
+  return launch_act_fwd<float>(x, k, sc, bi, y, B, T, H, W, C, R, WB, PG, TT,
+                               st);
 }
 
 // g is (B,T,(H-1)/2+1,(W-1)/2+1,C), dx (B,T,H,W,C).
@@ -1086,7 +1226,8 @@ extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and
 // shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
 // where it does not take the plan; kind 0 is the forward, 1 the dx, 2 the
-// weight gradient, 3 the act dx, 4 the act weight gradient.
+// weight gradient, 3 the act dx, 4 the act weight gradient, 5 the act
+// forward.
 extern "C" int dw_plain_s2_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
   return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)

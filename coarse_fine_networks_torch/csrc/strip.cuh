@@ -1,12 +1,13 @@
-// The row-strip layout shared by the stride-1 plain kernels and the act
-// weight gradient (dw_plain_s1.cu), the stride-2 plain kernels and the act
-// dx (dw_plain_s2.cu), the stride-1 mm forward (dw_mm_act.cu,
+// The row-strip layout shared by the stride-1 plain, act and mm-weight-
+// gradient kernels (dw_plain_s1.cu), the stride-2 plain and act kernels
+// (dw_plain_s2.cu), the stride-1 mm forward (dw_mm_act.cu,
 // mm_fwd_s1_kernel) and the stride-1 masked dx (dw_dx_s1.cu): a block owns
 // R rows x WB columns x PG channel pairs of one sample over TT frames; rows
 // are staged into shared memory by cp.async in the tensor's dtype; a thread
 // owns one channel pair at one column. The split is computed by the wrappers
-// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_s2_dx, plan_act_dx_s2,
-// plan_s2, plan_mm_s1, plan_act_dx_s1, plan_mm_dx_s1).
+// (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_act_s2_fwd, plan_s2_dx,
+// plan_act_dx_s2, plan_s2, plan_mm_s1, plan_mm_wgrad_s1, plan_act_dx_s1,
+// plan_mm_dx_s1).
 
 #pragma once
 
@@ -172,11 +173,11 @@ __device__ __forceinline__ void pair_vecs(float2& scp, float2& bip,
 }
 
 // The act kernels' pipeline (act_fwd_s1_kernel, act_wgrad_s1_kernel,
-// act_s2_wgrad_kernel): a ring of NSTAGE_ACT frames in which each thread
-// activates in place the pairs it copied of frame i + 1 (own(i + 1)) while
-// the block reads frame i, between the same two barriers: the activation's
-// loads and stores overlap other warps' stencils, and barrier i + 1 makes
-// it visible before anyone reads it. Rows and columns outside the frame are
+// act_s2_fwd_kernel, act_s2_wgrad_kernel): a ring of NSTAGE_ACT frames in
+// which each thread activates in place the pairs it copied of frame i + 1
+// (own(i + 1)) while the block reads frame i, between the same two
+// barriers: the activation's loads and stores overlap other warps'
+// stencils, and barrier i + 1 makes it visible before anyone reads it. Rows and columns outside the frame are
 // never copied, so they are never activated and stay the zero the ring is
 // cleared to: the padding is the zero of a, not relu(bi), for every sc and
 // bi, with no mask. A pair is activated once, where an activation as read
@@ -236,6 +237,73 @@ __device__ __forceinline__ void stencil_frame(const T* tile, int rowlen,
   }
 }
 
+// The row-strip weight gradients' rule (K6 and K10, plain, act and mm): a
+// product is added only where the register ring holds a g element of the
+// item. While the item's x frame i of nf (frame t0 - 1 + i) is read, ring
+// slot j holds g frame t0 - 2 + i + j, which lies in the item's segment
+// [t0, t1) only for 2 <= i + j <= nf - 1 (bit j of wgrad_slots); output
+// row r exists only for r < nr (a ragged last strip has nr < R), and the
+// thread's column only within the frame. Elsewhere the ring holds a zero,
+// and x * 0 would turn a NaN of x into a NaN of a tap that no output
+// position reaches: the neighbouring item, or no item, adds the real
+// product. For finite x, fmaf(x, 0, acc) == acc, so skipping moves no sum.
+// All slots are admitted but on an item's first two and last two frames;
+// the slots and nr are uniform across the block.
+__device__ __forceinline__ unsigned wgrad_slots(int i, int nf) {
+  unsigned m = 0u;
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+    if (i + j >= 2 && i + j <= nf - 1) m |= 1u << j;
+  return m;
+}
+
+// stencil_frame under the rule: the ring slots j of bit j of slots, the
+// output rows r < nr, each a block-uniform branch. Each tap (j, dy, dx)
+// takes its products over r, so over staged rows rr = r + dy, ascending:
+// stencil_frame's order. The variant runs on an item's edge frames and in
+// a ragged strip only. ROWS_ONCE reads each staged row once per admitted
+// slot; without it a row is read for each (j, r, dy) that meets it, so no
+// more than three pairs are live at a time, for builds without registers
+// to spare (the act modes).
+template <typename T, int R, bool ROWS_ONCE, typename FN>
+__device__ __forceinline__ void stencil_frame_masked(const T* tile,
+                                                     int rowlen, int PG2,
+                                                     FN fn, unsigned slots,
+                                                     int nr) {
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    if (!((slots >> j) & 1u)) continue;
+    if constexpr (ROWS_ONCE) {
+#pragma unroll
+      for (int rr = 0; rr < R + 2; ++rr) {
+        const T* row = tile + rr * rowlen;
+        const float2 v[3] = {load_pair(row), load_pair(row + PG2),
+                             load_pair(row + 2 * PG2)};
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int dy = rr - r;
+          if (dy < 0 || dy > 2 || r >= nr) continue;
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (r >= nr) break;
+#pragma unroll
+        for (int dy = 0; dy < 3; ++dy) {
+          const T* row = tile + (r + dy) * rowlen;
+          const float2 v[3] = {load_pair(row), load_pair(row + PG2),
+                               load_pair(row + 2 * PG2)};
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) fn(j, r, dy, dx, v[dx]);
+        }
+      }
+    }
+  }
+}
+
 // One thread's share of staging a stride-1 tile (dw_plain_s1.cu,
 // dw_dx_s1.cu): its channel pair c at staged columns wl and, for wl < 2,
 // WB + wl (input columns w0 - 1 + that), every row (the stencil's input,
@@ -284,14 +352,46 @@ struct Stager {
 
   // The act kernels: activates in place the pairs rows(dst, ., hs, NR, H,
   // ., rowlen, true) copied: column by column, ACT_ROWS rows at a time
-  template <int NR, typename T>
+  // (ROLLED: act_column's)
+  template <int NR, bool ROLLED = false, typename T>
   __device__ __forceinline__ void act_rows(T* dst, int hs, int H,
                                            int rowlen, float2 sc,
                                            float2 bi) const {
-    if (u0) act_column<NR>(dst + dst0, hs, H, rowlen, sc, bi);
-    if (u1) act_column<NR>(dst + dst1, hs, H, rowlen, sc, bi);
+    if (u0) act_column<NR, ROLLED>(dst + dst0, hs, H, rowlen, sc, bi);
+    if (u1) act_column<NR, ROLLED>(dst + dst1, hs, H, rowlen, sc, bi);
   }
 };
+
+// The end of a weight gradient's walk: a fixed-order sum over the block's
+// columns, red[tap][wl][2PG] in smem, then slot (tap, channel) adds its WB
+// columns in order and writes row blockIdx.x of the (rows, 27, C) partial
+// buffer for channel group blockIdx.y. Every thread calls it; the caller
+// synchronised after its last read of smem.
+__device__ __forceinline__ void wgrad_partials(const float (&acc)[27][2],
+                                               float* __restrict__ part,
+                                               unsigned char* smem, int WB,
+                                               int PG, int C) {
+  const int PG2 = 2 * PG, tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG, pg = blockIdx.y;
+  const size_t row = blockIdx.x;
+  float* red = reinterpret_cast<float*>(smem);
+  if (wl < WB) {
+#pragma unroll
+    for (int i = 0; i < 27; ++i) {
+      red[(i * WB + wl) * PG2 + 2 * pi] = acc[i][0];
+      red[(i * WB + wl) * PG2 + 2 * pi + 1] = acc[i][1];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 27 * PG2; i += blockDim.x) {
+    const int tap = i / PG2, s = i % PG2;
+    const int ch = 2 * pg * PG + s;
+    if (ch >= C) continue;
+    float sum = 0.f;
+    for (int q = 0; q < WB; ++q) sum += red[(tap * WB + q) * PG2 + s];
+    part[(row * 27 + tap) * C + ch] = sum;
+  }
+}
 
 // The plan's derived counts, or false where the kernels do not take it.
 template <typename T>

@@ -17,7 +17,8 @@ Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`):
 * ``dw_act_s1``/``dw_act_s2``: :func:`dw_bnrelu_conv3d`, in
   ``csrc/dw_plain_s1.cu`` (K1 act: the act mode of K1 plain, each staged x
   pair activated in place a frame ahead, with :func:`..dw_conv.plan_s1`)
-  and ``csrc/dw_mm_act.cu`` (K4 act: the act mode of the eval kernel);
+  and ``csrc/dw_plain_s2.cu`` (K4 act: the act mode of K4 plain likewise,
+  with :func:`..dw_conv.plan_act_s2_fwd`);
 * ``dw_act_dx_s1``/``dw_act_dx_s2``: :func:`dw_act_dx`, in
   ``csrc/dw_dx_s1.cu`` (K3: ``dw_plain_s1.cu``'s row strips on g with the
   flipped taps, x staged beside g) and ``csrc/dw_plain_s2.cu`` (K5: the act
@@ -39,7 +40,6 @@ from __future__ import annotations
 import torch
 
 from .dw_mm_act import DX_S1_LIBRARY, _launch, _out_hw
-from .dw_mm_act import LIBRARY as FWD_LIBRARY
 from .dw_mm_act import LIBRARIES, stencil_f32, wgrad_f32  # noqa: F401
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
@@ -125,7 +125,7 @@ def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
     Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` in x's dtype.  A CPU tensor takes
     :func:`dw_bnrelu_conv3d_plain`; a CUDA tensor launches ``dw_act_s1``
     (with the work split of :func:`..dw_conv.plan_s1`, K1 plain's) or
-    ``dw_act_s2``, or raises."""
+    ``dw_act_s2`` (with :func:`..dw_conv.plan_act_s2_fwd`), or raises."""
     _check(x, w_dw, sc, bi, stride)
     if x.device.type == "cpu":
         return dw_bnrelu_conv3d_plain(x, w_dw, sc, bi, stride)
@@ -134,17 +134,15 @@ def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
                     device=x.device)
     if not y.numel():
         return y
-    args = (x.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
-            y.data_ptr(), b, t, h, w, c)
-    if stride == 1:
-        # .dw_conv builds on this module's libraries: imported here
-        from . import dw_conv
+    # .dw_conv builds on this module's libraries: imported here
+    from . import dw_conv
 
-        p = dw_conv.plan_s1(b, t, h, w, c)
-        _launch(LAUNCHES, dw_conv.LIBRARY, "dw_act_s1", x, *args, p.r, p.wb,
-                p.pg, p.tt)
-    else:
-        _launch(LAUNCHES, FWD_LIBRARY, "dw_act_s2", x, *args)
+    lib, plan = ((dw_conv.LIBRARY, dw_conv.plan_s1) if stride == 1 else
+                 (dw_conv.LIBRARY_S2, dw_conv.plan_act_s2_fwd))
+    p = plan(b, t, h, w, c)
+    _launch(LAUNCHES, lib, f"dw_act_s{stride}", x, x.data_ptr(),
+            w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(), y.data_ptr(), b, t,
+            h, w, c, p.r, p.wb, p.pg, p.tt)
     return y
 
 

@@ -43,13 +43,19 @@ halo and writes its output once:
   the output's row strips, the forward's de-interleaved rows), with the
   work split of :func:`plan_s2`.
 
-The two plain sources also hold the act modes of two kernels each, entries
+The two plain sources also hold the act modes of their kernels, entries
 of :mod:`.dw_act` bound here: ``dw_act_s1`` (K1 act) and
 ``dw_act_wgrad_s1`` (K6 act), K1 and K6 plain's bodies on x activated in
-place a frame ahead of the stencil, with :func:`plan_s1`;
+place a frame ahead of the stencil, with :func:`plan_s1`; ``dw_act_s2``
+(K4 act), K4 plain's body likewise, with :func:`plan_act_s2_fwd`;
 ``dw_act_wgrad_s2`` (K10 act), K10 plain's body likewise, with
 :func:`plan_s2`; and ``dw_act_dx_s2`` (K5, K8's body with the relu mask,
 ``dx = dam·sc`` and the ``(dsc, dbi)`` sums, with :func:`plan_act_dx_s2`).
+``dw_plain_s1.cu`` also holds ``dw_mm_wgrad_s1`` (K6 mm of
+:mod:`.dw_mm_act`: K1 ``mm``'s product on K6 plain's walk, with
+:func:`plan_mm_wgrad_s1`).  The row-strip weight gradients add ``x·g``
+only where g exists in the item (``wgrad_slots``, ``csrc/strip.cuh``), so a
+NaN of x reaches the taps it reaches in the plain versions, no others.
 
 The module also computes the row-strip work splits of the other modules'
 row-strip kernels: :func:`plan_mm_s1` (K1 ``mm``, :mod:`.dw_mm_act`) and
@@ -74,18 +80,22 @@ from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
 from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 
 # The split route's kernels: at stride 1, and at stride (1, 2, 2); each
-# source also holds the act modes of two of them, entries of :mod:`.dw_act`
-# (the forward K1 act and the weight gradient K6 act; the dx K5 and the
-# weight gradient K10 act)
+# source also holds the act modes of its kernels, entries of :mod:`.dw_act`
+# (the forward K1 act and the weight gradient K6 act; the forward K4 act,
+# the dx K5 and the weight gradient K10 act), and the stride-1 one the mm
+# mode of its weight gradient, K6 mm of :mod:`.dw_mm_act`
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_act_s1": [P] * 5 + [I] * 10 + [P],
     "dw_conv_wgrad_s1": [P] * 3 + [I] * 12 + [P],
     "dw_act_wgrad_s1": [P] * 5 + [I] * 12 + [P],
+    "dw_mm_wgrad_s1": [P] * 6 + [I] * 13 + [P],
     "dw_plain_s1_occupancy": [I] * 5,
+    "dw_mm_wgrad_s1_occupancy": [I] * 6,
 })
 LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_conv_s2": [P] * 3 + [I] * 10 + [P],
+    "dw_act_s2": [P] * 5 + [I] * 10 + [P],
     "dw_conv_dx_s2": [P] * 3 + [I] * 10 + [P],
     "dw_act_dx_s2": [P] * 7 + [I] * 11 + [P],
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
@@ -221,8 +231,16 @@ def _strips(b: int, t: int, h: int, w: int, c: int, smem=None,
     r = max(RMIN, _cdiv(h, _cdiv(h, RMAX)))
     plan = PlanS1(b, t, h, w, c, r, wb, pg, t, 1, 1)
     while smem is not None and smem(plan, 4) > SMEM_MAX and plan.pg > 1:
-        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))  # narrow, wide C
+        plan = _narrower(plan)  # wide C
     return plan
+
+
+def _narrower(plan: PlanS1) -> PlanS1:
+    """``plan`` with its channel pairs cut into one more group of equal
+    size, or into groups one pair narrower where that leaves the count of
+    groups as it was."""
+    p2 = _cdiv(plan.c, 2)
+    return plan._replace(pg=min(plan.pg - 1, _cdiv(p2, plan.n_pg + 1)))
 
 
 def _split_frames(plan: PlanS1, blocks: int) -> PlanS1:
@@ -268,6 +286,18 @@ def plan_s2_fwd(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     columns its output tile reads."""
     ho, wo = _out_hw(h, w, 2)
     return _split_frames(_strips(b, t, ho, wo, c, smem_s2_fwd), FWD_BLOCKS)
+
+
+@lru_cache(maxsize=None)
+def plan_act_s2_fwd(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_act_s2`` (K4 act, K4 plain's body with the
+    act ring) for x ``(B, T, H, W, C)``: :func:`plan_s2_fwd`'s rule with
+    the f32 shared memory of the act ring, ``NSTAGE_ACT`` frames deep
+    (:func:`smem_s2_fwd` with ``act``)."""
+    ho, wo = _out_hw(h, w, 2)
+    return _split_frames(
+        _strips(b, t, ho, wo, c, lambda p, esz: smem_s2_fwd(p, esz, True)),
+        FWD_BLOCKS)
 
 
 @lru_cache(maxsize=None)
@@ -319,12 +349,14 @@ def _pad16(n: int) -> int:
     return _cdiv(n, 16) * 16
 
 
-def smem_s2_fwd(plan: PlanS1, esz: int) -> int:
-    """Dynamic shared memory per block of ``dw_conv_s2``, in bytes, as its
-    launcher sizes it: the ring of x frames (2R+1 rows of 2(WB+1)
-    de-interleaved columns)."""
+def smem_s2_fwd(plan: PlanS1, esz: int, act: bool = False) -> int:
+    """Dynamic shared memory per block of ``dw_conv_s2`` (``act``:
+    ``dw_act_s2``), in bytes, as its launcher sizes it: the ring of x
+    frames (2R+1 rows of 2(WB+1) de-interleaved columns), ``NSTAGE`` deep
+    (``act``: ``NSTAGE_ACT``)."""
     row = 2 * (plan.wb + 1) * 2 * plan.pg
-    return NSTAGE * _pad16((2 * plan.r + 1) * row * esz)
+    ns = NSTAGE_ACT if act else NSTAGE
+    return ns * _pad16((2 * plan.r + 1) * row * esz)
 
 
 def smem_s2_dx(plan: PlanS1, esz: int) -> int:
@@ -413,6 +445,35 @@ def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
             + 4 * rows)
 
 
+# ---- the stride-1 mm weight gradient's work split (K6 mm, dw_plain_s1.cu) -----
+
+@lru_cache(maxsize=None)
+def plan_mm_wgrad_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                     esz: int) -> PlanS1:
+    """The work split of ``dw_mm_wgrad_s1`` (K6 mm) for x ``(B, T, H, W,
+    C_in)`` of ``esz``-byte elements and g ``(B, T, H, W, C_mid)``:
+    :func:`plan_s1`'s rule over g at most ``NT_DX`` threads a block (the
+    kernel's registers), the pairs cut into more groups where a block's
+    shared memory (:func:`smem_mm_wgrad_s1`, W1's columns are ``C_in``
+    deep) would pass the card's limit, then its frame segments and
+    persistent grid.  K6 plain takes the same plan, and then walks each
+    channel's items in K6 mm's order."""
+    plan = _strips(b, t, h, w, c_mid, nt=NT_DX)
+    while smem_mm_wgrad_s1(plan, c_in, esz) > SMEM_MAX and plan.pg > 1:
+        plan = _narrower(plan)
+    return _persistent(_split_frames(plan, FWD_BLOCKS))
+
+
+def smem_mm_wgrad_s1(plan: PlanS1, c_in: int, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_mm_wgrad_s1``, in bytes, as
+    its launcher sizes it: :func:`smem_mm_s1`'s layout, then a ring of
+    ``XSTAGE`` g frames ``[R][WB+2][2PG]``; or the column sums if
+    larger."""
+    g = XSTAGE * _pad16(plan.r * (plan.wb + 2) * 2 * plan.pg * esz)
+    return max(smem_mm_s1(plan, c_in, esz) + g,
+               4 * 27 * plan.wb * 2 * plan.pg)
+
+
 # ---- the stride-1 dx's work splits (K3 and K2, csrc/dw_dx_s1.cu) -------------
 
 TT_MM = 32   # frames per segment at most in K2 (a mask slot each)
@@ -455,9 +516,8 @@ def _dx_s1_split(b: int, t: int, h: int, w: int, c: int, smem,
     group, so ``rows`` (= items) is the partial buffer's row count."""
     plan = _strips(b, t, h, w, c, pg_max=DX_PG, nt=NT_DX)
     plan = plan._replace(tt=min(t, tt_max))
-    p2 = _cdiv(c, 2)
     while smem(plan) > SMEM_MAX and plan.pg > 1:
-        plan = plan._replace(pg=_cdiv(p2, plan.n_pg + 1))
+        plan = _narrower(plan)
     plan = _split_frames(plan, FWD_BLOCKS)
     plan = plan._replace(tt=min(plan.tt, tt_max))
     return plan._replace(ipb=1, rows=plan.items)

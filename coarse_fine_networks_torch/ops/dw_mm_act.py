@@ -19,7 +19,10 @@ Kernels (CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use into
   the work split of :func:`..dw_conv.plan_mm_s1`, conv1's product on the
   bf16 tensor cores), at stride 2 the mm mode of the entry kernel;
 * ``dw_mm_wgrad_s1``/``dw_mm_wgrad_s2``: :func:`dw_mm_wgrad`, in
-  ``csrc/dw_act_bwd.cu``.
+  ``csrc/dw_plain_s1.cu`` (K6 mm: K1 ``mm``'s product on K6 plain's
+  persistent walk, with the work split of
+  :func:`..dw_conv.plan_mm_wgrad_s1`) and ``csrc/dw_act_bwd.cu`` (K10 mm,
+  the tile kernel).
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor, which defines the
 semantics, and launches its kernel on a CUDA tensor, or raises.
@@ -32,22 +35,21 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The forward source also holds the stride-2 act-mode entry of
-# :mod:`.dw_act` (its stride-1 one is in :mod:`.dw_conv`'s ``LIBRARY``).
+# The forward source: this module's two forward entries (the act entry's
+# are in :mod:`.dw_conv`'s libraries).
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 11 + [P],
     "dw_mm_act_s1_occupancy": [I] * 6,
     "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
-    "dw_act_s2": [P] * 5 + [I] * 6 + [P],
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's weight gradients and the stride-2
-# masked dx of :mod:`.dw_mm_bn_train` (the act entry's whole backward is in
-# the plain sources, :mod:`.dw_conv`'s libraries, and ``dw_dx_s1.cu``).
+# The backward source: this module's stride-2 weight gradient and the
+# stride-2 masked dx of :mod:`.dw_mm_bn_train` (the stride-1 weight gradient
+# is in :mod:`.dw_conv`'s ``LIBRARY``; the act entry's whole backward is in
+# the plain sources and ``dw_dx_s1.cu``).
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
-    "dw_mm_wgrad_s1": [P] * 6 + [I] * 7 + [P],
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
 })
 # The stride-1 dx of both train entries (K3 of :mod:`.dw_act`, K2 of
@@ -65,8 +67,8 @@ LIBRARIES = (LIBRARY, BWD_LIBRARY, DX_S1_LIBRARY)
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 # row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# weight gradients at stride 1 and 2)
-_ROWS_KIND = {"dw_mm_wgrad_s1": 1, "dw_mm_wgrad_s2": 2}
+# weight gradient at stride 2; the one at stride 1 has its plan's rows)
+_ROWS_KIND = {"dw_mm_wgrad_s2": 2}
 
 
 def reset_launches() -> None:
@@ -278,7 +280,8 @@ def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
     :func:`dw_mm_wgrad_plain`), ``(27, C_mid)`` f32; ``g`` is dL/dy (y's
     shape, x's dtype).  A CPU tensor takes the plain version; a CUDA tensor
     launches ``dw_mm_wgrad_s1`` or ``dw_mm_wgrad_s2`` (per-block partial
-    sums, added with one ``torch.sum``), or raises."""
+    sums, added with one ``torch.sum``; at stride 1 with the work split of
+    :func:`..dw_conv.plan_mm_wgrad_s1`), or raises."""
     _check(x, w1, None, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_mm_wgrad_plain(x, w1, g, sc, bi, stride)
@@ -287,11 +290,23 @@ def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
         return torch.zeros((27, w1.shape[1]), device=x.device)
     b, t, h, w, c_in = x.shape
     c_mid = w1.shape[1]
-    name = f"dw_mm_wgrad_s{stride}"
-    part = _partials(name, x, 27, c_mid)
-    _launch(LAUNCHES, BWD_LIBRARY, name, x, x.data_ptr(), w1.data_ptr(),
-            g.data_ptr(), sc.data_ptr(), bi.data_ptr(), part.data_ptr(),
-            b, t, h, w, c_in, c_mid)
+    args = (x.data_ptr(), w1.data_ptr(), g.data_ptr(), sc.data_ptr(),
+            bi.data_ptr())
+    if stride == 1:
+        # .dw_conv builds on this module's libraries: imported here
+        from . import dw_conv
+
+        p = dw_conv.plan_mm_wgrad_s1(b, t, h, w, c_in, c_mid,
+                                     x.element_size())
+        part = torch.empty((p.rows, 27, c_mid), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, dw_conv.LIBRARY, "dw_mm_wgrad_s1", x, *args,
+                part.data_ptr(), b, t, h, w, c_in, c_mid, p.r, p.wb, p.pg,
+                p.tt, p.ipb, p.rows)
+    else:
+        part = _partials("dw_mm_wgrad_s2", x, 27, c_mid)
+        _launch(LAUNCHES, BWD_LIBRARY, "dw_mm_wgrad_s2", x, *args,
+                part.data_ptr(), b, t, h, w, c_in, c_mid)
     return torch.sum(part, dim=0)
 
 

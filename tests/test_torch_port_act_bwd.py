@@ -311,14 +311,14 @@ def _ring_schedule():
     for f in ("dw_plain_s1.cu", "dw_plain_s2.cu"):
         text = (csrc / f).read_text()
         for m in re.finditer(r"act_own\(own, 0\);\s*for \(int i = 0; i < nf; "
-                             r"\+\+i\) \{(.*?)_frame<T, R>", text, re.S):
+                             r"\+\+i\) \{(.*?)_frame<T, R[>,]", text, re.S):
             step = re.sub(r"//[^\n]*", "", m.group(1))
             at = [step.index(k) for k in ("__syncthreads();",
                                           "load(i + NS - 1);",
                                           "act_own(own, i + 1);")]
             assert at == sorted(at), f
             loops += 1
-    assert loops == 3  # K1 act, K6 act, K10 act
+    assert loops == 4  # K1 act, K6 act, K4 act, K10 act
     return ns, depth, depth
 
 
@@ -465,20 +465,23 @@ def test_constants_match_the_source(name, value):
 
 
 def test_kernels_left_the_entry_backward_source():
-    """``dw_act_bwd.cu`` keeps K9, K6 mm and K10 mm only: no ACT mode of
-    its stride-2 dx or weight-gradient kernels, no dx epilogue, no act
-    weight gradient at either stride; K5, K6 act and K10 act are the act
-    instantiations of the plain sources' kernels, launched by the wrappers
-    with their plans."""
+    """``dw_act_bwd.cu`` keeps K9 and K10 mm only: no ACT mode of its
+    stride-2 dx or weight-gradient kernels, no dx epilogue, no act weight
+    gradient at either stride and no weight gradient at stride 1; K5, K6
+    act and K10 act are the act instantiations of the plain sources'
+    kernels, and K6 mm ``dw_plain_s1.cu``'s mm kernel, launched by the
+    wrappers with their plans."""
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     for gone in ("dx_epilogue", "dx_s2_kernel<T, MODE>", "MODE == ACT",
                  "launch_wgrad<__nv_bfloat16, 1, ACT>",
                  "launch_wgrad<__nv_bfloat16, 2, ACT>",
+                 "launch_wgrad<__nv_bfloat16, 1>", "SGeom<1>",
                  'extern "C" int dw_act_dx_s2(',
                  'extern "C" int dw_act_wgrad_s1(',
-                 'extern "C" int dw_act_wgrad_s2('):
+                 'extern "C" int dw_act_wgrad_s2(',
+                 'extern "C" int dw_mm_wgrad_s1('):
         assert gone not in bwd
-    for kept in ("dw_mm_dx_mask_s2", "dw_mm_wgrad_s1", "dw_mm_wgrad_s2"):
+    for kept in ("dw_mm_dx_mask_s2", "dw_mm_wgrad_s2"):
         assert f'extern "C" int {kept}(' in bwd
     assert "dw_act_wgrad_s2" not in dw_mm_act.BWD_LIBRARY.functions
     s1 = dw_conv.LIBRARY.source.read_text()

@@ -17,7 +17,9 @@ with the same plan: a difference of 0, repeating bit for bit).  Here:
   (2R+1 rows, 2WB+1 columns): the zero padding of a, an in-frame NaN kept;
 * the wrappers pass the arguments the C declarations take (the kernel
   path, traced on meta tensors) with the plans of K1 and K10 plain, whose
-  act rings fit the card's shared memory at the path's shapes.
+  act rings fit the card's shared memory at the path's shapes, and with
+  K4 act's and K6 mm's own plans (``plan_act_s2_fwd``,
+  ``plan_mm_wgrad_s1``).
 
 That each has one home, ``dw_plain_s1.cu`` and ``dw_plain_s2.cu``, is
 ``test_torch_port_plain_s1.py::test_stride1_entries_left_the_entry_sources``'s,
@@ -36,7 +38,7 @@ from coarse_fine_networks_tpu.ops.fold import (fold_pad, from_fold4, pad_vec,
                                                to_fold4)
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import (_wgrad_s2_raw,
                                                          dw_fold4_act)
-from coarse_fine_networks_torch.ops import dw_act, dw_conv
+from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_mm_act
 from coarse_fine_networks_torch.ops.dw_act import (_activate, dw_act_wgrad,
                                                    dw_act_wgrad_plain,
                                                    dw_bnrelu_conv3d,
@@ -44,8 +46,11 @@ from coarse_fine_networks_torch.ops.dw_act import (_activate, dw_act_wgrad,
 from coarse_fine_networks_torch.ops.dw_conv import (SMEM_MAX,
                                                     dw_conv3d_plain,
                                                     dw_conv_wgrad_plain,
+                                                    plan_act_s2_fwd,
+                                                    plan_mm_wgrad_s1,
                                                     plan_s1, plan_s2,
                                                     smem_s2)
+from coarse_fine_networks_torch.ops.dw_mm_act import dw_mm_wgrad
 
 from _torch_port_util import t
 from test_torch_port_act_bwd import _phase_sum, act_ring_reads
@@ -164,13 +169,15 @@ def test_act_ring_at_a_stride2_tile(dtype):
     assert torch.isnan(reads[1]).any()
 
 
-def _traced(monkeypatch, fn, *args):
+def _traced(monkeypatch, fn, *args, mod=dw_act):
     """``fn``'s kernel path on meta tensors: the library, the entry and the
     arguments it would pass (``_launch`` appends the dtype flag and the
-    stream)."""
+    stream); ``mod`` is the wrapper's module."""
     calls = []
-    monkeypatch.setattr(dw_act, "_check", lambda *a, **k: None)
-    monkeypatch.setattr(dw_act, "_launch",
+    monkeypatch.setattr(mod, "_check", lambda *a, **k: None)
+    if mod is dw_mm_act:
+        monkeypatch.setattr(mod, "_check_kernel_input", lambda x: None)
+    monkeypatch.setattr(mod, "_launch",
                         lambda counts, lib, name, x, *a: calls.append(
                             (lib, name, a)))
     fn(*(a.to("meta") for a in args))
@@ -194,6 +201,24 @@ def test_wrappers_pass_the_declared_arguments_and_plans(monkeypatch):
     assert (lib, name) == (dw_conv.LIBRARY_S2, "dw_act_wgrad_s2")
     assert len(a) + 2 == len(lib.functions[name])
     assert list(a[5:]) == [*shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows]
+    # K4 act: K4 plain's source, with a plan of its own ring
+    lib, name, a = _traced(monkeypatch, lambda *v: dw_bnrelu_conv3d(*v, 2),
+                           x, k, sc, bi)
+    p = plan_act_s2_fwd(*shape)
+    assert (lib, name) == (dw_conv.LIBRARY_S2, "dw_act_s2")
+    assert len(a) + 2 == len(lib.functions[name])
+    assert list(a[5:]) == [*shape, p.r, p.wb, p.pg, p.tt]
+    # K6 mm: K6 plain's source, x is conv1's input (C_in 8), g has C_mid
+    b, t, h, w, c = shape
+    xi = torch.zeros((b, t, h, w, 8))
+    w1 = torch.zeros((8, c))
+    lib, name, a = _traced(monkeypatch, lambda *v: dw_mm_wgrad(*v, 1),
+                           xi, w1, g1, sc, bi, mod=dw_mm_act)
+    p = plan_mm_wgrad_s1(b, t, h, w, 8, c, 4)  # f32: 4-byte elements
+    assert list(a[6:]) == [b, t, h, w, 8, c, p.r, p.wb, p.pg, p.tt, p.ipb,
+                           p.rows]
+    assert (lib, name) == (dw_conv.LIBRARY, "dw_mm_wgrad_s1")
+    assert len(a) + 2 == len(lib.functions[name])
 
 
 @pytest.mark.parametrize("esz", [2, 4])

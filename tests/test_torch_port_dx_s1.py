@@ -284,17 +284,17 @@ def test_constants_match_the_source(name, value):
 
 def test_partial_rows_have_no_stride1_kind_left():
     """K3's and K5's partial buffers have their plans' rows (the launchers
-    refuse any other count); ``dw_act_partial_rows`` sizes the weight
-    gradients left in ``dw_act_bwd.cu`` only (kind 1: K6 mm; kind 2: K10
-    mm): neither dx nor K6 act nor K10 act has a kind there."""
+    refuse any other count), and so has K6 mm's; ``dw_act_partial_rows``
+    sizes the weight gradient left in ``dw_act_bwd.cu`` only (kind 2: K10
+    mm): neither dx nor K6 act, K6 mm or K10 act has a kind there."""
     src = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     assert "rows != items" in src
     assert "rows != items" in dw_conv.LIBRARY_S2.source.read_text()
     for name in ("dw_act_dx_s1", "dw_act_dx_s2", "dw_act_wgrad_s1",
-                 "dw_act_wgrad_s2"):
+                 "dw_act_wgrad_s2", "dw_mm_wgrad_s1"):
         assert name not in dw_mm_act._ROWS_KIND
-    assert sorted(set(dw_mm_act._ROWS_KIND.values())) == [1, 2]
+    assert sorted(set(dw_mm_act._ROWS_KIND.values())) == [2]
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     body = bwd[bwd.index('extern "C" int dw_act_partial_rows('):]
     body = body[:body.index("\n}\n")]
-    assert re.findall(r"case (\d+):", body) == ["1", "2"]
+    assert re.findall(r"case (\d+):", body) == ["2"]

@@ -21,7 +21,7 @@ from coarse_fine_networks_tpu.ops.fold import (fold_pad, fold_pointwise_kernel,
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import \
     fold_dw_mm_bnrelu_conv3d
 from coarse_fine_networks_torch.models.x3d import Bottleneck
-from coarse_fine_networks_torch.ops import dw_mm_act
+from coarse_fine_networks_torch.ops import dw_conv, dw_mm_act
 from coarse_fine_networks_torch.ops.dw_mm_act import (
     dw_mm_bnrelu_conv3d, dw_mm_bnrelu_conv3d_plain)
 
@@ -148,6 +148,10 @@ def test_wrapper_rejects(bad):
 def test_kernel_source_ships_both_entries():
     src = dw_mm_act.SOURCE.read_text()
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    for name in dw_mm_act.LAUNCHES:  # the weight gradient is a backward
-        assert f'extern "C" int {name}(' in (bwd if "wgrad" in name else src)
+    # the weight gradient is a backward: at stride 1 K6 plain's source's
+    s1 = dw_conv.LIBRARY.source.read_text()
+    for name in dw_mm_act.LAUNCHES:
+        home = (s1 if name == "dw_mm_wgrad_s1" else
+                bwd if "wgrad" in name else src)
+        assert f'extern "C" int {name}(' in home
     assert "sm_90a" in " ".join(dw_mm_act.NVCC_FLAGS)

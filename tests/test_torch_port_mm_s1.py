@@ -189,19 +189,26 @@ def test_binding_matches_the_c_declaration(name):
 def test_the_product_on_the_tensor_cores_settles_its_relu_branch():
     """The stride-1 forward's bf16 product runs on mma and sends the relu
     inputs within ``mm_band`` of 0 to the sum in order that ``mm_prologue``
-    (the stride-2 masked dx, the mm weight gradients) takes: the pieces are
-    in the shared header, the product that uses them in ``mm_strip.cuh``,
-    and the forward and the stride-1 masked dx both call that product."""
+    (the stride-2 masked dx, the stride-2 mm weight gradient) takes: the
+    pieces are in the shared header, the product that uses them in
+    ``mm_strip.cuh``, and the forward, the stride-1 masked dx and the
+    stride-1 mm weight gradient all call that product (the forward and the
+    weight gradient through ``mm_activate``, which stores its relu)."""
     csrc = dw_mm_act.LIBRARY.source.parent
     common = (csrc / "common.cuh").read_text()
     product = (csrc / "mm_strip.cuh").read_text()
     src = dw_mm_act.LIBRARY.source.read_text()
     dx = dw_mm_act.DX_S1_LIBRARY.source.read_text()
+    wg = (csrc / "dw_plain_s1.cu").read_text()
     for name in ("mm_ksteps_bf16", "mm_band", "mm_z_fmaf", "mma.sync"):
         assert name in common
     for name in ("mm_ksteps_bf16(", "mm_z_fmaf(", "mm_strip_product("):
         assert name in product
-    for name in ("mm_strip_product<T>(", "mm_band(", "mm_fwd_s1_kernel"):
+    act = product[product.index("void mm_activate("):]
+    assert "mm_strip_product<T>(" in act
+    for name in ("mm_activate<T>(", "mm_band(", "mm_fwd_s1_kernel"):
         assert name in src
     for name in ("mm_strip_product<T>(", "mm_band(", "mm_dx_s1_kernel"):
         assert name in dx
+    for name in ("mm_activate<T>(", "mm_band(", "mm_wgrad_s1_kernel"):
+        assert name in wg

@@ -14,11 +14,14 @@ CPU:
   the act weight gradients its VJP calls, ``dw_fold4_mm_act``), put it, and
   their finite elements agree at 1e-5 (forward) and 1e-4 (weight gradient:
   f32 sums over every position in another order).  The NaN lies inside the
-  frame, on its first frame or on its first row.  The mm entry's x is
-  conv1's input: the JAX kernel's block-diagonal fold4 product also spreads
-  a NaN of x to the three other rows of its fold (NaN·0 in the zero blocks),
-  a layout artifact the port does not copy, so there the JAX positions are
-  the twin's on x with the NaN copied to those rows;
+  frame, on its first or last frame, on its first or last row or on its
+  last column (the edges where the row-strip weight gradients' ring holds
+  the zero of a g element outside the item, fault 3.4).  The mm entry's x
+  is conv1's input: the JAX kernel's block-diagonal fold4 product also
+  spreads a NaN of x to the three other rows of its fold (NaN·0 in the zero
+  blocks), a layout artifact the port does not copy, so there the JAX
+  positions are the twin's on x with the NaN copied to those rows (the eval
+  forward, K1/K4 mm, and the mm weight gradients, K6/K10 mm);
 * the kernels' relu, modelled in torch, equals ``torch.relu`` bit for bit,
   NaN and -0 included;
 * no relu of ``csrc/`` is an ``fmaxf`` with 0.
@@ -43,8 +46,8 @@ from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
 from coarse_fine_networks_torch.ops import dw_conv
 from coarse_fine_networks_torch.ops.dw_act import (dw_act_wgrad_plain,
                                                    dw_bnrelu_conv3d_plain)
-from coarse_fine_networks_torch.ops.dw_mm_act import \
-    dw_mm_bnrelu_conv3d_plain
+from coarse_fine_networks_torch.ops.dw_mm_act import (
+    dw_mm_bnrelu_conv3d_plain, dw_mm_wgrad_plain)
 
 from _torch_port_util import t
 
@@ -53,8 +56,10 @@ torch.set_num_threads(2)
 C = 12
 SHAPE = (1, 4, 16, 16, C)
 # (t, h, w) of x's NaN: inside the frame, on its first frame, on its first
-# row
-WHERE = {"inside": (2, 7, 9), "first_frame": (0, 7, 9), "first_row": (2, 0, 9)}
+# row, on its last frame, its last row and its last column
+WHERE = {"inside": (2, 7, 9), "first_frame": (0, 7, 9), "first_row": (2, 0, 9),
+         "last_frame": (3, 7, 9), "last_row": (2, 15, 9),
+         "last_column": (2, 7, 15)}
 
 
 def _lanes(v, c):
@@ -136,14 +141,46 @@ def test_mm_forward_nans_match_pallas(stride):
         jnp.asarray(k).reshape(3, 3, 3, 1, C), _lanes(sc, C), _lanes(bi, C),
         C, stride, True)
     # the fold4 product's NaN·0: the NaN row's three fold siblings
-    tt, h, w = WHERE["inside"]
-    x_fold = x.copy()
-    x_fold[0, tt, h // FOLD * FOLD:(h // FOLD + 1) * FOLD, w, :] = np.nan
+    x_fold = _fold_siblings(x, "inside")
     _same_nans(dw_mm_bnrelu_conv3d_plain(t(x_fold), t(w1), t(k), t(sc),
                                          t(bi), stride).numpy(),
                from_fold4(y, C), 1e-5)
     got = dw_mm_bnrelu_conv3d_plain(t(x), t(w1), t(k), t(sc), t(bi), stride)
     assert torch.isnan(got).sum() < np.isnan(np.asarray(y)).sum()
+
+
+def _fold_siblings(x, where):
+    """x with its NaN copied to the three other rows of its fold: the JAX
+    fold4 product's NaN·0 in the zero blocks."""
+    tt, h, w = WHERE[where]
+    x = x.copy()
+    x[0, tt, h // FOLD * FOLD:(h // FOLD + 1) * FOLD, w, :] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("where", list(WHERE))
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mm_wgrad_nans_match_pallas(stride, where):
+    """The mm weight gradients (K6 mm at stride 1, K10 mm at stride 2, the
+    backward of the train composite and of the eval entry): the twin on x
+    with the JAX fold4 NaN spread puts NaN where the interpreted JAX kernel
+    does, and its finite taps agree at 1e-4; on x itself its NaN taps are
+    among those (the spread adds NaN, it takes none away)."""
+    c_in = 8
+    x, _, sc, bi, g = _inputs(where, stride, seed=30 + stride, c_in=c_in)
+    w1 = (np.random.RandomState(4).randn(c_in, C) / 3).astype(np.float32)
+    raw = _dw_fold4_wgrad_raw if stride == 1 else _wgrad_s2_raw
+    dk = raw(to_fold4(jnp.asarray(x)), to_fold4(jnp.asarray(g)), True,
+             sc=_lanes(sc, C), bi=_lanes(bi, C),
+             wmm=fold_pointwise_kernel(
+                 jnp.asarray(w1).reshape(1, 1, 1, c_in, C), c_in, C))
+    ref = _phase_sum(dk, C)
+    got = dw_mm_wgrad_plain(t(_fold_siblings(x, where)), t(w1), t(g), t(sc),
+                            t(bi), stride)
+    _same_nans(got.numpy(), ref, 1e-4)
+    own = dw_mm_wgrad_plain(t(x), t(w1), t(g), t(sc), t(bi), stride).numpy()
+    assert np.isnan(ref[np.isnan(own)]).all()
+    assert np.isnan(own[:, 1]).all()
 
 
 def test_kernel_relu_is_torch_relu():

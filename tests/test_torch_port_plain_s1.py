@@ -146,15 +146,15 @@ def test_bindings_match_the_c_declarations(lib):
 
 
 def test_stride1_entries_left_the_entry_sources():
-    """The plain mode at stride 1 and the act forward and weight gradient
-    at stride 1 (K1 act, K6 act) live in ``dw_plain_s1.cu`` only, the three
-    stride-2 plain entries (K4 plain, K8, K10 plain), the act dx and the
-    act weight gradient at stride 2 (K5, K10 act) in ``dw_plain_s2.cu``
-    only, and the stride-1 dx of the train entries (K3, K2) in
-    ``dw_dx_s1.cu`` only: none is left in the bottleneck entry's sources,
-    and neither is their ``PLAIN`` mode, the old stride-1 dx kernel or the
-    tile kernel's act mode at stride 1; the act modes are instantiations of
-    the plain bodies, and K4 act stays in ``dw_mm_act.cu``."""
+    """The plain mode at stride 1, the act forward and weight gradient at
+    stride 1 (K1 act, K6 act) and the mm weight gradient at stride 1 (K6
+    mm) live in ``dw_plain_s1.cu`` only, the three stride-2 plain entries
+    (K4 plain, K8, K10 plain) and the act forward, dx and weight gradient
+    at stride 2 (K4 act, K5, K10 act) in ``dw_plain_s2.cu`` only, and the
+    stride-1 dx of the train entries (K3, K2) in ``dw_dx_s1.cu`` only: none
+    is left in the bottleneck entry's sources, and neither is their
+    ``PLAIN`` mode, the old stride-1 dx kernel or the tile kernel's act
+    mode; the act modes are instantiations of the plain bodies."""
     fwd = dw_mm_act.LIBRARY.source.read_text()
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     new = dw_conv.LIBRARY.source.read_text()
@@ -162,10 +162,11 @@ def test_stride1_entries_left_the_entry_sources():
     dx1 = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     for lib, src, names in (
             (dw_conv.LIBRARY, new, ("dw_conv_s1", "dw_act_s1",
-                                    "dw_conv_wgrad_s1", "dw_act_wgrad_s1")),
-            (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_conv_dx_s2",
-                                      "dw_act_dx_s2", "dw_conv_wgrad_s2",
-                                      "dw_act_wgrad_s2")),
+                                    "dw_conv_wgrad_s1", "dw_act_wgrad_s1",
+                                    "dw_mm_wgrad_s1")),
+            (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_act_s2",
+                                      "dw_conv_dx_s2", "dw_act_dx_s2",
+                                      "dw_conv_wgrad_s2", "dw_act_wgrad_s2")),
             (dw_mm_act.DX_S1_LIBRARY, dx1, ("dw_act_dx_s1",
                                             "dw_mm_dx_mask_s1"))):
         others = "".join(other for other in (fwd, bwd, new, s2, dx1)
@@ -181,8 +182,10 @@ def test_stride1_entries_left_the_entry_sources():
                     assert name not in other.functions
     assert "PLAIN" not in fwd + bwd
     assert "dx_s1_kernel(" not in bwd
-    assert "dispatch<1, ACT>" not in fwd and "dispatch<2, ACT>" in fwd
+    assert "ACT" not in fwd and "activate(x" not in fwd
     assert "fwd_body<T, R, true>" in new and "fwd_body<T, R, false>" in new
+    assert ("s2_fwd_body<T, R, true>" in s2
+            and "s2_fwd_body<T, R, false>" in s2)
     assert ("s2_wgrad_body<T, R, true>" in s2
             and "s2_wgrad_body<T, R, false>" in s2)
     for lib in (dw_conv.LIBRARY, dw_conv.LIBRARY_S2, dw_mm_act.DX_S1_LIBRARY):

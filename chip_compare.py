@@ -7,14 +7,17 @@ PARENT and CHANGE (default: this checkout) are checkout directories, each
 holding its own ``chip_smoke.py`` and ``coarse_fine_networks_torch``.  Runs
 go parent, change, change, parent, each in a process of its own that
 imports its checkout's ``chip_smoke.py``, builds that checkout's kernels
-into its own build directory, and times the train kernels
-(``phase_train_kernels``: the act route's at the coarse step's and
-long-cycle phase D's entry shapes) and the split route's
-(``phase_fine_kernels``: long-cycle phases A-C), each held against its
-plain version there as ``chip_smoke.py`` holds it.  Each run prints one JSON
+into its own build directory, and times the eval entry's kernels
+(``phase_kernels``: K1 and K4 ``mm`` at the serve run's and the fine eval
+step's entry shapes), the train kernels (``phase_train_kernels``: the act
+route's at the coarse step's and long-cycle phase D's entry shapes), the
+split route's (``phase_fine_kernels``: long-cycle phases A-C) and the
+composite's backward (``phase_mm_train_kernels``: K2, K9, K6 and K10
+``mm`` at the coarse step's and phase D's), each held against its plain
+version there as ``chip_smoke.py`` holds it.  Each run prints one JSON
 line: every kernel's bf16 time weighted by its launches on its path, as
-``chip_smoke.py``'s ``kernels`` line sums it (``ms``; the act route's also
-over one phase-D step, ``phase_d_ms``).  The card's ``nvidia-smi`` name and
+``chip_smoke.py``'s ``kernels`` line sums it (``ms``; the train kernels'
+also over one phase-D step, ``phase_d_ms``).  The card's ``nvidia-smi`` name and
 power limit come last.  Needs a CUDA card; imports no JAX.
 """
 
@@ -34,14 +37,18 @@ def run(tree: str, label: str) -> None:
 
     import chip_smoke as cs
     from coarse_fine_networks_torch.ops import (_build, dw_act, dw_conv,
-                                                dw_mm_act, dw_stencil)
+                                                dw_mm_act, dw_mm_bn_train,
+                                                dw_stencil)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     _build.build_all(dw_conv.LIBRARIES + (dw_stencil.LIBRARY,))
     with contextlib.redirect_stdout(io.StringIO()):
-        per = cs.phase_train_kernels(dw_act, dw_conv, dw_mm_act)
+        per = cs.phase_kernels(dw_mm_act, dw_conv)
+        per.update(cs.phase_train_kernels(dw_act, dw_conv, dw_mm_act))
         per.update(cs.phase_fine_kernels(dw_conv, dw_stencil))
+        per.update(cs.phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train,
+                                             dw_conv))
     print(json.dumps({"tree": label, "kernels": {
         k: {"ms": v["ms"], "phase_d_ms": v.get("phase_d_ms", 0.0)}
         for k, v in per.items()}}), flush=True)

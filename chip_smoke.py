@@ -13,10 +13,10 @@ Phases, each printing JSON lines:
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
    ``dw_mm_act.cu`` and ``dw_dx_s1.cu`` whose registers, spills and static
    shared memory for each row-strip kernel (K1/K6 plain and ``act``, K6
-   ``mm``; K4 plain and ``act``, K8, K5, K10 plain and ``act``; K1 ``mm``;
-   K3 and K2) make four ``ptxas`` rows, no act or mm instantiation
-   spilling; their dynamic shared memory and blocks per SM are in the
-   kernel rows' ``plan``);
+   ``mm``; K4 plain, ``act`` and ``mm``, K8, K5, K9, K10 plain and
+   ``act``; K1 ``mm``; K3 and K2) make four ``ptxas`` rows, no act or mm
+   instantiation spilling; their dynamic shared memory and blocks per SM
+   are in the kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -29,7 +29,11 @@ Phases, each printing JSON lines:
    phase D gives it (B8 T64 224²); all in f32 (TF32 off) and bf16, with
    timings of the kernel, the plain version, the unfused PyTorch sequence
    and the nearest single PyTorch call (each ``dw_mm_act_s1`` row with its
-   work split, ``plan_mm_s1``, blocks per SM and waves); the stride-1 dx
+   work split, ``plan_mm_s1``, blocks per SM and waves; each
+   ``dw_mm_act_s2`` row (K4 ``mm``) with ``plan_mm_s2_fwd``'s and its exact
+   oracle: y equal with a difference of 0 to ``dw_conv_s2`` (K4 plain)
+   launched with that plan on K1 ``mm``'s activation, centre tap 1,
+   repeating bit for bit); the stride-1 dx
    ``dw_act_dx_s1`` (K3) also against the exact oracle, its dx equal with
    a difference of 0 to ``dw_conv_s1`` of g with the flipped taps in f32,
    masked and scaled as the plain version does, the stride-2 dx
@@ -46,8 +50,9 @@ Phases, each printing JSON lines:
 2b. relu_branch: the forward and the masked dx take one relu branch: with
    only the centre tap set to 1 the forward's ``y > 0`` must equal the
    mask ``dam != 0`` of ``g = 1`` element for element (K1 ``mm`` against
-   K2, K4 ``mm`` against K9) at every entry shape of the eval kernels and
-   of the train composite, f32 and bf16; K1 ``mm``'s branch also against
+   K2, K4 ``mm`` against K9, all four conv1's product through
+   ``mm_strip_product``) at every entry shape of the eval kernels and of
+   the train composite, f32 and bf16; K1 ``mm``'s branch also against
    conv1's product in f64 outside ``mm_band`` and a torch model of the
    in-order f32 ``fmaf`` sum inside it, at every stride-1 shape;
 2c. nan: with a NaN in x (inside the frame) and in one channel of sc,
@@ -115,10 +120,12 @@ Phases, each printing JSON lines:
    exact oracle: ``dw_conv_s1`` of g with the flipped taps in f32 where K1
    ``mm`` (``dw_mm_act_s1``, centre tap 1) takes the positive relu branch
    at the same x, W1, sc and bi, else 0, in g's dtype, with a difference
-   of 0, and the stride-1 weight gradient (K6 ``mm``) against K6 plain
-   launched with its plan on K1 ``mm``'s activation (centre tap 1) with a
-   difference of 0, repeating bit for bit, each row with its work split
-   (``plan_mm_dx_s1``, ``plan_mm_wgrad_s1``), blocks per SM and waves;
+   of 0, the stride-2 masked dx (K9) likewise against ``dw_conv_dx_s2``
+   (K8) of g in f32, repeating bit for bit, and the stride-1 weight
+   gradient (K6 ``mm``) against K6 plain launched with its plan on K1
+   ``mm``'s activation (centre tap 1) with a difference of 0, repeating
+   bit for bit, each row with its work split (``plan_mm_dx_s1``,
+   ``plan_mm_dx_s2``, ``plan_mm_wgrad_s1``), blocks per SM and waves;
    then the
    composite's Gram xᵀx of each coarse entry, f32 output from bf16 x,
    timed against reading x as f32;
@@ -261,7 +268,9 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                        else "dw_plain_s2.cu" if (k.startswith("dw_conv_")
                                                  or k in ("dw_act_s2",
                                                           "dw_act_dx_s2",
-                                                          "dw_act_wgrad_s2"))
+                                                          "dw_act_wgrad_s2",
+                                                          "dw_mm_act_s2",
+                                                          "dw_mm_dx_mask_s2"))
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
                        else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
@@ -269,14 +278,14 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
 KERNEL_FUNCS = {
-    "dw_mm_act_kernel": ("dw_mm_act_s2",),
+    "mm_s2_fwd_kernel": ("dw_mm_act_s2",),
     "mm_fwd_s1_kernel": ("dw_mm_act_s1",),
     "act_fwd_s1_kernel": ("dw_act_s1",),
     "act_s2_fwd_kernel": ("dw_act_s2",),
     "act_dx_s1_kernel": ("dw_act_dx_s1",),
     "mm_dx_s1_kernel": ("dw_mm_dx_mask_s1",),
     "act_s2_dx_kernel": ("dw_act_dx_s2",),
-    "dx_s2_kernel": ("dw_mm_dx_mask_s2",),
+    "mm_s2_dx_kernel": ("dw_mm_dx_mask_s2",),
     "act_wgrad_s1_kernel": ("dw_act_wgrad_s1",),
     "act_s2_wgrad_kernel": ("dw_act_wgrad_s2",),
     "mm_wgrad_s1_kernel": ("dw_mm_wgrad_s1",),
@@ -412,13 +421,15 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "plain_wgrad_kernel", "act_wgrad_s1_kernel",
                         "mm_wgrad_s1_kernel"),
          "dw_conv_s2": ("plain_s2_fwd_kernel", "act_s2_fwd_kernel",
-                        "plain_s2_dx_kernel", "act_s2_dx_kernel",
+                        "mm_s2_fwd_kernel", "plain_s2_dx_kernel",
+                        "act_s2_dx_kernel", "mm_s2_dx_kernel",
                         "plain_s2_wgrad_kernel", "act_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
 # the act and mm modes of the row-strip bodies: no instantiation may spill
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
-            "act_s2_fwd_kernel", "act_s2_wgrad_kernel")
+            "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
+            "mm_s2_dx_kernel")
 
 
 def phase_device() -> str:
@@ -456,6 +467,73 @@ def phase_device() -> str:
                    and (v.get("spill_stores") or v.get("spill_loads"))}
         check(not spilled, f"act kernels spill: {spilled}")
     return smi
+
+
+def _plan_row_mm_s2(dw_conv, name, shape, c_mid, dtype) -> dict:
+    """The work split of K4 mm (``dw_mm_act_s2``, ``plan_mm_s2_fwd``) or
+    K9 (``dw_mm_dx_mask_s2``, ``plan_mm_dx_s2``) at x ``shape`` (C_in
+    last) and ``c_mid``, and what the card makes of it: threads, blocks,
+    shared memory, blocks per SM (the occupancy API: at least the two each
+    plan is cut for) and waves."""
+    b, t, h, w, c_in = shape
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    lib = dw_conv.LIBRARY_S2.build()
+    if name == "dw_mm_act_s2":
+        p = dw_conv.plan_mm_s2_fwd(b, t, h, w, c_in, c_mid, esz)
+        occ = lib.dw_mm_act_s2_occupancy(p.r, p.wb, p.pg, c_in, w, bf16)
+        smem = dw_conv.smem_mm_s2_fwd(p, c_in, esz, w)
+    else:
+        p = dw_conv.plan_mm_dx_s2(b, t, h, w, c_in, c_mid, esz)
+        occ = lib.dw_mm_dx_mask_s2_occupancy(p.r, p.wb, p.pg, p.tt, c_in, w,
+                                             bf16)
+        smem = dw_conv.smem_mm_dx_s2(p, c_in, esz, w)
+    check(occ >= 2, f"{name} plan {p} {dtype}: {occ} blocks per SM, not "
+                    f"the plan's 2")
+    blocks = p.items * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
+            "threads": p.threads, "blocks": blocks, "smem": smem,
+            "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
+
+
+def _mm_activation(dw_mm_act, x, w1, sc, bi):
+    """K1 mm's activation of x (``dw_mm_act_s1`` with only the centre tap,
+    1: y is the activation itself, the 26 other taps add fmaf(0, a, acc) =
+    acc), in x's dtype: the one ``mm_strip_product`` gives every mm
+    kernel."""
+    taps = torch.zeros((3, 3, 3, w1.shape[1]), dtype=x.dtype,
+                       device=x.device)
+    taps[1, 1, 1] = 1
+    return dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1)
+
+
+def _mm_fwd_s2_exact(dw_mm_act, dw_conv, x, w1, w, sc, bi, dtype) -> dict:
+    """K4 mm (``dw_mm_act_s2``) against its exact oracle: y equals K4 plain
+    (``dw_conv_s2``) launched with K4 mm's plan on K1 mm's activation, with
+    a difference of 0 (both add each output's taps in K7's order); it
+    repeats bit for bit.  Returns the row's fields: the difference and the
+    plan."""
+    b, t, h, wd, c_in = x.shape
+    c = w1.shape[1]
+    a = _mm_activation(dw_mm_act, x, w1, sc, bi)
+    p = dw_conv.plan_mm_s2_fwd(b, t, h, wd, c_in, c, x.element_size())
+    ref = torch.empty((b, t, (h - 1) // 2 + 1, (wd - 1) // 2 + 1, c),
+                      dtype=x.dtype, device=x.device)
+    dw_mm_act._launch(dw_conv.LAUNCHES, dw_conv.LIBRARY_S2, "dw_conv_s2", a,
+                      a.data_ptr(), w.data_ptr(), ref.data_ptr(), *a.shape,
+                      p.r, p.wb, p.pg, p.tt)
+    del a
+    y1 = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, w, sc, bi, 2)
+    y2 = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, w, sc, bi, 2)
+    torch.cuda.synchronize()
+    diff = (y1.float() - ref.float()).abs().max().item()
+    repeats = torch.equal(y1, y2)
+    what = f"dw_mm_act_s2 {tuple(x.shape)} C_mid {c} {dtype}"
+    check(diff == 0, f"{what}: y differs from K4 plain on K1 mm's "
+                     f"activation by {diff}")
+    check(repeats, f"{what}: two runs differ")
+    return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+            "plan": _plan_row_mm_s2(dw_conv, "dw_mm_act_s2", tuple(x.shape),
+                                    c, dtype)}
 
 
 def phase_kernels(dw_mm_act, dw_conv) -> dict:
@@ -507,7 +585,8 @@ def phase_kernels(dw_mm_act, dw_conv) -> dict:
                    "x": [b, t, h, w, c_in], "c_mid": c_mid, "stride": s,
                    **({"plan": _plan_row_mm(dw_conv, dw_mm_act,
                                             (b, t, h, w, c_in), c_mid, dtype)}
-                      if s == 1 else {}),
+                      if s == 1 else _mm_fwd_s2_exact(dw_mm_act, dw_conv,
+                                                      *args[:5], dtype)),
                    "path_launches": n, "in_kernel_line": counted,
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "tol_abs": tol, "ms": ms, "plain_ms": plain_ms,
@@ -566,7 +645,7 @@ def _relu_witness(y, x, w1, sc, bi) -> dict:
     be the sign of a torch model of ``mm_z_fmaf``'s sum (``fmaf`` over k in
     order from 0 in f32, :func:`_fmaf_f32`) through bn1's apply rounded
     as ``bn_apply`` (``z·sc`` and ``+ bi`` each to f32), the arithmetic of
-    ``mm_prologue``, which K6 mm and K9 recompute.  Returns the mismatches
+    ``mm_prologue``, which K10 mm recomputes.  Returns the mismatches
     and the number of elements in the band."""
     c_in, c_mid = w1.shape
     xd, wd = x.reshape(-1, c_in).double(), w1.double()
@@ -594,10 +673,10 @@ def phase_relu_branch(dw_mm_act, dw_mm_bn_train) -> None:
     ``y > 0`` is its relu branch; with ``g = 1`` the masked dx ``dam`` is
     the mask itself wherever g reaches (every position at stride 1, the
     even rows and columns at stride 2).  K1 mm (``dw_mm_act_s1``) against
-    K2 (``dw_mm_dx_mask_s1``), both conv1's product through
-    ``mm_strip_product``, and K4 mm against K9 (the product through
-    ``mm_prologue``), at every entry shape of the eval kernels and of the
-    train composite, f32 and bf16: they must agree exactly.  Since K1 mm
+    K2 (``dw_mm_dx_mask_s1``) and K4 mm against K9, all four conv1's
+    product through ``mm_strip_product``, at every entry shape of the eval
+    kernels and of the train composite, f32 and bf16: they must agree
+    exactly.  Since K1 mm
     and K2 share their product, K1 mm's branch is also held against
     :func:`_relu_witness` at every stride-1 shape: no mismatch."""
     gen = torch.Generator(device="cuda").manual_seed(8)
@@ -1227,25 +1306,34 @@ def mm_entry_cases():
 
 
 def _mm_dx_exact(dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
-                 dtype) -> dict:
-    """K2 (``dw_mm_dx_mask_s1``) against its exact oracle: dam equals
-    ``where(keep, da, 0)`` in g's dtype, da from :func:`_dx_s1_oracle` and
-    keep K1 mm's relu branch at the same x, W1, sc and bi (``y > 0`` of
-    ``dw_mm_act_s1`` with only the centre tap, 1: y is the activation), with
-    a difference of 0.  Returns the row's fields: the difference and the
+                 dtype, s=1) -> dict:
+    """K2 (``dw_mm_dx_mask_s1``) or K9 (``dw_mm_dx_mask_s2``, ``s`` 2)
+    against its exact oracle: dam equals ``where(keep, da, 0)`` in g's
+    dtype, da from :func:`_dx_s1_oracle` (K9: K8, ``dw_conv_dx_s2``, run in
+    f32 on g and the taps) and keep K1 mm's relu branch at the same x, W1,
+    sc and bi (:func:`_mm_activation` > 0), with a difference of 0; K9
+    repeats bit for bit.  Returns the row's fields: the difference and the
     plan."""
-    taps = torch.zeros_like(w)
-    taps[1, 1, 1] = 1
-    keep = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1) > 0
-    ref = torch.where(keep, _dx_s1_oracle(dw_conv, g, w), 0.0).to(g.dtype)
-    del keep
-    dam = dw_mm_bn_train.dw_mm_dx_mask(g, x, w1, w, sc, bi, 1)
+    keep = _mm_activation(dw_mm_act, x, w1, sc, bi) > 0
+    da = (_dx_s1_oracle(dw_conv, g, w) if s == 1 else
+          dw_conv.dw_conv_dx_s2(g.float(), w.float(), x.shape[2:4]))
+    ref = torch.where(keep, da, 0.0).to(g.dtype)
+    del keep, da
+    dam = dw_mm_bn_train.dw_mm_dx_mask(g, x, w1, w, sc, bi, s)
+    again = dw_mm_bn_train.dw_mm_dx_mask(g, x, w1, w, sc, bi, s) if s == 2 \
+        else dam
     torch.cuda.synchronize()
     diff = (dam.float() - ref.float()).abs().max().item()
-    check(diff == 0, f"dw_mm_dx_mask_s1 {tuple(x.shape)} {dtype}: dam "
-                     f"differs from the exact oracle by {diff}")
+    repeats = torch.equal(dam, again)
+    what = f"dw_mm_dx_mask_s{s} {tuple(x.shape)} {dtype}"
+    check(diff == 0, f"{what}: dam differs from the exact oracle by {diff}")
+    check(repeats, f"{what}: two runs differ")
     b, t, h, wd, c_in = x.shape
     c, esz = w1.shape[1], x.element_size()
+    if s == 2:
+        return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
+                "plan": _plan_row_mm_s2(dw_conv, "dw_mm_dx_mask_s2",
+                                        tuple(x.shape), c, dtype)}
     return {"exact_max_abs_diff": diff,
             "plan": _plan_row_dx(dw_conv, dw_mm_act, dw_conv.plan_mm_dx_s1(
                 b, t, h, wd, c_in, c, esz), True, c_in, dtype)}
@@ -1277,9 +1365,7 @@ def _mm_wgrad_exact(dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype) -> dict:
     its channel groups are narrower), the plan."""
     b, t, h, w, c_in = x.shape
     c = w1.shape[1]
-    taps = torch.zeros((3, 3, 3, c), dtype=x.dtype, device=x.device)
-    taps[1, 1, 1] = 1
-    a = dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1)
+    a = _mm_activation(dw_mm_act, x, w1, sc, bi)
     p = dw_conv.plan_mm_wgrad_s1(b, t, h, w, c_in, c, x.element_size())
     part = torch.empty((p.rows, 27, c), dtype=torch.float32, device=x.device)
     dw_mm_act._launch(dw_conv.LAUNCHES, dw_conv.LIBRARY, "dw_conv_wgrad_s1",
@@ -1366,11 +1452,12 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
                     (n_x + n_g + w1.numel()) * esz + 2 * c * 4 + 27 * c * 4,
                     ops),
             }
-            extra = ({"dw_mm_dx_mask_s1": _mm_dx_exact(
+            extra = {f"dw_mm_dx_mask_s{s}": _mm_dx_exact(
                 dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
-                dtype), "dw_mm_wgrad_s1": _mm_wgrad_exact(
-                dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype)}
-                     if s == 1 else None)
+                dtype, s)}
+            if s == 1:
+                extra["dw_mm_wgrad_s1"] = _mm_wgrad_exact(
+                    dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype)
             _hold_and_time("mm_train_kernels", cases,
                            {"entry": label, "x": [b, t, h, h, c_in],
                             "c_mid": c, "stride": s},
@@ -1563,8 +1650,8 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ACT_FUNCS + (
-            "mm_fwd_s1_kernel", "dw_mm_act_kernel", "mm_dx_s1_kernel",
-            "dx_s2_kernel", "mm_wgrad_s1_kernel", "wgrad_kernel",
+            "mm_fwd_s1_kernel", "mm_s2_fwd_kernel", "mm_dx_s1_kernel",
+            "mm_s2_dx_kernel", "mm_wgrad_s1_kernel", "wgrad_kernel",
             "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
@@ -2579,7 +2666,7 @@ def phase_profile(pipe, mods) -> None:
     torch.cuda.synchronize()
     emit({"phase": "profile", "what": "one cold batch, extract + fuse, "
                                       "3 videos T=64/T_f=128 224² bf16",
-          **_profile_step(batch, ("dw_mm_act_kernel", "mm_fwd_s1_kernel",
+          **_profile_step(batch, ("mm_s2_fwd_kernel", "mm_fwd_s1_kernel",
                                   "stencil_fwd_kernel"),
                           mods)})
 

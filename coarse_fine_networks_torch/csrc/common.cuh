@@ -1,7 +1,7 @@
-// Pieces shared by the bottleneck-entry kernels (dw_mm_act.cu) and their
-// backward (dw_act_bwd.cu, dw_dx_s1.cu): the block shape, the dtype
-// converters, the stencil tile geometry, the batch-norm apply and the
-// activation.
+// Pieces shared by the bottleneck-entry kernels: the dtype converters, the
+// batch-norm apply and the activation, conv1's product on the tensor cores
+// (mm_strip.cuh builds on it), and the block shape, stencil tile geometry
+// and prologue of the one tile kernel left (dw_act_bwd.cu, K10 mm).
 //
 // The activation is defined once here because the forward's relu branch and
 // the backward's relu' mask must agree element for element: a flipped mask
@@ -93,7 +93,7 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // conv1's product in bf16 on the tensor cores (mm_strip_product,
-// mm_strip.cuh: the stride-1 forward and masked dx): one 16 x 8 tile of z = x @ W1 (16 positions x 8
+// mm_strip.cuh: the mm forwards, the masked dx, K6 mm): one 16 x 8 tile of z = x @ W1 (16 positions x 8
 // channels), with s = |x| @ |W1| beside it: acc += a . bt^T and sacc += |a|
 // . |bt|^T in nk k-steps of 16, ascending, two mma.m16n8k16 each (|.|
 // clears the fragments' sign bits). a holds the tile's 16 positions (row
@@ -124,7 +124,7 @@ __device__ __forceinline__ void mm_ksteps_bf16(float (&acc)[4],
 }
 
 // z = x . w over k = 0 .. Cin-1, summed in f32 with fmaf in order from 0:
-// the arithmetic of mm_prologue below (and of the f32 stride-1 forward),
+// the arithmetic of mm_prologue below (and of mm_strip_product in f32),
 // for x and w contiguous along k, 16-byte aligned, with Cin % 8 == 0 (read
 // 16 bytes at a time). It runs only within mm_band of a relu input's 0, a
 // few elements in ten thousand or fewer.
@@ -149,31 +149,29 @@ __device__ __forceinline__ float mm_z_fmaf(const T* x, const T* w,
 // 2^-24 of s of the exact sum. So where a relu input v = bn_apply(z, sc, bi)
 // from the tensor cores' z has |v| >= mm_band(nk, Cin) |sc| s (twice both
 // bounds), it has the sign mm_prologue's z gives it. Where it has not,
-// mm_strip_product (the stride-1 forward and masked dx) sums z again with
-// mm_z_fmaf, so it takes mm_prologue's relu branch element for element: the
-// stride-2 masked dx and the mm weight gradients recompute the product with
-// mm_prologue, and a flipped mask is an O(1) error in dx. (Where s = 0 every product is 0 and both sums are 0.)
+// mm_strip_product sums z again with mm_z_fmaf, so it takes mm_prologue's
+// relu branch element for element: K10 mm recomputes the product with
+// mm_prologue, and a flipped mask is an O(1) error in dx. (Where s = 0
+// every product is 0 and both sums are 0.)
 __device__ __forceinline__ float mm_band(int nk, int Cin) {
   return 0x1p-18f * nk + 0x1p-23f * Cin;
 }
 
-// The mm entry's prologue: conv1's product z = x[pos] @ W1[:, c] and bn1's
-// apply, shared by the stride-2 forward (dw_mm_act.cu), the stride-2 masked
-// dx and the mm weight gradients (dw_act_bwd.cu), so that all of them (and
-// mm_strip_product, which settles every relu input near 0 by this sum) sum
-// the product in one order and take one relu branch, element for element.
+// The mm entry's prologue of the stride-2 mm weight gradient (K10 mm,
+// dw_act_bwd.cu): conv1's product z = x[pos] @ W1[:, c] and bn1's apply, so
+// that it (and mm_strip_product, which settles every relu input near 0 by
+// this sum) sums the product in one order and takes one relu branch,
+// element for element.
 //
 // The positions are p = warp + j*WARPS < NP (j < NPA), at row iy0 + p / WR
 // and column ix0 + p % WR of the frame xf (H, W, Cin channels-last); the
-// channel is c = c0 + lane. out[j] is
-//   MASK:  1 if z*sc + bi > 0 (the relu' mask), else 0;
-//   else:  act<T>(z, sc, bi) (the activation as the stencil reads it);
-// and 0 outside the frame and for c >= Cmid (zero padding after the
-// activation). z sums in f32 over k = 0..Cin-1 in order with fmaf; x is
+// channel is c = c0 + lane. out[j] is act<T>(z, sc, bi) (the activation
+// as the stencil reads it), and 0 outside the frame and for c >= Cmid
+// (zero padding after the activation). z sums in f32 over k = 0..Cin-1 in order with fmaf; x is
 // staged KC input channels at a time with 16-byte loads (Cin % 8 == 0, x
 // 16-byte aligned) into xs [NP][KC], W1 into ws [KC][CC]. Every thread of
 // the block calls it: it synchronises.
-template <typename T, bool MASK, int NP, int WR, int NPA>
+template <typename T, int NP, int WR, int NPA>
 __device__ __forceinline__ void mm_prologue(
     float (&out)[NPA], float* xs, float* ws, const T* __restrict__ xf,
     const T* __restrict__ w1, int H, int W, int Cin, int Cmid, int c0,
@@ -230,21 +228,14 @@ __device__ __forceinline__ void mm_prologue(
     const int p = warp + j * WARPS;
     const int gy = iy0 + p / WR, gx = ix0 + p % WR;
     const bool in = cval && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    float v = 0.f;
-    if (in) {
-      if (MASK)
-        v = bn_apply(acc[j], scv, biv) > 0.f ? 1.f : 0.f;
-      else
-        v = act<T>(acc[j], scv, biv);
-    }
-    out[j] = v;
+    out[j] = in ? act<T>(acc[j], scv, biv) : 0.f;
   }
 }
 
 // Stencil tiles: an OH x OW tile of outputs at stride (1,S,S), with a halo
 // of S*(O-1)+3 input rows/cols around it (origin S*o0 - 1). Each warp takes
 // every WARPS-th halo position (NPA of them) and every WARPS-th output (NO).
-// (stride (1,2,2) only: the tile kernels left are K4 mm, K9 and K10 mm)
+// (stride (1,2,2) only: the tile kernel left is K10 mm)
 template <int S> struct StencilTile;
 template <> struct StencilTile<2> { static constexpr int OH = 4, OW = 8; };
 

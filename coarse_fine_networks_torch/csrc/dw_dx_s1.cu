@@ -51,10 +51,11 @@
 //     block's row of a partial buffer that the wrapper adds with one
 //     torch.sum: runs repeat bit for bit and nothing uses atomics.
 //   * mm, in two phases: first the segment's relu branches, one byte per
-//     (frame, position, channel) in shared memory: x's R rows (all C_in,
-//     the block's columns, no halo) staged by cp.async three frames deep,
-//     conv1's product by mm_strip_product (16x8 tiles on mma.m16n8k16 in
-//     bf16, fmaf in order in f32) with W1's column group staged once; then
+//     (frame, position, channel) in shared memory (mm_strip.cuh's
+//     mm_masks, which K9 shares): x's R rows (all C_in, the block's
+//     columns, no halo) staged by cp.async three frames deep, conv1's
+//     product by mm_strip_product (16x8 tiles on mma.m16n8k16 in bf16,
+//     fmaf in order in f32) with W1's column group staged once; then
 //     the stencil on g, each output frame written as dam = keep ? da : 0.
 //     The product's registers and the stencil's (54 taps, the ring of 3R
 //     pairs) are never live together, so neither spills.
@@ -89,53 +90,41 @@ struct DxArgs {
 };
 
 // Shared memory. act: NSTAGE ring slots, each a g frame then an x frame.
-// mm: the ring (phase 1: NSTAGE x frames; phase 2: NSTAGE g frames), then
-// W1's columns, bn1's vectors, the positions' places and TT mask slots.
+// mm: mm_strip.cuh's mm_mask_layout: the ring (phase 1: XSTAGE_MM x frames
+// of R x min(WB, W) positions; phase 2: NSTAGE g frames), then W1's
+// columns, bn1's vectors, the positions' places and TT mask slots
+// [R][WB][2PG] of bytes.
 struct DxLayout {
   int gstage;  // elements of a staged g frame: [R+2][WB+2][2PG]
-  int xstage;  // elements of a staged x frame: act [R][WB+2][2PG] (own
-               // column only), mm [rows][ld]
+  int xstage;  // act: elements of a staged x frame [R][WB+2][2PG] (own
+               // column only)
   int slot;    // act: elements of one ring slot (g, then x)
-  int ld;      // mm: staged x row stride, elements: bf16 C_in rounded up
-               // to 16, + 8 (an odd multiple of 16 bytes: ldmatrix without
-               // bank conflicts); f32 C_in
-  int ng;      // mm: W1 columns staged: 2PG, rounded up to 8 in bf16
-  int rows;    // mm: staged positions R x min(WB, W), rounded up to 16
-  int mbytes;  // mm: bytes of one mask slot [R][WB][2PG]
   int ring;    // bytes of the ring
-  int wt_off, vec_off, tab_off, mask_off, total;  // byte offsets and size
+  MmMaskLayout mm;  // mm: phase 1's layout
+  int mask_off, mbytes, total;  // mm: the mask slots; the size
 };
 
 template <typename T, int MODE>
 __host__ __device__ __forceinline__ DxLayout dx_layout(int R, int WB, int PG,
                                                        int Cin, int W,
                                                        int TT) {
-  const bool bf = sizeof(T) == 2;
   const int esz = (int)sizeof(T);
   DxLayout L;
   L.gstage = stage_elems<T>(R + 2, WB, PG);
-  L.rows = (R * min(WB, W) + 15) / 16 * 16;
-  L.ld = bf ? (Cin + 15) / 16 * 16 + 8 : Cin;
-  L.ng = bf ? (2 * PG + 7) / 8 * 8 : 2 * PG;
-  L.xstage = MODE == MM ? L.rows * L.ld : stage_elems<T>(R, WB, PG);
+  L.xstage = stage_elems<T>(R, WB, PG);
   L.slot = L.gstage + L.xstage;
-  L.mbytes = (R * WB * 2 * PG + 15) / 16 * 16;
   if (MODE == MM) {
-    const int gring = NSTAGE * L.gstage * esz;
-    const int xring = NSTAGE * L.xstage * esz;
-    L.ring = gring > xring ? gring : xring;
-    L.wt_off = L.ring;
-    const int wt = bf ? L.ng * L.ld * 2 : Cin * 2 * PG * 4;
-    L.vec_off = L.wt_off + (wt + 15) / 16 * 16;
-    // bn1's sc and bi, and mm_band's bound per unit of s, per channel
-    L.tab_off = L.vec_off + 3 * ((L.ng * 4 + 15) / 16 * 16);
-    L.mask_off = L.tab_off + (L.rows * 4 + 15) / 16 * 16;
-    L.total = L.mask_off + TT * L.mbytes;
+    L.mm = mm_mask_layout<T>(R * min(WB, W), Cin, PG,
+                             NSTAGE * L.gstage * esz, R * WB * 2 * PG, TT);
+    L.ring = L.mm.f.wt_off;
+    L.mask_off = L.mm.mask_off;
+    L.mbytes = L.mm.mbytes;
+    L.total = L.mm.total;
   } else {
     L.ring = NSTAGE * L.slot * esz;
     // the ring, reused at the end for the column sums [2][WB][2PG]
     const int red = 4 * 2 * WB * 2 * PG;
-    L.wt_off = L.vec_off = L.tab_off = L.mask_off = L.ring;
+    L.mask_off = L.mbytes = 0;
     L.total = L.ring > red ? L.ring : red;
   }
   return L;
@@ -167,77 +156,22 @@ __device__ __forceinline__ void dx_s1_body(const DxArgs<T>& a) {
   const bool live = in && w < W && c < C;  // owns outputs
   const bool second = c + 1 < C;
   const size_t frame = (size_t)H * W * C;
-  // the tile's columns and rows in the frame
-  const int ncs = min(WB, W - tl.w0), nrow = min(R, H - tl.h0);
+  const int nrow = min(R, H - tl.h0);  // the tile's rows in the frame
   unsigned char* mask = smem_raw + L.mask_off;
 
   if constexpr (MODE == MM) {
     // ---- phase 1: the relu branch of every (frame, position, channel) of
-    // the tile, mask slot t - t0 [R][WB][2PG]
-    T* wt = reinterpret_cast<T*>(smem_raw + L.wt_off);
-    float* scs = reinterpret_cast<float*>(smem_raw + L.vec_off);
-    float* bis = scs + (L.ng + 3) / 4 * 4;
-    float* kbs = bis + (L.ng + 3) / 4 * 4;
-    int* tab = reinterpret_cast<int*>(smem_raw + L.tab_off);
-    mm_stage_vecs(scs, bis, kbs, a.sc, a.bi, C, c0, PG2, L.ng,
-                  mm_band((L.ld - 8) / 16, Cin));
-    mm_stage_w1<T>(wt, a.w1, Cin, C, c0, PG2, L.ng, L.ld);
-    // each staged position's place in a mask slot (-1: past the rows or
-    // columns in the frame)
-    for (int p = tid; p < L.rows; p += nthreads) {
-      const int rr = p / ncs;
-      tab[p] = p < nrow * ncs ? (rr * WB + p - rr * ncs) * PG2 : -1;
-    }
-    constexpr int VE = 16 / sizeof(T);
-    const int n16 = Cin / VE, nch = ncs * n16;  // 16-byte chunks of a row
-    // the thread's chunk of every staged row (where a row of the block's
-    // columns has no more chunks than the block has threads)
-    const int my_src = (tid / n16) * Cin + (tid % n16) * VE;
-    const int my_dst = (tid / n16) * L.ld + (tid % n16) * VE;
-    // x at row h0, column w0 of frame t0 of sample b
-    const T* xb = a.x + (((size_t)tl.b * Tn + tl.t0) * H + tl.h0) * W * Cin +
-                  (size_t)tl.w0 * Cin;
-    const int nx = tl.t1 - tl.t0;
-    auto load_x = [&](int j) {  // x frame t0 + j into ring slot j % NSTAGE
-      if (j < nx) {             // uniform across the block
-        const T* f = xb + (size_t)j * H * W * Cin;
-        T* d = ring + (j % NSTAGE) * L.xstage;
-        if (nch <= nthreads) {
-          if (tid < nch)
-            for (int rr = 0; rr < nrow; ++rr)
-              cp_async16(d + rr * ncs * L.ld + my_dst,
-                         f + (size_t)rr * W * Cin + my_src);
-        } else {
-          for (int q = tid; q < nrow * nch; q += nthreads) {
-            const int v = q % n16, r2 = q / n16;
-            const int col = r2 % ncs, rr = r2 / ncs;
-            cp_async16(d + (rr * ncs + col) * L.ld + v * VE,
-                       f + ((size_t)rr * W + col) * Cin + v * VE);
-          }
-        }
-      }
-      cp_commit();
-    };
-    // the staged rows' columns past C_in (bf16: up to ld - 8) are never
-    // copied and stay zero
-    zero_ring(smem_raw, L.ring);
-    for (int j = 0; j < NSTAGE - 1; ++j) load_x(j);
-    for (int j = 0; j < nx; ++j) {
-      cp_wait<NSTAGE - 2>();  // this thread's copies of frame j have landed
-      __syncthreads();        // and everyone's; slot j-1 is read by no one
-      load_x(j + NSTAGE - 1);
-      unsigned char* mk = mask + j * L.mbytes;
-      mm_strip_product<T>(
-          ring + (j % NSTAGE) * L.xstage, wt, L.ld, L.ng, PG, nrow * ncs,
-          Cin, scs, bis, kbs, tab,
-          [&](int at, int ch, float v0, float v1) {
-            *reinterpret_cast<unsigned short*>(mk + at + ch) =
-                (unsigned short)((v0 > 0.f) | ((v1 > 0.f) << 8));
-          },
-          [&](int at, int cc, float v) { mk[at + cc] = v > 0.f; });
-    }
-    cp_wait<0>();
-    __syncthreads();  // every mask is written; the ring is read by no one
+    // the tile (mm_strip.cuh): x's R rows at the block's columns, no halo;
+    // staged position (rr, input column w0 + e) -> mask slot place
+    // [rr][e][2PG]
+    const MmRect mr(tl.h0, R, tl.w0, WB, H, W, Cin, L.mm.f.ld,
+                    16 / (int)sizeof(T));
+    mm_masks<T>(smem_raw, L.mm, mr,
+                [&](int rr, int col) { return (rr * WB + col - tl.w0) * PG2; },
+                a.x + (((size_t)tl.b * Tn + tl.t0) * H + tl.h0) * W * Cin +
+                    (size_t)tl.w0 * Cin,
+                (size_t)H * W * Cin, tl.t1 - tl.t0, a.w1, a.sc, a.bi, W, Cin,
+                C, c0, PG);
   }
 
   // ---- the stencil on g, and the epilogue

@@ -1,25 +1,19 @@
-// The eval bottleneck entry for Hopper (sm_90a), the mm mode of the
-// bottleneck entry:
+// The mm forward at stride 1 for Hopper (sm_90a), K1 mm:
 //
 //   y = dwconv3x3x3( relu( (x @ W1) * sc + bi ) )
 //
-// at stride 1 (dw_mm_act_s1, K1 mm, mm_fwd_s1_kernel) and (1,2,2)
-// (dw_mm_act_s2, K4 mm, dw_mm_act_kernel). (The act mode of both strides,
-// y = dwconv3x3x3( relu( x * sc + bi ) ), and the plain mode of the
-// split-batch-norm route, y = dwconv3x3x3( x ), are in dw_plain_s1.cu and
-// dw_plain_s2.cu.) x (B,T,H,W,C_in) and y (B,T,Ho,Wo,C_mid) are
-// channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
+// (dw_mm_act_s1, mm_fwd_s1_kernel). x (B,T,H,W,C_in) and y (B,T,H,W,C_mid)
+// are channels-last, f32 or bf16; W1 (C_in,C_mid) and the depthwise taps
 // (27,C_mid) have x's dtype; sc/bi are f32 per-channel batch-norm apply
-// vectors of bn1 (running statistics in eval, batch statistics in the
-// train composite).
+// vectors of bn1 (running statistics in eval, batch statistics in the train
+// composite). The mm forward at stride (1,2,2), K4 mm (dw_mm_act_s2), is
+// K4 plain's back end in dw_plain_s2.cu; the act and plain modes of both
+// strides are in dw_plain_s1.cu and dw_plain_s2.cu.
 //
-// Replaces the mm mode of two TPU Pallas kernels of
-// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
-//   * dw_mm_act_s1 <- _dw_fold4_pcall -> _fwd_kernel (stride 1, mode mm),
-//     and
-//   * dw_mm_act_s2 <- _fwd_s2_direct_pcall -> _fwd_s2_direct_kernel
-//     (stride (1,2,2), only the kept quarter of positions is computed),
-// with the tile prologue _mm_act_tile. Semantics kept from them:
+// Replaces the mm mode of the TPU Pallas kernel
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py: _dw_fold4_pcall ->
+// _fwd_kernel (stride 1, mode mm), with the tile prologue _mm_act_tile.
+// Semantics kept from it:
 //   * the activation a is computed in f32 and rounded to x's dtype before
 //     the stencil (the TPU tile is stored in x.dtype);
 //   * positions outside the tensor are zero AFTER the activation (SAME
@@ -33,154 +27,20 @@
 // bf16 tensor cores would become the limit.
 //
 // What the design does about it: the activated tensor never goes to device
-// memory (not even the C_mid product, 2.25x the bytes of x).
-//   * K4 mm (the tile kernel): a block owns one (frame segment, output tile,
-//     32-channel chunk); it walks its frames in order and keeps the three
-//     activated frames the stencil needs in a shared-memory ring, so each
-//     input frame is activated once per tile (plus the spatial halo) rather
-//     than three times. x is staged 32 input channels at a time with
-//     16-byte loads along C by the prologue the backward shares
-//     (mm_prologue, common.cuh). Each lane owns one output channel, so
-//     shared-memory reads of the ring are conflict-free and stores of y are
-//     coalesced along C. The product runs on the FP32 cores.
-//   * K1 mm (mm_fwd_s1_kernel below): dw_plain_s1.cu's row strips (a halo
-//     of (R+2)/R rows and no columns, not the 8x8 tile's 1.56-2x), W1's
-//     column group staged once per block, x staged whole by cp.async three
-//     frames deep, and conv1's product on the bf16 tensor cores
-//     (mma.m16n8k16, common.cuh) with its relu branch settled against
-//     mm_prologue's sum (mm_band); the staging and the product are
-//     mm_strip.cuh's, shared with K2 (dw_dx_s1.cu) and K6 mm
-//     (dw_plain_s1.cu). Moving the product to wgmma and the staging to TMA
-//     is later work.
+// memory (not even the C_mid product, 2.25x the bytes of x). dw_plain_s1.cu's
+// row strips (a halo of (R+2)/R rows and no columns), W1's column group
+// staged once per block, x staged whole by cp.async three frames deep, and
+// conv1's product on the bf16 tensor cores (mma.m16n8k16, common.cuh) with
+// its relu branch settled against mm_prologue's sum (mm_band); the staging
+// and the product are mm_strip.cuh's, shared with K2 (dw_dx_s1.cu), K6 mm
+// (dw_plain_s1.cu), K4 mm and K9 (dw_plain_s2.cu). Moving the product to
+// wgmma and the staging to TMA is later work.
 
 #include "mm_strip.cuh"
 
 namespace {
 
 using namespace cfn;
-
-constexpr int TT = 8;      // output frames per block
-
-template <int S> struct Geom : StencilGeom<S> {
-  using SG = StencilGeom<S>;
-  static constexpr size_t SMEM =
-      sizeof(float) * (3 * SG::P * CC + SG::P * KC + KC * CC);
-};
-
-template <typename T, int S>
-__global__ void __launch_bounds__(WARPS * 32)
-dw_mm_act_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-                 const T* __restrict__ wdw, const float* __restrict__ sc,
-                 const float* __restrict__ bi, T* __restrict__ y, int B,
-                 int Tn, int H, int W, int Cin, int Cmid, int Ho, int Wo,
-                 int n_tx, int n_tseg) {
-  using G = Geom<S>;
-  constexpr int P = G::P, WR = G::WR;
-
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                 // [3][P][CC] activated frames
-  float* xs = ring + 3 * P * CC;      // [P][KC]   staged input chunk
-  float* ws = xs + P * KC;            // [KC][CC]  staged W1 chunk
-
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  const int oy0 = (blockIdx.x / n_tx) * G::OH;
-  const int ox0 = (blockIdx.x % n_tx) * G::OW;
-  const int iy0 = S * oy0 - 1, ix0 = S * ox0 - 1;  // halo origin
-  const int c0 = blockIdx.y * CC;
-  const int b = blockIdx.z / n_tseg;
-  const int t0 = (blockIdx.z % n_tseg) * TT;
-  const int t1 = min(t0 + TT, Tn);
-  const int c = c0 + lane;
-  const bool cval = c < Cmid;
-
-  const float scv = cval ? sc[c] : 0.f;
-  const float biv = cval ? bi[c] : 0.f;
-  float wt[27];
-#pragma unroll
-  for (int k = 0; k < 27; ++k) wt[k] = cval ? to_f(wdw[k * Cmid + c]) : 0.f;
-
-  // ring slot <- relu((x[b, ti] @ W1) * sc + bi) over the halo, zero
-  // outside the tensor (frame, rows, cols) and for channels >= Cmid
-  auto activate = [&](int ti) {
-    float* slot = ring + slot_of(ti) * P * CC;
-    if (ti < 0 || ti >= Tn) {  // uniform across the block
-      for (int i = tid; i < P * CC; i += WARPS * 32) slot[i] = 0.f;
-      return;
-    }
-    // the prologue the backward's mask and weight gradient share
-    float a[G::NPA];
-    mm_prologue<T, false, P, WR, G::NPA>(
-        a, xs, ws, x + (size_t)(b * Tn + ti) * H * W * Cin, w1, H, W, Cin,
-        Cmid, c0, iy0, ix0, scv, biv);
-#pragma unroll
-    for (int j = 0; j < G::NPA; ++j) {
-      const int p = warp + j * WARPS;
-      if (p < P) slot[p * CC + lane] = a[j];
-    }
-  };
-
-  activate(t0 - 1);
-  activate(t0);
-  for (int t = t0; t < t1; ++t) {
-    activate(t + 1);
-    __syncthreads();  // the three frames of the stencil are in the ring
-    const float* fm = ring + slot_of(t - 1) * P * CC;
-    const float* f0 = ring + slot_of(t) * P * CC;
-    const float* fp = ring + slot_of(t + 1) * P * CC;
-#pragma unroll
-    for (int j = 0; j < G::NO; ++j) {
-      const int o = warp + j * WARPS;
-      const int oy = o / G::OW, ox = o % G::OW;
-      float acc = 0.f;
-#pragma unroll
-      for (int dt = 0; dt < 3; ++dt) {
-        const float* f = dt == 0 ? fm : (dt == 1 ? f0 : fp);
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx) {
-            const int p = (S * oy + dy) * WR + S * ox + dx;
-            acc = fmaf(wt[(dt * 3 + dy) * 3 + dx], f[p * CC + lane], acc);
-          }
-        }
-      }
-      const int gy = oy0 + oy, gx = ox0 + ox;
-      if (cval && gy < Ho && gx < Wo)
-        y[(((size_t)(b * Tn + t) * Ho + gy) * Wo + gx) * Cmid + c] =
-            from_f<T>(acc);
-    }
-    __syncthreads();  // the next activate overwrites frame t-1's slot
-  }
-}
-
-template <typename T, int S>
-int launch(const void* x, const void* w1, const void* wdw, const void* sc,
-           const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
-           int Cmid, cudaStream_t stream) {
-  using G = Geom<S>;
-  if (int e = set_smem(dw_mm_act_kernel<T, S>, G::SMEM)) return e;
-  const int Ho = (H - 1) / S + 1, Wo = (W - 1) / S + 1;
-  const int n_tx = cdiv(Wo, G::OW), n_tseg = cdiv(Tn, TT);
-  const dim3 grid(cdiv(Ho, G::OH) * n_tx, cdiv(Cmid, CC), B * n_tseg);
-  dw_mm_act_kernel<T, S><<<grid, dim3(32, WARPS), G::SMEM, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1),
-      static_cast<const T*>(wdw), static_cast<const float*>(sc),
-      static_cast<const float*>(bi), static_cast<T*>(y), B, Tn, H, W, Cin,
-      Cmid, Ho, Wo, n_tx, n_tseg);
-  return (int)cudaGetLastError();
-}
-
-template <int S>
-int dispatch(const void* x, const void* w1, const void* wdw, const void* sc,
-             const void* bi, void* y, int B, int Tn, int H, int W, int Cin,
-             int Cmid, int is_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return launch<__nv_bfloat16, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin,
-                                    Cmid, s);
-  return launch<float, S>(x, w1, wdw, sc, bi, y, B, Tn, H, W, Cin, Cmid, s);
-}
 
 // ---- the mm forward at stride 1 (K1 mm): row strips, conv1 on mma ----------
 // A block owns one tile of strip.cuh's layout (ops/dw_conv.py:plan_s1 over
@@ -240,8 +100,10 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     k1[i] = live && second ? to_f(k[i * Cmid + c + 1]) : 0.f;
   }
 
-  // the tile's staged positions of x (mm_strip.cuh)
-  const MmTile mt(tl, R, WB, H, W, Cin, ld, 16 / (int)sizeof(T));
+  // the tile's staged rectangle of x (mm_strip.cuh): input rows h0-1 ..
+  // h0+R+1, columns w0-1 .. w0+WB+1
+  const MmRect mt(tl.h0 - 1, R + 2, tl.w0 - 1, WB + 2, H, W, Cin, ld,
+                  16 / (int)sizeof(T));
 
   zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
   // W1's columns c0 .. c0 + ng (zero past C_mid and past the group, and in
@@ -250,7 +112,9 @@ mm_fwd_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   mm_stage_vecs(scs, bis, kbs, sc, bi, Cmid, c0, PG2, L.ng,
                 mm_band((ld - 8) / 16, Cin));
   mm_stage_w1<T>(wt, w1, Cin, Cmid, c0, PG2, L.ng, ld);
-  mt.table(tab, L.rows, WB, PG2, tl.w0);
+  mt.table(tab, L.rows, [&](int rr, int col) {
+    return (rr * (WB + 2) + col - tl.w0 + 1) * PG2;
+  });
 
   const size_t frame = (size_t)H * W * Cin;
   // x rows of the strip, from staged row 0 (input row h0 - 1) and column
@@ -393,12 +257,4 @@ extern "C" int dw_mm_act_s1_occupancy(int R, int WB, int PG, int Cin, int W,
                                       int is_bf16) {
   return is_bf16 ? mm_occupancy<__nv_bfloat16>(R, WB, PG, Cin, W)
                  : mm_occupancy<float>(R, WB, PG, Cin, W);
-}
-
-extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
-                            const void* sc, const void* bi, void* y, int B,
-                            int T, int H, int W, int Cin, int Cmid,
-                            int is_bf16, void* stream) {
-  return dispatch<2>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, Cmid, is_bf16,
-                      stream);
 }

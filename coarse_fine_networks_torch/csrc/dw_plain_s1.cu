@@ -458,7 +458,8 @@ mm_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
   const int it1 = min((row + 1) * ipb, n_items);
   for (int item = row * ipb; item < it1; ++item) {
     const Tile tl = pl.tile(item, pg, Tn);
-    const MmTile mt(tl, R, WB, H, W, Cin, ld, 16 / (int)sizeof(T));
+    const MmRect mt(tl.h0 - 1, R + 2, tl.w0 - 1, WB + 2, H, W, Cin, ld,
+                    16 / (int)sizeof(T));
     const Stager sg(tl, wl, pi, WB, PG2, W, Cmid, pl.pairs);
     const T* xb = x + (size_t)tl.b * Tn * xframe +
                   ((long long)(tl.h0 - 1) * W + mt.cs0) * Cin;
@@ -484,7 +485,9 @@ mm_wgrad_s1_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     // the slots' padding is this tile's (the previous item's readers are
     // done: the barrier closing its walk)
     zero_ring(smem_raw, L.xs_off);
-    mt.table(tab, L.rows, WB, PG2, tl.w0);
+    mt.table(tab, L.rows, [&](int rr, int col) {
+      return (rr * (WB + 2) + col - tl.w0 + 1) * PG2;
+    });
     float gr[3][R][2];
 #pragma unroll
     for (int j = 0; j < 3; ++j)

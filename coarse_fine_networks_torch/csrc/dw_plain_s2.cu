@@ -1,6 +1,7 @@
 // The plain depthwise 3x3x3 conv at stride (1,2,2) of the split-batch-norm
 // training route, for Hopper (sm_90a): its forward, its dx and its weight
-// gradient; and the dx and the weight gradient of the act training entry:
+// gradient; the forward, the dx and the weight gradient of the act training
+// entry; and the forward and the masked dx of the mm entry:
 //
 //   dw_conv_s2        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
 //                                   x[t+dt-1, 2h+dy-1, 2w+dx-1, c]
@@ -20,6 +21,11 @@
 //                     dtype (x*sc and + bi rounded apart, as act<T>), zero-
 //                     padded after the activation
 //   dw_act_wgrad_s2   dw_conv_wgrad_s2's sum over a_pad, a as above
+//   dw_mm_act_s2      dw_conv_s2 of a = relu((x @ W1)*sc + bi) rounded to
+//                     x's dtype, zero-padded after the activation; x is
+//                     conv1's input (B,T,H,W,Cin), W1 (Cin,C) its weight
+//   dw_mm_dx_mask_s2  dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype, da
+//                     as dw_conv_dx_s2's, x and W1 as above
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
@@ -41,7 +47,13 @@
 //   * dw_conv_wgrad_s2 <- _wgrad_s2_pcall (:1279) -> _wgrad_s2_kernel
 //                         (:1122), plain mode (K10 plain);
 //   * dw_act_wgrad_s2  <- the same, act mode (K10 act): the backward of
-//                         dw_fold4_act, _dw_act_bwd.
+//                         dw_fold4_act, _dw_act_bwd;
+//   * dw_mm_act_s2     <- _fwd_s2_direct_pcall (:1078), mm mode with the
+//                         prologue _mm_act_tile (:275) (K4 mm): the forward
+//                         of dw_fold4_mm_act and dw_fold4_mm_bn_train;
+//   * dw_mm_dx_mask_s2 <- _dx_s2_mask_pcall (:1239) -> _dx_s2_kernel (:888),
+//                         mask mode (K9): the backward of
+//                         dw_fold4_mm_bn_train, _mm_bn_train_bwd.
 // The fold4 lane layout, its even/odd de-interleave and the sublane-pair
 // bitcasts are TPU mechanics and are not carried over.
 //
@@ -50,7 +62,10 @@
 // elements of g); the act dx also reads x and writes 2C sums per block; the
 // weight gradient reads x and g once. Each does 27 MACs
 // per element of y or g (the dx 6.75 per element of dx), far below the ~295
-// operations per byte where the tensor cores would matter.
+// operations per byte where the tensor cores would matter. The mm forward
+// reads x (C_in channels) instead of a, and the masked dx reads x besides
+// g; conv1's product adds C_in MACs per (position, channel), on the bf16
+// tensor cores, still far below that line.
 //
 // What the design does about it (the row strips of strip.cuh, over the
 // output's rows and columns for the forward and the weight gradient and
@@ -142,17 +157,40 @@
 //     off the barrier's path. Rows and columns outside the frame are never
 //     copied and stay the zero of a, not relu(bi). Its sums equal K10
 //     plain's on the activated x bit for bit, with the same plan.
+//   * The mm forward (K4 mm, mm_s2_fwd_kernel) is K1 mm's front end
+//     (dw_mm_act.cu) on K4 plain's back end: per input frame the block
+//     stages the rectangle of x its outputs read (2R+1 rows, 2WB+1 columns,
+//     all C_in) by cp.async three frames deep (MmRect, mm_strip.cuh), runs
+//     conv1's product there on mma (mm_activate: K1 mm's code, its relu
+//     branch settled against mm_prologue's sum) and writes the activated
+//     frame into one of two slots laid out as K4 plain stages x; s2_frame
+//     then reads the slot as K4 plain reads its ring, so y equals K4 plain's
+//     on K1 mm's activation bit for bit. In one step, between two barriers,
+//     the block copies x frame i+2, multiplies frame i and runs the stencil
+//     on frame i-1 (K1 mm's schedule); at most NT_DX threads, since the taps
+//     and the 6R sums stay live through the product (133-168 registers).
+//   * The masked dx (K9, mm_s2_dx_kernel) is K8's body with K2's mask phase
+//     (dw_dx_s1.cu): first the segment's relu branches, one byte per
+//     (frame, dx position, channel) in shared memory (K2's mm_masks,
+//     mm_strip.cuh, on the block's dx positions of x: no halo, all C_in,
+//     staged three frames deep; conv1's product by mm_strip_product with
+//     W1's column group staged once), then K8's stencil on g, each dx
+//     element written as keep ? da : 0. The product's registers and the
+//     stencil's are never live together; at most NT_DX threads, as K5. The
+//     masks take TT slots beside the ring, so its plan (plan_mm_dx_s2)
+//     shortens the segments until two blocks fit an SM. da is K8's f32 sum
+//     bit for bit.
 //   * Rows and columns outside the frame are never copied and read as the
 //     zero the ring is cleared to once per tile; frames outside the clip add
 //     nothing. With R a template argument the loops over staged rows are
 //     fully unrolled and have no branch.
 // The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
 // count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
-// plan_act_s2_fwd, plan_s2_dx, plan_act_dx_s2, plan_s2 for both weight
-// gradients) and checked here; a plan the kernels do not take returns
-// cudaErrorInvalidValue.
+// plan_act_s2_fwd, plan_mm_s2_fwd, plan_s2_dx, plan_act_dx_s2,
+// plan_mm_dx_s2, plan_s2 for both weight gradients) and checked here; a
+// plan the kernels do not take returns cudaErrorInvalidValue.
 
-#include "strip.cuh"
+#include "mm_strip.cuh"
 
 namespace {
 
@@ -537,6 +575,173 @@ act_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
   s2_fwd_body<T, R, true>(x, k, sc, bi, y, Tn, H, W, Ho, Wo, C, pl);
 }
 
+// ---- the mm forward (K4 mm) ---------------------------------------------------
+// Shared memory of mm_s2_fwd_kernel (mm_strip.cuh's MmLayout): two
+// activated slots in the forward's staged-frame layout (2R+1 rows of
+// 2(WB+1) de-interleaved columns, xstage_elems), then mm_front's of the
+// (2R+1) x min(2WB+1, W) staged positions.
+template <typename T>
+__host__ __device__ __forceinline__ MmLayout mm_s2_fwd_layout(int R, int WB,
+                                                              int PG, int Cin,
+                                                              int W) {
+  const int aslot = xstage_elems<T>(R, WB, PG) * (int)sizeof(T);
+  MmLayout L = mm_front<T>((2 * R + 1) * min(2 * WB + 1, W), Cin, PG,
+                           2 * aslot, 0);
+  L.aslot = aslot;
+  return L;
+}
+
+// K1 mm's front end on K4 plain's back end. A block owns K4 plain's tile
+// (R output rows x WB columns x PG channel pairs of one sample over TT
+// frames; ops/dw_conv.py: plan_mm_s2_fwd). Per input frame it stages the
+// rectangle of x its outputs read, input rows 2h0-1 .. 2h0+2R-1 at columns
+// 2w0-1 .. 2w0+2WB-1 (all C_in), by cp.async into a ring of XSTAGE_MM
+// frames, computes conv1's product there (mm_activate: bf16 16 x 8 tiles on
+// the tensor cores, each relu input within mm_band of 0 summed again in
+// order; f32 fmaf over k in order), applies bn1 and the relu, rounds to T
+// and writes the activated frame into one of two slots laid out as K4
+// plain stages x (each row's even columns, then its odd ones); the stencil
+// then walks the slot as K4 plain does (s2_frame, a register ring of the 3
+// output frames), so y equals K4 plain's on the activated x bit for bit.
+// In one step, between two barriers, the block copies x frame i+2,
+// computes the product of frame i and the stencil of frame i-1 (K1 mm's
+// schedule). Rows and columns outside the frame are never written and stay
+// the zero the slots are cleared to (SAME padding after the activation).
+// At most NT_DX threads: the 54 taps and 6R sums stay live through the
+// product.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_DX, 2)
+mm_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                 const T* __restrict__ k, const float* __restrict__ sc,
+                 const float* __restrict__ bi, T* __restrict__ y, int Tn,
+                 int H, int W, int Ho, int Wo, int Cin, int C, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2;
+  const MmLayout L = mm_s2_fwd_layout<T>(R, WB, PG, Cin, W);
+  T* act_s = reinterpret_cast<T*>(smem_raw);  // [2][2R+1][2(WB+1)][2PG]
+  T* xs = reinterpret_cast<T*>(smem_raw + L.xs_off);
+  T* wt = reinterpret_cast<T*>(smem_raw + L.wt_off);
+  float* scs = reinterpret_cast<float*>(smem_raw + L.vec_off);
+  float* bis = scs + (L.ng + 3) / 4 * 4;
+  float* kbs = bis + (L.ng + 3) / 4 * 4;
+  int* tab = reinterpret_cast<int*>(smem_raw + L.tab_off);
+  const int aslot = L.aslot / (int)sizeof(T), xslot = L.xslot / (int)sizeof(T);
+  const int ld = L.ld;
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int w = tl.w0 + wl;
+  const int c0 = 2 * tl.p0, c = c0 + 2 * pi;
+  const bool in = wl < WB;
+  const bool live = in && w < Wo && c < C;  // owns outputs
+  const bool second = c + 1 < C;
+  // the thread's even column wl, odd column wl and even column wl + 1
+  const int atE = wl * PG2 + 2 * pi, atO = (WB + 1) * PG2 + atE;
+
+  float k0[27], k1[27];
+  load_taps(k0, k1, k, c, C, live);
+
+  // the tile's staged rectangle of x (mm_strip.cuh)
+  const int r0 = 2 * tl.h0 - 1, e0 = 2 * tl.w0 - 1;
+  const MmRect mr(r0, 2 * R + 1, e0, 2 * WB + 1, H, W, Cin, ld,
+                  16 / (int)sizeof(T));
+
+  zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
+  // W1's columns c0 .. c0 + ng (zero past C_mid and past the group, and in
+  // bf16 past C_in), bn1's apply vectors, and each staged position's place
+  // in a slot, once per block: input column e0 + e goes to the slot's even
+  // column e/2 or odd column (e-1)/2, as S2Stager stages K4 plain's x
+  mm_stage_vecs(scs, bis, kbs, sc, bi, C, c0, PG2, L.ng,
+                mm_band((ld - 8) / 16, Cin));
+  mm_stage_w1<T>(wt, w1, Cin, C, c0, PG2, L.ng, ld);
+  mr.table(tab, L.rows, [&](int rr, int col) {
+    const int e = col - e0;
+    return rr * rowlen + ((e & 1) * (WB + 1) + (e >> 1)) * PG2;
+  });
+
+  const size_t frame = (size_t)H * W * Cin;
+  // x rows of the tile, from staged row 0 (input row 2h0 - 1) and column
+  // cs0, of sample b
+  const T* xb = x + (size_t)tl.b * Tn * frame +
+                ((long long)r0 * W + mr.cs0) * Cin;
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
+  // x frame f0 + i (its rows in the frame) into ring slot i % XSTAGE_MM
+  auto stage_x = [&](int i) {
+    const int ti = f0 + i;
+    if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
+      mr.stage(xs + (i % XSTAGE_MM) * xslot, xb + (size_t)ti * frame, W, Cin,
+               ld);
+    cp_commit();
+  };
+
+  float acc[3][R][2];
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
+
+  for (int i = 0; i < XSTAGE_MM - 1; ++i) stage_x(i);
+  for (int i = 0; i <= nf; ++i) {
+    cp_wait<XSTAGE_MM - 2>();  // this thread's copies of x frame i landed
+    __syncthreads();  // and everyone's; slot i-1 is written; slot i, and x
+                      // ring slot i-1, are read by no one
+    stage_x(i + XSTAGE_MM - 1);
+    // conv1's product of x frame f0 + i, bn1, relu rounded to T ->
+    // activated slot i % 2
+    if (i < nf && f0 + i >= 0 && f0 + i < Tn)
+      mm_activate<T>(act_s + (i & 1) * aslot, xs + (i % XSTAGE_MM) * xslot,
+                     wt, L, PG, mr.M, Cin, scs, bis, kbs, tab);
+    if (i == 0) continue;
+    const int ti = f0 + i - 1;  // the frame the stencil reads now
+    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+      s2_frame<T, R>(act_s + ((i - 1) & 1) * aslot, rowlen, atE, atO, PG2,
+                     [&](int j, int r, int dy, int dx, float2 v) {
+                       const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+                       acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+                       acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+                     });
+    const int to = ti - 1;  // complete now
+    if (to >= tl.t0 && live) {
+      T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
+              (size_t)w * C + c;
+      const bool pair = second && !(C & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < Ho)
+          store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[2][r][0];
+      acc[1][r][1] = acc[2][r][1];
+      acc[2][r][0] = acc[2][r][1] = 0.f;
+    }
+  }
+  cp_wait<0>();
+}
+
+// ---- the masked dx's shared memory (K9) ------------------------------------
+// mm_strip.cuh's mm_mask_layout: the ring (phase 1: XSTAGE_MM staged x
+// rectangles of 2R x min(2WB, W) positions; phase 2: dx_s2_body's GSTAGE g
+// frames), then W1's columns, bn1's vectors, the positions' places and TT
+// mask slots [2R][2][WB][2PG] of bytes (dx row 2(h0+r)+py, column parity
+// px, g column wl, channel).
+template <typename T>
+__host__ __device__ __forceinline__ MmMaskLayout mm_s2_dx_layout(
+    int R, int WB, int PG, int Cin, int W, int TT) {
+  return mm_mask_layout<T>(
+      2 * R * min(2 * WB, W), Cin, PG,
+      GSTAGE * dxstage_elems<T>(R, WB, PG) * (int)sizeof(T),
+      2 * R * 2 * WB * 2 * PG, TT);
+}
+
 // ---- dx (K8) and act dx (K5) ------------------------------------------------------
 // The tile is over g: thread (wl, pi) owns g column j = w0 + wl and channels
 // c, c+1, and writes dx columns 2j and 2j+1 of dx rows 2(h0+r) and
@@ -552,13 +757,13 @@ act_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
 // (QuadStager): it has landed when step i's wait returns, and no barrier
 // is needed for it. At the end the block sums its threads' columns in a
 // fixed order into row `item` of the (items, 2, C) partial buffer.
-template <typename T, int R, bool ACT>
+template <typename T, int R, bool ACT, bool MM = false>
 __device__ __forceinline__ void dx_s2_body(
     const T* __restrict__ g, const T* __restrict__ k,
     const T* __restrict__ x, const float* __restrict__ sc,
     const float* __restrict__ bi, T* __restrict__ dx,
     float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
-    const Plan& pl) {
+    const Plan& pl, const T* __restrict__ w1 = nullptr, int Cin = 0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -580,6 +785,32 @@ __device__ __forceinline__ void dx_s2_body(
   const bool live = in && j < Wo && c < C;
   const bool second = c + 1 < C;
   const int at = wl * PG2 + 2 * pi;  // g column j; j + 1 is at + PG2
+
+  // MM: phase 1, the segment's relu branches (x is conv1's input, C_in
+  // channels), before the stencil's registers are live
+  const unsigned char* mask = nullptr;
+  int mbytes = 0;
+  if constexpr (MM) {
+    // as K2's first phase (mm_masks), on the dx positions the block writes:
+    // x rows 2h0 .. 2h0+2R-1 and columns 2w0 .. 2w0+2WB-1 (no halo); input
+    // column 2w0 + e goes to the mask place of dx column parity e & 1, g
+    // column e >> 1
+    const MmMaskLayout L = mm_s2_dx_layout<T>(R, WB, PG, Cin, W, pl.TT);
+    const MmRect mr(2 * tl.h0, 2 * R, 2 * tl.w0, 2 * WB, H, W, Cin, L.f.ld,
+                    16 / (int)sizeof(T));
+    const size_t frame = (size_t)H * W * Cin;
+    mm_masks<T>(
+        smem_raw, L, mr,
+        [&](int rr, int col) {
+          const int e = col - 2 * tl.w0;
+          return ((rr * 2 + (e & 1)) * WB + (e >> 1)) * PG2;
+        },
+        x + ((size_t)tl.b * Tn + tl.t0) * frame +
+            ((size_t)2 * tl.h0 * W + mr.cs0) * Cin,
+        frame, tl.t1 - tl.t0, w1, sc, bi, W, Cin, C, 2 * tl.p0, PG);
+    mask = smem_raw + L.mask_off;
+    mbytes = L.mbytes;
+  }
 
   float k0[27], k1[27];
   load_taps(k0, k1, k, c, C, live);
@@ -696,6 +927,14 @@ __device__ __forceinline__ void dx_s2_body(
               sum[1][0] += d0;
               sum[0][1] = fmaf(d1, xv.y, sum[0][1]);
               sum[1][1] += d1;
+            } else if constexpr (MM) {
+              // the relu branch of x frame o at the quad's position
+              const unsigned short kp =
+                  *reinterpret_cast<const unsigned short*>(
+                      mask + (o - tl.t0) * mbytes +
+                      ((2 * r + py) * 2 + px) * WB * PG2 + at);
+              store_pair(dp, (kp & 0xff) ? acc[r][py][px][0] : 0.f,
+                         (kp >> 8) ? acc[r][py][px][1] : 0.f, pair, second);
             } else {
               store_pair(dp, acc[r][py][px][0], acc[r][py][px][1], pair,
                          second);
@@ -749,6 +988,20 @@ act_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
                  float* __restrict__ part, int Tn, int H, int W, int Ho,
                  int Wo, int C, Plan pl) {
   dx_s2_body<T, R, true>(g, k, x, sc, bi, dx, part, Tn, H, W, Ho, Wo, C, pl);
+}
+
+// K9: K8's body with K2's mask phase (MM). At most NT_DX threads, as K5:
+// phase 1's product and phase 2's stencil are never live together, and
+// neither takes more than 168 registers.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_DX, 2)
+mm_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                const T* __restrict__ x, const T* __restrict__ w1,
+                const float* __restrict__ sc, const float* __restrict__ bi,
+                T* __restrict__ dam, int Tn, int H, int W, int Ho, int Wo,
+                int Cin, int C, Plan pl) {
+  dx_s2_body<T, R, false, true>(g, k, x, sc, bi, dam, nullptr, Tn, H, W, Ho,
+                                Wo, C, pl, w1, Cin);
 }
 
 // ---- weight gradient (K10 plain; K10 act) -------------------------------------
@@ -985,6 +1238,25 @@ decltype(&act_s2_wgrad_kernel<T, RMAX>) act_wgrad_kernel_of(int R) {
   return nullptr;
 }
 
+template <typename T>
+decltype(&mm_s2_fwd_kernel<T, RMAX>) mm_fwd_kernel_of(int R) {
+  switch (R) {
+    case 2: return mm_s2_fwd_kernel<T, 2>;
+    case 3: return mm_s2_fwd_kernel<T, 3>;
+    case 4: return mm_s2_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&mm_s2_dx_kernel<T, RMAX>) mm_dx_kernel_of(int R) {
+  switch (R) {
+    case 2: return mm_s2_dx_kernel<T, 2>;
+    case 3: return mm_s2_dx_kernel<T, 3>;
+    case 4: return mm_s2_dx_kernel<T, 4>;
+  }
+  return nullptr;
+}
+
 // The forward (dx: false) over y, or the dx (true) over g, of x (dx: dx)
 // (B, T, H, W, C): one block per tile.
 template <typename T, bool DX>
@@ -1060,6 +1332,61 @@ int launch_act_dx(const void* g, const void* x, const void* k,
   return (int)cudaGetLastError();
 }
 
+// The mm forward over y of x (B, T, H, W, Cin) with W1 (Cin, C): one block
+// per tile, at most NT_DX threads; x is staged 16 bytes at a time.
+template <typename T>
+int launch_mm_fwd(const void* x, const void* w1, const void* k,
+                  const void* sc, const void* bi, void* y, int B, int Tn,
+                  int H, int W, int Cin, int C, int R, int WB, int PG, int TT,
+                  cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over the output's rows and columns
+  if (!make_plan<T>(p, (uintptr_t)y, B, Tn, Ho, Wo, C, R, WB, PG, TT) ||
+      WB * PG > NT_DX || Cin < 8 || Cin % 8 || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  const int smem = mm_s2_fwd_layout<T>(R, WB, PG, Cin, W).total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = mm_fwd_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(k), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<T*>(y), Tn, H, W, Ho, Wo,
+      Cin, C, p);
+  return (int)cudaGetLastError();
+}
+
+// The masked dx over g (B, T, Ho, Wo, C) of x (B, T, H, W, Cin) with W1
+// (Cin, C): one block per tile, at most NT_DX threads, a mask slot for each
+// of the TT frames of a segment.
+template <typename T>
+int launch_mm_dx(const void* g, const void* x, const void* w1, const void* k,
+                 const void* sc, const void* bi, void* dam, int B, int Tn,
+                 int H, int W, int Cin, int C, int R, int WB, int PG, int TT,
+                 cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over g's rows and columns; g is staged a pair at a time
+  if (!make_plan<T>(p, (uintptr_t)g, B, Tn, Ho, Wo, C, R, WB, PG, TT) ||
+      WB * PG > NT_DX || Cin < 8 || Cin % 8 || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_tseg * p.n_strip * p.n_wt;
+  if (items * p.n_pg > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  const int smem = mm_s2_dx_layout<T>(R, WB, PG, Cin, W, TT).total;
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = mm_dx_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<(unsigned)(items * p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(k),
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const float*>(sc), static_cast<const float*>(bi),
+      static_cast<T*>(dam), Tn, H, W, Ho, Wo, Cin, C, p);
+  return (int)cudaGetLastError();
+}
+
 // The weight gradient of x (plain) or of relu(x*sc + bi) (ACT; sc and bi
 // unused otherwise).
 template <typename T, bool ACT>
@@ -1126,6 +1453,27 @@ int occupancy(int kind, int R, int WB, int PG) {
                            fwd_smem<T>(R, WB, PG, true), threads);
   }
   return -1;
+}
+
+// Blocks per SM the mm forward (dx: false) or the masked dx reaches at a
+// plan (R, WB, PG; TT: the dx's mask slots), C_in and x's width W, or -1
+// where it does not take them.
+template <typename T, bool DX>
+int mm_occupancy(int R, int WB, int PG, int TT, int Cin, int W) {
+  if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || TT < 1 ||
+      WB * PG > NT_DX || Cin < 8 || W < 1)
+    return -1;
+  const int threads = (WB * PG + 31) / 32 * 32;
+  if (DX) {
+    const int smem = mm_s2_dx_layout<T>(R, WB, PG, Cin, W, TT).total;
+    return smem > SMEM_MAX ? -1
+                           : blocks_per_sm(mm_dx_kernel_of<T>(R), smem,
+                                           threads);
+  }
+  const int smem = mm_s2_fwd_layout<T>(R, WB, PG, Cin, W).total;
+  return smem > SMEM_MAX ? -1
+                         : blocks_per_sm(mm_fwd_kernel_of<T>(R), smem,
+                                         threads);
 }
 
 }  // namespace
@@ -1221,6 +1569,58 @@ extern "C" int dw_act_wgrad_s2(const void* x, const void* g, const void* sc,
                                              C, R, WB, PG, TT, ipb, rows, st);
   return launch_wgrad<float, true>(x, g, sc, bi, part, B, T, H, W, C, R, WB,
                                    PG, TT, ipb, rows, st);
+}
+
+// The mm entry's forward (K4 mm): x is conv1's input (B,T,H,W,Cin), w1
+// (Cin,C) its weight, y (B,T,(H-1)/2+1,(W-1)/2+1,C) the stride-2 stencil of
+// a = relu((x@W1)*sc + bi) rounded to x's dtype, zero-padded; sc and bi are
+// f32 (C,). The split is over y's rows and columns (ops/dw_conv.py:
+// plan_mm_s2_fwd; WB * PG at most 192).
+extern "C" int dw_mm_act_s2(const void* x, const void* w1, const void* wdw,
+                            const void* sc, const void* bi, void* y, int B,
+                            int T, int H, int W, int Cin, int C, int R,
+                            int WB, int PG, int TT, int is_bf16,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mm_fwd<__nv_bfloat16>(x, w1, wdw, sc, bi, y, B, T, H, W,
+                                        Cin, C, R, WB, PG, TT, st);
+  return launch_mm_fwd<float>(x, w1, wdw, sc, bi, y, B, T, H, W, Cin, C, R,
+                              WB, PG, TT, st);
+}
+
+// The train composite's masked dx (K9): g is (B,T,(H-1)/2+1,(W-1)/2+1,C),
+// x conv1's input (B,T,H,W,Cin) and w1 (Cin,C) its weight; dam (B,T,H,W,C)
+// = da * relu'((x@W1)*sc + bi) in g's dtype, da as dw_conv_dx_s2's. The
+// split is over g's rows and columns (ops/dw_conv.py: plan_mm_dx_s2; WB * PG
+// at most 192, TT mask slots).
+extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
+                                const void* w, const void* sc, const void* bi,
+                                void* dam, int B, int T, int H, int W, int Cin,
+                                int C, int R, int WB, int PG, int TT,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mm_dx<__nv_bfloat16>(g, x, w1, w, sc, bi, dam, B, T, H, W,
+                                       Cin, C, R, WB, PG, TT, st);
+  return launch_mm_dx<float>(g, x, w1, w, sc, bi, dam, B, T, H, W, Cin, C, R,
+                             WB, PG, TT, st);
+}
+
+// Blocks per SM mm_s2_fwd_kernel reaches at a plan (R, WB, PG), C_in and
+// x's width W, with its threads and shared memory, or -1 where it does not
+// take them.
+extern "C" int dw_mm_act_s2_occupancy(int R, int WB, int PG, int Cin, int W,
+                                      int is_bf16) {
+  return is_bf16 ? mm_occupancy<__nv_bfloat16, false>(R, WB, PG, 1, Cin, W)
+                 : mm_occupancy<float, false>(R, WB, PG, 1, Cin, W);
+}
+
+// ... and mm_s2_dx_kernel at a plan (R, WB, PG, TT), C_in and x's width W.
+extern "C" int dw_mm_dx_mask_s2_occupancy(int R, int WB, int PG, int TT,
+                                          int Cin, int W, int is_bf16) {
+  return is_bf16 ? mm_occupancy<__nv_bfloat16, true>(R, WB, PG, TT, Cin, W)
+                 : mm_occupancy<float, true>(R, WB, PG, TT, Cin, W);
 }
 
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and

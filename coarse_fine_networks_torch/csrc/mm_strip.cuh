@@ -1,15 +1,19 @@
-// conv1's product on the row-strip layout, shared by the stride-1 mm
-// forward (dw_mm_act.cu, mm_fwd_s1_kernel, K1 mm), the stride-1 masked dx
-// (dw_dx_s1.cu, mm_dx_s1_kernel, K2) and the stride-1 mm weight gradient
-// (dw_plain_s1.cu, mm_wgrad_s1_kernel, K6 mm): W1's column group and bn1's
-// apply vectors staged once per block, and the product of one staged x
-// frame with its relu inputs, each within mm_band of 0 settled against
-// mm_prologue's sum. All three call the same code, so the forward's
+// conv1's product on the row-strip layout, shared by the mm forwards
+// (dw_mm_act.cu, mm_fwd_s1_kernel, K1 mm; dw_plain_s2.cu,
+// mm_s2_fwd_kernel, K4 mm), the masked dx (dw_dx_s1.cu, mm_dx_s1_kernel,
+// K2; dw_plain_s2.cu, mm_s2_dx_kernel, K9) and the stride-1 mm weight
+// gradient (dw_plain_s1.cu, mm_wgrad_s1_kernel, K6 mm): W1's column group
+// and bn1's apply vectors staged once per block, and the product of one
+// staged x frame with its relu inputs, each within mm_band of 0 settled
+// against mm_prologue's sum. All five call the same code, so the forwards'
 // activation, the masked dx's mask and the weight gradient's activation
 // take one relu branch, element for element (a flipped mask is an O(1)
-// error in dx). K1 mm and K6 mm also share the tile's staging of x
-// (MmTile), its shared-memory layout (mm_layout) and the activated slot
-// (mm_activate).
+// error in dx). All five also stage a rectangle of x the same way
+// (MmRect, each with its own places) in one shared-memory layout from the x
+// ring on (mm_front); the forwards and K6 mm activate into a slot
+// (mm_activate: K1 mm's and K6 mm's [R+2][WB+2][2PG], mm_layout; K4 mm's
+// in the stride-2 kernels' de-interleaved layout), and K2 and K9 take
+// their masks in one phase (mm_masks).
 
 #pragma once
 
@@ -145,36 +149,42 @@ __device__ __forceinline__ void mm_strip_product(
 }
 
 // x frames in the mm kernels' staging ring (mm_fwd_s1_kernel,
-// mm_wgrad_s1_kernel)
+// mm_wgrad_s1_kernel, mm_s2_fwd_kernel, mm_masks)
 constexpr int XSTAGE_MM = 3;
 
-// The shared memory of a row-strip mm kernel (mm_fwd_s1_kernel; the first
-// part of mm_wgrad_s1_kernel's): two activated slots [R+2][WB+2][2PG] in T
-// at 0, a ring of XSTAGE_MM staged x frames, W1's columns, bn1's vectors
-// and the positions' table.
+// The shared memory of a row-strip mm kernel from its x ring on (mm_front):
+// a ring of XSTAGE_MM staged x frames at xs_off, W1's columns, bn1's
+// vectors and the positions' table, which ends at total. The forwards put
+// two activated slots of aslot bytes each before the ring (mm_layout,
+// mm_s2_fwd_layout); the masked dx puts its mask slots after the table
+// (mm_mask_layout).
 struct MmLayout {
   int ld;      // staged x row stride, elements: bf16 C_in rounded up to 16,
                // + 8 (an odd multiple of 16 bytes: ldmatrix without bank
                // conflicts); f32 C_in
   int ng;      // W1 columns staged: 2PG, rounded up to 8 in bf16
-  int rows;    // staged positions: (R+2) x min(WB+2, W), rounded up to 16
-  int aslot;   // bytes of one activated slot
+  int rows;    // staged positions, rounded up to 16
+  int aslot;   // bytes of one activated slot (the forwards)
   int xslot;   // bytes of one staged x frame
   int xs_off, wt_off, vec_off, tab_off, total;  // byte offsets and size
 };
 
+// The layout from the x ring on: frames of `positions` staged positions at
+// xs_off, the ring at least ring_min bytes (a ring another phase reuses)
 template <typename T>
-__host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
-                                                       int Cin, int W) {
+__host__ __device__ __forceinline__ MmLayout mm_front(int positions, int Cin,
+                                                      int PG, int xs_off,
+                                                      int ring_min) {
   const bool bf = sizeof(T) == 2;
   MmLayout L;
-  L.rows = ((R + 2) * min(WB + 2, W) + 15) / 16 * 16;
+  L.rows = (positions + 15) / 16 * 16;
   L.ld = bf ? (Cin + 15) / 16 * 16 + 8 : Cin;
   L.ng = bf ? (2 * PG + 7) / 8 * 8 : 2 * PG;
-  L.aslot = stage_elems<T>(R + 2, WB, PG) * (int)sizeof(T);
+  L.aslot = 0;
   L.xslot = L.rows * L.ld * (int)sizeof(T);
-  L.xs_off = 2 * L.aslot;
-  L.wt_off = L.xs_off + XSTAGE_MM * L.xslot;
+  L.xs_off = xs_off;
+  const int xring = XSTAGE_MM * L.xslot;
+  L.wt_off = xs_off + (xring > ring_min ? xring : ring_min);
   const int wt = bf ? L.ng * L.ld * 2 : Cin * 2 * PG * 4;
   L.vec_off = L.wt_off + (wt + 15) / 16 * 16;
   // bn1's sc and bi, and mm_band's bound per unit of s, per channel
@@ -183,22 +193,38 @@ __host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
   return L;
 }
 
-// One tile's staging of conv1's input (mm_fwd_s1_kernel, mm_wgrad_s1_kernel):
-// staged positions p = rr * ncs + col, staged row rr (input row h0-1+rr;
-// rows [rlo, rhi) lie in the frame) at input column cs0 + col, all C_in
-// channels, rows of ld elements.
-struct MmTile {
+// K1 mm's layout (mm_fwd_s1_kernel; the first part of mm_wgrad_s1_kernel's):
+// two activated slots [R+2][WB+2][2PG] in T at 0, then mm_front's of the
+// (R+2) x min(WB+2, W) staged positions
+template <typename T>
+__host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
+                                                       int Cin, int W) {
+  const int aslot = stage_elems<T>(R + 2, WB, PG) * (int)sizeof(T);
+  MmLayout L = mm_front<T>((R + 2) * min(WB + 2, W), Cin, PG, 2 * aslot, 0);
+  L.aslot = aslot;
+  return L;
+}
+
+// A rectangle of conv1's input staged whole: input rows r0 .. r0+nr and
+// columns c0 .. c0+nc, clipped to the frame. Staged positions p = rr * ncs
+// + col: staged row rr (input row r0 + rr; rows [rlo, rhi) lie in the
+// frame) at input column cs0 + col, all C_in channels, rows of ld
+// elements; the product reads the M positions up to the frame's last row.
+// K1 mm and K6 mm stage rows h0-1 .. h0+R+1 and columns w0-1 .. w0+WB+1,
+// K4 mm rows 2h0-1 .. 2h0+2R and columns 2w0-1 .. 2w0+2WB, the masked dx
+// (mm_masks) the dx positions a block writes.
+struct MmRect {
   int cs0, ncs, M, rlo, rhi, n16, nch, my_src, my_dst;
 
   // VE: elements in 16 bytes
-  __device__ __forceinline__ MmTile(const Tile& tl, int R, int WB, int H,
+  __device__ __forceinline__ MmRect(int r0, int nr, int c0, int nc, int H,
                                     int W, int Cin, int ld, int VE) {
-    cs0 = max(tl.w0 - 1, 0);
-    ncs = min(tl.w0 + WB + 1, W) - cs0;
-    M = (R + 2) * ncs;
-    rlo = max(0, 1 - tl.h0);
-    rhi = min(R + 2, H + 1 - tl.h0);
-    n16 = Cin / VE;  // 16-byte chunks of a position
+    cs0 = max(c0, 0);
+    ncs = min(c0 + nc, W) - cs0;
+    rlo = max(0, -r0);
+    rhi = min(nr, H - r0);
+    M = rhi * ncs;
+    n16 = Cin / VE;   // 16-byte chunks of a position
     nch = ncs * n16;  // ... of a row
     // the thread's chunk of every staged row (where a row has no more
     // chunks than the block has threads: every shape of the path)
@@ -206,20 +232,19 @@ struct MmTile {
     my_dst = (threadIdx.x / n16) * ld + (threadIdx.x % n16) * VE;
   }
 
-  // each staged position's place in an activated slot (-1: outside the
-  // frame or past M), for the rows positions the product reads
-  __device__ __forceinline__ void table(int* tab, int rows, int WB, int PG2,
-                                        int w0) const {
+  // each staged position's place (-1: outside the frame or past M) for the
+  // rows positions the product reads: place(rr, input column)
+  template <typename PLACE>
+  __device__ __forceinline__ void table(int* tab, int rows,
+                                        PLACE place) const {
     for (int p = threadIdx.x; p < rows; p += blockDim.x) {
       const int rr = p / ncs;
-      tab[p] = p < M && rr >= rlo && rr < rhi
-                   ? (rr * (WB + 2) + p - rr * ncs + cs0 - w0 + 1) * PG2
-                   : -1;
+      tab[p] = p < M && rr >= rlo ? place(rr, cs0 + p - rr * ncs) : -1;
     }
   }
 
-  // x rows of one frame, f pointing at staged row 0 (input row h0 - 1),
-  // column cs0, into d; by cp.async, 16 bytes at a time (no commit)
+  // x rows of one frame, f pointing at staged row 0 (input row r0), column
+  // cs0, into d; by cp.async, 16 bytes at a time (no commit)
   template <typename T>
   __device__ __forceinline__ void stage(T* d, const T* f, int W, int Cin,
                                         int ld) const {
@@ -264,6 +289,82 @@ __device__ __forceinline__ void mm_activate(T* sl, const T* xf, const T* wt,
         }
       },
       [&](int at, int cc, float v) { sl[at + cc] = from_f<T>(relu(v)); });
+}
+
+// The masked dx's shared memory (mm_masks): mm_front's at 0, its x ring at
+// least ring_min bytes (the stencil's g ring, which reuses it), then TT
+// mask slots of mbytes each
+struct MmMaskLayout {
+  MmLayout f;
+  int mbytes, mask_off, total;
+};
+
+template <typename T>
+__host__ __device__ __forceinline__ MmMaskLayout mm_mask_layout(
+    int positions, int Cin, int PG, int ring_min, int mask_elems, int TT) {
+  MmMaskLayout L;
+  L.f = mm_front<T>(positions, Cin, PG, 0, ring_min);
+  L.mbytes = (mask_elems + 15) / 16 * 16;
+  L.mask_off = L.f.total;
+  L.total = L.mask_off + TT * L.mbytes;
+  return L;
+}
+
+// The relu branch of every (frame, position, channel) of a block's frame
+// segment, the masked dx's first phase (dw_dx_s1.cu: mm_dx_s1_kernel, K2;
+// dw_plain_s2.cu: mm_s2_dx_kernel, K9): nx frames of mr's rectangle of x
+// (xb: its staged row 0 and column cs0 in the segment's first frame; frames
+// `frame` elements apart), staged by cp.async XSTAGE_MM frames deep into
+// the ring at smem; conv1's product by mm_strip_product with W1's columns
+// c0 .. c0+2PG staged once; frame j's branches (relu input > 0), a byte per
+// channel, into mask slot j at place(rr, input column). Every thread of the
+// block calls it; on return every mask is written and the ring is read by
+// no one.
+template <typename T, typename PLACE>
+__device__ __forceinline__ void mm_masks(
+    unsigned char* smem, const MmMaskLayout& L, const MmRect& mr, PLACE place,
+    const T* xb, size_t frame, int nx, const T* __restrict__ w1,
+    const float* __restrict__ sc, const float* __restrict__ bi, int W,
+    int Cin, int C, int c0, int PG) {
+  const MmLayout& F = L.f;
+  T* ring = reinterpret_cast<T*>(smem);
+  T* wt = reinterpret_cast<T*>(smem + F.wt_off);
+  float* scs = reinterpret_cast<float*>(smem + F.vec_off);
+  float* bis = scs + (F.ng + 3) / 4 * 4;
+  float* kbs = bis + (F.ng + 3) / 4 * 4;
+  int* tab = reinterpret_cast<int*>(smem + F.tab_off);
+  unsigned char* mask = smem + L.mask_off;
+  const int PG2 = 2 * PG, xslot = F.xslot / (int)sizeof(T);
+  // the staged rows' columns past C_in (bf16: up to ld - 8) are never
+  // copied and stay zero
+  zero_ring(smem, F.wt_off);
+  mm_stage_vecs(scs, bis, kbs, sc, bi, C, c0, PG2, F.ng,
+                mm_band((F.ld - 8) / 16, Cin));
+  mm_stage_w1<T>(wt, w1, Cin, C, c0, PG2, F.ng, F.ld);
+  mr.table(tab, F.rows, place);
+  auto load_x = [&](int j) {  // x frame j into ring slot j % XSTAGE_MM
+    if (j < nx)               // uniform across the block
+      mr.stage(ring + (j % XSTAGE_MM) * xslot, xb + (size_t)j * frame, W,
+               Cin, F.ld);
+    cp_commit();
+  };
+  for (int j = 0; j < XSTAGE_MM - 1; ++j) load_x(j);
+  for (int j = 0; j < nx; ++j) {
+    cp_wait<XSTAGE_MM - 2>();  // this thread's copies of frame j have landed
+    __syncthreads();           // and everyone's; slot j-1 is read by no one
+    load_x(j + XSTAGE_MM - 1);
+    unsigned char* mk = mask + j * L.mbytes;
+    mm_strip_product<T>(
+        ring + (j % XSTAGE_MM) * xslot, wt, F.ld, F.ng, PG, mr.M, Cin, scs,
+        bis, kbs, tab,
+        [&](int at, int ch, float v0, float v1) {
+          *reinterpret_cast<unsigned short*>(mk + at + ch) =
+              (unsigned short)((v0 > 0.f) | ((v1 > 0.f) << 8));
+        },
+        [&](int at, int cc, float v) { mk[at + cc] = v > 0.f; });
+  }
+  cp_wait<0>();
+  __syncthreads();  // every mask is written; the ring is read by no one
 }
 
 }  // namespace cfn

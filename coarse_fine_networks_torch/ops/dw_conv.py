@@ -53,7 +53,11 @@ place a frame ahead of the stencil, with :func:`plan_s1`; ``dw_act_s2``
 ``dx = dam·sc`` and the ``(dsc, dbi)`` sums, with :func:`plan_act_dx_s2`).
 ``dw_plain_s1.cu`` also holds ``dw_mm_wgrad_s1`` (K6 mm of
 :mod:`.dw_mm_act`: K1 ``mm``'s product on K6 plain's walk, with
-:func:`plan_mm_wgrad_s1`).  The row-strip weight gradients add ``x·g``
+:func:`plan_mm_wgrad_s1`), and ``dw_plain_s2.cu`` ``dw_mm_act_s2`` (K4
+``mm`` of :mod:`.dw_mm_act`: K1 ``mm``'s product on K4 plain's strips and
+stencil, with :func:`plan_mm_s2_fwd`) and ``dw_mm_dx_mask_s2`` (K9 of
+:mod:`.dw_mm_bn_train`: K8's body with K2's mask phase, with
+:func:`plan_mm_dx_s2`).  The row-strip weight gradients add ``x·g``
 only where g exists in the item (``wgrad_slots``, ``csrc/strip.cuh``), so a
 NaN of x reaches the taps it reaches in the plain versions, no others.
 
@@ -82,8 +86,10 @@ from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 # The split route's kernels: at stride 1, and at stride (1, 2, 2); each
 # source also holds the act modes of its kernels, entries of :mod:`.dw_act`
 # (the forward K1 act and the weight gradient K6 act; the forward K4 act,
-# the dx K5 and the weight gradient K10 act), and the stride-1 one the mm
-# mode of its weight gradient, K6 mm of :mod:`.dw_mm_act`
+# the dx K5 and the weight gradient K10 act), the stride-1 one the mm mode
+# of its weight gradient, K6 mm of :mod:`.dw_mm_act`, and the stride-2 one
+# the mm modes of its forward and dx, K4 mm of :mod:`.dw_mm_act` and K9 of
+# :mod:`.dw_mm_bn_train`
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_act_s1": [P] * 5 + [I] * 10 + [P],
@@ -101,6 +107,10 @@ LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_conv_wgrad_s2": [P] * 3 + [I] * 12 + [P],
     "dw_act_wgrad_s2": [P] * 5 + [I] * 12 + [P],
     "dw_plain_s2_occupancy": [I] * 5,
+    "dw_mm_act_s2": [P] * 6 + [I] * 11 + [P],
+    "dw_mm_act_s2_occupancy": [I] * 6,
+    "dw_mm_dx_mask_s2": [P] * 7 + [I] * 11 + [P],
+    "dw_mm_dx_mask_s2_occupancy": [I] * 7,
 })
 # every source of the bottleneck's depthwise kernels: the entry's (eval
 # and train) and the split route's
@@ -389,10 +399,35 @@ def smem_s2(plan: PlanS1, esz: int, act: bool = False) -> int:
 
 # ---- the stride-1 mm forward's work split (K1 mm, csrc/dw_mm_act.cu) ----------
 
-XSTAGE = 3  # x frames in dw_mm_act_s1's staging ring
+XSTAGE = 3  # x frames in the mm kernels' staging ring (XSTAGE_MM)
 
 
 MM_SETUP_FRAMES = 2  # a block's set-up (W1's columns, the taps), in frames
+
+
+def _mm_ld_ng(plan: PlanS1, c_in: int, esz: int) -> tuple[int, int]:
+    """The staged x row stride (bf16: C_in rounded up to 16, + 8: an odd
+    multiple of 16 bytes) and W1's staged columns (bf16: ``2PG`` rounded up
+    to 8) of the mm kernels."""
+    if esz == 2:
+        return _pad16(c_in) + 8, _cdiv(2 * plan.pg, 8) * 8
+    return c_in, 2 * plan.pg
+
+
+def _mm_front(plan: PlanS1, positions: int, c_in: int, esz: int,
+              ring_min: int = 0) -> int:
+    """Bytes of an mm kernel's shared memory from its x ring on, as
+    ``mm_front`` lays it out: a ring of ``XSTAGE`` staged x frames of
+    ``positions`` positions (rounded up to 16) × the row stride, at least
+    ``ring_min`` bytes (a ring another phase reuses); W1's staged columns
+    (bf16: ``ng`` × the row stride; f32: C_in × 2PG) and bn1's three
+    vectors over them, each padded to 16 bytes; a table of the positions'
+    places."""
+    ld, ng = _mm_ld_ng(plan, c_in, esz)
+    rows = _pad16(positions)
+    wt = ng * ld * 2 if esz == 2 else c_in * 2 * plan.pg * 4
+    return (max(XSTAGE * rows * ld * esz, ring_min) + _pad16(wt)
+            + 3 * _pad16(ng * 4) + 4 * rows)
 
 
 @lru_cache(maxsize=None)
@@ -427,22 +462,11 @@ def plan_mm_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
 def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
     """Dynamic shared memory per block of ``dw_mm_act_s1``, in bytes, as its
     launcher sizes it (``mm_layout``): two activated slots
-    ``[R+2][WB+2][2PG]``; a ring of three staged x frames of ``(R+2) ·
-    min(WB+2, W)`` positions (rounded up to 16) × C_in (bf16: rounded up to
-    16, + 8); W1's columns (bf16: ``2PG`` rounded up to 8, × that stride);
-    three vectors over them (bn1's apply, the relu-branch bound); a table of
-    the positions' places."""
-    def pad(n):
-        return _cdiv(n, 16) * 16
-    bf = esz == 2
-    pg2 = 2 * plan.pg
-    rows = _cdiv((plan.r + 2) * min(plan.wb + 2, plan.w), 16) * 16
-    ld = _cdiv(c_in, 16) * 16 + 8 if bf else c_in
-    ng = _cdiv(pg2, 8) * 8 if bf else pg2
-    aslot = pad((plan.r + 2) * (plan.wb + 2) * pg2 * esz)
-    wt = ng * ld * 2 if bf else c_in * pg2 * 4
-    return (2 * aslot + XSTAGE * rows * ld * esz + pad(wt) + 3 * pad(ng * 4)
-            + 4 * rows)
+    ``[R+2][WB+2][2PG]``, then :func:`_mm_front`'s layout of ``(R+2) ·
+    min(WB+2, W)`` staged positions."""
+    aslot = _pad16((plan.r + 2) * (plan.wb + 2) * 2 * plan.pg * esz)
+    return 2 * aslot + _mm_front(
+        plan, (plan.r + 2) * min(plan.wb + 2, plan.w), c_in, esz)
 
 
 # ---- the stride-1 mm weight gradient's work split (K6 mm, dw_plain_s1.cu) -----
@@ -484,23 +508,16 @@ def smem_dx_s1(plan: PlanS1, c_in: int, esz: int, mm: bool) -> int:
     or ``dw_mm_dx_mask_s1``, in bytes, as their launcher sizes it
     (``dx_layout``).  act: a ring of three slots, each a g frame ``[R+2]
     [WB+2][2PG]`` and an x frame ``[R][WB+2][2PG]`` (reused for the column
-    sums).  mm: a ring of three g frames, or of three x frames of ``R ·
-    min(WB, W)`` positions rounded up to 16 × C_in (in bf16 rounded up to
-    16, + 8) if larger; W1's columns (bf16: ``2PG`` rounded up to 8, × that
-    stride); three vectors over them; a table of the positions' places; a
-    mask slot ``[R][WB][2PG]`` of bytes for each of the ``tt`` frames."""
+    sums).  mm (``mm_mask_layout``): :func:`_mm_front`'s layout of ``R ·
+    min(WB, W)`` staged positions, its ring at least three g frames; a mask
+    slot ``[R][WB][2PG]`` of bytes for each of the ``tt`` frames."""
     pg2 = 2 * plan.pg
     gstage = _pad16((plan.r + 2) * (plan.wb + 2) * pg2 * esz)
     if not mm:
         ring = NSTAGE * (gstage + _pad16(plan.r * (plan.wb + 2) * pg2 * esz))
         return max(ring, 4 * 2 * plan.wb * pg2)
-    bf = esz == 2
-    rows = _pad16(plan.r * min(plan.wb, plan.w))
-    ld = _pad16(c_in) + 8 if bf else c_in
-    ng = _cdiv(pg2, 8) * 8 if bf else pg2
-    wt = ng * ld * 2 if bf else c_in * pg2 * 4
-    return (NSTAGE * max(gstage, rows * ld * esz) + _pad16(wt)
-            + 3 * _pad16(ng * 4) + _pad16(rows * 4)
+    return (_mm_front(plan, plan.r * min(plan.wb, plan.w), c_in, esz,
+                      NSTAGE * gstage)
             + plan.tt * _pad16(plan.r * plan.wb * pg2))
 
 
@@ -542,6 +559,97 @@ def plan_mm_dx_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
     shared memory at ``esz`` and segments of at most ``TT_MM`` frames."""
     return _dx_s1_split(b, t, h, w, c_mid,
                         lambda p: smem_dx_s1(p, c_in, esz, True), TT_MM)
+
+
+# ---- the stride-2 mm kernels' work splits (K4 mm and K9, dw_plain_s2.cu) ------
+
+# an SM's shared memory on the H100: a block's limit and the 1 KB the
+# runtime keeps for each block
+SMEM_SM = SMEM_MAX + 1024
+# a block's shared memory where two fit on an SM (each also takes 1 KB)
+SMEM_PAIR = SMEM_SM // 2 - 1024
+
+
+def smem_mm_s2_fwd(plan: PlanS1, c_in: int, esz: int, w: int) -> int:
+    """Dynamic shared memory per block of ``dw_mm_act_s2`` (K4 mm) for x
+    of width ``w``, in bytes, as its launcher sizes it
+    (``mm_s2_fwd_layout``): two activated slots in K4 plain's staged-frame
+    layout (2R+1 rows of 2(WB+1) de-interleaved columns), then
+    :func:`_mm_front`'s layout of ``(2R+1) · min(2WB+1, W)`` staged
+    positions."""
+    aslot = _pad16((2 * plan.r + 1) * 2 * (plan.wb + 1) * 2 * plan.pg * esz)
+    return 2 * aslot + _mm_front(
+        plan, (2 * plan.r + 1) * min(2 * plan.wb + 1, w), c_in, esz)
+
+
+def smem_mm_dx_s2(plan: PlanS1, c_in: int, esz: int, w: int) -> int:
+    """Dynamic shared memory per block of ``dw_mm_dx_mask_s2`` (K9) for x
+    of width ``w``, in bytes, as its launcher sizes it (``mm_s2_dx_layout``):
+    :func:`_mm_front`'s layout of ``2R · min(2WB, W)`` staged positions,
+    its ring at least ``GSTAGE`` g frames (:func:`smem_s2_dx`); a mask slot
+    ``[2R][2][WB][2PG]`` of bytes for each of the ``tt`` frames."""
+    mask = _pad16(2 * plan.r * 2 * plan.wb * 2 * plan.pg)
+    return (_mm_front(plan, 2 * plan.r * min(2 * plan.wb, w), c_in, esz,
+                      smem_s2_dx(plan, esz))
+            + plan.tt * mask)
+
+
+@lru_cache(maxsize=None)
+def plan_mm_s2_fwd(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                   esz: int) -> PlanS1:
+    """The work split of ``dw_mm_act_s2`` (K4 mm) for x ``(B, T, H, W,
+    C_in)`` of ``esz``-byte elements and ``C_mid`` output channels:
+    :func:`_strips` over the output ``(⌈H/2⌉, ⌈W/2⌉)``, channel pairs first
+    in groups of at most ``DX_PG`` (each group stages all of x's C_in, so
+    wide groups stage it fewer times) and at most ``NT_DX`` threads (the
+    taps and sums stay live through the product).  While a block's shared
+    memory (:func:`smem_mm_s2_fwd`) would keep two blocks off an SM, the
+    strips lose a row (down to ``RMIN``), then the column tiles narrow, then
+    the pairs are cut into more groups.  Its frames per segment are
+    :func:`plan_mm_s1`'s: the fewest rounds × (``tt`` + 2 +
+    ``MM_SETUP_FRAMES``)."""
+    ho, wo = _out_hw(h, w, 2)
+    plan = _strips(b, t, ho, wo, c_mid, pg_max=DX_PG, nt=NT_DX)
+    while smem_mm_s2_fwd(plan, c_in, esz, w) > SMEM_PAIR:
+        if plan.r > RMIN:
+            plan = plan._replace(r=plan.r - 1)
+        elif plan.wb > 2:
+            plan = plan._replace(wb=_cdiv(wo, _cdiv(wo, plan.wb - 1)))
+        elif plan.pg > 1:
+            plan = _narrower(plan)
+        else:
+            break
+    best = None
+    for n in range(1, t + 1):
+        tt = _cdiv(t, n)
+        blocks = plan._replace(tt=tt).items * plan.n_pg
+        cost = _cdiv(blocks, 2 * SMS) * (tt + 2 + MM_SETUP_FRAMES)
+        if best is None or cost < best[0]:
+            best = (cost, tt)
+    return plan._replace(tt=best[1], ipb=1, rows=1)
+
+
+@lru_cache(maxsize=None)
+def plan_mm_dx_s2(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                  esz: int) -> PlanS1:
+    """The work split of ``dw_mm_dx_mask_s2`` (K9, K8's body with K2's mask
+    phase) for x ``(B, T, H, W, C_in)`` of ``esz``-byte elements and
+    ``C_mid`` channels of g: :func:`plan_act_dx_s2`'s rule over g
+    ``(⌈H/2⌉, ⌈W/2⌉)`` (channel pairs first in groups of at most ``DX_PG``,
+    at most ``NT_DX`` threads, frames split until there are two waves of
+    blocks at two per SM), then shorter equal segments while the masks (a
+    slot per frame of a segment) would keep two blocks off an SM
+    (:func:`smem_mm_dx_s2`), then, were one frame still too many, the pairs
+    cut into more groups.  One block per item and channel group."""
+    ho, wo = _out_hw(h, w, 2)
+    plan = _split_frames(_strips(b, t, ho, wo, c_mid, pg_max=DX_PG,
+                                 nt=NT_DX), FWD_BLOCKS)
+    while smem_mm_dx_s2(plan, c_in, esz, w) > SMEM_PAIR and plan.tt > 1:
+        # the longest equal segments shorter than these
+        plan = plan._replace(tt=_cdiv(t, _cdiv(t, plan.tt - 1)))
+    while smem_mm_dx_s2(plan, c_in, esz, w) > SMEM_PAIR and plan.pg > 1:
+        plan = _narrower(plan)
+    return plan._replace(ipb=1, rows=plan.items)
 
 
 # ---- forward: the plain mode of K1 (stride 1) and K4 (stride 2) -------------

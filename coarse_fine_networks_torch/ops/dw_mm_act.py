@@ -14,10 +14,13 @@ backward (``_dw_mm_bwd``) is K1 plain on the flipped taps or K8, and the
 Kernels (CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use into
 ``_build/`` and bound with ``ctypes``, :mod:`._build`):
 
-* ``dw_mm_act_s1``/``dw_mm_act_s2``: :func:`dw_mm_bnrelu_conv3d`, in
-  ``csrc/dw_mm_act.cu``; at stride 1 ``mm_fwd_s1_kernel`` (row strips with
-  the work split of :func:`..dw_conv.plan_mm_s1`, conv1's product on the
-  bf16 tensor cores), at stride 2 the mm mode of the entry kernel;
+* ``dw_mm_act_s1``/``dw_mm_act_s2``: :func:`dw_mm_bnrelu_conv3d`; at
+  stride 1 ``mm_fwd_s1_kernel`` in ``csrc/dw_mm_act.cu`` (K1 ``mm``: row
+  strips with the work split of :func:`..dw_conv.plan_mm_s1`, conv1's
+  product on the bf16 tensor cores), at stride 2 ``mm_s2_fwd_kernel`` in
+  ``csrc/dw_plain_s2.cu`` (K4 ``mm``: the same product on K4 plain's row
+  strips and stencil, with the work split of
+  :func:`..dw_conv.plan_mm_s2_fwd`);
 * ``dw_mm_wgrad_s1``/``dw_mm_wgrad_s2``: :func:`dw_mm_wgrad`, in
   ``csrc/dw_plain_s1.cu`` (K6 mm: K1 ``mm``'s product on K6 plain's
   persistent walk, with the work split of
@@ -35,21 +38,20 @@ import torch.nn.functional as F
 
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
-# The forward source: this module's two forward entries (the act entry's
-# are in :mod:`.dw_conv`'s libraries).
+# The stride-1 forward's source (K1 mm; K4 mm, the stride-2 forward, is in
+# :mod:`.dw_conv`'s ``LIBRARY_S2``, with the act entry's forwards).
 LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1": [P] * 6 + [I] * 11 + [P],
     "dw_mm_act_s1_occupancy": [I] * 6,
-    "dw_mm_act_s2": [P] * 6 + [I] * 7 + [P],
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's stride-2 weight gradient and the
-# stride-2 masked dx of :mod:`.dw_mm_bn_train` (the stride-1 weight gradient
-# is in :mod:`.dw_conv`'s ``LIBRARY``; the act entry's whole backward is in
-# the plain sources and ``dw_dx_s1.cu``).
+# The backward source: this module's stride-2 weight gradient, K10 mm (the
+# stride-1 one, K6 mm, is in :mod:`.dw_conv`'s ``LIBRARY``, and the
+# stride-2 masked dx of :mod:`.dw_mm_bn_train`, K9, in its ``LIBRARY_S2``;
+# the act entry's whole backward is in the plain sources and
+# ``dw_dx_s1.cu``).
 BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
     "dw_act_partial_rows": [I] * 6,
-    "dw_mm_dx_mask_s2": [P] * 7 + [I] * 7 + [P],
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
 })
 # The stride-1 dx of both train entries (K3 of :mod:`.dw_act`, K2 of
@@ -239,7 +241,9 @@ def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
       stride: 1, or 2 for stride (1, 2, 2).
 
     A CPU tensor takes :func:`dw_mm_bnrelu_conv3d_plain`; a CUDA tensor
-    launches the kernel (``dw_mm_act_s1`` or ``dw_mm_act_s2``) or raises."""
+    launches the kernel (``dw_mm_act_s1`` or ``dw_mm_act_s2``, with the work
+    split of :func:`..dw_conv.plan_mm_s1` or :func:`..dw_conv.plan_mm_s2_fwd`)
+    or raises."""
     _check(x, w1, w_dw, sc, bi, stride)
     if x.device.type == "cpu":
         return dw_mm_bnrelu_conv3d_plain(x, w1, w_dw, sc, bi, stride)
@@ -250,15 +254,15 @@ def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
     y = torch.empty((b, t, ho, wo, c_mid), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
-    args = (x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
-            bi.data_ptr(), y.data_ptr(), b, t, h, w, c_in, c_mid)
-    if stride == 1:
-        # .dw_conv builds on this module's libraries: imported here
-        from .dw_conv import plan_mm_s1
+    # .dw_conv builds on this module's libraries: imported here
+    from . import dw_conv
 
-        p = plan_mm_s1(b, t, h, w, c_in, c_mid, x.element_size())
-        args += (p.r, p.wb, p.pg, p.tt)
-    _launch(LAUNCHES, LIBRARY, f"dw_mm_act_s{stride}", x, *args)
+    lib, plan = ((LIBRARY, dw_conv.plan_mm_s1) if stride == 1 else
+                 (dw_conv.LIBRARY_S2, dw_conv.plan_mm_s2_fwd))
+    p = plan(b, t, h, w, c_in, c_mid, x.element_size())
+    _launch(LAUNCHES, lib, f"dw_mm_act_s{stride}", x, x.data_ptr(),
+            w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            y.data_ptr(), b, t, h, w, c_in, c_mid, p.r, p.wb, p.pg, p.tt)
     return y
 
 

@@ -18,9 +18,10 @@ Pallas kernels K2/K9 and the ``mm`` modes of K6/K10.
 
 Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`), :func:`dw_mm_dx_mask`:
 ``dw_mm_dx_mask_s1`` (K2) in ``csrc/dw_dx_s1.cu`` (``dw_plain_s1.cu``'s
-row strips on g with the flipped taps, the mask from conv1's product on the
-tensor cores by the stride-1 mm forward's code) and ``dw_mm_dx_mask_s2``
-(K9) in ``csrc/dw_act_bwd.cu``.  The wrapper runs its ``*_plain`` version on a
+row strips on g with the flipped taps) and ``dw_mm_dx_mask_s2`` (K9) in
+``csrc/dw_plain_s2.cu`` (K8's gather on g's row strips), each with the
+mask from conv1's product on the tensor cores by the mm forwards' code,
+computed for a frame segment before its stencil.  The wrapper runs its ``*_plain`` version on a
 CPU tensor and launches its kernel on a CUDA tensor, or raises.  All tensors
 are channels-last ``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``.
 """
@@ -31,7 +32,7 @@ import os
 
 import torch
 
-from .dw_mm_act import (BWD_LIBRARY, DX_S1_LIBRARY, _check,
+from .dw_mm_act import (DX_S1_LIBRARY, _check,
                         _check_kernel_input, _launch, _mm_product,
                         dw_mm_bnrelu_conv3d, dw_mm_wgrad, mm_f32, stencil_f32)
 
@@ -82,9 +83,10 @@ def dw_mm_dx_mask(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     """The masked dx of :func:`.dw_mm_act.dw_mm_bnrelu_conv3d` (see
     :func:`dw_mm_dx_mask_plain`): ``g`` is dL/dy (y's shape, x's dtype), x
     conv1's input.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``dw_mm_dx_mask_s1`` (with the work split of
-    :func:`..dw_conv.plan_mm_dx_s1`) or ``dw_mm_dx_mask_s2``, whose masks
-    take the forward kernels' relu branch, or raises."""
+    launches ``dw_mm_dx_mask_s1`` or ``dw_mm_dx_mask_s2`` (with the work
+    split of :func:`..dw_conv.plan_mm_dx_s1` or
+    :func:`..dw_conv.plan_mm_dx_s2`), whose masks take the forward kernels'
+    relu branch, or raises."""
     _check(x, w1, w_dw, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_mm_dx_mask_plain(g, x, w1, w_dw, sc, bi, stride)
@@ -94,19 +96,16 @@ def dw_mm_dx_mask(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     dam = torch.empty((b, t, h, w, c_mid), dtype=g.dtype, device=g.device)
     if not dam.numel():
         return dam
-    name = f"dw_mm_dx_mask_s{stride}"
-    args = (g.data_ptr(), x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(),
-            sc.data_ptr(), bi.data_ptr(), dam.data_ptr(), b, t, h, w, c_in,
-            c_mid)
-    if stride == 1:
-        # .dw_conv builds on this package's libraries: imported here
-        from .dw_conv import plan_mm_dx_s1
+    # .dw_conv builds on this package's libraries: imported here
+    from . import dw_conv
 
-        p = plan_mm_dx_s1(b, t, h, w, c_in, c_mid, x.element_size())
-        _launch(LAUNCHES, DX_S1_LIBRARY, name, x, *args, p.r, p.wb, p.pg,
-                p.tt)
-    else:
-        _launch(LAUNCHES, BWD_LIBRARY, name, x, *args)
+    lib, plan = ((DX_S1_LIBRARY, dw_conv.plan_mm_dx_s1) if stride == 1 else
+                 (dw_conv.LIBRARY_S2, dw_conv.plan_mm_dx_s2))
+    p = plan(b, t, h, w, c_in, c_mid, x.element_size())
+    _launch(LAUNCHES, lib, f"dw_mm_dx_mask_s{stride}", x, g.data_ptr(),
+            x.data_ptr(), w1.data_ptr(), w_dw.data_ptr(), sc.data_ptr(),
+            bi.data_ptr(), dam.data_ptr(), b, t, h, w, c_in, c_mid, p.r,
+            p.wb, p.pg, p.tt)
     return dam
 
 

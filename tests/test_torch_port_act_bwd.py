@@ -465,27 +465,33 @@ def test_constants_match_the_source(name, value):
 
 
 def test_kernels_left_the_entry_backward_source():
-    """``dw_act_bwd.cu`` keeps K9 and K10 mm only: no ACT mode of its
-    stride-2 dx or weight-gradient kernels, no dx epilogue, no act weight
-    gradient at either stride and no weight gradient at stride 1; K5, K6
-    act and K10 act are the act instantiations of the plain sources'
-    kernels, and K6 mm ``dw_plain_s1.cu``'s mm kernel, launched by the
-    wrappers with their plans."""
+    """``dw_act_bwd.cu`` keeps K10 mm only: no ACT mode of its stride-2
+    weight-gradient kernel, no dx at all (K9's tile kernel is gone), no act
+    weight gradient at either stride and no weight gradient at stride 1;
+    K5, K6 act and K10 act are the act instantiations of the plain
+    sources' kernels, K6 mm ``dw_plain_s1.cu``'s mm kernel and K9 the mm
+    mode of K8's body in ``dw_plain_s2.cu``, launched by the wrappers with
+    their plans."""
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    for gone in ("dx_epilogue", "dx_s2_kernel<T, MODE>", "MODE == ACT",
+    for gone in ("dx_epilogue", "dx_s2_kernel", "MODE == ACT", "GGeom",
+                 "load_frame", "launch_dx_s2",
                  "launch_wgrad<__nv_bfloat16, 1, ACT>",
                  "launch_wgrad<__nv_bfloat16, 2, ACT>",
                  "launch_wgrad<__nv_bfloat16, 1>", "SGeom<1>",
                  'extern "C" int dw_act_dx_s2(',
                  'extern "C" int dw_act_wgrad_s1(',
                  'extern "C" int dw_act_wgrad_s2(',
-                 'extern "C" int dw_mm_wgrad_s1('):
+                 'extern "C" int dw_mm_wgrad_s1(',
+                 'extern "C" int dw_mm_dx_mask_s2('):
         assert gone not in bwd
-    for kept in ("dw_mm_dx_mask_s2", "dw_mm_wgrad_s2"):
+    for kept in ("dw_mm_wgrad_s2",):
         assert f'extern "C" int {kept}(' in bwd
     assert "dw_act_wgrad_s2" not in dw_mm_act.BWD_LIBRARY.functions
+    assert "dw_mm_dx_mask_s2" not in dw_mm_act.BWD_LIBRARY.functions
     s1 = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
+    assert 'extern "C" int dw_mm_dx_mask_s2(' in s2
+    assert "dx_s2_body<T, R, false, true>" in s2
     assert "wgrad_body<T, R, true>" in s1 and "wgrad_body<T, R, false>" in s1
     assert "dx_s2_body<T, R, true>" in s2 and "dx_s2_body<T, R, false>" in s2
     assert ("s2_wgrad_body<T, R, true>" in s2

@@ -193,7 +193,8 @@ def test_the_product_on_the_tensor_cores_settles_its_relu_branch():
     pieces are in the shared header, the product that uses them in
     ``mm_strip.cuh``, and the forward, the stride-1 masked dx and the
     stride-1 mm weight gradient all call that product (the forward and the
-    weight gradient through ``mm_activate``, which stores its relu)."""
+    weight gradient through ``mm_activate``, which stores its relu, the
+    masked dx through ``mm_masks``, which stores its branch)."""
     csrc = dw_mm_act.LIBRARY.source.parent
     common = (csrc / "common.cuh").read_text()
     product = (csrc / "mm_strip.cuh").read_text()
@@ -206,9 +207,11 @@ def test_the_product_on_the_tensor_cores_settles_its_relu_branch():
         assert name in product
     act = product[product.index("void mm_activate("):]
     assert "mm_strip_product<T>(" in act
+    masks = product[product.index("void mm_masks("):]
+    assert "mm_strip_product<T>(" in masks and "mm_band(" in masks
     for name in ("mm_activate<T>(", "mm_band(", "mm_fwd_s1_kernel"):
         assert name in src
-    for name in ("mm_strip_product<T>(", "mm_band(", "mm_dx_s1_kernel"):
+    for name in ("mm_masks<T>(", "mm_dx_s1_kernel"):
         assert name in dx
     for name in ("mm_activate<T>(", "mm_band(", "mm_wgrad_s1_kernel"):
         assert name in wg

@@ -183,22 +183,25 @@ def test_the_sources_apply_the_rule_in_every_weight_gradient():
 
 
 def test_entry_sources_keep_no_act_mode_and_no_stride1_wgrad():
-    """``dw_mm_act.cu`` holds the mm forwards only (K1 mm, K4 mm): no act
-    mode, no ``Mode``; ``dw_act_bwd.cu`` holds K9 and K10 mm only: no
-    weight gradient at stride 1 (K6 mm is ``dw_plain_s1.cu``'s)."""
+    """``dw_mm_act.cu`` holds the stride-1 mm forward only (K1 mm; K4 mm
+    is ``dw_plain_s2.cu``'s): no act mode, no ``Mode``; ``dw_act_bwd.cu``
+    holds K10 mm only: no weight gradient at stride 1 (K6 mm is
+    ``dw_plain_s1.cu``'s) and no masked dx (K9 is ``dw_plain_s2.cu``'s)."""
     fwd = dw_mm_act.LIBRARY.source.read_text()
     bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     code = "\n".join(line.split("//")[0] for line in fwd.splitlines())
     for gone in ("ACT", "Mode", "MODE", "dw_act_s2", "act<T>"):
         assert gone not in code
     assert set(dw_mm_act.LIBRARY.functions) == {
-        "dw_mm_act_s1", "dw_mm_act_s1_occupancy", "dw_mm_act_s2"}
+        "dw_mm_act_s1", "dw_mm_act_s1_occupancy"}
     code = "\n".join(line.split("//")[0] for line in bwd.splitlines())
     for gone in ("dw_mm_wgrad_s1", "SGeom<1>", "wgrad_kernel<T, 1>",
-                 "launch_wgrad<float, 1>", "case 1:"):
+                 "launch_wgrad<float, 1>", "case 1:", "dw_mm_dx_mask_s2"):
         assert gone not in code
     assert "dw_mm_wgrad_s1" in dw_conv.LIBRARY.functions
     assert "dw_act_s2" in dw_conv.LIBRARY_S2.functions
+    assert {"dw_mm_act_s2", "dw_mm_dx_mask_s2"} <= set(
+        dw_conv.LIBRARY_S2.functions)
 
 
 # ---- the plans ---------------------------------------------------------------

@@ -11,10 +11,12 @@ into its own build directory, and times the eval entry's kernels
 (``phase_kernels``: K1 and K4 ``mm`` at the serve run's and the fine eval
 step's entry shapes), the train kernels (``phase_train_kernels``: the act
 route's at the coarse step's and long-cycle phase D's entry shapes), the
-split route's (``phase_fine_kernels``: long-cycle phases A-C) and the
+split route's (``phase_fine_kernels``: long-cycle phases A-C), the
 composite's backward (``phase_mm_train_kernels``: K2, K9, K6 and K10
-``mm`` at the coarse step's and phase D's), each held against its plain
-version there as ``chip_smoke.py`` holds it.  Each run prints one JSON
+``mm`` at the coarse step's and phase D's) and the plain-layout stencils
+(``phase_stencil_kernels``: K11 and its taps' gradient at the stem's
+shapes, K7), each held against its plain version there as
+``chip_smoke.py`` holds it.  Each run prints one JSON
 line: every kernel's bf16 time weighted by its launches on its path, as
 ``chip_smoke.py``'s ``kernels`` line sums it (``ms``; the train kernels'
 also over one phase-D step, ``phase_d_ms``).  The card's ``nvidia-smi`` name and
@@ -49,8 +51,11 @@ def run(tree: str, label: str) -> None:
         per.update(cs.phase_fine_kernels(dw_conv, dw_stencil))
         per.update(cs.phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train,
                                              dw_conv))
+        per.update(cs.phase_stencil_kernels(dw_stencil, dw_conv))
     print(json.dumps({"tree": label, "kernels": {
-        k: {"ms": v["ms"], "phase_d_ms": v.get("phase_d_ms", 0.0)}
+        k: {"ms": v["ms"], "phase_d_ms": v.get("phase_d_ms", 0.0),
+            **({"by_path": {p: r["ms"] for p, r in v["by_path"].items()}}
+               if "by_path" in v else {})}
         for k, v in per.items()}}), flush=True)
 
 

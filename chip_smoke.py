@@ -9,14 +9,15 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the six sources, started together, beside
+   ``nvcc`` for each of the five sources, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
-   ``dw_mm_act.cu`` and ``dw_dx_s1.cu`` whose registers, spills and static
-   shared memory for each row-strip kernel (K1/K6 plain and ``act``, K6
-   ``mm``; K4 plain, ``act`` and ``mm``, K8, K5, K9, K10 plain and
-   ``act``; K1 ``mm``; K3 and K2) make four ``ptxas`` rows, no act or mm
-   instantiation spilling; their dynamic shared memory and blocks per SM
-   are in the kernel rows' ``plan``);
+   ``dw_mm_act.cu``, ``dw_dx_s1.cu`` and ``dw_stencil.cu`` whose
+   registers, spills and static shared memory for each row-strip kernel
+   (K1/K6 plain and ``act``, K6 ``mm``; K4 plain, ``act`` and ``mm``, K8,
+   K5, K9, K10 plain, ``act`` and ``mm``; K1 ``mm``; K3 and K2) and for
+   K11's taps' gradient make five ``ptxas`` rows, no act or mm
+   instantiation and no taps' gradient spilling; their dynamic shared
+   memory and blocks per SM are in the kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -124,8 +125,10 @@ Phases, each printing JSON lines:
    (K8) of g in f32, repeating bit for bit, and the stride-1 weight
    gradient (K6 ``mm``) against K6 plain launched with its plan on K1
    ``mm``'s activation (centre tap 1) with a difference of 0, repeating
-   bit for bit, each row with its work split (``plan_mm_dx_s1``,
-   ``plan_mm_dx_s2``, ``plan_mm_wgrad_s1``), blocks per SM and waves;
+   bit for bit, and the stride-2 one (K10 ``mm``) likewise against K10
+   plain launched with its plan on that activation, each row with its
+   work split (``plan_mm_dx_s1``, ``plan_mm_dx_s2``, ``plan_mm_wgrad_s1``,
+   ``plan_mm_wgrad_s2``), blocks per SM and waves;
    then the
    composite's Gram xᵀx of each coarse entry, f32 output from bf16 x,
    timed against reading x as f32;
@@ -144,8 +147,11 @@ Phases, each printing JSON lines:
    (``F.conv3d(groups=C)`` on channels-last, ``aten.convolution_backward``):
    K11 (``dw_stencil_s1``) and the taps' gradient (``dw_stencil_wgrad``) at
    the stem's ``conv1_t`` (5×1×1, C=24) on every path (serve, the coarse
-   train step, long-cycle phases A-D), K11 at 3×3×3 on layer1's stride-1
-   entry (also against ``dw_conv_s1``) and every tap shape at ragged sizes;
+   train step, long-cycle phases A-D; the taps' gradient also against
+   itself run again, bit for bit, with its row count against the port's
+   mirror of its split, ``plan_stencil_wgrad``), K11 at 3×3×3 on layer1's
+   stride-1 entry (also against ``dw_conv_s1``) and every tap shape at
+   ragged sizes;
    K7 (``dw_stencil_s2``) at the train step's four stride-2 entries (also
    against ``dw_conv_s2``); each of these 3×3×3 stencils equals the other
    kernel of its function with a difference of 0;
@@ -270,10 +276,10 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
                                                           "dw_act_dx_s2",
                                                           "dw_act_wgrad_s2",
                                                           "dw_mm_act_s2",
-                                                          "dw_mm_dx_mask_s2"))
+                                                          "dw_mm_dx_mask_s2",
+                                                          "dw_mm_wgrad_s2"))
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
-                       else "dw_act_bwd.cu" if ("_dx" in k or "_wgrad" in k)
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
@@ -289,7 +295,7 @@ KERNEL_FUNCS = {
     "act_wgrad_s1_kernel": ("dw_act_wgrad_s1",),
     "act_s2_wgrad_kernel": ("dw_act_wgrad_s2",),
     "mm_wgrad_s1_kernel": ("dw_mm_wgrad_s1",),
-    "wgrad_kernel": ("dw_mm_wgrad_s2",),
+    "mm_s2_wgrad_kernel": ("dw_mm_wgrad_s2",),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
     "plain_s2_fwd_kernel": ("dw_conv_s2",),
@@ -416,20 +422,26 @@ def _ptxas(source: Path) -> dict:
 
 
 # the ptxas rows: each source's kernel functions of the row-strip layout
-# (three row counts: 2-4) in f32 and bf16
+# (three row counts: 2-4) in f32 and bf16, and K11's taps' gradient (four
+# KT and two KS, in f32 and bf16)
 PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "plain_wgrad_kernel", "act_wgrad_s1_kernel",
                         "mm_wgrad_s1_kernel"),
          "dw_conv_s2": ("plain_s2_fwd_kernel", "act_s2_fwd_kernel",
                         "mm_s2_fwd_kernel", "plain_s2_dx_kernel",
                         "act_s2_dx_kernel", "mm_s2_dx_kernel",
-                        "plain_s2_wgrad_kernel", "act_s2_wgrad_kernel"),
+                        "plain_s2_wgrad_kernel", "act_s2_wgrad_kernel",
+                        "mm_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
-         "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel")}
-# the act and mm modes of the row-strip bodies: no instantiation may spill
+         "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
+         "dw_stencil_wgrad": ("stencil_dk_kernel",)}
+# instantiations of each function of a ptxas row
+PTXAS_EACH = {"dw_stencil_wgrad": 16}
+# the act and mm modes of the row-strip bodies and the taps' gradient: no
+# instantiation may spill
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
-            "mm_s2_dx_kernel")
+            "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_dk_kernel")
 
 
 def phase_device() -> str:
@@ -442,8 +454,8 @@ def phase_device() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    # the six sources (one nvcc each) and the ptxas reports of the four
-    # with row-strip kernels, all started together
+    # the five sources (one nvcc each) and the ptxas reports of the five
+    # rows, all started together
     libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
     with ThreadPoolExecutor(max_workers=len(PTXAS)) as pool:
         ptxas = {k: pool.submit(_ptxas, REPO / SOURCES[k]) for k in PTXAS}
@@ -459,13 +471,13 @@ def phase_device() -> str:
         rows = {n: v for n, v in ptxas[key].items()
                 if any(f in n for f in funcs)}  # mangled names
         emit({"phase": "ptxas", "source": SOURCES[key], "kernels": rows})
-        check(len(rows) == 6 * len(funcs)
+        check(len(rows) == PTXAS_EACH.get(key, 6) * len(funcs)
               and all("registers" in v for v in rows.values()),
               f"ptxas report of {SOURCES[key]}: {ptxas[key]}")
         spilled = {n: v for n, v in rows.items()
                    if any(f in n for f in NO_SPILL)
                    and (v.get("spill_stores") or v.get("spill_loads"))}
-        check(not spilled, f"act kernels spill: {spilled}")
+        check(not spilled, f"kernels spill: {spilled}")
     return smi
 
 
@@ -645,8 +657,8 @@ def _relu_witness(y, x, w1, sc, bi) -> dict:
     be the sign of a torch model of ``mm_z_fmaf``'s sum (``fmaf`` over k in
     order from 0 in f32, :func:`_fmaf_f32`) through bn1's apply rounded
     as ``bn_apply`` (``z·sc`` and ``+ bi`` each to f32), the arithmetic of
-    ``mm_prologue``, which K10 mm recomputes.  Returns the mismatches
-    and the number of elements in the band."""
+    ``mm_z_fmaf``'s in-order sum.  Returns the mismatches and the number
+    of elements in the band."""
     c_in, c_mid = w1.shape
     xd, wd = x.reshape(-1, c_in).double(), w1.double()
     v = torch.matmul(xd, wd) * sc.double() + bi.double()
@@ -1174,8 +1186,8 @@ def phase_edges(dw_act, dw_conv, dw_mm_act, gen) -> None:
     (``EDGES``), the row-strip weight gradients put NaN exactly where their
     twins do, which sum only the output's positions: K6 and K10 plain on x,
     K6 and K10 act (also against K6 and K10 plain on the activated x,
-    exactly) and K6 mm on conv1's input x (the NaN reaches every channel of
-    its position), beside K10 mm, at the coarse step's layer3 and layer4
+    exactly) and K6 and K10 mm on conv1's input x (the NaN reaches every
+    channel of its position), at the coarse step's layer3 and layer4
     entries, whose strips are ragged (H or Ho = 7 and 14 at R = 4) and
     whose T = 17 frames split into segments, f32 and bf16."""
     for dtype in (torch.float32, torch.bfloat16):
@@ -1339,60 +1351,75 @@ def _mm_dx_exact(dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
                 b, t, h, wd, c_in, c, esz), True, c_in, dtype)}
 
 
-def _plan_row_mm_wgrad(dw_conv, p, c_in, dtype) -> dict:
-    """K6 mm's work split ``p`` (``plan_mm_wgrad_s1``) and what the card
-    makes of it: blocks of its persistent grid, shared memory, blocks per SM
-    and waves."""
+def _plan_row_mm_wgrad(dw_conv, p, c_in, w, dtype, s=1) -> dict:
+    """K6 mm's (``plan_mm_wgrad_s1``) or, ``s`` 2, K10 mm's
+    (``plan_mm_wgrad_s2``) work split ``p`` for x of width ``w`` and what
+    the card makes of it: blocks of its persistent grid, shared memory,
+    blocks per SM (K10 mm's at least the two its plan is cut for) and
+    waves."""
     esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
-    occ = dw_conv.LIBRARY.build().dw_mm_wgrad_s1_occupancy(p.r, p.wb, p.pg,
-                                                           c_in, p.w, bf16)
-    check(occ > 0, f"plan_mm_wgrad_s1 {p} {dtype}: does not fit ({occ})")
+    if s == 1:
+        occ = dw_conv.LIBRARY.build().dw_mm_wgrad_s1_occupancy(
+            p.r, p.wb, p.pg, c_in, w, bf16)
+        smem = dw_conv.smem_mm_wgrad_s1(p, c_in, esz)
+    else:
+        occ = dw_conv.LIBRARY_S2.build().dw_mm_wgrad_s2_occupancy(
+            p.r, p.wb, p.pg, c_in, w, bf16)
+        smem = dw_conv.smem_mm_wgrad_s2(p, c_in, esz, w)
+    need = 2 if s == 2 else 1  # K10 mm's plan is cut for two an SM
+    check(occ >= need, f"plan_mm_wgrad_s{s} {p} {dtype}: {occ} blocks per "
+                       f"SM")
     blocks = p.rows * p.n_pg
     return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt, "ipb": p.ipb,
             "rows": p.rows, "threads": p.threads, "blocks": blocks,
-            "smem": dw_conv.smem_mm_wgrad_s1(p, c_in, esz),
-            "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
+            "smem": smem, "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
 
 
-def _mm_wgrad_exact(dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype) -> dict:
-    """K6 mm (``dw_mm_wgrad_s1``) against its exact oracle: dk equals K6
-    plain (``dw_conv_wgrad_s1``) launched with K6 mm's plan on the
-    activation K1 mm computes (``dw_mm_act_s1`` with only the centre tap,
-    1: y is the activation, the one ``mm_strip_product`` gives both), with
-    a difference of 0 (the two walk each channel's items in one order); it
-    repeats bit for bit.  Returns the row's fields: the difference, whether
-    the plan is ``plan_s1``'s (K6 mm's has at most ``NT_DX`` threads, so
-    its channel groups are narrower), the plan."""
+def _mm_wgrad_exact(dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype,
+                    s=1) -> dict:
+    """K6 mm (``dw_mm_wgrad_s1``) or, ``s`` 2, K10 mm (``dw_mm_wgrad_s2``)
+    against its exact oracle: dk equals K6 plain (``dw_conv_wgrad_s1``) or
+    K10 plain (``dw_conv_wgrad_s2``) launched with the mm kernel's plan on
+    the activation K1 mm computes (``dw_mm_act_s1`` with only the centre
+    tap, 1: y is the activation, the one ``mm_strip_product`` gives every
+    mm kernel), with a difference of 0 (the two walk each channel's items
+    in one order); it repeats bit for bit.  Returns the row's fields: the
+    difference, whether the plan is ``plan_s1``'s or ``plan_s2``'s (the mm
+    kernels' have at most ``NT_DX`` threads, so their tiles are
+    narrower), the plan."""
     b, t, h, w, c_in = x.shape
     c = w1.shape[1]
     a = _mm_activation(dw_mm_act, x, w1, sc, bi)
-    p = dw_conv.plan_mm_wgrad_s1(b, t, h, w, c_in, c, x.element_size())
+    plan, lib = ((dw_conv.plan_mm_wgrad_s1, dw_conv.LIBRARY) if s == 1 else
+                 (dw_conv.plan_mm_wgrad_s2, dw_conv.LIBRARY_S2))
+    p = plan(b, t, h, w, c_in, c, x.element_size())
     part = torch.empty((p.rows, 27, c), dtype=torch.float32, device=x.device)
-    dw_mm_act._launch(dw_conv.LAUNCHES, dw_conv.LIBRARY, "dw_conv_wgrad_s1",
-                      a, a.data_ptr(), g.data_ptr(), part.data_ptr(),
-                      *a.shape, p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
+    dw_mm_act._launch(dw_conv.LAUNCHES, lib, f"dw_conv_wgrad_s{s}", a,
+                      a.data_ptr(), g.data_ptr(), part.data_ptr(), *a.shape,
+                      p.r, p.wb, p.pg, p.tt, p.ipb, p.rows)
+    del a
     ref = torch.sum(part, dim=0)
-    dk1 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, 1)
-    dk2 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, 1)
+    dk1 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, s)
+    dk2 = dw_mm_act.dw_mm_wgrad(x, w1, g, sc, bi, s)
     torch.cuda.synchronize()
     diff = (dk1 - ref).abs().max().item()
     repeats = torch.equal(dk1, dk2)
-    what = f"dw_mm_wgrad_s1 {tuple(x.shape)} C_mid {c} {dtype}"
-    check(diff == 0, f"{what}: dk differs from K6 plain on K1 mm's "
-                     f"activation by {diff}")
+    what = f"dw_mm_wgrad_s{s} {tuple(x.shape)} C_mid {c} {dtype}"
+    check(diff == 0, f"{what}: dk differs from K{6 if s == 1 else 10} plain "
+                     f"on K1 mm's activation by {diff}")
     check(repeats, f"{what}: two runs differ")
-    base = dw_conv.plan_s1(b, t, h, w, c)
+    base = (dw_conv.plan_s1 if s == 1 else dw_conv.plan_s2)(b, t, h, w, c)
     return {"exact_max_abs_diff": diff, "repeats_bitwise": repeats,
-            "plan_is_plan_s1": p == base,
-            "plan": _plan_row_mm_wgrad(dw_conv, p, c_in, dtype)}
+            f"plan_is_plan_s{s}": p == base,
+            "plan": _plan_row_mm_wgrad(dw_conv, p, c_in, w, dtype, s)}
 
 
 def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
     """The composite's four backward kernels against their plain versions,
     and timed, at the coarse train step's entry shapes and at the fine
-    stream's in long-cycle phase D; about half the ``bi`` are negative.  K2
-    and K6 mm also against their exact oracles (:func:`_mm_dx_exact`,
-    :func:`_mm_wgrad_exact`)."""
+    stream's in long-cycle phase D; about half the ``bi`` are negative.  K2,
+    K9, K6 mm and K10 mm also against their exact oracles
+    (:func:`_mm_dx_exact`, :func:`_mm_wgrad_exact`)."""
     gen = torch.Generator(device="cuda").manual_seed(30)
     per_kernel = {k: _agg() for k in MM_TRAIN_KERNELS}
     gram = {"ms": 0.0, "f32_cast_ms": 0.0, "max_rel_err": 0.0,
@@ -1454,10 +1481,9 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
             }
             extra = {f"dw_mm_dx_mask_s{s}": _mm_dx_exact(
                 dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
-                dtype, s)}
-            if s == 1:
-                extra["dw_mm_wgrad_s1"] = _mm_wgrad_exact(
-                    dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype)
+                dtype, s),
+                     f"dw_mm_wgrad_s{s}": _mm_wgrad_exact(
+                dw_mm_act, dw_conv, x, w1, g, sc, bi, dtype, s)}
             _hold_and_time("mm_train_kernels", cases,
                            {"entry": label, "x": [b, t, h, h, c_in],
                             "c_mid": c, "stride": s},
@@ -1651,7 +1677,7 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
             step(state, batch, c["lr"], drop)[1]["loss"].item()
         profiled = _profile_step(one_step, ACT_FUNCS + (
             "mm_fwd_s1_kernel", "mm_s2_fwd_kernel", "mm_dx_s1_kernel",
-            "mm_s2_dx_kernel", "mm_wgrad_s1_kernel", "wgrad_kernel",
+            "mm_s2_dx_kernel", "mm_wgrad_s1_kernel", "mm_s2_wgrad_kernel",
             "stencil_fwd_kernel", "stencil_dk_kernel"), mods)
 
     params = dict(model.named_parameters())
@@ -1813,14 +1839,14 @@ def fine_entry_cases(crop):
 
 def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
                        lib_what, nbytes, ops, n, counted, agg,
-                       also=(), also_exact=False) -> None:
+                       also=(), also_exact=False) -> dict:
     """Kernel ``kern`` held against its plain version, and against each of
     ``also`` (``(name, fn)``: another kernel of the same function, or the
     same kernel again; with ``also_exact`` the difference must be 0), then
     timed beside the plain version and ``library``, the one PyTorch call
-    that computes the same function; one row, ``meta`` naming the shape.  A
-    bf16 row at a ``counted`` shape adds its times, weighted by ``n`` (its
-    launches on the path), to ``agg``."""
+    that computes the same function; one row, ``meta`` naming the shape,
+    which it returns.  A bf16 row at a ``counted`` shape adds its times,
+    weighted by ``n`` (its launches on the path), to ``agg``."""
     got, ref = kern(), plain()
     more = {k: fn() for k, fn in also}
     torch.cuda.synchronize()
@@ -1852,6 +1878,7 @@ def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
     else:
         agg["max_abs_err_f32"] = max(agg["max_abs_err_f32"], err)
+    return row
 
 
 def _plan_row(dw_conv, shape, dtype, keys=("fwd", "wgrad")) -> dict:
@@ -2111,10 +2138,23 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
     the plain version and the one PyTorch call that computes the same
     function; the 3×3×3 stencils also against ``dw_conv_s1``/``dw_conv_s2``
     (the same functions, summed in the same order: the difference must be
-    0)."""
+    0), the taps' gradient against itself run again (bit for bit) and its
+    partial buffer's rows (``dw_stencil_partial_rows``) against
+    ``plan_stencil_wgrad``'s.  Each stem kernel's bf16 time at each path's
+    stem shape, weighted by its launches per step there, is kept by path
+    (``by_path``)."""
     gen = torch.Generator(device="cuda").manual_seed(40)
     per_kernel = {k: _agg() for k in STENCIL_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
+    lib = dw_stencil.LIBRARY.build()
+    stem = {label for label, *_ in stem_cases()}
+
+    def by_path(name, label, row, n):
+        if dtype == torch.bfloat16 and label in stem and n:
+            per_kernel[name].setdefault("by_path", {})[label] = {
+                "launches_per_step": n, "ms": n * row["ms"],
+                "bound_ms": n * row["bound_ms"]}
+
     for dtype in (torch.float32, torch.bfloat16):
         for (label, shape, ks, strides, n_fwd, n_wg, counted,
              other) in stencil_cases():
@@ -2132,7 +2172,7 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
             name = f"dw_stencil_s{s}"
             also = (() if other is None else
                     ((other, lambda: dw_conv.dw_conv3d(x, w, s)),))
-            _hold_time_library(
+            row = _hold_time_library(
                 "stencil_kernels", name, meta, dtype,
                 lambda: dw_stencil.dw_stencil3d(x, w, strides),
                 lambda: dw_stencil.dw_stencil3d_plain(x, w, strides),
@@ -2141,11 +2181,19 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                 "F.conv3d(groups=C), channels_last_3d",
                 (n_x + n_y + w.numel()) * esz, 2 * taps * n_y, n_fwd, counted,
                 per_kernel[name], also, also_exact=True)
+            by_path(name, label, row, n_fwd)
             if s == 1:
                 g = torch.randn(shape, generator=gen, device="cuda").to(dtype)
                 bw = ([1, 1, 1], pad, [1, 1, 1], False, [0, 0, 0], c)
-                _hold_time_library(
-                    "stencil_kernels", "dw_stencil_wgrad", meta, dtype,
+                plan = dw_stencil.plan_stencil_wgrad(*shape, ks[0], ks[1])
+                rows = lib.dw_stencil_partial_rows(*shape, ks[0], ks[1])
+                check(rows == plan.rows, f"dw_stencil_wgrad {label} {ks}: "
+                                         f"{rows} partial rows, the mirror "
+                                         f"{plan}")
+                row = _hold_time_library(
+                    "stencil_kernels", "dw_stencil_wgrad",
+                    {**meta, "plan": {**plan._asdict(),
+                                      "threads": plan.threads}}, dtype,
                     lambda: dw_stencil.dw_stencil_wgrad(x, g, ks),
                     lambda: dw_stencil.dw_stencil_wgrad_plain(x, g, ks),
                     lambda: torch.ops.aten.convolution_backward(
@@ -2153,7 +2201,11 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                         *bw, [False, True, False])[1],
                     "aten.convolution_backward, weight gradient only",
                     2 * n_x * esz + taps * c * 4, 2 * taps * n_x, n_wg,
-                    counted, per_kernel["dw_stencil_wgrad"])
+                    counted, per_kernel["dw_stencil_wgrad"],
+                    (("dw_stencil_wgrad again",
+                      lambda: dw_stencil.dw_stencil_wgrad(x, g, ks)),),
+                    also_exact=True)
+                by_path("dw_stencil_wgrad", label, row, n_wg)
                 del g
             del x
         torch.cuda.empty_cache()
@@ -2788,7 +2840,9 @@ def main() -> int:
                 "112², C=24, 5×1×1), weighted by its launches per step "
                 "(dw_stencil_s1 2: the forward and the dx; dw_stencil_wgrad "
                 "1); launches: the 10 timed steps of train (the serve, "
-                "train_mm and fine_train phases hold theirs exactly too)",
+                "train_mm and fine_train phases hold theirs exactly too); "
+                "by_path: bf16 at each path's stem shape, weighted by its "
+                "launches per step (serve: in its counted run)",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
               "C432), one call each, summed; launches: 0 in the 10 timed "
@@ -2818,6 +2872,7 @@ def main() -> int:
                 "phase_d_ms": agg["phase_d_ms"],
                 "phase_d_bound_ms": agg["phase_d_bound_ms"]}
                if path in ("train", "mm_train") else {}),
+            **({"by_path": agg["by_path"]} if "by_path" in agg else {}),
             "timed_at": timed_at[path]})
     check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
     idle = [k["name"] for k in kernels

@@ -1,7 +1,6 @@
-// Pieces shared by the bottleneck-entry kernels: the dtype converters, the
-// batch-norm apply and the activation, conv1's product on the tensor cores
-// (mm_strip.cuh builds on it), and the block shape, stencil tile geometry
-// and prologue of the one tile kernel left (dw_act_bwd.cu, K10 mm).
+// Pieces shared by the port's kernels: the dtype converters, the batch-norm
+// apply and the activation, and conv1's product on the tensor cores with
+// its in-order f32 sum (mm_strip.cuh builds on them).
 //
 // The activation is defined once here because the forward's relu branch and
 // the backward's relu' mask must agree element for element: a flipped mask
@@ -14,9 +13,6 @@
 #include <stdint.h>
 
 namespace cfn {
-
-constexpr int CC = 32;     // channels per block, one per lane
-constexpr int WARPS = 8;   // 256 threads
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -44,28 +40,6 @@ __device__ __forceinline__ float bn_apply(float v, float sc, float bi) {
 // return 0: it returns its non-NaN operand). It gives -0 for -0, as
 // torch.relu does; no sum's value depends on the sign of a zero term.
 __device__ __forceinline__ float relu(float v) { return v < 0.f ? 0.f : v; }
-
-// The train entry's activation a = relu(x*sc + bi), rounded to x's dtype T
-// (the stencil reads a as stored in T) and returned as f32
-template <typename T>
-__device__ __forceinline__ float act(float v, float sc, float bi) {
-  return to_f(from_f<T>(relu(bn_apply(v, sc, bi))));
-}
-
-constexpr int KC = 32;  // input channels of conv1's product staged per pass
-
-// 16 bytes of x -> floats
-__device__ __forceinline__ void unpack(const uint4& u, float* out, float) {
-  const float* f = reinterpret_cast<const float*>(&u);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) out[j] = f[j];
-}
-__device__ __forceinline__ void unpack(const uint4& u, float* out,
-                                       __nv_bfloat16) {
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) out[j] = __bfloat162float(h[j]);
-}
 
 // ---- conv1's product in bf16 on the tensor cores ---------------------------
 // ldmatrix of four (x4) or two (x2) 8x8 b16 matrices from shared memory, and
@@ -124,131 +98,40 @@ __device__ __forceinline__ void mm_ksteps_bf16(float (&acc)[4],
 }
 
 // z = x . w over k = 0 .. Cin-1, summed in f32 with fmaf in order from 0:
-// the arithmetic of mm_prologue below (and of mm_strip_product in f32),
-// for x and w contiguous along k, 16-byte aligned, with Cin % 8 == 0 (read
-// 16 bytes at a time). It runs only within mm_band of a relu input's 0, a
-// few elements in ten thousand or fewer.
+// the in-order sum that settles every mm kernel's relu branch near 0 (and
+// the arithmetic of mm_strip_product in f32), for x and w contiguous along
+// k, 16-byte aligned, with Cin % 8 == 0 (read 16 bytes at a time). It runs
+// only within mm_band of a relu input's 0, a few elements in ten thousand
+// or fewer.
 template <typename T>
 __device__ __forceinline__ float mm_z_fmaf(const T* x, const T* w,
                                            int Cin) {
   constexpr int VE = 16 / sizeof(T);
   float z = 0.f;
   for (int k = 0; k < Cin; k += VE) {
-    float xv[VE], wv[VE];
-    unpack(*reinterpret_cast<const uint4*>(x + k), xv, T());
-    unpack(*reinterpret_cast<const uint4*>(w + k), wv, T());
+    const uint4 xu = *reinterpret_cast<const uint4*>(x + k);
+    const uint4 wu = *reinterpret_cast<const uint4*>(w + k);
+    const T* xv = reinterpret_cast<const T*>(&xu);
+    const T* wv = reinterpret_cast<const T*>(&wu);
 #pragma unroll
-    for (int j = 0; j < VE; ++j) z = fmaf(xv[j], wv[j], z);
+    for (int j = 0; j < VE; ++j) z = fmaf(to_f(xv[j]), to_f(wv[j]), z);
   }
   return z;
 }
 
 // The tensor cores add an mma's products (and the accumulator) aligned to
 // the largest and drop the bits below, at most 17 units of 2^-23 of s = |x|
-// . |W1| per k-step; mm_prologue's f32 sum in order is within Cin units of
+// . |W1| per k-step; mm_z_fmaf's f32 sum in order is within Cin units of
 // 2^-24 of s of the exact sum. So where a relu input v = bn_apply(z, sc, bi)
 // from the tensor cores' z has |v| >= mm_band(nk, Cin) |sc| s (twice both
-// bounds), it has the sign mm_prologue's z gives it. Where it has not,
-// mm_strip_product sums z again with mm_z_fmaf, so it takes mm_prologue's
-// relu branch element for element: K10 mm recomputes the product with
-// mm_prologue, and a flipped mask is an O(1) error in dx. (Where s = 0
-// every product is 0 and both sums are 0.)
+// bounds), it has the sign mm_z_fmaf's z gives it. Where it has not,
+// mm_strip_product sums z again with mm_z_fmaf, so every mm kernel takes
+// that sum's relu branch element for element, whatever its tile: a
+// flipped mask is an O(1) error in dx. (Where s = 0 every product is 0 and
+// both sums are 0.)
 __device__ __forceinline__ float mm_band(int nk, int Cin) {
   return 0x1p-18f * nk + 0x1p-23f * Cin;
 }
-
-// The mm entry's prologue of the stride-2 mm weight gradient (K10 mm,
-// dw_act_bwd.cu): conv1's product z = x[pos] @ W1[:, c] and bn1's apply, so
-// that it (and mm_strip_product, which settles every relu input near 0 by
-// this sum) sums the product in one order and takes one relu branch,
-// element for element.
-//
-// The positions are p = warp + j*WARPS < NP (j < NPA), at row iy0 + p / WR
-// and column ix0 + p % WR of the frame xf (H, W, Cin channels-last); the
-// channel is c = c0 + lane. out[j] is act<T>(z, sc, bi) (the activation
-// as the stencil reads it), and 0 outside the frame and for c >= Cmid
-// (zero padding after the activation). z sums in f32 over k = 0..Cin-1 in order with fmaf; x is
-// staged KC input channels at a time with 16-byte loads (Cin % 8 == 0, x
-// 16-byte aligned) into xs [NP][KC], W1 into ws [KC][CC]. Every thread of
-// the block calls it: it synchronises.
-template <typename T, int NP, int WR, int NPA>
-__device__ __forceinline__ void mm_prologue(
-    float (&out)[NPA], float* xs, float* ws, const T* __restrict__ xf,
-    const T* __restrict__ w1, int H, int W, int Cin, int Cmid, int c0,
-    int iy0, int ix0, float scv, float biv) {
-  constexpr int VE = 16 / sizeof(T);
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  float acc[NPA];
-#pragma unroll
-  for (int j = 0; j < NPA; ++j) acc[j] = 0.f;
-  for (int k0 = 0; k0 < Cin; k0 += KC) {
-    const int kc = min(KC, Cin - k0);  // a multiple of 8
-    __syncthreads();                   // earlier readers of xs/ws are done
-    const int nv = kc / VE;
-    for (int i = tid; i < NP * nv; i += WARPS * 32) {
-      const int p = i / nv, v = i % nv;
-      const int gy = iy0 + p / WR, gx = ix0 + p % WR;
-      float vals[VE];
-      if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-        const uint4 u = *reinterpret_cast<const uint4*>(
-            xf + ((size_t)gy * W + gx) * Cin + k0 + v * VE);
-        unpack(u, vals, T());
-      } else {
-#pragma unroll
-        for (int j = 0; j < VE; ++j) vals[j] = 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < VE; ++j) xs[p * KC + v * VE + j] = vals[j];
-    }
-    for (int i = tid; i < kc * CC; i += WARPS * 32) {
-      const int k = i / CC, cc = c0 + i % CC;
-      ws[i] = cc < Cmid ? to_f(w1[(size_t)(k0 + k) * Cmid + cc]) : 0.f;
-    }
-    __syncthreads();
-    for (int k = 0; k < kc; k += 4) {
-      const float wa = ws[k * CC + lane], wb = ws[(k + 1) * CC + lane];
-      const float wc = ws[(k + 2) * CC + lane], wd = ws[(k + 3) * CC + lane];
-#pragma unroll
-      for (int j = 0; j < NPA; ++j) {
-        const int p = warp + j * WARPS;
-        if (p < NP) {
-          const float4 xv = *reinterpret_cast<const float4*>(xs + p * KC + k);
-          acc[j] = fmaf(xv.x, wa, acc[j]);
-          acc[j] = fmaf(xv.y, wb, acc[j]);
-          acc[j] = fmaf(xv.z, wc, acc[j]);
-          acc[j] = fmaf(xv.w, wd, acc[j]);
-        }
-      }
-    }
-  }
-  const bool cval = c0 + lane < Cmid;
-#pragma unroll
-  for (int j = 0; j < NPA; ++j) {
-    const int p = warp + j * WARPS;
-    const int gy = iy0 + p / WR, gx = ix0 + p % WR;
-    const bool in = cval && gy >= 0 && gy < H && gx >= 0 && gx < W;
-    out[j] = in ? act<T>(acc[j], scv, biv) : 0.f;
-  }
-}
-
-// Stencil tiles: an OH x OW tile of outputs at stride (1,S,S), with a halo
-// of S*(O-1)+3 input rows/cols around it (origin S*o0 - 1). Each warp takes
-// every WARPS-th halo position (NPA of them) and every WARPS-th output (NO).
-// (stride (1,2,2) only: the tile kernel left is K10 mm)
-template <int S> struct StencilTile;
-template <> struct StencilTile<2> { static constexpr int OH = 4, OW = 8; };
-
-template <int S> struct StencilGeom {
-  static constexpr int OH = StencilTile<S>::OH, OW = StencilTile<S>::OW;
-  static constexpr int HR = S * (OH - 1) + 3, WR = S * (OW - 1) + 3;
-  static constexpr int P = HR * WR;
-  static constexpr int NPA = (P + WARPS - 1) / WARPS;
-  static constexpr int NO = OH * OW / WARPS;
-};
-
-// ring slot of frame t (frames t-1, t, t+1 live in three slots)
-__device__ __forceinline__ int slot_of(int t) { return ((t % 3) + 3) % 3; }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 

@@ -22,7 +22,7 @@
 // PyTorch's two elementwise ops and the forward do; the mm mask is conv1's
 // product by mm_strip_product (mm_strip.cuh), the code of the stride-1 mm
 // forward, with every relu input within mm_band of 0 summed again in
-// mm_prologue's order: mask and forward take one relu branch.
+// order (mm_z_fmaf): mask and forward take one relu branch.
 //
 // What bounds them on this card: bytes. act reads g and x and writes dx;
 // mm reads g and x (C_in channels) and writes dam. The stencil is 27 MACs

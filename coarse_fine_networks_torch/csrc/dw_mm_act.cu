@@ -31,9 +31,9 @@
 // row strips (a halo of (R+2)/R rows and no columns), W1's column group
 // staged once per block, x staged whole by cp.async three frames deep, and
 // conv1's product on the bf16 tensor cores (mma.m16n8k16, common.cuh) with
-// its relu branch settled against mm_prologue's sum (mm_band); the staging
-// and the product are mm_strip.cuh's, shared with K2 (dw_dx_s1.cu), K6 mm
-// (dw_plain_s1.cu), K4 mm and K9 (dw_plain_s2.cu). Moving the product to
+// its relu branch settled against mm_z_fmaf's in-order sum (mm_band); the
+// staging and the product are mm_strip.cuh's, shared with K2 (dw_dx_s1.cu),
+// K6 mm (dw_plain_s1.cu), K4 mm, K9 and K10 mm (dw_plain_s2.cu). Moving the product to
 // wgmma and the staging to TMA is later work.
 
 #include "mm_strip.cuh"
@@ -50,7 +50,7 @@ using namespace cfn;
 // ring of XSTAGE_MM frames, computes conv1's product there (mm_activate,
 // mm_strip.cuh, which the stride-1 masked dx shares: bf16 16 x 8 tiles on
 // the tensor cores, each relu input within mm_band of 0 summed again in
-// order by mm_z_fmaf; f32 fmaf over k in order, as mm_prologue), applies
+// order by mm_z_fmaf; f32 fmaf over k in order, as mm_z_fmaf), applies
 // bn1 and the relu, rounds to T and writes the
 // activated frame into one of two slots [R+2][WB+2][2PG] (the layout
 // dw_plain_s1.cu's forward stages x in); the stencil then walks the slot as

@@ -11,7 +11,7 @@
 //                                      * g[t,h,w,c]
 //                     per block an f32 partial row (27, C)
 //   dw_act_s1         dw_conv_s1 of a = relu(x*sc + bi) rounded to x's
-//                     dtype (x*sc and + bi rounded apart, as act<T>), zero-
+//                     dtype (x*sc and + bi rounded apart, as act_store), zero-
 //                     padded after the activation; sc/bi are bn1's f32
 //                     per-channel apply vectors
 //   dw_act_wgrad_s1   dw_conv_wgrad_s1's sum over a_pad, a as above

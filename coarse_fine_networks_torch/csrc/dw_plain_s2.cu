@@ -1,7 +1,8 @@
 // The plain depthwise 3x3x3 conv at stride (1,2,2) of the split-batch-norm
 // training route, for Hopper (sm_90a): its forward, its dx and its weight
 // gradient; the forward, the dx and the weight gradient of the act training
-// entry; and the forward and the masked dx of the mm entry:
+// entry; and the forward, the masked dx and the weight gradient of the mm
+// entry:
 //
 //   dw_conv_s2        y[t,h,w,c]  = sum_{dt,dy,dx} k[dt,dy,dx,c] *
 //                                   x[t+dt-1, 2h+dy-1, 2w+dx-1, c]
@@ -18,7 +19,7 @@
 //                     x's dtype, and per block the f32 partial sums
 //                     (sum dam*x, sum dam) per channel -> (dsc, dbi)
 //   dw_act_s2         dw_conv_s2 of a = relu(x*sc + bi) rounded to x's
-//                     dtype (x*sc and + bi rounded apart, as act<T>), zero-
+//                     dtype (x*sc and + bi rounded apart, as act_store), zero-
 //                     padded after the activation
 //   dw_act_wgrad_s2   dw_conv_wgrad_s2's sum over a_pad, a as above
 //   dw_mm_act_s2      dw_conv_s2 of a = relu((x @ W1)*sc + bi) rounded to
@@ -26,14 +27,17 @@
 //                     conv1's input (B,T,H,W,Cin), W1 (Cin,C) its weight
 //   dw_mm_dx_mask_s2  dam = da * 1[(x @ W1)*sc + bi > 0] in g's dtype, da
 //                     as dw_conv_dx_s2's, x and W1 as above
+//   dw_mm_wgrad_s2    dw_conv_wgrad_s2's sum over a_pad, a as
+//                     dw_mm_act_s2's
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
 // x_pad is x zero-padded by one on T, H and W. Every sum is in f32; y and dx
 // are written in the input's dtype.
 //
-// Replaces the plain mode of three TPU Pallas kernels, and the act mode of
-// all three, of coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
+// Replaces the plain mode of three TPU Pallas kernels, the act mode of all
+// three and the mm mode of two, of
+// coarse_fine_networks_tpu/ops/pallas/dw_fold.py:
 //   * dw_conv_s2       <- _fwd_s2_direct_pcall (:1078) ->
 //                         _fwd_s2_direct_kernel (:1035), plain mode
 //                         (K4 plain);
@@ -53,7 +57,11 @@
 //                         of dw_fold4_mm_act and dw_fold4_mm_bn_train;
 //   * dw_mm_dx_mask_s2 <- _dx_s2_mask_pcall (:1239) -> _dx_s2_kernel (:888),
 //                         mask mode (K9): the backward of
-//                         dw_fold4_mm_bn_train, _mm_bn_train_bwd.
+//                         dw_fold4_mm_bn_train, _mm_bn_train_bwd;
+//   * dw_mm_wgrad_s2   <- _wgrad_s2_pcall (:1279) -> _wgrad_s2_kernel
+//                         (:1122), mm mode (K10 mm): the backward of
+//                         dw_fold4_mm_bn_train and of dw_fold4_mm_act
+//                         (_dw_mm_bwd).
 // The fold4 lane layout, its even/odd de-interleave and the sublane-pair
 // bitcasts are TPU mechanics and are not carried over.
 //
@@ -162,7 +170,7 @@
 //     stages the rectangle of x its outputs read (2R+1 rows, 2WB+1 columns,
 //     all C_in) by cp.async three frames deep (MmRect, mm_strip.cuh), runs
 //     conv1's product there on mma (mm_activate: K1 mm's code, its relu
-//     branch settled against mm_prologue's sum) and writes the activated
+//     branch settled against mm_z_fmaf's in-order sum) and writes the activated
 //     frame into one of two slots laid out as K4 plain stages x; s2_frame
 //     then reads the slot as K4 plain reads its ring, so y equals K4 plain's
 //     on K1 mm's activation bit for bit. In one step, between two barriers,
@@ -180,6 +188,14 @@
 //     masks take TT slots beside the ring, so its plan (plan_mm_dx_s2)
 //     shortens the segments until two blocks fit an SM. da is K8's f32 sum
 //     bit for bit.
+//   * The mm weight gradient (K10 mm, mm_s2_wgrad_kernel) is K4 mm's front
+//     end on K10 plain's back end, on K6 mm's schedule (dw_plain_s1.cu):
+//     per frame the product of x's staged rectangle into one of two
+//     activated slots at K4 mm's places, g frames by cp.async into a ring
+//     of their own beside it, then s2_wgrad_body's register ring, sums,
+//     rule (wgrad_slots) and persistent walk on the slot, so dk equals K10
+//     plain's on the activation bit for bit, with the same plan
+//     (plan_mm_wgrad_s2); at most NT_DX threads, as K4 mm.
 //   * Rows and columns outside the frame are never copied and read as the
 //     zero the ring is cleared to once per tile; frames outside the clip add
 //     nothing. With R a template argument the loops over staged rows are
@@ -187,7 +203,8 @@
 // The split (R, WB, PG, TT and, for the weight gradient, IPB and the row
 // count) is computed by the wrappers (ops/dw_conv.py: plan_s2_fwd,
 // plan_act_s2_fwd, plan_mm_s2_fwd, plan_s2_dx, plan_act_dx_s2,
-// plan_mm_dx_s2, plan_s2 for both weight gradients) and checked here; a
+// plan_mm_dx_s2, plan_s2 for the plain and act weight gradients,
+// plan_mm_wgrad_s2 for the mm one) and checked here; a
 // plan the kernels do not take returns cudaErrorInvalidValue.
 
 #include "mm_strip.cuh"
@@ -1150,6 +1167,175 @@ act_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                             n_items, ipb);
 }
 
+// ---- the mm weight gradient (K10 mm) -----------------------------------------
+// Shared memory of mm_s2_wgrad_kernel: K4 mm's layout (mm_s2_fwd_layout: two
+// activated slots, the x ring, W1's columns, bn1's vectors, the table), then
+// a ring of XSTAGE_MM g frames (R rows of WB columns, gstage_elems); or the
+// column sums if larger.
+template <typename T>
+__host__ __device__ __forceinline__ int mm_s2_wgrad_smem(int R, int WB,
+                                                         int PG, int Cin,
+                                                         int W) {
+  const int ring = mm_s2_fwd_layout<T>(R, WB, PG, Cin, W).total +
+                   XSTAGE_MM * gstage_elems<T>(R, WB, PG) * (int)sizeof(T);
+  const int red = (int)sizeof(float) * 27 * WB * 2 * PG;
+  return ring > red ? ring : red;
+}
+
+// dk of a = relu((x @ W1)*sc + bi), rounded to T and zero-padded after the
+// activation: K4 mm's front end (mm_s2_fwd_kernel above) on K10 plain's back
+// end (s2_wgrad_body). Per block, once: W1's column group and bn1's
+// vectors. Per item (K10 plain's persistent walk of (sample, frame segment,
+// row strip, column tile) items): x frame f0 + i's rectangle (input rows
+// 2h0-1 .. 2h0+2R-1, columns 2w0-1 .. 2w0+2WB-1, all C_in; MmRect) staged
+// by cp.async into ring slot i % XSTAGE_MM, in one commit group with g frame
+// f0 + i (rows h0 .. h0+R-1 at the thread's own column, as S2Stager stages
+// them for K10 plain). Step i (i = 0 .. nf, between two barriers, K6 mm's
+// schedule): stage frame i + 2; conv1's product of x frame f0 + i into
+// activated slot i % 2 (mm_activate, at K4 mm's places: even input column e
+// at e/2, odd at WB+1+(e-1)/2, as S2Stager stages x for K10 plain; its relu
+// branch is every mm kernel's); the register ring takes g frame f0 + i; the
+// stencil reads activated frame f0 + i - 1 (slot (i - 1) % 2) with the ring
+// under wgrad_slots, so ring slot j holds g frame f0 + i - 2 + j as in
+// s2_wgrad_body. Rows and columns outside the frame are never written and
+// stay the zero each item clears the activated slots to. The sums, their
+// column sum and the partial row are s2_wgrad_body's, so dk equals K10 plain
+// launched with this plan on the activation, bit for bit. At most NT_DX
+// threads: the product's registers beside the 27 x 2 sums and the ring of g
+// need more than 128.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_DX, 2)
+mm_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ w1,
+                   const T* __restrict__ g, const float* __restrict__ sc,
+                   const float* __restrict__ bi, float* __restrict__ part,
+                   int Tn, int H, int W, int Ho, int Wo, int Cin, int C,
+                   Plan pl, int n_items, int ipb) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2, growlen = WB * PG2;
+  const MmLayout L = mm_s2_fwd_layout<T>(R, WB, PG, Cin, W);
+  T* act_s = reinterpret_cast<T*>(smem_raw);  // [2][2R+1][2(WB+1)][2PG]
+  T* xs = reinterpret_cast<T*>(smem_raw + L.xs_off);
+  T* wt = reinterpret_cast<T*>(smem_raw + L.wt_off);
+  float* scs = reinterpret_cast<float*>(smem_raw + L.vec_off);
+  float* bis = scs + (L.ng + 3) / 4 * 4;
+  float* kbs = bis + (L.ng + 3) / 4 * 4;
+  int* tab = reinterpret_cast<int*>(smem_raw + L.tab_off);
+  T* gring = reinterpret_cast<T*>(smem_raw + L.total);  // after the table
+  const int aslot = L.aslot / (int)sizeof(T), xslot = L.xslot / (int)sizeof(T);
+  const int gslot = gstage_elems<T>(R, WB, PG);  // g rows [R][WB][2PG]
+  const int ld = L.ld;
+
+  const int pg = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int c0 = 2 * pg * PG;
+  const bool in = wl < WB;
+  // the thread's even column wl, odd column wl and even column wl + 1
+  const int atE = wl * PG2 + 2 * pi, atO = (WB + 1) * PG2 + atE;
+
+  zero_ring(smem_raw, L.wt_off);  // both slots and the x ring
+  mm_stage_vecs(scs, bis, kbs, sc, bi, C, c0, PG2, L.ng,
+                mm_band((ld - 8) / 16, Cin));
+  mm_stage_w1<T>(wt, w1, Cin, C, c0, PG2, L.ng, ld);
+
+  float acc[27][2];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  const size_t xframe = (size_t)H * W * Cin, gframe = (size_t)Ho * Wo * C;
+  const int row = blockIdx.x;
+  const int it1 = min((row + 1) * ipb, n_items);
+  for (int item = row * ipb; item < it1; ++item) {
+    const Tile tl = pl.tile(item, pg, Tn);
+    const int r0 = 2 * tl.h0 - 1, e0 = 2 * tl.w0 - 1;
+    const MmRect mr(r0, 2 * R + 1, e0, 2 * WB + 1, H, W, Cin, ld,
+                    16 / (int)sizeof(T));
+    const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
+    // x rows of the tile from staged row 0 (input row 2h0 - 1) and column
+    // cs0, of sample b
+    const T* xb = x + (size_t)tl.b * Tn * xframe +
+                  ((long long)r0 * W + mr.cs0) * Cin;
+    const T* gb = g + (size_t)tl.b * Tn * gframe;
+    const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    // output rows of the strip, and whether the thread's column exists
+    const int nr = min(R, Ho - tl.h0);
+    const bool live = in && tl.w0 + wl < Wo;
+    // x frame f0 + i and g frame f0 + i (where they exist) into ring slot
+    // i % XSTAGE_MM, one commit group
+    auto stage = [&](int i) {
+      if (i < nf) {  // uniform across the block
+        const int ti = f0 + i;
+        if (ti >= 0 && ti < Tn)
+          mr.stage(xs + (i % XSTAGE_MM) * xslot, xb + (size_t)ti * xframe, W,
+                   Cin, ld);
+        if (ti >= tl.t0 && ti < tl.t1)
+          sg.g_rows(gring + (i % XSTAGE_MM) * gslot, gb + (size_t)ti * gframe,
+                    tl.h0, R, Ho, Wo, growlen);
+      }
+      cp_commit();
+    };
+
+    // the slots' padding is this tile's (the previous item's readers are
+    // done: the barrier closing its walk); each staged position's place
+    zero_ring(smem_raw, L.xs_off);
+    mr.table(tab, L.rows, [&](int rr, int col) {
+      const int e = col - e0;
+      return rr * rowlen + ((e & 1) * (WB + 1) + (e >> 1)) * PG2;
+    });
+    float gr[3][R][2];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
+
+    for (int i = 0; i < XSTAGE_MM - 1; ++i) stage(i);
+    for (int i = 0; i <= nf; ++i) {
+      cp_wait<XSTAGE_MM - 2>();  // this thread's copies of frame i landed
+      __syncthreads();  // and everyone's; activated slot i-1 is written;
+                        // slot i, and ring slot i-1, are read by no one
+      stage(i + XSTAGE_MM - 1);
+      const int tx = f0 + i;
+      if (i < nf && tx >= 0 && tx < Tn)
+        mm_activate<T>(act_s + (i & 1) * aslot, xs + (i % XSTAGE_MM) * xslot,
+                       wt, L, PG, mr.M, Cin, scs, bis, kbs, tab);
+      // g frame f0 + i (the thread's own copies) into the register ring
+      const bool gin = live && i < nf && tx >= tl.t0 && tx < tl.t1;
+      const T* gs = gring + (i % XSTAGE_MM) * gslot + atE;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        gr[0][r][0] = gr[1][r][0];
+        gr[0][r][1] = gr[1][r][1];
+        gr[1][r][0] = gr[2][r][0];
+        gr[1][r][1] = gr[2][r][1];
+        const float2 v =
+            gin ? load_pair(gs + r * growlen) : make_float2(0.f, 0.f);
+        gr[2][r][0] = v.x;
+        gr[2][r][1] = v.y;
+      }
+      if (i == 0) continue;
+      const int ti = tx - 1;  // the activated frame the stencil reads
+      if (ti >= 0 && ti < Tn && live) {  // frames outside the clip add
+        auto fma = [&](int j, int r, int dy, int dx, float2 v) {  // nothing
+          const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+          acc[tap][0] = fmaf(v.x, gr[j][r][0], acc[tap][0]);
+          acc[tap][1] = fmaf(v.y, gr[j][r][1], acc[tap][1]);
+        };
+        const T* slot = act_s + ((i - 1) & 1) * aslot;
+        const unsigned slots = wgrad_slots(i - 1, nf);
+        if (slots == 7u && nr == R)
+          s2_frame<T, R>(slot, rowlen, atE, atO, PG2, fma);
+        else
+          s2_frame_masked<T, R, true>(slot, rowlen, atE, atO, PG2, fma,
+                                      slots, nr);
+      }
+    }
+    cp_wait<0>();
+    __syncthreads();  // the next item clears the slots and the table
+  }
+  wgrad_partials(acc, part, smem_raw, WB, PG, C);
+}
+
 // ---- launchers -----------------------------------------------------------------
 
 // Dynamic shared memory: the forward's ring of x frames (the act mode's
@@ -1253,6 +1439,15 @@ decltype(&mm_s2_dx_kernel<T, RMAX>) mm_dx_kernel_of(int R) {
     case 2: return mm_s2_dx_kernel<T, 2>;
     case 3: return mm_s2_dx_kernel<T, 3>;
     case 4: return mm_s2_dx_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&mm_s2_wgrad_kernel<T, RMAX>) mm_wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return mm_s2_wgrad_kernel<T, 2>;
+    case 3: return mm_s2_wgrad_kernel<T, 3>;
+    case 4: return mm_s2_wgrad_kernel<T, 4>;
   }
   return nullptr;
 }
@@ -1426,6 +1621,38 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
   return (int)cudaGetLastError();
 }
 
+// The weight gradient of relu((x @ W1)*sc + bi) (K10 mm): x (B, T, H, W,
+// C_in) with C_in % 8 == 0 and 16-byte aligned; the split is over g (B, T,
+// Ho, Wo, C), a persistent grid of rows blocks per channel group, as K10
+// plain's.
+template <typename T>
+int launch_mm_wgrad(const void* x, const void* w1, const void* g,
+                    const void* sc, const void* bi, void* part, int B, int Tn,
+                    int H, int W, int Cin, int C, int R, int WB, int PG,
+                    int TT, int ipb, int rows, cudaStream_t st) {
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
+  Plan p;  // over the output's rows and columns; g is staged a pair at a time
+  if (!make_plan<T>(p, (uintptr_t)g, B, Tn, Ho, Wo, C, R, WB, PG, TT) ||
+      WB * PG > NT_DX || ipb < 1 || Cin < 8 || Cin % 8 || (uintptr_t)x % 16)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_tseg * p.n_strip * p.n_wt;
+  // every block has an item, and the blocks cover them all
+  if (rows < 1 || (long long)rows * ipb < items ||
+      (long long)(rows - 1) * ipb >= items)
+    return (int)cudaErrorInvalidValue;
+  const int smem = mm_s2_wgrad_smem<T>(R, WB, PG, Cin, W);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = mm_wgrad_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w1),
+      static_cast<const T*>(g), static_cast<const float*>(sc),
+      static_cast<const float*>(bi), static_cast<float*>(part), Tn, H, W, Ho,
+      Wo, Cin, C, p, (int)items, ipb);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int occupancy(int kind, int R, int WB, int PG) {
   if (R < RMIN || R > RMAX || WB < 1 || PG < 1 ||
@@ -1455,16 +1682,22 @@ int occupancy(int kind, int R, int WB, int PG) {
   return -1;
 }
 
-// Blocks per SM the mm forward (dx: false) or the masked dx reaches at a
-// plan (R, WB, PG; TT: the dx's mask slots), C_in and x's width W, or -1
-// where it does not take them.
-template <typename T, bool DX>
+// Blocks per SM the mm forward (KIND 0), the masked dx (1) or the weight
+// gradient (2) reaches at a plan (R, WB, PG; TT: the dx's mask slots), C_in
+// and x's width W, or -1 where it does not take them.
+template <typename T, int KIND>
 int mm_occupancy(int R, int WB, int PG, int TT, int Cin, int W) {
   if (R < RMIN || R > RMAX || WB < 1 || PG < 1 || TT < 1 ||
       WB * PG > NT_DX || Cin < 8 || W < 1)
     return -1;
   const int threads = (WB * PG + 31) / 32 * 32;
-  if (DX) {
+  if constexpr (KIND == 2) {
+    const int smem = mm_s2_wgrad_smem<T>(R, WB, PG, Cin, W);
+    return smem > SMEM_MAX ? -1
+                           : blocks_per_sm(mm_wgrad_kernel_of<T>(R), smem,
+                                           threads);
+  }
+  if constexpr (KIND == 1) {
     const int smem = mm_s2_dx_layout<T>(R, WB, PG, Cin, W, TT).total;
     return smem > SMEM_MAX ? -1
                            : blocks_per_sm(mm_dx_kernel_of<T>(R), smem,
@@ -1607,20 +1840,47 @@ extern "C" int dw_mm_dx_mask_s2(const void* g, const void* x, const void* w1,
                              WB, PG, TT, st);
 }
 
+// The mm entry's weight gradient (K10 mm): dk of a = relu((x @ W1)*sc + bi)
+// rounded to x's dtype, zero-padded; x (B,T,H,W,Cin) is conv1's input, w1
+// (Cin,C) its weight, g (B,T,(H-1)/2+1,(W-1)/2+1,C); sc and bi are f32
+// (C,). The split is over g (ops/dw_conv.py: plan_mm_wgrad_s2; WB * PG at
+// most 192); part is (rows, 27, C) f32, block row r walking items
+// [r*IPB, (r+1)*IPB) as dw_conv_wgrad_s2's.
+extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
+                              const void* sc, const void* bi, void* part,
+                              int B, int T, int H, int W, int Cin, int C,
+                              int R, int WB, int PG, int TT, int ipb,
+                              int rows, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_mm_wgrad<__nv_bfloat16>(x, w1, g, sc, bi, part, B, T, H, W,
+                                          Cin, C, R, WB, PG, TT, ipb, rows,
+                                          st);
+  return launch_mm_wgrad<float>(x, w1, g, sc, bi, part, B, T, H, W, Cin, C,
+                                R, WB, PG, TT, ipb, rows, st);
+}
+
 // Blocks per SM mm_s2_fwd_kernel reaches at a plan (R, WB, PG), C_in and
 // x's width W, with its threads and shared memory, or -1 where it does not
 // take them.
 extern "C" int dw_mm_act_s2_occupancy(int R, int WB, int PG, int Cin, int W,
                                       int is_bf16) {
-  return is_bf16 ? mm_occupancy<__nv_bfloat16, false>(R, WB, PG, 1, Cin, W)
-                 : mm_occupancy<float, false>(R, WB, PG, 1, Cin, W);
+  return is_bf16 ? mm_occupancy<__nv_bfloat16, 0>(R, WB, PG, 1, Cin, W)
+                 : mm_occupancy<float, 0>(R, WB, PG, 1, Cin, W);
 }
 
 // ... and mm_s2_dx_kernel at a plan (R, WB, PG, TT), C_in and x's width W.
 extern "C" int dw_mm_dx_mask_s2_occupancy(int R, int WB, int PG, int TT,
                                           int Cin, int W, int is_bf16) {
-  return is_bf16 ? mm_occupancy<__nv_bfloat16, true>(R, WB, PG, TT, Cin, W)
-                 : mm_occupancy<float, true>(R, WB, PG, TT, Cin, W);
+  return is_bf16 ? mm_occupancy<__nv_bfloat16, 1>(R, WB, PG, TT, Cin, W)
+                 : mm_occupancy<float, 1>(R, WB, PG, TT, Cin, W);
+}
+
+// ... and mm_s2_wgrad_kernel at a plan (R, WB, PG), C_in and x's width W.
+extern "C" int dw_mm_wgrad_s2_occupancy(int R, int WB, int PG, int Cin, int W,
+                                        int is_bf16) {
+  return is_bf16 ? mm_occupancy<__nv_bfloat16, 2>(R, WB, PG, 1, Cin, W)
+                 : mm_occupancy<float, 2>(R, WB, PG, 1, Cin, W);
 }
 
 // Blocks per SM a kernel reaches at a plan (R, WB, PG), with its threads and

@@ -2,18 +2,19 @@
 // (dw_mm_act.cu, mm_fwd_s1_kernel, K1 mm; dw_plain_s2.cu,
 // mm_s2_fwd_kernel, K4 mm), the masked dx (dw_dx_s1.cu, mm_dx_s1_kernel,
 // K2; dw_plain_s2.cu, mm_s2_dx_kernel, K9) and the stride-1 mm weight
-// gradient (dw_plain_s1.cu, mm_wgrad_s1_kernel, K6 mm): W1's column group
-// and bn1's apply vectors staged once per block, and the product of one
-// staged x frame with its relu inputs, each within mm_band of 0 settled
-// against mm_prologue's sum. All five call the same code, so the forwards'
-// activation, the masked dx's mask and the weight gradient's activation
-// take one relu branch, element for element (a flipped mask is an O(1)
-// error in dx). All five also stage a rectangle of x the same way
-// (MmRect, each with its own places) in one shared-memory layout from the x
-// ring on (mm_front); the forwards and K6 mm activate into a slot
-// (mm_activate: K1 mm's and K6 mm's [R+2][WB+2][2PG], mm_layout; K4 mm's
-// in the stride-2 kernels' de-interleaved layout), and K2 and K9 take
-// their masks in one phase (mm_masks).
+// gradients (dw_plain_s1.cu, mm_wgrad_s1_kernel, K6 mm; dw_plain_s2.cu,
+// mm_s2_wgrad_kernel, K10 mm): W1's column group and bn1's apply vectors
+// staged once per block, and the product of one staged x frame with its
+// relu inputs, each within mm_band of 0 settled against mm_z_fmaf's
+// in-order sum. All six call the same code, so the forwards' activation,
+// the masked dx's mask and the weight gradients' activation take one relu
+// branch, element for element (a flipped mask is an O(1) error in dx). All
+// six also stage a rectangle of x the same way (MmRect, each with its own
+// places) in one shared-memory layout from the x ring on (mm_front); the
+// forwards and the weight gradients activate into a slot (mm_activate: K1
+// mm's and K6 mm's [R+2][WB+2][2PG], mm_layout; K4 mm's and K10 mm's in
+// the stride-2 kernels' de-interleaved layout), and K2 and K9 take their
+// masks in one phase (mm_masks).
 
 #pragma once
 
@@ -149,7 +150,7 @@ __device__ __forceinline__ void mm_strip_product(
 }
 
 // x frames in the mm kernels' staging ring (mm_fwd_s1_kernel,
-// mm_wgrad_s1_kernel, mm_s2_fwd_kernel, mm_masks)
+// mm_wgrad_s1_kernel, mm_s2_fwd_kernel, mm_s2_wgrad_kernel, mm_masks)
 constexpr int XSTAGE_MM = 3;
 
 // The shared memory of a row-strip mm kernel from its x ring on (mm_front):
@@ -211,7 +212,8 @@ __host__ __device__ __forceinline__ MmLayout mm_layout(int R, int WB, int PG,
 // frame) at input column cs0 + col, all C_in channels, rows of ld
 // elements; the product reads the M positions up to the frame's last row.
 // K1 mm and K6 mm stage rows h0-1 .. h0+R+1 and columns w0-1 .. w0+WB+1,
-// K4 mm rows 2h0-1 .. 2h0+2R and columns 2w0-1 .. 2w0+2WB, the masked dx
+// K4 mm and K10 mm rows 2h0-1 .. 2h0+2R and columns 2w0-1 .. 2w0+2WB, the
+// masked dx
 // (mm_masks) the dx positions a block writes.
 struct MmRect {
   int cs0, ncs, M, rlo, rhi, n16, nch, my_src, my_dst;

@@ -1,13 +1,14 @@
 // The row-strip layout shared by the stride-1 plain, act and mm-weight-
 // gradient kernels (dw_plain_s1.cu), the stride-2 plain and act kernels
 // (dw_plain_s2.cu), the mm forwards and masked dx of both strides
-// (dw_mm_act.cu, dw_plain_s2.cu, dw_dx_s1.cu): a block owns
+// (dw_mm_act.cu, dw_plain_s2.cu, dw_dx_s1.cu) and the stride-2 mm weight
+// gradient (dw_plain_s2.cu): a block owns
 // R rows x WB columns x PG channel pairs of one sample over TT frames; rows
 // are staged into shared memory by cp.async in the tensor's dtype; a thread
 // owns one channel pair at one column. The split is computed by the wrappers
 // (ops/dw_conv.py: plan_s1, plan_s2_fwd, plan_act_s2_fwd, plan_s2_dx,
 // plan_act_dx_s2, plan_s2, plan_mm_s1, plan_mm_wgrad_s1, plan_act_dx_s1,
-// plan_mm_dx_s1, plan_mm_s2_fwd, plan_mm_dx_s2).
+// plan_mm_dx_s1, plan_mm_s2_fwd, plan_mm_dx_s2, plan_mm_wgrad_s2).
 
 #pragma once
 
@@ -17,8 +18,8 @@ namespace cfn {
 
 constexpr int NT_MAX = 256;  // threads per block at most (WB * PG)
 // threads per block at most in the masked dx kernels (dw_dx_s1.cu, the act
-// and mm dx of dw_plain_s2.cu), K6 mm and K4 mm: at two blocks per SM a
-// sub-partition holds 3 warps, so a thread may hold 168 registers
+// and mm dx of dw_plain_s2.cu), K6 mm, K4 mm and K10 mm: at two blocks per
+// SM a sub-partition holds 3 warps, so a thread may hold 168 registers
 constexpr int NT_DX = 192;
 constexpr int RMIN = 2;      // output rows per strip: a template argument
 constexpr int RMAX = 4;      // in [RMIN, RMAX]

@@ -55,9 +55,11 @@ place a frame ahead of the stencil, with :func:`plan_s1`; ``dw_act_s2``
 :mod:`.dw_mm_act`: K1 ``mm``'s product on K6 plain's walk, with
 :func:`plan_mm_wgrad_s1`), and ``dw_plain_s2.cu`` ``dw_mm_act_s2`` (K4
 ``mm`` of :mod:`.dw_mm_act`: K1 ``mm``'s product on K4 plain's strips and
-stencil, with :func:`plan_mm_s2_fwd`) and ``dw_mm_dx_mask_s2`` (K9 of
+stencil, with :func:`plan_mm_s2_fwd`), ``dw_mm_dx_mask_s2`` (K9 of
 :mod:`.dw_mm_bn_train`: K8's body with K2's mask phase, with
-:func:`plan_mm_dx_s2`).  The row-strip weight gradients add ``x·g``
+:func:`plan_mm_dx_s2`) and ``dw_mm_wgrad_s2`` (K10 mm of
+:mod:`.dw_mm_act`: K4 ``mm``'s product on K10 plain's walk, with
+:func:`plan_mm_wgrad_s2`).  The row-strip weight gradients add ``x·g``
 only where g exists in the item (``wgrad_slots``, ``csrc/strip.cuh``), so a
 NaN of x reaches the taps it reaches in the plain versions, no others.
 
@@ -88,8 +90,8 @@ from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
 # (the forward K1 act and the weight gradient K6 act; the forward K4 act,
 # the dx K5 and the weight gradient K10 act), the stride-1 one the mm mode
 # of its weight gradient, K6 mm of :mod:`.dw_mm_act`, and the stride-2 one
-# the mm modes of its forward and dx, K4 mm of :mod:`.dw_mm_act` and K9 of
-# :mod:`.dw_mm_bn_train`
+# the mm modes of its forward, dx and weight gradient, K4 mm and K10 mm of
+# :mod:`.dw_mm_act` and K9 of :mod:`.dw_mm_bn_train`
 LIBRARY = CudaLibrary("dw_plain_s1.cu", {
     "dw_conv_s1": [P] * 3 + [I] * 10 + [P],
     "dw_act_s1": [P] * 5 + [I] * 10 + [P],
@@ -111,6 +113,8 @@ LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_mm_act_s2_occupancy": [I] * 6,
     "dw_mm_dx_mask_s2": [P] * 7 + [I] * 11 + [P],
     "dw_mm_dx_mask_s2_occupancy": [I] * 7,
+    "dw_mm_wgrad_s2": [P] * 6 + [I] * 13 + [P],
+    "dw_mm_wgrad_s2_occupancy": [I] * 6,
 })
 # every source of the bottleneck's depthwise kernels: the entry's (eval
 # and train) and the split route's
@@ -438,25 +442,31 @@ def plan_mm_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
     rows, columns and channel pairs over the output ``(B, T, H, W,
     C_mid)``, the pairs cut into more groups where a block's shared memory
     (:func:`smem_mm_s1`, W1's columns are ``C_in`` deep) would pass the
-    card's limit; and its own frames per segment.  A segment of ``tt``
-    frames stages and multiplies ``tt + 2`` input frames, and the blocks
-    run in rounds of two per SM, so ``tt`` (equal segments, down to 1
-    frame) minimises rounds × (``tt`` + 2 + ``MM_SETUP_FRAMES``); ties go
-    to the longer segment."""
+    card's limit; and the mm kernels' frame segments
+    (:func:`_mm_segments`)."""
     base = plan_s1(b, t, h, w, c_mid)
     p2 = _cdiv(c_mid, 2)
     n_pg = base.n_pg
     while smem_mm_s1(base, c_in, esz) > SMEM_MAX and base.pg > 1:
         n_pg += 1
         base = base._replace(pg=_cdiv(p2, n_pg))
+    return _mm_segments(base)._replace(ipb=1, rows=1)
+
+
+def _mm_segments(plan: PlanS1) -> PlanS1:
+    """``plan`` with the mm kernels' frame segments: a segment of ``tt``
+    frames stages and multiplies ``tt + 2`` input frames, and the blocks
+    run in rounds of two per SM, so ``tt`` (equal segments, down to 1
+    frame) minimises rounds × (``tt`` + 2 + ``MM_SETUP_FRAMES``); ties go
+    to the longer segment."""
     best = None
-    for n in range(1, t + 1):
-        tt = _cdiv(t, n)
-        blocks = base._replace(tt=tt).items * base.n_pg
+    for n in range(1, plan.t + 1):
+        tt = _cdiv(plan.t, n)
+        blocks = plan._replace(tt=tt).items * plan.n_pg
         cost = _cdiv(blocks, 2 * SMS) * (tt + 2 + MM_SETUP_FRAMES)
         if best is None or cost < best[0]:
             best = (cost, tt)
-    return base._replace(tt=best[1], ipb=1, rows=1)
+    return plan._replace(tt=best[1])
 
 
 def smem_mm_s1(plan: PlanS1, c_in: int, esz: int) -> int:
@@ -561,7 +571,7 @@ def plan_mm_dx_s1(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
                         lambda p: smem_dx_s1(p, c_in, esz, True), TT_MM)
 
 
-# ---- the stride-2 mm kernels' work splits (K4 mm and K9, dw_plain_s2.cu) ------
+# ---- the stride-2 mm kernels' work splits (K4 mm, K9, K10 mm; dw_plain_s2.cu) --
 
 # an SM's shared memory on the H100: a block's limit and the 1 KB the
 # runtime keeps for each block
@@ -594,23 +604,28 @@ def smem_mm_dx_s2(plan: PlanS1, c_in: int, esz: int, w: int) -> int:
             + plan.tt * mask)
 
 
-@lru_cache(maxsize=None)
-def plan_mm_s2_fwd(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
-                   esz: int) -> PlanS1:
-    """The work split of ``dw_mm_act_s2`` (K4 mm) for x ``(B, T, H, W,
-    C_in)`` of ``esz``-byte elements and ``C_mid`` output channels:
-    :func:`_strips` over the output ``(⌈H/2⌉, ⌈W/2⌉)``, channel pairs first
-    in groups of at most ``DX_PG`` (each group stages all of x's C_in, so
-    wide groups stage it fewer times) and at most ``NT_DX`` threads (the
-    taps and sums stay live through the product).  While a block's shared
-    memory (:func:`smem_mm_s2_fwd`) would keep two blocks off an SM, the
-    strips lose a row (down to ``RMIN``), then the column tiles narrow, then
-    the pairs are cut into more groups.  Its frames per segment are
-    :func:`plan_mm_s1`'s: the fewest rounds × (``tt`` + 2 +
-    ``MM_SETUP_FRAMES``)."""
+def smem_mm_wgrad_s2(plan: PlanS1, c_in: int, esz: int, w: int) -> int:
+    """Dynamic shared memory per block of ``dw_mm_wgrad_s2`` (K10 mm) for x
+    of width ``w``, in bytes, as its launcher sizes it
+    (``mm_s2_wgrad_smem``): :func:`smem_mm_s2_fwd`'s layout, then a ring of
+    ``XSTAGE`` g frames ``[R][WB][2PG]``; or the column sums if larger."""
+    g = XSTAGE * _pad16(plan.r * plan.wb * 2 * plan.pg * esz)
+    return max(smem_mm_s2_fwd(plan, c_in, esz, w) + g,
+               4 * 27 * plan.wb * 2 * plan.pg)
+
+
+def _mm_s2_tiles(b: int, t: int, h: int, w: int, c_mid: int, smem) -> PlanS1:
+    """The tiles of the stride-2 mm kernels that stage x's rectangle over
+    the output (K4 mm, K10 mm): :func:`_strips` over the output ``(⌈H/2⌉,
+    ⌈W/2⌉)``, channel pairs first in groups of at most ``DX_PG`` (each
+    group stages all of x's C_in, so wide groups stage it fewer times) and
+    at most ``NT_DX`` threads (the product's registers beside the stencil's).
+    While ``smem(plan)``, the block's shared memory, would keep two blocks
+    off an SM, the strips lose a row (down to ``RMIN``), then the column
+    tiles narrow, then the pairs are cut into more groups."""
     ho, wo = _out_hw(h, w, 2)
     plan = _strips(b, t, ho, wo, c_mid, pg_max=DX_PG, nt=NT_DX)
-    while smem_mm_s2_fwd(plan, c_in, esz, w) > SMEM_PAIR:
+    while smem(plan) > SMEM_PAIR:
         if plan.r > RMIN:
             plan = plan._replace(r=plan.r - 1)
         elif plan.wb > 2:
@@ -619,14 +634,35 @@ def plan_mm_s2_fwd(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
             plan = _narrower(plan)
         else:
             break
-    best = None
-    for n in range(1, t + 1):
-        tt = _cdiv(t, n)
-        blocks = plan._replace(tt=tt).items * plan.n_pg
-        cost = _cdiv(blocks, 2 * SMS) * (tt + 2 + MM_SETUP_FRAMES)
-        if best is None or cost < best[0]:
-            best = (cost, tt)
-    return plan._replace(tt=best[1], ipb=1, rows=1)
+    return plan
+
+
+@lru_cache(maxsize=None)
+def plan_mm_s2_fwd(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                   esz: int) -> PlanS1:
+    """The work split of ``dw_mm_act_s2`` (K4 mm) for x ``(B, T, H, W,
+    C_in)`` of ``esz``-byte elements and ``C_mid`` output channels:
+    :func:`_mm_s2_tiles` with its shared memory (:func:`smem_mm_s2_fwd`)
+    and the mm kernels' frame segments (:func:`_mm_segments`)."""
+    return _mm_segments(_mm_s2_tiles(
+        b, t, h, w, c_mid, lambda p: smem_mm_s2_fwd(p, c_in, esz, w)))._replace(
+            ipb=1, rows=1)
+
+
+@lru_cache(maxsize=None)
+def plan_mm_wgrad_s2(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
+                     esz: int) -> PlanS1:
+    """The work split of ``dw_mm_wgrad_s2`` (K10 mm, K4 mm's product on K10
+    plain's walk) for x ``(B, T, H, W, C_in)`` of ``esz``-byte elements and
+    g ``(B, T, ⌈H/2⌉, ⌈W/2⌉, C_mid)``: :func:`_mm_s2_tiles` with its shared
+    memory (:func:`smem_mm_wgrad_s2`: x's rectangle of 2R+1 rows and 2WB+1
+    columns, all C_in, three frames deep, does not fit :func:`plan_s2`'s
+    full-width tiles), the mm kernels' frame segments (:func:`_mm_segments`:
+    each segment multiplies two frames more than it has) and
+    :func:`plan_s2`'s persistent grid.  K10 plain takes the same plan, and
+    then walks each channel's items in K10 mm's order."""
+    return _persistent(_mm_segments(_mm_s2_tiles(
+        b, t, h, w, c_mid, lambda p: smem_mm_wgrad_s2(p, c_in, esz, w))))
 
 
 @lru_cache(maxsize=None)

@@ -24,8 +24,9 @@ Kernels (CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use into
 * ``dw_mm_wgrad_s1``/``dw_mm_wgrad_s2``: :func:`dw_mm_wgrad`, in
   ``csrc/dw_plain_s1.cu`` (K6 mm: K1 ``mm``'s product on K6 plain's
   persistent walk, with the work split of
-  :func:`..dw_conv.plan_mm_wgrad_s1`) and ``csrc/dw_act_bwd.cu`` (K10 mm,
-  the tile kernel).
+  :func:`..dw_conv.plan_mm_wgrad_s1`) and ``csrc/dw_plain_s2.cu`` (K10
+  mm: K4 ``mm``'s product on K10 plain's persistent walk, with the work
+  split of :func:`..dw_conv.plan_mm_wgrad_s2`).
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor, which defines the
 semantics, and launches its kernel on a CUDA tensor, or raises.
@@ -45,15 +46,6 @@ LIBRARY = CudaLibrary("dw_mm_act.cu", {
     "dw_mm_act_s1_occupancy": [I] * 6,
 })
 SOURCE = LIBRARY.source
-# The backward source: this module's stride-2 weight gradient, K10 mm (the
-# stride-1 one, K6 mm, is in :mod:`.dw_conv`'s ``LIBRARY``, and the
-# stride-2 masked dx of :mod:`.dw_mm_bn_train`, K9, in its ``LIBRARY_S2``;
-# the act entry's whole backward is in the plain sources and
-# ``dw_dx_s1.cu``).
-BWD_LIBRARY = CudaLibrary("dw_act_bwd.cu", {
-    "dw_act_partial_rows": [I] * 6,
-    "dw_mm_wgrad_s2": [P] * 6 + [I] * 7 + [P],
-})
 # The stride-1 dx of both train entries (K3 of :mod:`.dw_act`, K2 of
 # :mod:`.dw_mm_bn_train`), on the row-strip layout with the work splits of
 # :func:`..dw_conv.plan_act_dx_s1` and :func:`..dw_conv.plan_mm_dx_s1`.
@@ -62,15 +54,14 @@ DX_S1_LIBRARY = CudaLibrary("dw_dx_s1.cu", {
     "dw_mm_dx_mask_s1": [P] * 7 + [I] * 11 + [P],
     "dw_dx_s1_occupancy": [I] * 8,
 })
-LIBRARIES = (LIBRARY, BWD_LIBRARY, DX_S1_LIBRARY)
+# (this module's weight gradients, K6 and K10 mm, are in :mod:`.dw_conv`'s
+# ``LIBRARY`` and ``LIBRARY_S2``, with their plain twins)
+LIBRARIES = (LIBRARY, DX_S1_LIBRARY)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by the plain version).
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
-# row-count selector of dw_act_partial_rows in csrc/dw_act_bwd.cu (the
-# weight gradient at stride 2; the one at stride 1 has its plan's rows)
-_ROWS_KIND = {"dw_mm_wgrad_s2": 2}
 
 
 def reset_launches() -> None:
@@ -85,17 +76,6 @@ def _launch(counts, lib, name, x, *args):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
     counts[name] += 1
-
-
-def _partials(name, x, k, c=None):
-    """The f32 ``(rows, k, C)`` per-block partial-sum buffer of backward
-    entry ``name`` over x ``(B, T, H, W, ·)``; C is x's channels unless
-    given."""
-    b, t, h, w, cx = x.shape
-    c = cx if c is None else c
-    rows = BWD_LIBRARY.build().dw_act_partial_rows(_ROWS_KIND[name], b, t, h,
-                                                   w, c)
-    return torch.empty((rows, k, c), dtype=torch.float32, device=x.device)
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -284,8 +264,9 @@ def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
     :func:`dw_mm_wgrad_plain`), ``(27, C_mid)`` f32; ``g`` is dL/dy (y's
     shape, x's dtype).  A CPU tensor takes the plain version; a CUDA tensor
     launches ``dw_mm_wgrad_s1`` or ``dw_mm_wgrad_s2`` (per-block partial
-    sums, added with one ``torch.sum``; at stride 1 with the work split of
-    :func:`..dw_conv.plan_mm_wgrad_s1`), or raises."""
+    sums, added with one ``torch.sum``; with the work split of
+    :func:`..dw_conv.plan_mm_wgrad_s1` or
+    :func:`..dw_conv.plan_mm_wgrad_s2`), or raises."""
     _check(x, w1, None, sc, bi, stride, g)
     if x.device.type == "cpu":
         return dw_mm_wgrad_plain(x, w1, g, sc, bi, stride)
@@ -294,23 +275,18 @@ def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
         return torch.zeros((27, w1.shape[1]), device=x.device)
     b, t, h, w, c_in = x.shape
     c_mid = w1.shape[1]
-    args = (x.data_ptr(), w1.data_ptr(), g.data_ptr(), sc.data_ptr(),
-            bi.data_ptr())
-    if stride == 1:
-        # .dw_conv builds on this module's libraries: imported here
-        from . import dw_conv
+    # .dw_conv builds on this module's libraries: imported here
+    from . import dw_conv
 
-        p = dw_conv.plan_mm_wgrad_s1(b, t, h, w, c_in, c_mid,
-                                     x.element_size())
-        part = torch.empty((p.rows, 27, c_mid), dtype=torch.float32,
-                           device=x.device)
-        _launch(LAUNCHES, dw_conv.LIBRARY, "dw_mm_wgrad_s1", x, *args,
-                part.data_ptr(), b, t, h, w, c_in, c_mid, p.r, p.wb, p.pg,
-                p.tt, p.ipb, p.rows)
-    else:
-        part = _partials("dw_mm_wgrad_s2", x, 27, c_mid)
-        _launch(LAUNCHES, BWD_LIBRARY, "dw_mm_wgrad_s2", x, *args,
-                part.data_ptr(), b, t, h, w, c_in, c_mid)
+    lib, plan = ((dw_conv.LIBRARY, dw_conv.plan_mm_wgrad_s1) if stride == 1
+                 else (dw_conv.LIBRARY_S2, dw_conv.plan_mm_wgrad_s2))
+    p = plan(b, t, h, w, c_in, c_mid, x.element_size())
+    part = torch.empty((p.rows, 27, c_mid), dtype=torch.float32,
+                       device=x.device)
+    _launch(LAUNCHES, lib, f"dw_mm_wgrad_s{stride}", x, x.data_ptr(),
+            w1.data_ptr(), g.data_ptr(), sc.data_ptr(), bi.data_ptr(),
+            part.data_ptr(), b, t, h, w, c_in, c_mid, p.r, p.wb, p.pg, p.tt,
+            p.ipb, p.rows)
     return torch.sum(part, dim=0)
 
 

@@ -21,14 +21,19 @@ Kernels (CUDA C++ for ``sm_90a`` in ``csrc/dw_stencil.cu``, :mod:`._build`):
 * ``dw_stencil_s1`` (K11, ``_dw_pallas_raw`` → ``_stencil_kernel``) and
   ``dw_stencil_s2`` (K7, ``dw_fold.py:_dw_fold4_s2_raw``): :func:`dw_stencil3d`;
 * ``dw_stencil_wgrad`` (the per-tap reduce of ``_dw_bwd``, which the JAX
-  package leaves to XLA): :func:`dw_stencil_wgrad`, per-block partial sums
-  added with one ``torch.sum``.
+  package leaves to XLA): :func:`dw_stencil_wgrad`, a thread per vector of
+  channels at a pixel, a persistent grid of block rows
+  (:func:`plan_stencil_wgrad` mirrors its split), partial sums added with
+  one ``torch.sum``.
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -38,7 +43,7 @@ from .dw_conv import dw_conv_dx_s2, dw_conv_wgrad
 from .dw_mm_act import _launch
 
 LIBRARY = CudaLibrary("dw_stencil.cu", {
-    "dw_stencil_partial_rows": [I] * 4,
+    "dw_stencil_partial_rows": [I] * 7,
     "dw_stencil_s1": [P] * 3 + [I] * 8 + [P],
     "dw_stencil_s2": [P] * 3 + [I] * 6 + [P],
     "dw_stencil_wgrad": [P] * 3 + [I] * 8 + [P],
@@ -53,6 +58,11 @@ MAX_KT, MAX_KS = 7, 3
 LAUNCHES = {"dw_stencil_s1": 0, "dw_stencil_s2": 0, "dw_stencil_wgrad": 0}
 
 S1, S2 = (1, 1, 1), (1, 2, 2)
+
+# The taps' gradient's work split (``wg_plan`` in ``csrc/dw_stencil.cu``):
+# threads per block at most, the persistent grid's blocks (two per SM of the
+# H100's 132), frames per segment at least where T is split
+WG_THREADS, WG_BLOCKS, WG_TT_MIN = 192, 264, 8
 
 
 def reset_launches() -> None:
@@ -176,6 +186,60 @@ def dw_stencil3d(x: torch.Tensor, w: torch.Tensor,
 
 # ---- the taps' gradient at stride 1 ------------------------------------------
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class StencilWgradPlan(NamedTuple):
+    """How ``dw_stencil_wgrad`` splits x ``(B, T, H, W, C)``: a thread
+    owns ``v`` consecutive channels at one pixel; a block ``nvb`` such
+    vectors (a channel group; ``n_cg`` groups) at ``pp`` pixels, thread
+    ``tid`` at pixel ``tid // nvb``; items are (sample, segment of ``tt``
+    frames, range of ``pp`` pixels), ranges fastest; block row ``r`` walks
+    items ``[r·ipb, (r+1)·ipb)`` of every group and writes row ``r`` of the
+    ``(rows, taps, C)`` partials."""
+    v: int
+    nvb: int
+    n_cg: int
+    pp: int
+    tt: int
+    n_tseg: int
+    npr: int
+    items: int
+    ipb: int
+    rows: int
+
+    @property
+    def threads(self) -> int:
+        return self.pp * self.nvb
+
+
+@lru_cache(maxsize=None)
+def plan_stencil_wgrad(b: int, t: int, h: int, w: int, c: int, kt: int,
+                       ks: int) -> StencilWgradPlan:
+    """The source's ``wg_plan`` for x ``(B, T, H, W, C)`` and taps ``kt ×
+    ks × ks``: vectors of 8 channels for ``ks`` 1 up to ``kt`` 5 (fewer
+    beyond, whose sums would not fit in registers: ``wg_vec``), whole warps
+    of whole pixels where 32 pixels fit in ``WG_THREADS``, frames halved
+    (down to ``WG_TT_MIN``) until there are ``WG_BLOCKS`` items, about
+    ``WG_BLOCKS`` block rows."""
+    v = (8 if kt <= 5 else 4) if ks == 1 else 2 if kt <= 3 else 1
+    nv = _cdiv(c, v)
+    nvb = min(nv, WG_THREADS)
+    n_cg = _cdiv(nv, nvb)
+    pp = (WG_THREADS // (32 * nvb) * 32 if 32 * nvb <= WG_THREADS
+          else WG_THREADS // nvb)
+    npr = _cdiv(h * w, pp)
+    tt = t
+    while tt > WG_TT_MIN and b * _cdiv(t, tt) * npr < WG_BLOCKS:
+        tt = max(WG_TT_MIN, _cdiv(tt, 2))
+    n_tseg = _cdiv(t, tt)
+    items = b * n_tseg * npr
+    ipb = _cdiv(items, min(items, max(1, WG_BLOCKS // n_cg)))
+    return StencilWgradPlan(v, nvb, n_cg, pp, tt, n_tseg, npr, items, ipb,
+                            _cdiv(items, ipb))
+
+
 def dw_stencil_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
                            ksize) -> torch.Tensor:
     """The per-tap reduce of ``_dw_bwd``: ``dk[tap, c] = Σ_pos
@@ -197,8 +261,8 @@ def dw_stencil_wgrad(x: torch.Tensor, g: torch.Tensor,
     """The taps' gradient of :func:`dw_stencil3d` at stride 1 for taps of
     shape ``ksize`` (see :func:`dw_stencil_wgrad_plain`), ``(KT·KH·KW, C)``
     f32.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``dw_stencil_wgrad`` (per-block partial sums, added with one
-    ``torch.sum``), or raises."""
+    ``dw_stencil_wgrad`` (a partial row per block row of its persistent
+    grid, added with one ``torch.sum``), or raises."""
     ksize = tuple(ksize)
     _check(x, None, S1, g, ksize)
     if x.device.type == "cpu":
@@ -207,7 +271,8 @@ def dw_stencil_wgrad(x: torch.Tensor, g: torch.Tensor,
     if not g.numel():
         return torch.zeros((taps, x.shape[-1]), device=x.device)
     b, t, h, w, c = x.shape
-    rows = LIBRARY.build().dw_stencil_partial_rows(b, t, h, w)
+    rows = LIBRARY.build().dw_stencil_partial_rows(b, t, h, w, c, ksize[0],
+                                                   ksize[1])
     part = torch.empty((rows, taps, c), dtype=torch.float32, device=x.device)
     _launch(LAUNCHES, LIBRARY, "dw_stencil_wgrad", x, x.data_ptr(),
             g.data_ptr(), part.data_ptr(), b, t, h, w, c, ksize[0], ksize[1])

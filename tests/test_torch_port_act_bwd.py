@@ -31,7 +31,8 @@ the activated x, each with a difference of 0.
   padding of a for sc of either sign or 0, with an in-frame NaN kept.
 * The wrappers take the plain versions on the CPU and count no launch; the
   bindings match the C declarations; the constants the plans mirror are the
-  sources'; no act kernel is left in ``dw_act_bwd.cu``.
+  sources'; the entry backward's tile source (``dw_act_bwd.cu``) and the
+  tile layout are gone: every weight gradient is a row-strip body's.
 """
 
 import ctypes
@@ -48,7 +49,7 @@ from coarse_fine_networks_tpu.ops.fold import (FOLD, fold_pad, from_fold4,
                                                pad_vec, to_fold4)
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
     _dw_fold4_wgrad_raw, _dx_s2_act_raw, _prep_lane_weights)
-from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_mm_act
+from coarse_fine_networks_torch.ops import dw_act, dw_conv, dw_stencil
 from coarse_fine_networks_torch.ops.dw_act import (_activate, dw_act_dx,
                                                    dw_act_dx_plain,
                                                    dw_act_wgrad,
@@ -436,8 +437,9 @@ def test_wrappers_cpu_take_plain_and_count_nothing(dtype):
 BOUND = [(dw_conv.LIBRARY, "dw_act_wgrad_s1"),
          (dw_conv.LIBRARY, "dw_plain_s1_occupancy"),
          (dw_conv.LIBRARY_S2, "dw_act_dx_s2"),
-         (dw_conv.LIBRARY_S2, "dw_plain_s2_occupancy")] + [
-    (dw_mm_act.BWD_LIBRARY, n) for n in dw_mm_act.BWD_LIBRARY.functions]
+         (dw_conv.LIBRARY_S2, "dw_plain_s2_occupancy"),
+         (dw_stencil.LIBRARY, "dw_stencil_partial_rows"),
+         (dw_conv.LIBRARY_S2, "dw_mm_wgrad_s2")]
 
 
 @pytest.mark.parametrize("lib,name", BOUND, ids=[n for _, n in BOUND])
@@ -465,35 +467,42 @@ def test_constants_match_the_source(name, value):
 
 
 def test_kernels_left_the_entry_backward_source():
-    """``dw_act_bwd.cu`` keeps K10 mm only: no ACT mode of its stride-2
-    weight-gradient kernel, no dx at all (K9's tile kernel is gone), no act
-    weight gradient at either stride and no weight gradient at stride 1;
-    K5, K6 act and K10 act are the act instantiations of the plain
-    sources' kernels, K6 mm ``dw_plain_s1.cu``'s mm kernel and K9 the mm
-    mode of K8's body in ``dw_plain_s2.cu``, launched by the wrappers with
-    their plans."""
-    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    for gone in ("dx_epilogue", "dx_s2_kernel", "MODE == ACT", "GGeom",
-                 "load_frame", "launch_dx_s2",
-                 "launch_wgrad<__nv_bfloat16, 1, ACT>",
-                 "launch_wgrad<__nv_bfloat16, 2, ACT>",
-                 "launch_wgrad<__nv_bfloat16, 1>", "SGeom<1>",
-                 'extern "C" int dw_act_dx_s2(',
-                 'extern "C" int dw_act_wgrad_s1(',
-                 'extern "C" int dw_act_wgrad_s2(',
-                 'extern "C" int dw_mm_wgrad_s1(',
-                 'extern "C" int dw_mm_dx_mask_s2('):
-        assert gone not in bwd
-    for kept in ("dw_mm_wgrad_s2",):
-        assert f'extern "C" int {kept}(' in bwd
-    assert "dw_act_wgrad_s2" not in dw_mm_act.BWD_LIBRARY.functions
-    assert "dw_mm_dx_mask_s2" not in dw_mm_act.BWD_LIBRARY.functions
+    """The entry backward's tile source (``dw_act_bwd.cu``) is gone with its
+    last kernel, K10 mm: no source in ``csrc/`` defines the tile layout
+    (``CC``, ``WARPS``, ``KC``, ``unpack``, ``mm_prologue``,
+    ``StencilGeom``, ``slot_of``), and the libraries are the five sources.
+    Every weight gradient of both train entries is a row-strip body's: K6
+    act and K10 act the act instantiations of K6 and K10 plain, K6 mm
+    ``dw_plain_s1.cu``'s mm kernel and K10 mm ``dw_plain_s2.cu``'s, under
+    ``wgrad_slots``; K5 and K9 are the act and mm modes of K8's body,
+    launched by the wrappers with their plans."""
+    csrc = dw_conv.LIBRARY.source.parent
+    assert not (csrc / "dw_act_bwd.cu").exists()
+    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
+    assert sorted(lib.source.name for lib in libs) == sorted(
+        f.name for f in csrc.glob("*.cu")) == [
+        "dw_dx_s1.cu", "dw_mm_act.cu", "dw_plain_s1.cu", "dw_plain_s2.cu",
+        "dw_stencil.cu"]
+    for f in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
+        code = "\n".join(line.split("//")[0]
+                         for line in f.read_text().splitlines())
+        for gone in (r"\bCC\b", r"\bWARPS\b", r"\bKC\b", r"\bunpack\b",
+                     r"\bmm_prologue\b", r"\bStencilGeom\b",
+                     r"\bStencilTile\b", r"\bslot_of\b"):
+            assert not re.search(gone, code), (f.name, gone)
     s1 = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
-    assert 'extern "C" int dw_mm_dx_mask_s2(' in s2
+    for name in ("dw_act_dx_s2", "dw_act_wgrad_s2", "dw_mm_dx_mask_s2",
+                 "dw_mm_wgrad_s2"):
+        assert f'extern "C" int {name}(' in s2 and name in (
+            dw_conv.LIBRARY_S2.functions)
+    for name in ("dw_act_wgrad_s1", "dw_mm_wgrad_s1"):
+        assert f'extern "C" int {name}(' in s1
     assert "dx_s2_body<T, R, false, true>" in s2
     assert "wgrad_body<T, R, true>" in s1 and "wgrad_body<T, R, false>" in s1
     assert "dx_s2_body<T, R, true>" in s2 and "dx_s2_body<T, R, false>" in s2
     assert ("s2_wgrad_body<T, R, true>" in s2
             and "s2_wgrad_body<T, R, false>" in s2)
+    mm = s2[s2.index("mm_s2_wgrad_kernel(const T*"):]
+    assert "wgrad_slots(" in mm[:mm.index("\n}\n")]
     assert "rows != items" in s2

@@ -256,7 +256,7 @@ def test_wrappers_cpu_take_plain_and_count_nothing(dtype):
 
 CHANGED = [(dw_mm_act.DX_S1_LIBRARY, n) for n in
            dw_mm_act.DX_S1_LIBRARY.functions] + [
-    (dw_mm_act.BWD_LIBRARY, "dw_act_partial_rows")]
+    (dw_conv.LIBRARY_S2, "dw_mm_wgrad_s2_occupancy")]
 
 
 @pytest.mark.parametrize("lib,name", CHANGED, ids=[n for _, n in CHANGED])
@@ -284,17 +284,20 @@ def test_constants_match_the_source(name, value):
 
 def test_partial_rows_have_no_stride1_kind_left():
     """K3's and K5's partial buffers have their plans' rows (the launchers
-    refuse any other count), and so has K6 mm's; ``dw_act_partial_rows``
-    sizes the weight gradient left in ``dw_act_bwd.cu`` only (kind 2: K10
-    mm): neither dx nor K6 act, K6 mm or K10 act has a kind there."""
+    refuse any other count), and so have the row-strip weight gradients'
+    (K6 and K10: plain, act and mm; the launchers check that the block rows
+    cover the items): no weight gradient or dx sizes its buffer by a kind
+    any more (``dw_act_partial_rows`` went with ``dw_act_bwd.cu``), and the
+    mm entry's module keeps no row-kind table."""
     src = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     assert "rows != items" in src
-    assert "rows != items" in dw_conv.LIBRARY_S2.source.read_text()
-    for name in ("dw_act_dx_s1", "dw_act_dx_s2", "dw_act_wgrad_s1",
-                 "dw_act_wgrad_s2", "dw_mm_wgrad_s1"):
-        assert name not in dw_mm_act._ROWS_KIND
-    assert sorted(set(dw_mm_act._ROWS_KIND.values())) == [2]
-    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    body = bwd[bwd.index('extern "C" int dw_act_partial_rows('):]
-    body = body[:body.index("\n}\n")]
-    assert re.findall(r"case (\d+):", body) == ["2"]
+    s2 = dw_conv.LIBRARY_S2.source.read_text()
+    assert "rows != items" in s2
+    for lib in dw_conv.LIBRARIES:
+        assert "dw_act_partial_rows" not in lib.functions
+        assert "dw_act_partial_rows" not in lib.source.read_text()
+    assert not hasattr(dw_mm_act, "_ROWS_KIND")
+    assert not hasattr(dw_mm_act, "_partials")
+    cover = "(long long)rows * ipb < items"
+    assert dw_conv.LIBRARY.source.read_text().count(cover) == 2
+    assert s2.count(cover) == 2  # K10 plain and act; K10 mm

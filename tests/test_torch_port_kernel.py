@@ -147,15 +147,13 @@ def test_wrapper_rejects(bad):
 
 def test_kernel_source_ships_both_entries():
     src = dw_mm_act.SOURCE.read_text()
-    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
-    # the weight gradient is a backward: at stride 1 K6 plain's source's;
-    # the stride-2 forward (K4 mm) is K4 plain's source's mm mode
+    # the weight gradients are the mm modes of K6 and K10 plain, in their
+    # sources; the stride-2 forward (K4 mm) is K4 plain's source's mm mode
     s1 = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
     for name in dw_mm_act.LAUNCHES:
         home = (s1 if name == "dw_mm_wgrad_s1" else
-                s2 if name == "dw_mm_act_s2" else
-                bwd if "wgrad" in name else src)
+                s2 if name in ("dw_mm_act_s2", "dw_mm_wgrad_s2") else src)
         assert f'extern "C" int {name}(' in home
     # the tile kernel of K4 mm is gone from the forward's source
     for gone in ("dw_mm_act_kernel", "Geom", "dispatch<",

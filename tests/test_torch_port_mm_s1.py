@@ -188,8 +188,8 @@ def test_binding_matches_the_c_declaration(name):
 
 def test_the_product_on_the_tensor_cores_settles_its_relu_branch():
     """The stride-1 forward's bf16 product runs on mma and sends the relu
-    inputs within ``mm_band`` of 0 to the sum in order that ``mm_prologue``
-    (the stride-2 masked dx, the stride-2 mm weight gradient) takes: the
+    inputs within ``mm_band`` of 0 to the sum in order, ``mm_z_fmaf``,
+    whose branch every mm kernel takes: the
     pieces are in the shared header, the product that uses them in
     ``mm_strip.cuh``, and the forward, the stride-1 masked dx and the
     stride-1 mm weight gradient all call that product (the forward and the

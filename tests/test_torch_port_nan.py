@@ -207,7 +207,7 @@ def test_no_relu_in_the_sources_drops_nan():
     pat = re.compile(r"\bfmaxf?\s*\(\s*(?:[^,()]|\([^()]*\))*,\s*"
                      r"0(?:\.0*)?f?\s*\)|\bfmaxf?\s*\(\s*0(?:\.0*)?f?\s*,")
     files = sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
-    assert len(files) >= 9
+    assert len(files) >= 8  # the five sources and the three headers
     for f in files:
         code = "\n".join(line.split("//")[0]
                          for line in f.read_text().splitlines())

@@ -150,15 +150,14 @@ def test_stride1_entries_left_the_entry_sources():
     stride 1 (K1 act, K6 act) and the mm weight gradient at stride 1 (K6
     mm) live in ``dw_plain_s1.cu`` only, the three stride-2 plain entries
     (K4 plain, K8, K10 plain), the act forward, dx and weight gradient at
-    stride 2 (K4 act, K5, K10 act) and the mm forward and masked dx at
-    stride 2 (K4 mm, K9) in ``dw_plain_s2.cu`` only, and the stride-1 dx of
-    the train entries (K3, K2) in ``dw_dx_s1.cu`` only: none is left in the
-    bottleneck entry's sources, and neither is their ``PLAIN`` mode, the old
-    stride-1 dx kernel, the tile kernels of K4 mm and K9 or the tile
-    kernel's act mode; the act modes are instantiations of the plain
-    bodies."""
+    stride 2 (K4 act, K5, K10 act) and the mm forward, masked dx and
+    weight gradient at stride 2 (K4 mm, K9, K10 mm) in ``dw_plain_s2.cu``
+    only, and the stride-1 dx of the train entries (K3, K2) in
+    ``dw_dx_s1.cu`` only: none is left in the bottleneck entry's source,
+    and neither is its ``PLAIN`` mode or the tile kernel of K4 mm; the
+    entry backward's tile source is gone; the act modes are instantiations
+    of the plain bodies."""
     fwd = dw_mm_act.LIBRARY.source.read_text()
-    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     new = dw_conv.LIBRARY.source.read_text()
     s2 = dw_conv.LIBRARY_S2.source.read_text()
     dx1 = dw_mm_act.DX_S1_LIBRARY.source.read_text()
@@ -169,23 +168,23 @@ def test_stride1_entries_left_the_entry_sources():
             (dw_conv.LIBRARY_S2, s2, ("dw_conv_s2", "dw_act_s2",
                                       "dw_conv_dx_s2", "dw_act_dx_s2",
                                       "dw_conv_wgrad_s2", "dw_act_wgrad_s2",
-                                      "dw_mm_act_s2", "dw_mm_dx_mask_s2")),
+                                      "dw_mm_act_s2", "dw_mm_dx_mask_s2",
+                                      "dw_mm_wgrad_s2")),
             (dw_mm_act.DX_S1_LIBRARY, dx1, ("dw_act_dx_s1",
                                             "dw_mm_dx_mask_s1"))):
-        others = "".join(other for other in (fwd, bwd, new, s2, dx1)
+        others = "".join(other for other in (fwd, new, s2, dx1)
                          if other is not src)
         for name in names:
             assert f'extern "C" int {name}(' in src
             assert f'extern "C" int {name}(' not in others
             assert name in lib.functions
-            for other in (dw_mm_act.LIBRARY, dw_mm_act.BWD_LIBRARY,
-                          dw_conv.LIBRARY, dw_conv.LIBRARY_S2,
-                          dw_mm_act.DX_S1_LIBRARY):
+            for other in (dw_mm_act.LIBRARY, dw_conv.LIBRARY,
+                          dw_conv.LIBRARY_S2, dw_mm_act.DX_S1_LIBRARY):
                 if other is not lib:
                     assert name not in other.functions
-    assert "PLAIN" not in fwd + bwd
-    assert "dx_s1_kernel(" not in bwd
-    assert "dw_mm_act_kernel" not in fwd and "dx_s2_kernel" not in bwd
+    assert "PLAIN" not in fwd
+    assert not (dw_conv.LIBRARY.source.parent / "dw_act_bwd.cu").exists()
+    assert "dw_mm_act_kernel" not in fwd
     assert "ACT" not in fwd and "activate(x" not in fwd
     assert "fwd_body<T, R, true>" in new and "fwd_body<T, R, false>" in new
     assert ("s2_fwd_body<T, R, true>" in s2

@@ -331,3 +331,140 @@ def test_kernel_source_ships_every_entry():
     for name in list(dw_stencil.LAUNCHES) + ["dw_stencil_partial_rows"]:
         assert f'extern "C" int {name}(' in src
         assert name in dw_stencil.LIBRARY.functions
+
+
+# ---- the taps' gradient's work split (``wg_plan``, csrc/dw_stencil.cu) ------
+
+def dk_partition_model(x, g, ksize):
+    """dk as ``stencil_dk_kernel`` sums it, in f32, with its partition
+    (``plan_stencil_wgrad``): each block row walks its items (sample, frame
+    segment, pixel range) in order; a thread's sums take its pixel and
+    channel vector over the segment's g frames, each against the x frame
+    each tap pairs it with (zero-padded); each row adds its ``pp`` pixels
+    in order (the block's fixed-order sum); then the rows are added.
+    Checks on the way that every (sample, frame, pixel, channel) of g is
+    owned by exactly one (item, channel vector) thread."""
+    b, t_, h, w, c = x.shape
+    kt, ks = ksize[0], ksize[1]
+    p = dw_stencil.plan_stencil_wgrad(b, t_, h, w, c, kt, ks)
+    owner = torch.zeros((c,), dtype=torch.int64)  # channel vectors
+    for cg in range(p.n_cg):
+        for jl in range(p.nvb):
+            c0 = (cg * p.nvb + jl) * p.v
+            owner[c0:min(c0 + p.v, c)] += 1
+    assert (owner == 1).all()
+    pt, ps = kt // 2, ks // 2
+    xp = torch.nn.functional.pad(x.float(), (0, 0, ps, ps, ps, ps, pt, pt))
+    gf = g.float().reshape(b, t_, h * w, c)
+    taps = [(dt, dy, dx) for dt in range(kt) for dy in range(ks)
+            for dx in range(ks)]
+    owned = torch.zeros((b, t_, h * w), dtype=torch.int64)
+    rows = torch.zeros((p.rows, len(taps), c))
+    for row in range(p.rows):
+        acc = torch.zeros((len(taps), p.pp, c))
+        for item in range(row * p.ipb, min((row + 1) * p.ipb, p.items)):
+            pr, ts = item % p.npr, item // p.npr % p.n_tseg
+            bb = item // p.npr // p.n_tseg
+            t0, t1 = ts * p.tt, min(ts * p.tt + p.tt, t_)
+            pos = torch.arange(pr * p.pp, min(pr * p.pp + p.pp, h * w))
+            hh, ww = pos // w, pos % w
+            owned[bb, t0:t1, pos] += 1
+            gs = gf[bb, t0:t1, pos]
+            for k, (dt, dy, dx) in enumerate(taps):
+                xs = xp[bb, t0 + dt:t1 + dt, hh + dy, ww + dx]
+                acc[k, :len(pos)] += torch.sum(xs * gs, dim=0)
+        for q in range(p.pp):  # the block's fixed-order sum
+            rows[row] += acc[:, q]
+    assert (owned == 1).all()
+    return torch.sum(rows, dim=0), p
+
+
+# (x shape, taps): the stem's 5×1×1 at C = 24 with split segments and two
+# items a block row, a ragged pixel range and a short last segment, C not a
+# multiple of the vector; 7×1×1 (vectors of 4); 3×3×3 (vectors of 2) and
+# 7×3×3 (vectors of 1, channel-wide blocks of 8 pixels)
+DK_CASES = [((8, 16, 40, 40, 24), (5, 1, 1)), ((2, 17, 7, 9, 24), (5, 1, 1)),
+            ((2, 9, 6, 6, 13), (5, 1, 1)), ((2, 9, 6, 6, 24), (7, 1, 1)),
+            ((2, 5, 6, 7, 10), (3, 3, 3)), ((1, 9, 5, 5, 24), (7, 3, 3))]
+
+
+@pytest.mark.parametrize("shape,ks", DK_CASES,
+                         ids=["x".join(map(str, s)) + "-" + "x".join(
+                             map(str, k)) for s, k in DK_CASES])
+def test_dk_partition_model_matches_plain(shape, ks):
+    """The kernel's partition, summed as it sums, is the plain version's
+    taps' gradient within 1e-5 of its largest value (f32 sums in another
+    order)."""
+    x, g = t(_rand(shape, 21) - 0.5), t(_rand(shape, 22) - 0.5)
+    got, p = dk_partition_model(x, g, ks)
+    ref = dw_stencil_wgrad_plain(x, g, ks)
+    assert got.shape == ref.shape
+    err = (got - ref).abs().max().item()
+    assert err <= 1e-5 * ref.abs().max().item(), (err, p)
+    if shape == (8, 16, 40, 40, 24):  # segments split, two items a row
+        assert p.n_tseg == 2 and p.ipb == 2 and p.rows == 200
+
+
+def test_dk_plan_keeps_every_lane_busy_at_the_stem():
+    """At the stem's C = 24 a thread owns 8 channels (16 bytes of bf16) and
+    a block 64 whole pixels, 3 threads each: 192 threads, six full warps;
+    the persistent grid has at most ``WG_BLOCKS`` block rows (about two
+    blocks per SM) at every path's stem shape, the whole clip a segment."""
+    for b, t_, hw in ((8, 64, 112), (64, 16, 56), (32, 32, 72),
+                      (16, 32, 112)):
+        p = dw_stencil.plan_stencil_wgrad(b, t_, hw, hw, 24, 5, 1)
+        assert (p.v, p.nvb, p.n_cg, p.pp, p.threads) == (8, 3, 1, 64, 192)
+        assert p.tt == t_ and dw_stencil.WG_BLOCKS // 2 < p.rows
+        assert p.rows <= dw_stencil.WG_BLOCKS
+        assert p.rows * p.ipb >= p.items > (p.rows - 1) * p.ipb
+
+
+def test_dk_plan_mirror_matches_the_source():
+    """``plan_stencil_wgrad`` mirrors ``wg_plan`` (and ``wg_vec``), which
+    sizes ``dw_stencil_partial_rows``' rows and the kernel's launch: the
+    same constants, vector rule and steps."""
+    import re
+
+    src = dw_stencil.LIBRARY.source.read_text()
+    for name in ("WG_THREADS", "WG_BLOCKS", "WG_TT_MIN"):
+        m = re.search(r"constexpr int %s = (\d+);" % name, src)
+        assert m and int(m.group(1)) == getattr(dw_stencil, name), name
+    vec = src[src.index("constexpr int wg_vec("):]
+    assert ("return KS == 1 ? (KT <= 5 ? 8 : 4) : (KT <= 3 ? 2 : 1);"
+            in vec[:vec.index("\n}\n")])
+    for kt in (1, 3, 5, 7):
+        for ks in (1, 3):
+            want = (8 if kt <= 5 else 4) if ks == 1 else (
+                2 if kt <= 3 else 1)
+            assert dw_stencil.plan_stencil_wgrad(1, 1, 1, 1, 8, kt,
+                                                 ks).v == want
+    plan = src[src.index("inline WgPlan wg_plan("):]
+    plan = plan[:plan.index("\n}\n")]
+    for step in ("const int nv = cdiv(C, wg_vec(KT, KS));",
+                 "p.NVB = nv < WG_THREADS ? nv : WG_THREADS;",
+                 "p.n_cg = cdiv(nv, p.NVB);",
+                 "p.PP = 32 * p.NVB <= WG_THREADS ? WG_THREADS / (32 * p.NVB)"
+                 " * 32",
+                 ": WG_THREADS / p.NVB;", "p.npr = cdiv(H * W, p.PP);",
+                 "p.TT = Tn;",
+                 "while (p.TT > WG_TT_MIN && B * cdiv(Tn, p.TT) * p.npr < "
+                 "WG_BLOCKS)",
+                 "p.TT = cdiv(p.TT, 2) > WG_TT_MIN ? cdiv(p.TT, 2) : "
+                 "WG_TT_MIN;",
+                 "p.n_tseg = cdiv(Tn, p.TT);",
+                 "p.items = B * p.n_tseg * p.npr;",
+                 "const int per_cg = WG_BLOCKS / p.n_cg > 1 ? WG_BLOCKS / "
+                 "p.n_cg : 1;",
+                 "p.ipb = cdiv(p.items, p.items < per_cg ? p.items : per_cg);",
+                 "p.rows = cdiv(p.items, p.ipb);"):
+        assert step in " ".join(plan.split()), step
+    rows = src[src.index('extern "C" int dw_stencil_partial_rows('):]
+    assert "return wg_plan(B, T, H, W, C, KT, KS).rows;" in rows[
+        :rows.index("\n}\n")]
+    kern = src[src.index("stencil_dk_kernel(const T*"):]
+    kern = kern[:kern.index("\n}\n")]
+    for name in ("copy_vec<T, V>(", "cp_wait<D - 1>();",
+                 "if (tg < t0 || tg >= t1) continue;",
+                 "row * pl.ipb", "part[((size_t)row * K + k) * C + ch]"):
+        assert name in kern, name
+    assert "atomic" not in kern

@@ -239,8 +239,8 @@ def test_kernel_sources_ship_every_entry():
     # the act route's entries, and the mm route's of the train composite,
     # each bound and in its source: the stride-1 dx (K3, K2) in
     # dw_dx_s1.cu, K1 act, K6 act and K6 mm in dw_plain_s1.cu, K4 act, K4
-    # mm, K5, K9 and K10 act in dw_plain_s2.cu, the rest of the backward
-    # (K10 mm) in dw_act_bwd.cu, the stride-1 mm forward in dw_mm_act.cu
+    # mm, K5, K9, K10 act and K10 mm in dw_plain_s2.cu, the stride-1 mm
+    # forward in dw_mm_act.cu
     for name in (*dw_act.LAUNCHES, *dw_mm_act.LAUNCHES,
                  *dw_mm_bn_train.LAUNCHES):
         lib = (dw_mm_act.DX_S1_LIBRARY if name in ("dw_act_dx_s1",
@@ -252,9 +252,8 @@ def test_kernel_sources_ship_every_entry():
                                                    "dw_act_dx_s2",
                                                    "dw_act_wgrad_s2",
                                                    "dw_mm_act_s2",
-                                                   "dw_mm_dx_mask_s2")
-               else dw_mm_act.BWD_LIBRARY if ("_dx" in name
-                                              or "_wgrad" in name)
+                                                   "dw_mm_dx_mask_s2",
+                                                   "dw_mm_wgrad_s2")
                else dw_mm_act.LIBRARY)
         assert name in lib.functions
         assert f'extern "C" int {name}(' in lib.source.read_text()

@@ -23,8 +23,8 @@ x's NaN on those edges.  Here, on the CPU:
 * the plan of K4 act (``plan_act_s2_fwd``) and of K6 mm
   (``plan_mm_wgrad_s1``) fit the card at the path's shapes, in bf16 and
   f32, and cover every output once; K4 plain's plan is unchanged;
-* ``dw_mm_act.cu`` has no act mode and ``dw_act_bwd.cu`` no stride-1 weight
-  gradient.
+* ``dw_mm_act.cu`` has no act mode, and no source keeps a weight gradient
+  off the row strips (``dw_act_bwd.cu`` is gone).
 """
 
 import numpy as np
@@ -160,7 +160,7 @@ def test_walk_model_puts_nan_where_the_twin_does(case, where):
 
 
 def test_the_sources_apply_the_rule_in_every_weight_gradient():
-    """K6 (plain, act, mm) and K10 (plain, act) admit a ring slot only by
+    """K6 and K10 (plain, act, mm) admit a ring slot only by
     ``wgrad_slots``, a row only below the output's last and a column only
     inside it, through the masked stencils of ``strip.cuh`` and
     ``dw_plain_s2.cu``; the masked variants run slot by slot."""
@@ -175,32 +175,32 @@ def test_the_sources_apply_the_rule_in_every_weight_gradient():
     for src, rows, cols in (
             (s1, "nr = min(R, H - tl.h0);", "live = in && tl.w0 + wl < W;"),
             (s2, "nr = min(R, Ho - tl.h0);", "live = in && tl.w0 + wl < Wo;")):
-        assert src.count(rows) == (2 if src is s1 else 1)
-        assert src.count(cols) == (2 if src is s1 else 1)
-    assert s1.count("wgrad_slots(") == 2 and s2.count("wgrad_slots(") == 1
+        assert src.count(rows) == 2 and src.count(cols) == 2
+    assert s1.count("wgrad_slots(") == 2 and s2.count("wgrad_slots(") == 2
     assert "stencil_frame_masked<T, R, ROWS_ONCE>(" in s1
     assert "s2_frame_masked<T, R, !ACT>(" in s2
+    assert "s2_frame_masked<T, R, true>(" in s2  # K10 mm
 
 
 def test_entry_sources_keep_no_act_mode_and_no_stride1_wgrad():
     """``dw_mm_act.cu`` holds the stride-1 mm forward only (K1 mm; K4 mm
-    is ``dw_plain_s2.cu``'s): no act mode, no ``Mode``; ``dw_act_bwd.cu``
-    holds K10 mm only: no weight gradient at stride 1 (K6 mm is
-    ``dw_plain_s1.cu``'s) and no masked dx (K9 is ``dw_plain_s2.cu``'s)."""
+    is ``dw_plain_s2.cu``'s): no act mode, no ``Mode``; the entry
+    backward's tile source (``dw_act_bwd.cu``, K10 mm's last home) is gone:
+    K6 mm is ``dw_plain_s1.cu``'s, K9 and K10 mm ``dw_plain_s2.cu``'s, and
+    the entry's module binds no source of its own beyond K1 mm's and the
+    stride-1 dx's."""
     fwd = dw_mm_act.LIBRARY.source.read_text()
-    bwd = dw_mm_act.BWD_LIBRARY.source.read_text()
     code = "\n".join(line.split("//")[0] for line in fwd.splitlines())
     for gone in ("ACT", "Mode", "MODE", "dw_act_s2", "act<T>"):
         assert gone not in code
     assert set(dw_mm_act.LIBRARY.functions) == {
         "dw_mm_act_s1", "dw_mm_act_s1_occupancy"}
-    code = "\n".join(line.split("//")[0] for line in bwd.splitlines())
-    for gone in ("dw_mm_wgrad_s1", "SGeom<1>", "wgrad_kernel<T, 1>",
-                 "launch_wgrad<float, 1>", "case 1:", "dw_mm_dx_mask_s2"):
-        assert gone not in code
+    assert not (dw_mm_act.SOURCE.parent / "dw_act_bwd.cu").exists()
+    assert dw_mm_act.LIBRARIES == (dw_mm_act.LIBRARY,
+                                   dw_mm_act.DX_S1_LIBRARY)
     assert "dw_mm_wgrad_s1" in dw_conv.LIBRARY.functions
     assert "dw_act_s2" in dw_conv.LIBRARY_S2.functions
-    assert {"dw_mm_act_s2", "dw_mm_dx_mask_s2"} <= set(
+    assert {"dw_mm_act_s2", "dw_mm_dx_mask_s2", "dw_mm_wgrad_s2"} <= set(
         dw_conv.LIBRARY_S2.functions)
 
 

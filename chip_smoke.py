@@ -15,9 +15,10 @@ Phases, each printing JSON lines:
    registers, spills and static shared memory for each row-strip kernel
    (K1/K6 plain and ``act``, K6 ``mm``; K4 plain, ``act`` and ``mm``, K8,
    K5, K9, K10 plain, ``act`` and ``mm``; K1 ``mm``; K3 and K2) and for
-   K11's taps' gradient make five ``ptxas`` rows, no act or mm
-   instantiation and no taps' gradient spilling; their dynamic shared
-   memory and blocks per SM are in the kernel rows' ``plan``);
+   K11 and its taps' gradient (every KT × KS × dtype instantiation) make
+   five ``ptxas`` rows, no act or mm instantiation and neither of K11's
+   kernels spilling; their dynamic shared memory and blocks per SM are in
+   the kernel rows' ``plan``);
 2. kernels: each eval bottleneck-entry kernel (``dw_mm_act_s1/s2``)
    against its plain PyTorch version on the card, at the 16 entry shapes
    the serve phase gives it (batch 3 at 224²; the fine tower at T_f=128,
@@ -92,7 +93,8 @@ Phases, each printing JSON lines:
    the plain version and the one PyTorch call that computes the same
    function (``F.conv3d(groups=C)``, ``aten.convolution_backward``); the
    stride-1 forward also against K11 (``dw_stencil_s1``, equal to 0), the
-   stride-2 forward against K7 (``dw_stencil_s2``, equal to 0), the
+   stride-2 forward against K7 (``dw_stencil_s2``: the same kernel,
+   equal to 0), the
    stride-2 dx against K11 on g at the even positions of a zero tensor of
    x's shape with the flipped taps (equal to 0), both weight gradients
    against themselves run again (equal to 0), and each row with its work
@@ -151,10 +153,12 @@ Phases, each printing JSON lines:
    itself run again, bit for bit, with its row count against the port's
    mirror of its split, ``plan_stencil_wgrad``), K11 at 3×3×3 on layer1's
    stride-1 entry (also against ``dw_conv_s1``) and every tap shape at
-   ragged sizes;
-   K7 (``dw_stencil_s2``) at the train step's four stride-2 entries (also
-   against ``dw_conv_s2``); each of these 3×3×3 stencils equals the other
-   kernel of its function with a difference of 0;
+   ragged sizes, each K11 row with its work split (``plan_stencil_fwd``),
+   blocks per SM and waves;
+   K7 (``dw_stencil_s2``, K4 plain's kernel counted under K7's name) at
+   the train step's four stride-2 entries (also against ``dw_conv_s2``,
+   with ``plan_s2_fwd``'s row); each of these 3×3×3 stencils equals the
+   other kernel of its function with a difference of 0;
 18. stencil_autograd: ``depthwise_conv3d``'s y, dx and taps' gradient at
    both strides against autograd through ``F.conv3d(groups=C)``, f32, and
    the stem's gradients (reaching ``conv1_s``) against autograd through the
@@ -265,14 +269,16 @@ REPLACES = {
     "dw_stencil_wgrad": f"{_DW_CONV}:262",  # _dw_bwd's per-tap reduce
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
-SOURCES = {k: _CSRC + ("dw_stencil.cu" if k.startswith("dw_stencil")
+SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
+                                                 "dw_stencil_wgrad")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
                                                       "dw_conv_wgrad_s1",
                                                       "dw_act_s1",
                                                       "dw_act_wgrad_s1",
                                                       "dw_mm_wgrad_s1")
                        else "dw_plain_s2.cu" if (k.startswith("dw_conv_")
-                                                 or k in ("dw_act_s2",
+                                                 or k in ("dw_stencil_s2",
+                                                          "dw_act_s2",
                                                           "dw_act_dx_s2",
                                                           "dw_act_wgrad_s2",
                                                           "dw_mm_act_s2",
@@ -298,10 +304,10 @@ KERNEL_FUNCS = {
     "mm_s2_wgrad_kernel": ("dw_mm_wgrad_s2",),
     "plain_fwd_kernel": ("dw_conv_s1",),
     "plain_wgrad_kernel": ("dw_conv_wgrad_s1",),
-    "plain_s2_fwd_kernel": ("dw_conv_s2",),
+    "plain_s2_fwd_kernel": ("dw_conv_s2", "dw_stencil_s2"),  # K4 plain, K7
     "plain_s2_dx_kernel": ("dw_conv_dx_s2",),
     "plain_s2_wgrad_kernel": ("dw_conv_wgrad_s2",),
-    "stencil_fwd_kernel": ("dw_stencil_s1", "dw_stencil_s2"),
+    "stencil_fwd_kernel": ("dw_stencil_s1",),
     "stencil_dk_kernel": ("dw_stencil_wgrad",),
 }
 # the act route's kernel functions, as the train and phase-D profiles sum
@@ -422,8 +428,8 @@ def _ptxas(source: Path) -> dict:
 
 
 # the ptxas rows: each source's kernel functions of the row-strip layout
-# (three row counts: 2-4) in f32 and bf16, and K11's taps' gradient (four
-# KT and two KS, in f32 and bf16)
+# (three row counts: 2-4) in f32 and bf16, and K11 and its taps' gradient
+# (four KT and two KS, in f32 and bf16)
 PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "plain_wgrad_kernel", "act_wgrad_s1_kernel",
                         "mm_wgrad_s1_kernel"),
@@ -434,14 +440,15 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "mm_s2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
-         "dw_stencil_wgrad": ("stencil_dk_kernel",)}
+         "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel")}
 # instantiations of each function of a ptxas row
 PTXAS_EACH = {"dw_stencil_wgrad": 16}
-# the act and mm modes of the row-strip bodies and the taps' gradient: no
-# instantiation may spill
+# the act and mm modes of the row-strip bodies, K11 and its taps' gradient:
+# no instantiation may spill
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
-            "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_dk_kernel")
+            "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
+            "stencil_dk_kernel")
 
 
 def phase_device() -> str:
@@ -2131,6 +2138,22 @@ def stencil_cases():
                (1, 2, 2), 0, 0, False, "dw_conv_s2")
 
 
+def _plan_row_stencil(dw_stencil, shape, ks, dtype) -> dict:
+    """K11's work split (``plan_stencil_fwd``) at x ``shape`` and taps
+    ``ks``: one block per (item, channel group), its ring's shared memory,
+    blocks per SM (the occupancy API) and waves."""
+    p = dw_stencil.plan_stencil_fwd(*shape, ks[0], ks[1])
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    occ = dw_stencil.LIBRARY.build().dw_stencil_s1_occupancy(
+        shape[-1], ks[0], ks[1], bf16)
+    check(occ > 0, f"plan_stencil_fwd {shape} {ks} {dtype}: does not fit "
+                   f"({occ})")
+    blocks = p.items * p.n_cg
+    return {**p._asdict(), "threads": p.threads, "blocks": blocks,
+            "smem": dw_stencil.FWD_DEPTH * ks[1] * ks[2] * p.threads * p.v
+            * esz, "blocks_per_sm": occ, "waves": _waves(blocks, occ)}
+
+
 def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
     """K11 (``dw_stencil_s1``), K7 (``dw_stencil_s2``) and the taps'
     gradient (``dw_stencil_wgrad``) against their plain versions at the
@@ -2170,6 +2193,11 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                     "strides": list(strides)}
             s = strides[2]
             name = f"dw_stencil_s{s}"
+            if s == 1:
+                meta["plan"] = _plan_row_stencil(dw_stencil, shape, ks, dtype)
+            else:  # K7 runs K4 plain's kernel and plan
+                meta["plan"] = _plan_row_s2(dw_conv, "dw_conv_s2", shape,
+                                            dtype)
             also = (() if other is None else
                     ((other, lambda: dw_conv.dw_conv3d(x, w, s)),))
             row = _hold_time_library(
@@ -2845,9 +2873,10 @@ def main() -> int:
                 "launches per step (serve: in its counted run)",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
-              "C432), one call each, summed; launches: 0 in the 10 timed "
-              "steps of train, as on every path (the JAX package has no "
-              "caller of K7)",
+              "C432), one call each, summed; K7 runs K4 plain's kernel "
+              "(plain_s2_fwd_kernel, plan_s2_fwd); launches: 0 in the 10 "
+              "timed steps of train, as on every path (the JAX package has "
+              "no caller of K7)",
     }
     kernels = []
     for name, agg in per_kernel.items():

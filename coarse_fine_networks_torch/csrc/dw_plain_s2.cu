@@ -109,8 +109,9 @@
 //     read once (3 pair reads) serves the one or two output rows it meets
 //     (dy = rr - 2r) in all three frames, 3 x R x 2 accumulators beside the
 //     54 tap registers. Each output's taps are added in the order dt, dy,
-//     dx with one fmaf each, as K7 (dw_stencil.cu) adds them: it equals
-//     dw_stencil_s2 bit for bit. The grid is one block per tile.
+//     dx with one fmaf each, as K11 (dw_stencil.cu) adds them. It is also
+//     K7 (dw_stencil_s2): ops/dw_stencil.py launches it at stride (1,2,2).
+//     The grid is one block per tile.
 //   * The act forward (K4 act) is the same body with a template flag
 //     (act_s2_fwd_kernel beside plain_s2_fwd_kernel), activating in place
 //     as K10 act below does, with a plan of its own ring (plan_act_s2_fwd):

@@ -28,8 +28,10 @@ halo and writes its output once:
   2, in ``csrc/dw_plain_s2.cu``: the 2R+1 input rows of an output strip
   staged by ``cp.async`` with each row stored de-interleaved (even columns,
   then odd), so a warp's stride-2 reads are consecutive words, and a
-  register ring of output frames along T; it adds the taps in K7's order
-  and equals ``dw_stencil_s2`` bit for bit; split by :func:`plan_s2_fwd`;
+  register ring of output frames along T; it adds each output's taps in
+  K11's order (dt, dy, dx, one fused multiply-add each); split by
+  :func:`plan_s2_fwd`.  It is also K7: :mod:`.dw_stencil` launches it for
+  ``dw_stencil_s2``;
 * ``dw_conv_dx_s2`` (K8; replaces ``dw_fold.py:_dx_s2_pcall`` :1208):
   :func:`dw_conv_dx_s2`, in the same source: a gather from the staged
   half-resolution g, each thread the 2×2 quads of dx over its g column (27

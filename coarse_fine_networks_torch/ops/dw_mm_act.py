@@ -69,13 +69,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _launch(counts, lib, name, x, *args):
+def _launch(counts, lib, name, x, *args, key=None):
     """Launch ``name`` on x's device and current stream, in x's dtype, and
-    count it in ``counts`` (the calling module's ``LAUNCHES``)."""
+    count it in ``counts`` (the calling module's ``LAUNCHES``) under ``key``
+    (default: ``name``)."""
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
-    counts[name] += 1
+    counts[key or name] += 1
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

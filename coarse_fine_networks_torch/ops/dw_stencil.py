@@ -12,22 +12,32 @@ shape only:
   the taps' gradient is :func:`dw_stencil_wgrad`;
 * stride ``(1, 2, 2)`` with 3×3×3 taps: the forward is K7, the backward is
   K8 and the plain mode of K10 (:mod:`.dw_conv`), as :class:`..dw_conv.DwConv3d`
-  runs them;
+  runs them; K7 is the function of K4 plain (``dw_conv_s2``), and its wrapper
+  launches K4 plain's kernel;
 * anything else raises.  (The JAX package's ``impl="pallas"`` ignores the
   strides and returns a stride-1 result; the port does not copy that.)
 
-Kernels (CUDA C++ for ``sm_90a`` in ``csrc/dw_stencil.cu``, :mod:`._build`):
+Kernels (CUDA C++ for ``sm_90a``, :mod:`._build`), each with a thread per
+vector of channels at a pixel and a ``cp.async`` ring of x frames in the
+thread's own shared-memory slots:
 
-* ``dw_stencil_s1`` (K11, ``_dw_pallas_raw`` → ``_stencil_kernel``) and
-  ``dw_stencil_s2`` (K7, ``dw_fold.py:_dw_fold4_s2_raw``): :func:`dw_stencil3d`;
+* ``dw_stencil_s1`` (K11, ``_dw_pallas_raw`` → ``_stencil_kernel``;
+  ``csrc/dw_stencil.cu``): :func:`dw_stencil3d` at stride 1, a register
+  ring of the output frames a frame of x feeds, one block per (sample,
+  frame segment, pixel range) item (:func:`plan_stencil_fwd` mirrors its
+  split);
+* ``dw_stencil_s2`` (K7, ``dw_fold.py:_dw_fold4_s2_raw``): :func:`dw_stencil3d`
+  at stride (1, 2, 2), K4 plain's kernel (``dw_conv_s2`` in
+  ``csrc/dw_plain_s2.cu``, split by :func:`..dw_conv.plan_s2_fwd`), counted
+  here under K7's name; its plain version on the CPU is K4 plain's,
+  :func:`..dw_conv.dw_conv3d_plain`;
 * ``dw_stencil_wgrad`` (the per-tap reduce of ``_dw_bwd``, which the JAX
-  package leaves to XLA): :func:`dw_stencil_wgrad`, a thread per vector of
-  channels at a pixel, a persistent grid of block rows
-  (:func:`plan_stencil_wgrad` mirrors its split), partial sums added with
-  one ``torch.sum``.
+  package leaves to XLA; ``csrc/dw_stencil.cu``): :func:`dw_stencil_wgrad`,
+  a persistent grid of block rows (:func:`plan_stencil_wgrad` mirrors its
+  split), partial sums added with one ``torch.sum``.
 
-Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
-kernel on a CUDA tensor, or raises.
+Each wrapper runs its plain version on a CPU tensor and launches its kernel
+on a CUDA tensor, or raises.
 """
 
 from __future__ import annotations
@@ -39,15 +49,18 @@ import torch
 import torch.nn.functional as F
 
 from ._build import CudaLibrary, I, P
-from .dw_conv import dw_conv_dx_s2, dw_conv_wgrad
+from .dw_conv import (LIBRARY_S2, dw_conv3d_plain, dw_conv_dx_s2,
+                      dw_conv_wgrad, plan_s2_fwd)
 from .dw_mm_act import _launch
 
 LIBRARY = CudaLibrary("dw_stencil.cu", {
     "dw_stencil_partial_rows": [I] * 7,
     "dw_stencil_s1": [P] * 3 + [I] * 8 + [P],
-    "dw_stencil_s2": [P] * 3 + [I] * 6 + [P],
+    "dw_stencil_s1_occupancy": [I] * 4,
     "dw_stencil_wgrad": [P] * 3 + [I] * 8 + [P],
 })
+# K7's kernel: K4 plain's, in csrc/dw_plain_s2.cu
+K7_LIBRARY, K7_ENTRY = LIBRARY_S2, "dw_conv_s2"
 
 # The kernels' tap shapes at stride 1: odd KT up to 7, KH == KW in {1, 3};
 # the largest tap count is 7·3·3 = 63.
@@ -59,10 +72,13 @@ LAUNCHES = {"dw_stencil_s1": 0, "dw_stencil_s2": 0, "dw_stencil_wgrad": 0}
 
 S1, S2 = (1, 1, 1), (1, 2, 2)
 
-# The taps' gradient's work split (``wg_plan`` in ``csrc/dw_stencil.cu``):
-# threads per block at most, the persistent grid's blocks (two per SM of the
-# H100's 132), frames per segment at least where T is split
+# The kernels' work split (``wg_plan`` and ``fwd_plan`` in
+# ``csrc/dw_stencil.cu``): threads per block at most, the taps' gradient's
+# persistent grid (two blocks per SM of the H100's 132), frames per segment
+# at least where T is split, and the forward's blocks at least where T is
+# split (eight per SM); frames in the forward's ring of x
 WG_THREADS, WG_BLOCKS, WG_TT_MIN = 192, 264, 8
+FWD_BLOCKS, FWD_DEPTH = 1056, 8
 
 
 def reset_launches() -> None:
@@ -131,6 +147,81 @@ def _pad(x, ksize):
     return F.pad(x.float(), (0, 0, pw, pw, ph, ph, pt, pt))
 
 
+# ---- the kernels' work split (csrc/dw_stencil.cu) ---------------------------
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+class StencilPlan(NamedTuple):
+    """How ``dw_stencil_s1`` and ``dw_stencil_wgrad`` split x ``(B, T, H,
+    W, C)``: a thread owns ``v`` consecutive channels at one pixel; a block
+    ``nvb`` such vectors (a channel group; ``n_cg`` groups) at ``pp``
+    pixels, thread ``tid`` at pixel ``tid // nvb``; items are (sample,
+    segment of ``tt`` frames, range of ``pp`` pixels), ranges fastest.  The
+    taps' gradient's block row ``r`` walks items ``[r·ipb, (r+1)·ipb)`` of
+    every group and writes row ``r`` of the ``(rows, taps, C)`` partials;
+    the forward's block ``(item, group)`` takes one item (``ipb`` 1,
+    ``rows`` the items)."""
+    v: int
+    nvb: int
+    n_cg: int
+    pp: int
+    tt: int
+    n_tseg: int
+    npr: int
+    items: int
+    ipb: int
+    rows: int
+
+    @property
+    def threads(self) -> int:
+        return self.pp * self.nvb
+
+
+@lru_cache(maxsize=None)
+def plan_stencil_wgrad(b: int, t: int, h: int, w: int, c: int, kt: int,
+                       ks: int) -> StencilPlan:
+    """The source's ``wg_plan`` for x ``(B, T, H, W, C)`` and taps ``kt ×
+    ks × ks``: vectors of 8 channels for ``ks`` 1 up to ``kt`` 5 (fewer
+    beyond, whose sums would not fit in registers: ``wg_vec``), whole warps
+    of whole pixels where 32 pixels fit in ``WG_THREADS``, frames halved
+    (down to ``WG_TT_MIN``) until there are ``WG_BLOCKS`` items, about
+    ``WG_BLOCKS`` block rows."""
+    v = (8 if kt <= 5 else 4) if ks == 1 else 2 if kt <= 3 else 1
+    nv = _cdiv(c, v)
+    nvb = min(nv, WG_THREADS)
+    n_cg = _cdiv(nv, nvb)
+    pp = (WG_THREADS // (32 * nvb) * 32 if 32 * nvb <= WG_THREADS
+          else WG_THREADS // nvb)
+    npr = _cdiv(h * w, pp)
+    tt = t
+    while tt > WG_TT_MIN and b * _cdiv(t, tt) * npr < WG_BLOCKS:
+        tt = max(WG_TT_MIN, _cdiv(tt, 2))
+    n_tseg = _cdiv(t, tt)
+    items = b * n_tseg * npr
+    ipb = _cdiv(items, min(items, max(1, WG_BLOCKS // n_cg)))
+    return StencilPlan(v, nvb, n_cg, pp, tt, n_tseg, npr, items, ipb,
+                       _cdiv(items, ipb))
+
+
+@lru_cache(maxsize=None)
+def plan_stencil_fwd(b: int, t: int, h: int, w: int, c: int, kt: int,
+                     ks: int) -> StencilPlan:
+    """The source's ``fwd_plan`` (``dw_stencil_s1``'s split) for x ``(B, T,
+    H, W, C)`` and taps ``kt × ks × ks``: :func:`plan_stencil_wgrad`'s
+    vectors, pixels and items, the frames halved on (down to
+    ``WG_TT_MIN``) until there are ``FWD_BLOCKS`` items; a grid of ``items
+    × n_cg`` blocks, one item each."""
+    p = plan_stencil_wgrad(b, t, h, w, c, kt, ks)
+    tt, n_tseg, items = p.tt, p.n_tseg, p.items
+    while tt > WG_TT_MIN and items < FWD_BLOCKS:
+        tt = max(WG_TT_MIN, _cdiv(tt, 2))
+        n_tseg = _cdiv(t, tt)
+        items = b * n_tseg * p.npr
+    return p._replace(tt=tt, n_tseg=n_tseg, items=items, ipb=1, rows=items)
+
+
 # ---- forward: K11 (stride 1) and K7 (stride (1, 2, 2)) --------------------
 
 def dw_stencil3d_plain(x: torch.Tensor, w: torch.Tensor,
@@ -165,11 +256,15 @@ def dw_stencil3d(x: torch.Tensor, w: torch.Tensor,
     """Depthwise conv of ``x (B, T, H, W, C)`` with taps ``w (KT, KH, KW,
     C)`` at ``strides`` (see :func:`dw_stencil3d_plain`; the shapes of
     :func:`stencil_supported`).  Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` in x's
-    dtype.  A CPU tensor takes the plain version; a CUDA tensor launches
-    ``dw_stencil_s1`` or ``dw_stencil_s2``, or raises."""
+    dtype.  A CPU tensor takes the plain version (at stride (1, 2, 2) K4
+    plain's, :func:`..dw_conv.dw_conv3d_plain`); a CUDA tensor launches
+    ``dw_stencil_s1`` or, counted as ``dw_stencil_s2``, K4 plain's
+    ``dw_conv_s2``, or raises."""
     strides = tuple(strides)
     _check(x, w, strides)
     if x.device.type == "cpu":
+        if strides == S2:
+            return dw_conv3d_plain(x, w, 2)
         return dw_stencil3d_plain(x, w, strides)
     y = torch.empty(_out_shape(x, strides), dtype=x.dtype, device=x.device)
     if not y.numel():
@@ -179,66 +274,14 @@ def dw_stencil3d(x: torch.Tensor, w: torch.Tensor,
         _launch(LAUNCHES, LIBRARY, "dw_stencil_s1", x, x.data_ptr(),
                 w.data_ptr(), y.data_ptr(), *dims, w.shape[0], w.shape[1])
     else:
-        _launch(LAUNCHES, LIBRARY, "dw_stencil_s2", x, x.data_ptr(),
-                w.data_ptr(), y.data_ptr(), *dims)
+        p = plan_s2_fwd(*dims)
+        _launch(LAUNCHES, K7_LIBRARY, K7_ENTRY, x, x.data_ptr(),
+                w.data_ptr(), y.data_ptr(), *dims, p.r, p.wb, p.pg, p.tt,
+                key="dw_stencil_s2")
     return y
 
 
-# ---- the taps' gradient at stride 1 ------------------------------------------
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-class StencilWgradPlan(NamedTuple):
-    """How ``dw_stencil_wgrad`` splits x ``(B, T, H, W, C)``: a thread
-    owns ``v`` consecutive channels at one pixel; a block ``nvb`` such
-    vectors (a channel group; ``n_cg`` groups) at ``pp`` pixels, thread
-    ``tid`` at pixel ``tid // nvb``; items are (sample, segment of ``tt``
-    frames, range of ``pp`` pixels), ranges fastest; block row ``r`` walks
-    items ``[r·ipb, (r+1)·ipb)`` of every group and writes row ``r`` of the
-    ``(rows, taps, C)`` partials."""
-    v: int
-    nvb: int
-    n_cg: int
-    pp: int
-    tt: int
-    n_tseg: int
-    npr: int
-    items: int
-    ipb: int
-    rows: int
-
-    @property
-    def threads(self) -> int:
-        return self.pp * self.nvb
-
-
-@lru_cache(maxsize=None)
-def plan_stencil_wgrad(b: int, t: int, h: int, w: int, c: int, kt: int,
-                       ks: int) -> StencilWgradPlan:
-    """The source's ``wg_plan`` for x ``(B, T, H, W, C)`` and taps ``kt ×
-    ks × ks``: vectors of 8 channels for ``ks`` 1 up to ``kt`` 5 (fewer
-    beyond, whose sums would not fit in registers: ``wg_vec``), whole warps
-    of whole pixels where 32 pixels fit in ``WG_THREADS``, frames halved
-    (down to ``WG_TT_MIN``) until there are ``WG_BLOCKS`` items, about
-    ``WG_BLOCKS`` block rows."""
-    v = (8 if kt <= 5 else 4) if ks == 1 else 2 if kt <= 3 else 1
-    nv = _cdiv(c, v)
-    nvb = min(nv, WG_THREADS)
-    n_cg = _cdiv(nv, nvb)
-    pp = (WG_THREADS // (32 * nvb) * 32 if 32 * nvb <= WG_THREADS
-          else WG_THREADS // nvb)
-    npr = _cdiv(h * w, pp)
-    tt = t
-    while tt > WG_TT_MIN and b * _cdiv(t, tt) * npr < WG_BLOCKS:
-        tt = max(WG_TT_MIN, _cdiv(tt, 2))
-    n_tseg = _cdiv(t, tt)
-    items = b * n_tseg * npr
-    ipb = _cdiv(items, min(items, max(1, WG_BLOCKS // n_cg)))
-    return StencilWgradPlan(v, nvb, n_cg, pp, tt, n_tseg, npr, items, ipb,
-                            _cdiv(items, ipb))
-
+# ---- the taps' gradient at stride 1 -----------------------------------------
 
 def dw_stencil_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
                            ksize) -> torch.Tensor:
@@ -279,7 +322,7 @@ def dw_stencil_wgrad(x: torch.Tensor, g: torch.Tensor,
     return torch.sum(part, dim=0)
 
 
-# ---- autograd -------------------------------------------------------------------
+# ---- autograd ---------------------------------------------------------------
 
 class DwStencil3d(torch.autograd.Function):
     """:func:`dw_stencil3d` with the kernels' backward.  At stride 1 (the

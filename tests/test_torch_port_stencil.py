@@ -30,7 +30,8 @@ from coarse_fine_networks_tpu.ops.pallas.dw_fold import (_dw_fold4_s2_raw,
                                                           _prep_lane_weights)
 from coarse_fine_networks_torch.ckpt import state_dict_from_jax
 from coarse_fine_networks_torch.models import X3DStem
-from coarse_fine_networks_torch.ops import dw_stencil
+from coarse_fine_networks_torch.ops import dw_conv, dw_stencil
+from coarse_fine_networks_torch.ops.dw_conv import dw_conv3d_plain
 from coarse_fine_networks_torch.ops.dw_stencil import (
     DwStencil3d, depthwise_conv3d, dw_stencil3d, dw_stencil3d_plain,
     dw_stencil_wgrad, dw_stencil_wgrad_plain)
@@ -99,7 +100,10 @@ def test_function_matches_pallas_vjp(ks):
 def test_k7_plain_matches_pallas(shape):
     """K7's plain version against ``_dw_fold4_s2_raw`` (the stride-1
     stencil over row pairs with the 2×2 subsample fused into the write) in
-    interpret mode, through the fold4 layout: 1e-5 of the largest value."""
+    interpret mode, through the fold4 layout: 1e-5 of the largest value;
+    the wrapper's CPU route, K4 plain's plain version (K7 launches K4
+    plain's kernel), likewise, and equal to ``dw_conv3d_plain`` bit for
+    bit."""
     rng = np.random.RandomState(4)
     c = shape[-1]
     x = rng.randn(*shape).astype(np.float32)
@@ -111,6 +115,11 @@ def test_k7_plain_matches_pallas(shape):
     assert got.shape == ref.shape == shape[:2] + (shape[2] // 2,
                                                   shape[3] // 2, c)
     np.testing.assert_allclose(got, ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    # the wrapper's route on the CPU: K4 plain's plain version, bit for bit
+    route = dw_stencil3d(t(x), t(w[..., 0, :]), (1, 2, 2))
+    assert torch.equal(route, dw_conv3d_plain(t(x), t(w[..., 0, :]), 2))
+    np.testing.assert_allclose(route.numpy(), ref, rtol=0,
                                atol=1e-5 * np.abs(ref).max())
 
 
@@ -279,7 +288,7 @@ def test_wrappers_cpu_take_plain_and_count_nothing():
     dw_stencil.reset_launches()
     assert torch.equal(dw_stencil3d(x, w1), dw_stencil3d_plain(x, w1))
     assert torch.equal(dw_stencil3d(x, w3, (1, 2, 2)),
-                       dw_stencil3d_plain(x, w3, (1, 2, 2)))
+                       dw_conv3d_plain(x, w3, 2))  # K7's: K4 plain's
     assert torch.equal(dw_stencil_wgrad(x, g, (5, 1, 1)),
                        dw_stencil_wgrad_plain(x, g, (5, 1, 1)))
     assert set(dw_stencil.LAUNCHES) == {"dw_stencil_s1", "dw_stencil_s2",
@@ -327,10 +336,18 @@ def test_wrappers_reject(bad):
 
 
 def test_kernel_source_ships_every_entry():
+    """Each counted entry's C function is in its library's source and
+    bound: K7 (``dw_stencil_s2``) launches K4 plain's ``dw_conv_s2``."""
     src = dw_stencil.LIBRARY.source.read_text()
-    for name in list(dw_stencil.LAUNCHES) + ["dw_stencil_partial_rows"]:
-        assert f'extern "C" int {name}(' in src
-        assert name in dw_stencil.LIBRARY.functions
+    entries = {name: (dw_stencil.LIBRARY, name) for name in
+               list(dw_stencil.LAUNCHES) + ["dw_stencil_partial_rows",
+                                            "dw_stencil_s1_occupancy"]}
+    entries["dw_stencil_s2"] = (dw_stencil.K7_LIBRARY, dw_stencil.K7_ENTRY)
+    assert entries["dw_stencil_s2"] == (dw_conv.LIBRARY_S2, "dw_conv_s2")
+    for lib, name in entries.values():
+        assert f'extern "C" int {name}(' in lib.source.read_text()
+        assert name in lib.functions
+    assert 'extern "C" int dw_stencil_s2(' not in src
 
 
 # ---- the taps' gradient's work split (``wg_plan``, csrc/dw_stencil.cu) ------

@@ -163,7 +163,23 @@ Phases, each printing JSON lines:
    both strides against autograd through ``F.conv3d(groups=C)``, f32, and
    the stem's gradients (reaching ``conv1_s``) against autograd through the
    grouped conv;
-19. a ``{"kernels": [...]}`` line (20 entries), then the card's
+19. driver: the port's three entry points in sequence at full width
+   (X3D-M, 157 classes, bf16, 224²): ``generate_mini_charades`` (12
+   videos, 8 of them training, of 640 frames at 256², so the train clips
+   have the train step's T = 64), ``extract_driver.run`` over both splits
+   with a seeded FineNet saved as a reference-named ``.pt``, and
+   ``coarse_driver.run`` (B8, 4 loader workers, device prefetch 2, 6 steps,
+   a checkpoint every 3, validation of 4 videos after every step's epoch
+   with the localize CSV, the ``.pt`` as its Kinetics checkpoint), then a
+   run resumed at step 6 (epoch 5, batch 1) to step 8; finite losses and
+   ``val_map``, 157 probabilities in every CSV row, every kernel of the
+   path launched and none off it; the extraction's seconds, the host-clock
+   step ms, the share of each step spent waiting on the device prefetcher
+   and the validation seconds; then one driver step profiled
+   (``driver_profile``: its launches equal to the counters, 22 and 4 of
+   each act kernel, K11 2 and its taps' gradient 1);
+20. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
+   the driver's path beside the earlier phases'), then the card's
    ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` last.
 
 The stem's ``conv1_t`` runs through ``dw_stencil_s1`` on every path: the
@@ -181,7 +197,8 @@ route it names.
 
 Any failed check raises and the script exits non-zero before the last line.
 It needs no network and writes nothing outside the checkout (the kernel
-build goes to ``coarse_fine_networks_torch/_build/``).
+build goes to ``coarse_fine_networks_torch/_build/``, the driver phase's
+data to ``_scratch/chip_smoke_driver/``, removed after it).
 """
 
 from __future__ import annotations
@@ -2377,7 +2394,9 @@ def _profile_step(fn, ours, mods) -> dict:
     grouped depthwise convolution ran in PyTorch (every depthwise conv of
     the port's paths runs through its kernels, the stem's ``conv1_t``
     included).  In both runs each port kernel's profiled launches are read
-    beside the counters of ``mods``, reset just before the run.  The timed
+    beside the counters of ``mods``, reset just before the run, and the
+    copies between host and device are summed by kind (``memcpy``: ms and
+    count).  The timed
     run records any launch its trace lacks (``profiler_dropped``); the
     shape-recording run must match the counters exactly, in one of up to
     three profiled steps.  A trace that starts with the step loses the
@@ -2438,6 +2457,8 @@ def _profile_step(fn, ours, mods) -> dict:
             "port_kernel_launches": {f: n for f, n in got.items() if n},
             "profiler_dropped": dropped, "profiler_notes": notes,
             "depthwise_conv_ops": len(depthwise),
+            "memcpy": {e.key: [e.self_device_time_total / 1e3, e.count]
+                       for e in kernels if e.key.startswith("Memcpy")},
             "top": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                     for e in top]}
 
@@ -2751,6 +2772,180 @@ def phase_profile(pipe, mods) -> None:
                           mods)})
 
 
+# the coarse-stream driver end to end: synthetic mini-Charades (8 training
+# and 4 testing videos of 640 frames at 256², so the train clips are the
+# train step's T = 64 at gamma_tau 5), extraction, 6 steps with a
+# checkpoint every 3 and validation after each (one batch an epoch), then
+# a resumed run to step 8
+DRIVER = dict(videos=12, train=8, video_frames=640, hw=256, n_classes=157,
+              frames=320, batch=8, workers=4, device_prefetch=2, steps=6,
+              ckpt_every=3, resume_steps=8, val_batches=4)
+# per driver train step on the act route: each act kernel 22 stride-1 and
+# 4 stride-2 launches, the stem's K11 2 and its taps' gradient 1
+DRIVER_STEP = {"act_fwd_s1_kernel": 22, "act_s2_fwd_kernel": 4,
+               "act_dx_s1_kernel": 22, "act_s2_dx_kernel": 4,
+               "act_wgrad_s1_kernel": 22, "act_s2_wgrad_kernel": 4,
+               "stencil_fwd_kernel": 2, "stencil_dk_kernel": 1}
+
+
+def phase_driver(mods) -> dict:
+    """The port's three entry points in sequence at full width on the card
+    (X3D-M, 157 classes, bf16, a crop of 224): ``generate_mini_charades``,
+    ``extract_driver.run`` over both splits with a seeded FineNet whose
+    weights go through a reference-named ``.pt``, ``coarse_driver.run``
+    (B8, T = 64, 4 loader workers, device prefetch 2, 6 steps, a checkpoint
+    every 3, validation after each step's epoch with the localize CSV, the
+    ``.pt`` as its Kinetics checkpoint), and a second run resumed at step 6
+    to step 8.  The kernels' counters are reset before the extraction and
+    before the coarse runs and read after each.  Then one driver step (a
+    resumed run to step 7 without validation) under ``_profile_step``: its
+    profiled launches must equal the counters, no grouped depthwise conv
+    may run in PyTorch, and each act kernel must launch 22 (stride 1) or 4
+    (stride 2) times, K11 twice and its taps' gradient once.  Returns each
+    kernel's launches over the extraction and the two runs."""
+    import csv
+    import dataclasses
+    import shutil
+    import statistics
+
+    from coarse_fine_networks_torch.ckpt import (latest_checkpoint,
+                                                 load_checkpoint)
+    from coarse_fine_networks_torch.data.synthetic import (
+        generate_mini_charades)
+    from coarse_fine_networks_torch.models import FineNet, init_parameters
+    from coarse_fine_networks_torch.models.fine import FEAT_KEYS
+    from coarse_fine_networks_torch.train import (DriverConfig,
+                                                  coarse_driver,
+                                                  extract_driver)
+
+    c = DRIVER
+    root = REPO / "_scratch" / "chip_smoke_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        anno = generate_mini_charades(
+            str(root), num_videos=c["videos"], num_frames=c["video_frames"],
+            hw=c["hw"], num_classes=c["n_classes"],
+            train_fraction=c["train"] / c["videos"])
+        gen_s = time.perf_counter() - t0
+        fine_pt = str(root / "fine_seeded.pt")
+        fine = init_parameters(FineNet("M", c["n_classes"], global_tower=True),
+                               torch.Generator().manual_seed(3))
+        torch.save({"model_state_dict": fine.state_dict()}, fine_pt)
+        feats = str(root / "feats")
+        cfg = DriverConfig(
+            anno=anno, root=str(root / "frames"),
+            save_dir=str(root / "models"), num_classes=c["n_classes"],
+            frames=c["frames"], batch_size=c["batch"],
+            compute_dtype="bfloat16", num_workers=c["workers"],
+            device_prefetch=c["device_prefetch"], max_steps=c["steps"],
+            ckpt_every=c["ckpt_every"], train_phases_per_val=1,
+            max_val_batches=c["val_batches"],
+            localize_csv=str(root / "localize.csv"), kinetics_ckpt=fine_pt,
+            fine_feat_dir=feats, resume=False, record_trajectory=True,
+            device="cuda")
+
+        for m in mods:
+            m.reset_launches()
+        t1 = time.perf_counter()
+        n_extracted = extract_driver.run(cfg, feats, fine_pt)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t1
+        extract_launches = _launches(*mods)
+        nonfinite = [f"{k}/{v}" for k in FEAT_KEYS
+                     for v in sorted(os.listdir(os.path.join(feats, k)))
+                     if not np.isfinite(np.load(os.path.join(feats, k,
+                                                             v))).all()]
+
+        for m in mods:
+            m.reset_launches()
+        t2 = time.perf_counter()
+        first = coarse_driver.run(cfg)
+        saved = load_checkpoint(latest_checkpoint(cfg.save_dir,
+                                                  coarse_driver.PREFIX))
+        resumed = coarse_driver.run(dataclasses.replace(
+            cfg, resume=True, max_steps=c["resume_steps"]))
+        torch.cuda.synchronize()
+        runs_s = time.perf_counter() - t2
+        run_launches = _launches(*mods)
+        with open(cfg.localize_csv) as f:
+            rows = list(csv.reader(f))
+        widths = sorted({len(r[2].split()) for r in rows})
+        scores = np.array([[float(x) for x in r[2].split()] for r in rows])
+
+        def one_step():
+            coarse_driver.run(dataclasses.replace(
+                cfg, resume=True, max_steps=saved["step"] + 1,
+                train_phases_per_val=2, ckpt_every=10 ** 9,
+                localize_csv=None))
+        profiled = _profile_step(one_step, tuple(DRIVER_STEP) + (
+            "mm_fwd_s1_kernel", "mm_s2_fwd_kernel"), mods)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    traj = first["trajectory"] + resumed["trajectory"]
+    losses = [x for *_, x in traj]
+    step_ms = first["step_ms"] + resumed["step_ms"]
+    wait_ms = first["prefetch_wait_ms"] + resumed["prefetch_wait_ms"]
+    share = [w / s for w, s in zip(wait_ms, step_ms)]
+    launches = {k: extract_launches[k] + run_launches[k]
+                for k in run_launches}
+    on_path = ACT_KERNELS + MM_KERNELS + ("dw_stencil_s1",
+                                          "dw_stencil_wgrad")
+    row = {"phase": "driver", "model": "X3D-M", "n_classes": c["n_classes"],
+           "dtype": "bfloat16 activations, float32 parameters",
+           "data": f"{c['videos']} synthetic videos ({c['train']} training)"
+                   f" of {c['video_frames']} frames at {c['hw']}², JPEG, "
+                   f"decoded by Pillow",
+           "B": c["batch"], "crop": 224, "frames": c["frames"],
+           "num_workers": c["workers"],
+           "device_prefetch": c["device_prefetch"],
+           "generate_s": gen_s, "extract_s": extract_s,
+           "videos_extracted": n_extracted, "coarse_runs_s": runs_s,
+           "steps": [s for s, _, _ in traj], "losses": losses,
+           "step_ms": step_ms,
+           "median_step_ms_after_2": statistics.median(step_ms[2:]),
+           "prefetch_wait_ms": wait_ms, "prefetch_wait_share": share,
+           "median_wait_share_after_2": statistics.median(share[2:]),
+           "val_s": first["val_s"] + resumed["val_s"],
+           "val_map": [first["val_map"], resumed["val_map"]],
+           "resumed_from": resumed["resumed_from"],
+           "saved": {"step": saved["step"], "epoch": saved["loader"]["epoch"],
+                     "pos": saved["loader"]["pos"]},
+           "csv_rows": len(rows), "csv_scores_per_row": widths,
+           "extract_launches": {k: v for k, v in extract_launches.items()
+                                if v},
+           "run_launches": {k: v for k, v in run_launches.items() if v}}
+    emit(row)
+    emit({"phase": "driver_profile",
+          "what": "one coarse_driver.run step (resumed at step 6, no "
+                  "validation), B8 T64 224² bf16, act route", **profiled})
+    check(n_extracted == c["videos"], f"driver: extracted {n_extracted}")
+    check(not nonfinite, f"driver: non-finite features {nonfinite[:5]}")
+    check(traj and all(np.isfinite(losses)),
+          f"driver: losses not finite {losses}")
+    check([s for s, _, _ in traj] == list(range(1, c["resume_steps"] + 1)),
+          f"driver: steps {[s for s, _, _ in traj]}")
+    check(all(np.isfinite(v) for v in row["val_map"]),
+          f"driver: val_map {row['val_map']}")
+    check(widths == [c["n_classes"]] and len(rows) == 25 * c["val_batches"]
+          and np.isfinite(scores).all() and scores.min() >= 0
+          and scores.max() <= 1,
+          f"driver: csv rows {len(rows)}, widths {widths}")
+    want_pos = {"step": c["steps"], "epoch": c["steps"] - 1, "pos": 1}
+    check(row["saved"] == want_pos and row["resumed_from"] == want_pos,
+          f"driver: saved {row['saved']}, resumed {row['resumed_from']}, "
+          f"want {want_pos}")
+    idle = [k for k in on_path if not launches[k]]
+    check(not idle, f"driver: kernels of the path launched no time: {idle}")
+    stray = {k: v for k, v in launches.items() if v and k not in on_path}
+    check(not stray, f"driver: kernels off the path launched: {stray}")
+    step_counts = {f: n for f, n in profiled["port_kernel_launches"].items()}
+    check(step_counts == DRIVER_STEP,
+          f"driver step launches {step_counts} != {DRIVER_STEP}")
+    return launches
+
+
 def phase_card_vs_cpu() -> None:
     from coarse_fine_networks_torch.models import CoarseFinePipeline
 
@@ -2847,6 +3042,8 @@ def main() -> int:
     launches.update(mm_launches)
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu("mm")
+    torch.cuda.empty_cache()
+    driver_launches = phase_driver(mods)
 
     timed_at = {
         "serve": "bf16 at the serve phase's entry shapes (B=3, 224²; fine "
@@ -2902,6 +3099,7 @@ def main() -> int:
                 "phase_d_bound_ms": agg["phase_d_bound_ms"]}
                if path in ("train", "mm_train") else {}),
             **({"by_path": agg["by_path"]} if "by_path" in agg else {}),
+            "driver_launches": driver_launches[name],
             "timed_at": timed_at[path]})
     check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
     idle = [k["name"] for k in kernels

@@ -7,8 +7,10 @@ is PyTorch; the bottleneck entry is hand-written CUDA, in eval
 (:mod:`.ops.dw_mm_act`) and in training with its backward
 (:mod:`.ops.dw_act`, and :mod:`.ops.dw_conv` with split batch norm).  Joint
 serving is :mod:`.serve`; the train steps of both streams, the multigrid
-long cycle and the device batch are :mod:`.train`.  Entry points run on
-``device="cuda"`` unless the caller asks for the CPU.
+long cycle, the device batch, checkpoints and the extraction and coarse
+drivers are :mod:`.train`, over the host data plane (:mod:`.data`) and the
+metrics (:mod:`.metrics`).  Entry points run on ``device="cuda"`` unless
+the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

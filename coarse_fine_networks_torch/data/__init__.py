@@ -1,7 +1,42 @@
-"""Input boundary of the port: the device half of the clip transforms
-(counterpart of ``coarse_fine_networks_tpu/data``; the host data pipeline
-is not ported yet)."""
+"""Input pipeline of the port (counterpart of
+``coarse_fine_networks_tpu/data``): Charades annotations, clip sampling with
+Pillow decoding, the host transforms, pooled collate buffers, the threaded
+loader, the device prefetcher, and the device half of the transforms
+(uint8 frames cross to the card and are normalised there)."""
 
-from .transforms import CHARADES_MEAN, CHARADES_STD, device_normalize
+from .annotations import make_dataset, rasterize_annotations
+from .dataset import CharadesDataset, collate_clips, collate_coarse
+from .device_prefetch import DevicePrefetcher, overlap_iter
+from .loader import PrefetchLoader
+from .transforms import (CHARADES_MEAN, CHARADES_STD, CenterCrop,
+                         CenterCropScaled, Compose, CornerCrop,
+                         MultiScaleCornerCrop, MultiScaleRandomCrop,
+                         MultiScaleRandomCropMultigrid, Normalize,
+                         RandomHorizontalFlip, RandomVerticalFlip, Scale,
+                         ToArray, device_normalize)
 
-__all__ = ["CHARADES_MEAN", "CHARADES_STD", "device_normalize"]
+__all__ = [
+    "CHARADES_MEAN",
+    "CHARADES_STD",
+    "CenterCrop",
+    "CenterCropScaled",
+    "CharadesDataset",
+    "Compose",
+    "CornerCrop",
+    "DevicePrefetcher",
+    "MultiScaleCornerCrop",
+    "MultiScaleRandomCrop",
+    "MultiScaleRandomCropMultigrid",
+    "Normalize",
+    "PrefetchLoader",
+    "RandomHorizontalFlip",
+    "RandomVerticalFlip",
+    "Scale",
+    "ToArray",
+    "collate_clips",
+    "collate_coarse",
+    "device_normalize",
+    "make_dataset",
+    "overlap_iter",
+    "rasterize_annotations",
+]

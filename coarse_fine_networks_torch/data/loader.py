@@ -1,0 +1,190 @@
+"""Threaded prefetching batch loader (counterpart of
+``coarse_fine_networks_tpu/data/loader.py``).
+
+Worker threads load and collate whole batches ahead of the consumer
+(Pillow's decode and resize release the interpreter lock) and hand them
+over in order.  The device half of the overlap is
+:class:`.device_prefetch.DevicePrefetcher`.
+"""
+
+from __future__ import annotations
+
+import queue
+import random
+import threading
+from typing import Callable, Iterator, List
+
+from . import bufpool
+
+
+class PrefetchLoader:
+    """Iterate padded batches from a map-style dataset with worker
+    threads.
+
+    ``shuffle`` draws each epoch's order from ``random.Random(seed +
+    epoch)``; otherwise ``sort_key`` (a function of the index, e.g. the
+    frame count) orders the samples so that batches pad tightly.
+    ``shard=(rank, world)`` keeps rank's rows of every global batch of
+    ``batch_size`` (which must divide by ``world``; ragged batches are
+    dropped).  :meth:`state_dict` / :meth:`load_state_dict` save and restore
+    the position inside an epoch."""
+
+    def __init__(
+        self,
+        dataset,
+        batch_size: int,
+        collate_fn: Callable,
+        shuffle: bool = False,
+        num_workers: int = 4,
+        prefetch: int = 4,
+        drop_last: bool = False,
+        seed: int = 0,
+        shard: "tuple[int, int] | None" = None,
+        sort_key: "Callable[[int], int] | None" = None,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.collate_fn = collate_fn
+        self.shuffle = shuffle
+        self.num_workers = max(1, num_workers)
+        self.prefetch = prefetch
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+        self.shard = shard
+        # the epoch of the running iteration and the batches it has yielded
+        self._iter_epoch = 0
+        self._pos = 0
+        self._resume_skip = 0
+        self.sort_key = sort_key
+        if shard is not None:
+            rank, world = shard
+            if not 0 <= rank < world:
+                raise ValueError(f"bad shard {shard}")
+            if batch_size % world:
+                raise ValueError(f"global batch {batch_size} not divisible "
+                                 f"by process count {world}")
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        if self.drop_last or self.shard is not None:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _batches(self) -> List[List[int]]:
+        idx = list(range(len(self.dataset)))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(idx)
+        elif self.sort_key is not None:
+            idx.sort(key=self.sort_key)
+        out = [idx[i:i + self.batch_size]
+               for i in range(0, len(idx), self.batch_size)]
+        if self.drop_last or self.shard is not None:
+            out = [b for b in out if len(b) == self.batch_size]
+        if self.shard is not None:
+            rank, world = self.shard
+            local = self.batch_size // world
+            out = [b[rank * local:(rank + 1) * local] for b in out]
+        return out
+
+    def state_dict(self) -> dict:
+        """The input position: the running epoch and the batches yielded
+        from it (the shuffle is a function of seed + epoch, so this fixes
+        the rest of the order), and the random state the samples are drawn
+        from: the global :mod:`random` module's (the transforms') and the
+        dataset's own ``rng`` (the start frames).  At an epoch's end the
+        loader has drawn for every batch it yielded, so a resume from there
+        draws what an uninterrupted run draws; inside an epoch the state is
+        ahead by the batches collated but not yet consumed."""
+        sd = {"epoch": self._iter_epoch, "pos": self._pos,
+              "random": random.getstate()}
+        rng = getattr(self.dataset, "rng", None)
+        if rng is not None:
+            sd["sampler"] = rng.getstate()
+        return sd
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Continue at ``sd``'s position (the next iteration runs its epoch
+        from batch ``pos`` on) with its random state."""
+        self.epoch = self._iter_epoch = int(sd["epoch"])
+        self._resume_skip = self._pos = int(sd["pos"])
+        if "random" in sd:
+            random.setstate(sd["random"])
+        rng = getattr(self.dataset, "rng", None)
+        if rng is not None and "sampler" in sd:
+            rng.setstate(sd["sampler"])
+
+    def __iter__(self) -> Iterator:
+        self._iter_epoch = self.epoch
+        batches = self._batches()
+        self.epoch += 1
+        skip, self._resume_skip = self._resume_skip, 0
+        batches = batches[skip:]
+        self._pos = skip
+        # at most `window` batches are in the loader at once (being
+        # collated, queued or waiting for an earlier batch to be yielded);
+        # worker threads borrow out of index order by up to one batch each,
+        # so the rings need window + num_workers + 2 slots
+        window = self.prefetch + self.num_workers
+        bs = (self.batch_size if self.shard is None
+              else self.batch_size // self.shard[1])
+        large = window + self.num_workers + 2
+        bufpool.ensure_slots(small=max(large, self.prefetch
+                                       + self.num_workers * bs + 2),
+                             large=large)
+        work: "queue.Queue" = queue.Queue()
+        done: "queue.Queue" = queue.Queue()
+        for i, b in enumerate(batches):
+            work.put((i, b))
+        for _ in range(self.num_workers):
+            work.put(None)
+        stop = threading.Event()
+        room = threading.Semaphore(window)
+
+        def worker():
+            while not stop.is_set():
+                if not room.acquire(timeout=0.1):
+                    continue
+                item = work.get()
+                if item is None:
+                    room.release()
+                    break
+                i, idxs = item
+                try:
+                    batch = self.collate_fn([self.dataset[j] for j in idxs])
+                except Exception as e:  # noqa: BLE001 — raised in consumer
+                    batch = e
+                done.put((i, batch))
+            done.put(None)
+
+        threads = [threading.Thread(target=worker, daemon=True)
+                   for _ in range(self.num_workers)]
+        for t in threads:
+            t.start()
+        results = {}
+        finished = 0
+        next_idx = 0
+        try:
+            while next_idx < len(batches):
+                item = done.get()
+                if item is None:
+                    finished += 1
+                    if finished == self.num_workers and not results:
+                        break
+                    continue
+                i, batch = item
+                if isinstance(batch, Exception):
+                    raise batch
+                results[i] = batch
+                while next_idx in results:
+                    out = results.pop(next_idx)
+                    room.release()
+                    next_idx += 1
+                    self._pos += 1
+                    yield out
+        finally:
+            # a consumer that stops early: the workers finish the batch in
+            # hand and exit
+            stop.set()
+            for t in threads:
+                t.join()

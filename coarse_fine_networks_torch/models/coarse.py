@@ -137,13 +137,19 @@ class MixingLayer(nn.Module):
 
 class CoarseNet(X3DTrunk):
     """Coarse stream: X3D trunk + Grid Pool + multi-stage fusion of the fine
-    feature banks + Grid Unpool."""
+    feature banks + Grid Unpool.
+
+    ``crops`` (an attribute the eval loop may set): multi-crop testing,
+    where ``x`` carries ``crops`` consecutive clips per sample, crop ``i``
+    aligned ``i·stride`` fine frames later, and the per-sample fine banks
+    are repeated per crop."""
 
     def __init__(self, version: str = "M", n_classes: int = 157,
                  feat_depth: dict[str, int] | None = None,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, crops: int = 1):
         super().__init__(version)
         self.dropout_rate = dropout_rate
+        self.crops = crops
         planes = get_inplanes(version)
         fd = dict(DEFAULT_FEAT_DEPTH if feat_depth is None else feat_depth)
         self.pool_1 = GridPool(planes[0][1])
@@ -160,14 +166,19 @@ class CoarseNet(X3DTrunk):
     def forward(self, x: torch.Tensor, feats: dict[str, torch.Tensor],
                 feat_mask: torch.Tensor, meta: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        """``x (B, T, H, W, 3)``, feature banks ``(B, T_f, 7, 7, C_k)``,
-        ``feat_mask (B, T_f)``, ``meta (B, 4)`` → f32 logits
-        ``(B, T, n_classes)``.  ``generator`` draws the dropout masks in
+        """``x (B·crops, T, H, W, 3)``, feature banks ``(B, T_f, 7, 7,
+        C_k)``, ``feat_mask (B, T_f)``, ``meta (B, 4)`` → f32 logits
+        ``(B·crops, T, n_classes)``.  ``generator`` draws the dropout masks in
         training (on x's device; needed when ``dropout_rate > 0``)."""
         t_in = x.shape[1]
         x = self.layer1(self.stem(x))
         x, knots = self.pool_1(x)
-        align = gaussian_alignment(meta, feat_mask, knots, t_in)
+        align = gaussian_alignment(meta, feat_mask, knots, t_in,
+                                   crops=self.crops)
+        if self.crops > 1:
+            feats = {k: torch.repeat_interleave(v, self.crops, dim=0)
+                     for k, v in feats.items()}
+            feat_mask = torch.repeat_interleave(feat_mask, self.crops, dim=0)
 
         rw_out = [getattr(self, f"rw{i + 2}")(feats[key].to(x.dtype),
                                               feat_mask, align, True)

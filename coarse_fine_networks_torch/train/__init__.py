@@ -1,11 +1,15 @@
 """Training of both streams: losses, SGD with the fusion group and the
 learning-rate schedules, the train state, the train/eval steps, the
-multigrid long cycle and the device batch (counterpart of
-``coarse_fine_networks_tpu/train``; the drivers, the host data pipeline and
-checkpoints are not ported yet)."""
+multigrid long cycle, the device batch, checkpoints with resume, and the
+drivers: feature extraction (:mod:`.extract_driver`) and the coarse stream
+(:mod:`.coarse_driver`), configured by :class:`.config.DriverConfig`
+(counterpart of ``coarse_fine_networks_tpu/train``; the fine driver's loop
+is not ported yet)."""
 
-from .common import model_batch, prepare_clips
-
+from .common import (batch_shape_key, iter_train_batches, load_pretrained,
+                     maybe_resume, model_batch, preemption_guard,
+                     prepare_clips, save_train_state, stack_microbatches)
+from .config import DriverConfig
 from .losses import bce_loss, detection_loss
 from .multigrid import DEFAULT_LONG_CYCLE, LongCyclePhase, LongCycleSchedule
 from .optim import (CosineSchedule, MultiStepSchedule, build_schedule,
@@ -17,20 +21,28 @@ from .steps import (bn_aggregated, crop_reduced_loss, make_eval_step,
 __all__ = [
     "CosineSchedule",
     "DEFAULT_LONG_CYCLE",
+    "DriverConfig",
     "LongCyclePhase",
     "LongCycleSchedule",
     "MultiStepSchedule",
     "TrainState",
+    "batch_shape_key",
     "bce_loss",
     "bn_aggregated",
     "build_schedule",
     "crop_reduced_loss",
     "detection_loss",
     "fusion_lr_scale",
+    "iter_train_batches",
+    "load_pretrained",
     "make_eval_step",
     "make_optimizer",
     "make_train_step",
+    "maybe_resume",
     "model_batch",
+    "preemption_guard",
     "prepare_clips",
+    "save_train_state",
+    "stack_microbatches",
     "t_chunks",
 ]

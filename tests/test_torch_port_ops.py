@@ -125,7 +125,8 @@ def test_reweight_aggregate():
 
 
 def test_port_imports_nothing_of_jax():
-    """The port and chip_smoke.py import neither JAX, flax nor the JAX
+    """The port (its data plane, metrics, checkpoints and drivers
+    included) and chip_smoke.py import neither JAX, flax nor the JAX
     package: not at import time, and not in any import statement."""
     import pathlib
     import re
@@ -135,7 +136,16 @@ def test_port_imports_nothing_of_jax():
     root = pathlib.Path(__file__).resolve().parent.parent
     code = ("import sys, coarse_fine_networks_torch.models, "
             "coarse_fine_networks_torch.serve, coarse_fine_networks_torch.ckpt,"
-            " coarse_fine_networks_torch.train, coarse_fine_networks_torch.data;"
+            " coarse_fine_networks_torch.train, coarse_fine_networks_torch.data,"
+            " coarse_fine_networks_torch.metrics,"
+            " coarse_fine_networks_torch.ckpt.checkpoint,"
+            " coarse_fine_networks_torch.data.synthetic,"
+            " coarse_fine_networks_torch.data.loader,"
+            " coarse_fine_networks_torch.data.device_prefetch,"
+            " coarse_fine_networks_torch.train.config,"
+            " coarse_fine_networks_torch.train.fine_driver,"
+            " coarse_fine_networks_torch.train.extract_driver,"
+            " coarse_fine_networks_torch.train.coarse_driver;"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'coarse_fine_networks_tpu')]; print(bad)")
     out = subprocess.run([sys.executable, "-c", code], cwd=root,

@@ -178,9 +178,39 @@ Phases, each printing JSON lines:
    and the validation seconds; then one driver step profiled
    (``driver_profile``: its launches equal to the counters, 22 and 4 of
    each act kernel, K11 2 and its taps' gradient 1);
-20. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
-   the driver's path beside the earlier phases'), then the card's
-   ``nvidia-smi`` line, then ``{"ok": true, "device": {...}}`` last.
+20. kinetics: Kinetics-style pretraining as a user runs it:
+   ``generate_mini_kinetics`` (44 videos of 96 frames at 256², 400
+   classes: 33 training, 11 validation), then
+   ``cli.pretrain_kinetics.main`` at its defaults (X3D-M, B32, T16, 224²,
+   bf16, lr 0.1) with ``--max-steps 2 --max-epochs 2 --num-workers 4``:
+   finite losses and top-1, the final checkpoint written, every step's
+   and validation batch's launches recorded (the act route's 22/4 of
+   each act kernel, K11 2, its dk 1 a step; the eval entry's 22/4 and K11
+   1 a batch) and summing to the counters; then one class step at B32 T16
+   224² profiled (``kinetics_profile``);
+21. fine_driver: ``fine_driver.run`` under the long cycle at full width
+   (``LongCycleSchedule(320, 224, 2)``, the base batch cut from 8 to 2:
+   B16 T16 112², B8 T32 144², B4 T32 224², B2 T64 224² with 8, 4, 2, 1
+   splits), 157 classes, bf16, lr 0.01, from the kinetics phase's
+   checkpoint, on 20 synthetic videos (16 training) of 640 frames at
+   256²: one epoch a phase, 15 steps and a validation, a checkpoint every
+   5; then a run resumed from step 5 (inside phase C: epoch 2, batch 2)
+   to the cycle's end; every call's launches held against its route
+   (split-bn in A-C, act in D, the eval entry in validation) and the
+   counters, step ms and the wait share by phase;
+22. cli: a user's pipeline through the command lines' ``main(argv)`` at
+   their defaults on the driver phase's tree, given only paths,
+   ``--max-steps``, ``--max-epochs`` and ``--num-workers``:
+   ``train_fine`` from the kinetics checkpoint (B8 T64: 4 steps, a
+   validation, 1 step), ``extract_fineFEAT`` with the fine_driver phase's
+   last checkpoint, ``train_coarse_fineFEAT`` at B6 with the localize CSV
+   (157 probabilities a row); each run's launches held as above; one
+   coarse step at B6 T64 224² profiled (``cli_coarse_profile``); and
+   ``--help`` of each command line as ``python -m``;
+23. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
+   the driver, kinetics, fine_driver and cli paths beside the earlier
+   phases'), then the card's ``nvidia-smi`` line, then ``{"ok": true,
+   "device": {...}}`` last.
 
 The stem's ``conv1_t`` runs through ``dw_stencil_s1`` on every path: the
 serve, train, train_mm and fine_train phases hold its launches exactly (a
@@ -197,8 +227,9 @@ route it names.
 
 Any failed check raises and the script exits non-zero before the last line.
 It needs no network and writes nothing outside the checkout (the kernel
-build goes to ``coarse_fine_networks_torch/_build/``, the driver phase's
-data to ``_scratch/chip_smoke_driver/``, removed after it).
+build goes to ``coarse_fine_networks_torch/_build/``, the driver-level
+phases' data, checkpoints and features to ``_scratch/chip_smoke_drivers/``,
+removed at the end).
 """
 
 from __future__ import annotations
@@ -208,6 +239,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -218,6 +250,8 @@ import torch
 import torch.nn.functional as F
 
 REPO = Path(__file__).resolve().parent
+# the driver-level phases' data, checkpoints and features (removed at exit)
+SCRATCH = REPO / "_scratch" / "chip_smoke_drivers"
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; bf16 tensor-core
 # and f32 (non-tensor) operations/s
 PEAK_BYTES = 3.35e12
@@ -2805,7 +2839,6 @@ def phase_driver(mods) -> dict:
     kernel's launches over the extraction and the two runs."""
     import csv
     import dataclasses
-    import shutil
     import statistics
 
     from coarse_fine_networks_torch.ckpt import (latest_checkpoint,
@@ -2819,7 +2852,7 @@ def phase_driver(mods) -> dict:
                                                   extract_driver)
 
     c = DRIVER
-    root = REPO / "_scratch" / "chip_smoke_driver"
+    root = SCRATCH / "driver"
     shutil.rmtree(root, ignore_errors=True)
     try:
         t0 = time.perf_counter()
@@ -2874,14 +2907,18 @@ def phase_driver(mods) -> dict:
         scores = np.array([[float(x) for x in r[2].split()] for r in rows])
 
         def one_step():
+            # resumed in the saved epoch 5 (its batch taken): epoch 6 is
+            # empty and epoch 7 runs step 7; four train phases a
+            # validation put none in between
             coarse_driver.run(dataclasses.replace(
                 cfg, resume=True, max_steps=saved["step"] + 1,
-                train_phases_per_val=2, ckpt_every=10 ** 9,
+                train_phases_per_val=4, ckpt_every=10 ** 9,
                 localize_csv=None))
         profiled = _profile_step(one_step, tuple(DRIVER_STEP) + (
             "mm_fwd_s1_kernel", "mm_s2_fwd_kernel"), mods)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+    finally:  # the tree stays for the cli phase; main removes SCRATCH
+        shutil.rmtree(root / "models", ignore_errors=True)
+        shutil.rmtree(root / "feats", ignore_errors=True)
 
     traj = first["trajectory"] + resumed["trajectory"]
     losses = [x for *_, x in traj]
@@ -2943,6 +2980,501 @@ def phase_driver(mods) -> dict:
     step_counts = {f: n for f, n in profiled["port_kernel_launches"].items()}
     check(step_counts == DRIVER_STEP,
           f"driver step launches {step_counts} != {DRIVER_STEP}")
+    return launches
+
+
+# launches a call, by the route the call takes (the wrappers' names): a
+# train step by the act route or the split-bn route, and an eval call
+ACT_STEP = {"dw_act_s1": 22, "dw_act_s2": 4, "dw_act_dx_s1": 22,
+            "dw_act_dx_s2": 4, "dw_act_wgrad_s1": 22, "dw_act_wgrad_s2": 4,
+            "dw_stencil_s1": 2, "dw_stencil_wgrad": 1}
+SPLIT_STEP = {"dw_conv_s1": 44, "dw_conv_s2": 4, "dw_conv_dx_s2": 4,
+              "dw_conv_wgrad_s1": 22, "dw_conv_wgrad_s2": 4,
+              "dw_stencil_s1": 2, "dw_stencil_wgrad": 1}
+EVAL_CALL = {"dw_mm_act_s1": 22, "dw_mm_act_s2": 4, "dw_stencil_s1": 1}
+KINETICS = dict(videos=44, train=33, video_frames=96, hw=256,
+                n_classes=400, workers=4, steps=2, epochs=2, b=32, t=16)
+FINE_DRIVER = dict(videos=20, train=16, video_frames=640, hw=256,
+                   n_classes=157, batch=2, workers=4, ckpt_every=5,
+                   resume_at=5, epochs=4)
+# the long cycle at base batch 2: (epoch, frames, crop, batch, splits)
+FINE_DRIVER_PHASES = [(0, 80, 112, 16, 8), (1, 160, 144, 8, 4),
+                      (2, 160, 224, 4, 2), (3, 320, 224, 2, 1)]
+CLI = dict(workers=4, fine_steps=5, coarse_epochs=2, coarse_b=6)
+
+
+def _splits(model) -> int:
+    from coarse_fine_networks_torch.models import SubBatchNorm
+
+    return next(m.num_splits for m in model.modules()
+                if isinstance(m, SubBatchNorm))
+
+
+@contextlib.contextmanager
+def _per_call(module, factories: dict, mods, calls: list):
+    """Wrap ``module``'s step factories (``{name: "train" | "eval"}``) so
+    that every step they build appends to ``calls`` its kind, the model's
+    batch-norm splits, the clips' shape, the kernels' launches (the
+    counters' difference over the call) and, for a train step, its loss.
+    The drivers' device prefetchers launch no port kernel, so the
+    differences are the step's own."""
+    saved = {n: getattr(module, n) for n in factories}
+
+    def wrap(name, build):
+        def built(*args, **kwargs):
+            step = build(*args, **kwargs)
+
+            def counted(state, batch, *rest, **kw):
+                before = _launches(*mods)
+                out = step(state, batch, *rest, **kw)
+                after = _launches(*mods)
+                rec = {"kind": factories[name],
+                       "splits": _splits(state.model),
+                       "shape": list(batch["clips"].shape),
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+                if factories[name] == "train":
+                    rec["loss"] = float(out[1]["loss"])
+                calls.append(rec)
+                return out
+            return counted
+        return built
+
+    for n in factories:
+        setattr(module, n, wrap(n, saved[n]))
+    try:
+        yield calls
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+def _want(call) -> dict:
+    """The launches a recorded call must make: a train step by the split
+    route when its model has more than one split, else by the act route;
+    an eval call the eval entry's."""
+    if call["kind"] == "eval":
+        return EVAL_CALL
+    return SPLIT_STEP if call["splits"] > 1 else ACT_STEP
+
+
+def _check_calls(phase, calls, counters) -> dict:
+    """Every call launched its route's kernels exactly, and the calls
+    together what the counters read over the run (so nothing launched
+    outside a step); returns the launches by kernel."""
+    bad = [(i, c["kind"], c["splits"], c["shape"], c["launches"])
+           for i, c in enumerate(calls) if c["launches"] != _want(c)]
+    check(not bad, f"{phase}: calls off their route's launches: {bad[:3]}")
+    total = {k: 0 for k in counters}
+    for c in calls:
+        for k, v in c["launches"].items():
+            total[k] += v
+    check(total == counters, f"{phase}: the calls' launches {total} != "
+                             f"the counters' {counters}")
+    return total
+
+
+def _median_after(xs, n=2):
+    import statistics
+
+    return statistics.median(xs[n:]) if len(xs) > n else None
+
+
+def _class_step_profile(mods) -> dict:
+    """One Kinetics class train step at the CLI's shape (X3D-M, 400
+    classes, B32 T16 224², bf16, dropout 0.5) under ``_profile_step``: the
+    act kernels' times at this new entry shape."""
+    from coarse_fine_networks_torch.models import FineNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState
+    from coarse_fine_networks_torch.train.kinetics_driver import \
+        make_class_train_step
+
+    c = KINETICS
+    model = init_parameters(FineNet("M", c["n_classes"], task="class",
+                                    global_tower=False),
+                            torch.Generator().manual_seed(20)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    batch = {"clips": torch.rand((c["b"], c["t"], 224, 224, 3), generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+             "labels": torch.randint(0, c["n_classes"], (c["b"],),
+                                     generator=gen, device="cuda")}
+    step = make_class_train_step(model, weight_decay=1e-5)
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(22)
+
+    def one_step():
+        step(state, batch, 0.1, drop)[1]["loss"].item()
+    return _profile_step(one_step, ACT_FUNCS + ("stencil_fwd_kernel",
+                                                "stencil_dk_kernel"), mods)
+
+
+def phase_kinetics(mods) -> tuple[dict, str]:
+    """Kinetics-style pretraining as a user runs it:
+    ``generate_mini_kinetics`` (44 videos of 96 frames at 256², 400
+    classes: 33 training, 11 validation), then
+    ``cli.pretrain_kinetics.main`` at the CLI's defaults (X3D-M, B32, T16,
+    224², bf16, lr 0.1, 4 workers) for 2 steps in 2 epochs, each epoch
+    validated (one B11 batch).  Every call's launches are recorded (the act
+    route's 22/4 a step, K11 2, its dk 1; the eval entry's 22/4 and K11 1
+    a validation batch) and held against the counters; then one class
+    step at B32 T16 224² is profiled.  Returns the run's launches and the
+    final checkpoint, the fine phases' Kinetics checkpoint."""
+    from coarse_fine_networks_torch.cli import pretrain_kinetics
+    from coarse_fine_networks_torch.data.kinetics import \
+        generate_mini_kinetics
+    from coarse_fine_networks_torch.train import kinetics_driver
+
+    c = KINETICS
+    root = SCRATCH / "kinetics"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    anno = generate_mini_kinetics(str(root), num_videos=c["videos"],
+                                  num_frames=c["video_frames"], hw=c["hw"],
+                                  num_classes=c["n_classes"])
+    gen_s = time.perf_counter() - t0
+    models = root / "models"
+    for m in mods:
+        m.reset_launches()
+    t1 = time.perf_counter()
+    with _per_call(kinetics_driver, {"make_class_train_step": "train",
+                                     "make_class_eval_step": "eval"},
+                   mods, []) as calls:
+        res = pretrain_kinetics.main([
+            "--root", str(root / "frames"), "--anno", anno, "--save-dir",
+            str(models), "--max-steps", str(c["steps"]), "--max-epochs",
+            str(c["epochs"]), "--num-workers", str(c["workers"])])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t1
+    counters = _launches(*mods)
+    ckpt = models / f"kinetics_x3d_{c['steps']:06d}.ckpt"
+    profiled = _class_step_profile(mods)
+    train = [x for x in calls if x["kind"] == "train"]
+    evals = [x for x in calls if x["kind"] == "eval"]
+    share = [w / s for w, s in zip(res["prefetch_wait_ms"], res["step_ms"])]
+    emit({"phase": "kinetics", "model": "X3D-M", "n_classes": c["n_classes"],
+          "dtype": "bfloat16 activations, float32 parameters",
+          "data": f"{c['videos']} synthetic videos ({c['train']} training) "
+                  f"of {c['video_frames']} frames at {c['hw']}², JPEG, "
+                  f"decoded by Pillow",
+          "argv": "--max-steps 2 --max-epochs 2 --num-workers 4 (CLI "
+                  "defaults: B32, frames 16, lr 0.1, bf16)",
+          "generate_s": gen_s, "run_s": run_s,
+          "losses": [x["loss"] for x in train],
+          "train_shapes": [x["shape"] for x in train],
+          "eval_shapes": [x["shape"] for x in evals],
+          "train_loss": res.get("train_loss"),
+          "val_top1": res.get("val_top1"), "step_ms": res["step_ms"],
+          "prefetch_wait_ms": res["prefetch_wait_ms"],
+          "prefetch_wait_share": share, "val_s": res["val_s"],
+          "checkpoint": ckpt.name, "checkpoint_written": ckpt.is_file(),
+          "launches": {k: v for k, v in counters.items() if v}})
+    emit({"phase": "kinetics_profile",
+          "what": "one class train step, B32 T16 224² bf16, 400 classes, "
+                  "act route", **profiled})
+    losses = [x["loss"] for x in train]
+    check(len(train) == c["steps"] and all(np.isfinite(losses)),
+          f"kinetics: train losses {losses}")
+    check(all(x["shape"] == [c["b"], c["t"], 224, 224, 3] for x in train),
+          f"kinetics: train shapes {[x['shape'] for x in train]}")
+    check(len(evals) == c["epochs"] and np.isfinite(res["val_top1"]),
+          f"kinetics: {len(evals)} eval calls, val_top1 "
+          f"{res.get('val_top1')}")
+    check(ckpt.is_file(), f"kinetics: no final checkpoint {ckpt}")
+    launches = _check_calls("kinetics", calls, counters)
+    step_counts = dict(profiled["port_kernel_launches"])
+    check(step_counts == DRIVER_STEP,
+          f"kinetics step launches {step_counts} != {DRIVER_STEP}")
+    return launches, str(ckpt)
+
+
+def phase_fine_driver(mods, kinetics_ckpt: str) -> tuple[dict, str]:
+    """``fine_driver.run`` under the long cycle at full width
+    (``LongCycleSchedule(320, 224, 2)``: the recipe's widths and clip
+    shapes, the base batch cut from 8 to 2, so phases A-D run B16 T16 112²,
+    B8 T32 144², B4 T32 224² and B2 T64 224² with 8, 4, 2 and 1 splits),
+    157 classes, bf16, lr 0.01, dropout 0.5, from the Kinetics checkpoint,
+    4 workers, on ``generate_mini_charades`` (20 videos of 640 frames at
+    256²: 16 training, 4 testing): one epoch a phase, 1 + 2 + 4 + 8 = 15
+    steps and a validation (four B1 T64 calls), a checkpoint every 5 steps.
+    Then a run resumed from the checkpoint at step 5 (inside phase C) to
+    the cycle's end.  Every call's launches are recorded and held against
+    its route (split-bn in A-C, act in D, the eval entry in validation) and
+    the counters; the resumed run must start in the saved phase at the
+    saved position.  Returns the launches of both runs and the resumed
+    run's last checkpoint."""
+    import dataclasses
+
+    from coarse_fine_networks_torch.ckpt import load_checkpoint
+    from coarse_fine_networks_torch.data.synthetic import (
+        generate_mini_charades)
+    from coarse_fine_networks_torch.train import DriverConfig, fine_driver
+
+    c = FINE_DRIVER
+    root = SCRATCH / "fine_driver"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    anno = generate_mini_charades(
+        str(root), num_videos=c["videos"], num_frames=c["video_frames"],
+        hw=c["hw"], num_classes=c["n_classes"],
+        train_fraction=c["train"] / c["videos"])
+    gen_s = time.perf_counter() - t0
+    cfg = DriverConfig(
+        anno=anno, root=str(root / "frames"), save_dir=str(root / "models"),
+        num_classes=c["n_classes"], batch_size=c["batch"],
+        compute_dtype="bfloat16", num_workers=c["workers"], multigrid=True,
+        max_epochs=c["epochs"], train_phases_per_val=4,
+        ckpt_every=c["ckpt_every"], kinetics_ckpt=kinetics_ckpt,
+        resume=False, record_trajectory=True, device="cuda")
+    factories = {"make_train_step": "train", "make_eval_step": "eval"}
+    runs, launches = {}, {}
+    for name in ("first", "resumed"):
+        if name == "resumed":
+            saved_path = (root / "models" /
+                          f"fine_charades_{c['resume_at']:06d}.ckpt")
+            (root / "resumed").mkdir()
+            shutil.copy(saved_path, root / "resumed")
+            saved = load_checkpoint(str(saved_path))
+            cfg = dataclasses.replace(cfg, save_dir=str(root / "resumed"),
+                                      resume=True)
+        for m in mods:
+            m.reset_launches()
+        t1 = time.perf_counter()
+        with _per_call(fine_driver, factories, mods, []) as calls:
+            res = fine_driver.run(cfg)
+        torch.cuda.synchronize()
+        res["run_s"] = time.perf_counter() - t1
+        res["calls"] = calls
+        runs[name] = res
+        got = _check_calls(f"fine_driver {name}", calls, _launches(*mods))
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    first, resumed = runs["first"], runs["resumed"]
+    last_ckpt = root / "resumed" / f"fine_charades_{15:06d}.ckpt"
+
+    def by_phase(res):
+        """step ms and wait share of each long-cycle phase's steps."""
+        out = {}
+        train = [x for x in res["calls"] if x["kind"] == "train"]
+        for x, ms, w in zip(train, res["step_ms"], res["prefetch_wait_ms"]):
+            key = "BTHW " + "x".join(map(str, x["shape"][:3])) + \
+                f" splits {x['splits']}"
+            o = out.setdefault(key, {"step_ms": [], "wait_share": []})
+            o["step_ms"].append(ms)
+            o["wait_share"].append(w / ms)
+        return out
+
+    rows = {}
+    for name, res in runs.items():
+        train = [x for x in res["calls"] if x["kind"] == "train"]
+        rows[name] = {
+            "steps": [s for s, _, _ in res["trajectory"]],
+            "losses": [x for *_, x in res["trajectory"]],
+            "multigrid_phases": res["multigrid_phases"],
+            "train_calls": [[x["shape"][:3], x["splits"]] for x in train],
+            "eval_calls": sum(x["kind"] == "eval" for x in res["calls"]),
+            "val_map": res.get("val_map"), "val_s": res["val_s"],
+            "run_s": res["run_s"], "by_phase": by_phase(res),
+            "median_step_ms_after_2": _median_after(res["step_ms"]),
+            "median_wait_share_after_2": _median_after(
+                [w / s for w, s in zip(res["prefetch_wait_ms"],
+                                       res["step_ms"])])}
+    saved_pos = {"step": saved["step"], "epoch": saved["loader"]["epoch"],
+                 "pos": saved["loader"]["pos"]}
+    emit({"phase": "fine_driver", "model": "X3D-M",
+          "n_classes": c["n_classes"],
+          "dtype": "bfloat16 activations, float32 parameters",
+          "data": f"{c['videos']} synthetic videos ({c['train']} training) "
+                  f"of {c['video_frames']} frames at {c['hw']}², JPEG, "
+                  f"decoded by Pillow",
+          "cut": "base batch 2 (the recipe's 8): phases at B16/B8/B4/B2",
+          "generate_s": gen_s, "saved": saved_pos,
+          "resumed_from": resumed.get("resumed_from"), **rows,
+          "launches": {k: v for k, v in launches.items() if v}})
+    check(first["multigrid_phases"] == FINE_DRIVER_PHASES,
+          f"fine_driver: phases {first['multigrid_phases']}")
+    check(rows["first"]["steps"] == list(range(1, 16)),
+          f"fine_driver: steps {rows['first']['steps']}")
+    want_pos = {"step": c["resume_at"], "epoch": 2, "pos": 2}
+    check(saved_pos == want_pos and resumed.get("resumed_from") == want_pos,
+          f"fine_driver: saved {saved_pos}, resumed "
+          f"{resumed.get('resumed_from')}, want {want_pos}")
+    check(resumed["multigrid_phases"] == FINE_DRIVER_PHASES[2:],
+          f"fine_driver: resumed phases {resumed['multigrid_phases']}")
+    check(rows["resumed"]["steps"] == list(range(c["resume_at"] + 1, 16)),
+          f"fine_driver: resumed steps {rows['resumed']['steps']}")
+    for name, row in rows.items():
+        check(all(np.isfinite(row["losses"])) and row["eval_calls"] == 4
+              and np.isfinite(row["val_map"]),
+              f"fine_driver {name}: losses {row['losses']}, "
+              f"{row['eval_calls']} eval calls, val_map {row['val_map']}")
+    check(last_ckpt.is_file(), f"fine_driver: no checkpoint {last_ckpt}")
+    return launches, str(last_ckpt)
+
+
+def _coarse_step_profile(mods) -> dict:
+    """One coarse train step at the coarse CLI's batch (X3D-M, 157 classes,
+    B6 T64 224², bf16, banks at T_f 128, fusion ×10) under
+    ``_profile_step``: the act kernels' times at this new entry shape."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    c = TRAIN
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5),
+                            torch.Generator().manual_seed(30)).cuda()
+    batch = _train_batch("cuda", torch.Generator(device="cuda").manual_seed(
+        31), CLI["coarse_b"], c["t"], c["hw"], c["tf"], c["tl"],
+        c["n_classes"], torch.bfloat16)
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(32)
+
+    def one_step():
+        step(state, batch, 0.02, drop)[1]["loss"].item()
+    return _profile_step(one_step, ACT_FUNCS + ("stencil_fwd_kernel",
+                                                "stencil_dk_kernel"), mods)
+
+
+def _help_all() -> dict:
+    """``python -m coarse_fine_networks_torch.cli.<name> --help`` for each
+    command line, the processes started together; each one's exit code
+    and whether it printed ``--device``."""
+    names = ("pretrain_kinetics", "train_fine", "extract_fineFEAT",
+             "train_coarse_fineFEAT")
+    procs = {n: subprocess.Popen(
+        [sys.executable, "-m", f"coarse_fine_networks_torch.cli.{n}",
+         "--help"], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for n in names}
+    out = {}
+    try:
+        for n, p in procs.items():
+            stdout, _ = p.communicate(timeout=120)
+            out[n] = {"rc": p.returncode, "device_flag": "--device" in stdout}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_cli(mods, kinetics_ckpt: str, fine_ckpt: str) -> dict:
+    """A user's pipeline through the command lines' ``main(argv)`` at their
+    defaults (X3D-M, 157 classes, bf16, 224²) on the driver phase's tree
+    (12 videos, 8 training, 640 frames at 256²), giving only paths,
+    ``--max-steps``, ``--max-epochs`` and ``--num-workers``:
+    ``train_fine`` from the Kinetics phase's checkpoint (B8 T64: 4 steps, a
+    validation, 1 step), ``extract_fineFEAT`` with the fine_driver phase's
+    last checkpoint (12 videos), ``train_coarse_fineFEAT`` on those
+    features (B6 T64: 2 steps, a validation of 4 videos with the localize
+    CSV).  Each run's calls are held against their routes and the counters;
+    then one coarse step at B6 is profiled, and each command line's
+    ``--help`` runs as ``python -m``.  Returns the three runs' launches."""
+    import csv
+
+    from coarse_fine_networks_torch.cli import (extract_fineFEAT,
+                                                train_coarse_fineFEAT,
+                                                train_fine)
+    from coarse_fine_networks_torch.models.fine import FEAT_KEYS
+    from coarse_fine_networks_torch.train import coarse_driver, fine_driver
+
+    c = CLI
+    tree = SCRATCH / "driver"
+    root = SCRATCH / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    common = ["--root", str(tree / "frames"), "--anno",
+              str(tree / "annotations.json"), "--num-workers",
+              str(c["workers"])]
+    steps = {"train_fine": (fine_driver, {"make_train_step": "train",
+                                          "make_eval_step": "eval"}),
+             "train_coarse_fineFEAT": (coarse_driver, {
+                 "make_train_step": "train", "make_eval_step": "eval"})}
+    argv = {
+        "train_fine": ["--save-dir", str(root / "fine"), "--kinetics-ckpt",
+                       kinetics_ckpt, "--max-steps", str(c["fine_steps"])],
+        "extract_fineFEAT": ["--save-feat-dir", str(root / "feats"),
+                             "--fine-ckpt", fine_ckpt],
+        "train_coarse_fineFEAT": [
+            "--save-dir", str(root / "coarse"), "--fine-feat-dir",
+            str(root / "feats"), "--localize-csv", str(root / "loc.csv"),
+            "--max-epochs", str(c["coarse_epochs"])]}
+    mains = {"train_fine": train_fine, "extract_fineFEAT": extract_fineFEAT,
+             "train_coarse_fineFEAT": train_coarse_fineFEAT}
+    rows, launches = {}, {}
+    for name, argv_ in argv.items():
+        for m in mods:
+            m.reset_launches()
+        t1 = time.perf_counter()
+        calls: list = []
+        if name in steps:
+            with _per_call(*steps[name], mods, calls):
+                res = mains[name].main(common + argv_)
+        else:
+            res = mains[name].main(common + argv_)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        counters = _launches(*mods)
+        if name == "extract_fineFEAT":  # one tower call a video
+            want = {k: res * EVAL_CALL.get(k, 0) for k in counters}
+            check(counters == want, f"cli {name}: launches {counters} != "
+                                    f"{want}")
+            got = counters
+            rows[name] = {"videos": res, "run_s": run_s}
+        else:
+            got = _check_calls(f"cli {name}", calls, counters)
+            train = [x for x in calls if x["kind"] == "train"]
+            rows[name] = {
+                "losses": [x["loss"] for x in train],
+                "train_shapes": [x["shape"] for x in train],
+                "eval_shapes": [x["shape"] for x in calls
+                                if x["kind"] == "eval"],
+                "val_map": res.get("val_map"), "step_ms": res["step_ms"],
+                "prefetch_wait_ms": res["prefetch_wait_ms"],
+                "prefetch_wait_share": [w / s for w, s in zip(
+                    res["prefetch_wait_ms"], res["step_ms"])],
+                "val_s": res["val_s"], "run_s": run_s}
+        rows[name]["launches"] = {k: v for k, v in got.items() if v}
+        launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    feats = root / "feats"
+    nonfinite = [f"{k}/{v}" for k in FEAT_KEYS
+                 for v in sorted(os.listdir(feats / k))
+                 if not np.isfinite(np.load(feats / k / v)).all()]
+    with open(root / "loc.csv") as f:
+        csv_rows = list(csv.reader(f))
+    widths = sorted({len(r[2].split()) for r in csv_rows})
+    scores = np.array([[float(x) for x in r[2].split()] for r in csv_rows])
+    profiled = _coarse_step_profile(mods)
+    helps = _help_all()
+    emit({"phase": "cli", "tree": "the driver phase's (12 videos, 8 "
+                                  "training, 640 frames at 256²)",
+          **rows, "csv_rows": len(csv_rows), "csv_scores_per_row": widths,
+          "help": helps})
+    emit({"phase": "cli_coarse_profile",
+          "what": "one coarse train step, B6 T64 224² bf16, act route",
+          **profiled})
+    tf, co = rows["train_fine"], rows["train_coarse_fineFEAT"]
+    check(len(tf["losses"]) == c["fine_steps"] and all(np.isfinite(
+        tf["losses"])) and len(tf["eval_shapes"]) == 1
+        and np.isfinite(tf["val_map"]),
+        f"cli train_fine: losses {tf['losses']}, val_map {tf['val_map']}")
+    check(all(s[:2] == [8, 64] for s in tf["train_shapes"]),
+          f"cli train_fine: shapes {tf['train_shapes']}")
+    check(rows["extract_fineFEAT"]["videos"] == 12 and not nonfinite,
+          f"cli extract: {rows['extract_fineFEAT']['videos']} videos, "
+          f"non-finite {nonfinite[:5]}")
+    check(len(co["losses"]) == c["coarse_epochs"]
+          and all(np.isfinite(co["losses"])) and np.isfinite(co["val_map"])
+          and all(s[:2] == [c["coarse_b"], 64] for s in co["train_shapes"]),
+          f"cli train_coarse_fineFEAT: losses {co['losses']}, shapes "
+          f"{co['train_shapes']}, val_map {co['val_map']}")
+    check(widths == [157] and len(csv_rows) == 4 * 25
+          and np.isfinite(scores).all() and scores.min() >= 0
+          and scores.max() <= 1,
+          f"cli: csv rows {len(csv_rows)}, widths {widths}")
+    check(all(h["rc"] == 0 and h["device_flag"] for h in helps.values()),
+          f"cli --help: {helps}")
+    step_counts = dict(profiled["port_kernel_launches"])
+    check(step_counts == DRIVER_STEP,
+          f"cli coarse B6 step launches {step_counts} != {DRIVER_STEP}")
     return launches
 
 
@@ -3043,7 +3575,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_train_card_vs_cpu("mm")
     torch.cuda.empty_cache()
-    driver_launches = phase_driver(mods)
+    try:
+        driver_launches = phase_driver(mods)
+        torch.cuda.empty_cache()
+        kinetics_launches, kinetics_ckpt = phase_kinetics(mods)
+        torch.cuda.empty_cache()
+        fine_driver_launches, fine_ckpt = phase_fine_driver(mods,
+                                                            kinetics_ckpt)
+        torch.cuda.empty_cache()
+        cli_launches = phase_cli(mods, kinetics_ckpt, fine_ckpt)
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
 
     timed_at = {
         "serve": "bf16 at the serve phase's entry shapes (B=3, 224²; fine "
@@ -3100,6 +3642,9 @@ def main() -> int:
                if path in ("train", "mm_train") else {}),
             **({"by_path": agg["by_path"]} if "by_path" in agg else {}),
             "driver_launches": driver_launches[name],
+            "kinetics_launches": kinetics_launches[name],
+            "fine_driver_launches": fine_driver_launches[name],
+            "cli_launches": cli_launches[name],
             "timed_at": timed_at[path]})
     check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
     idle = [k["name"] for k in kernels

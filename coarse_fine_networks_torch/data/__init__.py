@@ -1,12 +1,16 @@
 """Input pipeline of the port (counterpart of
 ``coarse_fine_networks_tpu/data``): Charades annotations, clip sampling with
-Pillow decoding, the host transforms, pooled collate buffers, the threaded
-loader, the device prefetcher, and the device half of the transforms
-(uint8 frames cross to the card and are normalised there)."""
+Pillow decoding, the Kinetics-style pretraining corpus, the host
+transforms, pooled collate buffers, the threaded loader, the device
+prefetcher, and the device half of the transforms (uint8 frames cross to
+the card and are normalised there).  Not ported: the native decoder, the
+``.cfnpack`` packs and Multi-THUMOS."""
 
 from .annotations import make_dataset, rasterize_annotations
 from .dataset import CharadesDataset, collate_clips, collate_coarse
 from .device_prefetch import DevicePrefetcher, overlap_iter
+from .kinetics import (KineticsDataset, collate_kinetics,
+                       generate_mini_kinetics)
 from .loader import PrefetchLoader
 from .transforms import (CHARADES_MEAN, CHARADES_STD, CenterCrop,
                          CenterCropScaled, Compose, CornerCrop,
@@ -24,6 +28,7 @@ __all__ = [
     "Compose",
     "CornerCrop",
     "DevicePrefetcher",
+    "KineticsDataset",
     "MultiScaleCornerCrop",
     "MultiScaleRandomCrop",
     "MultiScaleRandomCropMultigrid",
@@ -35,7 +40,9 @@ __all__ = [
     "ToArray",
     "collate_clips",
     "collate_coarse",
+    "collate_kinetics",
     "device_normalize",
+    "generate_mini_kinetics",
     "make_dataset",
     "overlap_iter",
     "rasterize_annotations",

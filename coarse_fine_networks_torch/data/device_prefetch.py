@@ -41,14 +41,14 @@ class DevicePrefetcher:
     """Wrap a host-batch iterable; yield ``put_fn(host_batch)`` results
     prepared ``depth`` batches ahead in a background thread.
 
-    ``device``: where ``put_fn`` puts the batch; a CUDA device turns on the
-    side stream, pinned buffers and fences described in the module
-    docstring.  Exceptions of ``put_fn`` or of the source reach the consumer
+    ``device``: where ``put_fn`` puts the batch (the card unless the caller
+    asks for the CPU); a CUDA device turns on the side stream, pinned
+    buffers and fences described in the module docstring.  Exceptions of ``put_fn`` or of the source reach the consumer
     at the matching ``__next__``.  :attr:`waits` (``waits`` if given) gets,
     per yielded batch, the seconds the consumer waited for it."""
 
     def __init__(self, source: Iterable, put_fn: Callable[[Any], Any],
-                 depth: int = 2, device: "str | torch.device" = "cpu",
+                 depth: int = 2, device: "str | torch.device" = "cuda",
                  waits: "List[float] | None" = None):
         self._source = source
         self._put = put_fn
@@ -130,7 +130,7 @@ class DevicePrefetcher:
 
 
 def overlap_iter(source: Iterable, put_fn: Callable[[Any], Any],
-                 depth: int = 2, device: "str | torch.device" = "cpu"
+                 depth: int = 2, device: "str | torch.device" = "cuda"
                  ) -> Iterator[Tuple[Any, Any]]:
     """Like :class:`DevicePrefetcher` but yields ``(device_batch,
     host_batch)`` pairs, as the drivers' metrics need."""

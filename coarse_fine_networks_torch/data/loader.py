@@ -27,7 +27,9 @@ class PrefetchLoader:
     ``shard=(rank, world)`` keeps rank's rows of every global batch of
     ``batch_size`` (which must divide by ``world``; ragged batches are
     dropped).  :meth:`state_dict` / :meth:`load_state_dict` save and restore
-    the position inside an epoch."""
+    the position inside an epoch; a consumer that holds batches ahead of
+    the training loop (the device prefetcher) reports the batches the loop
+    has taken with :meth:`consumed`, and the position counts those."""
 
     def __init__(
         self,
@@ -56,6 +58,13 @@ class PrefetchLoader:
         self._iter_epoch = 0
         self._pos = 0
         self._resume_skip = 0
+        # the batches of the running epoch the training loop has taken
+        # (counted once a consumer reports them), and the random state
+        # each batch's collate started from, by position
+        self._taken = 0
+        self._counting = False
+        self._starts: dict = {}
+        self._lock = threading.Lock()
         self.sort_key = sort_key
         if shard is not None:
             rank, world = shard
@@ -87,27 +96,40 @@ class PrefetchLoader:
             out = [b[rank * local:(rank + 1) * local] for b in out]
         return out
 
-    def state_dict(self) -> dict:
-        """The input position: the running epoch and the batches yielded
-        from it (the shuffle is a function of seed + epoch, so this fixes
-        the rest of the order), and the random state the samples are drawn
-        from: the global :mod:`random` module's (the transforms') and the
-        dataset's own ``rng`` (the start frames).  At an epoch's end the
-        loader has drawn for every batch it yielded, so a resume from there
-        draws what an uninterrupted run draws; inside an epoch the state is
-        ahead by the batches collated but not yet consumed."""
-        sd = {"epoch": self._iter_epoch, "pos": self._pos,
-              "random": random.getstate()}
+    def _random_state(self) -> dict:
+        st = {"random": random.getstate()}
         rng = getattr(self.dataset, "rng", None)
         if rng is not None:
-            sd["sampler"] = rng.getstate()
-        return sd
+            st["sampler"] = rng.getstate()
+        return st
+
+    def consumed(self, n: int = 1) -> None:
+        """The training loop took ``n`` more batches of the running epoch:
+        from now on :meth:`state_dict`'s position counts taken batches, not
+        the ones yielded to a stage that holds them ahead."""
+        self._counting = True
+        self._taken += n
+
+    def state_dict(self) -> dict:
+        """The input position: the running epoch and the batches consumed
+        from it (the shuffle is a function of seed + epoch, so this fixes
+        the rest of the order), and the random state the next batch's
+        samples are drawn from: the global :mod:`random` module's (the
+        transforms') and the dataset's own ``rng`` (the start frames), as
+        they stood when that batch's collate began, or now if it has not.
+        With one worker a resume therefore draws what an uninterrupted run
+        draws, inside an epoch too; with more, the workers' draws
+        interleave and the state is approximate."""
+        pos = self._taken if self._counting else self._pos
+        with self._lock:
+            st = self._starts.get(pos) or self._random_state()
+        return {"epoch": self._iter_epoch, "pos": pos, **st}
 
     def load_state_dict(self, sd: dict) -> None:
         """Continue at ``sd``'s position (the next iteration runs its epoch
         from batch ``pos`` on) with its random state."""
         self.epoch = self._iter_epoch = int(sd["epoch"])
-        self._resume_skip = self._pos = int(sd["pos"])
+        self._resume_skip = self._pos = self._taken = int(sd["pos"])
         if "random" in sd:
             random.setstate(sd["random"])
         rng = getattr(self.dataset, "rng", None)
@@ -120,7 +142,9 @@ class PrefetchLoader:
         self.epoch += 1
         skip, self._resume_skip = self._resume_skip, 0
         batches = batches[skip:]
-        self._pos = skip
+        self._pos = self._taken = skip
+        with self._lock:
+            self._starts = {}
         # at most `window` batches are in the loader at once (being
         # collated, queued or waiting for an earlier batch to be yielded);
         # worker threads borrow out of index order by up to one batch each,
@@ -150,6 +174,8 @@ class PrefetchLoader:
                     room.release()
                     break
                 i, idxs = item
+                with self._lock:
+                    self._starts[skip + i] = self._random_state()
                 try:
                     batch = self.collate_fn([self.dataset[j] for j in idxs])
                 except Exception as e:  # noqa: BLE001 — raised in consumer
@@ -181,6 +207,10 @@ class PrefetchLoader:
                     room.release()
                     next_idx += 1
                     self._pos += 1
+                    past = self._taken if self._counting else self._pos
+                    with self._lock:  # no state_dict asks for these again
+                        for k in [k for k in self._starts if k < past]:
+                            del self._starts[k]
                     yield out
         finally:
             # a consumer that stops early: the workers finish the batch in

@@ -8,7 +8,8 @@ phases per validation, logits resized without ``align_corners``, chunked
 inference for long validation videos (``meta[:, 0]`` advanced per chunk),
 multi-crop validation (the max over crops of the sigmoid probabilities),
 the ``Charades_v1_localize`` CSV of 25 frames a video, checkpoints with the
-input position, resume and the preemption guard.
+input position, resume (in the saved epoch, where the JAX driver restarts
+its epoch count at 0) and the preemption guard.
 
 Beside the JAX driver's results (``train_map``, ``val_map``, with
 ``record_trajectory`` the ``trajectory`` of (step, lr, loss) and the
@@ -37,8 +38,8 @@ from ..metrics import APMeter, LocalizeCSVWriter, subsample_25
 from ..models import CoarseNet, init_parameters
 from ..models.surgery import set_bn_splits
 from ..ops.resample import linear_resize
-from .common import (driver_device, iter_train_batches, load_pretrained,
-                     maybe_resume, model_batch, preemption_guard,
+from .common import (check_ported, driver_device, iter_train_batches,
+                     load_pretrained, model_batch, preemption_guard, resume,
                      save_train_state)
 from .fine_driver import _add_ap_batches, build_transforms
 from .optim import build_schedule
@@ -136,12 +137,7 @@ def _run_impl(cfg, state_box) -> Dict[str, Any]:
     np.random.seed(cfg.seed)
     if not cfg.fine_feat_dir:
         raise ValueError("coarse training needs fine_feat_dir")
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
-        raise NotImplementedError("mesh_devices > 1: parallelism is not "
-                                  "ported (ROADMAP.md, queue 1, item 9)")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported (ROADMAP.md, queue "
-                                  "1, item 6)")
+    check_ported(cfg)
     device = driver_device(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
@@ -167,13 +163,9 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     sched = build_schedule(cfg, steps_per_epoch=len(train_loader))
     state_box["sched"] = sched
     state_box["loader"] = train_loader
-    state = maybe_resume(cfg, PREFIX, state, sched, loader=train_loader)
     results: Dict[str, Any] = {"step_ms": [], "prefetch_wait_ms": [],
                                "val_s": []}
-    if state.step:
-        pos = train_loader.state_dict()
-        results["resumed_from"] = {"step": state.step, "epoch": pos["epoch"],
-                                   "pos": pos["pos"]}
+    epochs = resume(cfg, PREFIX, state, sched, train_loader, None, results)
 
     fusion_mult = cfg.fusion_lr_mult or 10.0
     train_step = make_train_step(
@@ -184,68 +176,64 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     generator = torch.Generator(device=device).manual_seed(cfg.seed)
 
     tr_apm, val_apm = APMeter(), APMeter()
-    epochs = 0
     s_times = max(max(len(train_loader), 1) // cfg.log_every_frac, 1)
     tot = {"loss": 0.0, "n": 0}
-    while epochs < cfg.max_epochs:
-        for phase in cfg.train_phases_per_val * ["train"] + ["val"]:
-            if phase == "train":
-                epochs += 1
-                waits: list = []
-                t_prev = time.perf_counter()
-                for mb, host_batches in iter_train_batches(
-                        train_loader, cfg, waits=waits):
-                    step_i = state.step
-                    lr_val = sched.lr(step_i)
-                    # the reference's warmup writes one LR into every param
-                    # group, flattening the fusion group inside the window
-                    lr_f = (lr_val if sched.in_warmup(step_i)
-                            else lr_val * fusion_mult)
-                    state, metrics = train_step(state, mb, lr_val,
-                                                generator, lr_f)
-                    state_box["state"] = state
-                    loss = float(metrics["loss"])  # waits for the step
-                    tot["loss"] += loss
-                    tot["n"] += 1
-                    _add_ap_batches(tr_apm,
-                                    metrics["probs"].float().cpu().numpy(),
-                                    host_batches)
-                    results["step_ms"].append(
-                        (time.perf_counter() - t_prev) * 1e3)
-                    results["prefetch_wait_ms"].append(waits[-1] * 1e3)
-                    step_i = state.step
-                    if cfg.record_trajectory:
-                        results.setdefault("trajectory", []).append(
-                            (step_i, float(lr_val), loss))
-                    if step_i % s_times == 0:
-                        log.info("epoch %d step %d lr %.5f (fusion %.5f) "
-                                 "loss %.4f mAP %.4f", epochs, step_i,
-                                 lr_val, lr_f,
-                                 tot["loss"] / max(tot["n"], 1),
-                                 tr_apm.mean())
-                        results["train_map"] = tr_apm.mean()
-                        if cfg.record_trajectory:
-                            results.setdefault("train_map_log", []).append(
-                                (step_i, results["train_map"]))
-                        tr_apm.reset()
-                        tot = {"loss": 0.0, "n": 0}
-                    if step_i % cfg.ckpt_every == 0:
-                        save_train_state(cfg, PREFIX, state, sched,
-                                         loader=train_loader)
-                    if cfg.max_steps and step_i >= cfg.max_steps:
-                        break
-                    t_prev = time.perf_counter()
-            else:
-                t_val = time.perf_counter()
-                results["val_map"] = _validate(cfg, state, model, val_loader,
-                                               eval_step, val_apm, device,
-                                               dtype)
-                results["val_s"].append(time.perf_counter() - t_val)
-                log.info("epoch %d VAL mAP(25fr) %.4f", epochs,
-                         results["val_map"])
-                sched.epoch_step()
-            if cfg.max_steps and state.step >= cfg.max_steps:
-                return results
+    k = cfg.train_phases_per_val
+    # the JAX loop's cycles of k train phases and a validation, entered at
+    # the restored epoch
+    while epochs < cfg.max_epochs or epochs % k:
+        epochs += 1
+        waits: list = []
+        t_prev = time.perf_counter()
+        for mb, host_batches in iter_train_batches(train_loader, cfg,
+                                                   waits=waits):
+            step_i = state.step
+            lr_val = sched.lr(step_i)
+            # the reference's warmup writes one LR into every param group,
+            # flattening the fusion group inside the window
+            lr_f = (lr_val if sched.in_warmup(step_i)
+                    else lr_val * fusion_mult)
+            state, metrics = train_step(state, mb, lr_val, generator, lr_f)
+            state_box["state"] = state
+            loss = float(metrics["loss"])  # waits for the step
+            tot["loss"] += loss
+            tot["n"] += 1
+            _add_ap_batches(tr_apm, metrics["probs"].float().cpu().numpy(),
+                            host_batches)
+            results["step_ms"].append((time.perf_counter() - t_prev) * 1e3)
+            results["prefetch_wait_ms"].append(waits[-1] * 1e3)
+            step_i = state.step
+            if cfg.record_trajectory:
+                results.setdefault("trajectory", []).append(
+                    (step_i, float(lr_val), loss))
+            if step_i % s_times == 0:
+                log.info("epoch %d step %d lr %.5f (fusion %.5f) loss %.4f "
+                         "mAP %.4f", epochs, step_i, lr_val, lr_f,
+                         tot["loss"] / max(tot["n"], 1), tr_apm.mean())
+                results["train_map"] = tr_apm.mean()
+                if cfg.record_trajectory:
+                    results.setdefault("train_map_log", []).append(
+                        (step_i, results["train_map"]))
+                tr_apm.reset()
+                tot = {"loss": 0.0, "n": 0}
+            if step_i % cfg.ckpt_every == 0:
+                save_train_state(cfg, PREFIX, state, sched,
+                                 loader=train_loader)
+            if cfg.max_steps and step_i >= cfg.max_steps:
+                break
+            t_prev = time.perf_counter()
+        if cfg.max_steps and state.step >= cfg.max_steps:
+            return results
+        if epochs % k:
+            continue
+        t_val = time.perf_counter()
+        results["val_map"] = _validate(cfg, state, model, val_loader,
+                                       eval_step, val_apm, device, dtype)
+        results["val_s"].append(time.perf_counter() - t_val)
+        log.info("epoch %d VAL mAP(25fr) %.4f", epochs, results["val_map"])
+        sched.epoch_step()
+        if cfg.max_steps and state.step >= cfg.max_steps:
+            return results
     return results
 
 

@@ -99,9 +99,11 @@ def batch_shape_key(mb: Dict[str, Any]) -> tuple:
     return tuple(out)
 
 
-def iter_train_batches(loader, cfg, batch_size=None, waits=None):
+def iter_train_batches(loader, cfg, batch_size=None, waits=None,
+                       to_device=None):
     """Yield ``(device_batch, host_batches)`` for the train loop, the
-    device batch prepared ``cfg.device_prefetch`` batches ahead by a
+    device batch (``to_device(host_batch, dtype, device)``, by default
+    :func:`model_batch`) prepared ``cfg.device_prefetch`` batches ahead by a
     :class:`..data.device_prefetch.DevicePrefetcher` (on a side stream on
     the card), which appends to ``waits`` the seconds the loop waited for
     each batch.
@@ -109,31 +111,39 @@ def iter_train_batches(loader, cfg, batch_size=None, waits=None):
     With ``cfg.num_steps_per_update > 1``, that many consecutive batches
     stack into one device batch with a leading micro-step axis; a shape
     change flushes the partial group.  Batches short of ``batch_size``
-    (default ``cfg.batch_size``) are skipped."""
+    (default ``cfg.batch_size``) are skipped.  The loader is told of each
+    batch the loop takes (:meth:`..data.loader.PrefetchLoader.consumed`),
+    so a checkpoint's input position excludes the batches still held
+    ahead."""
     accum = max(cfg.num_steps_per_update, 1)
     dtype = getattr(torch, cfg.compute_dtype)
     device = driver_device(cfg)
     local_bs = batch_size or cfg.batch_size
     src = (b for b in loader if b["clips"].shape[0] == local_bs)
+    put = to_device or model_batch
     prefetched = DevicePrefetcher(
-        src, lambda b: (model_batch(b, dtype, device), b),
+        src, lambda b: (put(b, dtype, device), b),
         depth=max(1, cfg.device_prefetch), device=device, waits=waits)
+    consumed = getattr(loader, "consumed", lambda n: None)
     pending_mb: list = []
     pending_host: list = []
     key_shape = None
     for mb, batch in prefetched:
         if accum == 1:
+            consumed(1)
             yield mb, [batch]
             continue
         k = batch_shape_key(mb)
         if pending_mb and k != key_shape:
             log.warning("accum group flushed on shape change %s -> %s",
                         key_shape, k)
+            consumed(len(pending_mb))
             pending_mb, pending_host = [], []
         key_shape = k
         pending_mb.append(mb)
         pending_host.append(batch)
         if len(pending_mb) == accum:
+            consumed(accum)
             yield stack_microbatches(pending_mb), pending_host
             pending_mb, pending_host = [], []
 
@@ -209,11 +219,13 @@ def save_train_state(cfg, prefix: str, state: TrainState, sched,
 
 
 def maybe_resume(cfg, prefix: str, state: TrainState, sched,
-                 loader=None) -> TrainState:
+                 loader=None, before_load=None) -> TrainState:
     """With ``cfg.resume``, restore the latest ``<prefix>`` checkpoint of
     ``cfg.save_dir`` into ``state`` (in place) and ``sched``, and with
-    ``loader`` its input position.  The state is returned, unchanged when
-    there is nothing to resume."""
+    ``loader`` its input position.  ``before_load(payload)`` runs after
+    the position is restored and before the model's tensors are (the long
+    cycle gives the model the saved phase's batch-norm splits there).  The
+    state is returned, unchanged when there is nothing to resume."""
     if not cfg.resume:
         return state
     path = latest_checkpoint(cfg.save_dir, prefix)
@@ -224,7 +236,40 @@ def maybe_resume(cfg, prefix: str, state: TrainState, sched,
     sched.load_state_dict(raw["scheduler"])
     if loader is not None and "loader" in raw:
         loader.load_state_dict(raw["loader"])
+    if before_load is not None:
+        before_load(raw)
     state.model.load_state_dict(raw["variables"], strict=True)
     state.optimizer.load_state_dict(raw["optimizer"])
     state.step = int(raw["step"])
     return state
+
+
+def resume(cfg, prefix: str, state: TrainState, sched, loader,
+           cycle, results: Dict[str, Any]) -> int:
+    """:func:`maybe_resume` with the input position; under the long cycle
+    (``cycle``: a :class:`.multigrid.LongCycleRunner`, or None) the saved
+    epoch's phase is applied first, so the model has the saved split
+    statistics' shapes.  Records ``resumed_from`` and returns the epoch to
+    continue in (0 for a fresh run)."""
+    def before_load(raw):
+        if cycle is not None and "loader" in raw:
+            cycle.apply(int(raw["loader"]["epoch"]))
+
+    maybe_resume(cfg, prefix, state, sched, loader=loader,
+                 before_load=before_load)
+    if not state.step:
+        return 0
+    pos = loader.state_dict()
+    results["resumed_from"] = {"step": state.step, "epoch": pos["epoch"],
+                               "pos": pos["pos"]}
+    return pos["epoch"]
+
+
+def check_ported(cfg) -> None:
+    """Raise on the options the port does not have yet."""
+    if cfg.mesh_devices and cfg.mesh_devices > 1:
+        raise NotImplementedError("mesh_devices > 1: parallelism is not "
+                                  "ported (ROADMAP.md, queue 1, item 9)")
+    if cfg.remat:
+        raise NotImplementedError("remat is not ported (ROADMAP.md, queue "
+                                  "1, item 6)")

@@ -66,3 +66,43 @@ class LongCycleSchedule:
         splits = base_splits * self.phase(epoch).bn_split_scale
         set_bn_splits(model, splits)
         return splits
+
+
+class LongCycleRunner:
+    """A :class:`LongCycleSchedule` applied to a driver's input and model
+    epoch by epoch (the JAX drivers' ``mg_apply``): the dataset's clip
+    window (the schedule's frames × ``window_scale``: the Charades dataset
+    counts its window in frames at twice the clip stride) and crop, the
+    train loader's batch, and at a split change the model's batch-norm
+    splits with fresh split statistics, in place (the optimizer and the
+    train and eval steps hold the same module, so they follow it).
+    :attr:`phases` records each phase applied, as ``(epoch, frames, crop,
+    batch, splits)``."""
+
+    def __init__(self, schedule: LongCycleSchedule, loader, model: nn.Module,
+                 base_splits: int = 1, window_scale: int = 1):
+        self.schedule = schedule
+        self.loader = loader
+        self.model = model
+        self.base_splits = base_splits
+        self.window_scale = window_scale
+        self.phases: List[tuple] = []
+        self._applied: tuple = (None, None)  # ((frames, crop, batch), splits)
+
+    def apply(self, epoch: int) -> int:
+        """Set epoch ``epoch``'s phase up (nothing if it is the one applied
+        last); returns its batch size."""
+        shapes = self.schedule.shapes(epoch)
+        splits = self.base_splits * self.schedule.phase(epoch).bn_split_scale
+        if (shapes, splits) == self._applied:
+            return shapes[2]
+        frames, crop, batch = shapes
+        ds = self.loader.dataset
+        ds.frames = frames * self.window_scale
+        ds.crop_size = crop
+        self.loader.batch_size = batch
+        if splits != (self._applied[1] or self.base_splits):
+            self.schedule.transition(epoch, self.model, self.base_splits)
+        self._applied = (shapes, splits)
+        self.phases.append((epoch, frames, crop, batch, splits))
+        return batch

@@ -349,6 +349,45 @@ def test_loader_resume_matches_uninterrupted(trees):
         _same_batch(g, r)
 
 
+def test_loader_position_counts_the_batches_taken(trees):
+    """Under a stage that runs ahead (the device prefetcher), the loader's
+    state counts the batches the loop has taken (``consumed``), with the
+    random state the next batch started from: with one worker a resume
+    there gives the uninterrupted rest of the epoch and the next one, pixel
+    for pixel, although the loader had collated every batch already."""
+    def coll(b):
+        return pds.collate_clips(b, 4, 8)
+
+    kw = dict(shuffle=True, num_workers=1, prefetch=4, seed=9)
+    dp, _ = _datasets(trees, "training", 1, _train_t)
+    random.seed(4)
+    lp = pld.PrefetchLoader(dp, 1, coll, **kw)
+    ref = [_copy(b) for b in lp] + [_copy(b) for b in lp]
+    assert len(ref) == 10
+
+    dp, _ = _datasets(trees, "training", 1, _train_t)
+    random.seed(4)
+    lp = pld.PrefetchLoader(dp, 1, coll, **kw)
+    it = iter(DevicePrefetcher(lp, _copy, depth=3, device="cpu"))
+    head = [next(it) for _ in range(2)]
+    lp.consumed(2)
+    deadline = time.monotonic() + 60
+    while lp._pos < 5 and time.monotonic() < deadline:
+        time.sleep(0.05)  # the loader collates the epoch's other batches
+    assert lp._pos == 5
+    sd = lp.state_dict()
+    assert (sd["epoch"], sd["pos"]) == (0, 2)
+    it.close()
+    random.seed(123)  # clobbered: the state dict restores both states
+    dp.rng.seed(99)
+    lp2 = pld.PrefetchLoader(dp, 1, coll, **kw)
+    lp2.load_state_dict(sd)
+    tail = [_copy(b) for b in lp2] + [_copy(b) for b in lp2]
+    for g, r in zip(head + tail, ref):
+        _same_batch(g, r)
+    assert len(head + tail) == len(ref)
+
+
 def test_loader_stops_its_threads_when_left_early(trees):
     dp, _ = _datasets(trees, "testing", 1, _val_t)
     before = set(threading.enumerate())
@@ -437,7 +476,7 @@ def test_reused_buffers_do_not_corrupt_prefetched_batches(trees, monkeypatch):
             got = 0
             for i, mb in enumerate(DevicePrefetcher(
                     loader, lambda b: model_batch(b, device="cpu"),
-                    depth=2)):
+                    depth=2, device="cpu")):
                 time.sleep(0.05)  # the loader runs ahead meanwhile
                 for k, r in ref[i].items():
                     g = mb[k]

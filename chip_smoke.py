@@ -65,6 +65,13 @@ Phases, each printing JSON lines:
    row-strip weight gradients (K6 and K10 plain, ``act`` and ``mm``, K10
    ``mm`` beside them) against their twins likewise, at the coarse step's
    layer3 and layer4 entries (fault 3.4);
+2d. xl_kernels: the three serving kernels at X3D-XL's widths (C_in
+   32/72/136/280, C_mid 72/162/306/630; the XL tables checked against the
+   port's): K1 ``mm`` and K4 ``mm`` at the 16 entry shapes of a serve
+   batch (B3 at 224²; the fine tower at T_f=128, the coarse at T=64, then
+   17) and K11 at XL's stem (5×1×1, C=32), each against its plain version
+   in f32 (TF32 off) and bf16, timed beside the plain version and the
+   unfused sequence or ``F.conv3d(groups=C)``, with its plan and bound;
 3. autograd: the train entry's four gradients (dx, dw, dsc, dbi) against
    autograd through the plain composition, f32, one shape per stride;
 4. serve: the joint pipeline (X3D-M, 157 classes, bf16, seeded random
@@ -207,9 +214,27 @@ Phases, each printing JSON lines:
    (157 probabilities a row); each run's launches held as above; one
    coarse step at B6 T64 224² profiled (``cli_coarse_profile``); and
    ``--help`` of each command line as ``python -m``;
-23. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
-   the driver, kinetics, fine_driver and cli paths beside the earlier
-   phases'), then the card's ``nvidia-smi`` line, then ``{"ok": true,
+23. serve_http: (a) ``python -m coarse_fine_networks_torch.cli.serve`` at
+   its defaults as a process on the fine_driver phase's last checkpoint,
+   the driver phase's last coarse checkpoint and the cli phase's
+   extraction bank
+   (``--prewarm-dir``, ``--port 0``): three prewarmed hits, one cold video
+   (T=64/T_f=128 224²) and its repeat over loopback, each within 1e-3 of a
+   direct bf16 call of the same assembled weights in this process;
+   ``/v1/models``, ``/v1/stats`` (4 hits, 1 miss), ``/healthz``; SIGTERM
+   and exit code 0; (b) ``cli.serve.build_server`` with X3D-M (seeded) and
+   X3D-XL (``cfn-xl``, seeded) on one router, cold and hit batches of the
+   serve phase's three videos to each in turn over HTTP with exact launch
+   counts (M 44/8/2 cold, 22/4/1 hit of K1 ``mm``/K4 ``mm``/K11; XL 102/8/2
+   and 51/4/1; nothing else), an alias and a canary of 0.5 (200 ids against
+   ``_split_key``, three routed hits against their variant's), and 404,
+   400, 429, 504 and 503 each from one request; per-request latency, the
+   server's extract/fuse ms per variant, body bytes and peak memory;
+24. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
+   the driver, kinetics, fine_driver, cli and serve_http paths beside the
+   earlier phases', and for K1 ``mm``, K4 ``mm`` and K11 an ``xl`` entry:
+   XL's times and launches), after a ``script`` line with the whole run's
+   seconds, then the card's ``nvidia-smi`` line, then ``{"ok": true,
    "device": {...}}`` last.
 
 The stem's ``conv1_t`` runs through ``dw_stencil_s1`` on every path: the
@@ -229,20 +254,28 @@ Any failed check raises and the script exits non-zero before the last line.
 It needs no network and writes nothing outside the checkout (the kernel
 build goes to ``coarse_fine_networks_torch/_build/``, the driver-level
 phases' data, checkpoints and features to ``_scratch/chip_smoke_drivers/``,
-removed at the end).
+removed at the end).  The driver-level phases' three synthetic trees are
+written by three worker processes (spawned, seeded) while the kernel
+phases run, and the serve_http phase starts the serving CLI as a
+process; each is joined or stopped before the script ends.
 """
 
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import math
+import multiprocessing
 import os
 import re
 import shutil
 import subprocess
 import sys
 import time
+import urllib.error
+import urllib.request
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -286,6 +319,16 @@ ENTRY_SHAPES = [
     ("layer3", 28, 48, 14, 96, 216, 11),
     ("layer4", 14, 96, 7, 192, 432, 7),
 ]
+# X3D-XL's entries, as ENTRY_SHAPES (the port's ``get_inplanes("XL")``:
+# (72, 32), (162, 72), (306, 136), (630, 280); ``get_blocks``: 5, 10, 25,
+# 15), and its stem's channels
+XL_ENTRY_SHAPES = [
+    ("layer1", 112, 32, 56, 32, 72, 5),
+    ("layer2", 56, 32, 28, 72, 162, 10),
+    ("layer3", 28, 72, 14, 136, 306, 25),
+    ("layer4", 14, 136, 7, 280, 630, 15),
+]
+XL_STEM_C = 32
 # the serve phase's batches: B videos, each tower's frames per stage (the
 # coarse tower runs layers 2-4 on the T/4+1 frames Grid Pool keeps), and the
 # tower's calls in that phase's counted run (fine: one cold extract; coarse:
@@ -424,21 +467,26 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def entry_cases():
+def entry_cases(shapes=None, eval_step: bool = True):
     """(kernel, label, B, T, H, W, C_in, C_mid, stride, launches, counted) of
     the entry shapes the eval kernels get: the 16 of the serve phase (8 per
     tower, at its batch; ``launches`` is how often the counted serve run
-    launches each, and these rows make up the kernel's line) and the 8 of
-    the fine eval step (long-cycle phase D's B8 T64 224², every stage at
-    T=64; ``launches`` per eval step)."""
-    _, b_d, t_d, crop_d, _, _ = fine_phase("D")
-    check(crop_d == 224, f"phase D crop {crop_d}: ENTRY_SHAPES are at 224²")
+    launches each, and these rows make up the kernel's line) and, with
+    ``eval_step``, the 8 of the fine eval step (long-cycle phase D's B8 T64
+    224², every stage at T=64; ``launches`` per eval step).  ``shapes``:
+    the model's entries per stage (``ENTRY_SHAPES``, X3D-M's, by
+    default)."""
+    shapes = ENTRY_SHAPES if shapes is None else shapes
     towers = [(tower, SERVE_B, frames, calls, True)
               for tower, (frames, calls) in TOWERS.items()]
-    towers.append(("fine_eval.D", b_d, dict.fromkeys(TRAIN_FRAMES, t_d), 1,
-                   False))
+    if eval_step:
+        _, b_d, t_d, crop_d, _, _ = fine_phase("D")
+        check(crop_d == 224, f"phase D crop {crop_d}: ENTRY_SHAPES are at "
+                             "224²")
+        towers.append(("fine_eval.D", b_d, dict.fromkeys(TRAIN_FRAMES, t_d),
+                       1, False))
     for tower, b, frames, calls, counted in towers:
-        for layer, h_s2, cin_s2, h_s1, cin_s1, c_mid, n in ENTRY_SHAPES:
+        for layer, h_s2, cin_s2, h_s1, cin_s1, c_mid, n in shapes:
             t = frames[layer]
             yield ("dw_mm_act_s2", f"{tower}.{layer}.0", b, t, h_s2, h_s2,
                    cin_s2, c_mid, 2, calls, counted)
@@ -569,11 +617,23 @@ def _mm_activation(dw_mm_act, x, w1, sc, bi):
     """K1 mm's activation of x (``dw_mm_act_s1`` with only the centre tap,
     1: y is the activation itself, the 26 other taps add fmaf(0, a, acc) =
     acc), in x's dtype: the one ``mm_strip_product`` gives every mm
-    kernel."""
+    kernel.  The activation is pointwise, so where K1 mm has no plan that
+    fits at x's width (X3D-XL's layer1.0 input, 112² of 32 f32 channels,
+    which no path gives K1 mm) x is read as ``(B, T, H·k, W/k, C)`` for the
+    least k that fits, and the result put back."""
+    from coarse_fine_networks_torch.ops import dw_conv
+
     taps = torch.zeros((3, 3, 3, w1.shape[1]), dtype=x.dtype,
                        device=x.device)
     taps[1, 1, 1] = 1
-    return dw_mm_act.dw_mm_bnrelu_conv3d(x, w1, taps, sc, bi, 1)
+    b, t, h, w, c_in = x.shape
+    k = next(k for k in range(1, w + 1) if w % k == 0 and dw_conv.smem_mm_s1(
+        dw_conv.plan_mm_s1(b, t, h * k, w // k, c_in, w1.shape[1],
+                           x.element_size()), c_in, x.element_size())
+        <= dw_conv.SMEM_MAX)
+    a = dw_mm_act.dw_mm_bnrelu_conv3d(x.view(b, t, h * k, w // k, c_in), w1,
+                                      taps, sc, bi, 1)
+    return a.view(b, t, h, w, -1)
 
 
 def _mm_fwd_s2_exact(dw_mm_act, dw_conv, x, w1, w, sc, bi, dtype) -> dict:
@@ -606,12 +666,18 @@ def _mm_fwd_s2_exact(dw_mm_act, dw_conv, x, w1, w, sc, bi, dtype) -> dict:
                                     c, dtype)}
 
 
-def phase_kernels(dw_mm_act, dw_conv) -> dict:
+def phase_kernels(dw_mm_act, dw_conv, shapes=None, phase="kernels",
+                  eval_step=True) -> dict:
+    """K1 ``mm`` and K4 ``mm`` against their plain versions at
+    :func:`entry_cases`' shapes (X3D-M's by default; ``shapes`` and
+    ``phase`` name another model's), f32 and bf16, timed beside the plain
+    version and the unfused sequence; returns each kernel's bf16 sums over
+    the counted serve shapes."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     per_kernel = {k: _agg() for k in MM_KERNELS}
     for dtype in (torch.float32, torch.bfloat16):
         for (name, label, b, t, h, w, c_in, c_mid, s, n,
-             counted) in entry_cases():
+             counted) in entry_cases(shapes, eval_step):
             def rnd(*shape, scale=1.0):
                 return torch.randn(shape, generator=gen, device="cuda") * scale
             x = rnd(b, t, h, w, c_in).to(dtype)
@@ -650,7 +716,7 @@ def phase_kernels(dw_mm_act, dw_conv) -> dict:
             ops = 2 * b * t * (h * w * c_in * c_mid + 27 * ho * wo * c_mid)
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             ops_ms = ops / PEAK_OPS[dtype] * 1e3
-            row = {"phase": "kernels", "kernel": name, "entry": label,
+            row = {"phase": phase, "kernel": name, "entry": label,
                    "dtype": str(dtype).replace("torch.", ""),
                    "x": [b, t, h, w, c_in], "c_mid": c_mid, "stride": s,
                    **({"plan": _plan_row_mm(dw_conv, dw_mm_act,
@@ -2673,6 +2739,19 @@ def phase_fine_card_vs_cpu() -> None:
           f"fine train loss card {loss} vs CPU {loss_ref}")
 
 
+def _timed(times: list, fn):
+    """``fn`` with each call's ms (synchronised on the card) appended to
+    ``times``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        return out
+    return run
+
+
 def _clip(rng: torch.Generator, t: int, hw: int):
     return torch.rand((t, hw, hw, 3), generator=rng).numpy()
 
@@ -2692,19 +2771,9 @@ def phase_serve(dw_mm_act, dw_act, dw_stencil, want: dict) -> dict:
                               generator=torch.Generator().manual_seed(0))
     build_s = time.perf_counter() - t0
     times = {"extract": [], "fuse": []}
-
-    def timed(key, fn):
-        def run(*args):
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = fn(*args)
-            torch.cuda.synchronize()
-            times[key].append((time.perf_counter() - t1) * 1e3)
-            return out
-        return run
-
     server = CachingVideoServer(
-        timed("extract", pipe.extract), timed("fuse", pipe.fuse),
+        _timed(times["extract"], pipe.extract), _timed(times["fuse"],
+                                                       pipe.fuse),
         cache=FeatureCache(capacity_bytes=2 << 30), max_batch=3,
         max_wait_ms=2000, bucket_multiple=16, request_timeout_s=600,
         device="cuda").start()
@@ -2811,6 +2880,8 @@ def phase_profile(pipe, mods) -> None:
 # train step's T = 64 at gamma_tau 5), extraction, 6 steps with a
 # checkpoint every 3 and validation after each (one batch an epoch), then
 # a resumed run to step 8
+# the driver phase's last coarse checkpoint, kept for serve_http
+DRIVER_COARSE_CKPT = SCRATCH / "driver_coarse.ckpt"
 DRIVER = dict(videos=12, train=8, video_frames=640, hw=256, n_classes=157,
               frames=320, batch=8, workers=4, device_prefetch=2, steps=6,
               ckpt_every=3, resume_steps=8, val_batches=4)
@@ -2822,7 +2893,7 @@ DRIVER_STEP = {"act_fwd_s1_kernel": 22, "act_s2_fwd_kernel": 4,
                "stencil_fwd_kernel": 2, "stencil_dk_kernel": 1}
 
 
-def phase_driver(mods) -> dict:
+def phase_driver(mods, tree) -> dict:
     """The port's three entry points in sequence at full width on the card
     (X3D-M, 157 classes, bf16, a crop of 224): ``generate_mini_charades``,
     ``extract_driver.run`` over both splits with a seeded FineNet whose
@@ -2835,16 +2906,15 @@ def phase_driver(mods) -> dict:
     resumed run to step 7 without validation) under ``_profile_step``: its
     profiled launches must equal the counters, no grouped depthwise conv
     may run in PyTorch, and each act kernel must launch 22 (stride 1) or 4
-    (stride 2) times, K11 twice and its taps' gradient once.  Returns each
-    kernel's launches over the extraction and the two runs."""
+    (stride 2) times, K11 twice and its taps' gradient once.  ``tree``: the
+    future of the phase's synthetic tree (:func:`start_trees`).  Returns
+    each kernel's launches over the extraction and the two runs."""
     import csv
     import dataclasses
     import statistics
 
     from coarse_fine_networks_torch.ckpt import (latest_checkpoint,
                                                  load_checkpoint)
-    from coarse_fine_networks_torch.data.synthetic import (
-        generate_mini_charades)
     from coarse_fine_networks_torch.models import FineNet, init_parameters
     from coarse_fine_networks_torch.models.fine import FEAT_KEYS
     from coarse_fine_networks_torch.train import (DriverConfig,
@@ -2853,14 +2923,8 @@ def phase_driver(mods) -> dict:
 
     c = DRIVER
     root = SCRATCH / "driver"
-    shutil.rmtree(root, ignore_errors=True)
     try:
-        t0 = time.perf_counter()
-        anno = generate_mini_charades(
-            str(root), num_videos=c["videos"], num_frames=c["video_frames"],
-            hw=c["hw"], num_classes=c["n_classes"],
-            train_fraction=c["train"] / c["videos"])
-        gen_s = time.perf_counter() - t0
+        anno, gen_s = tree.result()
         fine_pt = str(root / "fine_seeded.pt")
         fine = init_parameters(FineNet("M", c["n_classes"], global_tower=True),
                                torch.Generator().manual_seed(3))
@@ -2900,6 +2964,10 @@ def phase_driver(mods) -> dict:
             cfg, resume=True, max_steps=c["resume_steps"]))
         torch.cuda.synchronize()
         runs_s = time.perf_counter() - t2
+        # the coarse checkpoint serve_http serves: the cli phase's two
+        # coarse steps write none (ckpt_every is 1000, with no flag)
+        shutil.copy(latest_checkpoint(cfg.save_dir, coarse_driver.PREFIX),
+                    DRIVER_COARSE_CKPT)
         run_launches = _launches(*mods)
         with open(cfg.localize_csv) as f:
             rows = list(csv.reader(f))
@@ -3001,6 +3069,44 @@ FINE_DRIVER = dict(videos=20, train=16, video_frames=640, hw=256,
 FINE_DRIVER_PHASES = [(0, 80, 112, 16, 8), (1, 160, 144, 8, 4),
                       (2, 160, 224, 4, 2), (3, 320, 224, 2, 1)]
 CLI = dict(workers=4, fine_steps=5, coarse_epochs=2, coarse_b=6)
+
+
+def _generate(kind: str, root: str, kw: dict) -> tuple[str, float]:
+    """One synthetic tree, in a worker process: its annotation path and the
+    seconds the generation took."""
+    from coarse_fine_networks_torch.data.kinetics import \
+        generate_mini_kinetics
+    from coarse_fine_networks_torch.data.synthetic import \
+        generate_mini_charades
+
+    t0 = time.perf_counter()
+    fn = (generate_mini_kinetics if kind == "kinetics"
+          else generate_mini_charades)
+    return fn(root, **kw), time.perf_counter() - t0
+
+
+def start_trees(pool) -> dict:
+    """The driver, kinetics and fine_driver phases' synthetic trees (seeded:
+    the trees those phases would write themselves), each submitted to
+    ``pool`` at once so that their JPEG encoding overlaps the kernel
+    phases; name -> future of (annotation path, generation seconds)."""
+    charades = {name: dict(num_videos=c["videos"],
+                           num_frames=c["video_frames"], hw=c["hw"],
+                           num_classes=c["n_classes"],
+                           train_fraction=c["train"] / c["videos"])
+                for name, c in (("driver", DRIVER),
+                                ("fine_driver", FINE_DRIVER))}
+    jobs = {"driver": ("charades", charades["driver"]),
+            "kinetics": ("kinetics", dict(
+                num_videos=KINETICS["videos"],
+                num_frames=KINETICS["video_frames"], hw=KINETICS["hw"],
+                num_classes=KINETICS["n_classes"])),
+            "fine_driver": ("charades", charades["fine_driver"])}
+    out = {}
+    for name, (kind, kw) in jobs.items():
+        shutil.rmtree(SCRATCH / name, ignore_errors=True)
+        out[name] = pool.submit(_generate, kind, str(SCRATCH / name), kw)
+    return out
 
 
 def _splits(model) -> int:
@@ -3108,7 +3214,7 @@ def _class_step_profile(mods) -> dict:
                                                 "stencil_dk_kernel"), mods)
 
 
-def phase_kinetics(mods) -> tuple[dict, str]:
+def phase_kinetics(mods, tree) -> tuple[dict, str]:
     """Kinetics-style pretraining as a user runs it:
     ``generate_mini_kinetics`` (44 videos of 96 frames at 256², 400
     classes: 33 training, 11 validation), then
@@ -3117,21 +3223,16 @@ def phase_kinetics(mods) -> tuple[dict, str]:
     validated (one B11 batch).  Every call's launches are recorded (the act
     route's 22/4 a step, K11 2, its dk 1; the eval entry's 22/4 and K11 1
     a validation batch) and held against the counters; then one class
-    step at B32 T16 224² is profiled.  Returns the run's launches and the
-    final checkpoint, the fine phases' Kinetics checkpoint."""
+    step at B32 T16 224² is profiled.  ``tree``: the future of the
+    phase's synthetic tree (:func:`start_trees`).  Returns the run's
+    launches and the final checkpoint, the fine phases' Kinetics
+    checkpoint."""
     from coarse_fine_networks_torch.cli import pretrain_kinetics
-    from coarse_fine_networks_torch.data.kinetics import \
-        generate_mini_kinetics
     from coarse_fine_networks_torch.train import kinetics_driver
 
     c = KINETICS
     root = SCRATCH / "kinetics"
-    shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    anno = generate_mini_kinetics(str(root), num_videos=c["videos"],
-                                  num_frames=c["video_frames"], hw=c["hw"],
-                                  num_classes=c["n_classes"])
-    gen_s = time.perf_counter() - t0
+    anno, gen_s = tree.result()
     models = root / "models"
     for m in mods:
         m.reset_launches()
@@ -3187,7 +3288,7 @@ def phase_kinetics(mods) -> tuple[dict, str]:
     return launches, str(ckpt)
 
 
-def phase_fine_driver(mods, kinetics_ckpt: str) -> tuple[dict, str]:
+def phase_fine_driver(mods, kinetics_ckpt: str, tree) -> tuple[dict, str]:
     """``fine_driver.run`` under the long cycle at full width
     (``LongCycleSchedule(320, 224, 2)``: the recipe's widths and clip
     shapes, the base batch cut from 8 to 2, so phases A-D run B16 T16 112²,
@@ -3200,24 +3301,17 @@ def phase_fine_driver(mods, kinetics_ckpt: str) -> tuple[dict, str]:
     the cycle's end.  Every call's launches are recorded and held against
     its route (split-bn in A-C, act in D, the eval entry in validation) and
     the counters; the resumed run must start in the saved phase at the
-    saved position.  Returns the launches of both runs and the resumed
-    run's last checkpoint."""
+    saved position.  ``tree``: the future of the phase's synthetic tree
+    (:func:`start_trees`).  Returns the launches of both runs and the
+    resumed run's last checkpoint."""
     import dataclasses
 
     from coarse_fine_networks_torch.ckpt import load_checkpoint
-    from coarse_fine_networks_torch.data.synthetic import (
-        generate_mini_charades)
     from coarse_fine_networks_torch.train import DriverConfig, fine_driver
 
     c = FINE_DRIVER
     root = SCRATCH / "fine_driver"
-    shutil.rmtree(root, ignore_errors=True)
-    t0 = time.perf_counter()
-    anno = generate_mini_charades(
-        str(root), num_videos=c["videos"], num_frames=c["video_frames"],
-        hw=c["hw"], num_classes=c["n_classes"],
-        train_fraction=c["train"] / c["videos"])
-    gen_s = time.perf_counter() - t0
+    anno, gen_s = tree.result()
     cfg = DriverConfig(
         anno=anno, root=str(root / "frames"), save_dir=str(root / "models"),
         num_classes=c["n_classes"], batch_size=c["batch"],
@@ -3478,6 +3572,479 @@ def phase_cli(mods, kinetics_ckpt: str, fine_ckpt: str) -> dict:
     return launches
 
 
+def serve_counts(shapes) -> dict:
+    """The serving kernels' launches in one batch of a model with
+    ``shapes``' entries: a cold batch runs extract and fuse (each tower's
+    stride-1 and stride-2 entries, and its stem's K11 once), a hit fuse
+    only; every other kernel of the port none."""
+    s1, s2 = sum(n - 1 for *_, n in shapes), len(shapes)
+    return {"cold": {"dw_mm_act_s1": 2 * s1, "dw_mm_act_s2": 2 * s2,
+                     "dw_stencil_s1": 2},
+            "hit": {"dw_mm_act_s1": s1, "dw_mm_act_s2": s2,
+                    "dw_stencil_s1": 1}}
+
+
+def phase_xl_stem(dw_stencil) -> dict:
+    """K11 (``dw_stencil_s1``) at X3D-XL's stem (``conv1_t``, 5×1×1, C=32)
+    on the serve towers' shapes (B3 at 112²: the fine tower's T_f=128, the
+    coarse tower's T=64) against its plain version, f32 (TF32 off) and
+    bf16, timed beside ``F.conv3d(groups=C)``; each bf16 time weighted by
+    the tower's calls in a cold and a hit batch (fine 1, coarse 2)."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    agg = _agg()
+    h = (TRAIN["hw"] - 1) // 2 + 1
+    c = XL_STEM_C
+    pad = [k // 2 for k in STEM_K]
+    for dtype in (torch.float32, torch.bfloat16):
+        for tower, (frames, calls) in TOWERS.items():
+            shape = (SERVE_B, frames["layer1"], h, h, c)
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            w = (torch.randn(STEM_K + (c,), generator=gen, device="cuda")
+                 / math.prod(STEM_K) ** 0.5).to(dtype)
+            w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+            n_y = math.prod(dw_stencil._out_shape(x, (1, 1, 1)))
+            meta = {"entry": f"xl.serve.{tower}", "x": list(shape),
+                    "taps": list(STEM_K), "strides": [1, 1, 1],
+                    "plan": _plan_row_stencil(dw_stencil, shape, STEM_K,
+                                              dtype)}
+            _hold_time_library(
+                "xl_kernels", "dw_stencil_s1", meta, dtype,
+                lambda: dw_stencil.dw_stencil3d(x, w, (1, 1, 1)),
+                lambda: dw_stencil.dw_stencil3d_plain(x, w, (1, 1, 1)),
+                lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_conv,
+                                 padding=pad, groups=c),
+                "F.conv3d(groups=C), channels_last_3d",
+                (x.numel() + n_y + w.numel()) * x.element_size(),
+                2 * math.prod(STEM_K) * n_y, calls, True, agg)
+            del x
+        torch.cuda.empty_cache()
+    return agg
+
+
+def phase_xl_kernels(dw_mm_act, dw_conv, dw_stencil) -> dict:
+    """The three serving kernels at X3D-XL's entry shapes (``xl_kernels``):
+    K1 ``mm`` and K4 ``mm`` at the 16 of a serve batch (B3 at 224²; 8 a
+    tower: the fine tower at T_f=128, the coarse at T=64, then 17), K11
+    at XL's stem, each against its plain version in f32 and bf16 and timed
+    beside the plain version and the unfused sequence or the PyTorch call,
+    with its bound.  The XL tables are checked against the port's."""
+    from coarse_fine_networks_torch.models import x3d
+
+    planes, blocks = x3d.get_inplanes("XL"), x3d.get_blocks("XL")
+    want = [(layer, h, cin_s2, h // 2, out, mid, n) for layer, h, cin_s2,
+            (mid, out), n in zip(("layer1", "layer2", "layer3", "layer4"),
+                                 (112, 56, 28, 14),
+                                 (planes[0][1],) + tuple(p[1] for p in
+                                                         planes[:3]),
+                                 planes, blocks)]
+    check(XL_ENTRY_SHAPES == want and XL_STEM_C == planes[0][1],
+          f"XL_ENTRY_SHAPES {XL_ENTRY_SHAPES} != the port's tables {want}")
+    t0 = time.perf_counter()
+    per_kernel = phase_kernels(dw_mm_act, dw_conv, XL_ENTRY_SHAPES,
+                               "xl_kernels", eval_step=False)
+    per_kernel["dw_stencil_s1"] = phase_xl_stem(dw_stencil)
+    emit({"phase": "xl_kernels_done", "s": time.perf_counter() - t0})
+    return per_kernel
+
+
+def _npz(**arrays) -> bytes:
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
+def _http(port: int, path: str, body: bytes | None = None,
+          timeout: float = 600) -> tuple[int, bytes, float]:
+    """One request over loopback: status, body and ms from send to the
+    last byte read (an HTTP error's status and body too)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}",
+                                 data=body)
+    t1 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            code, out = resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        code, out = e.code, e.read()
+    return code, out, (time.perf_counter() - t1) * 1e3
+
+
+def _probs(code: int, body: bytes, what: str) -> np.ndarray:
+    check(code == 200, f"{what}: HTTP {code} {body[:200]!r}")
+    with np.load(io.BytesIO(body)) as z:
+        return z["probs"]
+
+
+def _json_get(port: int, path: str):
+    code, body, _ = _http(port, path, timeout=30)
+    return code, json.loads(body)
+
+
+# the serve_http phase: the three videos of the serve phase (T, T_f) at
+# 224², the prewarmed hits' coarse frames, the ladder's batching (all
+# three requests of a batch in one), the front end's short timeout for the
+# 504 check, and the tolerance of a served result against a direct call
+# (bf16 on both: the serve phase's hit-against-cold bound)
+SERVE_HTTP = dict(videos={"A": (64, 128), "B": (64, 128), "C": (50, 100)},
+                  hw=224, hit_t=64, max_batch=3, max_wait_ms=2000.0,
+                  result_timeout_s=2.0, tol=1e-3, canary_ids=200)
+
+
+def _serve_cli(fine_ckpt: str) -> dict:
+    """(a) ``python -m coarse_fine_networks_torch.cli.serve`` at its
+    defaults (X3D-M, 157 classes, ``--max-batch 4``, a 1 GB cache) on the
+    fine_driver phase's last checkpoint, the driver phase's last coarse
+    checkpoint (``coarse_driver.run`` at B8 T64 224²; the cli phase's
+    two coarse steps write none) and the cli phase's extraction bank
+    (``--prewarm-dir``), ``--port 0``: three
+    prewarmed hits (clips only), one cold video at T=64/T_f=128 224² and
+    its repeat, each held against a direct call of the same assembled
+    weights in this process (bf16); ``/v1/models``, ``/v1/stats`` (hits
+    and misses as sent), ``/healthz``; SIGTERM, exit code 0."""
+    import queue
+    import signal
+    import threading
+
+    from coarse_fine_networks_torch.ckpt import load_checkpoint, load_strict
+    from coarse_fine_networks_torch.cli.serve import \
+        assemble_pipeline_variables
+    from coarse_fine_networks_torch.models import CoarseFinePipeline
+    from coarse_fine_networks_torch.serve import FeatureCache
+    from coarse_fine_networks_torch.serve.scheduler import _bucket_up
+
+    c = SERVE_HTTP
+    coarse_ckpt = str(DRIVER_COARSE_CKPT)
+    bank = SCRATCH / "cli" / "feats"
+    check(DRIVER_COARSE_CKPT.is_file() and bank.is_dir(),
+          f"serve_http: no driver artifacts ({coarse_ckpt}, {bank})")
+    steps = {k: load_checkpoint(p)["step"] for k, p in
+             (("fine", fine_ckpt), ("coarse", coarse_ckpt))}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "coarse_fine_networks_torch.cli.serve",
+         "--fine-ckpt", fine_ckpt, "--coarse-ckpt", coarse_ckpt,
+         "--prewarm-dir", str(bank), "--port", "0"], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines: list = []
+    q: queue.Queue = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            q.put(line)
+        q.put(None)
+
+    threading.Thread(target=pump, daemon=True).start()
+    try:
+        port = None
+        while port is None:
+            line = q.get(timeout=300)
+            check(line is not None, f"serve CLI exited {proc.poll()}: "
+                                    f"{lines[-20:]}")
+            m = re.search(r"serving on :(\d+)", line)
+            port = int(m.group(1)) if m else None
+        ready_s = time.perf_counter() - t0
+
+        # the direct calls' weights: the same assembly, in this process
+        sd = assemble_pipeline_variables(None, fine_ckpt, coarse_ckpt)
+        pipe = load_strict(CoarseFinePipeline(
+            157, "M", compute_dtype=torch.bfloat16, device="cuda"), sd)
+        rng = torch.Generator().manual_seed(7)
+        t, hw = c["hit_t"], c["hw"]
+        vids = sorted(f[:-4] for f in os.listdir(bank / "layer1"))
+        lat, body_bytes, errs = {}, {}, {}
+        for vid in vids[-3:]:  # the last admitted survive a full cache
+            clips = _clip(rng, t, hw)
+            body = _npz(clips=clips)
+            code, out, ms = _http(port, f"/v1/score?video_id={vid}", body)
+            got = _probs(code, out, f"serve CLI prewarmed {vid}")
+            feats = {k: np.load(bank / k / f"{vid}.npy")
+                     for k in FeatureCache.FEATURE_KEYS}
+            tf = feats["layer1"].shape[0]
+            tp, tfp = _bucket_up(t, 16), _bucket_up(tf, 16)
+            fk = {k: torch.zeros((1, tfp) + v.shape[1:]) for k, v in
+                  feats.items()}
+            for k, v in feats.items():
+                fk[k][0, :tf] = torch.from_numpy(v)
+            cp = torch.zeros((1, tp, hw, hw, 3))
+            cp[0, :t] = torch.from_numpy(clips)
+            mask = torch.zeros((1, tfp))
+            mask[0, :tf] = 1
+            meta = torch.tensor([[0, t, tf, 1]], dtype=torch.int32)
+            with torch.inference_mode():
+                ref = pipe.fuse(cp.cuda(), fk, mask.cuda(), meta.cuda(),
+                                4 * tp)[0, :4 * t].float().cpu().numpy()
+            errs[f"prewarmed_{vid}"] = float(np.abs(got - ref).max())
+            lat[f"prewarmed_{vid}"] = ms
+            body_bytes["prewarmed"] = len(body)
+        t_c, tf_c = c["videos"]["A"]
+        clips, fine = _clip(rng, t_c, hw), _clip(rng, tf_c, hw)
+        body = _npz(clips=clips, fine_clips=fine)
+        code, out, lat["cold"] = _http(port, "/v1/score?video_id=new", body)
+        cold = _probs(code, out, "serve CLI cold")
+        body_bytes["cold"] = len(body)
+        body = _npz(clips=clips)
+        code, out, lat["hit"] = _http(port, "/v1/score?video_id=new", body)
+        hit = _probs(code, out, "serve CLI repeat")
+        body_bytes["hit"] = len(body)
+        body_bytes["response"] = len(out)
+        with torch.inference_mode():
+            ref = pipe(torch.from_numpy(clips)[None].cuda(),
+                       torch.from_numpy(fine)[None].cuda(),
+                       torch.tensor([[0, t_c, tf_c, 1]], dtype=torch.int32,
+                                    device="cuda"), 4 * t_c,
+                       fine_mask=torch.ones((1, tf_c), device="cuda"))
+        ref = ref[0].float().cpu().numpy()
+        errs["cold"] = float(np.abs(cold - ref).max())
+        errs["hit"] = float(np.abs(hit - ref).max())
+        models = _json_get(port, "/v1/models")
+        stats = _json_get(port, "/v1/stats")
+        health = _json_get(port, "/healthz")
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    del pipe
+    torch.cuda.empty_cache()
+    st = stats[1].get("coarse_fine", {})
+    row = {"phase": "serve_http_cli", "fine_ckpt": fine_ckpt,
+           "coarse_ckpt": coarse_ckpt, "ckpt_steps": steps,
+           "bank_videos": len(vids),
+           "ready_s": ready_s, "latency_ms": lat, "body_bytes": body_bytes,
+           "max_abs_err_vs_direct": errs, "tol": c["tol"],
+           "models": models, "stats": stats[1], "healthz": health,
+           "exit_code": rc, "output": [x for x in lines
+                                       if x.startswith(("prewarmed",
+                                                        "serving"))]}
+    emit(row)
+    check(all(e <= c["tol"] for e in errs.values()),
+          f"serve CLI: results differ from direct calls: {errs}")
+    check(cold.shape == (4 * t_c, 157) and np.isfinite(cold).all(),
+          f"serve CLI cold: {cold.shape}")
+    check(models == (200, {"models": ["coarse_fine"]}),
+          f"serve CLI /v1/models: {models}")
+    check(stats[0] == 200 and st.get("cache_hits") == 4
+          and st.get("cache_misses") == 1,
+          f"serve CLI /v1/stats: {stats}: 4 hits and 1 miss were sent")
+    check(health == (200, {"status": "ok"}), f"serve CLI /healthz {health}")
+    check(rc == 0, f"serve CLI exit code {rc} on SIGTERM: {lines[-20:]}")
+    return row
+
+
+def _ladder(mods) -> dict:
+    """(b) The S/M/XL ladder in this process: ``cli.serve.build_server``
+    with X3D-M (157 classes, seeded) as ``coarse_fine`` and X3D-XL (seeded)
+    registered beside it as ``cfn-xl``, bf16 at 224², batches of three;
+    cold and hit batches of the three videos to each variant over HTTP in
+    turn, each batch's launches held to :func:`serve_counts`; an alias, and
+    a canary of 0.5 keyed on ``video_id`` (its assignment of 200 ids
+    against ``_split_key``'s, and three routed hits against the variant's
+    earlier result); one request of each error: 404, 400, 429, 504, and
+    503 on ``/healthz`` while draining.  Returns the counted launches by
+    variant."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from coarse_fine_networks_torch.cli.serve import (build_server,
+                                                      caching_server)
+    from coarse_fine_networks_torch.models import CoarseFinePipeline
+    from coarse_fine_networks_torch.serve import InferenceHTTPServer
+    from coarse_fine_networks_torch.serve.router import _split_key
+
+    c = SERVE_HTTP
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sd = CoarseFinePipeline(157, "M", device="cpu", generator=torch.Generator(
+        ).manual_seed(0)).state_dict()
+    srv = build_server(sd, "M", 157, 0, 2 << 30, c["max_batch"],
+                       c["max_wait_ms"], 16, 600.0)
+    router = srv.router
+    xl = CoarseFinePipeline(157, "XL", compute_dtype=torch.bfloat16,
+                            device="cuda",
+                            generator=torch.Generator().manual_seed(1))
+    router.register("cfn-xl", caching_server(
+        xl, 2 << 30, c["max_batch"], c["max_wait_ms"], 16, 600.0))
+    names = {"X3D-M": "coarse_fine", "X3D-XL": "cfn-xl"}
+    times = {}
+    for model, name in names.items():
+        s = router._servers[name]
+        times[model] = {"extract": [], "fuse": []}
+        s._extract = _timed(times[model]["extract"], s._extract)
+        s._fuse = _timed(times[model]["fuse"], s._fuse)
+    build_s = time.perf_counter() - t0
+    srv.start()
+    port = srv.port
+    rng = torch.Generator().manual_seed(8)
+    vids = c["videos"]
+    clips = {v: _clip(rng, t, c["hw"]) for v, (t, _) in vids.items()}
+    fine = {v: _clip(rng, tf, c["hw"]) for v, (_, tf) in vids.items()}
+    cold_body = {v: _npz(clips=clips[v], fine_clips=fine[v]) for v in vids}
+    hit_body = {v: _npz(clips=clips[v]) for v in vids}
+    pool = ThreadPoolExecutor(max_workers=len(vids))
+
+    def batch(name, bodies, prefix=""):
+        futs = {v: pool.submit(_http, port, f"/v1/score?model={name}&"
+                                            f"video_id={prefix}{v}", b)
+                for v, b in bodies.items()}
+        out = {}
+        for v, f in futs.items():
+            code, body, ms = f.result()
+            out[v] = (_probs(code, body, f"{name} {prefix}{v}"), ms)
+        return out
+
+    shapes = {"X3D-M": ENTRY_SHAPES, "X3D-XL": XL_ENTRY_SHAPES}
+    counted, results, lat, rows = {}, {}, {}, {}
+    try:
+        for model, name in names.items():
+            batch(name, cold_body, "warm")  # handles, allocator, autotune
+            for k in ("extract", "fuse"):
+                times[model][k].clear()
+            want = serve_counts(shapes[model])
+            got = {}
+            for kind, bodies in (("cold", cold_body), ("hit", hit_body)):
+                for m in mods:
+                    m.reset_launches()
+                res = batch(name, bodies)
+                got[kind] = {k: v for k, v in _launches(*mods).items() if v}
+                results[(model, kind)] = {v: r[0] for v, r in res.items()}
+                lat[f"{model}.{kind}"] = {v: r[1] for v, r in res.items()}
+            counted[model] = got
+            sizes = router._servers[name].batch_sizes
+            rows[model] = {"batch_sizes": sizes,
+                           "extract_ms": list(times[model]["extract"]),
+                           "fuse_ms": list(times[model]["fuse"])}
+            check(got == want, f"serve_http {model} launches {got} != "
+                               f"{want}")
+            check(sizes[-2:] == [3, 3], f"serve_http {model}: batches "
+                                        f"{sizes}, not one of three each")
+            for v, (t, _) in vids.items():
+                for kind in ("cold", "hit"):
+                    out = results[(model, kind)][v]
+                    check(out.shape == (4 * t, 157) and bool(
+                        np.isfinite(out).all() and (out >= 0).all()
+                        and (out <= 1).all()),
+                          f"serve_http {model} {kind} {v}: {out.shape}")
+            hit_err = max(float(np.abs(results[(model, "hit")][v]
+                                       - results[(model, "cold")][v]).max())
+                          for v in vids)
+            rows[model]["hit_max_abs_diff"] = hit_err
+            check(hit_err <= c["tol"], f"serve_http {model}: hit differs "
+                                       f"from cold by {hit_err}")
+        stats = _json_get(port, "/v1/stats")[1]
+
+        # alias and canary: the assignment, then hits routed through both
+        router.alias("prod", "coarse_fine")
+        router.canary("coarse_fine", "cfn-xl", 0.5)
+        ids = [f"vid{i:03d}" for i in range(c["canary_ids"])]
+        lands = [router.resolve("prod", video_id=v) for v in ids]
+        split = ["cfn-xl" if _split_key(v, 0) < 0.5 else "coarse_fine"
+                 for v in ids]
+        routed = {}
+        for v in vids:
+            name = router.resolve("prod", video_id=v)
+            model = next(m for m, n in names.items() if n == name)
+            code, body, _ = _http(port, f"/v1/score?model=prod&video_id={v}",
+                                  hit_body[v])
+            got = _probs(code, body, f"prod {v}")
+            routed[v] = {"variant": name, "max_abs_diff": float(np.abs(
+                got - results[(model, "hit")][v]).max())}
+
+        # errors: unknown model, malformed body, then a variant that holds
+        # its batch open behind a front end with a short timeout
+        codes = {"404": _http(port, "/v1/score?model=ghost",
+                              hit_body["A"])[0],
+                 "400": _http(port, "/v1/score", b"not-an-npz")[0]}
+        held = caching_server(xl, 1 << 20, 4, 600_000.0, 1, None)
+        router.register("held", held)
+        short = InferenceHTTPServer(router, port=0, result_timeout_s=c[
+            "result_timeout_s"]).start()
+        small = _npz(clips=_clip(rng, 8, 64), fine_clips=_clip(rng, 16, 64))
+        try:
+            first = pool.submit(_http, short.port,
+                                "/v1/score?model=held&video_id=h1", small)
+            deadline = time.monotonic() + 60
+            while (router.stats()["held"]["pending"] == 0
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            codes["429"] = _http(short.port,
+                                 "/v1/score?model=held&video_id=h2",
+                                 small)[0]
+            codes["504"] = first.result(timeout=120)[0]
+            router.stop()
+            codes["503"] = _http(port, "/healthz", timeout=30)[0]
+        finally:
+            short.stop()
+    finally:
+        srv.stop()
+        pool.shutdown()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del xl
+    torch.cuda.empty_cache()
+    row = {"phase": "serve_http_ladder", "dtype": "bfloat16",
+           "input_hw": c["hw"],
+           "videos": {v: {"T": t, "T_f": tf} for v, (t, tf) in vids.items()},
+           "build_s": build_s, "variants": rows, "latency_ms": lat,
+           "launches": counted,
+           "body_bytes": {v: [len(cold_body[v]), len(hit_body[v])]
+                          for v in vids},
+           "stats": stats, "canary_to_xl": lands.count("cfn-xl"),
+           "routed": routed, "error_codes": codes, "peak_mem_gb": peak}
+    emit(row)
+    check(lands == split, "serve_http: the canary's assignment differs "
+                          "from _split_key's")
+    check(all(r["max_abs_diff"] <= c["tol"] for r in routed.values()),
+          f"serve_http: routed hits differ from their variant's: {routed}")
+    check(codes == {"404": 404, "400": 400, "429": 429, "504": 504,
+                    "503": 503}, f"serve_http error codes {codes}")
+    for model, name in names.items():
+        check(stats[name]["cache_hits"] == 3
+              and stats[name]["cache_misses"] == 6,
+              f"serve_http {model} stats {stats[name]}: 3 hits, 6 misses "
+              "(warm-up and cold) were sent")
+    return counted
+
+
+def _xl_entry(agg: dict, launches: int) -> dict:
+    """A serving kernel's X3D-XL numbers for the kernels line: bf16 sums
+    over XL's serve shapes, each weighted by its launches in a cold and a
+    hit batch (``xl_kernels``), and its launches in the ladder."""
+    return {"launches": launches, "timed_launches": agg["launches"],
+            "ms": agg["ms"], "plain_ms": agg["plain_ms"],
+            "bound_ms": agg["bound_ms"],
+            "bound_by": ("bytes" if agg["bytes_ms"] >= agg["ops_ms"]
+                         else "operations"),
+            **({"unfused_ms": agg["unfused_ms"]} if agg["unfused_ms"]
+               else {"library_ms": agg.get("library_ms")}),
+            "max_abs_err": agg["max_abs_err"],
+            "max_abs_err_f32": agg["max_abs_err_f32"],
+            "timed_at": "bf16 at X3D-XL's serve shapes (B=3, 224²; fine "
+                        "T_f=128; coarse T=64, then T=17 after Grid Pool; "
+                        "the stem's conv1_t at C=32), weighted by launches "
+                        "in one cold and one hit batch"}
+
+
+def phase_serve_http(mods, fine_ckpt: str) -> tuple[dict, dict]:
+    """(a) the serving CLI as users run it, then (b) the ladder in this
+    process (:func:`_serve_cli`, :func:`_ladder`).  Returns the launches of
+    the ladder's counted batches: summed, and X3D-XL's."""
+    t0 = time.perf_counter()
+    _serve_cli(fine_ckpt)
+    counted = _ladder(mods)
+    total = {}
+    for got in counted.values():
+        for kind in got.values():
+            for k, v in kind.items():
+                total[k] = total.get(k, 0) + v
+    xl = {}
+    for kind in counted["X3D-XL"].values():
+        for k, v in kind.items():
+            xl[k] = xl.get(k, 0) + v
+    emit({"phase": "serve_http_done", "s": time.perf_counter() - t0})
+    return total, xl
+
+
 def phase_card_vs_cpu() -> None:
     from coarse_fine_networks_torch.models import CoarseFinePipeline
 
@@ -3528,6 +4095,7 @@ def phase_card_vs_cpu() -> None:
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3544,46 +4112,57 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = phase_device()
-    per_kernel = phase_kernels(dw_mm_act, dw_conv)
-    phase_relu_branch(dw_mm_act, dw_mm_bn_train)
-    per_kernel.update(phase_train_kernels(dw_act, dw_conv, dw_mm_act))
-    phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train)
-    per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
-    per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
-    phase_autograd(dw_act)
-    phase_fine_autograd(dw_conv)
-    phase_stencil_autograd(dw_stencil)
-    launches, pipe = phase_serve(
-        dw_mm_act, dw_act, dw_stencil,
-        {k: per_kernel[k]["launches"] if k in MM_KERNELS else 0
-         for k in dw_mm_act.LAUNCHES})
-    phase_profile(pipe, mods)
-    del pipe
-    phase_card_vs_cpu()
-    act_launches, train_row = phase_train(mods)
-    launches.update(act_launches)
-    torch.cuda.empty_cache()
-    phase_train_card_vs_cpu()
-    launches.update(phase_fine_train(mods))
-    torch.cuda.empty_cache()
-    phase_fine_card_vs_cpu()
-    per_kernel.update(phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train,
-                                             dw_conv))
-    phase_mm_autograd(dw_mm_act, dw_mm_bn_train)
-    mm_launches, _ = phase_train(mods, "mm", train_row)
-    launches.update(mm_launches)
-    torch.cuda.empty_cache()
-    phase_train_card_vs_cpu("mm")
-    torch.cuda.empty_cache()
     try:
-        driver_launches = phase_driver(mods)
-        torch.cuda.empty_cache()
-        kinetics_launches, kinetics_ckpt = phase_kinetics(mods)
-        torch.cuda.empty_cache()
-        fine_driver_launches, fine_ckpt = phase_fine_driver(mods,
-                                                            kinetics_ckpt)
-        torch.cuda.empty_cache()
-        cli_launches = phase_cli(mods, kinetics_ckpt, fine_ckpt)
+        # the driver-level phases' trees are written by worker processes
+        # while the kernel phases run
+        with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
+                                 .get_context("spawn")) as pool:
+            trees = start_trees(pool)
+            per_kernel = phase_kernels(dw_mm_act, dw_conv)
+            xl_kernels = phase_xl_kernels(dw_mm_act, dw_conv, dw_stencil)
+            phase_relu_branch(dw_mm_act, dw_mm_bn_train)
+            per_kernel.update(phase_train_kernels(dw_act, dw_conv,
+                                                  dw_mm_act))
+            phase_nan(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train)
+            per_kernel.update(phase_fine_kernels(dw_conv, dw_stencil))
+            per_kernel.update(phase_stencil_kernels(dw_stencil, dw_conv))
+            phase_autograd(dw_act)
+            phase_fine_autograd(dw_conv)
+            phase_stencil_autograd(dw_stencil)
+            launches, pipe = phase_serve(
+                dw_mm_act, dw_act, dw_stencil,
+                {k: per_kernel[k]["launches"] if k in MM_KERNELS else 0
+                 for k in dw_mm_act.LAUNCHES})
+            phase_profile(pipe, mods)
+            del pipe
+            phase_card_vs_cpu()
+            act_launches, train_row = phase_train(mods)
+            launches.update(act_launches)
+            torch.cuda.empty_cache()
+            phase_train_card_vs_cpu()
+            launches.update(phase_fine_train(mods))
+            torch.cuda.empty_cache()
+            phase_fine_card_vs_cpu()
+            per_kernel.update(phase_mm_train_kernels(
+                dw_mm_act, dw_mm_bn_train, dw_conv))
+            phase_mm_autograd(dw_mm_act, dw_mm_bn_train)
+            mm_launches, _ = phase_train(mods, "mm", train_row)
+            launches.update(mm_launches)
+            torch.cuda.empty_cache()
+            phase_train_card_vs_cpu("mm")
+            torch.cuda.empty_cache()
+            driver_launches = phase_driver(mods, trees["driver"])
+            torch.cuda.empty_cache()
+            kinetics_launches, kinetics_ckpt = phase_kinetics(
+                mods, trees["kinetics"])
+            torch.cuda.empty_cache()
+            fine_driver_launches, fine_ckpt = phase_fine_driver(
+                mods, kinetics_ckpt, trees["fine_driver"])
+            torch.cuda.empty_cache()
+            cli_launches = phase_cli(mods, kinetics_ckpt, fine_ckpt)
+            torch.cuda.empty_cache()
+            serve_http_launches, xl_launches = phase_serve_http(mods,
+                                                                fine_ckpt)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
 
@@ -3645,11 +4224,20 @@ def main() -> int:
             "kinetics_launches": kinetics_launches[name],
             "fine_driver_launches": fine_driver_launches[name],
             "cli_launches": cli_launches[name],
+            "serve_http_launches": serve_http_launches.get(name, 0),
+            **({"xl": _xl_entry(xl_kernels[name], xl_launches[name])}
+               if name in xl_kernels else {}),
             "timed_at": timed_at[path]})
     check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
+    xl_counts = {k["name"]: (k["xl"]["launches"], k["xl"]["timed_launches"])
+                 for k in kernels if "xl" in k}
+    check(len(xl_counts) == 3 and all(a == b for a, b in xl_counts.values()),
+          f"X3D-XL's launches in the ladder against its timed shapes': "
+          f"{xl_counts}")
     idle = [k["name"] for k in kernels
             if not k["launches"] and k["name"] != "dw_stencil_s2"]
     check(not idle, f"kernels of a path launched no time: {idle}")
+    emit({"phase": "script", "seconds": time.perf_counter() - t_script})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -106,7 +106,10 @@ class PrefetchLoader:
     def consumed(self, n: int = 1) -> None:
         """The training loop took ``n`` more batches of the running epoch:
         from now on :meth:`state_dict`'s position counts taken batches, not
-        the ones yielded to a stage that holds them ahead."""
+        the ones yielded to a stage that holds them ahead.  Until the first
+        report the loader keeps the random states of the last ``prefetch +
+        num_workers`` batches yielded, so a stage may hold that many ahead
+        before it first reports (or report ``consumed(0)`` first)."""
         self._counting = True
         self._taken += n
 
@@ -207,7 +210,11 @@ class PrefetchLoader:
                     room.release()
                     next_idx += 1
                     self._pos += 1
-                    past = self._taken if self._counting else self._pos
+                    # a stage ahead of the loop may report its first taken
+                    # batch only after this one is yielded: until it does,
+                    # keep the starts of the last `window` positions
+                    past = (self._taken if self._counting
+                            else self._pos - window)
                     with self._lock:  # no state_dict asks for these again
                         for k in [k for k in self._starts if k < past]:
                             del self._starts[k]

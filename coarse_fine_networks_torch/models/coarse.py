@@ -73,21 +73,25 @@ def _dense(x: torch.Tensor, conv: nn.Conv1d) -> torch.Tensor:
 
 class RewightLayer(nn.Module):
     """Attention-filtered, Gaussian-aligned aggregation of one fine feature
-    bank into per-stage ``(bias, scale)`` maps ``(B, T_c, 7, 7, channels)``
-    (1×1 with ``pool=True``, the logit-level ``rw6``).  The heads are the
-    reference's kernel-1 ``Conv1d``s, applied over channels; with ``pool``
+    bank (``in_channels`` wide, ``depth`` unless given) into per-stage
+    ``(bias, scale)`` maps ``(B, T_c, 7, 7, channels)`` (1×1 with
+    ``pool=True``, the logit-level ``rw6``).  The heads are the reference's
+    kernel-1 ``Conv1d``s, applied over channels, with ``depth`` hidden
+    channels (the JAX package's ``Dense(depth)`` on the bank: at X3D-XL's
+    widths the banks are wider than the default depths); with ``pool``
     their hidden activations take dropout in training."""
 
     def __init__(self, channels: int, depth: int, pool: bool = False,
-                 dropout_rate: float = 0.5):
+                 dropout_rate: float = 0.5, in_channels: int | None = None):
         super().__init__()
         self.pool = pool
         self.dropout_rate = dropout_rate
-        self.at1 = nn.Conv1d(depth, depth, 1)
+        c_in = depth if in_channels is None else in_channels
+        self.at1 = nn.Conv1d(c_in, depth, 1)
         self.at2 = nn.Conv1d(depth, 1, 1)
-        self.fc1 = nn.Conv1d(depth, depth, 1)
+        self.fc1 = nn.Conv1d(c_in, depth, 1)
         self.fc2 = nn.Conv1d(depth, channels, 1)
-        self.fc3 = nn.Conv1d(depth, depth, 1)
+        self.fc3 = nn.Conv1d(c_in, depth, 1)
         self.fc4 = nn.Conv1d(depth, channels, 1)
 
     def forward(self, feat: torch.Tensor, mask: torch.Tensor,
@@ -153,10 +157,13 @@ class CoarseNet(X3DTrunk):
         planes = get_inplanes(version)
         fd = dict(DEFAULT_FEAT_DEPTH if feat_depth is None else feat_depth)
         self.pool_1 = GridPool(planes[0][1])
+        # the fine tower's bank widths: each stage's output, and the head's
         for i, key in enumerate(("layer1", "layer2", "layer3", "layer4")):
-            self.add_module(f"rw{i + 2}", RewightLayer(planes[i][1], fd[key]))
+            self.add_module(f"rw{i + 2}", RewightLayer(
+                planes[i][1], fd[key], in_channels=planes[i][1]))
         self.rw6 = RewightLayer(n_classes, fd["conv5"], pool=True,
-                                dropout_rate=dropout_rate)
+                                dropout_rate=dropout_rate,
+                                in_channels=planes[3][0])
         n_mix = sum(p[1] for p in planes)
         for i in range(4):
             self.add_module(f"mix{i + 2}", MixingLayer(planes[i][1], n_mix))

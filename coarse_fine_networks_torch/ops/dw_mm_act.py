@@ -34,6 +34,8 @@ semantics, and launches its kernel on a CUDA tensor, or raises.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 import torch.nn.functional as F
 
@@ -59,7 +61,10 @@ DX_S1_LIBRARY = CudaLibrary("dw_dx_s1.cu", {
 LIBRARIES = (LIBRARY, DX_S1_LIBRARY)
 
 # Kernel launches since the last reset, by kernel name.  Incremented only
-# where a kernel is launched (never by the plain version).
+# where a kernel is launched (never by the plain version), under
+# ``_COUNT_LOCK``: serving launches from one scheduler thread per model
+# variant, so two threads can count at once.
+_COUNT_LOCK = threading.Lock()
 LAUNCHES = {"dw_mm_act_s1": 0, "dw_mm_act_s2": 0, "dw_mm_wgrad_s1": 0,
             "dw_mm_wgrad_s2": 0}
 
@@ -76,7 +81,13 @@ def _launch(counts, lib, name, x, *args, key=None):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         lib.call(name, *args, int(x.dtype == torch.bfloat16), stream)
-    counts[key or name] += 1
+    _count(counts, key or name)
+
+
+def _count(counts, key) -> None:
+    """One launch of ``key`` in ``counts``, safe against other threads."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

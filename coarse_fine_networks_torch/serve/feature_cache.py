@@ -14,6 +14,7 @@ the true extent.
 from __future__ import annotations
 
 import collections
+import os
 import threading
 from typing import Callable, Dict, Optional, Tuple
 
@@ -77,6 +78,37 @@ class FeatureCache:
     @property
     def nbytes(self) -> int:
         return self._bytes
+
+    FEATURE_KEYS = ("layer1", "layer2", "layer3", "layer4", "conv5")
+
+    def preload_dir(self, feat_dir: str, keys=FEATURE_KEYS,
+                    max_videos: Optional[int] = None) -> int:
+        """Warm the cache from an extraction bank ``<feat_dir>/<key>/<vid>``:
+        the port's ``<vid>.npy`` (float32 ``(T, 7, 7, C)``, as
+        :func:`..train.extract_driver.run` writes it) or the reference's
+        ``torch.save`` file ``<vid>`` (``(1, C, T, 7, 7)``, loaded with
+        ``weights_only`` and transposed).  Videos are admitted in sorted
+        order, at most ``max_videos``; LRU eviction applies once the
+        capacity is reached, so the last loaded survive.  Returns the
+        number of videos admitted."""
+        d0 = os.path.join(feat_dir, keys[0])
+        vids = sorted({f.rsplit(".", 1)[0] if "." in f else f
+                       for f in os.listdir(d0)})
+        if max_videos is not None:
+            vids = vids[:max_videos]
+        for vid in vids:
+            feats = {}
+            for k in keys:
+                path = os.path.join(feat_dir, k, vid)
+                if os.path.exists(path + ".npy"):
+                    f = np.load(path + ".npy")
+                else:
+                    f = torch.load(path, map_location="cpu",
+                                   weights_only=True)
+                    f = f.squeeze(0).permute(1, 2, 3, 0).numpy()
+                feats[k] = np.ascontiguousarray(f, np.float32)
+            self.put(vid, feats, feats[keys[0]].shape[0])
+        return len(vids)
 
 
 class CachingVideoServer(VideoServer):

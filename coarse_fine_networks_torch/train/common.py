@@ -15,7 +15,8 @@ from typing import Any, Dict, List
 import torch
 from torch import nn
 
-from ..ckpt import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..ckpt import (checkpoint_tensors, latest_checkpoint, load_checkpoint,
+                    save_checkpoint)
 from ..data.device_prefetch import DevicePrefetcher
 from ..data.transforms import CHARADES_MEAN, CHARADES_STD, device_normalize
 from .state import TrainState
@@ -156,11 +157,7 @@ def load_pretrained(model: nn.Module, path: str) -> nn.Module:
     (the 400 → 157 class head) keeps its fresh value.  A JAX-package
     ``.ckpt`` (flax msgpack) is not readable here: convert its variables
     with :func:`..ckpt.state_dict_from_jax`."""
-    raw = torch.load(path, map_location="cpu", weights_only=True)
-    if path.endswith((".pt", ".pth")):
-        sd = raw.get("model_state_dict", raw)
-    else:
-        sd = raw.get("variables", raw)
+    sd = checkpoint_tensors(path)
     own = model.state_dict()
     keep = {k: v for k, v in sd.items()
             if k in own and tuple(v.shape) == tuple(own[k].shape)}

@@ -114,17 +114,23 @@ def test_device_flag_reaches_the_driver(monkeypatch, name):
     assert cfg.device == "cpu"
 
 
+# flags each command line's --help must name
+HELP_FLAGS = {**{name: ("--device", "--root") for name in CLIS},
+              "serve": ("--device", "--fine-ckpt", "--prewarm-dir"),
+              "convert_checkpoint": ("--input", "--to-torch")}
+
+
 def test_help_runs_as_a_module():
     """``python -m coarse_fine_networks_torch.cli.<name> --help`` for each
     command line, in processes started together."""
     procs = {name: subprocess.Popen(
         [sys.executable, "-m", f"coarse_fine_networks_torch.cli.{name}",
          "--help"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for name in CLIS}
+        text=True) for name in HELP_FLAGS}
     for name, p in procs.items():
         out, err = p.communicate(timeout=120)
         assert p.returncode == 0, (name, err)
-        assert "--device" in out and "--root" in out, name
+        assert all(f in out for f in HELP_FLAGS[name]), (name, out)
 
 
 def test_no_module_of_the_port_imports_jax():
@@ -135,7 +141,12 @@ def test_no_module_of_the_port_imports_jax():
     assert {"coarse_fine_networks_torch.cli.train_fine",
             "coarse_fine_networks_torch.train.kinetics_driver",
             "coarse_fine_networks_torch.data.kinetics",
-            "coarse_fine_networks_torch.utils.logging"} <= set(names)
+            "coarse_fine_networks_torch.utils.logging",
+            "coarse_fine_networks_torch.serve.router",
+            "coarse_fine_networks_torch.serve.http",
+            "coarse_fine_networks_torch.ckpt.strict",
+            "coarse_fine_networks_torch.cli.serve",
+            "coarse_fine_networks_torch.cli.convert_checkpoint"} <= set(names)
     code = ("import importlib, sys\n"
             f"for n in {names!r}:\n"
             "    importlib.import_module(n)\n"

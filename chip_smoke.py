@@ -14,7 +14,8 @@ Phases, each printing JSON lines:
    ``dw_mm_act.cu``, ``dw_dx_s1.cu`` and ``dw_stencil.cu`` whose
    registers, spills and static shared memory for each row-strip kernel
    (K1/K6 plain and ``act``, K6 ``mm``; K4 plain, ``act`` and ``mm``, K8,
-   K5, K9, K10 plain, ``act`` and ``mm``; K1 ``mm``; K3 and K2) and for
+   K5, K9, K10 plain, ``act`` and ``mm``, the three stride-(2, 2, 2)
+   kernels; K1 ``mm``; K3 and K2) and for
    K11 and its taps' gradient (every KT × KS × dtype instantiation) make
    five ``ptxas`` rows, no act or mm instantiation and neither of K11's
    kernels spilling; their dynamic shared memory and blocks per SM are in
@@ -170,6 +171,37 @@ Phases, each printing JSON lines:
    both strides against autograd through ``F.conv3d(groups=C)``, f32, and
    the stem's gradients (reaching ``conv1_s``) against autograd through the
    grouped conv;
+18b. t2_kernels: the three stride-(2, 2, 2) kernels of ``FineNet``'s
+   ``t_downsample`` (``dw_conv_t2``, ``dw_conv_dx_t2``,
+   ``dw_conv_wgrad_t2``: K4 plain's, K8's and K10 plain's bodies with a
+   temporal stride of 2) against their plain versions at the four
+   ``t_downsample`` entries at B32 T16 224² and at B64 T16 112² and at
+   ragged sizes, f32 (TF32 off) and bf16, timed beside the plain version
+   and ``F.conv3d(groups=C, stride=2)`` or its
+   ``aten.convolution_backward``, each row with its work split
+   (``plan_t2_fwd``, ``plan_t2_dx``, ``plan_t2``), blocks per SM, waves,
+   registers and spills; each also equal with a difference of 0 to its
+   stride-(1, 2, 2) kernel (K4 plain's frames 0, 2, ...; K8 and K10 plain on
+   g at the even frames of a zero tensor of T frames) and the weight
+   gradient to itself run again;
+18c. variants: each ``CoarseNet`` option (``t_pool`` avg, max, stride and
+   None; ``learned_mixing=False``; ``is_mixing=False``; ``task='class'``) at
+   the train step's shapes (X3D-M, 157 classes, bf16, B8 T64 224², banks
+   at T_f=128) by the act route: a warm-up and a counted train step
+   against labels at the logits' length, an eval forward, the logits'
+   shape, exact launches and peak memory; then ``FineNet(t_downsample=True,
+   task='class')``, 400 classes, at B32 T16 224² (1 split) and B64 T16
+   112² (8 splits): a class train step and an eval step with exact
+   launches (4 of each t2 kernel a step, 4 ``dw_conv_t2`` an eval), peak
+   memory, and one step profiled (no grouped conv left to PyTorch);
+18d. remat: the coarse train step by the act route and by the composite,
+   long-cycle phases A and D, each without ``remat``, with it and without
+   again from the same weights, batch and dropout draws: the loss, every
+   gradient and every batch-norm statistic of the remat run against the
+   plain run within 4× the two plain runs' own spread (exactly where the
+   step repeats bit for bit), the forward kernels launched twice and the
+   backward kernels once a remat step, step ms and peak memory with and
+   without;
 19. driver: the port's three entry points in sequence at full width
    (X3D-M, 157 classes, bf16, 224²): ``generate_mini_charades`` (12
    videos, 8 of them training, of 640 frames at 256², so the train clips
@@ -212,7 +244,9 @@ Phases, each printing JSON lines:
    validation, 1 step), ``extract_fineFEAT`` with the fine_driver phase's
    last checkpoint, ``train_coarse_fineFEAT`` at B6 with the localize CSV
    (157 probabilities a row); each run's launches held as above; one
-   coarse step at B6 T64 224² profiled (``cli_coarse_profile``); and
+   coarse step at B6 T64 224² profiled (``cli_coarse_profile``);
+   ``train_coarse_fineFEAT --remat`` on the same features (2 steps, a
+   validation; the bottlenecks' forward kernels twice a step); and
    ``--help`` of each command line as ``python -m``;
 23. serve_http: (a) ``python -m coarse_fine_networks_torch.cli.serve`` at
    its defaults as a process on the fine_driver phase's last checkpoint,
@@ -230,7 +264,7 @@ Phases, each printing JSON lines:
    ``_split_key``, three routed hits against their variant's), and 404,
    400, 429, 504 and 503 each from one request; per-request latency, the
    server's extract/fuse ms per variant, body bytes and peak memory;
-24. a ``{"kernels": [...]}`` line (20 entries, each with its launches on
+24. a ``{"kernels": [...]}`` line (23 entries, each with its launches on
    the driver, kinetics, fine_driver, cli and serve_http paths beside the
    earlier phases', and for K1 ``mm``, K4 ``mm`` and K11 an ``xl`` entry:
    XL's times and launches), after a ``script`` line with the whole run's
@@ -361,6 +395,12 @@ REPLACES = {
     "dw_stencil_s1": f"{_DW_CONV}:158",    # _dw_pallas_raw (K11)
     "dw_stencil_s2": f"{_DW_FOLD}:786",    # _dw_fold4_s2_raw (K7)
     "dw_stencil_wgrad": f"{_DW_CONV}:262",  # _dw_bwd's per-tap reduce
+    # stride (2, 2, 2), FineNet's t_downsample: no TPU kernel (the JAX
+    # package runs it in XLA, _lax_conv, on its plain layout)
+    "dw_conv_t2": f"none: XLA {_DW_CONV}:287 (_lax_conv)",
+    "dw_conv_dx_t2": f"none: XLA's transpose of {_DW_CONV}:287 (_lax_conv)",
+    "dw_conv_wgrad_t2": f"none: XLA's transpose of {_DW_CONV}:287 "
+                        "(_lax_conv)",
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
@@ -403,6 +443,9 @@ KERNEL_FUNCS = {
     "plain_s2_wgrad_kernel": ("dw_conv_wgrad_s2",),
     "stencil_fwd_kernel": ("dw_stencil_s1",),
     "stencil_dk_kernel": ("dw_stencil_wgrad",),
+    "plain_t2_fwd_kernel": ("dw_conv_t2",),
+    "plain_t2_dx_kernel": ("dw_conv_dx_t2",),
+    "plain_t2_wgrad_kernel": ("dw_conv_wgrad_t2",),
 }
 # the act route's kernel functions, as the train and phase-D profiles sum
 # them
@@ -536,7 +579,8 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "mm_s2_fwd_kernel", "plain_s2_dx_kernel",
                         "act_s2_dx_kernel", "mm_s2_dx_kernel",
                         "plain_s2_wgrad_kernel", "act_s2_wgrad_kernel",
-                        "mm_s2_wgrad_kernel"),
+                        "mm_s2_wgrad_kernel", "plain_t2_fwd_kernel",
+                        "plain_t2_dx_kernel", "plain_t2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
          "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel")}
@@ -548,6 +592,9 @@ NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
             "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
             "stencil_dk_kernel")
+# each ptxas row's kernels by mangled name (phase_device), for the rows of
+# the phases that print a kernel's registers and spills beside its times
+PTXAS_ROWS: dict = {}
 
 
 def phase_device() -> str:
@@ -577,6 +624,7 @@ def phase_device() -> str:
         rows = {n: v for n, v in ptxas[key].items()
                 if any(f in n for f in funcs)}  # mangled names
         emit({"phase": "ptxas", "source": SOURCES[key], "kernels": rows})
+        PTXAS_ROWS[key] = rows
         check(len(rows) == PTXAS_EACH.get(key, 6) * len(funcs)
               and all("registers" in v for v in rows.values()),
               f"ptxas report of {SOURCES[key]}: {ptxas[key]}")
@@ -3528,6 +3576,36 @@ def phase_cli(mods, kinetics_ckpt: str, fine_ckpt: str) -> dict:
                 "val_s": res["val_s"], "run_s": run_s}
         rows[name]["launches"] = {k: v for k, v in got.items() if v}
         launches = {k: launches.get(k, 0) + v for k, v in got.items()}
+    # the coarse command line again with --remat, on the same features:
+    # every train step launches the bottlenecks' forward kernels twice
+    for m in mods:
+        m.reset_launches()
+    calls = []
+    t1 = time.perf_counter()
+    with _per_call(*steps["train_coarse_fineFEAT"], mods, calls):
+        res = train_coarse_fineFEAT.main(common + [
+            "--save-dir", str(root / "coarse_remat"), "--fine-feat-dir",
+            str(root / "feats"), "--localize-csv", str(root / "remat.csv"),
+            "--max-epochs", str(c["coarse_epochs"]), "--remat"])
+    torch.cuda.synchronize()
+    counters = _launches(*mods)
+    remat_step = _remat_step("act", True)
+    bad = [(x["kind"], x["launches"]) for x in calls if x["launches"] != (
+        remat_step if x["kind"] == "train" else EVAL_CALL)]
+    total = {k: sum(x["launches"].get(k, 0) for x in calls) for k in counters}
+    remat = [x for x in calls if x["kind"] == "train"]
+    rows["train_coarse_fineFEAT --remat"] = {
+        "losses": [x["loss"] for x in remat], "val_map": res.get("val_map"),
+        "step_ms": res["step_ms"], "run_s": time.perf_counter() - t1,
+        "launches": {k: v for k, v in total.items() if v}}
+    check(not bad and total == counters,
+          f"cli train_coarse_fineFEAT --remat: calls {bad[:3]}, the calls' "
+          f"launches {total} against the counters' {counters}")
+    check(len(remat) == c["coarse_epochs"]
+          and all(np.isfinite([x["loss"] for x in remat])),
+          f"cli train_coarse_fineFEAT --remat: losses "
+          f"{[x['loss'] for x in remat]}")
+    launches = {k: launches.get(k, 0) + v for k, v in total.items()}
     feats = root / "feats"
     nonfinite = [f"{k}/{v}" for k in FEAT_KEYS
                  for v in sorted(os.listdir(feats / k))
@@ -4094,6 +4172,483 @@ def phase_card_vs_cpu() -> None:
     check(err <= tol, f"card vs CPU max abs err {err} > {tol}")
 
 
+# ---- stride (2, 2, 2): FineNet's t_downsample ---------------------------------
+
+T2_KERNELS = ("dw_conv_t2", "dw_conv_dx_t2", "dw_conv_wgrad_t2")
+# x at conv2 of each stage's block 0 under t_downsample (C_mid wide): FineNet
+# at B32 T16 224² (the Kinetics class step's shape; counted) and B64 T16
+# 112² (long-cycle phase A's), and ragged sizes (odd T, H, W and C)
+T2_SHAPES = {
+    "B32.224": [(32, 16, 112, 112, 54), (32, 8, 56, 56, 108),
+                (32, 4, 28, 28, 216), (32, 2, 14, 14, 432)],
+    "B64.112": [(64, 16, 56, 56, 54), (64, 8, 28, 28, 108),
+                (64, 4, 14, 14, 216), (64, 2, 7, 7, 432)],
+    "ragged": [(3, 9, 13, 11, 30), (2, 5, 9, 7, 7), (4, 7, 15, 9, 54)],
+}
+# the t_downsample step's launches: the four strided blocks take the t2
+# kernels (the eval step too), the rest their route's
+T2_STEP = {"dw_conv_t2": 4, "dw_conv_dx_t2": 4, "dw_conv_wgrad_t2": 4,
+           "dw_stencil_s1": 2, "dw_stencil_wgrad": 1}
+T2_ACT_STEP = {"dw_act_s1": 22, "dw_act_dx_s1": 22, "dw_act_wgrad_s1": 22,
+               **T2_STEP}
+T2_SPLIT_STEP = {"dw_conv_s1": 44, "dw_conv_wgrad_s1": 22, **T2_STEP}
+T2_EVAL_CALL = {"dw_mm_act_s1": 22, "dw_conv_t2": 4, "dw_stencil_s1": 1}
+
+
+def _ptxas_of(func: str, dtype, r: int) -> dict:
+    """Registers and spills of ``func``'s instantiation for ``dtype`` and
+    ``r`` rows, from the ptxas rows (mangled ``<float, R>`` as ``IfLiRE``,
+    ``<__nv_bfloat16, R>`` as ``I13__nv_bfloat16LiRE``)."""
+    t = "If" if dtype == torch.float32 else "I13__nv_bfloat16"
+    rows = [v for n, v in PTXAS_ROWS.get("dw_conv_s2", {}).items()
+            if func in n and f"{t}Li{r}E" in n]
+    check(len(rows) == 1, f"ptxas row of {func} {dtype} R={r}: {len(rows)}")
+    return {k: rows[0].get(k) for k in ("registers", "spill_stores",
+                                        "spill_loads")}
+
+
+def _plan_row_t2(dw_conv, name, shape, dtype) -> dict:
+    """The work split of t2 kernel ``name`` at x ``shape`` (dx: dx's shape)
+    over the output's (g's) frames, rows and columns: its blocks (one per
+    tile; the weight gradient's persistent grid), shared memory, blocks per
+    SM, waves, and the instantiation's ptxas row."""
+    kind, plan, smem, func = {
+        "dw_conv_t2": (6, dw_conv.plan_t2_fwd, dw_conv.smem_s2_fwd,
+                       "plain_t2_fwd_kernel"),
+        "dw_conv_dx_t2": (7, dw_conv.plan_t2_dx, dw_conv.smem_t2_dx,
+                          "plain_t2_dx_kernel"),
+        "dw_conv_wgrad_t2": (8, dw_conv.plan_t2, dw_conv.smem_s2,
+                             "plain_t2_wgrad_kernel"),
+    }[name]
+    p = plan(*shape)
+    esz, bf16 = torch.finfo(dtype).bits // 8, int(dtype == torch.bfloat16)
+    occ = dw_conv.LIBRARY_S2.build().dw_plain_s2_occupancy(kind, p.r, p.wb,
+                                                           p.pg, bf16)
+    check(occ > 0, f"{name} plan {shape} {dtype}: does not fit ({occ})")
+    wgrad = kind == 8
+    blocks = (p.rows if wgrad else p.items) * p.n_pg
+    return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
+            **({"ipb": p.ipb, "rows": p.rows} if wgrad else {}),
+            "threads": p.threads, "blocks": blocks, "smem": smem(p, esz),
+            "blocks_per_sm": occ, "waves": _waves(blocks, occ),
+            "ptxas": _ptxas_of(func, dtype, p.r)}
+
+
+def phase_t2_kernels(dw_conv) -> dict:
+    """The three stride-(2, 2, 2) kernels against their plain versions at
+    the four ``t_downsample`` entries of ``FineNet`` at B32 T16 224² and at
+    B64 T16 112² and at ragged sizes, f32 (TF32 off) and bf16, timed beside
+    the plain version and the one PyTorch call that computes the same
+    function (``F.conv3d(groups=C, stride=2)``, ``aten.convolution_backward``
+    for dx and the weight gradient), each row with its work split, blocks
+    per SM, waves, registers and spills.  Each also equals its stride-(1, 2,
+    2) kernel with a difference of 0: ``dw_conv_t2`` K4 plain's output frames
+    0, 2, 4, ..., ``dw_conv_dx_t2`` K8 on g at the even frames of a zero
+    tensor of T frames, ``dw_conv_wgrad_t2`` K10 plain on that g (where the
+    two plans' items agree: ``plan_t2``) and itself run again.  The B32
+    rows, one launch each a step, make each kernel's line entry."""
+    from coarse_fine_networks_torch.ops.dw_conv import T2
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    per_kernel = {k: _agg() for k in T2_KERNELS}
+    ncdhw = (0, 4, 1, 2, 3)
+    for dtype in (torch.float32, torch.bfloat16):
+        for group, shapes in T2_SHAPES.items():
+            for b, t, h, w, c in shapes:
+                to, ho, wo = (t - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1
+                x = torch.randn((b, t, h, w, c), generator=gen,
+                                device="cuda").relu().to(dtype)
+                k = (torch.randn((3, 3, 3, c), generator=gen, device="cuda")
+                     / 27 ** 0.5).to(dtype)
+                g = torch.randn((b, to, ho, wo, c), generator=gen,
+                                device="cuda").to(dtype)
+                # g at the even frames of a zero tensor of t frames
+                up = torch.zeros((b, t, ho, wo, c), dtype=dtype,
+                                 device="cuda")
+                up[:, ::2] = g
+                w_conv = k.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
+                xc, gc = x.permute(ncdhw), g.permute(ncdhw)
+                bw = ([2, 2, 2], [1, 1, 1], [1, 1, 1], False, [0, 0, 0], c)
+
+                def conv_bwd(mask):
+                    return torch.ops.aten.convolution_backward(
+                        gc, xc, w_conv, None, *bw, mask)
+
+                n_x, n_g, esz = x.numel(), g.numel(), x.element_size()
+                cases = {
+                    "dw_conv_t2": (
+                        lambda: dw_conv.dw_conv3d(x, k, T2),
+                        lambda: dw_conv.dw_conv3d_plain(x, k, T2),
+                        lambda: F.conv3d(xc, w_conv, stride=2, padding=1,
+                                         groups=c),
+                        "F.conv3d(groups=C, stride=2), channels_last_3d",
+                        (n_x + n_g + k.numel()) * esz, 2 * 27 * n_g, 1),
+                    "dw_conv_dx_t2": (
+                        lambda: dw_conv.dw_conv_dx_t2(g, k, (t, h, w)),
+                        lambda: dw_conv.dw_conv_dx_t2_plain(g, k, (t, h, w)),
+                        lambda: conv_bwd([True, False, False])[0],
+                        "aten.convolution_backward, input gradient only",
+                        (n_x + n_g + k.numel()) * esz, 2 * 27 * n_g, 1),
+                    "dw_conv_wgrad_t2": (
+                        lambda: dw_conv.dw_conv_wgrad(x, g, T2),
+                        lambda: dw_conv.dw_conv_wgrad_plain(x, g, T2),
+                        lambda: conv_bwd([False, True, False])[1],
+                        "aten.convolution_backward, weight gradient only",
+                        (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, 1)}
+                q = dw_conv.plan_s2(b, t, h, w, c)
+                aligned = q.tt % 2 == 0 or q.tt >= t
+                also = {
+                    "dw_conv_t2": (("dw_conv_s2, frames ::2",
+                                    lambda: dw_conv.dw_conv3d(x, k, 2)[:, ::2]
+                                    ),),
+                    "dw_conv_dx_t2": (("dw_conv_dx_s2 on g at even frames",
+                                       lambda: dw_conv.dw_conv_dx_s2(
+                                           up, k, (h, w))),),
+                    "dw_conv_wgrad_t2": (("dw_conv_wgrad_t2 again",
+                                          lambda: dw_conv.dw_conv_wgrad(
+                                              x, g, T2)),) + ((
+                        ("dw_conv_wgrad_s2 on g at even frames",
+                         lambda: dw_conv.dw_conv_wgrad(x, up, 2)),)
+                        if aligned else ())}
+                meta = {"entry": f"t2.{group}", "x": [b, t, h, w, c],
+                        "stride": [2, 2, 2]}
+                for name, case in cases.items():
+                    shape = (b, t, h, w, c)
+                    _hold_time_library(
+                        "t2_kernels", name,
+                        {**meta, "plan": _plan_row_t2(dw_conv, name, shape,
+                                                      dtype)},
+                        dtype, *case, group == "B32.224", per_kernel[name],
+                        also[name], also_exact=True)
+                del x, g, up, xc, gc
+            torch.cuda.empty_cache()
+    return per_kernel
+
+
+# the coarse stream's other options at the train step's shapes (TRAIN: B8
+# T64 224², bf16, banks at T_f 128, 157 classes), by the act route: the
+# options and the logits' frames they give
+COARSE_VARIANTS = {
+    "t_pool=avg": (dict(t_pool="avg"), 16),
+    "t_pool=max": (dict(t_pool="max"), 16),
+    "t_pool=stride": (dict(t_pool="stride"), 16),
+    "t_pool=None": (dict(t_pool=None), 64),
+    "learned_mixing=False": (dict(learned_mixing=False), 64),
+    "is_mixing=False": (dict(is_mixing=False), 64),
+    "task=class": (dict(task="class"), 64),
+}
+# FineNet(t_downsample=True, task='class'), 400 classes: (B, T, crop, splits)
+FINE_T2 = {"B32 T16 224²": (32, 16, 224, 1), "B64 T16 112²": (64, 16, 112, 8)}
+
+
+def _variant_coarse(mods, name, kw, frames) -> dict:
+    """One CoarseNet variant: a warm-up and a counted train step (the
+    detection loss against labels at the logits' length), then a counted
+    eval forward."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    c = TRAIN
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5,
+                                      **kw),
+                            torch.Generator().manual_seed(40)).cuda()
+    batch = _train_batch("cuda", torch.Generator(device="cuda").manual_seed(
+        41), c["b"], c["t"], c["hw"], c["tf"], frames, c["n_classes"],
+        torch.bfloat16)
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(42)
+    warm = step(state, batch, c["lr"], drop)[1]["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launches()
+    t1 = time.perf_counter()
+    loss = step(state, batch, c["lr"], drop)[1]["loss"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    launches = _launches(*mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in mods:
+        m.reset_launches()
+    model.eval()
+    with torch.no_grad():
+        logits = model(batch["clips"], batch["feats"], batch["feat_mask"],
+                       batch["meta"])
+    torch.cuda.synchronize()
+    eval_launches = _launches(*mods)
+    top = sorted({k.split(".")[0] for k in model.state_dict()})
+    row = {"phase": "variants", "model": "CoarseNet", "option": name,
+           "B": c["b"], "T": c["t"], "input_hw": c["hw"], "T_f": c["tf"],
+           "label_len": frames, "losses": [warm, loss], "step_ms": step_ms,
+           "peak_mem_gb": peak_gb, "logits": list(logits.shape),
+           "modules": [m for m in top if m.startswith(("pool_", "mix"))],
+           "launches": {k: v for k, v in launches.items() if v},
+           "eval_launches": {k: v for k, v in eval_launches.items() if v}}
+    emit(row)
+    check(np.isfinite([warm, loss]).all(), f"variants {name}: losses "
+                                           f"{[warm, loss]}")
+    check(tuple(logits.shape) == (c["b"], frames, c["n_classes"])
+          and bool(torch.isfinite(logits).all()),
+          f"variants {name}: logits {tuple(logits.shape)}")
+    check({k: v for k, v in launches.items() if v} == ACT_STEP,
+          f"variants {name}: step launches {launches} != {ACT_STEP}")
+    check({k: v for k, v in eval_launches.items() if v} == EVAL_CALL,
+          f"variants {name}: eval launches {eval_launches} != {EVAL_CALL}")
+    return row
+
+
+def _variant_fine_t2(mods, name, b, t, crop, splits) -> tuple[dict, dict]:
+    """FineNet(t_downsample=True, task='class'), 400 classes, bf16: a
+    warm-up and a counted class train step (the Kinetics step), a counted
+    eval step, then one train step profiled.  Returns the row and the t2
+    kernels' launches of the counted step and eval."""
+    from coarse_fine_networks_torch.models import (FineNet, init_parameters,
+                                                   set_bn_splits)
+    from coarse_fine_networks_torch.train import TrainState
+    from coarse_fine_networks_torch.train.kinetics_driver import (
+        make_class_eval_step, make_class_train_step)
+
+    n_classes = KINETICS["n_classes"]
+    model = set_bn_splits(init_parameters(
+        FineNet("M", n_classes, task="class", global_tower=False,
+                t_downsample=True),
+        torch.Generator().manual_seed(43)), splits).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(44)
+    batch = {"clips": torch.rand((b, t, crop, crop, 3), generator=gen,
+                                 device="cuda").to(torch.bfloat16),
+             "labels": torch.randint(0, n_classes, (b,), generator=gen,
+                                     device="cuda")}
+    step = make_class_train_step(model, weight_decay=1e-5)
+    state = TrainState.create(model)
+    drop = torch.Generator(device="cuda").manual_seed(45)
+    warm = step(state, batch, 0.1, drop)[1]["loss"].item()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for m in mods:
+        m.reset_launches()
+    t1 = time.perf_counter()
+    loss = step(state, batch, 0.1, drop)[1]["loss"].item()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t1) * 1e3
+    launches = _launches(*mods)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for m in mods:
+        m.reset_launches()
+    t1 = time.perf_counter()
+    ev = make_class_eval_step(model)(state, batch)
+    eval_loss = ev["loss"].item()
+    eval_ms = (time.perf_counter() - t1) * 1e3
+    eval_launches = _launches(*mods)
+    with torch.no_grad():
+        model.eval()
+        logits = model(batch["clips"])
+        model.train()
+    want = T2_SPLIT_STEP if splits > 1 else T2_ACT_STEP
+    ours = (("plain_fwd_kernel", "plain_wgrad_kernel") if splits > 1
+            else ("act_fwd_s1_kernel", "act_dx_s1_kernel",
+                  "act_wgrad_s1_kernel")) + (
+        "plain_t2_fwd_kernel", "plain_t2_dx_kernel", "plain_t2_wgrad_kernel",
+        "stencil_fwd_kernel", "stencil_dk_kernel")
+
+    def one_step():
+        step(state, batch, 0.1, drop)[1]["loss"].item()
+    profiled = _profile_step(one_step, ours, mods)
+    row = {"phase": "variants", "model": "FineNet",
+           "option": "t_downsample=True, task=class", "shape": name,
+           "n_classes": n_classes, "bn_splits": splits,
+           "losses": [warm, loss], "eval_loss": eval_loss,
+           "step_ms": step_ms, "eval_ms": eval_ms, "peak_mem_gb": peak_gb,
+           "logits": list(logits.shape),
+           "launches": {k: v for k, v in launches.items() if v},
+           "eval_launches": {k: v for k, v in eval_launches.items() if v}}
+    emit(row)
+    emit({"phase": "variants_profile",
+          "what": f"one FineNet(t_downsample) class train step, {name} bf16, "
+                  f"{splits} splits", **profiled})
+    check(np.isfinite([warm, loss, eval_loss]).all(),
+          f"variants t_downsample {name}: losses {[warm, loss, eval_loss]}")
+    check(tuple(logits.shape) == (b, 1, n_classes)
+          and bool(torch.isfinite(logits).all()),
+          f"variants t_downsample {name}: logits {tuple(logits.shape)}")
+    check({k: v for k, v in launches.items() if v} == want,
+          f"variants t_downsample {name}: step launches {launches} != {want}")
+    check({k: v for k, v in eval_launches.items() if v} == T2_EVAL_CALL,
+          f"variants t_downsample {name}: eval launches {eval_launches} != "
+          f"{T2_EVAL_CALL}")
+    check(dict(profiled["port_kernel_launches"]) == {
+        f: want[names[0]] for f, names in KERNEL_FUNCS.items()
+        if names[0] in want}, f"variants t_downsample {name}: profiled "
+                              f"{profiled['port_kernel_launches']}")
+    return row, {k: launches[k] + eval_launches[k] for k in T2_KERNELS}
+
+
+def phase_variants(mods) -> dict:
+    """The models' other options at full width on the card: each
+    CoarseNet option (``t_pool`` avg, max, stride, None; unlearned mixing;
+    no mixing; ``task='class'``) at the coarse train step's shapes by the
+    act route, then FineNet(t_downsample=True, task='class') at B32 T16
+    224² (1 split) and B64 T16 112² (8 splits); each with its peak memory.
+    Returns the t2 kernels' launches in the counted fine steps and evals."""
+    t2 = {k: 0 for k in T2_KERNELS}
+    for name, (kw, frames) in COARSE_VARIANTS.items():
+        _variant_coarse(mods, name, kw, frames)
+        torch.cuda.empty_cache()
+    for name, (b, t, crop, splits) in FINE_T2.items():
+        _, got = _variant_fine_t2(mods, name, b, t, crop, splits)
+        t2 = {k: t2[k] + got[k] for k in t2}
+        torch.cuda.empty_cache()
+    return t2
+
+
+# ---- remat: every bottleneck recomputed in the backward -----------------------
+
+def _remat_step(route, remat):
+    """The remat phase's step launches of one route: the bottlenecks'
+    forward kernels twice with ``remat`` (the recomputation), their backward
+    kernels and the stem's once."""
+    base = {"act": ACT_STEP, "split": SPLIT_STEP,
+            "mm": {"dw_mm_act_s1": 22, "dw_mm_act_s2": 4,
+                   "dw_mm_dx_mask_s1": 22, "dw_mm_dx_mask_s2": 4,
+                   "dw_mm_wgrad_s1": 22, "dw_mm_wgrad_s2": 4,
+                   "dw_stencil_s1": 2, "dw_stencil_wgrad": 1}}[route]
+    fwd = {"act": ("dw_act_s1", "dw_act_s2"), "split": ("dw_conv_s1",
+                                                        "dw_conv_s2"),
+           "mm": ("dw_mm_act_s1", "dw_mm_act_s2")}[route]
+    # the split route's dw_conv_s1 is also its stride-1 dx: 22 of its 44
+    extra = {"dw_conv_s1": 22}
+    return {k: v + (extra.get(k, v) if remat and k in fwd else 0)
+            for k, v in base.items()}
+
+
+def _remat_config(mods, label):
+    """(model, step, batch, lr, route) of one remat configuration."""
+    from coarse_fine_networks_torch.models import (CoarseNet, FineNet,
+                                                   init_parameters,
+                                                   set_bn_splits)
+    from coarse_fine_networks_torch.train import make_train_step, model_batch
+
+    if label.startswith("coarse"):
+        c = TRAIN
+        model = init_parameters(CoarseNet("M", c["n_classes"],
+                                          dropout_rate=0.5),
+                                torch.Generator().manual_seed(50)).cuda()
+        batch = _train_batch("cuda", torch.Generator(device="cuda")
+                             .manual_seed(51), c["b"], c["t"], c["hw"],
+                             c["tf"], c["tl"], c["n_classes"],
+                             torch.bfloat16)
+        step = make_train_step(model, align_corners=False,
+                               fusion_lr_mult=c["fusion_lr_mult"])
+        return model, step, batch, c["lr"], ("mm" if label.endswith("mm")
+                                             else "act")
+    _, b, t, crop, tl, splits = fine_phase(label[-1])
+    model = set_bn_splits(init_parameters(
+        FineNet("M", FINE["n_classes"], dropout_rate=FINE["dropout"],
+                global_tower=False), torch.Generator().manual_seed(52)),
+        splits).cuda()
+    batch = model_batch(_fine_host_batch(torch.Generator(device="cuda")
+                                         .manual_seed(53), b, t, crop, tl,
+                                         FINE["n_classes"]),
+                        dtype=torch.bfloat16, device="cuda")
+    step = make_train_step(model, align_corners=True)
+    return model, step, batch, FINE["lr"], "split" if splits > 1 else "act"
+
+
+REMAT_CONFIGS = ("coarse act", "coarse mm", "fine phase A", "fine phase D")
+
+
+def phase_remat(mods) -> None:
+    """``remat`` on the card: the coarse train step by the act route and by
+    the composite (``CFN_MM_BN_TRAIN=1``), and long-cycle phases A (8
+    splits, the split route) and D (1 split, the act route), each run from
+    the same weights, batch and dropout draws without ``remat``, again
+    without, and with: the loss, every parameter's gradient and every batch
+    norm statistic.  The two plain runs' difference is the card's own
+    run-to-run spread (PyTorch's atomics: the logits' resize backward,
+    cuDNN's weight gradients); each tensor of the remat run must lie
+    within 4× the step's largest spread (relative to the tensor's largest
+    magnitude) of the plain run, and exactly on it where the step repeats
+    bit for bit.  Launches: the bottlenecks' forward kernels twice and
+    their backward kernels once a remat step; step ms and peak GB with and
+    without."""
+    from coarse_fine_networks_torch.models import X3DStage
+    from coarse_fine_networks_torch.train import TrainState
+
+    for label in REMAT_CONFIGS:
+        with composite_route(label == "coarse mm"):
+            model, step, batch, lr, route = _remat_config(mods, label)
+            sd0 = {k: v.detach().clone() for k, v in
+                   model.state_dict().items()}
+            stages = [m for m in model.modules() if isinstance(m, X3DStage)]
+
+            def run(remat):
+                model.load_state_dict(sd0)
+                for s in stages:
+                    s.remat = remat
+                state = TrainState.create(model)
+                drop = torch.Generator(device="cuda").manual_seed(54)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for m in mods:
+                    m.reset_launches()
+                t1 = time.perf_counter()
+                loss = step(state, batch, lr, drop)[1]["loss"].item()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t1) * 1e3
+                return {"loss": loss, "ms": ms,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": {k: v for k, v in
+                                     _launches(*mods).items() if v},
+                        "grads": {k: p.grad.detach().clone() for k, p in
+                                  model.named_parameters()},
+                        "stats": {k: v.detach().clone() for k, v in
+                                  model.state_dict().items()
+                                  if "running" in k}}
+
+            run(False)  # warm-up (first calls, allocator)
+            plain = run(False)
+            remat = run(True)
+            again = run(False)
+            del model, step, batch
+
+        def rel(a, b):
+            return {k: ((a[k] - b[k]).abs().max()
+                        / a[k].abs().max().clamp(min=1e-30)).item()
+                    for k in a}
+        spread = {**rel(plain["grads"], again["grads"]),
+                  **rel(plain["stats"], again["stats"])}
+        diff = {**rel(plain["grads"], remat["grads"]),
+                **rel(plain["stats"], remat["stats"])}
+        tol = 4 * max(spread.values())
+        worst = sorted(diff.items(), key=lambda kv: -kv[1])[:5]
+        row = {"phase": "remat", "config": label, "route": route,
+               "loss": [plain["loss"], again["loss"], remat["loss"]],
+               "step_ms": {"plain": plain["ms"], "remat": remat["ms"]},
+               "peak_mem_gb": {"plain": plain["peak_gb"],
+                               "remat": remat["peak_gb"]},
+               "spread_max": max(spread.values()),
+               "spread_zero_share": sum(v == 0 for v in spread.values())
+               / len(spread),
+               "remat_max": max(diff.values()), "remat_worst": worst,
+               "tol": tol, "launches": {"plain": plain["launches"],
+                                        "remat": remat["launches"]}}
+        emit(row)
+        check(np.isfinite(row["loss"]).all(), f"remat {label}: losses "
+                                              f"{row['loss']}")
+        check(abs(remat["loss"] - plain["loss"]) <= tol * abs(plain["loss"]),
+              f"remat {label}: loss {remat['loss']} vs {plain['loss']}")
+        check(all(v <= tol for v in diff.values()),
+              f"remat {label}: tensors off the plain run {worst} > {tol}")
+        for which, want in (("plain", _remat_step(route, False)),
+                            ("remat", _remat_step(route, True))):
+            got = row["launches"][which]
+            check(got == want, f"remat {label} {which}: launches {got} != "
+                               f"{want}")
+        del plain, again, remat
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4151,6 +4706,11 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase_train_card_vs_cpu("mm")
             torch.cuda.empty_cache()
+            per_kernel.update(phase_t2_kernels(dw_conv))
+            torch.cuda.empty_cache()
+            launches.update(phase_variants(mods))
+            phase_remat(mods)
+            torch.cuda.empty_cache()
             driver_launches = phase_driver(mods, trees["driver"])
             torch.cuda.empty_cache()
             kinetics_launches, kinetics_ckpt = phase_kinetics(
@@ -4189,6 +4749,11 @@ def main() -> int:
                 "train_mm and fine_train phases hold theirs exactly too); "
                 "by_path: bf16 at each path's stem shape, weighted by its "
                 "launches per step (serve: in its counted run)",
+        "t2": "bf16 at FineNet(t_downsample)'s four stride-(2, 2, 2) entry "
+              "shapes at B32 T16 224² (conv2's x: T16 112² C54, T8 56² "
+              "C108, T4 28² C216, T2 14² C432), one launch each a step, "
+              "summed; launches: the variants phase's two counted "
+              "t_downsample train steps and two eval steps",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
               "C432), one call each, summed; K7 runs K4 plain's kernel "
@@ -4202,6 +4767,7 @@ def main() -> int:
                 "fine" if name in FINE_KERNELS else
                 "mm_train" if name in MM_TRAIN_KERNELS else
                 "k7" if name == "dw_stencil_s2" else
+                "t2" if name in T2_KERNELS else
                 "stem" if name in STENCIL_KERNELS else "train")
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
@@ -4228,7 +4794,7 @@ def main() -> int:
             **({"xl": _xl_entry(xl_kernels[name], xl_launches[name])}
                if name in xl_kernels else {}),
             "timed_at": timed_at[path]})
-    check(len(kernels) == 20, f"{len(kernels)} kernel entries, not 20")
+    check(len(kernels) == 23, f"{len(kernels)} kernel entries, not 23")
     xl_counts = {k["name"]: (k["xl"]["launches"], k["xl"]["timed_launches"])
                  for k in kernels if "xl" in k}
     check(len(xl_counts) == 3 and all(a == b for a, b in xl_counts.values()),

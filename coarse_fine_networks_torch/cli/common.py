@@ -31,8 +31,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "raises)")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
-    p.add_argument("--remat", action="store_true",
-                   help="not ported: raises")
+    p.add_argument("--remat", action="store_true")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--debug-nans", action="store_true",
                    help="autograd anomaly detection")

@@ -29,6 +29,10 @@
 //                     as dw_conv_dx_s2's, x and W1 as above
 //   dw_mm_wgrad_s2    dw_conv_wgrad_s2's sum over a_pad, a as
 //                     dw_mm_act_s2's
+//   dw_conv_t2, dw_conv_dx_t2, dw_conv_wgrad_t2
+//                     the first three at stride (2,2,2): y[t,h,w,c] = sum
+//                     k * x[2t+dt-1, 2h+dy-1, 2w+dx-1, c], y and g
+//                     (B,To,Ho,Wo,C) with To = (T-1)/2 + 1
 //
 // x and dx are channels-last (B,T,H,W,C), y and g (B,T,Ho,Wo,C) with Ho =
 // (H-1)/2 + 1, f32 or bf16; the taps k (27,C) have the input's dtype;
@@ -63,7 +67,14 @@
 //                         dw_fold4_mm_bn_train and of dw_fold4_mm_act
 //                         (_dw_mm_bwd).
 // The fold4 lane layout, its even/odd de-interleave and the sublane-pair
-// bitcasts are TPU mechanics and are not carried over.
+// bitcasts are TPU mechanics and are not carried over. The stride-(2,2,2)
+// kernels (dw_conv_t2, dw_conv_dx_t2, dw_conv_wgrad_t2: FineNet's
+// t_downsample) replace no TPU kernel: the JAX package runs that conv in
+// XLA (_lax_conv, coarse_fine_networks_tpu/ops/pallas/dw_conv.py:287, on
+// its plain layout). They are K4 plain's, K8's and K10 plain's bodies with
+// the temporal stride a template argument (ST = 2; the stride-(1,2,2)
+// instantiations are unchanged): bound by bytes alike, they read their
+// input once and write their output once, with the same row strips.
 //
 // What bounds them on this card: bytes. The forward reads x once and
 // writes y (a quarter of x) once; the dx reads g and writes dx (4x the
@@ -215,6 +226,7 @@ namespace {
 using namespace cfn;
 
 constexpr int GSTAGE = 5;  // g frames in the dx kernels' ring
+constexpr int GSTAGE_T2 = 4;  // ... in the stride-(2,2,2) dx's ring
 constexpr int XSTAGE = 3;  // x frames in the act dx kernel's ring
 
 // One thread's share of staging a tile of output columns [w0, w0+WB): its
@@ -474,7 +486,17 @@ __device__ __forceinline__ void load_taps(float (&k0)[27], float (&k1)[27],
 // columns' pairs, as K10 act); rows and columns outside the frame are never
 // copied and stay the zero padding of a. The stencil and its order are K4
 // plain's, so y is K4 plain's on the activated x bit for bit.
-template <typename T, int R, bool ACT>
+//
+// ST = 2 (dw_conv_t2, stride (2,2,2); plain only): the tile's frames are
+// output frames of To = (Tn-1)/2 + 1, and output frame to reads input
+// frames 2to-1 .. 2to+1. Slot i of the ring holds input frame 2t0 - 1 + i;
+// the register ring is two output frames deep: an even step i (an odd input
+// frame, 2(t0 + i/2) - 1) adds tap dt = 2 to acc[0] (output t0 + i/2 - 1)
+// and dt = 0 to acc[1] (output t0 + i/2), then acc[0] is complete; an odd
+// step (an even input frame) adds dt = 1 to acc[0]. Each output's taps are
+// added in K4 plain's order, so y equals K4 plain's output frames 0, 2, 4, ..
+// bit for bit.
+template <typename T, int R, bool ACT, int ST = 1>
 __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
                                             const T* __restrict__ k,
                                             const float* __restrict__ sc,
@@ -482,16 +504,18 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
                                             T* __restrict__ y, int Tn, int H,
                                             int W, int Ho, int Wo, int C,
                                             const Plan& pl) {
+  static_assert(ST == 1 || (ST == 2 && !ACT), "stride (2,2,2): plain only");
   constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
   const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2;
   const int stage = xstage_elems<T>(R, WB, PG);
+  const int To = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // output frames
 
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
-  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, To);
   const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int w = tl.w0 + wl;
@@ -511,7 +535,9 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
   const size_t frame = (size_t)H * W * C;
   const T* xb = x + (size_t)tl.b * Tn * frame;
   const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
-  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
+  // input frames (ST = 2: 2t0 - 1 .. 2t1 - 1)
+  const int f0 = ST == 1 ? tl.t0 - 1 : 2 * tl.t0 - 1,
+            nf = ST == 1 ? tl.t1 - tl.t0 + 2 : 2 * (tl.t1 - tl.t0) + 1;
   auto load = [&](int i) {
     const int ti = f0 + i;
     if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
@@ -527,9 +553,10 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
           ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
   };
 
-  float acc[3][R][2];
+  constexpr int NA = ST == 1 ? 3 : 2;  // output frames in the register ring
+  float acc[NA][R][2];
 #pragma unroll
-  for (int j = 0; j < 3; ++j)
+  for (int j = 0; j < NA; ++j)
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
 
@@ -545,31 +572,75 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
     load(i + NS - 1);  // into frame i-1's slot
     if constexpr (ACT) act_own(own, i + 1);
     const int ti = f0 + i;
-    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
-      s2_frame<T, R>(ring + (i % NS) * stage, rowlen, atE, atO, PG2,
-                     [&](int j, int r, int dy, int dx, float2 v) {
-                       const int tap = ((2 - j) * 3 + dy) * 3 + dx;
-                       acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
-                       acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
-                     });
-    const int to = ti - 1;  // complete now
-    if (to >= tl.t0 && live) {
-      T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
-              (size_t)w * C + c;
-      const bool pair = second && !(C & 1);
+    if constexpr (ST == 1) {
+      if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+        s2_frame<T, R>(ring + (i % NS) * stage, rowlen, atE, atO, PG2,
+                       [&](int j, int r, int dy, int dx, float2 v) {
+                         const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+                         acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+                         acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+                       });
+      const int to = ti - 1;  // complete now
+      if (to >= tl.t0 && live) {
+        T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
+                (size_t)w * C + c;
+        const bool pair = second && !(C & 1);
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (tl.h0 + r < Ho)
-          store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
-                     pair, second);
-    }
+        for (int r = 0; r < R; ++r)
+          if (tl.h0 + r < Ho)
+            store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                       pair, second);
+      }
 #pragma unroll
-    for (int r = 0; r < R; ++r) {
-      acc[0][r][0] = acc[1][r][0];
-      acc[0][r][1] = acc[1][r][1];
-      acc[1][r][0] = acc[2][r][0];
-      acc[1][r][1] = acc[2][r][1];
-      acc[2][r][0] = acc[2][r][1] = 0.f;
+      for (int r = 0; r < R; ++r) {
+        acc[0][r][0] = acc[1][r][0];
+        acc[0][r][1] = acc[1][r][1];
+        acc[1][r][0] = acc[2][r][0];
+        acc[1][r][1] = acc[2][r][1];
+        acc[2][r][0] = acc[2][r][1] = 0.f;
+      }
+    } else {
+      const bool odd = i & 1;  // an even input frame: tap dt = 1 only
+      // tap dt = 2 - j: dt 2 and 1 go to acc[0], dt 0 to acc[1]
+      auto add = [&](int j, int r, int dy, int dx, float2 v) {
+        const int a = j >> 1, tap = ((2 - j) * 3 + dy) * 3 + dx;
+        acc[a][r][0] = fmaf(k0[tap], v.x, acc[a][r][0]);
+        acc[a][r][1] = fmaf(k1[tap], v.y, acc[a][r][1]);
+      };
+      const T* sl = ring + (i % NS) * stage;
+      // j is a constant once s2_frame is unrolled: each branch keeps only
+      // its taps
+      if (ti >= 0 && ti < Tn && in) {
+        if (odd)
+          s2_frame<T, R>(sl, rowlen, atE, atO, PG2,
+                         [&](int j, int r, int dy, int dx, float2 v) {
+                           if (j == 1) add(j, r, dy, dx, v);
+                         });
+        else
+          s2_frame<T, R>(sl, rowlen, atE, atO, PG2,
+                         [&](int j, int r, int dy, int dx, float2 v) {
+                           if (j != 1) add(j, r, dy, dx, v);
+                         });
+      }
+      if (!odd) {
+        const int to = tl.t0 + i / 2 - 1;  // complete now
+        if (to >= tl.t0 && live) {
+          T* yo = y + (((size_t)tl.b * To + to) * Ho + tl.h0) * Wo * C +
+                  (size_t)w * C + c;
+          const bool pair = second && !(C & 1);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+            if (tl.h0 + r < Ho)
+              store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                         pair, second);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          acc[0][r][0] = acc[1][r][0];
+          acc[0][r][1] = acc[1][r][1];
+          acc[1][r][0] = acc[1][r][1] = 0.f;
+        }
+      }
     }
   }
   cp_wait<0>();
@@ -591,6 +662,17 @@ act_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
                   T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
                   int C, Plan pl) {
   s2_fwd_body<T, R, true>(x, k, sc, bi, y, Tn, H, W, Ho, Wo, C, pl);
+}
+
+// dw_conv_t2: K4 plain's body at stride (2,2,2); the plan is over y's
+// frames, rows and columns
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
+                    int C, Plan pl) {
+  s2_fwd_body<T, R, false, 2>(x, k, nullptr, nullptr, y, Tn, H, W, Ho, Wo, C,
+                              pl);
 }
 
 // ---- the mm forward (K4 mm) ---------------------------------------------------
@@ -775,13 +857,26 @@ __host__ __device__ __forceinline__ MmMaskLayout mm_s2_dx_layout(
 // (QuadStager): it has landed when step i's wait returns, and no barrier
 // is needed for it. At the end the block sums its threads' columns in a
 // fixed order into row `item` of the (items, 2, C) partial buffer.
-template <typename T, int R, bool ACT, bool MM = false>
+//
+// ST = 2 (dw_conv_dx_t2, stride (2,2,2); plain only): the tile's frames are
+// g frames of Tg = (Tn-1)/2 + 1, and g frame j writes dx frames 2j and 2j+1
+// (those below Tn). Dx frame 2j takes only tap dt = 1 of g frame j; dx frame
+// 2j+1 takes tap dt = 2 of g frame j, then tap dt = 0 of g frame j+1. Slot
+// i % GSTAGE_T2 holds g frame t0 + i, and step i reads slots i and i+1, so
+// the ring is GSTAGE_T2 = 4 frames deep (two read, two in flight). Each dx
+// element's terms are added in K8's order (g frames ascending, then rows,
+// then columns), so dx equals K8's on g put at the even frames of a zero
+// tensor of Tn frames bit for bit.
+template <typename T, int R, bool ACT, bool MM = false, int ST = 1>
 __device__ __forceinline__ void dx_s2_body(
     const T* __restrict__ g, const T* __restrict__ k,
     const T* __restrict__ x, const float* __restrict__ sc,
     const float* __restrict__ bi, T* __restrict__ dx,
     float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
     const Plan& pl, const T* __restrict__ w1 = nullptr, int Cin = 0) {
+  static_assert(ST == 1 || (ST == 2 && !ACT && !MM),
+                "stride (2,2,2): plain only");
+  constexpr int GS = ST == 1 ? GSTAGE : GSTAGE_T2;  // the g ring's depth
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -789,12 +884,13 @@ __device__ __forceinline__ void dx_s2_body(
   const int stage = dxstage_elems<T>(R, WB, PG);
   // ACT: the x ring after the g ring
   const int xstage = ACT ? quadstage_elems<T>(R, WB, PG) : 0;
-  T* xring = ring + GSTAGE * stage;
+  T* xring = ring + GS * stage;
+  const int Tg = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // g frames
 
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
   const int item = blk / pl.n_pg;
-  const Tile tl = pl.tile(item, pg, Tn);
+  const Tile tl = pl.tile(item, pg, Tg);
   const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int j = tl.w0 + wl;
@@ -847,17 +943,18 @@ __device__ __forceinline__ void dx_s2_body(
   }
 
   const size_t gframe = (size_t)Ho * Wo * C;
-  const T* gb = g + (size_t)tl.b * Tn * gframe;
+  const T* gb = g + (size_t)tl.b * Tg * gframe;
   const GStager sg(tl, wl, pi, WB, PG2, Wo, C, pl.pairs);
   const size_t xframe = (size_t)H * W * C;
   const T* xb = ACT ? x + (size_t)tl.b * Tn * xframe : nullptr;
   const QuadStager sx(tl, wl, pi, PG2, W, C, pl.pairs);
   const int half = WB * PG2;  // an x slot's column-parity stride
-  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // g frames
+  // g frames: ST = 1 t0-1 .. t1, ST = 2 t0 .. t1
+  const int f0 = tl.t0 - (ST == 1), nf = tl.t1 - tl.t0 + (ST == 1 ? 2 : 1);
   auto load = [&](int i) {
     const int tg = f0 + i;
-    if (i < nf && tg >= 0 && tg < Tn)  // uniform across the block
-      sg.rows(ring + (i % GSTAGE) * stage, gb + (size_t)tg * gframe, tl.h0,
+    if (i < nf && tg >= 0 && tg < Tg)  // uniform across the block
+      sg.rows(ring + (i % GS) * stage, gb + (size_t)tg * gframe, tl.h0,
               R + 1, Ho, Wo, rowlen);
     if constexpr (ACT) {
       const int tx = tg - 1;  // the dx frame this group's step completes
@@ -880,8 +977,68 @@ __device__ __forceinline__ void dx_s2_body(
     q[1][1] = fmaf(k1[t0], b.y, q[1][1]);
   };
 
-  zero_ring(smem_raw, (GSTAGE * stage + XSTAGE * xstage) * (int)sizeof(T));
-  for (int i = 0; i < GSTAGE - 1; ++i) load(i);
+  zero_ring(smem_raw, (GS * stage + XSTAGE * xstage) * (int)sizeof(T));
+  for (int i = 0; i < GS - 1; ++i) load(i);
+  if constexpr (ST == 2) {
+    for (int o = tl.t0; o < tl.t1; ++o) {  // g frame o
+      const int i = o - tl.t0;
+      cp_wait<GS - 3>();  // this thread's copies of frame i + 1 landed
+      __syncthreads();    // and everyone's; slot i-1 is read by no one
+      load(i + GS - 1);   // into slot i-1
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {  // dx frame 2o + e
+        const int ox = 2 * o + e;
+        if (ox >= Tn) break;  // uniform across the block
+        float acc[R][2][2][2];
+#pragma unroll
+        for (int r = 0; r < R; ++r)
+#pragma unroll
+          for (int py = 0; py < 2; ++py)
+#pragma unroll
+            for (int px = 0; px < 2; ++px)
+              acc[r][py][px][0] = acc[r][py][px][1] = 0.f;
+        if (in) {
+#pragma unroll
+          for (int f = 0; f < 2; ++f) {  // g frames o, o + 1 ascending
+            // dx frame 2o: dt = 1 of g frame o; 2o+1: dt = 2 of g frame o,
+            // then dt = 0 of g frame o+1 (outside the clip: nothing)
+            if (e == 0 && f == 1) continue;
+            if (f == 1 && o + 1 >= Tg) continue;
+            const int dt = e == 0 ? 1 : 2 - 2 * f;
+            const T* sl = ring + ((i + f) % GS) * stage + at;
+#pragma unroll
+            for (int rr = 0; rr <= R; ++rr) {  // g row h0 + rr, as K8
+              const float2 a = load_pair(sl + rr * rowlen);
+              const float2 b = load_pair(sl + rr * rowlen + PG2);
+              if (rr > 0) add(acc[rr - 1][1], dt, 0, a, b);
+              if (rr < R) {
+                add(acc[rr][0], dt, 1, a, b);
+                add(acc[rr][1], dt, 2, a, b);
+              }
+            }
+          }
+        }
+        if (live) {
+          T* d = dx + ((size_t)tl.b * Tn + ox) * H * W * C + c;
+          const bool pair = second && !(C & 1);
+#pragma unroll
+          for (int r = 0; r < R; ++r)
+#pragma unroll
+            for (int py = 0; py < 2; ++py) {
+              const int row = 2 * (tl.h0 + r) + py;
+              if (row >= H) continue;
+#pragma unroll
+              for (int px = 0; px < 2; ++px) {
+                const int col = 2 * j + px;
+                if (col >= W) continue;
+                store_pair(d + ((size_t)row * W + col) * C, acc[r][py][px][0],
+                           acc[r][py][px][1], pair, second);
+              }
+            }
+        }
+      }
+    }
+  } else {  // ST == 1
   for (int o = tl.t0; o < tl.t1; ++o) {
     const int i = o - tl.t0;
     cp_wait<GSTAGE - 4>();  // this thread's copies of frame i + 2 landed
@@ -961,6 +1118,7 @@ __device__ __forceinline__ void dx_s2_body(
         }
     }
   }
+  }  // ST == 1
   cp_wait<0>();
 
   if constexpr (ACT) {
@@ -996,6 +1154,17 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
                           H, W, Ho, Wo, C, pl);
 }
 
+// dw_conv_dx_t2: K8's body at stride (2,2,2); the plan is over g's frames,
+// rows and columns
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
+                   int C, Plan pl) {
+  dx_s2_body<T, R, false, false, 2>(g, k, nullptr, nullptr, nullptr, dx,
+                                    nullptr, Tn, H, W, Ho, Wo, C, pl);
+}
+
 // At most NT_DX threads: the act epilogue's state (bn1's pair, the sums, x
 // pairs) beside K8's 54 taps and 8R sums needs more than 128 registers.
 template <typename T, int R>
@@ -1023,6 +1192,17 @@ mm_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 }
 
 // ---- weight gradient (K10 plain; K10 act) -------------------------------------
+// The stride-(2,2,2) rule: x frame i of an item's nf = 2(t1 - t0) + 1 (x
+// frame 2t0 - 1 + i) meets, for even i, g frames t0 + i/2 - 1 (tap dt = 2,
+// ring slot j = 0: inside the segment for i >= 2) and t0 + i/2 (dt = 0, j =
+// 2: for i < nf - 1), and for odd i g frame t0 + (i-1)/2 (dt = 1, j = 1:
+// always); a product is added only there (bit j), as wgrad_slots admits at
+// stride (1,2,2).
+__device__ __forceinline__ unsigned wgrad_slots_t2(int i, int nf) {
+  if (i & 1) return 2u;
+  return (i >= 2 ? 1u : 0u) | (i < nf - 1 ? 4u : 0u);
+}
+
 // Thread (wl, pi) as in the forward. Slot i of the ring holds x frame f0 + i
 // (staged rows rr = 0..2R: input row 2h0 - 1 + rr) and g frame f0 + i + 1
 // (rows h0 .. h0+R-1). While x frame ti is read, gr[j][r] holds g frame
@@ -1036,12 +1216,26 @@ mm_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 // and columns outside the frame are never copied and stay the zero padding
 // of a. Nothing else changes, so the sums are K10 plain's on the activated
 // x, in its order.
-template <typename T, int R, bool ACT>
+//
+// ST = 2 (dw_conv_wgrad_t2, stride (2,2,2); plain only): the items' frames
+// are g frames of To = (Tn-1)/2 + 1; an item reads x frames 2t0 - 1 ..
+// 2t1 - 1, and slot i holds x frame 2t0 - 1 + i and, for even i, g frame
+// t0 + i/2. The register ring is two g frames deep: an even step i (an odd
+// x frame) pairs tap dt = 2 with gr[0] (g frame t0 + i/2 - 1) and dt = 0
+// with gr[1] (g frame t0 + i/2); an odd step (an even x frame) pairs dt = 1
+// with gr[1]. The rule (wgrad_slots_t2) admits a pair only where its g
+// frame lies in the item's segment, and rows and columns as at ST = 1, so a
+// NaN of x reaches the taps it reaches in the plain version. Per tap the
+// products are added in K10 plain's order (x frames ascending, then output
+// rows), so dk equals K10 plain's on g put at the even frames of a zero
+// tensor of Tn frames, with the same items, bit for bit (finite x).
+template <typename T, int R, bool ACT, int ST = 1>
 __device__ __forceinline__ void s2_wgrad_body(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ sc, const float* __restrict__ bi,
     float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
     const Plan& pl, int n_items, int ipb) {
+  static_assert(ST == 1 || (ST == 2 && !ACT), "stride (2,2,2): plain only");
   constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -1065,12 +1259,15 @@ __device__ __forceinline__ void s2_wgrad_body(
 
   const int row = blockIdx.x;
   const int it1 = min((row + 1) * ipb, n_items);
+  const int To = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // g frames
   for (int item = row * ipb; item < it1; ++item) {
-    const Tile tl = pl.tile(item, pg, Tn);
+    const Tile tl = pl.tile(item, pg, To);
     const T* xb = x + (size_t)tl.b * Tn * xframe;
-    const T* gb = g + (size_t)tl.b * Tn * gframe;
+    const T* gb = g + (size_t)tl.b * To * gframe;
     const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
-    const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
+    // x frames (ST = 2: 2t0 - 1 .. 2t1 - 1)
+    const int f0 = ST == 1 ? tl.t0 - 1 : 2 * tl.t0 - 1,
+              nf = ST == 1 ? tl.t1 - tl.t0 + 2 : 2 * (tl.t1 - tl.t0) + 1;
     // output rows of the strip, and whether the thread's column exists
     const int nr = min(R, Ho - tl.h0);
     const bool live = in && tl.w0 + wl < Wo;
@@ -1078,6 +1275,16 @@ __device__ __forceinline__ void s2_wgrad_body(
       if (i < nf) {  // uniform across the block
         T* slot = ring + (i % NS) * stage;
         const int ti = f0 + i, tg = ti + 1;
+        if constexpr (ST == 2) {  // g frame t0 + i/2 with even i
+          if (ti >= 0 && ti < Tn)
+            sg.x_rows(slot, xb + (size_t)ti * xframe, 2 * tl.h0 - 1,
+                      2 * R + 1, H, W, rowlen);
+          if (!(i & 1) && tl.t0 + i / 2 < tl.t1)
+            sg.g_rows(slot + xstage, gb + (size_t)(tl.t0 + i / 2) * gframe,
+                      tl.h0, R, Ho, Wo, growlen);
+          cp_commit();
+          return;
+        }
         if (ti >= 0 && ti < Tn)
           sg.x_rows(slot, xb + (size_t)ti * xframe, 2 * tl.h0 - 1, 2 * R + 1,
                     H, W, rowlen);
@@ -1096,9 +1303,10 @@ __device__ __forceinline__ void s2_wgrad_body(
             ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
     };
 
-    float gr[3][R][2];
+    constexpr int NG = ST == 1 ? 3 : 2;  // g frames in the register ring
+    float gr[NG][R][2];
 #pragma unroll
-    for (int j = 0; j < 3; ++j)
+    for (int j = 0; j < NG; ++j)
 #pragma unroll
       for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
 
@@ -1113,6 +1321,49 @@ __device__ __forceinline__ void s2_wgrad_body(
       __syncthreads();
       load(i + NS - 1);  // into slot i-1
       if constexpr (ACT) act_own(own, i + 1);
+      if constexpr (ST == 2) {
+        const int ti = f0 + i;
+        const T* slot = ring + (i % NS) * stage;
+        const bool odd = i & 1;
+        if (!odd) {  // the ring takes g frame t0 + i/2 (zero past t1)
+          const bool gin = live && tl.t0 + i / 2 < tl.t1;
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            gr[0][r][0] = gr[1][r][0];
+            gr[0][r][1] = gr[1][r][1];
+            const float2 v = gin ? load_pair(slot + xstage + r * growlen +
+                                             atE)
+                                 : make_float2(0.f, 0.f);
+            gr[1][r][0] = v.x;
+            gr[1][r][1] = v.y;
+          }
+        }
+        if (ti >= 0 && ti < Tn && live) {  // frames outside the clip add
+          // tap dt = 2 - j: dt 2 with gr[0], dt 1 and 0 with gr[1] (nothing)
+          auto fma = [&](int j, int r, int dy, int dx, float2 v) {
+            const int tap = ((2 - j) * 3 + dy) * 3 + dx, q = j == 0 ? 0 : 1;
+            acc[tap][0] = fmaf(v.x, gr[q][r][0], acc[tap][0]);
+            acc[tap][1] = fmaf(v.y, gr[q][r][1], acc[tap][1]);
+          };
+          const unsigned slots = wgrad_slots_t2(i, nf);
+          // j is a constant once s2_frame is unrolled
+          if (nr == R && slots == (odd ? 2u : 5u)) {
+            if (odd)
+              s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
+                             [&](int j, int r, int dy, int dx, float2 v) {
+                               if (j == 1) fma(j, r, dy, dx, v);
+                             });
+            else
+              s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
+                             [&](int j, int r, int dy, int dx, float2 v) {
+                               if (j != 1) fma(j, r, dy, dx, v);
+                             });
+          } else {
+            s2_frame_masked<T, R, true>(slot, rowlen, atE, atO, PG2, fma,
+                                        slots, nr);
+          }
+        }
+      } else {  // ST == 1
       const int ti = f0 + i, tg = ti + 1;
       const T* slot = ring + (i % NS) * stage;
       const bool gin = live && tg >= tl.t0 && tg < tl.t1;
@@ -1140,6 +1391,7 @@ __device__ __forceinline__ void s2_wgrad_body(
           s2_frame_masked<T, R, !ACT>(slot, rowlen, atE, atO, PG2, fma,
                                       slots, nr);
       }
+      }  // ST == 1
     }
     cp_wait<0>();
     __syncthreads();  // the next item zeroes and refills every slot
@@ -1155,6 +1407,17 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       int Wo, int C, Plan pl, int n_items, int ipb) {
   s2_wgrad_body<T, R, false>(x, g, nullptr, nullptr, part, Tn, H, W, Ho, Wo,
                              C, pl, n_items, ipb);
+}
+
+// dw_conv_wgrad_t2: K10 plain's body at stride (2,2,2); the plan is over
+// g's frames, rows and columns
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      float* __restrict__ part, int Tn, int H, int W, int Ho,
+                      int Wo, int C, Plan pl, int n_items, int ipb) {
+  s2_wgrad_body<T, R, false, 2>(x, g, nullptr, nullptr, part, Tn, H, W, Ho,
+                                Wo, C, pl, n_items, ipb);
 }
 
 template <typename T, int R>
@@ -1349,8 +1612,9 @@ size_t fwd_smem(int R, int WB, int PG, bool act = false) {
          xstage_elems<T>(R, WB, PG);
 }
 template <typename T>
-size_t dx_smem(int R, int WB, int PG) {
-  return sizeof(T) * GSTAGE * dxstage_elems<T>(R, WB, PG);
+size_t dx_smem(int R, int WB, int PG, int st = 1) {
+  return sizeof(T) * (st == 1 ? GSTAGE : GSTAGE_T2) *
+         dxstage_elems<T>(R, WB, PG);
 }
 // the act dx: the g ring, then the x ring; reused for the column sums
 template <typename T>
@@ -1415,6 +1679,34 @@ decltype(&plain_s2_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
   }
   return nullptr;
 }
+// ... at stride (2,2,2)
+template <typename T>
+decltype(&plain_t2_fwd_kernel<T, RMAX>) t2_fwd_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_t2_fwd_kernel<T, 2>;
+    case 3: return plain_t2_fwd_kernel<T, 3>;
+    case 4: return plain_t2_fwd_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&plain_t2_dx_kernel<T, RMAX>) t2_dx_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_t2_dx_kernel<T, 2>;
+    case 3: return plain_t2_dx_kernel<T, 3>;
+    case 4: return plain_t2_dx_kernel<T, 4>;
+  }
+  return nullptr;
+}
+template <typename T>
+decltype(&plain_t2_wgrad_kernel<T, RMAX>) t2_wgrad_kernel_of(int R) {
+  switch (R) {
+    case 2: return plain_t2_wgrad_kernel<T, 2>;
+    case 3: return plain_t2_wgrad_kernel<T, 3>;
+    case 4: return plain_t2_wgrad_kernel<T, 4>;
+  }
+  return nullptr;
+}
 template <typename T>
 decltype(&act_s2_wgrad_kernel<T, RMAX>) act_wgrad_kernel_of(int R) {
   switch (R) {
@@ -1454,18 +1746,22 @@ decltype(&mm_s2_wgrad_kernel<T, RMAX>) mm_wgrad_kernel_of(int R) {
 }
 
 // The forward (dx: false) over y, or the dx (true) over g, of x (dx: dx)
-// (B, T, H, W, C): one block per tile.
-template <typename T, bool DX>
+// (B, T, H, W, C) at stride (ST, 2, 2): one block per tile.
+template <typename T, bool DX, int ST = 1>
 int launch_tiles(const void* in, const void* k, void* out, int B, int Tn,
                  int H, int W, int C, int R, int WB, int PG, int TT,
                  cudaStream_t st) {
-  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  Plan p;  // over the output's (the forward) or g's (the dx) rows, columns
-  if (!make_plan<T>(p, (uintptr_t)in, B, Tn, Ho, Wo, C, R, WB, PG, TT))
+  const int To = (Tn - 1) / ST + 1;
+  Plan p;  // over the output's (the forward) or g's (the dx) frames, rows
+  if (!make_plan<T>(p, (uintptr_t)in, B, To, Ho, Wo, C, R, WB, PG, TT))
     return (int)cudaErrorInvalidValue;
-  const auto kern = DX ? dx_kernel_of<T>(R) : fwd_kernel_of<T>(R);
-  const size_t smem = DX ? dx_smem<T>(R, WB, PG) : fwd_smem<T>(R, WB, PG);
+  const auto kern =
+      ST == 1 ? (DX ? dx_kernel_of<T>(R) : fwd_kernel_of<T>(R))
+              : (DX ? t2_dx_kernel_of<T>(R) : t2_fwd_kernel_of<T>(R));
+  const size_t smem =
+      DX ? dx_smem<T>(R, WB, PG, ST) : fwd_smem<T>(R, WB, PG);
   if (int e = set_smem(kern, smem)) return e;
   const long long blocks =
       (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
@@ -1584,16 +1880,17 @@ int launch_mm_dx(const void* g, const void* x, const void* w1, const void* k,
 }
 
 // The weight gradient of x (plain) or of relu(x*sc + bi) (ACT; sc and bi
-// unused otherwise).
-template <typename T, bool ACT>
+// unused otherwise), at stride (ST, 2, 2) (ST = 2: plain only).
+template <typename T, bool ACT, int ST = 1>
 int launch_wgrad(const void* x, const void* g, const void* sc,
                  const void* bi, void* part, int B, int Tn, int H, int W,
                  int C, int R, int WB, int PG, int TT, int ipb, int rows,
                  cudaStream_t st) {
-  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  Plan p;  // over the output's rows and columns
-  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, Tn, Ho, Wo, C, R, WB,
+  const int To = (Tn - 1) / ST + 1;
+  Plan p;  // over the output's frames, rows and columns
+  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, To, Ho, Wo, C, R, WB,
                     PG, TT) ||
       ipb < 1)
     return (int)cudaErrorInvalidValue;
@@ -1613,7 +1910,8 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
         static_cast<const float*>(sc), static_cast<const float*>(bi),
         static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
   } else {
-    const auto kern = wgrad_kernel_of<T>(R);
+    const auto kern =
+        ST == 1 ? wgrad_kernel_of<T>(R) : t2_wgrad_kernel_of<T>(R);
     if (int e = set_smem(kern, smem)) return e;
     kern<<<grid, threads_of(p), smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(g),
@@ -1679,6 +1977,15 @@ int occupancy(int kind, int R, int WB, int PG) {
     case 5:
       return blocks_per_sm(act_fwd_kernel_of<T>(R),
                            fwd_smem<T>(R, WB, PG, true), threads);
+    case 6:
+      return blocks_per_sm(t2_fwd_kernel_of<T>(R), fwd_smem<T>(R, WB, PG),
+                           threads);
+    case 7:
+      return blocks_per_sm(t2_dx_kernel_of<T>(R), dx_smem<T>(R, WB, PG, 2),
+                           threads);
+    case 8:
+      return blocks_per_sm(t2_wgrad_kernel_of<T>(R),
+                           wgrad_smem<T>(R, WB, PG, false), threads);
   }
   return -1;
 }
@@ -1861,6 +2168,46 @@ extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
                                 R, WB, PG, TT, ipb, rows, st);
 }
 
+// The plain kernels at stride (2,2,2) (dw_conv_t2, dw_conv_dx_t2,
+// dw_conv_wgrad_t2): x and dx are (B,T,H,W,C), y and g
+// (B,(T-1)/2+1,(H-1)/2+1,(W-1)/2+1,C); the split (R, WB, PG, TT) is over
+// y's or g's frames, rows and columns (ops/dw_conv.py: plan_t2_fwd,
+// plan_t2_dx, plan_t2); part is (rows, 27, C) f32 as dw_conv_wgrad_s2's.
+extern "C" int dw_conv_t2(const void* x, const void* k, void* y, int B, int T,
+                          int H, int W, int C, int R, int WB, int PG, int TT,
+                          int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_tiles<__nv_bfloat16, false, 2>(x, k, y, B, T, H, W, C, R,
+                                                 WB, PG, TT, st);
+  return launch_tiles<float, false, 2>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
+                                       st);
+}
+
+extern "C" int dw_conv_dx_t2(const void* g, const void* k, void* dx, int B,
+                             int T, int H, int W, int C, int R, int WB,
+                             int PG, int TT, int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_tiles<__nv_bfloat16, true, 2>(g, k, dx, B, T, H, W, C, R,
+                                                WB, PG, TT, st);
+  return launch_tiles<float, true, 2>(g, k, dx, B, T, H, W, C, R, WB, PG, TT,
+                                      st);
+}
+
+extern "C" int dw_conv_wgrad_t2(const void* x, const void* g, void* part,
+                                int B, int T, int H, int W, int C, int R,
+                                int WB, int PG, int TT, int ipb, int rows,
+                                int is_bf16, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch_wgrad<__nv_bfloat16, false, 2>(x, g, nullptr, nullptr,
+                                                 part, B, T, H, W, C, R, WB,
+                                                 PG, TT, ipb, rows, st);
+  return launch_wgrad<float, false, 2>(x, g, nullptr, nullptr, part, B, T, H,
+                                       W, C, R, WB, PG, TT, ipb, rows, st);
+}
+
 // Blocks per SM mm_s2_fwd_kernel reaches at a plan (R, WB, PG), C_in and
 // x's width W, with its threads and shared memory, or -1 where it does not
 // take them.
@@ -1888,7 +2235,7 @@ extern "C" int dw_mm_wgrad_s2_occupancy(int R, int WB, int PG, int Cin, int W,
 // shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or -1
 // where it does not take the plan; kind 0 is the forward, 1 the dx, 2 the
 // weight gradient, 3 the act dx, 4 the act weight gradient, 5 the act
-// forward.
+// forward, 6-8 the forward, dx and weight gradient at stride (2,2,2).
 extern "C" int dw_plain_s2_occupancy(int kind, int R, int WB, int PG,
                                      int is_bf16) {
   return is_bf16 ? occupancy<__nv_bfloat16>(kind, R, WB, PG)

@@ -5,7 +5,7 @@ the joint pipeline, and model surgery."""
 from .coarse import CoarseNet, GridPool, MixingLayer, RewightLayer
 from .fine import FineNet
 from .layers import (SqueezeExcite, SubBatchNorm, aggregate_sub_bn_stats,
-                     init_parameters, round_width, swish)
+                     frozen_stats, init_parameters, round_width, swish)
 from .pipeline import CoarseFinePipeline
 from .surgery import replace_logits, set_bn_splits, update_bn_splits
 from .x3d import (Bottleneck, X3DHead, X3DStage, X3DStem, get_blocks,
@@ -25,6 +25,7 @@ __all__ = [
     "X3DStage",
     "X3DStem",
     "aggregate_sub_bn_stats",
+    "frozen_stats",
     "get_blocks",
     "get_inplanes",
     "init_parameters",

@@ -2,7 +2,11 @@
 ``coarse_fine_networks_tpu/models/fine.py``): the global tower the serving
 pipeline extracts feature banks with, and the per-frame (``task='loc'``) or
 per-clip (``task='class'``) logits and pooled features that fine-stream
-training and ``extract_feat`` use.  ``t_downsample`` is not ported.
+training and ``extract_feat`` use.  ``t_downsample`` strides every stage's
+first bottleneck in time too (at (2, 2, 2), the hand-written
+``dw_conv_t2`` and its backward), so the stages run at T/2 … T/16;
+``remat`` recomputes each bottleneck in the backward
+(:class:`.x3d.X3DStage`).
 """
 
 from __future__ import annotations
@@ -35,12 +39,15 @@ class FineNet(X3DTrunk):
       ``fc2`` in the compute dtype.
 
     ``fc1``/``fc2`` exist only when the model returns logits, so a global
-    tower's ``state_dict`` is the JAX pipeline's fine tower's."""
+    tower's ``state_dict`` is the JAX pipeline's fine tower's.  With
+    ``t_downsample`` the banks and the ``loc`` logits are at the stages'
+    frames (T/2 … T/16, the head's T/16)."""
 
     def __init__(self, version: str = "M", n_classes: int = 157,
                  task: str = "loc", dropout_rate: float = 0.5,
-                 extract_feat: bool = False, global_tower: bool = True):
-        super().__init__(version)
+                 extract_feat: bool = False, global_tower: bool = True,
+                 t_downsample: bool = False, remat: bool = False):
+        super().__init__(version, t_downsample=t_downsample, remat=remat)
         if task not in ("loc", "class"):
             raise ValueError(f"task must be 'loc' or 'class', got {task!r}")
         self.task = task

@@ -8,7 +8,9 @@ reference ``state_dict`` loads as it is.
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 from torch import nn
@@ -16,6 +18,29 @@ from torch import nn
 from ..ops.dw_mm_bn_train import mm_bn_train
 
 BN_MOMENTUM = 0.1  # the running-statistics update rate of SubBatchNorm
+
+# per thread: whether SubBatchNorm's statistics are frozen (frozen_stats)
+_FROZEN = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_stats():
+    """Inside, on this thread, no :class:`SubBatchNorm` updates its running
+    statistics (:meth:`forward`, :meth:`train_scale_bias` and
+    :meth:`train_mm_entry` alike): a forward recomputed for the backward
+    (``remat``, :func:`.x3d.remat_block`) must not move them a second
+    time."""
+    before = getattr(_FROZEN, "on", False)
+    _FROZEN.on = True
+    try:
+        yield
+    finally:
+        _FROZEN.on = before
+
+
+def stats_frozen() -> bool:
+    """Whether :func:`frozen_stats` holds on this thread."""
+    return getattr(_FROZEN, "on", False)
 
 
 def round_width(width: int, multiplier: float = 0.0625, min_width: int = 8,
@@ -130,7 +155,9 @@ class SubBatchNorm(nn.Module):
                             count: int) -> None:
         """The momentum update of ``split_bn`` from per-split batch
         statistics over ``count`` elements each, with the unbiased
-        variance."""
+        variance; none under :func:`frozen_stats`."""
+        if stats_frozen():
+            return
         with torch.no_grad():
             m = BN_MOMENTUM
             unbiased = var * (count / max(count - 1, 1))

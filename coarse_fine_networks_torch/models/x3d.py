@@ -22,7 +22,20 @@ a hand-written kernel, by the routes of the JAX package's
   materialised;
 * training with split batch norm (``bn1.num_splits > 1``, the multigrid
   long cycle): conv1 as a product → bn1 per split → relu in PyTorch, then
-  :func:`..ops.dw_conv.dw_conv3d_train` (conv2, with a kernel backward).
+  :func:`..ops.dw_conv.dw_conv3d_train` (conv2, with a kernel backward);
+* ``t_downsample`` (the fine stream's option: every stage's block 0
+  strides T too, at (2, 2, 2)): that block takes the split route's
+  composite in every mode, eval and training at any split count, with
+  conv2 at (2, 2, 2) (``dw_conv_t2`` and its backward), as the JAX package
+  runs ``t_downsample`` on its plain layout; its downsample reads
+  ``x[:, ::2, ::2, ::2]``.
+
+With ``remat`` each bottleneck of a stage runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward instead of kept, as the JAX package wraps ``Bottleneck`` in
+``nn.remat``.  The recomputation runs under
+:func:`.layers.frozen_stats`, so every batch norm's statistics move once a
+step, as the JAX package's functional state does.
 
 The stem's depthwise temporal ``conv1_t`` (5×1×1) runs through
 :func:`..ops.dw_stencil.depthwise_conv3d` in eval and in training (the
@@ -34,14 +47,15 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.dw_act import dw_bnrelu_conv3d_train
 from ..ops.dw_conv import dw_conv3d_train
 from ..ops.dw_mm_act import dw_mm_bnrelu_conv3d_train
 from ..ops.dw_mm_bn_train import resolve_mm_train
 from ..ops.dw_stencil import depthwise_conv3d
-from .layers import (SubBatchNorm, conv3d, pointwise, round_width,
-                     squeeze_excite, swish)
+from .layers import (SubBatchNorm, conv3d, frozen_stats, pointwise,
+                     round_width, squeeze_excite, swish)
 
 
 def get_inplanes(version: str) -> list[tuple[int, int]]:
@@ -74,17 +88,20 @@ class Bottleneck(nn.Module):
     (``bn1.num_splits > 1``) each split has its own statistics, so training
     applies bn1 and the relu in PyTorch (the result in x's dtype, as the JAX
     package rounds it) and only conv2 runs as a kernel, with a kernel
-    backward."""
+    backward.  With ``t_downsample`` a strided block strides T too, (2, 2,
+    2), and takes that last route in every mode."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  stride: int = 1, use_se: bool = False,
-                 has_downsample: bool = False):
+                 has_downsample: bool = False, t_downsample: bool = False):
         super().__init__()
         s = stride
         self.stride = stride
+        # the temporal stride: the fine stream's t_downsample strides T as H
+        self.t_stride = st = s if t_downsample else 1
         self.conv1 = nn.Conv3d(in_planes, mid_planes, 1, bias=False)
         self.bn1 = SubBatchNorm(mid_planes)
-        self.conv2 = nn.Conv3d(mid_planes, mid_planes, 3, stride=(1, s, s),
+        self.conv2 = nn.Conv3d(mid_planes, mid_planes, 3, stride=(st, s, s),
                                padding=1, groups=mid_planes, bias=False)
         self.bn2 = SubBatchNorm(mid_planes)
         self.use_se = use_se
@@ -97,7 +114,7 @@ class Bottleneck(nn.Module):
         self.downsample = None
         if has_downsample:
             self.downsample = nn.Sequential(
-                nn.Conv3d(in_planes, out_planes, 1, stride=(1, s, s),
+                nn.Conv3d(in_planes, out_planes, 1, stride=(st, s, s),
                           bias=False),
                 SubBatchNorm(out_planes))
 
@@ -112,7 +129,11 @@ class Bottleneck(nn.Module):
         w_dw = (self.conv2.weight.reshape(c_mid, 27).t()
                 .reshape(3, 3, 3, c_mid).to(x.dtype).contiguous())
         one_split = self.bn1.num_splits == 1
-        if not self.training:
+        if self.t_stride > 1:
+            out = torch.relu(self.bn1(pointwise(x, self.conv1.weight)))
+            out = dw_conv3d_train(out, w_dw, (self.t_stride, self.stride,
+                                              self.stride))
+        elif not self.training:
             sc, bi = self.bn1.scale_bias()
             out = dw_mm_bnrelu_conv3d_train(x, self._w1(x.dtype), w_dw, sc,
                                             bi, self.stride)
@@ -133,23 +154,54 @@ class Bottleneck(nn.Module):
         out = self.bn3(pointwise(out, self.conv3.weight))
         residual = x
         if self.downsample is not None:
-            s = self.stride
-            residual = pointwise(x[:, :, ::s, ::s], self.downsample[0].weight)
+            s, st = self.stride, self.t_stride
+            residual = pointwise(x[:, ::st, ::s, ::s],
+                                 self.downsample[0].weight)
             residual = self.downsample[1](residual)
         return torch.relu(out + residual)
 
 
+def remat_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``block(x)`` under ``torch.utils.checkpoint`` (non-reentrant): the
+    activations inside are recomputed in the backward instead of kept.  The
+    recomputation runs under :func:`.layers.frozen_stats`, so the block's
+    batch norms update their statistics only in the first run.  No RNG
+    state is kept: a bottleneck draws no random numbers."""
+    runs = []
+
+    def run(inp):
+        runs.append(None)
+        if len(runs) == 1:
+            return block(inp)
+        with frozen_stats():
+            return block(inp)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 class X3DStage(nn.Sequential):
-    """A residual stage: block 0 strides and carries the downsample; SE on
-    even-indexed blocks.  Blocks are named ``0, 1, ...`` (``layerN.M``)."""
+    """A residual stage: block 0 strides (``t_downsample``: T too) and
+    carries the downsample; SE on even-indexed blocks.  Blocks are named
+    ``0, 1, ...`` (``layerN.M``).  With ``remat``, each block runs through
+    :func:`remat_block` whenever gradients are taken (as ``nn.remat``
+    recomputes under any differentiation, in eval mode too)."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
-                 num_blocks: int, stride: int = 2):
+                 num_blocks: int, stride: int = 2, t_downsample: bool = False,
+                 remat: bool = False):
         super().__init__(*[
             Bottleneck(in_planes if i == 0 else out_planes, mid_planes,
                        out_planes, stride=stride if i == 0 else 1,
-                       use_se=(i % 2 == 0), has_downsample=(i == 0))
+                       use_se=(i % 2 == 0), has_downsample=(i == 0),
+                       t_downsample=t_downsample)
             for i in range(num_blocks)])
+        self.remat = remat
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        rematted = self.remat and torch.is_grad_enabled()
+        for block in self:
+            x = remat_block(block, x) if rematted else block(x)
+        return x
 
 
 class X3DStem(nn.Module):
@@ -198,9 +250,11 @@ class X3DTrunk(nn.Module):
     """Stem, four stages and head with the reference's top-level names
     (``conv1_s``, ``conv1_t``, ``bn1``, ``layer1``–``layer4``, ``conv5``,
     ``bn5``), shared by :class:`..fine.FineNet` and
-    :class:`..coarse.CoarseNet`."""
+    :class:`..coarse.CoarseNet`; ``t_downsample`` and ``remat`` go to every
+    stage (:class:`X3DStage`)."""
 
-    def __init__(self, version: str = "M"):
+    def __init__(self, version: str = "M", t_downsample: bool = False,
+                 remat: bool = False):
         super().__init__()
         planes, blocks = get_inplanes(version), get_blocks(version)
         stem = X3DStem(planes[0][1])
@@ -209,7 +263,8 @@ class X3DTrunk(nn.Module):
         in_planes = planes[0][1]
         for i, ((mid, out), n) in enumerate(zip(planes, blocks)):
             self.add_module(f"layer{i + 1}",
-                            X3DStage(in_planes, mid, out, n, stride=2))
+                            X3DStage(in_planes, mid, out, n, stride=2,
+                                     t_downsample=t_downsample, remat=remat))
             in_planes = out
         head = X3DHead(planes[3][1], planes[3][0])
         self.conv5, self.bn5 = head.conv5, head.bn5

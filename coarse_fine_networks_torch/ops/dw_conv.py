@@ -43,7 +43,18 @@ halo and writes its output once:
 * ``dw_conv_wgrad_s2`` (K10 plain): :func:`dw_conv_wgrad` at stride 2, in
   the same source (the stride-1 weight gradient's staging and threads over
   the output's row strips, the forward's de-interleaved rows), with the
-  work split of :func:`plan_s2`.
+  work split of :func:`plan_s2`;
+* ``dw_conv_t2``, ``dw_conv_dx_t2``, ``dw_conv_wgrad_t2``: the same three
+  at stride (2, 2, 2), :class:`..models.fine.FineNet`'s ``t_downsample``
+  (replacing no TPU kernel: the JAX package runs that conv in XLA,
+  ``_lax_conv``, ``ops/pallas/dw_conv.py:287``).  K4 plain's, K8's and K10
+  plain's bodies with the temporal stride a template argument, in the same
+  source: the forward's register ring holds the two output frames an input
+  frame feeds, the dx gives each g frame's two dx frames (the even one
+  through tap dt = 1 only) from a 4-frame g ring, and the weight gradient
+  pairs each x frame with the one or two g frames it meets, by the rule of
+  :func:`plan_t2`'s items; work splits :func:`plan_t2_fwd`,
+  :func:`plan_t2_dx` and :func:`plan_t2` over the output's (g's) frames.
 
 The two plain sources also hold the act modes of their kernels, entries
 of :mod:`.dw_act` bound here: ``dw_act_s1`` (K1 act) and
@@ -72,7 +83,7 @@ row-strip kernels: :func:`plan_mm_s1` (K1 ``mm``, :mod:`.dw_mm_act`) and
 
 Each wrapper runs its ``*_plain`` version on a CPU tensor and launches its
 kernel on a CUDA tensor, or raises.  All tensors are channels-last
-``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``.
+``(B, T, H, W, C)``; stride 2 means ``(1, 2, 2)``, and ``T2 = (2, 2, 2)``.
 """
 
 from __future__ import annotations
@@ -85,7 +96,7 @@ import torch
 from ._build import CudaLibrary, I, P
 from .dw_act import _check
 from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
-from .dw_mm_act import _launch, _out_hw, stencil_f32, wgrad_f32
+from .dw_mm_act import _launch, _out_hw, stencil_f32, strides3, wgrad_f32
 
 # The split route's kernels: at stride 1, and at stride (1, 2, 2); each
 # source also holds the act modes of its kernels, entries of :mod:`.dw_act`
@@ -117,6 +128,9 @@ LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_mm_dx_mask_s2_occupancy": [I] * 7,
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 13 + [P],
     "dw_mm_wgrad_s2_occupancy": [I] * 6,
+    "dw_conv_t2": [P] * 3 + [I] * 10 + [P],
+    "dw_conv_dx_t2": [P] * 3 + [I] * 10 + [P],
+    "dw_conv_wgrad_t2": [P] * 3 + [I] * 12 + [P],
 })
 # every source of the bottleneck's depthwise kernels: the entry's (eval
 # and train) and the split route's
@@ -125,7 +139,10 @@ LIBRARIES = ENTRY_LIBRARIES + (LIBRARY, LIBRARY_S2)
 # Kernel launches since the last reset, by kernel name.  Incremented only
 # where a kernel is launched (never by a plain version).
 LAUNCHES = {"dw_conv_s1": 0, "dw_conv_s2": 0, "dw_conv_dx_s2": 0,
-            "dw_conv_wgrad_s1": 0, "dw_conv_wgrad_s2": 0}
+            "dw_conv_wgrad_s1": 0, "dw_conv_wgrad_s2": 0, "dw_conv_t2": 0,
+            "dw_conv_dx_t2": 0, "dw_conv_wgrad_t2": 0}
+# the stride (2, 2, 2) of FineNet's t_downsample
+T2 = (2, 2, 2)
 
 
 def reset_launches() -> None:
@@ -359,6 +376,58 @@ def plan_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     return _persistent(_split_frames(
         _strips(b, t, ho, wo, c, lambda p, esz: smem_s2(p, esz, True)),
         WG_BLOCKS))
+
+
+# ---- the stride-(2, 2, 2) kernels' work splits -------------------------------
+
+GSTAGE_T2 = 4  # g frames in dw_conv_dx_t2's ring
+
+
+def _t2(t: int) -> int:
+    """Output frames of ``t`` at temporal stride 2."""
+    return (t - 1) // 2 + 1
+
+
+@lru_cache(maxsize=None)
+def plan_t2_fwd(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_t2`` (K4 plain's body at stride (2, 2,
+    2)) for x ``(B, T, H, W, C)``: :func:`plan_s2_fwd`'s over the output's
+    ``(B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` (its ``t``, ``tt`` and tiles are output
+    frames).  A block stages the 2TT+1 input frames its outputs read, three
+    at a time."""
+    return plan_s2_fwd(b, _t2(t), h, w, c)
+
+
+def smem_t2_dx(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_dx_t2``, in bytes:
+    :func:`smem_s2_dx`'s g frames, ``GSTAGE_T2`` deep."""
+    return GSTAGE_T2 * _pad16((plan.r + 1) * (plan.wb + 1) * 2 * plan.pg * esz)
+
+
+@lru_cache(maxsize=None)
+def plan_t2_dx(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_dx_t2`` (K8's body at stride (2, 2, 2))
+    for dx ``(B, T, H, W, C)``: :func:`plan_s2_dx`'s rule over g ``(B,
+    ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` with the shared memory of :func:`smem_t2_dx`
+    (its ``t``, ``tt`` and tiles are g's frames; g frame j writes dx frames
+    2j and 2j+1)."""
+    ho, wo = _out_hw(h, w, 2)
+    return _split_frames(_strips(b, _t2(t), ho, wo, c, smem_t2_dx, DX_PG),
+                         FWD_BLOCKS)
+
+
+@lru_cache(maxsize=None)
+def plan_t2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
+    """The work split of ``dw_conv_wgrad_t2`` (K10 plain's body at stride
+    (2, 2, 2)) for x ``(B, T, H, W, C)``: :func:`plan_s2`'s for x of T
+    frames with its segments halved onto the ``⌈T/2⌉`` output frames (``tt``
+    → ⌈tt/2⌉) and its blocks' items kept (``ipb``).  Where ``tt`` is even, or
+    one segment spans the clip, each item's x frames and output rows are
+    those of :func:`plan_s2`'s item for g put at the even frames of a zero
+    tensor of T frames, so the two kernels' partial rows agree."""
+    p = plan_s2(b, t, h, w, c)
+    p = p._replace(t=_t2(t), tt=_cdiv(p.tt, 2))
+    return p._replace(rows=_cdiv(p.items, p.ipb))
 
 
 def _pad16(n: int) -> int:
@@ -692,39 +761,53 @@ def plan_mm_dx_s2(b: int, t: int, h: int, w: int, c_in: int, c_mid: int,
 
 # ---- forward: the plain mode of K1 (stride 1) and K4 (stride 2) -------------
 
+def _stride(stride):
+    """``stride`` as the kernels take it: 1 or 2 (``(1, s, s)``), or
+    ``T2``; raises on any other."""
+    s3 = strides3(stride)
+    if s3 == T2:
+        return T2
+    if s3 in ((1, 1, 1), (1, 2, 2)):
+        return s3[1]
+    raise ValueError(f"stride must be 1, 2 (i.e. (1,2,2)) or (2,2,2), got "
+                     f"{stride}")
+
+
 def dw_conv3d_plain(x: torch.Tensor, w_dw: torch.Tensor,
-                    stride: int) -> torch.Tensor:
+                    stride) -> torch.Tensor:
     """The 27-tap depthwise sum of x, zero-padded by one on T, H and W, in
-    f32 at stride ``(1, s, s)``, written in x's dtype."""
+    f32 at stride ``(1, s, s)`` (or ``T2``), written in x's dtype."""
     return stencil_f32(x, w_dw, stride).to(x.dtype)
 
 
-def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor,
-              stride: int) -> torch.Tensor:
-    """Depthwise 3³ conv at stride ``(1, s, s)`` with SAME zero padding.
+def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor, stride) -> torch.Tensor:
+    """Depthwise 3³ conv at stride ``(1, s, s)`` or ``T2`` with SAME zero
+    padding.
 
     Args:
       x: ``(B, T, H, W, C)`` float32 or bfloat16, contiguous.
       w_dw: ``(3, 3, 3, C)`` depthwise taps in x's dtype.
-      stride: 1, or 2 for stride (1, 2, 2).
+      stride: 1, or 2 for stride (1, 2, 2), or ``T2`` = (2, 2, 2).
 
-    Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` in x's dtype.  A CPU tensor takes
-    :func:`dw_conv3d_plain`; a CUDA tensor launches ``dw_conv_s1`` or
-    ``dw_conv_s2``, or raises."""
-    _check(x, w_dw, None, None, stride)
+    Returns ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` (``T2``: ``(B, ⌈T/2⌉, ...)``) in x's
+    dtype.  A CPU tensor takes :func:`dw_conv3d_plain`; a CUDA tensor
+    launches ``dw_conv_s1``, ``dw_conv_s2`` or ``dw_conv_t2``, or raises."""
+    stride = _stride(stride)
+    _check(x, w_dw, None, None, 2 if stride == T2 else stride)
     if x.device.type == "cpu":
         return dw_conv3d_plain(x, w_dw, stride)
     b, t, h, w, c = x.shape
-    y = torch.empty((b, t) + _out_hw(h, w, stride) + (c,), dtype=x.dtype,
-                    device=x.device)
+    to = _t2(t) if stride == T2 else t
+    y = torch.empty((b, to) + _out_hw(h, w, 2 if stride == T2 else stride)
+                    + (c,), dtype=x.dtype, device=x.device)
     if not y.numel():
         return y
-    lib, plan = (LIBRARY, plan_s1) if stride == 1 else (LIBRARY_S2,
-                                                         plan_s2_fwd)
+    lib, plan, name = {1: (LIBRARY, plan_s1, "dw_conv_s1"),
+                       2: (LIBRARY_S2, plan_s2_fwd, "dw_conv_s2"),
+                       T2: (LIBRARY_S2, plan_t2_fwd, "dw_conv_t2")}[stride]
     p = plan(b, t, h, w, c)
-    _launch(LAUNCHES, lib, f"dw_conv_s{stride}", x, x.data_ptr(),
-            w_dw.data_ptr(), y.data_ptr(), b, t, h, w, c, p.r, p.wb, p.pg,
-            p.tt)
+    _launch(LAUNCHES, lib, name, x, x.data_ptr(), w_dw.data_ptr(),
+            y.data_ptr(), b, t, h, w, c, p.r, p.wb, p.pg, p.tt)
     return y
 
 
@@ -765,27 +848,83 @@ def dw_conv_dx_s2(g: torch.Tensor, w_dw: torch.Tensor,
     return dx
 
 
+# ---- dx at stride (2, 2, 2) ----------------------------------------------------------
+
+def dw_conv_dx_t2_plain(g: torch.Tensor, w_dw: torch.Tensor,
+                        thw: tuple[int, int, int]) -> torch.Tensor:
+    """dx of :func:`dw_conv3d` at ``T2``: the correlation of g placed at the
+    even frames, rows and columns of a zero ``(B, T, H, W, C)`` tensor (``thw
+    = (T, H, W)``) with the flipped taps, in f32, written in g's dtype."""
+    b, _, _, _, c = g.shape
+    up = torch.zeros((b,) + tuple(thw) + (c,), dtype=torch.float32,
+                     device=g.device)
+    up[:, ::2, ::2, ::2] = g.float()
+    return stencil_f32(up, torch.flip(w_dw, (0, 1, 2)), 1).to(g.dtype)
+
+
+def dw_conv_dx_t2(g: torch.Tensor, w_dw: torch.Tensor,
+                  thw: tuple[int, int, int]) -> torch.Tensor:
+    """dx of :func:`dw_conv3d` at ``T2``: ``g (B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)``
+    → ``(B, T, H, W, C)`` with ``thw = (T, H, W)`` (see
+    :func:`dw_conv_dx_t2_plain`).  A CPU tensor takes the plain version; a
+    CUDA tensor launches ``dw_conv_dx_t2``, or raises."""
+    _check(g, w_dw, None, None, 1)
+    t, h, w = thw
+    if tuple(g.shape[1:4]) != (_t2(t),) + _out_hw(h, w, 2):
+        raise ValueError(f"g's T, H, W {tuple(g.shape[1:4])} are not those "
+                         f"of stride (2, 2, 2) from {tuple(thw)}")
+    if g.device.type == "cpu":
+        return dw_conv_dx_t2_plain(g, w_dw, thw)
+    shape = (g.shape[0], t, h, w, g.shape[-1])
+    dx = torch.empty(shape, dtype=g.dtype, device=g.device)
+    if dx.numel():
+        p = plan_t2_dx(*shape)
+        _launch(LAUNCHES, LIBRARY_S2, "dw_conv_dx_t2", g, g.data_ptr(),
+                w_dw.data_ptr(), dx.data_ptr(), *shape, p.r, p.wb, p.pg, p.tt)
+    return dx
+
+
 # ---- wgrad: the plain mode of K6 (stride 1) and K10 (stride 2) -------------------
 
 def dw_conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
-                        stride: int) -> torch.Tensor:
-    """``dk[tap, c] = Σ_pos x_pad[s·pos + tap]·g[pos]`` in f32:
-    ``(27, C)``."""
+                        stride) -> torch.Tensor:
+    """``dk[tap, c] = Σ_pos x_pad[s·pos + tap]·g[pos]`` in f32 (``s`` the
+    stride triple): ``(27, C)``."""
     return wgrad_f32(x, g, stride)
 
 
 def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
-                  stride: int) -> torch.Tensor:
+                  stride) -> torch.Tensor:
     """Weight gradient of :func:`dw_conv3d` (see :func:`dw_conv_wgrad_plain`),
     ``(27, C)`` f32.  A CPU tensor takes the plain version; a CUDA tensor
-    launches ``dw_conv_wgrad_s1`` or ``dw_conv_wgrad_s2`` (per-block partial
-    sums, added with one ``torch.sum``), or raises."""
-    _check(x, None, None, None, stride, g)
+    launches ``dw_conv_wgrad_s1``, ``dw_conv_wgrad_s2`` or
+    ``dw_conv_wgrad_t2`` (per-block partial sums, added with one
+    ``torch.sum``), or raises."""
+    stride = _stride(stride)
+    if stride == T2:
+        _check(x, None, None, None, 2)
+        want = (x.shape[0], _t2(x.shape[1])) + _out_hw(
+            *x.shape[2:4], 2) + (x.shape[-1],)
+        if tuple(g.shape) != want or g.dtype != x.dtype:
+            raise ValueError(f"g must be {x.dtype} {want}, got {g.dtype} "
+                             f"{tuple(g.shape)}")
+        _check(g, None, None, None, 1)
+        if g.device != x.device:
+            raise ValueError(f"g is on {g.device}, x on {x.device}")
+    else:
+        _check(x, None, None, None, stride, g)
     if x.device.type == "cpu":
         return dw_conv_wgrad_plain(x, g, stride)
     if not g.numel():
         return torch.zeros((27, x.shape[-1]), device=x.device)
-    if stride == 1:
+    if stride == T2:
+        p = plan_t2(*x.shape)
+        part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
+                           device=x.device)
+        _launch(LAUNCHES, LIBRARY_S2, "dw_conv_wgrad_t2", x, x.data_ptr(),
+                g.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg,
+                p.tt, p.ipb, p.rows)
+    elif stride == 1:
         p = plan_s1(*x.shape)
         part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,
                            device=x.device)
@@ -806,13 +945,16 @@ def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
 
 class DwConv3d(torch.autograd.Function):
     """:func:`dw_conv3d` with the kernels' backward (the JAX package's
-    ``_dw_fold4_bwd`` and ``_dw_s2_bwd``): at stride 1 dx is
-    :func:`dw_conv3d` of g with the flipped taps, at stride 2
-    :func:`dw_conv_dx_s2`; the taps' gradient is :func:`dw_conv_wgrad`,
-    returned in the taps' dtype."""
+    ``_dw_fold4_bwd`` and ``_dw_s2_bwd``; at ``T2`` XLA's transpose of
+    ``_lax_conv``): at stride 1 dx is :func:`dw_conv3d` of g with the flipped
+    taps, at stride 2 :func:`dw_conv_dx_s2`, at ``T2``
+    :func:`dw_conv_dx_t2`; the taps' gradient is :func:`dw_conv_wgrad`,
+    returned in the taps' dtype.  ``stride``: 1, 2 or a triple
+    (:func:`_stride`)."""
 
     @staticmethod
     def forward(ctx, x, w_dw, stride):
+        stride = _stride(stride)
         ctx.stride = stride
         ctx.save_for_backward(x, w_dw)
         return dw_conv3d(x, w_dw, stride)
@@ -823,6 +965,8 @@ class DwConv3d(torch.autograd.Function):
         g = g.contiguous()
         if ctx.stride == 1:
             dx = dw_conv3d(g, torch.flip(w_dw, (0, 1, 2)).contiguous(), 1)
+        elif ctx.stride == T2:
+            dx = dw_conv_dx_t2(g, w_dw, x.shape[1:4])
         else:
             dx = dw_conv_dx_s2(g, w_dw, x.shape[2:4])
         dk = dw_conv_wgrad(x, g, ctx.stride)

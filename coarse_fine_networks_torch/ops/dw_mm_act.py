@@ -181,41 +181,51 @@ def _mm_activate(x, w1, sc, bi):
     return torch.relu(_mm_product(x, w1) * sc + bi).to(x.dtype)
 
 
+def strides3(stride) -> tuple[int, int, int]:
+    """A stride as ``(T, H, W)``: an int ``s`` is ``(1, s, s)``."""
+    if isinstance(stride, int):
+        return 1, stride, stride
+    return tuple(int(s) for s in stride)
+
+
 def stencil_f32(a: torch.Tensor, w_dw: torch.Tensor,
-                stride: int) -> torch.Tensor:
+                stride) -> torch.Tensor:
     """The 27-tap depthwise correlation of ``a (B, T, H, W, C)`` with taps
-    ``w_dw (3, 3, 3, C)`` at stride ``(1, stride, stride)``, zero-padded by
-    one on T, H and W, summed in f32: ``(B, T, ⌈H/s⌉, ⌈W/s⌉, C)`` f32."""
+    ``w_dw (3, 3, 3, C)`` at stride ``(1, stride, stride)`` (or the triple
+    ``stride``, :func:`strides3`), zero-padded by one on T, H and W, summed
+    in f32: ``(B, ⌈T/st⌉, ⌈H/s⌉, ⌈W/s⌉, C)`` f32."""
+    st, sh, sw = strides3(stride)
     b, t, h, w, c = a.shape
-    ho, wo = _out_hw(h, w, stride)
+    to, ho, wo = (t - 1) // st + 1, (h - 1) // sh + 1, (w - 1) // sw + 1
     a = F.pad(a.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     wf = w_dw.float()
-    y = torch.zeros((b, t, ho, wo, c), dtype=torch.float32, device=a.device)
+    y = torch.zeros((b, to, ho, wo, c), dtype=torch.float32, device=a.device)
     for dt in range(3):
         for dy in range(3):
             for dx in range(3):
-                y += (a[:, dt:dt + t,
-                        dy:dy + stride * (ho - 1) + 1:stride,
-                        dx:dx + stride * (wo - 1) + 1:stride]
+                y += (a[:, dt:dt + st * (to - 1) + 1:st,
+                        dy:dy + sh * (ho - 1) + 1:sh,
+                        dx:dx + sw * (wo - 1) + 1:sw]
                       * wf[dt, dy, dx])
     return y
 
 
-def wgrad_f32(a: torch.Tensor, g: torch.Tensor, stride: int) -> torch.Tensor:
+def wgrad_f32(a: torch.Tensor, g: torch.Tensor, stride) -> torch.Tensor:
     """The weight gradient of :func:`stencil_f32`: ``dk[tap, c] =
     Σ_pos a_pad[s·pos + tap]·g[pos]`` over ``a (B, T, H, W, C)`` zero-padded
     by one on T, H and W and ``g`` of the output's shape, in f32:
     ``(27, C)``."""
-    t = a.shape[1]
-    ho, wo = g.shape[2], g.shape[3]
+    st, sh, sw = strides3(stride)
+    to, ho, wo = g.shape[1:4]
     a = F.pad(a.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     gf = g.float()
     dk = []
     for dt in range(3):
         for dy in range(3):
             for dx in range(3):
-                tap = a[:, dt:dt + t, dy:dy + stride * (ho - 1) + 1:stride,
-                        dx:dx + stride * (wo - 1) + 1:stride]
+                tap = a[:, dt:dt + st * (to - 1) + 1:st,
+                        dy:dy + sh * (ho - 1) + 1:sh,
+                        dx:dx + sw * (wo - 1) + 1:sw]
                 dk.append(torch.sum(tap * gf, dim=(0, 1, 2, 3)))
     return torch.stack(dk)
 

@@ -41,3 +41,22 @@ def spatial_replicate(x: torch.Tensor, out_hw: int) -> torch.Tensor:
     f = out_hw // h
     x = x[:, :, :, None, :, None, :].expand(b, t, h, f, w, f, c)
     return x.reshape(b, t, out_hw, out_hw, c)
+
+
+def temporal_pool(x: torch.Tensor, kind: str, window: int = 4) -> torch.Tensor:
+    """``CoarseNet``'s fixed temporal pools over T of ``(B, T, H, W, C)``:
+    ``avg`` and ``max`` over windows of ``window`` frames at stride
+    ``window``, VALID (flax's ``nn.avg_pool`` / ``nn.max_pool`` with
+    ``(window, 1, 1)``: ⌊T/window⌋ frames, the average in x's dtype), or
+    ``stride``, every ``window``-th frame (``x[:, ::window]``: ⌈T/window⌉
+    frames)."""
+    if kind == "stride":
+        return x[:, ::window]
+    b, t, h, w, c = x.shape
+    n = t // window
+    xw = x[:, :n * window].reshape(b, n, window, h, w, c)
+    if kind == "avg":
+        return torch.sum(xw, dim=2) / window
+    if kind == "max":
+        return torch.amax(xw, dim=2)
+    raise ValueError(f"temporal pool must be avg, max or stride, got {kind!r}")

@@ -19,7 +19,8 @@ the host) and ``prefetch_wait_ms`` (the part spent waiting for the device
 prefetcher), per validation ``val_s``, and after a resume
 ``resumed_from`` (the step and the input position).  Nothing is compiled,
 so the JAX driver's ``val_jit_shapes`` has no counterpart.  One process:
-``mesh_devices > 1`` and ``remat`` raise.
+``mesh_devices > 1`` raises.  ``remat`` recomputes each bottleneck in the
+backward, as the JAX driver's model does.
 """
 
 from __future__ import annotations
@@ -151,7 +152,7 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     log.info("train %d val %d videos", len(train_loader.dataset.data),
              len(val_loader.dataset.data))
     model = CoarseNet(cfg.x3d_version, cfg.num_classes,
-                      dropout_rate=cfg.dropout)
+                      dropout_rate=cfg.dropout, remat=cfg.remat)
     if cfg.base_bn_splits != 1:
         set_bn_splits(model, cfg.base_bn_splits)
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))

@@ -267,6 +267,3 @@ def check_ported(cfg) -> None:
     if cfg.mesh_devices and cfg.mesh_devices > 1:
         raise NotImplementedError("mesh_devices > 1: parallelism is not "
                                   "ported (ROADMAP.md, queue 1, item 9)")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported (ROADMAP.md, queue "
-                                  "1, item 6)")

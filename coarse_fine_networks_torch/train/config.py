@@ -55,7 +55,7 @@ class DriverConfig:
     fusion_lr_mult: Optional[float] = None
     align_corners: bool = True     # fine: True; coarse driver: False
     compute_dtype: str = "float32"
-    remat: bool = False            # not ported: raises
+    remat: bool = False            # recompute each bottleneck in backward
     mesh_devices: Optional[int] = None  # > 1 not ported: raises
     min_frames: Optional[int] = None
     crop_size_override: Optional[int] = None

@@ -20,7 +20,8 @@ Beside the JAX driver's results the port records ``step_ms``,
 so under the long cycle in the saved phase; the JAX driver restarts its
 epoch count at 0, which puts a run resumed in phase C back at phase A's
 shapes against a loader position counted in phase C's batches.  One
-process: ``mesh_devices > 1`` and ``remat`` raise.
+process: ``mesh_devices > 1`` raises.  ``remat`` recomputes each
+bottleneck in the backward, as the JAX driver's model does.
 """
 
 from __future__ import annotations
@@ -150,7 +151,8 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     log.info("train %d val %d videos", len(train_loader.dataset.data),
              len(val_loader.dataset.data))
     model = FineNet(cfg.x3d_version, cfg.num_classes, task="loc",
-                    dropout_rate=cfg.dropout, global_tower=False)
+                    dropout_rate=cfg.dropout, global_tower=False,
+                    remat=cfg.remat)
     if cfg.base_bn_splits != 1:
         set_bn_splits(model, cfg.base_bn_splits)
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))

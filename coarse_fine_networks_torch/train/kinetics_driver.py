@@ -17,8 +17,9 @@ Beside the JAX driver's results (``train_loss``, ``train_top1``,
 ``record_trajectory``, the ``trajectory`` of (step, lr, loss).  The batches
 go through the device prefetcher (:func:`.common.iter_train_batches`); a
 resumed run continues in the saved epoch (the JAX driver restarts its
-count at 0).  One process:
-``mesh_devices > 1`` and ``remat`` raise.
+count at 0).  One process: ``mesh_devices > 1`` raises.  ``remat``
+recomputes each bottleneck in the backward, as the JAX driver's model
+does.
 """
 
 from __future__ import annotations
@@ -173,7 +174,8 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
                                 num_workers=cfg.num_workers)
 
     model = FineNet(cfg.x3d_version, cfg.num_classes, task="class",
-                    dropout_rate=cfg.dropout, global_tower=False)
+                    dropout_rate=cfg.dropout, global_tower=False,
+                    remat=cfg.remat)
     if cfg.base_bn_splits != 1:
         set_bn_splits(model, cfg.base_bn_splits)
     init_parameters(model, torch.Generator().manual_seed(cfg.seed))

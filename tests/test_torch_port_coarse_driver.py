@@ -214,8 +214,22 @@ def test_resume_gives_the_uninterrupted_next_loss(world, port_runs):
     assert abs(loss - ref[2]) <= 1e-6, (loss, ref[2])
 
 
+def test_remat_run_equals_the_plain_run(world, port_runs):
+    """``remat=True`` (every bottleneck recomputed in the backward, the
+    batch norms' statistics updated once) gives the trajectory run's losses
+    and learning rates step for step, exactly: the recomputed forward
+    repeats the first on the CPU bit for bit."""
+    got = coarse_driver.run(DriverConfig(**_coarse(
+        world, "port_remat", device="cpu", remat=True,
+        **RUNS["trajectory"])))
+    ref = port_runs["trajectory"]
+    assert [s for s, _, _ in got["trajectory"]] == [1, 2, 3]
+    assert got["trajectory"] == ref["trajectory"]
+    assert got.get("val_map") == ref.get("val_map")
+
+
 @pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("remat", True), ("pack_dir", "packs")])
+    ("mesh_devices", 2), ("pack_dir", "packs")])
 def test_unported_options_raise(world, field, value):
     cfg = DriverConfig(**_coarse(world, "port_unported", device="cpu",
                                  **{field: value}))

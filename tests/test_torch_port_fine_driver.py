@@ -222,8 +222,25 @@ def test_resume_in_the_saved_phase(cycle_world, step, epoch, pos):
     assert abs(got["val_map"] - ref["val_map"]) <= RESUME_TOL
 
 
+def test_remat_run_equals_the_plain_run(world, port_runs):
+    """``remat=True`` through the long cycle's split change (two splits by
+    the split route, then one by the act route) gives the multigrid run's
+    losses step for step, exactly: the recomputed forward repeats the first
+    on the CPU bit for bit, and the statistics move once."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(multigrid, "DEFAULT_LONG_CYCLE",
+                   _two_phases(multigrid.LongCyclePhase))
+        got = fine_driver.run(DriverConfig(**_base(
+            world, "port_remat", device="cpu", remat=True,
+            **RUNS["multigrid"])))
+    ref = port_runs["multigrid"]
+    assert got["multigrid_phases"] == ref["multigrid_phases"]
+    assert [s for s, _, _ in got["trajectory"]] == [1, 2, 3]
+    assert got["trajectory"] == ref["trajectory"]
+
+
 @pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("remat", True), ("pack_dir", "packs")])
+    ("mesh_devices", 2), ("pack_dir", "packs")])
 def test_unported_options_raise(world, field, value):
     cfg = DriverConfig(**_base(world, "port_unported", device="cpu",
                                **{field: value}))

@@ -170,9 +170,19 @@ def test_wrappers_cpu_take_plain_and_count_nothing():
                            dw_conv_wgrad_plain(t(x), t(g), s))
     assert torch.equal(dw_conv_dx_s2(t(g2), t(k), (7, 6)),
                        dw_conv_dx_s2_plain(t(g2), t(k), (7, 6)))
+    # the stride-(2, 2, 2) kernels of FineNet's t_downsample too
+    x3, _, g3 = _inputs((1, 5, 7, 6, 12), seed=51)
+    g3 = g3[:, ::2, ::2, ::2].copy()
+    assert torch.equal(dw_conv3d(t(x3), t(k), dw_conv.T2),
+                       dw_conv3d_plain(t(x3), t(k), dw_conv.T2))
+    assert torch.equal(dw_conv.dw_conv_dx_t2(t(g3), t(k), (5, 7, 6)),
+                       dw_conv.dw_conv_dx_t2_plain(t(g3), t(k), (5, 7, 6)))
+    assert torch.equal(dw_conv_wgrad(t(x3), t(g3), dw_conv.T2),
+                       dw_conv_wgrad_plain(t(x3), t(g3), dw_conv.T2))
     assert set(dw_conv.LAUNCHES) == {
         "dw_conv_s1", "dw_conv_s2", "dw_conv_dx_s2", "dw_conv_wgrad_s1",
-        "dw_conv_wgrad_s2"}
+        "dw_conv_wgrad_s2", "dw_conv_t2", "dw_conv_dx_t2",
+        "dw_conv_wgrad_t2"}
     assert not any(dw_conv.LAUNCHES.values())
 
 

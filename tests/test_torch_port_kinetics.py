@@ -212,6 +212,14 @@ class _Seeded:
         return getattr(self._module, name)
 
 
+def _driver_kw(corpus):
+    return dict(anno=corpus["anno"], root=corpus["frames"], frames=4,
+                crop_size_override=64, num_classes=NCLS, batch_size=2,
+                max_epochs=1, num_workers=1, dropout=0.0,
+                compute_dtype="float32", label_smoothing=0.1,
+                pad_t_multiple=4, resume=False)
+
+
 @pytest.fixture(scope="module")
 def driver_runs(corpus, tmp_path_factory):
     """One epoch (3 steps at lr 0.01, label smoothing 0.1) and a
@@ -219,11 +227,7 @@ def driver_runs(corpus, tmp_path_factory):
     _, v, _ = _class_models(seed=2)
     sd = state_dict_from_jax(v)
     root = str(tmp_path_factory.mktemp("kinetics_runs"))
-    kw = dict(anno=corpus["anno"], root=corpus["frames"], frames=4,
-              crop_size_override=64, num_classes=NCLS, batch_size=2,
-              max_epochs=1, num_workers=1, dropout=0.0,
-              compute_dtype="float32", label_smoothing=0.1,
-              pad_t_multiple=4, resume=False)
+    kw = _driver_kw(corpus)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", lambda: False)
         mp.setattr(jkin, "FineNet",
@@ -251,6 +255,26 @@ def test_driver_matches_jax(driver_runs):
     # the last checkpoint, the Kinetics checkpoint of the detection drivers
     assert os.listdir(os.path.join(driver_runs["root"], "port")) == [
         "kinetics_x3d_000003.ckpt"]
+
+
+def test_remat_run_equals_the_plain_run(corpus, driver_runs, tmp_path):
+    """``remat=True`` gives the port's driver run of ``driver_runs`` (the
+    same weights and batches) exactly: its losses step for step and its
+    top-1; the recomputed forward repeats the first on the CPU bit for
+    bit."""
+    _, v, _ = _class_models(seed=2)
+    sd = state_dict_from_jax(v)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(kinetics_driver, "init_parameters",
+                   lambda m, g: m.load_state_dict(sd, strict=True))
+        got = kinetics_driver.run(DriverConfig(
+            **_driver_kw(corpus), save_dir=str(tmp_path), device="cpu",
+            record_trajectory=True, remat=True))
+    ref = driver_runs["port"]
+    assert [s for s, _, _ in got["trajectory"]] == [1, 2, 3]
+    assert got["trajectory"] == ref["trajectory"]
+    assert (got["train_loss"], got["val_top1"]) == (ref["train_loss"],
+                                                    ref["val_top1"])
 
 
 def test_multigrid_and_resume(corpus, tmp_path):
@@ -339,7 +363,7 @@ def test_checkpoint_transfers_to_the_fine_driver(tmp_path):
 
 
 def test_unported_options_raise(corpus, tmp_path):
-    for field, value in (("mesh_devices", 2), ("remat", True)):
+    for field, value in (("mesh_devices", 2),):
         cfg = DriverConfig(anno=corpus["anno"], root=corpus["frames"],
                            save_dir=str(tmp_path), device="cpu",
                            **{field: value})

@@ -207,10 +207,10 @@ Phases, each printing JSON lines:
    videos, 8 of them training, of 640 frames at 256², so the train clips
    have the train step's T = 64), ``extract_driver.run`` over both splits
    with a seeded FineNet saved as a reference-named ``.pt``, and
-   ``coarse_driver.run`` (B8, 4 loader workers, device prefetch 2, 6 steps,
+   ``coarse_driver.run`` (B8, 4 loader workers, device prefetch 2, 3 steps,
    a checkpoint every 3, validation of 4 videos after every step's epoch
    with the localize CSV, the ``.pt`` as its Kinetics checkpoint), then a
-   run resumed at step 6 (epoch 5, batch 1) to step 8; finite losses and
+   run resumed at step 3 (epoch 2, batch 1) to step 4; finite losses and
    ``val_map``, 157 probabilities in every CSV row, every kernel of the
    path launched and none off it; the extraction's seconds, the host-clock
    step ms, the share of each step spent waiting on the device prefetcher
@@ -264,12 +264,46 @@ Phases, each printing JSON lines:
    ``_split_key``, three routed hits against their variant's), and 404,
    400, 429, 504 and 503 each from one request; per-request latency, the
    server's extract/fuse ms per variant, body bytes and peak memory;
-24. a ``{"kernels": [...]}`` line (23 entries, each with its launches on
+24. dp_train: data-parallel training through ``parallel.mesh.spawn``,
+   two ranks sharing the one card over gloo (NCCL refuses two ranks on
+   one card): the coarse train step (X3D-M, 157 classes, B8 T64 224²) by
+   the act route and with ``CFN_MM_BN_TRAIN=1``, then long-cycle phase B
+   (T32 144², 4 splits), each in bf16 (phase B at B32) and in f32 with
+   TF32 off (phase B at B16), each rank on half the rows against one
+   process on the whole batch from the same weights, batch and dropout
+   draws: the loss and, per stage, the running statistics and (in f32)
+   the gradients within twice the one-process step's largest movement
+   under a one-ulp change of its clips (three draws); in bf16 that
+   movement of the gradients is O(1), so there they are printed only.  In
+   f32 two planted faults must fall outside the gradients' bound (the
+   statistics' all-reduce passing its gradient on unreduced; each rank's
+   loss its local mean).  Both ranks equal, each rank's launches one
+   step's of its route, its peak GB and step ms; then the coarse act step
+   through the same spawn path at world size 1 over NCCL, equal to the
+   one-process step within 4× its run-to-run spread;
+25. dp_serve: ``CachingVideoServer`` over ``[cuda:0, cuda:0]`` (two X3D-M
+   replicas) against the one-device server on the serve phase's videos,
+   cold and hit, with exact launches, in bf16 and in f32 (where a server
+   answering one video with another's rows must fall outside the bound);
+   then the tensor-parallel extract (``parallel.tensor.make_tp_tower``,
+   two shards on ``cuda:0``, widths padded to 16·k) against the unpadded
+   tower, bf16 and f32, with exact launches (K1 ``mm`` and K4 ``mm`` on
+   each shard, K11 once);
+26. dp_cli: ``cli.train_coarse_fineFEAT --mesh-devices 2`` at its defaults
+   on the driver phase's tree and the cli phase's bank (B6 T64 224²: 3
+   rows a rank; a checkpoint every step, validation with the CSV on rank
+   0), then the command line again resumed from rank 0's step-2
+   checkpoint; the val mAP against the one-process validation of that
+   checkpoint in this process, each rank's launches (``_rank_launches``)
+   against its steps and rank 0's validation;
+27. a ``{"kernels": [...]}`` line (23 entries, each with its launches on
    the driver, kinetics, fine_driver, cli and serve_http paths beside the
-   earlier phases', and for K1 ``mm``, K4 ``mm`` and K11 an ``xl`` entry:
+   earlier phases', a rank's on the dp_train path and both ranks' on the
+   dp_cli path, and for K1 ``mm``, K4 ``mm`` and K11 an ``xl`` entry:
    XL's times and launches), after a ``script`` line with the whole run's
    seconds, then the card's ``nvidia-smi`` line, then ``{"ok": true,
-   "device": {...}}`` last.
+   "device": {...}}`` last.  Every phase line carries ``t_s``, the seconds
+   since the script started.
 
 The stem's ``conv1_t`` runs through ``dw_stencil_s1`` on every path: the
 serve, train, train_mm and fine_train phases hold its launches exactly (a
@@ -288,10 +322,13 @@ Any failed check raises and the script exits non-zero before the last line.
 It needs no network and writes nothing outside the checkout (the kernel
 build goes to ``coarse_fine_networks_torch/_build/``, the driver-level
 phases' data, checkpoints and features to ``_scratch/chip_smoke_drivers/``,
-removed at the end).  The driver-level phases' three synthetic trees are
-written by three worker processes (spawned, seeded) while the kernel
-phases run, and the serve_http phase starts the serving CLI as a
-process; each is joined or stopped before the script ends.
+removed at the end; the parallel phases' ranks hand their results back
+through a temporary directory under ``TMPDIR``, removed when they end).
+The driver-level phases' three synthetic trees are written by three
+worker processes (spawned, seeded) while the kernel phases run, the
+serve_http phase starts the serving CLI as a process, and the parallel
+phases spawn their ranks; each is joined or stopped before the script
+ends.
 """
 
 from __future__ import annotations
@@ -492,7 +529,15 @@ def check(cond: bool, msg: str) -> None:
         raise CheckFailed(msg)
 
 
+# the script's start, for each phase line's "t_s"
+T0 = time.perf_counter()
+
+
 def emit(obj: dict) -> None:
+    """Print ``obj`` as a JSON line; a phase's line carries the seconds
+    since the script started (``t_s``)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -2479,6 +2524,7 @@ def _fine_host_batch(gen, b, t, hw, tl, n_classes):
 
 
 def _launches(*mods) -> dict:
+    """Every kernel's launches in ``mods``' counters in this process."""
     out = {}
     for m in mods:
         out.update(m.LAUNCHES)
@@ -2534,7 +2580,7 @@ def _trace_note(prof) -> dict:
                    for f in ("stencil_fwd_kernel", "stencil_dk_kernel")}}
 
 
-def _profile_step(fn, ours, mods) -> dict:
+def _profile_step(fn, ours, mods, warm: bool = True) -> dict:
     """``fn`` under ``torch.profiler``: kernel time by name, the port's
     kernels' share (``ours``: kernel functions), the card's busy share.
     Then ``fn`` once more with the host ops' input shapes recorded (kept out
@@ -2553,24 +2599,28 @@ def _profile_step(fn, ours, mods) -> dict:
     lacked the stem's forward K11, which the counters (they count only
     launches that returned success) held.  So each profiled step follows a
     warm-up step that the profiler traces and discards (its ``schedule``),
-    and ``profiler_notes`` locates the records of any short trace."""
+    and ``profiler_notes`` locates the records of any short trace.  With
+    ``warm`` False there is no warm-up step: for an ``fn`` that is a whole
+    driver run, whose first kernel comes after its set-up."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     def counted(record_shapes):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                      record_shapes=record_shapes,
-                     schedule=schedule(wait=0, warmup=1, active=1,
-                                       repeat=1)) as prof:
-            fn()  # the warm-up step
-            torch.cuda.synchronize()
-            prof.step()
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                     if warm else None) as prof:
+            if warm:
+                fn()  # the warm-up step
+                torch.cuda.synchronize()
+                prof.step()
             for m in mods:
                 m.reset_launches()
             t1 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t1) * 1e3
-            prof.step()
+            if warm:
+                prof.step()
         return prof, wall_ms, _launches(*mods)
 
     prof, wall_ms, counters = counted(False)
@@ -2824,7 +2874,7 @@ def phase_serve(dw_mm_act, dw_act, dw_stencil, want: dict) -> dict:
                                                        pipe.fuse),
         cache=FeatureCache(capacity_bytes=2 << 30), max_batch=3,
         max_wait_ms=2000, bucket_multiple=16, request_timeout_s=600,
-        device="cuda").start()
+        devices="cuda").start()
     rng = torch.Generator().manual_seed(1)
     videos = {"A": (64, 128), "B": (64, 128), "C": (50, 100)}
     clips = {v: _clip(rng, t, 224) for v, (t, _) in videos.items()}
@@ -2925,14 +2975,14 @@ def phase_profile(pipe, mods) -> None:
 
 # the coarse-stream driver end to end: synthetic mini-Charades (8 training
 # and 4 testing videos of 640 frames at 256², so the train clips are the
-# train step's T = 64 at gamma_tau 5), extraction, 6 steps with a
+# train step's T = 64 at gamma_tau 5), extraction, 3 steps with a
 # checkpoint every 3 and validation after each (one batch an epoch), then
-# a resumed run to step 8
+# a resumed run to step 4
 # the driver phase's last coarse checkpoint, kept for serve_http
 DRIVER_COARSE_CKPT = SCRATCH / "driver_coarse.ckpt"
 DRIVER = dict(videos=12, train=8, video_frames=640, hw=256, n_classes=157,
-              frames=320, batch=8, workers=4, device_prefetch=2, steps=6,
-              ckpt_every=3, resume_steps=8, val_batches=4)
+              frames=320, batch=8, workers=4, device_prefetch=2, steps=3,
+              ckpt_every=3, resume_steps=4, val_batches=4)
 # per driver train step on the act route: each act kernel 22 stride-1 and
 # 4 stride-2 launches, the stem's K11 2 and its taps' gradient 1
 DRIVER_STEP = {"act_fwd_s1_kernel": 22, "act_s2_fwd_kernel": 4,
@@ -2946,12 +2996,12 @@ def phase_driver(mods, tree) -> dict:
     (X3D-M, 157 classes, bf16, a crop of 224): ``generate_mini_charades``,
     ``extract_driver.run`` over both splits with a seeded FineNet whose
     weights go through a reference-named ``.pt``, ``coarse_driver.run``
-    (B8, T = 64, 4 loader workers, device prefetch 2, 6 steps, a checkpoint
+    (B8, T = 64, 4 loader workers, device prefetch 2, 3 steps, a checkpoint
     every 3, validation after each step's epoch with the localize CSV, the
-    ``.pt`` as its Kinetics checkpoint), and a second run resumed at step 6
-    to step 8.  The kernels' counters are reset before the extraction and
+    ``.pt`` as its Kinetics checkpoint), and a second run resumed at step 3
+    to step 4.  The kernels' counters are reset before the extraction and
     before the coarse runs and read after each.  Then one driver step (a
-    resumed run to step 7 without validation) under ``_profile_step``: its
+    resumed run to step 4 without validation) under ``_profile_step``: its
     profiled launches must equal the counters, no grouped depthwise conv
     may run in PyTorch, and each act kernel must launch 22 (stride 1) or 4
     (stride 2) times, K11 twice and its taps' gradient once.  ``tree``: the
@@ -3023,15 +3073,15 @@ def phase_driver(mods, tree) -> dict:
         scores = np.array([[float(x) for x in r[2].split()] for r in rows])
 
         def one_step():
-            # resumed in the saved epoch 5 (its batch taken): epoch 6 is
-            # empty and epoch 7 runs step 7; four train phases a
+            # resumed in the saved epoch 2 (its batch taken): epoch 3 is
+            # empty and epoch 4 runs step 4; four train phases a
             # validation put none in between
             coarse_driver.run(dataclasses.replace(
                 cfg, resume=True, max_steps=saved["step"] + 1,
                 train_phases_per_val=4, ckpt_every=10 ** 9,
                 localize_csv=None))
         profiled = _profile_step(one_step, tuple(DRIVER_STEP) + (
-            "mm_fwd_s1_kernel", "mm_s2_fwd_kernel"), mods)
+            "mm_fwd_s1_kernel", "mm_s2_fwd_kernel"), mods, warm=False)
     finally:  # the tree stays for the cli phase; main removes SCRATCH
         shutil.rmtree(root / "models", ignore_errors=True)
         shutil.rmtree(root / "feats", ignore_errors=True)
@@ -3071,7 +3121,7 @@ def phase_driver(mods, tree) -> dict:
            "run_launches": {k: v for k, v in run_launches.items() if v}}
     emit(row)
     emit({"phase": "driver_profile",
-          "what": "one coarse_driver.run step (resumed at step 6, no "
+          "what": "one coarse_driver.run step (resumed at step 3, no "
                   "validation), B8 T64 224² bf16, act route", **profiled})
     check(n_extracted == c["videos"], f"driver: extracted {n_extracted}")
     check(not nonfinite, f"driver: non-finite features {nonfinite[:5]}")
@@ -3949,8 +3999,8 @@ def _ladder(mods) -> dict:
     for model, name in names.items():
         s = router._servers[name]
         times[model] = {"extract": [], "fuse": []}
-        s._extract = _timed(times[model]["extract"], s._extract)
-        s._fuse = _timed(times[model]["fuse"], s._fuse)
+        s._extract = [_timed(times[model]["extract"], f) for f in s._extract]
+        s._fuse = [_timed(times[model]["fuse"], f) for f in s._fuse]
     build_s = time.perf_counter() - t0
     srv.start()
     port = srv.port
@@ -4522,8 +4572,9 @@ def _remat_step(route, remat):
             for k, v in base.items()}
 
 
-def _remat_config(mods, label):
-    """(model, step, batch, lr, route) of one remat configuration."""
+def _remat_config(mods, label, dtype=torch.bfloat16, b=None):
+    """(model, step, batch, lr, route) of one remat configuration, its
+    clips in ``dtype``; ``b`` cuts a fine phase's batch."""
     from coarse_fine_networks_torch.models import (CoarseNet, FineNet,
                                                    init_parameters,
                                                    set_bn_splits)
@@ -4536,13 +4587,13 @@ def _remat_config(mods, label):
                                 torch.Generator().manual_seed(50)).cuda()
         batch = _train_batch("cuda", torch.Generator(device="cuda")
                              .manual_seed(51), c["b"], c["t"], c["hw"],
-                             c["tf"], c["tl"], c["n_classes"],
-                             torch.bfloat16)
+                             c["tf"], c["tl"], c["n_classes"], dtype)
         step = make_train_step(model, align_corners=False,
                                fusion_lr_mult=c["fusion_lr_mult"])
         return model, step, batch, c["lr"], ("mm" if label.endswith("mm")
                                              else "act")
-    _, b, t, crop, tl, splits = fine_phase(label[-1])
+    _, b_phase, t, crop, tl, splits = fine_phase(label[-1])
+    b = b or b_phase
     model = set_bn_splits(init_parameters(
         FineNet("M", FINE["n_classes"], dropout_rate=FINE["dropout"],
                 global_tower=False), torch.Generator().manual_seed(52)),
@@ -4550,7 +4601,7 @@ def _remat_config(mods, label):
     batch = model_batch(_fine_host_batch(torch.Generator(device="cuda")
                                          .manual_seed(53), b, t, crop, tl,
                                          FINE["n_classes"]),
-                        dtype=torch.bfloat16, device="cuda")
+                        dtype=dtype, device="cuda")
     step = make_train_step(model, align_corners=True)
     return model, step, batch, FINE["lr"], "split" if splits > 1 else "act"
 
@@ -4649,6 +4700,583 @@ def phase_remat(mods) -> None:
         torch.cuda.empty_cache()
 
 
+# ---- parallelism: dp_train, dp_serve, dp_cli ---------------------------------
+
+# dp_train's runs: (configuration of the remat phase, built from the same
+# seeds in every rank; the clips' dtype; the global batch, None for the
+# configuration's own).  bf16 is the step users train, and there a change
+# of the clips by one ulp moves every stage's gradient by O(1), so only the
+# loss and the running statistics can tell a fault from rounding; f32
+# (TF32 off) is where the gradients are held, with phase B at B16 (its B32
+# in f32 would not fit beside the two ranks)
+DP_RUNS = tuple((label, dtype, b)
+                for dtype in (torch.bfloat16, torch.float32)
+                for label, b in (("coarse act", None), ("coarse mm", None),
+                                 ("fine phase B", None if dtype ==
+                                  torch.bfloat16 else 16)))
+DP_WORLD = 2
+# the quantities dp_train holds the ranks to (:func:`_dp_apart`), by dtype
+DP_HELD = {torch.bfloat16: ("loss_rel", "stat_stage_max"),
+           torch.float32: ("loss_rel", "stat_stage_max", "grad_stage_max")}
+# dp_serve: the data-parallel server's probabilities against the one-device
+# server's (rows in batches of another size: cuBLAS picks other algorithms;
+# read 2.9e-5 in bf16), by dtype; the tensor-parallel banks against the
+# unpadded tower's, of
+# each bank's largest magnitude (the shards' partial sums add in another
+# order, in f32)
+DP_SERVE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-5}
+TP_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# dp_cli: the validation batches of the driver phase's tree (4 test videos,
+# one a batch)
+DP_CLI_VAL = 4
+# the least bound on a relative distance: one f32 ulp (the loss and the
+# statistics are f32 values; in f32 one ulp of the clips may move neither)
+DP_FLOOR = 2.0 ** -23
+# a gradient below this share of the step's largest gradient is a sum that
+# cancels (a bias a training batch norm takes out again): rounding noise in
+# every run, left out of the comparisons
+DP_NEGLIGIBLE = 1e-4
+
+
+def _dp_key(label: str, dtype) -> str:
+    return f"{label} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+
+
+def _dp_measure(model, step, batch, lr, mods, sd0,
+                warm: bool = True) -> dict:
+    """A train step of ``model`` from the weights ``sd0`` with the same
+    dropout draws, after a warm-up step of the same (allocator, library
+    handles) with ``warm``: its loss, ms (host clock to the loss on the
+    host), peak GB, kernel launches, gradients and running statistics (on
+    the host)."""
+    from coarse_fine_networks_torch.train import TrainState
+
+    def run():
+        model.load_state_dict(sd0)
+        state = TrainState.create(model)
+        drop = torch.Generator(device="cuda").manual_seed(54)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in mods:
+            m.reset_launches()
+        t1 = time.perf_counter()
+        loss = step(state, batch, lr, drop)[1]["loss"].item()
+        torch.cuda.synchronize()
+        return {"loss": loss, "ms": (time.perf_counter() - t1) * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": {k: v for k, v in _launches(*mods).items() if v},
+                "grads": {k: p.grad.detach().float().cpu() for k, p in
+                          model.named_parameters()},
+                "stats": {k: v.detach().float().cpu() for k, v in
+                          model.state_dict().items() if "running" in k}}
+
+    if warm:
+        run()
+    return run()
+
+
+def _state0(model) -> dict:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _ulp_up(batch: dict, part: int) -> dict:
+    """``batch`` with clip values moved one ulp of their dtype away from
+    0: all of them (``part`` 0), or one half of them (1) or the other (2),
+    the halves drawn from a seeded generator."""
+    clips = batch["clips"]
+    bits = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    step = torch.ones_like(clips.view(bits[clips.dtype]))
+    if part:
+        half = torch.rand(clips.shape, device=clips.device,
+                          generator=torch.Generator(device=clips.device)
+                          .manual_seed(55)) < 0.5
+        step = step * (half if part == 1 else ~half)
+    up = (clips.view(bits[clips.dtype]) + step).view(clips.dtype)
+    return {**batch, "clips": up}
+
+
+def _unreduced_backward(ctx, g):
+    """A planted fault for dp_train: the statistics' all-reduce passing its
+    gradient on without summing it over the ranks."""
+    return g.clone()
+
+
+def _dp_rank(runs) -> dict:
+    """A data-parallel rank (spawned by ``mesh.spawn``): each run of
+    ``runs`` (:data:`DP_RUNS`) built from its seeds (:func:`_remat_config`),
+    this rank's rows of its global batch, :func:`_dp_measure`; in f32 in a
+    group of more than one also a step with the planted fault of
+    :func:`_unreduced_backward` (``fault``: its loss, gradients and
+    statistics)."""
+    from unittest import mock
+
+    from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
+                                                dw_mm_bn_train, dw_stencil)
+    from coarse_fine_networks_torch.parallel import mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train, dw_stencil)
+    out = {"backend": mesh.backend(), "world": mesh.world(),
+           "rank": mesh.rank(),
+           "device": str(torch.cuda.current_device())}
+    for label, dtype, b in runs:
+        with composite_route(label == "coarse mm"):
+            model, step, batch, lr, route = _remat_config(mods, label, dtype,
+                                                          b)
+            sd0, local = _state0(model), mesh.shard_batch(batch)
+            got = dict(_dp_measure(model, step, local, lr, mods, sd0),
+                       rows=int(local["clips"].shape[0]), route=route)
+            if dtype == torch.float32 and mesh.world() > 1:
+                with mock.patch.object(mesh._AllReduceSum, "backward",
+                                       staticmethod(_unreduced_backward)):
+                    fault = _dp_measure(model, step, local, lr, mods, sd0,
+                                        warm=False)
+                got["fault"] = {k: fault[k]
+                                for k in ("loss", "grads", "stats")}
+            out[_dp_key(label, dtype)] = got
+            del model, step, batch, local
+            torch.cuda.empty_cache()
+    return out
+
+
+def _dp_apart(plain: dict, other: dict, noise=()) -> dict:
+    """How far ``other``'s step lies from ``plain``'s (both
+    :func:`_dp_measure`): per stage the relative L2 distance of the
+    gradients (those in ``noise`` left out) and of the running
+    statistics, the largest of each (``grad_stage_max``,
+    ``stat_stage_max``), the loss's relative distance (``loss_rel``) and
+    the three tensors furthest apart (over their largest magnitude)."""
+    out = {}
+    for kind in ("grads", "stats"):
+        acc: dict = {}
+        for k, v in plain[kind].items():
+            if k in noise:
+                continue
+            e = acc.setdefault(_stage(k), [0.0, 0.0])
+            e[0] += float(((other[kind][k] - v).double() ** 2).sum())
+            e[1] += float((v.double() ** 2).sum())
+        stage = {st: (x / max(n, 1e-300)) ** 0.5
+                 for st, (x, n) in acc.items()}
+        worst = max(stage.items(), key=lambda kv: kv[1])
+        out[f"{kind[:-1]}_stage_max"] = worst[1]
+        out[f"{kind[:-1]}_worst_stage"] = worst[0]
+    per = {**_rel(plain["grads"], other["grads"], noise),
+           **_rel(plain["stats"], other["stats"])}
+    out["loss_rel"] = abs(other["loss"] - plain["loss"]) / abs(plain["loss"])
+    out["worst_tensors"] = sorted(per.items(), key=lambda kv: -kv[1])[:3]
+    return out
+
+
+def _rel(a: dict, b: dict, skip=()) -> dict:
+    """Per tensor: the largest difference over the tensor's largest
+    magnitude (``a`` the reference)."""
+    return {k: ((b[k] - a[k]).abs().max()
+                / a[k].abs().max().clamp(min=1e-30)).item()
+            for k in a if k not in skip}
+
+
+def phase_dp_train(mods) -> dict:
+    """Data-parallel training on the card: the coarse train step (X3D-M,
+    157 classes, B8 T64 224²) by the act route and by the composite, then
+    long-cycle phase B (T32 144², 4 splits; B32 in bf16, B16 in f32), each
+    in bf16 and in f32 (TF32 off) and each run by ``DP_WORLD`` ranks
+    spawned by ``parallel.mesh.spawn`` that share the card over gloo (each
+    rank half the batch), against one process on the whole batch from the
+    same weights, batch and dropout draws.  The one process runs the step
+    twice (its run-to-run spread) and three times with clip values one ulp
+    up (all of them, then each half of them: the step's own sensitivity to
+    rounding, since a relu input within a rounding of 0 takes the other
+    branch, as it does when the ranks reduce in another order).  Each
+    rank's loss and per stage its running statistics and, in f32, its
+    gradients (relative L2, :func:`_dp_apart`; gradients below
+    ``DP_NEGLIGIBLE`` of the largest left out) must lie within the larger
+    of 4× the run-to-run spread, 2× the largest one-ulp movement and one
+    f32 ulp (``DP_FLOOR``), and
+    both ranks must hold the same gradients and statistics.  In f32 two
+    planted faults must fall outside the gradients' bound: the statistics'
+    all-reduce passing its gradient on unreduced (a step of each rank) and
+    each rank's loss its local mean instead of its share (rank 0's
+    gradients doubled).  Each rank's launches must be one step's of its
+    route.  Then the coarse act step in bf16 through the same spawn path
+    at world size 1 over NCCL, within 4× the run-to-run spread.  Prints
+    the backend, each rank's peak GB, step ms and launches, and each
+    tensor furthest apart.  Returns rank 0's launches summed over the
+    runs."""
+    from coarse_fine_networks_torch.parallel import mesh
+
+    ref = {}
+    for label, dtype, b in DP_RUNS:
+        with composite_route(label == "coarse mm"):
+            model, step, batch, lr, route = _remat_config(mods, label, dtype,
+                                                          b)
+            sd0 = _state0(model)
+            plain = _dp_measure(model, step, batch, lr, mods, sd0)
+            again = _dp_measure(model, step, batch, lr, mods, sd0, False)
+            ulp = [_dp_measure(model, step, _ulp_up(batch, part), lr, mods,
+                               sd0, False) for part in range(3)]
+            rows_ = int(batch["clips"].shape[0])
+            del model, step, batch, sd0
+        torch.cuda.empty_cache()
+        ref[_dp_key(label, dtype)] = (route, dtype, rows_, plain, again, ulp)
+    t1 = time.perf_counter()
+    ranks = mesh.spawn(_dp_rank, DP_WORLD, DP_RUNS, device="cuda")
+    spawn_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    nccl = mesh.spawn(_dp_rank, 1, DP_RUNS[:1], device="cuda",
+                      backend_="nccl")
+    nccl_s = time.perf_counter() - t1
+    per_kernel: dict = {}
+    for key, (route, dtype, b, plain, again, ulp) in ref.items():
+        top = max(g.abs().max().item() for g in plain["grads"].values())
+        noise = {k for k, g in plain["grads"].items()
+                 if g.abs().max().item() <= DP_NEGLIGIBLE * top}
+        spread = _dp_apart(plain, again, noise)
+        sens = [_dp_apart(plain, u, noise) for u in ulp]
+        held = DP_HELD[dtype]
+        tol = {k: max(4 * spread[k], 2 * max(u[k] for u in sens),
+                      DP_FLOOR) for k in held}
+        want = _remat_step(route, False)
+        row = {"phase": "dp_train", "config": key, "route": route, "B": b,
+               "world": DP_WORLD, "backend": ranks[0]["backend"],
+               "devices": [r["device"] for r in ranks],
+               "one_process": {"loss": plain["loss"], "ms": plain["ms"],
+                               "peak_gb": plain["peak_gb"]},
+               "run_to_run": spread, "one_ulp": sens, "held": held,
+               "tol": tol, "negligible_grads": len(noise), "ranks": []}
+        for r in ranks:
+            got = r[key]
+            row["ranks"].append({
+                "rank": r["rank"], "rows": got["rows"], "loss": got["loss"],
+                **_dp_apart(plain, got, noise), "ms": got["ms"],
+                "peak_gb": got["peak_gb"],
+                "launches": got["launches"]})
+        faults = {}
+        if dtype == torch.float32:
+            got = ranks[0][key]
+            faults = {
+                "statistics' gradient unreduced":
+                    _dp_apart(plain, got["fault"], noise),
+                "loss a local mean (gradients 2x)": _dp_apart(plain, {
+                    **got, "grads": {k: 2 * v for k, v in
+                                     got["grads"].items()}}, noise)}
+            row["planted_faults"] = faults
+        emit(row)
+        for rr in row["ranks"]:
+            over = {k: rr[k] for k in held if rr[k] > tol[k]}
+            check(np.isfinite(rr["loss"]) and not over,
+                  f"dp_train {key} rank {rr['rank']}: {over} over {tol} "
+                  f"(loss {rr['loss']} vs {plain['loss']})")
+            check(rr["launches"] == want,
+                  f"dp_train {key} rank {rr['rank']}: launches "
+                  f"{rr['launches']} != {want}")
+        caught = {k: f["grad_stage_max"] for k, f in faults.items()}
+        check(all(v > tol.get("grad_stage_max", 0) for v in caught.values()),
+              f"dp_train {key}: a planted fault within the bound: {caught} "
+              f"against {tol}")
+        same = [k for k, v in ranks[0][key]["grads"].items()
+                if not torch.equal(v, ranks[1][key]["grads"][k])]
+        same += [k for k, v in ranks[0][key]["stats"].items()
+                 if not torch.equal(v, ranks[1][key]["stats"][k])]
+        check(not same, f"dp_train {key}: the ranks differ in {same[:5]}")
+        check(ranks[0]["backend"] == "gloo" and all(
+            r["device"] == "0" for r in ranks), f"dp_train: ranks on "
+            f"{[r['device'] for r in ranks]} over {ranks[0]['backend']}")
+        for k, v in ranks[0][key]["launches"].items():
+            per_kernel[k] = per_kernel.get(k, 0) + v
+    key = _dp_key(*DP_RUNS[0][:2])
+    route, _, _, plain, again, _ = ref[key]
+    got = nccl[0][key]
+    spread, apart = _dp_apart(plain, again), _dp_apart(plain, got)
+    held = ("loss_rel", "stat_stage_max", "grad_stage_max")
+    row = {"phase": "dp_train_nccl_world1", "config": key,
+           "backend": nccl[0]["backend"], "world": nccl[0]["world"],
+           "loss": got["loss"], "one_process_loss": plain["loss"],
+           **apart, "run_to_run": spread, "ms": got["ms"],
+           "peak_gb": got["peak_gb"], "launches": got["launches"],
+           "spawn_s": nccl_s}
+    emit(row)
+    emit({"phase": "dp_train_spawn", "world": DP_WORLD, "seconds": spawn_s})
+    check(row["backend"] == "nccl" and row["world"] == 1,
+          f"dp_train nccl: {row['backend']} world {row['world']}")
+    check(all(apart[k] <= 4 * spread[k] for k in held),
+          f"dp_train nccl world 1: {apart} against the run-to-run {spread}")
+    check(got["launches"] == _remat_step("act", False),
+          f"dp_train nccl: launches {got['launches']}")
+    return per_kernel
+
+
+def phase_dp_serve(mods) -> None:
+    """Data-parallel and tensor-parallel serving on the card.  (a)
+    ``CachingVideoServer`` over ``[cuda:0, cuda:0]`` with two replicas of
+    the X3D-M pipeline (seeded) against the one-device server: the serve
+    phase's three videos cold (one batch of 3, padded to 4 rows, two a
+    replica) and as hits, with exact launches (cold: each replica's
+    extract and fuse; hit: each replica's fuse), in bf16 and in f32 (TF32
+    off).  Each result must lie within ``DP_SERVE_TOL`` of the
+    one-device server's.  The seeded model's probabilities of two videos
+    differ by little more than bf16 rounding, so in bf16 the bound only
+    guards against a gross fault; in f32 a server answering A with B's
+    rows must exceed it.  (b) The tensor-parallel fine tower
+    (``make_tp_tower`` over two shards on ``cuda:0``: mid and head widths
+    padded to 16·k, each shard's slice through K1 ``mm`` and K4 ``mm``,
+    the stem's K11 once) against the unpadded tower on the cold batch's
+    fine clips (B3, T_f=128, 224²): every bank within ``TP_TOL`` of its
+    largest magnitude, bf16 and f32 (TF32 off), with exact launches (44 K1
+    ``mm``, 8 K4 ``mm``, 1 K11 a call), and the two extracts' ms."""
+    import copy
+
+    from coarse_fine_networks_torch.models import CoarseFinePipeline
+    from coarse_fine_networks_torch.parallel.tensor import (make_tp_tower,
+                                                            tp_param_bytes)
+    from coarse_fine_networks_torch.serve import (CachingVideoServer,
+                                                  FeatureCache)
+
+    pipes = {dtype: CoarseFinePipeline(
+        n_classes=157, version="M", compute_dtype=dtype, device="cuda",
+        generator=torch.Generator().manual_seed(0))
+        for dtype in (torch.bfloat16, torch.float32)}
+    rng = torch.Generator().manual_seed(1)
+    videos = {"A": (64, 128), "B": (64, 128), "C": (50, 100)}
+    clips = {v: _clip(rng, t, 224) for v, (t, _) in videos.items()}
+    fine = {v: _clip(rng, tf, 224) for v, (_, tf) in videos.items()}
+    devs = [torch.device("cuda", 0)] * 2
+    n = len(devs)
+    want = {kind: {k: n * v for k, v in counts.items()}
+            for kind, counts in serve_counts(STAGES).items()}
+    for dtype, pipe in pipes.items():
+        out, rows = {}, {}
+        for name in ("dp", "one"):
+            reps = [pipe, copy.deepcopy(pipe)] if name == "dp" else [pipe]
+            server = CachingVideoServer(
+                [p.extract for p in reps], [p.fuse for p in reps],
+                cache=FeatureCache(capacity_bytes=2 << 30), max_batch=3,
+                max_wait_ms=2000, bucket_multiple=16, request_timeout_s=600,
+                devices=devs[:len(reps)]).start()
+            try:
+                for f in [server.submit(clips[v], fine[v],
+                                        video_id="warm" + v)
+                          for v in videos]:
+                    f.result(timeout=600)
+                res, counts, lat = {}, {}, {}
+                for kind in ("cold", "hit"):
+                    for m in mods:
+                        m.reset_launches()
+                    t1 = time.perf_counter()
+                    futs = {v: server.submit(clips[v], fine[v]
+                                             if kind == "cold" else None,
+                                             video_id=v)
+                            for v in videos}
+                    res[kind] = {v: f.result(timeout=600)
+                                 for v, f in futs.items()}
+                    torch.cuda.synchronize()
+                    lat[kind] = (time.perf_counter() - t1) * 1e3
+                    counts[kind] = {k: v for k, v in _launches(*mods).items()
+                                    if v}
+            finally:
+                server.stop()
+            out[name] = res
+            rows[name] = {"latency_ms": lat, "launches": counts,
+                          "batch_sizes": server.batch_sizes[-2:]}
+        diff = max(float(np.abs(out["dp"][k][v] - out["one"][k][v]).max())
+                   for k in ("cold", "hit") for v in videos)
+        # what a server that answered A with B's rows would read
+        swapped = min(float(np.abs(out["one"][k]["A"] - out["one"][k]["B"])
+                            .max()) for k in ("cold", "hit"))
+        tol = DP_SERVE_TOL[dtype]
+        emit({"phase": "dp_serve", "devices": [str(d) for d in devs],
+              "model": "X3D-M", "dtype": str(dtype)[6:], **rows,
+              "max_abs_diff": diff, "tol": tol,
+              "rows_swapped_max_abs_diff": swapped, "want": want})
+        check(diff <= tol, f"dp_serve {dtype}: {diff} > {tol}")
+        check(dtype != torch.float32 or swapped > tol,
+              f"dp_serve f32: rows swapped {swapped} within {tol}")
+        check(rows["dp"]["launches"] == want,
+              f"dp_serve {dtype} launches {rows['dp']['launches']} != "
+              f"{want}")
+        check(rows["dp"]["batch_sizes"] == [3, 3],
+              f"dp_serve {dtype} batches {rows['dp']['batch_sizes']}")
+    # (b) the tensor-parallel extract
+    tf_pad = 128
+    x = np.zeros((3, tf_pad, 224, 224, 3), np.float32)
+    for i, v in enumerate(videos):
+        x[i, :fine[v].shape[0]] = fine[v]
+    x = torch.from_numpy(x).cuda()
+    tp_rows = {}
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        p = pipes[dtype]
+        tp = make_tp_tower(p.fine, devs, dtype)
+        ms = {}
+        with torch.inference_mode():
+            for which, fn in (("tower", p.extract), ("tp", tp)):
+                fn(x)  # warm-up
+                for m in mods:
+                    m.reset_launches()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                got = fn(x)
+                torch.cuda.synchronize()
+                ms[which] = (time.perf_counter() - t1) * 1e3
+                counts = {k: v for k, v in _launches(*mods).items() if v}
+                if which == "tower":
+                    ref = got
+                else:
+                    tp_counts = counts
+        errs = {k: float((got[k] - ref[k]).abs().max()
+                         / ref[k].abs().max()) for k in ref}
+        total, per = tp_param_bytes(tp.model.state_dict(), len(devs))
+        tp_rows[name] = {"ms": ms, "max_rel_err": errs,
+                         "tol": TP_TOL[dtype], "launches": tp_counts,
+                         "channel_pad": tp.model.channel_pad,
+                         "param_bytes_total_per_shard": [total, per]}
+        del tp, p, got, ref
+        torch.cuda.empty_cache()
+    emit({"phase": "dp_serve_tp", "shards": [str(d) for d in devs],
+          "batch": [3, tf_pad, 224, 224], **tp_rows})
+    want_tp = {"dw_mm_act_s1": 2 * 22, "dw_mm_act_s2": 2 * 4,
+               "dw_stencil_s1": 1}
+    for name, r in tp_rows.items():
+        check(max(r["max_rel_err"].values()) <= r["tol"],
+              f"dp_serve_tp {name}: {r['max_rel_err']} > {r['tol']}")
+        check(r["launches"] == want_tp,
+              f"dp_serve_tp {name}: launches {r['launches']} != {want_tp}")
+
+
+def _counted(fn, *args):
+    """``fn(*args)`` in a spawned rank, with the rank's kernel launches
+    when it returned."""
+    from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
+                                                dw_mm_bn_train, dw_stencil)
+
+    out = fn(*args)
+    return out, _launches(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train,
+                          dw_stencil)
+
+
+@contextlib.contextmanager
+def _rank_launches():
+    """Within: every ``parallel.mesh.spawn`` runs its function under
+    :func:`_counted`; yields a list that holds each rank's launches of the
+    last spawn, by rank."""
+    from unittest import mock
+
+    from coarse_fine_networks_torch.parallel import mesh
+
+    real, got = mesh.spawn, []
+
+    def spawn(fn, world_, *args, **kw):
+        outs = real(_counted, world_, fn, *args, **kw)
+        got[:] = [launches for _, launches in outs]
+        return [out for out, _ in outs]
+
+    with mock.patch.object(mesh, "spawn", spawn):
+        yield got
+
+
+def phase_dp_cli(mods) -> dict:
+    """``train_coarse_fineFEAT --mesh-devices 2`` at its defaults (X3D-M,
+    157 classes, bf16, B6 T64 224², 3 rows a rank) on the driver phase's
+    tree and the cli phase's extraction bank: the command line spawns two
+    ranks sharing the card over gloo, which train an epoch of one step
+    each for two epochs, checkpoint every step (``ckpt_every`` set to 1 on
+    the configuration the command line builds) and validate on rank 0 with
+    the localize CSV; then the command line again to step 3, resumed from
+    rank 0's step-2 checkpoint.  The validation mAP must equal the
+    one-process validation of that checkpoint in this process (1e-6
+    relative), each rank's launches must be its steps' (and rank 0's its
+    validation's), and the checkpoints one a step.  Returns each kernel's
+    launches over both runs, per rank, summed."""
+    import dataclasses
+    from unittest import mock
+
+    from coarse_fine_networks_torch.ckpt import load_checkpoint
+    from coarse_fine_networks_torch.cli import train_coarse_fineFEAT
+    from coarse_fine_networks_torch.metrics import APMeter
+    from coarse_fine_networks_torch.models import CoarseNet
+    from coarse_fine_networks_torch.train import (TrainState, coarse_driver,
+                                                  make_eval_step)
+
+    tree, root = SCRATCH / "driver", SCRATCH / "dp_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--root", str(tree / "frames"), "--anno",
+            str(tree / "annotations.json"), "--num-workers", "4",
+            "--fine-feat-dir", str(SCRATCH / "cli" / "feats"),
+            "--save-dir", str(root / "models"), "--localize-csv",
+            str(root / "loc.csv"), "--mesh-devices", str(DP_WORLD),
+            "--max-steps", "3"]
+    real, cfgs = train_coarse_fineFEAT.to_config, []
+
+    def to_config(args, **kw):
+        cfg = real(args, **kw)
+        cfg.ckpt_every = 1
+        cfgs.append(cfg)
+        return cfg
+
+    runs = {}
+    with mock.patch.object(train_coarse_fineFEAT, "to_config", to_config), \
+            _rank_launches() as ranks:
+        for name, epochs in (("first", 2), ("resumed", 3)):
+            t1 = time.perf_counter()
+            res = train_coarse_fineFEAT.main(argv + ["--max-epochs",
+                                                     str(epochs)])
+            runs[name] = {"res": res, "s": time.perf_counter() - t1,
+                          "ranks": list(ranks)}
+    cfg = cfgs[0]
+    files = sorted(os.listdir(root / "models"))
+    model = CoarseNet("M", 157)
+    raw = load_checkpoint(str(root / "models" /
+                              f"{coarse_driver.PREFIX}_000002.ckpt"))
+    model.load_state_dict(raw["variables"], strict=True)
+    model.cuda()
+    _, val_loader = coarse_driver.build_coarse_loaders(cfg)
+    t1 = time.perf_counter()
+    one = coarse_driver._validate(
+        dataclasses.replace(cfg, localize_csv=None, mesh_devices=None),
+        TrainState.create(model), model, val_loader,
+        make_eval_step(model, align_corners=False), APMeter(),
+        torch.device("cuda"), torch.bfloat16)
+    one_s = time.perf_counter() - t1
+    first, resumed = runs["first"]["res"], runs["resumed"]["res"]
+    steps = {"first": 2, "resumed": 1}
+    row = {"phase": "dp_cli", "argv": argv, "world": DP_WORLD,
+           "checkpoints": files, "rank_loaders": len(raw.get(
+               "rank_loaders", [])),
+           "val_map": first.get("val_map"), "one_process_val_map": one,
+           "one_process_val_s": one_s,
+           "resumed_from": resumed.get("resumed_from"),
+           **{name: {"run_s": r["s"], "step_ms": r["res"]["step_ms"],
+                     "prefetch_wait_ms": r["res"]["prefetch_wait_ms"],
+                     "val_s": r["res"]["val_s"],
+                     "rank_launches": r["ranks"]}
+              for name, r in runs.items()}}
+    emit(row)
+    want = [f"{coarse_driver.PREFIX}_{s:06d}.ckpt" for s in (1, 2, 3)]
+    check(files == want, f"dp_cli: checkpoints {files} != {want}")
+    check(row["rank_loaders"] == DP_WORLD,
+          f"dp_cli: {row['rank_loaders']} rank loader positions")
+    check(np.isfinite(first["val_map"]) and abs(first["val_map"] - one)
+          <= 1e-6 * abs(one), f"dp_cli: val_map {first['val_map']} vs "
+                              f"one process {one}")
+    check(resumed["resumed_from"]["step"] == 2
+          and len(resumed["step_ms"]) == 1,
+          f"dp_cli: resumed {resumed.get('resumed_from')}, "
+          f"{len(resumed['step_ms'])} steps")
+    total: dict = {}
+    for name, r in runs.items():
+        n_val = len(r["res"]["val_s"])
+        for rank, got in enumerate(r["ranks"]):
+            want_l = {k: steps[name] * v for k, v in ACT_STEP.items()}
+            if rank == 0:
+                for k, v in EVAL_CALL.items():
+                    want_l[k] = want_l.get(k, 0) + v * DP_CLI_VAL * n_val
+            got_l = {k: v for k, v in got.items() if v}
+            check(got_l == {k: v for k, v in want_l.items() if v},
+                  f"dp_cli {name} rank {rank}: launches {got_l} != {want_l}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4723,6 +5351,12 @@ def main() -> int:
             torch.cuda.empty_cache()
             serve_http_launches, xl_launches = phase_serve_http(mods,
                                                                 fine_ckpt)
+            torch.cuda.empty_cache()
+            dp_train_launches = phase_dp_train(mods)
+            torch.cuda.empty_cache()
+            phase_dp_serve(mods)
+            torch.cuda.empty_cache()
+            dp_cli_launches = phase_dp_cli(mods)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
 
@@ -4791,6 +5425,8 @@ def main() -> int:
             "fine_driver_launches": fine_driver_launches[name],
             "cli_launches": cli_launches[name],
             "serve_http_launches": serve_http_launches.get(name, 0),
+            "dp_train_launches_per_rank": dp_train_launches.get(name, 0),
+            "dp_cli_launches": dp_cli_launches.get(name, 0),
             **({"xl": _xl_entry(xl_kernels[name], xl_launches[name])}
                if name in xl_kernels else {}),
             "timed_at": timed_at[path]})

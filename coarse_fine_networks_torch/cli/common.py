@@ -1,7 +1,9 @@
 """Shared command-line plumbing (counterpart of
 ``coarse_fine_networks_tpu/cli/common.py``): the JAX package's flags and
 defaults, plus ``--device``, the port's way to pick the card or the CPU
-(the JAX package picks its platform with ``JAX_PLATFORMS``)."""
+(the JAX package picks its platform with ``JAX_PLATFORMS``).
+``--mesh-devices N`` trains on N data-parallel ranks
+(:func:`..parallel.mesh.run_data_parallel`)."""
 
 from __future__ import annotations
 
@@ -27,8 +29,11 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="x3d_multigrid_kinetics .pt or the port's .ckpt")
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="data-parallel device count (not ported: > 1 "
-                        "raises)")
+                   help="data-parallel ranks: N > 1 spawns N processes "
+                        "(rank r on cuda:(r %% device_count); NCCL when each "
+                        "has a card of its own, else gloo), each loading its "
+                        "rows of every global batch; under torchrun, the "
+                        "world size")
     p.add_argument("--dtype", default="bfloat16",
                    choices=["float32", "bfloat16"])
     p.add_argument("--remat", action="store_true")

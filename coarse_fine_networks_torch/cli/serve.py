@@ -11,9 +11,12 @@ fine-feature cache and the model router, served over HTTP
     GET  /v1/models  /v1/stats  /healthz
 
 The JAX flags, plus ``--device`` (``cuda`` unless given): on the card the
-pipeline runs in bf16, on the CPU in f32.  ``--port 0`` picks a free port,
-which the ``serving on :<port>`` line names; SIGTERM or SIGINT drains and
-exits with 0.
+pipeline runs in bf16, on the CPU in f32.  ``--mesh-devices N`` serves
+data-parallel on N replicas of the pipeline, replica ``i`` on
+``cuda:(i % device_count)`` (on the CPU, N replicas on the CPU), each
+batch's rows split over them (:mod:`..serve.scheduler`); the placement is
+printed.  ``--port 0`` picks a free port, which the ``serving on :<port>``
+line names; SIGTERM or SIGINT drains and exits with 0.
 """
 
 from __future__ import annotations
@@ -29,11 +32,20 @@ import torch
 FINE_HEAD = ("fine.fc1.", "fine.fc2.")
 
 
-def check_one_device(mesh_devices: int | None) -> None:
-    """One process drives one card: ``mesh_devices > 1`` raises."""
-    if mesh_devices and mesh_devices > 1:
-        raise NotImplementedError("mesh_devices > 1: parallelism is not "
-                                  "ported (ROADMAP.md, queue 1, item 9)")
+def serving_devices(device: str, mesh_devices: int | None
+                    ) -> list[torch.device]:
+    """The replicas' devices: ``device`` alone, or with ``mesh_devices = N
+    > 1`` replica ``i`` on ``cuda:(i % device_count)`` (on the CPU, N
+    times the CPU)."""
+    from ..parallel.mesh import rank_device
+
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device")
+    n = mesh_devices or 1
+    if n <= 1:
+        return [dev]
+    return [rank_device(i, dev.type) for i in range(n)]
 
 
 def assemble_pipeline_variables(ckpt: str | None, fine_ckpt: str | None,
@@ -83,8 +95,9 @@ def caching_server(pipe, cache_bytes: int, max_batch: int,
                    request_timeout_s: float | None,
                    prewarm_dir: str | None = None):
     """A :class:`..serve.CachingVideoServer` over ``pipe``'s ``extract`` and
-    ``fuse`` on its device, with a cache of ``cache_bytes`` warmed from the
-    extraction bank ``prewarm_dir``."""
+    ``fuse`` on its device (or, given a list of pipelines on their
+    devices, data-parallel over their replicas), with a cache of
+    ``cache_bytes`` warmed from the extraction bank ``prewarm_dir``."""
     from ..serve import CachingVideoServer, FeatureCache
 
     cache = FeatureCache(capacity_bytes=cache_bytes)
@@ -92,10 +105,12 @@ def caching_server(pipe, cache_bytes: int, max_batch: int,
         n = cache.preload_dir(prewarm_dir)
         print(f"prewarmed {n} videos ({cache.nbytes / 1e9:.2f} GB) from "
               f"{prewarm_dir}", flush=True)
+    pipes = pipe if isinstance(pipe, (list, tuple)) else [pipe]
     return CachingVideoServer(
-        pipe.extract, pipe.fuse, cache=cache, max_batch=max_batch,
-        max_wait_ms=max_wait_ms, max_queue=max_queue,
-        request_timeout_s=request_timeout_s, device=pipe.device)
+        [p.extract for p in pipes], [p.fuse for p in pipes], cache=cache,
+        max_batch=max_batch, max_wait_ms=max_wait_ms, max_queue=max_queue,
+        request_timeout_s=request_timeout_s,
+        devices=[p.device for p in pipes])
 
 
 def build_server(variables, version: str, num_classes: int, port: int,
@@ -108,22 +123,25 @@ def build_server(variables, version: str, num_classes: int, port: int,
     :class:`..models.CoarseFinePipeline` of ``version`` on ``device``
     (in ``compute_dtype``: by default bf16 on the card, f32 on the CPU)
     loaded strictly with ``variables``, behind :func:`caching_server` and a
-    :class:`..serve.ModelRouter` (:func:`check_one_device`)."""
+    :class:`..serve.ModelRouter`; with ``mesh_devices = N > 1`` one
+    replica on each of :func:`serving_devices`."""
     from ..ckpt import load_strict
     from ..models import CoarseFinePipeline
     from ..serve import InferenceHTTPServer, ModelRouter
 
-    check_one_device(mesh_devices)
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r}: no CUDA device")
+    devices = serving_devices(device, mesh_devices)
     if compute_dtype is None:
-        compute_dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    pipe = CoarseFinePipeline(num_classes, version,
-                              compute_dtype=compute_dtype, device="cpu")
-    load_strict(pipe, variables)
-    pipe.to(dev)
-    server = caching_server(pipe, cache_bytes, max_batch, max_wait_ms,
+        compute_dtype = (torch.bfloat16 if devices[0].type == "cuda"
+                         else torch.float32)
+    pipes = []
+    for i, dev in enumerate(devices):
+        pipe = CoarseFinePipeline(num_classes, version,
+                                  compute_dtype=compute_dtype, device="cpu")
+        load_strict(pipe, variables)
+        pipes.append(pipe.to(dev))
+        if len(devices) > 1:
+            print(f"replica {i} on {dev}", flush=True)
+    server = caching_server(pipes, cache_bytes, max_batch, max_wait_ms,
                             max_queue, request_timeout_s, prewarm_dir)
     router = ModelRouter().register("coarse_fine", server, default=True)
     return InferenceHTTPServer(router, port=port)
@@ -146,8 +164,9 @@ def main(argv=None):
     p.add_argument("--prewarm-dir", default=None,
                    help="extract_fineFEAT bank dir to preload the cache")
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="data-parallel serving over N devices (not ported: "
-                        "> 1 raises)")
+                   help="data-parallel serving over N replicas, replica i "
+                        "on cuda:(i %% device_count); each batch's rows "
+                        "split over them")
     p.add_argument("--max-batch", type=int, default=4)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--max-queue", type=int, default=256)
@@ -156,7 +175,7 @@ def main(argv=None):
                    help="torch device to serve on (cuda: bf16; cpu: f32)")
     args = p.parse_args(argv)
 
-    check_one_device(args.mesh_devices)
+    serving_devices(args.device, args.mesh_devices)
     variables = assemble_pipeline_variables(
         args.ckpt, args.fine_ckpt, args.coarse_ckpt, args.version,
         args.num_classes)

@@ -16,7 +16,7 @@ from torch import nn
 
 from ..ops.pools import adaptive_avg_pool_spatial
 from .layers import dropout, pointwise
-from .x3d import X3DTrunk, get_inplanes
+from .x3d import X3DTrunk, get_inplanes, pad_width
 
 # Spatial size of the global-tower feature taps.
 TOWER_HW = 7
@@ -41,22 +41,32 @@ class FineNet(X3DTrunk):
     ``fc1``/``fc2`` exist only when the model returns logits, so a global
     tower's ``state_dict`` is the JAX pipeline's fine tower's.  With
     ``t_downsample`` the banks and the ``loc`` logits are at the stages'
-    frames (T/2 … T/16, the head's T/16)."""
+    frames (T/2 … T/16, the head's T/16).
+
+    ``channel_pad`` pads the mid and head widths (:class:`.x3d.X3DTrunk`)
+    for the tensor-parallel tower; the banks and the pooled features are
+    sliced back to the head's unpadded width, and ``fc1`` takes the padded
+    one, as in the JAX package."""
 
     def __init__(self, version: str = "M", n_classes: int = 157,
                  task: str = "loc", dropout_rate: float = 0.5,
                  extract_feat: bool = False, global_tower: bool = True,
-                 t_downsample: bool = False, remat: bool = False):
-        super().__init__(version, t_downsample=t_downsample, remat=remat)
+                 t_downsample: bool = False, remat: bool = False,
+                 channel_pad: int = 1):
+        super().__init__(version, t_downsample=t_downsample, remat=remat,
+                         channel_pad=channel_pad)
         if task not in ("loc", "class"):
             raise ValueError(f"task must be 'loc' or 'class', got {task!r}")
+        self.version, self.n_classes = version, n_classes
         self.task = task
         self.dropout_rate = dropout_rate
         self.extract_feat = extract_feat
         self.global_tower = global_tower
+        # the head's unpadded width: the banks' and pooled features'
+        self.head_planes = get_inplanes(version)[3][0]
         if not (global_tower or extract_feat):
-            self.fc1 = nn.Conv3d(get_inplanes(version)[3][0], 2048, 1,
-                                 bias=False)
+            self.fc1 = nn.Conv3d(pad_width(self.head_planes, channel_pad),
+                                 2048, 1, bias=False)
             self.fc2 = nn.Linear(2048, n_classes)
 
     def forward(self, x: torch.Tensor,
@@ -70,13 +80,20 @@ class FineNet(X3DTrunk):
             if self.global_tower:
                 feats[f"layer{i + 1}"] = adaptive_avg_pool_spatial(x, TOWER_HW)
         x = self.head(x)
+        return self.head_out(x, feats, generator)
+
+    def head_out(self, x: torch.Tensor, feats: dict,
+                 generator: torch.Generator | None = None):
+        """The head's output ``x`` (padded width) → the banks (``feats``
+        with ``conv5`` added), the pooled features or the logits."""
         if self.global_tower:
-            feats["conv5"] = adaptive_avg_pool_spatial(x, TOWER_HW)
+            feats["conv5"] = adaptive_avg_pool_spatial(
+                x[..., :self.head_planes], TOWER_HW)
             return feats
         axes = (1, 2, 3) if self.task == "class" else (2, 3)
         x = torch.mean(x, dim=axes, keepdim=True)
         if self.extract_feat:
-            return x
+            return x[..., :self.head_planes]
         x = torch.relu(pointwise(x, self.fc1.weight))
         x = x.reshape(x.shape[0], x.shape[1], -1)
         x = dropout(x, self.dropout_rate if self.training else 0.0, generator)

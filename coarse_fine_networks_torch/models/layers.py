@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.dw_mm_bn_train import mm_bn_train
+from ..parallel import mesh
 
 BN_MOMENTUM = 0.1  # the running-statistics update rate of SubBatchNorm
 
@@ -64,14 +65,20 @@ def dropout(x: torch.Tensor, rate: float,
             generator: torch.Generator | None) -> torch.Tensor:
     """Inverted dropout (flax's ``nn.Dropout``): each element is kept with
     probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the mask is
-    drawn from ``generator``.  ``rate == 0`` is the identity."""
+    drawn from ``generator``.  ``rate == 0`` is the identity.  Under data
+    parallelism the mask is drawn for the global batch (every rank's
+    generator in the same state) and the rank keeps its rows, so N ranks
+    drop what one process drops."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout needs an explicit torch.Generator")
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    n, w = x.shape[0], mesh.world()
+    draw = torch.rand((n * w,) + tuple(x.shape[1:]), generator=generator,
+                      device=x.device)
+    keep = draw[mesh.rank() * n:(mesh.rank() + 1) * n] >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
@@ -118,7 +125,17 @@ class SubBatchNorm(nn.Module):
     axes but batch and channel, in f32, with the one-pass variance
     ``E[x²] − E[x]²`` clamped at 0, and the momentum update goes to
     ``split_bn`` only (the JAX package's ``SubBatchNorm``); ``bn`` changes
-    only through :func:`aggregate_sub_bn_stats`."""
+    only through :func:`aggregate_sub_bn_stats`.
+
+    Under data parallelism (:mod:`..parallel.mesh`) the statistics are the
+    global batch's, as XLA reduces them over the JAX package's mesh: each
+    rank's per-split Σx, Σx² and count are summed over the ranks (in f32,
+    by an all-reduce with a backward, so the statistics' gradient is
+    reduced too) before the mean and the clamped variance.  Global row
+    ``i`` belongs to split ``i % num_splits``; a rank's local rows keep
+    that only when the local batch divides by ``num_splits``, else
+    training raises.  The running statistics come out equal on every
+    rank."""
 
     def __init__(self, num_features: int, num_splits: int = 1,
                  eps: float = 1e-5):
@@ -142,13 +159,20 @@ class SubBatchNorm(nn.Module):
         """Per-split f32 ``(mean, var)`` of ``xg (N/S, S, ..., C)`` over all
         axes but the split and the channel, and the running-stat update."""
         axes = (0,) + tuple(range(2, xg.dim() - 1))
-        mean = torch.mean(xg, dim=axes)
-        mean2 = torch.mean(torch.square(xg), dim=axes)
+        count = xg.numel() // (xg.shape[1] * xg.shape[-1])
+        if mesh.world() == 1:
+            mean = torch.mean(xg, dim=axes)
+            mean2 = torch.mean(torch.square(xg), dim=axes)
+        else:  # the global batch's: sums over the ranks' equal shards
+            count *= mesh.world()
+            tot = mesh.all_reduce_sum(torch.stack([
+                torch.sum(xg, dim=axes),
+                torch.sum(torch.square(xg), dim=axes)]))
+            mean, mean2 = tot[0] / count, tot[1] / count
         # the one-pass form can cancel below 0 in f32 when |mean| >> std;
         # torch.maximum splits the gradient at a tie as JAX's maximum does
         var = torch.maximum(mean2 - torch.square(mean), mean.new_zeros(()))
-        self._update_split_stats(mean, var,
-                                 xg.numel() // (xg.shape[1] * xg.shape[-1]))
+        self._update_split_stats(mean, var, count)
         return mean, var
 
     def _update_split_stats(self, mean: torch.Tensor, var: torch.Tensor,
@@ -170,6 +194,11 @@ class SubBatchNorm(nn.Module):
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         n, s = x.shape[0], self.num_splits
         if n % s:
+            if mesh.world() > 1:
+                raise ValueError(
+                    f"local batch {n} of {mesh.world()} ranks not divisible "
+                    f"by num_splits {s}: global row i belongs to split i % "
+                    f"{s} only when (B/N) % num_splits == 0")
             raise ValueError(f"batch {n} not divisible by num_splits {s}")
         return x.float().reshape((n // s, s) + tuple(x.shape[1:]))
 
@@ -193,12 +222,14 @@ class SubBatchNorm(nn.Module):
         backward (:func:`..ops.dw_mm_bn_train.mm_bn_train`; the JAX
         package's ``FoldedSubBatchNorm`` in ``dw_fuse`` mode).  Returns the
         conv output and updates the split statistics from the composite's
-        mean and variance over ``B·T·H·W`` positions."""
+        mean and variance over the ``B·T·H·W`` positions of every rank's
+        equal shard."""
         if self.num_splits != 1:
             raise ValueError("train_mm_entry needs num_splits == 1")
         y, mean, var = mm_bn_train(x, w1, w_dw, self.weight, self.bias,
                                    stride, self.eps)
-        self._update_split_stats(mean, var, x.numel() // x.shape[-1])
+        self._update_split_stats(mean, var,
+                                 x.numel() // x.shape[-1] * mesh.world())
         return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -89,11 +89,17 @@ class Bottleneck(nn.Module):
     applies bn1 and the relu in PyTorch (the result in x's dtype, as the JAX
     package rounds it) and only conv2 runs as a kernel, with a kernel
     backward.  With ``t_downsample`` a strided block strides T too, (2, 2,
-    2), and takes that last route in every mode."""
+    2), and takes that last route in every mode.
+
+    ``se_planes`` (default ``mid_planes``) is the width the SE squeeze is
+    rounded from (:func:`.layers.round_width`): a ``channel_pad`` tower
+    passes the unpadded mid width, so its SE convs are the unpadded
+    tower's up to zero blocks."""
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  stride: int = 1, use_se: bool = False,
-                 has_downsample: bool = False, t_downsample: bool = False):
+                 has_downsample: bool = False, t_downsample: bool = False,
+                 se_planes: int | None = None):
         super().__init__()
         s = stride
         self.stride = stride
@@ -106,7 +112,7 @@ class Bottleneck(nn.Module):
         self.bn2 = SubBatchNorm(mid_planes)
         self.use_se = use_se
         if use_se:
-            width = round_width(mid_planes)
+            width = round_width(se_planes or mid_planes)
             self.fc1 = nn.Conv3d(mid_planes, width, 1, bias=True)
             self.fc2 = nn.Conv3d(width, mid_planes, 1, bias=True)
         self.conv3 = nn.Conv3d(mid_planes, out_planes, 1, bias=False)
@@ -188,12 +194,12 @@ class X3DStage(nn.Sequential):
 
     def __init__(self, in_planes: int, mid_planes: int, out_planes: int,
                  num_blocks: int, stride: int = 2, t_downsample: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, se_planes: int | None = None):
         super().__init__(*[
             Bottleneck(in_planes if i == 0 else out_planes, mid_planes,
                        out_planes, stride=stride if i == 0 else 1,
                        use_se=(i % 2 == 0), has_downsample=(i == 0),
-                       t_downsample=t_downsample)
+                       t_downsample=t_downsample, se_planes=se_planes)
             for i in range(num_blocks)])
         self.remat = remat
 
@@ -246,27 +252,43 @@ class X3DHead(nn.Module):
         return torch.relu(self.bn5(pointwise(x, self.conv5.weight)))
 
 
+def pad_width(width: int, multiple: int) -> int:
+    """``width`` rounded up to a multiple of ``multiple`` (tensor-parallel
+    channel padding)."""
+    return -(-width // multiple) * multiple
+
+
 class X3DTrunk(nn.Module):
     """Stem, four stages and head with the reference's top-level names
     (``conv1_s``, ``conv1_t``, ``bn1``, ``layer1``–``layer4``, ``conv5``,
     ``bn5``), shared by :class:`..fine.FineNet` and
     :class:`..coarse.CoarseNet`; ``t_downsample`` and ``remat`` go to every
-    stage (:class:`X3DStage`)."""
+    stage (:class:`X3DStage`).
+
+    ``channel_pad > 1`` rounds every mid width and the head's width up to
+    a multiple of it (:func:`pad_width`), so that each tensor-parallel
+    shard of them has the same width (:mod:`..parallel.tensor`); the SE
+    squeeze stays ``round_width`` of the unpadded mid.  With the padded
+    parameters zero (batch-norm variances one) the extra channels are
+    inert in eval, as in the JAX package's ``channel_pad``."""
 
     def __init__(self, version: str = "M", t_downsample: bool = False,
-                 remat: bool = False):
+                 remat: bool = False, channel_pad: int = 1):
         super().__init__()
         planes, blocks = get_inplanes(version), get_blocks(version)
+        self.channel_pad = channel_pad
         stem = X3DStem(planes[0][1])
         self.conv1_s, self.conv1_t, self.bn1 = (stem.conv1_s, stem.conv1_t,
                                                 stem.bn1)
         in_planes = planes[0][1]
         for i, ((mid, out), n) in enumerate(zip(planes, blocks)):
             self.add_module(f"layer{i + 1}",
-                            X3DStage(in_planes, mid, out, n, stride=2,
-                                     t_downsample=t_downsample, remat=remat))
+                            X3DStage(in_planes, pad_width(mid, channel_pad),
+                                     out, n, stride=2,
+                                     t_downsample=t_downsample, remat=remat,
+                                     se_planes=mid))
             in_planes = out
-        head = X3DHead(planes[3][1], planes[3][0])
+        head = X3DHead(planes[3][1], pad_width(planes[3][0], channel_pad))
         self.conv5, self.bn5 = head.conv5, head.bn5
 
     def stem(self, x: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,7 @@ import os
 
 import torch
 
+from ..parallel import mesh
 from .dw_mm_act import (DX_S1_LIBRARY, _check,
                         _check_kernel_input, _launch, _mm_product,
                         dw_mm_bnrelu_conv3d, dw_mm_wgrad, mm_f32, stencil_f32)
@@ -119,16 +120,25 @@ def mm_bn_stats(x: torch.Tensor, w1: torch.Tensor, gamma: torch.Tensor,
     ``E[z²] = (Wᵀ·xᵀx·W)_oo / N``; the one-pass variance ``E[z²] − mean²``
     cancels below 0 in f32 when ``|mean| ≫ std`` and is clamped at 0 with
     ``torch.maximum`` (which splits a tie as JAX's ``maximum`` does).
-    Returns ``(mean, var, r, sc, bi, gram, s1, n)``: ``r = rsqrt(var +
-    eps)``, bn1's f32 apply vectors ``sc = γ·r`` and ``bi = β − mean·sc``,
-    and the ``(xᵀx, Σx, N)`` the closed-form backward reuses."""
+    Under data parallelism (:mod:`..parallel.mesh`) xᵀx, Σx and N are
+    summed over the ranks first, where JAX's partitioner reduced them, so
+    the statistics are the global batch's.  Returns ``(mean, var, r, sc,
+    bi, gram, s1, n)``: ``r = rsqrt(var + eps)``, bn1's f32 apply vectors
+    ``sc = γ·r`` and ``bi = β − mean·sc``, this rank's own ``(xᵀx, Σx)``
+    and the global N, which the closed-form backward reuses."""
     x2 = x.reshape(-1, x.shape[-1])
     n = x2.shape[0]
     wf = w1.float()
     gram = mm_f32(x2.t(), x2)
     s1 = torch.sum(x2, dim=0, dtype=torch.float32)
-    mean = (s1 @ wf) / n
-    szz = torch.sum((gram @ wf) * wf, dim=0)
+    gram_g, s1_g = gram, s1
+    if mesh.world() > 1:
+        c = gram.shape[0]
+        tot = mesh.all_reduce_sum(torch.cat([
+            gram.reshape(-1), s1, s1.new_full((1,), n)]))
+        gram_g, s1_g, n = tot[:c * c].view(c, c), tot[c * c:-1], tot[-1]
+    mean = (s1_g @ wf) / n
+    szz = torch.sum((gram_g @ wf) * wf, dim=0)
     var = torch.maximum(szz / n - torch.square(mean), mean.new_zeros(()))
     r = torch.rsqrt(var + eps)
     sc = gamma * r
@@ -149,7 +159,15 @@ class DwMmBnTrain(torch.autograd.Function):
         dγ = S2,  dβ = S1
 
     with ``Σ dam·z = ⟨W, xᵀdam⟩`` (the product is never re-read) and JAX's
-    casts to x's dtype in the same places."""
+    casts to x's dtype in the same places.
+
+    Under data parallelism the forward's statistics are global
+    (:func:`mm_bn_stats`) and the backward sums ``S1`` and ``⟨W, xᵀdam⟩``
+    over the ranks before ``A`` and ``B``; ``dx`` applies the global ``A``
+    and ``B`` to this rank's rows, and ``dW``, ``dγ`` and ``dβ`` are this
+    rank's share (its own ``xᵀdam``, Σx, Gram, ``S1`` and ``S2``), so
+    their sum over the ranks, which the gradient reduction takes, is the
+    global batch's."""
 
     @staticmethod
     def forward(ctx, x, w1, w_dw, gamma, beta, stride, eps):
@@ -174,9 +192,15 @@ class DwMmBnTrain(torch.autograd.Function):
         s1d = torch.sum(dam2, dim=0, dtype=torch.float32)
         gmat = mm_f32(x2.t(), dam2)
         s2 = r * (torch.sum(wf * gmat, dim=0) - mean * s1d)
+        s1d_g, s2_g = s1d, s2
+        if mesh.world() > 1:  # the global S1 and ⟨W, xᵀdam⟩ for A and B
+            tot = mesh.all_reduce_sum(torch.cat([
+                s1d, torch.sum(wf * gmat, dim=0)]))
+            s1d_g = tot[:c_mid]
+            s2_g = r * (tot[c_mid:] - mean * s1d_g)
         sc_c = gamma * r
-        a = sc_c * (r * mean * s2 - s1d) / n
-        b = -(sc_c * r * s2) / n
+        a = sc_c * (r * mean * s2_g - s1d_g) / n
+        b = -(sc_c * r * s2_g) / n
         w_sc = (wf * sc).to(x.dtype)
         m_corr = ((wf * b) @ wf.t()).to(x.dtype)
         dx = (mm_f32(dam2, w_sc.t()) + mm_f32(x2, m_corr)

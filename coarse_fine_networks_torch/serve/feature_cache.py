@@ -16,7 +16,7 @@ from __future__ import annotations
 import collections
 import os
 import threading
-from typing import Callable, Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -115,20 +115,23 @@ class CachingVideoServer(VideoServer):
     """:class:`VideoServer` with a fine-feature cache between the streams.
 
     Args:
-      extract_fn: ``fine_clips (B, T_f, H, W, 3) -> feats`` on ``device``,
+      extract_fn: ``fine_clips (B, T_f, H, W, 3) -> feats`` on its device,
         e.g. :meth:`..models.CoarseFinePipeline.extract`.
       fuse_fn: ``(clips, feats, feat_mask, meta, label_len) -> probs``,
         e.g. :meth:`..models.CoarseFinePipeline.fuse`.
       cache: a :class:`FeatureCache`; a fresh 1 GiB one by default.
 
     ``submit(..., video_id=...)`` caches that request's banks; a hit may omit
-    ``fine_clips`` entirely."""
+    ``fine_clips`` entirely.  With a list of ``devices`` (data-parallel
+    serving, :mod:`.scheduler`) ``extract_fn`` and ``fuse_fn`` are each one function
+    for every device or a sequence of replicas, and both programs split
+    their rows over the devices."""
 
-    def __init__(self, extract_fn: Callable, fuse_fn: Callable,
+    def __init__(self, extract_fn, fuse_fn,
                  cache: Optional[FeatureCache] = None, **kw):
         super().__init__(apply_fn=None, **kw)
-        self._extract = extract_fn
-        self._fuse = fuse_fn
+        self._extract = self._replicas(extract_fn)
+        self._fuse = self._replicas(fuse_fn)
         self.cache = cache if cache is not None else FeatureCache()
 
     def submit(self, clips: np.ndarray,
@@ -173,8 +176,8 @@ class CachingVideoServer(VideoServer):
                 for j, i in enumerate(miss):
                     tf = reqs[i].fine_clips.shape[0]
                     fine[j, :tf] = reqs[i].fine_clips
-                miss_feats = {k: v.float().cpu().numpy() for k, v in
-                              self._extract(self._tensor(fine)).items()}
+                miss_feats = self._run_rows(self._extract, (fine,),
+                                            lambda fn, dev, x: fn(x[0]))
                 for j, i in enumerate(miss):
                     r = reqs[i]
                     if r.video_id is not None:
@@ -196,7 +199,7 @@ class CachingVideoServer(VideoServer):
                         fk[i, :r.cached[1]] = r.cached[0][k]
                     else:
                         fk[i] = miss_feats[k][mi[i]]
-                feats[k] = self._tensor(fk)
+                feats[k] = fk
 
             clips = np.zeros((b, t_pad, h, w, 3), np.float32)
             feat_mask = np.zeros((b, tf_pad), np.float32)
@@ -209,8 +212,9 @@ class CachingVideoServer(VideoServer):
                 feat_mask[i, :tf] = 1.0
                 meta[i] = (r.meta if r.meta is not None
                            else np.asarray([0, t, tf, 1], np.int32))
-            probs = self._fuse(self._tensor(clips), feats,
-                               self._tensor(feat_mask), self._tensor(meta),
-                               4 * t_pad)
-            probs = probs.float().cpu().numpy()
+            keys = sorted(feats)
+            probs = self._run_rows(
+                self._fuse, [clips, feat_mask, meta] + [feats[k] for k in keys],
+                lambda fn, dev, x: fn(x[0], dict(zip(keys, x[3:])), x[1],
+                                      x[2], 4 * t_pad))
         self._finish(reqs, probs)

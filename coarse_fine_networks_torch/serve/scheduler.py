@@ -23,6 +23,14 @@ Serving semantics:
 
 Buckets key on both temporal lengths and the spatial sizes of both streams,
 so mixed-resolution traffic is never fused into one batch.
+
+**Data-parallel serving** (the JAX server's mesh): given a list of
+``devices``, the server runs one replica of the model function on each device; a batch is
+padded to a multiple of the device count with copies of its row 0, its
+rows split in equal contiguous parts, one part a replica (each launched
+before any result is read, so the devices run together), and the results
+are put back in row order and the padding sliced away
+(:func:`_shard_rows`, the JAX package's ``_shard_rows``).
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ import dataclasses
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +55,38 @@ def _bucket_up(n: int, multiple: int) -> int:
     while m < n:
         m *= 2
     return m
+
+
+def _shard_rows(arrays: Sequence[np.ndarray], n: int
+                ) -> Tuple[List[List[np.ndarray]], int]:
+    """Each of ``n`` devices' contiguous rows of host batch ``arrays``,
+    the batch first padded up to a multiple of ``n`` with copies of row 0
+    (benign inputs whose outputs are sliced away); returns the per-device
+    lists and the padded batch size."""
+    b = arrays[0].shape[0]
+    pb = -(-b // n) * n
+    parts: List[List[np.ndarray]] = [[] for _ in range(n)]
+    for a in arrays:
+        if pb != b:
+            a = np.concatenate([a, np.repeat(a[:1], pb - b, axis=0)], axis=0)
+        for i, p in enumerate(np.split(a, n)):
+            parts[i].append(p)
+    return parts, pb
+
+
+def _host(out):
+    """A model output (a tensor or a dict of tensors) as f32 numpy."""
+    if isinstance(out, dict):
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+    return out.float().cpu().numpy()
+
+
+def _rows_back(outs: list, b: int):
+    """The replicas' outputs concatenated in row order, cut to ``b``
+    rows."""
+    if isinstance(outs[0], dict):
+        return {k: np.concatenate([o[k] for o in outs])[:b] for k in outs[0]}
+    return np.concatenate(outs)[:b]
 
 
 @dataclasses.dataclass
@@ -78,7 +118,8 @@ class VideoServer:
 
     Args:
       apply_fn: ``(clips, fine_clips, meta, label_len, fine_mask) -> probs``
-        on tensors of ``device`` (e.g. a :class:`..models.CoarseFinePipeline`);
+        on tensors of its device (e.g. a
+        :class:`..models.CoarseFinePipeline`);
         called under ``torch.inference_mode()``.
       max_batch: upper bound on requests fused into one call.
       max_wait_ms: how long a non-full batch is held open for same-bucket
@@ -88,18 +129,23 @@ class VideoServer:
       request_timeout_s: if set, requests that wait longer fail with
         ``TimeoutError``.
       priority_aging_s: seconds of waiting worth one priority level.
-      device: where batches are placed; ``"cuda"`` unless the caller asks
-        for the CPU.
+      devices: where batches are placed: ``"cuda"`` unless the caller
+        asks for the CPU; a list of devices serves data-parallel over them
+        (module docstring), ``apply_fn`` then one function for every
+        device or a sequence of replicas, one a device.
     """
 
-    def __init__(self, apply_fn: Optional[Callable], max_batch: int = 4,
+    def __init__(self, apply_fn, max_batch: int = 4,
                  max_wait_ms: float = 5.0, bucket_multiple: int = 16,
                  max_queue: int = 256,
                  request_timeout_s: Optional[float] = None,
                  priority_aging_s: float = 1.0,
-                 device: str | torch.device = "cuda"):
-        self._apply = apply_fn
-        self.device = torch.device(device)
+                 devices: str | torch.device | Sequence = "cuda"):
+        if isinstance(devices, (str, torch.device)):
+            devices = [devices]
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self._apply = self._replicas(apply_fn)
         self.priority_aging = priority_aging_s
         self.max_batch = max_batch
         self.max_wait = max_wait_ms / 1e3
@@ -225,8 +271,34 @@ class VideoServer:
                     self.cancelled += 1
             return best_key, out
 
+    def _replicas(self, fn) -> Optional[list]:
+        """One function a device: ``fn`` itself for each, or the given
+        replicas."""
+        if fn is None:
+            return None
+        fns = list(fn) if isinstance(fn, (list, tuple)) else \
+            [fn] * len(self.devices)
+        if len(fns) != len(self.devices):
+            raise ValueError(f"{len(fns)} replicas for "
+                             f"{len(self.devices)} devices")
+        return fns
+
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _run_rows(self, fns: list, arrays: Sequence[np.ndarray],
+                  call: Callable):
+        """``call(fn, device, tensors)`` on each device's rows of host batch
+        ``arrays`` (:func:`_shard_rows`; on one device the whole batch),
+        every replica launched before any result is read; returns the
+        outputs as f32 numpy in row order."""
+        if len(self.devices) == 1:
+            return _host(call(fns[0], self.device,
+                              [self._tensor(a) for a in arrays]))
+        parts, _ = _shard_rows(arrays, len(self.devices))
+        outs = [call(fn, dev, [torch.from_numpy(a).to(dev) for a in part])
+                for fn, dev, part in zip(fns, self.devices, parts)]
+        return _rows_back([_host(o) for o in outs], arrays[0].shape[0])
 
     def _run_batch(self, key, reqs):
         t_pad, tf_pad, h, w, fh, fw = key
@@ -244,10 +316,10 @@ class VideoServer:
             meta[i] = (r.meta if r.meta is not None
                        else np.asarray([0, t, tf, 1], np.int32))
         with torch.inference_mode():
-            probs = self._apply(self._tensor(clips), self._tensor(fine),
-                                self._tensor(meta), 4 * t_pad,
-                                fine_mask=self._tensor(fine_mask))
-            probs = probs.float().cpu().numpy()
+            probs = self._run_rows(
+                self._apply, (clips, fine, meta, fine_mask),
+                lambda fn, dev, x: fn(x[0], x[1], x[2], 4 * t_pad,
+                                      fine_mask=x[3]))
         self._finish(reqs, probs)
 
     def _finish(self, reqs, probs: np.ndarray) -> None:

@@ -18,9 +18,17 @@ Beside the JAX driver's results (``train_map``, ``val_map``, with
 the host) and ``prefetch_wait_ms`` (the part spent waiting for the device
 prefetcher), per validation ``val_s``, and after a resume
 ``resumed_from`` (the step and the input position).  Nothing is compiled,
-so the JAX driver's ``val_jit_shapes`` has no counterpart.  One process:
-``mesh_devices > 1`` raises.  ``remat`` recomputes each bottleneck in the
-backward, as the JAX driver's model does.
+so the JAX driver's ``val_jit_shapes`` has no counterpart.  ``remat``
+recomputes each bottleneck in the backward, as the JAX driver's model
+does.
+
+``mesh_devices = N > 1`` trains data-parallel on N ranks
+(:func:`..parallel.mesh.run_data_parallel`): each rank loads its rows of
+every global batch (the loader's ``shard=``), the step reduces what the
+global batch needs (:func:`.steps.make_train_step`), rank 0 gathers the
+rows for the train mAP and writes the checkpoints, and validation with the
+localize CSV runs unsharded on rank 0 while the others wait, as in the JAX
+driver; ``run`` returns rank 0's results.
 """
 
 from __future__ import annotations
@@ -39,10 +47,10 @@ from ..metrics import APMeter, LocalizeCSVWriter, subsample_25
 from ..models import CoarseNet, init_parameters
 from ..models.surgery import set_bn_splits
 from ..ops.resample import linear_resize
-from .common import (check_ported, driver_device, iter_train_batches,
-                     load_pretrained, model_batch, preemption_guard, resume,
-                     save_train_state)
-from .fine_driver import _add_ap_batches, build_transforms
+from ..parallel import mesh
+from .common import (driver_device, iter_train_batches, load_pretrained,
+                     model_batch, preemption_guard, resume, save_train_state)
+from .fine_driver import _add_ap_ranks, build_transforms, train_shard
 from .optim import build_schedule
 from .state import TrainState
 from .steps import bn_aggregated, make_eval_step, make_train_step
@@ -79,7 +87,7 @@ def build_coarse_loaders(cfg):
     train_loader = PrefetchLoader(train_ds, cfg.batch_size, collate,
                                   shuffle=True, num_workers=cfg.num_workers,
                                   prefetch=cfg.prefetch, drop_last=True,
-                                  seed=cfg.seed)
+                                  seed=cfg.seed, shard=train_shard())
     val_loader = PrefetchLoader(
         val_ds, cfg.val_batch_size or 1, val_collate, shuffle=False,
         num_workers=cfg.num_workers, prefetch=cfg.prefetch,
@@ -123,7 +131,12 @@ def _evaluating(model: CoarseNet, crops: int):
 def run(cfg) -> Dict[str, Any]:
     """Train and validate the coarse stream under the preemption guard: an
     interruption (SIGTERM, an error) checkpoints the latest step before it
-    propagates, and ``maybe_resume`` continues from it."""
+    propagates, and ``maybe_resume`` continues from it.  On
+    ``cfg.mesh_devices`` ranks (rank 0's results)."""
+    return mesh.run_data_parallel(_run, cfg)
+
+
+def _run(cfg) -> Dict[str, Any]:
     state_box: Dict[str, Any] = {"state": None, "sched": None}
     with preemption_guard(cfg, PREFIX, state_box):
         return _run_impl(cfg, state_box)
@@ -138,7 +151,6 @@ def _run_impl(cfg, state_box) -> Dict[str, Any]:
     np.random.seed(cfg.seed)
     if not cfg.fine_feat_dir:
         raise ValueError("coarse training needs fine_feat_dir")
-    check_ported(cfg)
     device = driver_device(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
@@ -167,6 +179,7 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     results: Dict[str, Any] = {"step_ms": [], "prefetch_wait_ms": [],
                                "val_s": []}
     epochs = resume(cfg, PREFIX, state, sched, train_loader, None, results)
+    mesh.replicate(model)
 
     fusion_mult = cfg.fusion_lr_mult or 10.0
     train_step = make_train_step(
@@ -199,8 +212,8 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
             loss = float(metrics["loss"])  # waits for the step
             tot["loss"] += loss
             tot["n"] += 1
-            _add_ap_batches(tr_apm, metrics["probs"].float().cpu().numpy(),
-                            host_batches)
+            _add_ap_ranks(tr_apm, metrics["probs"].float().cpu().numpy(),
+                          host_batches)
             results["step_ms"].append((time.perf_counter() - t_prev) * 1e3)
             results["prefetch_wait_ms"].append(waits[-1] * 1e3)
             step_i = state.step
@@ -228,10 +241,14 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
         if epochs % k:
             continue
         t_val = time.perf_counter()
-        results["val_map"] = _validate(cfg, state, model, val_loader,
-                                       eval_step, val_apm, device, dtype)
+        bn_aggregated(state)
+        if mesh.rank() == 0:  # unsharded, as in the JAX driver
+            results["val_map"] = _validate(cfg, state, model, val_loader,
+                                           eval_step, val_apm, device, dtype)
+            log.info("epoch %d VAL mAP(25fr) %.4f", epochs,
+                     results["val_map"])
+        mesh.barrier()
         results["val_s"].append(time.perf_counter() - t_val)
-        log.info("epoch %d VAL mAP(25fr) %.4f", epochs, results["val_map"])
         sched.epoch_step()
         if cfg.max_steps and state.step >= cfg.max_steps:
             return results

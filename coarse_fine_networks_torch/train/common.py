@@ -19,6 +19,7 @@ from ..ckpt import (checkpoint_tensors, latest_checkpoint, load_checkpoint,
                     save_checkpoint)
 from ..data.device_prefetch import DevicePrefetcher
 from ..data.transforms import CHARADES_MEAN, CHARADES_STD, device_normalize
+from ..parallel import mesh
 from .state import TrainState
 
 log = logging.getLogger("cfn_torch")
@@ -112,14 +113,16 @@ def iter_train_batches(loader, cfg, batch_size=None, waits=None,
     With ``cfg.num_steps_per_update > 1``, that many consecutive batches
     stack into one device batch with a leading micro-step axis; a shape
     change flushes the partial group.  Batches short of ``batch_size``
-    (default ``cfg.batch_size``) are skipped.  The loader is told of each
+    (default ``cfg.batch_size``; under data parallelism the global batch,
+    of which the loader yields this rank's ``batch_size / world`` rows) are
+    skipped.  The loader is told of each
     batch the loop takes (:meth:`..data.loader.PrefetchLoader.consumed`),
     so a checkpoint's input position excludes the batches still held
     ahead."""
     accum = max(cfg.num_steps_per_update, 1)
     dtype = getattr(torch, cfg.compute_dtype)
     device = driver_device(cfg)
-    local_bs = batch_size or cfg.batch_size
+    local_bs = (batch_size or cfg.batch_size) // mesh.world()
     src = (b for b in loader if b["clips"].shape[0] == local_bs)
     put = to_device or model_batch
     prefetched = DevicePrefetcher(
@@ -185,11 +188,14 @@ def preemption_guard(cfg, prefix: str, state_ref: dict):
     except BaseException:
         state = state_ref.get("state")
         if state is not None and state_ref.get("sched") is not None:
-            try:
+            try:  # no collective: the other ranks may not be here
                 path = save_train_state(cfg, prefix, state,
                                         state_ref["sched"],
-                                        loader=state_ref.get("loader"))
-                log.warning("preemption/crash checkpoint saved: %s", path)
+                                        loader=state_ref.get("loader"),
+                                        gather=False)
+                if path is not None:
+                    log.warning("preemption/crash checkpoint saved: %s",
+                                path)
             except Exception:  # noqa: BLE001 — the original error wins
                 log.exception("failed to save preemption checkpoint")
         raise
@@ -199,17 +205,31 @@ def preemption_guard(cfg, prefix: str, state_ref: dict):
 
 
 def save_train_state(cfg, prefix: str, state: TrainState, sched,
-                     loader=None) -> str:
+                     loader=None, gather: bool = True) -> str | None:
     """Checkpoint the model, the optimizer (momentum), the step, the
     schedule and, with ``loader``, the input position to
-    ``save_dir/<prefix>_<step:06d>.ckpt``; returns the path."""
+    ``save_dir/<prefix>_<step:06d>.ckpt``; returns the path.
+
+    Under data parallelism every rank calls this at the same step and
+    rank 0 alone writes (the JAX package's one writer; every rank holds
+    the same state); with ``gather`` the file also keeps each rank's own
+    loader position (``rank_loaders``, gathered from the ranks), which
+    :func:`maybe_resume` gives back to each rank.  The other ranks return
+    None."""
+    pos = loader.state_dict() if loader is not None else None
+    ranks = (mesh.all_gather_objects(pos)
+             if gather and pos is not None and mesh.world() > 1 else None)
+    if mesh.rank() != 0:
+        return None
     path = os.path.join(cfg.save_dir, f"{prefix}_{int(state.step):06d}.ckpt")
     payload = {"variables": state.model.state_dict(),
                "optimizer": state.optimizer.state_dict(),
                "step": int(state.step),
                "scheduler": sched.state_dict()}
-    if loader is not None:
-        payload["loader"] = loader.state_dict()
+    if pos is not None:
+        payload["loader"] = pos
+    if ranks is not None:
+        payload["rank_loaders"] = ranks
     save_checkpoint(path, payload)
     log.info("saved checkpoint %s", path)
     return path
@@ -222,7 +242,10 @@ def maybe_resume(cfg, prefix: str, state: TrainState, sched,
     ``loader`` its input position.  ``before_load(payload)`` runs after
     the position is restored and before the model's tensors are (the long
     cycle gives the model the saved phase's batch-norm splits there).  The
-    state is returned, unchanged when there is nothing to resume."""
+    state is returned, unchanged when there is nothing to resume.  Every
+    rank of a data-parallel group reads the same file and takes its own
+    loader position when the file keeps one per rank of a group of this
+    size (:func:`save_train_state`), else the file's."""
     if not cfg.resume:
         return state
     path = latest_checkpoint(cfg.save_dir, prefix)
@@ -231,6 +254,9 @@ def maybe_resume(cfg, prefix: str, state: TrainState, sched,
     raw = load_checkpoint(path)
     log.info("resuming from %s (step %d)", path, raw["step"])
     sched.load_state_dict(raw["scheduler"])
+    ranks = raw.get("rank_loaders")
+    if ranks is not None and len(ranks) == mesh.world():
+        raw["loader"] = ranks[mesh.rank()]
     if loader is not None and "loader" in raw:
         loader.load_state_dict(raw["loader"])
     if before_load is not None:
@@ -260,10 +286,3 @@ def resume(cfg, prefix: str, state: TrainState, sched, loader,
     results["resumed_from"] = {"step": state.step, "epoch": pos["epoch"],
                                "pos": pos["pos"]}
     return pos["epoch"]
-
-
-def check_ported(cfg) -> None:
-    """Raise on the options the port does not have yet."""
-    if cfg.mesh_devices and cfg.mesh_devices > 1:
-        raise NotImplementedError("mesh_devices > 1: parallelism is not "
-                                  "ported (ROADMAP.md, queue 1, item 9)")

@@ -56,7 +56,7 @@ class DriverConfig:
     align_corners: bool = True     # fine: True; coarse driver: False
     compute_dtype: str = "float32"
     remat: bool = False            # recompute each bottleneck in backward
-    mesh_devices: Optional[int] = None  # > 1 not ported: raises
+    mesh_devices: Optional[int] = None  # > 1: data-parallel ranks
     min_frames: Optional[int] = None
     crop_size_override: Optional[int] = None
     pad_t_multiple: Optional[int] = 16

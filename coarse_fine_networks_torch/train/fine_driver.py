@@ -19,9 +19,12 @@ Beside the JAX driver's results the port records ``step_ms``,
 :mod:`.coarse_driver` does.  A resumed run continues in the saved epoch,
 so under the long cycle in the saved phase; the JAX driver restarts its
 epoch count at 0, which puts a run resumed in phase C back at phase A's
-shapes against a loader position counted in phase C's batches.  One
-process: ``mesh_devices > 1`` raises.  ``remat`` recomputes each
-bottleneck in the backward, as the JAX driver's model does.
+shapes against a loader position counted in phase C's batches.
+``remat`` recomputes each bottleneck in the backward, as the JAX driver's
+model does.  ``mesh_devices = N > 1`` trains data-parallel on N ranks as
+:mod:`.coarse_driver` does; the long cycle's batch-norm splits hold per
+rank while every phase's local batch divides by its split count
+(:class:`..models.layers.SubBatchNorm`).
 """
 
 from __future__ import annotations
@@ -43,9 +46,9 @@ from ..data.transforms import (CenterCropScaled, Compose,
 from ..metrics import APMeter
 from ..models import FineNet, init_parameters
 from ..models.surgery import set_bn_splits
-from .common import (check_ported, driver_device, iter_train_batches,
-                     load_pretrained, model_batch, preemption_guard, resume,
-                     save_train_state)
+from ..parallel import mesh
+from .common import (driver_device, iter_train_batches, load_pretrained,
+                     model_batch, preemption_guard, resume, save_train_state)
 from .multigrid import LongCycleRunner, LongCycleSchedule
 from .optim import build_schedule
 from .state import TrainState
@@ -67,6 +70,12 @@ def build_transforms(cfg):
     ])
     val_t = Compose([CenterCropScaled(cfg.crop_size)])
     return train_t, val_t
+
+
+def train_shard():
+    """The train loader's ``shard=``: this rank's ``(rank, world)`` in a
+    data-parallel group, else None."""
+    return mesh.process_shard() if mesh.world() > 1 else None
 
 
 def build_fine_loaders(cfg):
@@ -93,7 +102,7 @@ def build_fine_loaders(cfg):
     train_loader = PrefetchLoader(train_ds, cfg.batch_size, collate,
                                   shuffle=True, num_workers=cfg.num_workers,
                                   prefetch=cfg.prefetch, drop_last=True,
-                                  seed=cfg.seed)
+                                  seed=cfg.seed, shard=train_shard())
     val_loader = PrefetchLoader(
         val_ds, cfg.val_batch_size or max(cfg.batch_size // 2, 1),
         val_collate, shuffle=False, num_workers=cfg.num_workers,
@@ -122,10 +131,26 @@ def _add_ap_batches(apm: APMeter, probs: np.ndarray, host_batches) -> None:
                 host_batches[0]["masks"])
 
 
+def _add_ap_ranks(apm: APMeter, probs: np.ndarray, host_batches) -> None:
+    """:func:`_add_ap_batches` for the global batch: every rank's rows and
+    labels, gathered to rank 0 in rank order (the others add nothing)."""
+    parts = mesh.all_gather_objects(
+        (probs, [{"labels": hb["labels"], "masks": hb["masks"]}
+                 for hb in host_batches]))
+    if mesh.rank() == 0:
+        for p, hbs in parts:
+            _add_ap_batches(apm, p, hbs)
+
+
 def run(cfg) -> Dict[str, Any]:
     """Train and validate the fine stream under the preemption guard: an
     interruption (SIGTERM, an error) checkpoints the latest step before it
-    propagates, and ``maybe_resume`` continues from it."""
+    propagates, and ``maybe_resume`` continues from it.  On
+    ``cfg.mesh_devices`` ranks (rank 0's results)."""
+    return mesh.run_data_parallel(_run, cfg)
+
+
+def _run(cfg) -> Dict[str, Any]:
     state_box: Dict[str, Any] = {"state": None, "sched": None}
     with preemption_guard(cfg, PREFIX, state_box):
         return _run_impl(cfg, state_box)
@@ -137,7 +162,6 @@ def _run_impl(cfg, state_box) -> Dict[str, Any]:
     # sample the same clips (with num_workers=1)
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
-    check_ported(cfg)
     device = driver_device(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
@@ -176,6 +200,7 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
             train_loader, model, cfg.base_bn_splits, window_scale=2)
         results["multigrid_phases"] = cycle.phases
     epochs = resume(cfg, PREFIX, state, sched, train_loader, cycle, results)
+    mesh.replicate(model)
 
     train_step = make_train_step(
         model, align_corners=cfg.align_corners, momentum=cfg.momentum,
@@ -205,8 +230,8 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
             tot["cls"] += float(metrics["cls_loss"])
             tot["loc"] += float(metrics["loc_loss"])
             tot["n"] += 1
-            _add_ap_batches(tr_apm, metrics["probs"].float().cpu().numpy(),
-                            host_batches)
+            _add_ap_ranks(tr_apm, metrics["probs"].float().cpu().numpy(),
+                          host_batches)
             results["step_ms"].append((time.perf_counter() - t_prev) * 1e3)
             results["prefetch_wait_ms"].append(waits[-1] * 1e3)
             step_i = state.step
@@ -236,13 +261,16 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
         if epochs % k:
             continue
         t_val = time.perf_counter()
-        val_map, val_loss = _validate(cfg, state, val_loader, eval_step,
-                                      val_apm, device, dtype)
+        bn_aggregated(state)
+        if mesh.rank() == 0:  # unsharded, as in the JAX driver
+            val_map, val_loss = _validate(cfg, state, val_loader, eval_step,
+                                          val_apm, device, dtype)
+            log.info("epoch %d VAL loss %.4f mAP %.4f", epochs, val_loss,
+                     val_map)
+            results["val_map"] = val_map
+            results["val_loss"] = val_loss
+        mesh.barrier()
         results["val_s"].append(time.perf_counter() - t_val)
-        log.info("epoch %d VAL loss %.4f mAP %.4f", epochs, val_loss,
-                 val_map)
-        results["val_map"] = val_map
-        results["val_loss"] = val_loss
         sched.epoch_step()
         if cfg.max_steps and state.step >= cfg.max_steps:
             return results

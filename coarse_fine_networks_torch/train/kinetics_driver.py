@@ -17,9 +17,11 @@ Beside the JAX driver's results (``train_loss``, ``train_top1``,
 ``record_trajectory``, the ``trajectory`` of (step, lr, loss).  The batches
 go through the device prefetcher (:func:`.common.iter_train_batches`); a
 resumed run continues in the saved epoch (the JAX driver restarts its
-count at 0).  One process: ``mesh_devices > 1`` raises.  ``remat``
-recomputes each bottleneck in the backward, as the JAX driver's model
-does.
+count at 0).  ``remat`` recomputes each bottleneck in the backward, as
+the JAX driver's model does.  ``mesh_devices = N > 1`` trains
+data-parallel on N ranks as :mod:`.coarse_driver` does; validation runs
+unsharded on rank 0 while the others wait (the JAX driver shards it; the
+top-1 is the same).
 """
 
 from __future__ import annotations
@@ -39,10 +41,10 @@ from ..data.kinetics import KineticsDataset, collate_kinetics
 from ..data.loader import PrefetchLoader
 from ..models import FineNet, init_parameters
 from ..models.surgery import set_bn_splits
-from .common import (check_ported, driver_device, iter_train_batches,
-                     preemption_guard, prepare_clips, resume,
-                     save_train_state)
-from .fine_driver import build_transforms
+from ..parallel import mesh
+from .common import (driver_device, iter_train_batches, preemption_guard,
+                     prepare_clips, resume, save_train_state)
+from .fine_driver import build_transforms, train_shard
 from .multigrid import LongCycleRunner, LongCycleSchedule
 from .optim import build_schedule
 from .state import TrainState
@@ -85,7 +87,11 @@ def make_class_train_step(model: nn.Module, momentum: float = 0.9,
     (state, {"loss", "acc"})``: forward in training mode, the mean smoothed
     cross-entropy of ``logits[:, 0]``, backward, one SGD update (every
     parameter, as in JAX); the state is updated in place.  ``generator``
-    draws the dropout masks."""
+    draws the dropout masks.  Under data parallelism
+    (:mod:`..parallel.mesh`) the mean is over the global batch (each rank's
+    loss is its rows' sum over the global row count), the gradients are
+    summed over the ranks, and ``loss`` and ``acc`` are the global
+    batch's."""
 
     def step(state: TrainState, batch: Dict[str, Any], lr: float,
              generator: "torch.Generator | None" = None):
@@ -94,18 +100,30 @@ def make_class_train_step(model: nn.Module, momentum: float = 0.9,
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         logits = model_(batch["clips"], generator=generator)[:, 0].float()
-        loss = smoothed_ce(logits, batch["labels"], label_smoothing).mean()
+        ce = smoothed_ce(logits, batch["labels"], label_smoothing)
+        acc = _top1(logits.detach(), batch["labels"])
+        if mesh.world() == 1:
+            loss = ce.mean()
+        else:  # this rank's share of the global batch's mean
+            rows = mesh.all_reduce_sum(ce.new_tensor(float(ce.shape[0])))
+            loss = ce.sum() / rows
         loss.backward()
+        params = [p for g in opt.param_groups for p in g["params"]]
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        with torch.no_grad():
+            mesh.all_reduce_grads(params)
         for group in opt.param_groups:
-            for p in group["params"]:
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
             group.update(lr=lr, momentum=momentum,
                          weight_decay=weight_decay)
         opt.step()
         state.step += 1
-        return state, {"loss": loss.detach(),
-                       "acc": _top1(logits.detach(), batch["labels"])}
+        loss = loss.detach()
+        if mesh.world() > 1:
+            loss, acc = mesh.all_reduce_sum(torch.stack([
+                loss, acc * ce.shape[0] / rows]))
+        return state, {"loss": loss, "acc": acc}
 
     return step
 
@@ -132,7 +150,12 @@ def make_class_eval_step(model: nn.Module):
 
 def run(cfg) -> Dict[str, Any]:
     """Pretrain under the preemption guard; ``cfg.anno`` is the
-    Kinetics-style JSON (:mod:`..data.kinetics`)."""
+    Kinetics-style JSON (:mod:`..data.kinetics`).  On ``cfg.mesh_devices``
+    ranks (rank 0's results)."""
+    return mesh.run_data_parallel(_run, cfg)
+
+
+def _run(cfg) -> Dict[str, Any]:
     state_box: Dict[str, Any] = {"state": None, "sched": None}
     with preemption_guard(cfg, PREFIX, state_box):
         return _run_impl(cfg, state_box)
@@ -143,7 +166,6 @@ def _run_impl(cfg, state_box) -> Dict[str, Any]:
     # `random` of the crops and flips as it finds it)
     random.seed(cfg.seed)
     np.random.seed(cfg.seed)
-    check_ported(cfg)
     device = driver_device(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     anomaly = (torch.autograd.set_detect_anomaly(True) if cfg.debug_nans
@@ -168,7 +190,7 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     train_loader = PrefetchLoader(train_ds, cfg.batch_size, collate,
                                   shuffle=True, num_workers=cfg.num_workers,
                                   prefetch=cfg.prefetch, drop_last=True,
-                                  seed=cfg.seed)
+                                  seed=cfg.seed, shard=train_shard())
     val_loader = PrefetchLoader(val_ds, cfg.val_batch_size or cfg.batch_size,
                                 collate, shuffle=False,
                                 num_workers=cfg.num_workers)
@@ -195,6 +217,7 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
             train_loader, model, cfg.base_bn_splits)
         results["multigrid_phases"] = cycle.phases
     epochs = resume(cfg, PREFIX, state, sched, train_loader, cycle, results)
+    mesh.replicate(model)
 
     train_step = make_class_train_step(
         model, momentum=cfg.momentum, weight_decay=cfg.weight_decay,
@@ -240,11 +263,14 @@ def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
         results["train_top1"] = tot["acc"] / n
         if len(val_ds):
             t_val = time.perf_counter()
-            results["val_top1"] = _validate(cfg, state, val_loader,
-                                            eval_step, device, dtype)
+            bn_aggregated(state)
+            if mesh.rank() == 0:
+                results["val_top1"] = _validate(cfg, state, val_loader,
+                                                eval_step, device, dtype)
+                log.info("kinetics epoch %d VAL top1 %.4f", epochs,
+                         results["val_top1"])
+            mesh.barrier()
             results["val_s"].append(time.perf_counter() - t_val)
-            log.info("kinetics epoch %d VAL top1 %.4f", epochs,
-                     results["val_top1"])
         sched.epoch_step()
         if cfg.max_steps and state.step >= cfg.max_steps:
             break

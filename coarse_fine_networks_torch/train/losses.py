@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..parallel import mesh
+
 # torch BCELoss clamps each log term at -100 for numerical safety.
 _LOG_CLAMP = -100.0
 _TINY = math.exp(_LOG_CLAMP)
@@ -32,13 +34,28 @@ def bce_loss(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 
 
 def detection_loss(probs: torch.Tensor, labels: torch.Tensor,
-                   masks: torch.Tensor
+                   masks: torch.Tensor, across_ranks: bool = False
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``probs (B, T_l, C)`` (sigmoid probabilities, already masked),
     ``labels (B, T_l, C)``, ``masks (B, T_l)`` → ``(total, cls, loc)`` with
     ``total = (cls + loc) / 2``.  The max over time splits its gradient
-    between ties (``torch.amax``), as JAX's does."""
+    between ties (``torch.amax``), as JAX's does.
+
+    With ``across_ranks`` in a data-parallel group (:mod:`..parallel.mesh`)
+    the batch is this rank's rows of the global batch, and the terms are
+    this rank's shares of the global batch's: the class term is divided by
+    the global row count and the localisation term by the global
+    ``Σmasks·C``, so the shares add up to the one-process loss."""
     n_classes = labels.shape[-1]
+    if across_ranks and mesh.world() > 1:
+        rows, frames = mesh.all_reduce_sum(torch.stack([
+            masks.new_tensor(float(masks.shape[0])),
+            torch.sum(masks).detach()]))
+        cls = torch.sum(bce_loss(torch.amax(probs, dim=1),
+                                 torch.amax(labels, dim=1))) / (rows
+                                                                * n_classes)
+        loc = torch.sum(bce_loss(probs, labels)) / (frames * n_classes)
+        return (cls + loc) / 2.0, cls, loc
     cls = torch.mean(bce_loss(torch.amax(probs, dim=1),
                               torch.amax(labels, dim=1)))
     loc = torch.sum(bce_loss(probs, labels)) / (torch.sum(masks) * n_classes)

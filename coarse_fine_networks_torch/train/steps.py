@@ -23,6 +23,7 @@ from torch import nn
 
 from ..models.layers import aggregate_sub_bn_stats
 from ..ops.resample import linear_resize
+from ..parallel import mesh
 from .losses import detection_loss
 from .state import TrainState
 
@@ -43,12 +44,14 @@ def _logits(model: nn.Module, batch: Dict[str, Any],
 
 def _forward_and_loss(model, batch, generator, align_corners):
     """Model → logits resized to the label length → masked probabilities →
-    detection loss."""
+    detection loss (under data parallelism this rank's share of the global
+    batch's)."""
     logits = _logits(model, batch, generator)
     logits = linear_resize(logits, batch["labels"].shape[1],
                            align_corners=align_corners)
     probs = torch.sigmoid(logits) * batch["masks"][:, :, None]
-    total, cls, loc = detection_loss(probs, batch["labels"], batch["masks"])
+    total, cls, loc = detection_loss(probs, batch["labels"], batch["masks"],
+                                     across_ranks=True)
     return total, cls, loc, probs
 
 
@@ -86,7 +89,16 @@ def make_train_step(
     needed when the model's dropout rate is above 0.  ``metrics`` holds
     ``loss``, ``cls_loss``, ``loc_loss`` and the masked ``probs``, detached
     (with ``accum_steps > 1`` the losses are means over the micro-batches
-    and the probabilities are stacked)."""
+    and the probabilities are stacked).
+
+    Under data parallelism (:mod:`..parallel.mesh`) ``batch`` is this
+    rank's rows of the global batch: the batch-norm statistics and the
+    loss's normalisers are the global batch's, each rank's loss is its
+    share of the global loss, the gradients are summed over the ranks in
+    one bucket after the backward (before the clip, which then sees the
+    global norm), and the reported losses are the global batch's; the
+    probabilities are this rank's rows.  Every rank's ``generator`` must be
+    in the same state (dropout draws the global batch's masks)."""
 
     def step(state: TrainState, batch: Dict[str, Any], lr: float,
              generator: Optional[torch.Generator] = None,
@@ -109,6 +121,7 @@ def make_train_step(
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         with torch.no_grad():
+            mesh.all_reduce_grads(params)
             if accum_steps > 1:
                 for p in params:
                     p.grad.div_(accum_steps)
@@ -127,12 +140,12 @@ def make_train_step(
                                else lr_fusion)
         opt.step()
         state.step += 1
-        if accum_steps == 1:
-            total, cls, loc, probs = terms[0]
-        else:
-            total, cls, loc = (torch.stack([t[k] for t in terms]).mean()
-                               for k in range(3))
-            probs = torch.stack([t[3] for t in terms])
+        losses = torch.stack([torch.stack(t[:3]) for t in terms])
+        if mesh.world() > 1:  # the ranks' shares → the global batch's
+            losses = mesh.all_reduce_sum(losses)
+        total, cls, loc = losses.mean(dim=0)
+        probs = (terms[0][3] if accum_steps == 1
+                 else torch.stack([t[3] for t in terms]))
         metrics = {"loss": total, "cls_loss": cls, "loc_loss": loc,
                    "probs": probs}
         return state, metrics

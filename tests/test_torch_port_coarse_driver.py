@@ -230,9 +230,21 @@ def test_remat_run_equals_the_plain_run(world, port_runs):
 
 @pytest.mark.parametrize("field,value", [
     ("mesh_devices", 2), ("pack_dir", "packs")])
-def test_unported_options_raise(world, field, value):
+def test_unported_options_raise(world, field, value, request):
+    """``pack_dir`` (the packed data plane) is not ported and raises.
+    ``mesh_devices=2`` raised until data parallelism was ported; now two
+    ranks (spawned over gloo) take the trajectory run's three steps and
+    validate on rank 0 (``tests/test_torch_port_dp_driver.py`` holds them
+    against one process)."""
     cfg = DriverConfig(**_coarse(world, "port_unported", device="cpu",
                                  **{field: value}))
+    if field == "mesh_devices":
+        request.getfixturevalue("jax_runs")  # the feature bank it reads
+        res = coarse_driver.run(cfg)
+        assert [s for s, _, _ in res["trajectory"]] == [1, 2, 3]
+        assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
+        assert np.isfinite(res["val_map"])
+        return
     with pytest.raises(NotImplementedError):
         coarse_driver.run(cfg)
 

@@ -242,8 +242,18 @@ def test_remat_run_equals_the_plain_run(world, port_runs):
 @pytest.mark.parametrize("field,value", [
     ("mesh_devices", 2), ("pack_dir", "packs")])
 def test_unported_options_raise(world, field, value):
+    """``pack_dir`` (the packed data plane) is not ported and raises.
+    ``mesh_devices=2`` raised until data parallelism was ported; now two
+    ranks (spawned over gloo) train an epoch of two steps, one row each,
+    and validate on rank 0."""
     cfg = DriverConfig(**_base(world, "port_unported", device="cpu",
                                **{field: value}))
+    if field == "mesh_devices":
+        res = fine_driver.run(cfg)
+        assert [s for s, _, _ in res["trajectory"]] == [1, 2]
+        assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
+        assert np.isfinite(res["val_map"]) and np.isfinite(res["val_loss"])
+        return
     with pytest.raises(NotImplementedError):
         fine_driver.run(cfg)
 

@@ -34,7 +34,7 @@ def _stub_apply(scale):
 
 def _server(scale, **kw):
     kw = {"max_batch": 2, "max_wait_ms": 5, "bucket_multiple": 4, **kw}
-    return VideoServer(_stub_apply(scale), device="cpu", **kw)
+    return VideoServer(_stub_apply(scale), devices="cpu", **kw)
 
 
 @pytest.fixture

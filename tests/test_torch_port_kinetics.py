@@ -363,9 +363,16 @@ def test_checkpoint_transfers_to_the_fine_driver(tmp_path):
 
 
 def test_unported_options_raise(corpus, tmp_path):
+    """``mesh_devices=2`` raised until data parallelism was ported; now two
+    ranks (spawned over gloo, one row each) train the epoch's three steps
+    with label smoothing, validate on rank 0 and rank 0 writes the last
+    checkpoint."""
     for field, value in (("mesh_devices", 2),):
-        cfg = DriverConfig(anno=corpus["anno"], root=corpus["frames"],
-                           save_dir=str(tmp_path), device="cpu",
+        cfg = DriverConfig(**_driver_kw(corpus), save_dir=str(tmp_path),
+                           device="cpu", record_trajectory=True,
                            **{field: value})
-        with pytest.raises(NotImplementedError):
-            kinetics_driver.run(dataclasses.replace(cfg))
+        res = kinetics_driver.run(dataclasses.replace(cfg))
+        assert [s for s, _, _ in res["trajectory"]] == [1, 2, 3]
+        assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
+        assert 0.0 <= res["val_top1"] <= 1.0
+        assert os.listdir(tmp_path) == ["kinetics_x3d_000003.ckpt"]

@@ -24,7 +24,7 @@ def _mk_server(scale, **kw):
     kw.setdefault("max_batch", 2)
     kw.setdefault("max_wait_ms", 5)
     kw.setdefault("bucket_multiple", 4)
-    return VideoServer(_stub_apply(scale), device="cpu", **kw)
+    return VideoServer(_stub_apply(scale), devices="cpu", **kw)
 
 
 @pytest.fixture
@@ -116,7 +116,7 @@ def test_canary_assignment_equals_jax(fraction):
         raise AssertionError("never run")
 
     port, jax_ = ModelRouter(), JRouter()
-    for r, mk in ((port, lambda: VideoServer(None, device="cpu")),
+    for r, mk in ((port, lambda: VideoServer(None, devices="cpu")),
                   (jax_, lambda: JServer(jstub))):
         r.register("cfn-m", mk(), default=True)
         r.register("cfn-xl", mk())

@@ -35,7 +35,7 @@ def _req(rng, t=5, tf=6, h=16, w=16):
 
 
 def _server(apply_fn=_stub_apply, **kw):
-    return VideoServer(apply_fn, device="cpu", **kw)
+    return VideoServer(apply_fn, devices="cpu", **kw)
 
 
 def test_backpressure_bounded_queue():
@@ -222,7 +222,7 @@ def _direct(m, clips, fine, t_pad, tf_pad):
 
 
 def _caching(m, **kw):
-    return CachingVideoServer(m.extract, m.fuse, device="cpu", **kw).start()
+    return CachingVideoServer(m.extract, m.fuse, devices="cpu", **kw).start()
 
 
 def test_caching_server_miss_hit_match_direct(pipeline):
@@ -285,7 +285,7 @@ def test_caching_server_mixed_buckets_and_hit_in_larger_bucket(pipeline):
 
 
 def test_caching_server_timeout():
-    server = CachingVideoServer(None, None, device="cpu", max_batch=64,
+    server = CachingVideoServer(None, None, devices="cpu", max_batch=64,
                                 max_wait_ms=60_000,
                                 request_timeout_s=0.05).start()
     try:

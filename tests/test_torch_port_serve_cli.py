@@ -12,13 +12,15 @@ CPU.
   aggregates the split statistics as the JAX package does (1e-6 relative:
   the same f32 sums).
 * Strict loading: a missing key, an unknown key or a shape that differs
-  raises; ``--mesh-devices 2`` raises; the flags are the JAX ones plus
-  ``--device``.
+  raises; the flags are the JAX ones plus ``--device``.
+* ``--mesh-devices 2``: two CPU replicas serve a batch as JAX's 2-device
+  mesh server and the one-replica server do.
 * ``convert_checkpoint`` round-trips, and its ``--to-torch`` output equals
   JAX ``export_torch_state_dict`` on the same weights key for key and value
   for value (XL's in ``tests/test_torch_port_xl.py``)."""
 
 import argparse
+import concurrent.futures
 import io
 import json
 import urllib.request
@@ -193,12 +195,56 @@ def test_serving_loads_strictly(jax_pipeline_variables, tmp_path, fault):
         pserve.assemble_pipeline_variables(None, paths["fine"], None)
 
 
-def test_mesh_devices_raises():
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
+def test_mesh_devices_raises(jax_pipeline_variables, tmp_path):
+    """``--mesh-devices 2`` raised until data-parallel serving was ported;
+    now it serves.  ``build_server(..., mesh_devices=2)`` on two CPU
+    replicas scores a batch of three requests (padded to four rows, two a
+    replica) over HTTP as JAX's ``build_server`` over its 2-device mesh
+    does (1e-4 absolute, as above) and as the one-replica server does
+    (1e-6: the same kernels' plain versions on the same rows); ``main``
+    gets past the flag to the checkpoints it needs."""
+    from coarse_fine_networks_tpu.ckpt import save_checkpoint as jsave
+    from coarse_fine_networks_tpu.cli import serve as jserve
+
+    v = jax_pipeline_variables
+    for tower in ("fine", "coarse"):
+        jsave(str(tmp_path / f"jax_{tower}.ckpt"),
+              {"variables": _tower(v, tower)})
+    with pytest.raises(ValueError, match="need --ckpt"):
         pserve.main(["--mesh-devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="mesh_devices"):
-        pserve.build_server({}, "M", 7, 0, 1, 1, 1.0, 1, None,
-                            mesh_devices=2, device="cpu")
+    port_ckpts = _port_stream_ckpts(v, tmp_path)
+    sd = pserve.assemble_pipeline_variables(
+        None, port_ckpts["fine"], port_ckpts["coarse"], "M", N_CLASSES)
+    kw = dict(port=0, cache_bytes=1 << 28, max_batch=3, max_wait_ms=500,
+              max_queue=16, request_timeout_s=600)
+    assert pserve.serving_devices("cpu", 2) == [torch.device("cpu")] * 2
+    servers = {
+        "mesh": pserve.build_server(sd, "M", N_CLASSES, mesh_devices=2,
+                                    device="cpu", **kw),
+        "one": pserve.build_server(sd, "M", N_CLASSES, device="cpu", **kw),
+        "jax": jserve.build_server(jserve.assemble_pipeline_variables(
+            None, str(tmp_path / "jax_fine.ckpt"),
+            str(tmp_path / "jax_coarse.ckpt")), "M", N_CLASSES,
+            mesh_devices=2, **kw)}
+    rng = np.random.RandomState(4)
+    bodies = [{"clips": rng.rand(6, H, H, 3).astype(np.float32),
+               "fine_clips": rng.rand(7, H, H, 3).astype(np.float32)}
+              for _ in range(3)]
+    out = {}
+    for name, srv in servers.items():
+        srv.start()
+        try:
+            with concurrent.futures.ThreadPoolExecutor(3) as pool:
+                out[name] = list(pool.map(
+                    lambda ib: _post(srv.port, f"/v1/score?video_id=v{ib[0]}",
+                                     ib[1]), enumerate(bodies)))
+            if name == "mesh":
+                assert _stats(srv.port)["coarse_fine"]["batches_run"] == 1
+        finally:
+            srv.stop()
+    for a, b, c in zip(out["mesh"], out["one"], out["jax"]):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(a, c, rtol=0, atol=1e-4)
 
 
 def _flags(parser):

@@ -9,9 +9,11 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the five sources, started together, beside
+   ``nvcc`` for each of the six sources, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
-   ``dw_mm_act.cu``, ``dw_dx_s1.cu`` and ``dw_stencil.cu`` whose
+   ``dw_mm_act.cu``, ``dw_dx_s1.cu``, ``dw_stencil.cu`` and
+   ``frame_decode.cu`` (linked with ``-lnvjpeg``; its
+   ``crop_resize_kernel`` may not spill) whose
    registers, spills and static shared memory for each row-strip kernel
    (K1/K6 plain and ``act``, K6 ``mm``; K4 plain, ``act`` and ``mm``, K8,
    K5, K9, K10 plain, ``act`` and ``mm``, the three stride-(2, 2, 2)
@@ -117,8 +119,9 @@ Phases, each printing JSON lines:
    batch-norm splits), seeded uint8 clips and multi-hot labels through
    ``model_batch``, 2 warm-up and 5 timed steps per phase with exact
    launch counts (A-C: the split route's kernels only; D: the act-mode
-   entry's only), a ``torch.profiler`` breakdown of one step of each
-   phase, then the split statistics aggregated and one eval step
+   entry's only), a ``torch.profiler`` breakdown of one step of phases A
+   and D (B and C's were cut for the script's time), then the split
+   statistics aggregated and one eval step
    (the eval kernels only);
 12. fine_card_vs_cpu: one small f32 fine train step at two splits on the
    card and on the CPU from the same weights, held as in phase 8;
@@ -216,7 +219,38 @@ Phases, each printing JSON lines:
    step ms, the share of each step spent waiting on the device prefetcher
    and the validation seconds; then one driver step profiled
    (``driver_profile``: its launches equal to the counters, 22 and 4 of
-   each act kernel, K11 2 and its taps' gradient 1);
+   each act kernel, K11 2 and its taps' gradient 1).  This phase decodes
+   with Pillow (the datasets' native decoder turned off), the baseline of
+   the packed phase; every later driver-level phase decodes natively
+   (nvJPEG and ``crop_resize_kernel``), as the drivers do by default;
+19b. repro (fault 3.7): the f32 coarse step (B8 T64 224², TF32 off, act
+   route) twice from one state, every aten op's and kernel launch's data
+   fingerprinted (an order-free integer sum of the bits, weighted by
+   position): whether the runs repeat bit for bit, the first op where they
+   part, every aten op that gave other outputs from equal inputs, and each
+   hand-written kernel's outputs run to run, which must be equal wherever
+   its inputs were;
+19c. decode: the native data plane's kernel on 640×480 synthetic JPEGs
+   (noise, smooth and grey frames): ``crop_resize_kernel`` against
+   ``crop_resize_plain`` on the same frames decoded by nvJPEG (centre and
+   two random crops, out 224 and 112: equal bit for bit), nvJPEG + kernel
+   against Pillow + plain (max and mean |difference| held to
+   ``DECODE_BOUND``, twice the measured; a crop shifted one pixel, or R and
+   B swapped, must read outside it), grey frames giving three equal
+   channels; the kernel timed on one clip's 64 frames beside its bound,
+   its plain version and ``F.interpolate``, and nvJPEG's decode of the clip
+   beside Pillow's;
+19d. packed: the native data plane end to end on a Multi-THUMOS tree
+   (``generate_mini_charades``' frames at 480², videos renamed
+   ``video_validation_*`` and ``video_test_*``, annotations converted by
+   ``convert_annotations`` to 65 classes): ``cli.pack_dataset`` as a
+   process, the dataset's clips a second from the packs against Pillow,
+   then ``extract_driver.run`` and ``coarse_driver.run`` with ``pack_dir``
+   (X3D-M, 65 classes, B8 T64 224², bf16, 3 steps and a validation); no
+   frame decoded by Pillow or read from its file, every clip through nvJPEG
+   and ``crop_resize_kernel`` (once per decode), the extraction's and every
+   step's launches held exactly; step ms and the wait share beside the
+   driver phase's, which decodes with Pillow;
 20. kinetics: Kinetics-style pretraining as a user runs it:
    ``generate_mini_kinetics`` (44 videos of 96 frames at 256², 400
    classes: 33 training, 11 validation), then
@@ -296,7 +330,7 @@ Phases, each printing JSON lines:
    checkpoint; the val mAP against the one-process validation of that
    checkpoint in this process, each rank's launches (``_rank_launches``)
    against its steps and rank 0's validation;
-27. a ``{"kernels": [...]}`` line (23 entries, each with its launches on
+27. a ``{"kernels": [...]}`` line (24 entries, each with its launches on
    the driver, kinetics, fine_driver, cli and serve_http paths beside the
    earlier phases', a rank's on the dp_train path and both ranks' on the
    dp_cli path, and for K1 ``mm``, K4 ``mm`` and K11 an ``xl`` entry:
@@ -324,9 +358,10 @@ build goes to ``coarse_fine_networks_torch/_build/``, the driver-level
 phases' data, checkpoints and features to ``_scratch/chip_smoke_drivers/``,
 removed at the end; the parallel phases' ranks hand their results back
 through a temporary directory under ``TMPDIR``, removed when they end).
-The driver-level phases' three synthetic trees are written by three
-worker processes (spawned, seeded) while the kernel phases run, the
-serve_http phase starts the serving CLI as a process, and the parallel
+The driver-level phases' four synthetic trees are written by four
+worker processes (spawned, seeded) while the kernel phases run, the packed
+phase starts the pack command line as a process, the serve_http phase
+starts the serving CLI as a process, and the parallel
 phases spawn their ranks; each is joined or stopped before the script
 ends.
 """
@@ -438,6 +473,10 @@ REPLACES = {
     "dw_conv_dx_t2": f"none: XLA's transpose of {_DW_CONV}:287 (_lax_conv)",
     "dw_conv_wgrad_t2": f"none: XLA's transpose of {_DW_CONV}:287 "
                         "(_lax_conv)",
+    # the clip frames' crop and resize: no TPU kernel (the JAX package runs
+    # it in host C++, its native data plane's exact path)
+    "crop_resize_kernel": "none: host C++ native/cfn_data.cpp:132 "
+                          "(crop_resize; center_crop_scale :262)",
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
@@ -457,6 +496,7 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
                                                           "dw_mm_wgrad_s2"))
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
+                       else "frame_decode.cu" if k == "crop_resize_kernel"
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
@@ -501,6 +541,8 @@ BANKS = (("layer1", 24), ("layer2", 48), ("layer3", 96), ("layer4", 192),
 # label window 2·frames
 FINE = dict(base=(320, 224, 8), n_classes=157, lr=0.01, dropout=0.5,
             warmup=2, steps=5)
+# the long-cycle phases whose step fine_train profiles
+FINE_PROFILED = ("A", "D")
 FINE_KERNELS = ("dw_conv_s1", "dw_conv_s2", "dw_conv_dx_s2",
                 "dw_conv_wgrad_s1", "dw_conv_wgrad_s2")
 ACT_KERNELS = tuple(f"dw_act{p}_s{s}" for p in ("", "_dx", "_wgrad")
@@ -628,15 +670,16 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
                         "plain_t2_dx_kernel", "plain_t2_wgrad_kernel"),
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
-         "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel")}
+         "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel"),
+         "crop_resize_kernel": ("crop_resize_kernel",)}
 # instantiations of each function of a ptxas row
-PTXAS_EACH = {"dw_stencil_wgrad": 16}
+PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1}
 # the act and mm modes of the row-strip bodies, K11 and its taps' gradient:
 # no instantiation may spill
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
             "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
-            "stencil_dk_kernel")
+            "stencil_dk_kernel", "crop_resize_kernel")
 # each ptxas row's kernels by mangled name (phase_device), for the rows of
 # the phases that print a kernel's registers and spills beside its times
 PTXAS_ROWS: dict = {}
@@ -645,16 +688,17 @@ PTXAS_ROWS: dict = {}
 def phase_device() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
-    from coarse_fine_networks_torch.ops import _build, dw_conv, dw_stencil
+    from coarse_fine_networks_torch.ops import (_build, dw_conv, dw_stencil,
+                                                frame_decode)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    # the five sources (one nvcc each) and the ptxas reports of the five
+    # the six sources (one nvcc each) and the ptxas reports of the six
     # rows, all started together
-    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
+    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY, frame_decode.LIBRARY)
     with ThreadPoolExecutor(max_workers=len(PTXAS)) as pool:
         ptxas = {k: pool.submit(_ptxas, REPO / SOURCES[k]) for k in PTXAS}
         _build.build_all(libs)
@@ -2756,7 +2800,9 @@ def phase_fine_train(mods) -> dict:
         if splits > 1:
             for k in FINE_KERNELS:
                 split_launches[k] += launches[k]
-        # every phase: its device kernel time per step
+        # phases A and D (the split route and the act route): the device
+        # kernel time per step (B and C run A's kernels at other splits;
+        # their profiles were cut for the script's time)
         ours = (("plain_fwd_kernel", "plain_wgrad_kernel",
                  "plain_s2_fwd_kernel", "plain_s2_dx_kernel",
                  "plain_s2_wgrad_kernel")
@@ -2765,10 +2811,11 @@ def phase_fine_train(mods) -> dict:
 
         def one_step():
             step(state, batch, c["lr"], drop)[1]["loss"].item()
-        emit({"phase": "fine_train_profile",
-              "what": f"one phase-{name} train step, B{b} T{t} "
-                      f"{crop}² bf16, {splits} splits",
-              **_profile_step(one_step, ours, mods)})
+        if name in FINE_PROFILED:
+            emit({"phase": "fine_train_profile",
+                  "what": f"one phase-{name} train step, B{b} T{t} "
+                          f"{crop}² bf16, {splits} splits",
+                  **_profile_step(one_step, ours, mods)})
         del batch
         torch.cuda.empty_cache()
 
@@ -2980,6 +3027,8 @@ def phase_profile(pipe, mods) -> None:
 # a resumed run to step 4
 # the driver phase's last coarse checkpoint, kept for serve_http
 DRIVER_COARSE_CKPT = SCRATCH / "driver_coarse.ckpt"
+# the driver phase's row, which the packed phase prints beside its own
+DRIVER_ROW: dict = {}
 DRIVER = dict(videos=12, train=8, video_frames=640, hw=256, n_classes=157,
               frames=320, batch=8, workers=4, device_prefetch=2, steps=3,
               ckpt_every=3, resume_steps=4, val_batches=4)
@@ -3021,6 +3070,8 @@ def phase_driver(mods, tree) -> dict:
 
     c = DRIVER
     root = SCRATCH / "driver"
+    pillow = _decode_with_pillow()
+    pillow.__enter__()  # the baseline the packed phase is read against
     try:
         anno, gen_s = tree.result()
         fine_pt = str(root / "fine_seeded.pt")
@@ -3083,6 +3134,7 @@ def phase_driver(mods, tree) -> dict:
         profiled = _profile_step(one_step, tuple(DRIVER_STEP) + (
             "mm_fwd_s1_kernel", "mm_s2_fwd_kernel"), mods, warm=False)
     finally:  # the tree stays for the cli phase; main removes SCRATCH
+        pillow.__exit__(None, None, None)
         shutil.rmtree(root / "models", ignore_errors=True)
         shutil.rmtree(root / "feats", ignore_errors=True)
 
@@ -3120,6 +3172,7 @@ def phase_driver(mods, tree) -> dict:
                                 if v},
            "run_launches": {k: v for k, v in run_launches.items() if v}}
     emit(row)
+    DRIVER_ROW.update(row)
     emit({"phase": "driver_profile",
           "what": "one coarse_driver.run step (resumed at step 3, no "
                   "validation), B8 T64 224² bf16, act route", **profiled})
@@ -3178,15 +3231,17 @@ def _generate(kind: str, root: str, kw: dict) -> tuple[str, float]:
         generate_mini_charades
 
     t0 = time.perf_counter()
+    if kind == "multithumos":
+        return _multithumos_tree(root, kw), time.perf_counter() - t0
     fn = (generate_mini_kinetics if kind == "kinetics"
           else generate_mini_charades)
     return fn(root, **kw), time.perf_counter() - t0
 
 
 def start_trees(pool) -> dict:
-    """The driver, kinetics and fine_driver phases' synthetic trees (seeded:
-    the trees those phases would write themselves), each submitted to
-    ``pool`` at once so that their JPEG encoding overlaps the kernel
+    """The driver, kinetics, fine_driver and packed phases' synthetic trees
+    (seeded: the trees those phases would write themselves), each submitted
+    to ``pool`` at once so that their JPEG encoding overlaps the kernel
     phases; name -> future of (annotation path, generation seconds)."""
     charades = {name: dict(num_videos=c["videos"],
                            num_frames=c["video_frames"], hw=c["hw"],
@@ -3199,7 +3254,11 @@ def start_trees(pool) -> dict:
                 num_videos=KINETICS["videos"],
                 num_frames=KINETICS["video_frames"], hw=KINETICS["hw"],
                 num_classes=KINETICS["n_classes"])),
-            "fine_driver": ("charades", charades["fine_driver"])}
+            "fine_driver": ("charades", charades["fine_driver"]),
+            "packed": ("multithumos", dict(
+                num_videos=PACKED["videos"],
+                num_frames=PACKED["video_frames"], hw=PACKED["hw"],
+                train_fraction=PACKED["train"] / PACKED["videos"]))}
     out = {}
     for name, (kind, kw) in jobs.items():
         shutil.rmtree(SCRATCH / name, ignore_errors=True)
@@ -3354,7 +3413,7 @@ def phase_kinetics(mods, tree) -> tuple[dict, str]:
           "dtype": "bfloat16 activations, float32 parameters",
           "data": f"{c['videos']} synthetic videos ({c['train']} training) "
                   f"of {c['video_frames']} frames at {c['hw']}², JPEG, "
-                  f"decoded by Pillow",
+                  f"decoded by nvJPEG and crop_resize_kernel",
           "argv": "--max-steps 2 --max-epochs 2 --num-workers 4 (CLI "
                   "defaults: B32, frames 16, lr 0.1, bf16)",
           "generate_s": gen_s, "run_s": run_s,
@@ -3476,7 +3535,7 @@ def phase_fine_driver(mods, kinetics_ckpt: str, tree) -> tuple[dict, str]:
           "dtype": "bfloat16 activations, float32 parameters",
           "data": f"{c['videos']} synthetic videos ({c['train']} training) "
                   f"of {c['video_frames']} frames at {c['hw']}², JPEG, "
-                  f"decoded by Pillow",
+                  f"decoded by nvJPEG and crop_resize_kernel",
           "cut": "base batch 2 (the recipe's 8): phases at B16/B8/B4/B2",
           "generate_s": gen_s, "saved": saved_pos,
           "resumed_from": resumed.get("resumed_from"), **rows,
@@ -4810,8 +4869,10 @@ def _dp_rank(runs) -> dict:
     statistics)."""
     from unittest import mock
 
+    from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
-                                                dw_mm_bn_train, dw_stencil)
+                                                dw_mm_bn_train, dw_stencil,
+                                                frame_decode)
     from coarse_fine_networks_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5145,8 +5206,10 @@ def phase_dp_serve(mods) -> None:
 def _counted(fn, *args):
     """``fn(*args)`` in a spawned rank, with the rank's kernel launches
     when it returned."""
+    from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
-                                                dw_mm_bn_train, dw_stencil)
+                                                dw_mm_bn_train, dw_stencil,
+                                                frame_decode)
 
     out = fn(*args)
     return out, _launches(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train,
@@ -5277,6 +5340,707 @@ def phase_dp_cli(mods) -> dict:
     return total
 
 
+# ---- the native data plane: frames decoded on the card, packs -----------------
+
+# Synthetic JPEG frames at the 480-pixel side the C++ names ("480p source →
+# 224² crop", native/cfn_data.cpp:52), 640×480: noise (the worst case for a
+# decoder's rounding) and smooth frames, RGB, quality 90, and grey ones;
+# the crops of the path (the centre crop of extraction and validation, two
+# train crops) at the path's output size and half of it; the kernel timed
+# on one clip's 64 frames
+DECODE = dict(h=480, w=640, frames=16, quality=90, outs=(224, 112),
+              crops=(None, (0.7, 0.3, 0.6), (0.875, 0.9, 0.05)),
+              timed_frames=64)
+# nvJPEG + crop_resize_kernel against Pillow + crop_resize_plain on the same
+# JPEGs, (max, mean) |difference| in uint8 levels over the crops: at most
+# twice what a chip run measured (NVIDIA H100 80GB HBM3, 700 W: noise 92,
+# 13.16; smooth 8, 1.260; grey 1, 0.00945; the inputs are seeded and both
+# decoders deterministic, so the measure repeats).  The planted fault held
+# outside each kind's bound: the crop shifted one pixel on noise and grey
+# frames, R and B swapped on smooth ones (on noise a swap stays inside:
+# JPEG's chroma subsampling leaves noise little colour; on smooth frames a
+# one-pixel shift moves the mean by 2.62-2.78, barely above 2.5)
+DECODE_BOUND = {"noise": (184, 26.3), "smooth": (16, 2.5),
+                "grey": (2, 0.0189)}
+DECODE_FAULT = {"noise": "shift_1px", "smooth": "swap_rb",
+                "grey": "shift_1px"}
+
+
+def _jpegs(kind: str, n: int, h: int, w: int, seed: int,
+           quality: int = 90) -> list:
+    """``n`` seeded JPEG frames of ``kind``: "noise" (uniform RGB),
+    "smooth" (three sinusoids of other phases and periods, so R and B
+    differ everywhere) or "grey" (a smooth grey pattern)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(n):
+        if kind == "noise":
+            a = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+        else:
+            ph = rng.uniform(0, 2 * np.pi, 3)
+            a = np.stack([127.5 + 120 * np.sin(xx / (23 + 9 * c)
+                                               + yy / (31 + 7 * c) + ph[c])
+                          for c in range(3)], -1).astype(np.uint8)
+            if kind == "grey":
+                a = a[..., 1]
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, "JPEG", quality=quality)
+        out.append(buf.getvalue())
+    return out
+
+
+def _pil_frames(blobs) -> torch.Tensor:
+    from PIL import Image
+
+    return torch.from_numpy(np.stack([np.asarray(
+        Image.open(io.BytesIO(b)).convert("RGB"), np.uint8) for b in blobs]))
+
+
+def _diff(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    d = (a.cpu().to(torch.int32) - b.cpu().to(torch.int32)).abs()
+    return int(d.max()), float(d.float().mean())
+
+
+def _outside(stat: tuple, bound: tuple) -> bool:
+    return stat[0] > bound[0] or stat[1] > bound[1]
+
+
+def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
+    """The card's decode against the CPU's on synthetic 640×480 JPEGs.
+    ``crop_resize_kernel`` against ``crop_resize_plain`` on the same frames
+    decoded by nvJPEG (centre and two random crops, out 224 and 112; equal
+    bit for bit, and the API path equal to the kernel on those frames);
+    nvJPEG + kernel against Pillow + plain (max and mean |difference| per
+    kind of frame, held to ``bounds``; the planted fault of each kind,
+    ``DECODE_FAULT``, must read outside them); grey frames (three equal
+    channels); a clip of mixed sizes and kinds (one launch each, the frames
+    in order, each within its kind's bound).  Then the kernel timed at one clip's 64 frames (the centre crop of
+    extraction, 480² → 224², and a train crop) beside its bound, its plain
+    version on the card and ``F.interpolate`` (bilinear, no antialias) on
+    the f32 crop, and nvJPEG's decode of the clip beside Pillow's.  Returns
+    the kernel line's numbers."""
+    c = DECODE
+    dev = torch.device("cuda")
+    lib = fd.LIBRARY.build()
+    h, w = c["h"], c["w"]
+    kinds = {}
+    bits = []
+    ctx = fd._DECODERS.acquire()
+    try:
+        for kind, seed in (("noise", 1), ("smooth", 2), ("grey", 3)):
+            blobs = _jpegs(kind, c["frames"], h, w, seed, c["quality"])
+            names = [f"{kind}{i}" for i in range(len(blobs))]
+            ch = 1 if kind == "grey" else 3
+            raw = fd._decode_group_cuda(ctx, lib, blobs, names, ch, h, w, dev)
+            torch.cuda.synchronize()
+            pil = _pil_frames(blobs)
+            raw_rgb = raw.expand(-1, -1, -1, 3) if ch == 1 else raw
+            st = {"decoded_vs_pillow": _diff(raw_rgb, pil), "cases": []}
+            for out in c["outs"]:
+                for crop in c["crops"]:
+                    box_of = (native.center_box if crop is None
+                              else native.random_box(*crop))
+                    b = box_of(w, h)
+                    boxes = [b] * len(blobs)
+                    k = fd.crop_resize(raw, boxes, out)
+                    p = fd.crop_resize_plain(raw, boxes, out)
+                    api = fd.decode_crop_resize(blobs, names, out, box_of,
+                                                dev)
+                    ref = fd.crop_resize_plain(pil, boxes, out)
+                    shifted = fd.crop_resize(
+                        raw, [(b[0] + 1, b[1], b[2], b[3])] * len(blobs), out)
+                    torch.cuda.synchronize()
+                    bits.append(max(_diff(k, p)[0], _diff(k, api)[0]))
+                    case = {"out": out, "box": list(b),
+                            "vs_pillow": _diff(k, ref),
+                            "shift_1px": _diff(shifted, ref),
+                            "swap_rb": _diff(k[..., [2, 1, 0]], ref)}
+                    if kind == "grey":
+                        case["channels_equal"] = bool(
+                            (k[..., 0] == k[..., 1]).all()
+                            and (k[..., 0] == k[..., 2]).all())
+                    st["cases"].append(case)
+            got = st["cases"]
+            st["measured"] = (max(x["vs_pillow"][0] for x in got),
+                              max(x["vs_pillow"][1] for x in got))
+            kinds[kind] = st
+    finally:
+        fd._DECODERS.release(ctx)
+
+    # a clip of mixed frames (landscape and portrait RGB, grey): one
+    # kernel launch a size and kind, the parts put back in order; against
+    # Pillow + plain frame by frame, each within its kind's bound
+    parts = [("noise", _jpegs("noise", 2, h, w, 5, c["quality"])),
+             ("grey", _jpegs("grey", 2, h, w, 6, c["quality"])),
+             ("noise", _jpegs("noise", 2, w, h, 7, c["quality"]))]
+    order = [1, 0, 3, 2, 5, 4]  # interleaved, so each part is scattered
+    blobs = [b for _, bs in parts for b in bs]
+    kind_of = [k for k, bs in parts for _ in bs]
+    blobs, kind_of = [blobs[i] for i in order], [kind_of[i] for i in order]
+    fd.reset_launches()
+    got = fd.decode_crop_resize(blobs, [f"m{i}" for i in range(len(blobs))],
+                                224, native.center_box, dev)
+    mixed_launches = fd.LAUNCHES["crop_resize_kernel"]
+    fd.reset_launches()
+    mixed = []
+    for i, b in enumerate(blobs):
+        pil = _pil_frames([b])
+        ref = fd.crop_resize_plain(pil, [native.center_box(
+            pil.shape[2], pil.shape[1])], 224)
+        mixed.append((kind_of[i], _diff(got[i:i + 1], ref)))
+
+    # one clip's 64 frames (noise, the costliest to decode) at the path's
+    # crops: the kernel, its plain version, F.interpolate, the decoder
+    blobs = _jpegs("noise", 16, h, w, 4, c["quality"]) * (
+        c["timed_frames"] // 16)
+    n = len(blobs)
+    names = [f"t{i}" for i in range(n)]
+    ctx = fd._DECODERS.acquire()
+    try:
+        def decode():
+            return fd._decode_group_cuda(ctx, lib, blobs, names, 3, h, w, dev)
+        raw = decode()
+        torch.cuda.synchronize()
+        dec_ms = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            decode()
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t1) * 1e3)
+    finally:
+        fd._DECODERS.release(ctx)
+    t1 = time.perf_counter()
+    _pil_frames(blobs)
+    pil_ms = (time.perf_counter() - t1) * 1e3
+    timed = {}
+    for label, crop in (("centre", None), ("train", (224 / 320, 0.3, 0.6))):
+        box_of = (native.center_box if crop is None
+                  else native.random_box(*crop))
+        x1, y1, cw, ch_ = box_of(w, h)
+        boxes = [(x1, y1, cw, ch_)] * n
+        out = 224
+        crop_f32 = raw[:, y1:y1 + ch_, x1:x1 + cw].permute(
+            0, 3, 1, 2).float().contiguous()
+        nbytes = n * (ch_ * cw * 3 + out * out * 3)
+        ops = n * out * out * 3 * 20
+        fd.reset_launches()
+        row = {"crop": label, "frames": n, "box": [x1, y1, cw, ch_],
+               "out": out,
+               "ms": cuda_ms(lambda: fd.crop_resize(raw, boxes, out), 20),
+               "plain_ms": cuda_ms(
+                   lambda: fd.crop_resize_plain(raw, boxes, out), 3, 1),
+               "library_ms": cuda_ms(lambda: F.interpolate(
+                   crop_f32, size=(out, out), mode="bilinear",
+                   align_corners=False, antialias=False), 20),
+               "library_call": "F.interpolate(bilinear, align_corners=False, "
+                               "antialias=False) on the f32 crop (N, 3, ch, "
+                               "cw)",
+               **_bound(nbytes, ops, torch.float32)}
+        timed[label] = row
+    fd.reset_launches()
+    row = {"phase": "decode", "source": f"{w}x{h} synthetic JPEG, quality "
+                                       f"{c['quality']}, {c['frames']} "
+                                       f"frames a kind",
+           "kernel_vs_plain_max": max(bits),
+           "mixed_clip": {"frames": mixed, "launches": mixed_launches},
+           "kinds": kinds, "timed": timed,
+           "nvjpeg_decode_ms_per_clip": dec_ms,
+           "nvjpeg_decode_ms_per_frame": min(dec_ms) / n,
+           "pillow_decode_ms_per_clip": pil_ms, "clip_frames": n,
+           "bounds": bounds}
+    emit(row)
+    check(max(bits) == 0, f"decode: crop_resize_kernel differs from its "
+                          f"plain version or the API path by {max(bits)}")
+    check(all(x.get("channels_equal", True) for x in kinds["grey"]["cases"]),
+          "decode: a grey frame's channels differ")
+    check(mixed_launches == 3 and tuple(got.shape) == (6, 224, 224, 3),
+          f"decode: a mixed clip took {mixed_launches} launches, "
+          f"shape {tuple(got.shape)}")
+    if bounds is not None:
+        for kind, st in kinds.items():
+            bound = tuple(bounds[kind])
+            check(not _outside(st["measured"], bound),
+                  f"decode {kind}: nvJPEG + kernel against Pillow + plain "
+                  f"{st['measured']} outside {bound}")
+            f = DECODE_FAULT[kind]
+            missed = [(f, x["out"], x["box"], x[f]) for x in st["cases"]
+                      if not _outside(x[f], bound)]
+            off = [d for k, d in mixed if k == kind and _outside(d, bound)]
+            check(not off, f"decode {kind}: mixed-clip frames outside "
+                           f"{bound}: {off}")
+            check(not missed, f"decode {kind}: planted faults inside the "
+                              f"bound {bound}: {missed[:4]}")
+    t = timed["centre"]
+    return {"max_abs_err": float(max(bits)), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "bound_ms": t["bound_ms"], "bytes_ms": t["bytes_ms"],
+            "ops_ms": t["ops_ms"], "train_crop": timed["train"],
+            "nvjpeg_ms_per_frame": row["nvjpeg_decode_ms_per_frame"]}
+
+
+# the packed path: a Multi-THUMOS tree (generate_mini_charades' frames at a
+# 480-pixel side, videos renamed video_validation_* / video_test_*, the
+# annotations converted by the port's convert_annotations at 65 classes),
+# packed by the port's command line, then extraction and the coarse driver
+# from the packs at the train step's shape (B8 T64 224², bf16), 3 steps and
+# a validation of 2 videos
+PACKED = dict(videos=10, train=8, video_frames=640, hw=480, n_classes=65,
+              frames=320, batch=8, workers=4, device_prefetch=2, steps=3,
+              val_batches=2)
+
+
+def _multithumos_tree(root: str, kw: dict) -> str:
+    """``generate_mini_charades``' tree as Multi-THUMOS ships it: per-class
+    text files and a class list, the videos (directories and frame files)
+    renamed ``video_validation_*`` (training) and ``video_test_*``; then the
+    port's ``convert_annotations``.  Returns the annotation json."""
+    from coarse_fine_networks_torch.data.multithumos import (
+        NUM_CLASSES, convert_annotations)
+    from coarse_fine_networks_torch.data.synthetic import \
+        generate_mini_charades
+
+    anno = generate_mini_charades(root, num_classes=NUM_CLASSES, **kw)
+    with open(anno) as f:
+        charades = json.load(f)
+    frames = os.path.join(root, "frames")
+    lines: dict = {}
+    count = {"training": 0, "testing": 0}
+    for vid, info in sorted(charades.items()):
+        count[info["subset"]] += 1
+        new = (f"video_validation_{count['training']:07d}"
+               if info["subset"] == "training"
+               else f"video_test_{count['testing']:07d}")
+        src = os.path.join(frames, vid)
+        for name in os.listdir(src):
+            os.rename(os.path.join(src, name),
+                      os.path.join(src, name.replace(vid, new, 1)))
+        os.rename(src, os.path.join(frames, new))
+        for cls, start, end in info["actions"]:
+            lines.setdefault(cls, []).append(f"{new} {start} {end}\n")
+    annos = os.path.join(root, "annotations")
+    os.makedirs(annos)
+    with open(os.path.join(root, "class_list.txt"), "w") as f:
+        f.writelines(f"{i + 1} Class{i}\n" for i in range(NUM_CLASSES))
+    for cls, rows in lines.items():
+        with open(os.path.join(annos, f"Class{cls}.txt"), "w") as f:
+            f.writelines(rows)
+    return convert_annotations(annos, os.path.join(root, "class_list.txt"),
+                               frames, os.path.join(root, "multithumos.json"),
+                               fps=24.0)
+
+
+@contextlib.contextmanager
+def _decode_with_pillow():
+    """The port's datasets decode with Pillow inside (the baseline the
+    driver phase measures), natively again after."""
+    from coarse_fine_networks_torch.data import native
+
+    saved = native.available
+    native.available = lambda: False
+    try:
+        yield
+    finally:
+        native.available = saved
+
+
+def _dataset_clips(root: str, anno: str, packs: str, n: int) -> dict:
+    """``CharadesDataset.__getitem__`` on the packed tree's training split
+    at the train step's shape (T64 224²), natively from the packs on the
+    card against Pillow: clips a second over ``n`` clips (one batch)."""
+    from coarse_fine_networks_torch.data import CharadesDataset
+    from coarse_fine_networks_torch.train.fine_driver import build_transforms
+    from coarse_fine_networks_torch.train import DriverConfig
+
+    c = PACKED
+    cfg = DriverConfig(anno=anno, root=root, num_classes=c["n_classes"],
+                       frames=c["frames"])
+    import random
+
+    out = {}
+    for backend in ("native", "pil"):
+        random.seed(0)
+        ds = CharadesDataset(anno, "training", root,
+                             spatial_transform=build_transforms(cfg)[0],
+                             frames=c["frames"], gamma_tau=cfg.gamma_tau,
+                             num_classes=c["n_classes"], crop_size=224,
+                             decode_backend=backend, pack_dir=packs,
+                             seed=0, device="cuda")
+        ds[0]  # warm: the decoder's context, the library
+        t1 = time.perf_counter()
+        shapes = [tuple(ds[i % len(ds)]["clips"].shape) for i in range(n)]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t1
+        out[backend] = {"clips_per_s": n / s, "ms_per_clip": s / n * 1e3,
+                        "shapes": sorted(set(shapes))}
+    t = c["frames"] // cfg.gamma_tau
+    check(out["native"]["shapes"] == out["pil"]["shapes"] == [
+        (1, t, 224, 224, 3)], f"decode dataset shapes {out}")
+    return out
+
+
+def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
+    """The native data plane end to end at full width: the packed
+    Multi-THUMOS tree (``tree``: the future of its annotation json), the
+    port's pack command line as a process, the dataset's clips a second
+    natively from the packs against Pillow, then ``extract_driver.run`` and
+    ``coarse_driver.run`` with ``pack_dir`` (X3D-M, 65 classes, B8 T64
+    224², bf16, 4 loader workers, device prefetch 2, 3 steps and a
+    validation of 2 videos).  No frame may be decoded by Pillow or read
+    from its JPEG file (both raise inside), and every clip goes through
+    nvJPEG and ``crop_resize_kernel`` on the card.  The counters are reset
+    before the extraction and before the coarse run and read after each:
+    the extraction launches the eval entry's kernels once a video, each
+    train and eval call its route's exactly, and the kernel once per
+    nvJPEG call.  Returns the model kernels' launches and the crop-resize
+    kernel's."""
+    import dataclasses
+    import statistics
+
+    from coarse_fine_networks_torch.data import dataset as dataset_mod
+    from coarse_fine_networks_torch.data import native
+    from coarse_fine_networks_torch.models import FineNet, init_parameters
+    from coarse_fine_networks_torch.train import (DriverConfig,
+                                                  coarse_driver,
+                                                  extract_driver)
+
+    c = PACKED
+    root = SCRATCH / "packed"
+    frames = str(root / "frames")
+    packs = str(root / "packs")
+    anno, gen_s = tree.result()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "coarse_fine_networks_torch.cli.pack_dataset",
+         "--root", frames, "--out", packs], cwd=REPO, capture_output=True,
+        text=True, timeout=600)
+    pack_s = time.perf_counter() - t1
+    check(proc.returncode == 0 and f"packed {c['videos']} videos"
+          in proc.stdout, f"packed: pack_dataset rc {proc.returncode}: "
+                          f"{proc.stdout[-500:]} {proc.stderr[-2000:]}")
+    pack_bytes = sum(os.path.getsize(os.path.join(packs, f))
+                     for f in os.listdir(packs))
+    clips = _dataset_clips(frames, anno, packs, c["batch"])
+
+    fine_pt = str(root / "fine_seeded.pt")
+    fine = init_parameters(FineNet("M", c["n_classes"], global_tower=True),
+                           torch.Generator().manual_seed(5))
+    torch.save({"model_state_dict": fine.state_dict()}, fine_pt)
+    feats = str(root / "feats")
+    cfg = DriverConfig(
+        anno=anno, root=frames, save_dir=str(root / "models"),
+        num_classes=c["n_classes"], frames=c["frames"],
+        batch_size=c["batch"], compute_dtype="bfloat16",
+        num_workers=c["workers"], device_prefetch=c["device_prefetch"],
+        max_steps=c["steps"], train_phases_per_val=1,
+        max_val_batches=c["val_batches"], kinetics_ckpt=fine_pt,
+        fine_feat_dir=feats, pack_dir=packs, resume=False, device="cuda")
+    reads = {"files": 0, "packs": 0}
+
+    def no_pillow(*a, **k):
+        raise AssertionError("packed: a frame went to Pillow")
+    saved_read, saved_pack = native._read_files, native.read_pack_frames
+
+    def read_files(paths):
+        reads["files"] += len(paths)
+        return saved_read(paths)
+
+    def read_pack(path, indices):
+        reads["packs"] += len(indices)
+        return saved_pack(path, indices)
+    saved_load = dataset_mod.load_clip_frames
+    dataset_mod.load_clip_frames = no_pillow
+    native._read_files, native.read_pack_frames = read_files, read_pack
+    try:
+        for m in mods + (fd,):
+            m.reset_launches()
+        t1 = time.perf_counter()
+        n_extracted = extract_driver.run(cfg, feats, fine_pt)
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t1
+        extract_launches = _launches(*mods)
+        extract_decodes = dict(fd.DECODES)
+        extract_crops = fd.LAUNCHES["crop_resize_kernel"]
+        for m in mods + (fd,):
+            m.reset_launches()
+        calls: list = []
+        t1 = time.perf_counter()
+        with _per_call(coarse_driver, {"make_train_step": "train",
+                                       "make_eval_step": "eval"}, mods,
+                       calls):
+            res = coarse_driver.run(dataclasses.replace(cfg))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        run_launches = _launches(*mods)
+        run_decodes = dict(fd.DECODES)
+        run_crops = fd.LAUNCHES["crop_resize_kernel"]
+    finally:
+        dataset_mod.load_clip_frames = saved_load
+        native._read_files, native.read_pack_frames = saved_read, saved_pack
+        shutil.rmtree(root / "models", ignore_errors=True)
+    want = {k: n_extracted * EVAL_CALL.get(k, 0) for k in extract_launches}
+    check(extract_launches == want, f"packed extraction: launches "
+                                    f"{extract_launches} != {want}")
+    got = _check_calls("packed coarse", calls, run_launches)
+    losses = [x["loss"] for x in calls if x["kind"] == "train"]
+    share = [wt / st for wt, st in zip(res["prefetch_wait_ms"],
+                                       res["step_ms"])]
+    crops = extract_crops + run_crops
+    row = {"phase": "packed", "model": "X3D-M", "n_classes": c["n_classes"],
+           "dtype": "bfloat16 activations, float32 parameters",
+           "data": f"Multi-THUMOS layout: {c['videos']} synthetic videos "
+                   f"({c['train']} video_validation_*) of "
+                   f"{c['video_frames']} frames at {c['hw']}², JPEG, packed "
+                   f"by cli.pack_dataset, decoded by nvJPEG and "
+                   f"crop_resize_kernel",
+           "B": c["batch"], "crop": 224, "frames": c["frames"],
+           "num_workers": c["workers"], "generate_s": gen_s,
+           "pack_s": pack_s, "pack_bytes": pack_bytes,
+           "dataset_clips": clips, "extract_s": extract_s,
+           "videos_extracted": n_extracted, "coarse_run_s": run_s,
+           "losses": losses, "step_ms": res["step_ms"],
+           "median_step_ms": statistics.median(res["step_ms"]),
+           "prefetch_wait_ms": res["prefetch_wait_ms"],
+           "prefetch_wait_share": share,
+           "median_wait_share": statistics.median(share),
+           "driver_on_pillow": {k: driver_row.get(k) for k in (
+               "median_step_ms_after_2", "median_wait_share_after_2")},
+           "val_s": res["val_s"], "val_map": res.get("val_map"),
+           "frames_read": reads,
+           "nvjpeg": {"extract": extract_decodes, "run": run_decodes},
+           "crop_resize_launches": {"extract": extract_crops,
+                                    "run": run_crops},
+           "extract_launches": {k: v for k, v in extract_launches.items()
+                                if v},
+           "run_launches": {k: v for k, v in got.items() if v}}
+    emit(row)
+    check(n_extracted == c["videos"], f"packed: extracted {n_extracted}")
+    check(len(losses) == c["steps"] and all(np.isfinite(losses)),
+          f"packed: losses {losses}")
+    check(res.get("val_map") is not None and np.isfinite(res["val_map"]),
+          f"packed: val_map {res.get('val_map')}")
+    check(reads["files"] == 0 and reads["packs"] > 0,
+          f"packed: frames read {reads}")
+    check(extract_crops == extract_decodes["calls"] > 0
+          and run_crops == run_decodes["calls"] > 0,
+          f"packed: crop_resize launches {extract_crops}, {run_crops} "
+          f"against nvJPEG's calls {extract_decodes}, {run_decodes}")
+    check(extract_decodes["frames"] + run_decodes["frames"]
+          == reads["packs"], f"packed: nvJPEG decoded "
+                             f"{extract_decodes} + {run_decodes} frames of "
+                             f"{reads['packs']} read")
+    launches = {k: extract_launches[k] + got[k] for k in got}
+    return launches, crops
+
+
+# ---- fault 3.7: which op of the f32 coarse step reorders its sums -------------
+
+_WEIGHTS: dict = {}
+
+
+def _checksum(t: torch.Tensor) -> torch.Tensor:
+    """A fingerprint of a tensor's bits that no summation order changes:
+    the int64 sum (wrapping) of its elements' bit patterns (f32 as int32,
+    16-bit types as int16), each times a weight of its position, so a
+    permutation changes it too."""
+    t = t.detach()
+    if t.dtype == torch.float32:
+        t = t.view(torch.int32)
+    elif t.dtype in (torch.bfloat16, torch.float16):
+        t = t.view(torch.int16)
+    v = t.reshape(-1).to(torch.int64)
+    n = v.numel()
+    w = _WEIGHTS.get(t.device)
+    if w is None or w.numel() < n:
+        w = _WEIGHTS[t.device] = torch.arange(
+            max(n, 1 << 20), device=t.device) % 65521 + 1
+    return (v * w[:n]).sum()
+
+
+class _OpLog:
+    """Every aten op of a run with its inputs' and outputs' fingerprints,
+    data pointers and shapes, and every hand-written kernel launch with its
+    pointer arguments, in order (a ``TorchDispatchMode`` and a wrapper of
+    ``CudaLibrary.call``).  An argument the op writes is an input only
+    where the op also reads it (in place, not ``out=``, not a fill)."""
+
+    _ALLOC = ("empty", "empty_like", "empty_strided", "new_empty",
+              "new_empty_strided")
+    # in-place ops that overwrite their first argument without reading it
+    _OVERWRITE = ("copy_", "fill_", "zero_", "normal_", "uniform_",
+                  "bernoulli_", "random_", "exponential_", "set_")
+
+    def __init__(self, device_type: str = "cuda"):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        log = self.entries = []
+        dev = device_type
+
+        def prints(xs):
+            return [(_checksum(x), x.data_ptr(), tuple(x.shape)) for x in xs
+                    if isinstance(x, torch.Tensor) and x.device.type == dev
+                    and x.numel()]
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = func.__name__.split(".")[0]
+                schema = func._schema.arguments
+                written = {a.name for a in schema if a.alias_info is not None
+                           and a.alias_info.is_write}
+                read = [a for i, a in enumerate(args)
+                        if i >= len(schema) or schema[i].name not in written
+                        or name not in _OpLog._OVERWRITE]
+                read += [v for k, v in kwargs.items() if k not in written]
+                fin = prints(torch.utils._pytree.tree_leaves(read))
+                out = func(*args, **kwargs)
+                fout = ([] if name in _OpLog._ALLOC else
+                        prints(torch.utils._pytree.tree_leaves(out)))
+                log.append(("op", str(func), fin, fout))
+                return out
+
+        self.mode = Mode()
+
+    @contextlib.contextmanager
+    def recording(self):
+        from coarse_fine_networks_torch.ops import _build
+
+        saved = _build.CudaLibrary.call
+        log = self.entries
+
+        def call(lib, name, *args):
+            log.append(("kernel", name, [a for a in args
+                                         if isinstance(a, int) and a > 4096],
+                        None))
+            return saved(lib, name, *args)
+        _build.CudaLibrary.call = call
+        try:
+            with self.mode:
+                yield self
+        finally:
+            _build.CudaLibrary.call = saved
+
+
+def _same(u, v) -> bool:
+    return int(u[0]) == int(v[0])
+
+
+def _repro_report(a: list, b: list) -> dict:
+    """Where two runs' logs part (the first aten op whose inputs or outputs
+    differ, and for an input the hand-written kernel that last wrote it),
+    which aten ops gave other outputs from equal inputs (by op and input
+    shapes), and for each hand-written kernel its launches and those whose
+    output differed at its next read although every input it read was
+    equal at its last appearance."""
+    check(len(a) == len(b) and all(x[:2] == y[:2] for x, y in zip(a, b)),
+          f"repro: the two runs' op sequences differ ({len(a)}, {len(b)})")
+    first, ops = {}, {}
+    last_seen: dict = {}  # pointer -> (entry index, same in both runs)
+    per_kernel: dict = {}
+    pending: dict = {}  # kernel entry index -> (name, inputs equal)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[0] == "kernel":
+            ins_equal = all(last_seen[p] for p in x[2] if p in last_seen)
+            rec = per_kernel.setdefault(x[1], {"launches": 0, "differ": 0,
+                                               "differ_inputs_equal": 0})
+            rec["launches"] += 1
+            pending[i] = (x[1], ins_equal, set(x[2]))
+            continue
+        ins = [_same(u, v) for u, v in zip(x[2], y[2])]
+        outs = [_same(u, v) for u, v in zip(x[3], y[3])]
+        # the first read of a kernel's pointer after its launch
+        for k in list(pending):
+            name, ins_equal, ptrs = pending[k]
+            hit = [j for j, u in enumerate(x[2]) if u[1] in ptrs]
+            if hit:
+                differ = not all(ins[j] for j in hit)
+                per_kernel[name]["differ"] += differ
+                per_kernel[name]["differ_inputs_equal"] += (differ
+                                                            and ins_equal)
+                del pending[k]
+        if all(ins) and not all(outs):
+            key = (x[1], tuple(u[2] for u in x[2]))
+            ops[key] = ops.get(key, 0) + 1
+        if not first and not (all(ins) and all(outs)):
+            if not all(ins):
+                j = ins.index(False)
+                ptr = x[2][j][1]
+                writer = next((k for k in range(i - 1, -1, -1)
+                               if a[k][0] == "kernel" and ptr in a[k][2]),
+                              None)
+                first = {"index": i, "op": x[1], "what": f"input {j}",
+                         "shapes": [u[2] for u in x[2]],
+                         "kernel": a[writer][1] if writer is not None
+                         else None}
+            else:
+                first = {"index": i, "op": x[1], "what": "output",
+                         "shapes": [u[2] for u in x[2]], "kernel": None}
+        for u, ok in zip(x[2], ins):
+            last_seen[u[1]] = ok
+        for u, ok in zip(x[3], outs):
+            last_seen[u[1]] = ok
+    return {"first_difference": first,
+            "ops_equal_inputs_other_outputs": [
+                {"op": k[0], "input_shapes": list(k[1]), "calls": n}
+                for k, n in ops.items()],
+            "kernels_run_to_run": per_kernel}
+
+
+def phase_repro(mods) -> dict:
+    """Fault 3.7: the f32 coarse step at full width (X3D-M, 157 classes, B8
+    T64 224², TF32 off, the act route) run twice from the same weights,
+    batch and dropout draws, every aten op and kernel launch logged with
+    fingerprints of its data (:class:`_OpLog`): whether the runs repeat bit
+    for bit and, if not, the first op whose inputs or outputs part, and the
+    kernel or PyTorch op behind it; every aten op that gave other outputs
+    from equal inputs; and each hand-written kernel's outputs run to run
+    (every launch's output fingerprint at its next read), which must be
+    equal wherever the inputs it read were."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    c = TRAIN
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5),
+                            torch.Generator().manual_seed(0)).cuda()
+    sd0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    batch = _train_batch("cuda", torch.Generator(device="cuda").manual_seed(1),
+                         c["b"], c["t"], c["hw"], c["tf"], c["tl"],
+                         c["n_classes"], torch.float32)
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    logs, losses, after = [], [], []
+    for _ in range(2):
+        model.load_state_dict(sd0)
+        state = TrainState.create(model)
+        drop = torch.Generator(device="cuda").manual_seed(2)
+        log = _OpLog()
+        with log.recording():
+            state, m = step(state, batch, c["lr"], drop)
+        torch.cuda.synchronize()
+        losses.append(m["loss"].item())
+        after.append({k: v.detach().clone()
+                      for k, v in model.state_dict().items()})
+        logs.append(log.entries)
+    a, b = logs
+    report = _repro_report(a, b)
+    moved = [k for k in after[0] if not torch.equal(after[0][k],
+                                                    after[1][k])]
+    row = {"phase": "repro", "what": "the f32 coarse act step twice from one "
+                                     "state, B8 T64 224², TF32 off",
+           "losses": losses, "bit_for_bit": not report["first_difference"],
+           "state_tensors_differing": len(moved), **report,
+           "log_entries": len(a)}
+    emit(row)
+    kernels = report["kernels_run_to_run"]
+    check(kernels and all(r["differ_inputs_equal"] == 0
+                          for r in kernels.values()),
+          f"repro: a hand-written kernel's output differs run to run from "
+          f"equal inputs: {kernels}")
+    return row
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5287,8 +6051,10 @@ def main() -> int:
               "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
-                                                dw_mm_bn_train, dw_stencil)
+                                                dw_mm_bn_train, dw_stencil,
+                                                frame_decode)
 
     os.environ.pop("CFN_MM_BN_TRAIN", None)  # train_mm sets it for itself
     mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train, dw_stencil)
@@ -5298,7 +6064,7 @@ def main() -> int:
     try:
         # the driver-level phases' trees are written by worker processes
         # while the kernel phases run
-        with ProcessPoolExecutor(max_workers=3, mp_context=multiprocessing
+        with ProcessPoolExecutor(max_workers=4, mp_context=multiprocessing
                                  .get_context("spawn")) as pool:
             trees = start_trees(pool)
             per_kernel = phase_kernels(dw_mm_act, dw_conv)
@@ -5339,15 +6105,30 @@ def main() -> int:
             launches.update(phase_variants(mods))
             phase_remat(mods)
             torch.cuda.empty_cache()
+            phase_repro(mods)
+            torch.cuda.empty_cache()
             driver_launches = phase_driver(mods, trees["driver"])
             torch.cuda.empty_cache()
+            crop = phase_decode(frame_decode, native)
+            torch.cuda.empty_cache()
+            packed_launches, crop["launches"] = phase_packed(
+                mods, frame_decode, trees["packed"], DRIVER_ROW)
+            torch.cuda.empty_cache()
+            crop_on = {}  # crop_resize_kernel's launches on each path
+            frame_decode.reset_launches()
             kinetics_launches, kinetics_ckpt = phase_kinetics(
                 mods, trees["kinetics"])
+            crop_on["kinetics"] = frame_decode.LAUNCHES["crop_resize_kernel"]
             torch.cuda.empty_cache()
+            frame_decode.reset_launches()
             fine_driver_launches, fine_ckpt = phase_fine_driver(
                 mods, kinetics_ckpt, trees["fine_driver"])
+            crop_on["fine_driver"] = frame_decode.LAUNCHES[
+                "crop_resize_kernel"]
             torch.cuda.empty_cache()
+            frame_decode.reset_launches()
             cli_launches = phase_cli(mods, kinetics_ckpt, fine_ckpt)
+            crop_on["cli"] = frame_decode.LAUNCHES["crop_resize_kernel"]
             torch.cuda.empty_cache()
             serve_http_launches, xl_launches = phase_serve_http(mods,
                                                                 fine_ckpt)
@@ -5388,6 +6169,11 @@ def main() -> int:
               "C108, T4 28² C216, T2 14² C432), one launch each a step, "
               "summed; launches: the variants phase's two counted "
               "t_downsample train steps and two eval steps",
+        "decode": "uint8: one clip's 64 frames of 640×480 decoded by "
+                  "nvJPEG, the centre crop 480² → 224² of extraction and "
+                  "validation, one launch (the train crop in train_crop); "
+                  "launches: the packed phase's extraction and coarse run, "
+                  "one a clip",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
               "C432), one call each, summed; K7 runs K4 plain's kernel "
@@ -5427,10 +6213,27 @@ def main() -> int:
             "serve_http_launches": serve_http_launches.get(name, 0),
             "dp_train_launches_per_rank": dp_train_launches.get(name, 0),
             "dp_cli_launches": dp_cli_launches.get(name, 0),
+            "packed_launches": packed_launches[name],
             **({"xl": _xl_entry(xl_kernels[name], xl_launches[name])}
                if name in xl_kernels else {}),
             "timed_at": timed_at[path]})
-    check(len(kernels) == 23, f"{len(kernels)} kernel entries, not 23")
+    kernels.append({
+        "name": "crop_resize_kernel", "route": "cuda",
+        "source": SOURCES["crop_resize_kernel"],
+        "replaces": REPLACES["crop_resize_kernel"],
+        "launches": crop["launches"], "max_abs_err": crop["max_abs_err"],
+        "ms": crop["ms"], "plain_ms": crop["plain_ms"],
+        "bound_ms": crop["bound_ms"],
+        "bound_by": ("bytes" if crop["bytes_ms"] >= crop["ops_ms"]
+                     else "operations"),
+        "library_ms": crop["library_ms"],
+        "train_crop": {k: crop["train_crop"][k] for k in (
+            "box", "ms", "plain_ms", "library_ms", "bound_ms")},
+        "nvjpeg_ms_per_frame": crop["nvjpeg_ms_per_frame"],
+        "driver_launches": 0, "packed_launches": crop["launches"],
+        **{f"{k}_launches": v for k, v in crop_on.items()},
+        "timed_at": timed_at["decode"]})
+    check(len(kernels) == 24, f"{len(kernels)} kernel entries, not 24")
     xl_counts = {k["name"]: (k["xl"]["launches"], k["xl"]["timed_launches"])
                  for k in kernels if "xl" in k}
     check(len(xl_counts) == 3 and all(a == b for a, b in xl_counts.values()),

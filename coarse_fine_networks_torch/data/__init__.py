@@ -1,10 +1,13 @@
 """Input pipeline of the port (counterpart of
-``coarse_fine_networks_tpu/data``): Charades annotations, clip sampling with
-Pillow decoding, the Kinetics-style pretraining corpus, the host
-transforms, pooled collate buffers, the threaded loader, the device
-prefetcher, and the device half of the transforms (uint8 frames cross to
-the card and are normalised there).  Not ported: the native decoder, the
-``.cfnpack`` packs and Multi-THUMOS."""
+``coarse_fine_networks_tpu/data``): Charades annotations, clip sampling
+with native decoding (:mod:`.native`: nvJPEG and a crop-resize kernel on
+the card, Pillow on the CPU; the ``.cfnpack`` packs) or Pillow, the
+Kinetics-style pretraining corpus, the host transforms, pooled collate
+buffers, the threaded loader, the device prefetcher, the device half of
+the transforms (uint8 frames normalised on the card), and the submodules
+:mod:`.multithumos`, :mod:`.temporal_transforms` and
+:mod:`.target_transforms`, not exported here, as the JAX package exports
+them."""
 
 from .annotations import make_dataset, rasterize_annotations
 from .dataset import CharadesDataset, collate_clips, collate_coarse

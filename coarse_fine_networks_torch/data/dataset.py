@@ -7,9 +7,15 @@ flip flag, normalised later on the device (:func:`.transforms
 the time axes up to fixed multiples, or geometric buckets, so that the
 steps see few shapes; masks carry the true lengths.
 
-Frames are decoded with Pillow.  The JAX package's native C++ decoder and
-its ``.cfnpack`` containers are not ported: ``decode_backend="native"`` and
-``pack_dir`` raise rather than decode another way.
+Frames are decoded natively (:mod:`.native`: nvJPEG and a hand-written
+crop-resize kernel on the card, Pillow and its plain version on the CPU)
+where the spatial pipeline allows, as the JAX package's datasets decode
+with its C++ library: a ``CenterCropScaled``-only pipeline, or
+``MultiScaleRandomCropMultigrid`` with a deferred flip for training;
+otherwise with Pillow and the host transforms.  ``pack_dir`` reads a
+video's frames from its ``.cfnpack`` container where one exists.  On the
+card the natively decoded clips are uint8 device tensors, and the collates
+stack them on the device.
 """
 
 from __future__ import annotations
@@ -21,14 +27,12 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 from PIL import Image
 
-from . import bufpool
+from . import bufpool, native
 from .annotations import make_dataset
-from .transforms import RandomHorizontalFlip
+from .transforms import (CenterCropScaled, Compose,
+                         MultiScaleRandomCropMultigrid, RandomHorizontalFlip)
 
 FEAT_CAP = 128  # fine-feature temporal cap (charades_coarse_fineFEAT.py:210)
-
-_NATIVE = ("the native decoder and .cfnpack packs are not ported "
-           "(ROADMAP.md, queue 1: the host data plane's native half)")
 
 
 def load_frame(root: str, vid: str, index: int) -> Optional[Image.Image]:
@@ -39,6 +43,49 @@ def load_frame(root: str, vid: str, index: int) -> Optional[Image.Image]:
     with open(path, "rb") as f:
         with Image.open(f) as img:
             return img.convert("RGB")
+
+
+def native_transforms(spatial_transform, decode_backend: str):
+    """``(native_crop, native_train)`` as the JAX datasets choose them: the
+    output size of a ``CenterCropScaled``-only pipeline, or the
+    ``MultiScaleRandomCropMultigrid`` of one followed by a deferred flip;
+    None for each the pipeline is not (or the backend is ``"pil"``).
+    ``decode_backend="native"`` raises :class:`ValueError` where neither
+    applies."""
+    if decode_backend not in ("auto", "native", "pil"):
+        raise ValueError(f"decode_backend={decode_backend!r}")
+    use = decode_backend in ("auto", "native") and native.available()
+    ts = (spatial_transform.transforms
+          if isinstance(spatial_transform, Compose) else [])
+    crop = (ts[0].size[0] if use and len(ts) == 1
+            and isinstance(ts[0], CenterCropScaled) else None)
+    train = (ts[0] if use and len(ts) == 2
+             and isinstance(ts[0], MultiScaleRandomCropMultigrid)
+             and isinstance(ts[1], RandomHorizontalFlip) and ts[1].deferred
+             else None)
+    if decode_backend == "native" and crop is None and train is None:
+        raise ValueError(
+            "native decode requires a CenterCropScaled-only or "
+            "MultiScaleRandomCropMultigrid+deferred-flip transform")
+    return crop, train
+
+
+def deferred_flip(spatial_transform) -> bool:
+    """The clip's drawn flip of a deferred :class:`RandomHorizontalFlip`."""
+    flip = False
+    for t in getattr(spatial_transform, "transforms", [spatial_transform]):
+        if isinstance(t, RandomHorizontalFlip) and t.deferred:
+            flip = t.flipped
+    return flip
+
+
+def stack(xs):
+    """``np.stack`` of host arrays, ``torch.stack`` of device clips."""
+    if xs and isinstance(xs[0], np.ndarray):
+        return np.stack(xs)
+    import torch
+
+    return torch.stack(xs)
 
 
 def load_clip_frames(root: str, vid: str, start: int, num: int,
@@ -69,6 +116,15 @@ class CharadesDataset:
     With ``fine_feat_dir`` each sample also carries the video's cached fine
     features: ``<key>/<vid>.npy`` ``(T, 7, 7, C)``, or the reference's torch
     cache ``<key>/<vid>`` ``(1, C, T, 7, 7)``.
+
+    ``decode_backend``: ``"auto"`` decodes natively where the pipeline
+    allows (:func:`native_transforms`), ``"native"`` raises where it does
+    not, ``"pil"`` always takes Pillow.  ``pack_dir``: the videos'
+    ``.cfnpack`` containers, read by the native path (a video without one
+    reads its JPEG files).  ``device``: where native decoding puts the
+    clips, the card unless the caller asks for the CPU (host arrays, as
+    the JAX package's).  The clip's random draws are the Pillow path's, in
+    the same order, so a seeded run draws the same crops either way.
     """
 
     def __init__(
@@ -91,12 +147,8 @@ class CharadesDataset:
         decode_backend: str = "auto",
         pack_dir: Optional[str] = None,
         seed: int = 0,
+        device: str = "cuda",
     ):
-        if decode_backend not in ("auto", "pil"):
-            raise NotImplementedError(f"decode_backend={decode_backend!r}: "
-                                      f"{_NATIVE}")
-        if pack_dir:
-            raise NotImplementedError(f"pack_dir: {_NATIVE}")
         kwargs = {} if min_frames is None else {"min_frames": min_frames}
         self.data = make_dataset(split_file, split, root,
                                  num_classes=num_classes, **kwargs)
@@ -110,6 +162,13 @@ class CharadesDataset:
         self.fine_feat_dir = fine_feat_dir
         self.feature_keys = tuple(feature_keys)
         self.crop_size = crop_size  # the multigrid crop for the transforms
+        self.native_crop, self.native_train = native_transforms(
+            spatial_transform, decode_backend)
+        native_any = (self.native_crop is not None
+                      or self.native_train is not None)
+        self.pack_dir = pack_dir if pack_dir and native_any else None
+        self._pack_nf: Dict[str, int] = {}
+        self.device = native.resolve_device(device)
         self.rng = random.Random(seed)
 
     def __len__(self) -> int:
@@ -146,36 +205,19 @@ class CharadesDataset:
         if self.split == "testing" and self.task == "loc":
             stride_f = stride_f // self.crops
 
-        imgs = load_clip_frames(self.root, vid, start_f, frames, stride_f)
+        use_native = (self.native_crop is not None
+                      or (self.native_train is not None
+                          and self.split != "testing"))
+        with native.on_device(self.device if use_native else "cpu"):
+            arr, flip = (self._native_frames(vid, start_f, frames, stride_f)
+                         if use_native else
+                         self._pil_frames(vid, start_f, frames, stride_f))
+            clips = self._clips(arr, frames)
         label = label[start_f - 1:start_f - 1 + frames]
         if self.task == "class":
             label = label.max(axis=0)
-        flip = False
-        if self.spatial_transform is not None:
-            self.spatial_transform.randomize_parameters(self.crop_size)
-            for t in getattr(self.spatial_transform, "transforms",
-                             [self.spatial_transform]):
-                if isinstance(t, RandomHorizontalFlip) and t.deferred:
-                    flip = t.flipped
-            imgs = [self.spatial_transform(img) for img in imgs]
-        arr = np.stack([np.asarray(im, np.uint8) for im in imgs], axis=0)
-
-        if self.split == "testing":
-            if self.task == "class":
-                tclip = self.frames // self.gamma_tau
-                step = (arr.shape[0] - 1 - tclip) // max(self.crops - 1, 1)
-                if step <= 0:
-                    clips = np.stack([arr[:tclip]] * self.crops, 0)
-                else:
-                    clips = np.stack([arr[i:i + tclip] for i in
-                                      range(0, step * self.crops, step)], 0)
-            else:
-                tclip = frames // self.gamma_tau
-                clips = np.stack([arr[i::self.crops][:tclip]
-                                  for i in range(self.crops)], 0)
-                label = label[:tclip * self.gamma_tau]
-        else:
-            clips = arr[None]
+        if self.split == "testing" and self.task != "class":
+            label = label[:(frames // self.gamma_tau) * self.gamma_tau]
 
         meta = np.asarray([start_f // self.gamma_tau,
                            frames // self.gamma_tau, nf // self.gamma_tau,
@@ -186,6 +228,66 @@ class CharadesDataset:
             sample["feats"] = self._load_feats(vid)
         return sample
 
+    def _pil_frames(self, vid, start_f, frames, stride_f):
+        """Pillow and the host transforms: ``(T, H, W, 3)`` uint8 and the
+        flip."""
+        imgs = load_clip_frames(self.root, vid, start_f, frames, stride_f)
+        flip = False
+        if self.spatial_transform is not None:
+            self.spatial_transform.randomize_parameters(self.crop_size)
+            flip = deferred_flip(self.spatial_transform)
+            imgs = [self.spatial_transform(img) for img in imgs]
+        return np.stack([np.asarray(im, np.uint8) for im in imgs], 0), flip
+
+    def _native_frames(self, vid, start_f, frames, stride_f):
+        """The native decoder, from the video's pack (index ``f - 1`` holds
+        frame ``f``, stopping at the pack's frame count) or its JPEG files
+        (stopping at the first gap): ``(T, H, W, 3)`` uint8 and the flip.
+        The train crop is drawn here, once per clip, as the Pillow path
+        draws it."""
+        pack, pack_nf = native.pack_for(self.pack_dir, vid, self._pack_nf)
+        if pack is not None:
+            indices = [i - 1 for i in range(start_f, start_f + frames,
+                                            stride_f) if i - 1 < pack_nf]
+        else:
+            paths = []
+            for i in range(start_f, start_f + frames, stride_f):
+                p = os.path.join(self.root, vid, f"{vid}-{i:06d}.jpg")
+                if not os.path.exists(p):
+                    break  # stop at first gap (charades_fine.py:54-55)
+                paths.append(p)
+        dev = self.device
+        if self.native_train is not None and self.split != "testing":
+            self.spatial_transform.randomize_parameters(self.crop_size)
+            mt = self.native_train
+            flip = deferred_flip(self.spatial_transform)
+            if pack is not None:
+                return native.decode_packed_random_crop(
+                    pack, indices, mt.size, mt.scale, mt.tl_x, mt.tl_y,
+                    device=dev), flip
+            return native.decode_batch_random_crop(
+                paths, mt.size, mt.scale, mt.tl_x, mt.tl_y, device=dev), flip
+        if pack is not None:
+            return native.decode_packed(pack, indices, self.native_crop,
+                                        device=dev), False
+        return native.decode_batch(paths, self.native_crop,
+                                   device=dev), False
+
+    def _clips(self, arr, frames):
+        """The frames ``(T, H, W, 3)`` as ``(N_crops, T', H, W, 3)``: one
+        clip for training, ``crops`` spread or interleaved ones for
+        testing."""
+        if self.split != "testing":
+            return arr[None]
+        if self.task == "class":
+            tclip = self.frames // self.gamma_tau
+            step = (arr.shape[0] - 1 - tclip) // max(self.crops - 1, 1)
+            if step <= 0:
+                return stack([arr[:tclip]] * self.crops)
+            return stack([arr[i:i + tclip]
+                          for i in range(0, step * self.crops, step)])
+        tclip = frames // self.gamma_tau
+        return stack([arr[i::self.crops][:tclip] for i in range(self.crops)])
 
 def _round_up(n: int, multiple: Optional[int]) -> int:
     if not multiple:
@@ -203,6 +305,29 @@ def _bucket_up(n: int, multiple: Optional[int]) -> int:
     return m
 
 
+def pad_clips(batch: List[dict], max_t: int):
+    """The samples' clips ``(N, T, H, W, 3)`` zero-padded in time to
+    ``max_t`` and stacked: ``(B, N, max_t, H, W, 3)`` uint8, in a pooled
+    host buffer, or for natively decoded device clips on their device (on
+    the thread's stream, synchronised before return, as the decode is)."""
+    first = batch[0]["clips"]
+    n, h, w = first.shape[0], *first.shape[2:4]
+    shape = (len(batch), n, max_t, h, w, 3)
+    host = isinstance(first, np.ndarray)
+    with native.on_device("cpu" if host else first.device) as dev:
+        if host:
+            clips = bufpool.borrow(shape, np.uint8)
+        else:
+            import torch
+
+            clips = torch.empty(shape, dtype=torch.uint8, device=dev)
+        for i, b in enumerate(batch):
+            t = b["clips"].shape[1]
+            clips[i, :, :t] = b["clips"]
+            clips[i, :, t:] = 0
+    return clips
+
+
 def collate_clips(batch: List[dict], pad_t_multiple: Optional[int] = None,
                   pad_label_multiple: Optional[int] = None,
                   bucket: bool = False) -> Dict[str, np.ndarray]:
@@ -214,19 +339,15 @@ def collate_clips(batch: List[dict], pad_t_multiple: Optional[int] = None,
     up = _bucket_up if bucket else _round_up
     max_t = up(max(b["clips"].shape[1] for b in batch), pad_t_multiple)
     max_l = up(max(b["label"].shape[0] for b in batch), pad_label_multiple)
-    n, h, w = batch[0]["clips"].shape[0], *batch[0]["clips"].shape[2:4]
     c = batch[0]["label"].shape[-1]
 
     # pooled buffers: only the padded tails are re-zeroed
-    clips = bufpool.borrow((len(batch), n, max_t, h, w, 3), np.uint8)
+    clips = pad_clips(batch, max_t)
     labels = bufpool.borrow((len(batch), max_l, c), np.float32)
     masks = bufpool.borrow((len(batch), max_l), np.float32, zero=True)
     clip_mask = bufpool.borrow((len(batch), max_t), np.float32, zero=True)
     for i, b in enumerate(batch):
-        t = b["clips"].shape[1]
-        clips[i, :, :t] = b["clips"]
-        clips[i, :, t:] = 0
-        clip_mask[i, :t] = 1.0
+        clip_mask[i, :b["clips"].shape[1]] = 1.0
         ln = b["label"].shape[0]
         labels[i, :ln] = b["label"]
         labels[i, ln:] = 0.0

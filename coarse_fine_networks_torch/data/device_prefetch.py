@@ -10,7 +10,10 @@ it, every tensor of the batch is marked as used on the consumer's stream
 (``record_stream``) so the allocator does not hand its memory to the side
 stream while the step reads it, and the batch's pooled host buffers are
 fenced with that event, so their ring hands them out again only once the
-copy has read them.
+copy has read them.  Natively decoded clips arrive on the device already
+(made on a loader thread's stream, which that thread synchronised): they
+pass through without a copy, marked as used on the side stream, and only
+host arrays are fenced.
 """
 
 from __future__ import annotations
@@ -67,6 +70,9 @@ class DevicePrefetcher:
         marks its end."""
         if stream is None:
             return self._put(hb), None
+        for x in _leaves(hb):
+            if isinstance(x, torch.Tensor) and x.is_cuda:
+                x.record_stream(stream)
         with torch.cuda.stream(stream):
             out = self._put(hb)
             event = torch.cuda.Event()

@@ -7,8 +7,10 @@ with a JSON annotation ``{vid: {"label": int, "subset": "training" |
 ``task='class'`` mode (:mod:`..train.kinetics_driver`); the checkpoint it
 saves is the ``kinetics_ckpt`` of the detection drivers.
 
-Frames are decoded with Pillow; ``decode_backend="native"`` raises, as
-:class:`.dataset.CharadesDataset`'s does.
+Frames are decoded natively where the spatial pipeline allows
+(:mod:`.native`), else with Pillow, as :class:`.dataset.CharadesDataset`
+decodes them; the JAX Kinetics dataset reads no packs, and neither does
+this one.
 """
 
 from __future__ import annotations
@@ -21,9 +23,9 @@ from typing import Dict, List, Optional
 import numpy as np
 from PIL import Image
 
-from . import bufpool
-from .dataset import _NATIVE, load_clip_frames
-from .transforms import RandomHorizontalFlip
+from . import bufpool, native
+from .dataset import (deferred_flip, load_clip_frames, native_transforms,
+                      pad_clips)
 
 
 class KineticsDataset:
@@ -34,16 +36,14 @@ class KineticsDataset:
     the centre window.  Samples are ``{"clips" (1, T, H, W, 3) uint8,
     "label", "vid", "flip"}``; :func:`collate_kinetics` stacks them.
     ``frames`` is the clip's true length (the long cycle sets it per
-    phase)."""
+    phase).  ``decode_backend`` and ``device`` as
+    :class:`.dataset.CharadesDataset`'s."""
 
     def __init__(self, anno: str, split: str, root: str,
                  spatial_transform=None, frames: int = 16,
                  gamma_tau: int = 5, min_frames: Optional[int] = None,
                  crop_size: int = 224, decode_backend: str = "auto",
-                 seed: int = 0):
-        if decode_backend not in ("auto", "pil"):
-            raise NotImplementedError(f"decode_backend={decode_backend!r}: "
-                                      f"{_NATIVE}")
+                 seed: int = 0, device: str = "cuda"):
         with open(anno) as f:
             raw = json.load(f)
         self.data: List[tuple] = []
@@ -60,6 +60,9 @@ class KineticsDataset:
         self.gamma_tau = gamma_tau
         self.spatial_transform = spatial_transform
         self.crop_size = crop_size
+        self.native_crop, self.native_train = native_transforms(
+            spatial_transform, decode_backend)
+        self.device = native.resolve_device(device)
         self.rng = random.Random(seed)
 
     def __len__(self) -> int:
@@ -75,17 +78,32 @@ class KineticsDataset:
             start = self.rng.randint(1, max(1, nf - window))
         else:
             start = max(1, (nf - window) // 2)
-        imgs = load_clip_frames(self.root, vid, start, window,
-                                self.gamma_tau)
         flip = False
-        if self.spatial_transform is not None:
-            self.spatial_transform.randomize_parameters(self.crop_size)
-            for t in getattr(self.spatial_transform, "transforms",
-                             [self.spatial_transform]):
-                if isinstance(t, RandomHorizontalFlip) and t.deferred:
-                    flip = t.flipped
-            imgs = [self.spatial_transform(img) for img in imgs]
-        arr = np.stack([np.asarray(im, np.uint8) for im in imgs], axis=0)
+        if self.native_crop is not None or self.native_train is not None:
+            paths = []
+            for i in range(start, start + window, self.gamma_tau):
+                p = os.path.join(self.root, vid, f"{vid}-{i:06d}.jpg")
+                if not os.path.exists(p):
+                    break
+                paths.append(p)
+            if self.native_train is not None:
+                self.spatial_transform.randomize_parameters(self.crop_size)
+                mt = self.native_train
+                flip = deferred_flip(self.spatial_transform)
+                arr = native.decode_batch_random_crop(
+                    paths, mt.size, mt.scale, mt.tl_x, mt.tl_y,
+                    device=self.device)
+            else:
+                arr = native.decode_batch(paths, self.native_crop,
+                                          device=self.device)
+        else:
+            imgs = load_clip_frames(self.root, vid, start, window,
+                                    self.gamma_tau)
+            if self.spatial_transform is not None:
+                self.spatial_transform.randomize_parameters(self.crop_size)
+                flip = deferred_flip(self.spatial_transform)
+                imgs = [self.spatial_transform(img) for img in imgs]
+            arr = np.stack([np.asarray(im, np.uint8) for im in imgs], axis=0)
         return {"clips": arr[None], "label": label, "vid": vid, "flip": flip}
 
 
@@ -97,14 +115,10 @@ def collate_kinetics(batch: List[Dict], pad_t_multiple: Optional[int] = None
     max_t = max(b["clips"].shape[1] for b in batch)
     if pad_t_multiple:
         max_t = -(-max_t // pad_t_multiple) * pad_t_multiple
-    n, h, w = batch[0]["clips"].shape[0], *batch[0]["clips"].shape[2:4]
-    clips = bufpool.borrow((len(batch), n, max_t, h, w, 3), np.uint8)
+    clips = pad_clips(batch, max_t)
     clip_mask = bufpool.borrow((len(batch), max_t), np.float32, zero=True)
     for i, b in enumerate(batch):
-        t = b["clips"].shape[1]
-        clips[i, :, :t] = b["clips"]
-        clips[i, :, t:] = 0
-        clip_mask[i, :t] = 1.0
+        clip_mask[i, :b["clips"].shape[1]] = 1.0
     return {"clips": clips, "clip_mask": clip_mask,
             "labels": np.asarray([b["label"] for b in batch], np.int32),
             "flip": np.asarray([b["flip"] for b in batch]),

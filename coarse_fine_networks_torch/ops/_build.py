@@ -2,9 +2,10 @@
 
 Each source in ``csrc/`` becomes one shared library with a plain C
 interface, compiled by ``nvcc`` for ``sm_90a`` at first use into ``_build/``
-(gitignored) and bound with ``ctypes``.  The library is named by a hash of
-the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source or header is rebuilt; it is written to a temporary name and renamed,
+(gitignored) and bound with ``ctypes``.  A source may add flags of its own
+(``flags``: the nvJPEG wrapper links ``-lnvjpeg``).  The library is named
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+its own included, so an edited source, header or flag is rebuilt; it is written to a temporary name and renamed,
 so a concurrent process never loads a half-written file.
 """
 
@@ -28,12 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 P, I = ctypes.c_void_p, ctypes.c_int
 
 
-def _nvcc() -> str:
+def cuda_home() -> str:
+    """The CUDA toolkit's root: ``nvcc``'s, else ``CUDA_HOME``, else
+    ``/usr/local/cuda``."""
     found = shutil.which("nvcc")
     if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(cuda_home, "bin", "nvcc")
+        return os.path.dirname(os.path.dirname(os.path.realpath(found)))
+    return os.environ.get("CUDA_HOME", "/usr/local/cuda")
+
+
+def _nvcc() -> str:
+    return shutil.which("nvcc") or os.path.join(cuda_home(), "bin", "nvcc")
 
 
 class CudaLibrary:
@@ -41,11 +47,14 @@ class CudaLibrary:
 
     ``functions`` maps each exported name to its ``ctypes`` argument types;
     every function returns an ``int`` (``cudaGetLastError()`` after its
-    launch)."""
+    launch).  ``flags``: nvcc flags of this source alone, after
+    ``NVCC_FLAGS``."""
 
-    def __init__(self, source: str, functions: dict[str, list]):
+    def __init__(self, source: str, functions: dict[str, list],
+                 flags: tuple = ()):
         self.source = CSRC / source
         self.functions = functions
+        self.flags = tuple(flags)
         self._lib: ctypes.CDLL | None = None
         self._lock = threading.Lock()
 
@@ -57,12 +66,13 @@ class CudaLibrary:
             tag = hashlib.sha256(self.source.read_bytes())
             for header in sorted(CSRC.glob("*.cuh")):
                 tag.update(header.read_bytes())
-            tag.update(" ".join(NVCC_FLAGS).encode())
+            tag.update(" ".join(NVCC_FLAGS + self.flags).encode())
             out = BUILD_DIR / f"{self.source.stem}_{tag.hexdigest()[:16]}.so"
             if not out.exists():
                 BUILD_DIR.mkdir(parents=True, exist_ok=True)
                 tmp = out.with_suffix(f".{os.getpid()}.tmp")
-                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source),
+                       *self.flags]
                 proc = subprocess.run(cmd, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(

@@ -1,0 +1,301 @@
+"""Clip frames decoded and cropped on the card: JPEG bytes → uint8 ``(N,
+out, out, 3)``, the function of the JAX package's exact native path
+(``native/cfn_data.cpp``: libjpeg's full decode, then ``crop_resize``).
+
+* ``crop_resize_kernel`` (``csrc/frame_decode.cu``; replaces no TPU kernel:
+  its counterpart is the host C++ ``crop_resize``, ``cfn_data.cpp:132``, and
+  ``center_crop_scale`` at :262): each frame's crop box bilinearly resized
+  to ``out × out`` in f32, every operation rounded on its own as g++ -O3
+  computes it on x86-64.  :func:`crop_resize_plain` is the same sequence in
+  separate PyTorch ops; the two agree bit for bit.  Bound by bytes: the
+  crop's rows read once, ``out²·3`` bytes written a frame.
+* the decode: nvJPEG, the decoder shipped with the CUDA toolkit (no TPU
+  kernel exists for it), behind a thin C wrapper in the same source: one
+  ``nvjpegDecodeBatched`` call for a clip's RGB frames, into a pitched
+  device buffer the wrapper allocates, which the kernel reads through its
+  pitch.  Grey frames decode to one channel, which the kernel repeats.
+
+:func:`decode_crop_resize` decodes a list of JPEGs and crops them: on a CUDA
+device with nvJPEG and the kernel, on the CPU with Pillow and
+:func:`crop_resize_plain`.  The library is built at first use (never when
+this module is imported).  nvJPEG has no DCT-scaled decode, so the JAX
+package's fast path (libjpeg-turbo's partial decode at a reduced scale) has
+no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import io
+import threading
+from typing import Callable, List, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ._build import CudaLibrary, I, P, cuda_home
+
+SZ = ctypes.c_size_t
+LIBRARY = CudaLibrary("frame_decode.cu", {
+    "cfn_crop_resize": [P, I, I, I, I, I, P, P, I, P],
+    "cfn_jpeg_create": [ctypes.POINTER(P)],
+    "cfn_jpeg_info": [P, P, SZ, P],
+    "cfn_jpeg_decode": [P, P, P, I, I, P, I, SZ, P],
+}, flags=("-lnvjpeg", "-Xlinker", f"-rpath={cuda_home()}/lib64"))
+
+# Kernel launches since the last reset (only where the kernel is launched,
+# never by the plain version), and nvJPEG's decode calls and frames
+LAUNCHES = {"crop_resize_kernel": 0}
+DECODES = {"calls": 0, "frames": 0}
+_COUNT_LOCK = threading.Lock()
+
+# rows of a decoded frame start PITCH_ALIGN bytes apart at least
+PITCH_ALIGN = 128
+
+Box = Tuple[int, int, int, int]
+
+
+def reset_launches() -> None:
+    with _COUNT_LOCK:
+        LAUNCHES["crop_resize_kernel"] = 0
+        DECODES["calls"] = DECODES["frames"] = 0
+
+
+def _count(table: dict, key: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        table[key] += n
+
+
+def _check_frames(frames: torch.Tensor, boxes) -> np.ndarray:
+    """Raise on what the kernel does not take; the boxes as int64 ``(N,
+    4)``: uint8 frames ``(N, h, w, C)``, C 1 or 3, channels and pixels
+    contiguous (rows may lie a pitch apart, frames ``h`` rows apart), each
+    box ``(x1, y1, cw, ch)`` inside its frame."""
+    if frames.dtype != torch.uint8 or frames.dim() != 4:
+        raise ValueError(f"frames must be uint8 (N, h, w, C), got "
+                         f"{frames.dtype} {tuple(frames.shape)}")
+    n, h, w, c = frames.shape
+    if c not in (1, 3):
+        raise ValueError(f"frames must have 1 or 3 channels, got {c}")
+    sn, sh, sw, sc = frames.stride()
+    if sc != 1 or sw != c or sh < w * c or (n > 1 and sn != h * sh):
+        raise ValueError(f"frames' strides {frames.stride()} are not a "
+                         f"pitched (N, h, w, {c}) layout")
+    b = np.asarray(boxes, np.int64).reshape(n, 4)
+    x1, y1, cw, ch = b.T
+    if ((x1 < 0) | (y1 < 0) | (cw < 1) | (ch < 1) | (x1 + cw > w)
+            | (y1 + ch > h)).any():
+        raise ValueError(f"crop boxes {b.tolist()} outside {w}x{h} frames")
+    return b
+
+
+def crop_resize_plain(frames: torch.Tensor, boxes, out: int) -> torch.Tensor:
+    """Each frame's box ``(x1, y1, cw, ch)`` resized bilinearly to ``(out,
+    out)``: uint8 ``(N, h, w, C)`` → uint8 ``(N, out, out, 3)`` on the
+    frames' device, C = 1 giving three equal channels.  The arithmetic of
+    ``native/cfn_data.cpp``'s ``crop_resize``, each operation rounded to
+    f32: the sample positions and weights in numpy, the four-tap sum in
+    PyTorch, in the C++'s order."""
+    b = _check_frames(frames, boxes)
+    n = frames.shape[0]
+    x1, y1, cw, ch = b.T
+    f32 = np.float32
+    grid = np.arange(out, dtype=f32) + f32(0.5)
+
+    def axis(size):
+        s = size.astype(f32) / f32(out)
+        f = grid[None, :] * s[:, None] - f32(0.5)
+        f[f < 0] = 0
+        i0 = f.astype(np.int64)
+        ib = np.minimum(i0 + 1, size[:, None] - 1)
+        wgt = f - i0.astype(f32)
+        return i0, ib, wgt, f32(1) - wgt
+
+    y0, yb, wy, oy = axis(ch)
+    x0, xb, wx, ox = axis(cw)
+    dev = frames.device
+
+    def t(a, shape):
+        return torch.from_numpy(np.ascontiguousarray(a)).reshape(shape).to(dev)
+
+    nn_ = t(np.arange(n), (n, 1, 1))
+    rows = [t(y1[:, None] + r, (n, out, 1)) for r in (y0, yb)]
+    cols = [t(x1[:, None] + c, (n, 1, out)) for c in (x0, xb)]
+    wy, oy = t(wy, (n, out, 1, 1)), t(oy, (n, out, 1, 1))
+    wx, ox = t(wx, (n, 1, out, 1)), t(ox, (n, 1, out, 1))
+
+    def tap(r, c):
+        v = frames[nn_, rows[r], cols[c]].to(torch.float32)
+        return v.expand(n, out, out, 3) if v.shape[-1] == 1 else v
+
+    v = tap(0, 0) * oy * ox
+    v = v + tap(0, 1) * oy * wx
+    v = v + tap(1, 0) * wy * ox
+    v = v + tap(1, 1) * wy * wx
+    return (v + 0.5).to(torch.int32).to(torch.uint8)
+
+
+def crop_resize(frames: torch.Tensor, boxes, out: int) -> torch.Tensor:
+    """:func:`crop_resize_plain`'s function: on a CPU tensor its plain
+    version, on a CUDA tensor ``crop_resize_kernel`` on the current stream
+    (or raises)."""
+    b = _check_frames(frames, boxes)
+    if frames.device.type == "cpu":
+        return crop_resize_plain(frames, b, out)
+    if frames.device.type != "cuda":
+        raise ValueError(f"frames on {frames.device}: CPU or CUDA only")
+    n, h, w, c = frames.shape
+    dev = frames.device
+    y = torch.empty((n, out, out, 3), dtype=torch.uint8, device=dev)
+    # the boxes cross from page-locked memory without a host wait
+    box = torch.from_numpy(b.astype(np.int32)).pin_memory().to(
+        dev, non_blocking=True)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        LIBRARY.call("cfn_crop_resize", frames.data_ptr(), n, h, w,
+                     frames.stride(1), c, box.data_ptr(), y.data_ptr(), out,
+                     stream)
+    _count(LAUNCHES, "crop_resize_kernel")
+    return y
+
+
+# ---- the decode --------------------------------------------------------------
+
+class _Decoders:
+    """nvJPEG contexts (a handle and a state each), lent to one thread at a
+    time and kept for the process's life: a loader's worker threads end
+    with each epoch, so contexts are pooled rather than per thread."""
+
+    def __init__(self):
+        self._free: List[int] = []
+        self._lock = threading.Lock()
+
+    def acquire(self) -> int:
+        with self._lock:
+            if self._free:
+                return self._free.pop()
+        ctx = P()
+        st = LIBRARY.build().cfn_jpeg_create(ctypes.byref(ctx))
+        if st != 0:
+            raise RuntimeError(f"nvjpeg: creating a decoder failed "
+                               f"(status {st})")
+        return ctx.value
+
+    def release(self, ctx: int) -> None:
+        with self._lock:
+            self._free.append(ctx)
+
+
+_DECODERS = _Decoders()
+
+
+def jpeg_info(blob: bytes) -> Tuple[int, int, int]:
+    """``(width, height, components)`` of one JPEG, from its header, by
+    Pillow (no decode)."""
+    from PIL import Image
+
+    with Image.open(io.BytesIO(blob)) as img:
+        return img.width, img.height, len(img.getbands())
+
+
+def _pitch(w: int, c: int) -> int:
+    return -(-w * c // PITCH_ALIGN) * PITCH_ALIGN
+
+
+def _decode_group_cuda(ctx, lib, blobs, names, c, h, w, dev):
+    """One size's frames decoded by nvJPEG into a pitched buffer: the
+    ``(n, h, w, c)`` view of it."""
+    n = len(blobs)
+    pitch = _pitch(w, c)
+    buf = torch.empty((n, h, pitch), dtype=torch.uint8, device=dev)
+    datas = (ctypes.c_char_p * n)(*blobs)
+    lens = (SZ * n)(*[len(x) for x in blobs])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    st = lib.cfn_jpeg_decode(ctx, datas, lens, n, c, buf.data_ptr(), pitch,
+                             h * pitch, stream)
+    if st != 0:
+        raise IOError(f"nvjpeg: decoding {n} frames failed (status {st}), "
+                      f"e.g. {list(names[:3])}")
+    _count(DECODES, "calls")
+    _count(DECODES, "frames", n)
+    return buf[:, :, :w * c].view(n, h, w, c)
+
+
+def _decode_group_cpu(blobs, names, c):
+    from PIL import Image
+
+    frames = []
+    for blob, name in zip(blobs, names):
+        try:
+            with Image.open(io.BytesIO(blob)) as img:
+                frames.append(np.asarray(img.convert("RGB"), np.uint8))
+        except Exception as e:  # noqa: BLE001 — reported by name
+            raise IOError(f"1 frames failed to decode, e.g. [{name!r}]: "
+                          f"{e}") from e
+    return torch.from_numpy(np.stack(frames))
+
+
+def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
+                       out: int, box_of: Callable[[int, int], Box],
+                       device: "str | torch.device" = "cuda"
+                       ) -> torch.Tensor:
+    """Decode JPEGs (``blobs``, named ``names`` in errors) and crop and
+    resize each to ``(out, out)``: uint8 ``(N, out, out, 3)`` on ``device``.
+    ``box_of(w, h)`` gives a frame's crop box ``(x1, y1, cw, ch)``; frames
+    of one size and kind go through the kernel together.
+
+    On a CUDA device: nvJPEG and ``crop_resize_kernel`` on the current
+    stream, which is synchronised before the decoder is lent again (its
+    state's device buffers serve the stream's work).  A frame nvJPEG cannot
+    read raises :class:`IOError` naming it, and a failed build or load of
+    the library raises: the card never falls back to Pillow.  On the CPU:
+    Pillow's decode to RGB and :func:`crop_resize_plain`."""
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"device {dev}: CPU or CUDA only")
+    n = len(blobs)
+    cuda = dev.type == "cuda"
+    lib = LIBRARY.build() if cuda else None
+    ctx = _DECODERS.acquire() if cuda else None
+    try:
+        groups: dict = {}
+        bad = []
+        info = (ctypes.c_int * 3)()
+        for i, (blob, name) in enumerate(zip(blobs, names)):
+            if cuda:
+                ok = lib.cfn_jpeg_info(ctx, blob, len(blob), info) == 0
+                w, h, comps = tuple(info)
+            else:
+                try:
+                    w, h, comps = jpeg_info(blob)
+                    ok = True
+                except Exception:  # noqa: BLE001 — reported by name
+                    ok = False
+            if not ok or comps not in (1, 3):
+                bad.append(name)
+                continue
+            groups.setdefault((w, h, 1 if comps == 1 else 3), []).append(i)
+        if bad:
+            raise IOError(f"{len(bad)} frames failed to decode, e.g. "
+                          f"{bad[:3]}")
+        y = None
+        for (w, h, c), idx in groups.items():
+            gb = [blobs[i] for i in idx]
+            gn = [names[i] for i in idx]
+            frames = (_decode_group_cuda(ctx, lib, gb, gn, c, h, w, dev)
+                      if cuda else _decode_group_cpu(gb, gn, c))
+            part = crop_resize(frames, [box_of(w, h)] * len(idx), out)
+            if len(idx) == n:
+                y = part
+                break
+            if y is None:
+                y = torch.empty((n, out, out, 3), dtype=torch.uint8,
+                                device=dev)
+            y[torch.as_tensor(idx, device=dev)] = part
+        if y is None:
+            y = torch.empty((0, out, out, 3), dtype=torch.uint8, device=dev)
+        return y
+    finally:
+        if cuda:
+            torch.cuda.current_stream(dev).synchronize()
+            _DECODERS.release(ctx)

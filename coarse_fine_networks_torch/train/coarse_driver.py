@@ -68,7 +68,7 @@ def build_coarse_loaders(cfg):
     common = dict(task="loc", frames=cfg.frames, gamma_tau=cfg.gamma_tau,
                   min_frames=cfg.min_frames, num_classes=cfg.num_classes,
                   crop_size=cfg.crop_size, fine_feat_dir=cfg.fine_feat_dir,
-                  pack_dir=cfg.pack_dir)
+                  pack_dir=cfg.pack_dir, device=cfg.device)
     train_ds = CharadesDataset(cfg.anno, "training", cfg.root,
                                spatial_transform=train_t, crops=1, **common)
     val_ds = CharadesDataset(cfg.anno, "testing", cfg.root,

@@ -40,8 +40,12 @@ def prepare_clips(batch: Dict[str, Any], mean=CHARADES_MEAN,
     The N crops of a sample fold into the batch, each with its sample's
     flip (training has N = 1, so this squeezes the crops axis); padded
     frames are zeroed after the normalisation, as the reference zero-pads
-    normalised tensors."""
+    normalised tensors.  Clips decoded on the card arrive as a device
+    tensor made on a loader thread's stream, and are marked as used on this
+    one."""
     clips = _on(batch["clips"], device)
+    if clips.is_cuda:
+        clips.record_stream(torch.cuda.current_stream(clips.device))
     b, n = clips.shape[:2]
     clips = clips.reshape((b * n,) + tuple(clips.shape[2:]))
     flip = torch.repeat_interleave(_on(batch["flip"], device, torch.bool), n)

@@ -48,7 +48,7 @@ class DriverConfig:
     num_workers: int = 4
     prefetch: int = 4
     device_prefetch: int = 2  # batches staged on the device ahead
-    pack_dir: Optional[str] = None     # not ported: raises
+    pack_dir: Optional[str] = None     # .cfnpack containers (data/native.py)
     stem_s2d_input: bool = False   # TPU layout option: off on the card
     record_trajectory: bool = False  # (step, lr, loss) per step in results
     fine_feat_dir: Optional[str] = None

@@ -40,7 +40,7 @@ def run(cfg, save_dir: str, fine_ckpt: Optional[str] = None,
         frames=cfg.frames, gamma_tau=cfg.gamma_tau, crops=1,
         extract_feat=True, min_frames=cfg.min_frames,
         num_classes=cfg.num_classes, crop_size=cfg.crop_size,
-        pack_dir=cfg.pack_dir) for split in splits]
+        pack_dir=cfg.pack_dir, device=cfg.device) for split in splits]
 
     model = FineNet(cfg.x3d_version, cfg.num_classes, task="loc",
                     global_tower=True)

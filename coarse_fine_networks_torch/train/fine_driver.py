@@ -85,7 +85,8 @@ def build_fine_loaders(cfg):
     train_t, val_t = build_transforms(cfg)
     common = dict(task="loc", frames=cfg.frames, gamma_tau=cfg.gamma_tau,
                   min_frames=cfg.min_frames, num_classes=cfg.num_classes,
-                  crop_size=cfg.crop_size, pack_dir=cfg.pack_dir)
+                  crop_size=cfg.crop_size, pack_dir=cfg.pack_dir,
+                  device=cfg.device)
     train_ds = CharadesDataset(cfg.anno, "training", cfg.root,
                                spatial_transform=train_t, crops=1, **common)
     val_ds = CharadesDataset(cfg.anno, "testing", cfg.root,

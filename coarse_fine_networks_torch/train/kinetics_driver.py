@@ -177,7 +177,8 @@ def _run_impl(cfg, state_box) -> Dict[str, Any]:
 def _train(cfg, state_box, device, dtype) -> Dict[str, Any]:
     train_t, val_t = build_transforms(cfg)
     common = dict(frames=cfg.frames, gamma_tau=cfg.gamma_tau,
-                  min_frames=cfg.min_frames, crop_size=cfg.crop_size)
+                  min_frames=cfg.min_frames, crop_size=cfg.crop_size,
+                  device=cfg.device)
     train_ds = KineticsDataset(cfg.anno, "training", cfg.root,
                                spatial_transform=train_t, **common)
     val_ds = KineticsDataset(cfg.anno, "validation", cfg.root,

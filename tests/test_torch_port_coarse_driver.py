@@ -53,6 +53,7 @@ from coarse_fine_networks_tpu.train import coarse_driver as jcoarse
 from coarse_fine_networks_tpu.train import extract_driver as jextract
 from coarse_fine_networks_tpu.train.config import DriverConfig as JConfig
 from coarse_fine_networks_torch.ckpt import state_dict_from_jax
+from coarse_fine_networks_torch.data import native as pnative
 from coarse_fine_networks_torch.data.synthetic import generate_mini_charades
 from coarse_fine_networks_torch.models.fine import FEAT_KEYS
 from coarse_fine_networks_torch.train import coarse_driver, extract_driver
@@ -89,6 +90,19 @@ RUNS = {"trajectory": dict(t_lim_inference=4),
         "chunked": dict(t_lim_inference=4, init_lr=0.0),
         "crops3": dict(crops=3, init_lr=0.0)}
 VAL_RUNS = ("chunked", "crops3")
+
+
+_JAX_AVAILABLE = jnative.available
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pillow_on_both_sides():
+    """Both packages' datasets decode with Pillow unless a test turns the
+    native decoders back on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(pnative, "available", lambda: False)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -228,33 +242,83 @@ def test_remat_run_equals_the_plain_run(world, port_runs):
     assert got.get("val_map") == ref.get("val_map")
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("pack_dir", "packs")])
+@pytest.mark.parametrize("field,value", [("mesh_devices", 2)])
 def test_unported_options_raise(world, field, value, request):
-    """``pack_dir`` (the packed data plane) is not ported and raises.
-    ``mesh_devices=2`` raised until data parallelism was ported; now two
+    """``mesh_devices=2`` raised until data parallelism was ported; now two
     ranks (spawned over gloo) take the trajectory run's three steps and
     validate on rank 0 (``tests/test_torch_port_dp_driver.py`` holds them
-    against one process)."""
+    against one process).  ``pack_dir`` raised until the packs were
+    ported: ``test_packed_*`` hold it against the JAX drivers."""
     cfg = DriverConfig(**_coarse(world, "port_unported", device="cpu",
                                  **{field: value}))
-    if field == "mesh_devices":
-        request.getfixturevalue("jax_runs")  # the feature bank it reads
-        res = coarse_driver.run(cfg)
-        assert [s for s, _, _ in res["trajectory"]] == [1, 2, 3]
-        assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
-        assert np.isfinite(res["val_map"])
-        return
-    with pytest.raises(NotImplementedError):
-        coarse_driver.run(cfg)
+    request.getfixturevalue("jax_runs")  # the feature bank it reads
+    res = coarse_driver.run(cfg)
+    assert [s for s, _, _ in res["trajectory"]] == [1, 2, 3]
+    assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
+    assert np.isfinite(res["val_map"])
 
 
-def test_native_decode_raises(world):
-    from coarse_fine_networks_torch.data import CharadesDataset
+@pytest.fixture(scope="module")
+def packed_runs(world, jax_runs):
+    """Extraction and a two-step coarse run with ``pack_dir`` on each side,
+    each package decoding natively (the JAX library in its exact mode),
+    the port's packs of every video but one, which reads its JPEG files;
+    both coarse runs read the JAX bank of this extraction."""
+    w = world
+    packs = os.path.join(w["root"], "packs")
+    vids = sorted(os.listdir(w["frames"]))
+    assert pnative.pack_directory(w["frames"], packs, vids=vids[1:]) == 7
+    feats = {k: os.path.join(w["root"], f"feats_packed_{k}")
+             for k in ("jax", "port")}
+    kw = dict(pack_dir=packs, max_steps=2, **RUNS["trajectory"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", _JAX_AVAILABLE)
+        mp.setattr(pnative, "available", lambda: True)
+        prev = jnative.set_fast_decode(False)
+        try:
+            out = {"jax_n": jextract.run(JConfig(**_base(w, pack_dir=packs)),
+                                         feats["jax"], w["fine_pt"]),
+                   "port_n": extract_driver.run(DriverConfig(**_base(
+                       w, pack_dir=packs, device="cpu")), feats["port"],
+                       w["fine_pt"])}
+            out["jax"] = jcoarse.run(JConfig(**dict(_coarse(
+                w, "jax_packed", **kw), fine_feat_dir=feats["jax"])))
+            out["port"] = coarse_driver.run(DriverConfig(**dict(_coarse(
+                w, "port_packed", device="cpu", **kw),
+                fine_feat_dir=feats["jax"])))
+        finally:
+            jnative.set_fast_decode(prev)
+    out["feats"] = feats
+    return out
 
-    with pytest.raises(NotImplementedError):
-        CharadesDataset(world["anno"], "training", world["frames"],
-                        decode_backend="native")
+
+def test_packed_extraction_matches_jax(packed_runs):
+    """Features extracted from the packs by both packages' native
+    decoders, within the Pillow runs' tolerance; the native decode changes
+    the features (the JAX library's resize is not Pillow's)."""
+    r = packed_runs
+    assert r["port_n"] == r["jax_n"] == 8
+    moved = 0.0
+    for k in FEAT_KEYS:
+        for name in sorted(os.listdir(os.path.join(r["feats"]["jax"], k))):
+            ref = np.load(os.path.join(r["feats"]["jax"], k, name))
+            got = np.load(os.path.join(r["feats"]["port"], k, name))
+            err = np.abs(got - ref).max() / np.abs(ref).max()
+            assert np.isfinite(got).all() and err <= FEAT_TOL, (k, name, err)
+            pil = np.load(os.path.join(os.path.dirname(r["feats"]["jax"]),
+                                       "feats_jax", k, name))
+            moved = max(moved, np.abs(pil - ref).max() / np.abs(ref).max())
+    assert moved > 10 * FEAT_TOL, moved
+
+
+def test_packed_coarse_run_matches_jax(packed_runs):
+    """The two steps' losses and the validation from the packs."""
+    got, ref = (packed_runs[k]["trajectory"] for k in ("port", "jax"))
+    print("packed port:", got, "\njax: ", ref)
+    assert [s for s, _, _ in got] == [s for s, _, _ in ref] == [1, 2]
+    losses, jlosses = [x for *_, x in got], [x for *_, x in ref]
+    np.testing.assert_allclose(losses[0], jlosses[0], atol=STEP0_TOL)
+    np.testing.assert_allclose(losses, jlosses, atol=STEP_TOL)
 
 
 def test_card_without_a_card_fails(world, monkeypatch):

@@ -2,8 +2,9 @@
 the synthetic tree, the annotation table, every host transform (pixels and
 random draws), ``CharadesDataset`` samples, the collates, the loader's
 order and resume, and the pooled buffers' reuse.  Exact: the same numpy,
-Pillow and ``random`` calls on both sides.  The JAX datasets decode with
-Pillow (``decode_backend="pil"``), the port's only decoder."""
+Pillow and ``random`` calls on both sides.  Both datasets decode with
+Pillow (``decode_backend="pil"``); the native decoders are
+held against each other in ``tests/test_torch_port_native.py``."""
 
 import filecmp
 import json
@@ -190,7 +191,8 @@ def _datasets(trees, split, crops, transforms, **kw):
                   feature_keys=[k for k, _ in KEYS], seed=2, **kw)
     tp, tj = transforms(ptr), transforms(jtr)
     return (pds.CharadesDataset(trees["anno"], split, trees["frames"],
-                                spatial_transform=tp, **common),
+                                spatial_transform=tp, decode_backend="pil",
+                                **common),
             jds.CharadesDataset(trees["anno"], split, trees["frames"],
                                 spatial_transform=tj, decode_backend="pil",
                                 **common))
@@ -441,7 +443,8 @@ def test_reused_buffers_do_not_corrupt_prefetched_batches(trees, monkeypatch):
         trees["anno_p"], "testing", os.path.join(trees["root_p"], "frames"),
         spatial_transform=_val_t(ptr), frames=8, min_frames=10,
         num_classes=GEN["num_classes"], crop_size=32,
-        fine_feat_dir=trees["feats"], feature_keys=[k for k, _ in KEYS])
+        fine_feat_dir=trees["feats"], feature_keys=[k for k, _ in KEYS],
+        device="cpu")
 
     class Repeated:
         def __len__(self):

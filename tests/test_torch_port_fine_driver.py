@@ -7,9 +7,11 @@ clips of 2 frames padded to 4), ``min_frames=10``, videos of 100 frames
 loader worker (more interleave the crops' random draws).  Both sides start
 from one reference-named ``.pt`` of the fine stream with its logits head,
 made from numpy-filled JAX variables (``_torch_port_util.jax_variables``),
-which the JAX ``load_pretrained`` reads too.  The JAX driver decodes with
-Pillow, as the port does (its datasets take the native decoder whenever it
-is built, whose resize differs).
+which the JAX ``load_pretrained`` reads too.  Both drivers decode with
+Pillow (each package's datasets take its native decoder wherever it runs,
+and the JAX library's resize differs from Pillow's), except the packed
+run: both sides' native decoders in the JAX package's exact mode, from the
+port's ``.cfnpack`` packs.
 
 Runs: ``multigrid``, the long cycle with both packages'
 ``DEFAULT_LONG_CYCLE`` cut to two phases of the base clip (``frames=16``:
@@ -46,6 +48,7 @@ from coarse_fine_networks_tpu.train import fine_driver as jfine
 from coarse_fine_networks_tpu.train import multigrid as jmultigrid
 from coarse_fine_networks_tpu.train.config import DriverConfig as JConfig
 from coarse_fine_networks_torch.ckpt import state_dict_from_jax
+from coarse_fine_networks_torch.data import native as pnative
 from coarse_fine_networks_torch.data.synthetic import generate_mini_charades
 from coarse_fine_networks_torch.train import fine_driver, multigrid
 from coarse_fine_networks_torch.train.config import DriverConfig
@@ -81,6 +84,19 @@ VAL_RUNS = ("chunked", "crops2")
 
 def _two_phases(phase_cls):
     return [phase_cls(1.0, 1.0, 2, 2), phase_cls(1.0, 1.0, 1, 1)]
+
+
+_JAX_AVAILABLE = jnative.available
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pillow_on_both_sides():
+    """Both packages' datasets decode with Pillow unless a test turns the
+    native decoders back on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(pnative, "available", lambda: False)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -239,23 +255,47 @@ def test_remat_run_equals_the_plain_run(world, port_runs):
     assert got["trajectory"] == ref["trajectory"]
 
 
-@pytest.mark.parametrize("field,value", [
-    ("mesh_devices", 2), ("pack_dir", "packs")])
+@pytest.mark.parametrize("field,value", [("mesh_devices", 2)])
 def test_unported_options_raise(world, field, value):
-    """``pack_dir`` (the packed data plane) is not ported and raises.
-    ``mesh_devices=2`` raised until data parallelism was ported; now two
+    """``mesh_devices=2`` raised until data parallelism was ported; now two
     ranks (spawned over gloo) train an epoch of two steps, one row each,
-    and validate on rank 0."""
+    and validate on rank 0.  ``pack_dir`` raised until the packs were
+    ported: ``test_packed_run_matches_jax`` holds it against JAX."""
     cfg = DriverConfig(**_base(world, "port_unported", device="cpu",
                                **{field: value}))
-    if field == "mesh_devices":
-        res = fine_driver.run(cfg)
-        assert [s for s, _, _ in res["trajectory"]] == [1, 2]
-        assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
-        assert np.isfinite(res["val_map"]) and np.isfinite(res["val_loss"])
-        return
-    with pytest.raises(NotImplementedError):
-        fine_driver.run(cfg)
+    res = fine_driver.run(cfg)
+    assert [s for s, _, _ in res["trajectory"]] == [1, 2]
+    assert np.isfinite([x for _, _, x in res["trajectory"]]).all()
+    assert np.isfinite(res["val_map"]) and np.isfinite(res["val_loss"])
+
+
+def test_packed_run_matches_jax(world):
+    """``pack_dir`` on both sides, each package decoding natively (the JAX
+    library in its exact mode) from the port's packs of every video but
+    one, which reads its JPEG files: the two steps' losses and the
+    validation's ``val_map`` within the Pillow runs' tolerances."""
+    packs = os.path.join(world["root"], "packs")
+    vids = sorted(os.listdir(world["frames"]))
+    assert pnative.pack_directory(world["frames"], packs,
+                                  vids=vids[:-1]) == 7
+    kw = dict(pack_dir=packs, **RUNS["chunked"])
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", _JAX_AVAILABLE)
+        mp.setattr(pnative, "available", lambda: True)
+        prev = jnative.set_fast_decode(False)
+        try:
+            ref = jfine.run(JConfig(**_base(world, "jax_packed", **kw)))
+            got = fine_driver.run(DriverConfig(**_base(
+                world, "port_packed", device="cpu", **kw)))
+        finally:
+            jnative.set_fast_decode(prev)
+    print("packed port:", got["trajectory"], "\njax: ", ref["trajectory"])
+    assert [s for s, _, _ in got["trajectory"]] == [1, 2]
+    losses = [x for *_, x in got["trajectory"]]
+    jlosses = [x for *_, x in ref["trajectory"]]
+    np.testing.assert_allclose(losses[0], jlosses[0], atol=STEP0_TOL)
+    np.testing.assert_allclose(losses, jlosses, atol=STEP_TOL)
+    assert abs(got["val_map"] - ref["val_map"]) <= VAL_TOL
 
 
 def test_card_without_a_card_fails(world, monkeypatch):

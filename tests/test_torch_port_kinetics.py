@@ -1,6 +1,7 @@
 """The port's Kinetics-style pretraining against the JAX package's: the
 synthetic corpus, the dataset's samples and the collate (uint8, exactly;
-the JAX side decodes with Pillow, as the port does), the smoothed
+both sides decode with Pillow, or both with their native decoders, the
+JAX library in its exact mode), the smoothed
 cross-entropy, the class train step, a driver run, and the transfer of
 the port's checkpoint into the fine driver.
 
@@ -49,6 +50,7 @@ from coarse_fine_networks_tpu.train.config import DriverConfig as JConfig
 from coarse_fine_networks_torch.ckpt import load_checkpoint, \
     state_dict_from_jax
 from coarse_fine_networks_torch.data import kinetics as kdata
+from coarse_fine_networks_torch.data import native as pnative
 from coarse_fine_networks_torch.data.synthetic import generate_mini_charades
 from coarse_fine_networks_torch.models import FineNet, init_parameters
 from coarse_fine_networks_torch.train import (TrainState, fine_driver,
@@ -60,6 +62,19 @@ from _torch_port_util import jax_variables
 torch.set_num_threads(2)
 NCLS = 7
 STEP0_TOL, STEP_TOL, CE_TOL = 1e-3, 1.5e-2, 1e-6
+
+
+_JAX_AVAILABLE = jnative.available
+
+
+@pytest.fixture(scope="module", autouse=True)
+def pillow_on_both_sides():
+    """Both packages' datasets decode with Pillow unless a test turns the
+    native decoders back on."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "available", lambda: False)
+        mp.setattr(pnative, "available", lambda: False)
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -138,10 +153,42 @@ def test_dataset_samples_and_collate_match_jax(corpus, split, monkeypatch):
     assert got["clips"].shape[2] == 16 and got["clip_mask"].sum() == 12
 
 
-def test_native_decode_raises(corpus):
-    with pytest.raises(NotImplementedError):
-        kdata.KineticsDataset(corpus["anno"], "training", corpus["frames"],
-                              decode_backend="native")
+@pytest.mark.parametrize("split", ["training", "validation"])
+def test_native_dataset_matches_jax(corpus, split, monkeypatch):
+    """With ``decode_backend="native"`` on both sides (the JAX library in
+    its exact mode, the port on the CPU): the same windows, crops and
+    flips, and the same uint8 pixels."""
+    monkeypatch.setattr(jnative, "available", _JAX_AVAILABLE)
+    monkeypatch.setattr(pnative, "available", lambda: True)
+    prev = jnative.set_fast_decode(False)
+    try:
+        cfg, jcfg = _cfgs(corpus)
+        i = 0 if split == "training" else 1
+        pt, jt = (fine_driver.build_transforms(cfg)[i],
+                  jfine.build_transforms(jcfg)[i])
+        kw = dict(frames=4, gamma_tau=cfg.gamma_tau, crop_size=64,
+                  decode_backend="native")
+        ds = kdata.KineticsDataset(corpus["anno"], split, corpus["frames"],
+                                   spatial_transform=pt, device="cpu", **kw)
+        jds = jkdata.KineticsDataset(corpus["anno"], split,
+                                     corpus["frames"], spatial_transform=jt,
+                                     **kw)
+        assert (ds.native_train is None) == (jds.native_train is None)
+        assert (ds.native_crop, jds.native_crop) == ((None, None) if i == 0
+                                                     else (64, 64))
+        samples = []
+        for ds_ in (ds, jds):
+            random.seed(5)
+            samples.append([ds_[j] for j in range(len(ds_))
+                            for _ in range(2)])
+    finally:
+        jnative.set_fast_decode(prev)
+    for got, ref in zip(*samples):
+        assert isinstance(got["clips"], np.ndarray)
+        assert got["clips"].shape == ref["clips"].shape == (1, 4, 64, 64, 3)
+        np.testing.assert_array_equal(got["clips"], ref["clips"])
+        assert (got["label"], got["vid"], got["flip"]) == (
+            ref["label"], ref["vid"], ref["flip"])
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])

@@ -597,6 +597,41 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def queued_ms(fn, iters: int = 50) -> dict:
+    """The device's time a call of ``fn`` (``ms``): CUDA events around
+    ``iters`` calls queued behind a device sleep (``torch.cuda._sleep``)
+    that outlasts their enqueue on the host, so the device runs them back
+    to back and never waits on the host; ``host_ms`` is the enqueue a call,
+    ``slept_ms`` the sleep (checked: the enqueue ended inside it; a longer
+    sleep is tried where host jitter made it outlast one)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sleep = 4 * (time.perf_counter() - t0) * 1e3 + 2  # ms
+    torch.cuda.synchronize()
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(sleep * 2e6))  # >= sleep ms at up to 2 GHz
+        ev[1].record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        enq = (time.perf_counter() - t0) * 1e3
+        ev[2].record()
+        ev[2].synchronize()
+        slept = ev[0].elapsed_time(ev[1])
+        if enq < 0.8 * slept:
+            return {"ms": ev[1].elapsed_time(ev[2]) / iters,
+                    "host_ms": enq / iters, "slept_ms": slept}
+        sleep *= 4
+    raise CheckFailed(f"queued_ms: the enqueue ({enq} ms) outlasted the "
+                      f"sleep ({slept} ms)")
+
+
 def entry_cases(shapes=None, eval_step: bool = True):
     """(kernel, label, B, T, H, W, C_in, C_mid, stride, launches, counted) of
     the entry shapes the eval kernels get: the 16 of the serve phase (8 per
@@ -674,12 +709,14 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
          "crop_resize_kernel": ("crop_resize_kernel",)}
 # instantiations of each function of a ptxas row
 PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1}
-# the act and mm modes of the row-strip bodies, K11 and its taps' gradient:
-# no instantiation may spill
+# the act and mm modes of the row-strip bodies, K11 and its taps' gradient,
+# the crop kernel and the stride-(2, 2, 2) weight gradient: no instantiation
+# may spill
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
             "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
-            "stencil_dk_kernel", "crop_resize_kernel")
+            "stencil_dk_kernel", "crop_resize_kernel",
+            "plain_t2_wgrad_kernel")
 # each ptxas row's kernels by mangled name (phase_device), for the rows of
 # the phases that print a kernel's registers and spills beside its times
 PTXAS_ROWS: dict = {}
@@ -4319,14 +4356,15 @@ def _ptxas_of(func: str, dtype, r: int) -> dict:
 def _plan_row_t2(dw_conv, name, shape, dtype) -> dict:
     """The work split of t2 kernel ``name`` at x ``shape`` (dx: dx's shape)
     over the output's (g's) frames, rows and columns: its blocks (one per
-    tile; the weight gradient's persistent grid), shared memory, blocks per
-    SM, waves, and the instantiation's ptxas row."""
+    tile; the weight gradient's persistent grid and its g frames a block),
+    shared memory, blocks per SM, waves, and the instantiation's ptxas
+    row."""
     kind, plan, smem, func = {
         "dw_conv_t2": (6, dw_conv.plan_t2_fwd, dw_conv.smem_s2_fwd,
                        "plain_t2_fwd_kernel"),
         "dw_conv_dx_t2": (7, dw_conv.plan_t2_dx, dw_conv.smem_t2_dx,
                           "plain_t2_dx_kernel"),
-        "dw_conv_wgrad_t2": (8, dw_conv.plan_t2, dw_conv.smem_s2,
+        "dw_conv_wgrad_t2": (8, dw_conv.plan_t2, dw_conv.smem_t2,
                              "plain_t2_wgrad_kernel"),
     }[name]
     p = plan(*shape)
@@ -4337,10 +4375,26 @@ def _plan_row_t2(dw_conv, name, shape, dtype) -> dict:
     wgrad = kind == 8
     blocks = (p.rows if wgrad else p.items) * p.n_pg
     return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
-            **({"ipb": p.ipb, "rows": p.rows} if wgrad else {}),
+            **({"ipb": p.ipb, "rows": p.rows,
+                "steps_per_block": p.ipb * p.tt} if wgrad else {}),
             "threads": p.threads, "blocks": blocks, "smem": smem(p, esz),
             "blocks_per_sm": occ, "waves": _waves(blocks, occ),
             "ptxas": _ptxas_of(func, dtype, p.r)}
+
+
+def _k10_on_t2_plan(dw_conv, x, up):
+    """K10 plain (``dw_conv_wgrad_s2``'s kernel) on ``up`` (g at the even
+    frames of a zero tensor of x's T frames) launched with ``plan_t2``'s
+    split and one segment of all T frames: ``dw_conv_wgrad_t2``'s items and
+    blocks, so the two sum each tap in one order."""
+    b, t, h, w, c = x.shape
+    p = dw_conv.plan_t2(b, t, h, w, c)
+    part = torch.empty((p.rows, 27, c), dtype=torch.float32, device="cuda")
+    dw_conv.LIBRARY_S2.call(
+        "dw_conv_wgrad_s2", x.data_ptr(), up.data_ptr(), part.data_ptr(), b,
+        t, h, w, c, p.r, p.wb, p.pg, t, p.ipb, p.rows,
+        int(x.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    return torch.sum(part, dim=0)
 
 
 def phase_t2_kernels(dw_conv) -> dict:
@@ -4353,13 +4407,16 @@ def phase_t2_kernels(dw_conv) -> dict:
     per SM, waves, registers and spills.  Each also equals its stride-(1, 2,
     2) kernel with a difference of 0: ``dw_conv_t2`` K4 plain's output frames
     0, 2, 4, ..., ``dw_conv_dx_t2`` K8 on g at the even frames of a zero
-    tensor of T frames, ``dw_conv_wgrad_t2`` K10 plain on that g (where the
-    two plans' items agree: ``plan_t2``) and itself run again.  The B32
-    rows, one launch each a step, make each kernel's line entry."""
+    tensor of T frames, ``dw_conv_wgrad_t2`` K10 plain on that g launched
+    with ``plan_t2``'s items (``_k10_on_t2_plan``) and itself run again.
+    The weight gradient's device time a call (``queued_ms``: no host time
+    in it) is a line of its own beside each row.  The B32 rows, one launch
+    each a step, make each kernel's line entry."""
     from coarse_fine_networks_torch.ops.dw_conv import T2
 
     gen = torch.Generator(device="cuda").manual_seed(23)
     per_kernel = {k: _agg() for k in T2_KERNELS}
+    per_kernel["dw_conv_wgrad_t2"]["device_ms"] = 0.0
     ncdhw = (0, 4, 1, 2, 3)
     for dtype in (torch.float32, torch.bfloat16):
         for group, shapes in T2_SHAPES.items():
@@ -4404,8 +4461,6 @@ def phase_t2_kernels(dw_conv) -> dict:
                         lambda: conv_bwd([False, True, False])[1],
                         "aten.convolution_backward, weight gradient only",
                         (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, 1)}
-                q = dw_conv.plan_s2(b, t, h, w, c)
-                aligned = q.tt % 2 == 0 or q.tt >= t
                 also = {
                     "dw_conv_t2": (("dw_conv_s2, frames ::2",
                                     lambda: dw_conv.dw_conv3d(x, k, 2)[:, ::2]
@@ -4413,22 +4468,29 @@ def phase_t2_kernels(dw_conv) -> dict:
                     "dw_conv_dx_t2": (("dw_conv_dx_s2 on g at even frames",
                                        lambda: dw_conv.dw_conv_dx_s2(
                                            up, k, (h, w))),),
-                    "dw_conv_wgrad_t2": (("dw_conv_wgrad_t2 again",
-                                          lambda: dw_conv.dw_conv_wgrad(
-                                              x, g, T2)),) + ((
-                        ("dw_conv_wgrad_s2 on g at even frames",
-                         lambda: dw_conv.dw_conv_wgrad(x, up, 2)),)
-                        if aligned else ())}
+                    "dw_conv_wgrad_t2": (
+                        ("dw_conv_wgrad_t2 again",
+                         lambda: dw_conv.dw_conv_wgrad(x, g, T2)),
+                        ("dw_conv_wgrad_s2 on g at even frames, plan_t2's "
+                         "items", lambda: _k10_on_t2_plan(dw_conv, x, up)))}
                 meta = {"entry": f"t2.{group}", "x": [b, t, h, w, c],
                         "stride": [2, 2, 2]}
+                counted = group == "B32.224"
                 for name, case in cases.items():
                     shape = (b, t, h, w, c)
                     _hold_time_library(
                         "t2_kernels", name,
                         {**meta, "plan": _plan_row_t2(dw_conv, name, shape,
                                                       dtype)},
-                        dtype, *case, group == "B32.224", per_kernel[name],
+                        dtype, *case, counted, per_kernel[name],
                         also[name], also_exact=True)
+                q = queued_ms(cases["dw_conv_wgrad_t2"][0], 20)
+                emit({"phase": "t2_kernels", "kernel": "dw_conv_wgrad_t2",
+                      **meta, "dtype": str(dtype)[6:],
+                      "device_ms": q["ms"], "host_ms": q["host_ms"],
+                      "slept_ms": q["slept_ms"]})
+                if counted and dtype == torch.bfloat16:
+                    per_kernel["dw_conv_wgrad_t2"]["device_ms"] += q["ms"]
                 del x, g, up, xc, gc
             torch.cuda.empty_cache()
     return per_kernel
@@ -5417,11 +5479,15 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     kind of frame, held to ``bounds``; the planted fault of each kind,
     ``DECODE_FAULT``, must read outside them); grey frames (three equal
     channels); a clip of mixed sizes and kinds (one launch each, the frames
-    in order, each within its kind's bound).  Then the kernel timed at one clip's 64 frames (the centre crop of
-    extraction, 480² → 224², and a train crop) beside its bound, its plain
-    version on the card and ``F.interpolate`` (bilinear, no antialias) on
-    the f32 crop, and nvJPEG's decode of the clip beside Pillow's.  Returns
-    the kernel line's numbers."""
+    in order, each within its kind's bound).  Then the kernel timed at one
+    clip's 64 frames (the centre crop of extraction, 480² → 224², and a
+    train crop) two ways, alone (bare launches, ``queued_ms``: the device's
+    time) and as the path calls it (``crop_resize`` back to back), beside
+    its bound, its plain version on the card and ``F.interpolate``
+    (bilinear, no antialias) on the f32 crop; frames at an odd pitch (the
+    byte-by-byte copies) and a call past ``CROP_BOXES`` (two launches)
+    against the plain version; and nvJPEG's decode of the clip beside
+    Pillow's.  Returns the kernel line's numbers."""
     c = DECODE
     dev = torch.device("cuda")
     lib = fd.LIBRARY.build()
@@ -5516,36 +5582,76 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     _pil_frames(blobs)
     pil_ms = (time.perf_counter() - t1) * 1e3
     timed = {}
+    stream = torch.cuda.current_stream().cuda_stream
     for label, crop in (("centre", None), ("train", (224 / 320, 0.3, 0.6))):
         box_of = (native.center_box if crop is None
                   else native.random_box(*crop))
         x1, y1, cw, ch_ = box_of(w, h)
-        boxes = [(x1, y1, cw, ch_)] * n
+        # the boxes as decode_crop_resize passes them
+        boxes = np.broadcast_to(np.asarray((x1, y1, cw, ch_), np.int64),
+                                (n, 4))
         out = 224
         crop_f32 = raw[:, y1:y1 + ch_, x1:x1 + cw].permute(
             0, 3, 1, 2).float().contiguous()
         nbytes = n * (ch_ * cw * 3 + out * out * 3)
         ops = n * out * out * 3 * 20
-        fd.reset_launches()
+        # the kernel alone: its launch with the wrapper's arguments, no
+        # Python around it
+        (la,) = fd.crop_launches(boxes, 3, out)
+        bare_y = torch.empty((n, out, out, 3), dtype=torch.uint8,
+                             device=dev)
+        args = (raw.data_ptr(), n, h, raw.stride(1), 3, la.boxes.ctypes.data,
+                bare_y.data_ptr(), out, la.plan.rows, la.plan.span, stream)
+        bare = queued_ms(lambda: lib.cfn_crop_resize(*args), 50)
+        check(lib.cfn_crop_resize(*args) == 0, "decode: a bare launch failed")
+        bits.append(_diff(bare_y, fd.crop_resize(raw, boxes, out))[0])
         row = {"crop": label, "frames": n, "box": [x1, y1, cw, ch_],
-               "out": out,
-               "ms": cuda_ms(lambda: fd.crop_resize(raw, boxes, out), 20),
+               "out": out, "plan": la.plan._asdict(),
+               "ms": bare["ms"], "launch_host_ms": bare["host_ms"],
+               "slept_ms": bare["slept_ms"],
+               "call_ms": cuda_ms(lambda: fd.crop_resize(raw, boxes, out),
+                                  20),
                "plain_ms": cuda_ms(
                    lambda: fd.crop_resize_plain(raw, boxes, out), 3, 1),
                "library_ms": cuda_ms(lambda: F.interpolate(
                    crop_f32, size=(out, out), mode="bilinear",
                    align_corners=False, antialias=False), 20),
+               "library_device_ms": queued_ms(lambda: F.interpolate(
+                   crop_f32, size=(out, out), mode="bilinear",
+                   align_corners=False, antialias=False), 20)["ms"],
                "library_call": "F.interpolate(bilinear, align_corners=False, "
                                "antialias=False) on the f32 crop (N, 3, ch, "
                                "cw)",
                **_bound(nbytes, ops, torch.float32)}
         timed[label] = row
+        del crop_f32, bare_y
+
+    # frames the fast copies do not take (an odd pitch: byte by byte), and a
+    # call past the boxes' cap (two launches), against the plain version
+    rng = torch.Generator(device="cuda").manual_seed(31)
+    odd = torch.randint(0, 256, (3, 45, 61 * 3 + 5), generator=rng,
+                        device="cuda", dtype=torch.uint8)[
+                            :, :, 1:1 + 61 * 3].view(3, 45, 61, 3)
+    odd_boxes = [(0, 0, 45, 45), (7, 3, 33, 41), (16, 0, 45, 45)]
+    many = torch.randint(0, 256, (fd.CROP_BOXES + 3, 24, 40, 3),
+                         generator=rng, device="cuda", dtype=torch.uint8)
+    many_boxes = [(i % 9, i % 5, 31 - i % 9, 19) for i in range(len(many))]
+    fd.reset_launches()
+    extra = {"odd_pitch": _diff(fd.crop_resize(odd, odd_boxes, 37),
+                                fd.crop_resize_plain(odd, odd_boxes, 37))[0],
+             "past_the_cap": _diff(fd.crop_resize(many, many_boxes, 32),
+                                   fd.crop_resize_plain(many, many_boxes,
+                                                        32))[0]}
+    extra["past_the_cap_launches"] = fd.LAUNCHES["crop_resize_kernel"] - 1
+    bits += [extra["odd_pitch"], extra["past_the_cap"]]
+    del many
     fd.reset_launches()
     row = {"phase": "decode", "source": f"{w}x{h} synthetic JPEG, quality "
                                        f"{c['quality']}, {c['frames']} "
                                        f"frames a kind",
            "kernel_vs_plain_max": max(bits),
            "mixed_clip": {"frames": mixed, "launches": mixed_launches},
+           "odd_and_past_the_cap": extra,
            "kinds": kinds, "timed": timed,
            "nvjpeg_decode_ms_per_clip": dec_ms,
            "nvjpeg_decode_ms_per_frame": min(dec_ms) / n,
@@ -5556,6 +5662,9 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
                           f"plain version or the API path by {max(bits)}")
     check(all(x.get("channels_equal", True) for x in kinds["grey"]["cases"]),
           "decode: a grey frame's channels differ")
+    check(extra["past_the_cap_launches"] == 2,
+          f"decode: {fd.CROP_BOXES + 3} frames took "
+          f"{extra['past_the_cap_launches']} launches, not 2")
     check(mixed_launches == 3 and tuple(got.shape) == (6, 224, 224, 3),
           f"decode: a mixed clip took {mixed_launches} launches, "
           f"shape {tuple(got.shape)}")
@@ -5575,7 +5684,8 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
                               f"bound {bound}: {missed[:4]}")
     t = timed["centre"]
     return {"max_abs_err": float(max(bits)), "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "library_ms": t["library_ms"],
+            "call_ms": t["call_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"],
             "bound_ms": t["bound_ms"], "bytes_ms": t["bytes_ms"],
             "ops_ms": t["ops_ms"], "train_crop": timed["train"],
             "nvjpeg_ms_per_frame": row["nvjpeg_decode_ms_per_frame"]}
@@ -6167,13 +6277,17 @@ def main() -> int:
         "t2": "bf16 at FineNet(t_downsample)'s four stride-(2, 2, 2) entry "
               "shapes at B32 T16 224² (conv2's x: T16 112² C54, T8 56² "
               "C108, T4 28² C216, T2 14² C432), one launch each a step, "
-              "summed; launches: the variants phase's two counted "
-              "t_downsample train steps and two eval steps",
+              "summed (ms: the wrapper called back to back; device_ms: "
+              "the weight gradient's device time, queued_ms); launches: "
+              "the variants phase's two counted t_downsample train steps "
+              "and two eval steps",
         "decode": "uint8: one clip's 64 frames of 640×480 decoded by "
                   "nvJPEG, the centre crop 480² → 224² of extraction and "
                   "validation, one launch (the train crop in train_crop); "
-                  "launches: the packed phase's extraction and coarse run, "
-                  "one a clip",
+                  "ms: the kernel alone (bare launches, queued_ms), "
+                  "call_ms: crop_resize as the path calls it, back to "
+                  "back, library_ms likewise; launches: the packed phase's "
+                  "extraction and coarse run, one a clip",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
               "C432), one call each, summed; K7 runs K4 plain's kernel "
@@ -6206,6 +6320,7 @@ def main() -> int:
                 "phase_d_bound_ms": agg["phase_d_bound_ms"]}
                if path in ("train", "mm_train") else {}),
             **({"by_path": agg["by_path"]} if "by_path" in agg else {}),
+            **({"device_ms": agg["device_ms"]} if "device_ms" in agg else {}),
             "driver_launches": driver_launches[name],
             "kinetics_launches": kinetics_launches[name],
             "fine_driver_launches": fine_driver_launches[name],
@@ -6222,13 +6337,14 @@ def main() -> int:
         "source": SOURCES["crop_resize_kernel"],
         "replaces": REPLACES["crop_resize_kernel"],
         "launches": crop["launches"], "max_abs_err": crop["max_abs_err"],
-        "ms": crop["ms"], "plain_ms": crop["plain_ms"],
+        "ms": crop["ms"], "call_ms": crop["call_ms"],
+        "plain_ms": crop["plain_ms"],
         "bound_ms": crop["bound_ms"],
         "bound_by": ("bytes" if crop["bytes_ms"] >= crop["ops_ms"]
                      else "operations"),
         "library_ms": crop["library_ms"],
         "train_crop": {k: crop["train_crop"][k] for k in (
-            "box", "ms", "plain_ms", "library_ms", "bound_ms")},
+            "box", "ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
         "nvjpeg_ms_per_frame": crop["nvjpeg_ms_per_frame"],
         "driver_launches": 0, "packed_launches": crop["launches"],
         **{f"{k}_launches": v for k, v in crop_on.items()},

@@ -71,10 +71,11 @@
 // kernels (dw_conv_t2, dw_conv_dx_t2, dw_conv_wgrad_t2: FineNet's
 // t_downsample) replace no TPU kernel: the JAX package runs that conv in
 // XLA (_lax_conv, coarse_fine_networks_tpu/ops/pallas/dw_conv.py:287, on
-// its plain layout). They are K4 plain's, K8's and K10 plain's bodies with
-// the temporal stride a template argument (ST = 2; the stride-(1,2,2)
-// instantiations are unchanged): bound by bytes alike, they read their
-// input once and write their output once, with the same row strips.
+// its plain layout). The forward and the dx are K4 plain's and K8's bodies
+// with the temporal stride a template argument (ST = 2; the stride-(1,2,2)
+// instantiations are unchanged); the weight gradient has a body of its own
+// on K10 plain's threads and rows (below). Bound by bytes alike, they read
+// their input once and write their output once, with the same row strips.
 //
 // What bounds them on this card: bytes. The forward reads x once and
 // writes y (a quarter of x) once; the dx reads g and writes dx (4x the
@@ -1192,17 +1193,6 @@ mm_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
 }
 
 // ---- weight gradient (K10 plain; K10 act) -------------------------------------
-// The stride-(2,2,2) rule: x frame i of an item's nf = 2(t1 - t0) + 1 (x
-// frame 2t0 - 1 + i) meets, for even i, g frames t0 + i/2 - 1 (tap dt = 2,
-// ring slot j = 0: inside the segment for i >= 2) and t0 + i/2 (dt = 0, j =
-// 2: for i < nf - 1), and for odd i g frame t0 + (i-1)/2 (dt = 1, j = 1:
-// always); a product is added only there (bit j), as wgrad_slots admits at
-// stride (1,2,2).
-__device__ __forceinline__ unsigned wgrad_slots_t2(int i, int nf) {
-  if (i & 1) return 2u;
-  return (i >= 2 ? 1u : 0u) | (i < nf - 1 ? 4u : 0u);
-}
-
 // Thread (wl, pi) as in the forward. Slot i of the ring holds x frame f0 + i
 // (staged rows rr = 0..2R: input row 2h0 - 1 + rr) and g frame f0 + i + 1
 // (rows h0 .. h0+R-1). While x frame ti is read, gr[j][r] holds g frame
@@ -1216,26 +1206,12 @@ __device__ __forceinline__ unsigned wgrad_slots_t2(int i, int nf) {
 // and columns outside the frame are never copied and stay the zero padding
 // of a. Nothing else changes, so the sums are K10 plain's on the activated
 // x, in its order.
-//
-// ST = 2 (dw_conv_wgrad_t2, stride (2,2,2); plain only): the items' frames
-// are g frames of To = (Tn-1)/2 + 1; an item reads x frames 2t0 - 1 ..
-// 2t1 - 1, and slot i holds x frame 2t0 - 1 + i and, for even i, g frame
-// t0 + i/2. The register ring is two g frames deep: an even step i (an odd
-// x frame) pairs tap dt = 2 with gr[0] (g frame t0 + i/2 - 1) and dt = 0
-// with gr[1] (g frame t0 + i/2); an odd step (an even x frame) pairs dt = 1
-// with gr[1]. The rule (wgrad_slots_t2) admits a pair only where its g
-// frame lies in the item's segment, and rows and columns as at ST = 1, so a
-// NaN of x reaches the taps it reaches in the plain version. Per tap the
-// products are added in K10 plain's order (x frames ascending, then output
-// rows), so dk equals K10 plain's on g put at the even frames of a zero
-// tensor of Tn frames, with the same items, bit for bit (finite x).
-template <typename T, int R, bool ACT, int ST = 1>
+template <typename T, int R, bool ACT>
 __device__ __forceinline__ void s2_wgrad_body(
     const T* __restrict__ x, const T* __restrict__ g,
     const float* __restrict__ sc, const float* __restrict__ bi,
     float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
     const Plan& pl, int n_items, int ipb) {
-  static_assert(ST == 1 || (ST == 2 && !ACT), "stride (2,2,2): plain only");
   constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
@@ -1259,15 +1235,12 @@ __device__ __forceinline__ void s2_wgrad_body(
 
   const int row = blockIdx.x;
   const int it1 = min((row + 1) * ipb, n_items);
-  const int To = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // g frames
   for (int item = row * ipb; item < it1; ++item) {
-    const Tile tl = pl.tile(item, pg, To);
+    const Tile tl = pl.tile(item, pg, Tn);
     const T* xb = x + (size_t)tl.b * Tn * xframe;
-    const T* gb = g + (size_t)tl.b * To * gframe;
+    const T* gb = g + (size_t)tl.b * Tn * gframe;
     const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
-    // x frames (ST = 2: 2t0 - 1 .. 2t1 - 1)
-    const int f0 = ST == 1 ? tl.t0 - 1 : 2 * tl.t0 - 1,
-              nf = ST == 1 ? tl.t1 - tl.t0 + 2 : 2 * (tl.t1 - tl.t0) + 1;
+    const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;
     // output rows of the strip, and whether the thread's column exists
     const int nr = min(R, Ho - tl.h0);
     const bool live = in && tl.w0 + wl < Wo;
@@ -1275,16 +1248,6 @@ __device__ __forceinline__ void s2_wgrad_body(
       if (i < nf) {  // uniform across the block
         T* slot = ring + (i % NS) * stage;
         const int ti = f0 + i, tg = ti + 1;
-        if constexpr (ST == 2) {  // g frame t0 + i/2 with even i
-          if (ti >= 0 && ti < Tn)
-            sg.x_rows(slot, xb + (size_t)ti * xframe, 2 * tl.h0 - 1,
-                      2 * R + 1, H, W, rowlen);
-          if (!(i & 1) && tl.t0 + i / 2 < tl.t1)
-            sg.g_rows(slot + xstage, gb + (size_t)(tl.t0 + i / 2) * gframe,
-                      tl.h0, R, Ho, Wo, growlen);
-          cp_commit();
-          return;
-        }
         if (ti >= 0 && ti < Tn)
           sg.x_rows(slot, xb + (size_t)ti * xframe, 2 * tl.h0 - 1, 2 * R + 1,
                     H, W, rowlen);
@@ -1303,10 +1266,9 @@ __device__ __forceinline__ void s2_wgrad_body(
             ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
     };
 
-    constexpr int NG = ST == 1 ? 3 : 2;  // g frames in the register ring
-    float gr[NG][R][2];
+    float gr[3][R][2];
 #pragma unroll
-    for (int j = 0; j < NG; ++j)
+    for (int j = 0; j < 3; ++j)
 #pragma unroll
       for (int r = 0; r < R; ++r) gr[j][r][0] = gr[j][r][1] = 0.f;
 
@@ -1321,49 +1283,6 @@ __device__ __forceinline__ void s2_wgrad_body(
       __syncthreads();
       load(i + NS - 1);  // into slot i-1
       if constexpr (ACT) act_own(own, i + 1);
-      if constexpr (ST == 2) {
-        const int ti = f0 + i;
-        const T* slot = ring + (i % NS) * stage;
-        const bool odd = i & 1;
-        if (!odd) {  // the ring takes g frame t0 + i/2 (zero past t1)
-          const bool gin = live && tl.t0 + i / 2 < tl.t1;
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            gr[0][r][0] = gr[1][r][0];
-            gr[0][r][1] = gr[1][r][1];
-            const float2 v = gin ? load_pair(slot + xstage + r * growlen +
-                                             atE)
-                                 : make_float2(0.f, 0.f);
-            gr[1][r][0] = v.x;
-            gr[1][r][1] = v.y;
-          }
-        }
-        if (ti >= 0 && ti < Tn && live) {  // frames outside the clip add
-          // tap dt = 2 - j: dt 2 with gr[0], dt 1 and 0 with gr[1] (nothing)
-          auto fma = [&](int j, int r, int dy, int dx, float2 v) {
-            const int tap = ((2 - j) * 3 + dy) * 3 + dx, q = j == 0 ? 0 : 1;
-            acc[tap][0] = fmaf(v.x, gr[q][r][0], acc[tap][0]);
-            acc[tap][1] = fmaf(v.y, gr[q][r][1], acc[tap][1]);
-          };
-          const unsigned slots = wgrad_slots_t2(i, nf);
-          // j is a constant once s2_frame is unrolled
-          if (nr == R && slots == (odd ? 2u : 5u)) {
-            if (odd)
-              s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
-                             [&](int j, int r, int dy, int dx, float2 v) {
-                               if (j == 1) fma(j, r, dy, dx, v);
-                             });
-            else
-              s2_frame<T, R>(slot, rowlen, atE, atO, PG2,
-                             [&](int j, int r, int dy, int dx, float2 v) {
-                               if (j != 1) fma(j, r, dy, dx, v);
-                             });
-          } else {
-            s2_frame_masked<T, R, true>(slot, rowlen, atE, atO, PG2, fma,
-                                        slots, nr);
-          }
-        }
-      } else {  // ST == 1
       const int ti = f0 + i, tg = ti + 1;
       const T* slot = ring + (i % NS) * stage;
       const bool gin = live && tg >= tl.t0 && tg < tl.t1;
@@ -1391,7 +1310,6 @@ __device__ __forceinline__ void s2_wgrad_body(
           s2_frame_masked<T, R, !ACT>(slot, rowlen, atE, atO, PG2, fma,
                                       slots, nr);
       }
-      }  // ST == 1
     }
     cp_wait<0>();
     __syncthreads();  // the next item zeroes and refills every slot
@@ -1409,17 +1327,6 @@ plain_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                              C, pl, n_items, ipb);
 }
 
-// dw_conv_wgrad_t2: K10 plain's body at stride (2,2,2); the plan is over
-// g's frames, rows and columns
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_t2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
-                      float* __restrict__ part, int Tn, int H, int W, int Ho,
-                      int Wo, int C, Plan pl, int n_items, int ipb) {
-  s2_wgrad_body<T, R, false, 2>(x, g, nullptr, nullptr, part, Tn, H, W, Ho,
-                                Wo, C, pl, n_items, ipb);
-}
-
 template <typename T, int R>
 __global__ void __launch_bounds__(NT_MAX, 2)
 act_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
@@ -1429,6 +1336,345 @@ act_s2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
                     int n_items, int ipb) {
   s2_wgrad_body<T, R, true>(x, g, sc, bi, part, Tn, H, W, Ho, Wo, C, pl,
                             n_items, ipb);
+}
+
+// ---- weight gradient at stride (2,2,2) (dw_conv_wgrad_t2) -------------------
+// dk[dt,dy,dx,c] = sum_{o,h,w} x_pad[2o+dt, 2h+dy, 2w+dx, c] * g[o,h,w,c].
+// K10 plain's threads, tiles, sums and partial rows, on a walk of its own
+// (running K10 plain's body with ST = 2 cost one barrier per x frame, each
+// adding 9 or 18 of the 27 taps, a ring slot's g part used only at even
+// frames, an item's ring zeroed, filled and drained for its 1-8 g frames, a
+// channel group of 8 of a pixel's 54 channels, and a spilling R = 4 f32
+// build; chip_rule2.py times it against this body):
+//   * It walks g frames. Step o of an item reads x frames 2o-1, 2o and
+//     2o+1 (taps dt = 0, 1, 2) and g frame o, and adds all 27 taps: one
+//     barrier per g frame. Frame 2o-1 is the step before's 2o+1, so a step
+//     stages two new x frames and one g frame, into a ring of T2_XSLOTS = 5
+//     x frames (the step's three and the next step's two, which load while
+//     this step is summed) and T2_GSLOTS = 2 g frames. A thread holds the g
+//     frame's R rows of its pair (2R floats) beside the 54 sums. A ring two
+//     steps deep is one of chip_rule2.py's variants.
+//   * An item is one clip (the plan has one segment of all To g frames),
+//     and a block's items run as one stream of steps: the next item's first
+//     frames load during this item's last step, with no zeroing, prologue
+//     or drain between items. The ring is zeroed once; after that every
+//     place a thread reads is written for every frame (zero outside the
+//     frame) or masked.
+//   * The split (plan_t2) is over g's rows and columns with the channel
+//     pairs first: a pixel of at most 64 pairs in one group (C = 54 and 108
+//     on the path), wider ones in groups of at most 32 pairs (runs of 54-62
+//     channels), where K10 plain's columns-first split gave a block 8 of a
+//     pixel's 54 channels and left the rest of each sector to other blocks.
+//   * Where a group is the whole pixel and x's rows are 16-byte aligned (the
+//     whole-pixel mode), a staged row is the tile's pixels as they lie in x,
+//     copied 16 bytes at a time (t2_stage_whole), and a thread reads its
+//     pixels at a stride of C elements, masking those outside the frame.
+//     Otherwise each thread copies its own pairs into K10 plain's
+//     de-interleaved layout, 4 (bf16) or 8 (f32) bytes a copy (T2Stager).
+//     The pair copies and the stencil's shared reads share the load/store
+//     pipe; the 16-byte copies take a quarter of the instructions
+//     (chip_rule2.py times both modes, and the loads and the sums alone).
+//   * The rule: a product is added only for a live column, an output row
+//     r < nr and an x frame inside the clip (g frame o always lies in the
+//     item), so a NaN of x reaches the taps it reaches in the plain version.
+//     Per tap the products are added x frames ascending, then output rows,
+//     so dk equals K10 plain's on g put at the even frames of a zero tensor
+//     of Tn frames, launched with this plan and one segment, bit for bit
+//     (finite x).
+constexpr int T2_XSLOTS = 5;  // x frames in dw_conv_wgrad_t2's ring
+constexpr int T2_GSLOTS = 2;  // ... and g frames
+
+// One thread's share of staging dw_conv_wgrad_t2's tile: S2Stager's places
+// (its channel pair at the de-interleaved even column wl, odd column wl
+// and, for wl == 0, even column WB of every x row; column wl of every g
+// row), every owned x place written: copied inside the frame, zero outside.
+// A copy of S2Stager rather than a flag on it, so the stride-(1,2,2)
+// kernels compile as they did.
+struct T2Stager {
+  int srcE, srcO, srcX, dstE, dstO, dstX, srcG, C, xrow;
+  bool oE, oX, uE, uO, uX, uG, pairs, second;
+
+  __device__ __forceinline__ T2Stager(const Tile& tl, int wl, int pi, int WB,
+                                      int PG2, int W, int Wo, int C_,
+                                      bool pairs_)
+      : C(C_), xrow(W * C_), pairs(pairs_) {
+    const int c = 2 * (tl.p0 + pi);
+    const int gE = 2 * (tl.w0 + wl) - 1, gX = 2 * (tl.w0 + WB) - 1;
+    oE = wl < WB && c < C;
+    oX = wl == 0 && c < C;
+    uE = oE && gE >= 0 && gE < W;
+    uO = oE && gE + 1 < W;
+    uX = oX && gX < W;
+    uG = oE && tl.w0 + wl < Wo;
+    srcE = gE * C + c;
+    srcO = srcE + C;
+    srcX = gX * C + c;
+    srcG = (tl.w0 + wl) * C + c;
+    dstE = wl * PG2 + 2 * pi;
+    dstO = (WB + 1) * PG2 + dstE;
+    dstX = WB * PG2 + 2 * pi;
+    second = c + 1 < C;
+  }
+
+  // x rows [hs, hs + nr) of frame f (H, W, C) into dst laid out
+  // [nr][2][WB + 1][2PG]
+  template <typename T>
+  __device__ __forceinline__ void x_rows(T* dst, const T* f, int hs, int nr,
+                                         int H, int rowlen) const {
+    for (int r = 0; r < nr; ++r) {
+      T* d = dst + r * rowlen;
+      if (hs + r >= 0 && hs + r < H) {
+        const T* src = f + (size_t)(hs + r) * xrow;
+        if (uE) copy_pair(d + dstE, src + srcE, pairs, second);
+        else if (oE) store_pair(d + dstE, 0.f, 0.f, true, true);
+        if (uO) copy_pair(d + dstO, src + srcO, pairs, second);
+        else if (oE) store_pair(d + dstO, 0.f, 0.f, true, true);
+        if (uX) copy_pair(d + dstX, src + srcX, pairs, second);
+        else if (oX) store_pair(d + dstX, 0.f, 0.f, true, true);
+      } else {
+        if (oE) store_pair(d + dstE, 0.f, 0.f, true, true);
+        if (oE) store_pair(d + dstO, 0.f, 0.f, true, true);
+        if (oX) store_pair(d + dstX, 0.f, 0.f, true, true);
+      }
+    }
+  }
+
+  // g rows [h0, h0 + nr) of frame f (Ho, Wo, C), clipped, into dst laid out
+  // [nr][WB][2PG]
+  template <typename T>
+  __device__ __forceinline__ void g_rows(T* dst, const T* f, int h0, int nr,
+                                         int Ho, int Wo, int growlen) const {
+    if (!uG) return;
+    const int hi = min(h0 + nr, Ho);
+    for (int h = h0; h < hi; ++h)
+      copy_pair(dst + (h - h0) * growlen + dstE,
+                f + (size_t)h * Wo * C + srcG, pairs, second);
+  }
+};
+
+// Bytes of one staged x row in the whole-pixel mode (below): the tile's
+// 2WB+1 pixels of 2PG channels from the 16-byte boundary at or below the
+// first, one chunk of slack; and the elements of a ring slot of x, which
+// holds a frame in either mode.
+template <typename T>
+__host__ __device__ __forceinline__ int t2_rowb(int WB, int PG) {
+  return 16 * ((2 * WB + 1) * 2 * PG * (int)sizeof(T) / 16 + 2);
+}
+template <typename T>
+__host__ __device__ __forceinline__ int t2_xslot(int R, int WB, int PG) {
+  const int whole = (2 * R + 1) * t2_rowb<T>(WB, PG) / (int)sizeof(T);
+  const int pairs = xstage_elems<T>(R, WB, PG);
+  return whole > pairs ? whole : pairs;
+}
+
+// The whole-pixel mode's staging of one x frame f (H, W, C): rows [hs, hs +
+// nrows) at the pixels [p0, p0 + np) (all C channels: the block's channel
+// group is the pixel), each row a run of 16-byte cp.async copies, the
+// block's threads taking the chunks in turn. Row rr sits at slot + rr *
+// rowb, pixel p0 + q's first byte at d + q * C * sizeof(T), d the first
+// pixel's address mod 16 (one value for every row and frame: W * C *
+// sizeof(T) and the base are multiples of 16). A chunk is copied where it
+// holds a byte of a pixel inside the frame; a row outside the frame is
+// zero. Pixels outside [0, W) are not staged: the readers mask them.
+template <typename T>
+__device__ __forceinline__ void t2_stage_whole(unsigned char* slot,
+                                               const T* f, int hs,
+                                               int nrows, int H, int W,
+                                               int C, int p0, int np,
+                                               int rowb) {
+  const int pb = C * (int)sizeof(T), nch = rowb / 16;
+  // chunk i = rr * nch + k of the frame, i = threadIdx.x + j * blockDim.x
+  int rr = threadIdx.x / nch, k = threadIdx.x - rr * nch;
+  for (; rr < nrows; k += blockDim.x) {
+    while (k >= nch) {
+      k -= nch;
+      ++rr;
+    }
+    if (rr >= nrows) break;
+    unsigned char* d = slot + rr * rowb + 16 * k;
+    const int h = hs + rr;
+    if (h < 0 || h >= H) {
+      *reinterpret_cast<uint4*>(d) = make_uint4(0, 0, 0, 0);
+      continue;
+    }
+    const char* row = reinterpret_cast<const char*>(f + (size_t)h * W * C);
+    const char* c = reinterpret_cast<const char*>(
+        reinterpret_cast<uintptr_t>(row + (ptrdiff_t)p0 * pb) &
+        ~(uintptr_t)15) + 16 * k;
+    if (c + 16 > row + max(p0, 0) * pb && c < row + min(p0 + np, W) * pb)
+      cp_async16(d, c);
+  }
+}
+
+// One x frame's taps dt = DT against the thread's g rows gv: staged row rr
+// meets output row r through dy = rr - 2r, and the thread's taps dx = 0,
+// 1, 2 are the elements at a[dx] of each row (s2_frame's reads); each
+// tap's products over r ascending. FULL: all R rows and the three columns
+// exist; else r < nr only, and column dx only where bit dx of ok is set
+// (zero elsewhere).
+template <typename T, int R, int DT, bool FULL>
+__device__ __forceinline__ void t2_frame(float (&acc)[27][2],
+                                         const float (&gv)[R][2],
+                                         const T* slot, int rowlen,
+                                         const int (&a)[3], unsigned ok,
+                                         int nr) {
+#pragma unroll
+  for (int rr = 0; rr < 2 * R + 1; ++rr) {
+    const T* sr = slot + rr * rowlen;
+    float2 v[3];
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      v[dx] = FULL || (ok >> dx & 1u) ? load_pair(sr + a[dx])
+                                      : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int dy = rr - 2 * r;
+      if (dy < 0 || dy > 2 || (!FULL && r >= nr)) continue;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int tap = (DT * 3 + dy) * 3 + dx;
+        acc[tap][0] = fmaf(v[dx].x, gv[r][0], acc[tap][0]);
+        acc[tap][1] = fmaf(v[dx].y, gv[r][1], acc[tap][1]);
+      }
+    }
+  }
+}
+
+// The step's three x frames (slots A, B, C: x frames 2o-1, 2o, 2o+1), A
+// only where o > 0 and C only inside the clip.
+template <typename T, int R, bool FULL>
+__device__ __forceinline__ void t2_step(float (&acc)[27][2],
+                                        const float (&gv)[R][2], const T* xa,
+                                        const T* xb, const T* xc, bool a,
+                                        bool c, int rowlen,
+                                        const int (&at)[3], unsigned ok,
+                                        int nr) {
+  if (a) t2_frame<T, R, 0, FULL>(acc, gv, xa, rowlen, at, ok, nr);
+  t2_frame<T, R, 1, FULL>(acc, gv, xb, rowlen, at, ok, nr);
+  if (c) t2_frame<T, R, 2, FULL>(acc, gv, xc, rowlen, at, ok, nr);
+}
+
+// Thread (wl, pi) as in K10 plain. Step s of the block is g frame o = s %
+// To of item item0 + s / To; its x frames 2o and 2o+1 are in ring slots 2s
+// and 2s+1 (mod T2_XSLOTS), frame 2o-1 in slot 2s-1, its g frame in slot
+// s (mod T2_GSLOTS). After step s's barrier no one reads step s-1's
+// slots, so step s+1's copies go into slots 2s+2 = 2s-3 and 2s+3 = 2s-2
+// and g slot s+1 = s-1 while step s is summed.
+//
+// whole (uniform): the channel group is the whole pixel (2PG == C) and x's
+// rows are 16-byte aligned (x and W * C * sizeof(T)), so a staged row is
+// the tile's pixels as they lie in x, copied 16 bytes at a time
+// (t2_stage_whole), and the threads read their pixels 2wl-1+dx at a byte
+// stride of C * sizeof(T), masking those outside the frame; else K10
+// plain's de-interleaved pairs (T2Stager), a copy of 4 (bf16) or 8 (f32)
+// bytes each, with the padding staged as zeros.
+template <typename T, int R>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      float* __restrict__ part, int Tn, int H, int W, int Ho,
+                      int Wo, int C, Plan pl, int n_items, int ipb,
+                      int whole) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* xring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2, growlen = WB * PG2;
+  const int rowb = t2_rowb<T>(WB, PG);
+  const int xstage = t2_xslot<T>(R, WB, PG);
+  const int gstage = gstage_elems<T>(R, WB, PG);
+  T* gring = xring + T2_XSLOTS * xstage;
+  const int pg = blockIdx.y, tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const size_t xframe = (size_t)H * W * C, gframe = (size_t)Ho * Wo * C;
+  const int To = (Tn - 1) / 2 + 1;
+  const int item0 = blockIdx.x * ipb;
+  const int steps = (min(item0 + ipb, n_items) - item0) * To;
+
+  float acc[27][2];
+#pragma unroll
+  for (int i = 0; i < 27; ++i) acc[i][0] = acc[i][1] = 0.f;
+
+  auto load = [&](int s) {
+    if (s < steps) {  // uniform across the block
+      const int o = s % To;
+      const Tile tl = pl.tile(item0 + s / To, pg, To);
+      const T2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
+      const T* xb = x + (size_t)tl.b * Tn * xframe;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        if (2 * o + e >= Tn) continue;
+        T* slot = xring + (2 * s + e) % T2_XSLOTS * xstage;
+        const T* f = xb + (size_t)(2 * o + e) * xframe;
+        if (whole)
+          t2_stage_whole(reinterpret_cast<unsigned char*>(slot), f,
+                         2 * tl.h0 - 1, 2 * R + 1, H, W, C, 2 * tl.w0 - 1,
+                         2 * WB + 1, rowb);
+        else
+          sg.x_rows(slot, f, 2 * tl.h0 - 1, 2 * R + 1, H, rowlen);
+      }
+      sg.g_rows(gring + s % T2_GSLOTS * gstage,
+                g + ((size_t)tl.b * To + o) * gframe, tl.h0, R, Ho, Wo,
+                growlen);
+    }
+    cp_commit();
+  };
+
+  zero_ring(smem_raw,
+            (T2_XSLOTS * xstage + T2_GSLOTS * gstage) * (int)sizeof(T));
+  load(0);
+  for (int s = 0; s < steps; ++s) {
+    // this thread's copies of step s have landed; after the barrier
+    // everyone's, and step s-1's slots are read by no one
+    cp_wait<0>();
+    __syncthreads();
+    load(s + 1);
+    const int o = s % To;
+    const Tile tl = pl.tile(item0 + s / To, pg, To);
+    const int nr = min(R, Ho - tl.h0);
+    if (wl < WB && tl.w0 + wl < Wo) {  // the thread's column exists
+      const T* gs = gring + s % T2_GSLOTS * gstage + wl * PG2 + 2 * pi;
+      float gv[R][2];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float2 v =
+            r < nr ? load_pair(gs + r * growlen) : make_float2(0.f, 0.f);
+        gv[r][0] = v.x;
+        gv[r][1] = v.y;
+      }
+      // the thread's taps dx = 0, 1, 2 in a staged row, and which exist
+      int at[3], rl = rowlen;
+      unsigned ok = 7u;
+      bool inner = true;  // uniform: the tile has no column outside x
+      if (whole) {
+        const int p0 = 2 * tl.w0 - 1;
+        const int d = ((p0 * C * (int)sizeof(T)) % 16 + 16) % 16;
+        at[0] = (d + 2 * wl * C * (int)sizeof(T)) / (int)sizeof(T) + 2 * pi;
+        at[1] = at[0] + C;
+        at[2] = at[0] + 2 * C;
+        rl = rowb / (int)sizeof(T);
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const int px = p0 + 2 * wl + dx;
+          if (px < 0 || px >= W) ok &= ~(1u << dx);
+        }
+        inner = p0 >= 0 && p0 + 2 * WB < W;
+      } else {
+        at[0] = wl * PG2 + 2 * pi;
+        at[1] = (WB + 1) * PG2 + at[0];
+        at[2] = at[0] + PG2;
+      }
+      const T* xa = xring + (2 * s + T2_XSLOTS - 1) % T2_XSLOTS * xstage;
+      const T* xb = xring + 2 * s % T2_XSLOTS * xstage;
+      const T* xc = xring + (2 * s + 1) % T2_XSLOTS * xstage;
+      const bool a = o > 0, c = 2 * o + 1 < Tn;
+      if (nr == R && inner)
+        t2_step<T, R, true>(acc, gv, xa, xb, xc, a, c, rl, at, ok, nr);
+      else
+        t2_step<T, R, false>(acc, gv, xa, xb, xc, a, c, rl, at, ok, nr);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();  // the ring becomes the column sums
+  wgrad_partials(acc, part, smem_raw, WB, PG, C);
 }
 
 // ---- the mm weight gradient (K10 mm) -----------------------------------------
@@ -1629,6 +1875,15 @@ template <typename T>
 size_t wgrad_smem(int R, int WB, int PG, bool act) {
   const size_t ring = sizeof(T) * (act ? NSTAGE_ACT : NSTAGE) *
                       (xstage_elems<T>(R, WB, PG) + gstage_elems<T>(R, WB, PG));
+  const size_t red = sizeof(float) * 27 * WB * 2 * PG;
+  return ring > red ? ring : red;
+}
+// the stride-(2,2,2) weight gradient: T2_XSLOTS x frames and T2_GSLOTS g
+// frames, or its column sums if larger
+template <typename T>
+size_t t2_wgrad_smem(int R, int WB, int PG) {
+  const size_t ring = sizeof(T) * (T2_XSLOTS * t2_xslot<T>(R, WB, PG) +
+                                   T2_GSLOTS * gstage_elems<T>(R, WB, PG));
   const size_t red = sizeof(float) * 27 * WB * 2 * PG;
   return ring > red ? ring : red;
 }
@@ -1880,17 +2135,16 @@ int launch_mm_dx(const void* g, const void* x, const void* w1, const void* k,
 }
 
 // The weight gradient of x (plain) or of relu(x*sc + bi) (ACT; sc and bi
-// unused otherwise), at stride (ST, 2, 2) (ST = 2: plain only).
-template <typename T, bool ACT, int ST = 1>
+// unused otherwise).
+template <typename T, bool ACT>
 int launch_wgrad(const void* x, const void* g, const void* sc,
                  const void* bi, void* part, int B, int Tn, int H, int W,
                  int C, int R, int WB, int PG, int TT, int ipb, int rows,
                  cudaStream_t st) {
-  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const int To = (Tn - 1) / ST + 1;
-  Plan p;  // over the output's frames, rows and columns
-  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, To, Ho, Wo, C, R, WB,
+  Plan p;  // over the output's rows and columns
+  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, Tn, Ho, Wo, C, R, WB,
                     PG, TT) ||
       ipb < 1)
     return (int)cudaErrorInvalidValue;
@@ -1910,13 +2164,45 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
         static_cast<const float*>(sc), static_cast<const float*>(bi),
         static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
   } else {
-    const auto kern =
-        ST == 1 ? wgrad_kernel_of<T>(R) : t2_wgrad_kernel_of<T>(R);
+    const auto kern = wgrad_kernel_of<T>(R);
     if (int e = set_smem(kern, smem)) return e;
     kern<<<grid, threads_of(p), smem, st>>>(
         static_cast<const T*>(x), static_cast<const T*>(g),
         static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb);
   }
+  return (int)cudaGetLastError();
+}
+
+// The weight gradient at stride (2,2,2): the plan over g (B, To, Ho, Wo,
+// C) in one segment (TT >= To), a persistent grid of rows blocks per
+// channel group.
+template <typename T>
+int launch_t2_wgrad(const void* x, const void* g, void* part, int B, int Tn,
+                    int H, int W, int C, int R, int WB, int PG, int TT,
+                    int ipb, int rows, cudaStream_t st) {
+  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1, To = (Tn - 1) / 2 + 1;
+  Plan p;
+  if (!make_plan<T>(p, (uintptr_t)x | (uintptr_t)g, B, To, Ho, Wo, C, R, WB,
+                    PG, TT) ||
+      TT < To || ipb < 1)
+    return (int)cudaErrorInvalidValue;
+  const long long items = (long long)B * p.n_strip * p.n_wt;
+  if (rows < 1 || (long long)rows * ipb < items ||
+      (long long)(rows - 1) * ipb >= items)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = t2_wgrad_smem<T>(R, WB, PG);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const auto kern = t2_wgrad_kernel_of<T>(R);
+  if (int e = set_smem(kern, smem)) return e;
+  // the whole-pixel mode: one channel group of every pair, rows 16-byte
+  // aligned
+  const int whole = p.n_pg == 1 && 2 * PG == C && (uintptr_t)x % 16 == 0 &&
+                    (long long)W * C * sizeof(T) % 16 == 0;
+  kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb,
+      whole);
   return (int)cudaGetLastError();
 }
 
@@ -1985,7 +2271,7 @@ int occupancy(int kind, int R, int WB, int PG) {
                            threads);
     case 8:
       return blocks_per_sm(t2_wgrad_kernel_of<T>(R),
-                           wgrad_smem<T>(R, WB, PG, false), threads);
+                           t2_wgrad_smem<T>(R, WB, PG), threads);
   }
   return -1;
 }
@@ -2201,11 +2487,10 @@ extern "C" int dw_conv_wgrad_t2(const void* x, const void* g, void* part,
                                 int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_wgrad<__nv_bfloat16, false, 2>(x, g, nullptr, nullptr,
-                                                 part, B, T, H, W, C, R, WB,
-                                                 PG, TT, ipb, rows, st);
-  return launch_wgrad<float, false, 2>(x, g, nullptr, nullptr, part, B, T, H,
-                                       W, C, R, WB, PG, TT, ipb, rows, st);
+    return launch_t2_wgrad<__nv_bfloat16>(x, g, part, B, T, H, W, C, R, WB,
+                                          PG, TT, ipb, rows, st);
+  return launch_t2_wgrad<float>(x, g, part, B, T, H, W, C, R, WB, PG, TT,
+                                ipb, rows, st);
 }
 
 // Blocks per SM mm_s2_fwd_kernel reaches at a plan (R, WB, PG), C_in and

@@ -47,14 +47,17 @@ halo and writes its output once:
 * ``dw_conv_t2``, ``dw_conv_dx_t2``, ``dw_conv_wgrad_t2``: the same three
   at stride (2, 2, 2), :class:`..models.fine.FineNet`'s ``t_downsample``
   (replacing no TPU kernel: the JAX package runs that conv in XLA,
-  ``_lax_conv``, ``ops/pallas/dw_conv.py:287``).  K4 plain's, K8's and K10
-  plain's bodies with the temporal stride a template argument, in the same
-  source: the forward's register ring holds the two output frames an input
-  frame feeds, the dx gives each g frame's two dx frames (the even one
-  through tap dt = 1 only) from a 4-frame g ring, and the weight gradient
-  pairs each x frame with the one or two g frames it meets, by the rule of
-  :func:`plan_t2`'s items; work splits :func:`plan_t2_fwd`,
-  :func:`plan_t2_dx` and :func:`plan_t2` over the output's (g's) frames.
+  ``_lax_conv``, ``ops/pallas/dw_conv.py:287``), in the same source.  The
+  forward and the dx are K4 plain's and K8's bodies with the temporal
+  stride a template argument: the forward's register ring holds the two
+  output frames an input frame feeds, the dx gives each g frame's two dx
+  frames (the even one through tap dt = 1 only) from a 4-frame g ring.
+  The weight gradient has a walk of its own on K10 plain's threads
+  and rows: one step a g frame, all 27 taps against x frames 2o-1, 2o and
+  2o+1 from a ring of five x frames and two g frames, a block's items (one
+  clip each) chained into one stream of steps; work splits
+  :func:`plan_t2_fwd`, :func:`plan_t2_dx` and :func:`plan_t2` over the
+  output's (g's) frames.
 
 The two plain sources also hold the act modes of their kernels, entries
 of :mod:`.dw_act` bound here: ``dw_act_s1`` (K1 act) and
@@ -416,18 +419,45 @@ def plan_t2_dx(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
                          FWD_BLOCKS)
 
 
+# channel pairs of a pixel that dw_conv_wgrad_t2 keeps in one group (its
+# whole-pixel mode); wider pixels are cut into groups of at most DX_PG
+T2_WHOLE_PG = 64
+# x and g frames in its ring: a step's three and one, and the next step's
+# two and one
+T2_XSLOTS, T2_GSLOTS = 5, 2
+
+
+def smem_t2(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_wgrad_t2``, in bytes, as
+    its launcher sizes it: ``T2_XSLOTS`` x frames (2R+1 rows, de-interleaved
+    pairs or, in its whole-pixel mode, the tile's pixels from a 16-byte
+    boundary, whichever is larger) and ``T2_GSLOTS`` g frames (R rows), or
+    the column sums if larger."""
+    row = 2 * (plan.wb + 1) * 2 * plan.pg
+    whole = 16 * ((2 * plan.wb + 1) * 2 * plan.pg * esz // 16 + 2)
+    xslot = max(_pad16((2 * plan.r + 1) * row * esz),
+                (2 * plan.r + 1) * whole)
+    ring = (T2_XSLOTS * xslot
+            + T2_GSLOTS * _pad16(plan.r * plan.wb * 2 * plan.pg * esz))
+    return max(ring, 4 * 27 * plan.wb * 2 * plan.pg)
+
+
 @lru_cache(maxsize=None)
 def plan_t2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of ``dw_conv_wgrad_t2`` (K10 plain's body at stride
-    (2, 2, 2)) for x ``(B, T, H, W, C)``: :func:`plan_s2`'s for x of T
-    frames with its segments halved onto the ``⌈T/2⌉`` output frames (``tt``
-    → ⌈tt/2⌉) and its blocks' items kept (``ipb``).  Where ``tt`` is even, or
-    one segment spans the clip, each item's x frames and output rows are
-    those of :func:`plan_s2`'s item for g put at the even frames of a zero
-    tensor of T frames, so the two kernels' partial rows agree."""
-    p = plan_s2(b, t, h, w, c)
-    p = p._replace(t=_t2(t), tt=_cdiv(p.tt, 2))
-    return p._replace(rows=_cdiv(p.items, p.ipb))
+    """The work split of ``dw_conv_wgrad_t2`` for x ``(B, T, H, W, C)``:
+    :func:`_strips` over g ``(⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉)`` with the channel pairs
+    first, all of a pixel in one group where they number at most
+    ``T2_WHOLE_PG`` (the kernel's whole-pixel mode, 16-byte copies: C = 54
+    and 108 on the path), else groups of at most ``DX_PG`` (runs of 54-62
+    channels), and the f32 shared memory of :func:`smem_t2`; one segment a
+    clip (``tt`` = ⌈T/2⌉: a block's items run as one stream of g frames),
+    on the persistent grid of about two blocks per SM.  K10 plain
+    (``dw_conv_wgrad_s2``) launched with this split and one segment of T
+    frames has the same items and blocks."""
+    ho, wo = _out_hw(h, w, 2)
+    p2 = _cdiv(c, 2)
+    pg_max = p2 if p2 <= T2_WHOLE_PG else DX_PG
+    return _persistent(_strips(b, _t2(t), ho, wo, c, smem_t2, pg_max))
 
 
 def _pad16(n: int) -> int:

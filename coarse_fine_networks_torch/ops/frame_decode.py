@@ -8,7 +8,12 @@ out, out, 3)``, the function of the JAX package's exact native path
   to ``out × out`` in f32, every operation rounded on its own as g++ -O3
   computes it on x86-64.  :func:`crop_resize_plain` is the same sequence in
   separate PyTorch ops; the two agree bit for bit.  Bound by bytes: the
-  crop's rows read once, ``out²·3`` bytes written a frame.
+  crop's rows read once, ``out²·3`` bytes written a frame.  A block covers
+  up to ``CROP_ROWS`` output rows of one frame (:func:`crop_plan`), stages
+  their source rows with 16-byte copies and its geometry once, gives
+  neighbouring threads neighbouring pixels and writes its rows with
+  16-byte stores; the boxes travel in the launch's parameters,
+  ``CROP_BOXES`` at most a launch (:func:`crop_launches`).
 * the decode: nvJPEG, the decoder shipped with the CUDA toolkit (no TPU
   kernel exists for it), behind a thin C wrapper in the same source: one
   ``nvjpegDecodeBatched`` call for a clip's RGB frames, into a pitched
@@ -28,7 +33,7 @@ from __future__ import annotations
 import ctypes
 import io
 import threading
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,7 +42,7 @@ from ._build import CudaLibrary, I, P, cuda_home
 
 SZ = ctypes.c_size_t
 LIBRARY = CudaLibrary("frame_decode.cu", {
-    "cfn_crop_resize": [P, I, I, I, I, I, P, P, I, P],
+    "cfn_crop_resize": [P, I, I, I, I, P, P, I, I, I, P],
     "cfn_jpeg_create": [ctypes.POINTER(P)],
     "cfn_jpeg_info": [P, P, SZ, P],
     "cfn_jpeg_decode": [P, P, P, I, I, P, I, SZ, P],
@@ -51,6 +56,15 @@ _COUNT_LOCK = threading.Lock()
 
 # rows of a decoded frame start PITCH_ALIGN bytes apart at least
 PITCH_ALIGN = 128
+# crop_resize_kernel's work split (csrc/frame_decode.cu's constants): a
+# block of CROP_THREADS threads covers at most CROP_ROWS output rows of one
+# frame, thread t its pixels t, t + CROP_THREADS, ... in row order; the
+# staged source rows and the output tile take at most CROP_SMEM bytes a
+# block (fewer rows a block for wider crops); a launch carries at most
+# CROP_BOXES boxes in its parameters
+CROP_THREADS, CROP_ROWS = 256, 8
+CROP_SMEM = 96 * 1024
+CROP_BOXES = 1024
 
 Box = Tuple[int, int, int, int]
 
@@ -81,11 +95,15 @@ def _check_frames(frames: torch.Tensor, boxes) -> np.ndarray:
     if sc != 1 or sw != c or sh < w * c or (n > 1 and sn != h * sh):
         raise ValueError(f"frames' strides {frames.stride()} are not a "
                          f"pitched (N, h, w, {c}) layout")
-    b = np.asarray(boxes, np.int64).reshape(n, 4)
-    x1, y1, cw, ch = b.T
-    if ((x1 < 0) | (y1 < 0) | (cw < 1) | (ch < 1) | (x1 + cw > w)
-            | (y1 + ch > h)).any():
-        raise ValueError(f"crop boxes {b.tolist()} outside {w}x{h} frames")
+    b = np.asarray(boxes, np.int64)
+    if b.shape != (n, 4):
+        b = b.reshape(n, 4)
+    if n:
+        lo, hi = b.min(0), (b[:, :2] + b[:, 2:]).max(0)
+        if (lo[0] < 0 or lo[1] < 0 or lo[2] < 1 or lo[3] < 1 or hi[0] > w
+                or hi[1] > h):
+            raise ValueError(f"crop boxes {b.tolist()} outside {w}x{h} "
+                             f"frames")
     return b
 
 
@@ -135,27 +153,72 @@ def crop_resize_plain(frames: torch.Tensor, boxes, out: int) -> torch.Tensor:
     return (v + 0.5).to(torch.int32).to(torch.uint8)
 
 
+class CropPlan(NamedTuple):
+    """``crop_resize_kernel``'s split of one launch: ``rows`` output rows a
+    block, ``span`` bytes staged of each source row (the largest box's crop
+    from the 16-byte boundary at or below its first byte, a multiple of
+    16)."""
+    rows: int
+    span: int
+
+
+def crop_plan(boxes: np.ndarray, channels: int, out: int) -> CropPlan:
+    """The split of a launch over ``boxes`` (``(N, 4)``): the span its
+    crops need, and up to ``CROP_ROWS`` rows a block, halved while the
+    block's two staged source rows a row and its output tile pass
+    ``CROP_SMEM`` bytes."""
+    x1 = boxes[:, 0] * channels
+    span = int(((x1 + boxes[:, 2] * channels) - x1 // 16 * 16).max())
+    span = -(-span // 16) * 16
+    rows = min(CROP_ROWS, out)
+    while rows > 1 and rows * (2 * span + 3 * out) > CROP_SMEM:
+        rows //= 2
+    return CropPlan(rows, span)
+
+
+class CropLaunch(NamedTuple):
+    """One launch of ``crop_resize_kernel``: its frames from ``first``, their
+    boxes as the kernel's parameter block takes them (int32, box i at 4i)
+    and its split."""
+    first: int
+    boxes: np.ndarray
+    plan: CropPlan
+
+
+def crop_launches(boxes: np.ndarray, channels: int,
+                  out: int) -> List[CropLaunch]:
+    """The launches of a call on ``boxes`` (``(N, 4)``): ``CROP_BOXES``
+    frames at most each."""
+    b32 = np.ascontiguousarray(boxes, np.int32)
+    return [CropLaunch(i, b32[i:i + CROP_BOXES],
+                       crop_plan(b32[i:i + CROP_BOXES], channels, out))
+            for i in range(0, len(b32), CROP_BOXES)]
+
+
 def crop_resize(frames: torch.Tensor, boxes, out: int) -> torch.Tensor:
     """:func:`crop_resize_plain`'s function: on a CPU tensor its plain
     version, on a CUDA tensor ``crop_resize_kernel`` on the current stream
-    (or raises)."""
+    (or raises), the boxes in its launches' parameters
+    (:func:`crop_launches`)."""
     b = _check_frames(frames, boxes)
     if frames.device.type == "cpu":
         return crop_resize_plain(frames, b, out)
     if frames.device.type != "cuda":
         raise ValueError(f"frames on {frames.device}: CPU or CUDA only")
-    n, h, w, c = frames.shape
+    n, h, _, c = frames.shape
     dev = frames.device
     y = torch.empty((n, out, out, 3), dtype=torch.uint8, device=dev)
-    # the boxes cross from page-locked memory without a host wait
-    box = torch.from_numpy(b.astype(np.int32)).pin_memory().to(
-        dev, non_blocking=True)
+    if not n:
+        return y
+    src, dst = frames.data_ptr(), y.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        LIBRARY.call("cfn_crop_resize", frames.data_ptr(), n, h, w,
-                     frames.stride(1), c, box.data_ptr(), y.data_ptr(), out,
-                     stream)
-    _count(LAUNCHES, "crop_resize_kernel")
+        for la in crop_launches(b, c, out):
+            LIBRARY.call("cfn_crop_resize", src + la.first * frames.stride(0),
+                         len(la.boxes), h, frames.stride(1), c,
+                         la.boxes.ctypes.data, dst + la.first * out * out * 3,
+                         out, la.plan.rows, la.plan.span, stream)
+            _count(LAUNCHES, "crop_resize_kernel")
     return y
 
 
@@ -284,7 +347,8 @@ def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
             gn = [names[i] for i in idx]
             frames = (_decode_group_cuda(ctx, lib, gb, gn, c, h, w, dev)
                       if cuda else _decode_group_cpu(gb, gn, c))
-            part = crop_resize(frames, [box_of(w, h)] * len(idx), out)
+            part = crop_resize(frames, np.broadcast_to(
+                np.asarray(box_of(w, h), np.int64), (len(idx), 4)), out)
             if len(idx) == n:
                 y = part
                 break

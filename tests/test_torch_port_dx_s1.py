@@ -285,10 +285,11 @@ def test_constants_match_the_source(name, value):
 def test_partial_rows_have_no_stride1_kind_left():
     """K3's and K5's partial buffers have their plans' rows (the launchers
     refuse any other count), and so have the row-strip weight gradients'
-    (K6 and K10: plain, act and mm; the launchers check that the block rows
-    cover the items): no weight gradient or dx sizes its buffer by a kind
-    any more (``dw_act_partial_rows`` went with ``dw_act_bwd.cu``), and the
-    mm entry's module keeps no row-kind table."""
+    (K6 and K10: plain, act and mm, and the stride-(2, 2, 2) one; the
+    launchers check that the block rows cover the items): no weight
+    gradient or dx sizes its buffer by a kind any more
+    (``dw_act_partial_rows`` went with ``dw_act_bwd.cu``), and the mm
+    entry's module keeps no row-kind table."""
     src = dw_mm_act.DX_S1_LIBRARY.source.read_text()
     assert "rows != items" in src
     s2 = dw_conv.LIBRARY_S2.source.read_text()
@@ -300,4 +301,4 @@ def test_partial_rows_have_no_stride1_kind_left():
     assert not hasattr(dw_mm_act, "_partials")
     cover = "(long long)rows * ipb < items"
     assert dw_conv.LIBRARY.source.read_text().count(cover) == 2
-    assert s2.count(cover) == 2  # K10 plain and act; K10 mm
+    assert s2.count(cover) == 3  # K10 plain and act; K10 mm; t2

@@ -305,6 +305,123 @@ def test_crop_resize_plain_is_the_cpp_arithmetic():
                     assert int(got[y, x, k]) == int(v + f32(0.5)), (y, x, k)
 
 
+def _crop_kernel_model(frames, boxes, out):
+    """``crop_resize_kernel`` (``csrc/frame_decode.cu``) in numpy: each
+    launch of ``crop_launches``, its grid (``plan.rows`` output rows of one
+    frame a block), each block's staged source rows (the crop's bytes at
+    their offsets from the 16-byte boundary ``lo``, ``plan.span`` bytes a
+    row; a byte never staged reads -1), its geometry, and its threads'
+    pixels (pixel i of the block's rows, in row order, to thread i mod
+    ``CROP_THREADS``): the output, and how often each output pixel was
+    written."""
+    n, h, w, c = frames.shape
+    f32 = np.float32
+    y = np.zeros((n, out, out, 3), np.uint8)
+    writes = np.zeros((n, out, out), np.int64)
+
+    def axis(i, s, size):
+        f = (i.astype(f32) + f32(0.5)) * s - f32(0.5)
+        f[f < 0] = 0
+        i0 = f.astype(np.int64)
+        return i0, np.minimum(i0 + 1, size - 1), f - i0.astype(f32)
+
+    for la in frame_decode.crop_launches(np.asarray(boxes), c, out):
+        rows, span = la.plan
+        for j, (x1, y1, cw, ch) in enumerate(la.boxes.tolist()):
+            f = la.first + j
+            lo = x1 * c // 16 * 16
+            assert (x1 + cw) * c - lo <= span
+            sx, sy = f32(cw) / f32(out), f32(ch) / f32(out)
+            x0, xb, wx = axis(np.arange(out), sx, cw)
+            offs = [(x1 + x0) * c - lo, (x1 + xb) * c - lo]
+            ox = f32(1) - wx
+            flat = frames[f].reshape(h, w * c).astype(np.int64)
+            for ya in range(0, out, rows):
+                nr = min(rows, out - ya)
+                y0, yb, wy = axis(ya + np.arange(nr), sy, ch)
+                oy = f32(1) - wy
+                stage = np.full((2 * nr, span), -1, np.int64)
+                for s in range(2 * nr):
+                    src = y1 + (yb if s & 1 else y0)[s // 2]
+                    stage[s, x1 * c - lo:(x1 + cw) * c - lo] = flat[
+                        src, x1 * c:(x1 + cw) * c]
+                items = np.concatenate([
+                    np.arange(t, nr * out, frame_decode.CROP_THREADS)
+                    for t in range(frame_decode.CROP_THREADS)])
+                r, x = items // out, items % out
+                for k in range(3):
+                    q = k if c == 3 else 0
+                    taps = [stage[2 * r + e, offs[d][x] + q]
+                            for e in (0, 1) for d in (0, 1)]
+                    assert all((t >= 0).all() for t in taps)
+                    v00, v01, v10, v11 = (t.astype(f32) for t in taps)
+                    v = v00 * oy[r] * ox[x]
+                    v = v + v01 * oy[r] * wx[x]
+                    v = v + v10 * wy[r] * ox[x]
+                    v = v + v11 * wy[r] * wx[x]
+                    y[f, ya + r, x, k] = (v + f32(0.5)).astype(np.int64)
+                np.add.at(writes[f], (ya + r, x), 1)
+    return y, writes
+
+
+@pytest.mark.parametrize("out", [224, 112, 7, 1])
+def test_crop_kernel_model_writes_every_pixel_once(out):
+    """The kernel's work split (grid, staged rows, thread pixels) writes
+    every output pixel of every frame once, reading only staged bytes of
+    the crop, and gives ``crop_resize_plain``'s pixels: odd frame sizes,
+    grey and RGB, boxes at odd offsets (``lo`` below the crop)."""
+    rng = np.random.RandomState(4)
+    for (n, h, w, c), boxes in [
+            ((3, 37, 53, 3), [(0, 0, 37, 37), (5, 3, 31, 29),
+                              (16, 0, 37, 37)]),
+            ((2, 29, 41, 1), [(7, 1, 23, 27), (0, 0, 41, 29)])]:
+        frames = rng.randint(0, 256, (n, h, w, c)).astype(np.uint8)
+        got, writes = _crop_kernel_model(frames, boxes, out)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, frame_decode.crop_resize_plain(
+            torch.from_numpy(frames), boxes, out).numpy())
+
+
+def test_crop_launches_carry_the_boxes():
+    """The boxes' launch argument: int32, box i at 4i of the launch's
+    block whatever the layout of the boxes given, ``CROP_BOXES`` frames a
+    launch (past the cap, further launches); each plan's span holds its
+    crops and its rows fit ``CROP_SMEM`` (a wide crop takes fewer rows a
+    block)."""
+    cap = frame_decode.CROP_BOXES
+    rng = np.random.RandomState(5)
+    n = 2 * cap + 5
+    b = np.stack([rng.randint(0, 50, n), rng.randint(0, 50, n),
+                  rng.randint(1, 400, n), rng.randint(1, 400, n)], 1)
+    launches = frame_decode.crop_launches(b, 3, 224)
+    assert [(la.first, len(la.boxes)) for la in launches] == [
+        (0, cap), (cap, cap), (2 * cap, 5)]
+    for la in launches:
+        assert la.boxes.dtype == np.int32 and la.boxes.flags.c_contiguous
+        block = np.frombuffer(la.boxes.tobytes(), np.int32)
+        np.testing.assert_array_equal(
+            block, b[la.first:la.first + len(la.boxes)].ravel())
+        x1, cw = la.boxes[:, 0], la.boxes[:, 2]
+        assert la.plan.span % 16 == 0
+        assert ((x1 + cw) * 3 - x1 * 3 // 16 * 16 <= la.plan.span).all()
+        assert la.plan.rows == frame_decode.CROP_ROWS
+    assert frame_decode.crop_launches(b[:1], 3, 224)[0].plan.span == 16 * (
+        -(-((b[0, 0] + b[0, 2]) * 3 - b[0, 0] * 3 // 16 * 16) // 16))
+    wide = frame_decode.crop_launches(np.array([[0, 0, 7000, 7000]]), 3, 224)
+    assert wide[0].plan == (2, 21008)
+    assert 2 * wide[0].plan.rows * wide[0].plan.span <= frame_decode.CROP_SMEM
+    assert frame_decode.crop_launches(
+        np.array([[3, 0, 20, 20]]), 1, 7)[0].plan == (7, 32)
+    assert frame_decode.crop_launches(np.zeros((0, 4)), 3, 224) == []
+    # boxes in any layout (a broadcast box, Fortran order) reach the
+    # parameter block in C order: box i at 4i
+    for odd in (np.broadcast_to(b[0], (5, 4)), np.asfortranarray(b[:5])):
+        (la,) = frame_decode.crop_launches(odd, 3, 224)
+        np.testing.assert_array_equal(
+            np.frombuffer(la.boxes.tobytes(), np.int32),
+            np.ascontiguousarray(odd).ravel())
+
+
 def _charades(mod, tr, tree, split, pack_dir, **kw):
     if split == "training":
         t = tr.Compose([tr.MultiScaleRandomCropMultigrid([0.875, 0.7], 32),

@@ -6,11 +6,12 @@ another order): the three plain versions (``dw_conv3d_plain`` at ``T2``,
 ``DwConv3d`` at even and odd T, H and W, and with a NaN of x on the first
 frame, the last frame, the last row, the last column and inside (fault
 3.4's positions): the taps' gradient has NaN exactly where JAX's has.
-Also a model of the three kernels' temporal walks (``csrc/dw_plain_s2.cu``
-with ``ST = 2``: the forward's two-frame register ring, the dx's two dx
-frames a g frame, the weight gradient's pairs under ``wgrad_slots_t2``)
-against the definition at every clip length and segment, their work
-splits covering every output once, and the wrappers' strides."""
+Also a model of the three kernels' temporal walks (``csrc/dw_plain_s2.cu``:
+the forward's two-frame register ring and the dx's two dx frames a g frame
+with ``ST = 2``, at every segment length; the weight gradient's g-frame
+steps over a block's chained items, its ring slots and rule) against the
+definition at every clip length, their work splits covering every output
+once, and the wrappers' strides."""
 
 import numpy as np
 import pytest
@@ -141,21 +142,41 @@ def _dx_walk(t0, t1, tn, tg):
     return out
 
 
-def _wgrad_walk(t0, t1, tn):
-    """s2_wgrad_body<ST = 2>: the (x frame, dt, g frame) products, in order,
-    with the ring's g frames and ``wgrad_slots_t2``'s admission."""
-    pairs, gr = [], [None, None]
-    f0, nf = 2 * t0 - 1, 2 * (t1 - t0) + 1
-    for i in range(nf):
-        ti, odd = f0 + i, i & 1
-        if not odd:
-            tg = t0 + i // 2
-            gr = [gr[1], tg if tg < t1 else None]
-        if 0 <= ti < tn:
-            slots = 2 if odd else ((i >= 2) | (4 if i < nf - 1 else 0))
-            for j in range(3):
-                if (slots >> j) & 1:
-                    pairs.append((ti, 2 - j, gr[0 if j == 0 else 1]))
+def _wgrad_walk(tn, items):
+    """plain_t2_wgrad_kernel: a block's walk over ``items`` clips of ``tn``
+    frames (one item each, g frames 0 .. to-1), as one stream of steps.  Step
+    s loads step s+1's x frames 2o and 2o+1 into ring slots 2s+2 and 2s+3
+    and its g frame into slot s+1 while it reads x frames 2o-1, 2o, 2o+1
+    (taps dt = 0, 1, 2; slots 2s-1, 2s, 2s+1) and g frame o (slot s), so a
+    read of a slot overwritten by that load would be a hazard: each read is
+    checked against the frame it must find.  Returns each item's (x frame,
+    dt, g frame) products in the order they are added."""
+    to = (tn - 1) // 2 + 1
+    xs, gs = dw_conv.T2_XSLOTS, dw_conv.T2_GSLOTS
+    steps = items * to
+    xslot, gslot = {}, {}
+    pairs = [[] for _ in range(items)]
+
+    def load(s):
+        if s < steps:
+            it, o = divmod(s, to)
+            for e in range(2):
+                if 2 * o + e < tn:
+                    xslot[(2 * s + e) % xs] = (it, 2 * o + e)
+            gslot[s % gs] = (it, o)
+
+    load(0)
+    for s in range(steps):
+        load(s + 1)  # after the barrier, beside this step's reads
+        it, o = divmod(s, to)
+        assert gslot[s % gs] == (it, o)
+        for dt, slot in ((0, (2 * s + xs - 1) % xs), (1, 2 * s % xs),
+                         (2, (2 * s + 1) % xs)):
+            # x frame 2o-1 where o > 0, 2o+1 inside the clip
+            if (dt == 0 and o == 0) or (dt == 2 and 2 * o + 1 >= tn):
+                continue
+            assert xslot[slot] == (it, 2 * o + dt - 1), (s, dt)
+            pairs[it].append((2 * o + dt - 1, dt, o))
     return pairs
 
 
@@ -164,11 +185,10 @@ def test_kernel_walks_match_the_definition(tn):
     to = (tn - 1) // 2 + 1
     for tt in range(1, to + 1):
         segs = [(s, min(s + tt, to)) for s in range(0, to, tt)]
-        fwd, dx, pairs = {}, {}, []
+        fwd, dx = {}, {}
         for s in segs:
             fwd.update(_fwd_walk(*s, tn))
             dx.update(_dx_walk(*s, tn, to))
-            pairs += _wgrad_walk(*s, tn)
         # every output frame once, its taps in order dt = 0, 1, 2
         assert fwd == {o: [(dt, 2 * o + dt - 1) for dt in range(3)
                            if 0 <= 2 * o + dt - 1 < tn] for o in range(to)}
@@ -176,11 +196,82 @@ def test_kernel_walks_match_the_definition(tn):
         assert dx == {f: sorted([(dt, o) for o in range(to) for dt in range(3)
                                  if 2 * o + dt - 1 == f], key=lambda p: p[1])
                       for f in range(tn)}
-        # every (x frame, tap, g frame) product once and no other: a NaN of
-        # x reaches the taps it reaches in the plain version
-        assert sorted(pairs) == sorted(
-            (2 * o + dt - 1, dt, o) for o in range(to) for dt in range(3)
-            if 0 <= 2 * o + dt - 1 < tn)
+    # the weight gradient has one segment a clip; a block chains 1-4 items
+    for items in range(1, 5):
+        for pairs in _wgrad_walk(tn, items):
+            # every (x frame, tap, g frame) product once and no other: a NaN
+            # of x reaches the taps it reaches in the plain version
+            assert sorted(pairs) == sorted(
+                (2 * o + dt - 1, dt, o) for o in range(to) for dt in range(3)
+                if 0 <= 2 * o + dt - 1 < tn)
+            # each tap's products x frames ascending (K10 plain's order)
+            for dt in range(3):
+                ti = [p[0] for p in pairs if p[1] == dt]
+                assert ti == sorted(ti)
+
+
+def _whole_pixel_reads(w, c, esz, wb, r, h, h0, w0, seed):
+    """plain_t2_wgrad_kernel's whole-pixel mode on one x frame: the chunks
+    t2_stage_whole copies (16-byte aligned, those holding a byte of a pixel
+    of the tile inside the frame; rows outside the frame zero) into a slot
+    of stale bytes, then each thread's reads at at[dx] (the pixel 2wl-1+dx
+    of the tile at a byte stride of C * esz from d) under its mask ok.
+    Returns (got, want): per (thread, staged row, dx) the pair read and the
+    frame's pair there (zero outside the frame)."""
+    rng = np.random.RandomState(seed)
+    pb, rowb = c * esz, 16 * ((2 * wb + 1) * c * esz // 16 + 2)
+    dt = {2: np.uint16, 4: np.uint32}[esz]
+    guard = 64  # bytes of other memory around the frame (16-byte aligned)
+    mem = rng.randint(0, 256, guard + h * w * pb + guard).astype(np.uint8)
+    frame = mem[guard:guard + h * w * pb].view(dt).reshape(h, w, c)
+    p0, npx, hs, nrows = 2 * w0 - 1, 2 * wb + 1, 2 * h0 - 1, 2 * r + 1
+    slot = np.full((nrows, rowb), 0xAB, np.uint8)
+    for rr in range(nrows):
+        hh = hs + rr
+        if not 0 <= hh < h:
+            slot[rr] = 0
+            continue
+        row = guard + hh * w * pb
+        base = (row + p0 * pb) // 16 * 16
+        for k in range(rowb // 16):
+            a = base + 16 * k
+            if a + 16 > row + max(p0, 0) * pb and a < row + min(p0 + npx,
+                                                                w) * pb:
+                slot[rr, 16 * k:16 * k + 16] = mem[a:a + 16]
+    d = (p0 * pb) % 16
+    got, want = [], []
+    for wl in range(wb):
+        for pi in range(c // 2):
+            at0 = (d + 2 * wl * pb) // esz + 2 * pi
+            for rr in range(nrows):
+                vals = slot[rr].view(dt)
+                for dx in range(3):
+                    px, hh = p0 + 2 * wl + dx, hs + rr
+                    ok = 0 <= px < w
+                    e = at0 + dx * c
+                    got.append(tuple(vals[e:e + 2]) if ok else (0, 0))
+                    want.append(tuple(frame[hh, px, 2 * pi:2 * pi + 2])
+                                if ok and 0 <= hh < h else (0, 0))
+    return got, want
+
+
+@pytest.mark.parametrize("w, c, esz", [(8, 2, 2), (16, 6, 2), (8, 54, 2),
+                                       (4, 6, 4), (13, 8, 4), (12, 54, 4)])
+def test_whole_pixel_staging_reads_the_tile(w, c, esz):
+    """The weight gradient's whole-pixel mode (a block's channel group is
+    the pixel, rows 16-byte aligned): at every column tile and row strip,
+    each thread's taps read the frame's pair at its pixel, zero on rows
+    outside the frame and masked columns, never a stale or neighbouring
+    byte."""
+    assert w * c * esz % 16 == 0
+    h = 5
+    for wb in (2, 3):
+        wo = (w - 1) // 2 + 1
+        for w0 in range(0, wo, wb):
+            for r, h0 in ((2, 0), (2, 2), (3, 3)):
+                got, want = _whole_pixel_reads(w, c, esz, wb, r, h, h0, w0,
+                                               w0 + r)
+                assert got == want, (wb, w0, r, h0)
 
 
 def test_the_source_has_the_walks():
@@ -190,8 +281,21 @@ def test_the_source_has_the_walks():
                  'extern "C" int dw_conv_dx_t2(',
                  'extern "C" int dw_conv_wgrad_t2('):
         assert name in src, name
-    assert ("if (i & 1) return 2u;\n"
-            "  return (i >= 2 ? 1u : 0u) | (i < nf - 1 ? 4u : 0u);") in src
+    # the weight gradient's ring and rule (_wgrad_walk)
+    for text in ("constexpr int T2_XSLOTS = 5;", "constexpr int T2_GSLOTS = 2;",
+                 "cp_wait<0>();\n    __syncthreads();\n    load(s + 1);",
+                 "T* slot = xring + (2 * s + e) % T2_XSLOTS * xstage;",
+                 "sg.g_rows(gring + s % T2_GSLOTS * gstage,",
+                 "(2 * s + T2_XSLOTS - 1) % T2_XSLOTS * xstage;",
+                 "const T* xb = xring + 2 * s % T2_XSLOTS * xstage;",
+                 "const T* xc = xring + (2 * s + 1) % T2_XSLOTS * xstage;",
+                 "const bool a = o > 0, c = 2 * o + 1 < Tn;",
+                 "if (wl < WB && tl.w0 + wl < Wo) {",
+                 "dy > 2 || (!FULL && r >= nr)) continue;",
+                 "TT < To || ipb < 1)"):
+        assert text in src, text
+    assert "wgrad_slots_t2" not in src
+    assert (dw_conv.T2_XSLOTS, dw_conv.T2_GSLOTS) == (5, 2)
     assert "constexpr int GSTAGE_T2 = 4;" in src
     assert dw_conv.GSTAGE_T2 == 4
 
@@ -231,14 +335,25 @@ def test_plans_cover_the_output(shape):
                                4) <= dw_conv.SMEM_MAX
     assert dw_conv.smem_t2_dx(dw_conv.plan_t2_dx(*shape), 4) <= dw_conv.SMEM_MAX
     p = dw_conv.plan_t2(*shape)
-    assert dw_conv.smem_s2(p, 4) <= dw_conv.SMEM_MAX
+    assert dw_conv.smem_t2(p, 4) <= dw_conv.SMEM_MAX
+    # one segment a clip, channel pairs first: a pixel of at most
+    # T2_WHOLE_PG pairs in one group (where its shared memory fits), wider
+    # ones in groups of at most DX_PG
+    assert p.tt == to and p.n_tseg == 1
+    p2 = (c + 1) // 2
+    if p2 <= dw_conv.T2_WHOLE_PG:
+        assert p.pg == p2 or dw_conv.smem_t2(p._replace(pg=p2), 4) > (
+            dw_conv.SMEM_MAX)
+    else:
+        assert p.pg <= dw_conv.DX_PG
     # the persistent grid: every block has an item, the blocks cover all
     assert p.rows * p.ipb >= p.items > (p.rows - 1) * p.ipb
-    # K10 plain's items for g at the even frames of a zero tensor of t
-    # frames, where its segments are even or span the clip
-    q = dw_conv.plan_s2(*shape)
-    if q.tt % 2 == 0 or q.tt >= t:
-        assert (p.items, p.ipb, p.rows) == (q.items, q.ipb, q.rows)
+    # K10 plain launched with this split and one segment of t frames (g at
+    # the even frames of a zero tensor) has the same items and blocks, and
+    # fits
+    q = p._replace(t=t, tt=t)
+    assert (q.items, q.n_pg) == (p.items, p.n_pg)
+    assert dw_conv.smem_s2(p, 4) <= dw_conv.SMEM_MAX
 
 
 def test_wrappers_take_t2_and_refuse_other_strides():

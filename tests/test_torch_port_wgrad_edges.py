@@ -163,7 +163,9 @@ def test_the_sources_apply_the_rule_in_every_weight_gradient():
     """K6 and K10 (plain, act, mm) admit a ring slot only by
     ``wgrad_slots``, a row only below the output's last and a column only
     inside it, through the masked stencils of ``strip.cuh`` and
-    ``dw_plain_s2.cu``; the masked variants run slot by slot."""
+    ``dw_plain_s2.cu``; the masked variants run slot by slot.  The
+    stride-(2, 2, 2) weight gradient's body applies the same row bound
+    (its slots and columns: ``tests/test_torch_port_t2.py``)."""
     csrc = dw_conv.LIBRARY.source.parent
     strip = (csrc / "strip.cuh").read_text()
     s1 = dw_conv.LIBRARY.source.read_text()
@@ -172,10 +174,11 @@ def test_the_sources_apply_the_rule_in_every_weight_gradient():
     assert "i + j >= 2 && i + j <= nf - 1" in body[:body.index("\n}\n")]
     assert "void stencil_frame_masked(" in strip
     assert "void s2_frame_masked(" in s2
-    for src, rows, cols in (
-            (s1, "nr = min(R, H - tl.h0);", "live = in && tl.w0 + wl < W;"),
-            (s2, "nr = min(R, Ho - tl.h0);", "live = in && tl.w0 + wl < Wo;")):
-        assert src.count(rows) == 2 and src.count(cols) == 2
+    for src, rows, cols, n_rows in (
+            (s1, "nr = min(R, H - tl.h0);", "live = in && tl.w0 + wl < W;", 2),
+            (s2, "nr = min(R, Ho - tl.h0);", "live = in && tl.w0 + wl < Wo;",
+             3)):
+        assert src.count(rows) == n_rows and src.count(cols) == 2
     assert s1.count("wgrad_slots(") == 2 and s2.count("wgrad_slots(") == 2
     assert "stencil_frame_masked<T, R, ROWS_ONCE>(" in s1
     assert "s2_frame_masked<T, R, !ACT>(" in s2

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""The two kernels with no TPU counterpart that rule 2 redesigned, on one
-card: the stride-(2, 2, 2) weight gradient (``dw_conv_wgrad_t2``) and the
-crop (``crop_resize_kernel``), against a parent checkout and against
-variants of this one.
+"""The redesigned kernels with no TPU counterpart, on one card: the three
+stride-(2, 2, 2) kernels (``dw_conv_t2``, ``dw_conv_dx_t2``,
+``dw_conv_wgrad_t2``) and the crop (``crop_resize_kernel``), against a
+parent checkout and against variants of this one.
 
     python3 chip_rule2.py PARENT
 
@@ -11,25 +11,35 @@ PARENT is a checkout directory of the parent commit holding its
 coarse_fine_networks_torch | tar -x -C _scratch/parent``).  In order:
 
 1. ``ptxas``: ``nvcc -cubin -Xptxas -v`` of both trees'
-   ``csrc/dw_plain_s2.cu``; every row other than ``plain_t2_wgrad_kernel``'s
+   ``csrc/dw_plain_s2.cu``; every row other than the three t2 kernels'
    compared (registers, spills, static shared memory; the anonymous
-   namespace's per-file hash taken out of the names).
+   namespace's per-file hash taken out of the names), and the t2 rows of
+   both printed.  Exit 1 if a compared row differs or is gone.
 2. ``turns``: parent, change, change, parent, a process each that builds
-   its tree's kernels into its own build directory and times
-   ``dw_conv_wgrad_t2`` at ``FineNet(t_downsample)``'s four B32 T16 224²
-   entries in bf16 and f32 (the call back to back, ``cuda_ms``, and its
-   device time, ``queued_ms``; each checked against the plain version) and
-   ``crop_resize`` on one clip's 64 frames of 640×480 in a pitched buffer
-   (the centre and a train crop to 224²; call and device time, checked
-   against the plain version) beside ``F.interpolate`` on the f32 crop.
+   its tree's kernels into its own build directory and times the three t2
+   kernels at ``FineNet(t_downsample)``'s four B32 T16 224² entries in bf16
+   and f32 (the call back to back, ``ms``, and its device time,
+   ``device_ms``; each held against the plain version within
+   ``chip_smoke.py``'s tolerance first, the run failing otherwise; each
+   kernel's sums over the entries in ``sums``) and ``crop_resize`` on one
+   clip's 64 frames of 640×480 in a pitched buffer (the centre and a train
+   crop to 224²; call and device time, checked against the plain version)
+   beside ``F.interpolate`` on the f32 crop.
 3. ``variants``: copies of this checkout's package under
-   ``_scratch/rule2_variants`` (gitignored), each with one edit of the
-   weight gradient, timed at the four entries in bf16 (device time):
+   ``_scratch/rule2_variants`` (gitignored), each with one edit, timed at
+   the four entries in bf16 (device time): of the weight gradient,
    ``loads_only`` (no sums), ``sums_only`` (no loads after the first
    step), ``ahead_2`` (a ring of 7 x and 3 g frames, two steps ahead),
    ``pairs_only`` (K10 plain's per-pair copies, never the whole-pixel
    16-byte mode) and ``groups_32`` (channel groups of at most 32 pairs at
-   every width).
+   every width); of the forward, ``fwd_cp16`` (whole pixels by the weight
+   gradient's 16-byte cp.async copies, ``t2_stage_whole``, not bulk
+   copies), ``fwd_pairs_only`` (per-pair copies at every width),
+   ``fwd_frame_barriers`` (a barrier per input frame, as K4 plain's body at
+   a temporal stride of 2 had) and ``fwd_ahead_2`` (a ring two steps deep);
+   of the dx, ``dx_direct`` (each thread's pairs stored straight to dx,
+   K8's body's write path).  The wrappers choose the whole-pixel modes
+   (``dw_conv.t2_whole``), so the per-pair variants edit the wrappers.
 
 Each run prints one JSON line; the card's ``nvidia-smi`` name and power
 limit come last.  The timing helpers are this checkout's
@@ -54,14 +64,18 @@ PKG = "coarse_fine_networks_torch"
 # T2_SHAPES["B32.224"])
 T2_ENTRIES = [(32, 16, 112, 112, 54), (32, 8, 56, 56, 108),
               (32, 4, 28, 28, 216), (32, 2, 14, 14, 432)]
-# name: (edits of csrc/dw_plain_s2.cu, edits of ops/dw_conv.py)
+# the variants that leave out loads or sums: their outputs are wrong
+INEXACT = ("loads_only", "sums_only")
+# name: (edits of csrc/dw_plain_s2.cu, edits of ops/dw_conv.py, the t2
+# kernels it times)
+WG, FWD, DX = ["dw_conv_wgrad_t2"], ["dw_conv_t2"], ["dw_conv_dx_t2"]
 VARIANTS = {
     "loads_only": ([(
         "    if (wl < WB && tl.w0 + wl < Wo) {  // the thread's column exists",
-        "    if (steps < 0) {")], []),
+        "    if (steps < 0) {")], [], WG),
     "sums_only": ([(
         "    __syncthreads();\n    load(s + 1);",
-        "    __syncthreads();\n    cp_commit();")], []),
+        "    __syncthreads();\n    cp_commit();")], [], WG),
     "ahead_2": ([
         ("constexpr int T2_XSLOTS = 5;", "constexpr int T2_XSLOTS = 7;"),
         ("constexpr int T2_GSLOTS = 2;", "constexpr int T2_GSLOTS = 3;"),
@@ -69,13 +83,40 @@ VARIANTS = {
          "  load(0);\n  load(1);\n  for (int s = 0; s < steps; ++s) {"),
         ("    cp_wait<0>();\n    __syncthreads();\n    load(s + 1);",
          "    cp_wait<1>();\n    __syncthreads();\n    load(s + 2);")],
-        [("T2_XSLOTS, T2_GSLOTS = 5, 2", "T2_XSLOTS, T2_GSLOTS = 7, 3")]),
-    "pairs_only": ([(
-        "  const int whole = p.n_pg == 1 && 2 * PG == C",
-        "  const int whole = 0 && p.n_pg == 1 && 2 * PG == C")], []),
+        [("T2_XSLOTS, T2_GSLOTS = 5, 2", "T2_XSLOTS, T2_GSLOTS = 7, 3")], WG),
+    "pairs_only": ([], [("p.ipb, p.rows, int(t2_whole(p, x))",
+                         "p.ipb, p.rows, 0")], WG),
     "groups_32": ([], [(
-        "    pg_max = p2 if p2 <= T2_WHOLE_PG else DX_PG",
-        "    pg_max = DX_PG")]),
+        "    return _persistent(_strips(b, _t2(t), ho, wo, c, smem_t2,\n"
+        "                               _pairs_first(c)))",
+        "    return _persistent(_strips(b, _t2(t), ho, wo, c, smem_t2,\n"
+        "                               DX_PG))")], WG),
+    # the forward: whole pixels by 16-byte cp.async (t2_stage_whole) in
+    # the step's commit group, not by bulk copies on mbarriers
+    "fwd_cp16": ([
+        ("  constexpr bool BULK = WHOLE;", "  constexpr bool BULK = false;"),
+        ("    } else {\n      if (in)\n        T2Stager(",
+         "    } else if constexpr (WHOLE) {\n      if (in)\n"
+         "        t2_stage_whole(slot, xb + (size_t)ti * frame, hs, 2 * R + 1,"
+         " H, W, C, p0, 2 * WB + 1, rowb);\n"
+         "    } else {\n      if (in)\n        T2Stager(")], [], FWD),
+    # ... every group by each thread's pairs (T2Stager)
+    "fwd_pairs_only": ([], [("whole = (int(t2_whole(p, x)),) if",
+                             "whole = (0,) if")], FWD),
+    # ... a barrier per input frame (the count of K4 plain's body at a
+    # temporal stride of 2), the second after the step's second frame
+    "fwd_frame_barriers": ([(
+        "    wait(2 * s + 2);\n    if (live && f0 + 2 * s + 2 < Tn)",
+        "    wait(2 * s + 2);\n    __syncthreads();\n"
+        "    if (live && f0 + 2 * s + 2 < Tn)")], [], FWD),
+    # ... a ring two steps deep
+    "fwd_ahead_2": ([("constexpr int T2F_AHEAD = 1;",
+                      "constexpr int T2F_AHEAD = 2;")],
+                    [("T2F_AHEAD = 1", "T2F_AHEAD = 2")], FWD),
+    # the dx: each thread's pairs straight to dx, 4 (bf16) or 8 (f32) bytes
+    # a store (the write path of K8's body at ST = 2)
+    "dx_direct": ([], [("p.tt,\n                int(t2_whole(p, dx)))",
+                        "p.tt,\n                0)")], DX),
 }
 
 
@@ -115,9 +156,28 @@ def _ptxas(source: Path) -> dict:
     return rows
 
 
-def time_tree(root: str, label: str, crop: bool, dtypes) -> None:
+# the stride-(2, 2, 2) kernels: name -> (the wrapper's call, its plain
+# version), each of (dw_conv, x, k, g, thw)
+T2_CALLS = {
+    "dw_conv_t2": (lambda m, x, k, g, thw: m.dw_conv3d(x, k, m.T2),
+                   lambda m, x, k, g, thw: m.dw_conv3d_plain(x, k, m.T2)),
+    "dw_conv_dx_t2": (lambda m, x, k, g, thw: m.dw_conv_dx_t2(g, k, thw),
+                      lambda m, x, k, g, thw: m.dw_conv_dx_t2_plain(g, k,
+                                                                    thw)),
+    "dw_conv_wgrad_t2": (lambda m, x, k, g, thw: m.dw_conv_wgrad(x, g, m.T2),
+                         lambda m, x, k, g, thw: m.dw_conv_wgrad_plain(
+                             x, g, m.T2)),
+}
+
+
+def time_tree(root: str, label: str, kernels, crop: bool, dtypes) -> None:
     """One tree's times (a process of its own, the tree first on
-    sys.path): one JSON line."""
+    sys.path): one JSON line.  Each t2 kernel of ``kernels`` at each entry
+    and dtype: its call back to back (``ms``) and its device time
+    (``device_ms``), after its output is held against the plain version
+    within chip_smoke.py's tolerance (the script fails otherwise; the
+    variants in ``INEXACT`` leave out work by design and only record their
+    error)."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -136,24 +196,31 @@ def time_tree(root: str, label: str, crop: bool, dtypes) -> None:
         for b, t, h, w, c in T2_ENTRIES:
             x = torch.randn((b, t, h, w, c), generator=gen,
                             device="cuda").relu().to(dtype)
+            k = (torch.randn((3, 3, 3, c), generator=gen, device="cuda")
+                 / 27 ** 0.5).to(dtype)
             g = torch.randn((b, (t - 1) // 2 + 1, (h - 1) // 2 + 1,
                              (w - 1) // 2 + 1, c), generator=gen,
                             device="cuda").to(dtype)
+            for name in kernels:
+                kern, plain = T2_CALLS[name]
 
-            def call():
-                return dw_conv.dw_conv_wgrad(x, g, dw_conv.T2)
+                def call():
+                    return kern(dw_conv, x, k, g, (t, h, w))
 
-            got, ref = call(), dw_conv.dw_conv_wgrad_plain(x, g, dw_conv.T2)
-            p = dw_conv.plan_t2(b, t, h, w, c)
-            out["t2"].append({
-                "x": [b, t, h, w, c], "dtype": str(dtype)[6:],
-                "plan": {"r": p.r, "wb": p.wb, "pg": p.pg, "ipb": p.ipb,
-                         "rows": p.rows},
-                "rel_err": float((got - ref).abs().max())
-                / max(1.0, float(ref.abs().max())),
-                "ms": cs.cuda_ms(call, 20),
-                "device_ms": cs.queued_ms(call, 20)["ms"]})
-            del x, g, got, ref
+                got = call()
+                ref = plain(dw_conv, x, k, g, (t, h, w))
+                err, scale = cs._rel_err(got, ref)
+                tol = cs.TOL[dtype] * max(scale, 1.0)
+                if not err <= tol and label not in INEXACT:
+                    raise SystemExit(f"{label} {name} {(b, t, h, w, c)} "
+                                     f"{dtype}: max abs err {err} > {tol}")
+                out["t2"].append({
+                    "kernel": name, "x": [b, t, h, w, c],
+                    "dtype": str(dtype)[6:], "max_abs_err": err,
+                    "ref_absmax": scale, "ms": cs.cuda_ms(call, 20),
+                    "device_ms": cs.queued_ms(call, 20)["ms"]})
+                del got, ref
+            del x, k, g
     if crop:
         fd.LIBRARY.build()
         n, hh, ww = 64, 480, 640
@@ -187,6 +254,12 @@ def time_tree(root: str, label: str, crop: bool, dtypes) -> None:
                 "device_ms": cs.queued_ms(call, 50)["ms"],
                 "library_ms": cs.cuda_ms(library, 20),
                 "library_device_ms": cs.queued_ms(library, 20)["ms"]}
+    # each kernel's bf16 sums over the four entries
+    out["sums"] = {
+        f"{name}.{dt}": {key: sum(r[key] for r in out["t2"]
+                                  if r["kernel"] == name and r["dtype"] == dt)
+                         for key in ("ms", "device_ms")}
+        for name in kernels for dt in {r["dtype"] for r in out["t2"]}}
     print(json.dumps(out), flush=True)
 
 
@@ -197,7 +270,7 @@ def _variant(name: str) -> Path:
     shutil.copytree(HERE / PKG, root / PKG,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     for rel, edits in zip(("csrc/dw_plain_s2.cu", "ops/dw_conv.py"),
-                          VARIANTS[name]):
+                          VARIANTS[name][:2]):
         path = root / PKG / rel
         text = path.read_text()
         for old, new in edits:
@@ -216,10 +289,11 @@ def _build(root: Path, crop: bool) -> None:
     subprocess.run([sys.executable, "-c", code], check=True)
 
 
-def _run(root: Path, label: str, crop: bool, dtypes: str) -> dict:
+def _run(root: Path, label: str, kernels, crop: bool, dtypes: str) -> dict:
     proc = subprocess.run(
         [sys.executable, __file__, "--time", str(root), label,
-         "crop" if crop else "-", dtypes], capture_output=True, text=True)
+         ",".join(kernels), "crop" if crop else "-", dtypes],
+        capture_output=True, text=True)
     lines = [x for x in proc.stdout.splitlines() if x.startswith("{")]
     if proc.returncode or not lines:
         raise SystemExit(f"{label}: rc {proc.returncode}\n"
@@ -251,31 +325,35 @@ def main() -> int:
         for f in builds:
             f.result()
         rows = {k: f.result() for k, f in rows.items()}
-    others = [n for n in rows["change"] if "plain_t2_wgrad_kernel" not in n]
+    # the rows of every kernel but the three t2 kernels must be the parent's
+    others = [n for n in rows["change"] if "plain_t2_" not in n]
     differ = {n: (rows["parent"].get(n), rows["change"][n]) for n in others
               if rows["parent"].get(n) != rows["change"][n]}
+    gone = [n for n in rows["parent"]
+            if "plain_t2_" not in n and n not in rows["change"]]
     print(json.dumps({"ptxas": "dw_plain_s2.cu", "rows_compared":
-                      len(others), "differ": differ,
-                      "t2_wgrad_change": {n: v for n, v in
-                                          rows["change"].items()
-                                          if "plain_t2_wgrad_kernel" in n}}),
-          flush=True)
+                      len(others), "differ": differ, "gone": gone,
+                      "t2_change": {n: v for n, v in rows["change"].items()
+                                    if "plain_t2_" in n},
+                      "t2_parent": {n: v for n, v in rows["parent"].items()
+                                    if "plain_t2_" in n}}), flush=True)
     for label in ("parent", "change", "change", "parent"):
-        _run(roots[label], label, True, "bfloat16,float32")
-    for name in VARIANTS:
-        _run(roots[name], name, False, "bfloat16")
+        _run(roots[label], label, list(T2_CALLS), True, "bfloat16,float32")
+    for name, (_, _, kernels) in VARIANTS.items():
+        _run(roots[name], name, kernels, False, "bfloat16")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    return 1 if differ else 0
+    return 1 if differ or gone else 0
 
 
 if __name__ == "__main__":
     if len(sys.argv) > 1 and sys.argv[1] == "--time":
         import torch
 
-        time_tree(sys.argv[2], sys.argv[3], sys.argv[4] == "crop",
-                  [getattr(torch, d) for d in sys.argv[5].split(",")])
+        time_tree(sys.argv[2], sys.argv[3], sys.argv[4].split(","),
+                  sys.argv[5] == "crop",
+                  [getattr(torch, d) for d in sys.argv[6].split(",")])
     else:
         sys.exit(main())

@@ -176,17 +176,21 @@ Phases, each printing JSON lines:
    grouped conv;
 18b. t2_kernels: the three stride-(2, 2, 2) kernels of ``FineNet``'s
    ``t_downsample`` (``dw_conv_t2``, ``dw_conv_dx_t2``,
-   ``dw_conv_wgrad_t2``: K4 plain's, K8's and K10 plain's bodies with a
-   temporal stride of 2) against their plain versions at the four
+   ``dw_conv_wgrad_t2``, each a body of its own on K4 plain's, K8's and
+   K10 plain's threads) against their plain versions at the four
    ``t_downsample`` entries at B32 T16 224² and at B64 T16 112² and at
    ragged sizes, f32 (TF32 off) and bf16, timed beside the plain version
    and ``F.conv3d(groups=C, stride=2)`` or its
-   ``aten.convolution_backward``, each row with its work split
-   (``plan_t2_fwd``, ``plan_t2_dx``, ``plan_t2``), blocks per SM, waves,
-   registers and spills; each also equal with a difference of 0 to its
-   stride-(1, 2, 2) kernel (K4 plain's frames 0, 2, ...; K8 and K10 plain on
-   g at the even frames of a zero tensor of T frames) and the weight
-   gradient to itself run again;
+   ``aten.convolution_backward``, with each kernel's device time
+   (``queued_ms``) a line of its own, each row with its work split
+   (``plan_t2_fwd``, ``plan_t2_dx``, ``plan_t2``), staging mode, blocks per
+   SM, waves, registers and spills; each also equal with a difference of 0
+   to its stride-(1, 2, 2) kernel (K4 plain's frames 0, 2, ...; K8 and K10
+   plain on g at the even frames of a zero tensor of T frames) and the
+   weight gradient to itself run again; then the forward and the dx with a
+   NaN of x or g planted on the first and last frame, a ragged strip's last
+   row, column 0, the last column and inside a neighbouring tile's 16-byte
+   span, f32 and bf16, NaN exactly where the plain versions put it;
 18c. variants: each ``CoarseNet`` option (``t_pool`` avg, max, stride and
    None; ``learned_mixing=False``; ``is_mixing=False``; ``task='class'``) at
    the train step's shapes (X3D-M, 157 classes, bf16, B8 T64 224², banks
@@ -707,8 +711,10 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
          "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel"),
          "crop_resize_kernel": ("crop_resize_kernel",)}
-# instantiations of each function of a ptxas row
-PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1}
+# instantiations of each function of a ptxas row (by row, or by function:
+# the t2 forward and dx have a whole-pixel and a pairs mode each)
+PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1,
+              "plain_t2_fwd_kernel": 12, "plain_t2_dx_kernel": 12}
 # the act and mm modes of the row-strip bodies, K11 and its taps' gradient,
 # the crop kernel and the stride-(2, 2, 2) weight gradient: no instantiation
 # may spill
@@ -716,6 +722,7 @@ NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
             "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
             "stencil_dk_kernel", "crop_resize_kernel",
+            "plain_t2_fwd_kernel", "plain_t2_dx_kernel",
             "plain_t2_wgrad_kernel")
 # each ptxas row's kernels by mangled name (phase_device), for the rows of
 # the phases that print a kernel's registers and spills beside its times
@@ -751,7 +758,8 @@ def phase_device() -> str:
                 if any(f in n for f in funcs)}  # mangled names
         emit({"phase": "ptxas", "source": SOURCES[key], "kernels": rows})
         PTXAS_ROWS[key] = rows
-        check(len(rows) == PTXAS_EACH.get(key, 6) * len(funcs)
+        check(len(rows) == sum(PTXAS_EACH.get(f, PTXAS_EACH.get(key, 6))
+                               for f in funcs)
               and all("registers" in v for v in rows.values()),
               f"ptxas report of {SOURCES[key]}: {ptxas[key]}")
         spilled = {n: v for n, v in rows.items()
@@ -4323,13 +4331,16 @@ def phase_card_vs_cpu() -> None:
 T2_KERNELS = ("dw_conv_t2", "dw_conv_dx_t2", "dw_conv_wgrad_t2")
 # x at conv2 of each stage's block 0 under t_downsample (C_mid wide): FineNet
 # at B32 T16 224² (the Kinetics class step's shape; counted) and B64 T16
-# 112² (long-cycle phase A's), and ragged sizes (odd T, H, W and C)
+# 112² (long-cycle phase A's), and ragged sizes (odd T, H, W and C; the
+# last two in the forward's whole-pixel and the dx's tile mode, with ragged
+# strips and columns and runs that start off a 16-byte boundary)
 T2_SHAPES = {
     "B32.224": [(32, 16, 112, 112, 54), (32, 8, 56, 56, 108),
                 (32, 4, 28, 28, 216), (32, 2, 14, 14, 432)],
     "B64.112": [(64, 16, 56, 56, 54), (64, 8, 28, 28, 108),
                 (64, 4, 14, 14, 216), (64, 2, 7, 7, 432)],
-    "ragged": [(3, 9, 13, 11, 30), (2, 5, 9, 7, 7), (4, 7, 15, 9, 54)],
+    "ragged": [(3, 9, 13, 11, 30), (2, 5, 9, 7, 7), (4, 7, 15, 9, 54),
+               (3, 9, 30, 28, 54), (2, 7, 27, 23, 56)],
 }
 # the t_downsample step's launches: the four strided blocks take the t2
 # kernels (the eval step too), the rest their route's
@@ -4341,26 +4352,37 @@ T2_SPLIT_STEP = {"dw_conv_s1": 44, "dw_conv_wgrad_s1": 22, **T2_STEP}
 T2_EVAL_CALL = {"dw_mm_act_s1": 22, "dw_conv_t2": 4, "dw_stencil_s1": 1}
 
 
-def _ptxas_of(func: str, dtype, r: int) -> dict:
-    """Registers and spills of ``func``'s instantiation for ``dtype`` and
-    ``r`` rows, from the ptxas rows (mangled ``<float, R>`` as ``IfLiRE``,
-    ``<__nv_bfloat16, R>`` as ``I13__nv_bfloat16LiRE``)."""
+def _ptxas_of(func: str, dtype, r: int, mode=None) -> dict:
+    """Registers and spills of ``func``'s instantiation for ``dtype``, ``r``
+    rows and, for the t2 forward and dx, ``mode`` (whole pixels, tile), from
+    the ptxas rows (mangled ``<float, R>`` as ``IfLiRE``, ``<__nv_bfloat16,
+    R>`` as ``I13__nv_bfloat16LiRE``, a bool as ``Lb0E`` or ``Lb1E``)."""
     t = "If" if dtype == torch.float32 else "I13__nv_bfloat16"
+    b = "" if mode is None else f"Lb{int(mode)}E"
     rows = [v for n, v in PTXAS_ROWS.get("dw_conv_s2", {}).items()
-            if func in n and f"{t}Li{r}E" in n]
+            if func in n and f"{t}Li{r}E{b}" in n]
     check(len(rows) == 1, f"ptxas row of {func} {dtype} R={r}: {len(rows)}")
     return {k: rows[0].get(k) for k in ("registers", "spill_stores",
                                         "spill_loads")}
 
 
-def _plan_row_t2(dw_conv, name, shape, dtype) -> dict:
+# how each t2 kernel stages x or writes dx in its whole-pixel mode and
+# else, by the mode its wrapper launches it in (dw_conv.t2_whole)
+T2_STAGING = {"dw_conv_t2": ("whole_bulk", "pairs"),
+              "dw_conv_dx_t2": ("tile_bulk", "direct"),
+              "dw_conv_wgrad_t2": ("whole_cp16", "pairs")}
+
+
+def _plan_row_t2(dw_conv, name, shape, dtype, rows_of) -> dict:
     """The work split of t2 kernel ``name`` at x ``shape`` (dx: dx's shape)
     over the output's (g's) frames, rows and columns: its blocks (one per
     tile; the weight gradient's persistent grid and its g frames a block),
-    shared memory, blocks per SM, waves, and the instantiation's ptxas
-    row."""
+    shared memory, blocks per SM, waves, how it stages x or writes dx
+    (``staging``, :data:`T2_STAGING`: the mode its wrapper chooses for
+    ``rows_of``, the x it reads or a dx it wrote) and the instantiation's
+    ptxas row."""
     kind, plan, smem, func = {
-        "dw_conv_t2": (6, dw_conv.plan_t2_fwd, dw_conv.smem_s2_fwd,
+        "dw_conv_t2": (6, dw_conv.plan_t2_fwd, dw_conv.smem_t2_fwd,
                        "plain_t2_fwd_kernel"),
         "dw_conv_dx_t2": (7, dw_conv.plan_t2_dx, dw_conv.smem_t2_dx,
                           "plain_t2_dx_kernel"),
@@ -4374,12 +4396,15 @@ def _plan_row_t2(dw_conv, name, shape, dtype) -> dict:
     check(occ > 0, f"{name} plan {shape} {dtype}: does not fit ({occ})")
     wgrad = kind == 8
     blocks = (p.rows if wgrad else p.items) * p.n_pg
+    whole = dw_conv.t2_whole(p, rows_of)
+    staging = T2_STAGING[name][0 if whole else 1]
     return {"r": p.r, "wb": p.wb, "pg": p.pg, "tt": p.tt,
             **({"ipb": p.ipb, "rows": p.rows,
                 "steps_per_block": p.ipb * p.tt} if wgrad else {}),
             "threads": p.threads, "blocks": blocks, "smem": smem(p, esz),
             "blocks_per_sm": occ, "waves": _waves(blocks, occ),
-            "ptxas": _ptxas_of(func, dtype, p.r)}
+            "staging": staging, "ptxas": _ptxas_of(
+                func, dtype, p.r, None if wgrad else whole)}
 
 
 def _k10_on_t2_plan(dw_conv, x, up):
@@ -4409,14 +4434,14 @@ def phase_t2_kernels(dw_conv) -> dict:
     0, 2, 4, ..., ``dw_conv_dx_t2`` K8 on g at the even frames of a zero
     tensor of T frames, ``dw_conv_wgrad_t2`` K10 plain on that g launched
     with ``plan_t2``'s items (``_k10_on_t2_plan``) and itself run again.
-    The weight gradient's device time a call (``queued_ms``: no host time
-    in it) is a line of its own beside each row.  The B32 rows, one launch
-    each a step, make each kernel's line entry."""
+    Each kernel's device time a call (``queued_ms``: no host time in it) is
+    a line of its own beside each row.  The B32 rows, one launch each a
+    step, make each kernel's line entry (its bf16 device sum beside the
+    call sum).  Then NaN and the edges (:func:`_t2_nan_edges`)."""
     from coarse_fine_networks_torch.ops.dw_conv import T2
 
     gen = torch.Generator(device="cuda").manual_seed(23)
-    per_kernel = {k: _agg() for k in T2_KERNELS}
-    per_kernel["dw_conv_wgrad_t2"]["device_ms"] = 0.0
+    per_kernel = {k: {**_agg(), "device_ms": 0.0} for k in T2_KERNELS}
     ncdhw = (0, 4, 1, 2, 3)
     for dtype in (torch.float32, torch.bfloat16):
         for group, shapes in T2_SHAPES.items():
@@ -4476,24 +4501,105 @@ def phase_t2_kernels(dw_conv) -> dict:
                 meta = {"entry": f"t2.{group}", "x": [b, t, h, w, c],
                         "stride": [2, 2, 2]}
                 counted = group == "B32.224"
+                # the tensor whose rows each wrapper's mode reads: x, or
+                # the dx the dx's wrapper writes
+                dx_made = dw_conv.dw_conv_dx_t2(g, k, (t, h, w))
+                plans = {name: _plan_row_t2(
+                    dw_conv, name, (b, t, h, w, c), dtype,
+                    dx_made if name == "dw_conv_dx_t2" else x)
+                    for name in cases}
+                del dx_made
                 for name, case in cases.items():
-                    shape = (b, t, h, w, c)
                     _hold_time_library(
-                        "t2_kernels", name,
-                        {**meta, "plan": _plan_row_t2(dw_conv, name, shape,
-                                                      dtype)},
+                        "t2_kernels", name, {**meta, "plan": plans[name]},
                         dtype, *case, counted, per_kernel[name],
                         also[name], also_exact=True)
-                q = queued_ms(cases["dw_conv_wgrad_t2"][0], 20)
-                emit({"phase": "t2_kernels", "kernel": "dw_conv_wgrad_t2",
-                      **meta, "dtype": str(dtype)[6:],
-                      "device_ms": q["ms"], "host_ms": q["host_ms"],
-                      "slept_ms": q["slept_ms"]})
-                if counted and dtype == torch.bfloat16:
-                    per_kernel["dw_conv_wgrad_t2"]["device_ms"] += q["ms"]
+                for name in T2_KERNELS:
+                    q = queued_ms(cases[name][0], 20)
+                    emit({"phase": "t2_kernels", "kernel": name, **meta,
+                          "dtype": str(dtype)[6:], "device_ms": q["ms"],
+                          "host_ms": q["host_ms"], "slept_ms": q["slept_ms"]})
+                    if counted and dtype == torch.bfloat16:
+                        per_kernel[name]["device_ms"] += q["ms"]
                 del x, g, up, xc, gc
             torch.cuda.empty_cache()
+    _t2_nan_edges(dw_conv, gen)
     return per_kernel
+
+
+# NaN and the edges of the t2 forward and dx: a ragged shape in the whole-
+# pixel and tile modes (x (2, 9, 30, 28, 54): y and g 5 x 15 x 14, strips
+# of 4, 4, 4 and 3 rows, two column tiles of 7, which _t2_nan_edges checks;
+# tile 1 stages input pixels 13 .. 27 from the 16-byte boundary in pixel
+# 12, which tile 0 reads), and
+# the planted position of each case as (frame, row, column, channel) of x
+# (the forward) or of g (the dx), from the shape (T, H, W)
+T2_NAN_SHAPE = (2, 9, 30, 28, 54)
+T2_NANS = {
+    "first_frame": lambda t, h, w: (0, h // 2, w // 2, 5),
+    "last_frame": lambda t, h, w: (t - 1, h // 2, w // 2, 5),
+    "ragged_strip_last_row": lambda t, h, w: (t // 2, h - 1, w // 2, 7),
+    "column_0": lambda t, h, w: (t // 2, h // 2, 0, 9),
+    "last_column": lambda t, h, w: (t // 2, h // 2, w - 1, 11),
+    # x: the last channels of pixel 12, inside tile 1's aligned span (bf16
+    # and f32), and pixel 14's first, inside tile 0's; g: columns 6 and 7,
+    # the two tiles' last and first (each the other's halo)
+    "span_left": lambda t, h, w: (t // 2, h // 2, 3 * w // 7, 53),
+    "span_right": lambda t, h, w: (t // 2, h // 2, w // 2, 0),
+}
+
+
+def _t2_nan_edges(dw_conv, gen) -> None:
+    """``dw_conv_t2`` with a NaN of x, and ``dw_conv_dx_t2`` with a NaN of
+    g, at each of ``T2_NANS``' positions (g's scaled to g's frames, rows
+    and columns), f32 and bf16: NaN exactly where the plain versions put it
+    and every other element within the tolerance."""
+    from coarse_fine_networks_torch.ops.dw_conv import T2
+
+    b, t, h, w, c = T2_NAN_SHAPE
+    to, ho, wo = (t - 1) // 2 + 1, (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    # the span cases sit at the two column tiles' border
+    plans = (dw_conv.plan_t2_fwd(*T2_NAN_SHAPE),
+             dw_conv.plan_t2_dx(*T2_NAN_SHAPE))
+    check(all(q.wb == 7 and q.n_wt == 2 for q in plans),
+          f"t2 NaN shape {T2_NAN_SHAPE}: column tiles "
+          f"{[(q.wb, q.n_wt) for q in plans]}, not two of 7")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        k = (torch.randn((3, 3, 3, c), generator=gen, device="cuda")
+             / 27 ** 0.5).to(dtype)
+        for case, at in T2_NANS.items():
+            x = torch.randn((b, t, h, w, c), generator=gen,
+                            device="cuda").to(dtype)
+            g = torch.randn((b, to, ho, wo, c), generator=gen,
+                            device="cuda").to(dtype)
+            x[(1,) + at(t, h, w)] = float("nan")
+            g[(1,) + at(to, ho, wo)] = float("nan")
+            dx = dw_conv.dw_conv_dx_t2(g, k, (t, h, w))
+            check(dw_conv.t2_whole(plans[0], x)
+                  and dw_conv.t2_whole(plans[1], dx),
+                  f"t2 NaN shape {T2_NAN_SHAPE}: not in the whole-pixel "
+                  f"modes")
+            for name, got, ref in (
+                    ("dw_conv_t2", dw_conv.dw_conv3d(x, k, T2),
+                     dw_conv.dw_conv3d_plain(x, k, T2)),
+                    ("dw_conv_dx_t2", dx,
+                     dw_conv.dw_conv_dx_t2_plain(g, k, (t, h, w)))):
+                nan = torch.isnan(ref)
+                same = bool(torch.equal(torch.isnan(got), nan))
+                err, scale = _rel_err(got[~nan], ref[~nan])
+                rows.append({"kernel": name, "case": case,
+                             "dtype": str(dtype)[6:], "nans": int(nan.sum()),
+                             "nan_positions_equal": same,
+                             "max_abs_err": err})
+                check(nan.any() and same,
+                      f"t2 NaN {name} {case} {dtype}: NaN positions differ "
+                      f"({int(torch.isnan(got).sum())} against "
+                      f"{int(nan.sum())})")
+                check(err <= TOL[dtype] * max(scale, 1.0),
+                      f"t2 NaN {name} {case} {dtype}: max abs err {err}")
+    emit({"phase": "t2_kernels", "what": "NaN and edges", "x": list(
+        T2_NAN_SHAPE), "cases": rows})
 
 
 # the coarse stream's other options at the train step's shapes (TRAIN: B8
@@ -6278,7 +6384,7 @@ def main() -> int:
               "shapes at B32 T16 224² (conv2's x: T16 112² C54, T8 56² "
               "C108, T4 28² C216, T2 14² C432), one launch each a step, "
               "summed (ms: the wrapper called back to back; device_ms: "
-              "the weight gradient's device time, queued_ms); launches: "
+              "the kernel's device time, queued_ms); launches: "
               "the variants phase's two counted t_downsample train steps "
               "and two eval steps",
         "decode": "uint8: one clip's 64 frames of 640×480 decoded by "

@@ -71,11 +71,13 @@
 // kernels (dw_conv_t2, dw_conv_dx_t2, dw_conv_wgrad_t2: FineNet's
 // t_downsample) replace no TPU kernel: the JAX package runs that conv in
 // XLA (_lax_conv, coarse_fine_networks_tpu/ops/pallas/dw_conv.py:287, on
-// its plain layout). The forward and the dx are K4 plain's and K8's bodies
-// with the temporal stride a template argument (ST = 2; the stride-(1,2,2)
-// instantiations are unchanged); the weight gradient has a body of its own
-// on K10 plain's threads and rows (below). Bound by bytes alike, they read
-// their input once and write their output once, with the same row strips.
+// its plain layout). Each has a body of its own (below): the forward on K4
+// plain's threads and taps, whole pixels staged as they lie in x and one
+// barrier per output frame; the dx on K8's threads, g ring and order, its
+// dx frames written out of a tile in shared memory as contiguous runs; the
+// weight gradient on K10 plain's threads and rows. Bound by bytes alike,
+// they read their input once and write their output once, with the same
+// row strips.
 //
 // What bounds them on this card: bytes. The forward reads x once and
 // writes y (a quarter of x) once; the dx reads g and writes dx (4x the
@@ -227,7 +229,6 @@ namespace {
 using namespace cfn;
 
 constexpr int GSTAGE = 5;  // g frames in the dx kernels' ring
-constexpr int GSTAGE_T2 = 4;  // ... in the stride-(2,2,2) dx's ring
 constexpr int XSTAGE = 3;  // x frames in the act dx kernel's ring
 
 // One thread's share of staging a tile of output columns [w0, w0+WB): its
@@ -487,17 +488,7 @@ __device__ __forceinline__ void load_taps(float (&k0)[27], float (&k1)[27],
 // columns' pairs, as K10 act); rows and columns outside the frame are never
 // copied and stay the zero padding of a. The stencil and its order are K4
 // plain's, so y is K4 plain's on the activated x bit for bit.
-//
-// ST = 2 (dw_conv_t2, stride (2,2,2); plain only): the tile's frames are
-// output frames of To = (Tn-1)/2 + 1, and output frame to reads input
-// frames 2to-1 .. 2to+1. Slot i of the ring holds input frame 2t0 - 1 + i;
-// the register ring is two output frames deep: an even step i (an odd input
-// frame, 2(t0 + i/2) - 1) adds tap dt = 2 to acc[0] (output t0 + i/2 - 1)
-// and dt = 0 to acc[1] (output t0 + i/2), then acc[0] is complete; an odd
-// step (an even input frame) adds dt = 1 to acc[0]. Each output's taps are
-// added in K4 plain's order, so y equals K4 plain's output frames 0, 2, 4, ..
-// bit for bit.
-template <typename T, int R, bool ACT, int ST = 1>
+template <typename T, int R, bool ACT>
 __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
                                             const T* __restrict__ k,
                                             const float* __restrict__ sc,
@@ -505,18 +496,16 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
                                             T* __restrict__ y, int Tn, int H,
                                             int W, int Ho, int Wo, int C,
                                             const Plan& pl) {
-  static_assert(ST == 1 || (ST == 2 && !ACT), "stride (2,2,2): plain only");
   constexpr int NS = ACT ? NSTAGE_ACT : NSTAGE;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
   const int PG2 = 2 * PG, rowlen = 2 * (WB + 1) * PG2;
   const int stage = xstage_elems<T>(R, WB, PG);
-  const int To = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // output frames
 
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
-  const Tile tl = pl.tile(blk / pl.n_pg, pg, To);
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tn);
   const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int w = tl.w0 + wl;
@@ -536,9 +525,7 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
   const size_t frame = (size_t)H * W * C;
   const T* xb = x + (size_t)tl.b * Tn * frame;
   const S2Stager sg(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs);
-  // input frames (ST = 2: 2t0 - 1 .. 2t1 - 1)
-  const int f0 = ST == 1 ? tl.t0 - 1 : 2 * tl.t0 - 1,
-            nf = ST == 1 ? tl.t1 - tl.t0 + 2 : 2 * (tl.t1 - tl.t0) + 1;
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // input frames
   auto load = [&](int i) {
     const int ti = f0 + i;
     if (i < nf && ti >= 0 && ti < Tn)  // uniform across the block
@@ -554,10 +541,9 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
           ring + (i % NS) * stage, 2 * tl.h0 - 1, H, rowlen, scp, bip);
   };
 
-  constexpr int NA = ST == 1 ? 3 : 2;  // output frames in the register ring
-  float acc[NA][R][2];
+  float acc[3][R][2];
 #pragma unroll
-  for (int j = 0; j < NA; ++j)
+  for (int j = 0; j < 3; ++j)
 #pragma unroll
     for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
 
@@ -573,75 +559,31 @@ __device__ __forceinline__ void s2_fwd_body(const T* __restrict__ x,
     load(i + NS - 1);  // into frame i-1's slot
     if constexpr (ACT) act_own(own, i + 1);
     const int ti = f0 + i;
-    if constexpr (ST == 1) {
-      if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
-        s2_frame<T, R>(ring + (i % NS) * stage, rowlen, atE, atO, PG2,
-                       [&](int j, int r, int dy, int dx, float2 v) {
-                         const int tap = ((2 - j) * 3 + dy) * 3 + dx;
-                         acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
-                         acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
-                       });
-      const int to = ti - 1;  // complete now
-      if (to >= tl.t0 && live) {
-        T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
-                (size_t)w * C + c;
-        const bool pair = second && !(C & 1);
+    if (ti >= 0 && ti < Tn && in)  // frames outside the clip add nothing
+      s2_frame<T, R>(ring + (i % NS) * stage, rowlen, atE, atO, PG2,
+                     [&](int j, int r, int dy, int dx, float2 v) {
+                       const int tap = ((2 - j) * 3 + dy) * 3 + dx;
+                       acc[j][r][0] = fmaf(k0[tap], v.x, acc[j][r][0]);
+                       acc[j][r][1] = fmaf(k1[tap], v.y, acc[j][r][1]);
+                     });
+    const int to = ti - 1;  // complete now
+    if (to >= tl.t0 && live) {
+      T* yo = y + (((size_t)tl.b * Tn + to) * Ho + tl.h0) * Wo * C +
+              (size_t)w * C + c;
+      const bool pair = second && !(C & 1);
 #pragma unroll
-        for (int r = 0; r < R; ++r)
-          if (tl.h0 + r < Ho)
-            store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
-                       pair, second);
-      }
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < Ho)
+          store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        acc[0][r][0] = acc[1][r][0];
-        acc[0][r][1] = acc[1][r][1];
-        acc[1][r][0] = acc[2][r][0];
-        acc[1][r][1] = acc[2][r][1];
-        acc[2][r][0] = acc[2][r][1] = 0.f;
-      }
-    } else {
-      const bool odd = i & 1;  // an even input frame: tap dt = 1 only
-      // tap dt = 2 - j: dt 2 and 1 go to acc[0], dt 0 to acc[1]
-      auto add = [&](int j, int r, int dy, int dx, float2 v) {
-        const int a = j >> 1, tap = ((2 - j) * 3 + dy) * 3 + dx;
-        acc[a][r][0] = fmaf(k0[tap], v.x, acc[a][r][0]);
-        acc[a][r][1] = fmaf(k1[tap], v.y, acc[a][r][1]);
-      };
-      const T* sl = ring + (i % NS) * stage;
-      // j is a constant once s2_frame is unrolled: each branch keeps only
-      // its taps
-      if (ti >= 0 && ti < Tn && in) {
-        if (odd)
-          s2_frame<T, R>(sl, rowlen, atE, atO, PG2,
-                         [&](int j, int r, int dy, int dx, float2 v) {
-                           if (j == 1) add(j, r, dy, dx, v);
-                         });
-        else
-          s2_frame<T, R>(sl, rowlen, atE, atO, PG2,
-                         [&](int j, int r, int dy, int dx, float2 v) {
-                           if (j != 1) add(j, r, dy, dx, v);
-                         });
-      }
-      if (!odd) {
-        const int to = tl.t0 + i / 2 - 1;  // complete now
-        if (to >= tl.t0 && live) {
-          T* yo = y + (((size_t)tl.b * To + to) * Ho + tl.h0) * Wo * C +
-                  (size_t)w * C + c;
-          const bool pair = second && !(C & 1);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-            if (tl.h0 + r < Ho)
-              store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
-                         pair, second);
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          acc[0][r][0] = acc[1][r][0];
-          acc[0][r][1] = acc[1][r][1];
-          acc[1][r][0] = acc[1][r][1] = 0.f;
-        }
-      }
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[2][r][0];
+      acc[1][r][1] = acc[2][r][1];
+      acc[2][r][0] = acc[2][r][1] = 0.f;
     }
   }
   cp_wait<0>();
@@ -663,17 +605,6 @@ act_s2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
                   T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
                   int C, Plan pl) {
   s2_fwd_body<T, R, true>(x, k, sc, bi, y, Tn, H, W, Ho, Wo, C, pl);
-}
-
-// dw_conv_t2: K4 plain's body at stride (2,2,2); the plan is over y's
-// frames, rows and columns
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_t2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
-                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
-                    int C, Plan pl) {
-  s2_fwd_body<T, R, false, 2>(x, k, nullptr, nullptr, y, Tn, H, W, Ho, Wo, C,
-                              pl);
 }
 
 // ---- the mm forward (K4 mm) ---------------------------------------------------
@@ -858,26 +789,13 @@ __host__ __device__ __forceinline__ MmMaskLayout mm_s2_dx_layout(
 // (QuadStager): it has landed when step i's wait returns, and no barrier
 // is needed for it. At the end the block sums its threads' columns in a
 // fixed order into row `item` of the (items, 2, C) partial buffer.
-//
-// ST = 2 (dw_conv_dx_t2, stride (2,2,2); plain only): the tile's frames are
-// g frames of Tg = (Tn-1)/2 + 1, and g frame j writes dx frames 2j and 2j+1
-// (those below Tn). Dx frame 2j takes only tap dt = 1 of g frame j; dx frame
-// 2j+1 takes tap dt = 2 of g frame j, then tap dt = 0 of g frame j+1. Slot
-// i % GSTAGE_T2 holds g frame t0 + i, and step i reads slots i and i+1, so
-// the ring is GSTAGE_T2 = 4 frames deep (two read, two in flight). Each dx
-// element's terms are added in K8's order (g frames ascending, then rows,
-// then columns), so dx equals K8's on g put at the even frames of a zero
-// tensor of Tn frames bit for bit.
-template <typename T, int R, bool ACT, bool MM = false, int ST = 1>
+template <typename T, int R, bool ACT, bool MM = false>
 __device__ __forceinline__ void dx_s2_body(
     const T* __restrict__ g, const T* __restrict__ k,
     const T* __restrict__ x, const float* __restrict__ sc,
     const float* __restrict__ bi, T* __restrict__ dx,
     float* __restrict__ part, int Tn, int H, int W, int Ho, int Wo, int C,
     const Plan& pl, const T* __restrict__ w1 = nullptr, int Cin = 0) {
-  static_assert(ST == 1 || (ST == 2 && !ACT && !MM),
-                "stride (2,2,2): plain only");
-  constexpr int GS = ST == 1 ? GSTAGE : GSTAGE_T2;  // the g ring's depth
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   const int WB = pl.WB, PG = pl.PG;
@@ -885,13 +803,12 @@ __device__ __forceinline__ void dx_s2_body(
   const int stage = dxstage_elems<T>(R, WB, PG);
   // ACT: the x ring after the g ring
   const int xstage = ACT ? quadstage_elems<T>(R, WB, PG) : 0;
-  T* xring = ring + GS * stage;
-  const int Tg = ST == 1 ? Tn : (Tn - 1) / 2 + 1;  // g frames
+  T* xring = ring + GSTAGE * stage;
 
   const int blk = blockIdx.x;
   const int pg = blk % pl.n_pg;
   const int item = blk / pl.n_pg;
-  const Tile tl = pl.tile(item, pg, Tg);
+  const Tile tl = pl.tile(item, pg, Tn);
   const int tid = threadIdx.x;
   const int wl = tid / PG, pi = tid % PG;
   const int j = tl.w0 + wl;
@@ -944,18 +861,17 @@ __device__ __forceinline__ void dx_s2_body(
   }
 
   const size_t gframe = (size_t)Ho * Wo * C;
-  const T* gb = g + (size_t)tl.b * Tg * gframe;
+  const T* gb = g + (size_t)tl.b * Tn * gframe;
   const GStager sg(tl, wl, pi, WB, PG2, Wo, C, pl.pairs);
   const size_t xframe = (size_t)H * W * C;
   const T* xb = ACT ? x + (size_t)tl.b * Tn * xframe : nullptr;
   const QuadStager sx(tl, wl, pi, PG2, W, C, pl.pairs);
   const int half = WB * PG2;  // an x slot's column-parity stride
-  // g frames: ST = 1 t0-1 .. t1, ST = 2 t0 .. t1
-  const int f0 = tl.t0 - (ST == 1), nf = tl.t1 - tl.t0 + (ST == 1 ? 2 : 1);
+  const int f0 = tl.t0 - 1, nf = tl.t1 - tl.t0 + 2;  // g frames
   auto load = [&](int i) {
     const int tg = f0 + i;
-    if (i < nf && tg >= 0 && tg < Tg)  // uniform across the block
-      sg.rows(ring + (i % GS) * stage, gb + (size_t)tg * gframe, tl.h0,
+    if (i < nf && tg >= 0 && tg < Tn)  // uniform across the block
+      sg.rows(ring + (i % GSTAGE) * stage, gb + (size_t)tg * gframe, tl.h0,
               R + 1, Ho, Wo, rowlen);
     if constexpr (ACT) {
       const int tx = tg - 1;  // the dx frame this group's step completes
@@ -978,68 +894,8 @@ __device__ __forceinline__ void dx_s2_body(
     q[1][1] = fmaf(k1[t0], b.y, q[1][1]);
   };
 
-  zero_ring(smem_raw, (GS * stage + XSTAGE * xstage) * (int)sizeof(T));
-  for (int i = 0; i < GS - 1; ++i) load(i);
-  if constexpr (ST == 2) {
-    for (int o = tl.t0; o < tl.t1; ++o) {  // g frame o
-      const int i = o - tl.t0;
-      cp_wait<GS - 3>();  // this thread's copies of frame i + 1 landed
-      __syncthreads();    // and everyone's; slot i-1 is read by no one
-      load(i + GS - 1);   // into slot i-1
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {  // dx frame 2o + e
-        const int ox = 2 * o + e;
-        if (ox >= Tn) break;  // uniform across the block
-        float acc[R][2][2][2];
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-#pragma unroll
-          for (int py = 0; py < 2; ++py)
-#pragma unroll
-            for (int px = 0; px < 2; ++px)
-              acc[r][py][px][0] = acc[r][py][px][1] = 0.f;
-        if (in) {
-#pragma unroll
-          for (int f = 0; f < 2; ++f) {  // g frames o, o + 1 ascending
-            // dx frame 2o: dt = 1 of g frame o; 2o+1: dt = 2 of g frame o,
-            // then dt = 0 of g frame o+1 (outside the clip: nothing)
-            if (e == 0 && f == 1) continue;
-            if (f == 1 && o + 1 >= Tg) continue;
-            const int dt = e == 0 ? 1 : 2 - 2 * f;
-            const T* sl = ring + ((i + f) % GS) * stage + at;
-#pragma unroll
-            for (int rr = 0; rr <= R; ++rr) {  // g row h0 + rr, as K8
-              const float2 a = load_pair(sl + rr * rowlen);
-              const float2 b = load_pair(sl + rr * rowlen + PG2);
-              if (rr > 0) add(acc[rr - 1][1], dt, 0, a, b);
-              if (rr < R) {
-                add(acc[rr][0], dt, 1, a, b);
-                add(acc[rr][1], dt, 2, a, b);
-              }
-            }
-          }
-        }
-        if (live) {
-          T* d = dx + ((size_t)tl.b * Tn + ox) * H * W * C + c;
-          const bool pair = second && !(C & 1);
-#pragma unroll
-          for (int r = 0; r < R; ++r)
-#pragma unroll
-            for (int py = 0; py < 2; ++py) {
-              const int row = 2 * (tl.h0 + r) + py;
-              if (row >= H) continue;
-#pragma unroll
-              for (int px = 0; px < 2; ++px) {
-                const int col = 2 * j + px;
-                if (col >= W) continue;
-                store_pair(d + ((size_t)row * W + col) * C, acc[r][py][px][0],
-                           acc[r][py][px][1], pair, second);
-              }
-            }
-        }
-      }
-    }
-  } else {  // ST == 1
+  zero_ring(smem_raw, (GSTAGE * stage + XSTAGE * xstage) * (int)sizeof(T));
+  for (int i = 0; i < GSTAGE - 1; ++i) load(i);
   for (int o = tl.t0; o < tl.t1; ++o) {
     const int i = o - tl.t0;
     cp_wait<GSTAGE - 4>();  // this thread's copies of frame i + 2 landed
@@ -1119,7 +975,6 @@ __device__ __forceinline__ void dx_s2_body(
         }
     }
   }
-  }  // ST == 1
   cp_wait<0>();
 
   if constexpr (ACT) {
@@ -1153,17 +1008,6 @@ plain_s2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
                    int C, Plan pl) {
   dx_s2_body<T, R, false>(g, k, nullptr, nullptr, nullptr, dx, nullptr, Tn,
                           H, W, Ho, Wo, C, pl);
-}
-
-// dw_conv_dx_t2: K8's body at stride (2,2,2); the plan is over g's frames,
-// rows and columns
-template <typename T, int R>
-__global__ void __launch_bounds__(NT_MAX, 2)
-plain_t2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
-                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
-                   int C, Plan pl) {
-  dx_s2_body<T, R, false, false, 2>(g, k, nullptr, nullptr, nullptr, dx,
-                                    nullptr, Tn, H, W, Ho, Wo, C, pl);
 }
 
 // At most NT_DX threads: the act epilogue's state (bn1's pair, the sums, x
@@ -1677,6 +1521,587 @@ plain_t2_wgrad_kernel(const T* __restrict__ x, const T* __restrict__ g,
   wgrad_partials(acc, part, smem_raw, WB, PG, C);
 }
 
+// ---- forward and dx at stride (2,2,2) (dw_conv_t2, dw_conv_dx_t2) ---------
+// Bodies of their own (running K4 plain's and K8's bodies with the temporal
+// stride a template argument cost the forward a barrier per input frame,
+// half of them for 9 of the 27 taps, a channel group of 8 of a pixel's 54
+// channels staged a pair per 4-byte copy, and the dx a 4-byte store per
+// channel pair straight to device memory; chip_rule2.py times both kernels
+// against those bodies). Both stay exact against what those bodies
+// computed.
+//
+// The forward, y[o] = sum_dt k[dt] * x[2o-1+dt] (dt, dy, dx as above):
+//   * The split (plan_t2_fwd) is over y's rows and columns with the channel
+//     pairs first: a pixel of at most T2_WHOLE_PG pairs in one group (C = 54
+//     and 108 on the path, 94 % of the bound's bytes), wider ones in groups
+//     of at most 32 pairs, then columns to fill the block.
+//   * One step per output frame: input frames 2o and 2o+1 arrive together
+//     (one cp.async commit group, or one mbarrier phase per frame, the
+//     second waited for while the first is summed), one barrier per step.
+//     A thread keeps two output frames in registers
+//     (acc[0]: o, acc[1]: o+1): frame 2o adds tap dt = 1 to o; frame 2o+1
+//     adds dt = 2 to o and dt = 0 to o+1, after which o is complete. Every
+//     step adds all 27 taps, and each staged frame is read once.
+//   * The ring holds 2(T2F_AHEAD + 1) x frames: the step's two and the next
+//     T2F_AHEAD steps' (T2F_AHEAD = 1: 68 KB a block at the first entry in
+//     bf16, so two blocks an SM keep about two steps in flight). A segment
+//     that starts past frame 0 first reads its frame 2t0-1 (slot 0) alone.
+//   * Where the group is the whole pixel and x's rows are 16-byte aligned
+//     (the whole-pixel mode), a staged row is the tile's 2WB+1 pixels as
+//     they lie in x from the 16-byte boundary at or below the first: one TMA
+//     bulk copy a row (cp.async.bulk, issued by warp 0, completing on the
+//     slot's mbarrier). The copies then leave the load/store pipe to the
+//     stencil's shared reads (16-byte cp.async copies by every thread, as
+//     the weight gradient's t2_stage_whole, took 37 % longer on an H100 at
+//     the path's entries; chip_rule2.py's fwd_cp16). Otherwise each thread copies its
+//     own pairs into K10 plain's de-interleaved layout (T2Stager) with the
+//     padding written as zeros.
+//   * A thread reads the pixels 2w-1+dx of each staged row at a stride of C
+//     elements (whole) or its de-interleaved places (pairs), with no mask:
+//     in the whole-pixel mode a row or a pixel outside the frame is never
+//     staged and keeps the zero the ring is cleared to once per block (the
+//     same places in every frame), and the pairs mode stages zeros there.
+//     Bytes of the span outside the tile are never summed.
+//     Each output's taps are added in K4 plain's order (dt, then dy, then
+//     dx, one fmaf each; frames outside the clip add nothing), so y equals
+//     dw_conv_s2's output frames 0, 2, 4, ... bit for bit.
+//
+// The dx, K8's gather on g with dx frame 2o taking tap dt = 1 of g frame o
+// and dx frame 2o+1 tap dt = 2 of g frame o, then dt = 0 of g frame o+1:
+//   * K8's threads, g ring (GSTAGE_T2 frames, a pair per copy: g is 1/9 of
+//     the bytes) and order (g frames ascending, then rows, then columns), so
+//     dx equals dw_conv_dx_s2 on g put at the even frames of a zero tensor
+//     bit for bit. The split (plan_t2_dx) is K8's with whole-pixel groups up
+//     to T2_WHOLE_PG pairs.
+//   * Its stores are 8/9 of its bytes. Where the group is the whole pixel
+//     and dx's rows are 16-byte aligned (the tile mode), each thread writes
+//     its sums of a dx frame into a tile in shared memory laid out as dx is
+//     (2R rows of the block's 2WB columns x C, each row from the byte that
+//     the run's address has mod 16), and after a barrier the tile goes out
+//     as runs: the 16-byte aligned middle of each row by one TMA bulk copy
+//     (thread 0), the bytes before and after it element by element (the
+//     rest of those chunks is a neighbour's). Two tiles: frame 2o's goes out
+//     while 2o+1 is summed. Otherwise (groups of a wider pixel) each thread
+//     stores its pairs straight to dx. (16-byte stores of the runs by the
+//     block's threads took 34 % longer on an H100 at the path's entries;
+//     PERF.md records them.)
+//   * A g step has two barriers: after dx frame 2o's tile (its copies of g
+//     frame o+1 waited first, so the barrier also shows everyone's and frees
+//     the slot the next copy takes) and after dx frame 2o+1's.
+constexpr int T2F_AHEAD = 1;  // steps of x frames in flight in dw_conv_t2
+constexpr int T2F_SLOTS = 2 * (T2F_AHEAD + 1);  // ... and its ring's frames
+constexpr int GSTAGE_T2 = 4;  // g frames in dw_conv_dx_t2's ring
+
+// The shared-memory address of p, and the mbarrier and bulk-copy operations
+// of the forward's bulk mode (one mbarrier a ring slot, one arrival a use)
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// the slot's one arrival, expecting `bytes` of bulk copies (none: complete)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, unsigned bytes) {
+  if (bytes)
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                     "r"(smem_u32(bar)),
+                 "r"(bytes)
+                 : "memory");
+  else
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                     smem_u32(bar))
+                 : "memory");
+}
+// waits until the phase of parity `parity` of bar has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, completing on bar
+__device__ __forceinline__ void bulk_g2s(void* dst, const void* src,
+                                         unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from shared src to global dst, both 16-byte
+// aligned, in the thread's current bulk group; its commit, and the waits
+// until the thread's groups have read their shared memory, or completed
+__device__ __forceinline__ void bulk_s2g(void* dst, const void* src,
+                                         unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(dst), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// The whole-pixel staging of one x frame f (H, W, C) by bulk copies, called
+// by warp 0: staged row rr (input row hs + rr) inside the frame is the span
+// of 16-byte chunks of x that holds the pixels [p0, p0 + np) inside [0, W),
+// one copy, placed as t2_stage_whole places its chunks (row rr at slot + rr
+// * rowb, pixel p0's first byte at d = its address mod 16); rows outside the
+// frame are not copied (their reads are masked). The span ends inside the
+// row (W * C * sizeof(T) is a multiple of 16), so nothing past x is read.
+// Lane 0 makes the slot's one arrival, expecting every row's bytes.
+template <typename T>
+__device__ __forceinline__ void t2_bulk_whole(unsigned char* slot, const T* f,
+                                              int hs, int nrows, int H, int W,
+                                              int C, int p0, int np, int rowb,
+                                              uint64_t* bar) {
+  const long long pb = C * (long long)sizeof(T);
+  const long long base = (p0 * pb) & ~15LL;             // pixel p0's chunk
+  const long long s = (max(p0, 0) * pb) & ~15LL;        // the span's first
+  const long long e = (min(p0 + np, W) * pb + 15) & ~15LL;  // ... and end
+  const unsigned bytes = (unsigned)(e - s);
+  const int lo = max(hs, 0) - hs, hi = min(hs + nrows, H) - hs;
+  if ((threadIdx.x & 31) == 0) mbar_arrive(bar, bytes * max(hi - lo, 0));
+  __syncwarp();
+  for (int rr = lo + (int)(threadIdx.x & 31); rr < hi; rr += 32)
+    bulk_g2s(slot + rr * rowb + (s - base),
+             reinterpret_cast<const char*>(f + (size_t)(hs + rr) * W * C) + s,
+             bytes, bar);
+}
+
+// One staged x frame's taps at the thread's column and pair: staged row rr
+// meets output row r through dy = rr - 2r; the pairs at a[dx] of each row
+// are the taps dx = 0, 1, 2 (zero outside the frame). Tap dt = DA goes to
+// acc[0] and, where DB >= 0, dt = DB to acc[1]; each output's products dy,
+// then dx ascending.
+template <typename T, int R, int DA, int DB>
+__device__ __forceinline__ void t2f_frame(float (&acc)[2][R][2],
+                                          const float (&k0)[27],
+                                          const float (&k1)[27], const T* sl,
+                                          int rl, const int (&a)[3]) {
+#pragma unroll
+  for (int rr = 0; rr < 2 * R + 1; ++rr) {
+    const T* sr = sl + rr * rl;
+    const float2 v[3] = {load_pair(sr + a[0]), load_pair(sr + a[1]),
+                         load_pair(sr + a[2])};
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int dy = rr - 2 * r;
+      if (dy < 0 || dy > 2) continue;
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const int ta = (DA * 3 + dy) * 3 + dx;
+        acc[0][r][0] = fmaf(k0[ta], v[dx].x, acc[0][r][0]);
+        acc[0][r][1] = fmaf(k1[ta], v[dx].y, acc[0][r][1]);
+        if constexpr (DB >= 0) {
+          const int tb = (DB * 3 + dy) * 3 + dx;
+          acc[1][r][0] = fmaf(k0[tb], v[dx].x, acc[1][r][0]);
+          acc[1][r][1] = fmaf(k1[tb], v[dx].y, acc[1][r][1]);
+        }
+      }
+    }
+  }
+}
+
+// Thread (wl, pi) = (tid / PG, tid % PG): output column w0 + wl, channels
+// c, c+1 with c = 2(p0 + pi). Frame index i of the block is x frame 2t0 - 1
+// + i, in ring slot i % T2F_SLOTS; step s (output frame t0 + s) reads i =
+// 2s + 1 and 2s + 2 and, after its barrier, stages step s + T2F_AHEAD's two
+// frames into the slots step s - 1 read. WHOLE (the wrapper's mode): whole
+// pixels by bulk copies on the slots' mbarriers; else each thread's pairs
+// by cp.async, a commit group a step.
+template <typename T, int R, bool WHOLE>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_fwd_kernel(const T* __restrict__ x, const T* __restrict__ k,
+                    T* __restrict__ y, int Tn, int H, int W, int Ho, int Wo,
+                    int C, Plan pl) {
+  constexpr bool BULK = WHOLE;  // mbarriers, not cp.async groups
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG;
+  const int rowb = t2_rowb<T>(WB, PG);
+  const int xslot = t2_xslot<T>(R, WB, PG);
+  const T* ring = reinterpret_cast<const T*>(smem_raw);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(
+      smem_raw + T2F_SLOTS * xslot * (int)sizeof(T));
+  const int To = (Tn - 1) / 2 + 1;
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, To);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int w = tl.w0 + wl;
+  const int c = 2 * (tl.p0 + pi);
+  const bool live = wl < WB && w < Wo && c < C;  // owns outputs
+  const bool second = c + 1 < C;
+
+  float k0[27], k1[27];
+  load_taps(k0, k1, k, c, C, live);
+
+  // staged row rr is input row hs + rr, staged pixel q input column p0 + q
+  const int hs = 2 * tl.h0 - 1, p0 = 2 * tl.w0 - 1;
+  // the thread's taps dx = 0, 1, 2 in a staged row (input columns 2w-1+dx)
+  int at[3], rl;
+  if constexpr (WHOLE) {
+    const int pb = C * (int)sizeof(T);
+    const int d = ((p0 * pb) % 16 + 16) % 16;
+    at[0] = (d + 2 * wl * pb) / (int)sizeof(T) + 2 * pi;
+    at[1] = at[0] + C;
+    at[2] = at[0] + 2 * C;
+    rl = rowb / (int)sizeof(T);
+  } else {
+    at[0] = wl * PG2 + 2 * pi;
+    at[1] = (WB + 1) * PG2 + at[0];
+    at[2] = at[0] + PG2;
+    rl = 2 * (WB + 1) * PG2;
+  }
+
+  const size_t frame = (size_t)H * W * C;
+  const T* xb = x + (size_t)tl.b * Tn * frame;
+  // the thread's outputs in the segment's first frame
+  T* yb = y + (((size_t)tl.b * To + tl.t0) * Ho + tl.h0) * Wo * C +
+          (size_t)w * C + c;
+  const int f0 = 2 * tl.t0 - 1, nf = 2 * (tl.t1 - tl.t0) + 1;  // x frames
+  // frame index i into its slot; in the bulk mode every i < nf makes its
+  // slot's one arrival (none past the clip's frames), so use u of a slot
+  // completes phase u
+  auto stage = [&](int i) {
+    if (i >= nf) return;  // uniform across the block
+    const int ti = f0 + i;
+    unsigned char* slot =
+        smem_raw + (i % T2F_SLOTS) * xslot * (int)sizeof(T);
+    const bool in = ti >= 0 && ti < Tn;
+    if constexpr (BULK) {
+      if (tid < 32) {
+        if (in)
+          t2_bulk_whole(slot, xb + (size_t)ti * frame, hs, 2 * R + 1, H, W,
+                        C, p0, 2 * WB + 1, rowb, bar + i % T2F_SLOTS);
+        else if (tid == 0)
+          mbar_arrive(bar + i % T2F_SLOTS, 0);
+      }
+    } else {
+      if (in)
+        T2Stager(tl, wl, pi, WB, PG2, W, Wo, C, pl.pairs)
+            .x_rows(reinterpret_cast<T*>(slot), xb + (size_t)ti * frame, hs,
+                    2 * R + 1, H, 2 * (WB + 1) * PG2);
+    }
+  };
+  // step s's frames (step 0: also frame index 0), one commit group
+  auto load = [&](int s) {
+    if (s == 0) stage(0);
+    stage(2 * s + 1);
+    stage(2 * s + 2);
+    if constexpr (!BULK) cp_commit();
+  };
+  // this thread sees frame index i landed (cp.async: its step's group)
+  auto wait = [&](int i) {
+    if constexpr (BULK) {
+      if (i < nf)
+        mbar_wait(bar + i % T2F_SLOTS, (unsigned)(i / T2F_SLOTS) & 1u);
+    } else {
+      cp_wait<T2F_AHEAD - 1>();
+    }
+  };
+  auto slot_at = [&](int i) { return ring + (i % T2F_SLOTS) * xslot; };
+
+  float acc[2][R][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[j][r][0] = acc[j][r][1] = 0.f;
+
+  if constexpr (WHOLE) {
+    // the places of pixels and rows outside the frame are never staged: the
+    // ring's zero, the same places in every frame of the block (for the bulk
+    // copies written by the generic proxy before any copy)
+    if constexpr (BULK) {
+      if (tid == 0) {
+        for (int j = 0; j < T2F_SLOTS; ++j) mbar_init(bar + j);
+        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      }
+    }
+    for (int i = tid * 16; i < T2F_SLOTS * xslot * (int)sizeof(T);
+         i += blockDim.x * 16)
+      *reinterpret_cast<uint4*>(smem_raw + i) = make_uint4(0, 0, 0, 0);
+    if constexpr (BULK)
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  }
+  for (int s = 0; s < T2F_AHEAD; ++s) load(s);
+  if (f0 >= 0) {  // frame 2t0 - 1: tap dt = 0 of output t0 (uniform)
+    wait(0);
+    __syncthreads();
+    if (live)
+      t2f_frame<T, R, 0, -1>(acc, k0, k1, slot_at(0), rl, at);
+  }
+  const int steps = tl.t1 - tl.t0;
+  for (int s = 0; s < steps; ++s) {
+    // this thread's copies of step s (the bulk mode: its first frame)
+    // have landed; after the barrier everyone's, and the slots of step s - 1
+    // are read by no one
+    wait(2 * s + 1);
+    __syncthreads();
+    load(s + T2F_AHEAD);
+    if (live)  // frame 2(t0+s): dt = 1 of output t0 + s
+      t2f_frame<T, R, 1, -1>(acc, k0, k1, slot_at(2 * s + 1), rl, at);
+    // the bulk mode's second frame, waited for while the first was summed
+    // (an mbarrier wait shows the copies to the thread that waits)
+    wait(2 * s + 2);
+    if (live && f0 + 2 * s + 2 < Tn)  // frame 2(t0+s)+1: dt = 2, then dt =
+      t2f_frame<T, R, 2, 0>(acc, k0, k1, slot_at(2 * s + 2), rl,
+                            at);  // 0 of output t0 + s + 1
+    if (live) {
+      T* yo = yb + (size_t)s * Ho * Wo * C;
+      const bool pair = second && !(C & 1);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (tl.h0 + r < Ho)
+          store_pair(yo + (size_t)r * Wo * C, acc[0][r][0], acc[0][r][1],
+                     pair, second);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      acc[0][r][0] = acc[1][r][0];
+      acc[0][r][1] = acc[1][r][1];
+      acc[1][r][0] = acc[1][r][1] = 0.f;
+    }
+  }
+  if constexpr (!BULK) cp_wait<0>();
+}
+
+// Bytes of one dx row of dw_conv_dx_t2's tile: 2WB pixels of 2PG channels
+// from the byte the run's address has mod 16, one chunk of slack.
+template <typename T>
+__host__ __device__ __forceinline__ int t2_tileb(int WB, int PG) {
+  return 16 * (2 * WB * 2 * PG * (int)sizeof(T) / 16 + 2);
+}
+
+// The tile mode's write-out of one dx frame f (H, W, C): tile row rr (dx
+// row row0 + rr, rr < nrows) holds the run of dx columns [q0, q0 + nq) (all
+// C channels) from byte d of t + rr * tb, d the run's address mod 16 (one
+// value for the tile: W * C * sizeof(T) and the base are multiples of 16).
+// The 16-byte aligned middle of each run goes by one bulk copy from the
+// tile (thread 0, one bulk group a frame), the bytes before and after it (a
+// run's first and last chunk, where they hold a neighbour's bytes) element
+// by element by the block's threads in turn; no byte outside the runs is
+// written. The caller's put made the tile visible to the bulk copies' proxy
+// and thread 0 waited for the last frame's copies to have read their tile.
+template <typename T>
+__device__ __forceinline__ void t2_tile_bulk(T* f, const unsigned char* t,
+                                             int tb, int d, int row0,
+                                             int nrows, int W, int C, int q0,
+                                             int nq) {
+  constexpr int E = (int)sizeof(T);
+  const int n = nq * C * E;
+  const int lo = min((d + 15) / 16 * 16, d + n);  // the middle [lo, hi) of
+  const int hi = max((d + n) / 16 * 16, lo);      // each tile row, in bytes
+  if (threadIdx.x == 0) {
+    if (hi > lo)
+      for (int rr = 0; rr < nrows; ++rr)
+        bulk_s2g(reinterpret_cast<char*>(f + ((size_t)(row0 + rr) * W + q0) *
+                                                 C) - d + lo,
+                 t + rr * tb + lo, (unsigned)(hi - lo));
+    bulk_commit();
+  }
+  // (row, element) of the heads [d, lo) and tails [hi, d + n)
+  const int nh = (lo - d) / E, ne = nh + (d + n - hi) / E;
+  for (int u = threadIdx.x; u < nrows * ne; u += blockDim.x) {
+    const int rr = u / ne, q = u - rr * ne;
+    const int e = q < nh ? d + q * E : hi + (q - nh) * E;
+    *reinterpret_cast<T*>(reinterpret_cast<char*>(
+        f + ((size_t)(row0 + rr) * W + q0) * C) - d + e) =
+        *reinterpret_cast<const T*>(t + rr * tb + e);
+  }
+}
+
+// dx frame 2o + E of g frame o (slot s0) and, for E = 1 and next, g frame
+// o + 1 (slot s1), at the thread's g column (and column + 1, at + PG2) and
+// pair: acc[r][py][px][ch] is dx row 2(h0+r)+py, column 2j+px. K8's order:
+// g frames ascending, then g rows, then the columns; one fmaf a term.
+template <typename T, int R, int E>
+__device__ __forceinline__ void t2dx_frame(float (&acc)[R][2][2][2],
+                                           const float (&k0)[27],
+                                           const float (&k1)[27],
+                                           const T* s0, const T* s1,
+                                           bool next, int rowlen, int PG2) {
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+#pragma unroll
+    for (int py = 0; py < 2; ++py)
+#pragma unroll
+      for (int px = 0; px < 2; ++px)
+        acc[r][py][px][0] = acc[r][py][px][1] = 0.f;
+  // q[px][ch] of one dx row += the terms of g row values a (column j) and
+  // b (column j+1) through taps (dt, dy): the even column 2j through dx =
+  // 1; the odd column 2j+1 through dx = 2 on a, then dx = 0 on b
+  auto add = [&](float (&q)[2][2], int dt, int dy, float2 a, float2 b) {
+    const int t0 = (dt * 3 + dy) * 3;
+    q[0][0] = fmaf(k0[t0 + 1], a.x, q[0][0]);
+    q[0][1] = fmaf(k1[t0 + 1], a.y, q[0][1]);
+    q[1][0] = fmaf(k0[t0 + 2], a.x, q[1][0]);
+    q[1][1] = fmaf(k1[t0 + 2], a.y, q[1][1]);
+    q[1][0] = fmaf(k0[t0], b.x, q[1][0]);
+    q[1][1] = fmaf(k1[t0], b.y, q[1][1]);
+  };
+#pragma unroll
+  for (int f = 0; f < 1 + E; ++f) {  // g frames o, o + 1 ascending
+    if (f == 1 && !next) break;      // outside the clip: nothing
+    const int dt = E == 0 ? 1 : 2 - 2 * f;
+    const T* sl = f ? s1 : s0;
+#pragma unroll
+    for (int rr = 0; rr <= R; ++rr) {  // g row h0 + rr, as K8
+      const float2 a = load_pair(sl + rr * rowlen);
+      const float2 b = load_pair(sl + rr * rowlen + PG2);
+      if (rr > 0) add(acc[rr - 1][1], dt, 0, a, b);
+      if (rr < R) {
+        add(acc[rr][0], dt, 1, a, b);
+        add(acc[rr][1], dt, 2, a, b);
+      }
+    }
+  }
+}
+
+// Thread (wl, pi) as in K8: g column j = w0 + wl, channels c, c+1. Slot i
+// % GSTAGE_T2 of the ring holds g frame t0 + i (rows h0 .. h0+R, columns
+// w0 .. w0+WB); step i (g frame o = t0 + i) writes dx frames 2o and 2o+1
+// (those below Tn). TILE (the wrapper's mode): the tile mode, its runs out
+// by bulk copies; else each thread's pairs straight to dx.
+template <typename T, int R, bool TILE>
+__global__ void __launch_bounds__(NT_MAX, 2)
+plain_t2_dx_kernel(const T* __restrict__ g, const T* __restrict__ k,
+                   T* __restrict__ dx, int Tn, int H, int W, int Ho, int Wo,
+                   int C, Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);
+  const int WB = pl.WB, PG = pl.PG;
+  const int PG2 = 2 * PG, rowlen = (WB + 1) * PG2;
+  const int stage = dxstage_elems<T>(R, WB, PG);
+  const int tb = t2_tileb<T>(WB, PG);
+  // the two dx tiles after the g ring
+  unsigned char* tiles = smem_raw + GSTAGE_T2 * stage * (int)sizeof(T);
+  const int Tg = (Tn - 1) / 2 + 1;  // g frames
+
+  const int blk = blockIdx.x;
+  const int pg = blk % pl.n_pg;
+  const Tile tl = pl.tile(blk / pl.n_pg, pg, Tg);
+  const int tid = threadIdx.x;
+  const int wl = tid / PG, pi = tid % PG;
+  const int j = tl.w0 + wl;
+  const int c = 2 * (tl.p0 + pi);
+  const bool live = wl < WB && j < Wo && c < C;
+  const bool second = c + 1 < C;
+  const int at = wl * PG2 + 2 * pi;  // g column j; j + 1 is at + PG2
+
+  float k0[27], k1[27];
+  load_taps(k0, k1, k, c, C, live);
+
+  const size_t gframe = (size_t)Ho * Wo * C, xframe = (size_t)H * W * C;
+  const T* gb = g + (size_t)tl.b * Tg * gframe;
+  T* db = dx + (size_t)tl.b * Tn * xframe;
+  const int nf = tl.t1 - tl.t0 + 1;  // g frames t0 .. t1
+  auto load = [&](int i) {
+    const int tg = tl.t0 + i;
+    if (i < nf && tg < Tg)  // uniform across the block
+      GStager(tl, wl, pi, WB, PG2, Wo, C, pl.pairs)
+          .rows(ring + (i % GSTAGE_T2) * stage, gb + (size_t)tg * gframe,
+                tl.h0, R + 1, Ho, Wo, rowlen);
+    cp_commit();
+  };
+  // TILE: the run's byte mod 16, and the dx rows and columns of the block
+  const int d = 2 * tl.w0 * C * (int)sizeof(T) % 16;
+  const int nrows = min(2 * R, H - 2 * tl.h0), nq = min(2 * WB, W - 2 * tl.w0);
+  // dx frame ox's sums (dframe: its first element): TILE into tile ox & 1
+  // (then made visible to the bulk copies' proxy, and the copies of frame
+  // ox - 1, which read the other tile, waited for), else each thread's
+  // pairs straight to dx
+  auto put = [&](int ox, T* dframe, const float (&acc)[R][2][2][2]) {
+    if (live) {
+      T* dq;
+      if constexpr (TILE)
+        dq = reinterpret_cast<T*>(tiles + (ox & 1) * 2 * R * tb + d) +
+             2 * wl * C + c;
+      else
+        dq = dframe + ((size_t)2 * tl.h0 * W + 2 * j) * C + c;
+      const bool pair = second && !(C & 1);
+      // the row stride (bytes in the tile, elements in dx), opaque to the
+      // compiler: it would hoist the 2R row addresses out of the frame loop
+      // and spill them
+      int rs = TILE ? tb : W * C;
+      asm volatile("" : "+r"(rs));
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int py = 0; py < 2; ++py) {
+          if (2 * (tl.h0 + r) + py >= H) continue;
+          T* dr = TILE ? reinterpret_cast<T*>(reinterpret_cast<unsigned char*>(
+                             dq) + (2 * r + py) * rs)
+                       : dq + (size_t)(2 * r + py) * rs;
+#pragma unroll
+          for (int px = 0; px < 2; ++px)
+            if (2 * j + px < W)
+              store_pair(dr + px * C, acc[r][py][px][0], acc[r][py][px][1],
+                         TILE || pair, TILE || second);
+        }
+    }
+    if constexpr (TILE) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (tid == 0) bulk_wait_read();
+    }
+  };
+  // TILE: dx frame ox's tile out, after the barrier that follows its put
+  auto out = [&](int ox, T* dframe) {
+    if constexpr (TILE)
+      t2_tile_bulk(dframe, tiles + (ox & 1) * 2 * R * tb, tb, d, 2 * tl.h0,
+                   nrows, W, C, 2 * tl.w0, nq);
+  };
+
+  zero_ring(smem_raw, GSTAGE_T2 * stage * (int)sizeof(T));
+  for (int i = 0; i < GSTAGE_T2 - 1; ++i) load(i);
+  cp_wait<GSTAGE_T2 - 2>();  // g frame t0 has landed
+  __syncthreads();
+  T* df = db + (size_t)2 * tl.t0 * xframe;  // dx frame 2o
+  for (int o = tl.t0; o < tl.t1; ++o, df += 2 * xframe) {
+    const int i = o - tl.t0;
+    const T* s0 = ring + (i % GSTAGE_T2) * stage + at;
+    const T* s1 = ring + ((i + 1) % GSTAGE_T2) * stage + at;
+    float acc[R][2][2][2];
+    t2dx_frame<T, R, 0>(acc, k0, k1, s0, s1, false, rowlen, PG2);
+    put(2 * o, df, acc);
+    cp_wait<GSTAGE_T2 - 3>();  // this thread's copies of g frame o+1 landed
+    // everyone's, and dx frame 2o's tile; slot i-1 is read by no one
+    __syncthreads();
+    load(i + GSTAGE_T2 - 1);  // into slot i-1
+    out(2 * o, df);
+    if (2 * o + 1 < Tn) {  // uniform across the block
+      t2dx_frame<T, R, 1>(acc, k0, k1, s0, s1, o + 1 < Tg, rowlen, PG2);
+      put(2 * o + 1, df + xframe, acc);
+      if constexpr (TILE) {
+        __syncthreads();  // dx frame 2o+1's tile
+        out(2 * o + 1, df + xframe);
+      }
+    }
+  }
+  cp_wait<0>();
+  if constexpr (TILE) {
+    if (tid == 0) bulk_wait();
+  }
+}
+
 // ---- the mm weight gradient (K10 mm) -----------------------------------------
 // Shared memory of mm_s2_wgrad_kernel: K4 mm's layout (mm_s2_fwd_layout: two
 // activated slots, the x ring, W1's columns, bn1's vectors, the table), then
@@ -1858,9 +2283,8 @@ size_t fwd_smem(int R, int WB, int PG, bool act = false) {
          xstage_elems<T>(R, WB, PG);
 }
 template <typename T>
-size_t dx_smem(int R, int WB, int PG, int st = 1) {
-  return sizeof(T) * (st == 1 ? GSTAGE : GSTAGE_T2) *
-         dxstage_elems<T>(R, WB, PG);
+size_t dx_smem(int R, int WB, int PG) {
+  return sizeof(T) * GSTAGE * dxstage_elems<T>(R, WB, PG);
 }
 // the act dx: the g ring, then the x ring; reused for the column sums
 template <typename T>
@@ -1877,6 +2301,19 @@ size_t wgrad_smem(int R, int WB, int PG, bool act) {
                       (xstage_elems<T>(R, WB, PG) + gstage_elems<T>(R, WB, PG));
   const size_t red = sizeof(float) * 27 * WB * 2 * PG;
   return ring > red ? ring : red;
+}
+// the stride-(2,2,2) forward: T2F_SLOTS x frames (either mode's layout)
+// and their mbarriers; the dx: GSTAGE_T2 g frames, two dx tiles and the
+// group's taps in f32
+template <typename T>
+size_t t2_fwd_smem(int R, int WB, int PG) {
+  return sizeof(T) * T2F_SLOTS * t2_xslot<T>(R, WB, PG) +
+         sizeof(uint64_t) * T2F_SLOTS;
+}
+template <typename T>
+size_t t2_dx_smem(int R, int WB, int PG) {
+  return sizeof(T) * GSTAGE_T2 * dxstage_elems<T>(R, WB, PG) +
+         2 * 2 * R * t2_tileb<T>(WB, PG);
 }
 // the stride-(2,2,2) weight gradient: T2_XSLOTS x frames and T2_GSLOTS g
 // frames, or its column sums if larger
@@ -1936,20 +2373,28 @@ decltype(&plain_s2_wgrad_kernel<T, RMAX>) wgrad_kernel_of(int R) {
 }
 // ... at stride (2,2,2)
 template <typename T>
-decltype(&plain_t2_fwd_kernel<T, RMAX>) t2_fwd_kernel_of(int R) {
+decltype(&plain_t2_fwd_kernel<T, RMAX, true>) t2_fwd_kernel_of(int R,
+                                                                bool whole) {
   switch (R) {
-    case 2: return plain_t2_fwd_kernel<T, 2>;
-    case 3: return plain_t2_fwd_kernel<T, 3>;
-    case 4: return plain_t2_fwd_kernel<T, 4>;
+    case 2: return whole ? plain_t2_fwd_kernel<T, 2, true>
+                         : plain_t2_fwd_kernel<T, 2, false>;
+    case 3: return whole ? plain_t2_fwd_kernel<T, 3, true>
+                         : plain_t2_fwd_kernel<T, 3, false>;
+    case 4: return whole ? plain_t2_fwd_kernel<T, 4, true>
+                         : plain_t2_fwd_kernel<T, 4, false>;
   }
   return nullptr;
 }
 template <typename T>
-decltype(&plain_t2_dx_kernel<T, RMAX>) t2_dx_kernel_of(int R) {
+decltype(&plain_t2_dx_kernel<T, RMAX, true>) t2_dx_kernel_of(int R,
+                                                              bool tile) {
   switch (R) {
-    case 2: return plain_t2_dx_kernel<T, 2>;
-    case 3: return plain_t2_dx_kernel<T, 3>;
-    case 4: return plain_t2_dx_kernel<T, 4>;
+    case 2: return tile ? plain_t2_dx_kernel<T, 2, true>
+                        : plain_t2_dx_kernel<T, 2, false>;
+    case 3: return tile ? plain_t2_dx_kernel<T, 3, true>
+                        : plain_t2_dx_kernel<T, 3, false>;
+    case 4: return tile ? plain_t2_dx_kernel<T, 4, true>
+                        : plain_t2_dx_kernel<T, 4, false>;
   }
   return nullptr;
 }
@@ -2001,27 +2446,85 @@ decltype(&mm_s2_wgrad_kernel<T, RMAX>) mm_wgrad_kernel_of(int R) {
 }
 
 // The forward (dx: false) over y, or the dx (true) over g, of x (dx: dx)
-// (B, T, H, W, C) at stride (ST, 2, 2): one block per tile.
-template <typename T, bool DX, int ST = 1>
+// (B, T, H, W, C): one block per tile.
+template <typename T, bool DX>
 int launch_tiles(const void* in, const void* k, void* out, int B, int Tn,
                  int H, int W, int C, int R, int WB, int PG, int TT,
                  cudaStream_t st) {
-  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  if (H < 1 || W < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1;
-  const int To = (Tn - 1) / ST + 1;
-  Plan p;  // over the output's (the forward) or g's (the dx) frames, rows
-  if (!make_plan<T>(p, (uintptr_t)in, B, To, Ho, Wo, C, R, WB, PG, TT))
+  Plan p;  // over the output's (the forward) or g's (the dx) rows, columns
+  if (!make_plan<T>(p, (uintptr_t)in, B, Tn, Ho, Wo, C, R, WB, PG, TT))
     return (int)cudaErrorInvalidValue;
-  const auto kern =
-      ST == 1 ? (DX ? dx_kernel_of<T>(R) : fwd_kernel_of<T>(R))
-              : (DX ? t2_dx_kernel_of<T>(R) : t2_fwd_kernel_of<T>(R));
-  const size_t smem =
-      DX ? dx_smem<T>(R, WB, PG, ST) : fwd_smem<T>(R, WB, PG);
+  const auto kern = DX ? dx_kernel_of<T>(R) : fwd_kernel_of<T>(R);
+  const size_t smem = DX ? dx_smem<T>(R, WB, PG) : fwd_smem<T>(R, WB, PG);
   if (int e = set_smem(kern, smem)) return e;
   const long long blocks =
       (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
   kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
       static_cast<const T*>(in), static_cast<const T*>(k), static_cast<T*>(out),
+      Tn, H, W, Ho, Wo, C, p);
+  return (int)cudaGetLastError();
+}
+
+// Whether a t2 kernel's whole-pixel mode may copy the rows of tensor p (x
+// of the forward and weight gradient, dx of the dx) whole: the channel
+// group is the pixel and the rows are 16-byte aligned. The wrapper chooses
+// the mode (ops/dw_conv.py: t2_whole); a launcher refuses a whole-pixel
+// mode where this does not hold.
+template <typename T>
+bool t2_rows_whole(const void* p, const Plan& pl, int W, int C, int PG) {
+  return pl.n_pg == 1 && 2 * PG == C && (uintptr_t)p % 16 == 0 &&
+         (long long)W * C * sizeof(T) % 16 == 0;
+}
+
+// The forward at stride (2,2,2) over y (B, To, Ho, Wo, C) of x (B, T, H, W,
+// C): one block per tile; whole pixels by bulk copies where whole (the
+// group is the pixel and x's rows are 16-byte aligned), else pairs.
+template <typename T>
+int launch_t2_fwd(const void* x, const void* k, void* y, int B, int Tn,
+                  int H, int W, int C, int R, int WB, int PG, int TT,
+                  int whole, cudaStream_t st) {
+  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1, To = (Tn - 1) / 2 + 1;
+  Plan p;  // over y's frames, rows and columns
+  if (!make_plan<T>(p, (uintptr_t)x, B, To, Ho, Wo, C, R, WB, PG, TT))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = t2_fwd_smem<T>(R, WB, PG);
+  if (smem > SMEM_MAX || (whole && !t2_rows_whole<T>(x, p, W, C, PG)))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = t2_fwd_kernel_of<T>(R, whole);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(k), static_cast<T*>(y),
+      Tn, H, W, Ho, Wo, C, p);
+  return (int)cudaGetLastError();
+}
+
+// The dx at stride (2,2,2) over g (B, To, Ho, Wo, C) into dx (B, T, H, W,
+// C): one block per tile; the tile mode where whole (the group is the
+// pixel and dx's rows are 16-byte aligned), else each thread's pairs
+// straight to dx.
+template <typename T>
+int launch_t2_dx(const void* g, const void* k, void* dx, int B, int Tn,
+                 int H, int W, int C, int R, int WB, int PG, int TT,
+                 int whole, cudaStream_t st) {
+  if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
+  const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1, To = (Tn - 1) / 2 + 1;
+  Plan p;  // over g's frames, rows and columns
+  if (!make_plan<T>(p, (uintptr_t)g, B, To, Ho, Wo, C, R, WB, PG, TT))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = t2_dx_smem<T>(R, WB, PG);
+  if (smem > SMEM_MAX || (whole && !t2_rows_whole<T>(dx, p, W, C, PG)))
+    return (int)cudaErrorInvalidValue;
+  const auto kern = t2_dx_kernel_of<T>(R, whole);
+  if (int e = set_smem(kern, smem)) return e;
+  const long long blocks =
+      (long long)B * p.n_tseg * p.n_strip * p.n_wt * p.n_pg;
+  kern<<<(unsigned)blocks, threads_of(p), smem, st>>>(
+      static_cast<const T*>(g), static_cast<const T*>(k), static_cast<T*>(dx),
       Tn, H, W, Ho, Wo, C, p);
   return (int)cudaGetLastError();
 }
@@ -2175,11 +2678,11 @@ int launch_wgrad(const void* x, const void* g, const void* sc,
 
 // The weight gradient at stride (2,2,2): the plan over g (B, To, Ho, Wo,
 // C) in one segment (TT >= To), a persistent grid of rows blocks per
-// channel group.
+// channel group; whole pixels by 16-byte copies where whole, else pairs.
 template <typename T>
 int launch_t2_wgrad(const void* x, const void* g, void* part, int B, int Tn,
                     int H, int W, int C, int R, int WB, int PG, int TT,
-                    int ipb, int rows, cudaStream_t st) {
+                    int ipb, int rows, int whole, cudaStream_t st) {
   if (H < 1 || W < 1 || Tn < 1) return (int)cudaErrorInvalidValue;
   const int Ho = (H - 1) / 2 + 1, Wo = (W - 1) / 2 + 1, To = (Tn - 1) / 2 + 1;
   Plan p;
@@ -2192,13 +2695,10 @@ int launch_t2_wgrad(const void* x, const void* g, void* part, int B, int Tn,
       (long long)(rows - 1) * ipb >= items)
     return (int)cudaErrorInvalidValue;
   const size_t smem = t2_wgrad_smem<T>(R, WB, PG);
-  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_MAX || (whole && !t2_rows_whole<T>(x, p, W, C, PG)))
+    return (int)cudaErrorInvalidValue;
   const auto kern = t2_wgrad_kernel_of<T>(R);
   if (int e = set_smem(kern, smem)) return e;
-  // the whole-pixel mode: one channel group of every pair, rows 16-byte
-  // aligned
-  const int whole = p.n_pg == 1 && 2 * PG == C && (uintptr_t)x % 16 == 0 &&
-                    (long long)W * C * sizeof(T) % 16 == 0;
   kern<<<dim3(rows, p.n_pg), threads_of(p), smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<float*>(part), Tn, H, W, Ho, Wo, C, p, (int)items, ipb,
@@ -2264,11 +2764,11 @@ int occupancy(int kind, int R, int WB, int PG) {
       return blocks_per_sm(act_fwd_kernel_of<T>(R),
                            fwd_smem<T>(R, WB, PG, true), threads);
     case 6:
-      return blocks_per_sm(t2_fwd_kernel_of<T>(R), fwd_smem<T>(R, WB, PG),
-                           threads);
+      return blocks_per_sm(t2_fwd_kernel_of<T>(R, true),
+                           t2_fwd_smem<T>(R, WB, PG), threads);
     case 7:
-      return blocks_per_sm(t2_dx_kernel_of<T>(R), dx_smem<T>(R, WB, PG, 2),
-                           threads);
+      return blocks_per_sm(t2_dx_kernel_of<T>(R, true),
+                           t2_dx_smem<T>(R, WB, PG), threads);
     case 8:
       return blocks_per_sm(t2_wgrad_kernel_of<T>(R),
                            t2_wgrad_smem<T>(R, WB, PG), threads);
@@ -2458,39 +2958,41 @@ extern "C" int dw_mm_wgrad_s2(const void* x, const void* w1, const void* g,
 // dw_conv_wgrad_t2): x and dx are (B,T,H,W,C), y and g
 // (B,(T-1)/2+1,(H-1)/2+1,(W-1)/2+1,C); the split (R, WB, PG, TT) is over
 // y's or g's frames, rows and columns (ops/dw_conv.py: plan_t2_fwd,
-// plan_t2_dx, plan_t2); part is (rows, 27, C) f32 as dw_conv_wgrad_s2's.
+// plan_t2_dx, plan_t2); part is (rows, 27, C) f32 as dw_conv_wgrad_s2's;
+// whole: the whole-pixel mode (ops/dw_conv.py: t2_whole).
 extern "C" int dw_conv_t2(const void* x, const void* k, void* y, int B, int T,
                           int H, int W, int C, int R, int WB, int PG, int TT,
-                          int is_bf16, void* stream) {
+                          int whole, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_tiles<__nv_bfloat16, false, 2>(x, k, y, B, T, H, W, C, R,
-                                                 WB, PG, TT, st);
-  return launch_tiles<float, false, 2>(x, k, y, B, T, H, W, C, R, WB, PG, TT,
-                                       st);
+    return launch_t2_fwd<__nv_bfloat16>(x, k, y, B, T, H, W, C, R, WB, PG,
+                                        TT, whole, st);
+  return launch_t2_fwd<float>(x, k, y, B, T, H, W, C, R, WB, PG, TT, whole,
+                              st);
 }
 
 extern "C" int dw_conv_dx_t2(const void* g, const void* k, void* dx, int B,
                              int T, int H, int W, int C, int R, int WB,
-                             int PG, int TT, int is_bf16, void* stream) {
+                             int PG, int TT, int whole, int is_bf16,
+                             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch_tiles<__nv_bfloat16, true, 2>(g, k, dx, B, T, H, W, C, R,
-                                                WB, PG, TT, st);
-  return launch_tiles<float, true, 2>(g, k, dx, B, T, H, W, C, R, WB, PG, TT,
-                                      st);
+    return launch_t2_dx<__nv_bfloat16>(g, k, dx, B, T, H, W, C, R, WB, PG,
+                                       TT, whole, st);
+  return launch_t2_dx<float>(g, k, dx, B, T, H, W, C, R, WB, PG, TT, whole,
+                             st);
 }
 
 extern "C" int dw_conv_wgrad_t2(const void* x, const void* g, void* part,
                                 int B, int T, int H, int W, int C, int R,
                                 int WB, int PG, int TT, int ipb, int rows,
-                                int is_bf16, void* stream) {
+                                int whole, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch_t2_wgrad<__nv_bfloat16>(x, g, part, B, T, H, W, C, R, WB,
-                                          PG, TT, ipb, rows, st);
+                                          PG, TT, ipb, rows, whole, st);
   return launch_t2_wgrad<float>(x, g, part, B, T, H, W, C, R, WB, PG, TT,
-                                ipb, rows, st);
+                                ipb, rows, whole, st);
 }
 
 // Blocks per SM mm_s2_fwd_kernel reaches at a plan (R, WB, PG), C_in and

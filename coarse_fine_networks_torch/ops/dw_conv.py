@@ -47,12 +47,15 @@ halo and writes its output once:
 * ``dw_conv_t2``, ``dw_conv_dx_t2``, ``dw_conv_wgrad_t2``: the same three
   at stride (2, 2, 2), :class:`..models.fine.FineNet`'s ``t_downsample``
   (replacing no TPU kernel: the JAX package runs that conv in XLA,
-  ``_lax_conv``, ``ops/pallas/dw_conv.py:287``), in the same source.  The
-  forward and the dx are K4 plain's and K8's bodies with the temporal
-  stride a template argument: the forward's register ring holds the two
-  output frames an input frame feeds, the dx gives each g frame's two dx
-  frames (the even one through tap dt = 1 only) from a 4-frame g ring.
-  The weight gradient has a walk of its own on K10 plain's threads
+  ``_lax_conv``, ``ops/pallas/dw_conv.py:287``), in the same source, each
+  with a body of its own.  The forward takes one step an output frame:
+  input frames 2o and 2o+1 arrive together, whole pixels by a TMA bulk
+  copy a row where the group is the pixel (:func:`t2_whole`), and two
+  output frames sit in registers.  The dx sums each g frame's two dx
+  frames (the even one through tap dt = 1 only) from a 4-frame g ring
+  into tiles in shared memory, written out as contiguous runs by bulk
+  copies (else each thread's pairs straight to dx).  The weight gradient
+  has a walk of its own on K10 plain's threads
   and rows: one step a g frame, all 27 taps against x frames 2o-1, 2o and
   2o+1 from a ring of five x frames and two g frames, a block's items (one
   clip each) chained into one stream of steps; work splits
@@ -131,9 +134,9 @@ LIBRARY_S2 = CudaLibrary("dw_plain_s2.cu", {
     "dw_mm_dx_mask_s2_occupancy": [I] * 7,
     "dw_mm_wgrad_s2": [P] * 6 + [I] * 13 + [P],
     "dw_mm_wgrad_s2_occupancy": [I] * 6,
-    "dw_conv_t2": [P] * 3 + [I] * 10 + [P],
-    "dw_conv_dx_t2": [P] * 3 + [I] * 10 + [P],
-    "dw_conv_wgrad_t2": [P] * 3 + [I] * 12 + [P],
+    "dw_conv_t2": [P] * 3 + [I] * 11 + [P],
+    "dw_conv_dx_t2": [P] * 3 + [I] * 11 + [P],
+    "dw_conv_wgrad_t2": [P] * 3 + [I] * 13 + [P],
 })
 # every source of the bottleneck's depthwise kernels: the entry's (eval
 # and train) and the split route's
@@ -383,6 +386,10 @@ def plan_s2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
 
 # ---- the stride-(2, 2, 2) kernels' work splits -------------------------------
 
+# steps of x frames in flight in dw_conv_t2, and its ring's frames (a
+# step's two, two a step in flight)
+T2F_AHEAD = 1
+T2F_SLOTS = 2 * (T2F_AHEAD + 1)
 GSTAGE_T2 = 4  # g frames in dw_conv_dx_t2's ring
 
 
@@ -391,32 +398,83 @@ def _t2(t: int) -> int:
     return (t - 1) // 2 + 1
 
 
+def _pairs_first(c: int) -> int:
+    """Channel pairs a group of the t2 kernels holds at most: the whole
+    pixel where it has at most ``T2_WHOLE_PG`` pairs (C = 54 and 108 on the
+    path), else ``DX_PG``."""
+    p2 = _cdiv(c, 2)
+    return p2 if p2 <= T2_WHOLE_PG else DX_PG
+
+
+def _t2_xslot(plan: PlanS1, esz: int) -> int:
+    """Bytes of one staged x frame of the t2 forward and weight gradient:
+    2R+1 rows, de-interleaved pairs or, in the whole-pixel modes, the tile's
+    2WB+1 pixels from a 16-byte boundary, whichever is larger."""
+    row = 2 * (plan.wb + 1) * 2 * plan.pg
+    whole = 16 * ((2 * plan.wb + 1) * 2 * plan.pg * esz // 16 + 2)
+    return max(_pad16((2 * plan.r + 1) * row * esz), (2 * plan.r + 1) * whole)
+
+
+def smem_t2_fwd(plan: PlanS1, esz: int) -> int:
+    """Dynamic shared memory per block of ``dw_conv_t2``, in bytes, as its
+    launcher sizes it: ``T2F_SLOTS`` x frames (:func:`_t2_xslot`) and an
+    8-byte mbarrier each."""
+    return T2F_SLOTS * (_t2_xslot(plan, esz) + 8)
+
+
 @lru_cache(maxsize=None)
 def plan_t2_fwd(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of ``dw_conv_t2`` (K4 plain's body at stride (2, 2,
-    2)) for x ``(B, T, H, W, C)``: :func:`plan_s2_fwd`'s over the output's
-    ``(B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` (its ``t``, ``tt`` and tiles are output
-    frames).  A block stages the 2TT+1 input frames its outputs read, three
-    at a time."""
-    return plan_s2_fwd(b, _t2(t), h, w, c)
+    """The work split of ``dw_conv_t2`` for x ``(B, T, H, W, C)``:
+    :func:`_strips` over the output's ``(B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` (its
+    ``t``, ``tt`` and tiles are output frames) with the channel pairs first
+    (:func:`_pairs_first`: the whole pixel in one group at C = 54 and 108,
+    where the kernel stages whole pixels), then columns to fill the block,
+    the f32 shared memory of :func:`smem_t2_fwd`, frames split until there
+    are two waves of blocks at two per SM.  A block stages the 2TT+1 input
+    frames its outputs read, two a step."""
+    ho, wo = _out_hw(h, w, 2)
+    return _split_frames(_strips(b, _t2(t), ho, wo, c, smem_t2_fwd,
+                                 _pairs_first(c)), FWD_BLOCKS)
+
+
+def t2_whole(plan: PlanS1, t: torch.Tensor) -> bool:
+    """The mode a t2 wrapper launches its kernel in: the whole-pixel mode
+    (the forward's bulk copies of x's rows, the dx's tile written out as
+    runs, the weight gradient's 16-byte copies of x's rows) where ``plan``'s
+    channel group is the pixel and the rows of ``t`` (x, or the dx written)
+    are 16-byte aligned, else each thread's channel pairs.  The launchers
+    refuse a whole-pixel mode where this does not hold."""
+    return (plan.n_pg == 1 and 2 * plan.pg == plan.c
+            and t.data_ptr() % 16 == 0
+            and t.shape[3] * plan.c * t.element_size() % 16 == 0)
+
+
+def _t2_tileb(plan: PlanS1, esz: int) -> int:
+    """Bytes of one dx row of ``dw_conv_dx_t2``'s tile (2WB pixels of the
+    group from a 16-byte boundary, one chunk of slack)."""
+    return 16 * (2 * plan.wb * 2 * plan.pg * esz // 16 + 2)
 
 
 def smem_t2_dx(plan: PlanS1, esz: int) -> int:
-    """Dynamic shared memory per block of ``dw_conv_dx_t2``, in bytes:
-    :func:`smem_s2_dx`'s g frames, ``GSTAGE_T2`` deep."""
-    return GSTAGE_T2 * _pad16((plan.r + 1) * (plan.wb + 1) * 2 * plan.pg * esz)
+    """Dynamic shared memory per block of ``dw_conv_dx_t2``, in bytes, as its
+    launcher sizes it: :func:`smem_s2_dx`'s g frames, ``GSTAGE_T2`` deep,
+    and two dx tiles of 2R rows."""
+    return (GSTAGE_T2 * _pad16((plan.r + 1) * (plan.wb + 1) * 2 * plan.pg
+                               * esz)
+            + 2 * 2 * plan.r * _t2_tileb(plan, esz))
 
 
 @lru_cache(maxsize=None)
 def plan_t2_dx(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
-    """The work split of ``dw_conv_dx_t2`` (K8's body at stride (2, 2, 2))
-    for dx ``(B, T, H, W, C)``: :func:`plan_s2_dx`'s rule over g ``(B,
-    ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` with the shared memory of :func:`smem_t2_dx`
-    (its ``t``, ``tt`` and tiles are g's frames; g frame j writes dx frames
-    2j and 2j+1)."""
+    """The work split of ``dw_conv_dx_t2`` for dx ``(B, T, H, W, C)``:
+    :func:`plan_s2_dx`'s rule over g ``(B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)`` (its
+    ``t``, ``tt`` and tiles are g's frames; g frame j writes dx frames 2j
+    and 2j+1) with whole-pixel groups up to ``T2_WHOLE_PG`` pairs
+    (:func:`_pairs_first`: the kernel's tile mode writes whole rows of the
+    block) and the shared memory of :func:`smem_t2_dx`."""
     ho, wo = _out_hw(h, w, 2)
-    return _split_frames(_strips(b, _t2(t), ho, wo, c, smem_t2_dx, DX_PG),
-                         FWD_BLOCKS)
+    return _split_frames(_strips(b, _t2(t), ho, wo, c, smem_t2_dx,
+                                 _pairs_first(c)), FWD_BLOCKS)
 
 
 # channel pairs of a pixel that dw_conv_wgrad_t2 keeps in one group (its
@@ -433,11 +491,7 @@ def smem_t2(plan: PlanS1, esz: int) -> int:
     pairs or, in its whole-pixel mode, the tile's pixels from a 16-byte
     boundary, whichever is larger) and ``T2_GSLOTS`` g frames (R rows), or
     the column sums if larger."""
-    row = 2 * (plan.wb + 1) * 2 * plan.pg
-    whole = 16 * ((2 * plan.wb + 1) * 2 * plan.pg * esz // 16 + 2)
-    xslot = max(_pad16((2 * plan.r + 1) * row * esz),
-                (2 * plan.r + 1) * whole)
-    ring = (T2_XSLOTS * xslot
+    ring = (T2_XSLOTS * _t2_xslot(plan, esz)
             + T2_GSLOTS * _pad16(plan.r * plan.wb * 2 * plan.pg * esz))
     return max(ring, 4 * 27 * plan.wb * 2 * plan.pg)
 
@@ -455,9 +509,8 @@ def plan_t2(b: int, t: int, h: int, w: int, c: int) -> PlanS1:
     (``dw_conv_wgrad_s2``) launched with this split and one segment of T
     frames has the same items and blocks."""
     ho, wo = _out_hw(h, w, 2)
-    p2 = _cdiv(c, 2)
-    pg_max = p2 if p2 <= T2_WHOLE_PG else DX_PG
-    return _persistent(_strips(b, _t2(t), ho, wo, c, smem_t2, pg_max))
+    return _persistent(_strips(b, _t2(t), ho, wo, c, smem_t2,
+                               _pairs_first(c)))
 
 
 def _pad16(n: int) -> int:
@@ -836,8 +889,9 @@ def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor, stride) -> torch.Tensor:
                        2: (LIBRARY_S2, plan_s2_fwd, "dw_conv_s2"),
                        T2: (LIBRARY_S2, plan_t2_fwd, "dw_conv_t2")}[stride]
     p = plan(b, t, h, w, c)
+    whole = (int(t2_whole(p, x)),) if stride == T2 else ()
     _launch(LAUNCHES, lib, name, x, x.data_ptr(), w_dw.data_ptr(),
-            y.data_ptr(), b, t, h, w, c, p.r, p.wb, p.pg, p.tt)
+            y.data_ptr(), b, t, h, w, c, p.r, p.wb, p.pg, p.tt, *whole)
     return y
 
 
@@ -910,7 +964,8 @@ def dw_conv_dx_t2(g: torch.Tensor, w_dw: torch.Tensor,
     if dx.numel():
         p = plan_t2_dx(*shape)
         _launch(LAUNCHES, LIBRARY_S2, "dw_conv_dx_t2", g, g.data_ptr(),
-                w_dw.data_ptr(), dx.data_ptr(), *shape, p.r, p.wb, p.pg, p.tt)
+                w_dw.data_ptr(), dx.data_ptr(), *shape, p.r, p.wb, p.pg, p.tt,
+                int(t2_whole(p, dx)))
     return dx
 
 
@@ -953,7 +1008,7 @@ def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
                            device=x.device)
         _launch(LAUNCHES, LIBRARY_S2, "dw_conv_wgrad_t2", x, x.data_ptr(),
                 g.data_ptr(), part.data_ptr(), *x.shape, p.r, p.wb, p.pg,
-                p.tt, p.ipb, p.rows)
+                p.tt, p.ipb, p.rows, int(t2_whole(p, x)))
     elif stride == 1:
         p = plan_s1(*x.shape)
         part = torch.empty((p.rows, 27, x.shape[-1]), dtype=torch.float32,

@@ -92,6 +92,18 @@ Phases, each printing JSON lines:
    and 10 timed ones, its launch counters read for the timed steps (22
    stride-1 and 4 stride-2 launches of each train kernel per step, no eval
    kernel), then a ``torch.profiler`` breakdown of one step;
+7b. utils: ``utils/hw.py`` and ``utils/profiling.py`` on the card:
+   ``chip_peaks`` (known, the H100 SXM's figures); ``program_costs`` of one
+   step of phase 7's configuration (FLOPs, bytes, each hand-written
+   kernel's calls against the launch counters) and ``utilization`` against
+   phase 7's mean step time, beside the ``nvidia-smi`` line; the same
+   count's FLOPs at the CPU tests' size (B2 T8 64², 7 classes, f32) equal
+   on the card and on the CPU; three steps timed by ``StepTimer`` and by
+   CUDA events, their sums within 5 %; one step under ``trace``, whose
+   file names each hand-written kernel function as often as the counters
+   say; then both examples, ``python -m
+   coarse_fine_networks_torch.examples.demo_synthetic`` and
+   ``demo_serving``, with ``--device cuda``;
 8. train_card_vs_cpu: one small f32 train step on the card and on the CPU
    from the same weights (the loss; the gradients per stage and per
    tensor);
@@ -243,7 +255,10 @@ Phases, each printing JSON lines:
    B swapped, must read outside it), grey frames giving three equal
    channels; the kernel timed on one clip's 64 frames beside its bound,
    its plain version and ``F.interpolate``, and nvJPEG's decode of the clip
-   beside Pillow's;
+   beside Pillow's; and ``CROP_THREADS`` threads, each on a stream of its
+   own, launching the kernel at once with crops that need different shared
+   memory, as a loader's workers do (no launch refused, each equal to the
+   plain version);
 19d. packed: the native data plane end to end on a Multi-THUMOS tree
    (``generate_mini_charades``' frames at 480², videos renamed
    ``video_validation_*`` and ``video_test_*``, annotations converted by
@@ -372,6 +387,7 @@ ends.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import json
@@ -395,10 +411,6 @@ import torch.nn.functional as F
 REPO = Path(__file__).resolve().parent
 # the driver-level phases' data, checkpoints and features (removed at exit)
 SCRATCH = REPO / "_scratch" / "chip_smoke_drivers"
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s; bf16 tensor-core
-# and f32 (non-tensor) operations/s
-PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs plain, as a fraction of max|plain|: f32 sums in another order;
 # bf16 output rounding (and the odd flip of a bf16-rounded activation)
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
@@ -891,13 +903,7 @@ def phase_kernels(dw_mm_act, dw_conv, shapes=None, phase="kernels",
             plain_ms = cuda_ms(
                 lambda: dw_mm_act.dw_mm_bnrelu_conv3d_plain(*args), 3, 1)
             unfused_ms = cuda_ms(unfused, 10)
-            ho, wo = got.shape[2], got.shape[3]
-            esz = x.element_size()
-            nbytes = (x.numel() + got.numel() + w1.numel()
-                      + w_dw.numel()) * esz + 2 * c_mid * 4
-            ops = 2 * b * t * (h * w * c_in * c_mid + 27 * ho * wo * c_mid)
-            bytes_ms = nbytes / PEAK_BYTES * 1e3
-            ops_ms = ops / PEAK_OPS[dtype] * 1e3
+            bound = _bound(dw_mm_act.fwd_work(got, *args), dtype)
             row = {"phase": phase, "kernel": name, "entry": label,
                    "dtype": str(dtype).replace("torch.", ""),
                    "x": [b, t, h, w, c_in], "c_mid": c_mid, "stride": s,
@@ -908,10 +914,7 @@ def phase_kernels(dw_mm_act, dw_conv, shapes=None, phase="kernels",
                    "path_launches": n, "in_kernel_line": counted,
                    "max_abs_err": err, "max_rel_err": err / max(scale, 1e-30),
                    "tol_abs": tol, "ms": ms, "plain_ms": plain_ms,
-                   "unfused_ms": unfused_ms,
-                   "bound_ms": max(bytes_ms, ops_ms),
-                   "bound_by": "bytes" if bytes_ms >= ops_ms else
-                   "operations", "bytes": nbytes, "ops": ops,
+                   "unfused_ms": unfused_ms, **bound,
                    "library_ms": None,
                    "library_note": "no single PyTorch call computes "
                                    "dwconv(relu(x@W1*sc+bi))"}
@@ -925,7 +928,8 @@ def phase_kernels(dw_mm_act, dw_conv, shapes=None, phase="kernels",
                 # run's work
                 for key, v in (("ms", ms), ("plain_ms", plain_ms),
                                ("unfused_ms", unfused_ms),
-                               ("bytes_ms", bytes_ms), ("ops_ms", ops_ms),
+                               ("bytes_ms", bound["bytes_ms"]),
+                               ("ops_ms", bound["ops_ms"]),
                                ("bound_ms", row["bound_ms"])):
                     agg[key] += n * v * counted
                 agg["launches"] += n * counted
@@ -1046,10 +1050,19 @@ def _agg() -> dict:
             "phase_d_ms": 0.0, "phase_d_bound_ms": 0.0}
 
 
-def _bound(nbytes: float, ops: float, dtype) -> dict:
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
-    ops_ms = ops / PEAK_OPS[dtype] * 1e3
-    return {"bytes": nbytes, "ops": ops, "bytes_ms": bytes_ms,
+def _bound(work, dtype) -> dict:
+    """The least time the card could take for a kernel's ``work`` (its
+    wrapper's ``utils.hw.Work`` formula): bytes over the card's HBM rate,
+    or its operations over the card's peak for the dtype (bf16 on the tensor
+    cores, f32 outside them; ``utils.hw.chip_peaks``), whichever is
+    larger."""
+    from coarse_fine_networks_torch.utils.hw import chip_peaks
+
+    peaks = chip_peaks()
+    bytes_ms = work.bytes / peaks.hbm_bw * 1e3
+    ops_ms = work.ops / (peaks.flops_bf16 if dtype == torch.bfloat16
+                         else peaks.flops_f32) * 1e3
+    return {"bytes": work.bytes, "ops": work.ops, "bytes_ms": bytes_ms,
             "ops_ms": ops_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
@@ -1078,8 +1091,9 @@ def _rel_err(got, ref) -> tuple[float, float]:
 def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
                    extra=None):
     """Each of ``cases`` (name -> kernel, plain version, unfused PyTorch
-    sequence, the nearest single PyTorch call, what that call is, bytes,
-    operations) held against its plain version and timed beside the other
+    sequence, the nearest single PyTorch call, what that call is, its
+    ``utils.hw.Work``) held against its plain version and timed beside the
+    other
     three; one row per case, ``meta`` naming the entry, with ``extra[name]``
     (fields of that case's row) where given.  A bf16 case at a ``counted``
     shape adds its times, weighted by ``n`` launches per train step, to
@@ -1087,8 +1101,8 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
     shape (long-cycle phase D's) adds its time and bound, weighted by its
     launches in one phase-D step, to ``phase_d_ms`` and
     ``phase_d_bound_ms``."""
-    for name, (kern, plain, unfused, nearest, near_what, nbytes,
-               ops) in cases.items():
+    for name, (kern, plain, unfused, nearest, near_what,
+               work) in cases.items():
         got, ref = kern(), plain()
         torch.cuda.synchronize()
         got = got if isinstance(got, tuple) else (got,)
@@ -1110,7 +1124,7 @@ def _hold_and_time(phase, cases, meta, dtype, n, counted, per_kernel,
                "ms": ms, "plain_ms": plain_ms,
                "unfused_ms": unfused_ms, "nearest_ms": nearest_ms,
                "nearest_call": near_what, "library_ms": None,
-               **_bound(nbytes, ops, dtype), **(extra or {}).get(name, {})}
+               **_bound(work, dtype), **(extra or {}).get(name, {})}
         emit(row)
         check(tol_ok, f"{name} {meta['entry']} {dtype}: errors {errs}")
         agg = per_kernel[name]
@@ -1308,9 +1322,6 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
                 act = torch.relu(x.float() * sc + bi).to(dtype)
                 return conv_bwd([False, True, False], act)[1]
 
-            n_x, n_g = x.numel(), g.numel()
-            esz = x.element_size()
-            vec = 2 * c * 4
             cases = {
                 f"dw_act_s{s}": (
                     lambda: dw_act.dw_bnrelu_conv3d(x, w, sc, bi, s),
@@ -1318,22 +1329,19 @@ def phase_train_kernels(dw_act, dw_conv, dw_mm_act) -> dict:
                     unfused_fwd, lambda: F.conv3d(a.permute(ncdhw), w_conv,
                                                   **conv),
                     "F.conv3d(groups=C) on the activated input",
-                    (n_x + n_g + w.numel()) * esz + vec,
-                    2 * 27 * n_g + 3 * n_x),
+                    dw_act.fwd_work(g, x, w, sc, bi, s)),
                 f"dw_act_dx_s{s}": (
                     lambda: dw_act.dw_act_dx(g, x, w, sc, bi, s),
                     lambda: dw_act.dw_act_dx_plain(g, x, w, sc, bi, s),
                     unfused_dx, lambda: conv_bwd([True, False, False]),
                     "aten.convolution_backward, input gradient only",
-                    (2 * n_x + n_g + w.numel()) * esz + vec + 2 * c * 4,
-                    2 * 27 * n_g + 6 * n_x),
+                    dw_act.dx_work(None, g, x, w, sc, bi, s)),
                 f"dw_act_wgrad_s{s}": (
                     lambda: dw_act.dw_act_wgrad(x, g, sc, bi, s),
                     lambda: dw_act.dw_act_wgrad_plain(x, g, sc, bi, s),
                     unfused_wgrad, lambda: conv_bwd([False, True, False]),
                     "aten.convolution_backward, weight gradient only",
-                    (n_x + n_g) * esz + vec + 27 * c * 4,
-                    2 * 27 * n_g + 3 * n_x),
+                    dw_act.wgrad_work(None, x, g, sc, bi, s)),
             }
             if s == 1:
                 extra = {"dw_act_s1": _act_fwd_exact(
@@ -1762,11 +1770,6 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
                                  + bi).to(dtype)
                 return conv_bwd(act, [False, True, False])[1]
 
-            n_x, n_g, n_a = x.numel(), g.numel(), a.numel()
-            esz = x.element_size()
-            # conv1's product (2·C_in·C_mid per position), the apply and the
-            # mask or relu, and the 27 taps
-            ops = 2 * c_in * n_a + 3 * n_a + 2 * 27 * n_g
             d_args = (g, x, w1, w, sc, bi, s)
             w_args = (x, w1, g, sc, bi, s)
             cases = {
@@ -1775,15 +1778,13 @@ def phase_mm_train_kernels(dw_mm_act, dw_mm_bn_train, dw_conv) -> dict:
                     lambda: dw_mm_bn_train.dw_mm_dx_mask_plain(*d_args),
                     unfused_dx, lambda: conv_bwd(a, [True, False, False]),
                     "aten.convolution_backward, input gradient only",
-                    (n_x + n_g + n_a + w1.numel() + w.numel()) * esz
-                    + 2 * c * 4, ops),
+                    dw_mm_bn_train.dx_mask_work(None, *d_args)),
                 f"dw_mm_wgrad_s{s}": (
                     lambda: dw_mm_act.dw_mm_wgrad(*w_args),
                     lambda: dw_mm_act.dw_mm_wgrad_plain(*w_args),
                     unfused_wgrad, lambda: conv_bwd(a, [False, True, False]),
                     "aten.convolution_backward, weight gradient only",
-                    (n_x + n_g + w1.numel()) * esz + 2 * c * 4 + 27 * c * 4,
-                    ops),
+                    dw_mm_act.wgrad_work(None, *w_args)),
             }
             extra = {f"dw_mm_dx_mask_s{s}": _mm_dx_exact(
                 dw_mm_act, dw_mm_bn_train, dw_conv, g, x, w1, w, sc, bi,
@@ -2031,6 +2032,145 @@ def phase_train(mods, route: str = "act", ref: dict | None = None):
     return {k: launches[k] for k in counted}, row
 
 
+# the CPU tests' coarse step (tests/_torch_port_util.py's COARSE)
+UTILS_SMALL = dict(TRAIN, b=2, t=8, hw=64, tf=16, tl=32, n_classes=7)
+UTILS_TIMED = 3  # steps timed by StepTimer and by CUDA events
+STEP_TIMER_TOL = 0.05
+
+
+def _step_runner(device: str, c: dict, dtype):
+    """One coarse train step by the act route at configuration ``c`` (as
+    :func:`phase_train` builds it) on ``device``: a function that runs a
+    step on the state the last one left and returns its loss tensor."""
+    from coarse_fine_networks_torch.models import CoarseNet, init_parameters
+    from coarse_fine_networks_torch.train import TrainState, make_train_step
+
+    model = init_parameters(CoarseNet("M", c["n_classes"], dropout_rate=0.5),
+                            torch.Generator().manual_seed(0)).to(device)
+    batch = _train_batch(device, torch.Generator(device=device).manual_seed(1),
+                         c["b"], c["t"], c["hw"], c["tf"], c["tl"],
+                         c["n_classes"], dtype)
+    step = make_train_step(model, align_corners=False,
+                           fusion_lr_mult=c["fusion_lr_mult"])
+    box = [TrainState.create(model)]
+    drop = torch.Generator(device=device).manual_seed(2)
+
+    def run():
+        box[0], m = step(box[0], batch, c["lr"], drop)
+        return m["loss"]
+    return run
+
+
+def _traced_counts(log_dir: Path, counters: dict) -> tuple[dict, dict]:
+    """Each port kernel function's launches in the one trace file under
+    ``log_dir`` (its ``kernel`` records) and the counters' for the same
+    work."""
+    files = sorted(log_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"utils: trace files {files}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    got = collections.Counter(_kernel_func(e["name"]) for e in events
+                              if e.get("cat") == "kernel")
+    want = {f: sum(counters.get(n, 0) for n in names)
+            for f, names in KERNEL_FUNCS.items()}
+    return {f: got.get(f, 0) for f in KERNEL_FUNCS}, want
+
+
+def phase_utils(mods, smi: str, train_row: dict) -> None:
+    """``utils/hw.py`` and ``utils/profiling.py`` on the card (phase 7b of
+    the module docstring); ``train_row`` is phase 7's row, whose mean step
+    time the full-width step's count is divided by."""
+    from coarse_fine_networks_torch.utils import hw, profiling
+
+    t0 = time.perf_counter()
+    peaks = hw.chip_peaks()
+    check(peaks.known and peaks == hw.H100_SXM,
+          f"utils: chip_peaks of {torch.cuda.get_device_name(0)}: {peaks}")
+
+    run = _step_runner("cuda", TRAIN, torch.bfloat16)
+    run().item()  # a warm-up step: the first call's plans and allocations
+    for m in mods:
+        m.reset_launches()
+    costs = hw.program_costs(run)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _launches(*mods).items() if v}
+    calls = {k: v[0] for k, v in costs["kernels"].items()}
+    check(sum(calls.values()) == sum(launches.values()),
+          f"utils: kernel calls counted {calls} against launches {launches}")
+    step_s = train_row["mean_step_ms"] / 1e3
+    util = hw.utilization(costs["flops"], costs["bytes"], step_s)
+
+    small = {dev: hw.program_costs(_step_runner(dev, UTILS_SMALL,
+                                                torch.float32))
+             for dev in ("cpu", "cuda")}
+    check(small["cpu"]["flops"] == small["cuda"]["flops"],
+          f"utils: the small step's FLOPs on the CPU "
+          f"{small['cpu']['flops']} and on the card "
+          f"{small['cuda']['flops']}")
+
+    timer, events_ms = profiling.StepTimer(), []
+    for _ in range(UTILS_TIMED):
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = []
+        with timer.measure(out):
+            out.append(run())
+        end.record()
+        end.synchronize()
+        events_ms.append(start.elapsed_time(end))
+    timer_ms = [t * 1e3 for t in timer.times]
+    apart = abs(sum(timer_ms) - sum(events_ms)) / sum(events_ms)
+
+    log_dir = SCRATCH / "utils_trace"
+    with profiling.trace(str(log_dir)):
+        for m in mods:
+            m.reset_launches()
+        run().item()
+    traced, want = _traced_counts(log_dir, _launches(*mods))
+
+    emit({"phase": "utils", "nvidia_smi": smi, "chip_peaks": peaks._asdict(),
+          "step": "phase train's: X3D-M, 157 classes, B8 T64 224² bf16, "
+                  "fusion ×10, act route",
+          "flops": costs["flops"], "bytes": costs["bytes"],
+          "kernels": costs["kernels"], "launches": launches,
+          "mean_step_ms": train_row["mean_step_ms"], **util,
+          "small_step": {dev: {"flops": v["flops"], "bytes": v["bytes"]}
+                         for dev, v in small.items()},
+          "step_timer_ms": timer_ms, "cuda_events_ms": events_ms,
+          "step_timer_apart": apart,
+          "traced": {f: n for f, n in traced.items() if n},
+          "counters": {f: n for f, n in want.items() if n},
+          "seconds": time.perf_counter() - t0})
+    check(apart <= STEP_TIMER_TOL,
+          f"utils: StepTimer {timer_ms} against CUDA events {events_ms}")
+    check(traced == want and any(traced.values()),
+          f"utils: traced kernel launches {traced} against the counters "
+          f"{want}")
+
+    # the examples as a user runs them, both at once (a process each)
+    t1 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-m", f"coarse_fine_networks_torch.examples.{name}",
+         *args, "--device", "cuda"], cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name, args in (("demo_synthetic",
+                            [str(SCRATCH / "demo_synthetic")]),
+                           ("demo_serving", []))}
+    try:
+        for name, proc in procs.items():
+            out, err = proc.communicate(timeout=600)
+            emit({"phase": "utils", "example": name, "rc": proc.returncode,
+                  "seconds": time.perf_counter() - t1,
+                  "stdout_tail": out[-800:], "stderr_tail": err[-1500:]})
+            check(proc.returncode == 0, f"utils: the example {name} failed")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
 def _stage(name: str) -> str:
     top = name.split(".")[0]
     if top.startswith(("rw", "mix")):
@@ -2144,13 +2284,14 @@ def fine_entry_cases(crop):
 
 
 def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
-                       lib_what, nbytes, ops, n, counted, agg,
+                       lib_what, work, n, counted, agg,
                        also=(), also_exact=False) -> dict:
     """Kernel ``kern`` held against its plain version, and against each of
     ``also`` (``(name, fn)``: another kernel of the same function, or the
     same kernel again; with ``also_exact`` the difference must be 0), then
     timed beside the plain version and ``library``, the one PyTorch call
-    that computes the same function; one row, ``meta`` naming the shape,
+    that computes the same function, ``work`` its ``utils.hw.Work``; one
+    row, ``meta`` naming the shape,
     which it returns.  A bf16 row at a ``counted`` shape adds its times,
     weighted by ``n`` (its launches on the path), to ``agg``."""
     got, ref = kern(), plain()
@@ -2167,7 +2308,7 @@ def _hold_time_library(phase, name, meta, dtype, kern, plain, library,
            **({"max_abs_err_vs": also_err} if also else {}),
            "ms": cuda_ms(kern, 20), "plain_ms": cuda_ms(plain, 2, 1),
            "library_ms": cuda_ms(library, 10), "library_call": lib_what,
-           **_bound(nbytes, ops, dtype)}
+           **_bound(work, dtype)}
     emit(row)
     tol = TOL[dtype] * max(scale, 1.0)
     check(err <= tol, f"{what}: max abs err {err} (max |plain| {scale})")
@@ -2294,7 +2435,6 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
                     return torch.ops.aten.convolution_backward(
                         gc, xc, w_conv, None, *bw, mask)
 
-                n_x, n_g, esz = x.numel(), g.numel(), x.element_size()
                 # launches per step: the stride-1 forward kernel is also
                 # each block's dx
                 cases = {f"dw_conv_s{s}": (
@@ -2303,7 +2443,7 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
                     lambda: F.conv3d(xc, w_conv, stride=(1, s, s),
                                      padding=1, groups=c),
                     "F.conv3d(groups=C), channels_last_3d",
-                    (n_x + n_g + w.numel()) * esz, 2 * 27 * n_g,
+                    dw_conv.fwd_work(g, x, w, s),
                     blocks * (2 if s == 1 else 1))}
                 if s == 2:
                     cases["dw_conv_dx_s2"] = (
@@ -2311,13 +2451,13 @@ def phase_fine_kernels(dw_conv, dw_stencil) -> dict:
                         lambda: dw_conv.dw_conv_dx_s2_plain(g, w, (h, h)),
                         lambda: conv_bwd([True, False, False])[0],
                         "aten.convolution_backward, input gradient only",
-                        (n_x + n_g + w.numel()) * esz, 2 * 27 * n_g, blocks)
+                        dw_conv.dx_work(x, g, w, (h, h)), blocks)
                 cases[f"dw_conv_wgrad_s{s}"] = (
                     lambda: dw_conv.dw_conv_wgrad(x, g, s),
                     lambda: dw_conv.dw_conv_wgrad_plain(x, g, s),
                     lambda: conv_bwd([False, True, False])[1],
                     "aten.convolution_backward, weight gradient only",
-                    (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, blocks)
+                    dw_conv.wgrad_work(None, x, g, s), blocks)
                 also = {
                     "dw_conv_s1": (("dw_stencil_s1",
                                     lambda: dw_stencil.dw_stencil3d(x, w)),),
@@ -2486,8 +2626,8 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                  / taps ** 0.5).to(dtype)
             w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
             pad = [k // 2 for k in ks]
-            y_shape = dw_stencil._out_shape(x, strides)
-            n_x, n_y, esz = x.numel(), math.prod(y_shape), x.element_size()
+            y_meta = torch.empty(dw_stencil._out_shape(x, strides),
+                                 dtype=dtype, device="meta")
             meta = {"entry": label, "x": list(shape), "taps": list(ks),
                     "strides": list(strides)}
             s = strides[2]
@@ -2506,7 +2646,7 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                 lambda: F.conv3d(x.permute(ncdhw), w_conv, stride=strides,
                                  padding=pad, groups=c),
                 "F.conv3d(groups=C), channels_last_3d",
-                (n_x + n_y + w.numel()) * esz, 2 * taps * n_y, n_fwd, counted,
+                dw_stencil.fwd_work(y_meta, x, w, strides), n_fwd, counted,
                 per_kernel[name], also, also_exact=True)
             by_path(name, label, row, n_fwd)
             if s == 1:
@@ -2527,7 +2667,7 @@ def phase_stencil_kernels(dw_stencil, dw_conv) -> dict:
                         g.permute(ncdhw), x.permute(ncdhw), w_conv, None,
                         *bw, [False, True, False])[1],
                     "aten.convolution_backward, weight gradient only",
-                    2 * n_x * esz + taps * c * 4, 2 * taps * n_x, n_wg,
+                    dw_stencil.wgrad_work(None, x, g, ks), n_wg,
                     counted, per_kernel["dw_stencil_wgrad"],
                     (("dw_stencil_wgrad again",
                       lambda: dw_stencil.dw_stencil_wgrad(x, g, ks)),),
@@ -3834,7 +3974,6 @@ def phase_xl_stem(dw_stencil) -> dict:
             w = (torch.randn(STEM_K + (c,), generator=gen, device="cuda")
                  / math.prod(STEM_K) ** 0.5).to(dtype)
             w_conv = w.permute(3, 0, 1, 2).unsqueeze(1).contiguous()
-            n_y = math.prod(dw_stencil._out_shape(x, (1, 1, 1)))
             meta = {"entry": f"xl.serve.{tower}", "x": list(shape),
                     "taps": list(STEM_K), "strides": [1, 1, 1],
                     "plan": _plan_row_stencil(dw_stencil, shape, STEM_K,
@@ -3846,8 +3985,7 @@ def phase_xl_stem(dw_stencil) -> dict:
                 lambda: F.conv3d(x.permute(0, 4, 1, 2, 3), w_conv,
                                  padding=pad, groups=c),
                 "F.conv3d(groups=C), channels_last_3d",
-                (x.numel() + n_y + w.numel()) * x.element_size(),
-                2 * math.prod(STEM_K) * n_y, calls, True, agg)
+                dw_stencil.fwd_work(x, x, w), calls, True, agg)
             del x
         torch.cuda.empty_cache()
     return agg
@@ -4465,7 +4603,6 @@ def phase_t2_kernels(dw_conv) -> dict:
                     return torch.ops.aten.convolution_backward(
                         gc, xc, w_conv, None, *bw, mask)
 
-                n_x, n_g, esz = x.numel(), g.numel(), x.element_size()
                 cases = {
                     "dw_conv_t2": (
                         lambda: dw_conv.dw_conv3d(x, k, T2),
@@ -4473,19 +4610,19 @@ def phase_t2_kernels(dw_conv) -> dict:
                         lambda: F.conv3d(xc, w_conv, stride=2, padding=1,
                                          groups=c),
                         "F.conv3d(groups=C, stride=2), channels_last_3d",
-                        (n_x + n_g + k.numel()) * esz, 2 * 27 * n_g, 1),
+                        dw_conv.fwd_work(g, x, k, T2), 1),
                     "dw_conv_dx_t2": (
                         lambda: dw_conv.dw_conv_dx_t2(g, k, (t, h, w)),
                         lambda: dw_conv.dw_conv_dx_t2_plain(g, k, (t, h, w)),
                         lambda: conv_bwd([True, False, False])[0],
                         "aten.convolution_backward, input gradient only",
-                        (n_x + n_g + k.numel()) * esz, 2 * 27 * n_g, 1),
+                        dw_conv.dx_work(x, g, k, (t, h, w)), 1),
                     "dw_conv_wgrad_t2": (
                         lambda: dw_conv.dw_conv_wgrad(x, g, T2),
                         lambda: dw_conv.dw_conv_wgrad_plain(x, g, T2),
                         lambda: conv_bwd([False, True, False])[1],
                         "aten.convolution_backward, weight gradient only",
-                        (n_x + n_g) * esz + 27 * c * 4, 2 * 27 * n_g, 1)}
+                        dw_conv.wgrad_work(None, x, g, T2), 1)}
                 also = {
                     "dw_conv_t2": (("dw_conv_s2, frames ::2",
                                     lambda: dw_conv.dw_conv3d(x, k, 2)[:, ::2]
@@ -5572,6 +5709,59 @@ def _diff(a: torch.Tensor, b: torch.Tensor) -> tuple:
     return int(d.max()), float(d.float().mean())
 
 
+# threads launching crop_resize_kernel at once, and the calls each makes:
+# crops of 16 to 479 pixels need 5,376 to 33,664 bytes of shared memory a
+# block (crop_plan), so one thread's limit for the kernel is set while
+# another's launch of it is in flight
+CROP_THREADS, CROP_THREAD_CALLS = 8, 60
+
+
+def _crop_threads(fd) -> dict:
+    """``crop_resize`` called from ``CROP_THREADS`` threads at once, each
+    on a stream of its own with its own random crops, against
+    ``crop_resize_plain``: the calls made, those refused (the first
+    error), and the largest difference."""
+    import threading
+
+    h, w = 480, 1280
+    frames = torch.randint(0, 256, (8, h, w, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(37)
+                           ).cuda()
+    made, refused, diff, lock = [0], [], [0], threading.Lock()
+
+    def worker(seed):
+        r = np.random.default_rng(seed)
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            for _ in range(CROP_THREAD_CALLS):
+                cw = int(r.integers(16, h))
+                box = (int(r.integers(0, w - cw)), int(r.integers(0, h - cw)),
+                       cw, cw)
+                out = int(r.choice([112, 224, 256]))
+                try:
+                    y = fd.crop_resize(frames, [box] * len(frames), out)
+                except RuntimeError as e:
+                    with lock:
+                        refused.append(str(e))
+                    continue
+                d = _diff(y, fd.crop_resize_plain(frames, [box] * len(frames),
+                                                  out))[0]
+                with lock:
+                    made[0] += 1
+                    diff[0] = max(diff[0], d)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(CROP_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    return {"threads": CROP_THREADS, "calls": made[0],
+            "refused": len(refused), "first_refusal": refused[:1],
+            "max_diff": diff[0]}
+
+
 def _outside(stat: tuple, bound: tuple) -> bool:
     return stat[0] > bound[0] or stat[1] > bound[1]
 
@@ -5699,8 +5889,6 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
         out = 224
         crop_f32 = raw[:, y1:y1 + ch_, x1:x1 + cw].permute(
             0, 3, 1, 2).float().contiguous()
-        nbytes = n * (ch_ * cw * 3 + out * out * 3)
-        ops = n * out * out * 3 * 20
         # the kernel alone: its launch with the wrapper's arguments, no
         # Python around it
         (la,) = fd.crop_launches(boxes, 3, out)
@@ -5728,7 +5916,8 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
                "library_call": "F.interpolate(bilinear, align_corners=False, "
                                "antialias=False) on the f32 crop (N, 3, ch, "
                                "cw)",
-               **_bound(nbytes, ops, torch.float32)}
+               **_bound(fd.crop_work(bare_y, raw, boxes, out),
+                        torch.float32)}
         timed[label] = row
         del crop_f32, bare_y
 
@@ -5751,13 +5940,14 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     extra["past_the_cap_launches"] = fd.LAUNCHES["crop_resize_kernel"] - 1
     bits += [extra["odd_pitch"], extra["past_the_cap"]]
     del many
+    threaded = _crop_threads(fd)
     fd.reset_launches()
     row = {"phase": "decode", "source": f"{w}x{h} synthetic JPEG, quality "
                                        f"{c['quality']}, {c['frames']} "
                                        f"frames a kind",
            "kernel_vs_plain_max": max(bits),
            "mixed_clip": {"frames": mixed, "launches": mixed_launches},
-           "odd_and_past_the_cap": extra,
+           "odd_and_past_the_cap": extra, "threads": threaded,
            "kinds": kinds, "timed": timed,
            "nvjpeg_decode_ms_per_clip": dec_ms,
            "nvjpeg_decode_ms_per_frame": min(dec_ms) / n,
@@ -5771,6 +5961,11 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     check(extra["past_the_cap_launches"] == 2,
           f"decode: {fd.CROP_BOXES + 3} frames took "
           f"{extra['past_the_cap_launches']} launches, not 2")
+    check(threaded["refused"] == 0
+          and threaded["calls"] == CROP_THREADS * CROP_THREAD_CALLS
+          and threaded["max_diff"] == 0,
+          f"decode: crop_resize from {CROP_THREADS} threads at once: "
+          f"{threaded}")
     check(mixed_launches == 3 and tuple(got.shape) == (6, 224, 224, 3),
           f"decode: a mixed clip took {mixed_launches} launches, "
           f"shape {tuple(got.shape)}")
@@ -6303,6 +6498,8 @@ def main() -> int:
             phase_card_vs_cpu()
             act_launches, train_row = phase_train(mods)
             launches.update(act_launches)
+            torch.cuda.empty_cache()
+            phase_utils(mods, smi, train_row)
             torch.cuda.empty_cache()
             phase_train_card_vs_cpu()
             launches.update(phase_fine_train(mods))

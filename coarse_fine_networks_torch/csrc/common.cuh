@@ -12,6 +12,10 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <utility>
+
 namespace cfn {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -135,12 +139,25 @@ __device__ __forceinline__ float mm_band(int nk, int Cin) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// The shared-memory limit is a per-device attribute: set it on every launch,
-// so the kernel runs on whichever card is current.
+// The shared-memory limit is a per-device attribute of a kernel, and a
+// launch that asks for more than the limit is refused (cudaErrorInvalidValue).
+// Threads launch the same kernel at once (a loader's workers), so a limit is
+// only ever raised, under a lock, on the current card: a lower value set
+// between another thread's set and its launch would refuse that launch.
 template <typename K>
 int set_smem(K kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  static std::mutex mu;
+  static std::map<std::pair<const void*, int>, size_t> limit;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(mu);
+  size_t& cur = limit[{reinterpret_cast<const void*>(kernel), dev}];
+  if (bytes <= cur) return 0;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) cur = bytes;
+  return (int)e;
 }
 
 }  // namespace cfn

@@ -72,6 +72,8 @@
 
 #include <vector>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int CROP_THREADS = 256;
@@ -246,10 +248,7 @@ extern "C" int cfn_crop_resize(const void* src, int n, int h, int pitch,
   }
   const int smem = crop_smem(rows, span, out);
   if (smem > SMEM_MAX) return cudaErrorInvalidValue;
-  if (cudaFuncSetAttribute(crop_resize_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
+  if (int e = cfn::set_smem(crop_resize_kernel, smem)) return e;
   const int vec = (reinterpret_cast<uintptr_t>(src) | pitch) % 16 == 0;
   const dim3 grid((out + rows - 1) / rows, n);
   crop_resize_kernel<<<grid, CROP_THREADS, smem,

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.hw import Work, kernel_work
 from .dw_mm_act import DX_S1_LIBRARY, _launch, _out_hw
 from .dw_mm_act import LIBRARIES, stencil_f32, wgrad_f32  # noqa: F401
 
@@ -101,6 +102,31 @@ def _activate(x, sc, bi):
     return torch.relu(x.float() * sc + bi).to(x.dtype)
 
 
+# ---- the work of each kernel's function (its roofline bound; the count of
+# ``utils.hw.program_costs``): x, g and y read or written once, the taps and
+# the f32 (sc, bi) read once; 27 taps an output element; the apply and the
+# relu (and in the dx the mask, the scale and the two sums) an x element
+
+def fwd_work(y, x, w_dw, sc, bi, stride) -> Work:
+    """:func:`dw_bnrelu_conv3d`'s work, ``y`` its output."""
+    return Work((x.numel() + y.numel() + w_dw.numel()) * x.element_size()
+                + 2 * sc.numel() * 4, 2 * 27 * y.numel(), 3 * x.numel())
+
+
+def dx_work(out, g, x, w_dw, sc, bi, stride) -> Work:
+    """:func:`dw_act_dx`'s work, ``out`` its output: dx, and the f32
+    ``(2, C)`` sums written beside (sc, bi) read."""
+    return Work((2 * x.numel() + g.numel() + w_dw.numel()) * x.element_size()
+                + 2 * 2 * sc.numel() * 4, 2 * 27 * g.numel(), 6 * x.numel())
+
+
+def wgrad_work(dk, x, g, sc, bi, stride) -> Work:
+    """:func:`dw_act_wgrad`'s work, ``dk`` its output."""
+    return Work((x.numel() + g.numel()) * x.element_size()
+                + 2 * sc.numel() * 4 + 27 * x.shape[-1] * 4,
+                2 * 27 * g.numel(), 3 * x.numel())
+
+
 # ---- forward: the act mode of K1 (stride 1) and K4 (stride 2) ---------------
 
 def dw_bnrelu_conv3d_plain(x: torch.Tensor, w_dw: torch.Tensor,
@@ -112,6 +138,7 @@ def dw_bnrelu_conv3d_plain(x: torch.Tensor, w_dw: torch.Tensor,
     return stencil_f32(_activate(x, sc, bi), w_dw, stride).to(x.dtype)
 
 
+@kernel_work(fwd_work)
 def dw_bnrelu_conv3d(x: torch.Tensor, w_dw: torch.Tensor, sc: torch.Tensor,
                      bi: torch.Tensor, stride: int) -> torch.Tensor:
     """Fused ``dwconv3³(relu(x·sc + bi))`` at stride ``(1, s, s)``.
@@ -169,6 +196,7 @@ def dw_act_dx_plain(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
     return (dam * sc).to(x.dtype), red
 
 
+@kernel_work(dx_work)
 def dw_act_dx(g: torch.Tensor, x: torch.Tensor, w_dw: torch.Tensor,
               sc: torch.Tensor, bi: torch.Tensor, stride: int
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -210,6 +238,7 @@ def dw_act_wgrad_plain(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
     return wgrad_f32(_activate(x, sc, bi), g, stride)
 
 
+@kernel_work(wgrad_work)
 def dw_act_wgrad(x: torch.Tensor, g: torch.Tensor, sc: torch.Tensor,
                  bi: torch.Tensor, stride: int) -> torch.Tensor:
     """Weight gradient of :func:`dw_bnrelu_conv3d` (see

@@ -99,6 +99,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.hw import Work, kernel_work
 from ._build import CudaLibrary, I, P
 from .dw_act import _check
 from .dw_mm_act import LIBRARIES as ENTRY_LIBRARIES
@@ -863,6 +864,30 @@ def dw_conv3d_plain(x: torch.Tensor, w_dw: torch.Tensor,
     return stencil_f32(x, w_dw, stride).to(x.dtype)
 
 
+# ---- the work of each kernel's function (its roofline bound; the count of
+# ``utils.hw.program_costs``): x (or dx), g (or y) and the taps moved once,
+# the f32 taps' gradient written once; 27 taps a g (or y) element
+
+def fwd_work(y, x, w_dw, stride) -> Work:
+    """:func:`dw_conv3d`'s work, ``y`` its output."""
+    return Work((x.numel() + y.numel() + w_dw.numel()) * x.element_size(),
+                2 * 27 * y.numel())
+
+
+def dx_work(dx, g, w_dw, hw) -> Work:
+    """:func:`dw_conv_dx_s2`'s and :func:`dw_conv_dx_t2`'s work, ``dx``
+    the output."""
+    return Work((dx.numel() + g.numel() + w_dw.numel()) * g.element_size(),
+                2 * 27 * g.numel())
+
+
+def wgrad_work(dk, x, g, stride) -> Work:
+    """:func:`dw_conv_wgrad`'s work, ``dk`` its output."""
+    return Work((x.numel() + g.numel()) * x.element_size()
+                + 27 * x.shape[-1] * 4, 2 * 27 * g.numel())
+
+
+@kernel_work(fwd_work)
 def dw_conv3d(x: torch.Tensor, w_dw: torch.Tensor, stride) -> torch.Tensor:
     """Depthwise 3³ conv at stride ``(1, s, s)`` or ``T2`` with SAME zero
     padding.
@@ -910,6 +935,7 @@ def dw_conv_dx_s2_plain(g: torch.Tensor, w_dw: torch.Tensor,
     return stencil_f32(up, torch.flip(w_dw, (0, 1, 2)), 1).to(g.dtype)
 
 
+@kernel_work(dx_work)
 def dw_conv_dx_s2(g: torch.Tensor, w_dw: torch.Tensor,
                   hw: tuple[int, int]) -> torch.Tensor:
     """dx of :func:`dw_conv3d` at stride 2: ``g (B, T, ⌈H/2⌉, ⌈W/2⌉, C)``
@@ -946,6 +972,7 @@ def dw_conv_dx_t2_plain(g: torch.Tensor, w_dw: torch.Tensor,
     return stencil_f32(up, torch.flip(w_dw, (0, 1, 2)), 1).to(g.dtype)
 
 
+@kernel_work(dx_work)
 def dw_conv_dx_t2(g: torch.Tensor, w_dw: torch.Tensor,
                   thw: tuple[int, int, int]) -> torch.Tensor:
     """dx of :func:`dw_conv3d` at ``T2``: ``g (B, ⌈T/2⌉, ⌈H/2⌉, ⌈W/2⌉, C)``
@@ -978,6 +1005,7 @@ def dw_conv_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
     return wgrad_f32(x, g, stride)
 
 
+@kernel_work(wgrad_work)
 def dw_conv_wgrad(x: torch.Tensor, g: torch.Tensor,
                   stride) -> torch.Tensor:
     """Weight gradient of :func:`dw_conv3d` (see :func:`dw_conv_wgrad_plain`),

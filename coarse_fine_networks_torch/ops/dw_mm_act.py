@@ -39,6 +39,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from ..utils.hw import Work, kernel_work
 from ._build import NVCC_FLAGS, CudaLibrary, I, P  # noqa: F401 (re-export)
 
 # The stride-1 forward's source (K1 mm; K4 mm, the stride-2 forward, is in
@@ -230,6 +231,32 @@ def wgrad_f32(a: torch.Tensor, g: torch.Tensor, stride) -> torch.Tensor:
     return torch.stack(dk)
 
 
+# ---- the work of each kernel's function (its roofline bound; the count of
+# ``utils.hw.program_costs``): x, g, y read or written once, w1, the taps and
+# the f32 (sc, bi) once; conv1's product (2·C_in·C_mid an activation), 27
+# taps an output element; the apply and the relu an activation
+
+def fwd_work(y, x, w1, w_dw, sc, bi, stride) -> Work:
+    """:func:`dw_mm_bnrelu_conv3d`'s work, ``y`` its output."""
+    return Work((x.numel() + y.numel() + w1.numel() + w_dw.numel())
+                * x.element_size() + 2 * w1.shape[1] * 4,
+                2 * (x.numel() * w1.shape[1] + 27 * y.numel()))
+
+
+def activations(x, w1) -> int:
+    """Elements of conv1's output (x's positions × C_mid)."""
+    return x.numel() // w1.shape[0] * w1.shape[1]
+
+
+def wgrad_work(dk, x, w1, g, sc, bi, stride) -> Work:
+    """:func:`dw_mm_wgrad`'s work, ``dk`` its output."""
+    c, n_a = w1.shape[1], activations(x, w1)
+    return Work((x.numel() + g.numel() + w1.numel()) * x.element_size()
+                + 2 * c * 4 + 27 * c * 4,
+                2 * w1.shape[0] * n_a + 2 * 27 * g.numel(), 3 * n_a)
+
+
+@kernel_work(fwd_work)
 def dw_mm_bnrelu_conv3d(x: torch.Tensor, w1: torch.Tensor,
                         w_dw: torch.Tensor, sc: torch.Tensor,
                         bi: torch.Tensor, stride: int) -> torch.Tensor:
@@ -279,6 +306,7 @@ def dw_mm_wgrad_plain(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
     return wgrad_f32(_mm_activate(x, w1, sc, bi), g, stride)
 
 
+@kernel_work(wgrad_work)
 def dw_mm_wgrad(x: torch.Tensor, w1: torch.Tensor, g: torch.Tensor,
                 sc: torch.Tensor, bi: torch.Tensor,
                 stride: int) -> torch.Tensor:

@@ -33,7 +33,8 @@ import os
 import torch
 
 from ..parallel import mesh
-from .dw_mm_act import (DX_S1_LIBRARY, _check,
+from ..utils.hw import Work, kernel_work
+from .dw_mm_act import (DX_S1_LIBRARY, _check, activations,
                         _check_kernel_input, _launch, _mm_product,
                         dw_mm_bnrelu_conv3d, dw_mm_wgrad, mm_f32, stencil_f32)
 
@@ -78,6 +79,18 @@ def dw_mm_dx_mask_plain(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
     return torch.where(keep, da, 0.0).to(g.dtype)
 
 
+def dx_mask_work(dam, g, x, w1, w_dw, sc, bi, stride) -> Work:
+    """:func:`dw_mm_dx_mask`'s work, ``dam`` its output: g, x, dam, w1 and
+    the taps moved once, the f32 (sc, bi) read once; conv1's product for
+    the mask (2·C_in·C_mid an activation), 27 taps a g element; the apply
+    and the mask an activation."""
+    c, n_a = w1.shape[1], activations(x, w1)
+    return Work((x.numel() + g.numel() + n_a + w1.numel() + w_dw.numel())
+                * x.element_size() + 2 * c * 4,
+                2 * w1.shape[0] * n_a + 2 * 27 * g.numel(), 3 * n_a)
+
+
+@kernel_work(dx_mask_work)
 def dw_mm_dx_mask(g: torch.Tensor, x: torch.Tensor, w1: torch.Tensor,
                   w_dw: torch.Tensor, sc: torch.Tensor, bi: torch.Tensor,
                   stride: int) -> torch.Tensor:

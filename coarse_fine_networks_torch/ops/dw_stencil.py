@@ -48,6 +48,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.hw import Work, kernel_work
 from ._build import CudaLibrary, I, P
 from .dw_conv import (LIBRARY_S2, dw_conv3d_plain, dw_conv_dx_s2,
                       dw_conv_wgrad, plan_s2_fwd)
@@ -251,6 +252,26 @@ def dw_stencil3d_plain(x: torch.Tensor, w: torch.Tensor,
     return y.to(x.dtype)
 
 
+# ---- the work of each kernel's function (its roofline bound; the count of
+# ``utils.hw.program_costs``): x, g or y and the taps moved once, the f32
+# taps' gradient written once; a multiply-add a tap and output (or g)
+# element
+
+def fwd_work(y, x, w, strides=S1) -> Work:
+    """:func:`dw_stencil3d`'s work, ``y`` its output."""
+    taps = w.shape[0] * w.shape[1] * w.shape[2]
+    return Work((x.numel() + y.numel() + w.numel()) * x.element_size(),
+                2 * taps * y.numel())
+
+
+def wgrad_work(dk, x, g, ksize) -> Work:
+    """:func:`dw_stencil_wgrad`'s work, ``dk`` its output."""
+    taps = ksize[0] * ksize[1] * ksize[2]
+    return Work((x.numel() + g.numel()) * x.element_size()
+                + taps * x.shape[-1] * 4, 2 * taps * g.numel())
+
+
+@kernel_work(fwd_work)
 def dw_stencil3d(x: torch.Tensor, w: torch.Tensor,
                  strides=S1) -> torch.Tensor:
     """Depthwise conv of ``x (B, T, H, W, C)`` with taps ``w (KT, KH, KW,
@@ -299,6 +320,7 @@ def dw_stencil_wgrad_plain(x: torch.Tensor, g: torch.Tensor,
     return torch.stack(taps)
 
 
+@kernel_work(wgrad_work)
 def dw_stencil_wgrad(x: torch.Tensor, g: torch.Tensor,
                      ksize) -> torch.Tensor:
     """The taps' gradient of :func:`dw_stencil3d` at stride 1 for taps of

@@ -38,6 +38,7 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils.hw import Work, kernel_work
 from ._build import CudaLibrary, I, P, cuda_home
 
 SZ = ctypes.c_size_t
@@ -195,6 +196,17 @@ def crop_launches(boxes: np.ndarray, channels: int,
             for i in range(0, len(b32), CROP_BOXES)]
 
 
+def crop_work(y, frames, boxes, out: int) -> Work:
+    """:func:`crop_resize`'s work, ``y`` its output: each frame's box
+    read once and its ``out``² RGB pixels written once (uint8); about 20
+    operations an output element (the bilinear taps' weights and sums, the
+    rounding), none of them a product's FLOPs."""
+    b = np.asarray(boxes, np.int64).reshape(-1, 4)
+    return Work(int((b[:, 2] * b[:, 3]).sum()) * frames.shape[-1]
+                + y.numel(), 0, y.numel() * 20)
+
+
+@kernel_work(crop_work)
 def crop_resize(frames: torch.Tensor, boxes, out: int) -> torch.Tensor:
     """:func:`crop_resize_plain`'s function: on a CPU tensor its plain
     version, on a CUDA tensor ``crop_resize_kernel`` on the current stream

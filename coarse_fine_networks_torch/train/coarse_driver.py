@@ -48,6 +48,7 @@ from ..models import CoarseNet, init_parameters
 from ..models.surgery import set_bn_splits
 from ..ops.resample import linear_resize
 from ..parallel import mesh
+from ..utils.hw import enable_compilation_cache
 from .common import (driver_device, iter_train_batches, load_pretrained,
                      model_batch, preemption_guard, resume, save_train_state)
 from .fine_driver import _add_ap_ranks, build_transforms, train_shard
@@ -133,6 +134,7 @@ def run(cfg) -> Dict[str, Any]:
     interruption (SIGTERM, an error) checkpoints the latest step before it
     propagates, and ``maybe_resume`` continues from it.  On
     ``cfg.mesh_devices`` ranks (rank 0's results)."""
+    enable_compilation_cache()
     return mesh.run_data_parallel(_run, cfg)
 
 

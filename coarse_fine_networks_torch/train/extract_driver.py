@@ -20,6 +20,7 @@ from ..models import FineNet, init_parameters
 from ..models.fine import FEAT_KEYS
 from ..models.layers import aggregate_sub_bn_stats
 from ..models.surgery import set_bn_splits
+from ..utils.hw import enable_compilation_cache
 from .common import driver_device, load_pretrained, model_batch
 
 log = logging.getLogger("cfn_torch")
@@ -30,6 +31,7 @@ def run(cfg, save_dir: str, fine_ckpt: Optional[str] = None,
     """Extract every video of ``splits`` (whole videos either way); returns
     the number of videos.  ``fine_ckpt``: a reference ``.pt`` or the port's
     ``.ckpt`` of the fine stream (its logits head is ignored)."""
+    enable_compilation_cache()
     device = driver_device(cfg)
     dtype = getattr(torch, cfg.compute_dtype)
     for k in FEAT_KEYS:

@@ -47,6 +47,7 @@ from ..metrics import APMeter
 from ..models import FineNet, init_parameters
 from ..models.surgery import set_bn_splits
 from ..parallel import mesh
+from ..utils.hw import enable_compilation_cache
 from .common import (driver_device, iter_train_batches, load_pretrained,
                      model_batch, preemption_guard, resume, save_train_state)
 from .multigrid import LongCycleRunner, LongCycleSchedule
@@ -148,6 +149,7 @@ def run(cfg) -> Dict[str, Any]:
     interruption (SIGTERM, an error) checkpoints the latest step before it
     propagates, and ``maybe_resume`` continues from it.  On
     ``cfg.mesh_devices`` ranks (rank 0's results)."""
+    enable_compilation_cache()
     return mesh.run_data_parallel(_run, cfg)
 
 

@@ -42,6 +42,7 @@ from ..data.loader import PrefetchLoader
 from ..models import FineNet, init_parameters
 from ..models.surgery import set_bn_splits
 from ..parallel import mesh
+from ..utils.hw import enable_compilation_cache
 from .common import (driver_device, iter_train_batches, preemption_guard,
                      prepare_clips, resume, save_train_state)
 from .fine_driver import build_transforms, train_shard
@@ -152,6 +153,7 @@ def run(cfg) -> Dict[str, Any]:
     """Pretrain under the preemption guard; ``cfg.anno`` is the
     Kinetics-style JSON (:mod:`..data.kinetics`).  On ``cfg.mesh_devices``
     ranks (rank 0's results)."""
+    enable_compilation_cache()
     return mesh.run_data_parallel(_run, cfg)
 
 

@@ -1,5 +1,6 @@
 """Utilities of the port (counterpart of ``coarse_fine_networks_tpu/utils``):
-so far the drivers' logger."""
+the drivers' logger, the card's peaks with the count of a program's work
+(:mod:`.hw`), and tracing and step timing (:mod:`.profiling`)."""
 
 from .logging import get_logger
 

@@ -1,8 +1,14 @@
 """Helpers for the port's parity tests: JAX variable trees filled from
 numpy, and loading them into port modules through ``ckpt.from_jax``."""
 
+import fcntl
 import functools
+import hashlib
 import math
+import os
+import shutil
+import subprocess
+import tempfile
 
 import numpy as np
 import torch
@@ -63,6 +69,62 @@ def load_port(port_module, variables, prefix=(), strip=""):
 
 def t(a):
     return torch.from_numpy(np.array(a))
+
+
+def jax_native_library():
+    """Load the JAX package's native library (``native/libcfn_data.so``)
+    into its loader, building it first where needed; None, or why it
+    cannot be built (the compiler's message).
+
+    The JAX loader (``data/native.py``'s ``_load``) runs ``make`` in
+    ``native/`` when the library is missing and loads whatever file is
+    there, so a process that looks while another is linking gets "file too
+    short" and caches the failure: under the tier-1 command's six workers,
+    which all import the test files at once on a tree without the library,
+    the library's tests then skip.  Here one process at a time (an
+    exclusive ``fcntl`` lock) builds it with ``native/Makefile`` in a
+    temporary directory and moves it into a cache named by the sources'
+    hash, and into ``native/``, by ``os.replace``, so no process sees a
+    partial file; the loader is then probed again on the cached copy."""
+    from coarse_fine_networks_tpu.data import native as jn
+
+    if jn._LIB is not None:
+        return None
+    src = jn._NATIVE_DIR
+    digest = hashlib.sha256()
+    for name in ("Makefile", "cfn_data.cpp"):
+        with open(os.path.join(src, name), "rb") as f:
+            digest.update(f.read())
+    cache = os.path.join(tempfile.gettempdir(),
+                         f"cfn_native_{digest.hexdigest()[:16]}")
+    os.makedirs(cache, exist_ok=True)
+    so = os.path.join(cache, "libcfn_data.so")
+    with open(os.path.join(cache, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            work = tempfile.mkdtemp(dir=cache)
+            try:
+                for name in ("Makefile", "cfn_data.cpp"):
+                    shutil.copy(os.path.join(src, name), work)
+                proc = subprocess.run(["make", "-C", work, "-s"],
+                                      capture_output=True, text=True,
+                                      timeout=300)
+                if proc.returncode:
+                    return (f"the JAX package's native library does not "
+                            f"build: {proc.stderr[-2000:]}")
+                os.replace(os.path.join(work, "libcfn_data.so"), so)
+            finally:
+                shutil.rmtree(work, ignore_errors=True)
+        tmp = f"{jn._SO}.{os.getpid()}.tmp"
+        shutil.copy(so, tmp)
+        os.replace(tmp, jn._SO)
+        old = jn._SO
+        jn._SO, jn._LIB, jn._TRIED = so, None, False
+        try:
+            ok = jn.available()
+        finally:
+            jn._SO = old
+    return None if ok else f"the native library at {so} does not load"
 
 
 def close(got, ref, tol, name=""):

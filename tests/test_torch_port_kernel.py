@@ -160,3 +160,26 @@ def test_kernel_source_ships_both_entries():
                  'extern "C" int dw_mm_act_s2('):
         assert gone not in src
     assert "sm_90a" in " ".join(dw_mm_act.NVCC_FLAGS)
+
+
+def test_kernels_only_raise_their_shared_memory_limit():
+    """A kernel's shared-memory limit is set in one place, ``set_smem`` of
+    ``csrc/common.cuh``, which raises it only, under a lock, per card: a
+    loader's worker threads launch ``crop_resize_kernel`` at once with
+    different needs, and a limit lowered by one thread between another's
+    set and launch refuses that launch (``cudaErrorInvalidValue``).
+    ``chip_smoke.py``'s ``decode`` phase launches it from threads on the
+    card."""
+    csrc = dw_conv.LIBRARY.source.parent
+    common = (csrc / "common.cuh").read_text()
+    body = common[common.index("int set_smem("):]
+    body = body[:body.index("\n}\n")]
+    for piece in ("std::lock_guard<std::mutex>", "cudaGetDevice(",
+                  "if (bytes <= cur) return 0;", "cur = bytes;"):
+        assert piece in body
+    for src in sorted(csrc.glob("*.cu*")):
+        text = src.read_text()
+        n = text.count("cudaFuncSetAttribute(")
+        assert n == (1 if src.name == "common.cuh" else 0), src.name
+    assert "cfn::set_smem(crop_resize_kernel" in (
+        csrc / "frame_decode.cu").read_text()

@@ -32,9 +32,12 @@ from coarse_fine_networks_torch.data import transforms as ptr
 from coarse_fine_networks_torch.data.synthetic import generate_mini_charades
 from coarse_fine_networks_torch.ops import frame_decode
 
-pytestmark = pytest.mark.skipif(not jnative.available(),
-                                reason="the JAX package's native library "
-                                       "is not built")
+from _torch_port_util import jax_native_library
+
+# built once under a lock, never loaded half-written (see the helper)
+_NATIVE_MISSING = jax_native_library()
+pytestmark = pytest.mark.skipif(_NATIVE_MISSING is not None,
+                                reason=str(_NATIVE_MISSING))
 
 # (out size, scale, tl_x, tl_y) of the random crops
 CROPS = [(32, 0.7, 0.3, 0.6), (48, 0.875, 0.9, 0.05), (20, 1.0, 0.5, 0.5)]

@@ -9,11 +9,13 @@ Phases, each printing JSON lines:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, and the build of the hand-written kernels from ``csrc/`` (one
-   ``nvcc`` for each of the six sources, started together, beside
+   ``nvcc`` for each of the seven sources and g++ for the host entropy
+   decoder ``jpeg_entropy.cpp``, started together, beside
    ``-Xptxas -v`` compiles of ``dw_plain_s1.cu``, ``dw_plain_s2.cu``,
-   ``dw_mm_act.cu``, ``dw_dx_s1.cu``, ``dw_stencil.cu`` and
+   ``dw_mm_act.cu``, ``dw_dx_s1.cu``, ``dw_stencil.cu``,
    ``frame_decode.cu`` (linked with ``-lnvjpeg``; its
-   ``crop_resize_kernel`` may not spill) whose
+   ``crop_resize_kernel`` may not spill) and ``scaled_idct.cu`` (neither
+   of its kernels may spill) whose
    registers, spills and static shared memory for each row-strip kernel
    (K1/K6 plain and ``act``, K6 ``mm``; K4 plain, ``act`` and ``mm``, K8,
    K5, K9, K10 plain, ``act`` and ``mm``, the three stride-(2, 2, 2)
@@ -258,18 +260,37 @@ Phases, each printing JSON lines:
    beside Pillow's; and ``CROP_THREADS`` threads, each on a stream of its
    own, launching the kernel at once with crops that need different shared
    memory, as a loader's workers do (no launch refused, each equal to the
-   plain version);
-19d. packed: the native data plane end to end on a Multi-THUMOS tree
+   plain version); the phase pins the exact mode (``set_fast_decode(False)``)
+   and restores the default after;
+19d. fast_decode: the DCT-scaled fast path (the JAX library's default) on
+   640×480 synthetic JPEGs (noise and smooth frames in 4:2:0 and 4:2:2,
+   grey frames): at out 224 (num 4), 112 (num 2) and 56 (num 1) centre
+   crops and two train crops, ``scaled_idct_kernel`` and
+   ``ycc_rgb_kernel`` against their plain versions on the card on the host
+   entropy decoder's coefficients (equal: a difference of 0), and the
+   card's whole fast path (``decode_crop_resize``) against the CPU's
+   (equal); a progressive frame raises; ``FAST_THREADS`` threads decode at
+   once, each on its own stream (no launch refused, each equal to the
+   CPU); the entropy decoder's ms a frame (1 and 8 threads) beside
+   nvJPEG's full decode and Pillow's ``draft`` decode, each kernel alone
+   (``queued_ms``) beside its bound and plain version, and a clip's
+   decode call in fast mode beside exact mode;
+19e. packed: the native data plane end to end on a Multi-THUMOS tree
    (``generate_mini_charades``' frames at 480², videos renamed
    ``video_validation_*`` and ``video_test_*``, annotations converted by
    ``convert_annotations`` to 65 classes): ``cli.pack_dataset`` as a
    process, the dataset's clips a second from the packs against Pillow,
    then ``extract_driver.run`` and ``coarse_driver.run`` with ``pack_dir``
    (X3D-M, 65 classes, B8 T64 224², bf16, 3 steps and a validation); no
-   frame decoded by Pillow or read from its file, every clip through nvJPEG
-   and ``crop_resize_kernel`` (once per decode), the extraction's and every
-   step's launches held exactly; step ms and the wait share beside the
-   driver phase's, which decodes with Pillow;
+   frame decoded by Pillow or read from its file; in the fast mode (the
+   default), every clip through the DCT-scaled decode (the host entropy
+   decoder, ``scaled_idct_kernel`` and ``ycc_rgb_kernel``: the extraction's
+   centre crops and the train crops of 448 pixels and more, at num 4) or,
+   where only 8/8 covers 224, through nvJPEG, then ``crop_resize_kernel``
+   (once per group of frames), the extraction's and every step's
+   launches held exactly; step ms and the wait share beside the driver
+   phase's, which decodes with Pillow, and beside the same extraction and
+   coarse run in the exact mode;
 20. kinetics: Kinetics-style pretraining as a user runs it:
    ``generate_mini_kinetics`` (44 videos of 96 frames at 256², 400
    classes: 33 training, 11 validation), then
@@ -493,8 +514,17 @@ REPLACES = {
     # it in host C++, its native data plane's exact path)
     "crop_resize_kernel": "none: host C++ native/cfn_data.cpp:132 "
                           "(crop_resize; center_crop_scale :262)",
+    # the fast decode's pixel work: no TPU kernel (the JAX package runs
+    # libjpeg-turbo's scaled decode in host C++)
+    "scaled_idct_kernel": "none: host C++ native/cfn_data.cpp:171 "
+                          "(decode_crop_scaled: libjpeg-turbo's "
+                          "jpeg_idct_islow/4x4/2x2/1x1)",
+    "ycc_rgb_kernel": "none: host C++ native/cfn_data.cpp:171 "
+                      "(decode_crop_scaled: libjpeg-turbo's ycc_rgb_convert "
+                      "and h2v1 merged upsampling)",
 }
 _CSRC = "coarse_fine_networks_torch/csrc/"
+FAST_KERNELS = ("scaled_idct_kernel", "ycc_rgb_kernel")
 SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
                                                  "dw_stencil_wgrad")
                        else "dw_plain_s1.cu" if k in ("dw_conv_s1",
@@ -513,6 +543,7 @@ SOURCES = {k: _CSRC + ("dw_stencil.cu" if k in ("dw_stencil_s1",
                        else "dw_dx_s1.cu" if k in ("dw_act_dx_s1",
                                                     "dw_mm_dx_mask_s1")
                        else "frame_decode.cu" if k == "crop_resize_kernel"
+                       else "scaled_idct.cu" if k in FAST_KERNELS
                        else "dw_mm_act.cu") for k in REPLACES}
 # the kernel function (as the profiler names it) behind each counted
 # wrapper entry
@@ -722,10 +753,12 @@ PTXAS = {"dw_conv_s1": ("plain_fwd_kernel", "act_fwd_s1_kernel",
          "dw_mm_act_s1": ("mm_fwd_s1_kernel",),
          "dw_act_dx_s1": ("act_dx_s1_kernel", "mm_dx_s1_kernel"),
          "dw_stencil_wgrad": ("stencil_fwd_kernel", "stencil_dk_kernel"),
-         "crop_resize_kernel": ("crop_resize_kernel",)}
+         "crop_resize_kernel": ("crop_resize_kernel",),
+         "scaled_idct_kernel": FAST_KERNELS}
 # instantiations of each function of a ptxas row (by row, or by function:
 # the t2 forward and dx have a whole-pixel and a pairs mode each)
 PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1,
+              "scaled_idct_kernel": 1,
               "plain_t2_fwd_kernel": 12, "plain_t2_dx_kernel": 12}
 # the act and mm modes of the row-strip bodies, K11 and its taps' gradient,
 # the crop kernel and the stride-(2, 2, 2) weight gradient: no instantiation
@@ -733,7 +766,7 @@ PTXAS_EACH = {"dw_stencil_wgrad": 16, "crop_resize_kernel": 1,
 NO_SPILL = ("act_fwd_s1_kernel", "act_wgrad_s1_kernel", "mm_wgrad_s1_kernel",
             "act_s2_fwd_kernel", "act_s2_wgrad_kernel", "mm_s2_fwd_kernel",
             "mm_s2_dx_kernel", "mm_s2_wgrad_kernel", "stencil_fwd_kernel",
-            "stencil_dk_kernel", "crop_resize_kernel",
+            "stencil_dk_kernel", "crop_resize_kernel", *FAST_KERNELS,
             "plain_t2_fwd_kernel", "plain_t2_dx_kernel",
             "plain_t2_wgrad_kernel")
 # each ptxas row's kernels by mangled name (phase_device), for the rows of
@@ -745,16 +778,17 @@ def phase_device() -> str:
     from concurrent.futures import ThreadPoolExecutor
 
     from coarse_fine_networks_torch.ops import (_build, dw_conv, dw_stencil,
-                                                frame_decode)
+                                                frame_decode, scaled_decode)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    # the six sources (one nvcc each) and the ptxas reports of the six
-    # rows, all started together
-    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY, frame_decode.LIBRARY)
+    # the seven CUDA sources (one nvcc each), the host entropy decoder
+    # (g++) and the ptxas reports of the seven rows, all started together
+    libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY, frame_decode.LIBRARY,
+                                scaled_decode.LIBRARY, scaled_decode.ENTROPY)
     with ThreadPoolExecutor(max_workers=len(PTXAS)) as pool:
         ptxas = {k: pool.submit(_ptxas, REPO / SOURCES[k]) for k in PTXAS}
         _build.build_all(libs)
@@ -5177,7 +5211,7 @@ def _dp_rank(runs) -> dict:
     from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
                                                 dw_mm_bn_train, dw_stencil,
-                                                frame_decode)
+                                                frame_decode, scaled_decode)
     from coarse_fine_networks_torch.parallel import mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5514,7 +5548,7 @@ def _counted(fn, *args):
     from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
                                                 dw_mm_bn_train, dw_stencil,
-                                                frame_decode)
+                                                frame_decode, scaled_decode)
 
     out = fn(*args)
     return out, _launches(dw_act, dw_conv, dw_mm_act, dw_mm_bn_train,
@@ -5672,10 +5706,11 @@ DECODE_FAULT = {"noise": "shift_1px", "smooth": "swap_rb",
 
 
 def _jpegs(kind: str, n: int, h: int, w: int, seed: int,
-           quality: int = 90) -> list:
+           quality: int = 90, **save) -> list:
     """``n`` seeded JPEG frames of ``kind``: "noise" (uniform RGB),
     "smooth" (three sinusoids of other phases and periods, so R and B
-    differ everywhere) or "grey" (a smooth grey pattern)."""
+    differ everywhere) or "grey" (a smooth grey pattern); ``save``:
+    Pillow's other JPEG options (``subsampling``, ``progressive``)."""
     from PIL import Image
 
     rng = np.random.RandomState(seed)
@@ -5692,7 +5727,7 @@ def _jpegs(kind: str, n: int, h: int, w: int, seed: int,
             if kind == "grey":
                 a = a[..., 1]
         buf = io.BytesIO()
-        Image.fromarray(a).save(buf, "JPEG", quality=quality)
+        Image.fromarray(a).save(buf, "JPEG", quality=quality, **save)
         out.append(buf.getvalue())
     return out
 
@@ -5784,6 +5819,14 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     byte-by-byte copies) and a call past ``CROP_BOXES`` (two launches)
     against the plain version; and nvJPEG's decode of the clip beside
     Pillow's.  Returns the kernel line's numbers."""
+    prev = fd.set_fast_decode(False)  # the exact path, which it holds
+    try:
+        return _decode_exact_path(fd, native, bounds)
+    finally:
+        fd.set_fast_decode(prev)
+
+
+def _decode_exact_path(fd, native, bounds) -> dict:
     c = DECODE
     dev = torch.device("cuda")
     lib = fd.LIBRARY.build()
@@ -5992,6 +6035,269 @@ def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
             "nvjpeg_ms_per_frame": row["nvjpeg_decode_ms_per_frame"]}
 
 
+# the fast decode: 640×480 synthetic JPEGs of each layout (Pillow's
+# subsampling 2 is 4:2:0, 1 is 4:2:2; grey frames have one component),
+# FAST["frames"] a layout, at the centre crops to 224, 112 and 56 (num 4, 2
+# and 1) and two train crops (456 → 224 and 336 → 112, both num 4); a clip
+# of FAST["clip"] frames timed
+FAST = dict(h=480, w=640, frames=4, quality=90, clip=64,
+            layouts=(("noise", 2), ("noise", 1), ("smooth", 2),
+                     ("smooth", 1), ("grey", None)),
+            crops=((224, None, 4), (112, None, 2), (56, None, 1),
+                   (224, (0.95, 0.3, 0.6), 4), (112, (0.7, 0.9, 0.05), 4)))
+# threads decoding at once (each on its own stream) and the calls each makes
+FAST_THREADS, FAST_THREAD_CALLS = 8, 6
+_LAYOUT_NAMES = {2: "4:2:0", 1: "4:2:2", None: "grey"}
+
+
+def _planes_diff(sd, a, b, g) -> int:
+    return max(_diff(x, y)[0] for x, y in zip(sd.component_planes(a, g),
+                                              sd.component_planes(b, g)))
+
+
+def phase_fast_decode(fd, sd, native) -> dict:
+    """The DCT-scaled fast path on the card (``FAST``'s frames and crops):
+    ``scaled_idct_kernel`` and ``ycc_rgb_kernel`` against their plain
+    versions on the card on the host entropy decoder's coefficients, and
+    ``decode_crop_resize`` on the card against the CPU's, each equal (a
+    difference of 0), one launch of each kernel a call; a progressive frame
+    raises; ``FAST_THREADS`` threads at once on streams of their own (no
+    launch refused, each equal to the CPU).  Then one clip of 64 frames at
+    the centre crop 480² → 224² (num 4): the entropy decoder's ms a frame
+    (1 and 8 threads), nvJPEG's full decode and Pillow's ``draft`` decode
+    at 4/8, each kernel alone (bare launches, ``queued_ms``) beside its
+    bound, its call and its plain version on the card, the pinned copy of
+    the coefficients, and the decode call in fast mode beside exact mode.
+    Runs in the fast mode and restores the mode after.  Returns the
+    kernels' line numbers."""
+    prev = fd.set_fast_decode(True)
+    try:
+        return _fast_decode(fd, sd, native)
+    finally:
+        fd.set_fast_decode(prev)
+
+
+def _fast_decode(fd, sd, native) -> dict:
+    import threading
+
+    from PIL import Image
+
+    c = FAST
+    dev = torch.device("cuda")
+    h, w = c["h"], c["w"]
+    lib = sd.LIBRARY.build()
+    cases, bits, refs = [], [], []
+    for li, (kind, sub) in enumerate(c["layouts"]):
+        save = {} if sub is None else {"subsampling": sub}
+        blobs = _jpegs(kind, c["frames"], h, w, 40 + li, c["quality"],
+                       **save)
+        names = [f"{kind}_{li}_{i}" for i in range(len(blobs))]
+        p = sd.probe(blobs[0])
+        check(p.status == 0, f"fast_decode: {kind} frames refused: {p}")
+        for out, crop, num in c["crops"]:
+            box_of = (native.center_box if crop is None
+                      else native.random_box(*crop))
+            g = sd.geometry(w, h, p.samp, box_of(w, h), out)
+            coefs, qt = sd.entropy_decode(blobs, names, p, g)
+            cc, qc = coefs.to(dev), qt.to(dev)
+            planes = sd.scaled_idct(cc, qc, g)
+            rgb = sd.ycc_rgb(planes, g)
+            d_idct = _planes_diff(sd, planes,
+                                  sd.scaled_idct_plain(cc, qc, g), g)
+            d_ycc = _diff(rgb, sd.ycc_rgb_plain(planes, g))[0]
+            sd.reset_launches()
+            fd.reset_launches()
+            card = fd.decode_crop_resize(blobs, names, out, box_of, dev)
+            torch.cuda.synchronize()
+            launched = {**sd.LAUNCHES, **fd.LAUNCHES}
+            cpu = fd.decode_crop_resize(blobs, names, out, box_of, "cpu")
+            d_api = _diff(card, cpu)[0]
+            refs.append((blobs, names, out, box_of, cpu))
+            bits += [d_idct, d_ycc, d_api]
+            cases.append({"frames": f"{kind} {_LAYOUT_NAMES[sub]}",
+                          "out": out, "crop": crop, "num": g.num,
+                          "window": [g.height, g.width],
+                          "sizes": [x.s for x in g.comps],
+                          "idct_vs_plain": d_idct, "ycc_vs_plain": d_ycc,
+                          "card_vs_cpu": d_api, "launches": launched})
+            check(g.num == num and tuple(card.shape) == (len(blobs), out,
+                                                         out, 3),
+                  f"fast_decode: {cases[-1]}")
+            check(launched == {"scaled_idct_kernel": 1, "ycc_rgb_kernel": 1,
+                               "crop_resize_kernel": 1},
+                  f"fast_decode: launches {launched}")
+
+    # a progressive frame: refused, named, never decoded another way
+    prog = _jpegs("noise", 1, h, w, 49, c["quality"], progressive=True)
+    try:
+        fd.decode_crop_resize(prog, ["progressive0"], 224, native.center_box,
+                              dev)
+        raised = ""
+    except IOError as e:
+        raised = str(e)
+
+    # threads at once, each on its own stream (a loader's workers)
+    made, refused, worst, lock = [0], [], [0], threading.Lock()
+
+    def worker(seed):
+        r = np.random.default_rng(seed)
+        with native.on_device("cuda") as d:
+            for _ in range(FAST_THREAD_CALLS):
+                blobs, names, out, box_of, cpu = refs[int(r.integers(
+                    len(refs)))]
+                try:
+                    y = fd.decode_crop_resize(blobs, names, out, box_of, d,
+                                              num_threads=2)
+                except RuntimeError as e:
+                    with lock:
+                        refused.append(str(e))
+                    continue
+                dd = _diff(y, cpu)[0]
+                with lock:
+                    made[0] += 1
+                    worst[0] = max(worst[0], dd)
+
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(FAST_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    torch.cuda.synchronize()
+    threaded = {"threads": FAST_THREADS, "calls": made[0],
+                "refused": len(refused), "first_refusal": refused[:1],
+                "max_diff": worst[0]}
+
+    # one clip at the centre crop of extraction and validation
+    n = c["clip"]
+    names = [f"t{i}" for i in range(n)]
+    box = native.center_box(w, h)
+    timed = {}
+    for kind in ("noise", "smooth"):
+        clip = _jpegs(kind, 16, h, w, 50, c["quality"]) * (n // 16)
+        p = sd.probe(clip[0])
+        g = sd.geometry(w, h, p.samp, box, 224)
+        row = {"frames": n, "jpeg_bytes_per_frame": sum(map(len, clip)) / n,
+               "num": g.num}
+        for th in (1, 8):
+            ts = []
+            for _ in range(3):
+                t1 = time.perf_counter()
+                sd.entropy_decode(clip, names, p, g, th)
+                ts.append((time.perf_counter() - t1) * 1e3)
+            row[f"entropy_ms_per_frame_{th}_threads"] = min(ts) / n
+        sw, sh = sd.scaled_size(w, g.num), sd.scaled_size(h, g.num)
+        t1 = time.perf_counter()
+        for b in clip:
+            with Image.open(io.BytesIO(b)) as img:
+                img.draft("RGB", (sw, sh))
+                img.load()
+        row["pillow_draft_ms_per_frame"] = (time.perf_counter() - t1) * 1e3 / n
+        ctx = fd._DECODERS.acquire()
+        try:
+            ts = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                fd._decode_group_cuda(ctx, fd.LIBRARY.build(), clip, names, 3,
+                                      h, w, dev)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+        finally:
+            fd._DECODERS.release(ctx)
+        row["nvjpeg_ms_per_frame"] = min(ts[1:]) / n
+        for mode in (True, False):
+            fd.set_fast_decode(mode)
+            ts = []
+            for _ in range(4):
+                t1 = time.perf_counter()
+                fd.decode_crop_resize(clip, names, 224, native.center_box,
+                                      dev)
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t1) * 1e3)
+            row[f"{'fast' if mode else 'exact'}_call_ms_per_clip"] = min(
+                ts[1:])
+        fd.set_fast_decode(True)
+        timed[kind] = row
+
+    # the kernels alone on the noise clip: bare launches with the
+    # wrappers' arguments
+    clip = _jpegs("noise", 16, h, w, 50, c["quality"]) * (n // 16)
+    p = sd.probe(clip[0])
+    g = sd.geometry(w, h, p.samp, box, 224)
+    coefs, qt = sd.entropy_decode(clip, names, p, g, 8, pin=True)
+    cc, qc = coefs.to(dev), qt.to(dev)
+    planes = sd.scaled_idct(cc, qc, g)
+    rgb = sd.ycc_rgb(planes, g)
+    geom = sd.geom_array(g)
+    stream = torch.cuda.current_stream().cuda_stream
+    bare_planes = torch.empty_like(planes)
+    a_idct = (cc.data_ptr(), qc.data_ptr(), n, geom.ctypes.data,
+              bare_planes.data_ptr(), stream)
+    q_idct = queued_ms(lambda: lib.cfn_scaled_idct(*a_idct), 50)
+    check(lib.cfn_scaled_idct(*a_idct) == 0, "fast_decode: a bare launch "
+                                             "failed")
+    pitch = sd._window_pitch(g)
+    buf = torch.empty((n, g.height, pitch), dtype=torch.uint8, device=dev)
+    a_ycc = (planes.data_ptr(), n, geom.ctypes.data, buf.data_ptr(),
+             g.height * pitch, pitch, stream)
+    q_ycc = queued_ms(lambda: lib.cfn_ycc_rgb(*a_ycc), 50)
+    check(lib.cfn_ycc_rgb(*a_ycc) == 0, "fast_decode: a bare launch failed")
+    bits += [_planes_diff(sd, bare_planes, planes, g),
+             _diff(buf[:, :, :3 * g.width].view(n, g.height, g.width, 3),
+                   rgb)[0]]
+    copy_ms = cuda_ms(lambda: coefs.to(dev, non_blocking=True), 10)
+    # the wrappers' Work formulas: the same count on the card as on the CPU
+    from coarse_fine_networks_torch.utils.hw import program_costs
+
+    costs = {}
+    for d in ("cuda", "cpu"):
+        cd, qd = cc.to(d), qc.to(d)
+        costs[d] = program_costs(
+            lambda: sd.ycc_rgb(sd.scaled_idct(cd, qd, g), g))
+    kern = {
+        "scaled_idct_kernel": {
+            "ms": q_idct["ms"], "launch_host_ms": q_idct["host_ms"],
+            "call_ms": cuda_ms(lambda: sd.scaled_idct(cc, qc, g), 20),
+            "plain_ms": cuda_ms(lambda: sd.scaled_idct_plain(cc, qc, g), 3,
+                                1),
+            "library_ms": None, "coefs_copy_ms": copy_ms,
+            "coef_bytes": coefs.numel() * 2,
+            **_bound(sd.idct_work(planes, cc, qc, g), torch.float32)},
+        "ycc_rgb_kernel": {
+            "ms": q_ycc["ms"], "launch_host_ms": q_ycc["host_ms"],
+            "call_ms": cuda_ms(lambda: sd.ycc_rgb(planes, g), 20),
+            "plain_ms": cuda_ms(lambda: sd.ycc_rgb_plain(planes, g), 3, 1),
+            "library_ms": None,
+            **_bound(sd.ycc_work(rgb, planes, g), torch.float32)}}
+    for k in kern.values():
+        k["max_abs_err"] = float(max(bits))
+    sd.reset_launches()
+    fd.reset_launches()
+    row = {"phase": "fast_decode",
+           "source": f"{w}x{h} synthetic JPEG, quality {c['quality']}, "
+                     f"{c['frames']} frames a layout",
+           "kernel_vs_plain_max": max(bits), "cases": cases,
+           "progressive": raised[:300], "threads": threaded,
+           "timed": timed, "kernels": kern, "program_costs": costs["cuda"],
+           "timed_at": f"uint8: one clip's {n} frames of {w}×{h} 4:2:0 "
+                       f"noise, centre crop 480² → 224² (num 4: a 240² "
+                       f"window of 4×4 luma and 8×8 chroma blocks)"}
+    emit(row)
+    check(max(bits) == 0, f"fast_decode: a kernel or the card's path "
+                          f"differs by {max(bits)}")
+    check("progressive" in raised and "progressive0" in raised
+          and "CFN_EXACT_DECODE=1" in raised,
+          f"fast_decode: a progressive frame gave {raised!r}")
+    check(threaded["refused"] == 0 and threaded["max_diff"] == 0
+          and threaded["calls"] == FAST_THREADS * FAST_THREAD_CALLS,
+          f"fast_decode: {FAST_THREADS} threads at once: {threaded}")
+    check(costs["cuda"] == costs["cpu"]
+          and set(costs["cuda"]["kernels"]) == {"scaled_idct", "ycc_rgb"},
+          f"fast_decode: program_costs on the card {costs['cuda']} against "
+          f"the CPU {costs['cpu']}")
+    return kern
+
+
 # the packed path: a Multi-THUMOS tree (generate_mini_charades' frames at a
 # 480-pixel side, videos renamed video_validation_* / video_test_*, the
 # annotations converted by the port's convert_annotations at 65 classes),
@@ -6092,21 +6398,27 @@ def _dataset_clips(root: str, anno: str, packs: str, n: int) -> dict:
     return out
 
 
-def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
+def phase_packed(mods, fd, sd, tree, driver_row: dict
+                 ) -> tuple[dict, int, dict]:
     """The native data plane end to end at full width: the packed
     Multi-THUMOS tree (``tree``: the future of its annotation json), the
     port's pack command line as a process, the dataset's clips a second
     natively from the packs against Pillow, then ``extract_driver.run`` and
     ``coarse_driver.run`` with ``pack_dir`` (X3D-M, 65 classes, B8 T64
     224², bf16, 4 loader workers, device prefetch 2, 3 steps and a
-    validation of 2 videos).  No frame may be decoded by Pillow or read
-    from its JPEG file (both raise inside), and every clip goes through
-    nvJPEG and ``crop_resize_kernel`` on the card.  The counters are reset
-    before the extraction and before the coarse run and read after each:
-    the extraction launches the eval entry's kernels once a video, each
-    train and eval call its route's exactly, and the kernel once per
-    nvJPEG call.  Returns the model kernels' launches and the crop-resize
-    kernel's."""
+    validation of 2 videos), in the fast mode (the JAX library's default).
+    No frame may be decoded by Pillow or read from its JPEG file (both
+    raise inside): every clip goes through the DCT-scaled decode
+    (``scaled_idct_kernel``, ``ycc_rgb_kernel``) where a scale under 8/8
+    covers 224, else nvJPEG, then ``crop_resize_kernel``, on the card.  The
+    counters are reset before the extraction and before the coarse run and
+    read after each: the extraction launches the eval entry's kernels once
+    a video, each train and eval call its route's exactly, the crop kernel
+    once per nvJPEG call and per scaled decode, which launches each of its
+    kernels once.  Then the same extraction and coarse run in the exact
+    mode, for their seconds, step ms and wait share.  Returns the model
+    kernels' launches, the crop-resize kernel's and the fast decode's
+    kernels'."""
     import dataclasses
     import statistics
 
@@ -6164,8 +6476,10 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
     saved_load = dataset_mod.load_clip_frames
     dataset_mod.load_clip_frames = no_pillow
     native._read_files, native.read_pack_frames = read_files, read_pack
+    default_fast = fd.fast_decode()
+    prev = fd.set_fast_decode(True)
     try:
-        for m in mods + (fd,):
+        for m in mods + (fd, sd):
             m.reset_launches()
         t1 = time.perf_counter()
         n_extracted = extract_driver.run(cfg, feats, fine_pt)
@@ -6174,7 +6488,8 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
         extract_launches = _launches(*mods)
         extract_decodes = dict(fd.DECODES)
         extract_crops = fd.LAUNCHES["crop_resize_kernel"]
-        for m in mods + (fd,):
+        extract_fast = {**sd.LAUNCHES, **sd.DECODES}
+        for m in mods + (fd, sd):
             m.reset_launches()
         calls: list = []
         t1 = time.perf_counter()
@@ -6187,10 +6502,27 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
         run_launches = _launches(*mods)
         run_decodes = dict(fd.DECODES)
         run_crops = fd.LAUNCHES["crop_resize_kernel"]
+        run_fast = {**sd.LAUNCHES, **sd.DECODES}
+        read_fast = dict(reads)
+        # the same extraction and run in the exact mode (nvJPEG for every
+        # clip)
+        fd.set_fast_decode(False)
+        t1 = time.perf_counter()
+        extract_driver.run(cfg, str(root / "feats_exact"), fine_pt)
+        torch.cuda.synchronize()
+        exact_extract_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        res_exact = coarse_driver.run(dataclasses.replace(
+            cfg, save_dir=str(root / "models_exact")))
+        torch.cuda.synchronize()
+        exact_s = time.perf_counter() - t1
     finally:
+        fd.set_fast_decode(prev)
         dataset_mod.load_clip_frames = saved_load
         native._read_files, native.read_pack_frames = saved_read, saved_pack
         shutil.rmtree(root / "models", ignore_errors=True)
+        shutil.rmtree(root / "models_exact", ignore_errors=True)
+        shutil.rmtree(root / "feats_exact", ignore_errors=True)
     want = {k: n_extracted * EVAL_CALL.get(k, 0) for k in extract_launches}
     check(extract_launches == want, f"packed extraction: launches "
                                     f"{extract_launches} != {want}")
@@ -6199,13 +6531,17 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
     share = [wt / st for wt, st in zip(res["prefetch_wait_ms"],
                                        res["step_ms"])]
     crops = extract_crops + run_crops
+    exact_share = [wt / st for wt, st in zip(res_exact["prefetch_wait_ms"],
+                                             res_exact["step_ms"])]
     row = {"phase": "packed", "model": "X3D-M", "n_classes": c["n_classes"],
            "dtype": "bfloat16 activations, float32 parameters",
            "data": f"Multi-THUMOS layout: {c['videos']} synthetic videos "
                    f"({c['train']} video_validation_*) of "
                    f"{c['video_frames']} frames at {c['hw']}², JPEG, packed "
-                   f"by cli.pack_dataset, decoded by nvJPEG and "
-                   f"crop_resize_kernel",
+                   f"by cli.pack_dataset, decoded in the fast mode (the "
+                   f"DCT-scaled decode where a scale under 8/8 covers 224, "
+                   f"else nvJPEG) and crop_resize_kernel",
+           "fast_mode_by_default": default_fast,
            "B": c["batch"], "crop": 224, "frames": c["frames"],
            "num_workers": c["workers"], "generate_s": gen_s,
            "pack_s": pack_s, "pack_bytes": pack_bytes,
@@ -6219,8 +6555,18 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
            "driver_on_pillow": {k: driver_row.get(k) for k in (
                "median_step_ms_after_2", "median_wait_share_after_2")},
            "val_s": res["val_s"], "val_map": res.get("val_map"),
-           "frames_read": reads,
+           "exact_mode": {"extract_s": exact_extract_s,
+                          "coarse_run_s": exact_s,
+                          "val_map": res_exact.get("val_map"),
+                          "step_ms": res_exact["step_ms"],
+                          "median_step_ms": statistics.median(
+                              res_exact["step_ms"]),
+                          "prefetch_wait_share": exact_share,
+                          "median_wait_share": statistics.median(
+                              exact_share)},
+           "frames_read": read_fast,
            "nvjpeg": {"extract": extract_decodes, "run": run_decodes},
+           "scaled_decode": {"extract": extract_fast, "run": run_fast},
            "crop_resize_launches": {"extract": extract_crops,
                                     "run": run_crops},
            "extract_launches": {k: v for k, v in extract_launches.items()
@@ -6232,18 +6578,27 @@ def phase_packed(mods, fd, tree, driver_row: dict) -> tuple[dict, int]:
           f"packed: losses {losses}")
     check(res.get("val_map") is not None and np.isfinite(res["val_map"]),
           f"packed: val_map {res.get('val_map')}")
-    check(reads["files"] == 0 and reads["packs"] > 0,
+    check(reads["files"] == 0 and read_fast["packs"] > 0,
           f"packed: frames read {reads}")
-    check(extract_crops == extract_decodes["calls"] > 0
-          and run_crops == run_decodes["calls"] > 0,
-          f"packed: crop_resize launches {extract_crops}, {run_crops} "
-          f"against nvJPEG's calls {extract_decodes}, {run_decodes}")
+    for part, crop_n, dec, fast in (
+            ("extraction", extract_crops, extract_decodes, extract_fast),
+            ("coarse run", run_crops, run_decodes, run_fast)):
+        check(fast["scaled_idct_kernel"] == fast["ycc_rgb_kernel"]
+              == fast["calls"] > 0
+              and crop_n == dec["calls"] + fast["calls"],
+              f"packed {part}: crop_resize launches {crop_n} against "
+              f"nvJPEG's calls {dec} and the scaled decode's {fast}")
     check(extract_decodes["frames"] + run_decodes["frames"]
-          == reads["packs"], f"packed: nvJPEG decoded "
-                             f"{extract_decodes} + {run_decodes} frames of "
-                             f"{reads['packs']} read")
+          + extract_fast["frames"] + run_fast["frames"]
+          == read_fast["packs"],
+          f"packed: nvJPEG decoded {extract_decodes} + {run_decodes} and "
+          f"the scaled decode {extract_fast} + {run_fast} frames of "
+          f"{read_fast['packs']} read")
+    check(len(res_exact["step_ms"]) == c["steps"],
+          f"packed: the exact-mode run took {res_exact['step_ms']}")
     launches = {k: extract_launches[k] + got[k] for k in got}
-    return launches, crops
+    fast_launches = {k: extract_fast[k] + run_fast[k] for k in FAST_KERNELS}
+    return launches, crops, fast_launches
 
 
 # ---- fault 3.7: which op of the f32 coarse step reorders its sums -------------
@@ -6465,7 +6820,7 @@ def main() -> int:
     from coarse_fine_networks_torch.data import native
     from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_mm_act,
                                                 dw_mm_bn_train, dw_stencil,
-                                                frame_decode)
+                                                frame_decode, scaled_decode)
 
     os.environ.pop("CFN_MM_BN_TRAIN", None)  # train_mm sets it for itself
     mods = (dw_act, dw_conv, dw_mm_act, dw_mm_bn_train, dw_stencil)
@@ -6524,24 +6879,33 @@ def main() -> int:
             torch.cuda.empty_cache()
             crop = phase_decode(frame_decode, native)
             torch.cuda.empty_cache()
-            packed_launches, crop["launches"] = phase_packed(
-                mods, frame_decode, trees["packed"], DRIVER_ROW)
+            fast = phase_fast_decode(frame_decode, scaled_decode, native)
             torch.cuda.empty_cache()
-            crop_on = {}  # crop_resize_kernel's launches on each path
+            packed_launches, crop["launches"], fast_launches = phase_packed(
+                mods, frame_decode, scaled_decode, trees["packed"],
+                DRIVER_ROW)
+            torch.cuda.empty_cache()
+            # the decode kernels' launches on each later path
+            crop_on, fast_on = {}, {k: {} for k in FAST_KERNELS}
+
+            def decoded(path):
+                crop_on[path] = frame_decode.LAUNCHES["crop_resize_kernel"]
+                for k in FAST_KERNELS:
+                    fast_on[k][path] = scaled_decode.LAUNCHES[k]
+                frame_decode.reset_launches()
+                scaled_decode.reset_launches()
             frame_decode.reset_launches()
+            scaled_decode.reset_launches()
             kinetics_launches, kinetics_ckpt = phase_kinetics(
                 mods, trees["kinetics"])
-            crop_on["kinetics"] = frame_decode.LAUNCHES["crop_resize_kernel"]
+            decoded("kinetics")
             torch.cuda.empty_cache()
-            frame_decode.reset_launches()
             fine_driver_launches, fine_ckpt = phase_fine_driver(
                 mods, kinetics_ckpt, trees["fine_driver"])
-            crop_on["fine_driver"] = frame_decode.LAUNCHES[
-                "crop_resize_kernel"]
+            decoded("fine_driver")
             torch.cuda.empty_cache()
-            frame_decode.reset_launches()
             cli_launches = phase_cli(mods, kinetics_ckpt, fine_ckpt)
-            crop_on["cli"] = frame_decode.LAUNCHES["crop_resize_kernel"]
+            decoded("cli")
             torch.cuda.empty_cache()
             serve_http_launches, xl_launches = phase_serve_http(mods,
                                                                 fine_ckpt)
@@ -6591,6 +6955,14 @@ def main() -> int:
                   "call_ms: crop_resize as the path calls it, back to "
                   "back, library_ms likewise; launches: the packed phase's "
                   "extraction and coarse run, one a clip",
+        "fast_decode": "uint8: one clip's 64 frames of 640×480 4:2:0 "
+                       "noise, the centre crop 480² → 224² of extraction "
+                       "and validation at num 4 (a 240² window: 4×4 luma "
+                       "and 8×8 chroma blocks), one launch; ms: the kernel "
+                       "alone (bare launches, queued_ms), call_ms: the "
+                       "wrapper back to back; launches: the packed phase's "
+                       "extraction and coarse run in the fast mode, one a "
+                       "decode call's group of frames",
         "k7": "bf16 at the train step's four stride-2 entry shapes (B=8; "
               "layer1.0 T64 112² C54, then T=17: 56² C108, 28² C216, 14² "
               "C432), one call each, summed; K7 runs K4 plain's kernel "
@@ -6652,7 +7024,19 @@ def main() -> int:
         "driver_launches": 0, "packed_launches": crop["launches"],
         **{f"{k}_launches": v for k, v in crop_on.items()},
         "timed_at": timed_at["decode"]})
-    check(len(kernels) == 24, f"{len(kernels)} kernel entries, not 24")
+    for name in FAST_KERNELS:
+        k = fast[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": fast_launches[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "call_ms": k["call_ms"], "plain_ms": k["plain_ms"],
+            "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
+            "library_ms": None, "driver_launches": 0,
+            "packed_launches": fast_launches[name],
+            **{f"{p}_launches": v for p, v in fast_on[name].items()},
+            "timed_at": timed_at["fast_decode"]})
+    check(len(kernels) == 26, f"{len(kernels)} kernel entries, not 26")
     xl_counts = {k["name"]: (k["xl"]["launches"], k["xl"]["timed_launches"])
                  for k in kernels if "xl" in k}
     check(len(xl_counts) == 3 and all(a == b for a, b in xl_counts.values()),

@@ -16,11 +16,20 @@ has:
   .crop_resize_plain`, equal to the JAX exact path bit for bit; the result
   is a host ``numpy`` array, as the JAX package's is.
 
+Both modes of the JAX library are here.  The fast mode (the default, as
+there: fast unless ``CFN_EXACT_DECODE`` is set; :func:`set_fast_decode`)
+decodes a crop's MCUs at the smallest DCT scale num/8 that still covers
+the output, the JAX library's partial decode
+(:mod:`..ops.scaled_decode`: a hand-written host entropy decoder, then
+``scaled_idct_kernel`` and ``ycc_rgb_kernel`` on the card, or their plain
+versions on the CPU, then the crop and resize above); where only 8/8
+covers the output it is the exact path's function and takes it.  A frame
+the fast path's entropy decoder refuses (progressive, arithmetic-coded,
+corrupt) raises naming it and the way to the exact mode.
+
 :func:`available` is true wherever the port runs.  A CUDA decode whose
-library does not build or load raises; it never turns into Pillow.  The
-port has only the exact path: :func:`fast_decode` is False and
-``set_fast_decode(True)`` raises, since nvJPEG has no DCT-scaled decode
-(the JAX fast path's partial decode at a reduced scale).
+library does not build or load raises; it never turns into Pillow or the
+CPU.
 
 The ``.cfnpack`` format is written and read here in Python, byte for byte
 the C++'s (``cfn_data.cpp:426-471``): ``[int64 magic][int64 n][int64
@@ -44,29 +53,22 @@ from ..ops import frame_decode
 MAGIC = 0x43464E50414B3143  # "CFNPAK1C"
 _HEADER = struct.Struct("<qq")
 
-_FAST_REASON = ("nvJPEG has no DCT-scaled decode, so the port computes only "
-                "the JAX package's exact path (full decode, then the crop "
-                "and bilinear resize)")
-
-
 def available() -> bool:
     """Whether the native path can run: wherever the port runs (Pillow on
-    the CPU; nvJPEG and the kernel on the card, built at first use)."""
+    the CPU; nvJPEG and the kernels on the card, built at first use)."""
     return True
 
 
 def fast_decode() -> bool:
-    """Always False: the port has the exact path only."""
-    return False
+    """Whether the DCT-scaled fast path is on (the default unless
+    ``CFN_EXACT_DECODE`` is set, read on first use)."""
+    return frame_decode.fast_decode()
 
 
 def set_fast_decode(enabled: bool) -> bool:
-    """``False`` is accepted (the setting the port always has) and returns
-    the previous setting, False; ``True`` raises :class:`NotImplementedError`
-    (nvJPEG has no DCT-scaled decode)."""
-    if enabled:
-        raise NotImplementedError(f"fast decode: {_FAST_REASON}")
-    return False
+    """Turn the DCT-scaled fast path on or off for the process (over the
+    ``CFN_EXACT_DECODE`` default); returns the previous setting."""
+    return frame_decode.set_fast_decode(enabled)
 
 
 _LOCAL = threading.local()
@@ -133,8 +135,9 @@ def random_box(scale: float, tl_x: float, tl_y: float):
     return box
 
 
-def _decode(blobs, names, out_size, box, device):
-    arr = frame_decode.decode_crop_resize(blobs, names, out_size, box, device)
+def _decode(blobs, names, out_size, box, device, num_threads):
+    arr = frame_decode.decode_crop_resize(blobs, names, out_size, box, device,
+                                          num_threads)
     return arr.numpy() if arr.device.type == "cpu" else arr
 
 
@@ -155,11 +158,11 @@ def decode_batch(paths: Sequence[str], out_size: int,
                  num_threads: int = 4, device="cuda"):
     """Decode + CenterCropScaled a list of JPEGs → ``(N, out, out, 3)``
     uint8 (a device tensor on the card, a numpy array on the CPU).
-    ``num_threads`` is the JAX signature's and is not used: nvJPEG decodes
-    a clip in one call."""
+    ``num_threads`` threads share the fast path's entropy decode (nvJPEG
+    decodes a clip in one call)."""
     with on_device(device) as d:
         return _decode(_read_files(paths), list(paths), out_size,
-                       center_box, d)
+                       center_box, d, num_threads)
 
 
 def decode_batch_random_crop(paths: Sequence[str], out_size: int,
@@ -170,7 +173,7 @@ def decode_batch_random_crop(paths: Sequence[str], out_size: int,
     resized to ``(out, out)``."""
     with on_device(device) as d:
         return _decode(_read_files(paths), list(paths), out_size,
-                       random_box(scale, tl_x, tl_y), d)
+                       random_box(scale, tl_x, tl_y), d, num_threads)
 
 
 # ---- .cfnpack containers ------------------------------------------------------
@@ -225,7 +228,7 @@ def decode_packed(pack_path: str, indices: Sequence[int], out_size: int,
     with on_device(device) as d:
         return _decode(read_pack_frames(pack_path, indices),
                        _pack_names(pack_path, indices), out_size, center_box,
-                       d)
+                       d, num_threads)
 
 
 def decode_packed_random_crop(pack_path: str, indices: Sequence[int],
@@ -236,7 +239,7 @@ def decode_packed_random_crop(pack_path: str, indices: Sequence[int],
     with on_device(device) as d:
         return _decode(read_pack_frames(pack_path, indices),
                        _pack_names(pack_path, indices), out_size,
-                       random_box(scale, tl_x, tl_y), d)
+                       random_box(scale, tl_x, tl_y), d, num_threads)
 
 
 def pack_video(paths: Sequence[str], out_path: str) -> None:

@@ -20,18 +20,20 @@ out, out, 3)``, the function of the JAX package's exact native path
   device buffer the wrapper allocates, which the kernel reads through its
   pitch.  Grey frames decode to one channel, which the kernel repeats.
 
-:func:`decode_crop_resize` decodes a list of JPEGs and crops them: on a CUDA
-device with nvJPEG and the kernel, on the CPU with Pillow and
-:func:`crop_resize_plain`.  The library is built at first use (never when
-this module is imported).  nvJPEG has no DCT-scaled decode, so the JAX
-package's fast path (libjpeg-turbo's partial decode at a reduced scale) has
-no counterpart here.
+:func:`decode_crop_resize` decodes a list of JPEGs and crops them.  In the
+exact mode: on a CUDA device with nvJPEG and the kernel, on the CPU with
+Pillow and :func:`crop_resize_plain`.  In the fast mode (the default, as in
+the JAX library: :func:`fast_decode`), the JAX package's fast path: the
+crop's MCUs decoded at a reduced DCT scale by :mod:`.scaled_decode` (nvJPEG
+has no DCT-scaled decode), then the same crop and resize.  The libraries
+are built at first use (never when this module is imported).
 """
 
 from __future__ import annotations
 
 import ctypes
 import io
+import os
 import threading
 from typing import Callable, List, NamedTuple, Sequence, Tuple
 
@@ -39,6 +41,7 @@ import numpy as np
 import torch
 
 from ..utils.hw import Work, kernel_work
+from . import scaled_decode
 from ._build import CudaLibrary, I, P, cuda_home
 
 SZ = ctypes.c_size_t
@@ -310,24 +313,101 @@ def _decode_group_cpu(blobs, names, c):
     return torch.from_numpy(np.stack(frames))
 
 
+# ---- the mode: the JAX library's fast decode (default) or its exact path ----
+
+_MODE = {"fast": None}
+_MODE_LOCK = threading.Lock()
+
+
+def fast_decode() -> bool:
+    """Whether :func:`decode_crop_resize` takes the DCT-scaled decode (the
+    JAX library's fast mode).  The default is read on first use, as
+    ``cfn_data.cpp:57-63`` reads it: fast unless ``CFN_EXACT_DECODE`` is
+    set (to anything)."""
+    with _MODE_LOCK:
+        if _MODE["fast"] is None:
+            _MODE["fast"] = os.environ.get("CFN_EXACT_DECODE") is None
+        return _MODE["fast"]
+
+
+def set_fast_decode(enabled: bool) -> bool:
+    """Set the mode for the whole process; returns the previous one."""
+    prev = fast_decode()
+    with _MODE_LOCK:
+        _MODE["fast"] = bool(enabled)
+    return prev
+
+
 def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
                        out: int, box_of: Callable[[int, int], Box],
-                       device: "str | torch.device" = "cuda"
-                       ) -> torch.Tensor:
+                       device: "str | torch.device" = "cuda",
+                       num_threads: int = 1) -> torch.Tensor:
     """Decode JPEGs (``blobs``, named ``names`` in errors) and crop and
     resize each to ``(out, out)``: uint8 ``(N, out, out, 3)`` on ``device``.
     ``box_of(w, h)`` gives a frame's crop box ``(x1, y1, cw, ch)``; frames
-    of one size and kind go through the kernel together.
+    of one size and kind go through the kernels together.
 
-    On a CUDA device: nvJPEG and ``crop_resize_kernel`` on the current
-    stream, which is synchronised before the decoder is lent again (its
-    state's device buffers serve the stream's work).  A frame nvJPEG cannot
-    read raises :class:`IOError` naming it, and a failed build or load of
-    the library raises: the card never falls back to Pillow.  On the CPU:
-    Pillow's decode to RGB and :func:`crop_resize_plain`."""
+    In fast mode (:func:`fast_decode`, the default) the JAX library's fast
+    path: where a scale num/8 < 1 covers ``out`` (:func:`.scaled_decode
+    .scale_num`), the crop's MCUs decoded at that scale
+    (:mod:`.scaled_decode`: the host entropy decoder, then
+    ``scaled_idct_kernel`` and ``ycc_rgb_kernel`` on the card, their plain
+    versions on the CPU) and the scaled box cropped from them; at 8/8,
+    where the JAX library's fast path equals its exact path, the exact
+    path.  A frame the entropy decoder refuses (progressive, arithmetic,
+    corrupt) raises :class:`IOError` naming it; it is never handed to
+    nvJPEG or Pillow.  ``num_threads`` threads share the entropy decode.
+
+    The exact path: on a CUDA device nvJPEG and ``crop_resize_kernel`` on
+    the current stream, which is synchronised before the decoder is lent
+    again (its state's device buffers serve the stream's work).  A frame
+    nvJPEG cannot read raises :class:`IOError` naming it, and a failed
+    build or load of a library raises: the card never falls back to Pillow
+    or the CPU.  On the CPU: Pillow's decode to RGB and
+    :func:`crop_resize_plain`."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"device {dev}: CPU or CUDA only")
+    if out < 1 or not fast_decode():  # as cfn_data.cpp:321
+        return _decode_exact(blobs, names, out, box_of, dev)
+    groups: dict = {}
+    for i, blob in enumerate(blobs):
+        p = scaled_decode.probe(blob)
+        groups.setdefault((p.status, p.w, p.h, p.samp), (p, []))[1].append(i)
+    parts, exact = [], []
+    for p, idx in groups.values():
+        box = box_of(p.w, p.h) if p.w > 0 else None
+        if box is not None and scaled_decode.scale_num(box[2], out) == 8:
+            exact += idx
+            continue
+        gn = [names[i] for i in idx]
+        if p.status != 0:
+            raise scaled_decode.refused(gn, p.status)
+        g = scaled_decode.geometry(p.w, p.h, p.samp, box, out)
+        win = scaled_decode.decode_windows([blobs[i] for i in idx], gn, p, g,
+                                           dev, num_threads)
+        parts.append((idx, crop_resize(win, np.broadcast_to(
+            np.asarray(g.box, np.int64), (len(idx), 4)), out)))
+    if exact:
+        parts.append((exact, _decode_exact([blobs[i] for i in exact],
+                                           [names[i] for i in exact], out,
+                                           box_of, dev)))
+    return _assemble(len(blobs), out, dev, parts)
+
+
+def _assemble(n: int, out: int, dev: torch.device, parts) -> torch.Tensor:
+    """The ``(n, out, out, 3)`` result of parts ``(indices, frames)``."""
+    if len(parts) == 1 and len(parts[0][0]) == n:
+        return parts[0][1]
+    y = torch.empty((n, out, out, 3), dtype=torch.uint8, device=dev)
+    for idx, part in parts:
+        y[torch.as_tensor(idx, device=dev)] = part
+    return y
+
+
+def _decode_exact(blobs, names, out: int, box_of, dev: torch.device
+                  ) -> torch.Tensor:
+    """The JAX library's exact path (:func:`decode_crop_resize`)."""
     n = len(blobs)
     cuda = dev.type == "cuda"
     lib = LIBRARY.build() if cuda else None
@@ -353,24 +433,15 @@ def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
         if bad:
             raise IOError(f"{len(bad)} frames failed to decode, e.g. "
                           f"{bad[:3]}")
-        y = None
+        parts = []
         for (w, h, c), idx in groups.items():
             gb = [blobs[i] for i in idx]
             gn = [names[i] for i in idx]
             frames = (_decode_group_cuda(ctx, lib, gb, gn, c, h, w, dev)
                       if cuda else _decode_group_cpu(gb, gn, c))
-            part = crop_resize(frames, np.broadcast_to(
-                np.asarray(box_of(w, h), np.int64), (len(idx), 4)), out)
-            if len(idx) == n:
-                y = part
-                break
-            if y is None:
-                y = torch.empty((n, out, out, 3), dtype=torch.uint8,
-                                device=dev)
-            y[torch.as_tensor(idx, device=dev)] = part
-        if y is None:
-            y = torch.empty((0, out, out, 3), dtype=torch.uint8, device=dev)
-        return y
+            parts.append((idx, crop_resize(frames, np.broadcast_to(
+                np.asarray(box_of(w, h), np.int64), (len(idx), 4)), out)))
+        return _assemble(n, out, dev, parts)
     finally:
         if cuda:
             torch.cuda.current_stream(dev).synchronize()

@@ -50,7 +50,7 @@ from coarse_fine_networks_tpu.ops.fold import (FOLD, fold_pad, from_fold4,
 from coarse_fine_networks_tpu.ops.pallas.dw_fold import (
     _dw_fold4_wgrad_raw, _dx_s2_act_raw, _prep_lane_weights)
 from coarse_fine_networks_torch.ops import (dw_act, dw_conv, dw_stencil,
-                                            frame_decode)
+                                            frame_decode, scaled_decode)
 from coarse_fine_networks_torch.ops.dw_act import (_activate, dw_act_dx,
                                                    dw_act_dx_plain,
                                                    dw_act_wgrad,
@@ -472,7 +472,8 @@ def test_kernels_left_the_entry_backward_source():
     last kernel, K10 mm: no source in ``csrc/`` defines the tile layout
     (``CC``, ``WARPS``, ``KC``, ``unpack``, ``mm_prologue``,
     ``StencilGeom``, ``slot_of``), and the libraries are the five depthwise
-    sources beside the native data plane's decoder.  Every weight gradient of both train entries is a row-strip body's: K6
+    sources beside the native data plane's decoders (the crop's and the
+    fast decode's).  Every weight gradient of both train entries is a row-strip body's: K6
     act and K10 act the act instantiations of K6 and K10 plain, K6 mm
     ``dw_plain_s1.cu``'s mm kernel and K10 mm ``dw_plain_s2.cu``'s, under
     ``wgrad_slots``; K5 and K9 are the act and mm modes of K8's body,
@@ -480,13 +481,14 @@ def test_kernels_left_the_entry_backward_source():
     csrc = dw_conv.LIBRARY.source.parent
     assert not (csrc / "dw_act_bwd.cu").exists()
     libs = dw_conv.LIBRARIES + (dw_stencil.LIBRARY,)
-    # the five depthwise sources, and the native data plane's decoder
+    # the five depthwise sources, and the native data plane's decoders
     assert sorted(lib.source.name for lib in libs) == [
         "dw_dx_s1.cu", "dw_mm_act.cu", "dw_plain_s1.cu", "dw_plain_s2.cu",
         "dw_stencil.cu"]
     assert sorted(f.name for f in csrc.glob("*.cu")) == sorted(
         [lib.source.name for lib in libs]
-        + [frame_decode.LIBRARY.source.name])
+        + [frame_decode.LIBRARY.source.name,
+           scaled_decode.LIBRARY.source.name])
     for f in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         code = "\n".join(line.split("//")[0]
                          for line in f.read_text().splitlines())

@@ -274,7 +274,8 @@ def packed_runs(world, jax_runs):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", _JAX_AVAILABLE)
         mp.setattr(pnative, "available", lambda: True)
-        prev = jnative.set_fast_decode(False)
+        prev = (jnative.set_fast_decode(False),
+                pnative.set_fast_decode(False))
         try:
             out = {"jax_n": jextract.run(JConfig(**_base(w, pack_dir=packs)),
                                          feats["jax"], w["fine_pt"]),
@@ -287,7 +288,8 @@ def packed_runs(world, jax_runs):
                 w, "port_packed", device="cpu", **kw),
                 fine_feat_dir=feats["jax"])))
         finally:
-            jnative.set_fast_decode(prev)
+            jnative.set_fast_decode(prev[0])
+            pnative.set_fast_decode(prev[1])
     out["feats"] = feats
     return out
 

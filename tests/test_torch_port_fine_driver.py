@@ -282,13 +282,15 @@ def test_packed_run_matches_jax(world):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jnative, "available", _JAX_AVAILABLE)
         mp.setattr(pnative, "available", lambda: True)
-        prev = jnative.set_fast_decode(False)
+        prev = (jnative.set_fast_decode(False),
+                pnative.set_fast_decode(False))
         try:
             ref = jfine.run(JConfig(**_base(world, "jax_packed", **kw)))
             got = fine_driver.run(DriverConfig(**_base(
                 world, "port_packed", device="cpu", **kw)))
         finally:
-            jnative.set_fast_decode(prev)
+            jnative.set_fast_decode(prev[0])
+            pnative.set_fast_decode(prev[1])
     print("packed port:", got["trajectory"], "\njax: ", ref["trajectory"])
     assert [s for s, _, _ in got["trajectory"]] == [1, 2]
     losses = [x for *_, x in got["trajectory"]]

@@ -160,7 +160,7 @@ def test_native_dataset_matches_jax(corpus, split, monkeypatch):
     flips, and the same uint8 pixels."""
     monkeypatch.setattr(jnative, "available", _JAX_AVAILABLE)
     monkeypatch.setattr(pnative, "available", lambda: True)
-    prev = jnative.set_fast_decode(False)
+    prev = jnative.set_fast_decode(False), pnative.set_fast_decode(False)
     try:
         cfg, jcfg = _cfgs(corpus)
         i = 0 if split == "training" else 1
@@ -182,7 +182,8 @@ def test_native_dataset_matches_jax(corpus, split, monkeypatch):
             samples.append([ds_[j] for j in range(len(ds_))
                             for _ in range(2)])
     finally:
-        jnative.set_fast_decode(prev)
+        jnative.set_fast_decode(prev[0])
+        pnative.set_fast_decode(prev[1])
     for got, ref in zip(*samples):
         assert isinstance(got["clips"], np.ndarray)
         assert got["clips"].shape == ref["clips"].shape == (1, 4, 64, 64, 3)

@@ -1,7 +1,9 @@
 """The port's native data plane (``data/native.py``, ``ops/frame_decode.py``,
 ``cli/pack_dataset.py``) against the JAX package's (``data/native.py`` over
 ``native/cfn_data.cpp``) in its exact mode, on the CPU: Pillow's decode and
-``crop_resize_plain`` against libjpeg and the C++ ``crop_resize``.
+``crop_resize_plain`` against libjpeg and the C++ ``crop_resize`` (both
+packages' modes set to exact; the fast mode is
+``test_torch_port_fast_decode.py``'s).
 
 Exact: uint8 frames equal, packs equal byte for byte, the datasets' samples
 and random draws equal.  Small sizes: frames of 40-64 pixels a side, a few
@@ -30,7 +32,7 @@ from coarse_fine_networks_torch.data import dataset as pds
 from coarse_fine_networks_torch.data import native as pnative
 from coarse_fine_networks_torch.data import transforms as ptr
 from coarse_fine_networks_torch.data.synthetic import generate_mini_charades
-from coarse_fine_networks_torch.ops import frame_decode
+from coarse_fine_networks_torch.ops import frame_decode, scaled_decode
 
 from _torch_port_util import jax_native_library
 
@@ -45,11 +47,12 @@ CROPS = [(32, 0.7, 0.3, 0.6), (48, 0.875, 0.9, 0.05), (20, 1.0, 0.5, 0.5)]
 
 @pytest.fixture(autouse=True)
 def exact_decode():
-    """The JAX library in its exact mode (full decode, then the crop), the
-    function the port computes."""
-    prev = jnative.set_fast_decode(False)
+    """Both packages in their exact mode (full decode, then the crop), each
+    restored after: the fast mode is ``test_torch_port_fast_decode.py``'s."""
+    prev = jnative.set_fast_decode(False), pnative.set_fast_decode(False)
     yield
-    jnative.set_fast_decode(prev)
+    jnative.set_fast_decode(prev[0])
+    pnative.set_fast_decode(prev[1])
 
 
 @pytest.fixture(scope="module")
@@ -85,14 +88,16 @@ def _paths(tree, vid="SYN000"):
 
 
 def test_module_facts():
-    """Available wherever the port runs; the exact path only (nvJPEG has
-    no DCT-scaled decode); nothing built when the modules are imported."""
+    """Available wherever the port runs; both of the JAX library's modes,
+    switched as there (``set_fast_decode`` returns the previous mode);
+    nothing built when the modules are imported."""
     assert pnative.available() is True
     assert pnative.fast_decode() is False
-    assert pnative.set_fast_decode(False) is False
-    with pytest.raises(NotImplementedError, match="DCT-scaled"):
-        pnative.set_fast_decode(True)
+    assert pnative.set_fast_decode(True) is False
+    assert pnative.fast_decode() is frame_decode.fast_decode() is True
+    assert pnative.set_fast_decode(False) is True
     assert frame_decode.LIBRARY._lib is None
+    assert scaled_decode.LIBRARY._lib is None
     assert "-lnvjpeg" in frame_decode.LIBRARY.flags
 
 
@@ -147,19 +152,24 @@ def test_packed_decode_matches_jax(tree, tmp_path, crop):
 
 
 def test_jax_fast_path_is_another_function(tree, tmp_path):
-    """The JAX library's default fast mode (a DCT-scaled partial decode,
-    then the resize) is not the function the port computes, which has no
-    fast mode: every parity test sets the JAX library to exact mode.  The
-    train crop at 48² → 16 (scale 1/4 of the DCT covers it)."""
+    """The JAX library's fast mode (a DCT-scaled partial decode, then the
+    resize) is another function than its exact mode, and the port's fast
+    mode is that function: the train crop at 48² → 16 (scale 1/4 of the
+    DCT covers it), the two fast paths equal, both unequal to the exact
+    one."""
     paths = _paths(tree)
     exact = pnative.decode_batch_random_crop(paths, 16, 0.875, 0.3, 0.6,
                                              device="cpu")
     jnative.set_fast_decode(True)
+    pnative.set_fast_decode(True)
     fast = jnative.decode_batch_random_crop(paths, 16, 0.875, 0.3, 0.6)
-    jnative.set_fast_decode(False)
+    mine = pnative.decode_batch_random_crop(paths, 16, 0.875, 0.3, 0.6,
+                                            device="cpu")
     d = np.abs(fast.astype(np.int32) - exact)
-    print("JAX fast path against the port: max", d.max(), "mean", d.mean())
+    print("JAX fast path against the exact one: max", d.max(), "mean",
+          d.mean())
     assert d.max() > 0
+    np.testing.assert_array_equal(mine, fast)
 
 
 def test_packs_cross_between_packages(tree, tmp_path):

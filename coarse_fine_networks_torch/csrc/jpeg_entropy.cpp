@@ -1,7 +1,7 @@
 // A baseline JPEG's entropy decode on the host: the quantised DCT
-// coefficients of a window of MCUs, for the DCT-scaled decode of
-// ops/scaled_decode.py (the JAX package's fast path, native/cfn_data.cpp's
-// decode_crop_scaled, which libjpeg-turbo runs there).
+// coefficients of a window of MCUs, for the decode of ops/scaled_decode.py
+// (the JAX package's native path at every scale: native/cfn_data.cpp's
+// decode_crop_scaled and decode_rgb, which libjpeg-turbo runs there).
 //
 // Written by hand: no JPEG library is linked (the card's machine has no
 // jpeglib.h), so this file parses the markers and decodes the Huffman
@@ -30,8 +30,11 @@
 // (row-major) order, not yet dequantised; and each component's quantisation
 // table (natural order, int32). It decodes the MCU rows up to the window's
 // last one and stops: rows below are never decoded, as libjpeg's partial
-// decode stops with jpeg_abort_decompress. Blocks outside the window's MCU
-// columns are decoded (the Huffman stream is sequential) but not stored.
+// decode stops with jpeg_abort_decompress. At 8/8 the caller's window holds
+// one MCU row more below the crop (and one above, one column each side),
+// whose samples libjpeg's fancy upsampling reads as context. Blocks outside
+// the window's MCU columns are decoded (the Huffman stream is sequential)
+// but not stored.
 //
 // Threads: no state outside a call; cfn_entropy_decode spreads its frames
 // over num_threads threads of its own.

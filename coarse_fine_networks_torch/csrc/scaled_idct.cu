@@ -1,19 +1,20 @@
-// The DCT-scaled decode's pixel work on the card (sm_90a): a JPEG window's
-// quantised coefficients (from the host entropy decoder,
-// csrc/jpeg_entropy.cpp) to RGB, at num/8 of the frame's size.
+// The decode's pixel work on the card (sm_90a): a JPEG window's quantised
+// coefficients (from the host entropy decoder, csrc/jpeg_entropy.cpp) to
+// the window's RGB rows, at num/8 of the frame's size, in one kernel:
 //
-//   scaled_idct_kernel: each 8x8 block dequantised and inverse-transformed
-//                       at its component's scaled size s (8, 4, 2 or 1),
-//                       into that component's plane;
-//   ycc_rgb_kernel:     the planes to RGB uint8, each chroma plane repeated
-//                       up to the luma grid, into a pitched window, which
-//                       ops/frame_decode.py's crop_resize_kernel then crops
-//                       and resizes.
+//   idct_rgb_kernel: each 8x8 block dequantised and inverse-transformed at
+//                    its component's scaled size s (8, 4, 2 or 1) into
+//                    shared memory, each component brought up to the luma
+//                    grid (repeated, or libjpeg's fancy filters at 8/8),
+//                    converted to RGB and written into a pitched window,
+//                    which ops/frame_decode.py's crop_resize_kernel then
+//                    crops and resizes.
 //
-// Replace no TPU kernel. Their counterpart is host C++ of the JAX package:
-// native/cfn_data.cpp's decode_crop_scaled (:171-255), which runs
-// libjpeg-turbo 2.1 at scale num/8 with fancy upsampling off. The
-// arithmetic is libjpeg-turbo's, in 32-bit integers, bit for bit:
+// Replaces no TPU kernel. Its counterpart is host C++ of the JAX package:
+// native/cfn_data.cpp's decode_rgb (:68, the exact mode's full decode) and
+// decode_crop_scaled (:171, the default mode), which run libjpeg-turbo 2.1:
+// below 8/8 with fancy upsampling off, at 8/8 with it on. The arithmetic is
+// libjpeg-turbo's, in 32-bit integers, bit for bit:
 //   * s = 8: jidctint.c's jpeg_idct_islow; s = 4, 2, 1: jidctred.c's
 //     jpeg_idct_4x4, _2x2 and _1x1 (CONST_BITS 13, PASS1_BITS 2, the FIX_
 //     constants, DESCALE(x, n) = (x + 2^(n-1)) >> n). jpeg_idct_4x4 skips
@@ -22,66 +23,121 @@
 //     sums, so every column takes the full sums here.
 //   * the output's range limit indexes libjpeg's IDCT table with
 //     (value & 1023): 0..127 -> +128, 128..511 -> 255, 512..895 -> 0,
-//     896..1023 -> -896 (idct_limit below), so a value past +-512 wraps as
+//     896..1023 -> -896 (limit below), so a value past +-512 wraps as
 //     libjpeg's does.
 //   * each component's size s follows jdmaster.c's
 //     jpeg_core_output_dimensions (ops/scaled_decode.py's component_sizes):
 //     chroma grows through the IDCT while the sampling ratios allow it
-//     (4:2:0 chroma at 2 * num, so 1:1 with luma), and what remains is
-//     repeated (fancy upsampling is off: 4:2:2 chroma repeated across a
-//     pixel pair, which is what libjpeg's merged upsampler computes).
+//     (4:2:0 chroma at 2 * num, so 1:1 with luma).
+//   * what remains is brought up to the luma grid as jdsample.c's
+//     jinit_upsampler chooses (ops/scaled_decode.py's fancy_upsampled):
+//     below 8/8 repeated (4:2:2 chroma across a pixel pair, which is what
+//     the merged upsampler computes); at 8/8 by the fancy filters,
+//     h2v1_fancy_upsample and h1v2_fancy_upsample ((3 near + far + 1 or 2)
+//     >> 2) and h2v2_fancy_upsample (column sums 3 near + far, then (3 this
+//     + other + 8 or 7) >> 4), the neighbours clamped to the frame's real
+//     samples (downsampled_width and _height) and to the window's; or
+//     repeated where the filter is off (a chroma width of 2 or less).
 //   * jdcolor.c's ycc_rgb_convert with its tables (SCALEBITS 16): R = y +
 //     Cr_r[cr], G = y + ((Cb_g[cb] + Cr_g[cr]) >> 16), B = y + Cb_b[cb],
 //     each clamped to [0, 255]; grey repeated to three channels.
-// ops/scaled_decode.py's scaled_idct_plain and ycc_rgb_plain are the same
-// integer sequences in PyTorch ops; kernel and plain version agree exactly.
+// ops/scaled_decode.py's idct_rgb_plain is the same integer sequence in
+// PyTorch ops, step by step; kernel and plain version agree exactly.
 //
-// What bounds them on this card: bytes. A block's 128 bytes of
-// coefficients are read once and s^2 bytes written, against 378 (s = 4) to
-// 864 (s = 8) integer operations (ops/scaled_decode.py's IDCT_OPS): under 7
-// operations a byte, far below what the card's CUDA cores do for each byte
-// its memory delivers. The colour pass reads 1-3 plane bytes and writes 3
-// RGB bytes a pixel with ~15 operations.
+// What bounds it on this card: bytes, by the roofline's count. A block's
+// 128 bytes of coefficients are read once and the window's 3 RGB bytes a
+// pixel written once, against some 50 integer operations a pixel
+// (ops/scaled_decode.py's IDCT_OPS, FANCY_OPS, YCC_OPS). In practice the
+// integer instructions are the nearer limit: the IDCT's butterflies,
+// descales and range limits and the colour pass's byte handling take
+// longer to issue than the bytes take to move (PERF.md §6 holds its times
+// against the bound), so the design spends few instructions on everything
+// but the arithmetic itself.
 //
-// Design (simple first): a 256-thread block takes 32 coefficient blocks,
-// copies their 4 KB with one 16-byte load a thread into shared memory, and
-// gives each coefficient block 8 threads: thread j runs column j's pass
-// into a shared workspace, then (j < s) row j's pass, writing its s output
-// bytes with one store. Which component a block belongs to, and where its
-// plane lies, come from the launch's parameters (Geom); a frame's blocks
-// lie component after component, each in raster order (the entropy
-// decoder's layout). The colour pass gives a thread one pixel of the window.
+// Design: nothing goes through device memory between the coefficients and
+// the RGB rows. A 256-thread block takes one MCU row of a frame's window
+// (or a run of whole MCUs of it where the row's shared memory would pass
+// SMEM_TARGET) and stages every component's blocks of that row with
+// 16-byte cp.async copies (each staged block row is contiguous in the
+// entropy decoder's layout; a staged block padded to BLOCK_STRIDE bytes,
+// so that a warp's column loads meet no bank conflict), the first
+// component in one group of copies and the others in a second, so that
+// the first's IDCT runs while the others land. The IDCT runs into shared
+// planes a component at a time, a warp four blocks at a time with no
+// block-wide barrier: thread j of a block's eight runs column j's pass
+// into the warp's workspace, then row j's, the quantisation table's column
+// held in registers. A fancy filter's neighbours across the run's edges
+// belong to other blocks: the block stages those blocks too and computes
+// again only what the filter reads (for the blocks above and below, the
+// one row next to the run: its column outputs alone, then one output
+// pixel a thread as a row of jpeg_idct_islow's matrix; the whole block
+// beside it). Then a thread takes 16 pixels of an output row, reads each
+// component's samples from shared memory (16 or 8 bytes at once where
+// they are repeated or inside the frame), converts them and writes the 48
+// RGB bytes with three 16-byte stores.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int MAX_COMP = 3;
-constexpr int IDCT_THREADS = 256;
-constexpr int BLOCKS_PER_CTA = IDCT_THREADS / 8;
-constexpr int YCC_THREADS = 256;
+constexpr int THREADS = 256;
+constexpr int PASS_BLOCKS = THREADS / 8;  // coefficient blocks an IDCT pass
+// a staged block's bytes: its 128 and 16 of padding, so that the four
+// blocks of a warp's column pass read other banks
+constexpr int BLOCK_STRIDE = 144;
+constexpr int GROUP = 16;                 // output pixels a thread writes
+// a block's shared memory: a whole MCU row where it fits SMEM_TARGET (so
+// that several blocks share an SM), else the longest run of a multiple of
+// 16 MCUs that does, else 16 MCUs up to the card's SMEM_MAX
+constexpr int SMEM_TARGET = 64 * 1024, SMEM_MAX = 227 * 1024;
 
 struct Comp {
   long long block_off;  // the component's first block in a frame
   int rows, cols;       // its blocks in the window
   int s;                // its scaled block size
-  long long plane_off;  // its plane's first byte in a frame's planes
-  int pitch;            // its plane's row bytes (a multiple of 16)
-  int hexp, vexp;       // its repetition up to the luma grid
+  long long plane_off;  // the plain version's plane (not read here)
+  int pitch;
+  int hexp, vexp;       // its ratio to the luma grid
+  int fancy;            // 1: libjpeg's fancy filter of that ratio
+  int xmax, ymax;       // the filter's last sample in the window
 };
 
 struct Geom {
   int ncomp;
   long long frame_blocks;  // coefficient blocks of a frame
-  long long plane_bytes;   // plane bytes of a frame
-  int height, width;       // the window's pixels
+  long long plane_bytes;
+  int height, width;  // the window's pixels
+  int wr, wc;         // the window's MCU rows and columns
   Comp comp[MAX_COMP];
 };
 
 // ops/scaled_decode.py's GEOM_HEAD and GEOM_COMP: the int64 array the
-// wrappers pass (geom_array)
-constexpr int GEOM_HEAD = 5, GEOM_COMP = 8;
+// wrapper passes (geom_array)
+constexpr int GEOM_HEAD = 7, GEOM_COMP = 11;
+
+// A component's part of a block's run in shared memory: its staged
+// coefficient blocks (up to (v + 2 ctx) rows of run * h + 2 halo blocks)
+// and its plane (v * s + 2 ctx rows of pitch bytes: the context rows
+// above and below, then halo * s columns left of the run's first)
+struct Part {
+  int h, v;   // blocks an MCU across and down
+  int halo;   // 1: the blocks left and right of the run are staged
+  int ctx;    // 1: the block rows above and below are staged
+  int coef;   // byte offset of the staged blocks
+  int plane;  // byte offset of the plane
+  int pitch;  // the plane's row bytes (a multiple of 16)
+};
+
+struct Plan {
+  int run, nruns;  // MCUs a block, blocks an MCU row
+  int ws, qt;      // byte offsets of the IDCT workspace and the tables
+  int smem;
+  Part part[MAX_COMP];
+};
 
 constexpr int CONST_BITS = 13, PASS1_BITS = 2;
 
@@ -89,13 +145,14 @@ __device__ __forceinline__ int descale(int x, int n) {
   return (x + (1 << (n - 1))) >> n;
 }
 
-// libjpeg's IDCT range-limit table at (x & RANGE_MASK)
-__device__ __forceinline__ uint8_t idct_limit(int x) {
-  const int v = x & 1023;
-  return static_cast<uint8_t>(v < 128 ? v + 128
-                              : v < 512 ? 255
-                              : v < 896 ? 0
-                                        : v - 896);
+// DESCALE(x, n) through libjpeg's IDCT range-limit table at (value &
+// RANGE_MASK): 0..127 -> +128, 128..511 -> 255, 512..895 -> 0, 896..1023 ->
+// -896. With u = (value + 128) & 1023 (bits n..n+9 of x + 2^(n-1) + 128 *
+// 2^n) that is u below 256, 255 below 640, else 0.
+__device__ __forceinline__ uint32_t limit(int x, int n) {
+  const uint32_t u =
+      (static_cast<uint32_t>(x + (1 << (n - 1)) + (128 << n)) >> n) & 1023;
+  return u < 256 ? u : u < 640 ? 255 : 0;
 }
 
 // jpeg_idct_islow's even and odd parts on one column or row d[0..7] (the
@@ -165,89 +222,87 @@ __device__ __forceinline__ void red2_1d(const int* d, int* o) {
   o[1] = tmp10 - tmp0;
 }
 
-__global__ void __launch_bounds__(IDCT_THREADS)
-scaled_idct_kernel(const int16_t* __restrict__ coefs,
-                   const int32_t* __restrict__ qt, long long total,
-                   const __grid_constant__ Geom g,
-                   uint8_t* __restrict__ planes) {
-  __shared__ __align__(16) int16_t cs[BLOCKS_PER_CTA * 64];
-  __shared__ int ws[BLOCKS_PER_CTA][8][9];
-  const int tid = threadIdx.x;
-  const long long first = static_cast<long long>(blockIdx.x) * BLOCKS_PER_CTA;
-  {  // the CTA's coefficient blocks, 16 bytes a thread
-    const long long blk = first + tid / 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (blk < total)
-      v = reinterpret_cast<const uint4*>(coefs + first * 64)[tid];
-    reinterpret_cast<uint4*>(cs)[tid] = v;
-  }
-  const int lb = tid / 8, j = tid % 8;
-  const long long blk = first + lb;
-  const bool live = blk < total;
-  int f = 0, c = 0, by = 0, bx = 0, s = 1;
-  if (live) {
-    f = static_cast<int>(blk / g.frame_blocks);
-    long long r = blk - static_cast<long long>(f) * g.frame_blocks;
-    while (c + 1 < g.ncomp && r >= g.comp[c + 1].block_off) ++c;
-    r -= g.comp[c].block_off;
-    by = static_cast<int>(r / g.comp[c].cols);
-    bx = static_cast<int>(r - static_cast<long long>(by) * g.comp[c].cols);
-    s = g.comp[c].s;
-  }
-  __syncthreads();
-
-  // pass 1: column j, dequantised
-  const int16_t* in = cs + lb * 64;
-  const int32_t* q = qt + (static_cast<long long>(f) * g.ncomp + c) * 64;
-  if (live && s > 1) {
-    int d[8], o[8];
+// one block's column pass, column j (dequantised by q, the table's
+// column j): into ws[k][j]
+__device__ __forceinline__ void column_pass(const int16_t* in,
+                                            const int (&q)[8], int s, int j,
+                                            int (*ws)[9]) {
+  int d[8], o[8];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) d[k] = in[8 * k + j] * __ldg(q + 8 * k + j);
-    if (s == 8) {
-      islow_1d(d, o);
+  for (int k = 0; k < 8; ++k) d[k] = in[8 * k + j] * q[k];
+  if (s == 8) {
+    islow_1d(d, o);
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
-        ws[lb][k][j] = descale(o[k], CONST_BITS - PASS1_BITS);
-    } else if (s == 4) {
-      if (j != 4) {
-        red4_1d(d, o);
+    for (int k = 0; k < 8; ++k)
+      ws[k][j] = descale(o[k], CONST_BITS - PASS1_BITS);
+  } else if (s == 4) {
+    if (j != 4) {
+      red4_1d(d, o);
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          ws[lb][k][j] = descale(o[k], CONST_BITS - PASS1_BITS + 1);
-      }
-    } else if (j == 0 || (j & 1)) {
-      red2_1d(d, o);
-      ws[lb][0][j] = descale(o[0], CONST_BITS - PASS1_BITS + 2);
-      ws[lb][1][j] = descale(o[1], CONST_BITS - PASS1_BITS + 2);
+      for (int k = 0; k < 4; ++k)
+        ws[k][j] = descale(o[k], CONST_BITS - PASS1_BITS + 1);
     }
+  } else if (j == 0 || (j & 1)) {
+    red2_1d(d, o);
+    ws[0][j] = descale(o[0], CONST_BITS - PASS1_BITS + 2);
+    ws[1][j] = descale(o[1], CONST_BITS - PASS1_BITS + 2);
   }
-  __syncthreads();
+}
 
-  // pass 2: row j of the output
-  if (!live || j >= s) return;
-  const Comp& cc = g.comp[c];
-  uint8_t* dst = planes + static_cast<long long>(f) * g.plane_bytes +
-                 cc.plane_off + static_cast<long long>(by * s + j) * cc.pitch +
-                 bx * s;
+// jpeg_idct_islow's column pass of column j for one output row only, row 0
+// (top) or 7 (!top): o[0] = tmp10 + tmp3, o[7] = tmp10 - tmp3, into
+// ws[0 or 7][j]; the other rows are not computed
+__device__ __forceinline__ void column_pass_edge(const int16_t* in,
+                                                 const int (&q)[8], int j,
+                                                 bool top, int (*ws)[9]) {
+  int d[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) d[k] = in[8 * k + j] * q[k];
+  const int z1 = (d[2] + d[6]) * 4433;
+  const int tmp10 = ((d[0] + d[4]) << CONST_BITS) + z1 + d[2] * 6270;
+  const int z5 = (d[7] + d[3] + d[5] + d[1]) * 9633;
+  const int tmp3 = d[1] * 12299 + (d[7] + d[1]) * -7373 +
+                   (d[5] + d[1]) * -3196 + z5;
+  if (top)
+    ws[0][j] = descale(tmp10 + tmp3, CONST_BITS - PASS1_BITS);
+  else
+    ws[7][j] = descale(tmp10 - tmp3, CONST_BITS - PASS1_BITS);
+}
+
+// row j of jpeg_idct_islow's pass as a matrix: output j of islow_1d over
+// the unit vectors (the pass is a sum of integer multiples of its inputs,
+// with no rounding inside, so the matrix gives its values exactly)
+__device__ __forceinline__ void islow_row(int j, int (&a)[8]) {
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    int d[8] = {0, 0, 0, 0, 0, 0, 0, 0}, o[8];
+    d[k] = 1;
+    islow_1d(d, o);
+    int v = o[0];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) v = j == i ? o[i] : v;
+    a[k] = v;
+  }
+}
+
+// one block's row pass, row j < s, into dst (s bytes, s-aligned); s = 1
+// takes the DC term itself (q0: the table's first entry)
+__device__ __forceinline__ void row_pass(const int16_t* in, int q0, int s,
+                                         int j, int (*ws)[9], uint8_t* dst) {
   if (s == 1) {
-    const int dc = in[0] * __ldg(q);
-    *dst = idct_limit(descale(dc, 3));
+    *dst = static_cast<uint8_t>(limit(in[0] * q0, 3));
     return;
   }
   int d[8], o[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) d[k] = ws[lb][j][k];
+  for (int k = 0; k < 8; ++k) d[k] = ws[j][k];
   if (s == 8) {
     islow_1d(d, o);
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      lo |= static_cast<uint32_t>(
-                idct_limit(descale(o[k], CONST_BITS + PASS1_BITS + 3)))
-            << (8 * k);
-      hi |= static_cast<uint32_t>(
-                idct_limit(descale(o[k + 4], CONST_BITS + PASS1_BITS + 3)))
-            << (8 * k);
+      lo |= limit(o[k], CONST_BITS + PASS1_BITS + 3) << (8 * k);
+      hi |= limit(o[k + 4], CONST_BITS + PASS1_BITS + 3) << (8 * k);
     }
     *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
   } else if (s == 4) {
@@ -255,60 +310,304 @@ scaled_idct_kernel(const int16_t* __restrict__ coefs,
     uint32_t v = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      v |= static_cast<uint32_t>(
-               idct_limit(descale(o[k], CONST_BITS + PASS1_BITS + 3 + 1)))
-           << (8 * k);
+      v |= limit(o[k], CONST_BITS + PASS1_BITS + 3 + 1) << (8 * k);
     *reinterpret_cast<uint32_t*>(dst) = v;
   } else {
     red2_1d(d, o);
-    const uint32_t v =
-        idct_limit(descale(o[0], CONST_BITS + PASS1_BITS + 3 + 2)) |
-        static_cast<uint32_t>(
-            idct_limit(descale(o[1], CONST_BITS + PASS1_BITS + 3 + 2)))
-            << 8;
+    const uint32_t v = limit(o[0], CONST_BITS + PASS1_BITS + 3 + 2) |
+                       limit(o[1], CONST_BITS + PASS1_BITS + 3 + 2) << 8;
     *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
   }
 }
 
-__device__ __forceinline__ uint8_t clamp255(int v) {
-  return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v);
+// 16 bytes from device memory into shared memory, asynchronously
+// (cp.async); copies_commit closes the thread's group of copies,
+// copies_wait<N> waits until at most N of its groups are in flight
+__device__ __forceinline__ void copy16(uint8_t* smem, const void* src) {
+  const unsigned sa = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(sa),
+               "l"(src));
+}
+
+__device__ __forceinline__ void copies_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ int clampi(int v, int lo, int hi) {
+  return v < lo ? lo : v > hi ? hi : v;
+}
+
+// byte k of a 16-byte group, packed four to a word
+__device__ __forceinline__ int byte_of(const uint32_t (&w)[4], int k) {
+  return (w[k >> 2] >> (8 * (k & 3))) & 255;
+}
+
+__device__ __forceinline__ void put_byte(uint32_t (&w)[4], int k, int v) {
+  w[k >> 2] |= static_cast<uint32_t>(v) << (8 * (k & 3));
+}
+
+// One component's samples at output pixels x0 .. x0 + 15 of window row
+// y (the run's row yy), packed into w: its plane (rows pitch apart; row 0
+// and column 0 are the run's first sample row and column, ctx rows above
+// and halo * s columns left of them); rx: the run's first window column;
+// ry: the window's sample row of the plane's first.
+__device__ __forceinline__ void component_group(const Comp& cc, const Part& pt,
+                                                const uint8_t* plane, int y,
+                                                int yy, int x0, int rx,
+                                                int ry, uint32_t (&w)[4]) {
+  w[0] = w[1] = w[2] = w[3] = 0;
+  if (!cc.fancy) {  // repeated (hexp, vexp 1 or 2; the rows 16-aligned)
+    const uint8_t* row = plane + (yy / cc.vexp) * pt.pitch;
+    if (cc.hexp == 1) {
+      const uint4 v = *reinterpret_cast<const uint4*>(row + x0);
+      w[0] = v.x;
+      w[1] = v.y;
+      w[2] = v.z;
+      w[3] = v.w;
+    } else {
+      const uint2 v = *reinterpret_cast<const uint2*>(row + x0 / 2);
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k)
+        put_byte(w, k, ((k < 8 ? v.x : v.y) >> (8 * ((k >> 1) & 3))) & 255);
+    }
+    return;
+  }
+  // the fancy filters: the nearer and the further sample row
+  int rn = yy, rf = yy, ybias = 0;
+  if (cc.vexp == 2) {
+    const int near = y >> 1;
+    rn = min(near, cc.ymax) - ry + pt.ctx;
+    rf = clampi(near + ((y & 1) ? 1 : -1), 0, cc.ymax) - ry + pt.ctx;
+    ybias = (y & 1) ? 2 : 1;
+  }
+  const uint8_t* rown = plane + rn * pt.pitch;
+  const uint8_t* rowf = plane + rf * pt.pitch;
+  if (cc.hexp == 1) {  // h1v2
+    const uint4 a = *reinterpret_cast<const uint4*>(rown + x0);
+    const uint4 b = *reinterpret_cast<const uint4*>(rowf + x0);
+    const uint32_t na[4] = {a.x, a.y, a.z, a.w};
+    const uint32_t nb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k)
+      put_byte(w, k, (3 * byte_of(na, k) + byte_of(nb, k) + ybias) >> 2);
+    return;
+  }
+  // h2v1, h2v2: samples c0 - 1 .. c0 + 8 of the group's nearer ones c0 ..
+  // c0 + 7, each clamped to the window's [0, xmax]; inside it (no clamp)
+  // from three 8-byte words a row
+  const int c0 = (rx + x0) >> 1;
+  const int at = x0 / 2 + pt.halo * 8;  // c0's plane column
+  int cs[10];
+  if (c0 >= 1 && c0 + 8 <= cc.xmax) {
+    uint32_t n[6], fw[6];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint2 a = *reinterpret_cast<const uint2*>(rown + at - 8 + 8 * k);
+      const uint2 b = *reinterpret_cast<const uint2*>(rowf + at - 8 + 8 * k);
+      n[2 * k] = a.x;
+      n[2 * k + 1] = a.y;
+      fw[2 * k] = b.x;
+      fw[2 * k + 1] = b.y;
+    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      const int b = k + 7;  // byte of column c0 - 1 + k in n, fw
+      const int a = (n[b >> 2] >> (8 * (b & 3))) & 255;
+      cs[k] = cc.vexp == 2 ? 3 * a + ((fw[b >> 2] >> (8 * (b & 3))) & 255)
+                           : a;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      const int col = clampi(c0 - 1 + k, 0, cc.xmax) - (rx >> 1) +
+                      pt.halo * 8;
+      cs[k] = cc.vexp == 2 ? 3 * rown[col] + rowf[col] : rown[col];
+    }
+  }
+  if (cc.vexp == 2) {  // h2v2
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      put_byte(w, 2 * k, (3 * cs[k + 1] + cs[k] + 8) >> 4);
+      put_byte(w, 2 * k + 1, (3 * cs[k + 1] + cs[k + 2] + 7) >> 4);
+    }
+  } else {  // h2v1
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      put_byte(w, 2 * k, (3 * cs[k + 1] + cs[k] + 1) >> 2);
+      put_byte(w, 2 * k + 1, (3 * cs[k + 1] + cs[k + 2] + 2) >> 2);
+    }
+  }
+}
+
+__device__ __forceinline__ int clamp255(int v) {
+  return v < 0 ? 0 : v > 255 ? 255 : v;
 }
 
 // jdcolor.c's build_ycc_rgb_table entries (FIX(x) = x * 65536 + 0.5)
 constexpr int FIX_R = 91881, FIX_B = 116130, FIX_GR = 46802, FIX_GB = 22554;
 
-__global__ void __launch_bounds__(YCC_THREADS)
-ycc_rgb_kernel(const uint8_t* __restrict__ planes,
-               const __grid_constant__ Geom g, uint8_t* __restrict__ out,
-               long long out_frame, int out_pitch) {
-  const int f = blockIdx.y;
-  const int i = blockIdx.x * YCC_THREADS + threadIdx.x;
-  if (i >= g.height * g.width) return;
-  const int y = i / g.width, x = i - y * g.width;
-  const uint8_t* p = planes + static_cast<long long>(f) * g.plane_bytes;
-  int v[MAX_COMP];
+__global__ void __launch_bounds__(THREADS)
+idct_rgb_kernel(const int16_t* __restrict__ coefs,
+                const int32_t* __restrict__ qt,
+                const __grid_constant__ Geom g,
+                const __grid_constant__ Plan p, uint8_t* __restrict__ out,
+                long long out_frame, int out_pitch) {
+  extern __shared__ __align__(16) uint8_t sm[];
+  const int tid = threadIdx.x;
+  const int per_frame = g.wr * p.nruns;
+  const int f = blockIdx.x / per_frame;
+  const int rem = blockIdx.x - f * per_frame;
+  const int r = rem / p.nruns;
+  const int m0 = (rem - r * p.nruns) * p.run;
+  const int m1 = min(m0 + p.run, g.wc);
+
+  // each component's staged blocks: rows [bi0, bi0 + nbi), columns [bj0,
+  // bj0 + nbj) of its blocks in the window
+  int bi0[MAX_COMP], nbi[MAX_COMP], bj0[MAX_COMP], nbj[MAX_COMP];
+#pragma unroll
+  for (int c = 0; c < MAX_COMP; ++c) {
+    bi0[c] = nbi[c] = bj0[c] = nbj[c] = 0;
+    if (c < g.ncomp) {
+      const Part& q = p.part[c];
+      bi0[c] = r * q.v - (q.ctx && r > 0);
+      nbi[c] = r * q.v + q.v + (q.ctx && r + 1 < g.wr) - bi0[c];
+      bj0[c] = m0 * q.h - (q.halo && m0 > 0);
+      nbj[c] = m1 * q.h + (q.halo && m1 < g.wc) - bj0[c];
+    }
+  }
+
+  // stage them and the tables, 16 bytes a copy, a block BLOCK_STRIDE bytes
+  // from the next: the first component and the tables in one group of
+  // copies, the others in a second, so that the first's IDCT runs while
+  // the others land
+  const int16_t* fc = coefs + static_cast<long long>(f) * g.frame_blocks * 64;
 #pragma unroll
   for (int c = 0; c < MAX_COMP; ++c) {
     if (c < g.ncomp) {
-      const Comp& cc = g.comp[c];
-      v[c] = __ldg(p + cc.plane_off +
-                   static_cast<long long>(y / cc.vexp) * cc.pitch +
-                   x / cc.hexp);
+      const int n16 = nbj[c] * 8;
+      for (int row = 0; row < nbi[c]; ++row) {
+        const int16_t* src =
+            fc + (g.comp[c].block_off +
+                  static_cast<long long>(bi0[c] + row) * g.comp[c].cols +
+                  bj0[c]) * 64;
+        uint8_t* dst = sm + p.part[c].coef + row * nbj[c] * BLOCK_STRIDE;
+        for (int k = tid; k < n16; k += THREADS)
+          copy16(dst + (k >> 3) * BLOCK_STRIDE + (k & 7) * 16, src + 8 * k);
+      }
+    }
+    if (c == 0) {
+      for (int i = tid; i < g.ncomp * 16; i += THREADS)
+        copy16(sm + p.qt + 16 * i,
+               qt + static_cast<long long>(f) * g.ncomp * 64 + 4 * i);
+      copies_commit();
     }
   }
-  uint8_t* o = out + static_cast<long long>(f) * out_frame +
-               static_cast<long long>(y) * out_pitch + 3 * x;
-  if (g.ncomp == 1) {
-    o[0] = o[1] = o[2] = static_cast<uint8_t>(v[0]);
-    return;
+  copies_commit();
+
+  // the IDCT into the planes, a component at a time: a warp takes four
+  // blocks at a time, thread j of a block's eight runs column j's pass,
+  // then row j's, through the warp's own workspace; a context block (above
+  // or below the run's rows) gives only the row next to them
+  const int32_t* qs = reinterpret_cast<const int32_t*>(sm + p.qt);
+  int (*ws)[9] = reinterpret_cast<int (*)[8][9]>(sm + p.ws)[tid >> 3];
+  const int j = tid & 7;
+  auto idct = [&](int c) {
+    const Part& pt = p.part[c];
+    const int s = g.comp[c].s, nj = nbj[c], cnt = nbi[c] * nj;
+    const int top = r * pt.v - bi0[c];  // the run's first staged row
+    int q[8], arow[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) q[k] = qs[64 * c + 8 * k + j];
+    islow_row(j, arow);
+    int tt = (tid >> 5) * 4 + ((tid >> 3) & 3);
+    int row = tt / nj, col = tt - row * nj;
+    for (int base = tt - (tid >> 3 & 3); base < cnt; base += PASS_BLOCKS) {
+      const bool live = tt < cnt;
+      const int16_t* in = reinterpret_cast<const int16_t*>(
+          sm + pt.coef + tt * BLOCK_STRIDE);
+      const bool above = row < top, below = row >= top + pt.v;
+      if (live && s > 1) {
+        if (above || below)
+          column_pass_edge(in, q, j, below, ws);
+        else
+          column_pass(in, q, s, j, ws);
+      }
+      __syncwarp();
+      uint8_t* dst = sm + pt.plane + (bj0[c] + col - m0 * pt.h + pt.halo) * s;
+      if (live && (above || below)) {  // pixel j of the one row (s = 8)
+        int v = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v += arow[k] * ws[below ? 0 : 7][k];
+        dst[(above ? 0 : pt.v * s + 1) * pt.pitch + j] = static_cast<uint8_t>(
+            limit(v, CONST_BITS + PASS1_BITS + 3));
+      } else if (live && j < s) {
+        row_pass(in, q[0], s, j, ws,
+                 dst + ((row - top) * s + j + pt.ctx) * pt.pitch);
+      }
+      __syncwarp();
+      tt += PASS_BLOCKS;
+      col += PASS_BLOCKS;
+      while (col >= nj) {
+        col -= nj;
+        ++row;
+      }
+    }
+  };
+  copies_wait<1>();
+  __syncthreads();
+  idct(0);
+  copies_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int c = 1; c < MAX_COMP; ++c)
+    if (c < g.ncomp) idct(c);
+  __syncthreads();
+
+  // the colour pass: 16 pixels of an output row a thread
+  const int mw = g.width / g.wc, mh = g.height / g.wr;
+  const int run_px = (m1 - m0) * mw;
+  const int groups = (run_px + GROUP - 1) / GROUP;
+  uint8_t* frame_out = out + static_cast<long long>(f) * out_frame;
+  for (int i = tid; i < mh * groups; i += THREADS) {
+    const int yy = i / groups, x0 = (i - yy * groups) * GROUP;
+    const int y = r * mh + yy;
+    uint32_t v[MAX_COMP][4];
+#pragma unroll
+    for (int c = 0; c < MAX_COMP; ++c) {
+      if (c < g.ncomp) {
+        const Comp& cc = g.comp[c];
+        const Part& q = p.part[c];
+        component_group(cc, q, sm + q.plane, y, yy, x0, m0 * mw,
+                        r * q.v * cc.s, v[c]);
+      }
+    }
+    uint32_t o[12] = {0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < GROUP; ++k) {
+      const int yv = byte_of(v[0], k);
+      int rr = yv, gg = yv, bb = yv;
+      if (g.ncomp == 3) {
+        const int cb = byte_of(v[1], k) - 128, cr = byte_of(v[2], k) - 128;
+        rr = clamp255(yv + ((FIX_R * cr + (1 << 15)) >> 16));
+        gg = clamp255(yv + ((-FIX_GB * cb + (1 << 15) + -FIX_GR * cr) >> 16));
+        bb = clamp255(yv + ((FIX_B * cb + (1 << 15)) >> 16));
+      }
+      const int b = 3 * k;
+      o[b >> 2] |= static_cast<uint32_t>(rr) << (8 * (b & 3));
+      o[(b + 1) >> 2] |= static_cast<uint32_t>(gg) << (8 * ((b + 1) & 3));
+      o[(b + 2) >> 2] |= static_cast<uint32_t>(bb) << (8 * ((b + 2) & 3));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(
+        frame_out + static_cast<long long>(y) * out_pitch + 3 * (m0 * mw + x0));
+    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+    dst[2] = make_uint4(o[8], o[9], o[10], o[11]);
   }
-  const int cb = v[1] - 128, cr = v[2] - 128;
-  const int r = (FIX_R * cr + (1 << 15)) >> 16;
-  const int b = (FIX_B * cb + (1 << 15)) >> 16;
-  const int gg = (-FIX_GB * cb + (1 << 15) + -FIX_GR * cr) >> 16;
-  o[0] = clamp255(v[0] + r);
-  o[1] = clamp255(v[0] + gg);
-  o[2] = clamp255(v[0] + b);
 }
 
 int read_geom(const long long* a, Geom* g) {
@@ -317,7 +616,12 @@ int read_geom(const long long* a, Geom* g) {
   g->plane_bytes = a[2];
   g->height = static_cast<int>(a[3]);
   g->width = static_cast<int>(a[4]);
-  if (g->ncomp != 1 && g->ncomp != 3) return cudaErrorInvalidValue;
+  g->wr = static_cast<int>(a[5]);
+  g->wc = static_cast<int>(a[6]);
+  if ((g->ncomp != 1 && g->ncomp != 3) || g->wr < 1 || g->wc < 1 ||
+      g->height % g->wr || g->width % g->wc || g->frame_blocks < 1)
+    return cudaErrorInvalidValue;
+  const int mw = g->width / g->wc, mh = g->height / g->wr;
   for (int c = 0; c < g->ncomp; ++c) {
     const long long* b = a + GEOM_HEAD + GEOM_COMP * c;
     Comp& cc = g->comp[c];
@@ -329,53 +633,90 @@ int read_geom(const long long* a, Geom* g) {
     cc.pitch = static_cast<int>(b[5]);
     cc.hexp = static_cast<int>(b[6]);
     cc.vexp = static_cast<int>(b[7]);
-    if ((cc.s != 1 && cc.s != 2 && cc.s != 4 && cc.s != 8) || cc.pitch % 16 ||
-        cc.plane_off % 16 || cc.cols < 1 || cc.rows < 1 || cc.hexp < 1 ||
-        cc.vexp < 1 || cc.cols * cc.s > cc.pitch)
+    cc.fancy = static_cast<int>(b[8]);
+    cc.xmax = static_cast<int>(b[9]);
+    cc.ymax = static_cast<int>(b[10]);
+    if ((cc.s != 1 && cc.s != 2 && cc.s != 4 && cc.s != 8) || cc.rows < 1 ||
+        cc.cols < 1 || cc.rows % g->wr || cc.cols % g->wc ||
+        (cc.hexp != 1 && cc.hexp != 2) || (cc.vexp != 1 && cc.vexp != 2) ||
+        cc.cols / g->wc * cc.s * cc.hexp != mw ||
+        cc.rows / g->wr * cc.s * cc.vexp != mh || cc.block_off < 0 ||
+        cc.block_off + static_cast<long long>(cc.rows) * cc.cols >
+            g->frame_blocks ||
+        (cc.fancy && (cc.s != 8 || cc.hexp * cc.vexp == 1 || cc.xmax < 0 ||
+                      cc.ymax < 0 || cc.xmax >= cc.cols * cc.s ||
+                      cc.ymax >= cc.rows * cc.s)))
       return cudaErrorInvalidValue;
   }
-  if (g->plane_bytes % 16 || g->frame_blocks < 1) return cudaErrorInvalidValue;
   return 0;
+}
+
+int align16(int v) { return (v + 15) / 16 * 16; }
+
+// The layout of a block's run of `run` MCUs in shared memory.
+void make_plan(const Geom& g, int run, Plan* p) {
+  int off = 0;
+  p->run = run;
+  p->nruns = (g.wc + run - 1) / run;
+  for (int c = 0; c < g.ncomp; ++c) {
+    const Comp& cc = g.comp[c];
+    Part& q = p->part[c];
+    q.h = cc.cols / g.wc;
+    q.v = cc.rows / g.wr;
+    q.halo = cc.fancy && cc.hexp == 2;
+    q.ctx = cc.fancy && cc.vexp == 2;
+    q.coef = off;
+    off += (q.v + 2 * q.ctx) * (run * q.h + 2 * q.halo) * BLOCK_STRIDE;
+  }
+  for (int c = 0; c < g.ncomp; ++c) {
+    const int s = g.comp[c].s;
+    Part& q = p->part[c];
+    q.pitch = align16(run * q.h * s + 2 * q.halo * s);
+    q.plane = off;
+    off += align16((q.v * s + 2 * q.ctx) * q.pitch);
+  }
+  p->ws = off;
+  off += PASS_BLOCKS * 8 * 9 * 4;
+  p->qt = off;
+  off += g.ncomp * 64 * 4;
+  p->smem = off;
 }
 
 }  // namespace
 
-// Inverse-transform n frames' blocks (coefs: n * frame_blocks * 64 int16,
-// 16-byte aligned; qt: n * ncomp * 64 int32) into their planes (n *
-// plane_bytes, 16-byte aligned). geom: the int64 array of
-// ops/scaled_decode.py's geom_array. 0, cudaErrorInvalidValue for a
-// geometry the kernel does not take, or the launch's error.
-extern "C" int cfn_scaled_idct(const void* coefs, const void* qt, int n,
-                               const long long* geom, void* planes,
-                               void* stream) {
-  Geom g;
+// n frames' window coefficients (coefs: n * frame_blocks * 64 int16 in the
+// entropy decoder's layout, 16-byte aligned; qt: n * ncomp * 64 int32,
+// 16-byte aligned) to their RGB windows: frame i's at out + i * out_frame,
+// rows out_pitch bytes apart (16-byte aligned, room for the width rounded
+// up to 16 pixels). geom: the int64 array of ops/scaled_decode.py's
+// geom_array. 0, cudaErrorInvalidValue for a geometry or layout the kernel
+// does not take, or the launch's error.
+extern "C" int cfn_idct_rgb(const void* coefs, const void* qt, int n,
+                            const long long* geom, void* out,
+                            long long out_frame, int out_pitch,
+                            void* stream) {
+  Geom g{};
   if (int e = read_geom(geom, &g)) return e;
-  if (n < 1 || (reinterpret_cast<uintptr_t>(coefs) |
-                reinterpret_cast<uintptr_t>(planes)) % 16)
+  if (n < 1 || out_pitch % 16 || out_frame % 16 ||
+      out_pitch < 3 * align16(g.width) ||
+      out_frame < static_cast<long long>(out_pitch) * g.height ||
+      (reinterpret_cast<uintptr_t>(coefs) | reinterpret_cast<uintptr_t>(qt) |
+       reinterpret_cast<uintptr_t>(out)) % 16)
     return cudaErrorInvalidValue;
-  const long long total = static_cast<long long>(n) * g.frame_blocks;
-  const long long grid = (total + BLOCKS_PER_CTA - 1) / BLOCKS_PER_CTA;
+  Plan p{};
+  make_plan(g, g.wc, &p);
+  if (p.smem > SMEM_TARGET && g.wc > 16) {  // runs of 16k MCUs
+    int run = (g.wc - 1) / 16 * 16;
+    make_plan(g, run, &p);
+    while (p.smem > SMEM_TARGET && run > 16) make_plan(g, run -= 16, &p);
+  }
+  if (p.smem > SMEM_MAX) return cudaErrorInvalidValue;
+  const long long grid = static_cast<long long>(n) * g.wr * p.nruns;
   if (grid > 0x7fffffffLL) return cudaErrorInvalidValue;
-  scaled_idct_kernel<<<static_cast<unsigned>(grid), IDCT_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int16_t*>(coefs), static_cast<const int32_t*>(qt),
-      total, g, static_cast<uint8_t*>(planes));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The planes of n frames to RGB: frame i's window at out + i * out_frame,
-// rows out_pitch bytes apart.
-extern "C" int cfn_ycc_rgb(const void* planes, int n, const long long* geom,
-                           void* out, long long out_frame, int out_pitch,
-                           void* stream) {
-  Geom g;
-  if (int e = read_geom(geom, &g)) return e;
-  if (n < 1 || n > 65535 || out_pitch < 3 * g.width ||
-      out_frame < static_cast<long long>(out_pitch) * g.height)
-    return cudaErrorInvalidValue;
-  const dim3 grid((g.height * g.width + YCC_THREADS - 1) / YCC_THREADS, n);
-  ycc_rgb_kernel<<<grid, YCC_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(planes), g, static_cast<uint8_t*>(out),
-      out_frame, out_pitch);
+  if (int e = cfn::set_smem(idct_rgb_kernel, p.smem)) return e;
+  idct_rgb_kernel<<<static_cast<unsigned>(grid), THREADS, p.smem,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(coefs), static_cast<const int32_t*>(qt), g,
+      p, static_cast<uint8_t*>(out), out_frame, out_pitch);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 """Input pipeline of the port (counterpart of
 ``coarse_fine_networks_tpu/data``): Charades annotations, clip sampling
-with native decoding (:mod:`.native`: nvJPEG and a crop-resize kernel on
-the card, Pillow on the CPU; the ``.cfnpack`` packs) or Pillow, the
+with native decoding (:mod:`.native`: a host entropy decoder, then an
+IDCT-and-colour kernel and a crop-resize kernel on the card, or their
+plain versions on the CPU; the ``.cfnpack`` packs) or Pillow, the
 Kinetics-style pretraining corpus, the host transforms, pooled collate
 buffers, the threaded loader, the device prefetcher, the device half of
 the transforms (uint8 frames normalised on the card), and the submodules

@@ -7,9 +7,10 @@ flip flag, normalised later on the device (:func:`.transforms
 the time axes up to fixed multiples, or geometric buckets, so that the
 steps see few shapes; masks carry the true lengths.
 
-Frames are decoded natively (:mod:`.native`: nvJPEG and a hand-written
-crop-resize kernel on the card, Pillow and its plain version on the CPU)
-where the spatial pipeline allows, as the JAX package's datasets decode
+Frames are decoded natively (:mod:`.native`: a hand-written host entropy
+decoder, then hand-written IDCT-and-colour and crop-resize kernels on the
+card, their plain versions on the CPU) where the spatial pipeline allows,
+as the JAX package's datasets decode
 with its C++ library: a ``CenterCropScaled``-only pipeline, or
 ``MultiScaleRandomCropMultigrid`` with a deferred flip for training;
 otherwise with Pillow and the host transforms.  ``pack_dir`` reads a

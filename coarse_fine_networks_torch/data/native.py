@@ -3,29 +3,31 @@
 clip frames decoded and cropped in one pass, and the ``.cfnpack``
 containers.
 
-The JAX package decodes with a C++ thread pool over libjpeg.  The port
-computes the same function, the C++'s exact path, with what each device
-has:
+The JAX package decodes with a C++ thread pool over libjpeg-turbo.  The
+port computes the same function, bit for bit, with a decoder of its own
+(:mod:`..ops.scaled_decode`: a hand-written host entropy decoder, then
+``idct_rgb_kernel``, libjpeg's IDCT, upsampling and colour conversion in
+one pass) and :mod:`..ops.frame_decode`'s crop and resize
+(``crop_resize_kernel``):
 
-* on a CUDA device, nvJPEG and the hand-written ``crop_resize_kernel``
-  (:mod:`..ops.frame_decode`): the clip lands on the card as uint8, ready
-  for :func:`.transforms.device_normalize`, on the calling thread's own
-  stream (:func:`thread_stream`), which each call synchronises before it
-  returns, so another stream may read the result;
-* on the CPU, Pillow's decode and :func:`..ops.frame_decode
-  .crop_resize_plain`, equal to the JAX exact path bit for bit; the result
-  is a host ``numpy`` array, as the JAX package's is.
+* on a CUDA device the kernels run on the card: the clip lands there as
+  uint8, ready for :func:`.transforms.device_normalize`, on the calling
+  thread's own stream (:func:`thread_stream`), which each call
+  synchronises before it returns, so another stream may read the result;
+* on the CPU their plain versions run; the result is a host ``numpy``
+  array, as the JAX package's is.
 
 Both modes of the JAX library are here.  The fast mode (the default, as
 there: fast unless ``CFN_EXACT_DECODE`` is set; :func:`set_fast_decode`)
 decodes a crop's MCUs at the smallest DCT scale num/8 that still covers
-the output, the JAX library's partial decode
-(:mod:`..ops.scaled_decode`: a hand-written host entropy decoder, then
-``scaled_idct_kernel`` and ``ycc_rgb_kernel`` on the card, or their plain
-versions on the CPU, then the crop and resize above); where only 8/8
-covers the output it is the exact path's function and takes it.  A frame
-the fast path's entropy decoder refuses (progressive, arithmetic-coded,
-corrupt) raises naming it and the way to the exact mode.
+the output; the exact mode, and the fast mode where only 8/8 covers it,
+decode at 8/8 with libjpeg's fancy upsampling, whose pixels inside the
+crop are the full decode's.  ``out_size`` 0 gives the frames whole.  A
+frame whose header the entropy decoder refuses (progressive,
+arithmetic-coded) raises in the fast mode below 8/8, naming it and the way
+to the exact mode; at 8/8 and in the exact mode it takes nvJPEG on the
+card (whose pixels are not libjpeg's) or Pillow on the CPU.  A frame it
+refuses partway (truncated, corrupt) raises in both modes.
 
 :func:`available` is true wherever the port runs.  A CUDA decode whose
 library does not build or load raises; it never turns into Pillow or the
@@ -54,8 +56,8 @@ MAGIC = 0x43464E50414B3143  # "CFNPAK1C"
 _HEADER = struct.Struct("<qq")
 
 def available() -> bool:
-    """Whether the native path can run: wherever the port runs (Pillow on
-    the CPU; nvJPEG and the kernels on the card, built at first use)."""
+    """Whether the native path can run: wherever the port runs (the plain
+    versions on the CPU; the kernels on the card, built at first use)."""
     return True
 
 
@@ -157,9 +159,9 @@ def _read_files(paths: Sequence[str]) -> List[bytes]:
 def decode_batch(paths: Sequence[str], out_size: int,
                  num_threads: int = 4, device="cuda"):
     """Decode + CenterCropScaled a list of JPEGs → ``(N, out, out, 3)``
-    uint8 (a device tensor on the card, a numpy array on the CPU).
-    ``num_threads`` threads share the fast path's entropy decode (nvJPEG
-    decodes a clip in one call)."""
+    uint8 (a device tensor on the card, a numpy array on the CPU);
+    ``out_size`` 0: the frames whole, ``(N, h, w, 3)``.  ``num_threads``
+    threads share the entropy decode."""
     with on_device(device) as d:
         return _decode(_read_files(paths), list(paths), out_size,
                        center_box, d, num_threads)

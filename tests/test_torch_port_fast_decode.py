@@ -1,6 +1,6 @@
 """The port's DCT-scaled fast decode (``ops/scaled_decode.py`` over
-``csrc/jpeg_entropy.cpp``, the plain versions of ``scaled_idct_kernel`` and
-``ycc_rgb_kernel``, and ``crop_resize_plain``) against the JAX library's
+``csrc/jpeg_entropy.cpp``, the plain version of ``idct_rgb_kernel``, and
+``crop_resize_plain``) against the JAX library's
 fast mode (``native/cfn_data.cpp``'s ``decode_crop_scaled`` over
 libjpeg-turbo), on the CPU.
 
@@ -11,7 +11,7 @@ from files and from a pack; restart markers.  Frames the entropy decoder
 refuses raise naming the frame; the default mode follows
 ``CFN_EXACT_DECODE``; Pillow's ``draft`` decode, cropped by the same
 rules, agrees for 4:2:0 and 4:4:4 (it keeps fancy upsampling, which 4:2:2
-needs).  The kernels themselves are held against these plain versions by
+needs).  The kernel itself is held against its plain version by
 ``chip_smoke.py``'s ``fast_decode`` phase.
 """
 
@@ -297,29 +297,26 @@ def _blocks(g, p):
 
 
 def test_wrappers_on_the_cpu_and_their_work(frames):
-    """On CPU tensors the wrappers run the plain versions (no launch
-    counted); ``program_costs`` counts each wrapper's Work and nothing
-    inside it, the same formulas ``chip_smoke.py`` bounds the kernels by."""
+    """On CPU tensors the wrapper runs the plain version (no launch
+    counted); ``program_costs`` counts the wrapper's Work and nothing
+    inside it, the same formula ``chip_smoke.py`` bounds the kernel by."""
     blobs = [open(p, "rb").read() for p in frames["422", (256, 192)]]
     p = sd.probe(blobs[0])
     g = sd.geometry(256, 192, p.samp, (32, 0, 192, 192), 60)
     coefs, qt = sd.entropy_decode(blobs, ["f"] * 3, p, g)
     sd.reset_launches()
-    planes = sd.scaled_idct(coefs, qt, g)
-    assert torch.equal(planes, sd.scaled_idct_plain(coefs, qt, g))
-    rgb = sd.ycc_rgb(planes, g)
-    assert torch.equal(rgb, sd.ycc_rgb_plain(planes, g))
-    assert rgb.shape == (3, g.height, g.width, 3)
-    assert sd.LAUNCHES == {"scaled_idct_kernel": 0, "ycc_rgb_kernel": 0}
-    costs = hw.program_costs(lambda: sd.ycc_rgb(sd.scaled_idct(
+    rgb = sd.idct_rgb(coefs, qt, g)
+    assert torch.equal(rgb, sd.idct_rgb_plain(coefs, qt, g))
+    assert torch.equal(rgb, sd.ycc_rgb_plain(sd.scaled_idct_plain(
         coefs, qt, g), g))
-    wi, wy = sd.idct_work(planes, coefs, qt, g), sd.ycc_work(rgb, planes, g)
-    assert costs["kernels"] == {"scaled_idct": [1, 0, wi.bytes],
-                                "ycc_rgb": [1, 0, wy.bytes]}
-    assert costs["bytes"] == wi.bytes + wy.bytes and costs["flops"] == 0
-    px = sum(c.rows * c.cols * c.s ** 2 for c in g.comps)
-    assert wi.bytes == 3 * (g.frame_blocks * 128 + 3 * 256 + px)
-    assert wy.bytes == 3 * (px + 3 * g.height * g.width)
+    assert rgb.shape == (3, g.height, g.width, 3)
+    assert sd.LAUNCHES == {"idct_rgb_kernel": 0}
+    costs = hw.program_costs(lambda: sd.idct_rgb(coefs, qt, g))
+    wk = sd.idct_rgb_work(rgb, coefs, qt, g)
+    assert costs["kernels"] == {"idct_rgb": [1, 0, wk.bytes]}
+    assert costs["bytes"] == wk.bytes and costs["flops"] == 0
+    assert wk.bytes == 3 * (g.frame_blocks * 128 + 3 * 256
+                            + 3 * g.height * g.width)
 
 
 def test_idct_sizes_against_the_dct():

@@ -251,35 +251,47 @@ Phases, each printing JSON lines:
    its inputs were;
 19c. decode: the exact mode on 640×480 synthetic JPEGs (noise, smooth
    and grey frames; centre and two random crops, out 224 and 112):
-   baseline frames on the port's own path (the host entropy decoder,
-   ``idct_rgb_kernel``, ``crop_resize_kernel``), the card equal to the CPU
-   (a difference of 0); nvJPEG's route on progressive frames (which the
-   entropy decoder refuses by their header): ``crop_resize_kernel``
-   against ``crop_resize_plain`` on the same nvJPEG frames (equal bit for
-   bit), nvJPEG + kernel against Pillow + plain (max and mean |difference|
-   held to ``DECODE_BOUND``, twice the measured; a crop shifted one pixel,
-   or R and B swapped, must read outside it); each route's frames counted
-   (``DECODES``); grey frames giving three equal channels; a clip of mixed
-   sizes, kinds and routes; the kernel timed on one clip's 64 frames
-   beside its bound, its plain version and ``F.interpolate``, and nvJPEG's
-   decode of the clip beside Pillow's; and ``CROP_THREADS`` threads, each
-   on a stream of its own, launching the kernel at once with crops that
-   need different shared memory, as a loader's workers do (no launch
-   refused, each equal to the plain version); the phase pins the exact
-   mode (``set_fast_decode(False)``) and restores the default after;
+   baseline and progressive frames, frames cut short and the fixtures
+   Pillow cannot write (``tests/torch_port_jpegs/``: arithmetic sequential
+   and progressive, sequential in three scans) on the port's own path (the
+   host entropy decoder, ``idct_rgb_kernel``, ``crop_resize_kernel``), the
+   card equal to the CPU (a difference of 0) and no frame to nvJPEG; a
+   progressive frame cut where libjpeg smooths raises naming it, and so
+   does the RGB-transform fixture on the card (nvJPEG reads it as YCbCr);
+   nvJPEG's route on two 640×480 4:1:1 fixtures (which the entropy decoder
+   leaves to it by its header): ``crop_resize_kernel`` against
+   ``crop_resize_plain`` on the same nvJPEG frames (equal bit for bit),
+   nvJPEG + kernel against Pillow + plain (max and mean |difference| held
+   to ``DECODE_BOUND``, twice the measured; R and B swapped on the smooth
+   one and a crop shifted one pixel on the noisy one must read outside it);
+   each route's frames counted (``DECODES``); grey frames giving three
+   equal channels; a clip of mixed sizes, kinds and routes; the kernel
+   timed on one clip's 64 frames beside its bound, its plain version and
+   ``F.interpolate``, and nvJPEG's decode of the clip beside Pillow's; and
+   ``CROP_THREADS`` threads, each on a stream of its own, launching the
+   kernel at once with crops that need different shared memory, as a
+   loader's workers do (no launch refused, each equal to the plain
+   version); the phase pins the exact mode (``set_fast_decode(False)``)
+   and restores the default after;
 19d. fast_decode: ``idct_rgb_kernel`` on 640×480 synthetic JPEGs (noise
    and smooth frames in 4:2:0 and 4:2:2, noise in 4:4:4, grey frames) at
    out 224 (num 4), 112 (num 2) and 56 (num 1) centre crops, two train
    crops at num 4, a train crop at 8/8 (the fancy filters) and the raw
    frame, and on seeded 4:4:0 coefficients: against its plain version on
-   the card (a difference of 0), and the card's decode
-   (``decode_crop_resize``) against the CPU's (equal); a progressive frame
-   raises below 8/8 and takes nvJPEG at 8/8; ``FAST_THREADS`` threads
-   decode at once, each on its own stream (no launch refused, each equal
-   to the CPU); at two full-size shapes (64 frames: 640×480 centre crops
-   at num 4, 480² train crops at 8/8) the kernel alone (``queued_ms``)
-   and as a call beside its bound and plain version, the entropy decoder's
-   ms a frame (1, 4 and 8 threads) beside nvJPEG's full decode, and a
+   the card (a difference of 0), and on seeded 4:2:0 coefficients past the
+   8-bit range at every size (libjpeg-turbo's SIMD IDCT's 16-bit lanes),
+   and the card's decode (``decode_crop_resize``) against the CPU's
+   (equal); progressive frames
+   of three layouts, frames cut short and the arithmetic and multi-scan
+   fixtures at num 4 and 8/8, card against CPU and none to nvJPEG; the
+   4:1:1 fixture raises below 8/8 and takes nvJPEG at 8/8, the
+   RGB-transform fixture raises on the card;
+   ``FAST_THREADS`` threads decode at once, each on its own stream (no
+   launch refused, each equal to the CPU); at two full-size shapes (64
+   frames: 640×480 centre crops at num 4, 480² train crops at 8/8) the
+   kernel alone (``queued_ms``) and as a call beside its bound and plain
+   version, the entropy decoder's ms a frame (1, 4 and 8 threads) of
+   baseline and progressive noise beside nvJPEG's full decode, and a
    clip's decode call (at num 4 also in the exact mode, and Pillow's
    ``draft`` decode);
 19e. packed: the native data plane end to end on a Multi-THUMOS tree
@@ -5692,29 +5704,81 @@ def phase_dp_cli(mods) -> dict:
 # decoder's rounding) and smooth frames, RGB, quality 90, and grey ones;
 # the crops of the path (the centre crop of extraction and validation, two
 # train crops) at the path's output size and half of it; baseline frames
-# (port_frames a kind: the port's own path, card against CPU) and
-# progressive ones (frames a kind: nvJPEG's route); the kernel timed on one
-# clip's 64 frames
+# (port_frames a kind) and progressive ones (at the path's output size) on
+# the port's own path, card against CPU; nvJPEG's route on the two 640×480
+# 4:1:1 fixtures (frames of each a call); the kernel timed on one clip's 64
+# frames
 DECODE = dict(h=480, w=640, frames=16, port_frames=4, quality=90,
               outs=(224, 112),
               crops=(None, (0.7, 0.3, 0.6), (0.875, 0.9, 0.05)),
               timed_frames=64)
-# nvJPEG's route (frames the port's entropy decoder refuses by their
-# header): nvJPEG + crop_resize_kernel against Pillow + crop_resize_plain on
-# the same JPEGs, (max, mean) |difference| in uint8 levels over the crops:
-# at most twice what a chip run measured on baseline frames (NVIDIA H100
-# 80GB HBM3, 700 W: noise 92, 13.16; smooth 8, 1.260; grey 1, 0.00945; the
-# inputs are seeded and both decoders deterministic, so the measure
-# repeats), held on progressive frames, the only ones nvJPEG still
-# decodes.  The planted fault held outside each kind's bound: the crop
-# shifted one pixel on noise and grey frames, R and B swapped on smooth
-# ones (on noise a swap stays inside: JPEG's chroma subsampling leaves
-# noise little colour; on smooth frames a one-pixel shift moves the mean
-# by 2.62-2.78, barely above 2.5)
-DECODE_BOUND = {"noise": (184, 26.3), "smooth": (16, 2.5),
-                "grey": (2, 0.0189)}
-DECODE_FAULT = {"noise": "shift_1px", "smooth": "swap_rb",
-                "grey": "shift_1px"}
+# the committed frames Pillow cannot write (tests/torch_port_jpegs/, made by
+# libjpeg through its make_fixtures.py): 160×120 but for the two 640×480
+# 4:1:1 ones, quality 90
+FIXTURES = REPO / "tests" / "torch_port_jpegs"
+PORT_FIXTURES = ("arith_sequential_420.jpg", "arith_progressive_420.jpg",
+                 "multiscan_sequential_422.jpg")
+# nvJPEG's route: the frames the port's entropy decoder leaves to another
+# decoder by their header, sampling factors 3 or 4 on the card (nvJPEG
+# reads an RGB transform as YCbCr, so the card refuses those frames): the
+# small fixture in fast_decode, and in decode two at the path's 640×480,
+# smooth bands and the same with noise over the middle half of each side
+NVJPEG_FIXTURE = "sampling_411.jpg"
+NVJPEG_KINDS = {"sampling_411_smooth": "sampling_411_smooth_640x480.jpg",
+                "sampling_411_noise": "sampling_411_noise_640x480.jpg"}
+RGB_FIXTURE = "rgb_transform_444.jpg"
+# nvJPEG + crop_resize_kernel against Pillow + crop_resize_plain on the same
+# JPEGs, (max, mean) |difference| in uint8 levels over the crops: twice
+# what a chip run measured (NVIDIA H100 80GB HBM3, 700 W: smooth (3,
+# 0.5090), noisy (4, 0.5047); libjpeg has no fancy filter for 4:1:1, so
+# only the IDCTs differ, noise or not; the inputs are fixed and both
+# decoders deterministic, so the measure repeats).  The planted fault held
+# outside each kind's bound: R and B swapped on the smooth frame (it read
+# (244-247, 64.53-67.53) in that run), the crop shifted one pixel on the
+# noisy one ((165-243, 13.12-34.96))
+DECODE_BOUND = {"sampling_411_smooth": (6, 1.02),
+                "sampling_411_noise": (8, 1.01)}
+DECODE_FAULT = {"sampling_411_smooth": "swap_rb",
+                "sampling_411_noise": "shift_1px"}
+
+
+def _fixture(name: str) -> bytes:
+    with open(FIXTURES / name, "rb") as f:
+        return f.read()
+
+
+def _scans(blob: bytes) -> list:
+    """``(first, end)`` byte offsets of each scan's entropy-coded data."""
+    out, i, sos = [], 2, None
+    while i + 1 < len(blob):
+        if blob[i] != 0xFF or blob[i + 1] in (0, 0xFF) or (
+                0xD0 <= blob[i + 1] <= 0xD7):
+            i += 1
+            continue
+        if sos is not None:
+            out.append((sos, i))
+            sos = None
+        if blob[i + 1] == 0xD9 or i + 3 >= len(blob):
+            break
+        end = i + 2 + (blob[i + 2] << 8 | blob[i + 3])
+        if blob[i + 1] == 0xDA:
+            sos = end
+        i = end
+    return out
+
+
+def _cut_frames(blobs: list, progressive: list) -> dict:
+    """Frames cut short, as the port decodes them (libjpeg's fill): a
+    baseline frame at half its bytes, a progressive one inside its last
+    scan; and one the port refuses (a progressive frame cut inside its
+    fourth scan, which libjpeg smooths)."""
+    last = _scans(progressive[0])[-1]
+    fourth = _scans(progressive[0])[3]
+    return {"cut_baseline": [b[:len(b) // 2] for b in blobs],
+            "cut_progressive_last_scan": [
+                progressive[0][:(last[0] + last[1]) // 2]],
+            "cut_progressive_smoothed": [
+                progressive[0][:(fourth[0] + fourth[1]) // 2]]}
 
 
 def _jpegs(kind: str, n: int, h: int, w: int, seed: int,
@@ -5815,20 +5879,27 @@ def _outside(stat: tuple, bound: tuple) -> bool:
 
 def phase_decode(fd, native, bounds=DECODE_BOUND) -> dict:
     """The card's decode against the CPU's on synthetic 640×480 JPEGs, in
-    the exact mode.  Baseline frames (noise, smooth, grey; centre and two
-    random crops, out 224 and 112) take the port's own path on both (the
-    host entropy decoder, ``idct_rgb_kernel`` or its plain version, the
-    crop): card and CPU equal (a difference of 0).  nvJPEG's route, shown on
-    progressive frames (which the entropy decoder refuses by their header):
-    ``crop_resize_kernel`` against ``crop_resize_plain`` on the same frames
-    decoded by nvJPEG (equal bit for bit, and the API path equal to the
-    kernel), nvJPEG + kernel against Pillow + plain (max and mean
-    |difference| per kind of frame, held to ``bounds``; the planted fault
-    of each kind, ``DECODE_FAULT``, must read outside them); grey frames
+    the exact mode.  The port's own path (the host entropy decoder,
+    ``idct_rgb_kernel`` or its plain version, the crop), card and CPU equal
+    (a difference of 0) and no frame to nvJPEG: baseline frames (noise,
+    smooth, grey; centre and two random crops, out 224 and 112), progressive
+    ones (out 224), frames cut short (a baseline frame, a progressive one
+    inside its last scan) and the fixtures Pillow cannot write (arithmetic
+    sequential and progressive, sequential in three scans); a progressive
+    frame cut earlier, which libjpeg smooths, raises naming it; the
+    RGB-transform fixture raises on the card (nvJPEG's raw decode of it
+    against Pillow's is reported).  nvJPEG's route, shown on the two
+    640×480 4:1:1 fixtures (which the entropy decoder leaves to it by its
+    header):
+    ``crop_resize_kernel`` against
+    ``crop_resize_plain`` on the same frames decoded by nvJPEG (equal bit
+    for bit, and the API path equal to the kernel), nvJPEG + kernel against
+    Pillow + plain (max and mean |difference|, held to ``bounds``; the
+    planted fault, ``DECODE_FAULT``, must read outside them); grey frames
     (three equal channels); ``DECODES`` counting each route's frames.  A
     clip of mixed sizes, kinds and routes (one crop launch a group, the
-    frames in order, the port's frames equal to the CPU's, the progressive
-    ones within their bound).  Then the kernel timed at one clip's 64
+    frames in order, the port's frames equal to the CPU's, the 4:1:1 ones
+    within their bound).  Then the kernel timed at one clip's 64
     frames (the centre crop of extraction, 480² → 224², and a train crop)
     two ways, alone (bare launches, ``queued_ms``: the device's time) and as
     the path calls it (``crop_resize`` back to back), beside its bound, its
@@ -5851,78 +5922,129 @@ def _decode_exact_path(fd, native, bounds) -> dict:
     dev = torch.device("cuda")
     lib = fd.LIBRARY.build()
     h, w = c["h"], c["w"]
-    kinds = {}
+    kinds, port = {}, {}
     bits, exact = [], []
+
+    def on_port(label, blobs, out, box_of):
+        """The card's decode against the CPU's, and the routes taken."""
+        names = [f"{label}{i}" for i in range(len(blobs))]
+        fd.reset_launches()
+        sd.reset_launches()
+        card = fd.decode_crop_resize(blobs, names, out, box_of, dev)
+        torch.cuda.synchronize()
+        routes = {**fd.DECODES, **sd.LAUNCHES}
+        cpu = fd.decode_crop_resize(blobs, names, out, box_of, "cpu")
+        exact.append(_diff(card, cpu)[0])
+        case = {"out": out, "card_vs_cpu": exact[-1], "routes": routes}
+        if label.startswith("grey"):
+            case["channels_equal"] = bool(
+                (card[..., 0] == card[..., 1]).all()
+                and (card[..., 0] == card[..., 2]).all())
+        port.setdefault(label, []).append(case)
+
+    # the port's own path: baseline frames of each kind at every crop,
+    # progressive ones at the path's output size, frames cut short and the
+    # fixtures Pillow cannot write
+    progressive = {}
+    for kind, seed in (("noise", 1), ("smooth", 2), ("grey", 3)):
+        base = _jpegs(kind, c["port_frames"], h, w, seed + 10, c["quality"])
+        progressive[kind] = _jpegs(kind, c["port_frames"], h, w, seed,
+                                   c["quality"], progressive=True)
+        for out in c["outs"]:
+            for crop in c["crops"]:
+                box_of = (native.center_box if crop is None
+                          else native.random_box(*crop))
+                on_port(kind, base, out, box_of)
+                if out == c["outs"][0]:
+                    on_port(f"{kind}_progressive", progressive[kind], out,
+                            box_of)
+    cut = _cut_frames(_jpegs("noise", 2, h, w, 12, c["quality"]),
+                      progressive["noise"])
+    for label in ("cut_baseline", "cut_progressive_last_scan"):
+        on_port(label, cut[label], c["outs"][0], native.center_box)
+    for name in PORT_FIXTURES:
+        on_port(name, [_fixture(name)] * 4, 112, native.center_box)
+    try:
+        fd.decode_crop_resize(cut["cut_progressive_smoothed"], ["smoothed"],
+                              224, native.center_box, dev)
+        smoothed = ""
+    except IOError as e:
+        smoothed = str(e)
+
+    # the RGB-transform fixture: refused on the card (nvJPEG would read it
+    # as YCbCr), and nvJPEG's raw decode of it against Pillow's
+    rgb = [_fixture(RGB_FIXTURE)]
+    try:
+        fd.decode_crop_resize(rgb, ["rgb_transform0"], 224,
+                              native.center_box, dev)
+        rgb_refused = ""
+    except IOError as e:
+        rgb_refused = str(e)
     ctx = fd._DECODERS.acquire()
     try:
-        for kind, seed in (("noise", 1), ("smooth", 2), ("grey", 3)):
-            prog = _jpegs(kind, c["frames"], h, w, seed, c["quality"],
-                          progressive=True)
-            base = _jpegs(kind, c["port_frames"], h, w, seed + 10,
-                          c["quality"])
-            names = [f"{kind}{i}" for i in range(len(prog))]
-            ch = 1 if kind == "grey" else 3
-            raw = fd._decode_group_cuda(ctx, lib, prog, names, ch, h, w, dev)
-            torch.cuda.synchronize()
-            pil = _pil_frames(prog)
-            raw_rgb = raw.expand(-1, -1, -1, 3) if ch == 1 else raw
-            st = {"decoded_vs_pillow": _diff(raw_rgb, pil), "cases": []}
-            for out in c["outs"]:
-                for crop in c["crops"]:
-                    box_of = (native.center_box if crop is None
-                              else native.random_box(*crop))
-                    b = box_of(w, h)
-                    boxes = [b] * len(prog)
-                    k = fd.crop_resize(raw, boxes, out)
-                    p = fd.crop_resize_plain(raw, boxes, out)
-                    fd.reset_launches()
-                    api = fd.decode_crop_resize(prog, names, out, box_of,
-                                                dev)
-                    torch.cuda.synchronize()
-                    routes = {"progressive": dict(fd.DECODES)}
-                    fd.reset_launches()
-                    sd.reset_launches()
-                    card = fd.decode_crop_resize(base, names[:len(base)],
-                                                 out, box_of, dev)
-                    torch.cuda.synchronize()
-                    routes["baseline"] = {**fd.DECODES, **sd.LAUNCHES}
-                    cpu = fd.decode_crop_resize(base, names[:len(base)],
-                                                out, box_of, "cpu")
-                    ref = fd.crop_resize_plain(pil, boxes, out)
-                    shifted = fd.crop_resize(
-                        raw, [(b[0] + 1, b[1], b[2], b[3])] * len(prog), out)
-                    torch.cuda.synchronize()
-                    bits.append(max(_diff(k, p)[0], _diff(k, api)[0]))
-                    exact.append(_diff(card, cpu)[0])
-                    case = {"out": out, "box": list(b),
-                            "card_vs_cpu": exact[-1],
-                            "vs_pillow": _diff(k, ref),
-                            "shift_1px": _diff(shifted, ref),
-                            "swap_rb": _diff(k[..., [2, 1, 0]], ref),
-                            "routes": routes}
-                    if kind == "grey":
-                        case["channels_equal"] = bool(
-                            (k[..., 0] == k[..., 1]).all()
-                            and (k[..., 0] == k[..., 2]).all()
-                            and (card[..., 0] == card[..., 2]).all())
-                    st["cases"].append(case)
-            got = st["cases"]
-            st["measured"] = (max(x["vs_pillow"][0] for x in got),
-                              max(x["vs_pillow"][1] for x in got))
-            kinds[kind] = st
+        raw = fd._decode_group_cuda(ctx, lib, rgb, ["rgb_transform0"], 3, 120,
+                                    160, dev)
+        torch.cuda.synchronize()
     finally:
         fd._DECODERS.release(ctx)
+    rgb_vs_pillow = _diff(raw, _pil_frames(rgb))
 
-    # a clip of mixed frames (landscape and portrait RGB, grey, and
-    # progressive frames on nvJPEG's route): one crop launch a group, the
-    # parts put back in order; the port's frames against the CPU's, the
-    # progressive ones against Pillow + plain within their kind's bound
+    # nvJPEG's route, on the 640×480 4:1:1 fixtures
+    from PIL import Image
+
+    for kind, fixture in NVJPEG_KINDS.items():
+        s411 = [_fixture(fixture)] * c["frames"]
+        with Image.open(io.BytesIO(s411[0])) as img:
+            fw, fh = img.size
+        names = [f"{kind}_{i}" for i in range(len(s411))]
+        ctx = fd._DECODERS.acquire()
+        try:
+            raw = fd._decode_group_cuda(ctx, lib, s411, names, 3, fh, fw, dev)
+            torch.cuda.synchronize()
+        finally:
+            fd._DECODERS.release(ctx)
+        pil = _pil_frames(s411)
+        st = {"size": [fw, fh], "decoded_vs_pillow": _diff(raw, pil),
+              "cases": []}
+        for out in c["outs"]:
+            for crop in c["crops"]:
+                box_of = (native.center_box if crop is None
+                          else native.random_box(*crop))
+                b = box_of(fw, fh)
+                boxes = [b] * len(s411)
+                k = fd.crop_resize(raw, boxes, out)
+                p = fd.crop_resize_plain(raw, boxes, out)
+                fd.reset_launches()
+                sd.reset_launches()
+                api = fd.decode_crop_resize(s411, names, out, box_of, dev)
+                torch.cuda.synchronize()
+                routes = {**fd.DECODES, **sd.LAUNCHES}
+                ref = fd.crop_resize_plain(pil, boxes, out)
+                shifted = fd.crop_resize(
+                    raw, [(b[0] + 1, b[1], b[2], b[3])] * len(s411), out)
+                torch.cuda.synchronize()
+                bits.append(max(_diff(k, p)[0], _diff(k, api)[0]))
+                st["cases"].append({"out": out, "box": list(b),
+                                    "vs_pillow": _diff(k, ref),
+                                    "shift_1px": _diff(shifted, ref),
+                                    "swap_rb": _diff(k[..., [2, 1, 0]], ref),
+                                    "routes": routes})
+        st["measured"] = (max(x["vs_pillow"][0] for x in st["cases"]),
+                          max(x["vs_pillow"][1] for x in st["cases"]))
+        kinds[kind] = st
+
+    # a clip of mixed frames (landscape RGB, baseline and progressive,
+    # portrait RGB, grey, and 4:1:1 frames on nvJPEG's route): one crop
+    # launch a group, the parts put back in order; the port's frames
+    # against the CPU's, the 4:1:1 ones against Pillow + plain within their
+    # bound
     parts = [("noise", _jpegs("noise", 2, h, w, 5, c["quality"])),
              ("grey", _jpegs("grey", 2, h, w, 6, c["quality"])),
              ("noise", _jpegs("noise", 2, w, h, 7, c["quality"])),
              ("progressive", _jpegs("noise", 2, h, w, 8, c["quality"],
-                                    progressive=True))]
-    order = [1, 0, 3, 2, 7, 5, 4, 6]  # interleaved, so each part is scattered
+                                    progressive=True)),
+             *((kind, [_fixture(f)]) for kind, f in NVJPEG_KINDS.items())]
+    order = [1, 0, 3, 2, 7, 5, 9, 4, 6, 8]  # interleaved: parts scattered
     blobs = [b for _, bs in parts for b in bs]
     kind_of = [k for k, bs in parts for _ in bs]
     blobs, kind_of = [blobs[i] for i in order], [kind_of[i] for i in order]
@@ -5937,11 +6059,11 @@ def _decode_exact_path(fd, native, bounds) -> dict:
     sd.reset_launches()
     mixed = []
     for i, b in enumerate(blobs):
-        if kind_of[i] == "progressive":
+        if kind_of[i] in NVJPEG_KINDS:
             pil = _pil_frames([b])
             ref = fd.crop_resize_plain(pil, [native.center_box(
                 pil.shape[2], pil.shape[1])], 224)
-            mixed.append(("noise", _diff(got[i:i + 1], ref)))
+            mixed.append((kind_of[i], _diff(got[i:i + 1], ref)))
         else:
             exact.append(_diff(got[i:i + 1], cpu[i:i + 1])[0])
             mixed.append(("port", exact[-1]))
@@ -6035,11 +6157,14 @@ def _decode_exact_path(fd, native, bounds) -> dict:
     threaded = _crop_threads(fd)
     fd.reset_launches()
     row = {"phase": "decode", "source": f"{w}x{h} synthetic JPEG, quality "
-                                       f"{c['quality']}, {c['frames']} "
-                                       f"progressive and "
-                                       f"{c['port_frames']} baseline frames "
-                                       f"a kind",
+                                       f"{c['quality']}, "
+                                       f"{c['port_frames']} baseline and "
+                                       f"progressive frames a kind; "
+                                       f"{FIXTURES.name}/ fixtures",
            "kernel_vs_plain_max": max(bits), "card_vs_cpu_max": max(exact),
+           "port": port, "smoothed": smoothed[:300],
+           "rgb_transform_refused": rgb_refused[:300],
+           "rgb_transform_nvjpeg_vs_pillow": rgb_vs_pillow,
            "mixed_clip": {"frames": mixed, "launches": mixed_launches},
            "odd_and_past_the_cap": extra, "threads": threaded,
            "kinds": kinds, "timed": timed,
@@ -6050,16 +6175,26 @@ def _decode_exact_path(fd, native, bounds) -> dict:
     emit(row)
     check(max(bits) == 0, f"decode: crop_resize_kernel differs from its "
                           f"plain version or the API path by {max(bits)}")
-    check(max(exact) == 0, f"decode: the card's decode of baseline frames "
+    check(max(exact) == 0, f"decode: the card's decode of the port's frames "
                            f"differs from the CPU's by {max(exact)}")
-    routed = [x["routes"] for st in kinds.values() for x in st["cases"]]
-    check(all(r["progressive"] == {"port": 0, "nvjpeg": c["frames"],
-                                   "pillow": 0, "nvjpeg_calls": 1}
-              and r["baseline"] == {"port": c["port_frames"], "nvjpeg": 0,
-                                    "pillow": 0, "nvjpeg_calls": 0,
-                                    "idct_rgb_kernel": 1}
-              for r in routed), f"decode: routes {routed[:2]}")
-    check(all(x.get("channels_equal", True) for x in kinds["grey"]["cases"]),
+    wrong = [(label, x["routes"]) for label, xs in port.items() for x in xs
+             if x["routes"] != {"port": x["routes"]["port"], "nvjpeg": 0,
+                                "pillow": 0, "nvjpeg_calls": 0,
+                                "idct_rgb_kernel": 1}
+             or x["routes"]["port"] < 1]
+    check(not wrong, f"decode: the port's frames took routes {wrong[:2]}")
+    routed = [x["routes"] for k in NVJPEG_KINDS for x in kinds[k]["cases"]]
+    check(all(r == {"port": 0, "nvjpeg": c["frames"], "pillow": 0,
+                    "nvjpeg_calls": 1, "idct_rgb_kernel": 0}
+              for r in routed), f"decode: nvJPEG's routes {routed[:2]}")
+    check("smooths" in smoothed and "smoothed" in smoothed,
+          f"decode: a cut progressive frame libjpeg smooths gave "
+          f"{smoothed!r}")
+    check("YCbCr" in rgb_refused and "rgb_transform0" in rgb_refused,
+          f"decode: an RGB-transform frame on the card gave {rgb_refused!r}")
+    check(all(x.get("channels_equal", True) for label in ("grey",
+                                                          "grey_progressive")
+              for x in port[label]),
           "decode: a grey frame's channels differ")
     check(extra["past_the_cap_launches"] == 2,
           f"decode: {fd.CROP_BOXES + 3} frames took "
@@ -6070,9 +6205,9 @@ def _decode_exact_path(fd, native, bounds) -> dict:
           f"decode: crop_resize from {CROP_THREADS} threads at once: "
           f"{threaded}")
     check(mixed_launches == {"crop_resize_kernel": 4, "idct_rgb_kernel": 3,
-                             "port": 6, "nvjpeg": 2, "pillow": 0,
+                             "port": 8, "nvjpeg": 2, "pillow": 0,
                              "nvjpeg_calls": 1}
-          and tuple(got.shape) == (8, 224, 224, 3),
+          and tuple(got.shape) == (10, 224, 224, 3),
           f"decode: a mixed clip took {mixed_launches} launches, "
           f"shape {tuple(got.shape)}")
     if bounds is not None:
@@ -6128,16 +6263,23 @@ def phase_fast_decode(fd, sd, native) -> dict:
     coefficients, on both routes (repetition; the fancy filters at 8/8) and
     every layout, and ``decode_crop_resize`` on the card against the CPU's,
     each equal (a difference of 0), one launch of the kernel a call; 4:4:0
-    on seeded coefficients; a progressive frame raises below 8/8 and takes
-    nvJPEG's route at 8/8; ``FAST_THREADS`` threads at once on streams of
-    their own (no launch refused, each equal to the CPU).  Then one clip of
-    64 frames at each of ``TIMED``'s shapes: the kernel against its plain
-    version, alone (bare launches, ``queued_ms``) beside its bound, its call
-    and its plain version on the card; the entropy decoder's ms a frame (1,
-    4 and 8 threads) beside nvJPEG's full decode, the pinned copy of the
-    coefficients, the decode call; at num 4 also Pillow's ``draft`` decode
-    and the call in the exact mode.  Runs in the fast mode and restores the
-    mode after.  Returns the kernel line's numbers."""
+    on seeded coefficients, and 4:2:0 on seeded coefficients past the 8-bit
+    range at every size (the SIMD IDCT's 16-bit lanes); frames beyond one
+    baseline scan (progressive
+    ones of three layouts, frames cut short, the arithmetic and multi-scan
+    fixtures) at num 4 and 8/8, card against CPU and none to nvJPEG; the
+    4:1:1 fixture raises below 8/8 and takes nvJPEG's route at 8/8, the
+    RGB-transform fixture raises on the card at 8/8 too;
+    ``FAST_THREADS`` threads at once on streams of their own (no launch
+    refused, each equal to the CPU).  Then one clip of 64 frames at each of
+    ``TIMED``'s shapes: the kernel against its plain version, alone (bare
+    launches, ``queued_ms``) beside its bound, its call and its plain
+    version on the card; the entropy decoder's ms a frame (1, 4 and 8
+    threads) of baseline and progressive noise beside nvJPEG's full decode
+    of baseline frames, the pinned copy of the coefficients, the decode
+    call; at num 4 also Pillow's ``draft`` decode and the call in the exact
+    mode.  Runs in the fast mode and restores the mode after.  Returns the
+    kernel line's numbers."""
     prev = fd.set_fast_decode(True)
     try:
         return _fast_decode(fd, sd, native)
@@ -6211,19 +6353,84 @@ def _fast_decode(fd, sd, native) -> dict:
         cases.append({"frames": "seeded coefficients 4:4:0", "num": num,
                       "fancy": [x.fancy for x in g.comps],
                       "kernel_vs_plain": d})
+    # seeded 4:2:0 coefficients past what 8-bit blocks give (corrupt data,
+    # blocks decoded on the zero bits of data cut short): the SIMD code's
+    # 16-bit lanes and saturations, and its shortcut (blocks whose rows
+    # beside row 0 are zero, or all but row 4 for the 4x4), at every size
+    s420 = ((2, 2), (1, 1), (1, 1))
+    for num in (8, 4, 2, 1):
+        g = sd.geometry(w, h, s420, (60, 20, 420, 420), 224, num)
+        shape = (c["frames"], g.frame_blocks)
+        coefs = rng.randint(-32768, 32768, (*shape, 64))
+        mild = rng.rand(*shape) < 0.5
+        coefs[mild] = rng.randint(-300, 301, (int(mild.sum()), 64))
+        coefs[rng.rand(*shape) < 0.15, 8:] = 0
+        row4 = rng.rand(*shape) < 0.1
+        coefs[row4, 8:32] = 0
+        coefs[row4, 40:] = 0
+        coefs = torch.from_numpy(coefs.astype(np.int16))
+        qt = torch.from_numpy(rng.randint(1, 256, (c["frames"], 3, 64)
+                                          ).astype(np.int32))
+        cc, qc = coefs.to(dev), qt.to(dev)
+        d = max(_diff(sd.idct_rgb(cc, qc, g), sd.idct_rgb_plain(cc, qc, g))[0],
+                _diff(sd.idct_rgb(cc, qc, g), sd.idct_rgb_plain(coefs, qt,
+                                                                g))[0])
+        bits.append(d)
+        cases.append({"frames": "seeded coefficients past the 8-bit range "
+                                "4:2:0", "num": num,
+                      "fancy": [x.fancy for x in g.comps],
+                      "kernel_vs_plain": d})
 
-    # a progressive frame: refused and named below 8/8, nvJPEG's at 8/8
-    prog = _jpegs("noise", 1, h, w, 49, c["quality"], progressive=True)
+    # frames beyond one baseline scan, on the port's path at num 4 and 8/8:
+    # card against CPU (equal) and no frame to nvJPEG
+    prog = {kind: _jpegs(kind, 2, h, w, 49, c["quality"], progressive=True,
+                         **({} if kind == "grey" else {"subsampling": sub}))
+            for kind, sub in (("noise", 2), ("smooth", 1), ("grey", None))}
+    cut = _cut_frames(_jpegs("noise", 2, h, w, 51, c["quality"]),
+                      prog["noise"])
+    beyond = {**{f"progressive_{k}": v for k, v in prog.items()},
+              "cut_baseline": cut["cut_baseline"],
+              "cut_progressive_last_scan": cut["cut_progressive_last_scan"],
+              **{name: [_fixture(name)] * 2 for name in PORT_FIXTURES}}
+    new_kinds = []
+    for label, blobs in beyond.items():
+        names = [f"{label}{i}" for i in range(len(blobs))]
+        small = label in PORT_FIXTURES  # 160×120: num 4 at 56, 8/8 at 112
+        for out, crop in (((56, None), (112, None)) if small else
+                          ((224, None), (224, (0.875, 0.3, 0.6)))):
+            box_of = (native.center_box if crop is None
+                      else native.random_box(*crop))
+            sd.reset_launches()
+            fd.reset_launches()
+            card = fd.decode_crop_resize(blobs, names, out, box_of, dev)
+            torch.cuda.synchronize()
+            routes = {**sd.LAUNCHES, **fd.LAUNCHES, **fd.DECODES}
+            cpu = fd.decode_crop_resize(blobs, names, out, box_of, "cpu")
+            bits.append(_diff(card, cpu)[0])
+            new_kinds.append({"frames": label, "out": out, "crop": crop,
+                              "card_vs_cpu": bits[-1], "routes": routes})
+            refs.append((blobs, names, out, box_of, cpu))
+
+    # the 4:1:1 fixture, which the port leaves to the exact mode's decoder:
+    # refused and named below 8/8, nvJPEG's at 8/8; the RGB-transform
+    # fixture refused on the card at 8/8 too
+    s411 = [_fixture(NVJPEG_FIXTURE)]
     try:
-        fd.decode_crop_resize(prog, ["progressive0"], 224, native.center_box,
-                              dev)
+        fd.decode_crop_resize(s411, ["sampling_411_0"], 56,
+                              native.center_box, dev)
         raised = ""
     except IOError as e:
         raised = str(e)
     fd.reset_launches()
-    fd.decode_crop_resize(prog, ["progressive0"], 224,
-                          native.random_box(0.875, 0.3, 0.6), dev)
-    prog_routes = dict(fd.DECODES)
+    fd.decode_crop_resize(s411, ["sampling_411_0"], 112, native.center_box,
+                          dev)
+    s411_routes = dict(fd.DECODES)
+    try:
+        fd.decode_crop_resize([_fixture(RGB_FIXTURE)], ["rgb_transform0"],
+                              112, native.center_box, dev)
+        rgb_raised = ""
+    except IOError as e:
+        rgb_raised = str(e)
 
     # threads at once, each on its own stream (a loader's workers)
     made, refused, worst, lock = [0], [], [0], threading.Lock()
@@ -6264,8 +6471,10 @@ def _fast_decode(fd, sd, native) -> dict:
         box_of = (native.center_box if crop is None
                   else native.random_box(*crop))
         row = {}
-        for kind in ("noise", "smooth"):
-            clip = _jpegs(kind, 16, th_, tw, 50, c["quality"]) * (n // 16)
+        for kind in ("noise", "smooth", "noise_progressive"):
+            clip = _jpegs(kind.split("_")[0], 16, th_, tw, 50, c["quality"],
+                          progressive=kind.endswith("progressive")) * (
+                              n // 16)
             p = sd.probe(clip[0])
             g = sd.geometry(tw, th_, p.samp, box_of(tw, th_), out)
             r = {"frames": n, "jpeg_bytes_per_frame": sum(map(len, clip)) / n,
@@ -6286,18 +6495,19 @@ def _fast_decode(fd, sd, native) -> dict:
                         img.load()
                 r["pillow_draft_ms_per_frame"] = (
                     time.perf_counter() - t1) * 1e3 / n
-            ctx = fd._DECODERS.acquire()
-            try:
-                ts = []
-                for _ in range(3):
-                    t1 = time.perf_counter()
-                    fd._decode_group_cuda(ctx, fd.LIBRARY.build(), clip,
-                                          names, 3, th_, tw, dev)
-                    torch.cuda.synchronize()
-                    ts.append((time.perf_counter() - t1) * 1e3)
-            finally:
-                fd._DECODERS.release(ctx)
-            r["nvjpeg_ms_per_frame"] = min(ts[1:]) / n
+            if kind != "noise_progressive":
+                ctx = fd._DECODERS.acquire()
+                try:
+                    ts = []
+                    for _ in range(3):
+                        t1 = time.perf_counter()
+                        fd._decode_group_cuda(ctx, fd.LIBRARY.build(), clip,
+                                              names, 3, th_, tw, dev)
+                        torch.cuda.synchronize()
+                        ts.append((time.perf_counter() - t1) * 1e3)
+                finally:
+                    fd._DECODERS.release(ctx)
+                r["nvjpeg_ms_per_frame"] = min(ts[1:]) / n
             for mode in ((True, False) if g.num < 8 else (True,)):
                 fd.set_fast_decode(mode)
                 ts = []
@@ -6361,7 +6571,9 @@ def _fast_decode(fd, sd, native) -> dict:
            "source": f"{w}x{h} synthetic JPEG, quality {c['quality']}, "
                      f"{c['frames']} frames a layout",
            "kernel_vs_plain_max": max(bits), "cases": cases,
-           "progressive": raised[:300], "progressive_8of8": prog_routes,
+           "beyond_one_scan": new_kinds, "sampling_411": raised[:300],
+           "sampling_411_8of8": s411_routes,
+           "rgb_transform_8of8": rgb_raised[:300],
            "threads": threaded, "timed": timed, "kernel": kern,
            "program_costs": costs["centre_num4", "cuda"],
            "timed_at": f"uint8: one clip's {n} frames of 4:2:0 noise: "
@@ -6371,11 +6583,19 @@ def _fast_decode(fd, sd, native) -> dict:
     emit(row)
     check(max(bits) == 0, f"fast_decode: the kernel or the card's path "
                           f"differs by {max(bits)}")
-    check("progressive" in raised and "progressive0" in raised
+    wrong = [x for x in new_kinds
+             if x["routes"] != {"idct_rgb_kernel": 1, "crop_resize_kernel": 1,
+                                "port": len(beyond[x["frames"]]),
+                                "nvjpeg": 0, "pillow": 0, "nvjpeg_calls": 0}]
+    check(not wrong, f"fast_decode: frames beyond one baseline scan took "
+                     f"{wrong[:2]}")
+    check("sampling factor" in raised and "sampling_411_0" in raised
           and "CFN_EXACT_DECODE=1" in raised,
-          f"fast_decode: a progressive frame gave {raised!r}")
-    check(prog_routes["nvjpeg"] == 1 and prog_routes["port"] == 0,
-          f"fast_decode: a progressive frame at 8/8 took {prog_routes}")
+          f"fast_decode: a 4:1:1 frame gave {raised!r}")
+    check(s411_routes["nvjpeg"] == 1 and s411_routes["port"] == 0,
+          f"fast_decode: a 4:1:1 frame at 8/8 took {s411_routes}")
+    check("YCbCr" in rgb_raised and "rgb_transform0" in rgb_raised,
+          f"fast_decode: an RGB-transform frame at 8/8 gave {rgb_raised!r}")
     check(threaded["refused"] == 0 and threaded["max_diff"] == 0
           and threaded["calls"] == FAST_THREADS * FAST_THREAD_CALLS,
           f"fast_decode: {FAST_THREADS} threads at once: {threaded}")

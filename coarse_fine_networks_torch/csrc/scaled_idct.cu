@@ -18,13 +18,25 @@
 //   * s = 8: jidctint.c's jpeg_idct_islow; s = 4, 2, 1: jidctred.c's
 //     jpeg_idct_4x4, _2x2 and _1x1 (CONST_BITS 13, PASS1_BITS 2, the FIX_
 //     constants, DESCALE(x, n) = (x + 2^(n-1)) >> n). jpeg_idct_4x4 skips
-//     coefficient row and column 4, _2x2 rows and columns 2, 4, 6. Their
-//     zero-column and zero-row shortcuts give the same values as the full
-//     sums, so every column takes the full sums here.
-//   * the output's range limit indexes libjpeg's IDCT table with
+//     coefficient row and column 4, _2x2 rows and columns 2, 4, 6.
+//   * at s = 8, 4 and 2 as libjpeg-turbo's SIMD code computes them (SSE2
+//     and AVX2 on x86-64: jsimd_idct_islow, _4x4, _2x2), which the JAX
+//     library runs there: each coef * q in a 16-bit lane (pmullw), islow's
+//     sums d0 + d4, d0 - d4, d7 + d3 and d5 + d1 in 16-bit lanes, the first
+//     pass's values packed to 16 bits with saturation (but for the 2x2's
+//     column 0, kept in 32), and islow's and the 4x4's shortcut where a
+//     block's rows beside row 0 are all zero: (coef * q) << 2 in 16 bits.
+//     On the values 8-bit blocks give none of this departs from the C
+//     code; corrupt data and blocks decoded on the zero bits of data cut
+//     short reach it (w16, s16, flat_block below).
+//   * the output's range limit: at s = 8, 4 and 2 saturated to [0, 255], as
+//     libjpeg-turbo's SIMD IDCTs (jsimd_idct_islow, _4x4, _2x2; SSE2 and
+//     AVX2 on x86-64), which the JAX library runs there, pack it (saturate
+//     below); at s = 1 (jpeg_idct_1x1, C only) libjpeg's IDCT table with
 //     (value & 1023): 0..127 -> +128, 128..511 -> 255, 512..895 -> 0,
-//     896..1023 -> -896 (limit below), so a value past +-512 wraps as
-//     libjpeg's does.
+//     896..1023 -> -896 (limit below). The two differ past +-512 only,
+//     which no 8-bit block reaches but a block decoded on the zero bits of
+//     data cut short can.
 //   * each component's size s follows jdmaster.c's
 //     jpeg_core_output_dimensions (ops/scaled_decode.py's component_sizes):
 //     chroma grows through the IDCT while the sampling ratios allow it
@@ -148,15 +160,33 @@ __device__ __forceinline__ int descale(int x, int n) {
 // DESCALE(x, n) through libjpeg's IDCT range-limit table at (value &
 // RANGE_MASK): 0..127 -> +128, 128..511 -> 255, 512..895 -> 0, 896..1023 ->
 // -896. With u = (value + 128) & 1023 (bits n..n+9 of x + 2^(n-1) + 128 *
-// 2^n) that is u below 256, 255 below 640, else 0.
+// 2^n) that is u below 256, 255 below 640, else 0. The 1x1 IDCT's.
 __device__ __forceinline__ uint32_t limit(int x, int n) {
   const uint32_t u =
       (static_cast<uint32_t>(x + (1 << (n - 1)) + (128 << n)) >> n) & 1023;
   return u < 256 ? u : u < 640 ? 255 : 0;
 }
 
-// jpeg_idct_islow's even and odd parts on one column or row d[0..7] (the
-// inputs already dequantised or from the workspace): o[i] before descale.
+// DESCALE(x, n) + 128 saturated to [0, 255]: the SIMD IDCTs' packs, at
+// s = 8, 4 and 2.
+__device__ __forceinline__ uint32_t saturate(int x, int n) {
+  const int v = static_cast<int>(static_cast<uint32_t>(x) +
+                                 (1u << (n - 1))) >> n;
+  return static_cast<uint32_t>(min(max(v + 128, 0), 255));
+}
+
+// x in a 16-bit lane: wrapped (pmullw, paddw, psubw, psllw) or saturated
+// (packssdw)
+__device__ __forceinline__ int w16(int x) { return static_cast<int16_t>(x); }
+__device__ __forceinline__ int s16(int x) {
+  return min(max(x, -32768), 32767);
+}
+__device__ __forceinline__ bool fits16(int x) { return x == w16(x); }
+
+// jpeg_idct_islow's even and odd parts on one column or row d[0..7] (16-bit
+// values: dequantised or from the workspace): o[i] before descale, the
+// four sums the SIMD code forms in 16-bit lanes wrapped (its merged
+// constants give the C code's products and sums integer for integer)
 __device__ __forceinline__ void islow_1d(const int* d, int* o) {
   int z2 = d[2], z3 = d[6];
   int z1 = (z2 + z3) * 4433;
@@ -164,16 +194,16 @@ __device__ __forceinline__ void islow_1d(const int* d, int* o) {
   const int tmp3e = z1 + z2 * 6270;
   z2 = d[0];
   z3 = d[4];
-  const int tmp0e = (z2 + z3) << CONST_BITS;
-  const int tmp1e = (z2 - z3) << CONST_BITS;
+  const int tmp0e = w16(z2 + z3) * (1 << CONST_BITS);
+  const int tmp1e = w16(z2 - z3) * (1 << CONST_BITS);
   const int tmp10 = tmp0e + tmp3e, tmp13 = tmp0e - tmp3e;
   const int tmp11 = tmp1e + tmp2e, tmp12 = tmp1e - tmp2e;
 
   int tmp0 = d[7], tmp1 = d[5], tmp2 = d[3], tmp3 = d[1];
   z1 = tmp0 + tmp3;
   z2 = tmp1 + tmp2;
-  z3 = tmp0 + tmp2;
-  int z4 = tmp1 + tmp3;
+  z3 = w16(tmp0 + tmp2);
+  int z4 = w16(tmp1 + tmp3);
   const int z5 = (z3 + z4) * 9633;
   tmp0 = tmp0 * 2446;
   tmp1 = tmp1 * 16819;
@@ -214,12 +244,25 @@ __device__ __forceinline__ void red4_1d(const int* d, int* o) {
 }
 
 // jpeg_idct_2x2's column or row: o[0..1] before descale (d[2], d[4], d[6]
-// unused)
+// unused; d[0] of a row may pass 16 bits, and its shift 32, which wraps as
+// the SIMD code's pslld)
 __device__ __forceinline__ void red2_1d(const int* d, int* o) {
-  const int tmp10 = d[0] << (CONST_BITS + 2);
+  const int tmp10 =
+      static_cast<int>(static_cast<uint32_t>(d[0]) << (CONST_BITS + 2));
   const int tmp0 = d[7] * -5906 + d[5] * 6967 + d[3] * -10426 + d[1] * 29692;
   o[0] = tmp10 + tmp0;
   o[1] = tmp10 - tmp0;
+}
+
+// whether a block's coefficient rows beside row 0 (rows 1-7, or for the
+// 4x4 rows 1-3 and 5-7) are all zero in every column, where the SIMD code
+// takes its shortcut; asked only where that changes a value (a column
+// whose own rows are zero, with |coef * q| >= 8192)
+__device__ bool flat_block(const int16_t* in, int s) {
+  int any = 0;
+  for (int k = 8; k < 64; ++k)
+    if (s == 8 || (k >> 3) != 4) any |= in[k];
+  return any == 0;
 }
 
 // one block's column pass, column j (dequantised by q, the table's
@@ -227,25 +270,36 @@ __device__ __forceinline__ void red2_1d(const int* d, int* o) {
 __device__ __forceinline__ void column_pass(const int16_t* in,
                                             const int (&q)[8], int s, int j,
                                             int (*ws)[9]) {
-  int d[8], o[8];
+  int d[8], o[8], ac = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) d[k] = in[8 * k + j] * q[k];
+  for (int k = 0; k < 8; ++k) {
+    d[k] = w16(in[8 * k + j] * q[k]);
+    if (k && (s == 8 || k != 4)) ac |= in[8 * k + j];
+  }
+  // the shortcut's 16-bit shift against the full sums' saturation
+  const bool shortcut = ac == 0 && s != 2 && !fits16(d[0] * 4) &&
+                        flat_block(in, s);
   if (s == 8) {
     islow_1d(d, o);
 #pragma unroll
     for (int k = 0; k < 8; ++k)
-      ws[k][j] = descale(o[k], CONST_BITS - PASS1_BITS);
+      ws[k][j] = shortcut ? w16(d[0] * 4)
+                          : s16(descale(o[k], CONST_BITS - PASS1_BITS));
   } else if (s == 4) {
     if (j != 4) {
       red4_1d(d, o);
 #pragma unroll
       for (int k = 0; k < 4; ++k)
-        ws[k][j] = descale(o[k], CONST_BITS - PASS1_BITS + 1);
+        ws[k][j] = shortcut ? w16(d[0] * 4)
+                            : s16(descale(o[k], CONST_BITS - PASS1_BITS + 1));
     }
   } else if (j == 0 || (j & 1)) {
     red2_1d(d, o);
-    ws[0][j] = descale(o[0], CONST_BITS - PASS1_BITS + 2);
-    ws[1][j] = descale(o[1], CONST_BITS - PASS1_BITS + 2);
+    // the 2x2 packs its odd columns to 16 bits, not column 0
+    const int a = descale(o[0], CONST_BITS - PASS1_BITS + 2);
+    const int b = descale(o[1], CONST_BITS - PASS1_BITS + 2);
+    ws[0][j] = j ? s16(a) : a;
+    ws[1][j] = j ? s16(b) : b;
   }
 }
 
@@ -255,18 +309,21 @@ __device__ __forceinline__ void column_pass(const int16_t* in,
 __device__ __forceinline__ void column_pass_edge(const int16_t* in,
                                                  const int (&q)[8], int j,
                                                  bool top, int (*ws)[9]) {
-  int d[8];
+  int d[8], ac = 0;
 #pragma unroll
-  for (int k = 0; k < 8; ++k) d[k] = in[8 * k + j] * q[k];
+  for (int k = 0; k < 8; ++k) {
+    d[k] = w16(in[8 * k + j] * q[k]);
+    if (k) ac |= in[8 * k + j];
+  }
   const int z1 = (d[2] + d[6]) * 4433;
-  const int tmp10 = ((d[0] + d[4]) << CONST_BITS) + z1 + d[2] * 6270;
-  const int z5 = (d[7] + d[3] + d[5] + d[1]) * 9633;
-  const int tmp3 = d[1] * 12299 + (d[7] + d[1]) * -7373 +
-                   (d[5] + d[1]) * -3196 + z5;
-  if (top)
-    ws[0][j] = descale(tmp10 + tmp3, CONST_BITS - PASS1_BITS);
-  else
-    ws[7][j] = descale(tmp10 - tmp3, CONST_BITS - PASS1_BITS);
+  const int tmp10 = w16(d[0] + d[4]) * (1 << CONST_BITS) + z1 + d[2] * 6270;
+  const int z3 = w16(d[7] + d[3]), z4 = w16(d[5] + d[1]);
+  const int tmp3 = d[1] * 12299 + (d[7] + d[1]) * -7373 + z4 * -3196 +
+                   (z3 + z4) * 9633;
+  const int v = s16(descale(top ? tmp10 + tmp3 : tmp10 - tmp3,
+                            CONST_BITS - PASS1_BITS));
+  const bool shortcut = ac == 0 && !fits16(d[0] * 4) && flat_block(in, 8);
+  ws[top ? 0 : 7][j] = shortcut ? w16(d[0] * 4) : v;
 }
 
 // row j of jpeg_idct_islow's pass as a matrix: output j of islow_1d over
@@ -301,8 +358,8 @@ __device__ __forceinline__ void row_pass(const int16_t* in, int q0, int s,
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      lo |= limit(o[k], CONST_BITS + PASS1_BITS + 3) << (8 * k);
-      hi |= limit(o[k + 4], CONST_BITS + PASS1_BITS + 3) << (8 * k);
+      lo |= saturate(o[k], CONST_BITS + PASS1_BITS + 3) << (8 * k);
+      hi |= saturate(o[k + 4], CONST_BITS + PASS1_BITS + 3) << (8 * k);
     }
     *reinterpret_cast<uint2*>(dst) = make_uint2(lo, hi);
   } else if (s == 4) {
@@ -310,12 +367,12 @@ __device__ __forceinline__ void row_pass(const int16_t* in, int q0, int s,
     uint32_t v = 0;
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      v |= limit(o[k], CONST_BITS + PASS1_BITS + 3 + 1) << (8 * k);
+      v |= saturate(o[k], CONST_BITS + PASS1_BITS + 3 + 1) << (8 * k);
     *reinterpret_cast<uint32_t*>(dst) = v;
   } else {
     red2_1d(d, o);
-    const uint32_t v = limit(o[0], CONST_BITS + PASS1_BITS + 3 + 2) |
-                       limit(o[1], CONST_BITS + PASS1_BITS + 3 + 2) << 8;
+    const uint32_t v = saturate(o[0], CONST_BITS + PASS1_BITS + 3 + 2) |
+                       saturate(o[1], CONST_BITS + PASS1_BITS + 3 + 2) << 8;
     *reinterpret_cast<uint16_t*>(dst) = static_cast<uint16_t>(v);
   }
 }
@@ -540,11 +597,22 @@ idct_rgb_kernel(const int16_t* __restrict__ coefs,
       __syncwarp();
       uint8_t* dst = sm + pt.plane + (bj0[c] + col - m0 * pt.h + pt.halo) * s;
       if (live && (above || below)) {  // pixel j of the one row (s = 8)
+        const int* w = ws[below ? 0 : 7];
         int v = 0;
+        if (fits16(w[0] + w[4]) && fits16(w[0] - w[4]) &&
+            fits16(w[7] + w[3]) && fits16(w[5] + w[1])) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) v += arow[k] * ws[below ? 0 : 7][k];
+          for (int k = 0; k < 8; ++k) v += arow[k] * w[k];
+        } else {  // a 16-bit sum wraps: the pass itself
+          int d[8], o[8];
+#pragma unroll
+          for (int k = 0; k < 8; ++k) d[k] = w[k];
+          islow_1d(d, o);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) v = j == k ? o[k] : v;
+        }
         dst[(above ? 0 : pt.v * s + 1) * pt.pitch + j] = static_cast<uint8_t>(
-            limit(v, CONST_BITS + PASS1_BITS + 3));
+            saturate(v, CONST_BITS + PASS1_BITS + 3));
       } else if (live && j < s) {
         row_pass(in, q[0], s, j, ws,
                  dst + ((row - top) * s + j + pt.ctx) * pt.pitch);

@@ -22,12 +22,16 @@ there: fast unless ``CFN_EXACT_DECODE`` is set; :func:`set_fast_decode`)
 decodes a crop's MCUs at the smallest DCT scale num/8 that still covers
 the output; the exact mode, and the fast mode where only 8/8 covers it,
 decode at 8/8 with libjpeg's fancy upsampling, whose pixels inside the
-crop are the full decode's.  ``out_size`` 0 gives the frames whole.  A
-frame whose header the entropy decoder refuses (progressive,
-arithmetic-coded) raises in the fast mode below 8/8, naming it and the way
-to the exact mode; at 8/8 and in the exact mode it takes nvJPEG on the
-card (whose pixels are not libjpeg's) or Pillow on the CPU.  A frame it
-refuses partway (truncated, corrupt) raises in both modes.
+crop are the full decode's.  ``out_size`` 0 gives the frames whole.  The
+port's decoder reads baseline, progressive and arithmetic-coded frames, of
+one scan or many, and frames cut short (grey where the data ends, as
+libjpeg fills them).  The two kinds it leaves to another decoder (an RGB
+colour transform, sampling factors 3 or 4) raise in the fast mode below
+8/8, naming them and the way to the exact mode; at 8/8 and in the exact
+mode they take nvJPEG on the card (whose pixels are not libjpeg's; an RGB
+transform, which nvJPEG reads as YCbCr, raises there) or Pillow on the
+CPU.  A frame the JAX library fails on too raises in both modes, as does
+a progressive frame cut before its last scan, which libjpeg smooths.
 
 :func:`available` is true wherever the port runs.  A CUDA decode whose
 library does not build or load raises; it never turns into Pillow or the

@@ -15,20 +15,23 @@ out, out, 3)``, the function of the JAX package's native path
   16-byte stores; the boxes travel in the launch's parameters,
   ``CROP_BOXES`` at most a launch (:func:`crop_launches`).
 * nvJPEG, the decoder shipped with the CUDA toolkit (no TPU kernel exists
-  for it), behind a thin C wrapper in the same source, for the frames the
-  port's own decoder refuses by their header (progressive,
-  arithmetic-coded): one ``nvjpegDecodeBatched`` call for a clip's RGB
+  for it), behind a thin C wrapper in the same source, for the two kinds of
+  frame the JAX library decodes and the port's own decoder refuses by their
+  header (sampling factors 3 or 4; an RGB colour transform it would read
+  as YCbCr): one ``nvjpegDecodeBatched`` call for a clip's RGB
   frames, into a pitched device buffer the wrapper allocates, which the
   kernel reads through its pitch.  Grey frames decode to one channel,
   which the kernel repeats.  Its pixels are not libjpeg's.
 
 :func:`decode_crop_resize` decodes a list of JPEGs and crops them: every
-frame the port's entropy decoder reads through :mod:`.scaled_decode` (the
-host entropy decoder, then ``idct_rgb_kernel`` on the card, its plain
-version on the CPU) at the JAX library's scale, in both of its modes
-(:func:`fast_decode`), then the crop and resize; the rest by nvJPEG on
-the card, Pillow on the CPU.  The libraries are built at first use (never
-when this module is imported).
+frame the port's entropy decoder reads (baseline, progressive, arithmetic,
+of one scan or many, cut short) through :mod:`.scaled_decode` (the host
+entropy decoder, then ``idct_rgb_kernel`` on the card, its plain version on
+the CPU) at the JAX library's scale, in both of its modes
+(:func:`fast_decode`), then the crop and resize; those two kinds by nvJPEG
+on the card (sampling factors 3 or 4 only: it reads an RGB transform as
+YCbCr), Pillow on the CPU.  The libraries are built at first use
+(never when this module is imported).
 """
 
 from __future__ import annotations
@@ -353,22 +356,30 @@ def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
     gives the frames whole, uint8 ``(N, h, w, 3)`` (one size only), as the
     JAX library's raw decode (``cfn_data.cpp:342-344``).
 
-    Every frame the port's entropy decoder reads (its header's probe is 0)
-    takes the port's own path, on the card and on the CPU alike: the crop's
-    MCUs decoded by :mod:`.scaled_decode` (the host entropy decoder, then
-    ``idct_rgb_kernel`` on the card, its plain version on the CPU), then the
-    crop and resize.  In fast mode (:func:`fast_decode`, the default) at the
-    JAX library's scale num/8 (:func:`.scaled_decode.scale_num`), in the
-    exact mode and for whole frames at 8/8, whose pixels inside the box are
-    libjpeg's full decode's.  ``num_threads`` threads share the entropy
-    decode.  A frame it refuses partway (truncated, a bad code) raises
-    :class:`IOError` naming it.
+    Every frame the port's entropy decoder reads (its header's probe is 0:
+    sequential or progressive, Huffman- or arithmetic-coded, in one scan or
+    many) takes the port's own path, on the card and on the CPU alike: the
+    crop's MCUs decoded by :mod:`.scaled_decode` (the host entropy decoder,
+    then ``idct_rgb_kernel`` on the card, its plain version on the CPU),
+    then the crop and resize.  In fast mode (:func:`fast_decode`, the
+    default) at the JAX library's scale num/8
+    (:func:`.scaled_decode.scale_num`), in the exact mode and for whole
+    frames at 8/8, whose pixels inside the box are libjpeg's full decode's.
+    A frame cut short decodes as libjpeg fills it (grey where its data
+    ends).  ``num_threads`` threads share the entropy decode.  A frame that
+    fails there (a cut progressive frame that libjpeg would smooth, a
+    broken later scan) raises :class:`IOError` naming it and the reason;
+    it never goes on to another decoder.
 
-    A frame whose header it refuses (progressive, arithmetic-coded, not a
-    JPEG: chosen from the header, before any decode) raises the same in
-    fast mode below 8/8, naming ``CFN_EXACT_DECODE=1``; at 8/8 and in the
-    exact mode it takes :func:`_decode_exact`.  :data:`DECODES` counts the
-    frames of each route."""
+    The route is chosen from the header, before any decode.  The two kinds
+    that the JAX library decodes and this decoder leaves to another (an RGB
+    colour transform, sampling factors 3 or 4) raise the same in fast mode
+    below 8/8, naming ``CFN_EXACT_DECODE=1``, and take
+    :func:`_decode_exact` at 8/8 and in the exact mode; on the card an RGB
+    transform raises in both modes (nvJPEG would read it as YCbCr).  A
+    frame whose header the JAX library fails on too (not a JPEG, lossless
+    or hierarchical, 12-bit, 2 or 4 components, a missing table) raises in
+    both modes.  :data:`DECODES` counts the frames of each route."""
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"device {dev}: CPU or CUDA only")
@@ -390,13 +401,20 @@ def decode_crop_resize(blobs: Sequence[bytes], names: Sequence[str],
         num = (scaled_decode.scale_num(box[2], out)
                if fast and out >= 1 and box is not None else 8)
         if p.status != 0:
-            if fast and out >= 1 and (box is None or num < 8):
+            if p.status not in scaled_decode.EXACT_ROUTE:
                 raise scaled_decode.refused(gn, p.status)
+            if dev.type == "cuda" and p.status == scaled_decode.RGB_TRANSFORM:
+                raise scaled_decode.refused(gn, p.status, card=True)
+            if fast and out >= 1 and num < 8:
+                raise scaled_decode.refused(gn, p.status, hint=True)
             exact += idx
             continue
         g = scaled_decode.geometry(p.w, p.h, p.samp, box, out, num)
+        # the JAX library's full decode (the exact mode, whole frames) reads
+        # each frame to its end, its partial decode stops after the window
         win = scaled_decode.decode_windows([blobs[i] for i in idx], gn, p, g,
-                                           dev, num_threads)
+                                           dev, num_threads,
+                                           finish=not fast or out < 1)
         _count(DECODES, "port", len(idx))
         x, y, cw, ch = g.box
         parts.append((idx, win[:, y:y + ch, x:x + cw] if out < 1
@@ -423,12 +441,14 @@ def _assemble(n: int, out: int, dev: torch.device, parts) -> torch.Tensor:
 
 def _decode_exact(blobs, names, out: int, box_of, dev: torch.device
                   ) -> torch.Tensor:
-    """The frames the port's entropy decoder refuses by their header, by
-    the JAX library's exact path's function where another decoder reads
-    them: on a CUDA device nvJPEG and ``crop_resize_kernel`` on the current
-    stream, which is synchronised before the decoder is lent again (its
-    state's device buffers serve the stream's work); on the CPU Pillow's
-    decode to RGB and :func:`crop_resize_plain`.  A frame the decoder
+    """The frames the JAX library decodes and the port's entropy decoder
+    refuses by their header (sampling factors 3 or 4; on the CPU also an
+    RGB colour transform), by the JAX library's exact path's function
+    where another decoder reads them: on a CUDA device nvJPEG and
+    ``crop_resize_kernel`` on the current stream, which is synchronised
+    before the decoder is lent again (its state's device buffers serve the
+    stream's work); on the CPU Pillow's decode to RGB and
+    :func:`crop_resize_plain`.  A frame the decoder
     cannot read raises :class:`IOError` naming it, and a failed build or
     load of a library raises: the card never falls back to Pillow or the
     CPU.  nvJPEG's pixels are not libjpeg's (``chip_smoke.py``'s

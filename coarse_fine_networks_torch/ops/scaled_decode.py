@@ -13,13 +13,17 @@ and on at 8/8), and at num 8 also its exact mode's full decode
   neighbours);
 * the entropy decode (``csrc/jpeg_entropy.cpp``, host C++ written by hand,
   no JPEG library): :func:`probe` reads a frame's head,
-  :func:`entropy_decode` a window's quantised coefficients;
+  :func:`entropy_decode` a window's quantised coefficients, of sequential
+  and progressive frames, Huffman- or arithmetic-coded, in one scan or
+  many, and of broken data as libjpeg-turbo reads it (data that ends
+  early, bad codes, restart markers out of order);
 * ``idct_rgb_kernel`` (``csrc/scaled_idct.cu``; replaces no TPU kernel: its
   counterpart is libjpeg inside the C++): libjpeg-turbo's integer IDCTs at
-  the scaled sizes, its upsampling (repetition, or ``jdsample.c``'s fancy
-  filters at 8/8) and its YCbCr → RGB conversion, bit for bit, in one
-  pass.  :func:`idct_rgb_plain` is the same integer sequence in int32
-  PyTorch ops, step by step (:func:`scaled_idct_plain`,
+  the scaled sizes (as its SIMD code computes them, 16-bit lanes and all:
+  :func:`idct_blocks_plain`), its upsampling (repetition, or
+  ``jdsample.c``'s fancy filters at 8/8) and its YCbCr → RGB conversion,
+  bit for bit, in one pass.  :func:`idct_rgb_plain` is the same integer
+  sequence in int32 PyTorch ops, step by step (:func:`scaled_idct_plain`,
   :func:`fancy_upsample_plain`, :func:`ycc_rgb_plain`).
 
 :func:`decode_windows` runs them for frames of one layout: on a CUDA
@@ -46,7 +50,7 @@ SZ, I64 = ctypes.c_size_t, ctypes.c_int64
 ENTROPY = HostLibrary("jpeg_entropy.cpp", {
     "cfn_jpeg_probe": [P, SZ, P],
     "cfn_entropy_reason": [I, P, I],
-    "cfn_entropy_decode": [P, P, I, P, P, I64, P, P, P, I],
+    "cfn_entropy_decode": [P, P, I, P, P, I64, P, P, P, I, I],
 })
 LIBRARY = CudaLibrary("scaled_idct.cu", {
     "cfn_idct_rgb": [P, P, I, P, P, I64, I, P],
@@ -66,9 +70,21 @@ PLANE_ALIGN = 16
 # nvJPEG frames do, so crop_resize_kernel stages them 16 bytes at a time)
 WINDOW_ALIGN = 128
 
-EXACT_HINT = ("CFN_EXACT_DECODE=1 selects the exact mode, which decodes the "
-              "frames this decoder refuses by their header (progressive, "
-              "arithmetic-coded) with nvJPEG or Pillow")
+# the entropy decoder's statuses (csrc/jpeg_entropy.cpp's Status) of the
+# two kinds of frame that the JAX library's libjpeg decodes and the port
+# leaves to the exact mode's decoders (nvJPEG, Pillow): sampling factors 3
+# or 4, an RGB colour transform.  Every other refusal is of a frame the JAX
+# library fails on too.
+SAMPLING, RGB_TRANSFORM = -8, -14
+EXACT_ROUTE = (SAMPLING, RGB_TRANSFORM)
+EXACT_HINT = ("CFN_EXACT_DECODE=1 selects the exact mode, which decodes "
+              "these frames with nvJPEG or Pillow")
+# nvJPEG reads three components as YCbCr whatever the frame says (255
+# levels at most and 94 on average from Pillow on the RGB-transform
+# fixture: chip_smoke.py's decode phase on an H100), so the card takes no
+# such frame
+CARD_RGB = ("the card's decoder for it, nvJPEG, would read it as YCbCr; "
+            "the CPU decodes it with Pillow")
 
 
 def reset_launches() -> None:
@@ -285,16 +301,21 @@ def reason(status: int) -> str:
     return buf.value.decode()
 
 
-def refused(names: Sequence[str], status: int) -> IOError:
-    """The error of frames the entropy decoder refuses (or cannot read)."""
+def refused(names: Sequence[str], status: int, hint: bool = False,
+            card: bool = False) -> IOError:
+    """The error of frames the entropy decoder refuses (or cannot read),
+    naming them and the reason; ``hint``: where the exact mode would take
+    them, say so; ``card``: an RGB-transform frame on the card."""
     return IOError(f"{len(names)} frames failed to decode, e.g. "
-                   f"{list(names[:3])}: {reason(status)}; the port's decoder "
-                   f"reads whole baseline JPEGs only ({EXACT_HINT})")
+                   f"{list(names[:3])}: {reason(status)}"
+                   + (f" ({EXACT_HINT})" if hint else "")
+                   + (f"; {CARD_RGB}" if card else ""))
 
 
 def probe(blob: bytes) -> Probe:
     """The head of one JPEG (``csrc/jpeg_entropy.cpp``'s markers up to its
-    first scan)."""
+    first scan): status 0 for every frame the entropy decoder takes,
+    whatever its process, coding or scans."""
     info = (ctypes.c_int32 * 9)()
     st = ENTROPY.build().cfn_jpeg_probe(blob, len(blob), info)
     n = info[2] if st == 0 else 0
@@ -304,12 +325,17 @@ def probe(blob: bytes) -> Probe:
 
 def entropy_decode(blobs: Sequence[bytes], names: Sequence[str],
                    p: Probe, g: Geometry, num_threads: int = 1,
-                   pin: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                   pin: bool = False, finish: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The window's quantised coefficients of frames of one layout (each
     frame's head ``p``): int16 ``(n, frame_blocks, 64)`` in natural order
     and each component's quantisation table, int32 ``(n, ncomp, 64)``;
     in pinned host memory where ``pin``.  ``num_threads`` threads share
-    the frames.  A frame that fails raises :class:`IOError` naming it."""
+    the frames.  ``finish``: read each frame on to its end, as the JAX
+    library's full decode does (``jpeg_finish_decompress``), where its
+    partial decode stops after the window.  A frame that fails (a later
+    scan's header, a cut progressive frame that libjpeg would smooth)
+    raises :class:`IOError` naming it and the reason."""
     n, nc = len(blobs), len(p.samp)
     coefs = torch.empty((n, g.frame_blocks, 64), dtype=torch.int16,
                         pin_memory=pin)
@@ -324,7 +350,8 @@ def entropy_decode(blobs: Sequence[bytes], names: Sequence[str],
     status = np.zeros(n, np.int32)
     fails = ENTROPY.build().cfn_entropy_decode(
         datas, lens, n, layout, win, g.frame_blocks, coefs.data_ptr(),
-        qt.data_ptr(), status.ctypes.data, max(1, int(num_threads)))
+        qt.data_ptr(), status.ctypes.data, max(1, int(num_threads)),
+        int(finish))
     if fails:
         bad = np.nonzero(status)[0]
         raise refused([names[i] for i in bad], int(status[bad[0]]))
@@ -353,19 +380,41 @@ def _limit(x: torch.Tensor, n: int) -> torch.Tensor:
     return table[(_descale(x, n) & 1023).long()]
 
 
+def _clamp(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``DESCALE(x, n) + 128`` saturated to [0, 255], as the SIMD IDCTs'
+    packs give it."""
+    return (_descale(x, n) + 128).clamp_(0, 255).to(torch.uint8)
+
+
+def _w16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` wrapped to a 16-bit lane (the SIMD code's ``pmullw``,
+    ``paddw``, ``psubw``, ``psllw``)."""
+    return ((x + 32768) & 65535) - 32768
+
+
+def _s16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` saturated to a 16-bit lane (``packssdw``)."""
+    return x.clamp(-32768, 32767)
+
+
 def _islow_1d(d):
-    """jpeg_idct_islow's even and odd parts on d[0..7] (each a tensor):
-    the 8 outputs before their descale."""
+    """jpeg_idct_islow's even and odd parts on d[0..7] (each a tensor of
+    16-bit values): the 8 outputs before their descale, as libjpeg-turbo's
+    SIMD code sums them (``jidctint-avx2.asm``, ``-sse2.asm``): the
+    products and their sums exact in 32 bits, in the merged constants of
+    its comments, which equal jidctint.c's integer for integer; the four
+    sums it forms in 16-bit lanes (d0 ± d4, d7 + d3, d5 + d1) wrapped."""
     z2, z3 = d[2], d[6]
     z1 = (z2 + z3) * 4433
     tmp2e = z1 + z3 * -15137
     tmp3e = z1 + z2 * 6270
-    tmp0e = (d[0] + d[4]) << CONST_BITS
-    tmp1e = (d[0] - d[4]) << CONST_BITS
+    tmp0e = _w16(d[0] + d[4]) << CONST_BITS
+    tmp1e = _w16(d[0] - d[4]) << CONST_BITS
     tmp10, tmp13 = tmp0e + tmp3e, tmp0e - tmp3e
     tmp11, tmp12 = tmp1e + tmp2e, tmp1e - tmp2e
     tmp0, tmp1, tmp2, tmp3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = tmp0 + tmp3, tmp1 + tmp2, tmp0 + tmp2, tmp1 + tmp3
+    z1, z2 = tmp0 + tmp3, tmp1 + tmp2
+    z3, z4 = _w16(tmp0 + tmp2), _w16(tmp1 + tmp3)
     z5 = (z3 + z4) * 9633
     tmp0, tmp1 = tmp0 * 2446, tmp1 * 16819
     tmp2, tmp3 = tmp2 * 25172, tmp3 * 12299
@@ -407,16 +456,45 @@ _PASSES = {8: (_islow_1d, CONST_BITS - PASS1_BITS,
                CONST_BITS + PASS1_BITS + 3 + 2)}
 
 
-def idct_blocks_plain(deq: torch.Tensor, s: int) -> torch.Tensor:
-    """Dequantised int32 blocks ``(..., 8, 8)`` (row = vertical frequency)
-    → uint8 ``(..., s, s)`` pixels, libjpeg-turbo's IDCT of size ``s``."""
+# the coefficient rows each size reads beside row 0: where all are zero in
+# every column, the SIMD code's first pass takes its shortcut
+_AC_ROWS = {8: (1, 2, 3, 4, 5, 6, 7), 4: (1, 2, 3, 5, 6, 7)}
+
+
+def idct_blocks_plain(coef: torch.Tensor, s: int,
+                      q: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Quantised int32 blocks ``(..., 8, 8)`` (row = vertical frequency)
+    and their table ``q`` (``(..., 64)``, natural order; ``None``: the
+    blocks are dequantised already) → uint8 ``(..., s, s)`` pixels, the IDCT
+    of size ``s`` as libjpeg-turbo 2.1 computes it for the JAX library.  At
+    s = 8, 4 and 2 its SIMD code (x86-64 SSE2 and AVX2: ``jsimd_idct_islow``,
+    ``_4x4``, ``_2x2``): each product ``coef · q`` in a 16-bit lane
+    (``pmullw``), a block whose rows beside row 0 are all zero taking
+    ``(coef · q) << 2`` in 16 bits as its first pass, the first pass's
+    outputs saturated to 16 bits, the last saturated to [0, 255].  At s = 1
+    ``jpeg_idct_1x1`` in C: its table's wrap.  On the values 8-bit blocks
+    give, all of this is jidctint.c's and jidctred.c's arithmetic."""
+    if q is None:
+        deq = coef
+    else:
+        deq = coef * q.view(*q.shape[:-1], 8, 8)
     if s == 1:
         return _limit(deq[..., :1, :1], 3)
+    deq = _w16(deq)
     fn, d1, d2 = _PASSES[s]
     cols = fn([deq[..., k, :] for k in range(8)])       # s × (..., 8)
-    ws = torch.stack([_descale(c, d1) for c in cols], -2)  # (..., s, 8)
+    ws = torch.stack([_descale(c, d1) for c in cols], -2)
+    if s == 2:
+        # jsimd_idct_2x2 keeps column 0's two values in 32 bits and packs
+        # the odd columns' to 16; it has no shortcut
+        ws = torch.cat([ws[..., :1], _s16(ws[..., 1:])], -1)
+    else:
+        ws = _s16(ws)
+        rows = (coef if q is not None else deq)[..., _AC_ROWS[s], :]
+        flat = (rows == 0).all(-1).all(-1)[..., None, None]
+        ws = torch.where(flat, _w16(deq[..., :1, :] << PASS1_BITS), ws)
     rows = fn([ws[..., k] for k in range(8)])           # s × (..., s)
-    return torch.stack([_limit(r, d2) for r in rows], -1)
+    return torch.stack([_clamp(r, d2) for r in rows], -1)
 
 
 def _check_coefs(coefs: torch.Tensor, qt: torch.Tensor, g: Geometry):
@@ -454,9 +532,9 @@ def scaled_idct_plain(coefs: torch.Tensor, qt: torch.Tensor,
                          device=coefs.device)
     for ci, (c, view) in enumerate(zip(g.comps, component_planes(planes, g))):
         blk = coefs[:, c.block_off:c.block_off + c.rows * c.cols]
-        deq = (blk.to(torch.int32) * qt[:, ci:ci + 1]).view(
-            n, c.rows, c.cols, 8, 8)
-        px = idct_blocks_plain(deq, c.s)                 # (n, R, C, s, s)
+        px = idct_blocks_plain(
+            blk.to(torch.int32).view(n, c.rows, c.cols, 8, 8), c.s,
+            qt[:, ci].view(n, 1, 1, 64))                 # (n, R, C, s, s)
         view.copy_(px.permute(0, 1, 3, 2, 4).reshape(
             n, c.rows * c.s, c.cols * c.s))
     return planes
@@ -623,17 +701,18 @@ def idct_rgb(coefs: torch.Tensor, qt: torch.Tensor,
 # ---- one layout's frames -----------------------------------------------------
 
 def decode_windows(blobs: Sequence[bytes], names: Sequence[str], p: Probe,
-                   g: Geometry, device: torch.device,
-                   num_threads: int = 1) -> torch.Tensor:
+                   g: Geometry, device: torch.device, num_threads: int = 1,
+                   finish: bool = False) -> torch.Tensor:
     """Frames of one layout (head ``p``) to their RGB windows (``g``):
     uint8 ``(n, height, width, 3)`` on ``device``.  The entropy decode runs
     on the host; on a CUDA device its coefficients go to the card through
     a pinned buffer on the current stream, and ``idct_rgb_kernel`` runs
-    there."""
+    there.  ``finish`` as :func:`entropy_decode`'s."""
     cuda = device.type == "cuda"
     if cuda:
         LIBRARY.build()
-    coefs, qt = entropy_decode(blobs, names, p, g, num_threads, pin=cuda)
+    coefs, qt = entropy_decode(blobs, names, p, g, num_threads, pin=cuda,
+                               finish=finish)
     _count("calls", DECODES)
     _count("frames", DECODES, len(blobs))
     if cuda:

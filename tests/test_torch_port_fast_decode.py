@@ -7,8 +7,8 @@ libjpeg-turbo), on the CPU.
 Tolerance 0: uint8 frames equal.  4:2:0, 4:4:4 and 4:2:2 RGB and grey
 frames, at a size that is no MCU multiple (61×45) and at 256×192 with
 outputs at which the scale reaches 8, 4, 2 and 1; centre and random crops,
-from files and from a pack; restart markers.  Frames the entropy decoder
-refuses raise naming the frame; the default mode follows
+from files and from a pack; restart markers.  Frames the port refuses raise
+naming the frame; the default mode follows
 ``CFN_EXACT_DECODE``; Pillow's ``draft`` decode, cropped by the same
 rules, agrees for 4:2:0 and 4:4:4 (it keeps fancy upsampling, which 4:2:2
 needs).  The kernel itself is held against its plain version by
@@ -209,32 +209,46 @@ def test_restart_markers(tmp_path, layout, restart):
 
 
 def test_refused_frames_raise(frames, tmp_path):
-    """A progressive frame (which the JAX library decodes) and a broken
-    one raise :class:`IOError` naming the frame and the exact mode; at
-    8/8 the progressive frame takes the exact path, as in the JAX
-    library.  A truncated frame raises too (libjpeg fills it with grey and
-    only warns)."""
+    """The frames the port's decoder once refused now decode as the JAX
+    library's do in its fast mode, below 8/8 and at it: a progressive frame
+    and a frame cut short (libjpeg's grey fill).  What still raises
+    :class:`IOError` naming the frame: a frame the JAX library fails on too
+    (not a JPEG, a 12-bit frame), without the exact mode's hint; and below
+    8/8 an RGB-transform frame (which the JAX library decodes and the port
+    leaves to the exact mode), naming ``CFN_EXACT_DECODE=1``."""
     a = _image(np.random.RandomState(4), 256, 192, "420", "noise")
     prog = _save(a, str(tmp_path / "prog.jpg"), "420", quality=90,
                  progressive=True)
-    broken = str(tmp_path / "broken.jpg")
-    with open(broken, "wb") as f:
-        f.write(b"not a jpeg")
     cut = str(tmp_path / "cut.jpg")
     with open(frames["420", (256, 192)][0], "rb") as f:
         blob = f.read()
     with open(cut, "wb") as f:
         f.write(blob[:len(blob) // 2])
+    for out in (OUT_BY_NUM[4], OUT_BY_NUM[8]):
+        _eq(pnative.decode_batch([prog, cut], out, device="cpu"),
+            jnative.decode_batch([prog, cut], out))
+    broken = str(tmp_path / "broken.jpg")
+    with open(broken, "wb") as f:
+        f.write(b"not a jpeg")
+    deep = bytearray(blob)
+    sof = deep.index(b"\xff\xc0")
+    deep[sof + 4] = 12
+    deep_path = str(tmp_path / "deep.jpg")
+    with open(deep_path, "wb") as f:
+        f.write(bytes(deep))
+    rgb = os.path.join(os.path.dirname(__file__), "torch_port_jpegs",
+                       "rgb_transform_444.jpg")
     good = frames["420", (256, 192)][:1]
-    for bad, why in ((prog, "progressive"), (broken, "not a JPEG"),
-                     (cut, "ends early")):
+    for bad, why, hint in ((broken, "not a JPEG", False),
+                           (deep_path, "not 8 bits", False),
+                           (rgb, "RGB colour transform", True)):
         with pytest.raises(IOError, match=why) as err:
             pnative.decode_batch(good + [bad], 60, device="cpu")
         assert os.path.basename(bad) in str(err.value)
-        assert "CFN_EXACT_DECODE=1" in str(err.value)
-    jnative.decode_batch([prog], 60)  # libjpeg reads it
-    _eq(pnative.decode_batch([prog], OUT_BY_NUM[8], device="cpu"),
-        jnative.decode_batch([prog], OUT_BY_NUM[8]))
+        assert ("CFN_EXACT_DECODE=1" in str(err.value)) == hint
+    jnative.decode_batch([rgb], 60)  # libjpeg reads it
+    _eq(pnative.decode_batch([rgb], OUT_BY_NUM[8], device="cpu"),
+        jnative.decode_batch([rgb], OUT_BY_NUM[8]))
 
 
 @pytest.mark.parametrize("layout", ["420", "444"])

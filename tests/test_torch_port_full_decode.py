@@ -8,17 +8,18 @@ libjpeg-turbo: its exact mode's full decode (``set_fast_decode(False)``),
 its fast mode at 8/8 and its raw frames (``out_size`` 0, one frame a
 call: the C++ copies each raw frame to the buffer's start).  Layouts
 4:2:0, 4:2:2, 4:4:4 and grey from Pillow, 4:4:0 from a small C helper over
-the system's libjpeg (built here by g++ as ``native/`` builds); sizes
+the system's libjpeg (``_torch_port_jpeg_helper.py``, built by g++); sizes
 256×192, 61×45 (no MCU multiple) and frames whose chroma is two samples
 wide, where libjpeg repeats it; crops on each edge, restart markers, noise
-at quality 20 (the IDCT's range-limit wrap).  None of these frames goes
-to Pillow: the port's own path decodes each (``DECODES``).  The kernel
+at quality 20 (the IDCT's range-limit wrap).  None of these frames but
+the routing test's RGB-transform frame goes to Pillow: the port's own path
+decodes each (``DECODES``).  The kernel
 itself is held against ``idct_rgb_plain`` by ``chip_smoke.py``'s
 ``fast_decode`` phase.
 """
 
 import ctypes
-import subprocess
+import io
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ from coarse_fine_networks_torch.data import native as pnative
 from coarse_fine_networks_torch.ops import frame_decode
 from coarse_fine_networks_torch.ops import scaled_decode as sd
 
+import _torch_port_jpeg_helper as jh
 from _torch_port_util import jax_native_library
 from test_torch_port_fast_decode import LAYOUTS, _image, _save
 
@@ -47,58 +49,11 @@ SIZES = [(256, 192), (61, 45)]
 CROPS = [(100, 0.7, 0.0, 0.0), (100, 0.7, 1.0, 1.0), (100, 0.55, 1.0, 0.0),
          (100, 0.55, 0.0, 1.0), (100, 0.9, 0.4, 0.7)]
 
-# libjpeg's compressor with the luma's sampling factors set (the chroma's
-# 1 × 1): 4:4:0 is h 1, v 2, which Pillow cannot write
-_HELPER = r"""
-#include <stdio.h>
-#include <jpeglib.h>
-extern "C" int write_jpeg(const unsigned char* rgb, int w, int h,
-                          int quality, int h0, int v0, int restart,
-                          const char* path) {
-  FILE* f = fopen(path, "wb");
-  if (!f) return 1;
-  jpeg_compress_struct c;
-  jpeg_error_mgr e;
-  c.err = jpeg_std_error(&e);
-  jpeg_create_compress(&c);
-  jpeg_stdio_dest(&c, f);
-  c.image_width = w;
-  c.image_height = h;
-  c.input_components = 3;
-  c.in_color_space = JCS_RGB;
-  jpeg_set_defaults(&c);
-  jpeg_set_quality(&c, quality, TRUE);
-  c.comp_info[0].h_samp_factor = h0;
-  c.comp_info[0].v_samp_factor = v0;
-  for (int i = 1; i < 3; ++i)
-    c.comp_info[i].h_samp_factor = c.comp_info[i].v_samp_factor = 1;
-  c.restart_interval = restart;
-  jpeg_start_compress(&c, TRUE);
-  while (c.next_scanline < c.image_height) {
-    JSAMPROW row = (JSAMPROW)(rgb + (size_t)c.next_scanline * w * 3);
-    jpeg_write_scanlines(&c, &row, 1);
-  }
-  jpeg_finish_compress(&c);
-  jpeg_destroy_compress(&c);
-  fclose(f);
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def helper(tmp_path_factory):
-    root = tmp_path_factory.mktemp("helper")
-    (root / "helper.cpp").write_text(_HELPER)
-    so = root / "libhelper.so"
-    proc = subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-o", str(so),
-                           str(root / "helper.cpp"), "-ljpeg"],
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr[-2000:]
-    lib = ctypes.CDLL(str(so))
-    lib.write_jpeg.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [
-        ctypes.c_char_p]
-    return lib
+    """libjpeg's compressor with the luma's sampling factors set: 4:4:0 is
+    h 1, v 2, which Pillow cannot write."""
+    return jh.build(tmp_path_factory.mktemp("helper"))
 
 
 def _write(helper, a, path, layout, quality=90, restart=0):
@@ -107,10 +62,7 @@ def _write(helper, a, path, layout, quality=90, restart=0):
     if layout != "440":
         kw = {"restart_marker_blocks": restart} if restart else {}
         return _save(a, path, layout, quality=quality, **kw)
-    a = np.ascontiguousarray(a)
-    assert helper.write_jpeg(a.ctypes.data, a.shape[1], a.shape[0], quality,
-                             1, 2, restart, path.encode()) == 0
-    return path
+    return jh.write(helper, a, path, quality, samp=(1, 2), restart=restart)
 
 
 @pytest.fixture(scope="module")
@@ -414,36 +366,53 @@ def test_geometry_at_full_scale():
 
 
 def test_truncated_frames_raise_in_both_modes(frames, tmp_path):
-    """A frame whose entropy-coded data ends early raises naming it in both
-    modes and raw, where the JAX library's libjpeg warns and fills the
-    rest with grey (its frame comes back)."""
+    """A frame whose entropy-coded data ends early decodes as the JAX
+    library's libjpeg fills it (it warns, decodes the MCU where the bits
+    run out on zero bits and leaves the rest grey), in both modes and raw.
+    What still raises naming the frame, in both modes and raw: a
+    progressive frame cut before its last scan, whose blocks libjpeg
+    smooths (its frame comes back)."""
     with open(frames["420", (256, 192)][0], "rb") as f:
         blob = f.read()
     cut = str(tmp_path / "cut.jpg")
     with open(cut, "wb") as f:
         f.write(blob[:len(blob) // 2])
     good = frames["420", (256, 192)][1:2]
-    for fast in (False, True):
-        _modes(fast)
-        for out in (150, 0):
-            with pytest.raises(IOError, match="ends early") as err:
-                pnative.decode_batch(good + [cut], out, device="cpu")
-            assert "cut.jpg" in str(err.value)
-        jax = jnative.decode_batch([cut], 150)
-        assert jax.shape == (1, 150, 150, 3)
-        assert (jax[0, -20:] == 128).all()  # libjpeg's grey fill
-    assert _jax_raw([cut]).shape == (1, 192, 256, 3)
-
-
-def test_routes_are_chosen_from_the_header(frames, tmp_path, monkeypatch):
-    """A progressive frame (refused by its header) takes the exact path's
-    decoder (Pillow on the CPU) in the exact mode and at 8/8, and never
-    reaches the entropy decoder; the other frames of the clip take the
-    port's path.  ``DECODES`` counts each route's frames."""
     a = _image(np.random.RandomState(9), 256, 192, "rgb", "noise")
     prog = _save(a, str(tmp_path / "prog.jpg"), "420", quality=90,
                  progressive=True)
-    paths = frames["420", (256, 192)] + [prog]
+    with open(prog, "rb") as f:
+        pblob = f.read()
+    cut_prog = str(tmp_path / "cut_prog.jpg")
+    with open(cut_prog, "wb") as f:
+        f.write(pblob[:len(pblob) // 2])
+    for fast in (False, True):
+        _modes(fast)
+        jax = jnative.decode_batch(good + [cut], 150)
+        _eq(pnative.decode_batch(good + [cut], 150, device="cpu"), jax)
+        assert (jax[1, -20:] == 128).all()  # libjpeg's grey fill
+        for out in (150, 0):
+            with pytest.raises(IOError, match="smooths") as err:
+                pnative.decode_batch(good + [cut_prog], out, device="cpu")
+            assert "cut_prog.jpg" in str(err.value)
+        assert jnative.decode_batch([cut_prog], 150).shape == (1, 150, 150,
+                                                               3)
+    _eq(pnative.decode_batch([cut], 0, device="cpu"), _jax_raw([cut]))
+
+
+def test_routes_are_chosen_from_the_header(frames, tmp_path, monkeypatch):
+    """A progressive frame takes the port's own path with the baseline
+    ones, in the exact mode, at 8/8 and raw.  An RGB-transform frame (which
+    the JAX library decodes and the port's decoder refuses by its header)
+    takes the exact path's decoder (Pillow on the CPU) and never reaches
+    the entropy decoder; a frame the JAX library fails on (a lossless one)
+    raises in both modes before any decoder.  ``DECODES`` counts each
+    route's frames."""
+    a = _image(np.random.RandomState(9), 256, 192, "rgb", "noise")
+    prog = _save(a, str(tmp_path / "prog.jpg"), "420", quality=90,
+                 progressive=True)
+    rgb = _write_rgb(a, str(tmp_path / "rgb.jpg"))
+    paths = frames["420", (256, 192)] + [prog, rgb]
     seen = []
     decode = sd.entropy_decode
 
@@ -459,11 +428,46 @@ def test_routes_are_chosen_from_the_header(frames, tmp_path, monkeypatch):
             _eq(got, jnative.decode_batch(paths, out))
         else:
             _eq(got, _jax_raw(paths))
-        assert dec == {"port": 3, "nvjpeg": 0, "pillow": 1,
+        assert dec == {"port": 4, "nvjpeg": 0, "pillow": 1,
                        "nvjpeg_calls": 0}
-    assert prog not in seen and len(seen) == 9
+    assert rgb not in seen and prog in seen and len(seen) == 12
     _modes(True)
-    with pytest.raises(IOError, match="progressive") as err:
+    with pytest.raises(IOError, match="RGB colour transform") as err:
         pnative.decode_batch(paths, 60, device="cpu")
-    assert "prog.jpg" in str(err.value) and "CFN_EXACT_DECODE=1" in str(
+    assert "rgb.jpg" in str(err.value) and "CFN_EXACT_DECODE=1" in str(
         err.value)
+    with open(prog, "rb") as f:
+        blob = bytearray(f.read())
+    blob[blob.index(b"\xff\xc2") + 1] = 0xC3  # lossless: libjpeg refuses
+    lossless = str(tmp_path / "lossless.jpg")
+    with open(lossless, "wb") as f:
+        f.write(bytes(blob))
+    for fast in (False, True):
+        _modes(fast)
+        with pytest.raises(Exception):
+            jnative.decode_batch([lossless], 60)
+        frame_decode.reset_launches()
+        with pytest.raises(IOError, match="lossless") as err:
+            pnative.decode_batch(paths[:1] + [lossless], 60, device="cpu")
+        assert "lossless.jpg" in str(err.value)
+        assert "CFN_EXACT_DECODE" not in str(err.value)
+        assert frame_decode.DECODES["pillow"] == 0
+
+
+def _write_rgb(a, path):
+    """Frame ``a`` as a JPEG without a colour transform: Pillow's 4:4:4
+    frame with its JFIF segment dropped and its components named R, G and
+    B, which libjpeg then reads as RGB (as the port does)."""
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, "JPEG", quality=90, subsampling=0)
+    blob = bytearray(buf.getvalue())
+    app0 = blob.index(b"\xff\xe0")
+    del blob[app0:app0 + 2 + (blob[app0 + 2] << 8 | blob[app0 + 3])]
+    sof = blob.index(b"\xff\xc0")
+    sos = blob.index(b"\xff\xda")
+    for k, name in enumerate(b"RGB"):
+        blob[sof + 10 + 3 * k] = name
+        blob[sos + 5 + 2 * k] = name
+    with open(path, "wb") as f:
+        f.write(bytes(blob))
+    return path
